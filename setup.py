@@ -18,7 +18,12 @@ setup(
     packages=find_packages(include=["distributed_ml_pytorch_tpu*"]),
     # ship the native transport source so installs can build it on demand
     # (native/__init__.py ensure_built compiles with the local g++)
-    package_data={"distributed_ml_pytorch_tpu.native": ["transport.cpp", "Makefile"]},
+    package_data={
+        "distributed_ml_pytorch_tpu.native": ["transport.cpp", "Makefile"],
+        # the PyTorch port's CUDA kernels, built with nvcc at first use
+        # (distributed_ml_pytorch_tpu_torch/ops/_build.py)
+        "distributed_ml_pytorch_tpu_torch": ["csrc/*.cu"],
+    },
     python_requires=">=3.10",
     install_requires=[
         "jax",

@@ -195,6 +195,13 @@ def pytest_configure(config):
         "mid-training gray drill acceptance is additionally measured "
         "into slow_tests.txt",
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (the PyTorch port's kernels); each test "
+        "decides inside a fixture whether a card is present and skips "
+        "without one — run them on the card with `python -m pytest "
+        "--noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py`",
+    )
 
 
 # Modules whose tests launch real subprocess worlds (interpreter start + jit
