@@ -1,5 +1,6 @@
 """The single-process trainer and evaluator (counterpart of the JAX
-``training/trainer.py``, per-step path).
+``training/trainer.py``, per-step path), with the LM's :class:`TrainState`
+and sequence-chunked loss (:func:`chunked_lm_loss`).
 
 One step is zero-grad → forward → cross-entropy → backward → SGD update,
 eagerly on the model's device. :class:`SGD` has optax ``sgd`` semantics
@@ -16,12 +17,14 @@ otherwise run float32 convolutions in TF32, unlike the JAX reference.
 from __future__ import annotations
 
 import time
-from typing import Callable, List, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from distributed_ml_pytorch_tpu_torch.data import get_dataset, iterate_batches
 from distributed_ml_pytorch_tpu_torch.device import full_float32, resolve_device
@@ -53,6 +56,16 @@ class SGD:
         return [g * (-self.lr) for g in grads]
 
 
+@dataclass
+class TrainState:
+    """A model (its parameters, updated in place by the step), the
+    optimizer's state and the step count."""
+
+    model: nn.Module
+    opt_state: List[torch.Tensor]
+    step: int = 0
+
+
 def tx_from_args(args) -> SGD:
     """The local optimizer from the CLI surface (``--lr``, ``--momentum``)."""
     return SGD(args.lr, getattr(args, "momentum", 0.0))
@@ -61,6 +74,40 @@ def tx_from_args(args) -> SGD:
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean softmax cross-entropy (reference ``F.cross_entropy``)."""
     return F.cross_entropy(logits, labels.long())
+
+
+def chunked_lm_loss(model: nn.Module, tokens: torch.Tensor, targets: torch.Tensor,
+                    chunk: int = 2048, ce_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Masked-mean next-token CE without materializing the (batch, seq,
+    vocab) logits: the model body once (``model.hidden``), then per
+    ``chunk``-token slice the ``lm_head`` product and CE in the activation
+    dtype under ``torch.utils.checkpoint`` (the backward recomputes each
+    chunk's logits). The final position is masked, as in
+    ``parallel/fsdp.lm_loss_builder``; ``seq`` must divide by ``chunk``.
+    ``ce_dtype`` casts each chunk's logits before the CE (``None`` keeps the
+    activation dtype)."""
+    b, s = tokens.shape
+    if s % chunk:
+        raise ValueError(f"seq {s} must divide by chunk {chunk}")
+    h = model.hidden(tokens)
+    w = model.lm_head.weight  # (vocab, d): flax's kernel transposed
+    mask = torch.ones((b, s), dtype=torch.float32, device=h.device)
+    mask[:, -1] = 0.0
+
+    def chunk_ce(w_, h_c, t_c, m_c):
+        b_, c_, d_ = h_c.shape
+        logits = F.linear(h_c.reshape(b_ * c_, d_), w_.to(h_c.dtype))
+        if ce_dtype is not None:
+            logits = logits.to(ce_dtype)
+        ce = F.cross_entropy(logits, t_c.reshape(-1).long(), reduction="none")
+        return torch.sum(ce * m_c.reshape(-1))
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(s // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        total = total + checkpoint(chunk_ce, w, h[:, sl], targets[:, sl], mask[:, sl],
+                                   use_reentrant=False)
+    return total / mask.sum()
 
 
 def to_device(bx: np.ndarray, by: np.ndarray, device) -> Tuple[torch.Tensor, torch.Tensor]:
