@@ -33,7 +33,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
    zeroed just before and read just after (K4 and K5 12 per step, K6 none);
    the loss must fall and every parameter stay finite; then one step from
    the trained weights with the default (fused) backward and one with
-   ``bwd_impl="split"`` injected, which must agree.
+   ``bwd_impl="split"`` injected, which must agree;
+7. the decode-attention kernel (K8) against its reference on the same
+   inputs: b32 h12 d64 T16 at C 128, 256 and 383 with per-row t (0, 5, 15)
+   and ring_base, through strided live-prefix views, at C 8192, with
+   bfloat16 and int8 caches, and float32 at a small shape, within the stated
+   bounds; timed cold (input sets in turn, twice the L2) beside the
+   reference, ``F.scaled_dot_product_attention`` over a pre-concatenated K/V,
+   and the byte bound;
+8. ``generate()`` on GPT-2-small (vocab 50304, d 768, 12 heads, 12 layers,
+   d_ff 3072, bfloat16, learned positions, max_len 384) at batch 32, prompt
+   128, 256 new tokens, greedy, the blocked path — once with the bfloat16
+   cache and once with ``kv_quant``: tokens/s, ms per decode step, the byte
+   roofline share, peak memory, one profiled decode step; K8 launched 12
+   times per padded step and the reference never; the first two blocks
+   teacher-forced through K8 and through the reference must agree;
+9. the serving engine at the same width through the in-process frontend (8
+   slots, cache 512, decode block 16, prefill bucket 16): 16 requests,
+   prompts of 16-128 tokens, 32-128 new tokens, odd ones sampled (0.8, top-k
+   40, top-p 0.95); every stream complete and in vocabulary; TTFT/TPOT
+   percentiles, occupancy and K8 launches.
 
 Then the ``kernels`` line, the ``nvidia-smi`` name/power line, and last the
 result line ``{"ok": true, "device": {...}}``. Without a card, or without
@@ -42,6 +61,7 @@ the package beside this file, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import subprocess
@@ -54,6 +74,7 @@ sys.path.insert(0, ROOT)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA's data sheet
 BF16_FLOPS = 989.4e12      # H100 SXM dense bf16 tensor cores, NVIDIA's data sheet
+L2_BYTES = 50 * 2**20      # H100 L2 cache
 ALEXNET_PADDED = 2_472_320
 POOL_SHAPES = [(64, 8, 8, 64), (64, 4, 4, 192), (64, 2, 2, 256)]
 WORKER_STEPS = 80
@@ -82,6 +103,30 @@ LM_LR = 0.5
 #: split kernels in a fixed one, and bfloat16 roundings downstream of dQ
 #: (dq cast, then every earlier layer's backward) can land one step apart
 SPLIT_UPDATE_TOL = 1e-2
+#: K8 against its reference, |kernel - reference| <= atol + rtol * scale with
+#: scale = ``decode_error_scale`` (P·|V| over the three parts, P·scale_v·|V8|
+#: under int8). float32: the JAX test's tolerance. bfloat16 and int8: the
+#: bound of ATTN_TOL — the reference rounds each weight p (times scale_v) to
+#: bfloat16 before its P·V products and the kernel does not (at most u =
+#: 2^-8 of each term), and each rounds its output: 4u = 2^-6 in all.
+DECODE_TOL = {"float32": (2e-6, 2e-5), "bfloat16": (1e-6, 2.0 ** -6)}
+DECODE_MAIN = (32, 12, 64, 16)  # b, h, head_dim, ring slots at GPT-2-small decode
+GPT2_DECODE = dict(vocab_size=50304, d_model=768, n_heads=12, n_layers=12, d_ff=3072)
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 32, 128, 256
+#: teacher-forced logits, K8 against the reference on the same tokens: the
+#: relative L2 distance of the logits. Each attention output may move by 2^-6
+#: of its absolute product (DECODE_TOL) at every layer; bfloat16 logits
+#: themselves are rounded at 2^-8. Allowed: 2^-5 over the 32 steps.
+TEACHER_TOL = 2.0 ** -5
+#: kernel-name substrings grouping one decode step's device time
+DECODE_GROUPS = {
+    "K8 decode_attention": ["decode_attention_kernel"],
+    "matmul": ["gemm", "Gemm", "nvjet", "xmma", "cutlass"],
+    "layer_norm": ["layer_norm", "LayerNorm"],
+    "index/scatter": ["index", "scatter", "gather"],
+}
+SERVE_REQUESTS = 16
+
 #: kernel-name substrings grouping one LM step's device time (first match wins)
 PROFILE_GROUPS = {
     "K4 flash_fwd": ["flash_fwd_kernel"],
@@ -143,6 +188,7 @@ def phase_device_and_build(torch):
     _build.load("fused_update")
     _build.load("fused_conv")
     _build.load("attention")
+    _build.load("decode_attention")
     build_s = time.monotonic() - t0
     ptxas = [ln.strip() for ln in _build.build_logs().splitlines()
              if "registers" in ln or "spill" in ln]
@@ -608,6 +654,328 @@ def phase_lm(torch, steps=LM_STEPS):
     return launches, split_launches
 
 
+# ------------------------------------------------------------------ phase 7
+
+def _decode_case(torch, g, b, h, C, T, d, dtype, quant, t, ring_base, pad=0):
+    """K8's inputs on the card; the big cache is a live-prefix view of a
+    ``C + pad`` allocation."""
+    from distributed_ml_pytorch_tpu_torch.models.transformer import quantize_kv
+
+    mk = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    q, kn, vn = (mk(b, h, 1, d).to(dtype) for _ in range(3))
+    rk, rv = (mk(b, h, T, d).to(dtype) for _ in range(2))
+    bk, bv = mk(b, h, C + pad, d), mk(b, h, C + pad, d)
+    sk = sv = None
+    if quant:
+        (bk, sk), (bv, sv) = quantize_kv(bk), quantize_kv(bv)
+        sk, sv = sk[:, :, :C], sv[:, :, :C]
+    else:
+        bk, bv = bk.to(dtype), bv.to(dtype)
+    tt = torch.as_tensor(t, dtype=torch.int32, device="cuda")
+    rb = torch.as_tensor(ring_base, dtype=torch.int32, device="cuda")
+    return (q, kn, vn, bk[:, :, :C], bv[:, :, :C], rk, rv, tt, rb, sk, sv)
+
+
+def _decode_bytes(args):
+    """Bytes K8 must move for these inputs: q, k_new, v_new and out, the
+    live keys of K and V (and their scales), the filled ring slots."""
+    q, kn, vn, bk, bv, rk, rv, t, rb, sk, _sv = args
+    b, h, _, d = q.shape
+    live = int(rb.clamp(0, bk.shape[2]).expand(b).sum())
+    fill = int(t.clamp(0, rk.shape[2]).expand(b).sum())
+    per_key = 2 * d * bk.element_size() + (8 if sk is not None else 0)
+    return (4 * b * h * d * q.element_size() + h * live * per_key
+            + h * fill * 2 * d * rk.element_size())
+
+
+def phase_decode_attention(torch):
+    import torch.nn.functional as F
+
+    from distributed_ml_pytorch_tpu_torch.ops import decode_attention as da
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    b, h, d, T = DECODE_MAIN
+    cases = []
+    for name, quant in (("bfloat16", False), ("int8", True)):
+        for C in (128, 256, 383):
+            for t in (0, 5, 15):
+                rb = torch.randint(0, C + 1, (b,), generator=g, device="cuda")
+                cases.append((f"{name} C={C} t={t} per-row ring_base",
+                              (b, h, C, T, d, torch.bfloat16, quant, t, rb, 16)))
+        cases.append((f"{name} C=8192", (b, h, 8192, T, d, torch.bfloat16, quant, 7,
+                                         8192, 0)))
+    for quant in (False, True):
+        cases.append((f"float32 small quant={quant}",
+                      (2, 2, 40, T, 64, torch.float32, quant, [0, 9], [40, 17], 8)))
+    results, misses, worst = {}, [], 0.0
+    for label, (cb, ch, C, cT, cd, dtype, quant, t, rb, pad) in cases:
+        args = _decode_case(torch, g, cb, ch, C, cT, cd, dtype, quant, t, rb, pad)
+        got = da.decode_attention_cuda(*args)
+        want = da.decode_attention_reference(*args)
+        scale = da.decode_error_scale(*args)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(got.float()).all()), f"K8 not finite: {label}")
+        tol = DECODE_TOL["float32" if dtype == torch.float32 else "bfloat16"]
+        mx, rel, ok = _err(torch, got, want, scale, tol)
+        results[label] = {"max_abs_err": mx, "max_err_over_scale": rel}
+        worst = max(worst, mx)
+        if not ok:
+            misses.append(f"{label}: max abs {mx}, max err / scale {rel}, (atol, rtol) {tol}")
+    require(not misses, "K8 != reference: " + "; ".join(misses))
+
+    # timed at the decode shape: 256 live keys of a 384-row allocation, 8
+    # ring slots filled, every row alike; cold, as in the decode step (each
+    # layer reads its own cache): input sets in turn, at least twice the 50 MB
+    # L2 in all
+    timed = {}
+    for name, quant in (("bfloat16", False), ("int8", True)):
+        first = _decode_case(torch, g, b, h, 256, T, d, torch.bfloat16, quant, 8, 256, 128)
+        n_sets = -(-2 * L2_BYTES // _decode_bytes(first))
+        sets = [first] + [_decode_case(torch, g, b, h, 256, T, d, torch.bfloat16, quant, 8,
+                                       256, 128) for _ in range(n_sets - 1)]
+        turn = [0]
+
+        def cold(fn):
+            def call():
+                turn[0] += 1
+                return fn(*sets[turn[0] % len(sets)])
+            return call
+
+        entry = {"ms": device_ms(torch, cold(da.decode_attention_cuda), 200),
+                 "plain_ms": device_ms(torch, cold(da.decode_attention_reference), 50),
+                 "bound_ms": bound_ms(_decode_bytes(sets[0])), "bound_by": "bytes",
+                 "bytes": _decode_bytes(sets[0]), "library_ms": None}
+        if not quant:
+            # SDPA over K/V concatenated beforehand (the concat is not timed)
+            sets[:] = [(a[0], torch.cat([a[3], a[5][:, :, :8], a[1]], dim=2),
+                        torch.cat([a[4], a[6][:, :, :8], a[2]], dim=2)) for a in sets]
+            entry["library_ms"] = device_ms(torch, cold(F.scaled_dot_product_attention), 200)
+        entry["input_sets"] = n_sets
+        timed[name] = entry
+    emit({"phase": "decode_attention_vs_plain", "ok": True, "tolerance": DECODE_TOL,
+          "cases": results, "timed_shape": {"b": b, "h": h, "d": d, "T": T, "live": 256,
+                                            "alloc": 384, "t": 8},
+          "timed": timed})
+    return {"decode_attention": {"max_abs_err": worst, **timed["bfloat16"]}}
+
+
+# ------------------------------------------------------------------ phase 8
+
+class _ReferenceCalls:
+    """Counts calls of K8's reference while installed (on the card the
+    model's decode step must never reach it)."""
+
+    def __init__(self, da):
+        self.da, self.n, self.real = da, 0, da.decode_attention_reference
+
+    def __enter__(self):
+        def counted(*a, **k):
+            self.n += 1
+            return self.real(*a, **k)
+        self.da.decode_attention_reference = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.da.decode_attention_reference = self.real
+
+
+def _teacher_forced_logits(torch, dec, prompt, feed, n_blocks):
+    """Logits of ``n_blocks`` decode blocks that feed the given tokens
+    (``feed[:, i]`` at step i), through the blocked decode's own cache
+    handling."""
+    gen = importlib.import_module("distributed_ml_pytorch_tpu_torch.models.generate")
+    b, p = prompt.shape
+    T = dec.decode_block
+    cache = gen.init_cache(dec, b, dec.cache_size, T, dec.kv_quant)
+    _logits, cache = dec(prompt, torch.arange(p, device="cuda")[None, :], cache=cache)
+    big, small = gen.split_cache(cache)
+    out = []
+    for blk in range(n_blocks):
+        live = p + blk * T
+        view = gen._tree_slice_big(big, live)
+        small = gen.reset_ring_state(small, live)
+        for t in range(T):
+            step = blk * T + t
+            logits, cache = dec(feed[:, step:step + 1],
+                                torch.full((b, 1), p + step, device="cuda"),
+                                cache=gen.join_cache(view, small))
+            _, small = gen.split_cache(cache)
+            out.append(logits[:, -1].float())
+        big = gen.merge_ring_caches(big, small, live)
+    return torch.stack(out, dim=1)
+
+
+def _decode_step_fn(torch, dec, prompt, live):
+    """One single-token decode step of the blocked path at ``live`` cached
+    rows (for the profiler)."""
+    gen = importlib.import_module("distributed_ml_pytorch_tpu_torch.models.generate")
+    b, p = prompt.shape
+    cache = gen.init_cache(dec, b, dec.cache_size, dec.decode_block, dec.kv_quant)
+    _logits, cache = dec(prompt, torch.arange(p, device="cuda")[None, :], cache=cache)
+    big, small = gen.split_cache(cache)
+    small = gen.reset_ring_state(small, live)
+    view = gen._tree_slice_big(big, live)
+    tok = prompt[:, -1:]
+    pos = torch.full((b, 1), live, device="cuda")
+
+    def step():
+        with torch.no_grad():
+            return dec(tok, pos, cache=gen.join_cache(view, small))
+    return step
+
+
+def phase_generate(torch):
+    from distributed_ml_pytorch_tpu_torch.models import TransformerLM
+    from distributed_ml_pytorch_tpu_torch.models.generate import (
+        DECODE_BLOCK,
+        _decode_model,
+        generate,
+    )
+    from distributed_ml_pytorch_tpu_torch.models.transformer import Dense
+    from distributed_ml_pytorch_tpu_torch.models import transformer as tr
+    from distributed_ml_pytorch_tpu_torch.ops import decode_attention as da
+    from distributed_ml_pytorch_tpu_torch.utils.devprof import kernel_breakdown
+
+    model = TransformerLM(**GPT2_DECODE, max_len=GEN_PROMPT + GEN_NEW, dtype=torch.bfloat16,
+                          pos_encoding="learned", seed=0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(8)
+    prompt = torch.randint(0, GPT2_DECODE["vocab_size"], (GEN_BATCH, GEN_PROMPT), generator=g,
+                           device="cuda")
+    L, H = GPT2_DECODE["n_layers"], GPT2_DECODE["n_heads"]
+    hd = GPT2_DECODE["d_model"] // H
+    n_pad = -(-(GEN_NEW - 1) // DECODE_BLOCK) * DECODE_BLOCK
+    weight_bytes = 2 * sum(m.weight.numel() for m in model.modules() if isinstance(m, Dense))
+    runs = {}
+    for name, quant in (("bfloat16", False), ("int8", True)):
+
+        def timed(new):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = generate(model, prompt, new, kv_quant=quant)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        timed(DECODE_BLOCK + 1)  # warm-up: cuBLAS handles and algorithms
+        _o, t_short = timed(DECODE_BLOCK + 1)
+        torch.cuda.reset_peak_memory_stats()
+        da.launches = 0
+        with _ReferenceCalls(da) as ref:
+            out, wall = timed(GEN_NEW)
+        launches = da.launches
+        step_s = (wall - t_short) / (n_pad - DECODE_BLOCK)
+        # bytes a decode step must read: the bf16 weights of every product,
+        # plus the average live K/V (and scales) over the padded steps
+        avg_live = GEN_PROMPT + (n_pad - 1) / 2
+        per_key = 2 * hd * (1 if quant else 2) + (8 if quant else 0)
+        kv_bytes = L * GEN_BATCH * H * avg_live * per_key
+        step_bytes = weight_bytes + kv_bytes
+        res = {"wall_s": wall, "tokens_per_s": GEN_BATCH * GEN_NEW / wall,
+               "decode_step_ms": step_s * 1e3, "step_bytes": step_bytes,
+               "weight_bytes": weight_bytes, "kv_bytes_avg": kv_bytes,
+               "byte_roofline_share": step_bytes / HBM_BYTES_PER_S / step_s,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "k8_launches": launches, "reference_calls": ref.n,
+               "short_run_s": t_short}
+        require(out.shape == (GEN_BATCH, GEN_PROMPT + GEN_NEW), f"generate shape {out.shape}")
+        require(bool(((out >= 0) & (out < GPT2_DECODE["vocab_size"])).all()),
+                "generated tokens out of vocabulary")
+        require(launches == L * n_pad, f"K8 launched {launches} times, want {L * n_pad}")
+        require(ref.n == 0, f"the reference ran {ref.n} times on the card's decode path")
+
+        # one decode step at the mean live length, profiled
+        dec = _decode_model(model, GEN_PROMPT + n_pad, DECODE_BLOCK, quant)
+        step = _decode_step_fn(torch, dec, prompt, GEN_PROMPT + n_pad // 2)
+        step()
+        res["profile"] = kernel_breakdown(step, DECODE_GROUPS)
+
+        # teacher forcing: the first two blocks through K8 and through the
+        # reference on the same tokens
+        feed = out[:, GEN_PROMPT:GEN_PROMPT + 2 * DECODE_BLOCK]
+        with torch.no_grad():
+            lk = _teacher_forced_logits(torch, dec, prompt, feed, 2)
+            tr.decode_attention_step = da.decode_attention_reference
+            try:
+                lr = _teacher_forced_logits(torch, dec, prompt, feed, 2)
+            finally:
+                tr.decode_attention_step = da.decode_attention_step
+        rel = float((lk - lr).norm() / lr.norm())
+        agree = int((lk.argmax(-1) == lr.argmax(-1)).sum())
+        res["teacher_forced"] = {"steps": 2 * DECODE_BLOCK, "rel_l2": rel,
+                                 "max_abs": float((lk - lr).abs().max()),
+                                 "greedy_agree": agree, "of": int(lk.shape[0] * lk.shape[1]),
+                                 "bound_rel_l2": TEACHER_TOL}
+        require(rel <= TEACHER_TOL,
+                f"{name}: teacher-forced logits differ by {rel} (relative L2) > {TEACHER_TOL}")
+        runs[name] = res
+        del dec, step
+    emit({"phase": "generate_gpt2_small", "config": GPT2_DECODE, "batch": GEN_BATCH,
+          "prompt": GEN_PROMPT, "new_tokens": GEN_NEW, "padded_steps": n_pad, **runs})
+    return runs["bfloat16"]["k8_launches"]
+
+
+# ------------------------------------------------------------------ phase 9
+
+def phase_serving(torch):
+    import numpy as np
+
+    from distributed_ml_pytorch_tpu_torch.models import TransformerLM
+    from distributed_ml_pytorch_tpu_torch.ops import decode_attention as da
+    from distributed_ml_pytorch_tpu_torch.serving.engine import ServingEngine
+    from distributed_ml_pytorch_tpu_torch.serving.frontend import (
+        ServingClient,
+        ServingFrontend,
+    )
+    from distributed_ml_pytorch_tpu_torch.utils.messaging import InProcessTransport
+
+    vocab = GPT2_DECODE["vocab_size"]
+    model = TransformerLM(**GPT2_DECODE, max_len=512, dtype=torch.bfloat16,
+                          pos_encoding="learned", seed=1, device="cuda")
+    engine = ServingEngine(model, slots=8, cache_size=512, decode_block=16,
+                           prefill_bucket=16, max_queue=64)
+    warm = engine.submit(np.arange(16), 17)  # cuBLAS handles, the first prefill
+    engine.run_until_idle()
+    require(warm.done, "warm-up request did not finish")
+    engine.reset_metrics()
+    rng = np.random.default_rng(9)
+    reqs = []
+    for i in range(SERVE_REQUESTS):
+        prompt = rng.integers(0, vocab, size=int(rng.integers(16, 129)))
+        new = int(rng.integers(32, 129))
+        kw = dict(temperature=0.8, top_k=40, top_p=0.95, seed=i) if i % 2 else {}
+        reqs.append((prompt, new, kw))
+    world = InProcessTransport.create_world(2)
+    frontend = ServingFrontend(engine, world[0])
+    client = ServingClient(world[1])
+    server = threading.Thread(target=frontend.serve_forever, daemon=True)
+    da.launches = 0
+    try:
+        with _ReferenceCalls(da) as ref:
+            server.start()
+            t0 = time.perf_counter()
+            rids = [(client.submit(p, n, **kw), n) for p, n, kw in reqs]
+            streams = [(n, list(client.stream(rid, timeout=300.0))) for rid, n in rids]
+            wall = time.perf_counter() - t0
+    finally:
+        frontend.stop()
+        server.join(timeout=10)
+        for t in world.values():
+            t.close()
+    launches = da.launches
+    summary = engine.slo_summary()
+    n_tokens = sum(len(s) for _, s in streams)
+    emit({"phase": "serving_engine", "requests": SERVE_REQUESTS, "slots": 8,
+          "cache_size": 512, "decode_block": 16, "prefill_bucket": 16, "wall_s": wall,
+          "tokens": n_tokens, "tokens_per_s": n_tokens / wall, "k8_launches": launches,
+          "reference_calls": ref.n, "slo": summary})
+    require(not server.is_alive(), "the serving loop did not stop")
+    for i, (n, toks) in enumerate(streams):
+        require(len(toks) == n and all(0 <= t < vocab for t in toks),
+                f"request {i}: stream of {len(toks)} tokens (want {n}) or out of vocabulary")
+    require(summary["completed"] == SERVE_REQUESTS, f"completed {summary['completed']}")
+    require(launches > 0 and ref.n == 0, f"K8 launches {launches}, reference calls {ref.n}")
+    return launches
+
+
 # ------------------------------------------------------------------ main
 
 ATTN_SRC = "distributed_ml_pytorch_tpu_torch/csrc/attention.cu"
@@ -622,6 +990,8 @@ KERNEL_ROWS = [
     ("flash_bwd_fused", ATTN_SRC, "distributed_ml_pytorch_tpu/ops/attention.py:563"),
     ("flash_bwd_dq", ATTN_SRC, "distributed_ml_pytorch_tpu/ops/attention.py:592"),
     ("flash_bwd_dkv", ATTN_SRC, "distributed_ml_pytorch_tpu/ops/attention.py:605"),
+    ("decode_attention", "distributed_ml_pytorch_tpu_torch/csrc/decode_attention.cu",
+     "distributed_ml_pytorch_tpu/ops/decode_attention.py:128"),
 ]
 
 
@@ -651,6 +1021,9 @@ def main() -> int:
         # that runs them
         launches.update({k: lm_launches[k] for k in ("flash_fwd", "flash_bwd_fused")})
         launches.update({k: split_launches[k] for k in ("flash_bwd_dq", "flash_bwd_dkv")})
+        measured.update(phase_decode_attention(torch))
+        launches["decode_attention"] = phase_generate(torch)
+        phase_serving(torch)
         smi = nvidia_smi_line()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -18,10 +18,16 @@ map by name: ``tok_embed/embedding``, ``pos_embed/embedding``,
 (or ``attn/qkv`` under ``fused_qkv``), ``block_i/Dense_{0,1}/{kernel,bias}``,
 ``LayerNorm_0/{scale,bias}`` and ``lm_head/kernel``. Dense kernels transpose
 from ``(in, out)`` to ``(out, in)``; embeddings and LayerNorm parameters are
-unchanged.
+unchanged. A ``fused_qkv`` model also takes a tree in the unfused layout: its
+``attn/{q,k,v}`` kernels are concatenated on the output axis first, as the
+JAX decode path's ``_fuse_qkv_params`` does.
 
-``params_to_jax`` is the inverse. Neither imports JAX; the tree is plain
-numpy.
+``params_to_jax`` is the inverse. ``cache_from_jax`` / ``cache_to_jax`` carry
+a decode cache (the flax ``"cache"`` collection as nested dicts of numpy)
+to and from the port's cache dict, leaf for leaf under the same names;
+bfloat16 leaves travel as their bits (read by dtype name through
+``.view(np.uint16)``, returned as ``np.uint16``). None of these imports JAX
+or ``ml_dtypes``; the trees are plain numpy.
 """
 
 from __future__ import annotations
@@ -124,8 +130,25 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...
     return flat
 
 
+def _fuse_qkv_tree(flat: Dict[Tuple[str, ...], np.ndarray]) -> Dict:
+    """Unfused ``…/attn/{q,k,v}/kernel`` leaves as one ``…/attn/qkv/kernel``
+    (concatenated on the output axis)."""
+    out = {}
+    for path, val in flat.items():
+        if len(path) >= 3 and path[-3] == "attn" and path[-2] in ("q", "k", "v"):
+            if path[-2] == "q":
+                out[path[:-2] + ("qkv", "kernel")] = np.concatenate(
+                    [np.asarray(flat[path[:-2] + (n, "kernel")]) for n in ("q", "k", "v")],
+                    axis=-1)
+        else:
+            out[path] = val
+    return out
+
+
 def _lm_from_jax(tree: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
     flat = _flatten(tree)
+    if model.fused_qkv and any(p[-3:] == ("attn", "q", "kernel") for p in flat):
+        flat = _fuse_qkv_tree(flat)
     leaves = _lm_leaves(model)
     want = {path for path, _, _ in leaves}
     extra, missing = set(flat) - want, want - set(flat)
@@ -156,3 +179,34 @@ def _lm_to_jax(model: nn.Module) -> Dict:
             node = node.setdefault(key, {})
         node[path[-1]] = (t.t() if transpose else t).contiguous().numpy().copy()
     return tree
+
+
+# ------------------------------------------------------------------ decode cache
+
+def _leaf_from_numpy(arr, device) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(arr).view(np.uint16).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+def cache_from_jax(tree: Mapping, device="cpu") -> Dict:
+    """The port's decode cache holding the flax cache ``tree`` (nested dicts
+    of numpy arrays), leaf for leaf, on ``device``."""
+    return {name: (cache_from_jax(val, device) if isinstance(val, Mapping)
+                   else _leaf_from_numpy(val, device)) for name, val in tree.items()}
+
+
+def cache_to_jax(cache: Mapping) -> Dict:
+    """The port's decode cache as nested dicts of numpy; bfloat16 leaves as
+    their ``np.uint16`` bits (``.view(jnp.bfloat16)`` restores them)."""
+    out = {}
+    for name, val in cache.items():
+        if isinstance(val, Mapping):
+            out[name] = cache_to_jax(val)
+        elif val.dtype == torch.bfloat16:
+            out[name] = val.detach().cpu().view(torch.int16).numpy().view(np.uint16).copy()
+        else:
+            out[name] = val.detach().cpu().numpy().copy()
+    return out

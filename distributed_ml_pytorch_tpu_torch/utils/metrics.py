@@ -1,5 +1,7 @@
-"""Per-iteration training records and per-rank CSV dumps (counterpart of the
-JAX ``utils/metrics.py`` ``MetricsLogger`` / ``print_eval_line``).
+"""Per-iteration training records and per-rank CSV dumps, and the serving
+SLO percentiles (counterpart of the JAX ``utils/metrics.py``
+``MetricsLogger`` / ``print_eval_line`` / ``percentile`` /
+``latency_summary``).
 
 The CSV schema is the reference's (``example/main.py:76-105``):
 ``index, timestamp, iteration, training_loss`` on every row, plus
@@ -13,7 +15,32 @@ from __future__ import annotations
 import csv
 import os
 from datetime import datetime
-from typing import Dict, List
+from typing import Dict, List, Optional
+
+import numpy as np
+
+
+def percentile(values, q: float) -> float:
+    """Linear-interpolation percentile of a 1-D sample (``q`` in [0, 100]);
+    an empty sample or an out-of-range ``q`` raises instead of giving NaN."""
+    arr = np.asarray(list(values), np.float64)
+    if arr.size == 0:
+        raise ValueError("percentile() of an empty sample")
+    if not 0.0 <= q <= 100.0:
+        raise ValueError(f"percentile q must be in [0, 100], got {q}")
+    return float(np.percentile(arr, q))
+
+
+def latency_summary(values, percentiles=(50, 90, 99)) -> Optional[Dict]:
+    """``count``/``mean``/``max`` and the given percentiles (``p50`` …) of a
+    latency sample; ``None`` for an empty sample."""
+    arr = np.asarray(list(values), np.float64)
+    if arr.size == 0:
+        return None
+    out = {"count": int(arr.size), "mean": float(arr.mean()), "max": float(arr.max())}
+    for q in percentiles:
+        out[f"p{q:g}"] = percentile(arr, q)
+    return out
 
 
 class MetricsLogger:

@@ -302,3 +302,122 @@ def test_kernel_breakdown_sees_the_card(cuda):
                            {"K4": ["flash_fwd_kernel"]})
     assert res["group_ms"]["K4"] > 0 and res["busy_ms"] <= res["wall_ms"]
     assert 0.0 <= res["idle_share"] < 1.0
+
+
+# ------------------------------------------------------------------ decode attention (K8)
+
+#: K8 against its reference on the same inputs, |kernel - reference| <= atol
+#: + rtol * scale, the scale being ``decode_error_scale`` (P·|V| over the
+#: three parts, P·scale_v·|V8| for an int8 cache). float32: the same sums in
+#: other orders. bfloat16 (u = 2^-8): the reference rounds p (times scale_v)
+#: to bfloat16 before its P·V products, at most u of each term, and each side
+#: rounds its output: within 4u = 2^-6 of the absolute product.
+DECODE_TOL = {torch.float32: dict(atol=2e-6, rtol=2e-5),
+              torch.bfloat16: dict(atol=1e-6, rtol=2.0 ** -6)}
+
+
+def _decode_inputs(cuda, b, h, C, T, d, dtype, quant, seed, t, ring_base, pad=0):
+    """K8's inputs from numpy; the big cache is a live-prefix view of a
+    ``C + pad`` allocation when ``pad`` > 0."""
+    from distributed_ml_pytorch_tpu_torch.models.transformer import quantize_kv
+
+    rng = np.random.default_rng(seed)
+    mk = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda)
+    q, kn, vn = (mk(b, h, 1, d).to(dtype) for _ in range(3))
+    rk, rv = (mk(b, h, T, d).to(dtype) for _ in range(2))
+    bk, bv = mk(b, h, C + pad, d), mk(b, h, C + pad, d)
+    sk = sv = None
+    if quant:
+        (bk, sk), (bv, sv) = quantize_kv(bk), quantize_kv(bv)
+        sk, sv = sk[:, :, :C], sv[:, :, :C]
+    else:
+        bk, bv = bk.to(dtype), bv.to(dtype)
+    bk, bv = bk[:, :, :C], bv[:, :, :C]
+    tt = torch.as_tensor(t, dtype=torch.int32, device=cuda)
+    rb = torch.as_tensor(ring_base, dtype=torch.int32, device=cuda)
+    return q, kn, vn, bk, bv, rk, rv, tt, rb, sk, sv
+
+
+def _decode_check(args, dtype):
+    from distributed_ml_pytorch_tpu_torch.ops import decode_attention as da
+
+    before = da.launches
+    got = da.decode_attention_step(*args)
+    want = da.decode_attention_reference(*args)
+    scale = da.decode_error_scale(*args)
+    torch.cuda.synchronize()
+    assert da.launches == before + 1
+    assert got.dtype == dtype and bool(torch.isfinite(got.float()).all())
+    tol = DECODE_TOL[dtype]
+    err = (got.float() - want.float()).abs()
+    bad = err > tol["atol"] + tol["rtol"] * scale
+    assert not bool(bad.any()), (float(err.max()), float((err / scale.clamp_min(1e-30)).max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("dtype,quant", [(torch.float32, False), (torch.bfloat16, False),
+                                         (torch.bfloat16, True), (torch.float32, True)])
+@pytest.mark.parametrize("C", [1, 40, 383, 8192])
+def test_decode_attention_kernel_matches_reference(cuda, d, dtype, quant, C):
+    b, h, T = 3, 4, 16
+    # per-row fill counts and live lengths: empty ring, partial, full; the
+    # live prefix short, whole, and past C
+    t = [0, 5, 16]
+    ring_base = [0, C // 2, C + 7]
+    args = _decode_inputs(cuda, b, h, C, T, d, dtype, quant, seed=d + C, t=t,
+                          ring_base=ring_base, pad=9)
+    _decode_check(args, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_attention_kernel_scalar_state_and_strided_q(cuda, quant):
+    from distributed_ml_pytorch_tpu_torch.ops import decode_attention as da
+
+    b, h, C, T, d = 4, 12, 256, 16, 64
+    args = list(_decode_inputs(cuda, b, h, C, T, d, torch.bfloat16, quant, seed=3,
+                               t=7, ring_base=200))
+    # q / k_new / v_new as the model passes them: head-strided views of a
+    # (b, 1, 3 * h * d) projection
+    qkv = torch.randn(b, 1, 3 * h * d, device=cuda).to(torch.bfloat16)
+    args[:3] = [qkv[..., i * h * d:(i + 1) * h * d].reshape(b, 1, h, d).transpose(1, 2)
+                for i in range(3)]
+    _decode_check(tuple(args), torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        da.decode_attention_step(*(x[..., :16] if x is not None and x.dim() == 4 else x
+                                   for x in args))
+
+
+@pytest.mark.gpu
+def test_generate_and_engine_on_the_card_launch_k8(cuda):
+    from distributed_ml_pytorch_tpu_torch.models.generate import generate
+    from distributed_ml_pytorch_tpu_torch.models.transformer import TransformerLM
+    from distributed_ml_pytorch_tpu_torch.ops import decode_attention as da
+    from distributed_ml_pytorch_tpu_torch.serving.engine import ServingEngine
+
+    calls = []
+    real = da.decode_attention_reference
+    da.decode_attention_reference = lambda *a, **k: calls.append(1) or real(*a, **k)
+    try:
+        model = TransformerLM(vocab_size=128, d_model=64, n_heads=2, n_layers=2, d_ff=128,
+                              max_len=256, dtype=torch.bfloat16, device=cuda)
+        prompt = torch.from_numpy(np.random.default_rng(0).integers(0, 128, size=(2, 6)))
+        before = da.launches
+        out = generate(model, prompt, 2 * 16 + 1)
+        torch.cuda.synchronize()
+        assert out.shape == (2, 6 + 33) and int(out.max()) < 128
+        assert da.launches - before == 2 * 2 * 16  # layers x padded steps
+        q = generate(model, prompt, 2 * 16 + 1, kv_quant=True)
+        assert q.shape == out.shape and int(q.max()) < 128 and int(q.min()) >= 0
+        engine = ServingEngine(model, slots=2, cache_size=96, decode_block=8,
+                               prefill_bucket=8)
+        before = da.launches
+        reqs = [engine.submit(prompt[i].numpy(), 20, temperature=0.8 * i, top_k=5, seed=i)
+                for i in range(2)]
+        engine.run_until_idle()
+        assert all(r.done and len(r.tokens) == 20 for r in reqs)
+        assert da.launches - before == 2 * 8 * 3  # layers x block steps x blocks
+        assert not calls
+    finally:
+        da.decode_attention_reference = real

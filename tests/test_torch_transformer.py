@@ -328,5 +328,13 @@ def test_train_lm_rejects_unported_or_bad_flags(argv, capsys):
 
 
 def test_decode_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TransformerLM(**CFG, decode=True, cache_size=16, device="cpu")
+    # the decode branch is ported now (tests/test_torch_generate.py holds it
+    # against the JAX model); what stays refused is decoding without a cache,
+    # and an int8 cache without the blocked path
+    model = TransformerLM(**CFG, decode=True, cache_size=16, device="cpu")
+    with pytest.raises(ValueError, match="needs a cache"):
+        model(torch.zeros((1, 2), dtype=torch.long))
+    quant = TransformerLM(**CFG, decode=True, cache_size=16, kv_quant=True, device="cpu")
+    with pytest.raises(ValueError, match="decode_block"):
+        quant(torch.zeros((1, 2), dtype=torch.long), cache={f"block_{i}": {"attn": {}}
+                                                              for i in range(2)})
