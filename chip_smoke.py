@@ -52,7 +52,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
    slots, cache 512, decode block 16, prefill bucket 16): 16 requests,
    prompts of 16-128 tokens, 32-128 new tokens, odd ones sampled (0.8, top-k
    40, top-p 0.95); every stream complete and in vocabulary; TTFT/TPOT
-   percentiles, occupancy and K8 launches.
+   percentiles, occupancy and K8 launches;
+10. the conv-epilogue ladder: the bias+relu kernels (K3a forward, K3b
+   backward) bit-identical to their plain versions, with and without bias,
+   at (4096, 384), at AlexNet's NHWC tail (256, 4, 4, 384), at an odd C
+   (1000, 37) and in bfloat16; timed cold beside the plain versions, one
+   library call and the byte bound; then ``bench_all.compute_microbench_phase`` (fused
+   against unfused ``relu_pool2`` and ``bias_relu`` at batch 256), the K3
+   launch counts zeroed just before and read just after;
+11. the fused head update (K7) against ``head_update_plain`` on the same
+   inputs at GPT-2-small b8 x 2048 (bf16 h2 and logits from a real h2 @ W
+   product, float32 lse, random labels, gscale = mask / sum(mask)) and at a
+   ragged N 1000, D 64, V 677 (float32, bfloat16) and V 680 (bfloat16), from
+   W = 0 and from W, within ``HEAD_TOL``; timed beside the plain version
+   (the default formulation), the product alone and the FLOP bound, with
+   peak memory;
+12. the restructured-head GPT-2-small step: ``bench_all.lm_phase`` (config
+   6's three legs: tokens/s and MFU), then one step each of
+   ``make_fused_head_sgd_step`` with ``use_kernel`` False and True and of the
+   AD step ``make_fsdp_lm_train_step`` from the same weights: K7 once per
+   ``use_kernel=True`` step and never otherwise, K4 and K5 12 times each;
+   equal losses between the two fused steps and updates within
+   ``FUSED_HEAD_UPDATE_TOL``; the AD step within ``AD_LOSS_TOL`` and
+   ``AD_UPDATE_TOL``; step ms and peak memory of the three, and one
+   profiled ``use_kernel=True`` step.
 
 Then the ``kernels`` line, the ``nvidia-smi`` name/power line, and last the
 result line ``{"ok": true, "device": {...}}``. Without a card, or without
@@ -127,10 +150,40 @@ DECODE_GROUPS = {
 }
 SERVE_REQUESTS = 16
 
+#: K3 at the ladder's bias+relu tail and the other shapes it is held at
+BIAS_RELU_SHAPES = [(4096, 384), (256, 4, 4, 384), (1000, 37)]
+#: K7 against head_update_plain on the update, |kernel - plain| <= 2^-23 |W|
+#: + atol + rtol * lr * (|dl|^T |h|) elementwise. 2^-23 |W| is each side's
+#: one float32 rounding of W - lr dW. bfloat16 (u = 2^-8): each side rounds
+#: each dl term to bfloat16, and where the two exponentials differ in their
+#: last bits the roundings can land one step apart, 2u = 2^-7 of the term;
+#: the products are exact in float32 and their sums differ by order, at most
+#: (N - 1) 2^-24 of the absolute product (2^-10 at N = 16384): 2^-7 + 2^-10.
+#: float32: that summation bound alone, 2^-14 at N = 1000, held at 2^-12.
+#: atol 1e-9 is float32 noise for updates that cancel to near zero.
+HEAD_TOL = {"bfloat16": (1e-9, 2.0 ** -7 + 2.0 ** -10), "float32": (1e-9, 2.0 ** -12)}
+HEAD_LR = 0.5
+GPT2_HEAD = (8 * 2048, 768, 50304)  # N, D, V at GPT-2-small b8 x 2048
+#: relative L2 distance allowed between the parameter updates of the fused
+#: head step with K7 and without: the body's gradients differ only by K5's
+#: run-dependent f32 dQ atomics (as SPLIT_UPDATE_TOL), the head's by the
+#: order of its float32 sums
+FUSED_HEAD_UPDATE_TOL = SPLIT_UPDATE_TOL
+#: the AD step against the fused one (bf16): the AD loss rounds each row's CE,
+#: the masked sum and the quotient to bfloat16 (u = 2^-8 each, 3u) and divides
+#: by sum(mask) = 16376 rounded to 16384 in bfloat16 (2^-11); the fused loss
+#: is float32 throughout
+AD_LOSS_TOL = 3 * 2.0 ** -8 + 2.0 ** -11
+#: their updates: the AD step rounds the lm_head gradient and its dlogits to
+#: bfloat16 where the fused step keeps float32, scales every gradient by the
+#: same 16376/16384, and K5's atomics differ from run to run (1e-2)
+AD_UPDATE_TOL = 2.0 ** -5
+
 #: kernel-name substrings grouping one LM step's device time (first match wins)
 PROFILE_GROUPS = {
     "K4 flash_fwd": ["flash_fwd_kernel"],
     "K5 flash_bwd_fused": ["flash_bwd_kv_kernel"],
+    "K7 fused_head": ["head_update"],
     "matmul": ["gemm", "Gemm", "nvjet", "xmma", "cutlass"],
     "softmax_ce": ["softmax", "nll_loss", "cross_entropy"],
     "layer_norm": ["layer_norm", "LayerNorm"],
@@ -157,21 +210,14 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_ms(torch, fn, iters: int = 200) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back launches: the
-    launches are queued behind a busy wait so host overhead does not show."""
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+def device_ms(fn, iters: int = 200) -> float:
+    """Mean device time of ``fn()`` over ``iters`` back-to-back calls after 5
+    warm-up calls, by ``utils.devtime.device_time`` (CUDA events, the calls
+    queued behind a busy wait so host overhead does not show). ``fn`` returns
+    a tensor on the card."""
+    from distributed_ml_pytorch_tpu_torch.utils.devtime import device_time
+
+    return device_time(fn, calls=iters, warmup=5).per_call_ms
 
 
 def bound_ms(nbytes: float) -> float:
@@ -189,6 +235,8 @@ def phase_device_and_build(torch):
     _build.load("fused_conv")
     _build.load("attention")
     _build.load("decode_attention")
+    _build.load("bias_relu")
+    _build.load("fused_head")
     build_s = time.monotonic() - t0
     ptxas = [ln.strip() for ln in _build.build_logs().splitlines()
              if "registers" in ln or "spill" in ln]
@@ -231,17 +279,17 @@ def phase_kernels(torch):
         def call():
             yb, xb = pairs[turn[0] % len(pairs)]
             turn[0] += 1
-            fn(yb, xb)
+            return fn(yb, xb)
         return call
 
     ybuf = y0.clone()
     out["flat_axpy"] = {
         "max_abs_err": err,
-        "ms": device_ms(torch, cold(lambda yb, xb: fu.flat_axpy_cuda(yb, xb, 1.0))),
-        "plain_ms": device_ms(torch, cold(lambda yb, xb: fu.flat_axpy_plain(yb, xb, 1.0))),
-        "library_ms": device_ms(torch, cold(lambda yb, xb: yb.add_(xb, alpha=1.0))),
-        "warm_ms": device_ms(torch, lambda: fu.flat_axpy_cuda(ybuf, x, 1.0)),
-        "warm_library_ms": device_ms(torch, lambda: ybuf.add_(x, alpha=1.0)),
+        "ms": device_ms(cold(lambda yb, xb: fu.flat_axpy_cuda(yb, xb, 1.0))),
+        "plain_ms": device_ms(cold(lambda yb, xb: fu.flat_axpy_plain(yb, xb, 1.0))),
+        "library_ms": device_ms(cold(lambda yb, xb: yb.add_(xb, alpha=1.0))),
+        "warm_ms": device_ms(lambda: fu.flat_axpy_cuda(ybuf, x, 1.0)),
+        "warm_library_ms": device_ms(lambda: ybuf.add_(x, alpha=1.0)),
         "bound_ms": bound_ms(3 * 4 * n),
         "note": f"n={n}: {3 * 4 * n} B; ms/plain_ms/library_ms cold (L2 flushed "
                 f"by rotation), warm_* with the operands L2-resident",
@@ -273,14 +321,14 @@ def phase_kernels(torch):
                 bwd["max_abs_err"] = max(bwd["max_abs_err"], float((dk - dp).abs().max()))
         m = fc.relu_pool2_fwd_cuda(xr)
         x_cl = xr.permute(0, 3, 1, 2)  # NCHW shape, channels_last memory
-        t_fwd = device_ms(torch, lambda: fc.relu_pool2_fwd_cuda(xr))
-        t_bwd = device_ms(torch, lambda: fc.relu_pool2_bwd_cuda(xr, None, m, gr))
+        t_fwd = device_ms(lambda: fc.relu_pool2_fwd_cuda(xr))
+        t_bwd = device_ms(lambda: fc.relu_pool2_bwd_cuda(xr, None, m, gr))
         row = {
             "shape": list(shape),
             "fwd_ms": t_fwd, "bwd_ms": t_bwd,
-            "fwd_plain_ms": device_ms(torch, lambda: fc.relu_pool2_fwd_plain(xr)),
-            "bwd_plain_ms": device_ms(torch, lambda: fc.relu_pool2_bwd_plain(xr, None, m, gr)),
-            "fwd_library_ms": device_ms(torch, lambda: F.max_pool2d(F.relu(x_cl), 2)),
+            "fwd_plain_ms": device_ms(lambda: fc.relu_pool2_fwd_plain(xr)),
+            "bwd_plain_ms": device_ms(lambda: fc.relu_pool2_bwd_plain(xr, None, m, gr)),
+            "fwd_library_ms": device_ms(lambda: F.max_pool2d(F.relu(x_cl), 2)),
             "fwd_bound_ms": bound_ms(4 * (xr.numel() + m.numel())),
             "bwd_bound_ms": bound_ms(4 * (2 * xr.numel() + 2 * m.numel())),
         }
@@ -536,14 +584,14 @@ def phase_attention(torch):
 
     def sdpa_fwd_bwd():
         o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-        torch.autograd.grad(o, (qg, kg, vg), do4)
+        return torch.autograd.grad(o, (qg, kg, vg), do4)
 
     sdpa = {
-        "fwd": device_ms(torch, lambda: F.scaled_dot_product_attention(
+        "fwd": device_ms(lambda: F.scaled_dot_product_attention(
             q4, k4, v4, is_causal=True), iters),
-        "bwd": device_ms(torch, lambda: torch.autograd.grad(
+        "bwd": device_ms(lambda: torch.autograd.grad(
             sdpa_out, (qg, kg, vg), do4, retain_graph=True), iters),
-        "fwd_bwd": device_ms(torch, sdpa_fwd_bwd, iters),
+        "fwd_bwd": device_ms(sdpa_fwd_bwd, iters),
     }
     out = {}
     for kern in timed:
@@ -551,8 +599,8 @@ def phase_attention(torch):
         byte_ms = bound_ms(_attn_bytes(ATTN_MAIN, 2, kern))
         out[kern] = {
             "max_abs_err": max(e[0] for c in cases.values() for e in c[kern].values()),
-            "ms": device_ms(torch, timed[kern], iters),
-            "plain_ms": device_ms(torch, plain[kern], 3),
+            "ms": device_ms(timed[kern], iters),
+            "plain_ms": device_ms(plain[kern], 3),
             "bound_ms": max(flop_ms, byte_ms),
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
             "library_ms": {"flash_fwd": sdpa["fwd"], "flash_bwd_fused": sdpa["bwd"]}.get(kern),
@@ -741,15 +789,15 @@ def phase_decode_attention(torch):
                 return fn(*sets[turn[0] % len(sets)])
             return call
 
-        entry = {"ms": device_ms(torch, cold(da.decode_attention_cuda), 200),
-                 "plain_ms": device_ms(torch, cold(da.decode_attention_reference), 50),
+        entry = {"ms": device_ms(cold(da.decode_attention_cuda), 200),
+                 "plain_ms": device_ms(cold(da.decode_attention_reference), 50),
                  "bound_ms": bound_ms(_decode_bytes(sets[0])), "bound_by": "bytes",
                  "bytes": _decode_bytes(sets[0]), "library_ms": None}
         if not quant:
             # SDPA over K/V concatenated beforehand (the concat is not timed)
             sets[:] = [(a[0], torch.cat([a[3], a[5][:, :, :8], a[1]], dim=2),
                         torch.cat([a[4], a[6][:, :, :8], a[2]], dim=2)) for a in sets]
-            entry["library_ms"] = device_ms(torch, cold(F.scaled_dot_product_attention), 200)
+            entry["library_ms"] = device_ms(cold(F.scaled_dot_product_attention), 200)
         entry["input_sets"] = n_sets
         timed[name] = entry
     emit({"phase": "decode_attention_vs_plain", "ok": True, "tolerance": DECODE_TOL,
@@ -976,6 +1024,294 @@ def phase_serving(torch):
     return launches
 
 
+# ------------------------------------------------------------------ phase 10
+
+def phase_conv_epilogue(torch):
+    import torch.nn.functional as F
+
+    from distributed_ml_pytorch_tpu_torch import bench_all
+    from distributed_ml_pytorch_tpu_torch.ops import fused_conv as fc
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+    cases = [(shape, torch.float32) for shape in BIAS_RELU_SHAPES]
+    cases.append((BIAS_RELU_SHAPES[0], torch.bfloat16))
+    checked = []
+    errs = {"bias_relu_fwd": 0.0, "bias_relu_bwd": 0.0}
+    for shape, dtype in cases:
+        x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        b = torch.randn(shape[-1], generator=g, device="cuda").to(dtype)
+        ct = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        x[0, ..., 0] = -b[0]  # z = 0 exactly: relu and its gradient give 0
+        for bias in (None, b):
+            yk = fc.bias_relu_fwd_cuda(x, bias)
+            dk = fc.bias_relu_bwd_cuda(x, bias, ct)
+            yp = fc.bias_relu_fwd_plain(x, bias)
+            dp = fc.bias_relu_bwd_plain(x, bias, ct)
+            torch.cuda.synchronize()
+            what = f"{shape} {dtype} bias={bias is not None}"
+            require(torch.equal(yk, yp), f"bias_relu fwd kernel != plain at {what}")
+            require(torch.equal(dk, dp), f"bias_relu bwd kernel != plain at {what}")
+            errs["bias_relu_fwd"] = max(errs["bias_relu_fwd"], float((yk - yp).abs().max()))
+            errs["bias_relu_bwd"] = max(errs["bias_relu_bwd"], float((dk - dp).abs().max()))
+            checked.append(what)
+
+    # timed at the ladder's tail, float32 with bias, cold: input sets in
+    # turn, their x alone at least twice the 50 MB L2, so each call reads its
+    # inputs from device memory as the byte bound assumes; warm_ms times one
+    # set that stays in L2, as right after the producing conv
+    rows, c = BIAS_RELU_SHAPES[0]
+    n = rows * c
+    n_sets = -(-2 * L2_BYTES // (4 * n))
+    b = torch.randn(c, generator=g, device="cuda")
+    sets = [(torch.randn((rows, c), generator=g, device="cuda"),
+             torch.randn((rows, c), generator=g, device="cuda")) for _ in range(n_sets)]
+    turn = [0]
+
+    def cold(fn):
+        def call():
+            turn[0] += 1
+            return fn(*sets[turn[0] % n_sets])
+        return call
+
+    x, ct = sets[0]
+    measured = {
+        "bias_relu_fwd": {
+            "max_abs_err": errs["bias_relu_fwd"],
+            "ms": device_ms(cold(lambda xs, _: fc.bias_relu_fwd_cuda(xs, b))),
+            "plain_ms": device_ms(cold(lambda xs, _: fc.bias_relu_fwd_plain(xs, b))),
+            "library_ms": device_ms(cold(lambda xs, _: F.relu(xs))),
+            "warm_ms": device_ms(lambda: fc.bias_relu_fwd_cuda(x, b)),
+            "bound_ms": bound_ms(4 * (2 * n + c)), "bound_by": "bytes"},
+        "bias_relu_bwd": {
+            "max_abs_err": errs["bias_relu_bwd"],
+            "ms": device_ms(cold(lambda xs, cs: fc.bias_relu_bwd_cuda(xs, b, cs))),
+            "plain_ms": device_ms(cold(lambda xs, cs: fc.bias_relu_bwd_plain(xs, b, cs))),
+            "library_ms": device_ms(cold(
+                lambda xs, cs: torch.ops.aten.threshold_backward(cs, xs, 0.0))),
+            "warm_ms": device_ms(lambda: fc.bias_relu_bwd_cuda(x, b, ct)),
+            "bound_ms": bound_ms(4 * (3 * n + c)), "bound_by": "bytes"},
+    }
+
+    # the ladder, through the port's bench_all leg (its JSON records print
+    # above this phase's line)
+    for k in ("bias_relu_fwd", "bias_relu_bwd"):
+        fc.launches[k] = 0
+    ladder = bench_all.compute_microbench_phase("cuda")
+    launches = {k: fc.launches[k] for k in ("bias_relu_fwd", "bias_relu_bwd")}
+    emit({"phase": "conv_epilogue", "ok": True, "bit_identical": checked,
+          "timed_shape": [rows, c], "timed": measured, "input_sets": n_sets,
+          "library_note": "torch.relu(x) / aten.threshold_backward(g, x, 0) without the bias "
+                          "add (one call each)",
+          "ladder_us": ladder, "launches": launches})
+    require(launches["bias_relu_fwd"] > 0 and launches["bias_relu_bwd"] > 0,
+            f"the ladder did not launch K3: {launches}")
+    return measured, launches
+
+
+# ------------------------------------------------------------------ phase 11
+
+def _head_inputs(torch, g, n, d, v, dtype, seq=None):
+    """K7's inputs: bf16/f32 h2 and logits from a real h2 @ W product,
+    float32 lse, random labels, gscale = mask / sum(mask) with the final
+    position of every ``seq``-token sequence masked (every 7th row without
+    ``seq``)."""
+    w = torch.randn((v, d), generator=g, device="cuda") * 0.02
+    h2 = torch.randn((n, d), generator=g, device="cuda").to(dtype)
+    logits = h2 @ w.to(dtype).t()
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    labels = torch.randint(0, v, (n,), generator=g, device="cuda")
+    mask = torch.ones(n, device="cuda")
+    if seq:
+        mask.view(-1, seq)[:, -1] = 0.0
+    else:
+        mask[::7] = 0.0
+    return w, h2, logits, lse, labels, mask / mask.sum()
+
+
+def _head_check(torch, fh, args, dtype_name):
+    """K7 against head_update_plain on one input set, from W = 0 (the result
+    is -lr dW itself: the sharp check) and from the real W (the update in
+    place, where most of its last bits round away against W's): (max abs
+    error and max error / bound from W = 0, max error / bound from W);
+    raises on a miss."""
+    w, h2, logits, lse, labels, gscale = args
+    dl = fh.head_dlogits(h2, logits, lse, labels, gscale)
+    scale = HEAD_LR * torch.mm(dl.float().abs().t(), h2.float().abs())
+    del dl
+    atol, rtol = HEAD_TOL[dtype_name]
+    out = []
+    for w_in in (torch.zeros_like(w), w):
+        wk = w_in.clone()
+        fh.head_update_cuda(wk, h2, logits, lse, labels, gscale, -HEAD_LR)
+        want = fh.head_update_plain(w_in, h2, logits, lse, labels, gscale, HEAD_LR)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(wk).all()),
+                f"K7 not finite ({dtype_name}, {tuple(h2.shape)})")
+        err = (wk - want).abs()
+        ratio = float((err / (2.0 ** -23 * w_in.abs() + atol + rtol * scale)).max())
+        require(ratio <= 1.0, f"K7 != plain ({dtype_name}, N, D = {tuple(h2.shape)}, V = "
+                              f"{w.shape[0]}, from {'W' if out else 'zero'}): max abs err "
+                              f"{float(err.max())}, err / bound {ratio}")
+        out += [float(err.max()), ratio]
+    return out[0], out[1], out[3]
+
+
+def phase_head_update(torch):
+    from distributed_ml_pytorch_tpu_torch.device import full_float32
+    from distributed_ml_pytorch_tpu_torch.ops import fused_head as fh
+
+    full_float32()
+    g = torch.Generator(device="cuda").manual_seed(11)
+    cases = {}
+    # V = 677: element loads (both dtypes); V = 680: the bf16 kernel's
+    # 16-byte loads with ragged N and V tiles
+    for v_small, dtype in ((677, torch.float32), (677, torch.bfloat16), (680, torch.bfloat16)):
+        name = str(dtype).split(".")[-1]
+        args = _head_inputs(torch, g, 1000, 64, v_small, dtype)
+        cases[f"ragged N1000 D64 V{v_small} {name}"] = _head_check(torch, fh, args, name)
+    n, d, v = GPT2_HEAD
+    args = _head_inputs(torch, g, n, d, v, torch.bfloat16, seq=2048)
+    cases["GPT-2-small b8x2048 bfloat16"] = _head_check(torch, fh, args, "bfloat16")
+
+    # timed at GPT-2-small b8 x 2048; the 1.65 GB of logits exceed the L2, so
+    # every call is cold
+    w, h2, logits, lse, labels, gscale = args
+    wbuf = w.clone()
+    dlt = fh.head_dlogits(h2, logits, lse, labels, gscale).t()
+
+    def peak_gb(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    kern = lambda: fh.head_update_cuda(wbuf, h2, logits, lse, labels, gscale, -HEAD_LR)
+    plain = lambda: fh.head_update_plain(w, h2, logits, lse, labels, gscale, HEAD_LR)
+    flop_ms = 2.0 * n * d * v / BF16_FLOPS * 1e3
+    byte_ms = bound_ms(2 * n * v + 2 * n * d + 2 * 4 * v * d + n * (4 + 4 + 8))
+    timed = {
+        "max_abs_err": max(c[0] for c in cases.values()),
+        "ms": device_ms(kern, 10),
+        "plain_ms": device_ms(plain, 5),
+        "library_ms": device_ms(lambda: torch.mm(dlt, h2, out_dtype=torch.float32), 10),
+        "bound_ms": max(flop_ms, byte_ms),
+        "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+        "flop_bound_ms": flop_ms, "byte_bound_ms": byte_ms,
+        "extra_peak_gb": {"kernel": peak_gb(kern), "plain": peak_gb(plain)},
+    }
+    emit({"phase": "head_update_vs_plain", "ok": True, "tolerance": HEAD_TOL, "lr": HEAD_LR,
+          "cases": {k: {"max_abs_err": e, "max_err_over_bound": r, "from_w_err_over_bound": rw}
+                    for k, (e, r, rw) in cases.items()},
+          "timed_shape": {"N": n, "D": d, "V": v, "dtype": "bfloat16"}, "timed": timed,
+          "library_note": "plain_ms: head_update_plain, which is the default formulation "
+                          "(elementwise dl, one cuBLAS mm, the update); library_ms: the mm "
+                          "alone, dl precomputed"})
+    return {"fused_head": timed}
+
+
+# ------------------------------------------------------------------ phase 12
+
+def _rel_l2(torch, a, b):
+    num = sum(float(((x - y).float() ** 2).sum()) for x, y in zip(a, b)) ** 0.5
+    den = sum(float((y.float() ** 2).sum()) for y in b) ** 0.5
+    return num / den
+
+
+def phase_fused_head_step(torch):
+    import numpy as np
+
+    from distributed_ml_pytorch_tpu_torch import bench_all
+    from distributed_ml_pytorch_tpu_torch.models import TransformerLM
+    from distributed_ml_pytorch_tpu_torch.ops import attention as at
+    from distributed_ml_pytorch_tpu_torch.ops import fused_head as fh
+    from distributed_ml_pytorch_tpu_torch.parallel.fsdp import make_fsdp_lm_train_step
+    from distributed_ml_pytorch_tpu_torch.parallel.seq_parallel import (
+        create_lm_train_state,
+        next_token_targets,
+    )
+    from distributed_ml_pytorch_tpu_torch.training.trainer import SGD
+    from distributed_ml_pytorch_tpu_torch.utils.devprof import kernel_breakdown
+
+    # config 6's legs through the port's bench_all (JSON records above)
+    rates = bench_all.lm_phase("cuda")
+    legs = {m: {"tokens_per_s": float(r), "step_ms": r.step_seconds * 1e3, "mfu_bf16": r.mfu,
+                "tflops": r.tflops, "step": r.step_kind} for m, r in rates.items()}
+
+    model = TransformerLM(**bench_all.GPT2_SMALL, dtype=torch.bfloat16, pos_encoding="rope",
+                          seed=0, device="cuda")
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, model.vocab_size, size=(8, 2048)).astype(np.int64)
+    tok = torch.from_numpy(tokens).cuda()
+    tgt = torch.from_numpy(next_token_targets(tokens)).cuda()
+    params = list(model.parameters())
+    w0 = [p.detach().clone() for p in params]
+    steps = {"default": fh.make_fused_head_sgd_step(model, LM_LR),
+             "k7": fh.make_fused_head_sgd_step(model, LM_LR, use_kernel=True),
+             "ad": make_fsdp_lm_train_step(model, SGD(LM_LR))}
+    state = create_lm_train_state(model, SGD(LM_LR))
+    runs = {}
+    for kind, step in steps.items():
+        with torch.no_grad():
+            for p, w in zip(params, w0):
+                p.copy_(w)
+        _zero_attention_launches(at)
+        fh.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _state, loss = step(state, tok, tgt)
+        torch.cuda.synchronize()
+        runs[kind] = {"loss": float(loss), "update": [p.detach() - w for p, w in zip(params, w0)],
+                      "launches": {"fused_head": fh.launches, **at.launches},
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    head = [i for i, (name, _) in enumerate(model.named_parameters()) if name == "lm_head.weight"]
+    upd = {k: r.pop("update") for k, r in runs.items()}
+    cmp = {
+        "k7_vs_default": {"rel_update_l2": _rel_l2(torch, upd["k7"], upd["default"]),
+                          "lm_head_rel_l2": _rel_l2(torch, [upd["k7"][i] for i in head],
+                                                    [upd["default"][i] for i in head])},
+        "ad_vs_default": {"rel_update_l2": _rel_l2(torch, upd["ad"], upd["default"]),
+                          "rel_loss": abs(runs["ad"]["loss"] - runs["default"]["loss"])
+                          / abs(runs["default"]["loss"])},
+    }
+    del upd
+
+    # step time: one warm-up step and three timed steps of each
+    for kind, step in steps.items():
+        step(state, tok, tgt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step(state, tok, tgt)
+        torch.cuda.synchronize()
+        runs[kind]["step_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+    profile = kernel_breakdown(lambda: steps["k7"](state, tok, tgt), PROFILE_GROUPS)
+    emit({"phase": "fused_head_step_gpt2_small", "lr": LM_LR, "batch": 8, "seq": 2048,
+          "bench_all_legs": legs, "steps": runs, "compare": cmp,
+          "tolerance": {"fused_head_update": FUSED_HEAD_UPDATE_TOL, "ad_loss": AD_LOSS_TOL,
+                        "ad_update": AD_UPDATE_TOL},
+          "k7_step_profile": profile})
+    n_layers = model.n_layers
+    for kind, r in runs.items():
+        la = r["launches"]
+        require(la["fused_head"] == (1 if kind == "k7" else 0),
+                f"{kind} step launched K7 {la['fused_head']} times")
+        require(la["flash_fwd"] == n_layers and la["flash_bwd_fused"] == n_layers,
+                f"{kind} step launched K4/K5 {la}")
+    require(runs["k7"]["loss"] == runs["default"]["loss"],
+            f"K7 step loss {runs['k7']['loss']} != default {runs['default']['loss']}")
+    require(cmp["k7_vs_default"]["rel_update_l2"] <= FUSED_HEAD_UPDATE_TOL,
+            f"K7 and default updates differ: {cmp['k7_vs_default']}")
+    require(cmp["ad_vs_default"]["rel_loss"] <= AD_LOSS_TOL
+            and cmp["ad_vs_default"]["rel_update_l2"] <= AD_UPDATE_TOL,
+            f"AD and fused-head steps differ: {cmp['ad_vs_default']}")
+    for m in ("gpt2_small_seq2048_train_throughput", "gpt2_small_seq8192_train_throughput"):
+        require(legs[m]["tokens_per_s"] > 0 and legs[m]["mfu_bf16"] is not None,
+                f"{m}: {legs[m]}")
+    return runs["k7"]["launches"]["fused_head"]
+
+
 # ------------------------------------------------------------------ main
 
 ATTN_SRC = "distributed_ml_pytorch_tpu_torch/csrc/attention.cu"
@@ -992,6 +1328,12 @@ KERNEL_ROWS = [
     ("flash_bwd_dkv", ATTN_SRC, "distributed_ml_pytorch_tpu/ops/attention.py:605"),
     ("decode_attention", "distributed_ml_pytorch_tpu_torch/csrc/decode_attention.cu",
      "distributed_ml_pytorch_tpu/ops/decode_attention.py:128"),
+    ("fused_head", "distributed_ml_pytorch_tpu_torch/csrc/fused_head.cu",
+     "distributed_ml_pytorch_tpu/ops/fused_head.py:105"),
+    ("bias_relu_fwd", "distributed_ml_pytorch_tpu_torch/csrc/bias_relu.cu",
+     "distributed_ml_pytorch_tpu/ops/fused_conv.py:177"),
+    ("bias_relu_bwd", "distributed_ml_pytorch_tpu_torch/csrc/bias_relu.cu",
+     "distributed_ml_pytorch_tpu/ops/fused_conv.py:177"),
 ]
 
 
@@ -1024,6 +1366,11 @@ def main() -> int:
         measured.update(phase_decode_attention(torch))
         launches["decode_attention"] = phase_generate(torch)
         phase_serving(torch)
+        k3, k3_launches = phase_conv_epilogue(torch)
+        measured.update(k3)
+        launches.update(k3_launches)
+        measured.update(phase_head_update(torch))
+        launches["fused_head"] = phase_fused_head_step(torch)
         smi = nvidia_smi_line()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -1,0 +1,355 @@
+"""The legs of the JAX ``bench_all.py`` that the port runs on the card.
+
+    python -m distributed_ml_pytorch_tpu_torch.bench_all                    # every leg, on the card
+    python -m distributed_ml_pytorch_tpu_torch.bench_all --legs conv_epilogue
+    python -m distributed_ml_pytorch_tpu_torch.bench_all --device cpu --tiny
+
+One JSON line per measurement on stdout (the JAX ``emit`` record: config,
+metric, value, unit, hardware, note, and the FLOPs story where there is one),
+narration on stderr. Ported legs, under the JAX metric names:
+
+- ``lm`` — config 6, LM training throughput (JAX bench_all.py:253-279): the
+  default ``TransformerLM`` (bf16, RoPE, no remat) at batch 1 x seq 8192,
+  and GPT-2-small (vocab 50304, 768d, 12 heads, 12 layers, d_ff 3072, bf16,
+  RoPE) at 8 x 2048 and 1 x 8192, each through :func:`bench_lm`. A model with
+  a detachable head trains through ``ops/fused_head.make_fused_head_sgd_step``
+  (the restructured lm_head step), any other through
+  ``parallel/fsdp.make_fsdp_lm_train_step``; both plain SGD at lr 1e-3 on the
+  same tokens from ``default_rng(0)``.
+- ``conv_epilogue`` — config 1's conv-epilogue ladder (JAX
+  ``compute_microbench_phase``, bench_all.py:2000-2073): ``relu_pool2``
+  fused against ``max_pool_2x2(relu(x))`` on AlexNet's three relu->pool
+  tails at batch 256, and ``bias_relu`` fused against ``relu(x + b)`` on a
+  (4096, 384) tail, forward and forward+backward.
+
+``--tiny`` shrinks every leg to test widths (a CPU run in seconds); its
+records keep the metric names and say so in their notes. Timing is
+``utils/devtime.device_time``: CUDA events on the card, wall clock on the
+CPU (the record's note names the source). The LM legs' FLOP numerator is
+``utils/flops.lm_train_flops_6nd`` over the non-embedding parameters (XLA's
+``compiled_flops`` has no PyTorch counterpart); the cross-check holds it
+against the same count over the ``nn.Linear`` weights. Not ported yet:
+``bench_lm_32k``, the MoE leg and every other phase of the JAX harness
+(``ROADMAP.md`` Queue A item 15).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from distributed_ml_pytorch_tpu_torch.device import full_float32, resolve_device
+from distributed_ml_pytorch_tpu_torch.models import TransformerLM
+from distributed_ml_pytorch_tpu_torch.ops import fused_conv as fc
+from distributed_ml_pytorch_tpu_torch.ops.fused_head import make_fused_head_sgd_step
+from distributed_ml_pytorch_tpu_torch.parallel.fsdp import make_fsdp_lm_train_step
+from distributed_ml_pytorch_tpu_torch.parallel.seq_parallel import (
+    create_lm_train_state,
+    next_token_targets,
+)
+from distributed_ml_pytorch_tpu_torch.training.trainer import SGD
+from distributed_ml_pytorch_tpu_torch.utils.devtime import device_time
+from distributed_ml_pytorch_tpu_torch.utils.flops import (
+    check_flops_agreement,
+    lm_train_flops_6nd,
+    utilization,
+)
+
+RESULTS: list = []
+
+GPT2_SMALL = dict(vocab_size=50304, d_model=768, n_heads=12, n_layers=12, d_ff=3072)
+#: the widths ``--tiny`` gives every LM leg
+TINY_LM = dict(vocab_size=128, d_model=64, n_heads=2, n_layers=2, d_ff=128)
+
+
+def log(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
+class Rate(float):
+    """tokens/s (or images/s) that also carries the leg's FLOPs story:
+    ``.flops_per_step``, ``.tflops`` (achieved), ``.mfu`` (fraction of the
+    card's bf16 peak) — any may be None — and the ``.step_seconds``, timing
+    ``.source`` and train-step kind it came from (the JAX bench.py's
+    ``Rate``)."""
+
+    flops_per_step: Optional[float] = None
+    tflops: Optional[float] = None
+    mfu: Optional[float] = None
+    step_seconds: Optional[float] = None
+    source: Optional[str] = None
+    step_kind: Optional[str] = None
+
+    @staticmethod
+    def make(value: float, flops_per_step, step_seconds, device: Optional[str] = None) -> "Rate":
+        r = Rate(value)
+        r.flops_per_step = flops_per_step
+        r.step_seconds = step_seconds
+        r.tflops, r.mfu = utilization(flops_per_step, step_seconds, device)
+        return r
+
+    def mfu_note(self) -> str:
+        """Human fragment for a note: '12.3 TFLOP/s, 6.2% MFU'."""
+        if self.tflops is None:
+            return "flops not counted"
+        if self.mfu is None:
+            return f"{self.tflops:.1f} TFLOP/s (no peak table for device)"
+        return f"{self.tflops:.1f} TFLOP/s, {self.mfu:.1%} MFU"
+
+    def record_fields(self) -> dict:
+        """The FLOPs story as JSON record fields."""
+        rec = {}
+        if self.tflops is not None:
+            rec["flops_per_step"] = self.flops_per_step
+            rec["tflops"] = round(self.tflops, 2)
+            if self.mfu is not None:
+                rec["mfu"] = round(self.mfu, 4)
+        return rec
+
+
+def hardware(device: torch.device) -> str:
+    """The record's hardware field: ``"1x <card name>"`` or ``"1x cpu"``."""
+    if device.type == "cuda":
+        return f"1x {torch.cuda.get_device_name(device)}"
+    return "1x cpu"
+
+
+def emit(config: int, metric: str, value: float, unit: str, hardware: str,
+         note: str, extra: dict = None) -> dict:
+    """Print one record as a JSON line (and keep it in ``RESULTS``)."""
+    rec = {
+        "config": config,
+        "metric": metric,
+        "value": round(float(value), 1),
+        "unit": unit,
+        "hardware": hardware,
+        "note": note,
+    }
+    if isinstance(value, Rate) and value.tflops is not None:
+        rec.update(value.record_fields())
+        rec["note"] = f"{note}; {value.mfu_note()}"
+    if extra:
+        rec.update(extra)
+    RESULTS.append(rec)
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+# ------------------------------------------------------------------ LM legs
+
+def bench_lm(lm: Optional[nn.Module] = None, batch: int = 1, seq: int = 8192,
+             n_long: int = 11, cross_check: bool = True, tag: str = "lm",
+             device="cuda") -> Rate:
+    """Steady-state tokens/s (+ FLOPs/MFU) of one LM train step.
+
+    ``lm`` defaults to ``TransformerLM(dtype=bfloat16, remat=False,
+    pos_encoding="rope")`` on ``device``; a given model is timed where its
+    parameters lie. ``max(2, n_long)`` steps are timed after two warm-up
+    steps, each step's parameters feeding the next."""
+    if lm is None:
+        lm = TransformerLM(dtype=torch.bfloat16, remat=False, pos_encoding="rope",
+                           device=resolve_device(device))
+    dev = next(lm.parameters()).device
+    lr = 1e-3  # ONE recipe for both step builders below: plain SGD at lr
+    tx = SGD(lr)
+    state = create_lm_train_state(lm, tx)
+    tokens = np.random.default_rng(0).integers(
+        0, lm.vocab_size, size=(batch, seq)).astype(np.int32)
+    targets = torch.from_numpy(next_token_targets(tokens).astype(np.int64)).to(dev)
+    tokens = torch.from_numpy(tokens.astype(np.int64)).to(dev)
+    if getattr(lm, "head", None) is True:
+        # detachable-head models take the restructured lm_head step
+        # (ops/fused_head.py): the same function as the AD step (tested), one
+        # lse for loss, backward and update; plain SGD at lr, as tx
+        step = make_fused_head_sgd_step(lm, lr)
+        step_kind = "fused-head"
+    else:
+        step = make_fsdp_lm_train_step(lm, tx)
+        step_kind = "AD"
+
+    heads = lm.n_heads
+    remat = bool(getattr(lm, "remat", False))
+    n_params = sum(p.numel() for p in lm.parameters())
+    embed_params = sum(p.numel() for name, p in lm.named_parameters()
+                       if "embed" in name.lower())
+    step_flops = lm_train_flops_6nd(n_params - embed_params, batch, seq, heads,
+                                    lm.d_model // heads, lm.n_layers, causal=True, remat=remat)
+    warn = None
+    if cross_check:
+        dense = sum(m.weight.numel() for m in lm.modules() if isinstance(m, nn.Linear))
+        warn = check_flops_agreement(
+            lm_train_flops_6nd(dense, batch, seq, heads, lm.d_model // heads, lm.n_layers,
+                               causal=True, remat=remat), step_flops)
+        if warn:
+            log(f"{tag}: {warn}")
+
+    holder = {"s": state}
+
+    def one_step():
+        holder["s"], loss = step(holder["s"], tokens, targets)
+        return loss
+
+    t = device_time(one_step, calls=max(2, n_long), warmup=2)
+    per_step = t.per_call_s
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    rate = Rate.make(batch * seq / per_step, step_flops, per_step, name)
+    rate.source = t.source
+    rate.step_kind = step_kind
+    log(f"{tag} ({n_params / 1e6:.0f}M params, {step_kind} step): {per_step * 1e3:.1f} "
+        f"ms/step at batch {batch} x seq {seq} -> {rate:.0f} tokens/s ({rate.mfu_note()}, "
+        f"{t.source}; 6ND cross-check "
+        f"{'skipped' if not cross_check else 'ok' if warn is None else 'FAILED'})")
+    return rate
+
+
+def _widths(lm) -> str:
+    return f"{lm.d_model}d/{lm.n_heads}h/{lm.n_layers}L"
+
+
+def lm_phase(device, tiny: bool = False) -> dict:
+    """Config 6's three LM legs; returns ``{metric: Rate}``."""
+    dev = resolve_device(device)
+    hw = hardware(dev)
+    if tiny:
+        base, gpt2, long_seq, short_seq, batch = TINY_LM, TINY_LM, 64, 32, 2
+        cut = f"--tiny: {TINY_LM}, seq {long_seq}/{short_seq}, batch {batch}; "
+    else:
+        base, gpt2, long_seq, short_seq, batch = {}, GPT2_SMALL, 8192, 2048, 8
+        cut = ""
+    how = "6ND FLOPs over the non-embedding parameters (no compiled count in PyTorch)"
+    rates = {}
+    default_lm = TransformerLM(**base, dtype=torch.bfloat16, remat=False, pos_encoding="rope",
+                               device=dev)
+    r = bench_lm(default_lm, batch=1, seq=long_seq, tag="lm-512d-seq8192")
+    rates["transformer_lm_seq8192_train_throughput"] = r
+    emit(6, "transformer_lm_seq8192_train_throughput", r, "tokens/sec/chip", hw,
+        f"{cut}default TransformerLM ({_widths(default_lm)}), bf16 activations, no remat, "
+        f"RoPE, batch 1 x seq {long_seq}, {r.step_kind} step, {r.step_seconds * 1e3:.3f} "
+        f"ms/step ({r.source}); {how}")
+    del default_lm
+    lm = TransformerLM(**gpt2, dtype=torch.bfloat16, remat=False, pos_encoding="rope",
+                       device=dev)
+    for metric, b, s, tag in (
+            ("gpt2_small_seq2048_train_throughput", batch, short_seq, "gpt2-small-seq2048"),
+            ("gpt2_small_seq8192_train_throughput", 1, long_seq, "gpt2-small-seq8192")):
+        r = bench_lm(lm, batch=b, seq=s, n_long=6, tag=tag)
+        emit(6, metric, r, "tokens/sec/chip", hw,
+            f"{cut}GPT-2-small config ({_widths(lm)}, padded vocab 50304), bf16, RoPE, "
+            f"CUDA flash attention, batch {b} x seq {s}, {r.step_kind} step, "
+            f"{r.step_seconds * 1e3:.3f} ms/step ({r.source}); {how}")
+        rates[metric] = r
+    return rates
+
+
+# ------------------------------------------------------------------ conv epilogue ladder
+
+def compute_microbench_phase(device="cuda", batch: int = 256) -> dict:
+    """Per-fusion cost ladder for the conv epilogues: the fused ``relu_pool2``
+    and ``bias_relu`` ops against the unfused chains of plain PyTorch ops,
+    standalone, on AlexNet's conv-output shapes at the large-batch leg's
+    scale. On the card the fused ops run their kernels; on the CPU their
+    plain versions (recorded as such). Returns ``{metric: {"fwd_us",
+    "fwdbwd_us"}}`` unrounded."""
+    dev = resolve_device(device)
+    hw = hardware(dev)
+    on_card = dev.type == "cuda"
+    path = "cuda kernel" if on_card else "plain version (cpu)"
+    calls = 10 if on_card else 3
+    b = batch
+    rng = np.random.default_rng(0)
+    shapes = {  # AlexNet conv outputs feeding a relu->pool tail
+        "conv1_tail": (b, 8, 8, 64),
+        "conv2_tail": (b, 4, 4, 192),
+        "conv5_tail": (b, 2, 2, 256),
+    }
+
+    def tensor(shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    def us(t):
+        return t.per_call_s * 1e6
+
+    def fwdbwd(fn, x, ct, *rest):
+        def call():
+            v = x.detach().requires_grad_(True)
+            return torch.autograd.grad(fn(v, *rest), v, ct)[0]
+        return call
+
+    out = {}
+    for name, shape in shapes.items():
+        x = tensor(shape)
+        ct = tensor((shape[0], shape[1] // 2, shape[2] // 2, shape[3]))
+        variants = {
+            "unfused": lambda v: fc.max_pool_2x2(F.relu(v)),
+            "fused": fc.relu_pool2,
+        }
+        costs = {}
+        for tag, fn in variants.items():
+            t_f = device_time(fn, x, calls=calls, warmup=1)
+            t_fb = device_time(fwdbwd(fn, x, ct), calls=calls, warmup=1)
+            costs[tag] = (us(t_f), us(t_fb))
+            metric = f"conv_epilogue_{name}_{tag}_fwdbwd"
+            out[metric] = {"fwd_us": us(t_f), "fwdbwd_us": us(t_fb)}
+            emit(1, metric, us(t_fb), "us/call", hw,
+                 f"{name} {shape} relu->2x2pool {tag} "
+                 f"({path if tag == 'fused' else 'plain ops'}): fwd {us(t_f):.3f} us, "
+                 f"fwd+bwd {us(t_fb):.3f} us ({t_fb.source})")
+        log(f"  {name}: unfused fwd+bwd {costs['unfused'][1]:.1f} us vs "
+            f"fused {costs['fused'][1]:.1f} us")
+
+    # the elementwise bias+relu epilogue (conv3/conv4-shaped tail)
+    x = tensor((b * 4 * 4, 384))
+    bias = tensor((384,))
+    ct = tensor(x.shape)
+    for tag, fn in {
+        "unfused": lambda v, bb: F.relu(v + bb),
+        "fused": fc.bias_relu,
+    }.items():
+        t_f = device_time(fn, x, bias, calls=calls, warmup=1)
+        t_fb = device_time(fwdbwd(fn, x, ct, bias), calls=calls, warmup=1)
+        metric = f"conv_epilogue_bias_relu_{tag}_fwdbwd"
+        out[metric] = {"fwd_us": us(t_f), "fwdbwd_us": us(t_fb)}
+        emit(1, metric, us(t_fb), "us/call", hw,
+             f"bias+relu on {tuple(x.shape)} {tag} "
+             f"({path if tag == 'fused' else 'plain ops'}): fwd {us(t_f):.3f} us, "
+             f"fwd+bwd {us(t_fb):.3f} us ({t_fb.source})")
+    return out
+
+
+LEGS = {
+    "lm": lambda dev, tiny: lm_phase(dev, tiny=tiny),
+    "conv_epilogue": lambda dev, tiny: compute_microbench_phase(dev, batch=16 if tiny else 256),
+}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--legs", default=",".join(LEGS),
+                    help=f"comma-separated legs to run, in order (of {', '.join(LEGS)})")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="run on the card (default) or on the CPU")
+    ap.add_argument("--tiny", action="store_true",
+                    help="shrink every leg to test widths (for a CPU run)")
+    args = ap.parse_args(argv)
+    legs = [leg for leg in args.legs.split(",") if leg]
+    unknown = [leg for leg in legs if leg not in LEGS]
+    if unknown or not legs:
+        ap.error(f"unknown or no legs {unknown} (choose from {', '.join(LEGS)})")
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        full_float32()
+    for leg in legs:
+        LEGS[leg](dev, args.tiny)
+    log(f"bench_all: {len(RESULTS)} measurements")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

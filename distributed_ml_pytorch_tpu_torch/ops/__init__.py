@@ -3,7 +3,10 @@ PyTorch version.
 
 - ``fused_update``: the DownPour flat accumulator ``flat_axpy`` (K1).
 - ``fused_conv``: the AlexNet conv epilogue ``relu_pool2`` forward and
-  backward (K2), and the plain first-max ``max_pool_2x2``.
+  backward (K2), the elementwise ``bias_relu`` (K3), and the plain first-max
+  ``max_pool_2x2``.
+- ``fused_head``: the restructured lm_head SGD step and its fused head
+  update (K7).
 - ``attention``: flash attention forward (K4), fused backward (K5) and split
   backward (K6a dQ, K6b dK/dV), the blockwise scan and ``auto_attention``.
 - ``decode_attention``: the single-token decode step's attention over the
@@ -26,6 +29,7 @@ from distributed_ml_pytorch_tpu_torch.ops.decode_attention import (
     decode_attention_step,
 )
 from distributed_ml_pytorch_tpu_torch.ops.fused_conv import (
+    bias_relu,
     max_pool_2x2,
     pool2_tiles,
     relu_pool2,
@@ -40,6 +44,7 @@ __all__ = [
     "LANES",
     "attention_reference",
     "auto_attention",
+    "bias_relu",
     "blockwise_attention",
     "decode_attention_reference",
     "decode_attention_step",

@@ -1,7 +1,8 @@
-"""The CNN conv epilogue relu(+bias) -> 2x2 max-pool as Hopper kernels.
+"""The CNN conv epilogues as Hopper kernels: relu(+bias) -> 2x2 max-pool
+(K2) and the elementwise relu(+bias) (K3).
 
 Counterpart of ``distributed_ml_pytorch_tpu/ops/fused_conv.py``
-(``max_pool_2x2``, ``pool2_tiles``, ``relu_pool2``). The public functions
+(``max_pool_2x2``, ``pool2_tiles``, ``relu_pool2``, ``bias_relu``). The public functions
 take NHWC tensors, as the JAX ones do. The port's models run their convs in
 ``torch.channels_last``, so a conv output's ``permute(0, 2, 3, 1)`` is a
 contiguous NHWC view at no copy cost, and the pooled NHWC output permuted
@@ -21,6 +22,13 @@ On a CUDA tensor :func:`relu_pool2` runs the kernels of ``csrc/fused_conv.cu``
 forward and backward (a ``torch.autograd.Function``); on a CPU tensor it runs
 the plain versions. A CUDA input the kernel cannot take (not contiguous, not
 float32) raises; nothing is copied silently.
+
+:func:`bias_relu` is ``relu(x + bias)`` over the last axis, forward and
+backward bit-identical to the plain versions (the same add, rounded to the
+input dtype, and the same compare; the gradient at 0 is 0). On a CUDA tensor
+it runs the kernels of ``csrc/bias_relu.cu`` (float32 or bfloat16, any
+shape, viewed as ``(R, C)`` rows); ``db`` is one sum over the leading axes
+outside the kernel, as in JAX.
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ import torch
 from distributed_ml_pytorch_tpu_torch.ops import _build
 
 #: launches of the forward and backward CUDA kernels (plain versions do not count)
-launches = {"relu_pool2_fwd": 0, "relu_pool2_bwd": 0}
+launches = {"relu_pool2_fwd": 0, "relu_pool2_bwd": 0, "bias_relu_fwd": 0, "bias_relu_bwd": 0}
 
 
 # ------------------------------------------------------------------ pooling
@@ -208,3 +216,110 @@ def relu_pool2(x: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Te
             f"(got shape {tuple(getattr(x, 'shape', ()))}); no 2x2 stride-2 "
             f"pool is defined for this shape")
     return _ReluPool2.apply(x, bias)
+
+
+# ------------------------------------------------- relu(+bias) epilogue (K3)
+
+_BIAS_RELU_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def bias_relu_fwd_plain(x: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``relu(x + bias)`` as plain tensor operations (``bias=None``: relu)."""
+    return _relu(x if bias is None else x + bias)
+
+
+def bias_relu_bwd_plain(x: torch.Tensor, bias: Optional[torch.Tensor],
+                        g: torch.Tensor) -> torch.Tensor:
+    """``dz = where(x + bias > 0, g, 0)``: relu's gradient, 0 at 0."""
+    z = x if bias is None else x + bias
+    return torch.where(z > 0, g, torch.zeros((), dtype=g.dtype, device=g.device))
+
+
+def _check_bias_relu_cuda(name: str, x: torch.Tensor, bias: Optional[torch.Tensor],
+                          g: Optional[torch.Tensor] = None) -> int:
+    if not x.is_cuda:
+        raise ValueError(f"{name} needs a CUDA tensor")
+    if x.dtype not in _BIAS_RELU_DTYPES:
+        raise TypeError(f"{name}: the CUDA kernel takes float32 or bfloat16, got {x.dtype}")
+    for label, t, shape in (("x", x, x.shape), ("bias", bias, (_channels(x),)),
+                            ("g", g, x.shape)):
+        if t is None:
+            continue
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous; got strides {t.stride()}")
+        if t.shape != shape or t.dtype != x.dtype or t.device != x.device:
+            raise ValueError(f"{name}: {label} must be a {x.dtype} {tuple(shape)} tensor on "
+                             f"{x.device}")
+    return _BIAS_RELU_DTYPES[x.dtype]
+
+
+def _channels(x: torch.Tensor) -> int:
+    """C of the (R, C) row view."""
+    return x.shape[-1] if x.dim() else 1
+
+
+def _bias_relu_fn(name: str, n_ptrs: int):
+    fn = getattr(_build.load("bias_relu"), name)
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                                 ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def bias_relu_fwd_cuda(x: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch K3a on a contiguous CUDA tensor: ``relu(x + bias)``."""
+    code = _check_bias_relu_cuda("bias_relu", x, bias)
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = _bias_relu_fn("dmt_bias_relu_fwd", 3)(
+            x.data_ptr(), None if bias is None else bias.data_ptr(), y.data_ptr(),
+            x.numel(), _channels(x), code, _build.stream_of(x))
+    _build.check(rc, "bias_relu forward")
+    launches["bias_relu_fwd"] += 1
+    return y
+
+
+def bias_relu_bwd_cuda(x: torch.Tensor, bias: Optional[torch.Tensor],
+                       g: torch.Tensor) -> torch.Tensor:
+    """Launch K3b: ``dz = where(x + bias > 0, g, 0)`` at ``x``'s shape."""
+    code = _check_bias_relu_cuda("bias_relu backward", x, bias, g)
+    dz = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = _bias_relu_fn("dmt_bias_relu_bwd", 4)(
+            x.data_ptr(), None if bias is None else bias.data_ptr(), g.data_ptr(),
+            dz.data_ptr(), x.numel(), _channels(x), code, _build.stream_of(x))
+    _build.check(rc, "bias_relu backward")
+    launches["bias_relu_bwd"] += 1
+    return dz
+
+
+class _BiasRelu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, bias):
+        y = bias_relu_fwd_cuda(x, bias) if x.is_cuda else bias_relu_fwd_plain(x, bias)
+        ctx.save_for_backward(x, bias)
+        ctx.has_bias = bias is not None
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, bias = ctx.saved_tensors
+        if not ctx.has_bias:
+            bias = None
+        g = g.contiguous()
+        dz = bias_relu_bwd_cuda(x, bias, g) if x.is_cuda else bias_relu_bwd_plain(x, bias, g)
+        db = None
+        if bias is not None and ctx.needs_input_grad[1]:
+            db = dz.sum(dim=tuple(range(dz.dim() - 1))).reshape(bias.shape)
+        return dz, db
+
+
+def bias_relu(x: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``relu(x + bias)`` as one kernel forward and one backward (the plain
+    versions for a CPU tensor).
+
+    ``bias`` broadcasts over the last axis (``None`` = pure relu). The
+    backward computes ``dz = where(x + bias > 0, g, 0)`` in one kernel and
+    reduces ``db`` outside it (one sum over the leading axes).
+    """
+    return _BiasRelu.apply(x, bias)

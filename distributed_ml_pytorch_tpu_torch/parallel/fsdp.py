@@ -64,7 +64,10 @@ def make_fsdp_lm_train_step(model: nn.Module, tx: SGD, loss_chunk: int = 0) -> C
             p.grad = None
         loss = loss_fn(tokens, targets)
         loss.backward()
-        updates = tx.update([p.grad for p in params], state.opt_state)
+        # a parameter the loss does not reach (a head=False model's lm_head)
+        # has no .grad: its gradient is zero, as JAX's AD gives it
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        updates = tx.update(grads, state.opt_state)
         with torch.no_grad():
             for p, u in zip(params, updates):
                 p.add_(u)

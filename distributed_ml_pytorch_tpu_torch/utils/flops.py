@@ -1,6 +1,8 @@
-"""Analytic FLOPs of an LM train step and the card's peak (counterpart of
-the JAX ``utils/flops.py``'s ``flash_attention_train_flops`` and
-``lm_train_flops_6nd``).
+"""Analytic FLOPs of an LM train step, the card's peak and the utilization
+they give (counterpart of the JAX ``utils/flops.py``'s
+``flash_attention_train_flops``, ``lm_train_flops_6nd``,
+``check_flops_agreement`` and ``utilization``; XLA's ``compiled_flops`` has no
+counterpart in PyTorch).
 
 The peak table is keyed by ``torch.cuda.get_device_name()``: the H100 SXM5's
 dense bf16 tensor-core rate, 989.4 TFLOP/s, from NVIDIA's H100 data sheet.
@@ -54,3 +56,34 @@ def lm_train_flops_6nd(n_matmul_params: float, batch: int, seq: int,
         batch, heads, seq, head_dim, n_layers,
         causal=causal, remat=remat, bwd_impl=bwd_impl)
     return dense + attn
+
+
+def check_flops_agreement(hybrid: Optional[float], analytic: float,
+                          tol: float = 0.15) -> Optional[str]:
+    """None when two FLOP counts of one step agree within ``tol``; otherwise
+    a warning string for the bench log."""
+    if not hybrid or analytic <= 0:
+        return None
+    rel = abs(hybrid - analytic) / analytic
+    if rel <= tol:
+        return None
+    return (f"FLOPs cross-check FAILED: hybrid numerator {hybrid:.3e} vs "
+            f"analytic 6ND {analytic:.3e} ({100 * rel:.0f}% apart > "
+            f"{100 * tol:.0f}%) — audit utils/flops.py before trusting MFU")
+
+
+def utilization(flops_per_step: Optional[float], step_seconds: float,
+                device: Optional[str] = None) -> tuple[Optional[float], Optional[float]]:
+    """(achieved TFLOP/s, MFU fraction vs the bf16 peak) for a measured step
+    time; either element is None when its ingredient is unavailable.
+    ``device`` is a CUDA device name (default: the first card's, when there
+    is one); a name without a peak entry, such as ``"cpu"``, gives no MFU."""
+    if not flops_per_step or step_seconds <= 0:
+        return None, None
+    if device is None:
+        import torch
+
+        device = torch.cuda.get_device_name(0) if torch.cuda.is_available() else "cpu"
+    achieved = flops_per_step / step_seconds
+    peak = device_peak_flops(device)
+    return achieved / 1e12, (achieved / peak if peak else None)

@@ -87,3 +87,72 @@ def test_cpu_path_counts_no_launch():
     tfc.relu_pool2(x).sum().backward()
     assert tfc.launches == before
 
+
+
+# ------------------------------------------------- bias_relu (K3)
+
+BIAS_RELU_SHAPES = [(4, 37), (2, 3, 4, 16), (16, 8)]
+
+
+def _bias_relu_inputs(shape, seed, dtype):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=shape).astype(np.float32)
+    b = rng.normal(size=shape[-1]).astype(np.float32)
+    x[0, ..., 0] = -b[0]  # z = x + b = 0 exactly: relu and its gradient give 0
+    # small integer cotangents: db is exact in any summation order (|sum| <=
+    # 96 < 256, so exact in bfloat16 too)
+    g = rng.integers(-4, 5, size=shape).astype(np.float32)
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dtype == "bfloat16" else (jnp.float32,
+                                                                           torch.float32)
+    j = [jnp.asarray(a, jdt) for a in (x, b, g)]
+    t = [torch.from_numpy(np.array(a.astype(jnp.float32))).to(tdt) for a in j]
+    return j, t
+
+
+def _np(a):
+    if isinstance(a, torch.Tensor):
+        return a.detach().float().numpy()
+    return np.asarray(a.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("shape", BIAS_RELU_SHAPES)
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bias_relu_fwd_and_vjp_match_jax(shape, with_bias, dtype):
+    # bit-identical: the same add (rounded to the dtype) and compare
+    (jx, jb, jg), (tx, tb, tg) = _bias_relu_inputs(shape, sum(shape), dtype)
+    with jfc.force_pallas_interpret():
+        if with_bias:
+            y_ref, vjp = jax.vjp(jfc.bias_relu, jx, jb)
+            dx_ref, db_ref = vjp(jg)
+        else:
+            y_ref, vjp = jax.vjp(jfc.bias_relu, jx)
+            (dx_ref,) = vjp(jg)
+    xt = tx.requires_grad_(True)
+    bt = tb.requires_grad_(True) if with_bias else None
+    y = tfc.bias_relu(xt, bt)
+    assert y.dtype == tx.dtype
+    np.testing.assert_array_equal(_np(y), _np(y_ref))
+    y.backward(tg)
+    np.testing.assert_array_equal(_np(xt.grad), _np(dx_ref))
+    if with_bias:
+        np.testing.assert_array_equal(_np(bt.grad), _np(db_ref))
+        assert float(xt.grad[0, ..., 0].abs().sum()) == 0.0  # gradient at z = 0 is 0
+
+
+def test_bias_relu_plain_versions_and_cpu_counts():
+    (_, _, _), (x, b, g) = _bias_relu_inputs((5, 6), 0, "float32")
+    before = dict(tfc.launches)
+    y = tfc.bias_relu_fwd_plain(x, b)
+    assert torch.equal(y, torch.relu(x + b))
+    dz = tfc.bias_relu_bwd_plain(x, b, g)
+    assert torch.equal(dz, torch.where(x + b > 0, g, torch.zeros(())))
+    assert torch.equal(tfc.bias_relu_fwd_plain(x), torch.relu(x))
+    # bias without requires_grad: no db, and the CPU path launches nothing
+    xr = x.clone().requires_grad_(True)
+    tfc.bias_relu(xr, b).backward(g)
+    assert torch.equal(xr.grad, dz) and b.grad is None
+    assert tfc.launches == before
+    from distributed_ml_pytorch_tpu_torch import ops
+
+    assert ops.bias_relu is tfc.bias_relu

@@ -421,3 +421,170 @@ def test_generate_and_engine_on_the_card_launch_k8(cuda):
         assert not calls
     finally:
         da.decode_attention_reference = real
+
+
+# ------------------------------------------------------------------ bias_relu (K3)
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1000, 37), (4096, 384), (256, 4, 4, 384), (3, 5, 8)])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bias_relu_kernels_bit_identical(cuda, shape, with_bias, dtype):
+    rng = np.random.default_rng(sum(shape))
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dtype)
+    b = torch.from_numpy(rng.normal(size=shape[-1]).astype(np.float32)).to(dtype)
+    g = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dtype)
+    x[0, ..., 0] = -b[0]  # z = 0 exactly
+    bias = b if with_bias else None
+    bc = None if bias is None else bias.to(cuda)
+    before = dict(tfc.launches)
+    y = tfc.bias_relu_fwd_cuda(x.to(cuda), bc)
+    dz = tfc.bias_relu_bwd_cuda(x.to(cuda), bc, g.to(cuda))
+    # an odd offset: not 16-byte aligned, the scalar variant
+    xo = torch.cat([torch.zeros(1, dtype=dtype), x.reshape(-1)]).to(cuda)[1:].view(shape)
+    yo = tfc.bias_relu_fwd_cuda(xo, bc)
+    torch.cuda.synchronize()
+    assert tfc.launches["bias_relu_fwd"] == before["bias_relu_fwd"] + 2
+    assert tfc.launches["bias_relu_bwd"] == before["bias_relu_bwd"] + 1
+    want_y = tfc.bias_relu_fwd_plain(x, bias)
+    want_dz = tfc.bias_relu_bwd_plain(x, bias, g)
+    assert torch.equal(y.cpu(), want_y) and torch.equal(yo.cpu(), want_y)
+    assert torch.equal(dz.cpu(), want_dz)
+
+
+@pytest.mark.gpu
+def test_bias_relu_autograd_on_the_card(cuda):
+    rng = np.random.default_rng(5)
+    arrs = [rng.normal(size=s).astype(np.float32) for s in ((64, 37), (37,), (64, 37))]
+    xc, bc = (torch.from_numpy(a).to(cuda).requires_grad_(True) for a in arrs[:2])
+    before = dict(tfc.launches)
+    tfc.bias_relu(xc, bc).backward(torch.from_numpy(arrs[2]).to(cuda))
+    xr, br = (torch.from_numpy(a).requires_grad_(True) for a in arrs[:2])
+    tfc.bias_relu(xr, br).backward(torch.from_numpy(arrs[2]))
+    torch.cuda.synchronize()
+    assert tfc.launches["bias_relu_fwd"] - before["bias_relu_fwd"] == 1
+    assert tfc.launches["bias_relu_bwd"] - before["bias_relu_bwd"] == 1
+    assert torch.equal(xc.grad.cpu(), xr.grad)
+    np.testing.assert_allclose(bc.grad.cpu().numpy(), br.grad.numpy(), rtol=1e-6, atol=1e-6)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tfc.bias_relu(torch.ones(4, 4, device=cuda, dtype=torch.float16))
+
+
+# ------------------------------------------------------------------ fused head (K7)
+
+#: K7 against head_update_plain on the same inputs, from W = 0 (the result
+#: is -lr dW itself) and from the real W: |got - want| <= 2^-23 |W| + rtol *
+#: lr * (|dl|^T |h|). 2^-23 |W| is each side's one float32 rounding of W -
+#: lr dW. float32: the same products summed in
+#: another order, at most (N - 1) u = 2^-14 of the absolute product at N =
+#: 1000. bfloat16: each side rounds each dl term to bfloat16, and where its
+#: exp differs in the last bits the roundings can land a step apart, 2u =
+#: 2^-7 (u = 2^-8) of the term.
+HEAD_RTOL = {torch.float32: 2.0 ** -12, torch.bfloat16: 2.0 ** -7}
+
+
+def _head_case(cuda, n, d, v, dtype, seed):
+    rng = np.random.default_rng(seed)
+    W = torch.from_numpy((rng.normal(size=(v, d)) * 0.02).astype(np.float32)).to(cuda)
+    h2 = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(cuda, dtype)
+    logits = h2 @ W.to(dtype).t()
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    labels = torch.from_numpy(rng.integers(0, v, n)).to(cuda)
+    gscale = torch.from_numpy(rng.uniform(0, 1e-3, n).astype(np.float32)).to(cuda)
+    gscale[::7] = 0.0
+    return W, h2, logits, lse, labels, gscale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,v", [(1000, 64, 677), (2047, 256, 5000), (64, 40, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("from_zero", [False, True])
+def test_head_update_kernel_matches_plain(cuda, n, d, v, dtype, from_zero):
+    # V = 677 takes element loads, V = 5000 (bfloat16) the 16-byte loads
+    # with ragged N and V tiles
+    from distributed_ml_pytorch_tpu_torch.device import full_float32
+    from distributed_ml_pytorch_tpu_torch.ops import fused_head as tfh
+
+    full_float32()
+    lr = 0.5
+    W, h2, logits, lse, labels, gscale = _head_case(cuda, n, d, v, dtype, seed=n + v)
+    if from_zero:
+        W = torch.zeros_like(W)
+    want = tfh.head_update_plain(W, h2, logits, lse, labels, gscale, lr)
+    Wk = W.clone()
+    before = tfh.launches
+    out = tfh.head_update_sgd(Wk, h2, logits, lse, labels, gscale, lr, use_kernel=True)
+    torch.cuda.synchronize()
+    assert out is Wk and tfh.launches == before + 1
+    dl = tfh.head_dlogits(h2, logits, lse, labels, gscale)
+    scale = lr * (dl.float().abs().t() @ h2.float().abs())
+    err = (Wk - want).abs()
+    bound = 2.0 ** -23 * W.abs() + HEAD_RTOL[dtype] * scale
+    assert bool((err <= bound).all()), (float(err.max()), float((err / bound).max()))
+    assert not torch.equal(Wk, W)
+
+
+@pytest.mark.gpu
+def test_head_update_kernel_rejects_what_it_cannot_take(cuda):
+    from distributed_ml_pytorch_tpu_torch.ops import fused_head as tfh
+
+    W, h2, logits, lse, labels, gscale = _head_case(cuda, 64, 32, 50, torch.bfloat16, 0)
+    before = tfh.launches
+    with pytest.raises(TypeError, match="int64"):
+        tfh.head_update_cuda(W, h2, logits, lse, labels.int(), gscale, -0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfh.head_update_cuda(W, h2, logits.t().contiguous().t(), lse, labels, gscale, -0.1)
+    with pytest.raises(TypeError, match="share"):
+        tfh.head_update_cuda(W, h2, logits.float(), lse, labels, gscale, -0.1)
+    # a float32 vocabulary past the float32 kernel's grid (64 columns a block)
+    v = 64 * 65535 + 1
+    args = (torch.zeros((v, 1), device=cuda), torch.zeros((1, 1), device=cuda),
+            torch.zeros((1, v), device=cuda), torch.zeros(1, device=cuda),
+            torch.zeros(1, dtype=torch.int64, device=cuda), torch.ones(1, device=cuda))
+    with pytest.raises(ValueError, match="grid"):
+        tfh.head_update_cuda(*args, -0.1)
+    assert tfh.launches == before
+
+
+@pytest.mark.gpu
+def test_fused_head_step_launches_k7_once_per_step(cuda):
+    from distributed_ml_pytorch_tpu_torch.models.transformer import TransformerLM
+    from distributed_ml_pytorch_tpu_torch.ops import attention as tat
+    from distributed_ml_pytorch_tpu_torch.ops import fused_head as tfh
+    from distributed_ml_pytorch_tpu_torch.parallel.seq_parallel import create_lm_train_state
+    from distributed_ml_pytorch_tpu_torch.training.trainer import SGD
+
+    rng = np.random.default_rng(0)
+    tok = torch.from_numpy(rng.integers(0, 300, size=(2, 128))).to(cuda)
+    runs = {}
+    for use_kernel in (False, True):
+        model = TransformerLM(vocab_size=300, d_model=64, n_heads=2, n_layers=2, d_ff=128,
+                              dtype=torch.bfloat16, pos_encoding="rope", seed=3, device=cuda)
+        w0 = [p.detach().clone() for p in model.parameters()]
+        step = tfh.make_fused_head_sgd_step(model, 0.5, use_kernel=use_kernel)
+        state = create_lm_train_state(model, SGD(0.5))
+        before, before_k4 = tfh.launches, tat.launches["flash_fwd"]
+        losses = []
+        for _ in range(2):
+            state, loss = step(state, tok, tok)
+            losses.append(float(loss))
+        torch.cuda.synchronize()
+        assert tfh.launches - before == (2 if use_kernel else 0)
+        assert tat.launches["flash_fwd"] - before_k4 == 2 * 2
+        runs[use_kernel] = (losses, [p.detach() - w for p, w in zip(model.parameters(), w0)])
+    # the first step's forward is the same code on the same weights
+    assert runs[True][0][0] == runs[False][0][0]
+    num = sum(float(((a - b) ** 2).sum()) for a, b in zip(runs[True][1], runs[False][1]))
+    den = sum(float((b ** 2).sum()) for b in runs[False][1])
+    assert (num / den) ** 0.5 <= 1e-2
+
+
+@pytest.mark.gpu
+def test_device_time_on_the_card(cuda):
+    from distributed_ml_pytorch_tpu_torch.utils.devtime import device_time
+
+    x = torch.randn(2048, 2048, device=cuda)
+    t = device_time(lambda: x @ x, calls=5, warmup=2)
+    assert t.source == "cuda_events" and t.calls == 5
+    # 2 * 2048^3 FLOP in full float32 cannot beat 67 TFLOP/s by much
+    assert 2 * 2048 ** 3 / t.per_call_s < 2 * 67e12
