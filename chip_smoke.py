@@ -6,7 +6,9 @@
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device and build: the card's name, count and power limit, and the nvcc
-   build of ``distributed_ml_pytorch_tpu_torch/csrc/*.cu``;
+   build of ``distributed_ml_pytorch_tpu_torch/csrc/*.cu``; then the
+   tensor-core K4's ``-Xptxas -v`` lines (registers, spills) on a line of
+   their own;
 2. every kernel against its plain PyTorch version on the card, at the shapes
    of the main path (flat_axpy at AlexNet's padded length; relu_pool2
    forward and backward at AlexNet's three epilogue shapes at batch 64,
@@ -21,19 +23,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
    with the CLI defaults (AlexNet, batch 64, lr 0.008, n_push = n_pull = 10)
    on synthetic CIFAR-10; the kernels' launch counts are zeroed just before
    and read just after, and every kernel must have run;
-5. the flash-attention kernels (K4 forward, K5 fused backward, K6a/K6b split
+5. the flash-attention kernels (K4 forward: the tensor-core kernel for
+   bfloat16, the scalar one for float32; K5 fused backward, K6a/K6b split
    backward) against their plain versions on the same inputs, at the LM's
    per-layer shape (b8 h12 s2048 d64, bfloat16, causal) and at small shapes
-   (float32 causal and not, head_dim 32 and 128 in bfloat16), within the
-   stated tolerances; timed at the LM shape beside the plain versions,
-   ``F.scaled_dot_product_attention`` and the FLOP bound at 989.4 TFLOP/s;
+   (float32 causal and not, head_dim 16 in both dtypes, 32 and 128 in
+   bfloat16, a ragged s 200), within the stated tolerances; timed at the LM
+   shape beside the plain versions, ``F.scaled_dot_product_attention`` and
+   the FLOP bound at 989.4 TFLOP/s;
 6. the LM path: ``training.train_lm`` with GPT-2-small (vocab 50304, d 768,
    12 heads, 12 layers, d_ff 3072, bfloat16, RoPE, batch 8 x seq 2048) for
    ``LM_STEPS`` steps on one repeated batch, the attention launch counts
    zeroed just before and read just after (K4 and K5 12 per step, K6 none);
    the loss must fall and every parameter stay finite; then one step from
    the trained weights with the default (fused) backward and one with
-   ``bwd_impl="split"`` injected, which must agree;
+   ``bwd_impl="split"`` injected, which must agree; the profiled step's
+   "K4 flash_fwd" group must read the tensor-core kernel; then
+   ``train_lm`` and the serving demo with their default widths (8 heads of
+   d_model 128: head_dim 16), launching K4/K5 and K8;
 7. the decode-attention kernel (K8) against its reference on the same
    inputs: b32 h12 d64 T16 at C 128, 256 and 383 with per-row t (0, 5, 15)
    and ring_base, through strided live-prefix views, at C 8192, with
@@ -86,6 +93,7 @@ from __future__ import annotations
 
 import importlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -103,7 +111,9 @@ POOL_SHAPES = [(64, 8, 8, 64), (64, 4, 4, 192), (64, 2, 2, 256)]
 WORKER_STEPS = 80
 ATTN_MAIN = (8, 12, 2048, 64)  # GPT-2-small's per-layer attention shape
 ATTN_SMALL = [((2, 2, 256, 64), "float32", True), ((2, 2, 256, 64), "float32", False),
-              ((2, 2, 256, 32), "bfloat16", True), ((2, 2, 256, 128), "bfloat16", True)]
+              ((2, 2, 256, 16), "float32", False), ((2, 2, 256, 16), "bfloat16", True),
+              ((2, 2, 256, 32), "bfloat16", True), ((2, 2, 256, 128), "bfloat16", True),
+              ((2, 2, 200, 64), "bfloat16", True), ((2, 2, 200, 64), "bfloat16", False)]
 #: kernel vs plain version on the same inputs, as (atol, rtol) in |kernel -
 #: plain| <= atol + rtol * scale elementwise, where scale is the output's
 #: absolute product (``attention.flash_error_scales``: P|V|, |dS||K|, ...).
@@ -181,7 +191,7 @@ AD_UPDATE_TOL = 2.0 ** -5
 
 #: kernel-name substrings grouping one LM step's device time (first match wins)
 PROFILE_GROUPS = {
-    "K4 flash_fwd": ["flash_fwd_kernel"],
+    "K4 flash_fwd": ["flash_fwd_tc_kernel"],
     "K5 flash_bwd_fused": ["flash_bwd_kv_kernel"],
     "K7 fused_head": ["head_update"],
     "matmul": ["gemm", "Gemm", "nvjet", "xmma", "cutlass"],
@@ -234,6 +244,7 @@ def phase_device_and_build(torch):
     _build.load("fused_update")
     _build.load("fused_conv")
     _build.load("attention")
+    _build.load("flash_fwd_tc")
     _build.load("decode_attention")
     _build.load("bias_relu")
     _build.load("fused_head")
@@ -245,6 +256,9 @@ def phase_device_and_build(torch):
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s, "nvcc_build_s": _build.build_seconds,
           "ptxas": ptxas})
+    emit({"phase": "flash_fwd_tc_ptxas", "lines": [
+        ln.strip() for ln in _build.build_logs("flash_fwd_tc").splitlines()
+        if "entry function" in ln or "registers" in ln or "spill" in ln]})
 
 
 # ------------------------------------------------------------------ phase 2
@@ -608,6 +622,8 @@ def phase_attention(torch):
         }
     emit({"phase": "attention_vs_plain", "ok": True, "tolerance": ATTN_TOL,
           "lse_tolerance": LSE_TOL, "cases": cases, "sdpa_ms": sdpa, "main_shape": ATTN_MAIN,
+          "k4_over_sdpa_fwd": out["flash_fwd"]["ms"] / sdpa["fwd"],
+          "k4_bound_share": out["flash_fwd"]["bound_ms"] / out["flash_fwd"]["ms"],
           "timed": {k: {kk: vv for kk, vv in v.items() if kk != "max_abs_err"}
                     for k, v in out.items()}})
     return out
@@ -665,6 +681,9 @@ def phase_lm(torch, steps=LM_STEPS):
     # where one more step's time goes on the card (torch.profiler)
     main["profile"] = kernel_breakdown(
         lambda: res.step_fn(res.state, res.tokens, res.targets), PROFILE_GROUPS)
+    if "group_ms" in main["profile"]:
+        require(main["profile"]["group_ms"]["K4 flash_fwd"] > 0,
+                f"the profiled LM step shows no tensor-core K4: {main['profile']}")
 
     # one step from the trained weights, fused and then split; the forward is
     # the same kernel on the same weights, so the losses must be equal
@@ -700,6 +719,39 @@ def phase_lm(torch, steps=LM_STEPS):
     require(num / den <= SPLIT_UPDATE_TOL,
             f"split and fused updates differ: relative L2 {num / den} > {SPLIT_UPDATE_TOL}")
     return launches, split_launches
+
+
+def phase_default_widths(torch):
+    """``train_lm`` and the serving demo with no width flags: the JAX
+    defaults, d_model 128 in 8 heads (head_dim 16), float32."""
+    import contextlib
+    import io
+
+    from distributed_ml_pytorch_tpu_torch.ops import attention as at
+    from distributed_ml_pytorch_tpu_torch.ops import decode_attention as da
+    from distributed_ml_pytorch_tpu_torch.serving import cli as serving_cli
+    from distributed_ml_pytorch_tpu_torch.training import train_lm
+
+    args = train_lm.parse_args(["--steps", "3"])
+    _zero_attention_launches(at)
+    res = train_lm.run(args)
+    launches = dict(at.launches)
+    da.launches = 0
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = serving_cli.main(["--demo", "4"])
+    k8 = da.launches
+    emit({"phase": "default_widths", "d_model": args.d_model, "n_heads": args.n_heads,
+          "head_dim": args.d_model // args.n_heads, "dtype": args.dtype,
+          "train_lm_losses": res.losses, "train_lm_launches": launches,
+          "serving_demo_rc": rc, "serving_k8_launches": k8})
+    require(all(math.isfinite(x) for x in res.losses),
+            f"default-width train_lm losses not finite: {res.losses}")
+    require(launches["flash_fwd"] == args.n_layers * 3
+            and launches["flash_bwd_fused"] == args.n_layers * 3,
+            f"default-width train_lm launched {launches}")
+    require(rc == 0 and "serving demo complete" in text.getvalue() and k8 > 0,
+            f"default-width serving demo: rc {rc}, K8 launches {k8}")
 
 
 # ------------------------------------------------------------------ phase 7
@@ -1315,6 +1367,7 @@ def phase_fused_head_step(torch):
 # ------------------------------------------------------------------ main
 
 ATTN_SRC = "distributed_ml_pytorch_tpu_torch/csrc/attention.cu"
+K4_SRC = "distributed_ml_pytorch_tpu_torch/csrc/flash_fwd_tc.cu"
 KERNEL_ROWS = [
     ("flat_axpy", "distributed_ml_pytorch_tpu_torch/csrc/fused_update.cu",
      "distributed_ml_pytorch_tpu/ops/fused_update.py:57"),
@@ -1322,7 +1375,7 @@ KERNEL_ROWS = [
      "distributed_ml_pytorch_tpu/ops/fused_conv.py:321"),
     ("relu_pool2_bwd", "distributed_ml_pytorch_tpu_torch/csrc/fused_conv.cu",
      "distributed_ml_pytorch_tpu/ops/fused_conv.py:311"),
-    ("flash_fwd", ATTN_SRC, "distributed_ml_pytorch_tpu/ops/attention.py:311"),
+    ("flash_fwd", K4_SRC, "distributed_ml_pytorch_tpu/ops/attention.py:311"),
     ("flash_bwd_fused", ATTN_SRC, "distributed_ml_pytorch_tpu/ops/attention.py:563"),
     ("flash_bwd_dq", ATTN_SRC, "distributed_ml_pytorch_tpu/ops/attention.py:592"),
     ("flash_bwd_dkv", ATTN_SRC, "distributed_ml_pytorch_tpu/ops/attention.py:605"),
@@ -1363,6 +1416,7 @@ def main() -> int:
         # that runs them
         launches.update({k: lm_launches[k] for k in ("flash_fwd", "flash_bwd_fused")})
         launches.update({k: split_launches[k] for k in ("flash_bwd_dq", "flash_bwd_dkv")})
+        phase_default_widths(torch)
         measured.update(phase_decode_attention(torch))
         launches["decode_attention"] = phase_generate(torch)
         phase_serving(torch)

@@ -1,6 +1,8 @@
 // Flash attention over (batch*heads, seq, head_dim): the forward (K4), the
 // fused backward (K5) and the split backward's dQ (K6a) and dK/dV (K6b)
-// kernels, for float32 and bfloat16 inputs at head_dim 32, 64 and 128.
+// kernels at head_dim 16, 32, 64 and 128: the backward kernels for float32
+// and bfloat16 inputs, the forward for float32 only (the bfloat16 forward is
+// the tensor-core kernel of flash_fwd_tc.cu).
 //
 // Replaces: distributed_ml_pytorch_tpu/ops/attention.py
 //   K4  _flash_fwd            (pallas_call at :311, body _flash_kernel at :196)
@@ -52,6 +54,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -527,7 +531,10 @@ enum Which { kFwd, kBwdFused, kBwdDq, kBwdDkv };
 template <typename T, int D>
 int run_one(Which w, const Args& a) {
     switch (w) {
-        case kFwd: return run_fwd<T, D>(a);
+        case kFwd:
+            // bfloat16 takes flash_fwd_tc.cu's kernel: no instance here
+            if constexpr (std::is_same<T, float>::value) return run_fwd<T, D>(a);
+            return (int)cudaErrorInvalidValue;
         case kBwdFused: return run_bwd_kv<T, D, true>(a);
         case kBwdDq: return run_bwd_dq<T, D>(a);
         case kBwdDkv: return run_bwd_kv<T, D, false>(a);
@@ -538,6 +545,7 @@ int run_one(Which w, const Args& a) {
 template <typename T>
 int run_d(Which w, int d, const Args& a) {
     switch (d) {
+        case 16: return run_one<T, 16>(w, a);
         case 32: return run_one<T, 32>(w, a);
         case 64: return run_one<T, 64>(w, a);
         case 128: return run_one<T, 128>(w, a);
@@ -556,6 +564,7 @@ int dispatch(Which w, int dtype, int d, const Args& a) {
 
 }  // namespace
 
+// float32 (dtype 0) only; bfloat16 returns cudaErrorInvalidValue
 extern "C" int dmt_flash_fwd(const void* q, const void* k, const void* v, void* out,
                              float* lse, int bh, int sq, int sk, int d, int causal, int dtype,
                              float scale_log2, void* stream) {

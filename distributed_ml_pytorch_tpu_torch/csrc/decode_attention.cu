@@ -253,6 +253,7 @@ template <typename T, typename S>
 cudaError_t launch_d(const Params& p, int d, cudaStream_t s) {
     const dim3 grid(p.B * p.H);
     switch (d) {
+        case 16: decode_attention_kernel<T, S, 16><<<grid, kThreads, 0, s>>>(p); break;
         case 32: decode_attention_kernel<T, S, 32><<<grid, kThreads, 0, s>>>(p); break;
         case 64: decode_attention_kernel<T, S, 64><<<grid, kThreads, 0, s>>>(p); break;
         case 128: decode_attention_kernel<T, S, 128><<<grid, kThreads, 0, s>>>(p); break;

@@ -4,8 +4,9 @@ Each source is compiled by ``nvcc`` into its own shared library with a plain
 C interface and loaded with ``ctypes`` — no PyTorch headers, so a build takes
 seconds. The libraries land in ``build/torch_kernels/<hash>/`` at the root of
 the checkout (listed in ``.gitignore``), keyed by a hash of the sources and
-flags, so an edited kernel is rebuilt and an unchanged one is reused. All
-sources are compiled in parallel (one ``nvcc`` each, started together).
+flags (and of the shared ``csrc/*.cuh`` headers), so an edited kernel or
+header is rebuilt and an unchanged one is reused. All sources are compiled
+in parallel (one ``nvcc`` each, started together).
 
 Nothing here runs at import time: :func:`load` builds on the first launch of a
 kernel. Every C entry point returns ``cudaGetLastError()``; :func:`check`
@@ -57,8 +58,10 @@ def _sources():
 
 
 def build_dir() -> Path:
+    """The directory of the libraries built from the current sources: keyed
+    by the flags, every ``*.cu`` and every ``*.cuh`` they may include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in [*_sources(), *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
@@ -111,11 +114,12 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def build_logs() -> str:
+def build_logs(name: str = "*") -> str:
     """The compiler's output of the last build (``-Xptxas -v``: registers,
-    shared memory and spills per kernel)."""
+    shared memory and spills per kernel), of every source or of
+    ``csrc/<name>.cu`` alone."""
     out = build_dir()
-    return "\n".join(p.read_text() for p in sorted(out.glob("*.log")))
+    return "\n".join(p.read_text() for p in sorted(out.glob(f"{name}.*.log")))
 
 
 def check(code: int, what: str) -> None:

@@ -5,14 +5,19 @@ All functions take ``(batch, heads, seq, head_dim)`` tensors, as the JAX ones
 do.
 
 - :func:`flash_attention` / :func:`flash_attention_lse`: differentiable flash
-  attention (a ``torch.autograd.Function``). On CUDA tensors the forward is the
-  K4 kernel and the backward the fused K5 kernel or the split pair K6a (dQ) +
-  K6b (dK/dV) of ``csrc/attention.cu``; on CPU tensors the plain versions
+  attention (a ``torch.autograd.Function``). On CUDA tensors the forward is
+  K4 and the backward the fused K5 kernel or the split pair K6a (dQ) + K6b
+  (dK/dV) of ``csrc/attention.cu``; on CPU tensors the plain versions
   :func:`flash_fwd_plain`, :func:`flash_bwd_fused_plain` and
-  :func:`flash_bwd_split_plain` run instead. On a CUDA tensor an op launches
-  its kernel or raises (a dtype other than float32/bfloat16, a head_dim other
-  than 32/64/128, a tensor that is not contiguous); it never runs the plain
-  version there.
+  :func:`flash_bwd_split_plain` run instead. K4 for bfloat16 is the
+  tensor-core kernel of ``csrc/flash_fwd_tc.cu`` (mma.sync, cp.async); for
+  float32 it is the scalar forward of ``csrc/attention.cu``, because the
+  tensor cores have no mode that keeps float32's numbers (TF32 keeps about
+  three decimal digits, against the float32 tolerance of 1e-5). On a CUDA
+  tensor an op launches its kernel or raises (a dtype other than
+  float32/bfloat16, a head_dim other than 16/32/64/128, a tensor that is not
+  contiguous, a bfloat16 forward operand not 16-byte aligned); it never runs
+  the plain version or another kernel there.
 - :func:`blockwise_attention`: the same online-softmax recurrence as a loop
   over key blocks in plain PyTorch, returning the un-finalized ``(acc, m, l)``
   carry with query/key offsets (what ring attention folds chunks into).
@@ -53,7 +58,7 @@ LOG2_E = 1.4426950408889634  # scores are kept in log2 space inside the kernels
 # it the buffer-free split backward is auto-selected
 FUSED_BWD_PARTIALS_CAP = 6 * 1024**3
 #: head dims the CUDA kernels are built for
-KERNEL_HEAD_DIMS = (32, 64, 128)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: launches of the CUDA kernels (plain versions do not count):
@@ -303,18 +308,20 @@ def _check_cuda(name: str, tensors, lse_like=()) -> int:
     return _DTYPE_CODES[q.dtype]
 
 
+#: C entry point -> (library, pointer arguments)
 _ARGTYPES = {
-    "dmt_flash_fwd": 5,
-    "dmt_flash_bwd_fused": 9,
-    "dmt_flash_bwd_dq": 7,
-    "dmt_flash_bwd_dkv": 8,
+    "dmt_flash_fwd": ("attention", 5),
+    "dmt_flash_fwd_tc": ("flash_fwd_tc", 5),
+    "dmt_flash_bwd_fused": ("attention", 9),
+    "dmt_flash_bwd_dq": ("attention", 7),
+    "dmt_flash_bwd_dkv": ("attention", 8),
 }
 
 
 def _fn(name: str):
-    fn = getattr(_build.load("attention"), name)
-    n_ptrs = _ARGTYPES[name]
-    n_floats = 1 if name == "dmt_flash_fwd" else 2
+    lib, n_ptrs = _ARGTYPES[name]
+    fn = getattr(_build.load(lib), name)
+    n_floats = 1 if name.startswith("dmt_flash_fwd") else 2
     fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6
                    + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -326,17 +333,27 @@ def _scales(d: int):
 
 
 def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool):
-    """Launch K4 on contiguous ``(b·h, s, d)`` CUDA tensors: ``(out, lse2)``."""
+    """Launch K4 on contiguous ``(b·h, s, d)`` CUDA tensors: ``(out, lse2)``.
+    bfloat16 goes to the tensor-core kernel, whose ``cp.async`` copies need
+    every operand 16-byte aligned; float32 to the scalar kernel."""
     code = _check_cuda("flash forward", (q, k, v))
     bh, sq, d = q.shape
     if causal and k.shape[1] != sq:
         raise ValueError("causal flash attention requires sq == sk")
     out = torch.empty_like(q)
     lse2 = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    entry = "dmt_flash_fwd"
+    if q.dtype == torch.bfloat16:
+        entry = "dmt_flash_fwd_tc"
+        # out and lse2 come from the caching allocator, which aligns them
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash forward: {name} must be 16-byte aligned for the "
+                                 f"tensor-core kernel, got offset {t.data_ptr() % 16}")
     with torch.cuda.device(q.device):
-        rc = _fn("dmt_flash_fwd")(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                  lse2.data_ptr(), bh, sq, k.shape[1], d, int(causal), code,
-                                  _scales(d)[0], _build.stream_of(q))
+        rc = _fn(entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                        lse2.data_ptr(), bh, sq, k.shape[1], d, int(causal), code,
+                        _scales(d)[0], _build.stream_of(q))
     _build.check(rc, "flash forward")
     launches["flash_fwd"] += 1
     return out, lse2

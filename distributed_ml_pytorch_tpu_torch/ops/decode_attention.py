@@ -17,8 +17,8 @@ One f32 softmax covers all three; the output is cast once to ``q``'s dtype.
 This is exactly the single-token step of the blocked decode in
 ``models/transformer.MultiHeadAttention``, which calls
 :func:`decode_attention_step` on every such step. On CUDA tensors that is the
-kernel of ``csrc/decode_attention.cu`` (any context length; head_dim 32, 64
-or 128; float32 or bfloat16 activations; the big cache may be a strided
+kernel of ``csrc/decode_attention.cu`` (any context length; head_dim 16,
+32, 64 or 128; float32 or bfloat16 activations; the big cache may be a strided
 live-prefix view). On CPU tensors it is :func:`decode_attention_reference`,
 the module's own math in the module's op order. There is no other path: a
 CUDA tensor the kernel cannot take raises.
@@ -34,7 +34,7 @@ import torch
 from distributed_ml_pytorch_tpu_torch.ops import _build
 
 #: head dims the CUDA kernel is built for
-KERNEL_HEAD_DIMS = (32, 64, 128)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: launches of the CUDA kernel (the reference does not count)

@@ -36,8 +36,8 @@ def build_parser() -> argparse.ArgumentParser:
     # model size
     p.add_argument("--vocab", type=int, default=512)
     p.add_argument("--d-model", type=int, default=128)
-    p.add_argument("--n-heads", type=int, default=4,
-                   help="attention heads (the card's kernels take head_dim 32, 64 or 128)")
+    p.add_argument("--n-heads", type=int, default=8,
+                   help="attention heads (the card's kernels take head_dim 16, 32, 64 or 128)")
     p.add_argument("--n-layers", type=int, default=2)
     p.add_argument("--d-ff", type=int, default=256)
     p.add_argument("--max-len", type=int, default=0,

@@ -151,7 +151,7 @@ def _close(got, want, dtype, what, scale=None):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kernels_match_plain(cuda, dtype, d, causal):
     from distributed_ml_pytorch_tpu_torch.ops import attention as tat
@@ -197,6 +197,51 @@ def test_flash_kernels_ragged_lengths(cuda, sq, sk, causal):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("sq,sk,causal", [(s, s, c) for s in (1, 63, 65, 200, 1000)
+                                          for c in (True, False)]
+                         + [(100, 300, False), (300, 100, False)])
+def test_flash_fwd_tensor_core_kernel_matches_plain(cuda, d, sq, sk, causal):
+    # the bfloat16 forward (flash_fwd_tc.cu): ragged tiles at both ends,
+    # tiles wholly past sq, a single key, sq != sk
+    from distributed_ml_pytorch_tpu_torch.ops import attention as tat
+
+    q, k, v, _ = _attn_inputs(cuda, (3, sq, d), torch.bfloat16, seed=sq + sk + d, sk=sk)
+    before = dict(tat.launches)
+    out, lse = tat.flash_fwd_cuda(q, k, v, causal)
+    out_p, lse_p = tat.flash_fwd_plain(q, k, v, causal)
+    scale = tat.flash_error_scales(q, k, v, q, lse_p, torch.zeros_like(lse_p), causal)["out"]
+    torch.cuda.synchronize()
+    assert tat.launches["flash_fwd"] == before["flash_fwd"] + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    _close(out, out_p, torch.bfloat16, "K4 out", scale)
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_p.cpu().numpy(), rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_flash_fwd_tensor_core_kernel_rejects_misaligned(cuda):
+    from distributed_ml_pytorch_tpu_torch.ops import attention as tat
+
+    bh, s, d = 2, 128, 64
+    q = torch.randn(bh, s, d, device=cuda).to(torch.bfloat16)
+    # contiguous, but 2 bytes past a 16-byte boundary
+    odd = torch.empty(bh * s * d + 1, device=cuda, dtype=torch.bfloat16)[1:].view(bh, s, d)
+    odd.copy_(q)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    before = dict(tat.launches)
+    for args in ((odd, q, q), (q, odd, q), (q, q, odd)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            tat.flash_fwd_cuda(*args, True)
+    assert tat.launches == before
+    # float32 has no such requirement (the scalar kernel's element loads)
+    odd32 = torch.empty(bh * s * d + 1, device=cuda)[1:].view(bh, s, d)
+    odd32.copy_(q.float())
+    tat.flash_fwd_cuda(odd32, odd32, odd32, True)
+    torch.cuda.synchronize()
+    assert tat.launches["flash_fwd"] == before["flash_fwd"] + 1
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("bwd_impl", ["fused", "split"])
 def test_flash_attention_autograd_on_the_card(cuda, bwd_impl):
     from distributed_ml_pytorch_tpu_torch.ops import attention as tat
@@ -224,7 +269,7 @@ def test_flash_attention_autograd_on_the_card(cuda, bwd_impl):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,d,exc", [(torch.float16, 64, TypeError),
-                                         (torch.float32, 16, ValueError),
+                                         (torch.float32, 8, ValueError),
                                          (torch.float32, 48, ValueError),
                                          (torch.bfloat16, 256, ValueError)])
 @pytest.mark.parametrize("seq", [128, 100])
@@ -282,25 +327,49 @@ def test_lm_train_step_runs_the_flash_kernels(cuda):
     from distributed_ml_pytorch_tpu_torch.training import train_lm
 
     before = dict(tat.launches)
-    # the default 8 heads of d_model 128 give head_dim 16, which the kernels
-    # do not take; 4 heads give 32
+    # the default width: 8 heads of d_model 128, head_dim 16
     res = train_lm.run(train_lm.parse_args(
-        ["--steps", "3", "--dtype", "bfloat16", "--pos-encoding", "rope", "--lr", "0.5",
-         "--n-heads", "4"]))
+        ["--steps", "3", "--dtype", "bfloat16", "--pos-encoding", "rope", "--lr", "0.5"]))
     assert all(np.isfinite(res.losses)) and res.losses[-1] < res.losses[0]
     assert tat.launches["flash_fwd"] - before["flash_fwd"] == 2 * 3
     assert tat.launches["flash_bwd_fused"] - before["flash_bwd_fused"] == 2 * 3
 
 
 @pytest.mark.gpu
-def test_kernel_breakdown_sees_the_card(cuda):
+def test_default_widths_run_on_the_card(cuda, capsys):
+    # train_lm and the serving demo with no width flags (head_dim 16)
+    from distributed_ml_pytorch_tpu_torch.ops import attention as tat
+    from distributed_ml_pytorch_tpu_torch.ops import decode_attention as da
+    from distributed_ml_pytorch_tpu_torch.serving import cli as serving_cli
+    from distributed_ml_pytorch_tpu_torch.training import train_lm
+
+    before = dict(tat.launches)
+    res = train_lm.run(train_lm.parse_args(["--steps", "2"]))
+    assert all(np.isfinite(res.losses))
+    assert tat.launches["flash_fwd"] - before["flash_fwd"] == 2 * 2
+    assert tat.launches["flash_bwd_fused"] - before["flash_bwd_fused"] == 2 * 2
+    before_k8 = da.launches
+    assert serving_cli.main(["--demo", "4"]) == 0
+    assert "serving demo complete" in capsys.readouterr().out
+    assert da.launches > before_k8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,kernel,other", [
+    (torch.float32, "flash_fwd_kernel", "flash_fwd_tc_kernel"),
+    (torch.bfloat16, "flash_fwd_tc_kernel", "flash_fwd_kernel")])
+def test_kernel_breakdown_sees_the_card(cuda, dtype, kernel, other):
+    # K4 by kernel name: float32 keeps the scalar kernel (the tensor cores
+    # have no float32 mode that keeps its numbers), bfloat16 takes the
+    # tensor cores
     from distributed_ml_pytorch_tpu_torch.ops import attention as tat
     from distributed_ml_pytorch_tpu_torch.utils.devprof import kernel_breakdown
 
-    q = torch.randn(4, 512, 64, device=cuda)
+    q = torch.randn(4, 512, 64, device=cuda).to(dtype)
     res = kernel_breakdown(lambda: tat.flash_fwd_cuda(q, q, q, True),
-                           {"K4": ["flash_fwd_kernel"]})
-    assert res["group_ms"]["K4"] > 0 and res["busy_ms"] <= res["wall_ms"]
+                           {"K4": [kernel], "other K4": [other]})
+    assert res["group_ms"]["K4"] > 0 and res["group_ms"]["other K4"] == 0
+    assert res["busy_ms"] <= res["wall_ms"]
     assert 0.0 <= res["idle_share"] < 1.0
 
 
@@ -355,7 +424,7 @@ def _decode_check(args, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("dtype,quant", [(torch.float32, False), (torch.bfloat16, False),
                                          (torch.bfloat16, True), (torch.float32, True)])
 @pytest.mark.parametrize("C", [1, 40, 383, 8192])
@@ -385,7 +454,7 @@ def test_decode_attention_kernel_scalar_state_and_strided_q(cuda, quant):
                 for i in range(3)]
     _decode_check(tuple(args), torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
-        da.decode_attention_step(*(x[..., :16] if x is not None and x.dim() == 4 else x
+        da.decode_attention_step(*(x[..., :48] if x is not None and x.dim() == 4 else x
                                    for x in args))
 
 
