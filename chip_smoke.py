@@ -7,8 +7,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device and build: the card's name, count and power limit, and the nvcc
    build of ``distributed_ml_pytorch_tpu_torch/csrc/*.cu``; then the
-   tensor-core K4's ``-Xptxas -v`` lines (registers, spills) on a line of
-   their own;
+   tensor-core K4's and K5's ``-Xptxas -v`` lines (registers, spills), each
+   on a line of its own;
 2. every kernel against its plain PyTorch version on the card, at the shapes
    of the main path (flat_axpy at AlexNet's padded length; relu_pool2
    forward and backward at AlexNet's three epilogue shapes at batch 64,
@@ -23,14 +23,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
    with the CLI defaults (AlexNet, batch 64, lr 0.008, n_push = n_pull = 10)
    on synthetic CIFAR-10; the kernels' launch counts are zeroed just before
    and read just after, and every kernel must have run;
-5. the flash-attention kernels (K4 forward: the tensor-core kernel for
-   bfloat16, the scalar one for float32; K5 fused backward, K6a/K6b split
-   backward) against their plain versions on the same inputs, at the LM's
-   per-layer shape (b8 h12 s2048 d64, bfloat16, causal) and at small shapes
-   (float32 causal and not, head_dim 16 in both dtypes, 32 and 128 in
-   bfloat16, a ragged s 200), within the stated tolerances; timed at the LM
-   shape beside the plain versions, ``F.scaled_dot_product_attention`` and
-   the FLOP bound at 989.4 TFLOP/s;
+5. the flash-attention kernels (K4 forward and K5 fused backward: the
+   tensor-core kernels for bfloat16, the scalar ones for float32; K6a/K6b
+   split backward) against their plain versions on the same inputs, at the
+   LM's per-layer shape (b8 h12 s2048 d64, bfloat16, causal) and at small
+   shapes (float32 causal and not, head_dim 16 in both dtypes and bfloat16
+   non-causal, 32 and 128 in bfloat16, a ragged s 200, 100 queries over 300
+   keys), within the stated tolerances; timed at the LM shape beside the
+   plain versions, ``F.scaled_dot_product_attention`` and the FLOP bound at
+   989.4 TFLOP/s;
 6. the LM path: ``training.train_lm`` with GPT-2-small (vocab 50304, d 768,
    12 heads, 12 layers, d_ff 3072, bfloat16, RoPE, batch 8 x seq 2048) for
    ``LM_STEPS`` steps on one repeated batch, the attention launch counts
@@ -38,7 +39,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the loss must fall and every parameter stay finite; then one step from
    the trained weights with the default (fused) backward and one with
    ``bwd_impl="split"`` injected, which must agree; the profiled step's
-   "K4 flash_fwd" group must read the tensor-core kernel; then
+   "K4 flash_fwd" and "K5 flash_bwd_fused" groups must read the tensor-core
+   kernels, and the scalar K5 must not run; then
    ``train_lm`` and the serving demo with their default widths (8 heads of
    d_model 128: head_dim 16), launching K4/K5 and K8;
 7. the decode-attention kernel (K8) against its reference on the same
@@ -113,7 +115,10 @@ ATTN_MAIN = (8, 12, 2048, 64)  # GPT-2-small's per-layer attention shape
 ATTN_SMALL = [((2, 2, 256, 64), "float32", True), ((2, 2, 256, 64), "float32", False),
               ((2, 2, 256, 16), "float32", False), ((2, 2, 256, 16), "bfloat16", True),
               ((2, 2, 256, 32), "bfloat16", True), ((2, 2, 256, 128), "bfloat16", True),
-              ((2, 2, 200, 64), "bfloat16", True), ((2, 2, 200, 64), "bfloat16", False)]
+              ((2, 2, 200, 64), "bfloat16", True), ((2, 2, 200, 64), "bfloat16", False),
+              ((2, 2, 256, 16), "bfloat16", False),
+              # 100 queries over 300 keys: (b, h, sq, d) and sk
+              ((2, 2, 100, 64), "bfloat16", False, 300)]
 #: kernel vs plain version on the same inputs, as (atol, rtol) in |kernel -
 #: plain| <= atol + rtol * scale elementwise, where scale is the output's
 #: absolute product (``attention.flash_error_scales``: P|V|, |dS||K|, ...).
@@ -122,8 +127,10 @@ ATTN_SMALL = [((2, 2, 256, 64), "float32", True), ((2, 2, 256, 64), "float32", F
 #: or dS to bfloat16 against other running maxima or after other sums, at
 #: most u of each term, so the sums differ by at most 2u of the absolute
 #: product; each rounds its output too, at most u of it: 4u = 2^-6 in all.
-#: atol 1e-6 is float32 summation noise. The lse (float32 in both dtypes)
-#: is held against |lse| at LSE_TOL.
+#: atol 1e-6 is float32 summation noise; where dS = p (dP - delta) cancels
+#: (exactly 0 at a query that sees one key) both sides sum dP in order of d,
+#: so the noise left there is the same. The lse (float32 in both dtypes) is
+#: held against |lse| at LSE_TOL.
 ATTN_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-6, 2.0 ** -6)}
 LSE_TOL = (1e-5, 1e-6)
 GPT2_SMALL = ["--vocab", "50304", "--d-model", "768", "--n-heads", "12", "--n-layers", "12",
@@ -192,7 +199,9 @@ AD_UPDATE_TOL = 2.0 ** -5
 #: kernel-name substrings grouping one LM step's device time (first match wins)
 PROFILE_GROUPS = {
     "K4 flash_fwd": ["flash_fwd_tc_kernel"],
-    "K5 flash_bwd_fused": ["flash_bwd_kv_kernel"],
+    "K5 flash_bwd_fused": ["flash_bwd_tc_kernel"],
+    # the scalar K5 (float32; K6b shares its name, and no profiled step runs it)
+    "K5 scalar": ["flash_bwd_kv_kernel"],
     "K7 fused_head": ["head_update"],
     "matmul": ["gemm", "Gemm", "nvjet", "xmma", "cutlass"],
     "softmax_ce": ["softmax", "nll_loss", "cross_entropy"],
@@ -245,6 +254,7 @@ def phase_device_and_build(torch):
     _build.load("fused_conv")
     _build.load("attention")
     _build.load("flash_fwd_tc")
+    _build.load("flash_bwd_tc")
     _build.load("decode_attention")
     _build.load("bias_relu")
     _build.load("fused_head")
@@ -256,9 +266,10 @@ def phase_device_and_build(torch):
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s, "nvcc_build_s": _build.build_seconds,
           "ptxas": ptxas})
-    emit({"phase": "flash_fwd_tc_ptxas", "lines": [
-        ln.strip() for ln in _build.build_logs("flash_fwd_tc").splitlines()
-        if "entry function" in ln or "registers" in ln or "spill" in ln]})
+    for src in ("flash_fwd_tc", "flash_bwd_tc"):
+        emit({"phase": f"{src}_ptxas", "lines": [
+            ln.strip() for ln in _build.build_logs(src).splitlines()
+            if "entry function" in ln or "registers" in ln or "spill" in ln]})
 
 
 # ------------------------------------------------------------------ phase 2
@@ -497,18 +508,19 @@ def _err(torch, got, want, scale, tol):
     return float(diff.max()), float((diff / scale.clamp_min(1e-30)).max()), ok
 
 
-def _attn_inputs(torch, shape, dtype, g):
+def _attn_inputs(torch, shape, dtype, g, sk=None):
     b, h, s, d = shape
-    return [torch.randn((b * h, s, d), generator=g, device="cuda").to(dtype) for _ in range(4)]
+    mk = lambda n: torch.randn((b * h, n, d), generator=g, device="cuda").to(dtype)
+    return mk(s), mk(sk or s), mk(sk or s), mk(s)
 
 
-def _attn_check(torch, at, shape, dtype_name, causal, g):
-    """Every kernel against its plain version on one input set; returns
-    ``{kernel: {tensor: (max_abs, max error / scale)}}`` and raises on a
-    miss, naming every miss."""
+def _attn_check(torch, at, shape, dtype_name, causal, g, sk=None):
+    """Every kernel against its plain version on one input set (``sk`` keys,
+    by default as many as queries); returns ``{kernel: {tensor: (max_abs,
+    max error / scale)}}`` and raises on a miss, naming every miss."""
     dtype = getattr(torch, dtype_name)
     tol = ATTN_TOL[dtype_name]
-    q, k, v, do = _attn_inputs(torch, shape, dtype, g)
+    q, k, v, do = _attn_inputs(torch, shape, dtype, g, sk)
     out_k, lse_k = at.flash_fwd_cuda(q, k, v, causal)
     out_p, lse_p = at.flash_fwd_plain(q, k, v, causal)
     # the backward kernels get the plain forward's lse and delta, so each
@@ -565,9 +577,9 @@ def phase_attention(torch):
 
     g = torch.Generator(device="cuda").manual_seed(1)
     cases = {}
-    for shape, dtype_name, causal in ATTN_SMALL:
-        errs, _ = _attn_check(torch, at, shape, dtype_name, causal, g)
-        cases[f"{shape} {dtype_name} causal={causal}"] = errs
+    for shape, dtype_name, causal, *sk in ATTN_SMALL:
+        errs, _ = _attn_check(torch, at, shape, dtype_name, causal, g, *sk)
+        cases[f"{shape}{f' sk={sk[0]}' if sk else ''} {dtype_name} causal={causal}"] = errs
     errs, (q, k, v, do, lse, delta) = _attn_check(torch, at, ATTN_MAIN, "bfloat16", True, g)
     cases[f"{ATTN_MAIN} bfloat16 causal=True"] = errs
 
@@ -624,6 +636,8 @@ def phase_attention(torch):
           "lse_tolerance": LSE_TOL, "cases": cases, "sdpa_ms": sdpa, "main_shape": ATTN_MAIN,
           "k4_over_sdpa_fwd": out["flash_fwd"]["ms"] / sdpa["fwd"],
           "k4_bound_share": out["flash_fwd"]["bound_ms"] / out["flash_fwd"]["ms"],
+          "k5_over_sdpa_bwd": out["flash_bwd_fused"]["ms"] / sdpa["bwd"],
+          "k5_bound_share": out["flash_bwd_fused"]["bound_ms"] / out["flash_bwd_fused"]["ms"],
           "timed": {k: {kk: vv for kk, vv in v.items() if kk != "max_abs_err"}
                     for k, v in out.items()}})
     return out
@@ -682,8 +696,11 @@ def phase_lm(torch, steps=LM_STEPS):
     main["profile"] = kernel_breakdown(
         lambda: res.step_fn(res.state, res.tokens, res.targets), PROFILE_GROUPS)
     if "group_ms" in main["profile"]:
-        require(main["profile"]["group_ms"]["K4 flash_fwd"] > 0,
+        groups = main["profile"]["group_ms"]
+        require(groups["K4 flash_fwd"] > 0,
                 f"the profiled LM step shows no tensor-core K4: {main['profile']}")
+        require(groups["K5 flash_bwd_fused"] > 0 and groups["K5 scalar"] == 0,
+                f"the profiled LM step's K5 is not the tensor-core kernel: {main['profile']}")
 
     # one step from the trained weights, fused and then split; the forward is
     # the same kernel on the same weights, so the losses must be equal
@@ -1368,6 +1385,7 @@ def phase_fused_head_step(torch):
 
 ATTN_SRC = "distributed_ml_pytorch_tpu_torch/csrc/attention.cu"
 K4_SRC = "distributed_ml_pytorch_tpu_torch/csrc/flash_fwd_tc.cu"
+K5_SRC = "distributed_ml_pytorch_tpu_torch/csrc/flash_bwd_tc.cu"
 KERNEL_ROWS = [
     ("flat_axpy", "distributed_ml_pytorch_tpu_torch/csrc/fused_update.cu",
      "distributed_ml_pytorch_tpu/ops/fused_update.py:57"),
@@ -1376,7 +1394,7 @@ KERNEL_ROWS = [
     ("relu_pool2_bwd", "distributed_ml_pytorch_tpu_torch/csrc/fused_conv.cu",
      "distributed_ml_pytorch_tpu/ops/fused_conv.py:311"),
     ("flash_fwd", K4_SRC, "distributed_ml_pytorch_tpu/ops/attention.py:311"),
-    ("flash_bwd_fused", ATTN_SRC, "distributed_ml_pytorch_tpu/ops/attention.py:563"),
+    ("flash_bwd_fused", K5_SRC, "distributed_ml_pytorch_tpu/ops/attention.py:563"),
     ("flash_bwd_dq", ATTN_SRC, "distributed_ml_pytorch_tpu/ops/attention.py:592"),
     ("flash_bwd_dkv", ATTN_SRC, "distributed_ml_pytorch_tpu/ops/attention.py:605"),
     ("decode_attention", "distributed_ml_pytorch_tpu_torch/csrc/decode_attention.cu",

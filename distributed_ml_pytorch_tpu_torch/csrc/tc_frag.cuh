@@ -1,5 +1,5 @@
 // Tensor-core building blocks for Hopper (sm_90a) kernels written with
-// mma.sync and cp.async: 16-byte asynchronous copies into shared memory,
+// mma.sync and cp.async: 16- and 4-byte asynchronous copies into shared memory,
 // ldmatrix fragment loads, the m16n8k16 bf16 product with f32 accumulate,
 // and the packing of f32 accumulators into bf16 A fragments.
 //
@@ -33,6 +33,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
     const int n = valid ? 16 : 0;
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(n) : "memory");
+}
+
+// 4 bytes from global to shared memory, asynchronously (.ca, the only kind
+// below 16 bytes); with valid false the 4 bytes are zero-filled
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+    const int n = valid ? 4 : 0;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                  :: "r"(smem_u32(dst)), "l"(src), "r"(n) : "memory");
 }
 

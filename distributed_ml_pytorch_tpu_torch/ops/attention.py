@@ -7,17 +7,19 @@ do.
 - :func:`flash_attention` / :func:`flash_attention_lse`: differentiable flash
   attention (a ``torch.autograd.Function``). On CUDA tensors the forward is
   K4 and the backward the fused K5 kernel or the split pair K6a (dQ) + K6b
-  (dK/dV) of ``csrc/attention.cu``; on CPU tensors the plain versions
-  :func:`flash_fwd_plain`, :func:`flash_bwd_fused_plain` and
-  :func:`flash_bwd_split_plain` run instead. K4 for bfloat16 is the
-  tensor-core kernel of ``csrc/flash_fwd_tc.cu`` (mma.sync, cp.async); for
-  float32 it is the scalar forward of ``csrc/attention.cu``, because the
-  tensor cores have no mode that keeps float32's numbers (TF32 keeps about
-  three decimal digits, against the float32 tolerance of 1e-5). On a CUDA
-  tensor an op launches its kernel or raises (a dtype other than
-  float32/bfloat16, a head_dim other than 16/32/64/128, a tensor that is not
-  contiguous, a bfloat16 forward operand not 16-byte aligned); it never runs
-  the plain version or another kernel there.
+  (dK/dV); on CPU tensors the plain versions :func:`flash_fwd_plain`,
+  :func:`flash_bwd_fused_plain` and :func:`flash_bwd_split_plain` run
+  instead. For bfloat16, K4 and K5 are the tensor-core kernels of
+  ``csrc/flash_fwd_tc.cu`` and ``csrc/flash_bwd_tc.cu`` (mma.sync,
+  cp.async); for float32 they are the scalar kernels of
+  ``csrc/attention.cu``, because the tensor cores have no mode that keeps
+  float32's numbers (TF32 keeps about three decimal digits, against the
+  float32 tolerance of 1e-5). K6a and K6b are the scalar kernels of
+  ``csrc/attention.cu`` in both dtypes. On a CUDA tensor an op launches its
+  kernel or raises (a dtype other than float32/bfloat16, a head_dim other
+  than 16/32/64/128, a tensor that is not contiguous, a bfloat16 K4 or K5
+  operand not 16-byte aligned); it never runs the plain version or another
+  kernel there.
 - :func:`blockwise_attention`: the same online-softmax recurrence as a loop
   over key blocks in plain PyTorch, returning the un-finalized ``(acc, m, l)``
   carry with query/key offsets (what ring attention folds chunks into).
@@ -33,9 +35,9 @@ The block arguments are validated exactly as the TPU kernel validated them
 needs ``sq == sk``) and they decide ``bwd_impl=None`` the same way: "split"
 once the fused backward's dq-partials buffer, ``(sk/block_k_bwd)·b·h·sq·d``
 f32, would pass :data:`FUSED_BWD_PARTIALS_CAP`. The CUDA kernels tile by 64
-on their own and take any length; the fused kernel adds dQ with f32 atomics
-instead of writing partials (see the source's header). ``interpret`` is
-accepted and ignored.
+on their own and take any length; K5 adds dQ with f32 atomics in both
+dtypes instead of writing partials (see its sources' headers).
+``interpret`` is accepted and ignored.
 
 Numerics are the TPU kernel's: f32 scores in log2 space, ``p`` rounded to
 V's dtype before the PV product, ``dS`` rounded to the input dtype before
@@ -239,14 +241,31 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
     return out.to(q.dtype), (m + torch.log2(l)).squeeze(-1)
 
 
+def _dp_in_order(do, v):
+    """``do·vᵀ`` in f32, summed over d in order with one rounding per term:
+    the scalar kernels' FMA chain (a bfloat16 product is exact in f32, so
+    each step rounds once, as an FMA does)."""
+    dof, vf = do.float(), v.float()
+    dp = torch.zeros(dof.shape[:-1] + (vf.shape[-2],), dtype=torch.float32, device=do.device)
+    for i in range(dof.shape[-1]):
+        dp += dof[..., :, i, None] * vf[..., None, :, i]
+    return dp
+
+
 def flash_bwd_fused_plain(q, k, v, do, lse2, delta, causal: bool):
     """K5's function: ``(dq, dk, dv)`` from the base-2 ``lse2`` and
     ``delta = rowsum(do·o) − dlse``, both ``(b·h, sq)`` f32. ``p`` is
     recomputed from the lse, rounded to dO's dtype for dV; ``dS`` is rounded
-    to the input dtype for dK and dQ; dQ is summed in f32 and cast last."""
+    to the input dtype for dK and dQ; dQ is summed in f32 and cast last.
+
+    ``dP = do·vᵀ`` is summed in order of d (:func:`_dp_in_order`), not by a
+    library product: ``dS = p·(dP − delta)`` cancels where dP ≈ delta (at a
+    query that sees one key its exact value is 0), and there only a fixed
+    order makes the f32 noise the kernels' own (they sum that dP the same
+    way)."""
     p = torch.exp2(_scores_log2(q, k, causal) - lse2.unsqueeze(-1))
     dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
-    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    dp = _dp_in_order(do, v)
     ds = (p * (dp - delta.unsqueeze(-1))) * (q.shape[-1] ** -0.5)
     dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float())
     dq = torch.matmul(ds.to(k.dtype).float(), k.float())
@@ -313,19 +332,36 @@ _ARGTYPES = {
     "dmt_flash_fwd": ("attention", 5),
     "dmt_flash_fwd_tc": ("flash_fwd_tc", 5),
     "dmt_flash_bwd_fused": ("attention", 9),
+    "dmt_flash_bwd_tc": ("flash_bwd_tc", 9),
     "dmt_flash_bwd_dq": ("attention", 7),
     "dmt_flash_bwd_dkv": ("attention", 8),
 }
 
 
-def _fn(name: str):
-    lib, n_ptrs = _ARGTYPES[name]
-    fn = getattr(_build.load(lib), name)
+def _argtypes(name: str):
+    """The ctypes argument list of a C entry point: its tensor pointers, six
+    ints (b*h, sq, sk, d, causal, dtype), its scales and the stream."""
+    n_ptrs = _ARGTYPES[name][1]
     n_floats = 1 if name.startswith("dmt_flash_fwd") else 2
-    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6
-                   + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
+    return ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6
+            + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
+
+
+def _fn(name: str):
+    fn = getattr(_build.load(_ARGTYPES[name][0]), name)
+    fn.argtypes = _argtypes(name)
     fn.restype = ctypes.c_int
     return fn
+
+
+def _check_aligned(what: str, named) -> None:
+    """Raise unless every tensor starts 16-byte aligned (the tensor-core
+    kernels' ``cp.async`` copies); outputs and scratch come from the caching
+    allocator, which aligns them."""
+    for name, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be 16-byte aligned for the "
+                             f"tensor-core kernel, got offset {t.data_ptr() % 16}")
 
 
 def _scales(d: int):
@@ -345,11 +381,7 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bo
     entry = "dmt_flash_fwd"
     if q.dtype == torch.bfloat16:
         entry = "dmt_flash_fwd_tc"
-        # out and lse2 come from the caching allocator, which aligns them
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"flash forward: {name} must be 16-byte aligned for the "
-                                 f"tensor-core kernel, got offset {t.data_ptr() % 16}")
+        _check_aligned("flash forward", (("q", q), ("k", k), ("v", v)))
     with torch.cuda.device(q.device):
         rc = _fn(entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                         lse2.data_ptr(), bh, sq, k.shape[1], d, int(causal), code,
@@ -368,13 +400,19 @@ def _bwd_prologue(name, q, k, v, do, lse2, delta, causal):
 
 def flash_bwd_fused_cuda(q, k, v, do, lse2, delta, causal: bool):
     """Launch K5: ``(dq, dk, dv)``; dQ is accumulated in an f32 buffer with
-    atomics and cast to q's dtype after the launch."""
+    atomics and cast to q's dtype after the launch. bfloat16 goes to the
+    tensor-core kernel, whose ``cp.async`` copies need q, k, v and do 16-byte
+    aligned; float32 to the scalar kernel."""
     code = _bwd_prologue("flash fused backward", q, k, v, do, lse2, delta, causal)
+    entry = "dmt_flash_bwd_fused"
+    if q.dtype == torch.bfloat16:
+        entry = "dmt_flash_bwd_tc"
+        _check_aligned("flash fused backward", (("q", q), ("k", k), ("v", v), ("do", do)))
     bh, sq, d = q.shape
     dq_acc = torch.zeros((bh, sq, d), dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
-        rc = _fn("dmt_flash_bwd_fused")(
+        rc = _fn(entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse2.data_ptr(),
             delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             bh, sq, k.shape[1], d, int(causal), code, *_scales(d), _build.stream_of(q))

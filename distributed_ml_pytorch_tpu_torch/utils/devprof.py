@@ -8,14 +8,22 @@ kernels' durations (one stream, so they do not overlap); the idle share is
 ``1 - busy / wall``, with the wall clock taken around the profiled run, so
 it includes the profiler's own host overhead and reads as an upper bound.
 
-When the profiler records no device time (it relies on CUPTI), the result
-says so in ``"device_time"`` instead of reporting zeros as measurements.
+A profiled run that records no device time is repeated (up to
+``PROFILER_RUNS`` in all); when none records any (the profiler relies on CUPTI),
+the result says so in ``"device_time"`` instead of reporting zeros as
+measurements.
 """
 
 from __future__ import annotations
 
 import time
 from typing import Callable, Dict, Mapping, Sequence
+
+
+#: profiled runs tried before reporting no device time: on an H100 under
+#: torch 2.11, short back-to-back profiled runs sometimes came back without
+#: their CUDA events
+PROFILER_RUNS = 3
 
 
 def _kernel_us(evt) -> float:
@@ -29,24 +37,28 @@ def _kernel_us(evt) -> float:
 
 def kernel_breakdown(fn: Callable[[], object], groups: Mapping[str, Sequence[str]],
                      top: int = 8) -> Dict[str, object]:
-    """Run ``fn`` once under the profiler; return wall and busy ms, the idle
-    share, ms per group and the ``top`` kernels by device time."""
+    """Run ``fn`` under the profiler; return wall and busy ms, the idle
+    share, ms per group and the ``top`` kernels by device time. ``fn`` may
+    run up to ``PROFILER_RUNS`` times (see :data:`PROFILER_RUNS`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for _run in range(PROFILER_RUNS):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    per_kernel: Dict[str, float] = {}
-    for evt in prof.events():
-        if getattr(evt, "device_type", None) != DeviceType.CUDA:
-            continue
-        per_kernel[evt.name] = per_kernel.get(evt.name, 0.0) + _kernel_us(evt) / 1e3
-    busy_ms = sum(per_kernel.values())
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        per_kernel: Dict[str, float] = {}
+        for evt in prof.events():
+            if getattr(evt, "device_type", None) != DeviceType.CUDA:
+                continue
+            per_kernel[evt.name] = per_kernel.get(evt.name, 0.0) + _kernel_us(evt) / 1e3
+        busy_ms = sum(per_kernel.values())
+        if busy_ms > 0.0:
+            break
     if busy_ms <= 0.0:
         return {"wall_ms": wall_ms, "device_time": "not measured (no CUDA kernel events)"}
     by_group = {label: 0.0 for label in groups}

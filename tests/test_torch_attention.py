@@ -7,9 +7,11 @@ The JAX side runs its Pallas flash kernels in interpret mode (blocks of
 Tolerances (float32): 1e-5 absolute and relative on outputs and lse, 1e-4
 on gradients. The two sides compute the same function with sums in other
 orders: the JAX kernel folds key blocks one at a time with an online max,
-the plain version takes each row's max at once. One bfloat16 case is held
-to 2e-2: both sides round p and dS to bfloat16, but against different
-running maxima, so individual roundings differ by one bfloat16 step.
+the plain version takes each row's max at once. The bfloat16 cases (each
+head_dim the kernels are built for, causal and not) are held to 2e-2: both
+sides round p and dS to bfloat16, but against different running maxima, so
+individual roundings differ by one bfloat16 step. The ctypes argument lists
+are held to the C signatures they call.
 Without JAX, the plain versions' own bfloat16 roundings are held within
 2^-7 of each output's absolute product (``flash_error_scales``), the scale
 the card's kernels are held at.
@@ -108,13 +110,16 @@ def test_flash_attention_lse_with_lse_cotangent_matches_jax(bwd_impl, lse_only):
         np.testing.assert_allclose(_np(got), np.asarray(ref), **GRAD_TOL)
 
 
-def test_flash_attention_bf16_matches_jax():
-    shape = (1, 2, 256, 64)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
+def test_flash_attention_bf16_matches_jax(head_dim, causal):
+    # every head_dim the bfloat16 kernels (K4, K5) are built for
+    shape = (1, 2, 256, head_dim)
     q, k, v, g = _arrays(shape, seed=21, n=4)
-    jf = _jflash(True, "fused", dtype=jnp.bfloat16)
+    jf = _jflash(causal, "fused", dtype=jnp.bfloat16)
     out_ref, grads_ref = _jvjp(jf, q, k, v, jnp.asarray(g).astype(jnp.bfloat16))
     qt, kt, vt = (_t(a, torch.bfloat16) for a in (q, k, v))
-    out = ta.flash_attention(qt, kt, vt, causal=True, bwd_impl="fused")
+    out = ta.flash_attention(qt, kt, vt, causal=causal, bwd_impl="fused")
     assert out.dtype == torch.bfloat16
     np.testing.assert_allclose(_np(out), np.asarray(out_ref, np.float32), **BF16_TOL)
     out.backward(torch.from_numpy(g).to(torch.bfloat16))
@@ -223,6 +228,67 @@ def test_error_scales_bound_the_bf16_roundings(causal):
         assert bool((err <= 1e-6 + 2.0 ** -7 * sc[name]).all()), name
         # and not far inside it: the bound is not slack by orders of magnitude
         assert float((err / sc[name].clamp_min(1e-30)).max()) > 2.0 ** -10, name
+
+
+@pytest.mark.parametrize("head_dim", [16, 128])
+def test_plain_dp_is_one_fma_chain_in_order_of_d(head_dim):
+    # the plain backward's dP: f32 terms added in order of d, each rounded
+    # once (a bfloat16 product is exact in f32), as the kernels' FMA chains
+    rng = np.random.default_rng(head_dim)
+    do, v = (torch.from_numpy(rng.normal(size=(2, 5, head_dim)).astype(np.float32))
+             .to(torch.bfloat16) for _ in range(2))
+    a, b = do.float().numpy(), v.float().numpy()
+    want = np.zeros((2, 5, 5), np.float32)
+    for i in range(head_dim):
+        want = want + a[:, :, None, i] * b[:, None, :, i]
+    assert want.dtype == np.float32
+    np.testing.assert_array_equal(ta._dp_in_order(do, v).numpy(), want)
+
+
+_SOURCES = ("attention.cu", "flash_fwd_tc.cu", "flash_bwd_tc.cu")
+
+
+def _c_signatures():
+    """``{entry point: (pointers, ints, floats)}`` of every ``extern "C" int
+    dmt_flash_*`` in the attention sources (``void* stream`` is a pointer)."""
+    import pathlib
+    import re
+
+    csrc = pathlib.Path(ta.__file__).resolve().parent.parent / "csrc"
+    sigs = {}
+    for src in _SOURCES:
+        text = (csrc / src).read_text()
+        for name, params in re.findall(r'extern "C" int (dmt_flash_\w+)\(([^)]*)\)', text):
+            kinds = [("ptr" if "*" in p else p.split()[-2]) for p in params.split(",")]
+            sigs[name] = (kinds.count("ptr"), kinds.count("int"), kinds.count("float"))
+    return sigs
+
+
+@pytest.mark.parametrize("name", sorted(ta._ARGTYPES))
+def test_ctypes_argtypes_match_the_c_signatures(name):
+    # ctypes passes an undeclared or int-typed pointer as 32 bits: each entry
+    # point's argtypes must count the C signature's pointers, ints and floats
+    import ctypes
+
+    sigs = _c_signatures()
+    assert set(sigs) == set(ta._ARGTYPES)
+    types = ta._argtypes(name)
+    assert len(types) == sum(sigs[name])
+    assert (types.count(ctypes.c_void_p), types.count(ctypes.c_int),
+            types.count(ctypes.c_float)) == sigs[name]
+
+
+def test_k5_numerics_bench_edits_match_the_kernel_source():
+    # bench_k5_numerics builds its variants by rewriting these lines
+    import pathlib
+
+    from distributed_ml_pytorch_tpu_torch import bench_k5_numerics as bench
+
+    src = (pathlib.Path(ta.__file__).resolve().parent.parent / "csrc"
+           / "flash_bwd_tc.cu").read_text()
+    for edits in bench.EDITS.values():
+        for old, _new in edits:
+            assert src.count(old) == 1, old
 
 
 def test_cpu_path_launches_no_kernel():

@@ -124,7 +124,8 @@ def test_alexnet_fused_and_unfused_steps_agree(cuda):
 #: fused dQ). bfloat16 (unit roundoff u = 2^-8): p and dS round to bfloat16
 #: against the kernel's running max in K4 and after other sums in K5/K6, at
 #: most u of each term on each side, and each side rounds its output: 4u =
-#: 2^-6 of the absolute product; atol is float32 summation noise.
+#: 2^-6 of the absolute product; atol is float32 summation noise (where
+#: dS = p (dP - delta) cancels, both sides sum dP in order of d).
 ATTN_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
             torch.bfloat16: dict(atol=1e-6, rtol=2.0 ** -6)}
 
@@ -242,19 +243,73 @@ def test_flash_fwd_tensor_core_kernel_rejects_misaligned(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("bwd_impl", ["fused", "split"])
-def test_flash_attention_autograd_on_the_card(cuda, bwd_impl):
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("sq,sk,causal", [(s, s, c) for s in (1, 63, 65, 200, 1000)
+                                          for c in (True, False)]
+                         + [(100, 300, False), (300, 100, False)])
+def test_flash_bwd_tensor_core_kernel_matches_plain(cuda, d, sq, sk, causal):
+    # the bfloat16 fused backward (flash_bwd_tc.cu): ragged query and key
+    # tiles (zero-filled rows masked by position), a single query, sq != sk
+    from distributed_ml_pytorch_tpu_torch.ops import attention as tat
+
+    q, k, v, do = _attn_inputs(cuda, (3, sq, d), torch.bfloat16, seed=sq + sk + d, sk=sk)
+    out_p, lse_p = tat.flash_fwd_plain(q, k, v, causal)
+    delta = (do.float() * out_p.float()).sum(-1)
+    args = (q, k, v, do, lse_p, delta, causal)
+    before = dict(tat.launches)
+    got = tat.flash_bwd_fused_cuda(*args)
+    want = tat.flash_bwd_fused_plain(*args)
+    sc = tat.flash_error_scales(*args)
+    torch.cuda.synchronize()
+    assert {n: tat.launches[n] - before[n] for n in before} == {
+        "flash_fwd": 0, "flash_bwd_fused": 1, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    for name, g, w, t in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert g.dtype == torch.bfloat16 and g.shape == t.shape
+        assert bool(torch.isfinite(g.float()).all()), name
+        _close(g, w, torch.bfloat16, f"K5 {name}", sc[name])
+
+
+@pytest.mark.gpu
+def test_flash_bwd_tensor_core_kernel_rejects_misaligned(cuda):
+    from distributed_ml_pytorch_tpu_torch.ops import attention as tat
+
+    bh, s, d = 2, 128, 64
+    q = torch.randn(bh, s, d, device=cuda).to(torch.bfloat16)
+    lse = torch.zeros(bh, s, device=cuda)
+    # contiguous, but 2 bytes past a 16-byte boundary
+    odd = torch.empty(bh * s * d + 1, device=cuda, dtype=torch.bfloat16)[1:].view(bh, s, d)
+    odd.copy_(q)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    before = dict(tat.launches)
+    for i, name in enumerate(("q", "k", "v", "do")):
+        args = [q, q, q, q]
+        args[i] = odd
+        with pytest.raises(ValueError, match=f"{name} must be 16-byte aligned"):
+            tat.flash_bwd_fused_cuda(*args, lse, lse, True)
+    assert tat.launches == before
+    # float32 has no such requirement (the scalar kernel's element loads)
+    odd32 = torch.empty(bh * s * d + 1, device=cuda)[1:].view(bh, s, d)
+    odd32.copy_(q.float())
+    out, lse2 = tat.flash_fwd_cuda(odd32, odd32, odd32, True)
+    delta = (odd32 * out).sum(-1)
+    got = tat.flash_bwd_fused_cuda(odd32, odd32, odd32, odd32, lse2, delta, True)
+    torch.cuda.synchronize()
+    assert tat.launches["flash_bwd_fused"] == before["flash_bwd_fused"] + 1
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bwd_impl,dtype", [("fused", torch.float32), ("split", torch.float32),
+                                            ("fused", torch.bfloat16)])
+def test_flash_attention_autograd_on_the_card(cuda, bwd_impl, dtype):
     from distributed_ml_pytorch_tpu_torch.ops import attention as tat
 
     rng = np.random.default_rng(7)
     arrs = [rng.normal(size=(2, 3, 256, 64)).astype(np.float32) for _ in range(4)]
     before = dict(tat.launches)
-    qc, kc, vc = (torch.from_numpy(a).to(cuda).requires_grad_(True) for a in arrs[:3])
-    tat.flash_attention(qc, kc, vc, causal=True, bwd_impl=bwd_impl).backward(
-        torch.from_numpy(arrs[3]).to(cuda))
-    qr, kr, vr = (torch.from_numpy(a).requires_grad_(True) for a in arrs[:3])
-    out_r = tat.flash_attention(qr, kr, vr, causal=True, bwd_impl=bwd_impl)
-    out_r.backward(torch.from_numpy(arrs[3]))
+    qc, kc, vc = (torch.from_numpy(a).to(cuda, dtype).requires_grad_(True) for a in arrs[:3])
+    doc = torch.from_numpy(arrs[3]).to(cuda, dtype)
+    tat.flash_attention(qc, kc, vc, causal=True, bwd_impl=bwd_impl).backward(doc)
     torch.cuda.synchronize()
     launched = {n: tat.launches[n] - before[n] for n in before}
     if bwd_impl == "fused":
@@ -263,8 +318,25 @@ def test_flash_attention_autograd_on_the_card(cuda, bwd_impl):
     else:
         assert launched == {"flash_fwd": 1, "flash_bwd_fused": 0, "flash_bwd_dq": 1,
                             "flash_bwd_dkv": 1}
-    for got, want in ((qc.grad, qr.grad), (kc.grad, kr.grad), (vc.grad, vr.grad)):
-        _close(got, want, torch.float32, "grad")
+    grads = (qc.grad, kc.grad, vc.grad)
+    if dtype == torch.float32:
+        qr, kr, vr = (torch.from_numpy(a).requires_grad_(True) for a in arrs[:3])
+        out_r = tat.flash_attention(qr, kr, vr, causal=True, bwd_impl=bwd_impl)
+        out_r.backward(torch.from_numpy(arrs[3]))
+        for got, want in zip(grads, (qr.grad, kr.grad, vr.grad)):
+            _close(got, want, torch.float32, "grad")
+        return
+    # bfloat16: the backward's inputs are K4's out and lse (deterministic), so
+    # the same inputs through the plain backward give the reference
+    flat = [t.detach().reshape(6, 256, 64) for t in (qc, kc, vc, doc)]
+    out, lse2 = tat.flash_fwd_cuda(*flat[:3], True)
+    delta = (flat[3].float() * out.float()).sum(-1)
+    args = (*flat, lse2, delta, True)
+    want = tat.flash_bwd_fused_plain(*args)
+    sc = tat.flash_error_scales(*args)
+    for name, got, w in zip(("dq", "dk", "dv"), grads, want):
+        assert got.dtype == torch.bfloat16
+        _close(got.reshape(6, 256, 64), w, torch.bfloat16, f"grad {name}", sc[name])
 
 
 @pytest.mark.gpu
@@ -355,20 +427,24 @@ def test_default_widths_run_on_the_card(cuda, capsys):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,kernel,other", [
-    (torch.float32, "flash_fwd_kernel", "flash_fwd_tc_kernel"),
-    (torch.bfloat16, "flash_fwd_tc_kernel", "flash_fwd_kernel")])
-def test_kernel_breakdown_sees_the_card(cuda, dtype, kernel, other):
-    # K4 by kernel name: float32 keeps the scalar kernel (the tensor cores
-    # have no float32 mode that keeps its numbers), bfloat16 takes the
+@pytest.mark.parametrize("op,dtype,kernel,other", [
+    ("K4", torch.float32, "flash_fwd_kernel", "flash_fwd_tc_kernel"),
+    ("K4", torch.bfloat16, "flash_fwd_tc_kernel", "flash_fwd_kernel"),
+    ("K5", torch.float32, "flash_bwd_kv_kernel", "flash_bwd_tc_kernel"),
+    ("K5", torch.bfloat16, "flash_bwd_tc_kernel", "flash_bwd_kv_kernel")])
+def test_kernel_breakdown_sees_the_card(cuda, op, dtype, kernel, other):
+    # K4 and K5 by kernel name: float32 keeps the scalar kernels (the tensor
+    # cores have no float32 mode that keeps its numbers), bfloat16 takes the
     # tensor cores
     from distributed_ml_pytorch_tpu_torch.ops import attention as tat
     from distributed_ml_pytorch_tpu_torch.utils.devprof import kernel_breakdown
 
     q = torch.randn(4, 512, 64, device=cuda).to(dtype)
-    res = kernel_breakdown(lambda: tat.flash_fwd_cuda(q, q, q, True),
-                           {"K4": [kernel], "other K4": [other]})
-    assert res["group_ms"]["K4"] > 0 and res["group_ms"]["other K4"] == 0
+    lse = torch.zeros(4, 512, device=cuda)
+    fn = {"K4": lambda: tat.flash_fwd_cuda(q, q, q, True),
+          "K5": lambda: tat.flash_bwd_fused_cuda(q, q, q, q, lse, lse, True)}[op]
+    res = kernel_breakdown(fn, {op: [kernel], f"other {op}": [other]})
+    assert res["group_ms"][op] > 0 and res["group_ms"][f"other {op}"] == 0
     assert res["busy_ms"] <= res["wall_ms"]
     assert 0.0 <= res["idle_share"] < 1.0
 
