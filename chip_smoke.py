@@ -7,8 +7,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device and build: the card's name, count and power limit, and the nvcc
    build of ``distributed_ml_pytorch_tpu_torch/csrc/*.cu``; then the
-   tensor-core K4's and K5's ``-Xptxas -v`` lines (registers, spills), each
-   on a line of its own;
+   ``-Xptxas -v`` lines (registers, spills) of the tensor-core K4, of K5 and
+   K6b, and of K8, each source on a line of its own;
 2. every kernel against its plain PyTorch version on the card, at the shapes
    of the main path (flat_axpy at AlexNet's padded length; relu_pool2
    forward and backward at AlexNet's three epilogue shapes at batch 64,
@@ -23,9 +23,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    with the CLI defaults (AlexNet, batch 64, lr 0.008, n_push = n_pull = 10)
    on synthetic CIFAR-10; the kernels' launch counts are zeroed just before
    and read just after, and every kernel must have run;
-5. the flash-attention kernels (K4 forward and K5 fused backward: the
-   tensor-core kernels for bfloat16, the scalar ones for float32; K6a/K6b
-   split backward) against their plain versions on the same inputs, at the
+5. the flash-attention kernels (K4 forward, K5 fused backward and K6b
+   split dK/dV: the tensor-core kernels for bfloat16, the scalar ones for
+   float32; K6a split dQ, scalar) against their plain versions on the same
+   inputs, K6b's dK and dV also bit for bit against K5's, at the
    LM's per-layer shape (b8 h12 s2048 d64, bfloat16, causal) and at small
    shapes (float32 causal and not, head_dim 16 in both dtypes and bfloat16
    non-causal, 32 and 128 in bfloat16, a ragged s 200, 100 queries over 300
@@ -40,16 +41,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the trained weights with the default (fused) backward and one with
    ``bwd_impl="split"`` injected, which must agree; the profiled step's
    "K4 flash_fwd" and "K5 flash_bwd_fused" groups must read the tensor-core
-   kernels, and the scalar K5 must not run; then
+   kernels, and the scalar K5 must not run; the fused and the split step
+   timed (one warm-up, three steps, ``utils/devtime``) and one split step
+   profiled, whose "K6b flash_bwd_dkv" group must show the tensor-core K6b
+   12 times and no scalar one (a profile that records no kernel fails the
+   phase); then
    ``train_lm`` and the serving demo with their default widths (8 heads of
    d_model 128: head_dim 16), launching K4/K5 and K8;
 7. the decode-attention kernel (K8) against its reference on the same
    inputs: b32 h12 d64 T16 at C 128, 256 and 383 with per-row t (0, 5, 15)
    and ring_base, through strided live-prefix views, at C 8192, with
    bfloat16 and int8 caches, and float32 at a small shape, within the stated
-   bounds; timed cold (input sets in turn, twice the L2) beside the
-   reference, ``F.scaled_dot_product_attention`` over a pre-concatenated K/V,
-   and the byte bound;
+   bounds; then with the keys split over 1, 2, 4 and 8 blocks, forced, on
+   the same inputs (rows with no live key among them), each within the bound
+   of the reference and of one block; timed cold (input sets in turn, twice
+   the L2) beside the reference, ``F.scaled_dot_product_attention`` over a
+   pre-concatenated K/V, and the byte bound, at the decode shape and at b1
+   with 2,048 live keys and b8 with 256 (each also at every split count);
 8. ``generate()`` on GPT-2-small (vocab 50304, d 768, 12 heads, 12 layers,
    d_ff 3072, bfloat16, learned positions, max_len 384) at batch 32, prompt
    128, 256 new tokens, greedy, the blocked path — once with the bfloat16
@@ -61,7 +69,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    slots, cache 512, decode block 16, prefill bucket 16): 16 requests,
    prompts of 16-128 tokens, 32-128 new tokens, odd ones sampled (0.8, top-k
    40, top-p 0.95); every stream complete and in vocabulary; TTFT/TPOT
-   percentiles, occupancy and K8 launches;
+   percentiles, occupancy, K8 launches and the split count of each; the
+   engine must pass K8 a live-prefix view, not its 512-row allocation; K8 on
+   the engine's own inputs at its longest cache, at every split count,
+   within the bound of the reference and timed cold;
 10. the conv-epilogue ladder: the bias+relu kernels (K3a forward, K3b
    backward) bit-identical to their plain versions, with and without bias,
    at (4096, 384), at AlexNet's NHWC tail (256, 4, 4, 384), at an odd C
@@ -200,8 +211,10 @@ AD_UPDATE_TOL = 2.0 ** -5
 PROFILE_GROUPS = {
     "K4 flash_fwd": ["flash_fwd_tc_kernel"],
     "K5 flash_bwd_fused": ["flash_bwd_tc_kernel"],
-    # the scalar K5 (float32; K6b shares its name, and no profiled step runs it)
-    "K5 scalar": ["flash_bwd_kv_kernel"],
+    "K6a flash_bwd_dq": ["flash_bwd_dq_kernel"],
+    "K6b flash_bwd_dkv": ["flash_bwd_dkv_tc_kernel"],
+    # the scalar K5 and K6b (float32 only; no profiled step runs them)
+    "K5/K6b scalar": ["flash_bwd_kv_kernel"],
     "K7 fused_head": ["head_update"],
     "matmul": ["gemm", "Gemm", "nvjet", "xmma", "cutlass"],
     "softmax_ce": ["softmax", "nll_loss", "cross_entropy"],
@@ -266,7 +279,7 @@ def phase_device_and_build(torch):
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s, "nvcc_build_s": _build.build_seconds,
           "ptxas": ptxas})
-    for src in ("flash_fwd_tc", "flash_bwd_tc"):
+    for src in ("flash_fwd_tc", "flash_bwd_tc", "decode_attention"):
         emit({"phase": f"{src}_ptxas", "lines": [
             ln.strip() for ln in _build.build_logs(src).splitlines()
             if "entry function" in ln or "registers" in ln or "spill" in ln]})
@@ -555,6 +568,11 @@ def _attn_check(torch, at, shape, dtype_name, causal, g, sk=None):
                               f"(atol, rtol) {t}")
     require(not misses, f"kernel != plain at {shape} {dtype_name} causal={causal}: "
                         f"{'; '.join(misses)}")
+    # K6b is K5 without dQ: the same dK and dV, bit for bit
+    require(torch.equal(dk_s, fused[1]) and torch.equal(dv_s, fused[2]),
+            f"K6b's dK/dV differ from K5's at {shape} {dtype_name} causal={causal}: max "
+            f"{float((dk_s.float() - fused[1].float()).abs().max())} / "
+            f"{float((dv_s.float() - fused[2].float()).abs().max())}")
     return errs, (q, k, v, do, lse_p, delta)
 
 
@@ -633,11 +651,13 @@ def phase_attention(torch):
             "flop_bound_ms": flop_ms, "byte_bound_ms": byte_ms,
         }
     emit({"phase": "attention_vs_plain", "ok": True, "tolerance": ATTN_TOL,
+          "k6b_dkv_bit_identical_to_k5": True,
           "lse_tolerance": LSE_TOL, "cases": cases, "sdpa_ms": sdpa, "main_shape": ATTN_MAIN,
           "k4_over_sdpa_fwd": out["flash_fwd"]["ms"] / sdpa["fwd"],
           "k4_bound_share": out["flash_fwd"]["bound_ms"] / out["flash_fwd"]["ms"],
           "k5_over_sdpa_bwd": out["flash_bwd_fused"]["ms"] / sdpa["bwd"],
           "k5_bound_share": out["flash_bwd_fused"]["bound_ms"] / out["flash_bwd_fused"]["ms"],
+          "k6b_bound_share": out["flash_bwd_dkv"]["bound_ms"] / out["flash_bwd_dkv"]["ms"],
           "timed": {k: {kk: vv for kk, vv in v.items() if kk != "max_abs_err"}
                     for k, v in out.items()}})
     return out
@@ -657,6 +677,7 @@ def phase_lm(torch, steps=LM_STEPS):
     from distributed_ml_pytorch_tpu_torch.ops import attention as at
     from distributed_ml_pytorch_tpu_torch.training import train_lm
     from distributed_ml_pytorch_tpu_torch.utils.devprof import kernel_breakdown
+    from distributed_ml_pytorch_tpu_torch.utils.devtime import device_time
     from distributed_ml_pytorch_tpu_torch.utils.flops import (
         device_peak_flops,
         lm_train_flops_6nd,
@@ -695,12 +716,13 @@ def phase_lm(torch, steps=LM_STEPS):
     # where one more step's time goes on the card (torch.profiler)
     main["profile"] = kernel_breakdown(
         lambda: res.step_fn(res.state, res.tokens, res.targets), PROFILE_GROUPS)
-    if "group_ms" in main["profile"]:
-        groups = main["profile"]["group_ms"]
-        require(groups["K4 flash_fwd"] > 0,
-                f"the profiled LM step shows no tensor-core K4: {main['profile']}")
-        require(groups["K5 flash_bwd_fused"] > 0 and groups["K5 scalar"] == 0,
-                f"the profiled LM step's K5 is not the tensor-core kernel: {main['profile']}")
+    require("group_ms" in main["profile"],
+            f"the profiled LM step recorded no kernel: {main['profile']}")
+    groups = main["profile"]["group_ms"]
+    require(groups["K4 flash_fwd"] > 0,
+            f"the profiled LM step shows no tensor-core K4: {main['profile']}")
+    require(groups["K5 flash_bwd_fused"] > 0 and groups["K5/K6b scalar"] == 0,
+            f"the profiled LM step's K5 is not the tensor-core kernel: {main['profile']}")
 
     # one step from the trained weights, fused and then split; the forward is
     # the same kernel on the same weights, so the losses must be equal
@@ -725,6 +747,17 @@ def phase_lm(torch, steps=LM_STEPS):
     split = {"loss_fused": float(loss_f), "loss_split": float(loss_s),
              "max_abs_update_diff": diff, "max_abs_update": scale,
              "rel_update_diff_l2": num / den, "launches": split_launches}
+
+    # both steps timed as the AD step is (one warm-up, three steps, device
+    # time), then one split step profiled: K6a and K6b by kernel name
+    def one_step():
+        return res.step_fn(res.state, res.tokens, res.targets)[1]
+
+    split["fused_step_ms"] = device_time(one_step, calls=3, warmup=1).per_call_ms
+    model.set_attn_fn(functools.partial(at.flash_attention, causal=True, bwd_impl="split"))
+    split["split_step_ms"] = device_time(one_step, calls=3, warmup=1).per_call_ms
+    split["profile"] = kernel_breakdown(one_step, PROFILE_GROUPS)
+    model.set_attn_fn(None)
     emit({"phase": "lm_gpt2_small", "config": GPT2_SMALL, "lr": LM_LR, **main,
           "split_step": split})
     require(float(loss_f) == float(loss_s),
@@ -735,6 +768,12 @@ def phase_lm(torch, steps=LM_STEPS):
             f"the split step launched {split_launches}")
     require(num / den <= SPLIT_UPDATE_TOL,
             f"split and fused updates differ: relative L2 {num / den} > {SPLIT_UPDATE_TOL}")
+    require("group_launches" in split["profile"],
+            f"the profiled split step recorded no kernel: {split['profile']}")
+    calls = split["profile"]["group_launches"]
+    require(calls["K6b flash_bwd_dkv"] == n_layers and calls["K6a flash_bwd_dq"] == n_layers
+            and calls["K5/K6b scalar"] == 0 and calls["K5 flash_bwd_fused"] == 0,
+            f"the profiled split step's backward kernels: {calls}")
     return launches, split_launches
 
 
@@ -793,6 +832,17 @@ def _decode_case(torch, g, b, h, C, T, d, dtype, quant, t, ring_base, pad=0):
     return (q, kn, vn, bk[:, :, :C], bv[:, :, :C], rk, rv, tt, rb, sk, sv)
 
 
+def _cold(sets, fn):
+    """``fn`` over the input sets in turn, one set a call (for timing cold:
+    the sets together hold more than the L2)."""
+    turn = [0]
+
+    def call():
+        turn[0] += 1
+        return fn(*sets[turn[0] % len(sets)])
+    return call
+
+
 def _decode_bytes(args):
     """Bytes K8 must move for these inputs: q, k_new, v_new and out, the
     live keys of K and V (and their scales), the filled ring slots."""
@@ -806,6 +856,8 @@ def _decode_bytes(args):
 
 
 def phase_decode_attention(torch):
+    import functools
+
     import torch.nn.functional as F
 
     from distributed_ml_pytorch_tpu_torch.ops import decode_attention as da
@@ -840,38 +892,72 @@ def phase_decode_attention(torch):
             misses.append(f"{label}: max abs {mx}, max err / scale {rel}, (atol, rtol) {tol}")
     require(not misses, "K8 != reference: " + "; ".join(misses))
 
-    # timed at the decode shape: 256 live keys of a 384-row allocation, 8
-    # ring slots filled, every row alike; cold, as in the decode step (each
-    # layer reads its own cache): input sets in turn, at least twice the 50 MB
-    # L2 in all
+    # the keys split over 1, 2, 4 and 8 blocks, forced, on the same inputs:
+    # each within the bound of the reference and of one block per (b, h);
+    # every fourth row has no live key in the big cache (ring_base 0)
+    splits = {}
+    for label, (sb, C, quant) in (("b32 C=383 bfloat16", (b, 383, False)),
+                                  ("b32 C=383 int8", (b, 383, True)),
+                                  ("b8 C=256 bfloat16", (8, 256, False)),
+                                  ("b1 C=2048 bfloat16", (1, 2048, False)),
+                                  ("b1 C=2048 int8", (1, 2048, True))):
+        rb = torch.randint(0, C + 1, (sb,), generator=g, device="cuda")
+        rb[::4] = 0
+        t = torch.randint(0, T + 1, (sb,), generator=g, device="cuda")
+        args = _decode_case(torch, g, sb, h, C, T, d, torch.bfloat16, quant, t, rb, 16)
+        want = da.decode_attention_reference(*args)
+        scale = da.decode_error_scale(*args)
+        one = da.decode_attention_cuda(*args, splits=1)
+        tol = DECODE_TOL["bfloat16"]
+        splits[label] = {}
+        for n in da.SPLITS:
+            got = da.decode_attention_cuda(*args, splits=n)
+            torch.cuda.synchronize()
+            require(bool(torch.isfinite(got.float()).all()), f"K8 not finite: {label} S={n}")
+            mx, rel, ok = _err(torch, got, want, scale, tol)
+            mx1, rel1, ok1 = _err(torch, got, one, scale, tol)
+            splits[label][n] = {"max_abs_err": mx, "max_err_over_scale": rel,
+                                "vs_one_block_max_abs": mx1}
+            worst = max(worst, mx)
+            require(ok and ok1, f"K8 {label} at S={n}: against the reference {mx} ({rel} of "
+                                f"the scale), against S=1 {mx1} ({rel1}), (atol, rtol) {tol}")
+
+    # timed cold, as in the decode step (each layer reads its own cache):
+    # input sets in turn, at least twice the 50 MB L2 in all. The decode
+    # shape (256 live keys of a 384-row allocation, 8 ring slots filled,
+    # every row alike) in both caches; batch-1 generate() at long context
+    # and the serving engine's 8 slots, each also with one block per (b, h)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     timed = {}
-    for name, quant in (("bfloat16", False), ("int8", True)):
-        first = _decode_case(torch, g, b, h, 256, T, d, torch.bfloat16, quant, 8, 256, 128)
+    for name, sb, live, pad, quant in (("bfloat16", b, 256, 128, False),
+                                       ("int8", b, 256, 128, True),
+                                       ("b1_live2048", 1, 2048, 256, False),
+                                       ("b8_live256", 8, 256, 128, False)):
+        first = _decode_case(torch, g, sb, h, live, T, d, torch.bfloat16, quant, 8, live, pad)
         n_sets = -(-2 * L2_BYTES // _decode_bytes(first))
-        sets = [first] + [_decode_case(torch, g, b, h, 256, T, d, torch.bfloat16, quant, 8,
-                                       256, 128) for _ in range(n_sets - 1)]
-        turn = [0]
-
-        def cold(fn):
-            def call():
-                turn[0] += 1
-                return fn(*sets[turn[0] % len(sets)])
-            return call
-
-        entry = {"ms": device_ms(cold(da.decode_attention_cuda), 200),
-                 "plain_ms": device_ms(cold(da.decode_attention_reference), 50),
+        sets = [first] + [_decode_case(torch, g, sb, h, live, T, d, torch.bfloat16, quant, 8,
+                                       live, pad) for _ in range(n_sets - 1)]
+        entry = {"b": sb, "live": live, "alloc": live + pad,
+                 "splits": da.decode_splits(sb * h, live, sms),
+                 "ms": device_ms(_cold(sets, da.decode_attention_cuda), 200),
+                 "plain_ms": device_ms(_cold(sets, da.decode_attention_reference), 50),
                  "bound_ms": bound_ms(_decode_bytes(sets[0])), "bound_by": "bytes",
                  "bytes": _decode_bytes(sets[0]), "library_ms": None}
+        if sb < b:
+            # the small batches at every split count, forced
+            entry["ms_by_splits"] = {n: device_ms(_cold(sets, functools.partial(
+                da.decode_attention_cuda, splits=n)), 200) for n in da.SPLITS}
         if not quant:
             # SDPA over K/V concatenated beforehand (the concat is not timed)
             sets[:] = [(a[0], torch.cat([a[3], a[5][:, :, :8], a[1]], dim=2),
                         torch.cat([a[4], a[6][:, :, :8], a[2]], dim=2)) for a in sets]
-            entry["library_ms"] = device_ms(cold(F.scaled_dot_product_attention), 200)
+            entry["library_ms"] = device_ms(_cold(sets, F.scaled_dot_product_attention), 200)
         entry["input_sets"] = n_sets
+        entry["bound_share"] = entry["bound_ms"] / entry["ms"]
         timed[name] = entry
     emit({"phase": "decode_attention_vs_plain", "ok": True, "tolerance": DECODE_TOL,
-          "cases": results, "timed_shape": {"b": b, "h": h, "d": d, "T": T, "live": 256,
-                                            "alloc": 384, "t": 8},
+          "cases": results, "forced_splits": splits, "sms": sms,
+          "timed_shape": {"b": b, "h": h, "d": d, "T": T, "live": 256, "alloc": 384, "t": 8},
           "timed": timed})
     return {"decode_attention": {"max_abs_err": worst, **timed["bfloat16"]}}
 
@@ -1033,6 +1119,8 @@ def phase_generate(torch):
 # ------------------------------------------------------------------ phase 9
 
 def phase_serving(torch):
+    import functools
+
     import numpy as np
 
     from distributed_ml_pytorch_tpu_torch.models import TransformerLM
@@ -1064,6 +1152,22 @@ def phase_serving(torch):
     frontend = ServingFrontend(engine, world[0])
     client = ServingClient(world[1])
     server = threading.Thread(target=frontend.serve_forever, daemon=True)
+    # the split count of every K8 call the engine makes, and a copy of the
+    # inputs of its first call at the longest big cache it passed
+    chosen, longest = {}, []
+    real_splits, real_k8 = da.decode_splits, da.decode_attention_cuda
+
+    def record_splits(bh, C, sms):
+        n = real_splits(bh, C, sms)
+        chosen[n] = chosen.get(n, 0) + 1
+        return n
+
+    def record_inputs(*args):
+        if not longest or args[3].shape[2] > longest[0][3].shape[2]:
+            longest[:] = [tuple(a.clone() if torch.is_tensor(a) else a for a in args)]
+        return real_k8(*args)
+
+    da.decode_splits, da.decode_attention_cuda = record_splits, record_inputs
     da.launches = 0
     try:
         with _ReferenceCalls(da) as ref:
@@ -1073,6 +1177,7 @@ def phase_serving(torch):
             streams = [(n, list(client.stream(rid, timeout=300.0))) for rid, n in rids]
             wall = time.perf_counter() - t0
     finally:
+        da.decode_splits, da.decode_attention_cuda = real_splits, real_k8
         frontend.stop()
         server.join(timeout=10)
         for t in world.values():
@@ -1080,10 +1185,37 @@ def phase_serving(torch):
     launches = da.launches
     summary = engine.slo_summary()
     n_tokens = sum(len(s) for _, s in streams)
+
+    # K8 on the engine's own inputs at its longest cache, cold (copies in
+    # turn), at every split count, each held to the reference
+    args = longest[0]
+    b, h, C = args[3].shape[:3]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_sets = -(-2 * L2_BYTES // _decode_bytes(args))
+    sets = [args] + [tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+                     for _ in range(n_sets - 1)]
+    want = da.decode_attention_reference(*args)
+    scale = da.decode_error_scale(*args)
+    engine_k8 = {"b": b, "h": h, "C": C, "live_keys": int(args[8].sum()) * h,
+                 "splits": da.decode_splits(b * h, C, sms), "input_sets": n_sets,
+                 "bound_ms": bound_ms(_decode_bytes(args)), "ms_by_splits": {},
+                 "max_abs_err_by_splits": {}}
+    for n in da.SPLITS:
+        mx, rel, ok = _err(torch, da.decode_attention_cuda(*args, splits=n), want, scale,
+                           DECODE_TOL["bfloat16"])
+        require(ok, f"K8 on the engine's inputs at S={n}: {mx} ({rel} of the scale)")
+        engine_k8["max_abs_err_by_splits"][n] = mx
+        engine_k8["ms_by_splits"][n] = device_ms(_cold(sets, functools.partial(
+            da.decode_attention_cuda, splits=n)), 200)
+    del sets
     emit({"phase": "serving_engine", "requests": SERVE_REQUESTS, "slots": 8,
           "cache_size": 512, "decode_block": 16, "prefill_bucket": 16, "wall_s": wall,
           "tokens": n_tokens, "tokens_per_s": n_tokens / wall, "k8_launches": launches,
+          "k8_splits_chosen": chosen, "k8_at_longest_cache": engine_k8,
           "reference_calls": ref.n, "slo": summary})
+    require(sum(chosen.values()) == launches,
+            f"K8 chose a split count {sum(chosen.values())} times in {launches} launches")
+    require(C < 512, f"the engine passed K8 its whole allocation ({C} rows)")
     require(not server.is_alive(), "the serving loop did not stop")
     for i, (n, toks) in enumerate(streams):
         require(len(toks) == n and all(0 <= t < vocab for t in toks),
@@ -1396,7 +1528,7 @@ KERNEL_ROWS = [
     ("flash_fwd", K4_SRC, "distributed_ml_pytorch_tpu/ops/attention.py:311"),
     ("flash_bwd_fused", K5_SRC, "distributed_ml_pytorch_tpu/ops/attention.py:563"),
     ("flash_bwd_dq", ATTN_SRC, "distributed_ml_pytorch_tpu/ops/attention.py:592"),
-    ("flash_bwd_dkv", ATTN_SRC, "distributed_ml_pytorch_tpu/ops/attention.py:605"),
+    ("flash_bwd_dkv", K5_SRC, "distributed_ml_pytorch_tpu/ops/attention.py:605"),
     ("decode_attention", "distributed_ml_pytorch_tpu_torch/csrc/decode_attention.cu",
      "distributed_ml_pytorch_tpu/ops/decode_attention.py:128"),
     ("fused_head", "distributed_ml_pytorch_tpu_torch/csrc/fused_head.cu",

@@ -1,8 +1,8 @@
 // Flash attention over (batch*heads, seq, head_dim): the forward (K4), the
 // fused backward (K5) and the split backward's dQ (K6a) and dK/dV (K6b)
-// kernels at head_dim 16, 32, 64 and 128: K6a and K6b for float32 and
-// bfloat16 inputs, K4 and K5 for float32 only (their bfloat16 versions are
-// the tensor-core kernels of flash_fwd_tc.cu and flash_bwd_tc.cu).
+// kernels at head_dim 16, 32, 64 and 128: K6a for float32 and bfloat16
+// inputs, K4, K5 and K6b for float32 only (their bfloat16 versions are the
+// tensor-core kernels of flash_fwd_tc.cu and flash_bwd_tc.cu).
 //
 // Replaces: distributed_ml_pytorch_tpu/ops/attention.py
 //   K4  _flash_fwd            (pallas_call at :311, body _flash_kernel at :196)
@@ -14,8 +14,8 @@
 // the forward does 2 products over the score plane against 4 (b*h, s, d)
 // tensors read or written, about 512 operations per byte, above the card's
 // ridge. These kernels use scalar float32 FMAs out of shared memory, not the
-// tensor cores (mma / wgmma), so they run far from the bf16 bound; K6a and
-// K6b on the tensor cores, on K5's tiling, are later work.
+// tensor cores (mma / wgmma), so they run far from the bf16 bound; K6a on
+// the tensor cores is later work.
 //
 // Design. The TPU kernels walk a sequential grid and carry the online-softmax
 // state (or dK/dV) in VMEM scratch from one grid step to the next. On the
@@ -540,7 +540,10 @@ int run_one(Which w, const Args& a) {
             if constexpr (std::is_same<T, float>::value) return run_bwd_kv<T, D, true>(a);
             return (int)cudaErrorInvalidValue;
         case kBwdDq: return run_bwd_dq<T, D>(a);
-        case kBwdDkv: return run_bwd_kv<T, D, false>(a);
+        case kBwdDkv:
+            // bfloat16 takes flash_bwd_tc.cu's K6b kernel: no instance here
+            if constexpr (std::is_same<T, float>::value) return run_bwd_kv<T, D, false>(a);
+            return (int)cudaErrorInvalidValue;
     }
     return (int)cudaErrorInvalidValue;
 }
@@ -603,6 +606,7 @@ extern "C" int dmt_flash_bwd_dq(const void* q, const void* k, const void* v,
     return dispatch(kBwdDq, dtype, d, a);
 }
 
+// float32 (dtype 0) only; bfloat16 returns cudaErrorInvalidValue
 extern "C" int dmt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse, const float* delta,
                                  void* dk, void* dv, int bh, int sq, int sk, int d, int causal,

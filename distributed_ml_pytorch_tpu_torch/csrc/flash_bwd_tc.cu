@@ -1,18 +1,25 @@
-// Flash-attention fused backward (K5) on the tensor cores, bfloat16 in and
-// out, float32 accumulate, at head_dim 16, 32, 64 and 128.
+// Flash-attention fused backward (K5) and split dK/dV backward (K6b) on the
+// tensor cores, bfloat16 in and out, float32 accumulate, at head_dim 16, 32,
+// 64 and 128.
 //
 // Replaces: distributed_ml_pytorch_tpu/ops/attention.py
 //   K5 _flash_bwd_core, fused branch (pallas_call at :563, body
-//   _flash_bwd_fused_kernel at :428)
+//   _flash_bwd_fused_kernel at :428): flash_bwd_tc_kernel;
+//   K6b _flash_bwd_core, split dK/dV (pallas_call at :605, body
+//   _flash_dkv_kernel): flash_bwd_dkv_tc_kernel, the same body without its
+//   dQ stretch (no dS^T tile, no second barrier, no atomics);
 // for bfloat16 inputs; float32 stays on the scalar flash_bwd_kv_kernel of
 // attention.cu (the tensor cores have no mode that keeps float32's numbers).
+// K6b's dK and dV are K5's bit for bit: the same products, summed in the same
+// order, with no atomics on either.
 //
 // Bound on an H100: operations. At the LM's shape (b8 h12 s2048 d64, causal)
 // the backward does five products over the causal half of the score plane
 // (S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q, dQ += dS K),
 // 128.8 GFLOP, 0.130 ms at 989.4 TFLOP/s dense bf16, against 7 (b*h, s, d)
 // tensors (q, k, v, dO in; dQ, dK, dV out) and 2 row vectors (lse, delta),
-// about 0.05 ms at 3.35 TB/s.
+// about 0.05 ms at 3.35 TB/s. K6b does the first four products, 103 GFLOP,
+// 0.104 ms.
 //
 // Design (FlashAttention-2's backward, Dao 2023, Algorithm 2, with mma.sync
 // and cp.async, on the fragments of tc_frag.cuh):
@@ -101,8 +108,10 @@ struct BwdCfg {
     static constexpr int ND = D / 8;            // n8 tiles over d
     static constexpr bool KV_REGS = D <= 64;    // K, V fragments kept in registers
     static constexpr int DQC = D < 64 ? D : 64; // dQ columns per pass
-    // K, V, Q x 2, dO x 2, dS^T; then lse x 2 and delta x 2 (f32)
-    static constexpr int SMEM = (6 * TILE + kBK * LDS) * 2 + 4 * kBQ * 4;
+    // K, V, Q x 2, dO x 2; lse x 2 and delta x 2 (f32); then, for dQ, dS^T
+    static constexpr int smem(bool with_dq) {
+        return 6 * TILE * 2 + 4 * kBQ * 4 + (with_dq ? kBK * LDS * 2 : 0);
+    }
 };
 
 // rows row0 .. row0+63 of a (rows, D) bf16 matrix into a padded shared tile
@@ -154,22 +163,25 @@ __device__ __forceinline__ void load_rows_async(float* ls, float* dl, const floa
     tc::cp_async4(dst + r, src + (ok ? row0 + r : 0), ok);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq_acc, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                    int sq, int sk, int causal, float scale_log2, float scale) {
+// One block's work, K5's with WITH_DQ, K6b's without (dq_acc unused).
+template <int D, bool WITH_DQ>
+__device__ __forceinline__ void bwd_block(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                          const bf16* __restrict__ v,
+                                          const bf16* __restrict__ dout,
+                                          const float* __restrict__ lse,
+                                          const float* __restrict__ delta,
+                                          float* __restrict__ dq_acc, bf16* __restrict__ dk,
+                                          bf16* __restrict__ dv, int sq, int sk, int causal,
+                                          float scale_log2, float scale) {
     using C = BwdCfg<D>;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
     bf16* Vs = Ks + C::TILE;
     bf16* Qs = Vs + C::TILE;      // two buffers
     bf16* Os = Qs + 2 * C::TILE;  // dO, two buffers
-    bf16* St = Os + 2 * C::TILE;  // dS^T, (key, query)
-    float* Ls = reinterpret_cast<float*>(St + kBK * C::LDS);  // lse, two buffers
-    float* Dl = Ls + 2 * kBQ;                                  // delta, two buffers
+    float* Ls = reinterpret_cast<float*>(Os + 2 * C::TILE);  // lse, two buffers
+    float* Dl = Ls + 2 * kBQ;                                 // delta, two buffers
+    bf16* St = reinterpret_cast<bf16*>(Dl + 2 * kBQ);        // dS^T, (key, query): K5 only
 
     const int bh = blockIdx.y;
     const int k0 = blockIdx.x * kBK;  // causal: key tile 0 sees every query tile
@@ -336,6 +348,9 @@ flash_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             }
         }
 
+        // K6b is done with this query tile: dQ is K6a's
+        if constexpr (!WITH_DQ) continue;
+
         // this warp's dS^T rows into the shared tile, for dQ across the warps
         bf16* srow = St + (kr + g) * C::LDS + 2 * t;
 #pragma unroll
@@ -401,18 +416,76 @@ flash_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dq_acc, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                    int sq, int sk, int causal, float scale_log2, float scale) {
+    bwd_block<D, true>(q, k, v, dout, lse, delta, dq_acc, dk, dv, sq, sk, causal, scale_log2,
+                       scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk,
+                        int causal, float scale_log2, float scale) {
+    bwd_block<D, false>(q, k, v, dout, lse, delta, nullptr, dk, dv, sq, sk, causal,
+                        scale_log2, scale);
+}
+
+template <int D, bool WITH_DQ>
 int run(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, const float* lse,
         const float* delta, float* dq_acc, bf16* dk, bf16* dv, int bh, int sq, int sk,
         int causal, float scale_log2, float scale, cudaStream_t stream) {
-    constexpr int smem = BwdCfg<D>::SMEM;
-    auto kern = flash_bwd_tc_kernel<D>;
-    cudaError_t e =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    dim3 grid((sk + kBK - 1) / kBK, bh);
-    kern<<<grid, kThreads, smem, stream>>>(q, k, v, dout, lse, delta, dq_acc, dk, dv, sq, sk,
-                                           causal, scale_log2, scale);
+    constexpr int smem = BwdCfg<D>::smem(WITH_DQ);
+    const dim3 grid((sk + kBK - 1) / kBK, bh);
+    cudaError_t e;
+    if constexpr (WITH_DQ) {
+        e = cudaFuncSetAttribute(flash_bwd_tc_kernel<D>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return (int)e;
+        flash_bwd_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
+            q, k, v, dout, lse, delta, dq_acc, dk, dv, sq, sk, causal, scale_log2, scale);
+    } else {
+        e = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<D>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return (int)e;
+        flash_bwd_dkv_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
+            q, k, v, dout, lse, delta, dk, dv, sq, sk, causal, scale_log2, scale);
+    }
     return (int)cudaGetLastError();
+}
+
+template <bool WITH_DQ>
+int dispatch(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+             const float* delta, float* dq_acc, void* dk, void* dv, int bh, int sq, int sk,
+             int d, int causal, int dtype, float scale_log2, float scale, void* stream) {
+    if (dtype != 1 || bh < 0 || bh > 65535 || sq < 0 || sk < 0)
+        return (int)cudaErrorInvalidValue;
+    if (bh == 0 || sq == 0 || sk == 0) return (int)cudaGetLastError();
+    const bf16 *qp = (const bf16*)q, *kp = (const bf16*)k, *vp = (const bf16*)v,
+               *op = (const bf16*)dout;
+    bf16 *dkp = (bf16*)dk, *dvp = (bf16*)dv;
+    cudaStream_t s = (cudaStream_t)stream;
+    switch (d) {
+        case 16:
+            return run<16, WITH_DQ>(qp, kp, vp, op, lse, delta, dq_acc, dkp, dvp, bh, sq, sk,
+                                    causal, scale_log2, scale, s);
+        case 32:
+            return run<32, WITH_DQ>(qp, kp, vp, op, lse, delta, dq_acc, dkp, dvp, bh, sq, sk,
+                                    causal, scale_log2, scale, s);
+        case 64:
+            return run<64, WITH_DQ>(qp, kp, vp, op, lse, delta, dq_acc, dkp, dvp, bh, sq, sk,
+                                    causal, scale_log2, scale, s);
+        case 128:
+            return run<128, WITH_DQ>(qp, kp, vp, op, lse, delta, dq_acc, dkp, dvp, bh, sq, sk,
+                                     causal, scale_log2, scale, s);
+    }
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -425,26 +498,17 @@ extern "C" int dmt_flash_bwd_tc(const void* q, const void* k, const void* v, con
                                 const float* lse, const float* delta, float* dq_acc, void* dk,
                                 void* dv, int bh, int sq, int sk, int d, int causal, int dtype,
                                 float scale_log2, float scale, void* stream) {
-    if (dtype != 1 || bh < 0 || bh > 65535 || sq < 0 || sk < 0)
-        return (int)cudaErrorInvalidValue;
-    if (bh == 0 || sq == 0 || sk == 0) return (int)cudaGetLastError();
-    const bf16 *qp = (const bf16*)q, *kp = (const bf16*)k, *vp = (const bf16*)v,
-               *op = (const bf16*)dout;
-    bf16 *dkp = (bf16*)dk, *dvp = (bf16*)dv;
-    cudaStream_t s = (cudaStream_t)stream;
-    switch (d) {
-        case 16:
-            return run<16>(qp, kp, vp, op, lse, delta, dq_acc, dkp, dvp, bh, sq, sk, causal,
-                           scale_log2, scale, s);
-        case 32:
-            return run<32>(qp, kp, vp, op, lse, delta, dq_acc, dkp, dvp, bh, sq, sk, causal,
-                           scale_log2, scale, s);
-        case 64:
-            return run<64>(qp, kp, vp, op, lse, delta, dq_acc, dkp, dvp, bh, sq, sk, causal,
-                           scale_log2, scale, s);
-        case 128:
-            return run<128>(qp, kp, vp, op, lse, delta, dq_acc, dkp, dvp, bh, sq, sk, causal,
-                            scale_log2, scale, s);
-    }
-    return (int)cudaErrorInvalidValue;
+    return dispatch<true>(q, k, v, dout, lse, delta, dq_acc, dk, dv, bh, sq, sk, d, causal,
+                          dtype, scale_log2, scale, stream);
+}
+
+// K6b: the arguments of dmt_flash_bwd_dkv (attention.cu); dtype must be 1
+// (bfloat16), and q, k, v and dout 16-byte aligned, as above.
+extern "C" int dmt_flash_bwd_dkv_tc(const void* q, const void* k, const void* v,
+                                    const void* dout, const float* lse, const float* delta,
+                                    void* dk, void* dv, int bh, int sq, int sk, int d,
+                                    int causal, int dtype, float scale_log2, float scale,
+                                    void* stream) {
+    return dispatch<false>(q, k, v, dout, lse, delta, nullptr, dk, dv, bh, sq, sk, d, causal,
+                           dtype, scale_log2, scale, stream);
 }

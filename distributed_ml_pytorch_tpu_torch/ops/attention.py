@@ -9,17 +9,18 @@ do.
   K4 and the backward the fused K5 kernel or the split pair K6a (dQ) + K6b
   (dK/dV); on CPU tensors the plain versions :func:`flash_fwd_plain`,
   :func:`flash_bwd_fused_plain` and :func:`flash_bwd_split_plain` run
-  instead. For bfloat16, K4 and K5 are the tensor-core kernels of
-  ``csrc/flash_fwd_tc.cu`` and ``csrc/flash_bwd_tc.cu`` (mma.sync,
-  cp.async); for float32 they are the scalar kernels of
+  instead. For bfloat16, K4 is the tensor-core kernel of
+  ``csrc/flash_fwd_tc.cu``, and K5 and K6b those of ``csrc/flash_bwd_tc.cu``
+  (mma.sync, cp.async; K6b is K5 without its dQ, and its dK and dV are K5's
+  bit for bit); for float32 they are the scalar kernels of
   ``csrc/attention.cu``, because the tensor cores have no mode that keeps
   float32's numbers (TF32 keeps about three decimal digits, against the
-  float32 tolerance of 1e-5). K6a and K6b are the scalar kernels of
+  float32 tolerance of 1e-5). K6a is the scalar kernel of
   ``csrc/attention.cu`` in both dtypes. On a CUDA tensor an op launches its
   kernel or raises (a dtype other than float32/bfloat16, a head_dim other
-  than 16/32/64/128, a tensor that is not contiguous, a bfloat16 K4 or K5
-  operand not 16-byte aligned); it never runs the plain version or another
-  kernel there.
+  than 16/32/64/128, a tensor that is not contiguous, a bfloat16 K4, K5 or
+  K6b operand not 16-byte aligned); it never runs the plain version or
+  another kernel there.
 - :func:`blockwise_attention`: the same online-softmax recurrence as a loop
   over key blocks in plain PyTorch, returning the un-finalized ``(acc, m, l)``
   carry with query/key offsets (what ring attention folds chunks into).
@@ -335,6 +336,7 @@ _ARGTYPES = {
     "dmt_flash_bwd_tc": ("flash_bwd_tc", 9),
     "dmt_flash_bwd_dq": ("attention", 7),
     "dmt_flash_bwd_dkv": ("attention", 8),
+    "dmt_flash_bwd_dkv_tc": ("flash_bwd_tc", 8),
 }
 
 
@@ -437,12 +439,20 @@ def flash_bwd_dq_cuda(q, k, v, do, lse2, delta, causal: bool):
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse2, delta, causal: bool):
-    """Launch K6b: ``(dk, dv)`` (deterministic)."""
+    """Launch K6b: ``(dk, dv)`` (deterministic). bfloat16 goes to the
+    tensor-core kernel (K5's without dQ: the same dK and dV bit for bit),
+    whose ``cp.async`` copies need q, k, v and do 16-byte aligned; float32 to
+    the scalar kernel."""
     code = _bwd_prologue("flash split backward (dk/dv)", q, k, v, do, lse2, delta, causal)
+    entry = "dmt_flash_bwd_dkv"
+    if q.dtype == torch.bfloat16:
+        entry = "dmt_flash_bwd_dkv_tc"
+        _check_aligned("flash split backward (dk/dv)",
+                       (("q", q), ("k", k), ("v", v), ("do", do)))
     bh, sq, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
-        rc = _fn("dmt_flash_bwd_dkv")(
+        rc = _fn(entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse2.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, sq, k.shape[1], d,
             int(causal), code, *_scales(d), _build.stream_of(q))

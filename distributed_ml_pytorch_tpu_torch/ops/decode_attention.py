@@ -19,7 +19,9 @@ This is exactly the single-token step of the blocked decode in
 :func:`decode_attention_step` on every such step. On CUDA tensors that is the
 kernel of ``csrc/decode_attention.cu`` (any context length; head_dim 16,
 32, 64 or 128; float32 or bfloat16 activations; the big cache may be a strided
-live-prefix view). On CPU tensors it is :func:`decode_attention_reference`,
+live-prefix view), one launch whose blocks split each (b, h)'s keys over a
+thread-block cluster of :func:`decode_splits` blocks. On CPU tensors it is
+:func:`decode_attention_reference`,
 the module's own math in the module's op order. There is no other path: a
 CUDA tensor the kernel cannot take raises.
 """
@@ -37,8 +39,36 @@ from distributed_ml_pytorch_tpu_torch.ops import _build
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+#: blocks the kernel may split one (b, h)'s keys over: the cluster sizes
+#: every Hopper card launches (larger ones need a non-portable attribute)
+SPLITS = (1, 2, 4, 8)
+#: fewest keys of the big cache a split may be given: merging the splits
+#: (two cluster barriers, reads of the other blocks' shared memory) costs
+#: about one round of device memory, so a split has to save more than one
+#: chunk of loads (128 keys a block at bfloat16 head_dim 64)
+MIN_KEYS_PER_SPLIT = 256
+
 #: launches of the CUDA kernel (the reference does not count)
 launches = 0
+
+
+def decode_splits(bh: int, C: int, sms: int) -> int:
+    """Blocks per (b, h) for ``bh`` (batch x heads) rows over a big cache
+    of ``C`` keys on a card of ``sms`` SMs: the largest S of :data:`SPLITS`
+    whose grid of ``bh * S`` blocks fits two blocks to an SM and whose splits
+    keep at least :data:`MIN_KEYS_PER_SPLIT` keys of C each; 1 where none
+    does. A grid past one wave, or a split of few keys, loses more than it
+    gains (``chip_smoke.py`` phase 7 times every S at the small batches).
+    ``C`` is the length of the big cache as passed: both callers pass a
+    live-prefix view (``generate()`` the block's live length, the serving
+    pool its longest slot's), so the splits count keys that can be live.
+    Shapes only: ``t`` and ``ring_base`` stay on the card, so choosing costs
+    no host sync."""
+    best = 1
+    for s in SPLITS:
+        if bh * s <= 2 * sms and C >= s * MIN_KEYS_PER_SPLIT:
+            best = s
+    return best
 
 
 def _rows(x, b: int, device) -> torch.Tensor:
@@ -103,8 +133,10 @@ def _check_rows_aligned(name: str, x: torch.Tensor, rows: int) -> None:
 
 
 def decode_attention_cuda(q, k_new, v_new, big_k, big_v, ring_k, ring_v, t, ring_base,
-                          scale_k=None, scale_v=None) -> torch.Tensor:
-    """Launch K8 on CUDA tensors; returns ``(B, H, 1, D)`` in ``q``'s dtype."""
+                          scale_k=None, scale_v=None, *, splits=None) -> torch.Tensor:
+    """Launch K8 on CUDA tensors; returns ``(B, H, 1, D)`` in ``q``'s dtype.
+    ``splits`` (one of :data:`SPLITS`) overrides :func:`decode_splits`, so
+    that tests can hold every split count to the same inputs."""
     global launches
     b, h, one, d = q.shape
     quant = big_k.dtype == torch.int8
@@ -146,8 +178,15 @@ def decode_attention_cuda(q, k_new, v_new, big_k, big_v, ring_k, ring_v, t, ring
         _check_rows_aligned(name, tensors[name], 2)
     for name in ("big_k", "big_v", "ring_k", "ring_v"):
         _check_rows_aligned(name, tensors[name], 3)
-    t = _rows(t, b, q.device).contiguous()
-    rb = _rows(ring_base, b, q.device).contiguous()
+    if splits is None:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        splits = decode_splits(b * h, C, sms)
+    elif splits not in SPLITS:
+        raise ValueError(f"decode attention: splits must be one of {SPLITS}, got {splits}")
+    # read through their row stride: a value every row shares (stride 0)
+    # costs no copy kernel
+    t = _rows(t, b, q.device)
+    rb = _rows(ring_base, b, q.device)
     out = torch.empty((b, h, 1, d), dtype=q.dtype, device=q.device)
     ptrs = (ctypes.c_void_p * 12)(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), big_k.data_ptr(),
@@ -156,11 +195,11 @@ def decode_attention_cuda(q, k_new, v_new, big_k, big_v, ring_k, ring_v, t, ring
         t.data_ptr(), rb.data_ptr(), out.data_ptr())
     sk_st = scale_k.stride() if quant else (0, 0, 0)
     sv_st = scale_v.stride() if quant else (0, 0, 0)
-    strides = (ctypes.c_longlong * 24)(
+    strides = (ctypes.c_longlong * 26)(
         *q.stride()[:2], *k_new.stride()[:2], *v_new.stride()[:2],
         *big_k.stride()[:3], *big_v.stride()[:3], *ring_k.stride()[:3],
-        *ring_v.stride()[:3], *sk_st, *sv_st)
-    dims = (ctypes.c_int * 7)(b, h, C, T, d, _DTYPE_CODES[q.dtype], int(quant))
+        *ring_v.stride()[:3], *sk_st, *sv_st, t.stride(0), rb.stride(0))
+    dims = (ctypes.c_int * 8)(b, h, C, T, d, _DTYPE_CODES[q.dtype], int(quant), splits)
     fn = _build.load("decode_attention").dmt_decode_attention
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
                    ctypes.c_void_p]

@@ -12,8 +12,10 @@ vector. A single-token step then masks each row by its own ``ring_base`` and
 ``t = cursor - ring_base`` (the decode-attention kernel K8 reads both per
 row on the device) and writes each row's ring at its own slot; once per
 block the rings merge into the big caches at per-slot offsets. Slot lengths
-differ, so steps read the full allocation under the per-row mask (K8 reads
-only the live keys).
+differ, so steps read a live-prefix view of the big caches as long as the
+longest slot's ``ring_base`` under the per-row mask. The pool keeps each
+slot's ``ring_base`` on the host too (it sets every value itself), so the
+view's length costs no device sync; K8 sizes its split of the keys by it.
 
 Admission (prefill) runs per request on a fresh zeroed batch-1 lane, which
 is copied into the pool at the target slot. That freshness keeps slot reuse
@@ -39,6 +41,7 @@ import torch
 from distributed_ml_pytorch_tpu_torch.models.generate import (
     DECODE_BLOCK,
     _decode_model,
+    _tree_slice_big,
     init_cache,
     join_cache,
     merge_ring_caches,
@@ -133,6 +136,8 @@ class SlotKVPool:
             if path[-1] in ("cursor", "ring_base"):  # one per slot
                 _get(self.cache, path[:-1])[path[-1]] = torch.zeros(
                     self.slots, dtype=torch.int32, device=self.device)
+        #: every slot's ``ring_base`` as the cache holds it, kept on the host
+        self.ring_base = np.zeros(self.slots, np.int64)
 
     def _lane(self):
         return init_cache(self.model, 1, self.cache_size, self.decode_block, self.kv_quant)
@@ -164,6 +169,7 @@ class SlotKVPool:
         tok0 = sample_tokens_dynamic(last, [gen], [temperature], [top_k], [top_p])[0]
         for path, leaf in _leaves(lane):
             _get(self.cache, path)[slot] = leaf[0] if leaf.dim() else leaf
+        self.ring_base[slot] = real_len
         return int(tok0)
 
     @torch.no_grad()
@@ -180,12 +186,15 @@ class SlotKVPool:
         temps = np.asarray(temps, np.float32)
         big, small = split_cache(self.cache)
         base = find_cache_leaf(small, "ring_base").clone()
+        # every slot's live keys of the big caches lie below the longest
+        # slot's ring_base: the steps read that prefix, not the allocation
+        view = _tree_slice_big(big, int(self.ring_base.max()))
         tok = torch.as_tensor(np.asarray(tok), device=self.device).long()
         toks = []
         for step in range(T):
             cursor = find_cache_leaf(small, "cursor")
             logits, cache = self.dec(tok[:, None], cursor.long()[:, None],
-                                     cache=join_cache(big, small))
+                                     cache=join_cache(view, small))
             _, small = split_cache(cache)
             gens = [step_generator(int(seeds[i]), int(n_gen[i]) + step, self.device)
                     if temps[i] > 0.0 else None for i in range(self.slots)]
@@ -199,15 +208,18 @@ class SlotKVPool:
             "cursor": torch.where(act, cursor, zero),
             "ring_base": torch.where(act, base + T, zero)})
         self.cache = join_cache(big, small)
+        self.ring_base = np.where(np.asarray(active, bool), self.ring_base + T, 0)
         return torch.stack(toks, dim=1).cpu().numpy()
 
     def reset_slots(self, slot_indices) -> None:
         """Mark the given slots empty (cursor/ring_base back to 0): their
         cache contents become invisible and their live length reads 0."""
-        idx = torch.as_tensor(list(slot_indices), dtype=torch.long, device=self.device)
+        slot_indices = list(slot_indices)
+        idx = torch.as_tensor(slot_indices, dtype=torch.long, device=self.device)
         for path, leaf in _leaves(self.cache):
             if path[-1] in ("cursor", "ring_base"):
                 leaf[idx] = 0
+        self.ring_base[slot_indices] = 0
 
     def slot_kv(self, slot: int) -> np.ndarray:
         """One slot's KV lane as a flat float32 vector: every floating cache

@@ -3,8 +3,9 @@
 :func:`kernel_breakdown` runs ``fn`` under ``torch.profiler`` (CPU and CUDA
 activities), synchronizes, and sums each CUDA kernel's device time by name
 and by group (``groups`` maps a label to substrings of kernel names; the
-first match wins, the rest is ``"other"``). The busy time is the sum of the
-kernels' durations (one stream, so they do not overlap); the idle share is
+first match wins, the rest is ``"other"``), and counts each group's kernel
+launches. The busy time is the sum of the kernels' durations (one stream,
+so they do not overlap); the idle share is
 ``1 - busy / wall``, with the wall clock taken around the profiled run, so
 it includes the profiler's own host overhead and reads as an upper bound.
 
@@ -38,8 +39,9 @@ def _kernel_us(evt) -> float:
 def kernel_breakdown(fn: Callable[[], object], groups: Mapping[str, Sequence[str]],
                      top: int = 8) -> Dict[str, object]:
     """Run ``fn`` under the profiler; return wall and busy ms, the idle
-    share, ms per group and the ``top`` kernels by device time. ``fn`` may
-    run up to ``PROFILER_RUNS`` times (see :data:`PROFILER_RUNS`)."""
+    share, ms and launches per group and the ``top`` kernels by device
+    time. ``fn`` may run up to ``PROFILER_RUNS`` times (see
+    :data:`PROFILER_RUNS`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -52,10 +54,12 @@ def kernel_breakdown(fn: Callable[[], object], groups: Mapping[str, Sequence[str
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         per_kernel: Dict[str, float] = {}
+        calls: Dict[str, int] = {}
         for evt in prof.events():
             if getattr(evt, "device_type", None) != DeviceType.CUDA:
                 continue
             per_kernel[evt.name] = per_kernel.get(evt.name, 0.0) + _kernel_us(evt) / 1e3
+            calls[evt.name] = calls.get(evt.name, 0) + 1
         busy_ms = sum(per_kernel.values())
         if busy_ms > 0.0:
             break
@@ -63,10 +67,13 @@ def kernel_breakdown(fn: Callable[[], object], groups: Mapping[str, Sequence[str
         return {"wall_ms": wall_ms, "device_time": "not measured (no CUDA kernel events)"}
     by_group = {label: 0.0 for label in groups}
     by_group["other"] = 0.0
+    launches = dict.fromkeys(by_group, 0)
     for name, ms in per_kernel.items():
         label = next((lb for lb, keys in groups.items() if any(k in name for k in keys)),
                      "other")
         by_group[label] += ms
+        launches[label] += calls[name]
     ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:top]
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
-            "group_ms": by_group, "top_kernels_ms": [[n[:120], ms] for n, ms in ranked]}
+            "group_ms": by_group, "group_launches": launches,
+            "top_kernels_ms": [[n[:120], ms] for n, ms in ranked]}

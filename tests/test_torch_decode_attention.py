@@ -149,3 +149,27 @@ def test_reference_rejects_bad_row_state():
     with pytest.raises(ValueError, match="per-row"):
         da.decode_attention_step(*_torch([q, kn, vn, bk, bv, rk, rv]),
                                  torch.zeros(2, dtype=torch.int32), 3)
+
+
+@pytest.mark.parametrize("bh,C", [(1, 1), (12, 255), (12, 8192), (96, 2048), (132, 4096),
+                                  (384, 2048), (5000, 8192)])
+def test_decode_splits_reads_shapes_only(bh, C):
+    # the split count the wrapper launches K8 with: a portable cluster size,
+    # at least MIN_KEYS_PER_SPLIT keys of C per split, and a grid that fits
+    # two blocks to an SM, on any card
+    for sms in (132, 114):
+        s = da.decode_splits(bh, C, sms)
+        assert s in da.SPLITS
+        assert s == 1 or C >= s * da.MIN_KEYS_PER_SPLIT
+        assert s == 1 or bh * s <= 2 * sms
+
+
+@pytest.mark.parametrize("bh,C,want", [(32 * 12, 256, 1), (8 * 12, 256, 1), (8 * 12, 512, 2),
+                                       (12, 2048, 8), (4 * 12, 1024, 4), (2 * 12, 4096, 8),
+                                       (12, 300, 1), (12, 600, 2), (3 * 4, 8192, 8)])
+def test_decode_splits_at_the_decode_shapes(bh, C, want):
+    # GPT-2-small's 12 heads on an H100's 132 SMs, C the live keys the
+    # callers' views hold: generate() at b32 and the serving pool's 8 slots
+    # over at most 256 keys keep one block per (b, h); batch 1 at long
+    # context takes 8; a short cache caps the split at C / 256
+    assert da.decode_splits(bh, C, 132) == want

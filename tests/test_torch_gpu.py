@@ -299,8 +299,55 @@ def test_flash_bwd_tensor_core_kernel_rejects_misaligned(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("sq,sk,causal", [(s, s, c) for s in (100, 1000) for c in (True, False)]
+                         + [(256, 256, True), (100, 300, False), (300, 100, False)])
+def test_flash_dkv_tensor_core_kernel_is_k5_without_dq(cuda, d, sq, sk, causal):
+    # the bfloat16 split dK/dV (K6b, flash_bwd_tc.cu's dQ-free kernel): the
+    # same products in the same order as K5, so dK and dV equal K5's bit for
+    # bit, and within the bound of the plain version; ragged query tiles
+    from distributed_ml_pytorch_tpu_torch.ops import attention as tat
+
+    q, k, v, do = _attn_inputs(cuda, (3, sq, d), torch.bfloat16, seed=sq + 7 * sk + d, sk=sk)
+    out_p, lse_p = tat.flash_fwd_plain(q, k, v, causal)
+    delta = (do.float() * out_p.float()).sum(-1)
+    args = (q, k, v, do, lse_p, delta, causal)
+    before = dict(tat.launches)
+    dk, dv = tat.flash_bwd_dkv_cuda(*args)
+    _dq, dk5, dv5 = tat.flash_bwd_fused_cuda(*args)
+    want = tat.flash_bwd_fused_plain(*args)
+    sc = tat.flash_error_scales(*args)
+    torch.cuda.synchronize()
+    assert {n: tat.launches[n] - before[n] for n in before} == {
+        "flash_fwd": 0, "flash_bwd_fused": 1, "flash_bwd_dq": 0, "flash_bwd_dkv": 1}
+    assert dk.dtype == dv.dtype == torch.bfloat16 and dk.shape == k.shape
+    assert torch.equal(dk, dk5) and torch.equal(dv, dv5)
+    for name, g, w in (("dk", dk, want[1]), ("dv", dv, want[2])):
+        assert bool(torch.isfinite(g.float()).all()), name
+        _close(g, w, torch.bfloat16, f"K6b {name}", sc[name])
+
+
+@pytest.mark.gpu
+def test_flash_dkv_tensor_core_kernel_rejects_misaligned(cuda):
+    from distributed_ml_pytorch_tpu_torch.ops import attention as tat
+
+    bh, s, d = 2, 128, 64
+    q = torch.randn(bh, s, d, device=cuda).to(torch.bfloat16)
+    lse = torch.zeros(bh, s, device=cuda)
+    odd = torch.empty(bh * s * d + 1, device=cuda, dtype=torch.bfloat16)[1:].view(bh, s, d)
+    odd.copy_(q)
+    before = dict(tat.launches)
+    for i, name in enumerate(("q", "k", "v", "do")):
+        args = [q, q, q, q]
+        args[i] = odd
+        with pytest.raises(ValueError, match=f"{name} must be 16-byte aligned"):
+            tat.flash_bwd_dkv_cuda(*args, lse, lse, True)
+    assert tat.launches == before
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("bwd_impl,dtype", [("fused", torch.float32), ("split", torch.float32),
-                                            ("fused", torch.bfloat16)])
+                                            ("fused", torch.bfloat16), ("split", torch.bfloat16)])
 def test_flash_attention_autograd_on_the_card(cuda, bwd_impl, dtype):
     from distributed_ml_pytorch_tpu_torch.ops import attention as tat
 
@@ -327,7 +374,8 @@ def test_flash_attention_autograd_on_the_card(cuda, bwd_impl, dtype):
             _close(got, want, torch.float32, "grad")
         return
     # bfloat16: the backward's inputs are K4's out and lse (deterministic), so
-    # the same inputs through the plain backward give the reference
+    # the same inputs through the plain backward give the reference (K6a's
+    # dQ and K6b's dK/dV held as K5's are)
     flat = [t.detach().reshape(6, 256, 64) for t in (qc, kc, vc, doc)]
     out, lse2 = tat.flash_fwd_cuda(*flat[:3], True)
     delta = (flat[3].float() * out.float()).sum(-1)
@@ -431,18 +479,21 @@ def test_default_widths_run_on_the_card(cuda, capsys):
     ("K4", torch.float32, "flash_fwd_kernel", "flash_fwd_tc_kernel"),
     ("K4", torch.bfloat16, "flash_fwd_tc_kernel", "flash_fwd_kernel"),
     ("K5", torch.float32, "flash_bwd_kv_kernel", "flash_bwd_tc_kernel"),
-    ("K5", torch.bfloat16, "flash_bwd_tc_kernel", "flash_bwd_kv_kernel")])
+    ("K5", torch.bfloat16, "flash_bwd_tc_kernel", "flash_bwd_kv_kernel"),
+    ("K6b", torch.float32, "flash_bwd_kv_kernel", "flash_bwd_dkv_tc_kernel"),
+    ("K6b", torch.bfloat16, "flash_bwd_dkv_tc_kernel", "flash_bwd_kv_kernel")])
 def test_kernel_breakdown_sees_the_card(cuda, op, dtype, kernel, other):
-    # K4 and K5 by kernel name: float32 keeps the scalar kernels (the tensor
-    # cores have no float32 mode that keeps its numbers), bfloat16 takes the
-    # tensor cores
+    # K4, K5 and K6b by kernel name: float32 keeps the scalar kernels (the
+    # tensor cores have no float32 mode that keeps its numbers), bfloat16
+    # takes the tensor cores
     from distributed_ml_pytorch_tpu_torch.ops import attention as tat
     from distributed_ml_pytorch_tpu_torch.utils.devprof import kernel_breakdown
 
     q = torch.randn(4, 512, 64, device=cuda).to(dtype)
     lse = torch.zeros(4, 512, device=cuda)
     fn = {"K4": lambda: tat.flash_fwd_cuda(q, q, q, True),
-          "K5": lambda: tat.flash_bwd_fused_cuda(q, q, q, q, lse, lse, True)}[op]
+          "K5": lambda: tat.flash_bwd_fused_cuda(q, q, q, q, lse, lse, True),
+          "K6b": lambda: tat.flash_bwd_dkv_cuda(q, q, q, q, lse, lse, True)}[op]
     res = kernel_breakdown(fn, {op: [kernel], f"other {op}": [other]})
     assert res["group_ms"][op] > 0 and res["group_ms"][f"other {op}"] == 0
     assert res["busy_ms"] <= res["wall_ms"]
@@ -532,6 +583,82 @@ def test_decode_attention_kernel_scalar_state_and_strided_q(cuda, quant):
     with pytest.raises(ValueError, match="head_dim"):
         da.decode_attention_step(*(x[..., :48] if x is not None and x.dim() == 4 else x
                                    for x in args))
+
+
+#: per-row fill counts and live lengths of the split tests: an empty ring
+#: and a full one, rows with no live key (ring_base = 0) beside live rows,
+#: a live prefix past C
+_SPLIT_T = [0, 5, 16, 0, 3, 16, 7, 0]
+
+
+def _split_ring_base(C):
+    return [0, C // 2, C + 7, 0, 1, 64, C, 200]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("b,h", [(3, 4), (8, 12)])
+@pytest.mark.parametrize("d,dtype,quant", [(16, torch.bfloat16, False), (16, torch.bfloat16, True),
+                                           (64, torch.bfloat16, False), (64, torch.bfloat16, True),
+                                           (128, torch.bfloat16, True), (128, torch.float32, False)])
+def test_decode_attention_kernel_at_every_split(cuda, splits, b, h, d, dtype, quant):
+    # K8 with its keys split over a cluster of 1, 2, 4 or 8 blocks, forced,
+    # against the reference and against one block per (b, h)
+    from distributed_ml_pytorch_tpu_torch.ops import decode_attention as da
+
+    C, T = 383, 16
+    args = _decode_inputs(cuda, b, h, C, T, d, dtype, quant, seed=b * h + d,
+                          t=_SPLIT_T[:b], ring_base=_split_ring_base(C)[:b], pad=9)
+    before = da.launches
+    got = da.decode_attention_cuda(*args, splits=splits)
+    one = da.decode_attention_cuda(*args, splits=1)
+    want = da.decode_attention_reference(*args)
+    scale = da.decode_error_scale(*args)
+    torch.cuda.synchronize()
+    assert da.launches == before + 2
+    assert got.dtype == dtype and bool(torch.isfinite(got.float()).all())
+    tol = DECODE_TOL[dtype]
+    for ref in (want, one):
+        err = (got.float() - ref.float()).abs()
+        bad = err > tol["atol"] + tol["rtol"] * scale
+        assert not bool(bad.any()), (float(err.max()),
+                                     float((err / scale.clamp_min(1e-30)).max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_attention_kernel_long_cache_eight_splits(cuda, quant):
+    # batch-1-sized rows over a long cache: eight blocks per (b, h), each
+    # with about a thousand keys, and a row with none
+    from distributed_ml_pytorch_tpu_torch.ops import decode_attention as da
+
+    C, T = 8192, 16
+    assert da.decode_splits(3 * 4, C, 132) == 8
+    args = _decode_inputs(cuda, 3, 4, C, T, 64, torch.bfloat16, quant, seed=11,
+                          t=[16, 0, 9], ring_base=[C, 0, 5000])
+    got = da.decode_attention_cuda(*args, splits=8)
+    one = da.decode_attention_cuda(*args, splits=1)
+    want = da.decode_attention_reference(*args)
+    scale = da.decode_error_scale(*args)
+    torch.cuda.synchronize()
+    tol = DECODE_TOL[torch.bfloat16]
+    assert bool(torch.isfinite(got.float()).all())
+    for ref in (want, one):
+        err = (got.float() - ref.float()).abs()
+        assert not bool((err > tol["atol"] + tol["rtol"] * scale).any()), float(err.max())
+
+
+@pytest.mark.gpu
+def test_decode_attention_kernel_rejects_other_split_counts(cuda):
+    from distributed_ml_pytorch_tpu_torch.ops import decode_attention as da
+
+    args = _decode_inputs(cuda, 2, 2, 64, 16, 64, torch.bfloat16, False, seed=0, t=3,
+                          ring_base=10)
+    before = da.launches
+    for splits in (0, 3, 16):
+        with pytest.raises(ValueError, match="splits"):
+            da.decode_attention_cuda(*args, splits=splits)
+    assert da.launches == before
 
 
 @pytest.mark.gpu

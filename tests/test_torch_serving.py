@@ -269,6 +269,37 @@ def test_live_lengths_and_kv_lane_track_slot_progress(lm):
     assert eng.kv_lane(req.request_id) is None
 
 
+def test_decode_steps_read_the_longest_slots_live_prefix(lm, monkeypatch):
+    # the pool's single-token steps hand K8 a big cache as long as the
+    # longest slot's ring_base (kept on the host), not the allocation, so
+    # its split count follows the keys that can be live; tokens stay exact
+    from distributed_ml_pytorch_tpu_torch.models import transformer as tr
+
+    seen = []
+    real = tr.decode_attention_step
+
+    def spy(q, k_new, v_new, big_k, big_v, ring_k, ring_v, t, ring_base, *rest):
+        seen.append((big_k.shape[2], torch.as_tensor(ring_base).max().item()))
+        return real(q, k_new, v_new, big_k, big_v, ring_k, ring_v, t, ring_base, *rest)
+
+    monkeypatch.setattr(tr, "decode_attention_step", spy)
+    model = lm[2]
+    eng = make_engine(model)
+    short, long_ = prompts(11, 3), prompts(12, 7)
+    ra, rb = eng.submit(short, 6), eng.submit(long_, 10)
+    eng.step()
+    T, L = eng.pool.decode_block, CFG["n_layers"]
+    # both admitted, one block: 7 live rows in the longest slot, not 96
+    assert [c for c, _ in seen] == [7] * (T * L)
+    assert np.array_equal(eng.pool.ring_base, eng.pool.cache["block_0"]["attn"]
+                          ["ring_base"].numpy())
+    eng.run_until_idle()
+    assert all(rb_max <= c < eng.pool.cache_size for c, rb_max in seen)
+    assert {c for c, _ in seen} == {7, 7 + T, 7 + 2 * T}
+    assert not eng.pool.ring_base.any()
+    assert ra.tokens == ref_tokens(model, short, 6) and rb.tokens == ref_tokens(model, long_, 10)
+
+
 def test_pool_guards_and_cache_helpers(lm):
     model = lm[2]
     with pytest.raises(ValueError, match="slot"):
