@@ -7,8 +7,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device and build: the card's name, count and power limit, and the nvcc
    build of ``distributed_ml_pytorch_tpu_torch/csrc/*.cu``; then the
-   ``-Xptxas -v`` lines (registers, spills) of the tensor-core K4, of K5 and
-   K6b, and of K8, each source on a line of its own;
+   ``-Xptxas -v`` lines (registers, spills) of the tensor-core K4, of K5,
+   K6a and K6b, and of K8, each source on a line of its own;
 2. every kernel against its plain PyTorch version on the card, at the shapes
    of the main path (flat_axpy at AlexNet's padded length; relu_pool2
    forward and backward at AlexNet's three epilogue shapes at batch 64,
@@ -23,16 +23,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
    with the CLI defaults (AlexNet, batch 64, lr 0.008, n_push = n_pull = 10)
    on synthetic CIFAR-10; the kernels' launch counts are zeroed just before
    and read just after, and every kernel must have run;
-5. the flash-attention kernels (K4 forward, K5 fused backward and K6b
-   split dK/dV: the tensor-core kernels for bfloat16, the scalar ones for
-   float32; K6a split dQ, scalar) against their plain versions on the same
-   inputs, K6b's dK and dV also bit for bit against K5's, at the
-   LM's per-layer shape (b8 h12 s2048 d64, bfloat16, causal) and at small
-   shapes (float32 causal and not, head_dim 16 in both dtypes and bfloat16
-   non-causal, 32 and 128 in bfloat16, a ragged s 200, 100 queries over 300
-   keys), within the stated tolerances; timed at the LM shape beside the
-   plain versions, ``F.scaled_dot_product_attention`` and the FLOP bound at
-   989.4 TFLOP/s;
+5. the flash-attention kernels (K4 forward, K5 fused backward, K6a split
+   dQ and K6b split dK/dV: the tensor-core kernels for bfloat16, the scalar
+   ones for float32) against their plain versions on the same inputs, K6b's
+   dK and dV also bit for bit against K5's and K6a's dQ bit for bit between
+   two launches, at small shapes (float32 causal and not, head_dim 16 in
+   both dtypes and bfloat16 non-causal, 32 and 128 in bfloat16, a ragged s
+   200, 100 queries over 300 keys), at the LM's per-layer shape (b8 h12
+   s2048 d64, bfloat16, causal: a 32-tile key loop) and at one long shape
+   (b1 h2 s16384 d64, bfloat16, causal: a 256-tile key loop, the plain
+   versions over the whole score plane), within the stated tolerances;
+   timed at the LM shape beside the plain versions,
+   ``F.scaled_dot_product_attention`` (the pair K6a + K6b beside its
+   backward) and the FLOP bound at 989.4 TFLOP/s;
 6. the LM path: ``training.train_lm`` with GPT-2-small (vocab 50304, d 768,
    12 heads, 12 layers, d_ff 3072, bfloat16, RoPE, batch 8 x seq 2048) for
    ``LM_STEPS`` steps on one repeated batch, the attention launch counts
@@ -43,9 +46,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    "K4 flash_fwd" and "K5 flash_bwd_fused" groups must read the tensor-core
    kernels, and the scalar K5 must not run; the fused and the split step
    timed (one warm-up, three steps, ``utils/devtime``) and one split step
-   profiled, whose "K6b flash_bwd_dkv" group must show the tensor-core K6b
-   12 times and no scalar one (a profile that records no kernel fails the
-   phase); then
+   profiled, whose "K6a flash_bwd_dq" and "K6b flash_bwd_dkv" groups must
+   show the tensor-core K6a and K6b 12 times each and no scalar one (a
+   profile that records no kernel fails the phase); then
    ``train_lm`` and the serving demo with their default widths (8 heads of
    d_model 128: head_dim 16), launching K4/K5 and K8;
 7. the decode-attention kernel (K8) against its reference on the same
@@ -123,6 +126,9 @@ ALEXNET_PADDED = 2_472_320
 POOL_SHAPES = [(64, 8, 8, 64), (64, 4, 4, 192), (64, 2, 2, 256)]
 WORKER_STEPS = 80
 ATTN_MAIN = (8, 12, 2048, 64)  # GPT-2-small's per-layer attention shape
+#: one long causal case: a 256-tile key loop (ATTN_MAIN's is 32 tiles); the
+#: plain versions hold its whole (s, s) float32 score plane, 1 GiB a head
+ATTN_LONG = (1, 2, 16384, 64)
 ATTN_SMALL = [((2, 2, 256, 64), "float32", True), ((2, 2, 256, 64), "float32", False),
               ((2, 2, 256, 16), "float32", False), ((2, 2, 256, 16), "bfloat16", True),
               ((2, 2, 256, 32), "bfloat16", True), ((2, 2, 256, 128), "bfloat16", True),
@@ -211,7 +217,9 @@ AD_UPDATE_TOL = 2.0 ** -5
 PROFILE_GROUPS = {
     "K4 flash_fwd": ["flash_fwd_tc_kernel"],
     "K5 flash_bwd_fused": ["flash_bwd_tc_kernel"],
-    "K6a flash_bwd_dq": ["flash_bwd_dq_kernel"],
+    "K6a flash_bwd_dq": ["flash_bwd_dq_tc_kernel"],
+    # the scalar K6a (float32 only; no profiled step runs it)
+    "K6a scalar": ["flash_bwd_dq_kernel"],
     "K6b flash_bwd_dkv": ["flash_bwd_dkv_tc_kernel"],
     # the scalar K5 and K6b (float32 only; no profiled step runs them)
     "K5/K6b scalar": ["flash_bwd_kv_kernel"],
@@ -542,6 +550,7 @@ def _attn_check(torch, at, shape, dtype_name, causal, g, sk=None):
     args = (q, k, v, do, lse_p, delta, causal)
     fused = at.flash_bwd_fused_cuda(*args)
     dq_s = at.flash_bwd_dq_cuda(*args)
+    dq_again = at.flash_bwd_dq_cuda(*args)
     dk_s, dv_s = at.flash_bwd_dkv_cuda(*args)
     dq_p, dk_p, dv_p = at.flash_bwd_fused_plain(*args)
     sc = at.flash_error_scales(*args)
@@ -573,6 +582,9 @@ def _attn_check(torch, at, shape, dtype_name, causal, g, sk=None):
             f"K6b's dK/dV differ from K5's at {shape} {dtype_name} causal={causal}: max "
             f"{float((dk_s.float() - fused[1].float()).abs().max())} / "
             f"{float((dv_s.float() - fused[2].float()).abs().max())}")
+    # K6a keeps dQ in registers, with no atomics: the same bits every launch
+    require(torch.equal(dq_s, dq_again),
+            f"K6a's dQ differs between two launches at {shape} {dtype_name} causal={causal}")
     return errs, (q, k, v, do, lse_p, delta)
 
 
@@ -598,6 +610,13 @@ def phase_attention(torch):
     for shape, dtype_name, causal, *sk in ATTN_SMALL:
         errs, _ = _attn_check(torch, at, shape, dtype_name, causal, g, *sk)
         cases[f"{shape}{f' sk={sk[0]}' if sk else ''} {dtype_name} causal={causal}"] = errs
+    t0 = time.monotonic()
+    errs, long_args = _attn_check(torch, at, ATTN_LONG, "bfloat16", True, g)
+    long_case = {"shape": ATTN_LONG, "key_tiles": ATTN_LONG[2] // 64,
+                 "check_wall_s": time.monotonic() - t0,
+                 "k6a_ms": device_ms(lambda: at.flash_bwd_dq_cuda(*long_args, True), 10)}
+    del long_args
+    cases[f"{ATTN_LONG} bfloat16 causal=True"] = errs
     errs, (q, k, v, do, lse, delta) = _attn_check(torch, at, ATTN_MAIN, "bfloat16", True, g)
     cases[f"{ATTN_MAIN} bfloat16 causal=True"] = errs
 
@@ -650,14 +669,19 @@ def phase_attention(torch):
             "library_ms": {"flash_fwd": sdpa["fwd"], "flash_bwd_fused": sdpa["bwd"]}.get(kern),
             "flop_bound_ms": flop_ms, "byte_bound_ms": byte_ms,
         }
+    pair_ms = out["flash_bwd_dq"]["ms"] + out["flash_bwd_dkv"]["ms"]
     emit({"phase": "attention_vs_plain", "ok": True, "tolerance": ATTN_TOL,
-          "k6b_dkv_bit_identical_to_k5": True,
-          "lse_tolerance": LSE_TOL, "cases": cases, "sdpa_ms": sdpa, "main_shape": ATTN_MAIN,
+          "k6b_dkv_bit_identical_to_k5": True, "k6a_dq_bit_identical_across_launches": True,
+          "lse_tolerance": LSE_TOL, "cases": cases, "long_case": long_case,
+          "sdpa_ms": sdpa, "main_shape": ATTN_MAIN,
           "k4_over_sdpa_fwd": out["flash_fwd"]["ms"] / sdpa["fwd"],
           "k4_bound_share": out["flash_fwd"]["bound_ms"] / out["flash_fwd"]["ms"],
           "k5_over_sdpa_bwd": out["flash_bwd_fused"]["ms"] / sdpa["bwd"],
           "k5_bound_share": out["flash_bwd_fused"]["bound_ms"] / out["flash_bwd_fused"]["ms"],
+          "k6a_bound_share": out["flash_bwd_dq"]["bound_ms"] / out["flash_bwd_dq"]["ms"],
           "k6b_bound_share": out["flash_bwd_dkv"]["bound_ms"] / out["flash_bwd_dkv"]["ms"],
+          # the split pair computes what SDPA's backward computes (dQ, dK, dV)
+          "k6_pair_ms": pair_ms, "k6_pair_over_sdpa_bwd": pair_ms / sdpa["bwd"],
           "timed": {k: {kk: vv for kk, vv in v.items() if kk != "max_abs_err"}
                     for k, v in out.items()}})
     return out
@@ -772,7 +796,8 @@ def phase_lm(torch, steps=LM_STEPS):
             f"the profiled split step recorded no kernel: {split['profile']}")
     calls = split["profile"]["group_launches"]
     require(calls["K6b flash_bwd_dkv"] == n_layers and calls["K6a flash_bwd_dq"] == n_layers
-            and calls["K5/K6b scalar"] == 0 and calls["K5 flash_bwd_fused"] == 0,
+            and calls["K5/K6b scalar"] == 0 and calls["K6a scalar"] == 0
+            and calls["K5 flash_bwd_fused"] == 0,
             f"the profiled split step's backward kernels: {calls}")
     return launches, split_launches
 
@@ -1515,7 +1540,6 @@ def phase_fused_head_step(torch):
 
 # ------------------------------------------------------------------ main
 
-ATTN_SRC = "distributed_ml_pytorch_tpu_torch/csrc/attention.cu"
 K4_SRC = "distributed_ml_pytorch_tpu_torch/csrc/flash_fwd_tc.cu"
 K5_SRC = "distributed_ml_pytorch_tpu_torch/csrc/flash_bwd_tc.cu"
 KERNEL_ROWS = [
@@ -1527,7 +1551,7 @@ KERNEL_ROWS = [
      "distributed_ml_pytorch_tpu/ops/fused_conv.py:311"),
     ("flash_fwd", K4_SRC, "distributed_ml_pytorch_tpu/ops/attention.py:311"),
     ("flash_bwd_fused", K5_SRC, "distributed_ml_pytorch_tpu/ops/attention.py:563"),
-    ("flash_bwd_dq", ATTN_SRC, "distributed_ml_pytorch_tpu/ops/attention.py:592"),
+    ("flash_bwd_dq", K5_SRC, "distributed_ml_pytorch_tpu/ops/attention.py:592"),
     ("flash_bwd_dkv", K5_SRC, "distributed_ml_pytorch_tpu/ops/attention.py:605"),
     ("decode_attention", "distributed_ml_pytorch_tpu_torch/csrc/decode_attention.cu",
      "distributed_ml_pytorch_tpu/ops/decode_attention.py:128"),

@@ -15,9 +15,10 @@ line rewritten, built by ``nvcc`` with the port's flags under
 1. One-key heads (sq = sk = 1, causal: the exact dS is 0): for 65,535
    random bfloat16 heads at each head_dim, how many heads' dQ miss
    ``chip_smoke.ATTN_TOL`` against ``flash_bwd_fused_plain``, for each build
-   and for the scalar split-dQ kernel K6a, against the plain version as
-   shipped (dP summed in order of d) and against one whose dP is a library
-   product (``torch.matmul``).
+   and for the package's split-dQ kernel K6a (the tensor-core
+   ``flash_bwd_dq_tc_kernel``, which shares K5's in-order recompute),
+   against the plain version as shipped (dP summed in order of d) and
+   against one whose dP is a library product (``torch.matmul``).
 2. GPT-2-small's own K5 inputs (the first backward launch of a
    ``training.train_lm`` step, bf16, b8 h12 s2048 d64) and random inputs of
    that shape: the pairs whose float32 ``|dP − delta|`` is below
@@ -104,7 +105,7 @@ def main() -> int:
         return dq.to(q.dtype)
 
     kernels = {**{n: (lambda *a, fn=fn: launch(fn, *a)) for n, fn in fns.items()},
-               "k6a_scalar": at.flash_bwd_dq_cuda}
+               "k6a": at.flash_bwd_dq_cuda}
     in_order = at._dp_in_order
     matmul = lambda do, v: torch.matmul(do.float(), v.float().transpose(-1, -2))
     g = torch.Generator(device="cuda").manual_seed(0)

@@ -1,8 +1,8 @@
 // Flash attention over (batch*heads, seq, head_dim): the forward (K4), the
 // fused backward (K5) and the split backward's dQ (K6a) and dK/dV (K6b)
-// kernels at head_dim 16, 32, 64 and 128: K6a for float32 and bfloat16
-// inputs, K4, K5 and K6b for float32 only (their bfloat16 versions are the
-// tensor-core kernels of flash_fwd_tc.cu and flash_bwd_tc.cu).
+// kernels at head_dim 16, 32, 64 and 128, for float32 inputs only (the
+// bfloat16 versions are the tensor-core kernels of flash_fwd_tc.cu and
+// flash_bwd_tc.cu).
 //
 // Replaces: distributed_ml_pytorch_tpu/ops/attention.py
 //   K4  _flash_fwd            (pallas_call at :311, body _flash_kernel at :196)
@@ -14,8 +14,8 @@
 // the forward does 2 products over the score plane against 4 (b*h, s, d)
 // tensors read or written, about 512 operations per byte, above the card's
 // ridge. These kernels use scalar float32 FMAs out of shared memory, not the
-// tensor cores (mma / wgmma), so they run far from the bf16 bound; K6a on
-// the tensor cores is later work.
+// tensor cores (mma / wgmma): the tensor cores have no mode that keeps
+// float32's numbers.
 //
 // Design. The TPU kernels walk a sequential grid and carry the online-softmax
 // state (or dK/dV) in VMEM scratch from one grid step to the next. On the
@@ -52,16 +52,15 @@
 // products, the lse kept base 2 ((b*h, sq) f32). delta = rowsum(dO * O)
 // (minus the lse cotangent) is computed by the caller.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include <type_traits>
 
 namespace {
 
 constexpr int kTile = 64;
 constexpr float kNegInf = -1e30f;
 
+// loads, stores and rounding of the element type (float32: the identity
+// rounding; the bfloat16 kernels are the tensor-core ones)
 template <typename T>
 struct Elt;
 
@@ -70,19 +69,6 @@ struct Elt<float> {
     static __device__ __forceinline__ float load(const float* p) { return *p; }
     static __device__ __forceinline__ void store(float* p, float x) { *p = x; }
     static __device__ __forceinline__ float round(float x) { return x; }
-};
-
-template <>
-struct Elt<__nv_bfloat16> {
-    static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
-        return __bfloat162float(*p);
-    }
-    static __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-        *p = __float2bfloat16_rn(x);
-    }
-    static __device__ __forceinline__ float round(float x) {
-        return __bfloat162float(__float2bfloat16_rn(x));
-    }
 };
 
 template <int D>
@@ -531,19 +517,10 @@ enum Which { kFwd, kBwdFused, kBwdDq, kBwdDkv };
 template <typename T, int D>
 int run_one(Which w, const Args& a) {
     switch (w) {
-        case kFwd:
-            // bfloat16 takes flash_fwd_tc.cu's kernel: no instance here
-            if constexpr (std::is_same<T, float>::value) return run_fwd<T, D>(a);
-            return (int)cudaErrorInvalidValue;
-        case kBwdFused:
-            // bfloat16 takes flash_bwd_tc.cu's kernel: no instance here
-            if constexpr (std::is_same<T, float>::value) return run_bwd_kv<T, D, true>(a);
-            return (int)cudaErrorInvalidValue;
+        case kFwd: return run_fwd<T, D>(a);
+        case kBwdFused: return run_bwd_kv<T, D, true>(a);
         case kBwdDq: return run_bwd_dq<T, D>(a);
-        case kBwdDkv:
-            // bfloat16 takes flash_bwd_tc.cu's K6b kernel: no instance here
-            if constexpr (std::is_same<T, float>::value) return run_bwd_kv<T, D, false>(a);
-            return (int)cudaErrorInvalidValue;
+        case kBwdDkv: return run_bwd_kv<T, D, false>(a);
     }
     return (int)cudaErrorInvalidValue;
 }
@@ -559,12 +536,12 @@ int run_d(Which w, int d, const Args& a) {
     return (int)cudaErrorInvalidValue;
 }
 
-// dtype: 0 = float32, 1 = bfloat16
+// dtype: 0 = float32 (bfloat16, 1, takes the tensor-core kernels of
+// flash_fwd_tc.cu and flash_bwd_tc.cu: no instance here)
 int dispatch(Which w, int dtype, int d, const Args& a) {
     if (bad_shape(a.bh, a.sq, a.sk)) return (int)cudaErrorInvalidValue;
     if (a.bh == 0 || a.sq == 0 || a.sk == 0) return (int)cudaGetLastError();
     if (dtype == 0) return run_d<float>(w, d, a);
-    if (dtype == 1) return run_d<__nv_bfloat16>(w, d, a);
     return (int)cudaErrorInvalidValue;
 }
 
@@ -595,6 +572,7 @@ extern "C" int dmt_flash_bwd_fused(const void* q, const void* k, const void* v,
     return dispatch(kBwdFused, dtype, d, a);
 }
 
+// float32 (dtype 0) only; bfloat16 returns cudaErrorInvalidValue
 extern "C" int dmt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const float* lse, const float* delta,
                                 void* dq, int bh, int sq, int sk, int d, int causal, int dtype,

@@ -8,7 +8,8 @@ Tolerances (float32): 1e-5 absolute and relative on outputs and lse, 1e-4
 on gradients. The two sides compute the same function with sums in other
 orders: the JAX kernel folds key blocks one at a time with an online max,
 the plain version takes each row's max at once. The bfloat16 cases (each
-head_dim the kernels are built for, causal and not) are held to 2e-2: both
+head_dim the kernels are built for, causal and not, fused and split
+backward) are held to 2e-2: both
 sides round p and dS to bfloat16, but against different running maxima, so
 individual roundings differ by one bfloat16 step. The ctypes argument lists
 are held to the C signatures they call.
@@ -110,16 +111,22 @@ def test_flash_attention_lse_with_lse_cotangent_matches_jax(bwd_impl, lse_only):
         np.testing.assert_allclose(_np(got), np.asarray(ref), **GRAD_TOL)
 
 
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
-def test_flash_attention_bf16_matches_jax(head_dim, causal):
-    # every head_dim the bfloat16 kernels (K4, K5) are built for
+# (head_dim, causal, bwd_impl); the fused cases keep their ids "16-True", ...
+_BF16_CASES = [(d, c, impl) for impl in ("fused", "split") for d in (16, 32, 64, 128)
+               for c in (True, False)]
+
+
+@pytest.mark.parametrize("head_dim,causal,bwd_impl", _BF16_CASES, ids=[
+    f"{d}-{c}" + ("-split" if impl == "split" else "") for d, c, impl in _BF16_CASES])
+def test_flash_attention_bf16_matches_jax(head_dim, causal, bwd_impl):
+    # every head_dim the bfloat16 kernels (K4, K5, K6a, K6b) are built for,
+    # the split backward held against the JAX split kernels
     shape = (1, 2, 256, head_dim)
     q, k, v, g = _arrays(shape, seed=21, n=4)
-    jf = _jflash(causal, "fused", dtype=jnp.bfloat16)
+    jf = _jflash(causal, bwd_impl, dtype=jnp.bfloat16)
     out_ref, grads_ref = _jvjp(jf, q, k, v, jnp.asarray(g).astype(jnp.bfloat16))
     qt, kt, vt = (_t(a, torch.bfloat16) for a in (q, k, v))
-    out = ta.flash_attention(qt, kt, vt, causal=causal, bwd_impl="fused")
+    out = ta.flash_attention(qt, kt, vt, causal=causal, bwd_impl=bwd_impl)
     assert out.dtype == torch.bfloat16
     np.testing.assert_allclose(_np(out), np.asarray(out_ref, np.float32), **BF16_TOL)
     out.backward(torch.from_numpy(g).to(torch.bfloat16))

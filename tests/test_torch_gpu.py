@@ -346,6 +346,76 @@ def test_flash_dkv_tensor_core_kernel_rejects_misaligned(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("sq,sk,causal", [(s, s, c) for s in (1, 63, 65, 200, 1000)
+                                          for c in (True, False)]
+                         + [(100, 300, False), (300, 100, False)])
+def test_flash_dq_tensor_core_kernel_matches_plain(cuda, d, sq, sk, causal):
+    # the bfloat16 split dQ (K6a, flash_bwd_tc.cu's dQ pass): ragged query
+    # and key tiles, a single query, sq != sk; dQ in registers, no atomics,
+    # so two launches on the same inputs agree bit for bit
+    from distributed_ml_pytorch_tpu_torch.ops import attention as tat
+
+    q, k, v, do = _attn_inputs(cuda, (3, sq, d), torch.bfloat16, seed=sq + 5 * sk + d, sk=sk)
+    out_p, lse_p = tat.flash_fwd_plain(q, k, v, causal)
+    delta = (do.float() * out_p.float()).sum(-1)
+    args = (q, k, v, do, lse_p, delta, causal)
+    before = dict(tat.launches)
+    dq = tat.flash_bwd_dq_cuda(*args)
+    again = tat.flash_bwd_dq_cuda(*args)
+    want = tat.flash_bwd_split_plain(*args)[0]
+    sc = tat.flash_error_scales(*args)["dq"]
+    torch.cuda.synchronize()
+    assert {n: tat.launches[n] - before[n] for n in before} == {
+        "flash_fwd": 0, "flash_bwd_fused": 0, "flash_bwd_dq": 2, "flash_bwd_dkv": 0}
+    assert dq.dtype == torch.bfloat16 and dq.shape == q.shape
+    assert bool(torch.isfinite(dq.float()).all())
+    assert torch.equal(dq, again)
+    _close(dq, want, torch.bfloat16, "K6a dq", sc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_dq_tensor_core_kernel_one_key_heads(cuda, d):
+    # a query that sees one key (every causal head's first): the exact dS is
+    # 0 and dQ is only the rounding noise of dP - delta, which the kernel
+    # must make the plain version's (dP recomputed in order of d)
+    from distributed_ml_pytorch_tpu_torch.ops import attention as tat
+
+    q, k, v, do = _attn_inputs(cuda, (4096, 1, d), torch.bfloat16, seed=d)
+    out_p, lse_p = tat.flash_fwd_plain(q, k, v, True)
+    args = (q, k, v, do, lse_p, (do.float() * out_p.float()).sum(-1), True)
+    dq = tat.flash_bwd_dq_cuda(*args)
+    want = tat.flash_bwd_split_plain(*args)[0]
+    _close(dq, want, torch.bfloat16, "K6a dq", tat.flash_error_scales(*args)["dq"])
+
+
+@pytest.mark.gpu
+def test_flash_dq_tensor_core_kernel_rejects_misaligned(cuda):
+    from distributed_ml_pytorch_tpu_torch.ops import attention as tat
+
+    bh, s, d = 2, 128, 64
+    q = torch.randn(bh, s, d, device=cuda).to(torch.bfloat16)
+    lse = torch.zeros(bh, s, device=cuda)
+    odd = torch.empty(bh * s * d + 1, device=cuda, dtype=torch.bfloat16)[1:].view(bh, s, d)
+    odd.copy_(q)
+    before = dict(tat.launches)
+    for i, name in enumerate(("q", "k", "v", "do")):
+        args = [q, q, q, q]
+        args[i] = odd
+        with pytest.raises(ValueError, match=f"{name} must be 16-byte aligned"):
+            tat.flash_bwd_dq_cuda(*args, lse, lse, True)
+    assert tat.launches == before
+    # float32 has no such requirement (the scalar kernel's element loads)
+    odd32 = torch.empty(bh * s * d + 1, device=cuda)[1:].view(bh, s, d)
+    odd32.copy_(q.float())
+    got = tat.flash_bwd_dq_cuda(odd32, odd32, odd32, odd32, lse, lse, True)
+    torch.cuda.synchronize()
+    assert tat.launches["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("bwd_impl,dtype", [("fused", torch.float32), ("split", torch.float32),
                                             ("fused", torch.bfloat16), ("split", torch.bfloat16)])
 def test_flash_attention_autograd_on_the_card(cuda, bwd_impl, dtype):
@@ -481,9 +551,11 @@ def test_default_widths_run_on_the_card(cuda, capsys):
     ("K5", torch.float32, "flash_bwd_kv_kernel", "flash_bwd_tc_kernel"),
     ("K5", torch.bfloat16, "flash_bwd_tc_kernel", "flash_bwd_kv_kernel"),
     ("K6b", torch.float32, "flash_bwd_kv_kernel", "flash_bwd_dkv_tc_kernel"),
-    ("K6b", torch.bfloat16, "flash_bwd_dkv_tc_kernel", "flash_bwd_kv_kernel")])
+    ("K6b", torch.bfloat16, "flash_bwd_dkv_tc_kernel", "flash_bwd_kv_kernel"),
+    ("K6a", torch.float32, "flash_bwd_dq_kernel", "flash_bwd_dq_tc_kernel"),
+    ("K6a", torch.bfloat16, "flash_bwd_dq_tc_kernel", "flash_bwd_dq_kernel")])
 def test_kernel_breakdown_sees_the_card(cuda, op, dtype, kernel, other):
-    # K4, K5 and K6b by kernel name: float32 keeps the scalar kernels (the
+    # K4-K6b by kernel name: float32 keeps the scalar kernels (the
     # tensor cores have no float32 mode that keeps its numbers), bfloat16
     # takes the tensor cores
     from distributed_ml_pytorch_tpu_torch.ops import attention as tat
@@ -493,7 +565,8 @@ def test_kernel_breakdown_sees_the_card(cuda, op, dtype, kernel, other):
     lse = torch.zeros(4, 512, device=cuda)
     fn = {"K4": lambda: tat.flash_fwd_cuda(q, q, q, True),
           "K5": lambda: tat.flash_bwd_fused_cuda(q, q, q, q, lse, lse, True),
-          "K6b": lambda: tat.flash_bwd_dkv_cuda(q, q, q, q, lse, lse, True)}[op]
+          "K6b": lambda: tat.flash_bwd_dkv_cuda(q, q, q, q, lse, lse, True),
+          "K6a": lambda: tat.flash_bwd_dq_cuda(q, q, q, q, lse, lse, True)}[op]
     res = kernel_breakdown(fn, {op: [kernel], f"other {op}": [other]})
     assert res["group_ms"][op] > 0 and res["group_ms"][f"other {op}"] == 0
     assert res["busy_ms"] <= res["wall_ms"]
