@@ -8,7 +8,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. device and build: the card's name, count and power limit, and the nvcc
    build of ``distributed_ml_pytorch_tpu_torch/csrc/*.cu``; then the
    ``-Xptxas -v`` lines (registers, spills) of the tensor-core K4, of K5,
-   K6a and K6b, and of K8, each source on a line of its own;
+   K6a and K6b, of K8 and of K7, each source on a line of its own;
 2. every kernel against its plain PyTorch version on the card, at the shapes
    of the main path (flat_axpy at AlexNet's padded length; relu_pool2
    forward and backward at AlexNet's three epilogue shapes at batch 64,
@@ -85,16 +85,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
    launch counts zeroed just before and read just after;
 11. the fused head update (K7) against ``head_update_plain`` on the same
    inputs at GPT-2-small b8 x 2048 (bf16 h2 and logits from a real h2 @ W
-   product, float32 lse, random labels, gscale = mask / sum(mask)) and at a
-   ragged N 1000, D 64, V 677 (float32, bfloat16) and V 680 (bfloat16), from
-   W = 0 and from W, within ``HEAD_TOL``; timed beside the plain version
-   (the default formulation), the product alone and the FLOP bound, with
-   peak memory;
+   product, float32 lse, random labels, gscale = mask / sum(mask)) and at
+   ``HEAD_SMALL``'s ragged shapes (the float32 kernel, the bf16 element
+   loads at V 677, the bf16 TMA route at D 64, 768 and 1024 and at N 20),
+   from W = 0 and from W, within ``HEAD_TOL``, each case's route read from
+   the per-route launch counts; two launches of the TMA route at
+   GPT-2-small bit-identical; timed beside the plain version (the default
+   formulation), the product alone and the FLOP bound, with peak memory;
 12. the restructured-head GPT-2-small step: ``bench_all.lm_phase`` (config
    6's three legs: tokens/s and MFU), then one step each of
    ``make_fused_head_sgd_step`` with ``use_kernel`` False and True and of the
    AD step ``make_fsdp_lm_train_step`` from the same weights: K7 once per
-   ``use_kernel=True`` step and never otherwise, K4 and K5 12 times each;
+   ``use_kernel=True`` step, by its TMA route, and never otherwise, K4 and
+   K5 12 times each;
    equal losses between the two fused steps and updates within
    ``FUSED_HEAD_UPDATE_TOL``; the AD step within ``AD_LOSS_TOL`` and
    ``AD_UPDATE_TOL``; step ms and peak memory of the three, and one
@@ -198,6 +201,10 @@ BIAS_RELU_SHAPES = [(4096, 384), (256, 4, 4, 384), (1000, 37)]
 HEAD_TOL = {"bfloat16": (1e-9, 2.0 ** -7 + 2.0 ** -10), "float32": (1e-9, 2.0 ** -12)}
 HEAD_LR = 0.5
 GPT2_HEAD = (8 * 2048, 768, 50304)  # N, D, V at GPT-2-small b8 x 2048
+#: K7's small cases, (N, D, V, dtype): see phase_head_update
+HEAD_SMALL = [(1000, 64, 677, "float32"), (1000, 64, 677, "bfloat16"),
+              (1000, 64, 680, "bfloat16"), (1000, 768, 680, "bfloat16"),
+              (1000, 1024, 680, "bfloat16"), (20, 768, 64, "bfloat16")]
 #: relative L2 distance allowed between the parameter updates of the fused
 #: head step with K7 and without: the body's gradients differ only by K5's
 #: run-dependent f32 dQ atomics (as SPLIT_UPDATE_TOL), the head's by the
@@ -287,7 +294,7 @@ def phase_device_and_build(torch):
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s, "nvcc_build_s": _build.build_seconds,
           "ptxas": ptxas})
-    for src in ("flash_fwd_tc", "flash_bwd_tc", "decode_attention"):
+    for src in ("flash_fwd_tc", "flash_bwd_tc", "decode_attention", "fused_head"):
         emit({"phase": f"{src}_ptxas", "lines": [
             ln.strip() for ln in _build.build_logs(src).splitlines()
             if "entry function" in ln or "registers" in ln or "spill" in ln]})
@@ -1361,6 +1368,7 @@ def _head_check(torch, fh, args, dtype_name):
     error and max error / bound from W = 0, max error / bound from W);
     raises on a miss."""
     w, h2, logits, lse, labels, gscale = args
+    route = fh.head_update_route(h2, logits)
     dl = fh.head_dlogits(h2, logits, lse, labels, gscale)
     scale = HEAD_LR * torch.mm(dl.float().abs().t(), h2.float().abs())
     del dl
@@ -1368,18 +1376,21 @@ def _head_check(torch, fh, args, dtype_name):
     out = []
     for w_in in (torch.zeros_like(w), w):
         wk = w_in.clone()
+        before = fh.route_launches[route]
         fh.head_update_cuda(wk, h2, logits, lse, labels, gscale, -HEAD_LR)
         want = fh.head_update_plain(w_in, h2, logits, lse, labels, gscale, HEAD_LR)
         torch.cuda.synchronize()
+        require(fh.route_launches[route] == before + 1, f"K7 did not take route {route}")
         require(bool(torch.isfinite(wk).all()),
                 f"K7 not finite ({dtype_name}, {tuple(h2.shape)})")
         err = (wk - want).abs()
         ratio = float((err / (2.0 ** -23 * w_in.abs() + atol + rtol * scale)).max())
-        require(ratio <= 1.0, f"K7 != plain ({dtype_name}, N, D = {tuple(h2.shape)}, V = "
-                              f"{w.shape[0]}, from {'W' if out else 'zero'}): max abs err "
-                              f"{float(err.max())}, err / bound {ratio}")
+        require(ratio <= 1.0, f"K7 != plain ({dtype_name}, {route}, N, D = "
+                              f"{tuple(h2.shape)}, V = {w.shape[0]}, from "
+                              f"{'W' if out else 'zero'}): max abs err {float(err.max())}, "
+                              f"err / bound {ratio}")
         out += [float(err.max()), ratio]
-    return out[0], out[1], out[3]
+    return route, out[0], out[1], out[3]
 
 
 def phase_head_update(torch):
@@ -1389,19 +1400,31 @@ def phase_head_update(torch):
     full_float32()
     g = torch.Generator(device="cuda").manual_seed(11)
     cases = {}
-    # V = 677: element loads (both dtypes); V = 680: the bf16 kernel's
-    # 16-byte loads with ragged N and V tiles
-    for v_small, dtype in ((677, torch.float32), (677, torch.bfloat16), (680, torch.bfloat16)):
+    # V = 677: the float32 kernel and the bf16 element loads; V % 8 == 0: the
+    # bf16 TMA route with ragged N and V tiles, at D 64 (one consumer
+    # warpgroup, its columns masked), 768 (three), 1024 (two passes over D)
+    # and N 20 (less than one stage)
+    for n_small, d_small, v_small, dtype in HEAD_SMALL:
         name = str(dtype).split(".")[-1]
-        args = _head_inputs(torch, g, 1000, 64, v_small, dtype)
-        cases[f"ragged N1000 D64 V{v_small} {name}"] = _head_check(torch, fh, args, name)
+        args = _head_inputs(torch, g, n_small, d_small, v_small, getattr(torch, dtype))
+        cases[f"N{n_small} D{d_small} V{v_small} {name}"] = _head_check(torch, fh, args, name)
     n, d, v = GPT2_HEAD
     args = _head_inputs(torch, g, n, d, v, torch.bfloat16, seq=2048)
     cases["GPT-2-small b8x2048 bfloat16"] = _head_check(torch, fh, args, "bfloat16")
+    require(cases["GPT-2-small b8x2048 bfloat16"][0] == "bf16_tma",
+            "GPT-2-small does not take K7's TMA route")
 
     # timed at GPT-2-small b8 x 2048; the 1.65 GB of logits exceed the L2, so
     # every call is cold
     w, h2, logits, lse, labels, gscale = args
+    # two launches from the same W give the same bits (no atomics)
+    twice = [w.clone(), w.clone()]
+    for wk in twice:
+        fh.head_update_cuda(wk, h2, logits, lse, labels, gscale, -HEAD_LR)
+    torch.cuda.synchronize()
+    bit_identical = torch.equal(twice[0], twice[1])
+    require(bit_identical, "K7's TMA route differs between two launches")
+    del twice
     wbuf = w.clone()
     dlt = fh.head_dlogits(h2, logits, lse, labels, gscale).t()
 
@@ -1418,7 +1441,7 @@ def phase_head_update(torch):
     flop_ms = 2.0 * n * d * v / BF16_FLOPS * 1e3
     byte_ms = bound_ms(2 * n * v + 2 * n * d + 2 * 4 * v * d + n * (4 + 4 + 8))
     timed = {
-        "max_abs_err": max(c[0] for c in cases.values()),
+        "max_abs_err": max(c[1] for c in cases.values()),
         "ms": device_ms(kern, 10),
         "plain_ms": device_ms(plain, 5),
         "library_ms": device_ms(lambda: torch.mm(dlt, h2, out_dtype=torch.float32), 10),
@@ -1428,9 +1451,12 @@ def phase_head_update(torch):
         "extra_peak_gb": {"kernel": peak_gb(kern), "plain": peak_gb(plain)},
     }
     emit({"phase": "head_update_vs_plain", "ok": True, "tolerance": HEAD_TOL, "lr": HEAD_LR,
-          "cases": {k: {"max_abs_err": e, "max_err_over_bound": r, "from_w_err_over_bound": rw}
-                    for k, (e, r, rw) in cases.items()},
-          "timed_shape": {"N": n, "D": d, "V": v, "dtype": "bfloat16"}, "timed": timed,
+          "cases": {k: {"route": rt, "max_abs_err": e, "max_err_over_bound": r,
+                        "from_w_err_over_bound": rw}
+                    for k, (rt, e, r, rw) in cases.items()},
+          "bit_identical_two_launches": bit_identical,
+          "timed_shape": {"N": n, "D": d, "V": v, "dtype": "bfloat16", "route": "bf16_tma"},
+          "timed": timed,
           "library_note": "plain_ms: head_update_plain, which is the default formulation "
                           "(elementwise dl, one cuBLAS mm, the update); library_ms: the mm "
                           "alone, dl precomputed"})
@@ -1484,12 +1510,15 @@ def phase_fused_head_step(torch):
                 p.copy_(w)
         _zero_attention_launches(at)
         fh.launches = 0
+        fh.route_launches.update(dict.fromkeys(fh.route_launches, 0))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _state, loss = step(state, tok, tgt)
         torch.cuda.synchronize()
         runs[kind] = {"loss": float(loss), "update": [p.detach() - w for p, w in zip(params, w0)],
-                      "launches": {"fused_head": fh.launches, **at.launches},
+                      "launches": {"fused_head": fh.launches,
+                                   "fused_head_bf16_tma": fh.route_launches["bf16_tma"],
+                                   **at.launches},
                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     head = [i for i, (name, _) in enumerate(model.named_parameters()) if name == "lm_head.weight"]
     upd = {k: r.pop("update") for k, r in runs.items()}
@@ -1521,8 +1550,10 @@ def phase_fused_head_step(torch):
     n_layers = model.n_layers
     for kind, r in runs.items():
         la = r["launches"]
-        require(la["fused_head"] == (1 if kind == "k7" else 0),
-                f"{kind} step launched K7 {la['fused_head']} times")
+        want = 1 if kind == "k7" else 0
+        require(la["fused_head"] == want and la["fused_head_bf16_tma"] == want,
+                f"{kind} step launched K7 {la['fused_head']} times, "
+                f"{la['fused_head_bf16_tma']} by its TMA route")
         require(la["flash_fwd"] == n_layers and la["flash_bwd_fused"] == n_layers,
                 f"{kind} step launched K4/K5 {la}")
     require(runs["k7"]["loss"] == runs["default"]["loss"],

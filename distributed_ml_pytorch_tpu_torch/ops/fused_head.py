@@ -17,10 +17,15 @@ SGD) without autograd ever forming its gradient.
   float32 (``torch.mm`` with ``out_dtype`` on the card), then the update:
   :func:`head_update_plain`, copied into ``W``.
 - ``use_kernel=True`` on CUDA tensors launches K7 (``csrc/fused_head.cu``),
-  which never writes ``dl`` to memory, at any N, V and D; a launch that
-  fails raises. On CPU tensors it runs the plain version, as every op of
-  the port does. The JAX module's warn-and-fall-back branch (its kernel
-  needed N % 1024 == 0) has no counterpart.
+  which never writes ``dl`` to memory, at any N, V and D, by one of three
+  routes that :func:`head_update_route` picks from the dtype, the shapes
+  and the alignment: ``"bf16_tma"`` (TMA and wgmma, bfloat16 with V and D
+  multiples of 8 and 16-byte aligned ``h2`` and ``logits``), ``"bf16"``
+  (element loads, any other bfloat16 shape) and ``"f32"``. A launch that
+  fails raises; nothing falls back to another route. On CPU tensors it runs
+  the plain version, as every op of the port does. The JAX module's
+  warn-and-fall-back branch (its kernel needed N % 1024 == 0) has no
+  counterpart.
 
 Layout: the port's ``lm_head.weight`` is float32 ``(V, D)`` (``nn.Linear``'s
 layout); the JAX ``W`` is ``(D, V)``. Every function here takes the port's
@@ -44,12 +49,16 @@ from distributed_ml_pytorch_tpu_torch.ops import _build
 
 #: launches of K7 (the plain version does not count)
 launches = 0
+#: launches of K7 by route (they sum to ``launches``)
+route_launches = {"f32": 0, "bf16": 0, "bf16_tma": 0}
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: vocabulary columns per thread block of K7 by activation dtype (kSV and
-#: kBV in csrc/fused_head.cu); the blocks along V form the grid's y axis
-_VOCAB_TILE = {torch.float32: 64, torch.bfloat16: 128}
-_MAX_GRID_Y = 65535
+#: the route codes of ``dmt_head_update``
+_ROUTE_CODES = {"f32": 0, "bf16": 1, "bf16_tma": 2}
+#: vocabulary rows per thread block of each route and the most blocks the
+#: grid axis they lie on takes (csrc/fused_head.cu: kSV and kBV on the
+#: grid's y axis, kTV on its x axis)
+_VOCAB_TILE = {"f32": (64, 65535), "bf16": (128, 65535), "bf16_tma": (64, 2 ** 31 - 1)}
+_INT32_MAX = 2 ** 31 - 1
 
 
 # ------------------------------------------------------------------ plain version
@@ -86,7 +95,20 @@ def head_update_plain(W, h2, logits, lse, labels, gscale, lr: float) -> torch.Te
 
 # ------------------------------------------------------------------ CUDA kernel
 
-def _check_cuda(W, h2, logits, lse, labels, gscale) -> int:
+def head_update_route(h2: torch.Tensor, logits: torch.Tensor) -> str:
+    """K7's route for these inputs: ``"f32"`` for float32; for bfloat16,
+    ``"bf16_tma"`` when TMA can read both matrices (V and D multiples of 8,
+    so that their rows are whole 16-byte units, and ``h2`` and ``logits``
+    starting on 16-byte boundaries), else ``"bf16"``. Shapes, dtype and
+    addresses only: the CPU tests call it on CPU tensors."""
+    if h2.dtype == torch.float32:
+        return "f32"
+    d, v = h2.shape[1], logits.shape[1]
+    aligned = h2.data_ptr() % 16 == 0 and logits.data_ptr() % 16 == 0
+    return "bf16_tma" if v % 8 == 0 and d % 8 == 0 and aligned else "bf16"
+
+
+def _check_cuda(W, h2, logits, lse, labels, gscale) -> str:
     n, d = h2.shape
     v = logits.shape[1]
     for name, t in (("W", W), ("h2", h2), ("logits", logits), ("lse", lse),
@@ -98,7 +120,7 @@ def _check_cuda(W, h2, logits, lse, labels, gscale) -> int:
     if W.dtype != torch.float32 or W.shape != (v, d):
         raise TypeError(f"head_update: W must be float32 ({v}, {d}), got {W.dtype} "
                         f"{tuple(W.shape)}")
-    if h2.dtype not in _DTYPE_CODES or logits.dtype != h2.dtype:
+    if h2.dtype not in (torch.float32, torch.bfloat16) or logits.dtype != h2.dtype:
         raise TypeError(f"head_update: h2 and logits must share float32 or bfloat16, got "
                         f"{h2.dtype} and {logits.dtype}")
     if logits.shape[0] != n or any(t.shape != (n,) for t in (lse, labels, gscale)):
@@ -108,20 +130,25 @@ def _check_cuda(W, h2, logits, lse, labels, gscale) -> int:
         raise TypeError("head_update: lse and gscale must be float32")
     if labels.dtype != torch.int64:
         raise TypeError(f"head_update: labels must be int64, got {labels.dtype}")
-    _check_vocab(v, h2.dtype)
-    return _DTYPE_CODES[h2.dtype]
+    if max(n, d, v) > _INT32_MAX:
+        raise ValueError(f"head_update: N, D and V must fit in int32, got {n}, {d}, {v}")
+    route = head_update_route(h2, logits)
+    _check_vocab(v, route)
+    return route
 
 
-def _check_vocab(v: int, dtype: torch.dtype) -> None:
-    if -(-v // _VOCAB_TILE[dtype]) > _MAX_GRID_Y:
-        raise ValueError(f"head_update: vocabulary {v} exceeds the {dtype} kernel's grid "
-                         f"({_MAX_GRID_Y} blocks of {_VOCAB_TILE[dtype]} columns)")
+def _check_vocab(v: int, route: str) -> None:
+    tile, most = _VOCAB_TILE[route]
+    if -(-v // tile) > most:
+        raise ValueError(f"head_update: vocabulary {v} exceeds the {route} kernel's grid "
+                         f"({most} blocks of {tile} rows)")
 
 
 def head_update_cuda(W, h2, logits, lse, labels, gscale, alpha: float) -> torch.Tensor:
-    """Launch K7: ``W += alpha · dlᵀ·h2`` in place (``alpha = −lr``)."""
+    """Launch K7: ``W += alpha · dlᵀ·h2`` in place (``alpha = −lr``), by the
+    route :func:`head_update_route` picks."""
     global launches
-    code = _check_cuda(W, h2, logits, lse, labels, gscale)
+    route = _check_cuda(W, h2, logits, lse, labels, gscale)
     fn = _build.load("fused_head").dmt_head_update
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_float] + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
@@ -130,9 +157,10 @@ def head_update_cuda(W, h2, logits, lse, labels, gscale, alpha: float) -> torch.
     with torch.cuda.device(W.device):
         rc = fn(W.data_ptr(), h2.data_ptr(), logits.data_ptr(), lse.data_ptr(),
                 labels.data_ptr(), gscale.data_ptr(), float(alpha), n, d, logits.shape[1],
-                code, _build.stream_of(W))
-    _build.check(rc, "head_update")
+                _ROUTE_CODES[route], _build.stream_of(W))
+    _build.check(rc, f"head_update ({route})")
     launches += 1
+    route_launches[route] += 1
     return W
 
 

@@ -134,13 +134,43 @@ def test_use_kernel_on_cpu_runs_the_plain_version_and_counts_nothing():
     assert torch.equal(a, b) and tfh.launches == before
 
 
-@pytest.mark.parametrize("dtype,tile", [(torch.float32, 64), (torch.bfloat16, 128)])
-def test_vocab_check_follows_the_kernels_grid(dtype, tile):
-    # K7 launches one block row per `tile` vocabulary columns (64 for the
-    # float32 kernel, 128 for the bfloat16 one), at most 65535 rows
-    tfh._check_vocab(tile * 65535, dtype)
+@pytest.mark.parametrize("route,tile,most", [
+    pytest.param("f32", 64, 65535, id="dtype0-64"),
+    pytest.param("bf16", 128, 65535, id="dtype1-128"),
+    pytest.param("bf16_tma", 64, 2 ** 31 - 1, id="bf16_tma-64")])
+def test_vocab_check_follows_the_kernels_grid(route, tile, most):
+    # K7 launches one block per `tile` vocabulary rows: 64 for the float32
+    # kernel and 128 for the bfloat16 one with element loads, at most 65535
+    # along the grid's y axis; 64 for the TMA route, along its x axis
+    tfh._check_vocab(tile * most, route)
     with pytest.raises(ValueError, match="grid"):
-        tfh._check_vocab(tile * 65535 + 1, dtype)
+        tfh._check_vocab(tile * most + 1, route)
+
+
+def _route_inputs(dtype, n, d, v, aligned):
+    """h2 (n, d) and logits (n, v) as views into flat buffers, one element
+    past a 16-byte boundary unless ``aligned``."""
+    off = 0 if aligned else 1
+    h2 = torch.zeros(n * d + 8, dtype=dtype)[off:off + n * d].view(n, d)
+    logits = torch.zeros(n * v + 8, dtype=dtype)[off:off + n * v].view(n, v)
+    return h2, logits
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v", [680, 677])
+@pytest.mark.parametrize("d", [64, 60])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_head_update_route_rule(dtype, v, d, aligned):
+    # TMA reads rows that are whole 16-byte units from a 16-byte aligned base:
+    # bfloat16 with V % 8 == 0 and D % 8 == 0 and both matrices aligned takes
+    # the TMA route, every other bfloat16 input the element loads; float32
+    # has one route
+    h2, logits = _route_inputs(dtype, 3, d, v, aligned)
+    assert (h2.data_ptr() % 16 == 0) == aligned and (logits.data_ptr() % 16 == 0) == aligned
+    want = ("f32" if dtype == torch.float32 else
+            "bf16_tma" if v % 8 == 0 and d % 8 == 0 and aligned else "bf16")
+    assert tfh.head_update_route(h2, logits) == want
+    assert want in tfh.route_launches
 
 
 def _pair(seed=0):

@@ -841,12 +841,14 @@ def _head_case(cuda, n, d, v, dtype, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,d,v", [(1000, 64, 677), (2047, 256, 5000), (64, 40, 3)])
+@pytest.mark.parametrize("n,d,v", [(1000, 64, 677), (2047, 256, 5000), (64, 40, 3),
+                                   (1000, 768, 680), (1000, 1024, 680), (20, 768, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("from_zero", [False, True])
 def test_head_update_kernel_matches_plain(cuda, n, d, v, dtype, from_zero):
-    # V = 677 takes element loads, V = 5000 (bfloat16) the 16-byte loads
-    # with ragged N and V tiles
+    # bfloat16: V = 677 and V = 3 take element loads; V = 5000, 680 and 64 the
+    # TMA route, with ragged N and V tiles, D 256 (one consumer warpgroup), 768
+    # (three), 1024 (two passes over D) and N 20, less than one stage
     from distributed_ml_pytorch_tpu_torch.device import full_float32
     from distributed_ml_pytorch_tpu_torch.ops import fused_head as tfh
 
@@ -857,16 +859,46 @@ def test_head_update_kernel_matches_plain(cuda, n, d, v, dtype, from_zero):
         W = torch.zeros_like(W)
     want = tfh.head_update_plain(W, h2, logits, lse, labels, gscale, lr)
     Wk = W.clone()
-    before = tfh.launches
+    route = tfh.head_update_route(h2, logits)
+    before, before_route = tfh.launches, tfh.route_launches[route]
     out = tfh.head_update_sgd(Wk, h2, logits, lse, labels, gscale, lr, use_kernel=True)
     torch.cuda.synchronize()
     assert out is Wk and tfh.launches == before + 1
+    assert tfh.route_launches[route] == before_route + 1
     dl = tfh.head_dlogits(h2, logits, lse, labels, gscale)
     scale = lr * (dl.float().abs().t() @ h2.float().abs())
     err = (Wk - want).abs()
     bound = 2.0 ** -23 * W.abs() + HEAD_RTOL[dtype] * scale
     assert bool((err <= bound).all()), (float(err.max()), float((err / bound).max()))
     assert not torch.equal(Wk, W)
+
+
+@pytest.mark.gpu
+def test_head_update_routes_count_and_repeat_bit_for_bit(cuda):
+    # each input goes to the route the rule names and counts there alone;
+    # two launches of a route from the same W give the same bits (no atomics)
+    from distributed_ml_pytorch_tpu_torch.ops import fused_head as tfh
+
+    W, h2, logits, lse, labels, gscale = _head_case(cuda, 1000, 768, 680, torch.bfloat16, 5)
+    # the same values one element past a 16-byte boundary
+    h2_off = torch.empty(h2.numel() + 1, dtype=h2.dtype, device=cuda)[1:].view_as(h2)
+    h2_off.copy_(h2)
+    cases = [("bf16_tma", (W, h2, logits, lse, labels, gscale)),
+             ("bf16", (W, h2_off, logits, lse, labels, gscale)),
+             ("f32", _head_case(cuda, 1000, 768, 680, torch.float32, 5))]
+    for route, (w0, hh, *rest) in cases:
+        assert tfh.head_update_route(hh, rest[0]) == route
+        got = []
+        for _ in range(2):
+            before = dict(tfh.route_launches)
+            wk = w0.clone()
+            tfh.head_update_cuda(wk, hh, *rest, -0.5)
+            torch.cuda.synchronize()
+            after = dict(tfh.route_launches)
+            assert after == {k: before[k] + (k == route) for k in before}, (route, after)
+            got.append(wk)
+        assert torch.equal(got[0], got[1]), route
+        assert not torch.equal(got[0], w0)
 
 
 @pytest.mark.gpu
