@@ -7,17 +7,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device and build: the card's name, count and power limit, and the nvcc
    build of ``distributed_ml_pytorch_tpu_torch/csrc/*.cu``; then the
-   ``-Xptxas -v`` lines (registers, spills) of the tensor-core K4, of K5,
-   K6a and K6b, of K8 and of K7, each source on a line of its own;
+   ``-Xptxas -v`` lines (registers, spills) of K2, the tensor-core K4, of
+   K5, K6a and K6b, of K8 and of K7, each source on a line of its own;
 2. every kernel against its plain PyTorch version on the card, at the shapes
-   of the main path (flat_axpy at AlexNet's padded length; relu_pool2
-   forward and backward at AlexNet's three epilogue shapes at batch 64,
-   ties included), bit-identical; with the kernel's, the plain version's and
-   one library call's time (CUDA events, the launches queued behind a busy
-   wait so the card runs them back to back) and the byte bound at 3.35 TB/s;
+   of the main path, bit-identical: flat_axpy at AlexNet's padded length;
+   relu_pool2 forward and backward at AlexNet's three epilogue shapes at
+   batch 64 and 1024 (with and without bias, ties forced or not) on the
+   vector route, and at an odd C and a misaligned contiguous view on the
+   scalar route, each route read from the per-route launch counts; with the
+   kernel's, the plain version's and one library call's time (CUDA events,
+   the launches queued behind a busy wait so the card runs them back to
+   back) and the byte bound at 3.35 TB/s; relu_pool2 per shape cold (input
+   sets in turn, twice the L2) and warm at both batches, beside the launch
+   floor (a one-element ``add_``) and the host µs of a forward+backward call
+   at batch 64;
 3. trainer steps of AlexNet(fused_epilogue=True) against the same steps of
-   fused_epilogue=False (cuDNN deterministic, full float32): equal losses
-   and parameters;
+   fused_epilogue=False (cuDNN deterministic, full float32) at batch 64 and
+   1024: equal losses and parameters, K2 three times a step each way, all on
+   the vector route;
 4. the DownPour path: a parameter server and two workers in one process
    (threads, in-process transport) through ``run_server``/``train_worker``
    with the CLI defaults (AlexNet, batch 64, lr 0.008, n_push = n_pull = 10)
@@ -101,7 +108,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
    equal losses between the two fused steps and updates within
    ``FUSED_HEAD_UPDATE_TOL``; the AD step within ``AD_LOSS_TOL`` and
    ``AD_UPDATE_TOL``; step ms and peak memory of the three, and one
-   profiled ``use_kernel=True`` step.
+   profiled ``use_kernel=True`` step;
+13. config 1's AlexNet legs through ``bench_all.alexnet_phase`` under
+   cuDNN's default algorithm choice (batch 64 unfused, batch 1024 fused and
+   unfused: images/s and the share of the float32 peak), then one profiled
+   fused step each of the DownPour worker at batch 64 (K1 once) and the
+   trainer at batch 1024: K2a and K2b 3 times each on the vector route,
+   in the profile and in the wrappers' counts, no launch whose kernel the
+   profiler lost, device ms by group and the idle gap before each group's
+   launches; then
+   the batch-1024 fused step timed under cuDNN's default, deterministic and
+   benchmark (autotuned) algorithm choices.
 
 Then the ``kernels`` line, the ``nvidia-smi`` name/power line, and last the
 result line ``{"ok": true, "device": {...}}``. Without a card, or without
@@ -126,7 +143,27 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA's data sheet
 BF16_FLOPS = 989.4e12      # H100 SXM dense bf16 tensor cores, NVIDIA's data sheet
 L2_BYTES = 50 * 2**20      # H100 L2 cache
 ALEXNET_PADDED = 2_472_320
-POOL_SHAPES = [(64, 8, 8, 64), (64, 4, 4, 192), (64, 2, 2, 256)]
+#: K2's bit-identity cases, (shape, misaligned, route): AlexNet's three
+#: relu->pool tails at the DownPour batch and config 1's batch 1024 (vector
+#: route), an odd C and a contiguous view one element into its storage
+#: (scalar route)
+POOL_CASES = ([((b, h, w, c), False, "vector") for b in (64, 1024)
+               for h, w, c in ((8, 8, 64), (4, 4, 192), (2, 2, 256))]
+              + [((64, 4, 4, 37), False, "scalar"), ((64, 8, 8, 64), True, "scalar")])
+#: AlexNet's relu->pool tails (H, W, C), the conv1, conv2 and conv5
+#: outputs, timed at the DownPour batch and config 1's batch 1024
+POOL_TAILS = ((8, 8, 64), (4, 4, 192), (2, 2, 256))
+POOL_BATCHES = (64, 1024)
+#: kernel-name substrings grouping an AlexNet step's device time (first
+#: match wins): cuDNN's and PyTorch's convolution kernels by pass
+ALEXNET_GROUPS = {
+    "K2a relu_pool2_fwd": ["relu_pool2_fwd"],
+    "K2b relu_pool2_bwd": ["relu_pool2_bwd"],
+    "K1 flat_axpy": ["flat_axpy"],
+    "conv wgrad": ["wgrad"],
+    "conv dgrad": ["dgrad"],
+    "conv fwd": ["fprop", "convolve", "conv2d", "implicit_gemm"],
+}
 WORKER_STEPS = 80
 ATTN_MAIN = (8, 12, 2048, 64)  # GPT-2-small's per-layer attention shape
 #: one long causal case: a 256-tile key loop (ATTN_MAIN's is 32 tiles); the
@@ -294,7 +331,8 @@ def phase_device_and_build(torch):
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s, "nvcc_build_s": _build.build_seconds,
           "ptxas": ptxas})
-    for src in ("flash_fwd_tc", "flash_bwd_tc", "decode_attention", "fused_head"):
+    for src in ("fused_conv", "flash_fwd_tc", "flash_bwd_tc", "decode_attention",
+                "fused_head"):
         emit({"phase": f"{src}_ptxas", "lines": [
             ln.strip() for ln in _build.build_logs(src).splitlines()
             if "entry function" in ln or "registers" in ln or "spill" in ln]})
@@ -303,9 +341,6 @@ def phase_device_and_build(torch):
 # ------------------------------------------------------------------ phase 2
 
 def phase_kernels(torch):
-    import torch.nn.functional as F
-
-    from distributed_ml_pytorch_tpu_torch.ops import fused_conv as fc
     from distributed_ml_pytorch_tpu_torch.ops import fused_update as fu
 
     dev = torch.device("cuda")
@@ -348,55 +383,169 @@ def phase_kernels(torch):
                 f"by rotation), warm_* with the operands L2-resident",
     }
 
-    # K2a/K2b relu_pool2 at AlexNet's three epilogue shapes, batch 64
-    fwd = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-           "bound_ms": 0.0, "shapes": []}
-    bwd = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None,
-           "bound_ms": 0.0, "shapes": []}
-    for shape in POOL_SHAPES:
+    out.update(_relu_pool2_checks(torch, g))
+    pool_line = out.pop("pool_line")
+    emit({"phase": "kernels_vs_plain", "ok": True, **out, **pool_line})
+    return out
+
+
+def _pool_bytes(shape) -> dict:
+    """Bytes K2 must move at NHWC ``shape`` without bias: the forward reads
+    x and writes m (a quarter of x); the backward reads x, m and g and
+    writes dx."""
+    x = 4 * math.prod(shape)
+    return {"fwd": x + x // 4, "bwd": 2 * x + 2 * (x // 4)}
+
+
+def _pool_input_sets(torch, fc, shape, g):
+    """``(x, m, g)`` sets at NHWC ``shape``, enough that their x alone is at
+    least twice the L2, so a call that takes them in turn reads its inputs
+    from device memory."""
+    n = max(2, -(-2 * L2_BYTES // (4 * math.prod(shape))))
+    pooled = (shape[0], shape[1] // 2, shape[2] // 2, shape[3])
+    sets = []
+    for _ in range(n):
+        x = torch.randn(shape, generator=g, device="cuda")
+        sets.append((x, fc.relu_pool2_fwd_plain(x),
+                     torch.randn(pooled, generator=g, device="cuda")))
+    return sets
+
+
+def _time_pool_shape(torch, fc, shape, g) -> dict:
+    """Device ms of K2a/K2b at NHWC ``shape`` (no bias: AlexNet keeps its
+    bias in the conv), cold (input sets in turn) and warm (one set,
+    L2-resident as right after the producing conv), beside the byte bound,
+    the plain versions and ``max_pool2d(relu)``, cold."""
+    F = torch.nn.functional
+    sets = _pool_input_sets(torch, fc, shape, g)
+    x, m, gr = sets[0]
+    nbytes = _pool_bytes(shape)
+    return {
+        "shape": list(shape), "input_sets": len(sets),
+        "fwd_ms": device_ms(_cold(sets, lambda xs, ms, gs: fc.relu_pool2_fwd_cuda(xs))),
+        "bwd_ms": device_ms(_cold(
+            sets, lambda xs, ms, gs: fc.relu_pool2_bwd_cuda(xs, None, ms, gs))),
+        "fwd_warm_ms": device_ms(lambda: fc.relu_pool2_fwd_cuda(x)),
+        "bwd_warm_ms": device_ms(lambda: fc.relu_pool2_bwd_cuda(x, None, m, gr)),
+        "fwd_bound_ms": bound_ms(nbytes["fwd"]), "bwd_bound_ms": bound_ms(nbytes["bwd"]),
+        "fwd_plain_ms": device_ms(
+            _cold(sets, lambda xs, ms, gs: fc.relu_pool2_fwd_plain(xs)), 20),
+        "bwd_plain_ms": device_ms(
+            _cold(sets, lambda xs, ms, gs: fc.relu_pool2_bwd_plain(xs, None, ms, gs)), 20),
+        # one library call on the channels_last NCHW view, as the model holds it
+        "fwd_library_ms": device_ms(_cold(
+            sets, lambda xs, ms, gs: F.max_pool2d(F.relu(xs.permute(0, 3, 1, 2)), 2))),
+    }
+
+
+def _host_us(torch, fn, iters: int = 200) -> float:
+    """Host µs a call: wall time over ``iters`` calls with one synchronise at
+    the end, after 5 warm-up calls."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e6
+
+
+def _pool_host_costs(torch, fc, x, g) -> dict:
+    """Host and device µs of one ``relu_pool2`` forward+backward at ``x``'s
+    shape: through autograd (as a model's step calls it), through the two
+    wrappers alone, and the unfused plain chain through autograd."""
+    F = torch.nn.functional
+
+    def autograd():
+        v = x.detach().requires_grad_(True)
+        return torch.autograd.grad(fc.relu_pool2(v), v, g)[0]
+
+    def wrappers():
+        return fc.relu_pool2_bwd_cuda(x, None, fc.relu_pool2_fwd_cuda(x), g)
+
+    def unfused():
+        v = x.detach().requires_grad_(True)
+        return torch.autograd.grad(fc.max_pool_2x2(F.relu(v)), v, g)[0]
+
+    out = {"shape": list(x.shape)}
+    for name, fn in (("autograd", autograd), ("wrappers", wrappers),
+                     ("unfused_autograd", unfused)):
+        out[name] = {"host_us": _host_us(torch, fn), "device_us": 1e3 * device_ms(fn)}
+    return out
+
+
+def _relu_pool2_checks(torch, g):
+    """K2a/K2b bit-identical to the plain versions at POOL_CASES (bias or
+    none, ties forced or not), each on the route the rule names; then timed
+    per shape cold and warm at both batches beside the launch floor, and
+    the host cost of a forward+backward call at batch 64."""
+    from distributed_ml_pytorch_tpu_torch.ops import fused_conv as fc
+
+    dev = torch.device("cuda")
+    err = {"fwd": 0.0, "bwd": 0.0}
+    held = []
+    for shape, misaligned, want in POOL_CASES:
         nb, h, w, c = shape
         xr = torch.randn(shape, generator=g, device=dev)
         # forced ties: half-step values repeat inside windows, and windows of
         # negatives all tie at 0 after relu
         xt = torch.round(xr * 2) / 2
-        pooled = (nb, h // 2, w // 2, c)
-        gr = torch.randn(pooled, generator=g, device=dev)
+        gr = torch.randn((nb, h // 2, w // 2, c), generator=g, device=dev)
+        before = dict(fc.launches)
         for xin in (xr, xt):
+            if misaligned:  # a contiguous view one element into its storage
+                xin = torch.empty(xin.numel() + 1, device=dev)[1:].view(shape).copy_(xin)
             for bias in (None, torch.randn(c, generator=g, device=dev)):
                 mk = fc.relu_pool2_fwd_cuda(xin, bias)
                 mp = fc.relu_pool2_fwd_plain(xin, bias)
                 dk = fc.relu_pool2_bwd_cuda(xin, bias, mk, gr)
                 dp = fc.relu_pool2_bwd_plain(xin, bias, mp, gr)
                 torch.cuda.synchronize()
-                require(torch.equal(mk, mp), f"relu_pool2 fwd kernel != plain at {shape}")
-                require(torch.equal(dk, dp), f"relu_pool2 bwd kernel != plain at {shape}")
-                fwd["max_abs_err"] = max(fwd["max_abs_err"], float((mk - mp).abs().max()))
-                bwd["max_abs_err"] = max(bwd["max_abs_err"], float((dk - dp).abs().max()))
-        m = fc.relu_pool2_fwd_cuda(xr)
-        x_cl = xr.permute(0, 3, 1, 2)  # NCHW shape, channels_last memory
-        t_fwd = device_ms(lambda: fc.relu_pool2_fwd_cuda(xr))
-        t_bwd = device_ms(lambda: fc.relu_pool2_bwd_cuda(xr, None, m, gr))
-        row = {
-            "shape": list(shape),
-            "fwd_ms": t_fwd, "bwd_ms": t_bwd,
-            "fwd_plain_ms": device_ms(lambda: fc.relu_pool2_fwd_plain(xr)),
-            "bwd_plain_ms": device_ms(lambda: fc.relu_pool2_bwd_plain(xr, None, m, gr)),
-            "fwd_library_ms": device_ms(lambda: F.max_pool2d(F.relu(x_cl), 2)),
-            "fwd_bound_ms": bound_ms(4 * (xr.numel() + m.numel())),
-            "bwd_bound_ms": bound_ms(4 * (2 * xr.numel() + 2 * m.numel())),
-        }
-        for key, agg in (("fwd", fwd), ("bwd", bwd)):
-            agg["ms"] += row[f"{key}_ms"]
-            agg["plain_ms"] += row[f"{key}_plain_ms"]
-            agg["bound_ms"] += row[f"{key}_bound_ms"]
-        fwd["library_ms"] += row["fwd_library_ms"]
-        fwd["shapes"].append(row)
-    out["relu_pool2_fwd"] = fwd
-    out["relu_pool2_bwd"] = bwd
-    emit({"phase": "kernels_vs_plain", "ok": True, **{
-        k: {kk: vv for kk, vv in v.items() if kk != "shapes"} for k, v in out.items()},
-        "pool_shapes": fwd["shapes"]})
-    return out
+                what = f"{shape} misaligned={misaligned} bias={bias is not None}"
+                require(torch.equal(mk, mp), f"relu_pool2 fwd kernel != plain at {what}")
+                require(torch.equal(dk, dp), f"relu_pool2 bwd kernel != plain at {what}")
+                err["fwd"] = max(err["fwd"], float((mk - mp).abs().max()))
+                err["bwd"] = max(err["bwd"], float((dk - dp).abs().max()))
+        ran = {k: fc.launches[k] - before[k] for k in fc.launches if k.startswith("relu_pool2")}
+        require(ran[f"relu_pool2_fwd.{want}"] == 4 and ran[f"relu_pool2_bwd.{want}"] == 4
+                and ran["relu_pool2_fwd"] == 4 and ran["relu_pool2_bwd"] == 4,
+                f"relu_pool2 at {shape} (misaligned={misaligned}) ran {ran}, not the {want} "
+                f"route")
+        held.append({"shape": list(shape), "misaligned": misaligned, "route": want})
+
+    # the launch floor: a one-element add_ by the same timer
+    one, two = torch.zeros(1, device=dev), torch.ones(1, device=dev)
+    floor = device_ms(lambda: one.add_(two))
+    rows = {b: [_time_pool_shape(torch, fc, (b, *t), g) for t in POOL_TAILS]
+            for b in POOL_BATCHES}
+    x = torch.randn((64, *POOL_TAILS[0]), generator=g, device=dev)
+    gx = torch.randn((64, 4, 4, POOL_TAILS[0][2]), generator=g, device=dev)
+    host = _pool_host_costs(torch, fc, x, gx)
+
+    def total(batch, key):
+        return sum(r[key] for r in rows[batch])
+
+    # the kernels line: the batch-1024 sums of the three tails, cold
+    measured = {}
+    for k, name in (("fwd", "relu_pool2_fwd"), ("bwd", "relu_pool2_bwd")):
+        measured[name] = {
+            "max_abs_err": err[k], "ms": total(1024, f"{k}_ms"),
+            "plain_ms": total(1024, f"{k}_plain_ms"),
+            "library_ms": total(1024, "fwd_library_ms") if k == "fwd" else None,
+            "bound_ms": total(1024, f"{k}_bound_ms"), "bound_by": "bytes"}
+    measured["pool_line"] = {
+        "relu_pool2": {
+            "held": held, "launch_floor_ms": floor, "host_fwd_bwd_b64": host,
+            "b1024_cold_sum_ms": {k: total(1024, f"{k}_ms") for k in ("fwd", "bwd")},
+            "b1024_bound_sum_ms": {k: total(1024, f"{k}_bound_ms") for k in ("fwd", "bwd")},
+            "b64_warm_sum_ms": {k: total(64, f"{k}_warm_ms") for k in ("fwd", "bwd")},
+            "b64_cold_sum_ms": {k: total(64, f"{k}_ms") for k in ("fwd", "bwd")},
+            "note": "kernels-line K2 rows are the batch-1024 cold sums; b64_warm_sum_ms "
+                    "continues the batch-64 sums of earlier runs; library: "
+                    "max_pool2d(relu) on the channels_last view (cold)"},
+        "pool_shapes": rows[64] + rows[1024]}
+    return measured
 
 
 # ------------------------------------------------------------------ phase 3
@@ -441,8 +590,10 @@ def phase_trainer(torch, device="cuda", steps=5, batch=64):
     require(param_err <= 1e-6 and loss_err <= 1e-6,
             f"fused and unfused trainer steps disagree: params {param_err}, loss {loss_err}")
     if torch.device(device).type == "cuda":
-        require(kf["relu_pool2_fwd"] == 3 * steps and kf["relu_pool2_bwd"] == 3 * steps,
-                f"fused trainer steps launched the K2 kernels {kf} times")
+        require(all(kf[f"relu_pool2_{d}{route}"] == 3 * steps
+                    for d in ("fwd", "bwd") for route in ("", ".vector")),
+                f"fused trainer steps launched the K2 kernels {kf} times, not 3 a step "
+                f"each on the vector route")
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1569,6 +1720,63 @@ def phase_fused_head_step(torch):
     return runs["k7"]["launches"]["fused_head"]
 
 
+# ------------------------------------------------------------------ phase 13
+
+def phase_alexnet(torch):
+    from distributed_ml_pytorch_tpu_torch import bench_all
+    from distributed_ml_pytorch_tpu_torch.ops import fused_conv as fc
+    from distributed_ml_pytorch_tpu_torch.ops import fused_update as fu
+    from distributed_ml_pytorch_tpu_torch.utils.devprof import kernel_breakdown
+
+    # the legs and profiles under cuDNN's defaults, as the trainer and the
+    # DownPour worker leave them (phase 3 set deterministic algorithms)
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = torch.backends.cudnn.benchmark = False
+    rates = bench_all.alexnet_phase("cuda")
+    for metric, r in rates.items():
+        require(math.isfinite(r) and r > 0, f"{metric}: {float(r)} images/s")
+    for rec in bench_all.RESULTS:
+        if rec["metric"].startswith("alexnet_"):
+            require(all(math.isfinite(v) for v in rec["warmup_losses"]),
+                    f"{rec['metric']}: losses {rec['warmup_losses']}")
+    profiles = {}
+    for name, step, k1 in (
+            ("downpour_b64", bench_all.alexnet_step(64, True, "cuda", downpour=True), 1),
+            ("train_b1024", bench_all.alexnet_step(1024, True, "cuda"), 0)):
+        for _ in range(3):
+            step()
+        fu.launches = 0
+        for k in fc.launches:
+            fc.launches[k] = 0
+        want = {"K2a relu_pool2_fwd": 3, "K2b relu_pool2_bwd": 3, "K1 flat_axpy": k1}
+        prof = kernel_breakdown(step, ALEXNET_GROUPS, top=12)
+        require("busy_ms" in prof and prof["lost_launches"] == 0,
+                f"{name}: the profile lost kernels: {prof}")
+        n = prof["group_launches"]
+        require(all(n[k] == v for k, v in want.items()),
+                f"{name}: profiled launches {n} (want {want})")
+        # the wrappers' counts over every run of the step the profiler made
+        runs = prof["runs"]
+        require(fu.launches == k1 * runs
+                and fc.launches["relu_pool2_fwd"] == fc.launches["relu_pool2_bwd"] == 3 * runs
+                and fc.launches["relu_pool2_fwd.vector"] == 3 * runs
+                and fc.launches["relu_pool2_bwd.vector"] == 3 * runs,
+                f"{name}: wrapper counts {fc.launches}, flat_axpy {fu.launches} over "
+                f"{runs} profiled run(s)")
+        profiles[name] = {"step_ms": device_ms(step, 20), **prof}
+    # the batch-1024 fused step under each cuDNN algorithm choice
+    cudnn_step_ms = {}
+    for label, det, bench in (("default", False, False), ("deterministic", True, False),
+                              ("benchmark", False, True)):
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, bench
+        step = bench_all.alexnet_step(1024, True, "cuda")
+        cudnn_step_ms[label] = device_ms(step, 20)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    emit({"phase": "alexnet", "ok": True,
+          "images_per_s": {m: float(r) for m, r in rates.items()},
+          "profiles": profiles, "b1024_fused_step_ms_by_cudnn_setting": cudnn_step_ms})
+
+
 # ------------------------------------------------------------------ main
 
 K4_SRC = "distributed_ml_pytorch_tpu_torch/csrc/flash_fwd_tc.cu"
@@ -1614,6 +1822,7 @@ def main() -> int:
         phase_device_and_build(torch)
         measured = phase_kernels(torch)
         phase_trainer(torch)
+        phase_trainer(torch, steps=2, batch=1024)
         launches = phase_downpour(torch)
         measured.update(phase_attention(torch))
         lm_launches, split_launches = phase_lm(torch)
@@ -1630,6 +1839,7 @@ def main() -> int:
         launches.update(k3_launches)
         measured.update(phase_head_update(torch))
         launches["fused_head"] = phase_fused_head_step(torch)
+        phase_alexnet(torch)
         smi = nvidia_smi_line()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

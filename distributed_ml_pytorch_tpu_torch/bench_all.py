@@ -1,6 +1,7 @@
 """The legs of the JAX ``bench_all.py`` that the port runs on the card.
 
     python -m distributed_ml_pytorch_tpu_torch.bench_all                    # every leg, on the card
+    python -m distributed_ml_pytorch_tpu_torch.bench_all --legs alexnet
     python -m distributed_ml_pytorch_tpu_torch.bench_all --legs conv_epilogue
     python -m distributed_ml_pytorch_tpu_torch.bench_all --device cpu --tiny
 
@@ -16,6 +17,16 @@ narration on stderr. Ported legs, under the JAX metric names:
   (the restructured lm_head step), any other through
   ``parallel/fsdp.make_fsdp_lm_train_step``; both plain SGD at lr 1e-3 on the
   same tokens from ``default_rng(0)``.
+- ``alexnet`` — config 1's headline AlexNet legs (JAX ``bench.py::
+  run_headline_legs``, bench.py:303, as ``tpu_phase`` emits them,
+  bench_all.py:126-148), the two the port runs: the reference recipe
+  (batch 64, SGD lr 0.008, unfused; ``parity_b64``) and AlexNet with the
+  fused relu->pool epilogue at batch 1024 (``large_batch_b1024``), plus
+  that leg unfused, so the record carries what the epilogue kernels save in
+  the step. The batch is ``bench.py::make_batch``'s, on the card once;
+  steps are ``training/trainer.make_train_step``'s, eager, full float32,
+  one step a dispatch. FLOPs are ``utils/flops.cnn_train_flops`` over the
+  model's conv/linear MACs, against the card's float32 (non-tensor) peak.
 - ``conv_epilogue`` — config 1's conv-epilogue ladder (JAX
   ``compute_microbench_phase``, bench_all.py:2000-2073): ``relu_pool2``
   fused against ``max_pool_2x2(relu(x))`` on AlexNet's three relu->pool
@@ -29,8 +40,9 @@ CPU (the record's note names the source). The LM legs' FLOP numerator is
 ``utils/flops.lm_train_flops_6nd`` over the non-embedding parameters (XLA's
 ``compiled_flops`` has no PyTorch counterpart); the cross-check holds it
 against the same count over the ``nn.Linear`` weights. Not ported yet:
+config 1's ``grad_accum_b1024`` leg and ``bench_steps_to_accuracy``,
 ``bench_lm_32k``, the MoE leg and every other phase of the JAX harness
-(``ROADMAP.md`` Queue A item 15).
+(``ROADMAP.md`` Queue A).
 """
 
 from __future__ import annotations
@@ -46,7 +58,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from distributed_ml_pytorch_tpu_torch.device import full_float32, resolve_device
-from distributed_ml_pytorch_tpu_torch.models import TransformerLM
+from distributed_ml_pytorch_tpu_torch.models import TransformerLM, get_model
 from distributed_ml_pytorch_tpu_torch.ops import fused_conv as fc
 from distributed_ml_pytorch_tpu_torch.ops.fused_head import make_fused_head_sgd_step
 from distributed_ml_pytorch_tpu_torch.parallel.fsdp import make_fsdp_lm_train_step
@@ -54,10 +66,21 @@ from distributed_ml_pytorch_tpu_torch.parallel.seq_parallel import (
     create_lm_train_state,
     next_token_targets,
 )
-from distributed_ml_pytorch_tpu_torch.training.trainer import SGD
+from distributed_ml_pytorch_tpu_torch.parallel.async_ps import (
+    default_downpour_tx,
+    init_downpour_accumulator,
+    make_downpour_device_step,
+)
+from distributed_ml_pytorch_tpu_torch.training.trainer import (
+    SGD,
+    loss_and_grads,
+    make_train_step,
+)
 from distributed_ml_pytorch_tpu_torch.utils.devtime import device_time
 from distributed_ml_pytorch_tpu_torch.utils.flops import (
     check_flops_agreement,
+    cnn_train_flops,
+    conv_linear_macs,
     lm_train_flops_6nd,
     utilization,
 )
@@ -76,32 +99,37 @@ def log(msg: str) -> None:
 class Rate(float):
     """tokens/s (or images/s) that also carries the leg's FLOPs story:
     ``.flops_per_step``, ``.tflops`` (achieved), ``.mfu`` (fraction of the
-    card's bf16 peak) — any may be None — and the ``.step_seconds``, timing
-    ``.source`` and train-step kind it came from (the JAX bench.py's
-    ``Rate``)."""
+    card's ``.peak`` rate: bf16 unless the leg names another) — any may be
+    None — and the ``.step_seconds``, timing ``.source`` and train-step kind
+    it came from (the JAX bench.py's ``Rate``)."""
 
     flops_per_step: Optional[float] = None
     tflops: Optional[float] = None
     mfu: Optional[float] = None
+    peak: str = "bf16"
     step_seconds: Optional[float] = None
     source: Optional[str] = None
     step_kind: Optional[str] = None
 
     @staticmethod
-    def make(value: float, flops_per_step, step_seconds, device: Optional[str] = None) -> "Rate":
+    def make(value: float, flops_per_step, step_seconds, device: Optional[str] = None,
+             peak: str = "bf16") -> "Rate":
         r = Rate(value)
         r.flops_per_step = flops_per_step
         r.step_seconds = step_seconds
-        r.tflops, r.mfu = utilization(flops_per_step, step_seconds, device)
+        r.peak = peak
+        r.tflops, r.mfu = utilization(flops_per_step, step_seconds, device, peak)
         return r
 
     def mfu_note(self) -> str:
-        """Human fragment for a note: '12.3 TFLOP/s, 6.2% MFU'."""
+        """Human fragment for a note: '12.3 TFLOP/s, 6.2% MFU' (against the
+        bf16 peak; another peak is named)."""
         if self.tflops is None:
             return "flops not counted"
         if self.mfu is None:
             return f"{self.tflops:.1f} TFLOP/s (no peak table for device)"
-        return f"{self.tflops:.1f} TFLOP/s, {self.mfu:.1%} MFU"
+        of = "" if self.peak == "bf16" else f" of the {self.peak} peak"
+        return f"{self.tflops:.1f} TFLOP/s, {self.mfu:.1%} MFU{of}"
 
     def record_fields(self) -> dict:
         """The FLOPs story as JSON record fields."""
@@ -111,6 +139,7 @@ class Rate(float):
             rec["tflops"] = round(self.tflops, 2)
             if self.mfu is not None:
                 rec["mfu"] = round(self.mfu, 4)
+                rec["mfu_peak"] = self.peak
         return rec
 
 
@@ -248,6 +277,94 @@ def lm_phase(device, tiny: bool = False) -> dict:
     return rates
 
 
+# ------------------------------------------------------------------ config 1: AlexNet legs
+
+ALEXNET_LR = 0.008
+#: (metric, batch, fused_epilogue): bench.py's parity_b64 and
+#: large_batch_b1024 legs, and the latter unfused
+ALEXNET_LEGS = (
+    ("alexnet_cifar10_train_throughput", 64, False),
+    ("alexnet_cifar10_train_throughput_large_batch", 1024, True),
+    ("alexnet_cifar10_train_throughput_large_batch_unfused", 1024, False),
+)
+#: the batches ``--tiny`` gives the two legs
+TINY_ALEXNET_BATCH = {64: 4, 1024: 8}
+ALEXNET_NOTES = {
+    64: "reference recipe (batch 64, SGD lr 0.008), the trajectory-parity leg",
+    1024: "identical architecture at batch 1024, the headline leg",
+}
+
+
+def make_batch(batch: int, seed: int = 0, shape: tuple = (32, 32, 3), n_classes: int = 10):
+    """Synthetic image batch as the JAX ``bench.py::make_batch`` makes one
+    (no stacking): normal images from ``default_rng(seed)``, labels
+    ``arange % n_classes`` (int64, torch's class index type)."""
+    rng = np.random.default_rng(seed)
+    images = rng.normal(size=(batch, *shape)).astype(np.float32)
+    labels = np.arange(batch) % n_classes
+    return images, labels.astype(np.int64)
+
+
+def alexnet_step(batch: int, fused: bool, device="cuda", downpour: bool = False):
+    """``step() -> loss``: one SGD step (lr 0.008) of a seed-0 AlexNet on one
+    synthetic batch that stays on ``device``. ``downpour=True`` takes the
+    DownPour worker's device step instead: the same forward and backward,
+    then the local update accumulated by ``flat_axpy`` (K1)."""
+    dev = resolve_device(device)
+    model = get_model("alexnet", fused_epilogue=fused, seed=0, device=dev)
+    images, labels = make_batch(batch)
+    x = torch.from_numpy(images).to(dev)
+    y = torch.from_numpy(labels).to(dev)
+    if not downpour:
+        train_step = make_train_step(model, SGD(ALEXNET_LR))
+        return lambda: train_step(x, y)
+    tx = default_downpour_tx(ALEXNET_LR)
+    opt_state = tx.init(list(model.parameters()))
+    _flat, n, pad, accum = init_downpour_accumulator(model)
+    device_step = make_downpour_device_step(model, tx, n, pad)
+
+    def step():
+        loss = loss_and_grads(model, x, y)
+        device_step(opt_state, accum)
+        return loss
+
+    return step
+
+
+def alexnet_phase(device, tiny: bool = False, warmup: int = 3, calls: int = 20) -> dict:
+    """Config 1's AlexNet legs; returns ``{metric: Rate}``. Each leg trains a
+    fresh seed-0 model: ``warmup`` steps whose losses the record keeps, then
+    ``calls`` steps timed by ``utils/devtime.device_time``."""
+    dev = resolve_device(device)
+    hw = hardware(dev)
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    macs = sum(conv_linear_macs(get_model("alexnet", device="cpu"), (1, 32, 32, 3)).values())
+    if tiny:
+        calls = 2
+    rates = {}
+    for metric, leg_batch, fused in ALEXNET_LEGS:
+        batch = TINY_ALEXNET_BATCH[leg_batch] if tiny else leg_batch
+        step = alexnet_step(batch, fused, dev)
+        losses = [float(step()) for _ in range(warmup)]
+        t = device_time(step, calls=calls, warmup=1)
+        r = Rate.make(batch / t.per_call_s, cnn_train_flops(macs, batch), t.per_call_s, name,
+                      peak="f32")
+        r.source = t.source
+        rates[metric] = r
+        cut = f"--tiny: batch {batch} on the leg of batch {leg_batch}; " if tiny else ""
+        emit(1, metric, r, "images/sec/chip", hw,
+             f"{cut}{ALEXNET_NOTES[leg_batch]}; relu->pool epilogue "
+             f"{'fused (relu_pool2 kernels)' if fused else 'unfused'}; full float32 (no TF32), "
+             f"eager, one step a dispatch (the JAX harness runs K steps per compiled program "
+             f"with lax.scan; the scanned trainer is not ported yet); {t.per_call_s * 1e3:.3f} "
+             f"ms/step ({t.source}); FLOPs 6 x {macs} conv/linear MACs an image, against "
+             f"the 67 TFLOP/s float32 non-tensor peak of NVIDIA's H100 SXM data sheet",
+             extra={"batch": batch, "fused_epilogue": fused, "warmup_losses": losses,
+                    "cudnn": {"deterministic": torch.backends.cudnn.deterministic,
+                              "benchmark": torch.backends.cudnn.benchmark}})
+    return rates
+
+
 # ------------------------------------------------------------------ conv epilogue ladder
 
 def compute_microbench_phase(device="cuda", batch: int = 256) -> dict:
@@ -324,6 +441,7 @@ def compute_microbench_phase(device="cuda", batch: int = 256) -> dict:
 
 
 LEGS = {
+    "alexnet": lambda dev, tiny: alexnet_phase(dev, tiny=tiny),
     "lm": lambda dev, tiny: lm_phase(dev, tiny=tiny),
     "conv_epilogue": lambda dev, tiny: compute_microbench_phase(dev, batch=16 if tiny else 256),
 }

@@ -8,16 +8,26 @@
 // Bound on an H100: bytes. The forward reads x once and writes a quarter of
 //   its size; the backward reads x, m and g and writes dx; each element costs
 //   a handful of compares, far below the card's flop/byte ridge.
-// Design: one thread per pooled output (n, h2, w2, c), channels innermost, so
-//   neighbouring threads read neighbouring channels of the same window slot
-//   and every load and store is coalesced. The TPU kernel restructured the
-//   windows with a free reshape so that slots sat on static axes; here each
-//   thread computes the four slot offsets itself from (n, h2, w2, c) and the
-//   strides, and needs no shared memory. The thread re-derives relu(x + b)
-//   in the backward instead of saving it, as the TPU kernel does. The
-//   optional bias is read per channel; AlexNet keeps its bias in the conv and
-//   passes none. No reduction crosses threads, so the grid needs no masks
-//   beyond its bound.
+// Design: one thread per pooled output group (n, h2, w2, V channels),
+//   channels innermost, so neighbouring threads read neighbouring channels
+//   of the same window slot and every load and store is coalesced. The
+//   vector route (V = 4: C % 4 == 0 and every pointer 16-byte aligned, which
+//   all of AlexNet's tails meet) moves each window slot, bias, m, g and dx
+//   as one 16-byte float4; the scalar route (V = 1) takes any C and any
+//   alignment. The grid has one thread per group, no grid-stride loop. The
+//   index arithmetic is 32-bit (the wrapper and the entry points refuse
+//   tensors of 2^31 elements or more) with the two divisions it needs done
+//   as a multiply-high by a magic number computed on the host, since the
+//   card emulates integer division in dozens of instructions: the pooled
+//   row r = n*H2 + h2 and w2 come from t / (C/V) and / W2, and the slot
+//   (0,0) of the window sits at ((2r)*W + 2*w2)*C + c because n*H + 2*h2 =
+//   2r. The TPU kernel restructured the windows with a free reshape so that
+//   slots sat on static axes; here each thread computes the four slot
+//   offsets itself and needs no shared memory. The thread re-derives
+//   relu(x + b) in the backward instead of saving it, as the TPU kernel
+//   does. No reduction crosses threads.
+// Every load and store carries a streaming hint (__ldcs/__stcs: each byte
+//   is touched once, so it is evicted first), and a block has 128 threads.
 // Numerics: the forward uses the same adds and maxima as the plain version
 //   (relu as v > 0 ? v : 0, then max(max(y00, y01), max(y10, y11))), so it is
 //   bit-identical; the backward sends each window's cotangent to the FIRST
@@ -26,111 +36,195 @@
 //   three slots. db is reduced outside, as in JAX.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 132 * 16;
+constexpr int kThreads = 128;
+constexpr long long kMaxIndex = 1LL << 31;
 
-struct Window {
-    long long base;  // offset of slot (0,0)
-    long long dw;    // offset of slot (0,1) from (0,0): C
-    long long dh;    // offset of slot (1,0) from (0,0): W*C
+// q = n / d for n < 2^31 as (umulhi(n, mul) + n) >> shift (Granlund and
+// Montgomery; CUTLASS's FastDivmod).
+struct FastDiv {
+    unsigned d, mul, shift;
 };
 
-__device__ __forceinline__ Window window_of(long long idx, int H, int W, int C,
-                                            int* c_out) {
-    const int H2 = H / 2, W2 = W / 2;
-    const int c = (int)(idx % C);
-    long long t = idx / C;
-    const int w2 = (int)(t % W2);
-    t /= W2;
-    const int h2 = (int)(t % H2);
-    const long long n = t / H2;
-    *c_out = c;
-    Window win;
-    win.base = ((n * H + 2LL * h2) * W + 2LL * w2) * C + c;
-    win.dw = C;
-    win.dh = (long long)W * C;
-    return win;
+FastDiv fast_div(unsigned d) {
+    unsigned shift = 0;
+    while ((1ull << shift) < d) ++shift;
+    const unsigned long long mul = ((1ull << 32) * ((1ull << shift) - d)) / d + 1;
+    return FastDiv{d, (unsigned)mul, shift};
 }
 
-__device__ __forceinline__ float relu_b(float v, const float* bias, int c) {
-    if (bias != nullptr) v = __fadd_rn(v, bias[c]);
-    return v > 0.0f ? v : 0.0f;
+__device__ __forceinline__ unsigned div_of(unsigned n, FastDiv f) {
+    return (__umulhi(n, f.mul) + n) >> f.shift;
 }
 
-__global__ void relu_pool2_fwd(const float* __restrict__ x, const float* __restrict__ bias,
-                               float* __restrict__ m, long long total, int H, int W,
-                               int C) {
-    const long long stride = (long long)blockDim.x * gridDim.x;
-    for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
-         idx += stride) {
-        int c;
-        const Window w = window_of(idx, H, W, C, &c);
-        const float y00 = relu_b(x[w.base], bias, c);
-        const float y01 = relu_b(x[w.base + w.dw], bias, c);
-        const float y10 = relu_b(x[w.base + w.dh], bias, c);
-        const float y11 = relu_b(x[w.base + w.dh + w.dw], bias, c);
-        m[idx] = fmaxf(fmaxf(y00, y01), fmaxf(y10, y11));
+template <int V>
+struct alignas(4 * V) Pack {
+    float v[V];
+};
+
+template <int V>
+__device__ __forceinline__ Pack<V> load(const float* p) {
+    if constexpr (V == 4) {
+        const float4 a = __ldcs(reinterpret_cast<const float4*>(p));
+        return Pack<V>{{a.x, a.y, a.z, a.w}};
+    } else {
+        return Pack<V>{{__ldcs(p)}};
     }
 }
 
-__global__ void relu_pool2_bwd(const float* __restrict__ x, const float* __restrict__ bias,
-                               const float* __restrict__ m, const float* __restrict__ g,
-                               float* __restrict__ dx, long long total, int H, int W,
-                               int C) {
-    const long long stride = (long long)blockDim.x * gridDim.x;
-    for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
-         idx += stride) {
-        int c;
-        const Window w = window_of(idx, H, W, C, &c);
-        const float y00 = relu_b(x[w.base], bias, c);
-        const float y01 = relu_b(x[w.base + w.dw], bias, c);
-        const float y10 = relu_b(x[w.base + w.dh], bias, c);
-        const float y11 = relu_b(x[w.base + w.dh + w.dw], bias, c);
-        const float mm = m[idx];
-        const float gm = mm > 0.0f ? g[idx] : 0.0f;
-        const bool e00 = y00 == mm;
-        const bool e01 = !e00 && y01 == mm;
-        const bool e10 = !e00 && !e01 && y10 == mm;
-        const bool e11 = !e00 && !e01 && !e10 && y11 == mm;
-        dx[w.base] = e00 ? gm : 0.0f;
-        dx[w.base + w.dw] = e01 ? gm : 0.0f;
-        dx[w.base + w.dh] = e10 ? gm : 0.0f;
-        dx[w.base + w.dh + w.dw] = e11 ? gm : 0.0f;
+template <int V>
+__device__ __forceinline__ void store(float* p, const Pack<V>& a) {
+    if constexpr (V == 4) {
+        __stcs(reinterpret_cast<float4*>(p), make_float4(a.v[0], a.v[1], a.v[2], a.v[3]));
+    } else {
+        __stcs(p, a.v[0]);
     }
 }
 
-unsigned blocks_for(long long total) {
-    long long blocks = (total + kThreads - 1) / kThreads;
-    if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-    if (blocks < 1) blocks = 1;
-    return (unsigned)blocks;
+// Offsets of one thread's group: slot (0,0) of its window in x and its
+// pooled output in m, g; its first channel in the bias. False past the end.
+struct Group {
+    unsigned base, out, c;
+};
+
+__device__ __forceinline__ bool group_of(unsigned groups, FastDiv per_row, FastDiv w2s,
+                                         unsigned W, unsigned C, int V, Group* gr) {
+    const unsigned t = blockIdx.x * kThreads + threadIdx.x;
+    if (t >= groups) return false;
+    const unsigned q = div_of(t, per_row);  // r * W2 + w2
+    const unsigned r = div_of(q, w2s);      // n * H2 + h2
+    const unsigned w2 = q - r * w2s.d;
+    gr->c = (t - q * per_row.d) * V;
+    gr->base = (2 * r * W + 2 * w2) * C + gr->c;
+    gr->out = t * V;
+    return true;
+}
+
+__device__ __forceinline__ float relu(float v) { return v > 0.0f ? v : 0.0f; }
+
+// The four slots of a window after relu(x + b): s[slot].v[channel].
+template <int V>
+__device__ __forceinline__ void window(const float* __restrict__ x,
+                                       const float* __restrict__ bias, const Group& gr,
+                                       unsigned W, unsigned C, Pack<V> s[4]) {
+    const unsigned dh = W * C;
+    s[0] = load<V>(x + gr.base);
+    s[1] = load<V>(x + gr.base + C);
+    s[2] = load<V>(x + gr.base + dh);
+    s[3] = load<V>(x + gr.base + dh + C);
+    if (bias != nullptr) {
+        const Pack<V> b = load<V>(bias + gr.c);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+            for (int i = 0; i < V; ++i) s[k].v[i] = __fadd_rn(s[k].v[i], b.v[i]);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int i = 0; i < V; ++i) s[k].v[i] = relu(s[k].v[i]);
+}
+
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+    relu_pool2_fwd(const float* __restrict__ x, const float* __restrict__ bias,
+                   float* __restrict__ m, unsigned groups, FastDiv per_row, FastDiv w2s,
+                   unsigned W, unsigned C) {
+    Group gr;
+    if (!group_of(groups, per_row, w2s, W, C, V, &gr)) return;
+    Pack<V> s[4];
+    window<V>(x, bias, gr, W, C, s);
+    Pack<V> out;
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+        out.v[i] = fmaxf(fmaxf(s[0].v[i], s[1].v[i]), fmaxf(s[2].v[i], s[3].v[i]));
+    store<V>(m + gr.out, out);
+}
+
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+    relu_pool2_bwd(const float* __restrict__ x, const float* __restrict__ bias,
+                   const float* __restrict__ m, const float* __restrict__ g,
+                   float* __restrict__ dx, unsigned groups, FastDiv per_row, FastDiv w2s,
+                   unsigned W, unsigned C) {
+    Group gr;
+    if (!group_of(groups, per_row, w2s, W, C, V, &gr)) return;
+    Pack<V> s[4];
+    window<V>(x, bias, gr, W, C, s);
+    const Pack<V> mm = load<V>(m + gr.out);
+    const Pack<V> gg = load<V>(g + gr.out);
+    Pack<V> d[4];
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+        const float gm = mm.v[i] > 0.0f ? gg.v[i] : 0.0f;
+        bool taken = false;  // the first maximal slot takes the cotangent
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            const bool first = !taken && s[k].v[i] == mm.v[i];
+            taken = taken || first;
+            d[k].v[i] = first ? gm : 0.0f;
+        }
+    }
+    const unsigned dh = W * C;
+    store<V>(dx + gr.base, d[0]);
+    store<V>(dx + gr.base + C, d[1]);
+    store<V>(dx + gr.base + dh, d[2]);
+    store<V>(dx + gr.base + dh + C, d[3]);
+}
+
+template <typename... Params, typename... Args>
+int launch(void (*kernel)(Params...), unsigned groups, void* stream, Args... args) {
+    const unsigned blocks = (groups + kThreads - 1) / kThreads;
+    kernel<<<blocks, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(args...);
+    return (int)cudaGetLastError();
+}
+
+// Checks the wrapper makes too: even H and W, positive sizes, fewer than
+// 2^31 elements, and for the vector route C % 4 == 0. The wrapper checks
+// the pointers' alignment.
+bool shape_ok(int N, int H, int W, int C, int vec) {
+    if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || H % 2 || W % 2) return false;
+    if ((long long)N * H * W * C >= kMaxIndex) return false;
+    return !vec || C % 4 == 0;
 }
 
 }  // namespace
 
+// vec: 1 for the float4 route, 0 for the scalar one. Returns a cudaError_t.
 extern "C" int dmt_relu_pool2_fwd_f32(const void* x, const void* bias, void* m, int N,
-                                      int H, int W, int C, void* stream) {
-    const long long total = (long long)N * (H / 2) * (W / 2) * C;
-    if (total <= 0) return (int)cudaGetLastError();
-    relu_pool2_fwd<<<blocks_for(total), kThreads, 0,
-                     reinterpret_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<const float*>(bias),
-        static_cast<float*>(m), total, H, W, C);
-    return (int)cudaGetLastError();
+                                      int H, int W, int C, int vec, void* stream) {
+    if (!shape_ok(N, H, W, C, vec)) return (int)cudaErrorInvalidValue;
+    const int V = vec ? 4 : 1;
+    const unsigned per_row = C / V, W2 = W / 2;
+    const unsigned groups = (unsigned)N * (H / 2) * W2 * per_row;
+    const auto* xs = static_cast<const float*>(x);
+    const auto* bs = static_cast<const float*>(bias);
+    auto* ms = static_cast<float*>(m);
+    if (vec)
+        return launch(relu_pool2_fwd<4>, groups, stream, xs, bs, ms, groups,
+                      fast_div(per_row), fast_div(W2), (unsigned)W, (unsigned)C);
+    return launch(relu_pool2_fwd<1>, groups, stream, xs, bs, ms, groups, fast_div(per_row),
+                  fast_div(W2), (unsigned)W, (unsigned)C);
 }
 
 extern "C" int dmt_relu_pool2_bwd_f32(const void* x, const void* bias, const void* m,
                                       const void* g, void* dx, int N, int H, int W, int C,
-                                      void* stream) {
-    const long long total = (long long)N * (H / 2) * (W / 2) * C;
-    if (total <= 0) return (int)cudaGetLastError();
-    relu_pool2_bwd<<<blocks_for(total), kThreads, 0,
-                     reinterpret_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<const float*>(bias),
-        static_cast<const float*>(m), static_cast<const float*>(g),
-        static_cast<float*>(dx), total, H, W, C);
-    return (int)cudaGetLastError();
+                                      int vec, void* stream) {
+    if (!shape_ok(N, H, W, C, vec)) return (int)cudaErrorInvalidValue;
+    const int V = vec ? 4 : 1;
+    const unsigned per_row = C / V, W2 = W / 2;
+    const unsigned groups = (unsigned)N * (H / 2) * W2 * per_row;
+    const auto* xs = static_cast<const float*>(x);
+    const auto* bs = static_cast<const float*>(bias);
+    const auto* mp = static_cast<const float*>(m);
+    const auto* gp = static_cast<const float*>(g);
+    auto* dxs = static_cast<float*>(dx);
+    if (vec)
+        return launch(relu_pool2_bwd<4>, groups, stream, xs, bs, mp, gp, dxs, groups,
+                      fast_div(per_row), fast_div(W2), (unsigned)W, (unsigned)C);
+    return launch(relu_pool2_bwd<1>, groups, stream, xs, bs, mp, gp, dxs, groups,
+                  fast_div(per_row), fast_div(W2), (unsigned)W, (unsigned)C);
 }

@@ -20,8 +20,12 @@ and on the card by ``chip_smoke.py``):
 
 On a CUDA tensor :func:`relu_pool2` runs the kernels of ``csrc/fused_conv.cu``
 forward and backward (a ``torch.autograd.Function``); on a CPU tensor it runs
-the plain versions. A CUDA input the kernel cannot take (not contiguous, not
-float32) raises; nothing is copied silently.
+the plain versions. :func:`relu_pool2_route` picks the kernels' route from
+the shape, dtype and pointers: 16-byte float4 accesses when C % 4 == 0 and
+every operand is 16-byte aligned (all of AlexNet's tails), scalar ones
+otherwise; ``launches`` counts each route. A CUDA input the kernels cannot
+take (not contiguous, not float32, 2^31 elements or more) raises; nothing is
+copied silently.
 
 :func:`bias_relu` is ``relu(x + bias)`` over the last axis, forward and
 backward bit-identical to the plain versions (the same add, rounded to the
@@ -34,14 +38,19 @@ outside the kernel, as in JAX.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 
 from distributed_ml_pytorch_tpu_torch.ops import _build
 
-#: launches of the forward and backward CUDA kernels (plain versions do not count)
-launches = {"relu_pool2_fwd": 0, "relu_pool2_bwd": 0, "bias_relu_fwd": 0, "bias_relu_bwd": 0}
+#: launches of the forward and backward CUDA kernels (plain versions do not
+#: count); K2's also by route (``"relu_pool2_fwd.vector"`` and so on, see
+#: :func:`relu_pool2_route`), which sum to its total
+launches = {"relu_pool2_fwd": 0, "relu_pool2_bwd": 0, "bias_relu_fwd": 0, "bias_relu_bwd": 0,
+            "relu_pool2_fwd.vector": 0, "relu_pool2_fwd.scalar": 0,
+            "relu_pool2_bwd.vector": 0, "relu_pool2_bwd.scalar": 0}
 
 
 # ------------------------------------------------------------------ pooling
@@ -121,11 +130,33 @@ def relu_pool2_bwd_plain(x: torch.Tensor, bias: Optional[torch.Tensor], m: torch
 
 # ---------------------------------------------------- CUDA kernels
 
+#: the kernels index in 32 bits: tensors of this many elements or more raise
+MAX_ELEMENTS = 2**31
+
+
+def relu_pool2_route(shape, dtype, data_ptrs) -> str:
+    """K2's route for a contiguous NHWC ``shape`` whose operands start at
+    ``data_ptrs``: ``"vector"`` (one float4 a thread) when C % 4 == 0 and
+    every pointer is 16-byte aligned, else ``"scalar"``. Raises for other
+    dtypes than float32 and for ``MAX_ELEMENTS`` or more elements."""
+    if dtype != torch.float32:
+        raise TypeError(f"relu_pool2 wants float32, got {dtype}")
+    numel = 1
+    for d in shape:
+        numel *= d
+    if numel >= MAX_ELEMENTS:
+        raise ValueError(f"relu_pool2: {numel} elements; the kernels index in 32 bits "
+                         f"(fewer than {MAX_ELEMENTS})")
+    if shape[-1] % 4 == 0 and all(p % 16 == 0 for p in data_ptrs):
+        return "vector"
+    return "scalar"
+
+
 def _check_cuda(name: str, x: torch.Tensor, bias: Optional[torch.Tensor]) -> None:
+    """What the kernels need beyond :func:`relu_pool2_route`'s dtype and
+    size checks."""
     if not x.is_cuda:
         raise ValueError(f"{name} needs a CUDA tensor")
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name} wants float32, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(
             f"{name} needs a contiguous NHWC tensor (a channels_last conv "
@@ -137,11 +168,27 @@ def _check_cuda(name: str, x: torch.Tensor, bias: Optional[torch.Tensor]) -> Non
                          f"vector on {x.device}")
 
 
+@functools.cache
 def _fn(name: str, n_ptrs: int):
+    """The C entry point ``name``, its argument types set once."""
     fn = getattr(_build.load("fused_conv"), name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(kernel: str, x: torch.Tensor, ptrs) -> str:
+    """Launch ``dmt_<kernel>_f32`` over ``x``'s shape on the route
+    :func:`relu_pool2_route` picks from the operands' pointers ``ptrs`` (0
+    for no bias); count it in total and by route."""
+    route = relu_pool2_route(x.shape, x.dtype, [p for p in ptrs if p])
+    with torch.cuda.device(x.device):
+        code = _fn(f"dmt_{kernel}_f32", len(ptrs))(
+            *ptrs, *x.shape, route == "vector", _build.stream_of(x))
+    _build.check(code, f"{kernel} ({route})")
+    launches[kernel] += 1
+    launches[f"{kernel}.{route}"] += 1
+    return route
 
 
 def relu_pool2_fwd_cuda(x: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -149,31 +196,29 @@ def relu_pool2_fwd_cuda(x: torch.Tensor, bias: Optional[torch.Tensor] = None) ->
     _check_cuda("relu_pool2", x, bias)
     n, h, w, c = x.shape
     m = torch.empty((n, h // 2, w // 2, c), dtype=x.dtype, device=x.device)
-    fn = _fn("dmt_relu_pool2_fwd_f32", 3)
-    with torch.cuda.device(x.device):
-        code = fn(x.data_ptr(), None if bias is None else bias.data_ptr(), m.data_ptr(),
-                  n, h, w, c, _build.stream_of(x))
-    _build.check(code, "relu_pool2 forward")
-    launches["relu_pool2_fwd"] += 1
+    _launch("relu_pool2_fwd", x,
+            (x.data_ptr(), 0 if bias is None else bias.data_ptr(), m.data_ptr()))
     return m
 
 
 def relu_pool2_bwd_cuda(x: torch.Tensor, bias: Optional[torch.Tensor], m: torch.Tensor,
                         g: torch.Tensor) -> torch.Tensor:
     """Launch the backward kernel: ``dz`` at ``x``'s shape."""
-    _check_cuda("relu_pool2 backward", x, bias)
-    for name, t in (("m", m), ("g", g)):
-        if t.shape != m.shape or not t.is_contiguous() or t.dtype != torch.float32:
-            raise ValueError(f"relu_pool2 backward: {name} must be a contiguous "
-                             f"float32 tensor of the pooled shape")
+    if x.dim() != 4:
+        raise ValueError(f"relu_pool2 backward: x must be NHWC, got shape {tuple(x.shape)}")
     n, h, w, c = x.shape
+    pooled = (n, h // 2, w // 2, c)
+    for name, t in (("m", m), ("g", g)):
+        if (tuple(t.shape) != pooled or not t.is_contiguous() or t.dtype != torch.float32
+                or t.device != x.device):
+            raise ValueError(f"relu_pool2 backward: {name} must be a contiguous float32 "
+                             f"tensor of the pooled shape {pooled} on {x.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    _check_cuda("relu_pool2 backward", x, bias)
     dx = torch.empty_like(x)
-    fn = _fn("dmt_relu_pool2_bwd_f32", 5)
-    with torch.cuda.device(x.device):
-        code = fn(x.data_ptr(), None if bias is None else bias.data_ptr(), m.data_ptr(),
-                  g.data_ptr(), dx.data_ptr(), n, h, w, c, _build.stream_of(x))
-    _build.check(code, "relu_pool2 backward")
-    launches["relu_pool2_bwd"] += 1
+    _launch("relu_pool2_bwd", x,
+            (x.data_ptr(), 0 if bias is None else bias.data_ptr(), m.data_ptr(),
+             g.data_ptr(), dx.data_ptr()))
     return dx
 
 
@@ -258,7 +303,9 @@ def _channels(x: torch.Tensor) -> int:
     return x.shape[-1] if x.dim() else 1
 
 
+@functools.cache
 def _bias_relu_fn(name: str, n_ptrs: int):
+    """The C entry point ``name``, its argument types set once."""
     fn = getattr(_build.load("bias_relu"), name)
     fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                                  ctypes.c_void_p])

@@ -1,12 +1,13 @@
-"""Analytic FLOPs of an LM train step, the card's peak and the utilization
-they give (counterpart of the JAX ``utils/flops.py``'s
+"""Analytic FLOPs of an LM or CNN train step, the card's peak and the
+utilization they give (counterpart of the JAX ``utils/flops.py``'s
 ``flash_attention_train_flops``, ``lm_train_flops_6nd``,
 ``check_flops_agreement`` and ``utilization``; XLA's ``compiled_flops`` has no
 counterpart in PyTorch).
 
-The peak table is keyed by ``torch.cuda.get_device_name()``: the H100 SXM5's
-dense bf16 tensor-core rate, 989.4 TFLOP/s, from NVIDIA's H100 data sheet.
-MFU is achieved FLOP/s over that bf16 peak whatever the dtype, with the
+The peak table is keyed by ``torch.cuda.get_device_name()``, from NVIDIA's
+H100 data sheet (SXM5): the dense bf16 tensor-core rate, 989.4 TFLOP/s, and
+the float32 rate outside the tensor cores, 67 TFLOP/s. MFU is achieved
+FLOP/s over the bf16 peak unless a caller names another dtype, with the
 dtype stated beside it.
 """
 
@@ -16,7 +17,7 @@ from typing import Optional
 
 #: dense peak FLOP/s by CUDA device name (NVIDIA's H100 data sheet, SXM5)
 PEAK_FLOPS: dict[str, dict[str, float]] = {
-    "NVIDIA H100 80GB HBM3": {"bf16": 989.4e12},
+    "NVIDIA H100 80GB HBM3": {"bf16": 989.4e12, "f32": 67e12},
 }
 
 
@@ -72,10 +73,49 @@ def check_flops_agreement(hybrid: Optional[float], analytic: float,
             f"{100 * tol:.0f}%) — audit utils/flops.py before trusting MFU")
 
 
+def conv_linear_macs(model, input_shape) -> dict[str, int]:
+    """Multiply-accumulates per forward of each ``nn.Conv2d`` and
+    ``nn.Linear`` of ``model`` (by module name), from the output shapes of
+    one forward at ``input_shape``: outputs x (in channels / groups) x the
+    kernel's area for a conv, outputs x in features for a linear layer.
+    ``input_shape``'s leading axis is the batch the counts are for."""
+    import torch
+    import torch.nn as nn
+
+    macs: dict[str, int] = {}
+
+    def hook(name):
+        def record(mod, _inp, out):
+            if isinstance(mod, nn.Conv2d):
+                per_out = mod.in_channels // mod.groups * mod.kernel_size[0] * mod.kernel_size[1]
+            else:
+                per_out = mod.in_features
+            macs[name] = out.numel() * per_out
+        return record
+
+    handles = [mod.register_forward_hook(hook(name)) for name, mod in model.named_modules()
+               if isinstance(mod, (nn.Conv2d, nn.Linear))]
+    try:
+        dev = next(model.parameters()).device
+        with torch.no_grad():
+            model(torch.zeros(input_shape, device=dev))
+    finally:
+        for h in handles:
+            h.remove()
+    return macs
+
+
+def cnn_train_flops(macs_per_image: float, batch: int) -> float:
+    """FLOPs of one train step: 2 per MAC, forward plus a backward of twice
+    the forward's work (dgrad and wgrad), over ``batch`` images."""
+    return 2.0 * 3.0 * float(macs_per_image) * batch
+
+
 def utilization(flops_per_step: Optional[float], step_seconds: float,
-                device: Optional[str] = None) -> tuple[Optional[float], Optional[float]]:
-    """(achieved TFLOP/s, MFU fraction vs the bf16 peak) for a measured step
-    time; either element is None when its ingredient is unavailable.
+                device: Optional[str] = None,
+                dtype: str = "bf16") -> tuple[Optional[float], Optional[float]]:
+    """(achieved TFLOP/s, MFU fraction vs the ``dtype`` peak) for a measured
+    step time; either element is None when its ingredient is unavailable.
     ``device`` is a CUDA device name (default: the first card's, when there
     is one); a name without a peak entry, such as ``"cpu"``, gives no MFU."""
     if not flops_per_step or step_seconds <= 0:
@@ -85,5 +125,5 @@ def utilization(flops_per_step: Optional[float], step_seconds: float,
 
         device = torch.cuda.get_device_name(0) if torch.cuda.is_available() else "cpu"
     achieved = flops_per_step / step_seconds
-    peak = device_peak_flops(device)
+    peak = device_peak_flops(device, dtype)
     return achieved / 1e12, (achieved / peak if peak else None)

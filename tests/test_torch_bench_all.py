@@ -88,6 +88,64 @@ def test_bench_all_main_on_cpu_emits_the_jax_metric_names(capsys, spies):
     assert 'f"conv_epilogue_bias_relu_{tag}_fwdbwd"' in src
 
 
+ALEXNET_METRICS = ["alexnet_cifar10_train_throughput",
+                   "alexnet_cifar10_train_throughput_large_batch",
+                   "alexnet_cifar10_train_throughput_large_batch_unfused"]
+
+
+def test_alexnet_leg_on_cpu_emits_the_jax_metric_names(capsys):
+    assert bench_all.main(["--device", "cpu", "--tiny", "--legs", "alexnet"]) == 0
+    recs = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+            if line.startswith("{")]
+    assert [r["metric"] for r in recs] == ALEXNET_METRICS
+    for r, (batch, fused) in zip(recs, [(4, False), (8, True), (8, False)]):
+        assert r["config"] == 1 and r["unit"] == "images/sec/chip" and r["value"] > 0
+        assert r["hardware"] == "1x cpu" and "wallclock" in r["note"] and "--tiny" in r["note"]
+        assert r["batch"] == batch and r["fused_epilogue"] is fused
+        assert r["flops_per_step"] == 6 * 14_957_056 * batch
+        assert len(r["warmup_losses"]) == 3 and all(np.isfinite(r["warmup_losses"]))
+    # the fused and unfused large-batch legs train the same weights on the
+    # same batch: the epilogue changes kernels, never numerics
+    assert recs[1]["warmup_losses"] == recs[2]["warmup_losses"]
+    with open(os.path.join(ROOT, "bench_all.py")) as fh:
+        src = fh.read()
+    for m in ALEXNET_METRICS[:2]:
+        assert f'"{m}"' in src, m
+
+
+def test_alexnet_macs_per_layer_match_a_hand_count():
+    from distributed_ml_pytorch_tpu_torch.models import get_model
+
+    macs = tflops.conv_linear_macs(get_model("alexnet", device="cpu"), (1, 32, 32, 3))
+    # out H*W * out C * in C * k*k: 8*8*64*3*11*11, 4*4*192*64*5*5, 2*2*384*192*3*3,
+    # 2*2*256*384*3*3, 2*2*256*256*3*3; classifier 256*10
+    assert macs == {"conv1": 1_486_848, "conv2": 4_915_200, "conv3": 2_654_208,
+                    "conv4": 3_538_944, "conv5": 2_359_296, "classifier": 2_560}
+    fused = get_model("alexnet", fused_epilogue=True, device="cpu")
+    assert tflops.conv_linear_macs(fused, (2, 32, 32, 3)) == {k: 2 * v for k, v in macs.items()}
+    assert tflops.cnn_train_flops(sum(macs.values()), 1024) == 6 * 14_957_056 * 1024
+
+
+def test_make_batch_is_the_jax_harness_batch():
+    import bench
+
+    images, labels = bench_all.make_batch(16)
+    ref_images, ref_labels = bench.make_batch(16)
+    np.testing.assert_array_equal(images, ref_images)
+    np.testing.assert_array_equal(labels, ref_labels)
+    assert labels.dtype == np.int64
+
+
+def test_alexnet_downpour_step_launches_no_kernel_on_cpu():
+    from distributed_ml_pytorch_tpu_torch.ops import fused_conv, fused_update
+
+    before = (dict(fused_conv.launches), fused_update.launches)
+    step = bench_all.alexnet_step(2, True, "cpu", downpour=True)
+    losses = [float(step()) for _ in range(2)]
+    assert all(np.isfinite(losses)) and losses[0] != losses[1]
+    assert (dict(fused_conv.launches), fused_update.launches) == before
+
+
 def test_bench_all_main_rejects_unknown_legs(capsys):
     with pytest.raises(SystemExit):
         bench_all.main(["--device", "cpu", "--legs", "moe"])
@@ -122,6 +180,57 @@ def test_device_time_on_cpu_is_wallclock():
         "wallclock"
 
 
+def _event(name, corr, device, start_us=0.0, end_us=0.0):
+    from types import SimpleNamespace
+
+    return SimpleNamespace(name=name, id=corr, device_type=device,
+                           time_range=SimpleNamespace(start=start_us, end=end_us),
+                           self_device_time_total=end_us - start_us)
+
+
+@pytest.mark.parametrize("kernels_back,lost", [((1, 2, 3), 0), ((2, 3), 1), ((), 3)])
+def test_tally_counts_launches_whose_kernel_the_profiler_lost(kernels_back, lost):
+    # three launches (correlation ids 1-3) and a memset with no launch call;
+    # the kernels that came back are timed, gapped and counted by name
+    from distributed_ml_pytorch_tpu_torch.utils.devprof import tally
+
+    cpu, gpu = "cpu", "cuda"
+    events = [_event("aten::relu", 0, cpu), _event("cudaLaunchKernel", 1, cpu),
+              _event("cudaLaunchKernel", 2, cpu), _event("cuLaunchKernelEx", 3, cpu),
+              _event("Memset (Device)", 9, gpu, 0.0, 1.0)]
+    spans = {1: ("k_a", 10.0, 14.0), 2: ("k_b", 20.0, 30.0), 3: ("k_a", 31.0, 35.0)}
+    events += [_event(spans[c][0], c, gpu, *spans[c][1:]) for c in kernels_back]
+    per_kernel, calls, gaps, n_lost = tally(events, gpu)
+    assert n_lost == lost
+    want_calls = {"Memset (Device)": 1}
+    for c in kernels_back:
+        want_calls[spans[c][0]] = want_calls.get(spans[c][0], 0) + 1
+    assert calls == want_calls
+    assert per_kernel["Memset (Device)"] == pytest.approx(1e-3)
+    if kernels_back == (1, 2, 3):
+        assert per_kernel == pytest.approx({"Memset (Device)": 1e-3, "k_a": 8e-3, "k_b": 10e-3})
+        # idle before each kernel: k_a 9 µs after the memset and 1 µs after k_b
+        assert gaps == pytest.approx({"k_a": 10e-3, "k_b": 6e-3})
+
+
+def test_tally_leaves_out_the_first_launches_and_their_kernels():
+    # two warm-up launches (the first lost, as the profiler may lose the
+    # first kernel after it starts), then the profiled launches 5 and 6
+    from distributed_ml_pytorch_tpu_torch.utils.devprof import tally
+
+    cpu, gpu = "cpu", "cuda"
+    events = [_event("cudaLaunchKernel", 6, cpu, 40.0), _event("cudaLaunchKernel", 1, cpu, 1.0),
+              _event("cudaLaunchKernel", 2, cpu, 2.0), _event("cudaLaunchKernel", 5, cpu, 30.0),
+              _event("warm_add", 2, gpu, 3.0, 4.0), _event("k_a", 5, gpu, 50.0, 52.0),
+              _event("k_b", 6, gpu, 55.0, 58.0)]
+    per_kernel, calls, gaps, lost = tally(events, gpu, skip_launches=2)
+    assert lost == 0 and calls == {"k_a": 1, "k_b": 1}
+    assert per_kernel == pytest.approx({"k_a": 2e-3, "k_b": 3e-3})
+    assert gaps == pytest.approx({"k_b": 3e-3})
+    # without the skip, the lost warm-up launch is counted
+    assert tally(events, gpu)[3] == 1
+
+
 @pytest.mark.parametrize("hybrid,analytic", [(1.0e12, 1.1e12), (1.0e12, 2.0e12), (None, 1e12),
                                              (5.0, 0.0)])
 def test_check_flops_agreement_matches_jax(hybrid, analytic):
@@ -131,6 +240,8 @@ def test_check_flops_agreement_matches_jax(hybrid, analytic):
 
 def test_utilization():
     name = "NVIDIA H100 80GB HBM3"
+    # the float32 (non-tensor) peak: 67 TFLOP/s
+    assert tflops.utilization(67e12 * 0.5, 1.0, name, "f32")[1] == pytest.approx(0.5)
     tf, mfu = tflops.utilization(989.4e12 * 0.25, 1.0, name)
     assert tf == pytest.approx(247.35) and mfu == pytest.approx(0.25)
     assert tflops.utilization(1e12, 2.0, "cpu") == (0.5, None)
@@ -147,5 +258,9 @@ def test_rate_record_fields():
     assert rec["flops_per_step"] == 2e12 and rec["tflops"] == 4.0
     assert rec["mfu"] == round(4e12 / 989.4e12, 4)
     assert "MFU" in r.mfu_note() and float(r) == 1000.0
+    assert rec["mfu_peak"] == "bf16" and "peak" not in r.mfu_note()
+    r32 = bench_all.Rate.make(1000.0, 67e12, 1.0, "NVIDIA H100 80GB HBM3", peak="f32")
+    assert r32.record_fields()["mfu"] == 1.0 and r32.record_fields()["mfu_peak"] == "f32"
+    assert "of the f32 peak" in r32.mfu_note()
     assert bench_all.Rate.make(1.0, None, 0.5).record_fields() == {}
     assert np.isclose(bench_all.Rate.make(1.0, 1e12, 1.0, "cpu").tflops, 1.0)

@@ -15,7 +15,9 @@ import torch
 from distributed_ml_pytorch_tpu.ops import fused_conv as jfc
 from distributed_ml_pytorch_tpu_torch.ops import fused_conv as tfc
 
-SHAPES = [(2, 8, 8, 16), (3, 4, 4, 8), (2, 2, 2, 24)]
+SHAPES = [(2, 8, 8, 16), (3, 4, 4, 8), (2, 2, 2, 24),
+          # AlexNet's three relu->pool tails at a small batch, and an odd C
+          (2, 8, 8, 64), (2, 4, 4, 192), (2, 2, 2, 256), (2, 4, 4, 37)]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -79,6 +81,45 @@ def test_relu_pool2_raises_outside_pool2_tiles(shape):
     assert tfc.pool2_tiles(x) == jfc.pool2_tiles(np.zeros(shape)) is False
     with pytest.raises(ValueError):
         tfc.relu_pool2(x)
+
+
+@pytest.mark.parametrize("shape,ptrs,route", [
+    ((64, 8, 8, 64), (0x1000, 0x2000), "vector"),
+    ((1024, 2, 2, 256), (0x1000, 0x2010, 0x3020), "vector"),
+    ((64, 4, 4, 37), (0x1000, 0x2000), "scalar"),       # odd C
+    ((64, 4, 4, 6), (0x1000, 0x2000), "scalar"),        # C % 4 != 0
+    ((64, 8, 8, 64), (0x1004, 0x2000), "scalar"),       # x one element in
+    ((64, 8, 8, 64), (0x1000, 0x2008, 0x3000), "scalar"),  # a misaligned operand
+    ((32767, 8, 8, 1024), (0x1000,), "vector"),         # just under 2^31 elements
+])
+def test_relu_pool2_route(shape, ptrs, route):
+    assert tfc.relu_pool2_route(shape, torch.float32, ptrs) == route
+
+
+def test_relu_pool2_route_raises_beyond_its_reach():
+    with pytest.raises(ValueError, match="32 bits"):
+        tfc.relu_pool2_route((32768, 8, 8, 1024), torch.float32, (0x1000,))
+    with pytest.raises(TypeError, match="float32"):
+        tfc.relu_pool2_route((2, 4, 4, 8), torch.bfloat16, (0x1000,))
+
+
+def test_relu_pool2_cuda_wrappers_refuse_cpu_tensors():
+    x = torch.zeros(2, 4, 4, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfc.relu_pool2_fwd_cuda(x)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfc.relu_pool2_bwd_cuda(x, None, torch.zeros(2, 2, 2, 8), torch.zeros(2, 2, 2, 8))
+
+
+@pytest.mark.parametrize("operand", ["m", "g"])
+def test_relu_pool2_bwd_cuda_refuses_a_wrong_pooled_shape(operand):
+    x = torch.zeros(2, 4, 4, 8)
+    right, wrong = torch.zeros(2, 2, 2, 8), torch.zeros(2, 2, 4, 8)
+    m, g = (wrong, right) if operand == "m" else (right, wrong)
+    before = dict(tfc.launches)
+    with pytest.raises(ValueError, match=f"{operand} must be .* pooled shape"):
+        tfc.relu_pool2_bwd_cuda(x, None, m, g)
+    assert tfc.launches == before
 
 
 def test_cpu_path_counts_no_launch():

@@ -74,8 +74,10 @@ def test_relu_pool2_kernels_match_plain(cuda, shape, ties, with_bias):
     m = tfc.relu_pool2(xc, bc)
     m.backward(torch.from_numpy(g).to(cuda))
     torch.cuda.synchronize()
-    assert tfc.launches["relu_pool2_fwd"] == before["relu_pool2_fwd"] + 1
-    assert tfc.launches["relu_pool2_bwd"] == before["relu_pool2_bwd"] + 1
+    route = "vector" if shape[-1] % 4 == 0 else "scalar"
+    for k in ("relu_pool2_fwd", "relu_pool2_bwd", f"relu_pool2_fwd.{route}",
+              f"relu_pool2_bwd.{route}"):
+        assert tfc.launches[k] == before[k] + 1, k
     xr = torch.from_numpy(x).requires_grad_(True)
     br = torch.from_numpy(b).requires_grad_(True) if with_bias else None
     mr = tfc.relu_pool2(xr, br)
@@ -84,6 +86,40 @@ def test_relu_pool2_kernels_match_plain(cuda, shape, ties, with_bias):
     np.testing.assert_array_equal(xc.grad.cpu().numpy(), xr.grad.numpy())
     if with_bias:
         np.testing.assert_array_equal(bc.grad.cpu().numpy(), br.grad.numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,misaligned,route", [
+    ((1024, 8, 8, 64), False, "vector"), ((1024, 4, 4, 192), False, "vector"),
+    ((1024, 2, 2, 256), False, "vector"), ((64, 4, 4, 37), False, "scalar"),
+    ((64, 8, 8, 64), True, "scalar")])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_relu_pool2_routes_bit_identical(cuda, shape, misaligned, route, with_bias):
+    # config 1's batch-1024 tails on the vector route; an odd C and a
+    # contiguous view one element into its storage on the scalar route
+    x, b, g = _pool_inputs(shape, seed=2, ties=True)
+    if misaligned:
+        xc = torch.empty(x.size + 1, device=cuda)[1:].view(shape)
+        xc.copy_(torch.from_numpy(x))
+        assert xc.is_contiguous() and xc.data_ptr() % 16 == 4
+    else:
+        xc = torch.from_numpy(x).to(cuda)
+    bc = torch.from_numpy(b).to(cuda) if with_bias else None
+    gc = torch.from_numpy(g).to(cuda)
+    before = dict(tfc.launches)
+    m = tfc.relu_pool2_fwd_cuda(xc, bc)
+    dx = tfc.relu_pool2_bwd_cuda(xc, bc, m, gc)
+    torch.cuda.synchronize()
+    ran = {k: tfc.launches[k] - before[k] for k in before if k.startswith("relu_pool2")}
+    other = "scalar" if route == "vector" else "vector"
+    assert ran == {"relu_pool2_fwd": 1, "relu_pool2_bwd": 1,
+                   f"relu_pool2_fwd.{route}": 1, f"relu_pool2_bwd.{route}": 1,
+                   f"relu_pool2_fwd.{other}": 0, f"relu_pool2_bwd.{other}": 0}
+    xr, br = torch.from_numpy(x), (torch.from_numpy(b) if with_bias else None)
+    mr = tfc.relu_pool2_fwd_plain(xr, br)
+    np.testing.assert_array_equal(m.cpu().numpy(), mr.numpy())
+    np.testing.assert_array_equal(dx.cpu().numpy(),
+                                  tfc.relu_pool2_bwd_plain(xr, br, mr, torch.from_numpy(g)).numpy())
 
 
 @pytest.mark.gpu
@@ -569,6 +605,7 @@ def test_kernel_breakdown_sees_the_card(cuda, op, dtype, kernel, other):
           "K6a": lambda: tat.flash_bwd_dq_cuda(q, q, q, q, lse, lse, True)}[op]
     res = kernel_breakdown(fn, {op: [kernel], f"other {op}": [other]})
     assert res["group_ms"][op] > 0 and res["group_ms"][f"other {op}"] == 0
+    assert res["lost_launches"] == 0
     assert res["busy_ms"] <= res["wall_ms"]
     assert 0.0 <= res["idle_share"] < 1.0
 
