@@ -110,15 +110,40 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``AD_UPDATE_TOL``; step ms and peak memory of the three, and one
    profiled ``use_kernel=True`` step;
 13. config 1's AlexNet legs through ``bench_all.alexnet_phase`` under
-   cuDNN's default algorithm choice (batch 64 unfused, batch 1024 fused and
-   unfused: images/s and the share of the float32 peak), then one profiled
+   cuDNN's default algorithm choice, K steps a dispatch as the JAX harness
+   runs them (a CUDA graph of one step replayed: batch 64 unfused at 100,
+   batch 1024 fused and unfused at 20, and batch 1024 as microbatch-256
+   accumulation at 20 updates; images/s and the share of the float32
+   peak), then one profiled
    fused step each of the DownPour worker at batch 64 (K1 once) and the
    trainer at batch 1024: K2a and K2b 3 times each on the vector route,
    in the profile and in the wrappers' counts, no launch whose kernel the
    profiler lost, device ms by group and the idle gap before each group's
    launches; then
    the batch-1024 fused step timed under cuDNN's default, deterministic and
-   benchmark (autotuned) algorithm choices.
+   benchmark (autotuned) algorithm choices;
+14. the trainer family, under deterministic cuDNN: (a) K2 in bfloat16
+   bit-identical to its plain versions at AlexNet's three tails at batch 64
+   and 1024 (bias or none, ties forced or not) on the 8-channel vector
+   route, and at C 36, an odd C and a misaligned view on the scalar route,
+   each route read from the per-route bfloat16 counts; timed cold and warm
+   beside the plain versions, ``max_pool2d(relu)`` in bfloat16 and the
+   halved byte bound; then AlexNet fused in bfloat16 at batch 1024, 5
+   steps a dispatch graphed under cuDNN's default algorithms, timed and one
+   dispatch profiled (K2's bfloat16 kernels 3 a step), and one graphed
+   dispatch of 2 ``grad_accum_b1024`` updates profiled; (b)
+   ``make_scan_train_step`` as a CUDA graph at
+   AlexNet fused batch 64, 100 steps a dispatch, against 100 eager steps
+   from the same weights: equal losses and parameters; each way's wall
+   time a step; one graphed dispatch profiled (K2a/K2b 3 a step, no launch
+   lost, the idle share) beside ten eager steps; (c) the
+   ``grad_accum_b1024`` update graphed (two dispatches of 2) against four
+   eager updates: equal; (d) ``train_single`` through ``training/cli.main``
+   on synthetic data (bfloat16, 10 steps a dispatch, accumulation 2, adamw,
+   cosine, clipping) run to the end under the profiler (K2's bfloat16
+   kernels in it, the vector route in the wrappers' counts), then stopped
+   after its step-15 checkpoint and resumed with ``--resume``: the final
+   checkpoints and the CSV losses equal.
 
 Then the ``kernels`` line, the ``nvidia-smi`` name/power line, and last the
 result line ``{"ok": true, "device": {...}}``. Without a card, or without
@@ -127,6 +152,7 @@ the package beside this file, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import faulthandler
 import importlib
 import json
 import math
@@ -139,6 +165,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
+#: seconds after which a hung run dumps its threads' stacks and exits 1
+#: (the run must finish within 1200 s, the kernels' build included)
+WATCHDOG_S = 1100
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA's data sheet
 BF16_FLOPS = 989.4e12      # H100 SXM dense bf16 tensor cores, NVIDIA's data sheet
 L2_BYTES = 50 * 2**20      # H100 L2 cache
@@ -389,37 +418,40 @@ def phase_kernels(torch):
     return out
 
 
-def _pool_bytes(shape) -> dict:
+def _pool_bytes(shape, elem_bytes: int = 4) -> dict:
     """Bytes K2 must move at NHWC ``shape`` without bias: the forward reads
     x and writes m (a quarter of x); the backward reads x, m and g and
     writes dx."""
-    x = 4 * math.prod(shape)
+    x = elem_bytes * math.prod(shape)
     return {"fwd": x + x // 4, "bwd": 2 * x + 2 * (x // 4)}
 
 
-def _pool_input_sets(torch, fc, shape, g):
-    """``(x, m, g)`` sets at NHWC ``shape``, enough that their x alone is at
-    least twice the L2, so a call that takes them in turn reads its inputs
-    from device memory."""
-    n = max(2, -(-2 * L2_BYTES // (4 * math.prod(shape))))
+def _pool_input_sets(torch, fc, shape, g, dtype=None):
+    """``(x, m, g)`` sets at NHWC ``shape`` (float32 unless ``dtype``),
+    enough that their x alone is at least twice the L2, so a call that takes
+    them in turn reads its inputs from device memory."""
+    dtype = dtype or torch.float32
+    elem = torch.finfo(dtype).bits // 8
+    n = max(2, -(-2 * L2_BYTES // (elem * math.prod(shape))))
     pooled = (shape[0], shape[1] // 2, shape[2] // 2, shape[3])
     sets = []
     for _ in range(n):
-        x = torch.randn(shape, generator=g, device="cuda")
+        x = torch.randn(shape, generator=g, device="cuda").to(dtype)
         sets.append((x, fc.relu_pool2_fwd_plain(x),
-                     torch.randn(pooled, generator=g, device="cuda")))
+                     torch.randn(pooled, generator=g, device="cuda").to(dtype)))
     return sets
 
 
-def _time_pool_shape(torch, fc, shape, g) -> dict:
+def _time_pool_shape(torch, fc, shape, g, dtype=None) -> dict:
     """Device ms of K2a/K2b at NHWC ``shape`` (no bias: AlexNet keeps its
     bias in the conv), cold (input sets in turn) and warm (one set,
     L2-resident as right after the producing conv), beside the byte bound,
-    the plain versions and ``max_pool2d(relu)``, cold."""
+    the plain versions and ``max_pool2d(relu)``, cold; float32 unless
+    ``dtype``."""
     F = torch.nn.functional
-    sets = _pool_input_sets(torch, fc, shape, g)
+    sets = _pool_input_sets(torch, fc, shape, g, dtype)
     x, m, gr = sets[0]
-    nbytes = _pool_bytes(shape)
+    nbytes = _pool_bytes(shape, x.element_size())
     return {
         "shape": list(shape), "input_sets": len(sets),
         "fwd_ms": device_ms(_cold(sets, lambda xs, ms, gs: fc.relu_pool2_fwd_cuda(xs))),
@@ -557,6 +589,7 @@ def phase_trainer(torch, device="cuda", steps=5, batch=64):
     from distributed_ml_pytorch_tpu_torch.ops import fused_conv as fc
     from distributed_ml_pytorch_tpu_torch.training.trainer import (
         SGD,
+        create_train_state,
         make_train_step,
         to_device,
     )
@@ -569,10 +602,11 @@ def phase_trainer(torch, device="cuda", steps=5, batch=64):
     runs = {}
     for fused in (True, False):
         model = get_model("alexnet", fused_epilogue=fused, seed=0, device=device)
+        state = create_train_state(model, SGD(0.008))
         step = make_train_step(model, SGD(0.008))
         before = dict(fc.launches)
-        losses = [float(step(*to_device(x[i * batch:(i + 1) * batch],
-                                        y[i * batch:(i + 1) * batch], device)))
+        losses = [float(step(state, *to_device(x[i * batch:(i + 1) * batch],
+                                               y[i * batch:(i + 1) * batch], device))[1])
                   for i in range(steps)]
         runs[fused] = (losses, ravel_model_params(model),
                        {k: fc.launches[k] - before[k] for k in before})
@@ -1777,6 +1811,389 @@ def phase_alexnet(torch):
           "profiles": profiles, "b1024_fused_step_ms_by_cudnn_setting": cudnn_step_ms})
 
 
+# ------------------------------------------------------------------ phase 14
+
+#: K2's bfloat16 cases, (shape, misaligned, route): AlexNet's three tails at
+#: both batches (vector route: C % 8 == 0), C % 8 != 0 (36) and an odd C,
+#: and a contiguous view one element (2 bytes) into its storage (scalar)
+POOL_CASES_BF16 = ([((b, h, w, c), False, "vector") for b in POOL_BATCHES
+                    for h, w, c in POOL_TAILS]
+                   + [((64, 4, 4, 36), False, "scalar"), ((64, 4, 4, 37), False, "scalar"),
+                      ((64, 8, 8, 64), True, "scalar")])
+#: an AlexNet trainer step's kernel groups, K2's bfloat16 kernels first
+TRAINER_GROUPS = {"K2a relu_pool2_bf16_fwd": ["relu_pool2_bf16_fwd"],
+                  "K2b relu_pool2_bf16_bwd": ["relu_pool2_bf16_bwd"], **ALEXNET_GROUPS}
+#: steps a dispatch of the graphed batch-64 trainer (the JAX harness's SCAN_K)
+SCAN_K = 100
+#: (d)'s CLI run: synthetic CIFAR-10, 20 steps an epoch, two epochs; the
+#: interrupted run stops after its checkpoint at CLI_STOP
+CLI_ARGS = ["--no-distributed", "--model", "alexnet", "--dtype", "bfloat16", "--epochs", "2",
+            "--synthetic-data", "--synthetic-train-size", "640", "--synthetic-test-size", "128",
+            "--batch-size", "32", "--log-interval", "10", "--optimizer", "adamw",
+            "--lr-schedule", "cosine", "--grad-clip", "1.0", "--grad-accum", "2",
+            "--steps-per-dispatch", "10", "--ckpt-every", "15"]
+CLI_STOP, CLI_STEPS = 15, 40
+
+
+def _relu_pool2_bf16_checks(torch, g):
+    """(a) K2a/K2b in bfloat16 bit-identical to the plain versions at
+    POOL_CASES_BF16 (bias or none, ties forced or not), each on the route
+    the rule names, read from the per-route bfloat16 counts; timed per
+    shape cold and warm at both batches beside the launch floor, the plain
+    versions, ``max_pool2d(relu)`` in bfloat16 and the halved byte bound."""
+    from distributed_ml_pytorch_tpu_torch.ops import fused_conv as fc
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    err = {"fwd": 0.0, "bwd": 0.0}
+    held = []
+    for shape, misaligned, want in POOL_CASES_BF16:
+        nb, h, w, c = shape
+        xr = torch.randn(shape, generator=g, device=dev)
+        gr = torch.randn((nb, h // 2, w // 2, c), generator=g, device=dev).to(bf)
+        before = dict(fc.launches)
+        for xin in (xr.to(bf), (torch.round(xr * 2) / 2).to(bf)):
+            if misaligned:
+                xin = torch.empty(xin.numel() + 1, device=dev, dtype=bf)[1:].view(
+                    shape).copy_(xin)
+            for bias in (None, torch.randn(c, generator=g, device=dev).to(bf)):
+                mk = fc.relu_pool2_fwd_cuda(xin, bias)
+                mp = fc.relu_pool2_fwd_plain(xin, bias)
+                dk = fc.relu_pool2_bwd_cuda(xin, bias, mk, gr)
+                dp = fc.relu_pool2_bwd_plain(xin, bias, mp, gr)
+                torch.cuda.synchronize()
+                what = f"bf16 {shape} misaligned={misaligned} bias={bias is not None}"
+                require(mk.dtype == bf and torch.equal(mk, mp),
+                        f"relu_pool2 fwd kernel != plain at {what}")
+                require(dk.dtype == bf and torch.equal(dk, dp),
+                        f"relu_pool2 bwd kernel != plain at {what}")
+                err["fwd"] = max(err["fwd"], float((mk.float() - mp.float()).abs().max()))
+                err["bwd"] = max(err["bwd"], float((dk.float() - dp.float()).abs().max()))
+        ran = {k: fc.launches[k] - before[k] for k in fc.launches if k.startswith("relu_pool2")}
+        require(all(ran[f"relu_pool2_{d}{key}"] == 4 for d in ("fwd", "bwd")
+                    for key in ("", f".bf16.{want}")),
+                f"relu_pool2 bf16 at {shape} (misaligned={misaligned}) ran {ran}, not the "
+                f"{want} route")
+        held.append({"shape": list(shape), "misaligned": misaligned, "route": want})
+
+    one, two = torch.zeros(1, device=dev), torch.ones(1, device=dev)
+    floor = device_ms(lambda: one.add_(two))
+    rows = {b: [_time_pool_shape(torch, fc, (b, *t), g, bf) for t in POOL_TAILS]
+            for b in POOL_BATCHES}
+
+    def total(batch, key):
+        return sum(r[key] for r in rows[batch])
+
+    measured = {}
+    for k, name in (("fwd", "relu_pool2_fwd.bf16"), ("bwd", "relu_pool2_bwd.bf16")):
+        measured[name] = {
+            "max_abs_err": err[k], "ms": total(1024, f"{k}_ms"),
+            "plain_ms": total(1024, f"{k}_plain_ms"),
+            "library_ms": total(1024, "fwd_library_ms") if k == "fwd" else None,
+            "bound_ms": total(1024, f"{k}_bound_ms"), "bound_by": "bytes"}
+    line = {"held": held, "launch_floor_ms": floor,
+            "b1024_cold_sum_ms": {k: total(1024, f"{k}_ms") for k in ("fwd", "bwd")},
+            "b1024_warm_sum_ms": {k: total(1024, f"{k}_warm_ms") for k in ("fwd", "bwd")},
+            "b1024_bound_sum_ms": {k: total(1024, f"{k}_bound_ms") for k in ("fwd", "bwd")},
+            "b1024_plain_sum_ms": {k: total(1024, f"{k}_plain_ms") for k in ("fwd", "bwd")},
+            "b1024_library_fwd_sum_ms": total(1024, "fwd_library_ms"),
+            "b64_warm_sum_ms": {k: total(64, f"{k}_warm_ms") for k in ("fwd", "bwd")},
+            "b64_cold_sum_ms": {k: total(64, f"{k}_ms") for k in ("fwd", "bwd")},
+            "shapes": rows[64] + rows[1024]}
+    return measured, line
+
+
+def _wall_ms(torch, fn) -> float:
+    """Host wall ms of ``fn()``, ended by a synchronisation."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _graphed_vs_eager(torch) -> dict:
+    """(b) ``make_scan_train_step`` (a graph of one step replayed) against
+    as many eager steps from the same weights on the same batches: AlexNet
+    fused, batch 64, K = SCAN_K, SGD lr 0.008, deterministic cuDNN; equal
+    losses and parameters. Then each way's wall time for another K steps
+    (host synchronisation included: one per dispatch graphed, one a step
+    eager, as the per-step trainer reads each loss), one graphed dispatch
+    profiled (K2a/K2b 3 a step, no lost launch, the idle share) and ten
+    eager steps profiled."""
+    from distributed_ml_pytorch_tpu_torch import bench_all
+    from distributed_ml_pytorch_tpu_torch.models import get_model
+    from distributed_ml_pytorch_tpu_torch.ops import fused_conv as fc
+    from distributed_ml_pytorch_tpu_torch.training import trainer as ttr
+    from distributed_ml_pytorch_tpu_torch.utils.devprof import kernel_breakdown
+
+    images, labels = bench_all.make_batch(64, k=SCAN_K)
+    x, y = torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda()
+    runs = {}
+    for graphed in (True, False):
+        model = get_model("alexnet", fused_epilogue=True, seed=0, device="cuda")
+        tx = ttr.SGD(bench_all.ALEXNET_LR)
+        state = ttr.create_train_state(model, tx)
+        if graphed:
+            scan = ttr.make_scan_train_step(model, tx)
+            losses = scan(state, x, y)[1].cpu()
+        else:
+            step = ttr.make_train_step(model, tx)
+            losses = torch.stack([step(state, x[i], y[i])[1] for i in range(SCAN_K)]).cpu()
+        flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+        runs[graphed] = (losses, flat, state)
+    require(torch.equal(runs[True][0], runs[False][0]),
+            "graphed K-step losses differ from the eager steps'")
+    require(torch.equal(runs[True][1], runs[False][1]),
+            "graphed K-step parameters differ from the eager steps'")
+    require(scan.graphed.captures == 1, f"{scan.graphed.captures} captures, not 1")
+    gstate, estate = runs[True][2], runs[False][2]
+    graphed_ms = _wall_ms(torch, lambda: scan(gstate, x, y)[1].cpu()) / SCAN_K
+    eager_ms = _wall_ms(torch, lambda: [float(step(estate, x[i], y[i])[1])
+                                        for i in range(SCAN_K)]) / SCAN_K
+    for k in fc.launches:
+        fc.launches[k] = 0
+    prof = kernel_breakdown(lambda: scan(gstate, x, y)[1], TRAINER_GROUPS, top=12)
+    n = prof.get("group_launches", {})
+    require("busy_ms" in prof and prof["lost_launches"] == 0,
+            f"graphed dispatch: the profile lost kernels: {prof}")
+    require(n["K2a relu_pool2_fwd"] == n["K2b relu_pool2_bwd"] == 3 * SCAN_K,
+            f"graphed dispatch: K2 launches {n}, not {3 * SCAN_K} each")
+    replay_counts = {k: v for k, v in fc.launches.items() if v}
+    eager_prof = kernel_breakdown(lambda: [step(estate, x[i], y[i]) for i in range(10)],
+                                  TRAINER_GROUPS, top=8)
+    return {"steps_per_dispatch": SCAN_K, "batch": 64, "bit_equal": True,
+            "graphed_ms_per_step": graphed_ms, "eager_ms_per_step": eager_ms,
+            "graphed_images_per_s": 64e3 / graphed_ms, "eager_images_per_s": 64e3 / eager_ms,
+            "graphed_profile": prof, "graphed_wrapper_counts_in_profile": replay_counts,
+            "eager_profile_10_steps": eager_prof}
+
+
+def _graphed_accumulation(torch) -> dict:
+    """(c) ``grad_accum_b1024`` (batch 1024, microbatch 256, each update the
+    sum of batch-64 mean-gradient updates) through
+    ``make_scan_accum_train_step``: two dispatches of U = 2 (the graph's
+    two eager warm-up updates, then a capture and a replay) against the same
+    four updates of ``make_accum_train_step``: equal."""
+    from distributed_ml_pytorch_tpu_torch import bench_all
+    from distributed_ml_pytorch_tpu_torch.models import get_model
+    from distributed_ml_pytorch_tpu_torch.training import trainer as ttr
+
+    images, labels = bench_all.make_batch(1024, k=4)
+    x, y = torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda()
+    kw = dict(effective_update_batch=bench_all.EFFECTIVE_UPDATE)
+    runs = {}
+    for graphed in (True, False):
+        model = get_model("alexnet", fused_epilogue=True, seed=0, device="cuda")
+        tx = ttr.SGD(bench_all.ALEXNET_LR)
+        state = ttr.create_train_state(model, tx)
+        if graphed:
+            scan = ttr.make_scan_accum_train_step(model, tx, bench_all.ACCUM_MICROBATCH, **kw)
+            losses = torch.cat([scan(state, x[i:i + 2], y[i:i + 2])[1] for i in (0, 2)])
+        else:
+            step = ttr.make_accum_train_step(model, tx, bench_all.ACCUM_MICROBATCH, **kw)
+            losses = torch.stack([step(state, x[i], y[i])[1] for i in range(4)])
+        runs[graphed] = (losses.cpu(), torch.cat([p.detach().reshape(-1)
+                                                  for p in model.parameters()]))
+    require(scan.graphed.captures == 1, "the accumulation step was never captured")
+    require(torch.equal(runs[True][0], runs[False][0])
+            and torch.equal(runs[True][1], runs[False][1]),
+            "graphed accumulation updates differ from the eager ones")
+    return {"updates": 4, "dispatches": "2 x U=2", "bit_equal": True,
+            "losses": runs[True][0].tolist()}
+
+
+def _bf16_step_profile(torch) -> dict:
+    """AlexNet fused in bfloat16 (the trainer's ``--dtype bfloat16``) at
+    config 1's batch 1024, SGD lr 0.008, 5 steps a dispatch as a CUDA graph
+    under cuDNN's default algorithms: ms a step (``utils/devtime``, beside
+    the float32 leg of phase 13) and one dispatch profiled, K2's bfloat16
+    kernels 3 times a step each."""
+    from distributed_ml_pytorch_tpu_torch import bench_all
+    from distributed_ml_pytorch_tpu_torch.models import get_model
+    from distributed_ml_pytorch_tpu_torch.training import trainer as ttr
+    from distributed_ml_pytorch_tpu_torch.utils.devprof import kernel_breakdown
+    from distributed_ml_pytorch_tpu_torch.utils.devtime import device_time
+
+    k = 5
+    model = get_model("alexnet", fused_epilogue=True, seed=0, device="cuda",
+                      dtype=torch.bfloat16)
+    tx = ttr.SGD(bench_all.ALEXNET_LR)
+    state = ttr.create_train_state(model, tx)
+    scan = ttr.make_scan_train_step(model, tx)
+    images, labels = bench_all.make_batch(1024, k=k)
+    x, y = torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda()
+    losses = scan(state, x, y)[1].cpu().tolist()  # warm-up steps and the capture
+    step_ms = device_time(lambda: scan(state, x, y)[1], calls=3, warmup=1).per_call_ms / k
+    prof = kernel_breakdown(lambda: scan(state, x, y)[1], TRAINER_GROUPS, top=8)
+    n = prof.get("group_launches", {})
+    require("busy_ms" in prof and prof["lost_launches"] == 0,
+            f"bf16 batch-1024 dispatch: the profile lost kernels: {prof}")
+    require(n["K2a relu_pool2_bf16_fwd"] == n["K2b relu_pool2_bf16_bwd"] == 3 * k
+            and n["K2a relu_pool2_fwd"] == n["K2b relu_pool2_bwd"] == 0,
+            f"bf16 batch-1024 dispatch: K2 launches {n}, not {3 * k} bf16 each")
+    return {"batch": 1024, "steps_per_dispatch": k, "step_ms": step_ms,
+            "images_per_s": 1024e3 / step_ms, "first_losses": losses, "profile": prof}
+
+
+def _accum_profile(torch) -> dict:
+    """The ``grad_accum_b1024`` update as the leg runs it (batch 1024,
+    microbatch 256, update scaled to batch 64, float32, cuDNN's default
+    algorithms), graphed: one dispatch of 2 updates profiled after the
+    warm-up and the capture, K2a/K2b 3 a microbatch each."""
+    from distributed_ml_pytorch_tpu_torch import bench_all
+    from distributed_ml_pytorch_tpu_torch.models import get_model
+    from distributed_ml_pytorch_tpu_torch.training import trainer as ttr
+    from distributed_ml_pytorch_tpu_torch.utils.devprof import kernel_breakdown
+
+    u, micro = 2, bench_all.ACCUM_MICROBATCH
+    model = get_model("alexnet", fused_epilogue=True, seed=0, device="cuda")
+    tx = ttr.SGD(bench_all.ALEXNET_LR)
+    state = ttr.create_train_state(model, tx)
+    scan = ttr.make_scan_accum_train_step(
+        model, tx, micro, effective_update_batch=bench_all.EFFECTIVE_UPDATE)
+    images, labels = bench_all.make_batch(1024, k=u)
+    x, y = torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda()
+    for _ in range(2):  # the two eager warm-up updates, then the capture and a replay
+        scan(state, x, y)[1].cpu()
+    prof = kernel_breakdown(lambda: scan(state, x, y)[1], TRAINER_GROUPS, top=8)
+    n = prof.get("group_launches", {})
+    want = 3 * (1024 // micro) * u
+    require("busy_ms" in prof and prof["lost_launches"] == 0,
+            f"graphed accumulation: the profile lost kernels: {prof}")
+    require(n["K2a relu_pool2_fwd"] == n["K2b relu_pool2_bwd"] == want,
+            f"graphed accumulation: K2 launches {n}, not {want} each")
+    return {"batch": 1024, "microbatch": micro, "updates_per_dispatch": u,
+            "captures": scan.graphed.captures, "profile": prof}
+
+
+class _Stop(Exception):
+    pass
+
+
+def _tensors(tree) -> list:
+    """Every tensor of a nested dict/list, in order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _tensors(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree] if hasattr(tree, "shape") else []
+
+
+def _cli_resume(torch) -> dict:
+    """(d) ``train_single`` through ``training/cli.main`` (CLI_ARGS: bf16,
+    10 steps a dispatch, accumulation 2, adamw, cosine, clipping): run to
+    the end under the profiler (the bfloat16 K2 kernels must be in it, on
+    the vector route by the wrappers' counts), then run again, stopped
+    right after the checkpoint at step CLI_STOP, and resumed with
+    ``--resume``: the final checkpoints (parameters, optimizer state,
+    generator) and the CSV losses from the resumed step on equal the
+    uninterrupted run's."""
+    import csv
+    import shutil
+
+    from distributed_ml_pytorch_tpu_torch.ops import fused_conv as fc
+    from distributed_ml_pytorch_tpu_torch.training import cli
+    from distributed_ml_pytorch_tpu_torch.utils import checkpoint as ck
+    from distributed_ml_pytorch_tpu_torch.utils.devprof import kernel_breakdown
+
+    root = os.path.join(ROOT, "build", "smoke_trainer")
+
+    def argv(tag):
+        return [*CLI_ARGS, "--ckpt-dir", os.path.join(root, tag, "ck"),
+                "--log-dir", os.path.join(root, tag)]
+
+    def full_run():
+        shutil.rmtree(os.path.join(root, "full"), ignore_errors=True)
+        require(cli.main(argv("full")) == 0, "the CLI run failed")
+
+    for k in fc.launches:
+        fc.launches[k] = 0
+    prof = kernel_breakdown(full_run, TRAINER_GROUPS, top=12)
+    n = prof.get("group_launches", {})
+    require("busy_ms" in prof and prof["lost_launches"] == 0,
+            f"CLI run: the profile lost kernels: {prof}")
+    require(n["K2a relu_pool2_bf16_fwd"] > 0 and n["K2b relu_pool2_bf16_bwd"] > 0
+            and n["K2a relu_pool2_fwd"] == n["K2b relu_pool2_bwd"] == 0,
+            f"CLI run: K2 launches in the profile {n}: the bf16 kernels must run, the "
+            f"float32 ones not")
+    counts = dict(fc.launches)
+    require(all(counts[f"relu_pool2_{d}.bf16.vector"] > 0
+                and counts[f"relu_pool2_{d}.bf16.scalar"] == 0 for d in ("fwd", "bwd")),
+            f"CLI run: K2 wrapper counts {counts}: not the bf16 vector route")
+
+    shutil.rmtree(os.path.join(root, "cut"), ignore_errors=True)
+    real_save = ck.Checkpointer.save
+
+    def save_then_stop(self, step, state, *, force=False):
+        accepted = real_save(self, step, state, force=force)
+        if accepted and not force and step == CLI_STOP:
+            raise _Stop
+        return accepted
+
+    ck.Checkpointer.save = save_then_stop
+    try:
+        cli.main(argv("cut"))
+        stopped = False
+    except _Stop:
+        stopped = True
+    finally:
+        ck.Checkpointer.save = real_save
+    require(stopped, f"the interrupted run was not stopped at step {CLI_STOP}")
+    require(cli.main([*argv("cut"), "--resume"]) == 0, "the resumed CLI run failed")
+
+    def final(tag):
+        return torch.load(os.path.join(root, tag, "ck", str(CLI_STEPS), "state.pt"),
+                          weights_only=True)
+
+    def losses(tag):
+        with open(os.path.join(root, tag, "gpu.csv"), newline="") as fh:
+            return [(r["iteration"], r["training_loss"], r["test_loss"])
+                    for r in csv.DictReader(fh)]
+
+    a, b = final("full"), final("cut")
+    require(a["step"] == b["step"] == CLI_STEPS, f"final steps {a['step']}, {b['step']}")
+    require(all(torch.equal(a["params"][k], b["params"][k]) for k in a["params"]),
+            "resumed run's final parameters differ from the uninterrupted run's")
+    require(all(torch.equal(u, v) for u, v in zip(_tensors(a["opt_state"]),
+                                                  _tensors(b["opt_state"]))),
+            "resumed run's final optimizer state differs from the uninterrupted run's")
+    require(torch.equal(a["generator"], b["generator"]), "generator states differ")
+    rows_full, rows_cut = losses("full"), losses("cut")
+    require(len(rows_full) == CLI_STEPS and rows_cut == rows_full[CLI_STOP:],
+            "resumed run's CSV losses differ from the uninterrupted run's")
+    return {"argv": CLI_ARGS, "steps": CLI_STEPS, "stopped_at": CLI_STOP, "bit_equal": True,
+            "profile": prof, "wrapper_counts": {k: v for k, v in counts.items() if v},
+            "final_loss": float(rows_full[-1][1])}
+
+
+def phase_trainer_family(torch):
+    """Phase 14: the trainer family — (a) K2 in bfloat16, a bfloat16
+    batch-1024 step and the graphed accumulation update profiled, (b) the graphed
+    K-step trainer, (c) the graphed accumulation step, (d) the CLI's
+    bfloat16 run with resume. Returns the kernels line's bfloat16 rows and
+    their launches (from (d)'s profile: the graph's replays do not pass
+    through the wrappers)."""
+    g = torch.Generator(device="cuda").manual_seed(14)
+    measured, pool_line = _relu_pool2_bf16_checks(torch, g)
+    emit({"phase": "trainer_family_relu_pool2_bf16", "ok": True, **pool_line})
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    try:
+        torch.backends.cudnn.deterministic = torch.backends.cudnn.benchmark = False
+        emit({"phase": "trainer_family_bf16_b1024", "ok": True, **_bf16_step_profile(torch)})
+        emit({"phase": "trainer_family_accum_profile", "ok": True, **_accum_profile(torch)})
+        torch.backends.cudnn.deterministic = True
+        emit({"phase": "trainer_family_graphed_scan", "ok": True, **_graphed_vs_eager(torch)})
+        emit({"phase": "trainer_family_graphed_accum", "ok": True,
+              **_graphed_accumulation(torch)})
+        run = _cli_resume(torch)
+        emit({"phase": "trainer_family_cli_resume", "ok": True, **run})
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    n = run["profile"]["group_launches"]
+    return measured, {"relu_pool2_fwd.bf16": n["K2a relu_pool2_bf16_fwd"],
+                      "relu_pool2_bwd.bf16": n["K2b relu_pool2_bf16_bwd"]}
+
+
 # ------------------------------------------------------------------ main
 
 K4_SRC = "distributed_ml_pytorch_tpu_torch/csrc/flash_fwd_tc.cu"
@@ -1796,6 +2213,10 @@ KERNEL_ROWS = [
      "distributed_ml_pytorch_tpu/ops/decode_attention.py:128"),
     ("fused_head", "distributed_ml_pytorch_tpu_torch/csrc/fused_head.cu",
      "distributed_ml_pytorch_tpu/ops/fused_head.py:105"),
+    ("relu_pool2_fwd.bf16", "distributed_ml_pytorch_tpu_torch/csrc/fused_conv.cu",
+     "distributed_ml_pytorch_tpu/ops/fused_conv.py:321"),
+    ("relu_pool2_bwd.bf16", "distributed_ml_pytorch_tpu_torch/csrc/fused_conv.cu",
+     "distributed_ml_pytorch_tpu/ops/fused_conv.py:311"),
     ("bias_relu_fwd", "distributed_ml_pytorch_tpu_torch/csrc/bias_relu.cu",
      "distributed_ml_pytorch_tpu/ops/fused_conv.py:177"),
     ("bias_relu_bwd", "distributed_ml_pytorch_tpu_torch/csrc/bias_relu.cu",
@@ -1818,6 +2239,8 @@ def main() -> int:
         print(f"chip_smoke: FAILED: the port package is not beside this script: {e}",
               file=sys.stderr)
         return 2
+    # a hang dumps every thread's stack and fails the run inside its limit
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     try:
         phase_device_and_build(torch)
         measured = phase_kernels(torch)
@@ -1840,6 +2263,9 @@ def main() -> int:
         measured.update(phase_head_update(torch))
         launches["fused_head"] = phase_fused_head_step(torch)
         phase_alexnet(torch)
+        bf16_measured, bf16_launches = phase_trainer_family(torch)
+        measured.update(bf16_measured)
+        launches.update(bf16_launches)
         smi = nvidia_smi_line()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -1853,6 +2279,7 @@ def main() -> int:
                         "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                         "bound_by": m.get("bound_by", "bytes"),
                         "library_ms": m["library_ms"]})
+    faulthandler.cancel_dump_traceback_later()
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

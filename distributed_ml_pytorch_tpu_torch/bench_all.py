@@ -17,16 +17,21 @@ narration on stderr. Ported legs, under the JAX metric names:
   (the restructured lm_head step), any other through
   ``parallel/fsdp.make_fsdp_lm_train_step``; both plain SGD at lr 1e-3 on the
   same tokens from ``default_rng(0)``.
-- ``alexnet`` — config 1's headline AlexNet legs (JAX ``bench.py::
+- ``alexnet`` — config 1's three headline AlexNet legs (JAX ``bench.py::
   run_headline_legs``, bench.py:303, as ``tpu_phase`` emits them,
-  bench_all.py:126-148), the two the port runs: the reference recipe
-  (batch 64, SGD lr 0.008, unfused; ``parity_b64``) and AlexNet with the
-  fused relu->pool epilogue at batch 1024 (``large_batch_b1024``), plus
-  that leg unfused, so the record carries what the epilogue kernels save in
-  the step. The batch is ``bench.py::make_batch``'s, on the card once;
-  steps are ``training/trainer.make_train_step``'s, eager, full float32,
-  one step a dispatch. FLOPs are ``utils/flops.cnn_train_flops`` over the
-  model's conv/linear MACs, against the card's float32 (non-tensor) peak.
+  bench_all.py:126-148), each as the JAX harness runs it: the reference
+  recipe (batch 64, SGD lr 0.008, unfused; ``parity_b64``) at 100 steps a
+  dispatch, AlexNet with the fused relu->pool epilogue at batch 1024
+  (``large_batch_b1024``) at 20 a dispatch, that leg unfused too (what the
+  epilogue kernels save in the step), and ``grad_accum_b1024``: batch 1024
+  as microbatch-256 accumulation whose update is the sum of the sixteen
+  batch-64 mean-gradient updates (``effective_update_batch=64``), fused, 20
+  updates a dispatch, its FLOPs the batch-1024 leg's. A dispatch is
+  ``training/trainer.make_scan_train_step`` (or ``make_scan_accum_train_step``)
+  over K distinct batches of ``bench.py::make_batch``, on the card once: a
+  CUDA graph of one step replayed K times. Full float32; FLOPs are
+  ``utils/flops.cnn_train_flops`` over the model's conv/linear MACs, against
+  the card's float32 (non-tensor) peak.
 - ``conv_epilogue`` — config 1's conv-epilogue ladder (JAX
   ``compute_microbench_phase``, bench_all.py:2000-2073): ``relu_pool2``
   fused against ``max_pool_2x2(relu(x))`` on AlexNet's three relu->pool
@@ -40,9 +45,8 @@ CPU (the record's note names the source). The LM legs' FLOP numerator is
 ``utils/flops.lm_train_flops_6nd`` over the non-embedding parameters (XLA's
 ``compiled_flops`` has no PyTorch counterpart); the cross-check holds it
 against the same count over the ``nn.Linear`` weights. Not ported yet:
-config 1's ``grad_accum_b1024`` leg and ``bench_steps_to_accuracy``,
-``bench_lm_32k``, the MoE leg and every other phase of the JAX harness
-(``ROADMAP.md`` Queue A).
+``bench_steps_to_accuracy``, ``ps_phase``, ``bench_lm_32k``, the MoE leg and
+every other phase of the JAX harness (``ROADMAP.md`` Queue A).
 """
 
 from __future__ import annotations
@@ -73,7 +77,10 @@ from distributed_ml_pytorch_tpu_torch.parallel.async_ps import (
 )
 from distributed_ml_pytorch_tpu_torch.training.trainer import (
     SGD,
+    create_train_state,
     loss_and_grads,
+    make_scan_accum_train_step,
+    make_scan_train_step,
     make_train_step,
 )
 from distributed_ml_pytorch_tpu_torch.utils.devtime import device_time
@@ -280,29 +287,45 @@ def lm_phase(device, tiny: bool = False) -> dict:
 # ------------------------------------------------------------------ config 1: AlexNet legs
 
 ALEXNET_LR = 0.008
-#: (metric, batch, fused_epilogue): bench.py's parity_b64 and
-#: large_batch_b1024 legs, and the latter unfused
+#: bench.py's steps a dispatch: SCAN_K for the batch-64 leg, LARGE_SCAN_K
+#: for the batch-1024 legs (updates, for the accumulation leg)
+SCAN_K, LARGE_SCAN_K = 100, 20
+#: the accumulation leg: microbatch 256, each update the sum of batch-64
+#: mean-gradient updates (bench.py's ACCUM_MICROBATCH, EFFECTIVE_UPDATE)
+ACCUM_MICROBATCH, EFFECTIVE_UPDATE = 256, 64
+#: (metric, batch, fused_epilogue, accumulate): bench.py's parity_b64,
+#: large_batch_b1024 (also unfused) and grad_accum_b1024 legs
 ALEXNET_LEGS = (
-    ("alexnet_cifar10_train_throughput", 64, False),
-    ("alexnet_cifar10_train_throughput_large_batch", 1024, True),
-    ("alexnet_cifar10_train_throughput_large_batch_unfused", 1024, False),
+    ("alexnet_cifar10_train_throughput", 64, False, False),
+    ("alexnet_cifar10_train_throughput_large_batch", 1024, True, False),
+    ("alexnet_cifar10_train_throughput_large_batch_unfused", 1024, False, False),
+    ("alexnet_cifar10_train_throughput_grad_accum", 1024, True, True),
 )
-#: the batches ``--tiny`` gives the two legs
+#: the batches ``--tiny`` gives the legs, and its steps a dispatch
 TINY_ALEXNET_BATCH = {64: 4, 1024: 8}
+TINY_SCAN_K = 2
 ALEXNET_NOTES = {
-    64: "reference recipe (batch 64, SGD lr 0.008), the trajectory-parity leg",
-    1024: "identical architecture at batch 1024, the headline leg",
+    (64, False): "reference recipe (batch 64, SGD lr 0.008), the trajectory-parity leg",
+    (1024, False): "identical architecture at batch 1024, the headline leg",
+    (1024, True): "batch 1024 as a microbatch-{m} accumulation whose update is the sum of "
+                  "the batch-{e} mean-gradient updates at frozen params (large-batch "
+                  "geometry, batch-{e}-recipe effective update)",
 }
 
 
-def make_batch(batch: int, seed: int = 0, shape: tuple = (32, 32, 3), n_classes: int = 10):
-    """Synthetic image batch as the JAX ``bench.py::make_batch`` makes one
-    (no stacking): normal images from ``default_rng(seed)``, labels
-    ``arange % n_classes`` (int64, torch's class index type)."""
+def make_batch(batch: int, seed: int = 0, k: int = 0, shape: tuple = (32, 32, 3),
+               n_classes: int = 10):
+    """Synthetic image batch as the JAX ``bench.py::make_batch`` makes one:
+    normal images from ``default_rng(seed)``, labels ``arange % n_classes``
+    (int64, torch's class index type); ``k > 0`` stacks k distinct batches on
+    a leading axis (for the K-step trainers)."""
     rng = np.random.default_rng(seed)
-    images = rng.normal(size=(batch, *shape)).astype(np.float32)
-    labels = np.arange(batch) % n_classes
-    return images, labels.astype(np.int64)
+    n = (k or 1) * batch
+    images = rng.normal(size=(n, *shape)).astype(np.float32)
+    labels = (np.arange(n) % n_classes).astype(np.int64)
+    if k:
+        return images.reshape(k, batch, *shape), labels.reshape(k, batch)
+    return images, labels
 
 
 def alexnet_step(batch: int, fused: bool, device="cuda", downpour: bool = False):
@@ -316,8 +339,10 @@ def alexnet_step(batch: int, fused: bool, device="cuda", downpour: bool = False)
     x = torch.from_numpy(images).to(dev)
     y = torch.from_numpy(labels).to(dev)
     if not downpour:
-        train_step = make_train_step(model, SGD(ALEXNET_LR))
-        return lambda: train_step(x, y)
+        tx = SGD(ALEXNET_LR)
+        state = create_train_state(model, tx)
+        train_step = make_train_step(model, tx)
+        return lambda: train_step(state, x, y)[1]
     tx = default_downpour_tx(ALEXNET_LR)
     opt_state = tx.init(list(model.parameters()))
     _flat, n, pad, accum = init_downpour_accumulator(model)
@@ -331,35 +356,65 @@ def alexnet_step(batch: int, fused: bool, device="cuda", downpour: bool = False)
     return step
 
 
-def alexnet_phase(device, tiny: bool = False, warmup: int = 3, calls: int = 20) -> dict:
+def alexnet_scan_step(batch: int, fused: bool, k: int, accumulate: bool = False,
+                      microbatch: int = ACCUM_MICROBATCH, device="cuda"):
+    """``dispatch() -> losses [k]``: one K-step dispatch of a seed-0 AlexNet
+    (SGD lr 0.008) over k distinct batches of ``make_batch(batch, k=k)``
+    that stay on ``device``: ``make_scan_train_step``, or with
+    ``accumulate`` ``make_scan_accum_train_step(microbatch,
+    effective_update_batch=EFFECTIVE_UPDATE)``. The state advances each
+    dispatch."""
+    dev = resolve_device(device)
+    model = get_model("alexnet", fused_epilogue=fused, seed=0, device=dev)
+    tx = SGD(ALEXNET_LR)
+    state = create_train_state(model, tx)
+    scan = (make_scan_accum_train_step(model, tx, microbatch,
+                                       effective_update_batch=EFFECTIVE_UPDATE)
+            if accumulate else make_scan_train_step(model, tx))
+    images, labels = make_batch(batch, k=k)
+    x = torch.from_numpy(images).to(dev)
+    y = torch.from_numpy(labels).to(dev)
+    return lambda: scan(state, x, y)[1]
+
+
+def alexnet_phase(device, tiny: bool = False, warmup: int = 2, calls: int = 3) -> dict:
     """Config 1's AlexNet legs; returns ``{metric: Rate}``. Each leg trains a
-    fresh seed-0 model: ``warmup`` steps whose losses the record keeps, then
-    ``calls`` steps timed by ``utils/devtime.device_time``."""
+    fresh seed-0 model, K steps (updates) a dispatch: ``warmup`` dispatches
+    (the graph's warm-up and capture; the record keeps their losses), then
+    ``calls`` dispatches timed by ``utils/devtime.device_time``."""
     dev = resolve_device(device)
     hw = hardware(dev)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     macs = sum(conv_linear_macs(get_model("alexnet", device="cpu"), (1, 32, 32, 3)).values())
     if tiny:
-        calls = 2
+        calls = 1
     rates = {}
-    for metric, leg_batch, fused in ALEXNET_LEGS:
+    for metric, leg_batch, fused, accumulate in ALEXNET_LEGS:
         batch = TINY_ALEXNET_BATCH[leg_batch] if tiny else leg_batch
-        step = alexnet_step(batch, fused, dev)
-        losses = [float(step()) for _ in range(warmup)]
-        t = device_time(step, calls=calls, warmup=1)
-        r = Rate.make(batch / t.per_call_s, cnn_train_flops(macs, batch), t.per_call_s, name,
+        k = TINY_SCAN_K if tiny else (SCAN_K if leg_batch == 64 else LARGE_SCAN_K)
+        micro = batch // 4 if tiny else ACCUM_MICROBATCH
+        dispatch = alexnet_scan_step(batch, fused, k, accumulate, micro, dev)
+        losses = [float(v) for _ in range(warmup) for v in dispatch().cpu()]
+        t = device_time(dispatch, calls=calls, warmup=1)
+        per_step = t.per_call_s / k
+        r = Rate.make(batch / per_step, cnn_train_flops(macs, batch), per_step, name,
                       peak="f32")
         r.source = t.source
         rates[metric] = r
         cut = f"--tiny: batch {batch} on the leg of batch {leg_batch}; " if tiny else ""
+        note = ALEXNET_NOTES[(leg_batch, accumulate)].format(m=micro, e=EFFECTIVE_UPDATE)
         emit(1, metric, r, "images/sec/chip", hw,
-             f"{cut}{ALEXNET_NOTES[leg_batch]}; relu->pool epilogue "
+             f"{cut}{note}; relu->pool epilogue "
              f"{'fused (relu_pool2 kernels)' if fused else 'unfused'}; full float32 (no TF32), "
-             f"eager, one step a dispatch (the JAX harness runs K steps per compiled program "
-             f"with lax.scan; the scanned trainer is not ported yet); {t.per_call_s * 1e3:.3f} "
-             f"ms/step ({t.source}); FLOPs 6 x {macs} conv/linear MACs an image, against "
-             f"the 67 TFLOP/s float32 non-tensor peak of NVIDIA's H100 SXM data sheet",
-             extra={"batch": batch, "fused_epilogue": fused, "warmup_losses": losses,
+             f"{k} {'updates' if accumulate else 'steps'} a dispatch (CUDA graph on the card, "
+             f"a loop on the CPU), as the JAX harness scans them; {per_step * 1e3:.3f} "
+             f"ms/{'update' if accumulate else 'step'} ({t.source}); FLOPs 6 x {macs} "
+             f"conv/linear MACs an image, against the 67 TFLOP/s float32 non-tensor peak of "
+             f"NVIDIA's H100 SXM data sheet",
+             extra={"batch": batch, "fused_epilogue": fused, "steps_per_dispatch": k,
+                    "microbatch": micro if accumulate else None,
+                    "effective_update_batch": EFFECTIVE_UPDATE if accumulate else None,
+                    "warmup_losses": losses,
                     "cudnn": {"deterministic": torch.backends.cudnn.deterministic,
                               "benchmark": torch.backends.cudnn.benchmark}})
     return rates

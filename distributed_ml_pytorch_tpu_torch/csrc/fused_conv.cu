@@ -1,5 +1,5 @@
-// relu_pool2: m = maxpool2x2(relu(x [+ b])) over NHWC float32, forward and
-// backward.
+// relu_pool2: m = maxpool2x2(relu(x [+ b])) over NHWC float32 or bfloat16,
+// forward and backward.
 //
 // Replaces: distributed_ml_pytorch_tpu/ops/fused_conv.py, _relu_pool_pallas
 //   forward (pallas_call at :321, body _pool_kernel at :243) and backward
@@ -28,6 +28,14 @@
 //   does. No reduction crosses threads.
 // Every load and store carries a streaming hint (__ldcs/__stcs: each byte
 //   is touched once, so it is evicted first), and a block has 128 threads.
+// bfloat16: the same kernels over the element type. The vector route moves
+//   16 bytes (8 channels) a load when C % 8 == 0 and every pointer is
+//   16-byte aligned (AlexNet's C = 64, 192 and 256 all are); the scalar
+//   route takes the rest. Elements widen to float exactly; x + b is added
+//   in float and rounded to bfloat16 once, as the plain bfloat16 version
+//   rounds it; relu and max are exact on bfloat16 values, so the stores
+//   narrow back exactly. The bfloat16 kernels carry their own names
+//   (relu_pool2_bf16_fwd/bwd) so a profile tells the dtypes apart.
 // Numerics: the forward uses the same adds and maxima as the plain version
 //   (relu as v > 0 ? v : 0, then max(max(y00, y01), max(y10, y11))), so it is
 //   bit-identical; the backward sends each window's cotangent to the FIRST
@@ -35,6 +43,7 @@
 //   by m > 0 (relu's gradient at 0 is 0), and writes zeros to the other
 //   three slots. db is reduced outside, as in JAX.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -60,27 +69,71 @@ __device__ __forceinline__ unsigned div_of(unsigned n, FastDiv f) {
     return (__umulhi(n, f.mul) + n) >> f.shift;
 }
 
-template <int V>
-struct alignas(4 * V) Pack {
-    float v[V];
+// The element types: how one element widens to float and narrows back, and
+// how many make a 16-byte vector.
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<float> {
+    static constexpr int kVec = 4;
+    __device__ static float round(float v) { return v; }
+};
+
+template <>
+struct Elem<__nv_bfloat16> {
+    static constexpr int kVec = 8;
+    __device__ static float round(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
 };
 
 template <int V>
-__device__ __forceinline__ Pack<V> load(const float* p) {
-    if constexpr (V == 4) {
-        const float4 a = __ldcs(reinterpret_cast<const float4*>(p));
-        return Pack<V>{{a.x, a.y, a.z, a.w}};
+struct Pack {
+    float v[V];
+};
+
+__device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+// v is bfloat16-exact: its upper 16 bits are the bfloat16 bits
+__device__ __forceinline__ unsigned bf16_bits(float v) { return __float_as_uint(v) >> 16; }
+
+template <typename T, int V>
+__device__ __forceinline__ Pack<V> load(const T* p) {
+    Pack<V> a;
+    if constexpr (sizeof(T) == 4 && V == 4) {
+        const float4 q = __ldcs(reinterpret_cast<const float4*>(p));
+        a.v[0] = q.x; a.v[1] = q.y; a.v[2] = q.z; a.v[3] = q.w;
+    } else if constexpr (sizeof(T) == 4) {
+        a.v[0] = __ldcs(reinterpret_cast<const float*>(p));
+    } else if constexpr (V == 8) {
+        const uint4 q = __ldcs(reinterpret_cast<const uint4*>(p));
+        const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            a.v[2 * i] = bf16_lo(w[i]);
+            a.v[2 * i + 1] = bf16_hi(w[i]);
+        }
     } else {
-        return Pack<V>{{__ldcs(p)}};
+        a.v[0] = __uint_as_float((unsigned)__ldcs(reinterpret_cast<const unsigned short*>(p))
+                                 << 16);
     }
+    return a;
 }
 
-template <int V>
-__device__ __forceinline__ void store(float* p, const Pack<V>& a) {
-    if constexpr (V == 4) {
+// Stores values that are exact in T (maxima, relus, cotangents of T).
+template <typename T, int V>
+__device__ __forceinline__ void store(T* p, const Pack<V>& a) {
+    if constexpr (sizeof(T) == 4 && V == 4) {
         __stcs(reinterpret_cast<float4*>(p), make_float4(a.v[0], a.v[1], a.v[2], a.v[3]));
+    } else if constexpr (sizeof(T) == 4) {
+        __stcs(reinterpret_cast<float*>(p), a.v[0]);
+    } else if constexpr (V == 8) {
+        unsigned w[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+            w[i] = bf16_bits(a.v[2 * i]) | (bf16_bits(a.v[2 * i + 1]) << 16);
+        __stcs(reinterpret_cast<uint4*>(p), make_uint4(w[0], w[1], w[2], w[3]));
     } else {
-        __stcs(p, a.v[0]);
+        __stcs(reinterpret_cast<unsigned short*>(p), (unsigned short)bf16_bits(a.v[0]));
     }
 }
 
@@ -105,22 +158,22 @@ __device__ __forceinline__ bool group_of(unsigned groups, FastDiv per_row, FastD
 
 __device__ __forceinline__ float relu(float v) { return v > 0.0f ? v : 0.0f; }
 
-// The four slots of a window after relu(x + b): s[slot].v[channel].
-template <int V>
-__device__ __forceinline__ void window(const float* __restrict__ x,
-                                       const float* __restrict__ bias, const Group& gr,
-                                       unsigned W, unsigned C, Pack<V> s[4]) {
+// The four slots of a window after relu(x + b): s[slot].v[channel]; x + b
+// rounded to T once.
+template <typename T, int V>
+__device__ __forceinline__ void window(const T* __restrict__ x, const T* __restrict__ bias,
+                                       const Group& gr, unsigned W, unsigned C, Pack<V> s[4]) {
     const unsigned dh = W * C;
-    s[0] = load<V>(x + gr.base);
-    s[1] = load<V>(x + gr.base + C);
-    s[2] = load<V>(x + gr.base + dh);
-    s[3] = load<V>(x + gr.base + dh + C);
+    s[0] = load<T, V>(x + gr.base);
+    s[1] = load<T, V>(x + gr.base + C);
+    s[2] = load<T, V>(x + gr.base + dh);
+    s[3] = load<T, V>(x + gr.base + dh + C);
     if (bias != nullptr) {
-        const Pack<V> b = load<V>(bias + gr.c);
+        const Pack<V> b = load<T, V>(bias + gr.c);
 #pragma unroll
         for (int k = 0; k < 4; ++k)
 #pragma unroll
-            for (int i = 0; i < V; ++i) s[k].v[i] = __fadd_rn(s[k].v[i], b.v[i]);
+            for (int i = 0; i < V; ++i) s[k].v[i] = Elem<T>::round(__fadd_rn(s[k].v[i], b.v[i]));
     }
 #pragma unroll
     for (int k = 0; k < 4; ++k)
@@ -128,34 +181,32 @@ __device__ __forceinline__ void window(const float* __restrict__ x,
         for (int i = 0; i < V; ++i) s[k].v[i] = relu(s[k].v[i]);
 }
 
-template <int V>
-__global__ void __launch_bounds__(kThreads)
-    relu_pool2_fwd(const float* __restrict__ x, const float* __restrict__ bias,
-                   float* __restrict__ m, unsigned groups, FastDiv per_row, FastDiv w2s,
-                   unsigned W, unsigned C) {
+template <typename T, int V>
+__device__ __forceinline__ void fwd_body(const T* __restrict__ x, const T* __restrict__ bias,
+                                         T* __restrict__ m, unsigned groups, FastDiv per_row,
+                                         FastDiv w2s, unsigned W, unsigned C) {
     Group gr;
     if (!group_of(groups, per_row, w2s, W, C, V, &gr)) return;
     Pack<V> s[4];
-    window<V>(x, bias, gr, W, C, s);
+    window<T, V>(x, bias, gr, W, C, s);
     Pack<V> out;
 #pragma unroll
     for (int i = 0; i < V; ++i)
         out.v[i] = fmaxf(fmaxf(s[0].v[i], s[1].v[i]), fmaxf(s[2].v[i], s[3].v[i]));
-    store<V>(m + gr.out, out);
+    store<T, V>(m + gr.out, out);
 }
 
-template <int V>
-__global__ void __launch_bounds__(kThreads)
-    relu_pool2_bwd(const float* __restrict__ x, const float* __restrict__ bias,
-                   const float* __restrict__ m, const float* __restrict__ g,
-                   float* __restrict__ dx, unsigned groups, FastDiv per_row, FastDiv w2s,
-                   unsigned W, unsigned C) {
+template <typename T, int V>
+__device__ __forceinline__ void bwd_body(const T* __restrict__ x, const T* __restrict__ bias,
+                                         const T* __restrict__ m, const T* __restrict__ g,
+                                         T* __restrict__ dx, unsigned groups, FastDiv per_row,
+                                         FastDiv w2s, unsigned W, unsigned C) {
     Group gr;
     if (!group_of(groups, per_row, w2s, W, C, V, &gr)) return;
     Pack<V> s[4];
-    window<V>(x, bias, gr, W, C, s);
-    const Pack<V> mm = load<V>(m + gr.out);
-    const Pack<V> gg = load<V>(g + gr.out);
+    window<T, V>(x, bias, gr, W, C, s);
+    const Pack<V> mm = load<T, V>(m + gr.out);
+    const Pack<V> gg = load<T, V>(g + gr.out);
     Pack<V> d[4];
 #pragma unroll
     for (int i = 0; i < V; ++i) {
@@ -169,10 +220,45 @@ __global__ void __launch_bounds__(kThreads)
         }
     }
     const unsigned dh = W * C;
-    store<V>(dx + gr.base, d[0]);
-    store<V>(dx + gr.base + C, d[1]);
-    store<V>(dx + gr.base + dh, d[2]);
-    store<V>(dx + gr.base + dh + C, d[3]);
+    store<T, V>(dx + gr.base, d[0]);
+    store<T, V>(dx + gr.base + C, d[1]);
+    store<T, V>(dx + gr.base + dh, d[2]);
+    store<T, V>(dx + gr.base + dh + C, d[3]);
+}
+
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+    relu_pool2_fwd(const float* __restrict__ x, const float* __restrict__ bias,
+                   float* __restrict__ m, unsigned groups, FastDiv per_row, FastDiv w2s,
+                   unsigned W, unsigned C) {
+    fwd_body<float, V>(x, bias, m, groups, per_row, w2s, W, C);
+}
+
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+    relu_pool2_bwd(const float* __restrict__ x, const float* __restrict__ bias,
+                   const float* __restrict__ m, const float* __restrict__ g,
+                   float* __restrict__ dx, unsigned groups, FastDiv per_row, FastDiv w2s,
+                   unsigned W, unsigned C) {
+    bwd_body<float, V>(x, bias, m, g, dx, groups, per_row, w2s, W, C);
+}
+
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+    relu_pool2_bf16_fwd(const __nv_bfloat16* __restrict__ x,
+                        const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ m,
+                        unsigned groups, FastDiv per_row, FastDiv w2s, unsigned W, unsigned C) {
+    fwd_body<__nv_bfloat16, V>(x, bias, m, groups, per_row, w2s, W, C);
+}
+
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+    relu_pool2_bf16_bwd(const __nv_bfloat16* __restrict__ x,
+                        const __nv_bfloat16* __restrict__ bias,
+                        const __nv_bfloat16* __restrict__ m, const __nv_bfloat16* __restrict__ g,
+                        __nv_bfloat16* __restrict__ dx, unsigned groups, FastDiv per_row,
+                        FastDiv w2s, unsigned W, unsigned C) {
+    bwd_body<__nv_bfloat16, V>(x, bias, m, g, dx, groups, per_row, w2s, W, C);
 }
 
 template <typename... Params, typename... Args>
@@ -183,48 +269,76 @@ int launch(void (*kernel)(Params...), unsigned groups, void* stream, Args... arg
 }
 
 // Checks the wrapper makes too: even H and W, positive sizes, fewer than
-// 2^31 elements, and for the vector route C % 4 == 0. The wrapper checks
-// the pointers' alignment.
-bool shape_ok(int N, int H, int W, int C, int vec) {
+// 2^31 elements, and for the vector route C % vec_width == 0. The wrapper
+// checks the pointers' alignment.
+bool shape_ok(int N, int H, int W, int C, int vec, int vec_width) {
     if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || H % 2 || W % 2) return false;
     if ((long long)N * H * W * C >= kMaxIndex) return false;
-    return !vec || C % 4 == 0;
+    return !vec || C % vec_width == 0;
+}
+
+template <typename T, typename Fwd4, typename Fwd1>
+int fwd_entry(Fwd4 vec_kernel, Fwd1 scalar_kernel, const void* x, const void* bias, void* m,
+              int N, int H, int W, int C, int vec, void* stream) {
+    constexpr int kVec = Elem<T>::kVec;
+    if (!shape_ok(N, H, W, C, vec, kVec)) return (int)cudaErrorInvalidValue;
+    const unsigned per_row = C / (vec ? kVec : 1), W2 = W / 2;
+    const unsigned groups = (unsigned)N * (H / 2) * W2 * per_row;
+    const auto* xs = static_cast<const T*>(x);
+    const auto* bs = static_cast<const T*>(bias);
+    auto* ms = static_cast<T*>(m);
+    if (vec)
+        return launch(vec_kernel, groups, stream, xs, bs, ms, groups, fast_div(per_row),
+                      fast_div(W2), (unsigned)W, (unsigned)C);
+    return launch(scalar_kernel, groups, stream, xs, bs, ms, groups, fast_div(per_row),
+                  fast_div(W2), (unsigned)W, (unsigned)C);
+}
+
+template <typename T, typename Bwd4, typename Bwd1>
+int bwd_entry(Bwd4 vec_kernel, Bwd1 scalar_kernel, const void* x, const void* bias,
+              const void* m, const void* g, void* dx, int N, int H, int W, int C, int vec,
+              void* stream) {
+    constexpr int kVec = Elem<T>::kVec;
+    if (!shape_ok(N, H, W, C, vec, kVec)) return (int)cudaErrorInvalidValue;
+    const unsigned per_row = C / (vec ? kVec : 1), W2 = W / 2;
+    const unsigned groups = (unsigned)N * (H / 2) * W2 * per_row;
+    const auto* xs = static_cast<const T*>(x);
+    const auto* bs = static_cast<const T*>(bias);
+    const auto* mp = static_cast<const T*>(m);
+    const auto* gp = static_cast<const T*>(g);
+    auto* dxs = static_cast<T*>(dx);
+    if (vec)
+        return launch(vec_kernel, groups, stream, xs, bs, mp, gp, dxs, groups,
+                      fast_div(per_row), fast_div(W2), (unsigned)W, (unsigned)C);
+    return launch(scalar_kernel, groups, stream, xs, bs, mp, gp, dxs, groups, fast_div(per_row),
+                  fast_div(W2), (unsigned)W, (unsigned)C);
 }
 
 }  // namespace
 
-// vec: 1 for the float4 route, 0 for the scalar one. Returns a cudaError_t.
+// vec: 1 for the 16-byte route, 0 for the scalar one. Returns a cudaError_t.
 extern "C" int dmt_relu_pool2_fwd_f32(const void* x, const void* bias, void* m, int N,
                                       int H, int W, int C, int vec, void* stream) {
-    if (!shape_ok(N, H, W, C, vec)) return (int)cudaErrorInvalidValue;
-    const int V = vec ? 4 : 1;
-    const unsigned per_row = C / V, W2 = W / 2;
-    const unsigned groups = (unsigned)N * (H / 2) * W2 * per_row;
-    const auto* xs = static_cast<const float*>(x);
-    const auto* bs = static_cast<const float*>(bias);
-    auto* ms = static_cast<float*>(m);
-    if (vec)
-        return launch(relu_pool2_fwd<4>, groups, stream, xs, bs, ms, groups,
-                      fast_div(per_row), fast_div(W2), (unsigned)W, (unsigned)C);
-    return launch(relu_pool2_fwd<1>, groups, stream, xs, bs, ms, groups, fast_div(per_row),
-                  fast_div(W2), (unsigned)W, (unsigned)C);
+    return fwd_entry<float>(relu_pool2_fwd<4>, relu_pool2_fwd<1>, x, bias, m, N, H, W, C, vec,
+                            stream);
 }
 
 extern "C" int dmt_relu_pool2_bwd_f32(const void* x, const void* bias, const void* m,
                                       const void* g, void* dx, int N, int H, int W, int C,
                                       int vec, void* stream) {
-    if (!shape_ok(N, H, W, C, vec)) return (int)cudaErrorInvalidValue;
-    const int V = vec ? 4 : 1;
-    const unsigned per_row = C / V, W2 = W / 2;
-    const unsigned groups = (unsigned)N * (H / 2) * W2 * per_row;
-    const auto* xs = static_cast<const float*>(x);
-    const auto* bs = static_cast<const float*>(bias);
-    const auto* mp = static_cast<const float*>(m);
-    const auto* gp = static_cast<const float*>(g);
-    auto* dxs = static_cast<float*>(dx);
-    if (vec)
-        return launch(relu_pool2_bwd<4>, groups, stream, xs, bs, mp, gp, dxs, groups,
-                      fast_div(per_row), fast_div(W2), (unsigned)W, (unsigned)C);
-    return launch(relu_pool2_bwd<1>, groups, stream, xs, bs, mp, gp, dxs, groups,
-                  fast_div(per_row), fast_div(W2), (unsigned)W, (unsigned)C);
+    return bwd_entry<float>(relu_pool2_bwd<4>, relu_pool2_bwd<1>, x, bias, m, g, dx, N, H, W,
+                            C, vec, stream);
+}
+
+extern "C" int dmt_relu_pool2_fwd_bf16(const void* x, const void* bias, void* m, int N,
+                                       int H, int W, int C, int vec, void* stream) {
+    return fwd_entry<__nv_bfloat16>(relu_pool2_bf16_fwd<8>, relu_pool2_bf16_fwd<1>, x, bias,
+                                    m, N, H, W, C, vec, stream);
+}
+
+extern "C" int dmt_relu_pool2_bwd_bf16(const void* x, const void* bias, const void* m,
+                                       const void* g, void* dx, int N, int H, int W, int C,
+                                       int vec, void* stream) {
+    return bwd_entry<__nv_bfloat16>(relu_pool2_bf16_bwd<8>, relu_pool2_bf16_bwd<1>, x, bias,
+                                    m, g, dx, N, H, W, C, vec, stream);
 }

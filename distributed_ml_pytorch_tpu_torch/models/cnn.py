@@ -18,6 +18,14 @@ dense weights carry over with a transpose only (``utils/interop.py``).
 ``relu_pool2`` kernel (``ops/fused_conv.py``): a bit-identical forward and an
 element-identical backward, so the flag changes kernels, never numerics.
 
+``dtype`` is the computation's dtype over float32 parameters, as the JAX
+models' ``dtype``: ``forward`` casts the input and each layer's weight and
+bias to it, runs the convolutions and dense products without their bias and
+adds the bias in ``dtype`` after (flax's ``nn.Conv``/``nn.Dense`` do the
+same), and returns float32 logits; the gradients land on the float32
+parameters through the casts. Under bfloat16 the AlexNet tails run K2's
+bfloat16 kernels.
+
 Weights are initialised from an explicit ``torch.Generator`` seeded by
 ``seed``: He-uniform kernels (±sqrt(6/fan_in), torch's ``kaiming_uniform_``
 for relu) and zero biases. The JAX models draw lecun-normal kernels; the two
@@ -60,6 +68,30 @@ def _dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``conv`` at float32 as itself; at another ``dtype`` on the cast
+    weight, then the cast bias added (rounded to ``dtype`` once each)."""
+    if dtype == torch.float32:
+        return conv(x)
+    y = F.conv2d(x, conv.weight.to(dtype), None, conv.stride, conv.padding)
+    return y + conv.bias.to(dtype).reshape(1, -1, 1, 1)
+
+
+def _dense(fc: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``fc`` at float32 as itself; at another ``dtype`` as :func:`_conv`."""
+    if dtype == torch.float32:
+        return fc(x)
+    return F.linear(x, fc.weight.to(dtype)) + fc.bias.to(dtype)
+
+
+def _dtype(dtype) -> torch.dtype:
+    """``dtype`` as a torch dtype (a torch dtype or its name)."""
+    dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute dtype {dtype!r}: float32 or bfloat16")
+    return dt
+
+
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
@@ -71,9 +103,11 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 class LeNet(nn.Module):
     """LeNet-5 variant (reference ``example/models.py:5-23``)."""
 
-    def __init__(self, num_classes: int = 10, dropout_rate: float = 0.5):
+    def __init__(self, num_classes: int = 10, dropout_rate: float = 0.5,
+                 dtype=torch.float32):
         super().__init__()
         self.dropout_rate = float(dropout_rate)
+        self.dtype = _dtype(dtype)
         self.conv1 = nn.Conv2d(3, 6, 5)
         self.conv2 = nn.Conv2d(6, 16, 5)
         self.fc1 = nn.Linear(400, 120)
@@ -82,29 +116,32 @@ class LeNet(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """``x``: (N, 32, 32, 3) NHWC float32; ``generator`` draws the dropout
-        masks in training mode."""
+        """``x``: (N, 32, 32, 3) NHWC; ``generator`` draws the dropout masks
+        in training mode. Float32 logits."""
         drop = self.training and self.dropout_rate > 0
-        y = _nhwc(self.conv1(_nchw(x)))
+        dt = self.dtype
+        y = _nhwc(_conv(self.conv1, _nchw(x.to(dt)), dt))
         y = F.relu(max_pool_2x2(y))
-        y = _nhwc(self.conv2(_nchw(y)))
+        y = _nhwc(_conv(self.conv2, _nchw(y), dt))
         if drop:
             y = _dropout(y, self.dropout_rate, generator, (y.shape[0], 1, 1, y.shape[3]))
         y = F.relu(max_pool_2x2(y))
         y = y.reshape(y.shape[0], -1)  # HWC order: 5*5*16 = 400
-        y = F.relu(self.fc1(y))
+        y = F.relu(_dense(self.fc1, y, dt))
         if drop:
             y = _dropout(y, self.dropout_rate, generator, y.shape)
-        y = F.relu(self.fc2(y))
-        return self.fc3(y)
+        y = F.relu(_dense(self.fc2, y, dt))
+        return _dense(self.fc3, y, dt).float()
 
 
 class AlexNet(nn.Module):
     """CIFAR-sized AlexNet (reference ``example/models.py:25-49``)."""
 
-    def __init__(self, num_classes: int = 10, fused_epilogue: bool = False):
+    def __init__(self, num_classes: int = 10, fused_epilogue: bool = False,
+                 dtype=torch.float32):
         super().__init__()
         self.fused_epilogue = bool(fused_epilogue)
+        self.dtype = _dtype(dtype)
         self.conv1 = nn.Conv2d(3, 64, 11, stride=4, padding=5)
         self.conv2 = nn.Conv2d(64, 192, 5, padding=2)
         self.conv3 = nn.Conv2d(192, 384, 3, padding=1)
@@ -120,28 +157,31 @@ class AlexNet(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """``x``: (N, 32, 32, 3) NHWC float32 (no dropout: ``generator`` unused)."""
+        """``x``: (N, 32, 32, 3) NHWC (no dropout: ``generator`` unused).
+        Float32 logits."""
         del generator
-        y = self._pool_tail(self.conv1(_nchw(x)))   # 32→8→4
-        y = self._pool_tail(self.conv2(y))          # 4→2
-        y = F.relu(self.conv3(y))
-        y = F.relu(self.conv4(y))
-        y = self._pool_tail(self.conv5(y))          # 2→1
-        y = _nhwc(y).reshape(y.shape[0], -1)        # 256
-        return self.classifier(y)
+        dt = self.dtype
+        y = self._pool_tail(_conv(self.conv1, _nchw(x.to(dt)), dt))   # 32→8→4
+        y = self._pool_tail(_conv(self.conv2, y, dt))                 # 4→2
+        y = F.relu(_conv(self.conv3, y, dt))
+        y = F.relu(_conv(self.conv4, y, dt))
+        y = self._pool_tail(_conv(self.conv5, y, dt))                 # 2→1
+        y = _nhwc(y).reshape(y.shape[0], -1)                          # 256
+        return _dense(self.classifier, y, dt).float()
 
 
 def get_model(name: str, num_classes: int = 10, fused_epilogue: bool = False,
-              seed: int = 0, device="cuda") -> nn.Module:
+              seed: int = 0, device="cuda", dtype=torch.float32) -> nn.Module:
     """Model registry keyed by the CLI ``--model`` flag: seeded, moved to
-    ``device`` in ``channels_last``. ``fused_epilogue`` selects the
-    ``relu_pool2`` kernel where the model has one (AlexNet)."""
+    ``device`` in ``channels_last``, float32 parameters computing in
+    ``dtype``. ``fused_epilogue`` selects the ``relu_pool2`` kernel where the
+    model has one (AlexNet)."""
     dev = resolve_device(device)
     name = name.lower()
     if name == "lenet":
-        model = LeNet(num_classes=num_classes)
+        model = LeNet(num_classes=num_classes, dtype=dtype)
     elif name == "alexnet":
-        model = AlexNet(num_classes=num_classes, fused_epilogue=fused_epilogue)
+        model = AlexNet(num_classes=num_classes, fused_epilogue=fused_epilogue, dtype=dtype)
     else:
         raise ValueError(f"unknown model {name!r} (alexnet or lenet in this port)")
     init_he_uniform_(model, seed)

@@ -19,13 +19,17 @@ and on the card by ``chip_smoke.py``):
   first-max slot and zeros elsewhere — element-identical to the unfused chain.
 
 On a CUDA tensor :func:`relu_pool2` runs the kernels of ``csrc/fused_conv.cu``
-forward and backward (a ``torch.autograd.Function``); on a CPU tensor it runs
-the plain versions. :func:`relu_pool2_route` picks the kernels' route from
-the shape, dtype and pointers: 16-byte float4 accesses when C % 4 == 0 and
-every operand is 16-byte aligned (all of AlexNet's tails), scalar ones
-otherwise; ``launches`` counts each route. A CUDA input the kernels cannot
-take (not contiguous, not float32, 2^31 elements or more) raises; nothing is
-copied silently.
+forward and backward (a ``torch.autograd.Function``), in float32 or
+bfloat16; on a CPU tensor it runs the plain versions. :func:`relu_pool2_route`
+picks the kernels' route from the shape, dtype and pointers: 16-byte
+accesses (4 float32 or 8 bfloat16 channels) when C is a multiple of that
+width and every operand is 16-byte aligned (all of AlexNet's tails), scalar
+ones otherwise; ``launches`` counts each dtype's routes apart (the
+bfloat16 ones under ``.bf16`` keys). In bfloat16, ``x + bias`` is rounded to bfloat16
+once, as the plain version rounds it, and the relu and the maxima are exact,
+so both directions stay bit-identical. A CUDA input the kernels cannot take
+(not contiguous, another dtype, a bias or cotangent of another dtype, 2^31
+elements or more) raises; nothing is copied silently.
 
 :func:`bias_relu` is ``relu(x + bias)`` over the last axis, forward and
 backward bit-identical to the plain versions (the same add, rounded to the
@@ -46,11 +50,12 @@ import torch
 from distributed_ml_pytorch_tpu_torch.ops import _build
 
 #: launches of the forward and backward CUDA kernels (plain versions do not
-#: count); K2's also by route (``"relu_pool2_fwd.vector"`` and so on, see
-#: :func:`relu_pool2_route`), which sum to its total
+#: count); K2's also by dtype and route (float32's ``"relu_pool2_fwd.vector"``,
+#: bfloat16's ``"relu_pool2_fwd.bf16.vector"`` and so on, see
+#: :func:`relu_pool2_route`), which sum to its total over both dtypes
 launches = {"relu_pool2_fwd": 0, "relu_pool2_bwd": 0, "bias_relu_fwd": 0, "bias_relu_bwd": 0,
-            "relu_pool2_fwd.vector": 0, "relu_pool2_fwd.scalar": 0,
-            "relu_pool2_bwd.vector": 0, "relu_pool2_bwd.scalar": 0}
+            **{f"relu_pool2_{d}{dt}.{r}": 0 for d in ("fwd", "bwd") for dt in ("", ".bf16")
+               for r in ("vector", "scalar")}}
 
 
 # ------------------------------------------------------------------ pooling
@@ -132,22 +137,26 @@ def relu_pool2_bwd_plain(x: torch.Tensor, bias: Optional[torch.Tensor], m: torch
 
 #: the kernels index in 32 bits: tensors of this many elements or more raise
 MAX_ELEMENTS = 2**31
+#: K2's dtypes: the C entry points' suffix and the channels one 16-byte
+#: access of the vector route holds
+_POOL_DTYPES = {torch.float32: ("f32", 4), torch.bfloat16: ("bf16", 8)}
 
 
 def relu_pool2_route(shape, dtype, data_ptrs) -> str:
     """K2's route for a contiguous NHWC ``shape`` whose operands start at
-    ``data_ptrs``: ``"vector"`` (one float4 a thread) when C % 4 == 0 and
-    every pointer is 16-byte aligned, else ``"scalar"``. Raises for other
-    dtypes than float32 and for ``MAX_ELEMENTS`` or more elements."""
-    if dtype != torch.float32:
-        raise TypeError(f"relu_pool2 wants float32, got {dtype}")
+    ``data_ptrs``: ``"vector"`` (16 bytes a load: 4 float32 or 8 bfloat16
+    channels) when C is a multiple of that width and every pointer is
+    16-byte aligned, else ``"scalar"``. Raises for other dtypes than float32
+    and bfloat16 and for ``MAX_ELEMENTS`` or more elements."""
+    if dtype not in _POOL_DTYPES:
+        raise TypeError(f"relu_pool2 wants float32 or bfloat16, got {dtype}")
     numel = 1
     for d in shape:
         numel *= d
     if numel >= MAX_ELEMENTS:
         raise ValueError(f"relu_pool2: {numel} elements; the kernels index in 32 bits "
                          f"(fewer than {MAX_ELEMENTS})")
-    if shape[-1] % 4 == 0 and all(p % 16 == 0 for p in data_ptrs):
+    if shape[-1] % _POOL_DTYPES[dtype][1] == 0 and all(p % 16 == 0 for p in data_ptrs):
         return "vector"
     return "scalar"
 
@@ -162,9 +171,9 @@ def _check_cuda(name: str, x: torch.Tensor, bias: Optional[torch.Tensor]) -> Non
             f"{name} needs a contiguous NHWC tensor (a channels_last conv "
             f"output's permute(0, 2, 3, 1) is one); got strides {x.stride()}")
     if bias is not None and (
-            bias.shape != (x.shape[-1],) or bias.dtype != torch.float32
+            bias.shape != (x.shape[-1],) or bias.dtype != x.dtype
             or not bias.is_contiguous() or bias.device != x.device):
-        raise ValueError(f"{name}: bias must be a contiguous float32 ({x.shape[-1]},) "
+        raise ValueError(f"{name}: bias must be a contiguous {x.dtype} ({x.shape[-1]},) "
                          f"vector on {x.device}")
 
 
@@ -178,16 +187,17 @@ def _fn(name: str, n_ptrs: int):
 
 
 def _launch(kernel: str, x: torch.Tensor, ptrs) -> str:
-    """Launch ``dmt_<kernel>_f32`` over ``x``'s shape on the route
+    """Launch ``dmt_<kernel>_<dtype>`` over ``x``'s shape on the route
     :func:`relu_pool2_route` picks from the operands' pointers ``ptrs`` (0
-    for no bias); count it in total and by route."""
+    for no bias); count it in total and by dtype and route."""
     route = relu_pool2_route(x.shape, x.dtype, [p for p in ptrs if p])
+    suffix = _POOL_DTYPES[x.dtype][0]
     with torch.cuda.device(x.device):
-        code = _fn(f"dmt_{kernel}_f32", len(ptrs))(
+        code = _fn(f"dmt_{kernel}_{suffix}", len(ptrs))(
             *ptrs, *x.shape, route == "vector", _build.stream_of(x))
-    _build.check(code, f"{kernel} ({route})")
+    _build.check(code, f"{kernel} {suffix} ({route})")
     launches[kernel] += 1
-    launches[f"{kernel}.{route}"] += 1
+    launches[f"{kernel}.bf16.{route}" if suffix == "bf16" else f"{kernel}.{route}"] += 1
     return route
 
 
@@ -209,9 +219,9 @@ def relu_pool2_bwd_cuda(x: torch.Tensor, bias: Optional[torch.Tensor], m: torch.
     n, h, w, c = x.shape
     pooled = (n, h // 2, w // 2, c)
     for name, t in (("m", m), ("g", g)):
-        if (tuple(t.shape) != pooled or not t.is_contiguous() or t.dtype != torch.float32
+        if (tuple(t.shape) != pooled or not t.is_contiguous() or t.dtype != x.dtype
                 or t.device != x.device):
-            raise ValueError(f"relu_pool2 backward: {name} must be a contiguous float32 "
+            raise ValueError(f"relu_pool2 backward: {name} must be a contiguous {x.dtype} "
                              f"tensor of the pooled shape {pooled} on {x.device}, got "
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
     _check_cuda("relu_pool2 backward", x, bias)

@@ -205,7 +205,7 @@ def _downpour_micro_update(tx, model: nn.Module, opt_state, accum: torch.Tensor,
     place), and the same updates apply to the parameters. ``scratch`` is the
     padded flat-update buffer; its tail past ``flat_n`` stays zero."""
     names, params = zip(*model.named_parameters())
-    updates = tx.update([p.grad for p in params], opt_state)
+    updates = tx.update([p.grad for p in params], opt_state, list(params))
     ravel_tensors(model, dict(zip(names, updates)), out=scratch[:flat_n])
     flat_axpy(accum, scratch, 1.0)
     with torch.no_grad():
@@ -403,8 +403,11 @@ def train_worker(args, transport: Transport, heartbeat=None,
     # AlexNet's relu→pool tails run the relu_pool2 kernel: same numerics
     model = get_model(getattr(args, "model", "alexnet"), fused_epilogue=True,
                       seed=seed, device=dev)
+    # the full optimizer surface of the CLI, its schedule in local updates
+    steps_per_epoch = len(x_train) // args.batch_size
     opt = Asynchronous(model, lr=args.lr, n_push=args.num_push, n_pull=args.num_pull,
-                       tx=tx_from_args(args), transport=transport, heartbeat=heartbeat)
+                       tx=tx_from_args(args, steps_per_epoch), transport=transport,
+                       heartbeat=heartbeat)
     gen = torch.Generator(device=dev).manual_seed(seed + 1 + transport.rank)
     eval_step = make_eval_fn(model)
     logger = MetricsLogger(getattr(args, "log_dir", "runs"))

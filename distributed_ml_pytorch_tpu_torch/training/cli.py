@@ -5,8 +5,15 @@ The reference's flag surface for the two paths this package runs:
 of the DownPour world: ``--rank 0`` or ``--server`` is the parameter server,
 ranks 1+ are workers, over TCP on ``--master:--port``). ``--backend`` is
 ``cuda`` (default) or ``cpu``; ``--cuda`` is accepted for the reference's
-scripts and means the default. Flags of the JAX CLI that this package does
-not implement are absent, so argparse rejects them instead of ignoring them.
+scripts and means the default. The single-process trainer takes the JAX
+trainer's surface: ``--dtype``, ``--optimizer``, ``--weight-decay``,
+``--grad-clip``, ``--lr-schedule``, ``--grad-accum``, ``--steps-per-dispatch``
+(K steps a dispatch, a CUDA graph on the card), ``--prefetch``,
+``--ckpt-dir``/``--ckpt-every``/``--ckpt-keep``/``--resume`` and
+``--download``; the DownPour worker takes the optimizer flags. Flags of the
+JAX CLI that this package does not implement are absent, so argparse
+rejects them instead of ignoring them; ``--mode ps`` refuses the
+checkpoint flags and ``--steps-per-dispatch`` > 1 (not ported there yet).
 
     python -m distributed_ml_pytorch_tpu_torch.training.cli --no-distributed \
         --epochs 1 --synthetic-data
@@ -53,19 +60,51 @@ def build_parser() -> argparse.ArgumentParser:
                    help="distributed strategy: the async parameter server")
     p.add_argument("--model", type=str, default="alexnet", choices=["alexnet", "lenet"],
                    help="model architecture")
-    p.add_argument("--dtype", type=str, default="float32", choices=["float32"],
-                   help="compute dtype (float32 only in this package)")
+    p.add_argument("--dtype", type=str, default="float32", choices=["float32", "bfloat16"],
+                   help="compute dtype over float32 parameters (--no-distributed)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--data-root", type=str, default="./data",
                    help="CIFAR-10 location (cifar-10-batches-py/ or the tarball)")
     p.add_argument("--synthetic-data", action="store_true", default=False,
                    help="force the deterministic synthetic dataset")
+    p.add_argument("--download", action="store_true", default=False,
+                   help="fetch real CIFAR-10 (checksum-verified) into --data-root when "
+                        "missing; a failure falls back to the synthetic stand-in")
     p.add_argument("--synthetic-train-size", type=int, default=50000)
     p.add_argument("--synthetic-test-size", type=int, default=10000)
     p.add_argument("--log-dir", type=str, default="runs",
                    help="CSV telemetry directory")
+    p.add_argument("--ckpt-dir", type=str, default="",
+                   help="checkpoint directory (empty = checkpointing off; --no-distributed)")
+    p.add_argument("--ckpt-every", type=int, default=500, metavar="N",
+                   help="save a checkpoint every N global steps")
+    p.add_argument("--ckpt-keep", type=int, default=3, metavar="N",
+                   help="retain the newest N checkpoints")
+    p.add_argument("--resume", action="store_true", default=False,
+                   help="resume from the latest checkpoint in --ckpt-dir")
+    p.add_argument("--prefetch", type=int, default=2, metavar="N",
+                   help="keep N batches' host->device copies in flight ahead of compute "
+                        "(per-step path; 0 disables)")
+    p.add_argument("--optimizer", type=str, default="sgd", choices=("sgd", "adam", "adamw"),
+                   help="optimizer; sgd is the reference recipe (in --mode ps the "
+                        "worker-local optimizer)")
     p.add_argument("--momentum", type=float, default=0.0, metavar="M",
                    help="sgd momentum (the reference uses 0.0)")
+    p.add_argument("--weight-decay", type=float, default=None, metavar="WD",
+                   help="weight decay: decoupled for adamw, L2 for sgd/adam; unset keeps "
+                        "each optimizer's default (adamw: 1e-4), 0 disables")
+    p.add_argument("--grad-clip", type=float, default=0.0, metavar="NORM",
+                   help="clip gradients to this global norm before the update; 0 disables")
+    p.add_argument("--lr-schedule", type=str, default="constant",
+                   choices=("constant", "inverse-epoch", "cosine"),
+                   help="learning-rate schedule over optimizer updates")
+    p.add_argument("--grad-accum", type=int, default=1, metavar="K",
+                   help="average gradients over K micro-batches before each optimizer "
+                        "update (optax.MultiSteps semantics)")
+    p.add_argument("--steps-per-dispatch", type=int, default=1, metavar="K",
+                   help="train up to K consecutive steps a dispatch (a CUDA graph of one "
+                        "step replayed K times on the card); per-step CSV rows and the "
+                        "eval cadence are kept (--no-distributed)")
     p.add_argument("--heartbeat-interval", type=float, default=1.0, metavar="SEC",
                    help="PS-mode worker liveness heartbeat cadence; 0 disables")
     p.add_argument("--worker-timeout", type=float, default=30.0, metavar="SEC",
@@ -75,12 +114,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if not args.no_distributed:
+        for flag, given in (("--ckpt-dir", args.ckpt_dir), ("--resume", args.resume),
+                            ("--steps-per-dispatch > 1", args.steps_per_dispatch > 1)):
+            if given:
+                parser.error(f"{flag} with --mode ps: not ported yet")
     print(args)
     if args.no_distributed:
         from distributed_ml_pytorch_tpu_torch.training.trainer import train_single
 
-        _model, logger = train_single(args, device=args.backend)
+        _state, logger = train_single(args, device=args.backend)
         name = "single.csv" if args.backend == "cpu" else "gpu.csv"
         print("wrote", logger.to_csv(name))
         print("Finished Training")

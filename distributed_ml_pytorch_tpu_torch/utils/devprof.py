@@ -26,6 +26,13 @@ repeated, up to ``PROFILER_RUNS`` in all, and ``"runs"`` says how many
 times ``fn`` ran. When no run records any device time (the profiler relies
 on CUPTI), the result says so in ``"device_time"`` instead of reporting
 zeros as measurements.
+
+A CUDA graph's kernels come back under the launch of the graph
+(``cudaGraphLaunch``), one event each, and count as kernels like any other.
+A launch call made while a stream is being captured (between
+``cudaStreamBeginCapture`` and ``cudaStreamEndCapture``) records a graph
+node and runs nothing, so it is counted in ``"captured_launches"``, not as
+lost.
 """
 
 from __future__ import annotations
@@ -58,18 +65,35 @@ def _kernel_us(evt) -> float:
     return 0.0
 
 
+def _captured(events, device) -> set:
+    """Correlation ids of the launch calls made inside a stream capture
+    window (host events ``cudaStreamBeginCapture`` to ``...EndCapture``)."""
+    host = sorted((e for e in events if getattr(e, "device_type", None) != device),
+                  key=lambda e: e.time_range.start)
+    ids, inside = set(), False
+    for e in host:
+        if "StreamBeginCapture" in e.name:
+            inside = True
+        elif "StreamEndCapture" in e.name:
+            inside = False
+        elif inside and _is_launch(e.name):
+            ids.add(e.id)
+    return ids
+
+
 def tally(events, device, skip_launches: int = 0
           ) -> Tuple[Dict[str, float], Dict[str, int], Dict[str, float], int]:
     """``(ms, launches, gap ms)`` per kernel name over the profiler's
     ``events`` whose ``device_type`` is ``device``, and the number of launch
     calls whose kernel is not among them (matched by correlation id). The
     first ``skip_launches`` launch calls on the host's clock, and their
-    kernels, are left out."""
+    kernels, are left out, and so are launch calls made during a stream
+    capture (they run nothing)."""
     events = list(events)
     calls_made = sorted((e for e in events if getattr(e, "device_type", None) != device
                          and _is_launch(e.name)), key=lambda e: e.time_range.start)
     skipped = {e.id for e in calls_made[:skip_launches]}
-    launched = {e.id for e in calls_made[skip_launches:]}
+    launched = {e.id for e in calls_made[skip_launches:]} - _captured(events, device)
     per_kernel: Dict[str, float] = {}
     calls: Dict[str, int] = {}
     gaps: Dict[str, float] = {}
@@ -111,8 +135,9 @@ def kernel_breakdown(fn: Callable[[], object], groups: Mapping[str, Sequence[str
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
             time.sleep(WINDOW_PAD_S)
-        per_kernel, calls, gaps, lost = tally(prof.events(), DeviceType.CUDA,
-                                              WARMUP_LAUNCHES)
+        events = prof.events()
+        per_kernel, calls, gaps, lost = tally(events, DeviceType.CUDA, WARMUP_LAUNCHES)
+        captured = len(_captured(events, DeviceType.CUDA))
         busy_ms = sum(per_kernel.values())
         if busy_ms > 0.0 and not lost:
             break
@@ -133,4 +158,4 @@ def kernel_breakdown(fn: Callable[[], object], groups: Mapping[str, Sequence[str
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
             "group_ms": by_group, "group_launches": launches, "group_gap_ms": gap_ms,
             "top_kernels_ms": [[n[:120], ms] for n, ms in ranked],
-            "lost_launches": lost, "runs": run}
+            "lost_launches": lost, "captured_launches": captured, "runs": run}

@@ -90,7 +90,8 @@ def test_bench_all_main_on_cpu_emits_the_jax_metric_names(capsys, spies):
 
 ALEXNET_METRICS = ["alexnet_cifar10_train_throughput",
                    "alexnet_cifar10_train_throughput_large_batch",
-                   "alexnet_cifar10_train_throughput_large_batch_unfused"]
+                   "alexnet_cifar10_train_throughput_large_batch_unfused",
+                   "alexnet_cifar10_train_throughput_grad_accum"]
 
 
 def test_alexnet_leg_on_cpu_emits_the_jax_metric_names(capsys):
@@ -98,18 +99,22 @@ def test_alexnet_leg_on_cpu_emits_the_jax_metric_names(capsys):
     recs = [json.loads(line) for line in capsys.readouterr().out.splitlines()
             if line.startswith("{")]
     assert [r["metric"] for r in recs] == ALEXNET_METRICS
-    for r, (batch, fused) in zip(recs, [(4, False), (8, True), (8, False)]):
+    k = bench_all.TINY_SCAN_K
+    for r, (batch, fused, micro) in zip(recs, [(4, False, None), (8, True, None),
+                                               (8, False, None), (8, True, 2)]):
         assert r["config"] == 1 and r["unit"] == "images/sec/chip" and r["value"] > 0
         assert r["hardware"] == "1x cpu" and "wallclock" in r["note"] and "--tiny" in r["note"]
         assert r["batch"] == batch and r["fused_epilogue"] is fused
+        assert r["steps_per_dispatch"] == k and r["microbatch"] == micro
         assert r["flops_per_step"] == 6 * 14_957_056 * batch
-        assert len(r["warmup_losses"]) == 3 and all(np.isfinite(r["warmup_losses"]))
+        # two warm-up dispatches of K steps
+        assert len(r["warmup_losses"]) == 2 * k and all(np.isfinite(r["warmup_losses"]))
     # the fused and unfused large-batch legs train the same weights on the
-    # same batch: the epilogue changes kernels, never numerics
+    # same batches: the epilogue changes kernels, never numerics
     assert recs[1]["warmup_losses"] == recs[2]["warmup_losses"]
     with open(os.path.join(ROOT, "bench_all.py")) as fh:
         src = fh.read()
-    for m in ALEXNET_METRICS[:2]:
+    for m in ALEXNET_METRICS[:2] + ALEXNET_METRICS[3:]:
         assert f'"{m}"' in src, m
 
 
@@ -229,6 +234,24 @@ def test_tally_leaves_out_the_first_launches_and_their_kernels():
     assert gaps == pytest.approx({"k_b": 3e-3})
     # without the skip, the lost warm-up launch is counted
     assert tally(events, gpu)[3] == 1
+
+
+def test_tally_does_not_count_captured_launches_as_lost():
+    # launch 2 is made inside a stream capture (a graph node: nothing runs);
+    # the graph's replay (correlation 7) brings back two kernels
+    from distributed_ml_pytorch_tpu_torch.utils.devprof import _captured, tally
+
+    cpu, gpu = "cpu", "cuda"
+    events = [_event("cudaLaunchKernel", 1, cpu, 1.0),
+              _event("cudaStreamBeginCapture", 3, cpu, 2.0),
+              _event("cudaLaunchKernel", 2, cpu, 3.0), _event("cudaStreamEndCapture", 4, cpu, 4.0),
+              _event("cudaGraphLaunch", 7, cpu, 5.0), _event("k_a", 1, gpu, 6.0, 7.0),
+              _event("k_a", 7, gpu, 8.0, 9.0), _event("k_b", 7, gpu, 9.0, 11.0)]
+    per_kernel, calls, _gaps, lost = tally(events, gpu)
+    assert lost == 0 and _captured(events, gpu) == {2}
+    assert calls == {"k_a": 2, "k_b": 1}
+    # without the capture window the captured launch reads as lost
+    assert tally([e for e in events if "Capture" not in e.name], gpu)[3] == 1
 
 
 @pytest.mark.parametrize("hybrid,analytic", [(1.0e12, 1.1e12), (1.0e12, 2.0e12), (None, 1e12),

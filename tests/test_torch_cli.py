@@ -4,7 +4,9 @@
   reference CSV schema, the same header the JAX package's logger writes;
 - ``launch.py`` runs a tiny three-process TCP world (server + 2 workers);
 - flags the port does not implement are rejected, and ``--backend cuda``
-  without a card raises instead of falling back;
+  without a card raises instead of falling back; the trainer's flags take
+  the JAX CLI's names, defaults and choices, and ``--mode ps`` refuses the
+  ones it does not implement;
 - no module of the port imports JAX, flax, optax or the JAX package.
 """
 
@@ -69,11 +71,53 @@ def test_launch_three_process_tcp_world(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--wal"], ["--compress", "int8"], ["--mode", "sync"],
-                                  ["--dtype", "bfloat16"], ["--backend", "tpu"],
-                                  ["--n-servers", "2"], ["--resume"]])
+                                  ["--dtype", "float16"], ["--backend", "tpu"],
+                                  ["--n-servers", "2"], ["--profile-dir", "prof"]])
 def test_unimplemented_flags_are_rejected(flag):
     with pytest.raises(SystemExit):
         cli.build_parser().parse_args(flag)
+
+
+NEW_FLAGS = ["dtype", "optimizer", "weight_decay", "grad_clip", "lr_schedule", "grad_accum",
+             "steps_per_dispatch", "prefetch", "ckpt_dir", "ckpt_every", "ckpt_keep", "resume",
+             "download", "momentum"]
+
+
+def _actions(parser):
+    return {a.dest: a for a in parser._actions}
+
+
+def test_trainer_flags_take_the_jax_names_defaults_and_choices():
+    from distributed_ml_pytorch_tpu.training import cli as jcli
+
+    mine, ref = _actions(cli.build_parser()), _actions(jcli.build_parser())
+    for dest in NEW_FLAGS:
+        assert mine[dest].option_strings == ref[dest].option_strings, dest
+        assert mine[dest].default == ref[dest].default, dest
+        assert (mine[dest].choices and tuple(mine[dest].choices)) == (
+            ref[dest].choices and tuple(ref[dest].choices)), dest
+        assert mine[dest].type == ref[dest].type, dest
+
+
+@pytest.mark.parametrize("flag", [["--ckpt-dir", "ck"], ["--resume"],
+                                  ["--steps-per-dispatch", "4"]])
+def test_ps_mode_refuses_the_single_process_flags(flag, capsys):
+    with pytest.raises(SystemExit):
+        cli.main(["--rank", "1", *flag])
+    assert "not ported yet" in capsys.readouterr().err
+
+
+def test_no_distributed_bf16_chunked_accumulating_run(tmp_path):
+    rc = cli.main(["--no-distributed", "--backend", "cpu", "--model", "alexnet", "--dtype",
+                   "bfloat16", "--optimizer", "adamw", "--lr-schedule", "cosine",
+                   "--grad-clip", "1.0", "--grad-accum", "2", "--steps-per-dispatch", "3",
+                   "--ckpt-dir", str(tmp_path / "ck"), "--ckpt-every", "2",
+                   "--log-dir", str(tmp_path), *TINY])
+    assert rc == 0
+    with open(tmp_path / "single.csv", newline="") as fh:
+        rows = list(csv.DictReader(fh))
+    assert len(rows) == 4 and rows[2]["test_loss"] != ""
+    assert sorted(os.listdir(tmp_path / "ck")) == ["2", "4"]
 
 
 def test_cuda_without_a_card_raises(monkeypatch):

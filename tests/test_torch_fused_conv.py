@@ -61,6 +61,41 @@ def test_relu_pool2_fwd_and_bwd_match_jax(shape, with_bias, ties):
         np.testing.assert_array_equal(bt.grad.numpy(), np.asarray(db_ref))
 
 
+@pytest.mark.parametrize("shape", SHAPES[3:])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("ties", [False, True])
+def test_relu_pool2_bf16_fwd_and_bwd_match_jax(shape, with_bias, ties):
+    """bfloat16, bit-identical: x + b rounds to bfloat16 once on both sides,
+    relu and max are exact; the cotangents are small integers, so every
+    partial sum of db (at most 4 x 32 windows) is exact in bfloat16 too."""
+    x, b, g = _inputs(shape, seed=sum(shape) + 1, ties=ties)
+    jx, jb, jg = (jnp.asarray(a, jnp.bfloat16) for a in (x, b, g))
+    with jfc.force_pallas_interpret():
+        if with_bias:
+            m_ref, vjp = jax.vjp(jfc.relu_pool2, jx, jb)
+            dx_ref, db_ref = vjp(jg)
+        else:
+            m_ref, vjp = jax.vjp(jfc.relu_pool2, jx)
+            (dx_ref,) = vjp(jg)
+
+    def port(a):
+        return torch.from_numpy(np.array(a.astype(jnp.float32))).to(torch.bfloat16)
+
+    def ref(a):
+        return np.asarray(a.astype(jnp.float32))
+
+    xt = port(jx).requires_grad_(True)
+    bt = port(jb).requires_grad_(True) if with_bias else None
+    m = tfc.relu_pool2(xt, bt)
+    assert m.dtype == torch.bfloat16
+    np.testing.assert_array_equal(m.detach().float().numpy(), ref(m_ref))
+    m.backward(port(jg))
+    assert xt.grad.dtype == torch.bfloat16
+    np.testing.assert_array_equal(xt.grad.float().numpy(), ref(dx_ref))
+    if with_bias:
+        np.testing.assert_array_equal(bt.grad.float().numpy(), ref(db_ref))
+
+
 def test_max_pool_2x2_tie_vjp_matches_jax():
     # every window ties: the cotangent must go to slot (0, 0) only
     x = np.zeros((2, 4, 4, 3), np.float32)
@@ -96,11 +131,28 @@ def test_relu_pool2_route(shape, ptrs, route):
     assert tfc.relu_pool2_route(shape, torch.float32, ptrs) == route
 
 
+@pytest.mark.parametrize("shape,ptrs,route", [
+    # bfloat16: 8 channels a 16-byte load, so C % 8 == 0
+    ((64, 8, 8, 64), (0x1000, 0x2000), "vector"),
+    ((1024, 4, 4, 192), (0x1000, 0x2010, 0x3020), "vector"),
+    ((1024, 2, 2, 256), (0x1000, 0x2000), "vector"),
+    ((64, 4, 4, 36), (0x1000, 0x2000), "scalar"),       # C % 4 == 0 but C % 8 != 0
+    ((64, 4, 4, 37), (0x1000, 0x2000), "scalar"),       # odd C
+    ((64, 8, 8, 64), (0x1008, 0x2000), "scalar"),       # 8-byte aligned only
+    ((64, 8, 8, 64), (0x1002, 0x2000), "scalar"),       # x one element in
+])
+def test_relu_pool2_route_bf16(shape, ptrs, route):
+    assert tfc.relu_pool2_route(shape, torch.bfloat16, ptrs) == route
+
+
 def test_relu_pool2_route_raises_beyond_its_reach():
     with pytest.raises(ValueError, match="32 bits"):
         tfc.relu_pool2_route((32768, 8, 8, 1024), torch.float32, (0x1000,))
-    with pytest.raises(TypeError, match="float32"):
-        tfc.relu_pool2_route((2, 4, 4, 8), torch.bfloat16, (0x1000,))
+    with pytest.raises(ValueError, match="32 bits"):
+        tfc.relu_pool2_route((32768, 8, 8, 1024), torch.bfloat16, (0x1000,))
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            tfc.relu_pool2_route((2, 4, 4, 8), dtype, (0x1000,))
 
 
 def test_relu_pool2_cuda_wrappers_refuse_cpu_tensors():

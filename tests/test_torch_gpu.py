@@ -114,7 +114,8 @@ def test_relu_pool2_routes_bit_identical(cuda, shape, misaligned, route, with_bi
     other = "scalar" if route == "vector" else "vector"
     assert ran == {"relu_pool2_fwd": 1, "relu_pool2_bwd": 1,
                    f"relu_pool2_fwd.{route}": 1, f"relu_pool2_bwd.{route}": 1,
-                   f"relu_pool2_fwd.{other}": 0, f"relu_pool2_bwd.{other}": 0}
+                   f"relu_pool2_fwd.{other}": 0, f"relu_pool2_bwd.{other}": 0,
+                   **{k: 0 for k in ran if ".bf16" in k}}
     xr, br = torch.from_numpy(x), (torch.from_numpy(b) if with_bias else None)
     mr = tfc.relu_pool2_fwd_plain(xr, br)
     np.testing.assert_array_equal(m.cpu().numpy(), mr.numpy())
@@ -133,7 +134,11 @@ def test_relu_pool2_rejects_non_contiguous(cuda):
 def test_alexnet_fused_and_unfused_steps_agree(cuda):
     from distributed_ml_pytorch_tpu_torch.device import full_float32
     from distributed_ml_pytorch_tpu_torch.models import get_model
-    from distributed_ml_pytorch_tpu_torch.training.trainer import SGD, make_train_step
+    from distributed_ml_pytorch_tpu_torch.training.trainer import (
+        SGD,
+        create_train_state,
+        make_train_step,
+    )
     from distributed_ml_pytorch_tpu_torch.utils.serialization import ravel_model_params
 
     full_float32()
@@ -144,8 +149,9 @@ def test_alexnet_fused_and_unfused_steps_agree(cuda):
     flats, losses = [], []
     for fused in (True, False):
         model = get_model("alexnet", fused_epilogue=fused, device=cuda)
+        state = create_train_state(model, SGD(0.008))
         step = make_train_step(model, SGD(0.008))
-        losses.append([float(step(x, y)) for _ in range(3)])
+        losses.append([float(step(state, x, y)[1]) for _ in range(3)])
         flats.append(ravel_model_params(model))
     assert losses[0] == losses[1]
     assert torch.equal(flats[0], flats[1])
@@ -1002,3 +1008,248 @@ def test_device_time_on_the_card(cuda):
     assert t.source == "cuda_events" and t.calls == 5
     # 2 * 2048^3 FLOP in full float32 cannot beat 67 TFLOP/s by much
     assert 2 * 2048 ** 3 / t.per_call_s < 2 * 67e12
+
+
+# ------------------------------------------------------------------ K2 in bfloat16
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,misaligned,route", [
+    ((1024, 8, 8, 64), False, "vector"), ((1024, 4, 4, 192), False, "vector"),
+    ((1024, 2, 2, 256), False, "vector"), ((64, 8, 8, 64), False, "vector"),
+    ((64, 4, 4, 37), False, "scalar"), ((64, 4, 4, 36), False, "scalar"),
+    ((64, 8, 8, 64), True, "scalar")])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("ties", [False, True])
+def test_relu_pool2_bf16_routes_bit_identical(cuda, shape, misaligned, route, with_bias, ties):
+    """bfloat16, bit-identical forward and backward: the batch-1024 tails on
+    the 8-channel vector route; C % 8 != 0 and a view one element (2 bytes)
+    into its storage on the scalar route."""
+    x, b, g = _pool_inputs(shape, seed=3, ties=ties)
+    bf = torch.bfloat16
+    xr, br, gr = (torch.from_numpy(a).to(bf) for a in (x, b, g))
+    if misaligned:
+        xc = torch.empty(xr.numel() + 1, device=cuda, dtype=bf)[1:].view(shape)
+        xc.copy_(xr.to(cuda))
+        assert xc.is_contiguous() and xc.data_ptr() % 16 == 2
+    else:
+        xc = xr.to(cuda)
+    bc = br.to(cuda) if with_bias else None
+    before = dict(tfc.launches)
+    m = tfc.relu_pool2_fwd_cuda(xc, bc)
+    dx = tfc.relu_pool2_bwd_cuda(xc, bc, m, gr.to(cuda))
+    torch.cuda.synchronize()
+    ran = {k: tfc.launches[k] - before[k] for k in before if k.startswith("relu_pool2")}
+    for d in ("fwd", "bwd"):
+        assert ran[f"relu_pool2_{d}.bf16.{route}"] == ran[f"relu_pool2_{d}"] == 1
+        assert ran[f"relu_pool2_{d}.vector"] == ran[f"relu_pool2_{d}.scalar"] == 0
+    mr = tfc.relu_pool2_fwd_plain(xr, br if with_bias else None)
+    dr = tfc.relu_pool2_bwd_plain(xr, br if with_bias else None, mr, gr)
+    assert m.dtype == dx.dtype == bf
+    assert torch.equal(m.cpu(), mr) and torch.equal(dx.cpu(), dr)
+    # and the plain versions on the card agree with them on the CPU
+    assert torch.equal(tfc.relu_pool2_fwd_plain(xc, bc).cpu(), mr)
+
+
+@pytest.mark.gpu
+def test_relu_pool2_refuses_mixed_dtypes_on_the_card(cuda):
+    x = torch.randn(2, 4, 4, 8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bias"):
+        tfc.relu_pool2_fwd_cuda(x, torch.zeros(8, device=cuda))
+    with pytest.raises(TypeError, match="bfloat16"):
+        tfc.relu_pool2_fwd_cuda(x.half())
+    m = tfc.relu_pool2_fwd_cuda(x)
+    with pytest.raises(ValueError, match="g must be"):
+        tfc.relu_pool2_bwd_cuda(x, None, m, m.float())
+
+
+# ------------------------------------------------------------------ graphed trainer
+
+def _deterministic():
+    from distributed_ml_pytorch_tpu_torch.device import full_float32
+
+    full_float32()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def _k_batches(k, b, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(-1, 1, size=(k, b, 32, 32, 3)).astype(np.float32),
+            rng.integers(0, 10, size=(k, b)).astype(np.int64))
+
+
+def _flat_params(model):
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,dtype", [("alexnet", torch.float32), ("alexnet", torch.bfloat16),
+                                        ("lenet", torch.float32)])
+def test_graphed_k_steps_equal_eager_steps(cuda, name, dtype):
+    """Two dispatches of 6 (2 eager warm-up steps, a capture, replays) equal
+    12 eager steps bit for bit: the schedule's lr, Adam's bias correction
+    and the clipping read device tensors, and LeNet's dropout generator is
+    registered with the graph, so replays draw fresh masks."""
+    from distributed_ml_pytorch_tpu_torch.models import get_model
+    from distributed_ml_pytorch_tpu_torch.training import trainer as ttr
+
+    _deterministic()
+    x, y = _k_batches(12, 16)
+    runs = []
+    for graphed in (True, False):
+        model = get_model(name, fused_epilogue=True, seed=1, device=cuda, dtype=dtype)
+        tx = ttr.build_tx("adamw", ttr.make_lr_schedule("cosine", 1e-3, 4, 3), grad_clip=1.0)
+        state = ttr.create_train_state(model, tx,
+                                       torch.Generator(device=cuda).manual_seed(7))
+        if graphed:
+            scan = ttr.make_scan_train_step(model, tx)
+            losses = torch.cat([scan(state, x[i:i + 6], y[i:i + 6])[1] for i in (0, 6)])
+            assert scan.graphed.captures == 1
+        else:
+            step = ttr.make_train_step(model, tx)
+            losses = torch.stack([step(state, x[i], y[i])[1].float() for i in range(12)])
+        runs.append((losses.cpu(), _flat_params(model).cpu(), int(state.opt_state.count),
+                     state.generator.get_state()))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert runs[0][2] == runs[1][2] == 12
+    assert torch.equal(runs[0][3], runs[1][3])
+
+
+@pytest.mark.gpu
+def test_graph_is_rebuilt_when_the_batch_shape_changes(cuda):
+    """A shorter dispatch of the same shape replays the graph; a new batch
+    shape rebuilds it (warm-up, capture), never replays over it: the losses
+    and parameters equal the same steps run eagerly."""
+    from distributed_ml_pytorch_tpu_torch.models import get_model
+    from distributed_ml_pytorch_tpu_torch.training import trainer as ttr
+
+    _deterministic()
+    x, y = _k_batches(4, 16)
+    xs, ys = _k_batches(4, 8, seed=1)
+    dispatches = [(x, y), (x[:3], y[:3]), (xs, ys)]
+    runs = []
+    for graphed in (True, False):
+        model = get_model("alexnet", fused_epilogue=True, device=cuda)
+        tx = ttr.build_tx("sgd", 0.01)
+        state = ttr.create_train_state(model, tx)
+        scan, step = ttr.make_scan_train_step(model, tx), ttr.make_train_step(model, tx)
+        losses, captures = [], []
+        for bx, by in dispatches:
+            if graphed:
+                losses.append(scan(state, bx, by)[1])
+                captures.append(scan.graphed.captures)
+            else:
+                losses += [step(state, bx[i], by[i])[1].reshape(1) for i in range(len(bx))]
+        runs.append((torch.cat(losses).cpu(), _flat_params(model).cpu(), captures, state.step))
+    assert runs[0][2] == [1, 1, 2] and runs[0][3] == runs[1][3] == 11
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.gpu
+def test_graphed_accumulation_equals_eager_updates(cuda):
+    from distributed_ml_pytorch_tpu_torch.models import get_model
+    from distributed_ml_pytorch_tpu_torch.training import trainer as ttr
+
+    _deterministic()
+    x, y = _k_batches(5, 32, seed=1)
+    runs = []
+    for graphed in (True, False):
+        model = get_model("alexnet", fused_epilogue=True, seed=2, device=cuda)
+        tx = ttr.build_tx("sgd", 0.008, momentum=0.9)
+        state = ttr.create_train_state(model, tx)
+        if graphed:
+            scan = ttr.make_scan_accum_train_step(model, tx, 8, effective_update_batch=4)
+            losses = scan(state, x, y)[1]
+        else:
+            step = ttr.make_accum_train_step(model, tx, 8, effective_update_batch=4)
+            losses = torch.stack([step(state, x[i], y[i])[1] for i in range(5)])
+        runs.append((losses.cpu(), _flat_params(model).cpu()))
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.gpu
+def test_resume_on_the_card_equals_an_uninterrupted_run(cuda, tmp_path, monkeypatch):
+    from distributed_ml_pytorch_tpu_torch.training import cli
+    from distributed_ml_pytorch_tpu_torch.utils import checkpoint as tck
+
+    _deterministic()
+
+    class Stop(Exception):
+        pass
+
+    def argv(tag):
+        return ["--no-distributed", "--model", "alexnet", "--dtype", "bfloat16", "--epochs", "2",
+                "--synthetic-data", "--synthetic-train-size", "192", "--synthetic-test-size",
+                "32", "--batch-size", "16", "--log-interval", "5", "--optimizer", "adamw",
+                "--lr-schedule", "cosine", "--grad-clip", "1.0", "--grad-accum", "2",
+                "--steps-per-dispatch", "4", "--ckpt-every", "6", "--ckpt-dir",
+                str(tmp_path / tag / "ck"), "--log-dir", str(tmp_path / tag)]
+
+    assert cli.main(argv("full")) == 0
+    real_save = tck.Checkpointer.save
+
+    def save_then_stop(self, step, state, *, force=False):
+        accepted = real_save(self, step, state, force=force)
+        if accepted and not force and step == 12:
+            raise Stop
+        return accepted
+
+    monkeypatch.setattr(tck.Checkpointer, "save", save_then_stop)
+    with pytest.raises(Stop):
+        cli.main(argv("cut"))
+    monkeypatch.setattr(tck.Checkpointer, "save", real_save)
+    assert cli.main([*argv("cut"), "--resume"]) == 0
+    a = torch.load(tmp_path / "full" / "ck" / "24" / "state.pt", weights_only=True)
+    b = torch.load(tmp_path / "cut" / "ck" / "24" / "state.pt", weights_only=True)
+    assert a["step"] == b["step"] == 24
+    for k in a["params"]:
+        assert torch.equal(a["params"][k], b["params"][k]), k
+    assert torch.equal(a["generator"], b["generator"])
+
+    def losses(tag):
+        import csv
+
+        with open(tmp_path / tag / "gpu.csv", newline="") as fh:
+            return [(r["iteration"], r["training_loss"], r["test_loss"])
+                    for r in csv.DictReader(fh)]
+
+    assert losses("cut") == losses("full")[12:]
+
+
+@pytest.mark.gpu
+def test_prefetch_on_the_card_hands_over_the_batches_unchanged(cuda):
+    from distributed_ml_pytorch_tpu_torch.data import iterate_batches, prefetch_to_device
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(40, 32, 32, 3)).astype(np.float32)
+    y = (np.arange(40) % 10).astype(np.int32)
+    plain = list(iterate_batches(x, y, 8, seed=1))
+    got = list(prefetch_to_device(iterate_batches(x, y, 8, seed=1), 3, cuda))
+    assert len(got) == len(plain)
+    for (a, b), (c, d) in zip(got, plain):
+        assert a.is_cuda and a.dtype == torch.float32 and b.dtype == torch.int64
+        assert torch.equal(a.cpu(), torch.from_numpy(c))
+        assert torch.equal(b.cpu(), torch.from_numpy(d.astype(np.int64)))
+
+
+@pytest.mark.gpu
+def test_per_step_training_with_prefetch_equals_without(cuda, tmp_path):
+    """The per-step path on the card (LeNet, dropout from the state's
+    generator): batches prefetched on a side stream train the same
+    parameters as batches copied in the step."""
+    from distributed_ml_pytorch_tpu_torch.training import cli
+    from distributed_ml_pytorch_tpu_torch.training.trainer import train_single
+
+    _deterministic()
+    flats = []
+    for n in (0, 2):
+        args = cli.build_parser().parse_args([
+            "--no-distributed", "--model", "lenet", "--epochs", "1", "--synthetic-data",
+            "--synthetic-train-size", "256", "--synthetic-test-size", "32", "--batch-size",
+            "16", "--log-interval", "8", "--optimizer", "adam", "--lr", "0.003",
+            "--prefetch", str(n), "--log-dir", str(tmp_path / str(n))])
+        state, logger = train_single(args, device=cuda)
+        flats.append((_flat_params(state.model).cpu(),
+                      [r["training_loss"] for r in logger.records]))
+    assert torch.equal(flats[0][0], flats[1][0]) and flats[0][1] == flats[1][1]
