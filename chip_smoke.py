@@ -28,8 +28,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
 4. the DownPour path: a parameter server and two workers in one process
    (threads, in-process transport) through ``run_server``/``train_worker``
    with the CLI defaults (AlexNet, batch 64, lr 0.008, n_push = n_pull = 10)
-   on synthetic CIFAR-10; the kernels' launch counts are zeroed just before
-   and read just after, and every kernel must have run;
+   and ``--chunked-dispatch off`` (one eager step a dispatch) on synthetic
+   CIFAR-10; the kernels' launch counts are zeroed just before and read just
+   after, every kernel must have run and ``flat_axpy`` once a step; each
+   worker's steps/s from its record 5 on (as before phase 15 existed) and
+   its steady steps/s over the window phase 15 reads too;
 5. the flash-attention kernels (K4 forward, K5 fused backward, K6a split
    dQ and K6b split dK/dV: the tensor-core kernels for bfloat16, the scalar
    ones for float32) against their plain versions on the same inputs, K6b's
@@ -143,7 +146,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
    cosine, clipping) run to the end under the profiler (K2's bfloat16
    kernels in it, the vector route in the wrappers' counts), then stopped
    after its step-15 checkpoint and resumed with ``--resume``: the final
-   checkpoints and the CSV losses equal.
+   checkpoints and the CSV losses equal;
+15. the chunked DownPour worker, under deterministic cuDNN in full float32
+   (AlexNet fused, batch 64, n_push = n_pull = 10): (a) one worker chunked
+   (each run of 1 or 9 local steps one dispatch of a captured CUDA graph)
+   against one per step (eager) from the same weights on the same batches,
+   60 steps, against a transport that never replies: every push and the
+   final parameters bit for bit, one capture for both run lengths; a
+   second 60 steps of each timed (wall ms a step); (b) one 9-step run
+   of the chunked worker after the capture profiled (``utils/devprof``: K1
+   9 times, K2a and K2b 27 times each among the replay's kernels, no launch
+   lost; busy ms a step, idle share), and the boundary's parts timed: the
+   install of a 9.9 MB central vector and a snapshot plus push; (c) phase
+   4's world with ``--chunked-dispatch on --ckpt-dir build/smoke_ps --wal
+   --admission``: each worker's loss falls, the server counts the pushes and
+   pulls, nothing is quarantined, the wrappers count each worker's two
+   warm-up steps and its capture; steady steps/s beside phase 4's; (d) a
+   fresh server restores ``build/smoke_ps`` to (c)'s final central vector,
+   ``apply_seq`` and version, bit for bit.
 
 Then the ``kernels`` line, the ``nvidia-smi`` name/power line, and last the
 result line ``{"ok": true, "device": {...}}``. Without a card, or without
@@ -194,6 +214,9 @@ ALEXNET_GROUPS = {
     "conv fwd": ["fprop", "convolve", "conv2d", "implicit_gemm"],
 }
 WORKER_STEPS = 80
+#: a DownPour worker's steady window opens at the first host read of its
+#: losses at or after step STEADY_FROM - 1 (see _steady_record)
+STEADY_FROM = 10
 ATTN_MAIN = (8, 12, 2048, 64)  # GPT-2-small's per-layer attention shape
 #: one long causal case: a 256-tile key loop (ATTN_MAIN's is 32 tiles); the
 #: plain versions hold its whole (s, s) float32 score plane, 1 GiB a head
@@ -632,22 +655,26 @@ def phase_trainer(torch, device="cuda", steps=5, batch=64):
 
 # ------------------------------------------------------------------ phase 4
 
-def phase_downpour(torch, device="cuda", steps=WORKER_STEPS, batch=64):
+def _downpour_world(torch, argv, device="cuda", steps=WORKER_STEPS, batch=64):
+    """A parameter server and two workers as threads of this process on the
+    in-process transport, through ``run_server``/``train_worker`` with the
+    CLI defaults (AlexNet, batch 64, lr 0.008, n_push = n_pull = 10) plus
+    ``argv``, on synthetic CIFAR-10; the kernels' launch counts are zeroed
+    just before and read just after. Returns ``(server, per_worker,
+    launches, wall_s, records)``; a worker's steady rate runs from its
+    record :func:`_steady_record` to its last."""
     from distributed_ml_pytorch_tpu_torch.ops import fused_conv as fc
     from distributed_ml_pytorch_tpu_torch.ops import fused_update as fu
-    from distributed_ml_pytorch_tpu_torch.parallel.async_ps import run_server, train_worker
+    from distributed_ml_pytorch_tpu_torch.parallel import async_ps as tps
     from distributed_ml_pytorch_tpu_torch.training.cli import build_parser
-    from distributed_ml_pytorch_tpu_torch.utils.messaging import (
-        InProcessTransport,
-        MessageCode,
-    )
+    from distributed_ml_pytorch_tpu_torch.utils.messaging import InProcessTransport
 
     args = build_parser().parse_args([
         "--epochs", "1", "--synthetic-data",
         "--synthetic-train-size", str(steps * batch), "--synthetic-test-size", "512",
         "--batch-size", str(batch), "--log-interval", str(10 * steps),
         "--worker-timeout", "0", "--log-dir", os.path.join(ROOT, "build", "smoke_runs"),
-    ])
+        *argv])
     world = InProcessTransport.create_world(3)
     results, errors = {}, []
 
@@ -663,10 +690,10 @@ def phase_downpour(torch, device="cuda", steps=WORKER_STEPS, batch=64):
     t0 = time.monotonic()
     # daemon threads: a hung world fails the run below instead of keeping
     # the process alive
-    server = threading.Thread(target=guard, daemon=True,
-                              args=("server", lambda: run_server(args, world[0])))
+    server = threading.Thread(target=guard, daemon=True, args=(
+        "server", lambda: tps.run_server(args, world[0])))
     workers = [threading.Thread(target=guard, daemon=True, args=(
-        r, lambda r=r: train_worker(args, world[r], device=device))) for r in (1, 2)]
+        r, lambda r=r: tps.train_worker(args, world[r], device=device))) for r in (1, 2)]
     server.start()
     for t in workers:
         t.start()
@@ -678,20 +705,53 @@ def phase_downpour(torch, device="cuda", steps=WORKER_STEPS, batch=64):
     require(not errors, "; ".join(errors))
     require(not server.is_alive() and not any(t.is_alive() for t in workers),
             "the DownPour world did not shut down")
-    srv = results["server"]
     per_worker = {}
+    s = _steady_record(steps)
     for r in (1, 2):
         _model, logger = results[r]
         recs = logger.records
         losses = [rec["training_loss"] for rec in recs]
+        steady = (len(recs) - 1 - s) / (recs[-1]["timestamp"]
+                                        - recs[s]["timestamp"]).total_seconds()
+        per_worker[r] = {"steps": len(recs), "early_loss": sum(losses[:10]) / 10,
+                         "late_loss": sum(losses[-10:]) / 10, "steady_from_step": s + 1,
+                         "steady_steps_per_s": steady, "steady_images_per_s": steady * batch}
+    records = {r: results[r][1].records for r in (1, 2)}
+    return results["server"], per_worker, launches, wall, records
+
+
+def _steady_record(steps):
+    """The record that opens a DownPour worker's steady window, the same in
+    both dispatch modes: the last of the chunked worker's first loss read
+    (every ``LOSS_FLUSH_DISPATCHES`` dispatches) that ends at or after step
+    ``STEADY_FROM - 1``. A per-step record and the last record of each read
+    are logged just after the host read its step's loss, so the window runs
+    between two moments at which the card had finished every step before
+    them; nothing in the workers is patched or synchronised for it."""
+    from distributed_ml_pytorch_tpu_torch.parallel import async_ps as tps
+
+    k = tps.LOSS_FLUSH_DISPATCHES
+    ends = [g + n for g, n in tps.downpour_chunk_schedule(10, 10, 0, steps)[k - 1::k]]
+    s = next((e for e in ends if e >= STEADY_FROM), steps) - 1
+    require(s < steps - 1, f"no steady window in {steps} steps")
+    return s
+
+
+def phase_downpour(torch, device="cuda", steps=WORKER_STEPS, batch=64):
+    """Phase 4: the per-step DownPour world (``--chunked-dispatch off``)."""
+    from distributed_ml_pytorch_tpu_torch.utils.messaging import MessageCode
+
+    srv, per_worker, launches, wall, records = _downpour_world(
+        torch, ["--chunked-dispatch", "off"], device, steps, batch)
+    for r, recs in records.items():
+        # the per-step rate as it was read before the steady window existed
+        # (every record here is a host read): from record 5 to the last
         span = (recs[-1]["timestamp"] - recs[5]["timestamp"]).total_seconds()
         sps = (len(recs) - 6) / span
-        per_worker[r] = {"steps": len(recs), "early_loss": sum(losses[:10]) / 10,
-                         "late_loss": sum(losses[-10:]) / 10,
-                         "steps_per_s": sps, "images_per_s": sps * batch}
+        per_worker[r].update(steps_per_s=sps, images_per_s=sps * batch)
     counts = {c.name: n for c, n in srv.message_counts.items() if n}
     emit({"phase": "downpour_world", "workers": 2, "batch": batch, "wall_s": wall,
-          "per_worker": per_worker, "server_messages": counts,
+          "dispatch": "per-step", "per_worker": per_worker, "server_messages": counts,
           "central_finite": bool(__import__("numpy").isfinite(srv.central).all()),
           "launches": launches})
     total_steps = sum(w["steps"] for w in per_worker.values())
@@ -704,11 +764,13 @@ def phase_downpour(torch, device="cuda", steps=WORKER_STEPS, batch=64):
     for r, w in per_worker.items():
         require(w["late_loss"] < w["early_loss"], f"worker {r} loss did not fall: {w}")
     if torch.device(device).type == "cuda":
+        # one launch a step: valid for the per-step path only (a graph's
+        # replays pass no wrapper)
         require(launches["flat_axpy"] == total_steps,
                 f"flat_axpy launched {launches['flat_axpy']} times for {total_steps} steps")
         require(launches["relu_pool2_fwd"] > 0 and launches["relu_pool2_bwd"] > 0,
                 f"relu_pool2 kernels not launched on the main path: {launches}")
-    return launches
+    return launches, per_worker
 
 
 # ------------------------------------------------------------------ phase 5
@@ -2194,6 +2256,217 @@ def phase_trainer_family(torch):
                       "relu_pool2_bwd.bf16": n["K2b relu_pool2_bf16_bwd"]}
 
 
+# ------------------------------------------------------------------ phase 15
+
+#: (a)'s single worker: steps a pass (n_push = n_pull = 10: runs of 1 and 9)
+CHUNK_STEPS = 60
+#: (c)'s server directory (emptied first: the log is opened for appending)
+SMOKE_PS_DIR = os.path.join(ROOT, "build", "smoke_ps")
+#: (b)'s profiled run: the 9-step run between two gaps at n_push = n_pull = 10
+CHUNK_PROFILE_LEN = 9
+
+
+def _recording_worker(torch, seed=0):
+    """A DownPour worker (AlexNet fused, batch 64's lr 0.008, n_push = n_pull
+    = 10) on a transport nobody answers, its pushes recorded."""
+    from distributed_ml_pytorch_tpu_torch.models import get_model
+    from distributed_ml_pytorch_tpu_torch.parallel import async_ps as tps
+    from distributed_ml_pytorch_tpu_torch.utils.messaging import InProcessTransport, MessageCode
+
+    model = get_model("alexnet", fused_epilogue=True, seed=seed, device="cuda")
+    opt = tps.Asynchronous(model, lr=0.008, n_push=10, n_pull=10,
+                           transport=InProcessTransport.create_world(2)[1])
+    pushes = []
+
+    def record(code, payload):
+        if code == MessageCode.GradientUpdate:
+            pushes.append(payload.copy())
+
+    opt._send = record
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    return model, opt, pushes, gen
+
+
+def _worker_pass(torch, opt, model, gen, x, y, start, chunked):
+    """Steps ``[start, start + len(x))`` of one worker, chunked (``boundary``
+    and one graph dispatch a run, the losses read once at the end) or per
+    step (each loss read, as the per-step worker logs it); returns the host
+    wall ms, ended by a synchronisation."""
+    from distributed_ml_pytorch_tpu_torch.parallel import async_ps as tps
+    from distributed_ml_pytorch_tpu_torch.training.trainer import loss_and_grads, to_device
+
+    n = len(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if chunked:
+        chunk = tps._chunk_step_cache(opt, 64)
+        losses = []
+        for gap, length in tps.downpour_chunk_schedule(10, 10, start, start + n):
+            opt.boundary(gap)
+            a = gap - start
+            losses.append(chunk(opt.opt_state, x[a:a + length], y[a:a + length], gen))
+            opt.idx = gap + length
+        torch.cat(losses).cpu()
+    else:
+        for i in range(n):
+            float(loss_and_grads(model, *to_device(x[i], y[i], "cuda"), generator=gen))
+            opt.step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _chunked_vs_per_step(torch):
+    """(a) and (b): one worker chunked (graphs) and one per step (eager) from
+    the same weights on the same batches, CHUNK_STEPS steps each: pushes and
+    final parameters bit for bit, one capture; a second pass of each timed;
+    then one 9-step run of the chunked worker profiled (K1 9 times, K2a and
+    K2b 27 each, no launch lost) and the boundary's parts timed: an install
+    of the central vector and a snapshot plus push."""
+    import numpy as np
+
+    from distributed_ml_pytorch_tpu_torch.data import load_cifar10
+    from distributed_ml_pytorch_tpu_torch.parallel.async_ps import downpour_chunk_schedule
+    from distributed_ml_pytorch_tpu_torch.utils.devprof import kernel_breakdown
+    from distributed_ml_pytorch_tpu_torch.utils.serialization import ravel_model_params
+
+    x, y, *_ = load_cifar10(synthetic=True, n_train=3 * CHUNK_STEPS * 64, n_test=16)
+    x = x.reshape(3 * CHUNK_STEPS, 64, 32, 32, 3)
+    y = y.reshape(3 * CHUNK_STEPS, 64)
+    workers = {}
+    for chunked in (True, False):
+        workers[chunked] = _recording_worker(torch)
+    wall_ms = {}
+    for p, start in enumerate((0, CHUNK_STEPS)):
+        for chunked in (True, False):
+            model, opt, pushes, gen = workers[chunked]
+            ms = _worker_pass(torch, opt, model, gen, x[start:start + CHUNK_STEPS],
+                              y[start:start + CHUNK_STEPS], start, chunked)
+            opt._flusher.drain()
+            if p == 1:
+                wall_ms[chunked] = ms / CHUNK_STEPS
+        if p == 0:
+            (mc, oc, pc, _), (mp, _op, pp, _) = workers[True], workers[False]
+            require(len(pc) == len(pp) == CHUNK_STEPS // 10
+                    and all(np.array_equal(a, b) for a, b in zip(pc, pp)),
+                    "the chunked worker's pushes differ from the per-step worker's")
+            require(all(torch.equal(a, b) for a, b in zip(mc.parameters(), mp.parameters())),
+                    "the chunked worker's parameters differ from the per-step worker's")
+            captures = oc._chunk_step.graphed.captures
+            require(captures == 1, f"{captures} captures, not 1 for every run length")
+    (model, opt, _pushes, gen) = workers[True]
+    start = 2 * CHUNK_STEPS
+    require(downpour_chunk_schedule(10, 10, start, start + 10)[1] == (start + 1, 9),
+            "the schedule's second run is not 9 steps")
+    _worker_pass(torch, opt, model, gen, x[start:start + 1], y[start:start + 1], start, True)
+    chunk = opt._chunk_step
+    xs, ys = x[start + 1:start + 10], y[start + 1:start + 10]
+    opt.boundary(start + 1)
+    prof = kernel_breakdown(lambda: chunk(opt.opt_state, xs, ys, gen), ALEXNET_GROUPS, top=12)
+    require("busy_ms" in prof and prof["lost_launches"] == 0,
+            f"chunked dispatch: the profile lost kernels: {prof}")
+    n = prof["group_launches"]
+    want = {"K1 flat_axpy": CHUNK_PROFILE_LEN, "K2a relu_pool2_fwd": 3 * CHUNK_PROFILE_LEN,
+            "K2b relu_pool2_bwd": 3 * CHUNK_PROFILE_LEN}
+    require(all(n[k] == v for k, v in want.items()),
+            f"chunked dispatch: profiled launches {n} (want {want})")
+    # the boundary's parts, each ended by a synchronisation: the install of
+    # a 9.9 MB central vector; a snapshot handed to the flusher (what the
+    # training thread pays), and the same until the flusher has copied it
+    # to the host and sent it (what overlaps the next steps)
+    central = ravel_model_params(model).cpu().numpy()
+    install_ms = statistics_ms(torch, lambda: opt.install(central))
+    enqueue_ms = []
+    for _ in range(6):
+        opt._flusher.drain()
+        enqueue_ms.append(_wall_ms(torch, opt._push))
+    opt._flusher.drain()
+    enqueue_ms = sum(enqueue_ms[1:]) / 5
+    push_ms = statistics_ms(torch, lambda: (opt._push(), opt._flusher.drain()))
+    opt.finish()
+    workers[False][1].finish()
+    return {"steps": CHUNK_STEPS, "batch": 64, "bit_equal": True, "captures": 1,
+            "chunked_ms_per_step": wall_ms[True], "per_step_ms_per_step": wall_ms[False],
+            "chunked_images_per_s": 64e3 / wall_ms[True],
+            "per_step_images_per_s": 64e3 / wall_ms[False],
+            "profile_9_steps": prof, "busy_ms_per_step": prof["busy_ms"] / CHUNK_PROFILE_LEN,
+            "idle_share": prof["idle_share"], "install_ms": install_ms,
+            "snapshot_enqueue_ms": enqueue_ms, "snapshot_to_sent_ms": push_ms,
+            "boundary_training_thread_ms_per_10_steps": install_ms + enqueue_ms}
+
+
+def statistics_ms(torch, fn, reps: int = 5) -> float:
+    """Mean host wall ms of ``fn()`` over ``reps`` calls, each ended by a
+    synchronisation, after one warm-up call."""
+    fn()
+    return sum(_wall_ms(torch, fn) for _ in range(reps)) / reps
+
+
+def _chunked_world(torch, per_step_workers) -> dict:
+    """(c) and (d): the two-worker world chunked, with the server's log, its
+    checkpoint and its admission gate; then a fresh server restores the
+    directory."""
+    import shutil
+
+    import numpy as np
+
+    from distributed_ml_pytorch_tpu_torch.models import get_model
+    from distributed_ml_pytorch_tpu_torch.parallel.async_ps import ParameterServer
+    from distributed_ml_pytorch_tpu_torch.training.trainer import GRAPH_WARMUP_STEPS
+    from distributed_ml_pytorch_tpu_torch.utils.messaging import MessageCode
+
+    shutil.rmtree(SMOKE_PS_DIR, ignore_errors=True)
+    srv, per_worker, launches, wall, _records = _downpour_world(
+        torch, ["--chunked-dispatch", "on", "--ckpt-dir", SMOKE_PS_DIR, "--wal",
+                "--admission"])
+    counts = {c.name: k for c, k in srv.message_counts.items() if k}
+    require(all(w["steps"] == WORKER_STEPS for w in per_worker.values()),
+            f"chunked workers took too few steps: {per_worker}")
+    for r, w in per_worker.items():
+        require(w["late_loss"] < w["early_loss"], f"chunked worker {r} loss did not fall: {w}")
+    require(srv.message_counts[MessageCode.GradientUpdate] >= 2 * (WORKER_STEPS // 10)
+            and srv.message_counts[MessageCode.ParameterRequest] >= 2 * (WORKER_STEPS // 10),
+            f"the server counted too few pushes or pulls: {counts}")
+    require(srv.quarantined == 0, f"the admission gate quarantined {srv.quarantined} pushes")
+    # each worker's wrappers see its eager warm-up steps and the capture
+    # (the replays pass none), and K2a its epoch-end eval's one test batch
+    per_graph = GRAPH_WARMUP_STEPS + 1
+    require(launches["flat_axpy"] == 2 * per_graph
+            and launches["relu_pool2_bwd.vector"] == 2 * 3 * per_graph
+            and launches["relu_pool2_fwd.vector"] == 2 * 3 * (per_graph + 1),
+            f"chunked world wrapper counts {launches} (want {per_graph} steps and one "
+            f"eval batch a worker)")
+    fresh = ParameterServer(get_model("alexnet", seed=0, device="cpu"), ckpt_dir=SMOKE_PS_DIR,
+                            wal=True)
+    require(fresh.maybe_restore(), "nothing to restore")
+    require(np.array_equal(fresh.central, srv.central) and fresh._apply_seq == srv._apply_seq
+            and fresh.staleness.version == srv.staleness.version,
+            "the restored server differs from the chunked world's final state")
+    fresh.wal.close()
+    return {"workers": 2, "batch": 64, "wall_s": wall, "dispatch": "chunked",
+            "per_worker": per_worker, "per_step_per_worker": per_step_workers,
+            "server_messages": counts, "apply_seq": srv._apply_seq,
+            "quarantined": srv.quarantined, "wal_records_replayed": fresh.replayed_updates,
+            "restored_bit_equal": True, "wrapper_counts": {
+                k: v for k, v in launches.items() if v}}
+
+
+def phase_chunked_worker(torch, per_step_workers):
+    """Phase 15: the chunked DownPour worker, under deterministic cuDNN in
+    full float32."""
+    from distributed_ml_pytorch_tpu_torch.device import full_float32
+
+    full_float32()
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        emit({"phase": "chunked_worker_vs_per_step", "ok": True,
+              **_chunked_vs_per_step(torch)})
+        emit({"phase": "chunked_worker_world", "ok": True,
+              **_chunked_world(torch, per_step_workers)})
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
 # ------------------------------------------------------------------ main
 
 K4_SRC = "distributed_ml_pytorch_tpu_torch/csrc/flash_fwd_tc.cu"
@@ -2246,7 +2519,7 @@ def main() -> int:
         measured = phase_kernels(torch)
         phase_trainer(torch)
         phase_trainer(torch, steps=2, batch=1024)
-        launches = phase_downpour(torch)
+        launches, per_step_workers = phase_downpour(torch)
         measured.update(phase_attention(torch))
         lm_launches, split_launches = phase_lm(torch)
         # K4/K5 from the LM run; K6a/K6b from the split step, the model path
@@ -2266,6 +2539,7 @@ def main() -> int:
         bf16_measured, bf16_launches = phase_trainer_family(torch)
         measured.update(bf16_measured)
         launches.update(bf16_launches)
+        phase_chunked_worker(torch, per_step_workers)
         smi = nvidia_smi_line()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

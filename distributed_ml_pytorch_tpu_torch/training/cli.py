@@ -10,10 +10,15 @@ trainer's surface: ``--dtype``, ``--optimizer``, ``--weight-decay``,
 ``--grad-clip``, ``--lr-schedule``, ``--grad-accum``, ``--steps-per-dispatch``
 (K steps a dispatch, a CUDA graph on the card), ``--prefetch``,
 ``--ckpt-dir``/``--ckpt-every``/``--ckpt-keep``/``--resume`` and
-``--download``; the DownPour worker takes the optimizer flags. Flags of the
-JAX CLI that this package does not implement are absent, so argparse
-rejects them instead of ignoring them; ``--mode ps`` refuses the
-checkpoint flags and ``--steps-per-dispatch`` > 1 (not ported there yet).
+``--download``. In ``--mode ps`` the worker takes the optimizer flags,
+``--chunked-dispatch`` and ``--steps-per-dispatch`` (runs of local steps
+between communication gaps as one dispatch, a CUDA graph on the card) and
+``--rejoin``; the server takes ``--ckpt-dir``/``--ckpt-every``/``--resume``,
+``--wal``, ``--admission``/``--admission-z``/``--admission-warmup`` and
+``--staleness-damping``. Flags of the JAX CLI that this package does not
+implement (the reliable transport, compression, Adasum, the server-side
+optimizer, sharded servers, the coordinator, profiling) are absent, so
+argparse rejects them instead of ignoring them.
 
     python -m distributed_ml_pytorch_tpu_torch.training.cli --no-distributed \
         --epochs 1 --synthetic-data
@@ -75,13 +80,34 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log-dir", type=str, default="runs",
                    help="CSV telemetry directory")
     p.add_argument("--ckpt-dir", type=str, default="",
-                   help="checkpoint directory (empty = checkpointing off; --no-distributed)")
+                   help="checkpoint directory (empty = checkpointing off)")
     p.add_argument("--ckpt-every", type=int, default=500, metavar="N",
-                   help="save a checkpoint every N global steps")
+                   help="save a checkpoint every N global steps (--mode ps: every N "
+                        "gradient pushes, summed across workers)")
     p.add_argument("--ckpt-keep", type=int, default=3, metavar="N",
-                   help="retain the newest N checkpoints")
+                   help="retain the newest N checkpoints (ignored by --mode ps, which "
+                        "keeps one atomically-replaced file)")
     p.add_argument("--resume", action="store_true", default=False,
                    help="resume from the latest checkpoint in --ckpt-dir")
+    p.add_argument("--wal", action="store_true", default=False,
+                   help="PS server: write-ahead-log every applied update before it "
+                        "mutates the central params (requires --ckpt-dir); recovery = "
+                        "restore the checkpoint + replay the log")
+    p.add_argument("--admission", action="store_true", default=False,
+                   help="PS server: numerical admission gate — every GradientUpdate "
+                        "passes finiteness + per-worker EWMA norm-outlier checks before "
+                        "accounting/WAL; rejects are quarantined and explicitly nacked "
+                        "(UpdateNack), the worker resyncs by pulling fresh params")
+    p.add_argument("--admission-z", type=float, default=6.0, metavar="Z",
+                   help="admission gate: reject a push whose log-norm z-score vs the "
+                        "sender's own history exceeds Z")
+    p.add_argument("--admission-warmup", type=int, default=8, metavar="N",
+                   help="admission gate: per-sender pushes admitted before the z-score "
+                        "check activates (finiteness is checked from the first push)")
+    p.add_argument("--rejoin", action="store_true", default=False,
+                   help="PS-mode worker restart: reconnect to a running server and ADOPT "
+                        "its central params instead of installing this process's fresh "
+                        "init")
     p.add_argument("--prefetch", type=int, default=2, metavar="N",
                    help="keep N batches' host->device copies in flight ahead of compute "
                         "(per-step path; 0 disables)")
@@ -104,23 +130,29 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps-per-dispatch", type=int, default=1, metavar="K",
                    help="train up to K consecutive steps a dispatch (a CUDA graph of one "
                         "step replayed K times on the card); per-step CSV rows and the "
-                        "eval cadence are kept (--no-distributed)")
+                        "eval cadence are kept. In --mode ps, K caps the fused "
+                        "between-comm runs (default auto = 64) and K > 1 forces chunked "
+                        "dispatch on")
+    p.add_argument("--chunked-dispatch", choices=("auto", "on", "off"), default="auto",
+                   help="(--mode ps workers) run each between-comm run of local SGD as "
+                        "one dispatch (a CUDA graph of one step replayed) with exact "
+                        "push/pull cadence semantics; 'auto' enables it on the card, "
+                        "where per-step dispatch leaves the card mostly idle")
     p.add_argument("--heartbeat-interval", type=float, default=1.0, metavar="SEC",
                    help="PS-mode worker liveness heartbeat cadence; 0 disables")
     p.add_argument("--worker-timeout", type=float, default=30.0, metavar="SEC",
                    help="PS-mode server declares a worker failed after this long "
                         "without a frame; 0 disables")
+    p.add_argument("--staleness-damping", type=float, default=0.0, metavar="D",
+                   help="PS-mode server scales each gradient push by 1/(1 + D*staleness), "
+                        "where staleness counts central versions since that worker's "
+                        "last pull; 0 = reference behavior (apply raw)")
     return p
 
 
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if not args.no_distributed:
-        for flag, given in (("--ckpt-dir", args.ckpt_dir), ("--resume", args.resume),
-                            ("--steps-per-dispatch > 1", args.steps_per_dispatch > 1)):
-            if given:
-                parser.error(f"{flag} with --mode ps: not ported yet")
     print(args)
     if args.no_distributed:
         from distributed_ml_pytorch_tpu_torch.training.trainer import train_single

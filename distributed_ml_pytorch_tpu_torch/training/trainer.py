@@ -35,6 +35,7 @@ otherwise run float32 convolutions in TF32, unlike the JAX reference.
 from __future__ import annotations
 
 import sys
+import threading
 import time
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -65,6 +66,8 @@ from distributed_ml_pytorch_tpu_torch.utils.tracing import StepTimer
 #: eager steps run on a side stream before a graph is captured (PyTorch's
 #: whole-network capture recipe); they are real training steps
 GRAPH_WARMUP_STEPS = 2
+#: one CUDA-graph capture at a time in the process (see GraphedSteps._capture)
+_CAPTURE_LOCK = threading.Lock()
 
 
 @dataclass
@@ -352,7 +355,14 @@ class GraphedSteps:
         graph = torch.cuda.CUDAGraph()
         if generator is not None:
             graph.register_generator_state(generator)
-        with torch.cuda.graph(graph, pool=self._pool):
+        # Other threads of the process may use the card meanwhile (two
+        # DownPour workers as threads, a push flusher's copy): in the
+        # default "global" mode an unsafe call by any of them during the
+        # capture (an allocation, a synchronisation) fails and invalidates
+        # it. "thread_local" forbids unsafe calls to the capturing thread
+        # alone, and the lock keeps two captures from overlapping.
+        with _CAPTURE_LOCK, torch.cuda.graph(graph, pool=self._pool,
+                                             capture_error_mode="thread_local"):
             self._one(body, generator)
         self.graph = graph
         self.captures += 1
@@ -384,28 +394,40 @@ class GraphedSteps:
         return self._losses[:n].clone()
 
 
+def dispatch_steps(device, capacity: int = 0) -> Callable:
+    """``dispatch(body, images [K, ...], labels [K, ...], generator=None,
+    owner=None) -> losses [K]``: K calls of ``body(x, y, generator) ->
+    loss``, one per batch. On the card a graph of one step replayed
+    (:class:`GraphedSteps`, buffers for ``capacity`` steps or the longest
+    dispatch seen, ``owner`` the state the step writes; ``dispatch.graphed``),
+    on the CPU a loop."""
+    device = torch.device(device)
+    graphed = GraphedSteps(capacity)
+
+    def dispatch(body, images, labels, generator=None, owner=None) -> torch.Tensor:
+        x, y = _as_tensors(images, labels)
+        if device.type == "cuda":
+            return graphed.run(body, x, y, generator, owner=owner, device=device)
+        x, y = x.to(device), y.to(device)
+        return torch.stack([body(x[i], y[i], generator).float() for i in range(x.shape[0])])
+
+    dispatch.graphed = graphed
+    return dispatch
+
+
 def _make_k_step(model: nn.Module, body_of: Callable, steps_per_dispatch: int) -> Callable:
     """``scan(state, images [K, ...], labels [K, ...], generator=None) ->
     (state, losses [K])`` over ``body_of(state) -> body(x, y, generator) ->
-    loss``: a graph on the card (buffers for ``steps_per_dispatch`` steps
-    or the longest dispatch seen), a loop on the CPU."""
-    params = list(model.parameters())
-    dev = params[0].device
-    graphed = GraphedSteps(steps_per_dispatch)
+    loss`` (:func:`dispatch_steps`)."""
+    dispatch = dispatch_steps(next(model.parameters()).device, steps_per_dispatch)
 
     def scan_step(state: TrainState, images, labels, generator=None):
-        x, y = _as_tensors(images, labels)
         gen = state.generator if generator is None else generator
-        body = body_of(state)
-        if dev.type == "cuda":
-            losses = graphed.run(body, x, y, gen, owner=state.opt_state, device=dev)
-        else:
-            x, y = x.to(dev), y.to(dev)
-            losses = torch.stack([body(x[i], y[i], gen).float() for i in range(x.shape[0])])
-        state.step += x.shape[0]
+        losses = dispatch(body_of(state), images, labels, gen, owner=state.opt_state)
+        state.step += losses.shape[0]
         return state, losses
 
-    scan_step.graphed = graphed
+    scan_step.graphed = dispatch.graphed
     return scan_step
 
 

@@ -40,8 +40,9 @@ SERVER_RANK = 0  # reference convention: rank 0 is the parameter server
 
 class MessageCode(enum.IntEnum):
     """Message tags, value for value the JAX package's. This package speaks
-    codes 0-4 (the DownPour path); the rest are defined so that frames from
-    the JAX package's other planes decode to their names."""
+    codes 0-4 (the DownPour path) and 27 (``UpdateNack``, the admission
+    gate's reject); the rest are defined so that frames from the JAX
+    package's other planes decode to their names."""
 
     ParameterUpdate = 0
     ParameterRequest = 1
@@ -310,6 +311,21 @@ def get_default_transport() -> Transport:
     if _default_transport is None:
         raise RuntimeError("no default transport installed — call set_default_transport()")
     return _default_transport
+
+
+_INC_LOCK = threading.Lock()
+_LAST_INC = 0
+
+
+def _next_incarnation() -> int:
+    """A stamp for one life of a server: epoch seconds in 32 bits (they wrap
+    in 2106; milliseconds would wrap every 50 days and make a restart after
+    the wrap read as an older life), strictly increasing within the process,
+    so two lives begun in the same second still differ."""
+    global _LAST_INC
+    with _INC_LOCK:
+        _LAST_INC = max(_LAST_INC + 1, int(time.time()) & 0xFFFFFFFF)
+        return _LAST_INC
 
 
 def _host_f32(payload) -> np.ndarray:

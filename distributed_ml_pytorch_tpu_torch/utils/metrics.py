@@ -1,7 +1,8 @@
 """Per-iteration training records and per-rank CSV dumps, and the serving
 SLO percentiles (counterpart of the JAX ``utils/metrics.py``
 ``MetricsLogger`` / ``print_eval_line`` / ``percentile`` /
-``latency_summary``).
+``latency_summary``), and the admission gate's running statistics
+(:class:`EwmaMeanVar`, as the JAX module's).
 
 The CSV schema is the reference's (``example/main.py:76-105``):
 ``index, timestamp, iteration, training_loss`` on every row, plus
@@ -13,6 +14,7 @@ pandas' ``DataFrame.to_csv(index_label="index")`` gives the JAX package.
 from __future__ import annotations
 
 import csv
+import math
 import os
 from datetime import datetime
 from typing import Dict, List, Optional
@@ -84,3 +86,37 @@ def print_eval_line(rec: Dict) -> None:
         "Test Loss: {test_loss:6.4f} | "
         "Test Accuracy: {test_accuracy:6.4f}".format(**rec)
     )
+
+
+class EwmaMeanVar:
+    """EWMA mean and variance, an admitted sample optionally winsorized at
+    ``winsor`` before it moves the mean (the admission gate's statistics,
+    ``utils/health.py``): a ramp of samples each just under the gate's
+    threshold must not walk the mean up with it. The caller folds in only
+    the samples it admits."""
+
+    __slots__ = ("mean", "var", "count")
+
+    #: the weight of a new sample (the JAX gate's default)
+    alpha = 0.2
+
+    def __init__(self):
+        self.mean = 0.0
+        self.var = 0.0
+        self.count = 0
+
+    def sigma(self, floor: float = 0.0) -> float:
+        return max(math.sqrt(max(self.var, 0.0)), float(floor))
+
+    def update(self, x: float, winsor: Optional[float] = None) -> None:
+        x = float(x)
+        if self.count == 0:
+            self.mean = x
+            self.var = 0.0
+        else:
+            d = x - self.mean
+            if winsor is not None:
+                d = max(-winsor, min(winsor, d))
+            self.mean += self.alpha * d
+            self.var = (1.0 - self.alpha) * (self.var + self.alpha * d * d)
+        self.count += 1

@@ -70,7 +70,7 @@ def test_launch_three_process_tcp_world(tmp_path):
             "index", "timestamp", "iteration", "training_loss"]
 
 
-@pytest.mark.parametrize("flag", [["--wal"], ["--compress", "int8"], ["--mode", "sync"],
+@pytest.mark.parametrize("flag", [["--reliable"], ["--compress", "int8"], ["--mode", "sync"],
                                   ["--dtype", "float16"], ["--backend", "tpu"],
                                   ["--n-servers", "2"], ["--profile-dir", "prof"]])
 def test_unimplemented_flags_are_rejected(flag):
@@ -101,10 +101,41 @@ def test_trainer_flags_take_the_jax_names_defaults_and_choices():
 
 @pytest.mark.parametrize("flag", [["--ckpt-dir", "ck"], ["--resume"],
                                   ["--steps-per-dispatch", "4"]])
-def test_ps_mode_refuses_the_single_process_flags(flag, capsys):
-    with pytest.raises(SystemExit):
-        cli.main(["--rank", "1", *flag])
-    assert "not ported yet" in capsys.readouterr().err
+def test_ps_mode_refuses_the_single_process_flags(flag, capsys, monkeypatch):
+    """The checkpoint flags and ``--steps-per-dispatch`` were refused with
+    ``--mode ps`` until the server's durability plane and the chunked worker
+    were ported: now ``main`` hands them to ``run_ps_process`` unrefused."""
+    from distributed_ml_pytorch_tpu_torch.parallel import async_ps
+
+    seen = []
+    monkeypatch.setattr(async_ps, "run_ps_process", lambda args: seen.append(args) or 0)
+    assert cli.main(["--rank", "1", *flag]) == 0
+    assert "not ported yet" not in capsys.readouterr().err
+    (args,) = seen
+    assert (args.ckpt_dir, args.resume, args.steps_per_dispatch) == (
+        "ck" if "--ckpt-dir" in flag else "", "--resume" in flag,
+        4 if "--steps-per-dispatch" in flag else 1)
+
+
+PS_FLAGS = ["wal", "admission", "admission_z", "admission_warmup", "rejoin",
+            "staleness_damping", "chunked_dispatch", "ckpt_every"]
+
+
+def test_ps_flags_take_the_jax_names_defaults_and_choices():
+    from distributed_ml_pytorch_tpu.training import cli as jcli
+
+    mine, ref = _actions(cli.build_parser()), _actions(jcli.build_parser())
+    for dest in PS_FLAGS:
+        assert mine[dest].option_strings == ref[dest].option_strings, dest
+        assert mine[dest].default == ref[dest].default, dest
+        assert (mine[dest].choices and tuple(mine[dest].choices)) == (
+            ref[dest].choices and tuple(ref[dest].choices)), dest
+        assert mine[dest].type == ref[dest].type, dest
+    for flag in (["--transport", "python"], ["--combine", "adasum"], ["--coord", "h:1"],
+                 ["--server-opt", "adam"], ["--metrics-dump", "-"], ["--sync-every", "2"],
+                 ["--compress-topk", "0.1"], ["--profile-steps", "3"]):
+        with pytest.raises(SystemExit):
+            cli.build_parser().parse_args(flag)
 
 
 def test_no_distributed_bf16_chunked_accumulating_run(tmp_path):

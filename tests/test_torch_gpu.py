@@ -1253,3 +1253,118 @@ def test_per_step_training_with_prefetch_equals_without(cuda, tmp_path):
         flats.append((_flat_params(state.model).cpu(),
                       [r["training_loss"] for r in logger.records]))
     assert torch.equal(flats[0][0], flats[1][0]) and flats[0][1] == flats[1][1]
+
+
+def _downpour_worker(cuda, seed=3):
+    """A DownPour worker (AlexNet fused) against a world nobody serves, its
+    sends recorded by kind."""
+    from distributed_ml_pytorch_tpu_torch.models import get_model
+    from distributed_ml_pytorch_tpu_torch.parallel import async_ps as tps
+    from distributed_ml_pytorch_tpu_torch.utils.messaging import InProcessTransport
+
+    model = get_model("alexnet", fused_epilogue=True, seed=seed, device=cuda)
+    opt = tps.Asynchronous(model, lr=0.008, n_push=10, n_pull=10,
+                           transport=InProcessTransport.create_world(2)[1])
+    pushes = []
+    opt._send = lambda code, payload: (int(code) == 2 and pushes.append(
+        np.array(payload, np.float32)))
+    return model, opt, pushes
+
+
+def _drive(opt, model, x, y, chunked, gen=None):
+    from distributed_ml_pytorch_tpu_torch.parallel import async_ps as tps
+    from distributed_ml_pytorch_tpu_torch.training.trainer import loss_and_grads
+
+    n = len(x)
+    if chunked:
+        chunk = tps._chunk_step_cache(opt, 64)
+        for gap, length in tps.downpour_chunk_schedule(opt.n_push, opt.n_pull, 0, n):
+            opt.boundary(gap)
+            chunk(opt.opt_state, x[gap:gap + length], y[gap:gap + length], gen)
+            opt.idx = gap + length
+    else:
+        dev = next(model.parameters()).device
+        for i in range(n):
+            loss_and_grads(model, torch.from_numpy(x[i]).to(dev),
+                           torch.from_numpy(y[i]).to(dev), generator=gen)
+            opt.step()
+    opt.finish()
+    return _flat_params(model).cpu()
+
+
+@pytest.mark.gpu
+def test_chunked_downpour_worker_equals_per_step_on_the_card(cuda):
+    """30 DownPour steps (n_push = n_pull = 10: runs of 1 and 9 steps) as
+    chunks, one captured step replayed, against 30 eager per-step steps from
+    the same weights: every push and the final parameters bit for bit, and
+    one capture for both run lengths."""
+    _deterministic()
+    x, y = _k_batches(30, 16, seed=4)
+    runs = []
+    for chunked in (True, False):
+        model, opt, pushes = _downpour_worker(cuda)
+        runs.append((_drive(opt, model, x, y, chunked), pushes, opt))
+    (pa, sa, chunked_opt), (pb, sb, _) = runs
+    assert chunked_opt._chunk_step.graphed.captures == 1
+    assert torch.equal(pa, pb) and len(sa) == len(sb) == 4
+    for a, b in zip(sa, sb):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_two_workers_capture_and_replay_in_threads(cuda):
+    """Two chunked workers as threads of one process, each capturing its
+    step while the other trains (the capture is thread-local and one at a
+    time): both finish, and each equals the same worker run alone, eagerly,
+    bit for bit."""
+    import threading
+
+    _deterministic()
+    data = {r: _k_batches(40, 16, seed=r) for r in (1, 2)}
+    alone = {}
+    for r in (1, 2):
+        model, opt, pushes = _downpour_worker(cuda, seed=r)
+        alone[r] = (_drive(opt, model, *data[r], chunked=False), pushes)
+    together, errors = {}, []
+
+    def run(r):
+        try:
+            model, opt, pushes = _downpour_worker(cuda, seed=r)
+            together[r] = (_drive(opt, model, *data[r], chunked=True), pushes,
+                           opt._chunk_step.graphed.captures)
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in (1, 2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not errors and not any(t.is_alive() for t in threads), errors
+    for r in (1, 2):
+        params, pushes, captures = together[r]
+        assert captures == 1 and torch.equal(params, alone[r][0])
+        for a, b in zip(pushes, alone[r][1]):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_a_failed_capture_raises_and_nothing_falls_back(cuda, monkeypatch):
+    """A capture that fails raises out of the chunk step (and so out of
+    ``train_worker``), after the two eager warm-up steps: the graph is not
+    replaced by eager steps."""
+    from distributed_ml_pytorch_tpu_torch.training import trainer as ttr
+
+    _deterministic()
+    x, y = _k_batches(10, 16, seed=5)
+
+    def refuse(self, *a, **k):
+        raise RuntimeError("capture refused")
+
+    monkeypatch.setattr(ttr.GraphedSteps, "_capture", refuse)
+    model, opt, pushes = _downpour_worker(cuda)
+    with pytest.raises(RuntimeError, match="capture refused"):
+        _drive(opt, model, x, y, chunked=True)
+    assert opt._chunk_step.graphed.captures == 0 and opt._chunk_step.graphed.graph is None
+    opt._flusher.stop()
+    opt.listener.stop()
