@@ -163,7 +163,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
    pulls, nothing is quarantined, the wrappers count each worker's two
    warm-up steps and its capture; steady steps/s beside phase 4's; (d) a
    fresh server restores ``build/smoke_ps`` to (c)'s final central vector,
-   ``apply_seq`` and version, bit for bit.
+   ``apply_seq`` and version, bit for bit;
+16. the DownPour world as processes on the card, under deterministic cuDNN
+   in full float32: (a) one server process and two worker processes over
+   TCP on a free port, each started from a short inline script that calls
+   ``run_ps_process`` (the CLI's entry) and prints one JSON line, with
+   phase 15 (c)'s recipe (AlexNet fused, batch 64, lr 0.008, n_push =
+   n_pull = 10, 80 steps a worker on synthetic data, ``--chunked-dispatch
+   on``) and every plane on: ``--transport native --reliable --wal
+   --admission --ckpt-dir build/smoke_ps_mp``. Each worker's loss falls;
+   the server's applied pushes equal the workers' pushes sent and acked;
+   nothing given up, dropped on the checksum or quarantined; each worker's
+   wrappers count its two warm-up steps and one capture (K1 and K2 run in
+   its graph); the native library loaded. Each worker's steady steps/s
+   over phase 15 (c)'s window beside 15 (c)'s, and its retries, duplicates
+   dropped and window-blocked count and seconds, and every rank's final
+   timeout per peer; (b) the same world on the plain wire (``--transport
+   python``, no ``--reliable``), the same checks without the acks; (e)
+   ``--transport native`` without ``--reliable`` and (f) ``--transport
+   python --reliable``, each with its world's checks, so that the four part
+   the transport's share of the rate from the reliable layer's (they run
+   after (b), before (c)); (c) a fresh server restores ``build/smoke_ps_mp`` to
+   (a)'s final central vector, ``apply_seq`` and version bit for bit and
+   seeds its transport's dedup from the envelopes of (a)'s applies; (d)
+   ``bench_all --legs ps`` (config 3: one server and four worker
+   processes, then a server and a chunked worker process against single
+   mode), its lines printed.
 
 Then the ``kernels`` line, the ``nvidia-smi`` name/power line, and last the
 result line ``{"ok": true, "device": {...}}``. Without a card, or without
@@ -2452,7 +2477,7 @@ def _chunked_world(torch, per_step_workers) -> dict:
 
 def phase_chunked_worker(torch, per_step_workers):
     """Phase 15: the chunked DownPour worker, under deterministic cuDNN in
-    full float32."""
+    full float32; returns (c)'s per-worker rates."""
     from distributed_ml_pytorch_tpu_torch.device import full_float32
 
     full_float32()
@@ -2461,10 +2486,272 @@ def phase_chunked_worker(torch, per_step_workers):
     try:
         emit({"phase": "chunked_worker_vs_per_step", "ok": True,
               **_chunked_vs_per_step(torch)})
-        emit({"phase": "chunked_worker_world", "ok": True,
-              **_chunked_world(torch, per_step_workers)})
+        world = _chunked_world(torch, per_step_workers)
+        emit({"phase": "chunked_worker_world", "ok": True, **world})
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    return world["per_worker"]
+
+
+# ------------------------------------------------------------------ phase 16
+
+#: (a)'s server directory (emptied first: the log is opened for appending);
+#: the other worlds' beside it
+SMOKE_PS_MP_DIR = os.path.join(ROOT, "build", "smoke_ps_mp")
+#: phase 16's worlds, in the order they run: (letter, phase name, wire
+#: flags, reliable, the transport under the reliable layer). (a) and (b)
+#: differ in two things at once; (e) and (f) take one of them each, so the
+#: four together part the native transport's share from the reliable
+#: layer's
+PS_WORLDS = [
+    ("a", "ps_processes_reliable_native", ["--transport", "native", "--reliable"], True,
+     "NativeTCPTransport"),
+    ("b", "ps_processes_plain_python", ["--transport", "python"], False, "TCPTransport"),
+    ("e", "ps_processes_plain_native", ["--transport", "native"], False,
+     "NativeTCPTransport"),
+    ("f", "ps_processes_reliable_python", ["--transport", "python", "--reliable"], True,
+     "TCPTransport"),
+]
+#: seconds a phase-16 process may take
+PS_PROCESS_TIMEOUT_S = 300
+
+#: one rank of the PS world: ``python -c _PS_RANK_SRC <json argv> <central
+#: path>``. Calls the CLI's entry ``run_ps_process`` with every kernel count
+#: zeroed just before, wrapping (never replacing) the functions it calls to
+#: see the transport, the server, the worker's log and its chunk step, and
+#: prints one JSON line last.
+_PS_RANK_SRC = r"""
+import json, sys
+import numpy as np
+import torch
+from distributed_ml_pytorch_tpu_torch.ops import fused_conv as fc
+from distributed_ml_pytorch_tpu_torch.ops import fused_update as fu
+from distributed_ml_pytorch_tpu_torch.parallel import async_ps as tps
+from distributed_ml_pytorch_tpu_torch.training.cli import build_parser
+from distributed_ml_pytorch_tpu_torch.utils import messaging as msg
+from distributed_ml_pytorch_tpu_torch.utils.messaging import MessageCode
+
+args = build_parser().parse_args(json.loads(sys.argv[1]))
+torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+seen = {"pushes": 0}
+
+def wrap(mod, name, after):
+    real = getattr(mod, name)
+    def wrapped(*a, **k):
+        out = real(*a, **k)
+        after(out)
+        return out
+    setattr(mod, name, wrapped)
+
+wrap(msg, "make_transport", lambda t: seen.setdefault("transport", t))
+wrap(tps, "run_server", lambda srv: seen.setdefault("server", srv))
+wrap(tps, "train_worker", lambda out: seen.setdefault("logger", out[1]))
+wrap(tps, "_chunk_step_cache", lambda step: seen.setdefault("chunk", step))
+real_send = tps.Asynchronous._send
+
+def counting_send(self, code, payload):
+    if code == MessageCode.GradientUpdate:
+        seen["pushes"] += 1
+    return real_send(self, code, payload)
+
+tps.Asynchronous._send = counting_send
+fu.launches = 0
+for k in fc.launches:
+    fc.launches[k] = 0
+rc = tps.run_ps_process(args)
+t = seen["transport"]
+inner = getattr(t, "inner", t)
+line = {"rank": args.rank, "rc": rc, "transport": type(t).__name__,
+        "inner": type(inner).__name__, "stats": getattr(t, "stats", None),
+        # the reliable layer's timeout state per peer at the end of the run
+        "peers": {str(d): {"srtt": st.srtt, "rto": st.rto}
+                  for d, st in (t._peers.items() if t is not inner else ())}}
+if "server" in seen:
+    srv = seen["server"]
+    np.save(sys.argv[2], srv.central)
+    line.update(message_counts={c.name: n for c, n in srv.message_counts.items() if n},
+                apply_seq=srv._apply_seq, version=srv.staleness.version,
+                quarantined=srv.quarantined,
+                applied_by_sender={str(k): v for k, v in srv.applied_by_sender.items()},
+                recent_envelopes=len(srv._recent_envelopes))
+else:
+    recs = seen["logger"].records
+    line.update(launches={"flat_axpy": fu.launches, **fc.launches},
+                captures=seen["chunk"].graphed.captures, pushes_sent=seen["pushes"],
+                acked_pushes=(t.acked_count(0, MessageCode.GradientUpdate)
+                              if hasattr(t, "acked_count") else None),
+                t=[r["timestamp"].timestamp() for r in recs],
+                loss=[r["training_loss"] for r in recs])
+print("PS_RANK " + json.dumps(line), flush=True)
+"""
+
+
+def _ps_processes(wire, ckpt_dir, backend="cuda", model="alexnet", steps=WORKER_STEPS,
+                  batch=64):
+    """One server and two worker processes over TCP on a free port, every
+    process from :data:`_PS_RANK_SRC` with phase 15 (c)'s recipe plus
+    ``--wal --admission --ckpt-dir ckpt_dir`` and ``wire``. Returns ``({rank:
+    line}, wall_s)``; a process that exits non-zero, or prints no line,
+    fails the phase (the others are killed)."""
+    import shutil
+    import socket
+
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    with socket.socket() as s:
+        s.bind(("", 0))
+        port = str(s.getsockname()[1])
+    common = ["--mode", "ps", "--world-size", "3", "--port", port, "--backend", backend,
+              "--model", model, "--epochs", "1", "--synthetic-data",
+              "--synthetic-train-size", str(steps * batch), "--synthetic-test-size", "512",
+              "--batch-size", str(batch), "--lr", "0.008", "--num-push", "10",
+              "--num-pull", "10", "--log-interval", str(10 * steps), "--worker-timeout", "0",
+              "--log-dir", ckpt_dir + "_runs", "--chunked-dispatch", "on", "--wal",
+              "--admission", "--ckpt-dir", ckpt_dir, *wire]
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.monotonic()
+    procs = {}
+    for rank in (0, 1, 2):
+        argv = common + ["--rank", str(rank)] + (["--server"] if rank == 0 else [])
+        procs[rank] = subprocess.Popen(
+            [sys.executable, "-c", _PS_RANK_SRC, json.dumps(argv), ckpt_dir + ".central.npy"],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    lines, failed = {}, []
+    try:
+        for rank, p in procs.items():
+            try:
+                out, err = p.communicate(timeout=PS_PROCESS_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                failed.append(f"rank {rank} did not finish in {PS_PROCESS_TIMEOUT_S} s")
+                break
+            found = [ln for ln in out.splitlines() if ln.startswith("PS_RANK ")]
+            if p.returncode != 0 or not found:
+                failed.append(f"rank {rank} exited {p.returncode}: {err[-3000:]}")
+                break
+            lines[rank] = json.loads(found[-1][len("PS_RANK "):])
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    require(not failed, "; ".join(failed))
+    return lines, time.monotonic() - t0
+
+
+def _ps_world_checks(lines, reliable, steps=WORKER_STEPS, backend="cuda"):
+    """(a)'s and (b)'s checks; returns the per-worker summary."""
+    from distributed_ml_pytorch_tpu_torch.training.trainer import GRAPH_WARMUP_STEPS
+
+    srv = lines[0]
+    workers = {r: lines[r] for r in (1, 2)}
+    applied = srv["message_counts"].get("GradientUpdate", 0)
+    sent = sum(w["pushes_sent"] for w in workers.values())
+    require(srv["quarantined"] == 0, f"{srv['quarantined']} pushes quarantined")
+    require(applied == srv["apply_seq"] == sent,
+            f"applied {applied}, apply_seq {srv['apply_seq']}, sent {sent}")
+    require(all(ln["rc"] == 0 for ln in lines.values()), "a rank returned non-zero")
+    s = _steady_record(steps)
+    per_worker = {}
+    per_graph = GRAPH_WARMUP_STEPS + 1
+    for r, w in workers.items():
+        loss, t = w["loss"], w["t"]
+        require(len(loss) == steps, f"worker {r} logged {len(loss)} of {steps} steps")
+        early, late = sum(loss[:10]) / 10, sum(loss[-10:]) / 10
+        require(late < early, f"worker {r} loss did not fall: {early} -> {late}")
+        if backend == "cuda":
+            require(w["captures"] == 1, f"worker {r} captured {w['captures']} graphs, not 1")
+            n = w["launches"]
+            require(n["flat_axpy"] == per_graph
+                    and n["relu_pool2_bwd.vector"] == 3 * per_graph
+                    and n["relu_pool2_fwd.vector"] == 3 * (per_graph + 1),
+                    f"worker {r} wrapper counts {n} (want {per_graph} steps and one eval "
+                    f"batch)")
+        steady = (len(t) - 1 - s) / (t[-1] - t[s])
+        per_worker[r] = {"steps": len(loss), "early_loss": early, "late_loss": late,
+                         "steady_from_step": s + 1, "steady_steps_per_s": steady,
+                         "steady_images_per_s": steady * 64, "pushes_sent": w["pushes_sent"],
+                         "captures": w["captures"],
+                         "wrapper_counts": {k: v for k, v in w["launches"].items() if v}}
+        if reliable:
+            st = w["stats"]
+            per_worker[r].update(acked_pushes=w["acked_pushes"], **{
+                k: st[k] for k in ("sent", "retries", "dup_dropped", "crc_dropped",
+                                   "gave_up", "window_blocked", "window_blocked_s")})
+    if reliable:
+        acked = sum(w["acked_pushes"] for w in workers.values())
+        require(acked == applied, f"acked pushes {acked} != applied {applied}")
+        for r, ln in lines.items():
+            require(ln["stats"]["gave_up"] == 0 and ln["stats"]["crc_dropped"] == 0,
+                    f"rank {r} reliable stats {ln['stats']}")
+            require(ln["transport"] == "ReliableTransport", f"rank {r}: {ln['transport']}")
+    return per_worker
+
+
+def _ps_world_line(lines, reliable, wall, in_process, steps=WORKER_STEPS, backend="cuda"):
+    per_worker = _ps_world_checks(lines, reliable, steps, backend)
+    srv = lines[0]
+    return {"workers": 2, "batch": 64, "wall_s": wall, "processes": 3,
+            "transport": {r: [ln["transport"], ln["inner"]] for r, ln in lines.items()},
+            "per_worker": per_worker, "in_process_per_worker_15c": in_process,
+            "server_messages": srv["message_counts"], "apply_seq": srv["apply_seq"],
+            "quarantined": srv["quarantined"], "server_stats": srv["stats"],
+            "peer_timeouts": {r: ln["peers"] for r, ln in lines.items() if ln["peers"]}}
+
+
+def phase_ps_processes(torch, in_process, backend="cuda", model="alexnet",
+                       steps=WORKER_STEPS, bench=True):
+    """Phase 16: the DownPour world as processes, (a)-(f)."""
+    import numpy as np
+
+    from distributed_ml_pytorch_tpu_torch.models import get_model
+    from distributed_ml_pytorch_tpu_torch.parallel.async_ps import ParameterServer
+    from distributed_ml_pytorch_tpu_torch.utils.messaging import (
+        InProcessTransport,
+        ReliableTransport,
+    )
+
+    srv = None
+    for letter, name, wire, reliable, inner in PS_WORLDS:
+        ckpt_dir = SMOKE_PS_MP_DIR if letter == "a" else f"{SMOKE_PS_MP_DIR}_{letter}"
+        lines, wall = _ps_processes(wire, ckpt_dir, backend, model, steps)
+        for r, ln in lines.items():
+            require(ln["inner"] == inner, f"({letter}) rank {r} runs {ln['inner']}")
+            require(reliable or ln["transport"] == inner,
+                    f"({letter}) rank {r} runs {ln['transport']}")
+        emit({"phase": name, "ok": True, "world": letter,
+              **_ps_world_line(lines, reliable, wall, in_process, steps, backend)})
+        if letter == "a":
+            srv = lines[0]
+    # (c) restore (a)'s directory into a fresh server on a reliable transport
+    t = ReliableTransport(InProcessTransport.create_world(3)[0], ack_on_delivery=False)
+    fresh = ParameterServer(get_model(model, seed=0, device="cpu"), transport=t,
+                            ckpt_dir=SMOKE_PS_MP_DIR, wal=True)
+    try:
+        require(fresh.maybe_restore(), "nothing to restore")
+        central = np.load(SMOKE_PS_MP_DIR + ".central.npy")
+        require(np.array_equal(fresh.central, central)
+                and fresh._apply_seq == srv["apply_seq"]
+                and fresh.staleness.version == srv["version"],
+                "the restored server differs from (a)'s final state")
+        seeded = {r: len(t._seen.get(r, ())) for r in (1, 2)}
+        require(len(fresh._recent_envelopes) == srv["recent_envelopes"] > 0
+                and all(seeded.values()),
+                f"dedup not seeded from the envelopes: {seeded}")
+    finally:
+        fresh.wal.close()
+        t.detach()
+    emit({"phase": "ps_processes_restore", "ok": True, "restored_bit_equal": True,
+          "apply_seq": fresh._apply_seq, "envelopes": len(fresh._recent_envelopes),
+          "dedup_seeded_per_sender": seeded})
+    if bench:
+        env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        proc = subprocess.run([sys.executable, "-m", "distributed_ml_pytorch_tpu_torch.bench_all",
+                               "--legs", "ps"], cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=600)
+        require(proc.returncode == 0, f"bench_all --legs ps exited {proc.returncode}: "
+                                      f"{proc.stderr[-3000:]}")
+        records = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        require(len(records) == 4, f"bench_all --legs ps printed {len(records)} records")
+        emit({"phase": "ps_bench_legs", "ok": True, "records": records})
 
 
 # ------------------------------------------------------------------ main
@@ -2539,7 +2826,8 @@ def main() -> int:
         bf16_measured, bf16_launches = phase_trainer_family(torch)
         measured.update(bf16_measured)
         launches.update(bf16_launches)
-        phase_chunked_worker(torch, per_step_workers)
+        in_process = phase_chunked_worker(torch, per_step_workers)
+        phase_ps_processes(torch, in_process)
         smi = nvidia_smi_line()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -3,6 +3,7 @@
     python -m distributed_ml_pytorch_tpu_torch.bench_all                    # every leg, on the card
     python -m distributed_ml_pytorch_tpu_torch.bench_all --legs alexnet
     python -m distributed_ml_pytorch_tpu_torch.bench_all --legs conv_epilogue
+    python -m distributed_ml_pytorch_tpu_torch.bench_all --legs ps
     python -m distributed_ml_pytorch_tpu_torch.bench_all --device cpu --tiny
 
 One JSON line per measurement on stdout (the JAX ``emit`` record: config,
@@ -32,6 +33,17 @@ narration on stderr. Ported legs, under the JAX metric names:
   CUDA graph of one step replayed K times. Full float32; FLOPs are
   ``utils/flops.cnn_train_flops`` over the model's conv/linear MACs, against
   the card's float32 (non-tensor) peak.
+- ``ps`` — config 3's DownPour world as processes (JAX ``ps_phase``,
+  bench_all.py:817-856, and ``ps_tpu_phase``, :1582-1646): one server and
+  four worker processes over TCP through ``launch.launch_world``, 512
+  synthetic images a worker, one epoch, emitting
+  ``async_ps_4worker_aggregate_throughput`` from the wall time with startup
+  included; then one server process and one chunked worker process on the
+  card, 16384 synthetic images, two epochs at batch 64, against the same
+  recipe in ``--no-distributed --steps-per-dispatch 10``, each rate the
+  steady rate of its CSV's timestamps (:func:`_steady_rate_from_csv`), as
+  ``async_ps_gpu_worker_throughput``, ``single_mode_scanned_throughput``
+  and ``async_ps_push_pull_overhead``.
 - ``conv_epilogue`` — config 1's conv-epilogue ladder (JAX
   ``compute_microbench_phase``, bench_all.py:2000-2073): ``relu_pool2``
   fused against ``max_pool_2x2(relu(x))`` on AlexNet's three relu->pool
@@ -45,15 +57,21 @@ CPU (the record's note names the source). The LM legs' FLOP numerator is
 ``utils/flops.lm_train_flops_6nd`` over the non-embedding parameters (XLA's
 ``compiled_flops`` has no PyTorch counterpart); the cross-check holds it
 against the same count over the ``nn.Linear`` weights. Not ported yet:
-``bench_steps_to_accuracy``, ``ps_phase``, ``bench_lm_32k``, the MoE leg and
-every other phase of the JAX harness (``ROADMAP.md`` Queue A).
+``bench_steps_to_accuracy``, ``bench_lm_32k``, the MoE leg and every other
+phase of the JAX harness (``ROADMAP.md`` Queue A).
 """
 
 from __future__ import annotations
 
 import argparse
+import csv
 import json
+import os
+import subprocess
 import sys
+import tempfile
+import time
+from datetime import datetime
 from typing import Optional
 
 import numpy as np
@@ -495,10 +513,108 @@ def compute_microbench_phase(device="cuda", batch: int = 256) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ config 3: the PS world
+
+#: ps_phase: workers, synthetic images a worker (JAX bench_all.py:823-824)
+PS_WORKERS, PS_PER_WORKER = 4, 512
+#: the card-worker leg's recipe (JAX bench_all.py:1602-1607)
+PS_CARD_BATCH, PS_CARD_TRAIN, PS_CARD_EPOCHS = 64, 16384, 2
+#: ``--tiny``: LeNet, images a worker, and the card leg's batch and images
+TINY_PS_PER_WORKER, TINY_PS_CARD_BATCH, TINY_PS_CARD_TRAIN = 64, 16, 512
+
+
+def _steady_rate_from_csv(path: str, batch: int):
+    """Steady images/s from a trainer CSV's per-step timestamps: ``batch``
+    over the MEAN gap between consecutive records over the second half of
+    the run (warm-up and compile excluded), as the JAX function computes it
+    with pandas. Mean, not median: a chunked worker logs its steps in bursts
+    at each loss read, so the gaps are ~0 within a burst. Returns
+    ``(images_per_s, n_records)``, or ``None`` for a missing file, fewer
+    than 8 records or no positive mean."""
+    if not os.path.isfile(path):
+        return None
+    with open(path, newline="") as fh:
+        stamps = [datetime.fromisoformat(row["timestamp"]) for row in csv.DictReader(fh)]
+    if len(stamps) < 8:
+        return None
+    gaps = [(b - a).total_seconds() for a, b in zip(stamps, stamps[1:])]
+    tail = gaps[len(gaps) // 2:]
+    per_step = sum(tail) / len(tail)
+    if per_step <= 0:
+        return None
+    return batch / per_step, len(stamps)
+
+
+def _ps_args(dev, tiny: bool) -> list:
+    return ["--backend", dev.type, "--synthetic-data", "--synthetic-test-size", "64",
+            "--test-batch-size", "64", "--log-interval", "100000",
+            *(["--model", "lenet"] if tiny else [])]
+
+
+def ps_phase(device, tiny: bool = False) -> dict:
+    """Config 3's legs as processes; returns ``{metric: value}``. Every
+    process that exits non-zero fails the leg (raises)."""
+    from distributed_ml_pytorch_tpu_torch.launch import launch_world
+
+    dev = resolve_device(device)
+    hw = hardware(dev)
+    base = _ps_args(dev, tiny)
+    cut = "--tiny: LeNet; " if tiny else ""
+    out = {}
+    per_worker = TINY_PS_PER_WORKER if tiny else PS_PER_WORKER
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        code = launch_world(PS_WORKERS + 1, [*base, "--epochs", "1", "--log-dir", td,
+                                             "--synthetic-train-size", str(per_worker)])
+        dt = time.perf_counter() - t0
+    if code != 0:
+        raise RuntimeError(f"config 3's {PS_WORKERS}-worker world exited with code {code}")
+    out["async_ps_4worker_aggregate_throughput"] = agg = PS_WORKERS * per_worker / dt
+    emit(3, "async_ps_4worker_aggregate_throughput", agg, "images/sec",
+         f"{hw}, {PS_WORKERS + 1} processes",
+         f"{cut}{PS_WORKERS} workers x {per_worker} images in {dt:.1f}s wall, startup, "
+         "build and capture included (the reference's launch pattern); TCP, transport "
+         "auto, batch 64, n_push = n_pull = 10")
+    batch = TINY_PS_CARD_BATCH if tiny else PS_CARD_BATCH
+    recipe = [*base, "--batch-size", str(batch), "--epochs", str(PS_CARD_EPOCHS),
+              "--synthetic-train-size", str(TINY_PS_CARD_TRAIN if tiny else PS_CARD_TRAIN)]
+    with tempfile.TemporaryDirectory() as td:
+        code = launch_world(2, [*recipe, "--chunked-dispatch", "on", "--log-dir", td])
+        got = _steady_rate_from_csv(os.path.join(td, "node1.csv"), batch)
+        if code != 0 or got is None:
+            raise RuntimeError(f"the one-worker world exited with code {code} ({got})")
+        out["async_ps_gpu_worker_throughput"], n = got
+        emit(3, "async_ps_gpu_worker_throughput", got[0], "images/sec/chip",
+             f"{hw}: a host server process + 1 worker process",
+             f"{cut}steady state from {n} per-step CSV timestamps; DownPour cadence 10/10 "
+             "with chunked dispatch (each run of local steps replays one captured step)")
+    with tempfile.TemporaryDirectory() as td:
+        code = subprocess.run(
+            [sys.executable, "-m", "distributed_ml_pytorch_tpu_torch.training.cli",
+             "--no-distributed", "--steps-per-dispatch", "10", "--log-dir", td, *recipe],
+            env=dict(os.environ)).returncode
+        name = "gpu.csv" if dev.type == "cuda" else "single.csv"
+        got = _steady_rate_from_csv(os.path.join(td, name), batch)
+        if code != 0 or got is None:
+            raise RuntimeError(f"the single-mode leg exited with code {code} ({got})")
+        out["single_mode_scanned_throughput"], n = got
+        emit(3, "single_mode_scanned_throughput", got[0], "images/sec/chip", hw,
+             f"{cut}same recipe at --steps-per-dispatch 10 (the chunk size the PS cadence "
+             f"implies), {n} per-step records")
+    overhead = 100 * (1 - out["async_ps_gpu_worker_throughput"]
+                      / out["single_mode_scanned_throughput"])
+    out["async_ps_push_pull_overhead"] = overhead
+    emit(3, "async_ps_push_pull_overhead", overhead, "percent", "derived",
+         f"{cut}throughput cost of the PS protocol for a card worker against the same "
+         "recipe scanned in single mode (each rate from its CSV)")
+    return out
+
+
 LEGS = {
     "alexnet": lambda dev, tiny: alexnet_phase(dev, tiny=tiny),
     "lm": lambda dev, tiny: lm_phase(dev, tiny=tiny),
     "conv_epilogue": lambda dev, tiny: compute_microbench_phase(dev, batch=16 if tiny else 256),
+    "ps": lambda dev, tiny: ps_phase(dev, tiny=tiny),
 }
 
 

@@ -38,14 +38,22 @@ generation kept for the window between the two renames), the write-ahead log
 bytes are the JAX package's, so either package restores the other's
 directory.
 
-Not in this package yet (the JAX server's other planes): the reliable
-transport (delivery envelopes and deferred acks: WAL records carry envelope
-0), rollback, Adasum, the sharded server-side optimizer, delta pulls and
-compressed pushes.
+**The reliable wire.** Over a ``utils/messaging.ReliableTransport`` the
+server records the delivery envelope ``(incarnation, seq)`` of each applied
+push in its WAL record and in a tail of recent envelopes kept in the
+checkpoint's meta; a restored server seeds the transport's dedup from both,
+so a retry of a push applied before a crash is re-acked, not applied again.
+With durable acks (``--wal``) the ack of a push is released only after the
+log's fsync (:meth:`ParameterServer.commit`). A worker flushes its pending
+frames before ``WorkerDone``.
+
+Not in this package yet (the JAX server's other planes): rollback, Adasum,
+the sharded server-side optimizer, delta pulls and compressed pushes.
 """
 
 from __future__ import annotations
 
+import collections
 import io
 import json
 import logging
@@ -71,8 +79,10 @@ from distributed_ml_pytorch_tpu_torch.utils.health import (
 )
 from distributed_ml_pytorch_tpu_torch.utils.messaging import (
     SERVER_RANK,
+    WIRE_SCHEMAS,
     MessageCode,
     MessageListener,
+    ReliableTransport,
     Transport,
     _next_incarnation,
     send_message,
@@ -88,6 +98,8 @@ _LOGGER = logging.getLogger(__name__)
 
 #: group commit: the log is fsync'd after this many pushes at the latest
 WAL_GROUP_N = 8
+#: delivery envelopes of the latest applies kept in the checkpoint's meta
+RECENT_ENVELOPES = 512
 #: the chunked worker reads its device losses back every this many dispatches
 LOSS_FLUSH_DISPATCHES = 8
 
@@ -150,6 +162,13 @@ class ParameterServer:
         self._apply_seq = 0
         self.applied_by_sender: dict = {}
         self.replayed_updates = 0
+        #: ``(sender, incarnation, seq)`` of recent applies, kept in the
+        #: checkpoint's meta: a truncation drops the log's envelopes, but an
+        #: ack may still be lost in flight, and the retry must be re-acked
+        self._recent_envelopes = collections.deque(maxlen=RECENT_ENVELOPES)
+        #: the delivery envelope of the frame being handled (``run()`` reads
+        #: the transport's ``last_delivery``), recorded per WAL record
+        self._envelope = None
         self._prev_ckpt_meta = None
         self.wal = None
         if wal:
@@ -199,15 +218,17 @@ class ParameterServer:
             "apply_seq": self._apply_seq,
             "applied_by_sender": {str(k): int(v) for k, v in self.applied_by_sender.items()},
             "central_crc": zlib.crc32(blob) & 0xFFFFFFFF,
-            # delivery envelopes of recent applies: none without a reliable
-            # transport (the JAX meta's key, so the JAX server reads it)
-            "recent_envelopes": [],
+            "recent_envelopes": [list(e) for e in self._recent_envelopes],
             "prev": self._prev_ckpt_meta,
         }
         atomic_write(self._meta_path(), json.dumps(meta).encode())
         atomic_write(self._ckpt_path(), blob)
         self._prev_ckpt_meta = {k: v for k, v in meta.items() if k != "prev"}
         if self.wal is not None:
+            # every logged update is durable now: release the acks deferred
+            # behind them before the truncation drops their records (the
+            # meta's recent envelopes keep the dedup seed)
+            self._release_acks()
             self.wal.truncate(self._apply_seq)
 
     def _read_checkpoint(self):
@@ -260,6 +281,8 @@ class ParameterServer:
                 self._apply_seq = int(meta.get("apply_seq", 0))
                 self.applied_by_sender = {
                     int(k): int(v) for k, v in meta.get("applied_by_sender", {}).items()}
+                self._recent_envelopes.extend(
+                    (int(s), int(i), int(q)) for s, i, q in meta.get("recent_envelopes", []))
                 self._prev_ckpt_meta = {k: v for k, v in meta.items() if k != "prev"}
             restored = True
         if self.wal is not None:
@@ -270,10 +293,17 @@ class ParameterServer:
 
     def _replay_wal(self) -> int:
         """Re-apply the logged updates the checkpoint does not cover
-        (``seq > apply_seq``, so replay is idempotent); returns how many."""
+        (``seq > apply_seq``, so replay is idempotent); returns how many.
+        The transport's dedup is seeded from the meta's recent envelopes
+        and every surviving record's own, so a sender's retry of an applied
+        but unacked push is re-acked, never applied again."""
         records, stats = self.wal.replay()
+        envelopes = [tuple(e) for e in self._recent_envelopes]
         n = 0
         for rec in records:
+            if rec.env_inc or rec.env_seq:
+                envelopes.append((rec.sender, rec.env_inc, rec.env_seq))
+                self._recent_envelopes.append((rec.sender, rec.env_inc, rec.env_seq))
             if rec.seq <= self._apply_seq:
                 continue
             if rec.payload.shape != self.central.shape:
@@ -290,12 +320,23 @@ class ParameterServer:
         if stats["stale_skipped"] or stats["torn_tail"]:
             _LOGGER.warning("WAL replay: %d stale-incarnation record(s) skipped, torn tail=%d",
                             stats["stale_skipped"], stats["torn_tail"])
+        seed = getattr(self.transport, "seed_dedup", None)
+        if seed is not None and envelopes:
+            seed(envelopes)
         return n
 
+    def _release_acks(self) -> None:
+        ack = getattr(self.transport, "ack_delivered", None)
+        if ack is not None:
+            ack()
+
     def commit(self) -> None:
-        """Group commit: fsync the log's pending records."""
+        """Group commit: fsync the log's pending records, then release the
+        delivery acks deferred behind them (log before ack: an acked push
+        survives a crash)."""
         if self.wal is not None:
             self.wal.sync()
+        self._release_acks()
 
     # ----------------------------------------------------------- serving
 
@@ -348,8 +389,13 @@ class ParameterServer:
         self._apply_seq += 1
         self.applied_by_sender[sender] = self.applied_by_sender.get(sender, 0) + 1
         if self.wal is not None:
-            # log before apply: the damped delta is what replay must add
-            self.wal.append(self._apply_seq, delta, sender=sender)
+            # log before apply: the damped delta is what replay must add,
+            # and the envelope what restore seeds dedup with
+            env_inc, env_seq = self._envelope or (0, 0)
+            self.wal.append(self._apply_seq, delta, sender=sender, env_inc=env_inc,
+                            env_seq=env_seq)
+            if env_inc or env_seq:
+                self._recent_envelopes.append((sender, env_inc, env_seq))
         self.central += delta
         self._push_count += 1
         if self.ckpt_dir and self.ckpt_every and self._push_count % self.ckpt_every == 0:
@@ -376,7 +422,12 @@ class ParameterServer:
 
     def _reply(self, sender: int, payload: np.ndarray) -> None:
         """Answer one worker; a worker gone between request and reply must
-        not take the server down."""
+        not take the server down. A reliable transport keeps the frame's
+        buffer until it is acked and the central vector moves in place, so
+        it is sent a snapshot: a retransmit must carry the bytes its
+        checksum covers."""
+        if isinstance(self.transport, ReliableTransport):
+            payload = payload.copy()
         try:
             send_message(MessageCode.ParameterUpdate, payload, dst=sender,
                          transport=self.transport)
@@ -410,9 +461,12 @@ class ParameterServer:
                     break
             msg = self.transport.recv(timeout=0.2)
             if msg is None:
+                # idle: close the WAL group, so no ack waits longer than
+                # one receive timeout
                 self.commit()
                 continue
             sender, code, payload = msg
+            self._envelope = getattr(self.transport, "last_delivery", None)
             if detector is not None:
                 detector.note(sender)
                 self.failed_workers = set(detector.failed)
@@ -430,14 +484,23 @@ class ParameterServer:
                     break
                 continue
             self.handle(sender, code, payload)
-            if (self.wal is None or code != MessageCode.GradientUpdate
+            if (self.wal is None or not _ack_waits_for_wal(code)
                     or self.wal.pending >= WAL_GROUP_N):
+                # the group waits only for the codes whose ack the log holds;
+                # everything else commits, and releases its ack, at once
                 self.commit()
         self.save_checkpoint()
         self.commit()
         line = self.staleness.report()
         if line:
             print("parameter server:", line)
+
+
+def _ack_waits_for_wal(code: MessageCode) -> bool:
+    """Whether the ack of ``code`` waits for the WAL's group commit
+    (``durability="wal_before_ack"`` in :data:`WIRE_SCHEMAS`)."""
+    schema = WIRE_SCHEMAS.get(code)
+    return schema is not None and schema.durability == "wal_before_ack"
 
 
 def validate_downpour_args(lr: float, n_push: int, n_pull: int) -> None:
@@ -622,6 +685,10 @@ class PushFlusher:
         self._thread.start()
 
     def _fetch(self, snap: torch.Tensor, ready) -> np.ndarray:
+        # every push gets a buffer of its own (the snapshot, or a fresh
+        # pinned one): a reliable transport holds the sent buffer until the
+        # frame is acked and retransmits those bytes, which must still be
+        # the ones its checksum covers
         if ready is None:
             return snap.numpy()
         # the snapshot was queued on the training thread's stream: this
@@ -816,9 +883,15 @@ class Asynchronous:
 
     def finish(self) -> None:
         """Push what is left (behind every earlier push), notify the server,
-        stop the threads."""
+        stop the threads. Over a reliable transport every pending frame is
+        flushed first: the layer guarantees delivery, not order, and a
+        retried push landing after ``WorkerDone`` could find the server
+        gone."""
         self._push()
         self._flusher.drain()
+        flush = getattr(self.transport, "flush", None)
+        if flush is not None and not self.server_down:
+            flush(timeout=10.0)
         self._send(MessageCode.WorkerDone, np.zeros(0, np.float32))
         self._flusher.stop()
         if self.heartbeat is not None:
@@ -970,7 +1043,12 @@ def run_ps_process(args) -> int:
     if args.rank is None:
         raise SystemExit("--rank is required for distributed --mode ps runs")
     is_server = args.server or args.rank == SERVER_RANK
-    transport = make_transport(args.rank, args.world_size, args.master, int(args.port))
+    transport = make_transport(
+        args.rank, args.world_size, args.master, int(args.port),
+        kind=getattr(args, "transport", "auto"), reliable=getattr(args, "reliable", False),
+        # --wal's log-before-ack: the server defers its acks to the WAL's
+        # group commit; workers ack on delivery
+        durable_acks=is_server and getattr(args, "wal", False))
     heartbeat = None
     try:
         if is_server:

@@ -15,10 +15,14 @@ trainer's surface: ``--dtype``, ``--optimizer``, ``--weight-decay``,
 between communication gaps as one dispatch, a CUDA graph on the card) and
 ``--rejoin``; the server takes ``--ckpt-dir``/``--ckpt-every``/``--resume``,
 ``--wal``, ``--admission``/``--admission-z``/``--admission-warmup`` and
-``--staleness-damping``. Flags of the JAX CLI that this package does not
-implement (the reliable transport, compression, Adasum, the server-side
-optimizer, sharded servers, the coordinator, profiling) are absent, so
-argparse rejects them instead of ignoring them.
+``--staleness-damping``; every rank takes ``--transport`` (the native C++
+library, the Python sockets, or auto) and ``--reliable`` (the reliable
+wire; with ``--wal`` the server acks a push only after the log's fsync).
+Flags of the JAX CLI that this package does not implement (compression,
+Adasum, the server-side optimizer, sharded servers, the other
+distributed modes, the coordinator, the manifest path, profiling and the
+metrics dump) are absent, so argparse rejects them instead of ignoring
+them.
 
     python -m distributed_ml_pytorch_tpu_torch.training.cli --no-distributed \
         --epochs 1 --synthetic-data
@@ -79,6 +83,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic-test-size", type=int, default=10000)
     p.add_argument("--log-dir", type=str, default="runs",
                    help="CSV telemetry directory")
+    p.add_argument("--transport", type=str, default="auto",
+                   choices=["auto", "native", "python"],
+                   help="PS control-plane transport: C++ library "
+                        "(native/transport.cpp), pure Python, or auto-detect")
+    p.add_argument("--reliable", action="store_true", default=False,
+                   help="wrap the PS control plane in the reliability layer "
+                        "(per-peer sequence numbers, frame CRC, ack+retry "
+                        "with capped backoff, receiver dedup — gradient "
+                        "pushes apply exactly once under duplicates/loss); "
+                        "set it on EVERY rank of the world")
     p.add_argument("--ckpt-dir", type=str, default="",
                    help="checkpoint directory (empty = checkpointing off)")
     p.add_argument("--ckpt-every", type=int, default=500, metavar="N",

@@ -67,7 +67,10 @@ class HeartbeatSender(threading.Thread):
     """Worker-side daemon: send a Heartbeat frame every ``interval`` seconds.
 
     A failed send sets :attr:`peer_down`; a later successful one clears it.
-    The thread never takes the process down."""
+    Heartbeats skip the reliable envelope, so over a ``ReliableTransport`` a
+    socket that takes the write is no proof of life: there the server's
+    circuit breaker (fed by unacked data frames) decides. The thread never
+    takes the process down."""
 
     def __init__(self, transport, interval: float = 1.0):
         super().__init__(daemon=True)
@@ -80,11 +83,14 @@ class HeartbeatSender(threading.Thread):
         self._stop = threading.Event()
 
     def run(self) -> None:
+        from distributed_ml_pytorch_tpu_torch.utils.messaging import SERVER_RANK
+
         empty = np.zeros(0, np.float32)
+        breaker = getattr(self.transport, "breaker_open", None)
         while not self._stop.wait(self.interval):
             try:
                 self.transport.send(self._code, empty)
-                self.peer_down = False
+                self.peer_down = breaker is not None and breaker(SERVER_RANK)
             except (OSError, ConnectionError, KeyError):
                 self.peer_down = True
 

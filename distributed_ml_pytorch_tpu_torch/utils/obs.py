@@ -1,6 +1,6 @@
 """Request correlation ids (counterpart of the JAX ``utils/obs.py``,
-``next_corr`` and ``current_corr`` only; the flight recorder waits for the
-observability plane)."""
+``next_corr``, ``set_corr`` and ``current_corr`` only; the flight recorder
+waits for the observability plane)."""
 
 from __future__ import annotations
 
@@ -18,6 +18,13 @@ def next_corr() -> int:
     """A fresh process-unique correlation id (nonzero, wraps at 2^32)."""
     c = next(_CORR_COUNTER) & 0xFFFFFFFF
     return c if c else next(_CORR_COUNTER) & 0xFFFFFFFF
+
+
+def set_corr(corr: int) -> None:
+    """Install ``corr`` as this thread's active correlation id (0 clears).
+    ``ReliableTransport`` calls this on every delivery, so handler code
+    running on the receiving thread inherits the sender's id."""
+    _TLS.corr = int(corr) & 0xFFFFFFFF
 
 
 def current_corr() -> int:

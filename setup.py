@@ -23,6 +23,9 @@ setup(
         # the PyTorch port's CUDA kernels, built with nvcc at first use
         # (distributed_ml_pytorch_tpu_torch/ops/_build.py)
         "distributed_ml_pytorch_tpu_torch": ["csrc/*.cu"],
+        # the port's own copy of the native transport, built with g++ at
+        # first use (distributed_ml_pytorch_tpu_torch/native/__init__.py)
+        "distributed_ml_pytorch_tpu_torch.native": ["transport.cpp"],
     },
     python_requires=">=3.10",
     install_requires=[

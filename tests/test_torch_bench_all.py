@@ -4,6 +4,7 @@ the JAX package's."""
 
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -287,3 +288,50 @@ def test_rate_record_fields():
     assert "of the f32 peak" in r32.mfu_note()
     assert bench_all.Rate.make(1.0, None, 0.5).record_fields() == {}
     assert np.isclose(bench_all.Rate.make(1.0, 1e12, 1.0, "cpu").tflops, 1.0)
+
+
+PS_METRICS = ["async_ps_4worker_aggregate_throughput", "async_ps_gpu_worker_throughput",
+              "single_mode_scanned_throughput", "async_ps_push_pull_overhead"]
+
+
+def test_ps_legs_on_cpu_emit_the_jax_metric_names(capsys, monkeypatch, tmp_path):
+    """Config 3's legs at ``--tiny`` on the CPU: five processes, then a
+    server and a chunked worker against single mode; every record under the
+    JAX metric name, the rates positive."""
+    monkeypatch.setenv("PYTHONPATH", ROOT)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.chdir(tmp_path)
+    assert bench_all.main(["--device", "cpu", "--tiny", "--legs", "ps"]) == 0
+    recs = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+            if line.startswith("{")]
+    assert [r["metric"] for r in recs] == PS_METRICS
+    assert all(r["config"] == 3 and "--tiny" in r["note"] for r in recs)
+    assert all(r["value"] > 0 for r in recs[:3])
+    assert recs[0]["hardware"] == "1x cpu, 5 processes"
+    assert os.listdir(tmp_path) == []  # every CSV went to a temporary directory
+
+
+def test_steady_rate_from_csv_matches_a_hand_made_csv(tmp_path):
+    """Ten records: gaps 1, 1, 1, 1, then 0.5, 0, 0, 1, 0.5 s. The second
+    half of the nine gaps is the last five (mean 0.4 s): 64 / 0.4 = 160
+    images/s over 10 records; fewer than 8 records or a missing file give
+    None."""
+    path = tmp_path / "node1.csv"
+    offsets = [0, 1, 2, 3, 4, 4.5, 4.5, 4.5, 5.5, 6.0]
+    rows = ["index,timestamp,iteration,training_loss"] + [
+        f"{i},2026-01-02 03:04:{5 + t:09.6f},{i},2.3" for i, t in enumerate(offsets)]
+    path.write_text("\n".join(rows) + "\n")
+    rate, n = bench_all._steady_rate_from_csv(str(path), 64)
+    assert n == 10 and rate == pytest.approx(160.0, rel=1e-12)
+    # the JAX harness's pandas reader on the same file
+    pytest.importorskip("pandas")
+    sys.path.insert(0, ROOT)
+    try:
+        import bench_all as jbench
+    finally:
+        sys.path.remove(ROOT)
+    jrate, jn = jbench._steady_rate_from_csv(str(path), 64)
+    assert jn == n and jrate == pytest.approx(rate, rel=1e-12)
+    path.write_text("\n".join(rows[:8]) + "\n")
+    assert bench_all._steady_rate_from_csv(str(path), 64) is None
+    assert bench_all._steady_rate_from_csv(str(tmp_path / "missing.csv"), 64) is None

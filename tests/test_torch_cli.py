@@ -70,7 +70,8 @@ def test_launch_three_process_tcp_world(tmp_path):
             "index", "timestamp", "iteration", "training_loss"]
 
 
-@pytest.mark.parametrize("flag", [["--reliable"], ["--compress", "int8"], ["--mode", "sync"],
+@pytest.mark.parametrize("flag", [["--manifest-path", "m"], ["--compress", "int8"],
+                                  ["--mode", "sync"],
                                   ["--dtype", "float16"], ["--backend", "tpu"],
                                   ["--n-servers", "2"], ["--profile-dir", "prof"]])
 def test_unimplemented_flags_are_rejected(flag):
@@ -118,7 +119,7 @@ def test_ps_mode_refuses_the_single_process_flags(flag, capsys, monkeypatch):
 
 
 PS_FLAGS = ["wal", "admission", "admission_z", "admission_warmup", "rejoin",
-            "staleness_damping", "chunked_dispatch", "ckpt_every"]
+            "staleness_damping", "chunked_dispatch", "ckpt_every", "transport", "reliable"]
 
 
 def test_ps_flags_take_the_jax_names_defaults_and_choices():
@@ -131,7 +132,7 @@ def test_ps_flags_take_the_jax_names_defaults_and_choices():
         assert (mine[dest].choices and tuple(mine[dest].choices)) == (
             ref[dest].choices and tuple(ref[dest].choices)), dest
         assert mine[dest].type == ref[dest].type, dest
-    for flag in (["--transport", "python"], ["--combine", "adasum"], ["--coord", "h:1"],
+    for flag in (["--manifest-path", "m"], ["--combine", "adasum"], ["--coord", "h:1"],
                  ["--server-opt", "adam"], ["--metrics-dump", "-"], ["--sync-every", "2"],
                  ["--compress-topk", "0.1"], ["--profile-steps", "3"]):
         with pytest.raises(SystemExit):

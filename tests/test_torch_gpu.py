@@ -1368,3 +1368,62 @@ def test_a_failed_capture_raises_and_nothing_falls_back(cuda, monkeypatch):
     assert opt._chunk_step.graphed.captures == 0 and opt._chunk_step.graphed.graph is None
     opt._flusher.stop()
     opt.listener.stop()
+
+
+@pytest.mark.gpu
+def test_native_library_loads_on_the_card_machine(cuda):
+    """The native transport builds with this machine's g++ from the port's
+    own source and carries a frame between two of its endpoints."""
+    import socket
+    import threading
+
+    from distributed_ml_pytorch_tpu_torch import native
+    from distributed_ml_pytorch_tpu_torch.utils.messaging import MessageCode
+
+    assert native.native_available(), native.native_load_error()
+    with socket.socket() as s:
+        s.bind(("", 0))
+        port = s.getsockname()[1]
+    out = {}
+    th = threading.Thread(target=lambda: out.setdefault(
+        "s", native.NativeTCPTransport(0, 2, "localhost", port)))
+    th.start()
+    w = native.NativeTCPTransport(1, 2, "localhost", port)
+    th.join(timeout=30)
+    try:
+        w.send(MessageCode.GradientUpdate, np.arange(7, dtype=np.float32))
+        msg = out["s"].recv(timeout=10)
+        np.testing.assert_array_equal(msg[2], np.arange(7, dtype=np.float32))
+    finally:
+        w.close()
+        out["s"].close()
+
+
+@pytest.mark.gpu
+def test_two_worker_processes_capture_beside_the_reliable_threads(cuda, tmp_path,
+                                                                  monkeypatch):
+    """A server and two chunked AlexNet worker processes on the card over
+    the native transport with ``--reliable --wal``: each worker captures its
+    step while its listener, heartbeat, flusher and retry threads run, and
+    the world ends with every exit code 0 and every push applied once."""
+    import json
+    import os
+
+    from distributed_ml_pytorch_tpu_torch.launch import launch_world
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    monkeypatch.setenv("PYTHONPATH", root)
+    rc = launch_world(3, ["--epochs", "1", "--synthetic-data", "--synthetic-train-size",
+                          str(20 * 64), "--synthetic-test-size", "64", "--test-batch-size",
+                          "64", "--log-interval", "100000", "--worker-timeout", "0",
+                          "--chunked-dispatch", "on", "--transport", "native", "--reliable",
+                          "--wal", "--ckpt-dir", str(tmp_path / "ps"), "--log-dir",
+                          str(tmp_path)])
+    assert rc == 0
+    for rank in (1, 2):
+        with open(tmp_path / f"node{rank}.csv") as f:
+            assert len(f.read().splitlines()) == 1 + 20
+    with open(tmp_path / "ps" / "ps_meta.json") as f:
+        meta = json.load(f)
+    # pushes at steps 0 and 10 and the final one, from each worker
+    assert meta["apply_seq"] == 6 and len(meta["recent_envelopes"]) == 6

@@ -13,7 +13,12 @@ the parameter server's checkpoint/log handshake.
   and a wrong-size push is dropped before the log and the clock;
 - a checkpoint directory (vector, meta, log) written by either package's
   server restores in the other's with the central vector, ``version``,
-  ``push_count``, ``apply_seq`` and ``applied_by_sender`` bit for bit.
+  ``push_count``, ``apply_seq`` and ``applied_by_sender`` bit for bit;
+- over a reliable transport with durable acks: each log record carries the
+  envelope that delivered its push and ``commit`` releases the acks; a
+  server killed between apply and ack, restored, re-acks the retry without
+  applying it again; a directory with non-zero envelopes restores in the
+  other package with the envelopes, and seeds its transport's dedup.
 """
 
 import io
@@ -309,3 +314,127 @@ def test_checkpoint_directory_restores_in_the_other_package(tmp_path, writer, re
     assert back.maybe_restore()
     np.testing.assert_array_equal(back.central, live)
     assert _clock(back) == clock
+
+
+# ------------------------------------------------ envelopes and durable acks
+
+def _serve(ps, t, n):
+    """``n`` frames through ``ps`` as ``run()`` handles them: the envelope
+    that delivered each is recorded before it is handled."""
+    for _ in range(n):
+        msg = t.recv(timeout=5)
+        assert msg is not None
+        ps._envelope = t.last_delivery
+        ps.handle(*msg)
+
+
+def _reliable_world(mod, n=3):
+    world = mod.InProcessTransport.create_world(n)
+    server_t = mod.ReliableTransport(world[0], ack_on_delivery=False, ack_timeout=0.05)
+    workers = {r: mod.ReliableTransport(world[r], ack_timeout=0.05) for r in range(1, n)}
+    return world, server_t, workers
+
+
+def test_wal_records_carry_the_envelopes_the_transport_delivered(tmp_path):
+    """Two reliable workers push twice each; every log record names its
+    push's ``(incarnation, seq)``, and ``commit`` releases the acks (held
+    until then)."""
+    from distributed_ml_pytorch_tpu_torch.utils import messaging as tmsg
+
+    _world_, server_t, workers = _reliable_world(tmsg)
+    ps = ParameterServer(params=np.zeros(8, np.float32), transport=server_t,
+                         ckpt_dir=str(tmp_path), wal=True)
+    try:
+        for k in range(2):
+            for r, w in workers.items():
+                w.send(GU, np.full(8, 10 * r + k, np.float32))
+        _serve(ps, server_t, 4)
+        assert not workers[1].flush(timeout=0.2)  # logged, not yet durable
+        ps.commit()
+        assert all(w.flush(timeout=5) for w in workers.values())
+        records, _stats = twal.replay_wal(str(tmp_path / "ps_wal.log"))
+        assert sorted((r.sender, r.env_inc, r.env_seq) for r in records) == sorted(
+            (r, w.incarnation, k) for r, w in workers.items() for k in range(2))
+        assert sorted(ps._recent_envelopes) == sorted(
+            (r.sender, r.env_inc, r.env_seq) for r in records)
+        np.testing.assert_array_equal(ps.central, np.full(8, 10 + 11 + 20 + 21, np.float32))
+    finally:
+        ps.wal.close()
+        for t in (server_t, *workers.values()):
+            t.close()
+
+
+def test_server_killed_between_apply_and_ack_reacks_the_retry(tmp_path):
+    """The push is applied and fsync'd, and the server dies before its ack
+    is released. The restored server replays the log, seeds its dedup from
+    the record's envelope, and the worker's retry is re-acked, not applied
+    a second time."""
+    from distributed_ml_pytorch_tpu_torch.utils import messaging as tmsg
+
+    world, server_t, workers = _reliable_world(tmsg, n=2)
+    w = workers[1]
+    ps = ParameterServer(params=np.zeros(8, np.float32), transport=server_t,
+                         ckpt_dir=str(tmp_path), wal=True)
+    w.send(GU, np.full(8, 2.0, np.float32))
+    _serve(ps, server_t, 1)
+    ps.wal.sync()
+    server_t.detach()  # the crash: no ack ever leaves this life
+    ps.wal.close()
+    assert not w.flush(timeout=0.2)
+    server_t2 = tmsg.ReliableTransport(world[0], ack_on_delivery=False, ack_timeout=0.05)
+    ps2 = ParameterServer(params=np.zeros(8, np.float32), transport=server_t2,
+                          ckpt_dir=str(tmp_path), wal=True)
+    try:
+        assert ps2.maybe_restore() and ps2.replayed_updates == 1
+        for _ in range(10):  # the worker retries every ~0.1 s
+            assert server_t2.recv(timeout=0.1) is None, "the retry was delivered again"
+        assert server_t2.stats["dup_dropped"] >= 1
+        assert w.flush(timeout=5), w.stats
+        assert w.acked_count(0, GU) == 1
+        np.testing.assert_array_equal(ps2.central, np.full(8, 2.0, np.float32))
+        assert ps2._apply_seq == 1
+    finally:
+        ps2.wal.close()
+        for t in (server_t2, w):
+            t.close()
+
+
+@pytest.mark.parametrize("writer,reader", [("jax", "port"), ("port", "jax")])
+def test_directory_with_envelopes_restores_in_the_other_package(tmp_path, writer, reader):
+    """A writer package's server fed by reliable workers (a checkpoint after
+    four pushes, three more logged) leaves non-zero envelopes in its meta
+    and its log; the reader package's server restores the vector, the clock
+    and the recent envelopes bit for bit and seeds its transport's dedup
+    with every one of them."""
+    from distributed_ml_pytorch_tpu.utils import messaging as jmsg
+    from distributed_ml_pytorch_tpu_torch.utils import messaging as tmsg
+
+    mods = {"jax": jmsg, "port": tmsg}
+    _w, server_t, workers = _reliable_world(mods[writer])
+    src = SERVERS[writer](params=np.linspace(-1, 1, 40).astype(np.float32),
+                          transport=server_t, ckpt_dir=str(tmp_path), ckpt_every=0, wal=True)
+    for i, (sender, delta) in enumerate(_pushes(40, seed=5)):
+        workers[sender].send(GU, delta)
+        _serve(src, server_t, 1)
+        if i == 3:
+            src.save_checkpoint()
+    src.commit()
+    live, clock = src.central.copy(), _clock(src)
+    envelopes = sorted(src._recent_envelopes)
+    assert len(envelopes) == 7 and all(inc for _s, inc, _q in envelopes)
+    src.wal.close()
+    for t in (server_t, *workers.values()):
+        t.detach()
+    _w2, reader_t, _workers2 = _reliable_world(mods[reader])
+    dst = SERVERS[reader](params=np.zeros(40, np.float32), transport=reader_t,
+                          ckpt_dir=str(tmp_path), ckpt_every=0, wal=True)
+    try:
+        assert dst.maybe_restore() and dst.replayed_updates == 3
+        np.testing.assert_array_equal(dst.central, live)
+        assert _clock(dst) == clock
+        assert sorted(dst._recent_envelopes) == envelopes
+        for sender, inc, seq in envelopes:
+            assert reader_t._peer_inc[sender] == inc and seq in reader_t._seen[sender]
+    finally:
+        dst.wal.close()
+        reader_t.close()
