@@ -188,7 +188,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
    seeds its transport's dedup from the envelopes of (a)'s applies; (d)
    ``bench_all --legs ps`` (config 3: one server and four worker
    processes, then a server and a chunked worker process against single
-   mode), its lines printed.
+   mode), its lines printed. The reliable worlds (a) and (f) run on a
+   loss-free wire, so any timeout, retransmit or duplicate on any rank
+   fails them, and each rank prints the longest a frame waited for its ack
+   against the 1 s timeout floor;
+17. the sharded DownPour world as processes on the card, under
+   deterministic cuDNN in full float32: two shard-server processes and two
+   worker processes through ``run_sharded_ps_process`` (``--world-size 4
+   --n-servers 2``), with 16 (a)'s recipe (AlexNet fused, batch 64, lr
+   0.008, n_push = n_pull = 10, 80 steps a worker on synthetic data,
+   ``--transport native --reliable --wal --admission --ckpt-dir
+   build/smoke_sharded``); a sharded worker runs one step a dispatch.
+   Each worker's loss falls; for each shard, the pushes applied equal the
+   workers' pushes sent there and acked; nothing given up, dropped on the
+   checksum or quarantined; 0 timeouts, 0 retries and 0 duplicates on every
+   link of every rank; each shard holds exactly its range of ``shard_ranges``;
+   each worker's wrappers count K1 once a step and K2a/K2b three a step
+   (and the final eval's forward): its kernels ran on the per-step path.
+   Each worker's steady steps/s over steps 40-79, and over phase 4's
+   window beside phase 4's. Then the same world with one shard server
+   (``--n-servers 1`` through the same entry, the same checks): what
+   sharding itself costs a worker. A fresh pair of shard servers restores
+   ``build/smoke_sharded/shard{0,1}`` bit for bit (slices, ``apply_seq``,
+   version); then ``bench_all --legs sharded_ps`` and ``--legs
+   transport``, their lines printed. The ``kernels`` line's K1 and K2 launches add phase
+   17's workers' counts to phase 4's.
 
 Then the ``kernels`` line, the ``nvidia-smi`` name/power line, and last the
 result line ``{"ok": true, "device": {...}}``. Without a card, or without
@@ -2563,6 +2587,7 @@ t = seen["transport"]
 inner = getattr(t, "inner", t)
 line = {"rank": args.rank, "rc": rc, "transport": type(t).__name__,
         "inner": type(inner).__name__, "stats": getattr(t, "stats", None),
+        "max_ack_s": getattr(t, "max_ack_wait", None),
         # the reliable layer's timeout state per peer at the end of the run
         "peers": {str(d): {"srtt": st.srtt, "rto": st.rto}
                   for d, st in (t._peers.items() if t is not inner else ())}}
@@ -2590,9 +2615,8 @@ def _ps_processes(wire, ckpt_dir, backend="cuda", model="alexnet", steps=WORKER_
                   batch=64):
     """One server and two worker processes over TCP on a free port, every
     process from :data:`_PS_RANK_SRC` with phase 15 (c)'s recipe plus
-    ``--wal --admission --ckpt-dir ckpt_dir`` and ``wire``. Returns ``({rank:
-    line}, wall_s)``; a process that exits non-zero, or prints no line,
-    fails the phase (the others are killed)."""
+    ``--wal --admission --ckpt-dir ckpt_dir`` and ``wire``, through
+    :func:`_run_ranks`."""
     import shutil
     import socket
 
@@ -2607,14 +2631,23 @@ def _ps_processes(wire, ckpt_dir, backend="cuda", model="alexnet", steps=WORKER_
               "--num-pull", "10", "--log-interval", str(10 * steps), "--worker-timeout", "0",
               "--log-dir", ckpt_dir + "_runs", "--chunked-dispatch", "on", "--wal",
               "--admission", "--ckpt-dir", ckpt_dir, *wire]
+    return _run_ranks(_PS_RANK_SRC, {
+        rank: (common + ["--rank", str(rank)] + (["--server"] if rank == 0 else []),
+               ckpt_dir + ".central.npy") for rank in (0, 1, 2)})
+
+
+def _run_ranks(src, ranks):
+    """Start one process a rank at once, ``python -c src <json argv>
+    <central path>`` from ``ranks = {rank: (argv, central path)}``, and
+    collect each one's last ``PS_RANK`` JSON line. Returns ``({rank: line},
+    wall_s)``; a process that exits non-zero, prints no line or outlives
+    :data:`PS_PROCESS_TIMEOUT_S` fails the phase (the others are killed)."""
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     t0 = time.monotonic()
-    procs = {}
-    for rank in (0, 1, 2):
-        argv = common + ["--rank", str(rank)] + (["--server"] if rank == 0 else [])
-        procs[rank] = subprocess.Popen(
-            [sys.executable, "-c", _PS_RANK_SRC, json.dumps(argv), ckpt_dir + ".central.npy"],
-            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    procs = {rank: subprocess.Popen([sys.executable, "-c", src, json.dumps(argv), central],
+                                    cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for rank, (argv, central) in ranks.items()}
     lines, failed = {}, []
     try:
         for rank, p in procs.items():
@@ -2674,14 +2707,20 @@ def _ps_world_checks(lines, reliable, steps=WORKER_STEPS, backend="cuda"):
         if reliable:
             st = w["stats"]
             per_worker[r].update(acked_pushes=w["acked_pushes"], **{
-                k: st[k] for k in ("sent", "retries", "dup_dropped", "crc_dropped",
-                                   "gave_up", "window_blocked", "window_blocked_s")})
+                k: st[k] for k in ("sent", "rto_expired", "retries", "dup_dropped",
+                                   "crc_dropped", "gave_up", "window_blocked",
+                                   "window_blocked_s")})
     if reliable:
         acked = sum(w["acked_pushes"] for w in workers.values())
         require(acked == applied, f"acked pushes {acked} != applied {applied}")
         for r, ln in lines.items():
             require(ln["stats"]["gave_up"] == 0 and ln["stats"]["crc_dropped"] == 0,
                     f"rank {r} reliable stats {ln['stats']}")
+            # a loss-free wire: a timeout, a retransmit or a duplicate is a fault
+            st = ln["stats"]
+            require(st["rto_expired"] == 0 and st["retries"] == 0 and st["dup_dropped"] == 0,
+                    f"rank {r} timed out on a loss-free wire (longest ack wait "
+                    f"{ln['max_ack_s']} s): {st}")
             require(ln["transport"] == "ReliableTransport", f"rank {r}: {ln['transport']}")
     return per_worker
 
@@ -2694,7 +2733,8 @@ def _ps_world_line(lines, reliable, wall, in_process, steps=WORKER_STEPS, backen
             "per_worker": per_worker, "in_process_per_worker_15c": in_process,
             "server_messages": srv["message_counts"], "apply_seq": srv["apply_seq"],
             "quarantined": srv["quarantined"], "server_stats": srv["stats"],
-            "peer_timeouts": {r: ln["peers"] for r, ln in lines.items() if ln["peers"]}}
+            "peer_timeouts": {r: ln["peers"] for r, ln in lines.items() if ln["peers"]},
+            "max_ack_s": {r: ln["max_ack_s"] for r, ln in lines.items()}}
 
 
 def phase_ps_processes(torch, in_process, backend="cuda", model="alexnet",
@@ -2752,6 +2792,223 @@ def phase_ps_processes(torch, in_process, backend="cuda", model="alexnet",
         records = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
         require(len(records) == 4, f"bench_all --legs ps printed {len(records)} records")
         emit({"phase": "ps_bench_legs", "ok": True, "records": records})
+
+
+# ------------------------------------------------------------------ phase 17
+
+#: the sharded world's shard servers' directories (``<dir>/shard<s>``)
+SMOKE_SHARDED_DIR = os.path.join(ROOT, "build", "smoke_sharded")
+#: shard servers in phase 17's world, then in its one-shard comparison
+N_SHARDS, N_SHARDS_COMPARED = 2, 1
+#: the window of phase 17's steady rate: steps 40-79
+SHARDED_STEADY_FROM = 40
+
+#: one rank of the sharded world: ``python -c _SHARDED_RANK_SRC <json argv>
+#: <central path>``. Calls the CLI's entry ``run_sharded_ps_process`` with
+#: every kernel count zeroed just before, wrapping (never replacing) the
+#: functions it calls to see each transport, the shard server, the worker's
+#: log and each shard's pushes, and prints one JSON line last.
+_SHARDED_RANK_SRC = r"""
+import json, sys
+import numpy as np
+import torch
+from distributed_ml_pytorch_tpu_torch.ops import fused_conv as fc
+from distributed_ml_pytorch_tpu_torch.ops import fused_update as fu
+from distributed_ml_pytorch_tpu_torch.parallel import async_ps as tps
+from distributed_ml_pytorch_tpu_torch.parallel import sharded_ps as sps
+from distributed_ml_pytorch_tpu_torch.training.cli import build_parser
+from distributed_ml_pytorch_tpu_torch.utils import messaging as msg
+from distributed_ml_pytorch_tpu_torch.utils.messaging import MessageCode
+
+args = build_parser().parse_args(json.loads(sys.argv[1]))
+torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+seen = {"transports": [], "pushes": [0] * args.n_servers}
+
+def wrap(mod, name, after):
+    real = getattr(mod, name)
+    def wrapped(*a, **k):
+        out = real(*a, **k)
+        after(out)
+        return out
+    setattr(mod, name, wrapped)
+
+wrap(msg, "make_transport", seen["transports"].append)
+wrap(sps, "make_shard_server", lambda srv: seen.setdefault("server", srv))
+wrap(tps, "train_worker", lambda out: seen.setdefault("logger", out[1]))
+real_send = sps.ShardedAsynchronous._send
+
+def counting_send(self, shard, code, payload):
+    if code == MessageCode.GradientUpdate and not self.shard_down[shard]:
+        seen["pushes"][shard] += 1
+    return real_send(self, shard, code, payload)
+
+sps.ShardedAsynchronous._send = counting_send
+fu.launches = 0
+for k in fc.launches:
+    fc.launches[k] = 0
+rc = sps.run_sharded_ps_process(args)
+links = [{"transport": type(t).__name__, "inner": type(getattr(t, "inner", t)).__name__,
+          "stats": getattr(t, "stats", None), "max_ack_s": getattr(t, "max_ack_wait", None),
+          "acked_pushes": (t.acked_count(0, MessageCode.GradientUpdate)
+                           if hasattr(t, "acked_count") else None)}
+         for t in seen["transports"]]
+line = {"rank": args.rank, "rc": rc, "links": links}
+if "server" in seen:
+    srv = seen["server"]
+    np.save(sys.argv[2], srv.central)
+    line.update(message_counts={c.name: n for c, n in srv.message_counts.items() if n},
+                apply_seq=srv._apply_seq, version=srv.staleness.version,
+                quarantined=srv.quarantined, held=int(srv.central.shape[0]))
+else:
+    recs = seen["logger"].records
+    line.update(launches={"flat_axpy": fu.launches, **fc.launches},
+                pushes_sent=seen["pushes"],
+                t=[r["timestamp"].timestamp() for r in recs],
+                loss=[r["training_loss"] for r in recs])
+print("PS_RANK " + json.dumps(line), flush=True)
+"""
+
+
+def _sharded_processes(k, ckpt_dir, backend="cuda", model="alexnet", steps=WORKER_STEPS,
+                       batch=64):
+    """The sharded world: ``k`` shard-server processes and two worker
+    processes over TCP (``--world-size k+2 --n-servers k``, ports ``port``
+    to ``port + k - 1``), each from :data:`_SHARDED_RANK_SRC`, with phase 16
+    (a)'s recipe per step, through :func:`_run_ranks`."""
+    import shutil
+
+    from distributed_ml_pytorch_tpu_torch.launch import _free_port_block
+
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    port = _free_port_block(k)
+    common = ["--mode", "ps", "--world-size", str(k + 2), "--n-servers",
+              str(k), "--port", port, "--backend", backend, "--model", model,
+              "--epochs", "1",
+              "--synthetic-data", "--synthetic-train-size", str(steps * batch),
+              "--synthetic-test-size", "512", "--batch-size", str(batch), "--lr", "0.008",
+              "--num-push", "10", "--num-pull", "10", "--log-interval", str(10 * steps),
+              "--worker-timeout", "0", "--log-dir", ckpt_dir + "_runs",
+              "--transport", "native", "--reliable", "--wal", "--admission",
+              "--ckpt-dir", ckpt_dir]
+    return _run_ranks(_SHARDED_RANK_SRC, {
+        rank: (common + ["--rank", str(rank)] + (["--server"] if rank < k else []),
+               f"{ckpt_dir}.central{rank}.npy") for rank in range(k + 2)})
+
+
+def _sharded_world(k, ckpt_dir, n_params, per_step_workers, launches, backend, model, steps):
+    """One sharded world of :func:`_sharded_processes` and its checks;
+    adds the workers' kernel launches to ``launches``; returns ``(lines,
+    line)``: every rank's line and the phase line."""
+    from distributed_ml_pytorch_tpu_torch.parallel.sharded_ps import shard_ranges
+
+    lines, wall = _sharded_processes(k, ckpt_dir, backend, model, steps)
+    ranges = shard_ranges(n_params, k)
+    workers = {r: lines[r] for r in range(k, k + 2)}
+    require(all(ln["rc"] == 0 for ln in lines.values()), "a rank returned non-zero")
+    for r, ln in lines.items():
+        for s, link in enumerate(ln["links"]):
+            require(link["transport"] == "ReliableTransport"
+                    and link["inner"] == "NativeTCPTransport",
+                    f"rank {r} link {s} runs {link['transport']} over {link['inner']}")
+            st = link["stats"]
+            require(st["gave_up"] == 0 and st["crc_dropped"] == 0,
+                    f"rank {r} link {s} gave up or dropped on the checksum: {st}")
+            require(st["rto_expired"] == 0 and st["retries"] == 0 and st["dup_dropped"] == 0,
+                    f"rank {r} link {s} timed out on a loss-free wire (longest ack wait "
+                    f"{link['max_ack_s']} s): {st}")
+    shards = {}
+    for s, (lo, hi) in enumerate(ranges):
+        srv = lines[s]
+        applied = srv["message_counts"].get("GradientUpdate", 0)
+        sent = sum(w["pushes_sent"][s] for w in workers.values())
+        acked = sum(w["links"][s]["acked_pushes"] for w in workers.values())
+        require(srv["quarantined"] == 0, f"shard {s}: {srv['quarantined']} quarantined")
+        require(applied == srv["apply_seq"] == sent == acked,
+                f"shard {s}: applied {applied}, apply_seq {srv['apply_seq']}, sent {sent}, "
+                f"acked {acked}")
+        require(srv["held"] == hi - lo, f"shard {s} holds {srv['held']}, not {hi - lo}")
+        shards[s] = {"range": [lo, hi], "applied": applied, "sent": sent, "acked": acked,
+                     "messages": srv["message_counts"], "version": srv["version"],
+                     "stats": srv["links"][0]["stats"], "max_ack_s": srv["links"][0]["max_ack_s"]}
+    per_worker = {}
+    s0 = _steady_record(steps)
+    for r, w in workers.items():
+        loss, t, n = w["loss"], w["t"], w["launches"]
+        require(len(loss) == steps, f"worker {r} logged {len(loss)} of {steps} steps")
+        early, late = sum(loss[:10]) / 10, sum(loss[-10:]) / 10
+        require(late < early, f"worker {r} loss did not fall: {early} -> {late}")
+        if backend == "cuda":
+            # one step a dispatch: K1 once a step, K2 three a step, plus the
+            # final eval's forward (one batch of 512)
+            require(n["flat_axpy"] == steps and n["relu_pool2_bwd.vector"] == 3 * steps
+                    and n["relu_pool2_fwd.vector"] == 3 * (steps + 1),
+                    f"worker {r} wrapper counts {n} (want the per-step path's)")
+        for name, v in n.items():
+            launches[name] = launches.get(name, 0) + v
+        s40 = SHARDED_STEADY_FROM - 1
+        per_worker[r] = {
+            "early_loss": early, "late_loss": late, "pushes_sent": w["pushes_sent"],
+            "steady_steps_per_s_40_79": (len(t) - 1 - s40) / (t[-1] - t[s40]),
+            "steady_steps_per_s": (len(t) - 1 - s0) / (t[-1] - t[s0]),
+            "phase4_per_step_steady_steps_per_s":
+                (per_step_workers or {}).get(r - k + 1, {}).get("steady_steps_per_s"),
+            "wrapper_counts": {name: v for name, v in n.items() if v},
+            "links": [{key: link[key] for key in ("stats", "max_ack_s", "acked_pushes")}
+                      for link in w["links"]]}
+    return lines, {"shards": k, "workers": 2, "batch": 64, "wall_s": wall,
+                   "per_shard": shards, "per_worker": per_worker}
+
+
+def phase_sharded_processes(torch, per_step_workers, backend="cuda", model="alexnet",
+                            steps=WORKER_STEPS, bench=True):
+    """Phase 17: the sharded DownPour world as processes, then the same
+    world with one shard (what sharding itself costs the workers); returns
+    the workers' summed kernel launch counts."""
+    import numpy as np
+
+    from distributed_ml_pytorch_tpu_torch.models import get_model
+    from distributed_ml_pytorch_tpu_torch.parallel.sharded_ps import make_shard_server
+    from distributed_ml_pytorch_tpu_torch.utils.serialization import flat_size
+
+    host_model = get_model(model, seed=0, device="cpu")
+    n_params, launches = flat_size(host_model), {}
+    lines, line = _sharded_world(N_SHARDS, SMOKE_SHARDED_DIR, n_params, per_step_workers,
+                                 launches, backend, model, steps)
+    emit({"phase": "sharded_processes", "ok": True, **line})
+    _lines, line = _sharded_world(N_SHARDS_COMPARED, SMOKE_SHARDED_DIR + "_k1", n_params,
+                                  per_step_workers, launches, backend, model, steps)
+    emit({"phase": "sharded_processes_one_shard", "ok": True, **line})
+    # a fresh pair of shard servers restores each directory bit for bit
+    restored = {}
+    for s in range(N_SHARDS):
+        fresh = make_shard_server(host_model, shard=s, n_shards=N_SHARDS,
+                                  ckpt_dir=f"{SMOKE_SHARDED_DIR}/shard{s}", wal=True)
+        try:
+            require(fresh.maybe_restore(), f"shard {s}: nothing to restore")
+            central = np.load(f"{SMOKE_SHARDED_DIR}.central{s}.npy")
+            require(np.array_equal(fresh.central, central)
+                    and fresh._apply_seq == lines[s]["apply_seq"]
+                    and fresh.staleness.version == lines[s]["version"],
+                    f"the restored shard {s} differs from its final state")
+        finally:
+            fresh.wal.close()
+        restored[s] = {"apply_seq": fresh._apply_seq, "version": fresh.staleness.version}
+    emit({"phase": "sharded_restore", "ok": True, "restored_bit_equal": True,
+          "shards": restored})
+    if not bench:
+        return launches
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    for legs, count in (("sharded_ps", 8), ("transport", 2)):
+        proc = subprocess.run([sys.executable, "-m", "distributed_ml_pytorch_tpu_torch.bench_all",
+                               "--legs", legs], cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=600)
+        require(proc.returncode == 0, f"bench_all --legs {legs} exited {proc.returncode}: "
+                                      f"{proc.stderr[-3000:]}")
+        records = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        require(len(records) == count,
+                f"bench_all --legs {legs} printed {len(records)} records, not {count}")
+        emit({"phase": f"{legs}_bench_leg", "ok": True, "records": records})
+    return launches
 
 
 # ------------------------------------------------------------------ main
@@ -2828,6 +3085,9 @@ def main() -> int:
         launches.update(bf16_launches)
         in_process = phase_chunked_worker(torch, per_step_workers)
         phase_ps_processes(torch, in_process)
+        sharded = phase_sharded_processes(torch, per_step_workers)
+        for name in ("flat_axpy", "relu_pool2_fwd", "relu_pool2_bwd"):
+            launches[name] += sharded[name]
         smi = nvidia_smi_line()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

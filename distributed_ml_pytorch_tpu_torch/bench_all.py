@@ -4,6 +4,7 @@
     python -m distributed_ml_pytorch_tpu_torch.bench_all --legs alexnet
     python -m distributed_ml_pytorch_tpu_torch.bench_all --legs conv_epilogue
     python -m distributed_ml_pytorch_tpu_torch.bench_all --legs ps
+    python -m distributed_ml_pytorch_tpu_torch.bench_all --legs sharded_ps,transport
     python -m distributed_ml_pytorch_tpu_torch.bench_all --device cpu --tiny
 
 One JSON line per measurement on stdout (the JAX ``emit`` record: config,
@@ -44,6 +45,22 @@ narration on stderr. Ported legs, under the JAX metric names:
   steady rate of its CSV's timestamps (:func:`_steady_rate_from_csv`), as
   ``async_ps_gpu_worker_throughput``, ``single_mode_scanned_throughput``
   and ``async_ps_push_pull_overhead``.
+- ``sharded_ps`` — config 3's sharded leg (JAX ``sharded_ps_phase``,
+  bench_all.py:946, and ``bench_sharded_push_rtt``, :859): the per-shard
+  apply (``ParameterServer.handle`` of one push on the first of k slices of
+  AlexNet's flat vector, 50 repetitions) at k in {1, 2, 4} as
+  ``sharded_ps_per_shard_apply_k{k}``; the round trip of pushing every
+  shard its slice of a full 9.9 MB gradient, asking every slice back and
+  waiting for all k replies, against k shard server processes over TCP, 20
+  rounds after 3 of warm-up, as ``sharded_ps_e2e_push_rtt_k{1,2}``; and
+  worlds of k shard servers and 2 AlexNet workers (on the card unless
+  ``--device cpu``), 384 images a worker at batch 16, as
+  ``sharded_ps_k{k}_aggregate_throughput`` from the wall time with start-up
+  included. ``--tiny`` shrinks the image counts only.
+- ``transport`` — config 7's wire leg (JAX ``transport_phase``,
+  bench_all.py:1719): round trips a second of a 9.9 MB payload echoed by a
+  second process, over the native transport and over the Python one, as
+  ``ps_transport_roundtrip_{native,python}``, 30 after 2 of warm-up.
 - ``conv_epilogue`` — config 1's conv-epilogue ladder (JAX
   ``compute_microbench_phase``, bench_all.py:2000-2073): ``relu_pool2``
   fused against ``max_pool_2x2(relu(x))`` on AlexNet's three relu->pool
@@ -89,6 +106,7 @@ from distributed_ml_pytorch_tpu_torch.parallel.seq_parallel import (
     next_token_targets,
 )
 from distributed_ml_pytorch_tpu_torch.parallel.async_ps import (
+    ParameterServer,
     default_downpour_tx,
     init_downpour_accumulator,
     make_downpour_device_step,
@@ -102,6 +120,7 @@ from distributed_ml_pytorch_tpu_torch.training.trainer import (
     make_train_step,
 )
 from distributed_ml_pytorch_tpu_torch.utils.devtime import device_time
+from distributed_ml_pytorch_tpu_torch.utils.serialization import ravel_model_params
 from distributed_ml_pytorch_tpu_torch.utils.flops import (
     check_flops_agreement,
     cnn_train_flops,
@@ -610,11 +629,222 @@ def ps_phase(device, tiny: bool = False) -> dict:
     return out
 
 
+#: the sharded leg's recipe (JAX bench_all.py:1017-1019): images a worker
+#: and batch, the worlds' shard counts, the apply microbench's repetitions
+SHARDED_PER_WORKER, SHARDED_BATCH, SHARDED_KS, SHARDED_APPLY_REPS = 384, 16, (1, 2, 4), 50
+#: ``--tiny``: images a worker
+TINY_SHARDED_PER_WORKER = 32
+
+_SHARD_RTT_SERVER_SRC = """
+import sys
+import numpy as np
+from distributed_ml_pytorch_tpu_torch.parallel.sharded_ps import make_shard_server
+from distributed_ml_pytorch_tpu_torch.utils.messaging import make_transport
+
+shard, k, n, port = (int(a) for a in sys.argv[1:5])
+t = make_transport(0, 2, port=port, kind="python", connect_timeout=120)
+try:
+    make_shard_server(params=np.zeros(n, np.float32), shard=shard, n_shards=k,
+                      transport=t, n_workers=1).run(timeout=600)
+finally:
+    t.close()
+"""
+
+
+def _child_env() -> dict:
+    """A child process's environment: this checkout importable."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
+    return env
+
+
+def bench_sharded_push_rtt(k: int, flat: np.ndarray, rounds: int = 20,
+                           warmup: int = 3) -> float:
+    """Mean seconds of one round against ``k`` shard server processes over
+    TCP: every shard is pushed its slice of a full gradient, then asked for
+    its slice, and the round ends when all ``k`` replies have arrived. A
+    server process that fails raises."""
+    from distributed_ml_pytorch_tpu_torch.launch import _free_port
+    from distributed_ml_pytorch_tpu_torch.parallel.async_ps import Listener
+    from distributed_ml_pytorch_tpu_torch.parallel.sharded_ps import shard_ranges
+    from distributed_ml_pytorch_tpu_torch.utils.messaging import (
+        MessageCode,
+        make_transport,
+        send_message,
+    )
+
+    n = flat.shape[0]
+    ranges = shard_ranges(n, k)
+    ports = [_free_port() for _ in range(k)]
+    procs = [subprocess.Popen([sys.executable, "-c", _SHARD_RTT_SERVER_SRC, str(s), str(k),
+                               str(n), ports[s]], env=_child_env())
+             for s in range(k)]
+    transports, listeners, times = [], [], []
+    grad = np.full(n, -1e-3, np.float32)
+    empty = np.zeros(0, np.float32)
+    try:
+        transports = [make_transport(1, 2, port=int(p), kind="python", connect_timeout=120)
+                      for p in ports]
+        listeners = [Listener(transport=t) for t in transports]
+        for listener in listeners:
+            listener.start()
+        for s, (lo, hi) in enumerate(ranges):
+            send_message(MessageCode.ParameterUpdate, flat[lo:hi], transport=transports[s])
+        for r in range(warmup + rounds):
+            t0 = time.perf_counter()
+            for s, (lo, hi) in enumerate(ranges):
+                send_message(MessageCode.GradientUpdate, grad[lo:hi], transport=transports[s])
+            for t in transports:
+                send_message(MessageCode.ParameterRequest, empty, transport=t)
+            deadline = t0 + 120.0
+            for s, listener in enumerate(listeners):
+                while listener.take_latest() is None:
+                    if time.perf_counter() > deadline:
+                        raise TimeoutError(f"shard {s}'s reply never arrived")
+                    time.sleep(0.0005)
+            if r >= warmup:
+                times.append(time.perf_counter() - t0)
+        for t in transports:
+            send_message(MessageCode.WorkerDone, empty, transport=t)
+    finally:
+        for listener in listeners:
+            listener.stop()
+        for t in transports:
+            t.close()
+        for p in procs:
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+    if any(p.returncode != 0 for p in procs):
+        raise RuntimeError(f"a shard server of the k={k} round-trip bench failed")
+    rtt = float(np.mean(times))
+    log(f"sharded push round trip, k={k}: {rtt * 1e3:.3f} ms mean over {rounds} rounds "
+        f"(min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f})")
+    return rtt
+
+
+def sharded_ps_phase(device, tiny: bool = False) -> dict:
+    """Config 3's sharded leg; returns ``{metric: value}``. Any failed
+    world or server process fails the leg (raises)."""
+    from distributed_ml_pytorch_tpu_torch.launch import launch_world
+    from distributed_ml_pytorch_tpu_torch.parallel.sharded_ps import shard_ranges
+    from distributed_ml_pytorch_tpu_torch.utils.messaging import MessageCode
+
+    dev = resolve_device(device)
+    hw = hardware(dev)
+    cut = "--tiny: fewer images; " if tiny else ""
+    flat = ravel_model_params(get_model("alexnet", seed=0, device="cpu")).numpy()
+    n = flat.shape[0]
+    out = {}
+    for k in SHARDED_KS:
+        lo, hi = shard_ranges(n, k)[0]
+        server = ParameterServer(params=flat[lo:hi])
+        payload = np.random.default_rng(0).normal(size=hi - lo).astype(np.float32)
+        t0 = time.perf_counter()
+        for _ in range(SHARDED_APPLY_REPS):
+            server.handle(1, MessageCode.GradientUpdate, payload)
+        us = (time.perf_counter() - t0) / SHARDED_APPLY_REPS * 1e6
+        out[f"sharded_ps_per_shard_apply_k{k}"] = us
+        emit(3, f"sharded_ps_per_shard_apply_k{k}", us, "microseconds/push", "1 cpu core",
+             f"the server's apply of one push on the {hi - lo:,}-element slice "
+             f"({(hi - lo) * 4 / 1e6:.1f} MB), host clock, mean of {SHARDED_APPLY_REPS}")
+    for k in (1, 2):
+        rtt = bench_sharded_push_rtt(k, flat)
+        out[f"sharded_ps_e2e_push_rtt_k{k}"] = rtt * 1e3
+        emit(3, f"sharded_ps_e2e_push_rtt_k{k}", rtt * 1e3, "milliseconds/roundtrip",
+             f"{k + 1} cpu processes, TCP",
+             f"mean push+pull round trip of the full {n * 4 / 1e6:.1f} MB gradient against "
+             f"{k} shard server process(es), Python transport, host clock")
+    per_worker = TINY_SHARDED_PER_WORKER if tiny else SHARDED_PER_WORKER
+    for k in SHARDED_KS:
+        with tempfile.TemporaryDirectory() as td:
+            t0 = time.perf_counter()
+            code = launch_world(k + 2, [
+                "--backend", dev.type, "--epochs", "1", "--synthetic-data",
+                "--synthetic-train-size", str(per_worker), "--synthetic-test-size", "64",
+                "--test-batch-size", "64", "--batch-size", str(SHARDED_BATCH),
+                "--log-interval", "100000", "--log-dir", td], n_servers=k)
+            dt = time.perf_counter() - t0
+        if code != 0:
+            raise RuntimeError(f"the sharded world at k={k} exited with code {code}")
+        agg = 2 * per_worker / dt
+        out[f"sharded_ps_k{k}_aggregate_throughput"] = agg
+        emit(3, f"sharded_ps_k{k}_aggregate_throughput", agg, "images/sec",
+             f"{hw}, {k + 2} processes",
+             f"{cut}2 AlexNet workers x {per_worker} images at batch {SHARDED_BATCH} "
+             f"against {k} shard server(s) in {dt:.1f}s wall, start-up included; TCP, "
+             "transport auto, n_push = n_pull = 10, one step a dispatch")
+    return out
+
+
+#: the transport leg's echoes, after 2 of warm-up (JAX bench_all.py:1730)
+TRANSPORT_ROUNDS = 30
+
+_ECHO_SERVER_SRC = """
+import sys
+from distributed_ml_pytorch_tpu_torch.utils.messaging import make_transport
+
+t = make_transport(0, 2, port=int(sys.argv[1]), kind=sys.argv[2], connect_timeout=120)
+for _ in range(int(sys.argv[3])):
+    sender, code, payload = t.recv(timeout=120)
+    t.send(code, payload, dst=sender)
+t.close()
+"""
+
+
+def transport_phase(device=None, tiny: bool = False) -> dict:
+    """Config 7's wire leg; returns ``{metric: round trips/s}``. A failed
+    echo raises."""
+    from distributed_ml_pytorch_tpu_torch.launch import _free_port
+    from distributed_ml_pytorch_tpu_torch.utils.messaging import MessageCode, make_transport
+
+    payload = np.zeros(2_472_266, np.float32)  # AlexNet's flat vector
+    out = {}
+    for kind in ("native", "python"):
+        port = _free_port()
+        srv = subprocess.Popen([sys.executable, "-c", _ECHO_SERVER_SRC, port, kind,
+                                str(TRANSPORT_ROUNDS + 2)], env=_child_env())
+        t = None
+        try:
+            t = make_transport(1, 2, port=int(port), kind=kind, connect_timeout=120)
+            for _ in range(2):  # warm both directions
+                t.send(MessageCode.GradientUpdate, payload)
+                if t.recv(timeout=120) is None:
+                    raise TimeoutError(f"the {kind} echo did not answer")
+            t0 = time.perf_counter()
+            for _ in range(TRANSPORT_ROUNDS):
+                t.send(MessageCode.GradientUpdate, payload)
+                if t.recv(timeout=120) is None:
+                    raise TimeoutError(f"the {kind} echo did not answer")
+            rate = TRANSPORT_ROUNDS / (time.perf_counter() - t0)
+        finally:
+            if t is not None:
+                t.close()
+            try:
+                srv.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                srv.kill()
+                srv.wait()
+        if srv.returncode != 0:
+            raise RuntimeError(f"the {kind} echo process exited with code {srv.returncode}")
+        out[f"ps_transport_roundtrip_{kind}"] = rate
+        emit(7, f"ps_transport_roundtrip_{kind}", rate, "roundtrips/sec",
+             "2 processes, localhost TCP",
+             f"9.9 MB payload echo ({2 * payload.nbytes * rate / 1e6:.0f} MB/s both ways), "
+             f"{TRANSPORT_ROUNDS} round trips after 2 of warm-up, host clock")
+    return out
+
+
 LEGS = {
     "alexnet": lambda dev, tiny: alexnet_phase(dev, tiny=tiny),
     "lm": lambda dev, tiny: lm_phase(dev, tiny=tiny),
     "conv_epilogue": lambda dev, tiny: compute_microbench_phase(dev, batch=16 if tiny else 256),
     "ps": lambda dev, tiny: ps_phase(dev, tiny=tiny),
+    "sharded_ps": lambda dev, tiny: sharded_ps_phase(dev, tiny=tiny),
+    "transport": lambda dev, tiny: transport_phase(dev, tiny=tiny),
 }
 
 

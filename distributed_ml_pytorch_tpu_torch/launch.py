@@ -7,7 +7,12 @@ the JAX ``launch.py``)::
 spawns rank 0 as the parameter server and ranks 1..N-1 as workers, all on a
 TCP rendezvous on localhost; everything after ``--`` goes to the trainer CLI
 verbatim (add ``--backend cpu`` to run without a card). Workers share the
-card; the server never touches it.
+card; the server never touches it. ``--n-servers K`` launches the sharded
+world: ranks 0..K-1 are shard servers on K consecutive ports, the rest
+workers::
+
+    python -m distributed_ml_pytorch_tpu_torch.launch --world-size 4 --n-servers 2 -- \
+        --synthetic-data
 """
 
 from __future__ import annotations
@@ -26,19 +31,43 @@ def _free_port() -> str:
         return str(s.getsockname()[1])
 
 
+def _free_port_block(n: int, attempts: int = 50) -> str:
+    """A base port with ``n`` consecutive free ports (the sharded world binds
+    base..base+n-1, one star per shard), checked by binding them all."""
+    for _ in range(attempts):
+        base = int(_free_port())
+        socks = []
+        try:
+            for i in range(n):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("", base + i))
+            return str(base)
+        except (OSError, OverflowError):  # taken, or base+i ran past 65535
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise RuntimeError(f"no block of {n} consecutive free ports found")
+
+
 def launch_world(world_size: int, extra_args: List[str], *, port: str | None = None,
-                 poll_interval: float = 0.2) -> int:
-    """Spawn the server and the workers; returns the worst exit code. If any
-    process exits non-zero while others run, the rest are killed, so a
-    crashed worker cannot leave the server waiting forever."""
-    if world_size < 2:
-        raise ValueError(f"world_size={world_size} needs a server and at least one worker")
-    port = port or _free_port()
+                 n_servers: int = 1, poll_interval: float = 0.2) -> int:
+    """Spawn the ``n_servers`` server ranks and the workers; returns the
+    worst exit code. If any process exits non-zero while others run, the
+    rest are killed, so a crashed worker cannot leave a server waiting
+    forever."""
+    if not 1 <= n_servers < world_size:
+        raise ValueError(f"n_servers={n_servers} must leave at least one worker in a "
+                         f"world of {world_size}")
+    port = port or (_free_port_block(n_servers) if n_servers > 1 else _free_port())
     common = [sys.executable, "-m", "distributed_ml_pytorch_tpu_torch.training.cli",
               "--mode", "ps", "--world-size", str(world_size), "--port", port,
-              *extra_args]
-    procs = [subprocess.Popen(common + ["--rank", "0", "--server"])]
-    procs += [subprocess.Popen(common + ["--rank", str(r)]) for r in range(1, world_size)]
+              *(["--n-servers", str(n_servers)] if n_servers > 1 else []), *extra_args]
+    procs = [subprocess.Popen(common + ["--rank", str(r), "--server"])
+             for r in range(n_servers)]
+    procs += [subprocess.Popen(common + ["--rank", str(r)])
+              for r in range(n_servers, world_size)]
     try:
         while True:
             codes = [p.poll() for p in procs]
@@ -63,10 +92,13 @@ def main(argv=None) -> int:
         description="Launch the PS world on localhost (server + workers)")
     parser.add_argument("--world-size", type=int, default=3)
     parser.add_argument("--port", type=str, default=None)
+    parser.add_argument("--n-servers", type=int, default=1, metavar="K",
+                        help="shard the parameter server across K ranks "
+                             "(the DistBelief layout)")
     args, extra = parser.parse_known_args(argv)
     if extra and extra[0] == "--":
         extra = extra[1:]
-    return launch_world(args.world_size, extra, port=args.port)
+    return launch_world(args.world_size, extra, port=args.port, n_servers=args.n_servers)
 
 
 if __name__ == "__main__":

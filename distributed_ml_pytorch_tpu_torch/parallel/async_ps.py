@@ -57,6 +57,7 @@ import collections
 import io
 import json
 import logging
+import math
 import os
 import queue
 import sys
@@ -78,8 +79,8 @@ from distributed_ml_pytorch_tpu_torch.utils.health import (
     clamp_finite32,
 )
 from distributed_ml_pytorch_tpu_torch.utils.messaging import (
+    LOGGED_BEFORE_ACK,
     SERVER_RANK,
-    WIRE_SCHEMAS,
     MessageCode,
     MessageListener,
     ReliableTransport,
@@ -437,10 +438,11 @@ class ParameterServer:
     def run(self, timeout: Optional[float] = None) -> None:
         """Serve until all workers finish (or ``stop()``/``timeout``). With
         ``worker_timeout``, a worker silent that long (heartbeats count) is
-        declared failed and no longer waited for. The log is fsync'd when
-        the inbox is idle, after any frame that is not a push, and after
-        :data:`WAL_GROUP_N` pushes; the last state is checkpointed on the way
-        out."""
+        declared failed and no longer waited for. The log is fsync'd as soon
+        as the inbox is empty, after any frame that is not a push, and after
+        :data:`WAL_GROUP_N` pushes, so pushes that queue up share one fsync
+        and no ack waits for traffic that is not there; the last state is
+        checkpointed on the way out."""
         done_workers = set()
         detector = None
         if self.worker_timeout and self.n_workers is not None:
@@ -459,10 +461,11 @@ class ParameterServer:
                 self.failed_workers = set(detector.failed)
                 if len(done_workers) + len(self.failed_workers) >= self.n_workers:
                     break
-            msg = self.transport.recv(timeout=0.2)
+            # with logged pushes whose acks wait, only look for a frame that
+            # is already there: an empty inbox closes the group at once
+            held = self.wal is not None and self.wal.pending > 0
+            msg = self.transport.recv(timeout=0.0 if held else 0.2)
             if msg is None:
-                # idle: close the WAL group, so no ack waits longer than
-                # one receive timeout
                 self.commit()
                 continue
             sender, code, payload = msg
@@ -499,8 +502,7 @@ class ParameterServer:
 def _ack_waits_for_wal(code: MessageCode) -> bool:
     """Whether the ack of ``code`` waits for the WAL's group commit
     (``durability="wal_before_ack"`` in :data:`WIRE_SCHEMAS`)."""
-    schema = WIRE_SCHEMAS.get(code)
-    return schema is not None and schema.durability == "wal_before_ack"
+    return code in LOGGED_BEFORE_ACK
 
 
 def validate_downpour_args(lr: float, n_push: int, n_pull: int) -> None:
@@ -734,7 +736,144 @@ class PushFlusher:
         self._thread.join(timeout=10)
 
 
-class Asynchronous:
+class DownpourClient:
+    """What the DownPour clients share, over one server link
+    (:class:`Asynchronous`) or one per shard (``sharded_ps.
+    ShardedAsynchronous``): the set-up, the accumulator and its push, the
+    nack resync and its hold, the per-step cadence and the finish.
+
+    A subclass sends on link ``s`` with its own degrade policy
+    (:meth:`_send_link`), installs what has arrived (:meth:`_install_arrived`,
+    adding each link it installed to ``_fresh_installed`` during a hold) and
+    says whether a link is down (:meth:`_link_down`) and what to call it;
+    :meth:`finish` stops the heartbeat senders in ``_owned_heartbeats``.
+    """
+
+    def _setup(self, model: nn.Module, lr: float, n_push: int, n_pull: int, tx,
+               transports) -> torch.Tensor:
+        """The state both clients start from; returns the flat parameters.
+        Each link's listener attaches before anything is sent, so no reply
+        can race it."""
+        validate_downpour_args(lr, n_push, n_pull)
+        self.model = model
+        self.lr = float(lr)
+        self.n_push = int(n_push)
+        self.n_pull = int(n_pull)
+        self.transports = list(transports)
+        self.idx = 0
+        self._unravel = make_unraveler(model)
+        self.tx = tx if tx is not None else default_downpour_tx(self.lr)
+        self.opt_state = self.tx.init(list(model.parameters()))
+        flat, self._flat_n, self._pad, self.accum = init_downpour_accumulator(model)
+        #: nacks taken so far; each batch sends one resync pull to every link
+        self.nacks = 0
+        self._hold_updates = False
+        #: the links installed since the hold began
+        self._fresh_installed: set = set()
+        self.skipped_updates = 0
+        #: nonfinite losses passed to step()
+        self.bad_losses = 0
+        self._device_step = make_downpour_device_step(model, self.tx, self._flat_n,
+                                                      self._pad)
+        self.listeners = [Listener(transport=t) for t in self.transports]
+        for listener in self.listeners:
+            listener.start()
+        return flat
+
+    def _send_link(self, link: int, code: MessageCode, payload) -> None:
+        raise NotImplementedError
+
+    def _link_down(self, link: int) -> bool:
+        raise NotImplementedError
+
+    def _link_name(self, link: int) -> str:
+        raise NotImplementedError
+
+    def _install_arrived(self) -> None:
+        raise NotImplementedError
+
+    def _pull_all(self) -> None:
+        for link in range(len(self.transports)):
+            self._send_link(link, MessageCode.ParameterRequest, np.zeros(0, np.float32))
+
+    def _push(self) -> None:
+        """Snapshot the accumulator's first ``flat_n`` floats for the
+        flusher and zero the accumulator in place, both on the current
+        stream; on the card an event recorded after the snapshot orders the
+        flusher's copy behind it."""
+        snap = self.accum[: self._flat_n].clone()
+        ready = None
+        if snap.is_cuda:
+            ready = torch.cuda.Event()
+            ready.record()
+        self.accum.zero_()
+        self._flusher.enqueue(snap, ready)
+
+    def _resync_on_nacks(self) -> None:
+        """A quarantined push means this worker may be diverging from the
+        central parameters it can no longer move: pull every link now, not
+        at the cadence, and hold the per-step updates until each has
+        installed (an install stomped by updates from the diverged state
+        would never converge). One pull per batch of nacks."""
+        got = 0
+        for link, listener in enumerate(self.listeners):
+            n = listener.take_nacks()
+            if n:
+                got += n
+                print(f"worker: {n} push(es) quarantined by {self._link_name(link)}'s "
+                      "admission gate — resyncing with a fresh pull", file=sys.stderr)
+        if got:
+            self.nacks += got
+            self._hold_updates = True
+            self._fresh_installed = set()
+            self._pull_all()
+
+    def step(self, loss=None) -> None:
+        """One DownPour step, after ``loss.backward()``. A nonfinite
+        ``loss`` (when given) skips the update: its gradients would poison
+        even freshly pulled parameters; the next install heals the worker."""
+        bad_loss = loss is not None and not math.isfinite(float(loss))
+        if bad_loss:
+            self.bad_losses += 1
+        self._resync_on_nacks()
+        # decided before this step's installs: even on the step that
+        # completes the resync, the gradients in hand predate the installs
+        held = self._hold_updates
+        self._install_arrived()
+        if held and self._fresh_installed >= set(range(len(self.listeners))):
+            self._hold_updates = False  # updates resume next step
+            self._fresh_installed = set()
+        if self.idx % self.n_pull == 0:
+            self._pull_all()
+        if held or bad_loss:
+            self.skipped_updates += 1
+        else:
+            self._device_step(self.opt_state, self.accum)
+        if self.idx % self.n_push == 0:
+            self._push()
+        self.idx += 1
+
+    def finish(self) -> None:
+        """Push what is left (behind every earlier push), notify every
+        server, stop the threads. Over a reliable transport every pending
+        frame of a live link is flushed first: the layer guarantees
+        delivery, not order, and a retried push landing after
+        ``WorkerDone`` could find the server gone."""
+        self._push()
+        self._flusher.drain()
+        for link, t in enumerate(self.transports):
+            flush = getattr(t, "flush", None)
+            if flush is not None and not self._link_down(link):
+                flush(timeout=10.0)
+            self._send_link(link, MessageCode.WorkerDone, np.zeros(0, np.float32))
+        self._flusher.stop()
+        for hb in self._owned_heartbeats:
+            hb.stop()
+        for listener in self.listeners:
+            listener.stop()
+
+
+class Asynchronous(DownpourClient):
     """DownPour-SGD client optimizer (reference ``Asynchronous.py:20-71``).
 
     Used like a torch optimizer: after ``loss.backward()``, ``opt.step()``
@@ -758,20 +897,9 @@ class Asynchronous:
     def __init__(self, model: nn.Module, lr: float, n_push: int, n_pull: int, *,
                  tx=None, transport: Optional[Transport] = None, heartbeat=None,
                  rejoin: bool = False, install_timeout: float = 5.0):
-        validate_downpour_args(lr, n_push, n_pull)
-        self.model = model
-        self.lr = float(lr)
-        self.n_push = int(n_push)
-        self.n_pull = int(n_pull)
+        flat = self._setup(model, lr, n_push, n_pull, tx, [transport])
         self.transport = transport
-        self.idx = 0
-        self._unravel = make_unraveler(model)
-        self.tx = tx if tx is not None else default_downpour_tx(self.lr)
-        self.opt_state = self.tx.init(list(model.parameters()))
-        flat, self._flat_n, self._pad, self.accum = init_downpour_accumulator(model)
-        # attach the listener before anything is sent, so no reply can race it
-        self.listener = Listener(transport=transport)
-        self.listener.start()
+        self.listener = self.listeners[0]
         if rejoin:
             send_message(MessageCode.ParameterRequest, np.zeros(0, np.float32),
                          transport=transport)
@@ -783,12 +911,7 @@ class Asynchronous:
             send_message(MessageCode.ParameterUpdate, flat, transport=transport)
         self.server_down = False
         self.heartbeat = heartbeat
-        #: nacks taken so far; each batch sends one resync pull
-        self.nacks = 0
-        self._hold_updates = False
-        self.skipped_updates = 0
-        self._device_step = make_downpour_device_step(model, self.tx, self._flat_n,
-                                                      self._pad)
+        self._owned_heartbeats = [heartbeat] if heartbeat is not None else []
         self._chunk_step = None
         self._flusher = PushFlusher(
             lambda arr: self._send(MessageCode.GradientUpdate, arr))
@@ -809,37 +932,27 @@ class Asynchronous:
         print("worker: parameter server unreachable — continuing with purely-local "
               "SGD (no further push/pull)", file=sys.stderr)
 
+    def _send_link(self, link: int, code: MessageCode, payload) -> None:
+        self._send(code, payload)
+
+    def _link_down(self, link: int) -> bool:
+        return self.server_down
+
+    def _link_name(self, link: int) -> str:
+        return "the server"
+
     def install(self, flat: np.ndarray) -> None:
         """Copy a central vector into the model, in place (between steps)."""
         device = self.accum.device
         unravel_model_params(self.model, torch.from_numpy(flat).to(device),
                              unravel=self._unravel)
 
-    def _push(self) -> None:
-        """Snapshot the accumulator's first ``flat_n`` floats for the
-        flusher and zero the accumulator in place, both on the current
-        stream; on the card an event recorded after the snapshot orders the
-        flusher's copy behind it."""
-        snap = self.accum[: self._flat_n].clone()
-        ready = None
-        if snap.is_cuda:
-            ready = torch.cuda.Event()
-            ready.record()
-        self.accum.zero_()
-        self._flusher.enqueue(snap, ready)
-
-    def _resync_on_nacks(self) -> None:
-        """A quarantined push means this worker may be diverging from the
-        central vector it can no longer move: pull now, not at the cadence,
-        and hold the per-step updates until the pull is installed. One pull
-        per batch of nacks."""
-        n = self.listener.take_nacks()
-        if n:
-            self.nacks += n
-            self._hold_updates = True
-            print(f"worker: {n} push(es) quarantined by the server's admission gate — "
-                  "resyncing with a fresh pull", file=sys.stderr)
-            self._send(MessageCode.ParameterRequest, np.zeros(0, np.float32))
+    def _install_arrived(self) -> None:
+        latest = self.listener.take_latest()
+        if latest is not None:
+            self.install(latest)
+            if self._hold_updates:
+                self._fresh_installed.add(0)
 
     def boundary(self, gap: int) -> Optional[np.ndarray]:
         """The host communication at gap ``gap`` (between steps ``gap − 1``
@@ -856,47 +969,11 @@ class Asynchronous:
         if latest is not None:
             self.install(latest)
             self._hold_updates = False
+            self._fresh_installed = set()
         if gap % self.n_pull == 0:
-            self._send(MessageCode.ParameterRequest, np.zeros(0, np.float32))
+            self._pull_all()
         self.idx = gap
         return latest
-
-    def step(self) -> None:
-        self._resync_on_nacks()
-        # decided before this step's install: even on the step that
-        # completes the resync, the gradients in hand predate the install
-        held = self._hold_updates
-        latest = self.listener.take_latest()
-        if latest is not None:
-            self.install(latest)
-            if held:
-                self._hold_updates = False  # updates resume next step
-        if self.idx % self.n_pull == 0:
-            self._send(MessageCode.ParameterRequest, np.zeros(0, np.float32))
-        if held:
-            self.skipped_updates += 1
-        else:
-            self._device_step(self.opt_state, self.accum)
-        if self.idx % self.n_push == 0:
-            self._push()
-        self.idx += 1
-
-    def finish(self) -> None:
-        """Push what is left (behind every earlier push), notify the server,
-        stop the threads. Over a reliable transport every pending frame is
-        flushed first: the layer guarantees delivery, not order, and a
-        retried push landing after ``WorkerDone`` could find the server
-        gone."""
-        self._push()
-        self._flusher.drain()
-        flush = getattr(self.transport, "flush", None)
-        if flush is not None and not self.server_down:
-            flush(timeout=10.0)
-        self._send(MessageCode.WorkerDone, np.zeros(0, np.float32))
-        self._flusher.stop()
-        if self.heartbeat is not None:
-            self.heartbeat.stop()
-        self.listener.stop()
 
 
 # the same optimizer under its original DownPour name
@@ -911,8 +988,8 @@ def _chunk_step_cache(opt: Asynchronous, max_chunk: int):
     return opt._chunk_step
 
 
-def train_worker(args, transport: Transport, heartbeat=None,
-                 device="cuda") -> Tuple[nn.Module, "MetricsLogger"]:
+def train_worker(args, transport: Transport, heartbeat=None, device="cuda",
+                 opt_factory=None) -> Tuple[nn.Module, "MetricsLogger"]:
     """Worker-side training loop (reference ``main(args)`` distributed
     branch): an eval every ``log_interval`` steps and at each epoch end.
     Sets full float32 (no TF32) for the run.
@@ -924,7 +1001,13 @@ def train_worker(args, transport: Transport, heartbeat=None,
     per-step losses stay on the device until an eval, every
     :data:`LOSS_FLUSH_DISPATCHES` dispatches and the end of the epoch, and every step that crosses an eval interval
     gets a record carrying the evaluation at its chunk's end, so the CSV has
-    the per-step path's rows. ``off`` runs one step a dispatch."""
+    the per-step path's rows. ``off`` runs one step a dispatch.
+
+    ``opt_factory(model, tx) -> optimizer`` replaces the default
+    :class:`Asynchronous` (the sharded worker's
+    ``parallel/sharded_ps.ShardedAsynchronous``). Only an optimizer with
+    ``boundary`` runs chunked, as in the JAX package: any other runs one
+    step a dispatch whatever ``--chunked-dispatch`` says."""
     from distributed_ml_pytorch_tpu_torch.data import get_dataset, iterate_batches
     from distributed_ml_pytorch_tpu_torch.device import full_float32, resolve_device
     from distributed_ml_pytorch_tpu_torch.models import get_model
@@ -946,15 +1029,20 @@ def train_worker(args, transport: Transport, heartbeat=None,
                       seed=seed, device=dev)
     # the full optimizer surface of the CLI, its schedule in local updates
     steps_per_epoch = len(x_train) // args.batch_size
-    opt = Asynchronous(model, lr=args.lr, n_push=args.num_push, n_pull=args.num_pull,
-                       tx=tx_from_args(args, steps_per_epoch), transport=transport,
-                       heartbeat=heartbeat, rejoin=getattr(args, "rejoin", False))
+    tx = tx_from_args(args, steps_per_epoch)
+    if opt_factory is not None:
+        opt = opt_factory(model, tx)
+    else:
+        opt = Asynchronous(model, lr=args.lr, n_push=args.num_push, n_pull=args.num_pull,
+                           tx=tx, transport=transport, heartbeat=heartbeat,
+                           rejoin=getattr(args, "rejoin", False))
     gen = torch.Generator(device=dev).manual_seed(seed + 1 + transport.rank)
     eval_step = make_eval_fn(model)
     logger = MetricsLogger(getattr(args, "log_dir", "runs"))
     spd = int(getattr(args, "steps_per_dispatch", 1) or 1)
     mode = getattr(args, "chunked_dispatch", "auto")
     chunked = (dev.type == "cuda" or spd > 1) if mode == "auto" else mode == "on"
+    chunked = chunked and hasattr(opt, "boundary")
     max_chunk = spd if spd > 1 else 64
     for epoch in range(args.epochs):
         print("Training for epoch {}".format(epoch))
@@ -1010,23 +1098,31 @@ def train_worker(args, transport: Transport, heartbeat=None,
     return model, logger
 
 
-def run_server(args, transport: Transport) -> ParameterServer:
-    """Server-side entry (reference ``init_server``): the central vector
+def make_server(args) -> ParameterServer:
+    """The server of ``args`` before it has a transport: the central vector
     starts from the seeded model, built on the host — the server never
-    touches the card. ``--ckpt-dir``/``--ckpt-every``/``--resume``,
-    ``--wal``, ``--admission*`` and ``--staleness-damping`` configure its
-    planes."""
+    touches the card. ``--ckpt-dir``/``--ckpt-every``, ``--wal``,
+    ``--admission*`` and ``--staleness-damping`` configure its planes."""
     from distributed_ml_pytorch_tpu_torch.models import get_model
 
     model = get_model(getattr(args, "model", "alexnet"), seed=getattr(args, "seed", 0),
                       device="cpu")
-    server = ParameterServer(model, transport=transport, n_workers=args.world_size - 1,
-                             worker_timeout=getattr(args, "worker_timeout", 0.0) or None,
-                             ckpt_dir=getattr(args, "ckpt_dir", "") or None,
-                             ckpt_every=getattr(args, "ckpt_every", 500),
-                             staleness_damping=getattr(args, "staleness_damping", 0.0),
-                             wal=getattr(args, "wal", False),
-                             admission=admission_from_args(args))
+    return ParameterServer(model, n_workers=args.world_size - 1,
+                           worker_timeout=getattr(args, "worker_timeout", 0.0) or None,
+                           ckpt_dir=getattr(args, "ckpt_dir", "") or None,
+                           ckpt_every=getattr(args, "ckpt_every", 500),
+                           staleness_damping=getattr(args, "staleness_damping", 0.0),
+                           wal=getattr(args, "wal", False),
+                           admission=admission_from_args(args))
+
+
+def run_server(args, transport: Transport,
+               server: Optional[ParameterServer] = None) -> ParameterServer:
+    """Server-side entry (reference ``init_server``): ``server`` (by default
+    :func:`make_server`'s) serves over ``transport``, first restoring its
+    state with ``--resume``."""
+    server = server if server is not None else make_server(args)
+    server.transport = transport
     if getattr(args, "resume", False) and server.maybe_restore():
         print("parameter server: resumed central params from", server._ckpt_path())
     server.run()
@@ -1043,6 +1139,9 @@ def run_ps_process(args) -> int:
     if args.rank is None:
         raise SystemExit("--rank is required for distributed --mode ps runs")
     is_server = args.server or args.rank == SERVER_RANK
+    # the server is built before it listens: a worker's first frames must
+    # not wait out the server's start-up for their acks
+    server = make_server(args) if is_server else None
     transport = make_transport(
         args.rank, args.world_size, args.master, int(args.port),
         kind=getattr(args, "transport", "auto"), reliable=getattr(args, "reliable", False),
@@ -1052,7 +1151,7 @@ def run_ps_process(args) -> int:
     heartbeat = None
     try:
         if is_server:
-            server = run_server(args, transport)
+            run_server(args, transport, server)
             if not server.failed_workers:
                 print("parameter server: all workers done")
         else:

@@ -18,8 +18,11 @@ between communication gaps as one dispatch, a CUDA graph on the card) and
 ``--staleness-damping``; every rank takes ``--transport`` (the native C++
 library, the Python sockets, or auto) and ``--reliable`` (the reliable
 wire; with ``--wal`` the server acks a push only after the log's fsync).
-Flags of the JAX CLI that this package does not implement (compression,
-Adasum, the server-side optimizer, sharded servers, the other
+``--n-servers K`` shards the server across ranks 0..K-1, each owning a
+contiguous range of the central vector on ``port + shard``
+(``parallel/sharded_ps.py``); its workers run one step a dispatch, as the
+JAX package's do. Flags of the JAX CLI that this package does not
+implement (compression, Adasum, the server-side optimizer, the other
 distributed modes, the coordinator, the manifest path, profiling and the
 metrics dump) are absent, so argparse rejects them instead of ignoring
 them.
@@ -58,6 +61,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="rank of current process (0 is server, 1+ is training node)")
     p.add_argument("--world-size", type=int, default=3, metavar="N",
                    help="size of the world")
+    p.add_argument("--n-servers", type=int, default=1, metavar="K",
+                   help="(--mode ps) shard the parameter server across K "
+                        "ranks (0..K-1), each owning a contiguous range of "
+                        "the central vector on its own port (port+shard) — "
+                        "the DistBelief layout (parallel/sharded_ps.py)")
     p.add_argument("--server", action="store_true", default=False, help="server node?")
     p.add_argument("--master", type=str, default="localhost",
                    help="ip address of the master (server) node")
@@ -151,7 +159,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="(--mode ps workers) run each between-comm run of local SGD as "
                         "one dispatch (a CUDA graph of one step replayed) with exact "
                         "push/pull cadence semantics; 'auto' enables it on the card, "
-                        "where per-step dispatch leaves the card mostly idle")
+                        "where per-step dispatch leaves the card mostly idle. With "
+                        "--n-servers > 1 the workers run one step a dispatch whatever "
+                        "this says, as the JAX package's do")
     p.add_argument("--heartbeat-interval", type=float, default=1.0, metavar="SEC",
                    help="PS-mode worker liveness heartbeat cadence; 0 disables")
     p.add_argument("--worker-timeout", type=float, default=30.0, metavar="SEC",
@@ -176,6 +186,12 @@ def main(argv=None) -> int:
         print("wrote", logger.to_csv(name))
         print("Finished Training")
         return 0
+    if args.n_servers > 1:
+        from distributed_ml_pytorch_tpu_torch.parallel.sharded_ps import (
+            run_sharded_ps_process,
+        )
+
+        return run_sharded_ps_process(args)
     from distributed_ml_pytorch_tpu_torch.parallel.async_ps import run_ps_process
 
     return run_ps_process(args)

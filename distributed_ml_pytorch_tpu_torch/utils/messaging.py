@@ -40,12 +40,14 @@ import collections
 import dataclasses
 import enum
 import logging
+import os
 import queue
 import random
 import socket
 import struct
 import threading
 import time
+import weakref
 import zlib
 from typing import Dict, Optional, Tuple
 
@@ -297,6 +299,10 @@ WIRE_SCHEMAS: Dict[MessageCode, PayloadSchema] = {
 #: the codes sent without the reliability envelope: periodic and
 #: self-healing, never retried (``delivery="best_effort"``)
 BEST_EFFORT_CODES = tuple(c for c, s in WIRE_SCHEMAS.items() if s.delivery == "best_effort")
+#: the codes whose ack a durable receiver holds until they are logged
+#: (``durability="wal_before_ack"``)
+LOGGED_BEFORE_ACK = frozenset(c for c, s in WIRE_SCHEMAS.items()
+                              if s.durability == "wal_before_ack")
 
 Message = Tuple[int, MessageCode, np.ndarray]
 
@@ -511,6 +517,19 @@ class TCPTransport(Transport):
                     pass
         self._spawn_reader(conn)
 
+    def wait_for_peers(self, n: int, timeout: float) -> None:
+        """Block until ``n`` workers have connected (a server built with
+        ``wait_for=0`` admits them on its accept thread); raises
+        ``TimeoutError`` after ``timeout`` seconds."""
+        deadline = time.monotonic() + timeout
+        while True:
+            with self._peers_mu:
+                if len(self._peers) >= n:
+                    return
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"{n} workers did not connect within {timeout:.0f} s")
+            time.sleep(0.01)
+
     def _send_lock_for(self, dst: int) -> threading.Lock:
         """The peer's send lock, made on first use (holds only _peers_mu)."""
         with self._peers_mu:
@@ -647,25 +666,54 @@ def _frame_crc(inc: int, seq: int, code: int, body, corr: int = 0) -> int:
     return zlib.crc32(mv, h) & 0xFFFFFFFF
 
 
+#: frames a reliable receiver's retry tick takes in (and acks) ahead of an
+#: application that is not calling recv(): a worker's install, pull and
+#: push sent before the server's loop has started, from two workers
+PARK_MAX = 8
+
 _INC_LOCK = threading.Lock()
 _LAST_INC = 0
 
 
 def _next_incarnation() -> int:
-    """A stamp for one life of a sender or server: epoch seconds in 32 bits
-    (they wrap in 2106; milliseconds would wrap every 50 days and make a
-    restart after the wrap read as an older life), strictly increasing
-    within the process, so two lives begun in the same second still
-    differ."""
+    """A stamp for one life of a server (its WAL records): epoch seconds in
+    32 bits (they wrap in 2106; milliseconds would wrap every 50 days and
+    make a restart after the wrap read as an older life), strictly
+    increasing within the process, so two lives begun in the same second
+    still differ."""
     global _LAST_INC
     with _INC_LOCK:
         _LAST_INC = max(_LAST_INC + 1, int(time.time()) & 0xFFFFFFFF)
         return _LAST_INC
 
 
+#: the last incarnation stamped on each endpoint a reliable sender wraps
+_STAMPED: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _wire_incarnation(endpoint) -> int:
+    """The incarnation a reliable sender stamps on its frames: the
+    wall-clock second it starts in, never a later one, so a receiver of
+    either package orders it against a life of the other package begun in
+    another second (a JAX life stamps its start second). A new wrapper of
+    an endpoint this process stamped in this second (a restart within the
+    process) waits for the next second, so it is strictly newer for every
+    receiver. Lives in two processes may still share a second: the port's
+    receiver tells them apart by their first frames' nonces
+    (:class:`ReliableTransport`), the JAX receiver cannot."""
+    while True:
+        with _INC_LOCK:
+            now = time.time()
+            stamp = int(now) & 0xFFFFFFFF
+            if stamp > _STAMPED.get(endpoint, -1):
+                _STAMPED[endpoint] = stamp
+                return stamp
+        time.sleep(max(0.001, 1.0 - (now - int(now))))
+
+
 class _Pending:
     __slots__ = ("parts", "dst", "deadline", "attempt", "code",
-                 "first_sent", "retransmitted", "corr")
+                 "first_sent", "retransmitted", "corr", "clock")
 
     def __init__(self, parts, dst: int, deadline: float, code: int = -1,
                  corr: int = 0):
@@ -682,6 +730,9 @@ class _Pending:
         #: (an ack of a retransmitted frame does not say which copy it
         #: answers)
         self.retransmitted = False
+        #: when the frame's retransmit clock last started: its send, or the
+        #: ack of an older frame toward the same peer
+        self.clock = 0.0
 
 
 class _PeerState:
@@ -741,17 +792,26 @@ class ReliableTransport(Transport):
     retry delivers a clean copy); a duplicate is re-acked but not
     delivered again, so a ``GradientUpdate`` is applied exactly once under
     duplicates and retries. Plain frames from an unwrapped peer pass
-    through. Each sender instance stamps an *incarnation*: a newer one
-    resets that rank's dedup state (a restarted process's fresh sequence
-    space), an older one is acked and dropped; any frame from a rank
-    declared dead revives it for sending.
+    through. Each sender instance stamps an *incarnation* (its start
+    second): a newer one resets that rank's dedup state (a restarted
+    process's fresh sequence space), an older one is acked and dropped; any
+    frame from a rank declared dead revives it for sending. Two lives begun
+    in the same second share an incarnation, so each life's first frame to
+    a peer (seq 0) carries a random per-life *nonce* in place of an absent
+    correlation id: a seq-0 frame whose checksum differs from every seq 0
+    of that incarnation starts a new life.
 
     **Per peer:**
 
     - *timeout*: Jacobson/Karels SRTT/RTTVAR from ack round trips (Karn's
       rule: never from a retransmitted frame), clamped to ``[ack_timeout,
       max_backoff]``; a timeout doubles it; retransmits back off
-      exponentially with seeded jitter;
+      exponentially with seeded jitter. A frame's clock starts once its
+      last byte has been handed to the inner transport, and an ack of the
+      oldest frame pending toward a peer restarts the clocks of the others
+      (RFC 6298 §5.3): a receiver that works through a queue of frames is
+      slow, not lossy, and a timeout measures how long the peer made no
+      progress, not how long a frame queued behind others;
     - *window*: at most ``min(send_window, advertised credit)`` unacked
       frames; :meth:`send` blocks there (and pumps the inner transport, so
       acks clear on a rank with no receiving thread), counting
@@ -759,18 +819,28 @@ class ReliableTransport(Transport):
     - *cumulative acks*: in-order deliveries are acked by one ``CumAck(inc,
       cum, credit)`` per ``ack_batch_n`` frames or retry tick; frames above
       a gap get an individual ``ReliableAck`` at once;
-    - *deferred acks* (``ack_on_delivery=False``): a delivered frame's ack
-      waits for :meth:`ack_delivered` (the server calls it after the WAL's
-      fsync), and a duplicate of it is not re-acked early;
+    - *deferred acks* (``ack_on_delivery=False``): the ack of a delivered
+      frame whose code must be logged before it is acked (``durability=
+      "wal_before_ack"`` in :data:`WIRE_SCHEMAS`: the push) waits for
+      :meth:`ack_delivered` (the server calls it after the WAL's fsync), and
+      a duplicate of it is not re-acked early; other codes are acked on
+      delivery, since no log holds them;
     - *circuit breaker*: ``breaker_fails`` timed-out ticks with the peer
       ack-silent for ``breaker_grace`` open it: sends fail fast, retransmits
       pause, and after a growing cooldown one pending frame probes
       (half-open); an ack closes it.
 
+    **Acks do not wait for the application.** Each retry tick also takes
+    in every frame already waiting in the inner transport: acks clear
+    pending frames, and data frames are checked, deduplicated, made due for
+    their ack and parked, with their envelope, for :meth:`recv` to hand out
+    in arrival order. Parked frames count against the credit this receiver
+    advertises, so a slow application still narrows its senders' windows.
+
     ``recorder`` (a flight recorder) is always ``None`` in this package.
     """
 
-    def __init__(self, inner: Transport, *, ack_timeout: float = 0.1,
+    def __init__(self, inner: Transport, *, ack_timeout: float = 1.0,
                  max_backoff: float = 2.0, max_retries: int = 10,
                  dedup_window: int = 4096,
                  unreliable_codes: Tuple[MessageCode, ...] = BEST_EFFORT_CODES,
@@ -803,15 +873,23 @@ class ReliableTransport(Transport):
         #: seeded per rank: retransmits desynchronize across peers and
         #: replay per rank
         self._jrng = random.Random((self.rank << 8) ^ 0x5EED)
-        self.incarnation = _next_incarnation()
+        self.incarnation = _wire_incarnation(inner)
+        #: this life's first frame to each peer carries it (never 0)
+        self.nonce = int.from_bytes(os.urandom(4), "little") or 1
         self._next_seq: Dict[int, int] = {}
         self._pending: Dict[Tuple[int, int], _Pending] = {}
         self._peers: Dict[int, _PeerState] = {}
-        #: frames that arrived while a blocked send() or flush() pumped the
-        #: inner transport, each with the correlation id its delivery set,
-        #: handed out by the next recv()
+        #: deliverable frames taken in by the retry tick or by a blocked
+        #: send() or flush(), each ``(corr, envelope, message)``, handed out
+        #: by recv() before anything newer
         self._requeue: "collections.deque" = collections.deque()
+        #: held by whichever thread reads the inner transport, so frames are
+        #: parked and handed out in the order they arrived
+        self._rx_lock = threading.Lock()
         self._seen: Dict[int, "collections.OrderedDict"] = {}
+        #: per sender, the checksums of the seq-0 frames delivered in its
+        #: current incarnation: one per life begun in that second
+        self._firsts: Dict[int, set] = {}
         self._peer_inc: Dict[int, int] = {}
         self._rx: Dict[int, _RxState] = {}
         self._credit_override: Optional[int] = None
@@ -831,6 +909,10 @@ class ReliableTransport(Transport):
             # seconds that sends spent blocked at the window
             "window_blocked_s": 0.0,
         }
+        #: the longest a frame's clock ran before its ack (seconds, frames
+        #: never retransmitted): a timeout fires when it passes the peer's
+        #: timeout, which is never below ``ack_timeout``
+        self.max_ack_wait = 0.0
         self.recorder = None
         self._retry_wake = threading.Event()
         self._retry_thread = threading.Thread(target=self._retry_loop, name="reliable-retry",
@@ -913,6 +995,8 @@ class ReliableTransport(Transport):
                            "circuit breaker open (consecutive timeouts)"))
                 if self._closed or st.inflight < self._window(st):
                     seq = self._next_seq.get(dst, 0)
+                    if seq == 0 and corr == 0:
+                        corr = self.nonce
                     self._next_seq[dst] = seq + 1
                     # reserve the window slot inside the check's critical
                     # section: two sending threads must not both pass it
@@ -922,9 +1006,7 @@ class ReliableTransport(Transport):
                     blocked = True
                     block_t0 = time.monotonic_ns()
                     self.stats["window_blocked"] += 1
-            delivered = self._process(self.inner.recv(timeout=0.02))
-            if delivered is not None:
-                self._requeue.append((_obs.current_corr(), delivered))
+            self._pump(timeout=0.02)
         if blocked:
             with self._lock:
                 self.stats["window_blocked_s"] += (time.monotonic_ns() - block_t0) / 1e9
@@ -943,13 +1025,20 @@ class ReliableTransport(Transport):
         with self._lock:
             st = self._peer(dst)
             p = _Pending(parts, dst, now + st.rto, code=int(code), corr=corr)
-            p.first_sent = now
+            p.first_sent = p.clock = now
             self._pending[(dst, seq)] = p
             self.stats["sent"] += 1
         try:
             self.inner.sendv(MessageCode.ReliableFrame, parts, dst=dst)
         except (OSError, ConnectionError, KeyError):
-            pass  # the retry thread owns recovery: the frame is pending
+            return  # the retry thread owns recovery: the frame is pending
+        # the clock starts once the frame has left: the time to hand 9.9 MB
+        # to a contended socket is not round-trip time
+        now = time.monotonic()
+        with self._lock:
+            if not p.retransmitted and self._pending.get((dst, seq)) is p:
+                p.first_sent = p.clock = now
+                p.deadline = now + self._peer(dst).rto
 
     def _window(self, st: _PeerState) -> int:
         """The effective send window, never below 1 (a zero credit must not
@@ -958,6 +1047,19 @@ class ReliableTransport(Transport):
         if st.credit is not None:
             w = min(w, st.credit)
         return max(1, w)
+
+    def _restart_clocks(self, dst: int, now: float) -> None:
+        """The oldest frame pending toward ``dst`` was acked: the peer made
+        progress, so the clocks of the frames queued behind it start again
+        (retransmitted frames keep their backoff). Caller holds ``_lock``."""
+        rto = self._peer(dst).rto
+        for (d, _seq), p in self._pending.items():
+            if d == dst and not p.retransmitted and p.deadline < now + rto:
+                p.clock, p.deadline = now, now + rto
+
+    def _oldest_pending(self, dst: int) -> Optional[int]:
+        """The lowest seq pending toward ``dst``. Caller holds ``_lock``."""
+        return min((seq for d, seq in self._pending if d == dst), default=None)
 
     def _pop_pending(self, key) -> Optional[_Pending]:
         """Caller holds ``_lock``."""
@@ -1065,14 +1167,49 @@ class ReliableTransport(Transport):
             self._retry_wake.clear()
             if self._closed:
                 return
+            self._pump_arrivals()
             self._flush_acks()  # the timed cumulative-ack flush
             self._retry_tick()
 
     # ---------------------------------------------------------------- recv
 
-    def _process(self, msg: Optional[Message]) -> Optional[Message]:
+    def _pump(self, timeout: float) -> None:
+        """Take in one inner frame (waiting up to ``timeout``) and park it if
+        deliverable; when another thread is reading the inner transport, it
+        processes what arrives, and this only waits."""
+        if not self._rx_lock.acquire(timeout=timeout):
+            return
+        try:
+            delivery = self._process(self.inner.recv(timeout=timeout))
+            if delivery is not None:
+                self._requeue.append(delivery)
+        finally:
+            self._rx_lock.release()
+
+    def _pump_arrivals(self) -> None:
+        """Take in the frames already waiting in the inner transport (the
+        retry tick's share of receiving), unless a thread is receiving now,
+        until :data:`PARK_MAX` frames wait for the application: beyond
+        that, arrivals stay unacked in the inner transport, so a receiver
+        that stops reading still closes its senders' windows."""
+        if not self._rx_lock.acquire(blocking=False):
+            return
+        try:
+            while not self._closed and len(self._requeue) < PARK_MAX:
+                msg = self.inner.recv(timeout=0.0)
+                if msg is None:
+                    return
+                delivery = self._process(msg)
+                if delivery is not None:
+                    self._requeue.append(delivery)
+        finally:
+            self._rx_lock.release()
+
+    def _process(self, msg: Optional[Message]):
         """Handle one inner frame: acks and envelope bookkeeping are
-        absorbed; returns a deliverable message or ``None``."""
+        absorbed; returns ``(corr, envelope, message)`` for a deliverable
+        frame (``envelope`` is ``(incarnation, seq)``, ``None`` for a plain
+        frame), else ``None``. Caller holds ``_rx_lock``."""
         if msg is None:
             return None
         sender, code, payload = msg
@@ -1091,11 +1228,15 @@ class ReliableTransport(Transport):
                     return None
                 now = time.monotonic()
                 with self._lock:
+                    head = self._oldest_pending(sender) == seq
                     p = self._pop_pending((sender, seq))
                     if p is not None:
                         st = self._peer(sender)
                         if not p.retransmitted:
                             self._rtt_sample(st, now - p.first_sent)
+                            self.max_ack_wait = max(self.max_ack_wait, now - p.clock)
+                        if head:
+                            self._restart_clocks(sender, now)
                         self._on_peer_ack(st)
                         self.stats["acked"] += 1
                         key = (sender, p.code)
@@ -1125,19 +1266,23 @@ class ReliableTransport(Transport):
                         self.stats["cum_acked"] += 1
                         ck = (sender, p.code)
                         self._acked_codes[ck] = self._acked_codes.get(ck, 0) + 1
-                        if not p.retransmitted and (freshest is None
-                                                    or p.first_sent > freshest):
+                        if p.retransmitted:
+                            continue
+                        self.max_ack_wait = max(self.max_ack_wait, now - p.clock)
+                        if freshest is None or p.first_sent > freshest:
                             freshest = p.first_sent
                     if freshest is not None:
                         self._rtt_sample(st, now - freshest)
+                    if keys:  # every key is <= cum, so the oldest was among them
+                        self._restart_clocks(sender, now)
                     self._on_peer_ack(st)
             return None
         if code != MessageCode.ReliableFrame:
             with self._lock:
                 self.stats["passthrough"] += 1
-                self._last_delivery = None  # no envelope to remember
-            _obs.set_corr(0)  # no envelope: never inherit a stale id
-            return msg  # a plain frame from an unwrapped peer
+            # a plain frame from an unwrapped peer: no envelope to remember,
+            # and no correlation id (never inherit a stale one)
+            return 0, None, msg
         if payload.size < 9:
             return None  # a truncated envelope: unacked, the sender retries
         try:
@@ -1159,12 +1304,17 @@ class ReliableTransport(Transport):
             return None
         with self._lock:
             known = self._peer_inc.get(sender)
-            if known is None or inc > known:
-                # a newer incarnation of this rank: a fresh sequence space,
-                # which the old dedup state would blackhole
+            new_second = known is None or inc > known
+            if new_second or (inc == known and self._another_life(sender, inc, seq, crc)):
+                # a newer life of this rank: a fresh sequence space, which
+                # the old dedup state would blackhole
                 self._peer_inc[sender] = inc
                 self._seen.pop(sender, None)
                 self._rx[sender] = _RxState(inc)
+                if new_second:
+                    self._firsts[sender] = set()
+            if seq == 0 and inc == self._peer_inc[sender]:
+                self._firsts.setdefault(sender, set()).add(crc)
             # inc < known: a retry from the rank's previous life, acked
             # below so the dead process stops retrying, never delivered
             stale = known is not None and inc < known
@@ -1189,14 +1339,13 @@ class ReliableTransport(Transport):
                         seen.popitem(last=False)
                     self.stats["delivered"] += 1
         key = (sender, seq, inc)
-        if deliver and not dup and not self.ack_on_delivery:
-            # log-before-ack: ack_delivered() releases this ack once the
-            # applied update is durable
+        if deliver and not dup and not self.ack_on_delivery and mcode in LOGGED_BEFORE_ACK:
+            # log-before-ack: withheld from here on; ack_delivered() releases
+            # it once recv() has handed the frame out and the update behind
+            # it is durable (a frame still parked is not yet applied)
             with self._lock:
-                self._deferred_acks[key] = True
-                self._last_delivery = (inc, seq)
-            _obs.set_corr(corr)
-            return sender, mcode, body
+                self._deferred_acks[key] = False
+            return corr, (inc, seq), (sender, mcode, body)
         send_individual = False
         flush_now = False
         with self._lock:
@@ -1230,11 +1379,26 @@ class ReliableTransport(Transport):
         if flush_now:
             self._flush_acks()
         if deliver and not dup:
-            with self._lock:
-                self._last_delivery = (inc, seq)
-            _obs.set_corr(corr)  # the handler inherits the sender's unit of work
-            return sender, mcode, body
+            return corr, (inc, seq), (sender, mcode, body)
         return None
+
+    def _another_life(self, sender: int, inc: int, seq: int, crc: int) -> bool:
+        """Whether a frame of ``sender``'s current incarnation is the first
+        of a new life begun in the same second: a seq 0 whose checksum no
+        seq 0 of this incarnation had (a retry repeats its frame's; a new
+        life's carries its own nonce). A seq 0 seeded from the log, its
+        checksum unknown, is taken as a retry. The old life's withheld acks
+        are dropped: they would name the new life's seqs. Caller holds
+        ``_lock``."""
+        firsts = self._firsts.get(sender)
+        if seq != 0 or not firsts or crc in firsts:
+            return False
+        for key in [k for k in self._deferred_acks if k[0] == sender and k[2] == inc]:
+            del self._deferred_acks[key]
+        _LOGGER.warning("reliable: rank %d began a new life in incarnation %d's second "
+                        "(a seq 0 with another checksum) — fresh sequence space",
+                        sender, inc)
+        return True
 
     def _mark_eligible(self, rx: _RxState, seq: int) -> None:
         """Record one ack-eligible seq and advance the cumulative frontier
@@ -1267,8 +1431,10 @@ class ReliableTransport(Transport):
         ``sender``. Caller holds ``_lock``."""
         if self._credit_override is not None:
             return max(0, int(self._credit_override))
-        withheld = sum(1 for (s, _q, _i) in self._deferred_acks if s == sender)
-        return max(0, self.recv_window - withheld)
+        withheld = sum(1 for (s, _q, _i), handed in self._deferred_acks.items()
+                       if s == sender and handed)
+        parked = sum(1 for _c, _e, m in list(self._requeue) if m[0] == sender)
+        return max(0, self.recv_window - withheld - parked)
 
     def _flush_acks(self) -> None:
         """Send every dirty cumulative ack (on a full batch, on the retry
@@ -1291,14 +1457,15 @@ class ReliableTransport(Transport):
                 pass  # a lost ack: the sender's retransmit asks again
 
     def ack_delivered(self) -> None:
-        """Release every withheld delivery ack; call only once the updates
-        behind them are durable (the WAL's group commit). In-order runs
-        collapse into one cumulative ack; frames above a gap keep their
-        individual acks."""
+        """Release the withheld acks of every frame :meth:`recv` has handed
+        out; call only once the updates behind them are durable (the WAL's
+        group commit). In-order runs collapse into one cumulative ack;
+        frames above a gap keep their individual acks."""
         individual = []
         with self._lock:
-            due = list(self._deferred_acks.keys())
-            self._deferred_acks.clear()
+            due = [k for k, handed in self._deferred_acks.items() if handed]
+            for key in due:
+                del self._deferred_acks[key]
             for sender, seq, inc in due:
                 rx = self._rx.get(sender)
                 if rx is None or rx.inc != inc or not self.batched_acks:
@@ -1348,6 +1515,7 @@ class ReliableTransport(Transport):
                 if known is None or inc > known:
                     self._peer_inc[sender] = inc
                     self._seen[sender] = collections.OrderedDict()
+                    self._firsts[sender] = set()
                 if inc == self._peer_inc.get(sender):
                     seen = self._seen.setdefault(sender, collections.OrderedDict())
                     seen[seq] = True
@@ -1409,22 +1577,31 @@ class ReliableTransport(Transport):
         self._retry_wake.set()
 
     def recv(self, timeout: Optional[float] = None) -> Optional[Message]:
+        """The next deliverable frame, parked ones first; its envelope
+        becomes :attr:`last_delivery` and its correlation id this thread's
+        (the handler inherits the sender's unit of work)."""
         deadline = None if timeout is None else time.monotonic() + timeout
         while True:
             if self._closed:
                 return None
-            try:
-                corr, parked = self._requeue.popleft()
-                _obs.set_corr(corr)
-                return parked
-            except IndexError:
-                pass
             slice_t = 0.1
             if deadline is not None:
                 slice_t = max(0.0, min(0.1, deadline - time.monotonic()))
-            delivered = self._process(self.inner.recv(timeout=slice_t))
-            if delivered is not None:
-                return delivered
+            with self._rx_lock:
+                if self._requeue:
+                    delivery = self._requeue.popleft()
+                else:
+                    delivery = self._process(self.inner.recv(timeout=slice_t))
+            if delivery is not None:
+                corr, envelope, msg = delivery
+                with self._lock:
+                    self._last_delivery = envelope
+                    if envelope is not None:
+                        key = (msg[0], envelope[1], envelope[0])
+                        if key in self._deferred_acks:
+                            self._deferred_acks[key] = True  # now the application's
+                _obs.set_corr(corr)
+                return msg
             if deadline is not None and time.monotonic() >= deadline:
                 return None
 
@@ -1441,9 +1618,7 @@ class ReliableTransport(Transport):
                 live = [k for k in self._pending if k[0] not in self._dead_peers]
             if not live:
                 return True
-            delivered = self._process(self.inner.recv(timeout=0.02))
-            if delivered is not None:
-                self._requeue.append((_obs.current_corr(), delivered))
+            self._pump(timeout=0.02)
         return False
 
     def close(self) -> None:
@@ -1482,12 +1657,23 @@ def make_transport(rank: int, world_size: int, master: str = "localhost",
         elif kind == "native":
             raise RuntimeError("native transport requested but unavailable: "
                                f"{native.native_load_error()}")
+    opts = dict(ack_on_delivery=not durable_acks, **(reliable_opts or {}))
+    if t is None and reliable and rank == SERVER_RANK:
+        # the server's reliable layer runs before the rendezvous ends: the
+        # frames of the workers that connected first are taken in and
+        # acked while the others connect, not left to time out
+        tcp = TCPTransport(rank, world_size, master, int(port), connect_timeout, wait_for=0)
+        wrapped = ReliableTransport(tcp, **opts)
+        try:
+            tcp.wait_for_peers(world_size - 1, connect_timeout)
+        except TimeoutError:
+            wrapped.detach()
+            tcp.close()
+            raise
+        return wrapped
     if t is None:
         t = TCPTransport(rank, world_size, master, int(port), connect_timeout)
-    if reliable:
-        return ReliableTransport(t, ack_on_delivery=not durable_acks,
-                                 **(reliable_opts or {}))
-    return t
+    return ReliableTransport(t, **opts) if reliable else t
 
 
 def make_world(world_size: int, *, reliable: bool = False,

@@ -335,3 +335,45 @@ def test_steady_rate_from_csv_matches_a_hand_made_csv(tmp_path):
     path.write_text("\n".join(rows[:8]) + "\n")
     assert bench_all._steady_rate_from_csv(str(path), 64) is None
     assert bench_all._steady_rate_from_csv(str(tmp_path / "missing.csv"), 64) is None
+
+
+SHARDED_METRICS = (["sharded_ps_per_shard_apply_k1", "sharded_ps_per_shard_apply_k2",
+                    "sharded_ps_per_shard_apply_k4", "sharded_ps_e2e_push_rtt_k1",
+                    "sharded_ps_e2e_push_rtt_k2"]
+                   + [f"sharded_ps_k{k}_aggregate_throughput" for k in (1, 2, 4)])
+
+
+def test_sharded_ps_leg_on_cpu_emits_the_jax_metric_names(capsys, monkeypatch, tmp_path):
+    """Config 3's sharded leg at ``--tiny`` on the CPU: the apply microbench
+    on AlexNet's slices, the round trips against 1 and 2 shard server
+    processes, and the worlds at k = 1, 2, 4; every record under the JAX
+    metric name, every value positive, the apply cost falling with k."""
+    monkeypatch.setenv("PYTHONPATH", ROOT)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.chdir(tmp_path)
+    assert bench_all.main(["--device", "cpu", "--tiny", "--legs", "sharded_ps"]) == 0
+    recs = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+            if line.startswith("{")]
+    assert [r["metric"] for r in recs] == SHARDED_METRICS
+    assert all(r["config"] == 3 and r["value"] > 0 for r in recs)
+    assert recs[0]["value"] > recs[2]["value"]  # 9.9 MB against 2.5 MB
+    assert recs[-1]["hardware"] == "1x cpu, 6 processes" and "--tiny" in recs[-1]["note"]
+    with open(os.path.join(ROOT, "bench_all.py")) as fh:
+        src = fh.read()
+    for name in ('f"sharded_ps_per_shard_apply_k{k}"', 'f"sharded_ps_e2e_push_rtt_k{k}"',
+                 'f"sharded_ps_k{k}_aggregate_throughput"'):
+        assert name in src
+    assert os.listdir(tmp_path) == []
+
+
+def test_transport_leg_on_cpu_emits_the_jax_metric_names(capsys):
+    """Config 7's wire leg on the CPU: a 9.9 MB echo over the native and the
+    Python transport, each a positive rate under the JAX metric name."""
+    assert bench_all.main(["--device", "cpu", "--legs", "transport"]) == 0
+    recs = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+            if line.startswith("{")]
+    assert [r["metric"] for r in recs] == ["ps_transport_roundtrip_native",
+                                           "ps_transport_roundtrip_python"]
+    assert all(r["config"] == 7 and r["value"] > 0 for r in recs)
+    with open(os.path.join(ROOT, "bench_all.py")) as fh:
+        assert 'f"ps_transport_roundtrip_{kind}"' in fh.read()

@@ -73,7 +73,7 @@ def test_launch_three_process_tcp_world(tmp_path):
 @pytest.mark.parametrize("flag", [["--manifest-path", "m"], ["--compress", "int8"],
                                   ["--mode", "sync"],
                                   ["--dtype", "float16"], ["--backend", "tpu"],
-                                  ["--n-servers", "2"], ["--profile-dir", "prof"]])
+                                  ["--server-opt", "adam"], ["--profile-dir", "prof"]])
 def test_unimplemented_flags_are_rejected(flag):
     with pytest.raises(SystemExit):
         cli.build_parser().parse_args(flag)
@@ -119,7 +119,8 @@ def test_ps_mode_refuses_the_single_process_flags(flag, capsys, monkeypatch):
 
 
 PS_FLAGS = ["wal", "admission", "admission_z", "admission_warmup", "rejoin",
-            "staleness_damping", "chunked_dispatch", "ckpt_every", "transport", "reliable"]
+            "staleness_damping", "chunked_dispatch", "ckpt_every", "transport", "reliable",
+            "n_servers"]
 
 
 def test_ps_flags_take_the_jax_names_defaults_and_choices():

@@ -1427,3 +1427,82 @@ def test_two_worker_processes_capture_beside_the_reliable_threads(cuda, tmp_path
         meta = json.load(f)
     # pushes at steps 0 and 10 and the final one, from each worker
     assert meta["apply_seq"] == 6 and len(meta["recent_envelopes"]) == 6
+
+
+def _pumped_downpour(cuda, k, x, y, n_push=10, n_pull=10):
+    """An AlexNet-fused DownPour worker on the card over in-process
+    transports against ``k`` shard servers (``k = 0``: the unsharded
+    ``Asynchronous`` and one ``ParameterServer``), the listeners stopped
+    and every mailbox pumped after each step, so installs land at fixed
+    steps. Returns the pushes the servers took (the shards' slices
+    joined), the final parameters and the worker's K1 launches."""
+    from distributed_ml_pytorch_tpu_torch.models import get_model
+    from distributed_ml_pytorch_tpu_torch.parallel import async_ps as tps
+    from distributed_ml_pytorch_tpu_torch.parallel.sharded_ps import (
+        ShardedAsynchronous,
+        make_shard_server,
+    )
+    from distributed_ml_pytorch_tpu_torch.training.trainer import loss_and_grads
+    from distributed_ml_pytorch_tpu_torch.utils.messaging import (
+        InProcessTransport,
+        MessageCode,
+    )
+
+    model = get_model("alexnet", fused_epilogue=True, seed=3, device=cuda)
+    n = sum(p.numel() for p in model.parameters())
+    worlds = [InProcessTransport.create_world(2) for _ in range(max(k, 1))]
+    pushes = [[] for _ in worlds]
+    handles = []
+    for s, w in enumerate(worlds):
+        srv = (tps.ParameterServer(params=np.zeros(n, np.float32), transport=w[0]) if k == 0
+               else make_shard_server(params=np.zeros(n, np.float32), shard=s, n_shards=k,
+                                      transport=w[0]))
+
+        def handle(sender, code, payload, srv=srv, s=s):
+            if code == MessageCode.GradientUpdate:
+                pushes[s].append(np.array(payload, np.float32))
+            srv.handle(sender, code, payload)
+
+        handles.append(handle)
+    if k == 0:
+        opt = tps.Asynchronous(model, lr=0.008, n_push=n_push, n_pull=n_pull,
+                               transport=worlds[0][1])
+        listeners = [opt.listener]
+    else:
+        opt = ShardedAsynchronous(model, lr=0.008, n_push=n_push, n_pull=n_pull,
+                                  transports=[w[1] for w in worlds])
+        listeners = opt.listeners
+    for listener in listeners:
+        listener.stop()
+        listener.join(timeout=5)
+    before = tfu.launches
+    for i in range(len(x)):
+        loss_and_grads(model, torch.from_numpy(x[i]).to(cuda), torch.from_numpy(y[i]).to(cuda))
+        opt.step()
+        opt._flusher.drain()
+        for w, handle, listener in zip(worlds, handles, listeners):
+            while (m := w[0].recv(timeout=0.01)) is not None:
+                handle(*m)
+            while (m := w[1].recv(timeout=0.01)) is not None:
+                listener.receive(*m)
+    launched = tfu.launches - before
+    opt._flusher.stop()
+    return [np.concatenate(parts) for parts in zip(*pushes)], _flat_params(model).cpu(), launched
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 2])
+def test_sharded_client_equals_the_per_step_client_on_the_card(cuda, k):
+    """25 DownPour steps on the card (n_push = n_pull = 10): the sharded
+    client with one shard and with two equals the per-step ``Asynchronous``
+    bit for bit, every push (slices joined) and the final parameters, with
+    K1 launched once a step by both."""
+    _deterministic()
+    x, y = _k_batches(25, 16, seed=5)
+    ref_pushes, ref_flat, ref_k1 = _pumped_downpour(cuda, 0, x, y)
+    pushes, flat, k1 = _pumped_downpour(cuda, k, x, y)
+    assert k1 == ref_k1 == 25
+    assert len(pushes) == len(ref_pushes) == 3  # steps 0, 10, 20
+    for a, b in zip(pushes, ref_pushes):
+        np.testing.assert_array_equal(a, b)
+    assert torch.equal(flat, ref_flat)

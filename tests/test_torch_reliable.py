@@ -204,20 +204,22 @@ def test_reliable_round_trip_and_dedup():
     world = InProcessTransport.create_world(2)
     a = ReliableTransport(world[0], ack_timeout=0.05)
     b = ReliableTransport(world[1], ack_timeout=0.05)
+    tobs.set_corr(0)  # no correlation id: the first frame carries the nonce
     try:
         b.send(MessageCode.GradientUpdate, np.arange(4, dtype=np.float32))
         msg = a.recv(timeout=5)
         assert msg is not None and msg[1] == MessageCode.GradientUpdate
         np.testing.assert_array_equal(msg[2], np.arange(4, dtype=np.float32))
         assert b.flush(timeout=5) and b.stats["acked"] == 1
-        # the same envelope again, byte-correct: only dedup can drop it
+        # the same envelope again, byte-correct: only dedup can drop it (a
+        # life's first frame carries the life's nonce as its correlation id)
         body = np.arange(4, dtype=np.float32)
         crc = tmsg._frame_crc(b.incarnation, 0, int(MessageCode.GradientUpdate),
-                              body.tobytes())
+                              body.tobytes(), b.nonce)
         b.inner.send(MessageCode.ReliableFrame, np.concatenate([
             np.asarray([*tmsg._split16(b.incarnation), *tmsg._split16(0),
                         *tmsg._split16(crc), float(int(MessageCode.GradientUpdate)),
-                        *tmsg._split16(0)], np.float32), body]))
+                        *tmsg._split16(b.nonce)], np.float32), body]))
         assert a.recv(timeout=0.3) is None
         assert a.stats["dup_dropped"] == 1
     finally:
