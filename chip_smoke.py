@@ -188,7 +188,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    seeds its transport's dedup from the envelopes of (a)'s applies; (d)
    ``bench_all --legs ps`` (config 3: one server and four worker
    processes, then a server and a chunked worker process against single
-   mode), its lines printed. The reliable worlds (a) and (f) run on a
+   mode, then the chunked device cycle, whose record must show one capture
+   and K1's three counted launches), its lines printed. The reliable worlds (a) and (f) run on a
    loss-free wire, so any timeout, retransmit or duplicate on any rank
    fails them, and each rank prints the longest a frame waited for its ack
    against the 1 s timeout floor;
@@ -212,7 +213,37 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``build/smoke_sharded/shard{0,1}`` bit for bit (slices, ``apply_seq``,
    version); then ``bench_all --legs sharded_ps`` and ``--legs
    transport``, their lines printed. The ``kernels`` line's K1 and K2 launches add phase
-   17's workers' counts to phase 4's.
+   17's workers' counts to phase 4's;
+18. long context, at GPT-2-small width (bfloat16, RoPE, remat, the loss in
+   2048-token chunks): (a) ``bench_all.lm_32k_phase`` (config 6's
+   ``gpt2_small_seq32768_train_throughput``, 1 x 32768), where the flash
+   size rule keeps the fused backward: K4 twice a layer a step (forward and
+   remat recompute) and K5 once, K6a/K6b never; (b) ``training.train_lm``
+   at 4 x 32768 for 2 steps, where the rule picks the split backward by
+   itself: K6a and K6b once a layer a step, K5 never. In each, one layer's
+   attention inputs are captured inside the step, and K4's out and lse and
+   the backward kernels' dQ, dK and dV on them are held against the plain
+   versions, computed 2048 query rows at a time
+   (``ops.attention.flash_plain_rows``), over every query and key of the
+   first and the last (b, h), within ATTN_TOL / LSE_TOL; each loss finite
+   and falling; each kernel's ms at the long shape beside its bound and its
+   launches a step, tokens/s, MFU and peak memory;
+19. the LM trainer's flags at GPT-2-small 8 x 2048 (bfloat16, RoPE, remat,
+   the chunked loss): ``train_lm --steps-per-dispatch 4 --steps 8
+   --ckpt-dir --ckpt-every 4`` (one captured step replayed) against eight
+   eager AD steps on the same batches, with ``bwd_impl="split"`` injected
+   (losses and parameters bit for bit) and with the default fused backward
+   (the updates within SPLIT_UPDATE_TOL in relative L2, beside the spread
+   of two eager runs); one capture a run; checkpoints at 4 and 8; the
+   step-4 checkpoint resumed for 4 more steps equals the uninterrupted run
+   (bit for bit under split, within SPLIT_UPDATE_TOL fused); the peak memory
+   of the graphed run (its private pool included) and of the eager one, and
+   each way's tokens/s (the graphed one also from a run of 16 steps without
+   checkpoints, whose saves lie inside ``train_lm``'s timed dispatches);
+   then ``bench_all --legs steps_to_accuracy,reliability`` in this process,
+   printed with 16 (d)'s device-cycle record. The ``kernels`` line's K4-K6b
+   launches add phases 18 and 19 to phase 6's, and their ``max_abs_err``
+   is the larger of phase 5's and phase 18's.
 
 Then the ``kernels`` line, the ``nvidia-smi`` name/power line, and last the
 result line ``{"ok": true, "device": {...}}``. Without a card, or without
@@ -2739,7 +2770,8 @@ def _ps_world_line(lines, reliable, wall, in_process, steps=WORKER_STEPS, backen
 
 def phase_ps_processes(torch, in_process, backend="cuda", model="alexnet",
                        steps=WORKER_STEPS, bench=True):
-    """Phase 16: the DownPour world as processes, (a)-(f)."""
+    """Phase 16: the DownPour world as processes, (a)-(f); with ``bench``,
+    (d) ``bench_all --legs ps``, whose device-cycle record it returns."""
     import numpy as np
 
     from distributed_ml_pytorch_tpu_torch.models import get_model
@@ -2790,8 +2822,16 @@ def phase_ps_processes(torch, in_process, backend="cuda", model="alexnet",
         require(proc.returncode == 0, f"bench_all --legs ps exited {proc.returncode}: "
                                       f"{proc.stderr[-3000:]}")
         records = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
-        require(len(records) == 4, f"bench_all --legs ps printed {len(records)} records")
+        require(len(records) == 5, f"bench_all --legs ps printed {len(records)} records")
+        cycle = records[-1]
+        # the device cycle: one capture serves both run lengths, and K1 is
+        # counted at the two warm-up steps and the capture (not the replays)
+        require(cycle["metric"] == "async_ps_chunked_device_cycle" and cycle["value"] > 0
+                and cycle["captures"] == 1 and cycle["k1_launches"] == 3,
+                f"the device cycle's record: {cycle}")
         emit({"phase": "ps_bench_legs", "ok": True, "records": records})
+        return cycle
+    return None
 
 
 # ------------------------------------------------------------------ phase 17
@@ -3011,6 +3051,439 @@ def phase_sharded_processes(torch, per_step_workers, backend="cuda", model="alex
     return launches
 
 
+# ------------------------------------------------------------------ phase 18
+
+#: ``train_lm`` at GPT-2-small width on 4 x 32768 tokens: the flash size
+#: rule picks the split backward by itself there (its dQ-partials count,
+#: 32 key blocks x 4 x 12 x 32768 x 64 x 4 B = 12.9 GB, passes the 6 GiB cap;
+#: at 1 x 32768 it is half the cap and the rule keeps the fused K5)
+LONG_TRAIN = ["--vocab", "50304", "--d-model", "768", "--n-heads", "12", "--n-layers", "12",
+              "--d-ff", "3072", "--dtype", "bfloat16", "--pos-encoding", "rope",
+              "--batch", "4", "--seq", "32768", "--remat", "--loss-chunk", "2048",
+              "--steps", "2"]
+#: the widths and lengths of a CPU rehearsal of phases 18 and 19 (``tiny``)
+TINY_LM_ARGS = ["--vocab", "128", "--d-model", "64", "--n-heads", "2", "--n-layers", "2",
+                "--d-ff", "128", "--dtype", "bfloat16", "--pos-encoding", "rope"]
+TINY_LONG_TRAIN = [*TINY_LM_ARGS, "--batch", "4", "--seq", "256", "--remat", "--loss-chunk",
+                   "64", "--steps", "2"]
+#: query rows the plain side computes at a time (a 32768-key score block of
+#: 2048 rows is 256 MiB in float32)
+LONG_ROWS = 2048
+#: the tensor-core kernels' launch and the long check's timed calls
+LONG_ITERS = 3
+
+
+def _record_first_call(torch, at, name):
+    """Wrap ``ops.attention``'s ``name`` (the autograd backward looks it up
+    there at each call): the arguments of its first call, one layer's
+    attention inside a step, are kept in the returned dict; every call goes
+    through. Returns ``(seen, restore)``."""
+    real = getattr(at, name)
+    seen = {}
+
+    def wrapper(*args):
+        # detached: the plain side must build no autograd graph on them
+        seen.setdefault("args", tuple(a.detach() if isinstance(a, torch.Tensor) else a
+                                      for a in args))
+        return real(*args)
+
+    setattr(at, name, wrapper)
+    return seen, lambda: setattr(at, name, real)
+
+
+def _long_check(torch, at, args, kernels):
+    """Each of ``kernels`` on one layer's captured ``(q, k, v, do, lse2,
+    delta, causal)`` against the plain versions computed LONG_ROWS query
+    rows at a time (``ops.attention.flash_plain_rows``) over every query
+    and key of the first and the last (b, h), within ATTN_TOL / LSE_TOL;
+    then each kernel timed on all heads. Raises on a miss; returns the
+    errors and times."""
+    q, k, v, do, lse2, delta, causal = args
+    tol = ATTN_TOL["bfloat16"]
+    got = {}
+    if "flash_fwd" in kernels:
+        got["flash_fwd"] = dict(zip(("out", "lse"), at.flash_fwd_cuda(q, k, v, causal)))
+    if "flash_bwd_fused" in kernels:
+        got["flash_bwd_fused"] = dict(zip(("dq", "dk", "dv"), at.flash_bwd_fused_cuda(*args)))
+    if "flash_bwd_dq" in kernels:
+        got["flash_bwd_dq"] = {"dq": at.flash_bwd_dq_cuda(*args)}
+    if "flash_bwd_dkv" in kernels:
+        got["flash_bwd_dkv"] = dict(zip(("dk", "dv"), at.flash_bwd_dkv_cuda(*args)))
+    errs, misses = {kern: {} for kern in got}, []
+    t0 = time.monotonic()
+    for h in (0, q.shape[0] - 1):
+        one = [t[h:h + 1] for t in (q, k, v, do, lse2, delta)]
+        ref = at.flash_plain_rows(*one, causal, LONG_ROWS)
+        for kern, outs in got.items():
+            for name, t in outs.items():
+                mine = t[h:h + 1]
+                require(bool(torch.isfinite(mine.float()).all()),
+                        f"{kern} {name} not finite at (b·h) {h} of {tuple(q.shape)}")
+                scale, t_ = ((ref["lse"].abs(), LSE_TOL) if name == "lse"
+                             else (ref["scales"][name], tol))
+                mx, rel, ok = _err(torch, mine, ref[name], scale, t_)
+                prev = errs[kern].get(name, (0.0, 0.0))
+                errs[kern][name] = (max(prev[0], mx), max(prev[1], rel))
+                if not ok:
+                    misses.append(f"{kern} {name} (b·h {h}): max abs err {mx}, "
+                                  f"max err / scale {rel}, (atol, rtol) {t_}")
+        del ref
+    require(not misses, f"kernel != plain at {tuple(q.shape)}: {'; '.join(misses)}")
+    check_s = time.monotonic() - t0
+    del got
+    timed = {"flash_fwd": lambda: at.flash_fwd_cuda(q, k, v, causal)[0],
+             "flash_bwd_fused": lambda: at.flash_bwd_fused_cuda(*args)[0],
+             "flash_bwd_dq": lambda: at.flash_bwd_dq_cuda(*args),
+             "flash_bwd_dkv": lambda: at.flash_bwd_dkv_cuda(*args)[0]}
+    ms = {kern: device_ms(timed[kern], LONG_ITERS) for kern in kernels}
+    return errs, ms, check_s
+
+
+def _long_bounds(shape) -> dict:
+    """Each attention kernel's least time at ``(b, h, s, d)`` causal bf16:
+    the larger of its products over the causal score plane at the bf16 peak
+    and its bytes (inputs read once, outputs written once) at 3.35 TB/s."""
+    from distributed_ml_pytorch_tpu_torch.utils.flops import flash_attention_train_flops
+
+    b, h, s, d = shape
+    unit = flash_attention_train_flops(b, h, s, d, 1, causal=True, bwd_impl="fused") / 7
+    out = {}
+    for kern, products in (("flash_fwd", 2), ("flash_bwd_fused", 5), ("flash_bwd_dq", 3),
+                           ("flash_bwd_dkv", 4)):
+        flop_ms = products * unit / BF16_FLOPS * 1e3
+        byte_ms = bound_ms(_attn_bytes(shape, 2, kern))
+        out[kern] = {"bound_ms": max(flop_ms, byte_ms),
+                     "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
+    return out
+
+
+def _long_kernel_lines(errs, ms, bounds, per_step):
+    return {kern: {"ms": ms[kern], "bound_ms": bounds[kern]["bound_ms"],
+                   "bound_by": bounds[kern]["bound_by"],
+                   "bound_share": bounds[kern]["bound_ms"] / ms[kern],
+                   "launches_per_step": per_step[kern], "errors": errs[kern]}
+            for kern in ms}
+
+
+def _peak_gb(torch, device, reset=False):
+    """Peak device memory in GB since the last reset (None on the CPU)."""
+    if device != "cuda":
+        return None
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def phase_long_context(torch, device="cuda", tiny=False):
+    """Phase 18: (a) ``bench_all --legs lm_32k`` (1 x 32768, fused: K4 and
+    K5) and (b) ``train_lm`` at 4 x 32768 (split by the size rule: K4, K6a
+    and K6b), each kernel held against its plain version on one layer's
+    tensors captured inside the step; returns the launches of both runs and
+    each kernel's largest absolute error. ``tiny`` (with ``device="cpu"``)
+    rehearses the phase at the tiny widths."""
+    from distributed_ml_pytorch_tpu_torch import bench_all
+    from distributed_ml_pytorch_tpu_torch.ops import attention as at
+    from distributed_ml_pytorch_tpu_torch.training import train_lm
+    from distributed_ml_pytorch_tpu_torch.utils.flops import (
+        device_peak_flops,
+        lm_train_flops_6nd,
+    )
+
+    widths = bench_all.TINY_LM if tiny else bench_all.GPT2_SMALL
+    n_layers, heads = widths["n_layers"], widths["n_heads"]
+    d = widths["d_model"] // heads
+    seq_a = bench_all.TINY_32K_SEQ if tiny else bench_all.LM_32K_SEQ
+    peak = device_peak_flops(torch.cuda.get_device_name(0)) if device == "cuda" else None
+    total = {name: 0 for name in at.launches}
+    worst = {name: 0.0 for name in at.launches}
+
+    def note_errors(errs):
+        for kern, tensors in errs.items():
+            worst[kern] = max([worst[kern], *(e[0] for e in tensors.values())])
+
+    # (a) the lm_32k leg, as bench_all runs it
+    seen, restore = _record_first_call(torch, at, "flash_bwd_fused_cuda")
+    _peak_gb(torch, device, reset=True)
+    _zero_attention_launches(at)
+    try:
+        rate = bench_all.lm_32k_phase(device, tiny=tiny)
+    finally:
+        restore()
+    launches = dict(at.launches)
+    rec = bench_all.RESULTS[-1]
+    losses = rec["losses"]
+    steps = len(losses)
+    peak_a = _peak_gb(torch, device)
+    require(rec["metric"] == "gpt2_small_seq32768_train_throughput",
+            f"the lm_32k leg emitted {rec['metric']}")
+    require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+            f"lm_32k losses not finite and falling: {losses}")
+    require(launches["flash_fwd"] == 2 * n_layers * steps
+            and launches["flash_bwd_fused"] == n_layers * steps
+            and launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 0,
+            f"lm_32k ran {launches} for {steps} steps of {n_layers} layers: the size rule "
+            "must keep the fused backward at 1 x 32768 (K4 twice a layer under remat)")
+    for name in total:
+        total[name] += launches[name]
+    args = seen.pop("args")
+    shape_a = (1, heads, seq_a, d)
+    require(tuple(args[0].shape) == (heads, seq_a, d),
+            f"captured q of shape {tuple(args[0].shape)}")
+    errs, ms, check_s = _long_check(torch, at, args, ("flash_fwd", "flash_bwd_fused"))
+    note_errors(errs)
+    del args
+    per_step = {"flash_fwd": 2 * n_layers, "flash_bwd_fused": n_layers}
+    leg = {"tokens_per_s": float(rate), "step_ms": rate.step_seconds * 1e3,
+           "mfu_bf16": rate.mfu, "flops_per_step": rate.flops_per_step,
+           "peak_mem_gb": peak_a, "losses": losses, "steps": steps, "launches": launches,
+           "plain_check_s": check_s,
+           "kernels": _long_kernel_lines(errs, ms, _long_bounds(shape_a), per_step)}
+    emit({"phase": "long_context_fused", "ok": True, "shape": shape_a, "bwd_impl": "fused",
+          "checked_bh": [0, heads - 1], "plain_rows_at_a_time": LONG_ROWS,
+          "tolerance": ATTN_TOL["bfloat16"], "lse_tolerance": LSE_TOL, **leg})
+
+    # (b) train_lm at 4 x 32768: the size rule alone picks K6a + K6b
+    args_b = train_lm.parse_args([*(TINY_LONG_TRAIN if tiny else LONG_TRAIN),
+                                  "--device", device])
+    seen, restore = _record_first_call(torch, at, "flash_bwd_dq_cuda")
+    _peak_gb(torch, device, reset=True)
+    _zero_attention_launches(at)
+    try:
+        res = train_lm.run(args_b)
+    finally:
+        restore()
+    launches = dict(at.launches)
+    peak_b = _peak_gb(torch, device)
+    steps = args_b.steps
+    require(all(math.isfinite(x) for x in res.losses) and res.losses[-1] < res.losses[0],
+            f"4 x 32768 losses not finite and falling: {res.losses}")
+    require(launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == n_layers * steps
+            and launches["flash_bwd_fused"] == 0
+            and launches["flash_fwd"] == 2 * n_layers * steps,
+            f"4 x 32768 ran {launches} for {steps} steps: the size rule must pick the split "
+            "backward by itself there")
+    for name in total:
+        total[name] += launches[name]
+    args = seen.pop("args")
+    shape_b = (args_b.batch, heads, args_b.seq, d)
+    require(tuple(args[0].shape) == (args_b.batch * heads, args_b.seq, d),
+            f"captured q of shape {tuple(args[0].shape)}")
+    errs, ms, check_s = _long_check(torch, at, args,
+                                    ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+    note_errors(errs)
+    del args
+    model = res.state.model
+    n_params = sum(p.numel() for p in model.parameters())
+    embed = sum(p.numel() for n, p in model.named_parameters() if "embed" in n.lower())
+    flops = lm_train_flops_6nd(n_params - embed, args_b.batch, args_b.seq, heads, d, n_layers,
+                               remat=True, bwd_impl="split")
+    step_s = res.steady_s / (steps - 1)
+    per_step = {"flash_fwd": 2 * n_layers, "flash_bwd_dq": n_layers, "flash_bwd_dkv": n_layers}
+    emit({"phase": "long_context_split", "ok": True, "shape": shape_b, "bwd_impl": "split",
+          "picked_by": "the size rule (no bwd_impl injected)",
+          "checked_bh": [0, args_b.batch * heads - 1],
+          "plain_rows_at_a_time": LONG_ROWS, "tolerance": ATTN_TOL["bfloat16"],
+          "tokens_per_s": res.tokens_per_s, "step_ms": step_s * 1e3,
+          "mfu_bf16": flops / step_s / peak if peak else None, "flops_per_step": flops,
+          "peak_mem_gb": peak_b, "losses": res.losses, "launches": launches,
+          "plain_check_s": check_s,
+          "kernels": _long_kernel_lines(errs, ms, _long_bounds(shape_b), per_step)})
+    del res, model
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return total, worst
+
+
+# ------------------------------------------------------------------ phase 19
+
+#: phase 19's LM run: GPT-2-small 8 x 2048 bf16 with remat and the chunked
+#: loss (torch.utils.checkpoint inside the captured step), K steps a dispatch
+LM_K = 4
+LM_K_ARGS = [*GPT2_SMALL, "--remat", "--loss-chunk", "2048",
+             "--steps-per-dispatch", str(LM_K), "--steps", str(2 * LM_K),
+             "--ckpt-every", str(LM_K)]
+TINY_LM_K_ARGS = [*TINY_LM_ARGS, "--batch", "2", "--seq", "128", "--remat", "--loss-chunk",
+                  "64", "--steps-per-dispatch", str(LM_K), "--steps", str(2 * LM_K),
+                  "--ckpt-every", str(LM_K)]
+SMOKE_LM_DIR = os.path.join(ROOT, "build", "smoke_lm")
+
+
+def _lm_params(model):
+    return [p.detach().clone() for p in model.parameters()]
+
+
+def _lm_eager(torch, args, attn_fn):
+    """``2K`` eager steps of the AD step from the same seeded weights on the
+    K-step run's batches, in its order: ``(losses, params, peak GB,
+    tokens/s over the second K steps on the host clock, ended by reading
+    the last loss)``."""
+    import numpy as np
+
+    from distributed_ml_pytorch_tpu_torch.parallel.fsdp import make_fsdp_lm_train_step
+    from distributed_ml_pytorch_tpu_torch.parallel.seq_parallel import create_lm_train_state
+    from distributed_ml_pytorch_tpu_torch.training import train_lm
+    from distributed_ml_pytorch_tpu_torch.training.trainer import SGD
+
+    model = train_lm.build_model(args, args.device)
+    if attn_fn is not None:
+        model.set_attn_fn(attn_fn)
+    tx = SGD(args.lr)
+    state = create_lm_train_state(model, tx)
+    step = make_fsdp_lm_train_step(model, tx, loss_chunk=args.loss_chunk)
+    tokens, targets = train_lm.lm_batches(args)
+    tok = torch.from_numpy(tokens.astype(np.int64)).to(args.device)
+    tgt = torch.from_numpy(targets.astype(np.int64)).to(args.device)
+    _peak_gb(torch, args.device, reset=True)
+    losses, t0 = [], 0.0
+    for j in range(args.steps // LM_K):
+        if j == 1:  # the steady rate over the second K, as train_lm reads its dispatches
+            float(losses[-1])
+            t0 = time.perf_counter()
+        losses += [step(state, tok[i], tgt[i])[1] for i in range(LM_K)]
+    float(losses[-1])
+    rate = (args.steps - LM_K) * args.batch * args.seq / (time.perf_counter() - t0)
+    out = (torch.stack(losses).float().cpu(), _lm_params(model),
+           _peak_gb(torch, args.device), rate)
+    del model, state
+    return out
+
+
+def _lm_k_run(torch, train_lm, argv, attn_fn, ckpt_dir=None):
+    """``train_lm.run`` with K steps a dispatch, checkpointing into
+    ``ckpt_dir`` if one is given: ``(losses, params, captures, peak GB,
+    start step, tokens/s)``."""
+    import shutil
+
+    if ckpt_dir is not None:
+        if "--resume" not in argv:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+        argv = [*argv, "--ckpt-dir", ckpt_dir]
+    args = train_lm.parse_args(argv)
+    _peak_gb(torch, args.device, reset=True)
+    res = train_lm.run(args, attn_fn=attn_fn)
+    out = (torch.tensor(res.losses), _lm_params(res.state.model), res.step_fn.graphed.captures,
+           _peak_gb(torch, args.device), res.start_step, res.tokens_per_s)
+    del res
+    return out
+
+
+def _resume_from_first_checkpoint(torch, train_lm, argv, attn_fn, ckpt_dir):
+    """The K-step run's step-K checkpoint restored into a fresh run that
+    trains K more steps (the step-2K checkpoint is removed first, so the
+    latest is step K): ``(losses, params, start step)``."""
+    import shutil
+
+    shutil.rmtree(os.path.join(ckpt_dir, str(2 * LM_K)))
+    argv = list(argv)
+    argv[argv.index("--steps") + 1] = str(LM_K)
+    losses, params, _captures, _peak, start, _rate = _lm_k_run(
+        torch, train_lm, [*argv, "--resume"], attn_fn, ckpt_dir)
+    return losses, params, start
+
+
+def phase_lm_flags(torch, device_cycle, device="cuda", tiny=False):
+    """Phase 19: ``train_lm --steps-per-dispatch K`` graphed against eager
+    (bit for bit with ``bwd_impl="split"`` injected; the fused backward within
+    SPLIT_UPDATE_TOL, beside the spread of two eager runs), one capture, and
+    a resume from the step-K checkpoint equal to the uninterrupted run; then
+    ``bench_all --legs steps_to_accuracy,reliability``. ``device_cycle`` is
+    phase 16 (d)'s ``async_ps_chunked_device_cycle`` record. Returns the
+    attention launches of the K-step runs. ``tiny`` (with ``device="cpu"``)
+    rehearses the phase at the tiny widths (one capture is then none)."""
+    import functools
+
+    from distributed_ml_pytorch_tpu_torch import bench_all
+    from distributed_ml_pytorch_tpu_torch.ops import attention as at
+    from distributed_ml_pytorch_tpu_torch.training import train_lm
+
+    split = functools.partial(at.flash_attention, causal=True, bwd_impl="split")
+    argv = [*(TINY_LM_K_ARGS if tiny else LM_K_ARGS), "--device", device]
+    args = train_lm.parse_args(argv)
+    out = {}
+    total = {name: 0 for name in at.launches}
+    for tag, attn_fn in (("split", split), ("fused", None)):
+        ckpt_dir = f"{SMOKE_LM_DIR}_{tag}"
+        _zero_attention_launches(at)
+        g_loss, g_params, captures, g_peak, _, g_rate = _lm_k_run(torch, train_lm, argv,
+                                                                  attn_fn, ckpt_dir)
+        launches = dict(at.launches)
+        for name in total:
+            total[name] += launches[name]
+        steps = sorted(int(n) for n in os.listdir(ckpt_dir) if n.isdigit())
+        e_loss, e_params, e_peak, e_rate = _lm_eager(torch, args, attn_fn)
+        r_loss, r_params, start = _resume_from_first_checkpoint(torch, train_lm, argv, attn_fn,
+                                                                ckpt_dir)
+        w0 = _lm_params(train_lm.build_model(args, device))
+        upd = lambda ps: [p - w for p, w in zip(ps, w0)]
+        line = {"captures": captures, "checkpoints": steps, "resumed_from": start,
+                "graphed_losses": g_loss.tolist(), "eager_losses": e_loss.tolist(),
+                "resumed_losses": r_loss.tolist(),
+                "graphed_peak_mem_gb": g_peak, "eager_peak_mem_gb": e_peak,
+                "graphed_tokens_per_s": g_rate, "eager_tokens_per_s": e_rate,
+                "launches": launches}
+        require(captures == (1 if device == "cuda" else 0), f"{tag}: {captures} captures")
+        require(steps == [LM_K, 2 * LM_K], f"{tag}: checkpoints at {steps}")
+        require(start == LM_K, f"{tag}: resumed from step {start}, not {LM_K}")
+        require(bool(torch.isfinite(g_loss).all()) and g_loss[-1] < g_loss[0],
+                f"{tag}: graphed losses not finite and falling: {g_loss.tolist()}")
+        if tag == "split":
+            require(launches["flash_bwd_fused"] == 0 and launches["flash_bwd_dq"] > 0,
+                    f"split: {launches}")
+            line["graphed_equals_eager"] = (torch.equal(g_loss, e_loss) and all(
+                torch.equal(a, b) for a, b in zip(g_params, e_params)))
+            line["resumed_equals_uninterrupted"] = (
+                torch.equal(r_loss, g_loss[LM_K:])
+                and all(torch.equal(a, b) for a, b in zip(r_params, g_params)))
+            out[tag] = line
+            require(line["graphed_equals_eager"],
+                    "split: the graphed K-step run differs from the eager steps")
+            require(line["resumed_equals_uninterrupted"],
+                    "split: the resumed run differs from the uninterrupted one")
+        else:
+            require(launches["flash_bwd_fused"] > 0 and launches["flash_bwd_dq"] == 0,
+                    f"fused: {launches}")
+            e2_loss, e2_params, _, _ = _lm_eager(torch, args, None)
+            # the graphed rate without checkpoints (the runs above save 0.5 GB
+            # of state at each K-th step inside train_lm's timed dispatches)
+            timing = list(argv)
+            timing[timing.index("--steps") + 1] = str(4 * LM_K)
+            line["graphed_tokens_per_s_without_checkpoints"] = _lm_k_run(
+                torch, train_lm, timing, None)[5]
+            line["graphed_vs_eager_rel_l2"] = _rel_l2(torch, upd(g_params), upd(e_params))
+            line["eager_vs_eager_rel_l2"] = _rel_l2(torch, upd(e2_params), upd(e_params))
+            line["resumed_vs_uninterrupted_rel_l2"] = _rel_l2(torch, upd(r_params),
+                                                              upd(g_params))
+            line["eager_again_losses"] = e2_loss.tolist()
+            line["tolerance"] = SPLIT_UPDATE_TOL
+            out[tag] = line
+            for key in ("graphed_vs_eager_rel_l2", "resumed_vs_uninterrupted_rel_l2"):
+                require(line[key] <= SPLIT_UPDATE_TOL,
+                        f"fused: {key} {line[key]} > {SPLIT_UPDATE_TOL}")
+        del g_params, e_params, r_params, w0
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    emit({"phase": "lm_flags", "ok": True, "config": argv, **out})
+
+    # the last main-path bench legs (the device cycle ran in phase 16 (d))
+    first = len(bench_all.RESULTS)
+    require(bench_all.main(["--legs", "steps_to_accuracy,reliability", "--device", device,
+                            *(["--tiny"] if tiny else [])]) == 0,
+            "bench_all --legs steps_to_accuracy,reliability failed")
+    records = bench_all.RESULTS[first:]
+    names = [r["metric"] for r in records]
+    require(names == ["steps_to_99pct_test_accuracy",
+                      *(f"ps_transport_roundtrip_python_acks_{m}"
+                        for m in ("off", "legacy", "on")),
+                      "ps_reliability_layer_overhead", "ps_reliability_ack_tax_recovered"],
+            f"the legs emitted {names}")
+    sta = records[0]
+    require(sta["value"] > 0 or (sta["value"] == -1 and "final_accuracy" in sta),
+            f"steps_to_accuracy: {sta}")
+    emit({"phase": "main_path_bench_legs", "ok": True,
+          "records": [device_cycle, *records]})
+    return total
+
+
 # ------------------------------------------------------------------ main
 
 K4_SRC = "distributed_ml_pytorch_tpu_torch/csrc/flash_fwd_tc.cu"
@@ -3084,10 +3557,19 @@ def main() -> int:
         measured.update(bf16_measured)
         launches.update(bf16_launches)
         in_process = phase_chunked_worker(torch, per_step_workers)
-        phase_ps_processes(torch, in_process)
+        device_cycle = phase_ps_processes(torch, in_process)
         sharded = phase_sharded_processes(torch, per_step_workers)
         for name in ("flat_axpy", "relu_pool2_fwd", "relu_pool2_bwd"):
             launches[name] += sharded[name]
+        # the long-context runs (K4 with K5, then with K6a + K6b) and the
+        # K-step LM runs add their attention launches; the kernels' errors
+        # at 32768 tokens join phase 5's
+        long_launches, long_errors = phase_long_context(torch)
+        for name, err in long_errors.items():
+            measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"], err)
+        for counts in (long_launches, phase_lm_flags(torch, device_cycle)):
+            for name, n in counts.items():
+                launches[name] += n
         smi = nvidia_smi_line()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

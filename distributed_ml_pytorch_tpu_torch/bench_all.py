@@ -5,6 +5,7 @@
     python -m distributed_ml_pytorch_tpu_torch.bench_all --legs conv_epilogue
     python -m distributed_ml_pytorch_tpu_torch.bench_all --legs ps
     python -m distributed_ml_pytorch_tpu_torch.bench_all --legs sharded_ps,transport
+    python -m distributed_ml_pytorch_tpu_torch.bench_all --legs lm_32k,steps_to_accuracy,reliability
     python -m distributed_ml_pytorch_tpu_torch.bench_all --device cpu --tiny
 
 One JSON line per measurement on stdout (the JAX ``emit`` record: config,
@@ -44,7 +45,12 @@ narration on stderr. Ported legs, under the JAX metric names:
   recipe in ``--no-distributed --steps-per-dispatch 10``, each rate the
   steady rate of its CSV's timestamps (:func:`_steady_rate_from_csv`), as
   ``async_ps_gpu_worker_throughput``, ``single_mode_scanned_throughput``
-  and ``async_ps_push_pull_overhead``.
+  and ``async_ps_push_pull_overhead``; then the worker's device cycle (JAX
+  ``_ps_device_cycle_phase``, :1649): one 1 + 9 cadence cycle of chunked
+  dispatches (one captured DownPour step replayed, K1 inside the graph) of
+  an unfused AlexNet at batch 64, 10 cycles with no host fetch but a
+  trailing loss read, on device-resident and then on host batches, as
+  ``async_ps_chunked_device_cycle``.
 - ``sharded_ps`` — config 3's sharded leg (JAX ``sharded_ps_phase``,
   bench_all.py:946, and ``bench_sharded_push_rtt``, :859): the per-shard
   apply (``ParameterServer.handle`` of one push on the first of k slices of
@@ -61,6 +67,23 @@ narration on stderr. Ported legs, under the JAX metric names:
   bench_all.py:1719): round trips a second of a 9.9 MB payload echoed by a
   second process, over the native transport and over the Python one, as
   ``ps_transport_roundtrip_{native,python}``, 30 after 2 of warm-up.
+- ``reliability`` — config 7's reliability leg (JAX ``reliability_phase``,
+  :1773): the Python-TCP echo of the same payload with the reliable layer
+  off, on the older envelope (``legacy_envelope=True``) and on the current
+  one, interleaved over 4 rounds, each mode's best median round trip, as
+  ``ps_transport_roundtrip_python_acks_{off,legacy,on}``,
+  ``ps_reliability_layer_overhead`` and ``ps_reliability_ack_tax_recovered``.
+- ``lm_32k`` — config 6's long-context leg (JAX ``bench_lm_32k``, :589):
+  GPT-2-small (bf16, RoPE, remat) on one 32768-token sequence, the loss in
+  2048-token chunks, SGD lr 1e-3, as ``gpt2_small_seq32768_train_throughput``;
+  the size rule keeps the fused backward (K5) at this shape.
+- ``steps_to_accuracy`` — config 1's north-star metric 2 (JAX
+  ``bench_steps_to_accuracy``, :354, emitted at :168): the reference recipe
+  on the synthetic set and the JAX harness's index stream, 25 steps a
+  dispatch and an eval after each, as ``steps_to_99pct_test_accuracy`` (-1
+  at the 2000-step cap, with the final accuracy and the per-eval curve).
+  The matched-init ratio (:191) needs JAX's init on the card and is not
+  emitted.
 - ``conv_epilogue`` — config 1's conv-epilogue ladder (JAX
   ``compute_microbench_phase``, bench_all.py:2000-2073): ``relu_pool2``
   fused against ``max_pool_2x2(relu(x))`` on AlexNet's three relu->pool
@@ -73,9 +96,9 @@ records keep the metric names and say so in their notes. Timing is
 CPU (the record's note names the source). The LM legs' FLOP numerator is
 ``utils/flops.lm_train_flops_6nd`` over the non-embedding parameters (XLA's
 ``compiled_flops`` has no PyTorch counterpart); the cross-check holds it
-against the same count over the ``nn.Linear`` weights. Not ported yet:
-``bench_steps_to_accuracy``, ``bench_lm_32k``, the MoE leg and every other
-phase of the JAX harness (``ROADMAP.md`` Queue A).
+against the same count over the ``nn.Linear`` weights. Not ported yet: the
+MoE leg, the ResNet legs and every other phase of the JAX harness
+(``ROADMAP.md`` Queue A).
 """
 
 from __future__ import annotations
@@ -321,6 +344,63 @@ def lm_phase(device, tiny: bool = False) -> dict:
     return rates
 
 
+#: the long-context leg (JAX ``bench_lm_32k``, bench_all.py:589-650): one
+#: sequence of S tokens, the loss in chunks of LM_32K_CHUNK tokens
+LM_32K_SEQ, LM_32K_CHUNK = 32768, 2048
+#: ``--tiny``: the sequence and the loss chunk
+TINY_32K_SEQ, TINY_32K_CHUNK = 256, 64
+
+
+def lm_32k_phase(device, tiny: bool = False) -> Rate:
+    """Config 6's long-context leg, as the JAX recipe runs it: GPT-2-small
+    (bfloat16, RoPE, ``remat=True``, ``max_len = S``) trained on one
+    ``(1, S)`` sequence, tokens from ``default_rng(0)`` and targets from
+    ``default_rng(1)``, plain SGD at lr 1e-3, the loss sequence-chunked
+    (``training/trainer.chunked_lm_loss``, chunk 2048); two steps timed after
+    two warm-up steps. At S = 32768 the flash size rule keeps the fused
+    backward (its dQ-partials count is half the cap), so the step runs K4
+    (forward and remat recompute) and K5. The record carries every step's
+    loss; returns the rate."""
+    dev = resolve_device(device)
+    widths, seq, chunk = ((TINY_LM, TINY_32K_SEQ, TINY_32K_CHUNK) if tiny
+                          else (GPT2_SMALL, LM_32K_SEQ, LM_32K_CHUNK))
+    lm = TransformerLM(**widths, max_len=seq, dtype=torch.bfloat16, pos_encoding="rope",
+                       remat=True, seed=0, device=dev)
+    vocab = widths["vocab_size"]
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, vocab, (1, seq))).to(dev)
+    targets = torch.from_numpy(np.random.default_rng(1).integers(0, vocab, (1, seq))).to(dev)
+    tx = SGD(1e-3)
+    holder = {"s": create_lm_train_state(lm, tx), "losses": []}
+    step = make_fsdp_lm_train_step(lm, tx, loss_chunk=chunk)
+
+    def call():
+        holder["s"], loss = step(holder["s"], tokens, targets)
+        holder["losses"].append(loss)
+        return loss
+
+    t = device_time(call, calls=2, warmup=2)
+    losses = [float(v) for v in holder["losses"]]
+    n_params = sum(p.numel() for p in lm.parameters())
+    embed_params = sum(p.numel() for name, p in lm.named_parameters()
+                       if "embed" in name.lower())
+    flops = lm_train_flops_6nd(n_params - embed_params, 1, seq, lm.n_heads,
+                               lm.d_model // lm.n_heads, lm.n_layers, remat=True)
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    rate = Rate.make(seq / t.per_call_s, flops, t.per_call_s, name)
+    rate.source = t.source
+    cut = f"--tiny: {TINY_LM}, seq {seq}, loss chunk {chunk}; " if tiny else ""
+    log(f"lm-32k: {t.per_call_s * 1e3:.1f} ms/step at batch 1 x seq {seq} -> {rate:.0f} "
+        f"tokens/s ({rate.mfu_note()}, {t.source})")
+    emit(6, "gpt2_small_seq32768_train_throughput", rate, "tokens/sec/chip", hardware(dev),
+         f"{cut}FULL-model single-card training at {seq} tokens of context "
+         f"({_widths(lm)}, bf16, RoPE, remat, loss in {chunk}-token chunks: the dense loss's "
+         f"logits alone would be 1 x {seq} x {vocab}); CUDA flash attention, the fused "
+         f"backward (K5) by the size rule; {t.per_call_s * 1e3:.3f} ms/step ({t.source}); "
+         "6ND FLOPs over the non-embedding parameters, remat recompute included",
+         extra={"batch": 1, "seq": seq, "loss_chunk": chunk, "losses": losses})
+    return rate
+
+
 # ------------------------------------------------------------------ config 1: AlexNet legs
 
 ALEXNET_LR = 0.008
@@ -455,6 +535,83 @@ def alexnet_phase(device, tiny: bool = False, warmup: int = 2, calls: int = 3) -
                     "cudnn": {"deterministic": torch.backends.cudnn.deterministic,
                               "benchmark": torch.backends.cudnn.benchmark}})
     return rates
+
+
+#: north-star metric 2 (JAX ``bench_steps_to_accuracy``, bench_all.py:354-465,
+#: emitted at :168-187): the target, the step cap, steps between evals, the
+#: eval set and the batch; ``--tiny``: the cap and the eval set
+STA_TARGET, STA_MAX_STEPS, STA_EVAL_EVERY, STA_N_EVAL, STA_BATCH = 0.99, 2000, 25, 2000, 64
+TINY_STA_MAX_STEPS, TINY_STA_N_EVAL = 50, 256
+
+
+def bench_steps_to_accuracy(device="cuda", max_steps: int = STA_MAX_STEPS,
+                            eval_every: int = STA_EVAL_EVERY, n_eval: int = STA_N_EVAL,
+                            init=None) -> dict:
+    """Steps to STA_TARGET test accuracy with the reference recipe (unfused
+    AlexNet, batch 64, SGD lr 0.008) on the deterministic synthetic set, on
+    the JAX function's batch stream: ``default_rng(0)`` indices of shape
+    ``(max_steps // eval_every, eval_every, 64)``, ``eval_every`` steps a
+    dispatch (``make_scan_train_step``: a CUDA graph on the card), then the
+    accuracy on the first ``n_eval`` test images (``make_eval_fn``), stopping
+    at the first crossing. ``init`` (a JAX-layout numpy param tree, carried
+    by ``utils/interop.params_from_jax``) replaces the port's seeded init.
+    Returns ``{"steps": first crossing or None (the cap), "accuracy": the
+    last evaluated, "curve": per-eval accuracies, "losses": per-dispatch
+    loss arrays}``; a cap hit is a measured outcome."""
+    from distributed_ml_pytorch_tpu_torch.data import load_cifar10
+    from distributed_ml_pytorch_tpu_torch.training.trainer import make_eval_fn
+    from distributed_ml_pytorch_tpu_torch.utils import interop
+
+    dev = resolve_device(device)
+    x, y, xt, yt, _ = load_cifar10(synthetic=True)
+    xe, ye = xt[:n_eval], yt[:n_eval]
+    idx = np.random.default_rng(0).integers(
+        0, len(x), size=(max_steps // eval_every, eval_every, STA_BATCH))
+    model = get_model("alexnet", seed=0, device=dev)
+    if init is not None:
+        model.load_state_dict(interop.params_from_jax(init, model))
+    tx = SGD(ALEXNET_LR)
+    state = create_train_state(model, tx)
+    scan = make_scan_train_step(model, tx, eval_every)
+    ev = make_eval_fn(model)
+    xe_t = torch.from_numpy(xe).to(dev)
+    ye_t = torch.from_numpy(ye.astype(np.int64)).to(dev)
+    steps, acc, curve, losses = None, 0.0, [], []
+    for chunk, sel in enumerate(idx):
+        state, chunk_losses = scan(state, x[sel], y[sel])
+        losses.append(chunk_losses.cpu().numpy())
+        _, preds = ev(xe_t, ye_t)
+        acc = float((preds.cpu().numpy() == ye).mean())
+        curve.append(acc)
+        if acc >= STA_TARGET:
+            steps = (chunk + 1) * eval_every
+            break
+    log(f"steps-to-{STA_TARGET:.0%}: {steps} (final acc {acc:.4f})")
+    return {"steps": steps, "accuracy": acc, "curve": curve, "losses": losses}
+
+
+def steps_to_accuracy_phase(device, tiny: bool = False) -> dict:
+    """Emits ``steps_to_99pct_test_accuracy`` (config 1): the steps, or -1
+    with the final accuracy and the per-eval curve when the cap was hit."""
+    dev = resolve_device(device)
+    max_steps = TINY_STA_MAX_STEPS if tiny else STA_MAX_STEPS
+    n_eval = TINY_STA_N_EVAL if tiny else STA_N_EVAL
+    res = bench_steps_to_accuracy(dev, max_steps=max_steps, n_eval=n_eval)
+    cut = f"--tiny: cap {max_steps} steps, {n_eval} eval images; " if tiny else ""
+    recipe = (f"reference recipe (unfused AlexNet, batch {STA_BATCH}, SGD lr {ALEXNET_LR}) on "
+              f"the deterministic synthetic set, the JAX harness's batch stream, "
+              f"{STA_EVAL_EVERY} steps a dispatch, {n_eval} eval images; the port's seeded "
+              "He-uniform init")
+    curve = ", ".join(f"{a:.4f}" for a in res["curve"])
+    capped = res["steps"] is None
+    cap = (f"did NOT reach the target within the {max_steps}-step cap (-1 = cap hit); "
+           if capped else "")
+    emit(1, "steps_to_99pct_test_accuracy", -1 if capped else res["steps"], "steps",
+         hardware(dev), f"{cut}{cap}{recipe}; final accuracy {res['accuracy']:.4f}; "
+         f"per-eval curve [{curve}]",
+         extra={"final_accuracy": res["accuracy"], "curve": res["curve"],
+                "eval_every": STA_EVAL_EVERY})
+    return res
 
 
 # ------------------------------------------------------------------ conv epilogue ladder
@@ -626,7 +783,78 @@ def ps_phase(device, tiny: bool = False) -> dict:
     emit(3, "async_ps_push_pull_overhead", overhead, "percent", "derived",
          f"{cut}throughput cost of the PS protocol for a card worker against the same "
          "recipe scanned in single mode (each rate from its CSV)")
+    out["async_ps_chunked_device_cycle"] = ps_device_cycle_phase(dev, tiny=tiny)
     return out
+
+
+#: the device cycle (JAX ``_ps_device_cycle_phase``, bench_all.py:1649-1717):
+#: the DownPour cadence's run lengths at n_push = n_pull = 10, the cycles
+#: timed, and ``--tiny``'s batch and cycles
+CYCLE_RUNS, CYCLE_REPS, TINY_CYCLE_BATCH, TINY_CYCLE_REPS = (1, 9), 10, 4, 2
+
+
+def ps_device_cycle_phase(device, tiny: bool = False) -> float:
+    """Config 3's device-side ceiling of the DownPour worker: one cadence
+    cycle (``n_push = n_pull = 10``: a run of 1 local step, then one of 9,
+    ``parallel/async_ps.downpour_chunk_schedule``) as two dispatches of
+    ``make_downpour_chunk_step`` (one captured step replayed, K1 inside the
+    graph), an unfused seed-0 AlexNet at the card worker's batch 64,
+    ``default_downpour_tx(0.008)``, with no host fetch until a trailing loss
+    read. Both run lengths warm twice, then ``CYCLE_REPS`` cycles are timed
+    on batches already on the device, then on host batches (each dispatch
+    copies its own). Emits
+    ``10 · batch / per_cycle``; returns it. The record carries K1's launches
+    (the wrappers count the warm-up steps and the capture, not replays) and
+    the captures."""
+    from distributed_ml_pytorch_tpu_torch.ops import fused_update
+    from distributed_ml_pytorch_tpu_torch.parallel.async_ps import make_downpour_chunk_step
+
+    dev = resolve_device(device)
+    batch, reps = (TINY_CYCLE_BATCH, TINY_CYCLE_REPS) if tiny else (PS_CARD_BATCH, CYCLE_REPS)
+    model = get_model("alexnet", seed=0, device=dev)
+    tx = default_downpour_tx(ALEXNET_LR)
+    opt_state = tx.init(list(model.parameters()))
+    _flat, n, _pad, accum = init_downpour_accumulator(model)
+    fused_update.launches = 0
+    chunk = make_downpour_chunk_step(model, tx, accum, n, capacity=max(CYCLE_RUNS))
+    rnd = np.random.default_rng(0)
+    host = [(rnd.normal(size=(length, batch, 32, 32, 3)).astype(np.float32),
+             rnd.integers(0, 10, (length, batch))) for length in CYCLE_RUNS]
+    resident = [(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)) for x, y in host]
+    losses = None
+    for _ in range(2):  # both run lengths: warm-up steps, the capture, replays
+        for x, y in resident:
+            losses = chunk(opt_state, x, y)
+    float(losses[-1])
+
+    def cycle_s(batches) -> float:
+        nonlocal losses
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            for x, y in batches:
+                losses = chunk(opt_state, x, y)
+        float(losses[-1])  # the one host fetch: it waits for the whole chain
+        return (time.perf_counter() - t0) / reps
+
+    per_cycle = cycle_s(resident)
+    with_copy = cycle_s(host)
+    steps = sum(CYCLE_RUNS)
+    rate = steps * batch / per_cycle
+    cut = f"--tiny: batch {batch}, {reps} cycles; " if tiny else ""
+    emit(3, "async_ps_chunked_device_cycle", rate, "images/sec/chip",
+         f"{hardware(dev)}, device-resident input",
+         f"{cut}one {steps}-step DownPour cadence cycle (runs of {CYCLE_RUNS[0]} and "
+         f"{CYCLE_RUNS[1]} local steps) as two chunked dispatches of one captured step "
+         f"(a loop on the CPU), unfused AlexNet at batch {batch}, forced completion by one "
+         f"trailing loss read ({per_cycle * 1e3:.3f} ms/cycle, host clock, {reps} cycles); "
+         f"with host batches copied by each dispatch {steps * batch / with_copy:.1f} img/s "
+         f"({with_copy * 1e3:.3f} ms/cycle)",
+         extra={"batch": batch, "ms_per_cycle": per_cycle * 1e3,
+                "host_fed_images_per_s": steps * batch / with_copy,
+                "host_fed_ms_per_cycle": with_copy * 1e3,
+                "k1_launches": fused_update.launches,
+                "captures": chunk.graphed.captures})
+    return rate
 
 
 #: the sharded leg's recipe (JAX bench_all.py:1017-1019): images a worker
@@ -838,6 +1066,109 @@ def transport_phase(device=None, tiny: bool = False) -> dict:
     return out
 
 
+#: the reliability leg (JAX ``reliability_phase``, bench_all.py:1773-1885):
+#: round trips a round, rounds, and ``--tiny``'s
+RELIABILITY_ITERS, RELIABILITY_ROUNDS, TINY_RELIABILITY_ITERS = 20, 4, 4
+RELIABILITY_MODES = {
+    "off": "no reliability layer",
+    "legacy": "the older envelope: the frame concatenated into one copy, a tobytes copy "
+              "and a whole-body crc32, one ack per frame (legacy_envelope=True, "
+              "batched_acks=False)",
+    "on": "the current wire: zero-copy checksums, scatter/gather envelope, batched "
+          "cumulative acks",
+}
+
+_RELIABLE_ECHO_SRC = """
+import sys
+from distributed_ml_pytorch_tpu_torch.utils.messaging import ReliableTransport, make_transport
+
+port, mode, n = sys.argv[1], sys.argv[2], int(sys.argv[3])
+t = make_transport(0, 2, port=int(port), kind="python", connect_timeout=120)
+if mode != "off":
+    t = ReliableTransport(t, ack_timeout=5.0, max_backoff=10.0, batched_acks=mode == "on",
+                          legacy_envelope=mode == "legacy")
+for _ in range(n):
+    sender, code, payload = t.recv(timeout=120)
+    t.send(code, payload, dst=sender)
+t.close()
+"""
+
+
+def reliability_phase(device=None, tiny: bool = False) -> dict:
+    """Config 7's reliability leg: the Python-TCP echo of AlexNet's
+    2,472,266-float vector with the reliable layer off, on the older
+    envelope (``legacy``) and on the current one (``on``), each against an
+    echo process of its own, ``ack_timeout=5.0``, ``max_backoff=10.0``; the
+    modes interleaved over ``RELIABILITY_ROUNDS`` rounds, each round's rate
+    one over its median round trip, each mode keeping its best round.
+    Emits the three rates, the current layer's overhead and the share of the
+    older envelope's overhead it recovers. A failed echo raises."""
+    from distributed_ml_pytorch_tpu_torch.launch import _free_port
+    from distributed_ml_pytorch_tpu_torch.utils.messaging import (
+        MessageCode,
+        ReliableTransport,
+        make_transport,
+    )
+
+    payload = np.zeros(2_472_266, np.float32)
+    n_iter = TINY_RELIABILITY_ITERS if tiny else RELIABILITY_ITERS
+    rounds = 1 if tiny else RELIABILITY_ROUNDS
+    rates = {}
+    for _ in range(rounds):
+        for mode in RELIABILITY_MODES:
+            port = _free_port()
+            srv = subprocess.Popen([sys.executable, "-c", _RELIABLE_ECHO_SRC, port, mode,
+                                    str(n_iter + 2)], env=_child_env())
+            t = None
+            try:
+                t = make_transport(1, 2, port=int(port), kind="python", connect_timeout=120)
+                if mode != "off":
+                    t = ReliableTransport(t, ack_timeout=5.0, max_backoff=10.0,
+                                          batched_acks=mode == "on",
+                                          legacy_envelope=mode == "legacy")
+                times = []
+                for i in range(n_iter + 2):  # the first two warm both directions
+                    t0 = time.perf_counter()
+                    t.send(MessageCode.GradientUpdate, payload)
+                    if t.recv(timeout=120) is None:
+                        raise TimeoutError(f"the echo with acks {mode} did not answer")
+                    if i >= 2:
+                        times.append(time.perf_counter() - t0)
+                rates[mode] = max(rates.get(mode, 0.0), 1.0 / float(np.median(times)))
+            finally:
+                if t is not None:
+                    t.close()
+                try:
+                    srv.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    srv.kill()
+                    srv.wait()
+            if srv.returncode != 0:
+                raise RuntimeError(f"the echo with acks {mode} exited with code "
+                                   f"{srv.returncode}")
+    cut = f"--tiny: {rounds} round of {n_iter}; " if tiny else ""
+    out = {}
+    for mode, desc in RELIABILITY_MODES.items():
+        metric = f"ps_transport_roundtrip_python_acks_{mode}"
+        out[metric] = rates[mode]
+        emit(7, metric, rates[mode], "roundtrips/sec", "2 processes, localhost TCP",
+             f"{cut}9.9 MB gradient payload echo ({2 * payload.nbytes * rates[mode] / 1e6:.0f} "
+             f"MB/s both ways), median round trip, best of {rounds} rounds, {desc} "
+             "(utils/messaging.ReliableTransport), host clock")
+    overhead = 100 * (1 - rates["on"] / rates["off"])
+    before = 100 * (1 - rates["legacy"] / rates["off"])
+    out["ps_reliability_layer_overhead"] = overhead
+    emit(7, "ps_reliability_layer_overhead", overhead, "percent", "derived",
+         f"{cut}round-trip-rate cost of acks, checksums and dedup on the 9.9 MB echo "
+         "(positive = the reliable layer slower)")
+    recovered = 100 * (before - overhead) / max(1e-9, before)
+    out["ps_reliability_ack_tax_recovered"] = recovered
+    emit(7, "ps_reliability_ack_tax_recovered", recovered, "percent of legacy overhead",
+         "derived", f"{cut}the older envelope costs {before:.1f}% of the plain round trips/s "
+         f"in this run, the current wire {overhead:.1f}%")
+    return out
+
+
 LEGS = {
     "alexnet": lambda dev, tiny: alexnet_phase(dev, tiny=tiny),
     "lm": lambda dev, tiny: lm_phase(dev, tiny=tiny),
@@ -845,6 +1176,9 @@ LEGS = {
     "ps": lambda dev, tiny: ps_phase(dev, tiny=tiny),
     "sharded_ps": lambda dev, tiny: sharded_ps_phase(dev, tiny=tiny),
     "transport": lambda dev, tiny: transport_phase(dev, tiny=tiny),
+    "lm_32k": lambda dev, tiny: lm_32k_phase(dev, tiny=tiny),
+    "steps_to_accuracy": lambda dev, tiny: steps_to_accuracy_phase(dev, tiny=tiny),
+    "reliability": lambda dev, tiny: reliability_phase(dev, tiny=tiny),
 }
 
 

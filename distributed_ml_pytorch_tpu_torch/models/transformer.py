@@ -397,7 +397,11 @@ class TransformerLM(nn.Module):
             return self.LayerNorm_0(x), new_cache
         for blk in self.blocks():
             if self.remat:
-                x = checkpoint(blk, x, positions, use_reentrant=False)
+                # the block draws no random numbers, so the generators'
+                # state is not saved (reading it is refused while a CUDA
+                # graph captures the step)
+                x = checkpoint(blk, x, positions, use_reentrant=False,
+                               preserve_rng_state=False)
             else:
                 x = blk(x, positions)
         return self.LayerNorm_0(x)

@@ -298,6 +298,59 @@ def flash_error_scales(q, k, v, do, lse2, delta, causal: bool):
             "dv": torch.matmul(p.transpose(-1, -2), do.float().abs())}
 
 
+def flash_plain_rows(q, k, v, do, lse2, delta, causal: bool, rows: int = 2048) -> dict:
+    """The plain versions and their error scales, one block of ``rows``
+    query rows at a time, for lengths whose whole ``(sq, sk)`` score plane
+    does not fit (32768² f32 is 4 GiB a head): over ``(n, s, d)``
+    (typically one head, ``n = 1``) it returns ``out`` and ``lse`` (base 2)
+    as :func:`flash_fwd_plain` computes them, ``dq``, ``dk`` and ``dv`` as
+    :func:`flash_bwd_fused_plain` computes them from the given ``lse2`` and
+    ``delta``, and the scales of :func:`flash_error_scales` (``out`` from
+    the forward's own lse). dK, dV and their scales are summed over the
+    blocks in float32; every other value of a row depends on that row
+    alone."""
+    n, sq, d = q.shape
+    sk = k.shape[1]
+    kf, vf = k.float(), v.float()
+    out = torch.empty_like(q)
+    dq = torch.empty_like(q)
+    lse = torch.empty((n, sq), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((n, sk, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    scales = {"out": torch.empty_like(out, dtype=torch.float32),
+              "dq": torch.empty_like(out, dtype=torch.float32),
+              "dk": torch.zeros_like(dk), "dv": torch.zeros_like(dk)}
+    key_pos = torch.arange(sk, device=q.device)
+    for r0 in range(0, sq, rows):
+        r1 = min(sq, r0 + rows)
+        qc, doc = q[:, r0:r1], do[:, r0:r1]
+        s = torch.matmul(qc.float(), kf.transpose(-1, -2)) * (d ** -0.5 * LOG2_E)
+        if causal:
+            keep = key_pos[None, :] <= torch.arange(r0, r1, device=q.device)[:, None]
+            s = torch.where(keep, s, torch.full((), NEG_INF, device=s.device))
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp2(s - m)
+        l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+        out[:, r0:r1] = (torch.matmul(p.to(v.dtype).float(), vf) / l).to(q.dtype)
+        lse[:, r0:r1] = (m + torch.log2(l)).squeeze(-1)
+        scales["out"][:, r0:r1] = torch.matmul(p / l, vf.abs())
+        p = torch.exp2(s - lse2[:, r0:r1, None])
+        del s
+        dv += torch.matmul(p.to(do.dtype).float().transpose(-1, -2), doc.float())
+        scales["dv"] += torch.matmul(p.transpose(-1, -2), doc.float().abs())
+        ds = (p * (_dp_in_order(doc, v) - delta[:, r0:r1, None])) * (d ** -0.5)
+        dk += torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), qc.float())
+        dq[:, r0:r1] = torch.matmul(ds.to(k.dtype).float(), kf).to(q.dtype)
+        del ds
+        dp = torch.matmul(doc.float(), vf.transpose(-1, -2))
+        ds_abs = (p * (dp - delta[:, r0:r1, None])).abs() * (d ** -0.5)
+        del dp, p
+        scales["dq"][:, r0:r1] = torch.matmul(ds_abs, kf.abs())
+        scales["dk"] += torch.matmul(ds_abs.transpose(-1, -2), qc.float().abs())
+    return {"out": out, "lse": lse, "dq": dq, "dk": dk.to(k.dtype), "dv": dv.to(v.dtype),
+            "scales": scales}
+
+
 # ------------------------------------------------------------------ CUDA kernels
 
 def _check_cuda(name: str, tensors, lse_like=()) -> int:

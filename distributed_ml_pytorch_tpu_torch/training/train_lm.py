@@ -3,18 +3,29 @@
 
     python -m distributed_ml_pytorch_tpu_torch.training.train_lm --steps 20
     python -m distributed_ml_pytorch_tpu_torch.training.train_lm --device cpu --steps 4
+    python -m distributed_ml_pytorch_tpu_torch.training.train_lm --steps 8 \
+        --steps-per-dispatch 4 --ckpt-dir runs/lm --ckpt-every 4 [--resume]
 
 Builds a ``TransformerLM`` from the flags, draws one batch of synthetic
 tokens from ``np.random.default_rng(--seed)`` (the same tokens as the JAX
 script) and trains on it for ``--steps`` SGD steps, printing the loss at
-five evenly spaced steps and the steady-state tokens/s (wall clock over
-steps 1 .. N-1, so the first step's kernel build is excluded). On the card
-float32 matmuls run in full float32, not TF32 (``device.full_float32()``),
-as in the JAX reference's float32 configuration. The flags of
-``--mode single`` keep their names and defaults; ``--device`` (``cuda`` by
-default, or ``cpu``) is new. The other modes, ``--steps-per-dispatch`` > 1
-and checkpointing (``--ckpt-dir``) are not ported yet and exit with an
-error.
+five evenly spaced dispatches and the steady-state tokens/s (wall clock
+over dispatches 1 .. N-1, so the first dispatch's kernel build and graph
+capture are excluded). On the card float32 matmuls run in full float32,
+not TF32 (``device.full_float32()``), as in the JAX reference's float32
+configuration.
+
+``--steps-per-dispatch K`` > 1 draws K more batches from the same
+generator, after the first, and trains on all K in every dispatch
+(``parallel/fsdp.make_fsdp_lm_scan_train_step``: on the card one step
+captured as a CUDA graph and replayed K times, on the CPU a loop);
+``--steps`` must divide by K. ``--ckpt-dir`` offers the state to a
+``utils/checkpoint.Checkpointer`` (``save_interval_steps=--ckpt-every``)
+after every dispatch, and saves the last step at the end; ``--resume``
+restores the latest checkpoint there in place and trains ``--steps`` more.
+The flags of ``--mode single`` keep their names and defaults; ``--device``
+(``cuda`` by default, or ``cpu``) is new. The other modes are not ported
+yet and exit with an error.
 """
 
 from __future__ import annotations
@@ -39,9 +50,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="compute the LM loss in C-token sequence chunks without "
                         "materializing the full (batch, seq, vocab) logits; 0 = dense loss")
     p.add_argument("--steps-per-dispatch", type=int, default=1, metavar="K",
-                   help="(not ported yet: only 1)")
+                   help="K steps (K distinct batches) a dispatch: on the card one step "
+                        "captured as a CUDA graph and replayed; --steps must divide by K")
     p.add_argument("--ckpt-dir", type=str, default="",
-                   help="(not ported yet: checkpointing)")
+                   help="checkpoint under this directory")
+    p.add_argument("--ckpt-every", type=int, default=100,
+                   help="save every N global steps")
+    p.add_argument("--resume", action="store_true", default=False,
+                   help="restore the latest checkpoint from --ckpt-dir")
     p.add_argument("--batch", type=int, default=8, help="batch (sequences)")
     p.add_argument("--seq", type=int, default=256, help="sequence length")
     p.add_argument("--vocab", type=int, default=512)
@@ -66,12 +82,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = parser.parse_args(argv)
     if args.mode != "single":
         parser.error(f"--mode {args.mode} is not ported yet (only --mode single)")
-    if args.steps_per_dispatch != 1:
-        parser.error("--steps-per-dispatch > 1 is not ported yet")
-    if args.ckpt_dir:
-        parser.error("--ckpt-dir (checkpointing) is not ported yet")
     if args.steps < 1:
         parser.error("--steps must be >= 1")
+    k = args.steps_per_dispatch
+    if k < 1:
+        parser.error("--steps-per-dispatch must be >= 1")
+    if args.steps % k:
+        parser.error(f"--steps {args.steps} must divide by --steps-per-dispatch {k}")
+    if args.resume and not args.ckpt_dir:
+        parser.error("--resume requires --ckpt-dir")
+    if args.ckpt_every < 1:
+        parser.error("--ckpt-every must be >= 1")
     if args.d_model % args.n_heads:
         parser.error(
             f"--d-model {args.d_model} must be divisible by --n-heads "
@@ -84,8 +105,10 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 @dataclass
 class LMRun:
-    """What a run leaves: the trained state, every step's loss and the
-    steady-state rate (0.0 for a one-step run)."""
+    """What a run leaves: the trained state, the step function and the
+    batches it took (``[K, B, S]`` stacks for K > 1), every step's loss, the
+    steady-state rate (0.0 for a one-dispatch run) and the step it resumed
+    from (0 for a fresh run)."""
 
     state: object
     step_fn: object
@@ -94,57 +117,105 @@ class LMRun:
     losses: List[float] = field(default_factory=list)
     tokens_per_s: float = 0.0
     steady_s: float = 0.0
+    start_step: int = 0
 
 
-def run(args: argparse.Namespace) -> LMRun:
-    """Build, train and report as :func:`main` does; returns the run."""
-    from distributed_ml_pytorch_tpu_torch.device import full_float32, resolve_device
+def lm_batches(args: argparse.Namespace):
+    """``(tokens, targets)`` int32 as the JAX script draws them: one
+    ``(batch, seq)`` batch from ``default_rng(--seed)``, and for K > 1 the
+    K batches drawn after it, stacked ``(K, batch, seq)``."""
+    from distributed_ml_pytorch_tpu_torch.parallel.seq_parallel import next_token_targets
+
+    rng = np.random.default_rng(args.seed)
+    shape = (args.batch, args.seq)
+    tokens = rng.integers(0, args.vocab, size=shape).astype(np.int32)
+    if args.steps_per_dispatch == 1:
+        return tokens, next_token_targets(tokens)
+    ks = [rng.integers(0, args.vocab, size=shape).astype(np.int32)
+          for _ in range(args.steps_per_dispatch)]
+    return np.stack(ks), np.stack([next_token_targets(t) for t in ks])
+
+
+def build_model(args: argparse.Namespace, device):
+    """The flags' seeded ``TransformerLM`` on ``device``."""
     from distributed_ml_pytorch_tpu_torch.models import TransformerLM
-    from distributed_ml_pytorch_tpu_torch.parallel.fsdp import make_fsdp_lm_train_step
-    from distributed_ml_pytorch_tpu_torch.parallel.seq_parallel import (
-        create_lm_train_state,
-        next_token_targets,
+
+    return TransformerLM(
+        vocab_size=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
+        n_layers=args.n_layers, d_ff=args.d_ff, max_len=max(args.seq, 256),
+        dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32,
+        pos_encoding=args.pos_encoding, remat=args.remat, seed=args.seed, device=device,
     )
+
+
+def run(args: argparse.Namespace, attn_fn=None) -> LMRun:
+    """Build, train and report as :func:`main` does; returns the run.
+    ``attn_fn`` is injected into every block (``None``: the model's
+    default attention)."""
+    from distributed_ml_pytorch_tpu_torch.device import full_float32, resolve_device
+    from distributed_ml_pytorch_tpu_torch.parallel.fsdp import (
+        make_fsdp_lm_scan_train_step,
+        make_fsdp_lm_train_step,
+    )
+    from distributed_ml_pytorch_tpu_torch.parallel.seq_parallel import create_lm_train_state
     from distributed_ml_pytorch_tpu_torch.training.trainer import SGD
 
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         full_float32()
-    lm = TransformerLM(
-        vocab_size=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
-        n_layers=args.n_layers, d_ff=args.d_ff, max_len=max(args.seq, 256),
-        dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32,
-        pos_encoding=args.pos_encoding, remat=args.remat, seed=args.seed, device=dev,
-    )
+    lm = build_model(args, dev)
+    if attn_fn is not None:
+        lm.set_attn_fn(attn_fn)
     tx = SGD(args.lr)
-    rng = np.random.default_rng(args.seed)
-    tokens = rng.integers(0, args.vocab, size=(args.batch, args.seq)).astype(np.int32)
-    targets = next_token_targets(tokens)
     state = create_lm_train_state(lm, tx)
-    step = make_fsdp_lm_train_step(lm, tx, loss_chunk=args.loss_chunk)
+    k = args.steps_per_dispatch
+    if k > 1:
+        step = make_fsdp_lm_scan_train_step(lm, tx, k, loss_chunk=args.loss_chunk)
+    else:
+        step = make_fsdp_lm_train_step(lm, tx, loss_chunk=args.loss_chunk)
+    tokens, targets = lm_batches(args)
     tok = torch.from_numpy(tokens.astype(np.int64)).to(dev)
     tgt = torch.from_numpy(targets.astype(np.int64)).to(dev)
+
+    ckpt, start_step = None, 0
+    if args.ckpt_dir:
+        from distributed_ml_pytorch_tpu_torch.utils.checkpoint import (
+            Checkpointer,
+            maybe_restore,
+        )
+
+        ckpt = Checkpointer(args.ckpt_dir, save_interval_steps=args.ckpt_every)
+        if args.resume:
+            state, start_step = maybe_restore(ckpt, state)
+            if start_step:
+                print(f"resumed from checkpoint step {start_step}", flush=True)
 
     n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
     print(f"training {args.n_layers}-layer LM (single-device on {dev.type}, "
           f"1 of {n_dev} devices)", flush=True)
+    n_disp = args.steps // k
     losses = []
     t0 = time.perf_counter()
-    for i in range(args.steps):
+    for i in range(n_disp):
         state, loss = step(state, tok, tgt)
-        losses.append(loss)
+        losses.append(loss.reshape(-1))
         if i == 0:
-            float(loss)  # wait for the first step (kernel build included)
+            float(loss.reshape(-1)[-1])  # wait for the first dispatch (build, capture)
             t0 = time.perf_counter()
-        if i % max(1, args.steps // 5) == 0:
-            print(f"  step {i:4d}  loss {float(loss):.4f}", flush=True)
-    final = float(losses[-1])
+        if ckpt is not None:
+            ckpt.save(start_step + (i + 1) * k, state)
+        if i % max(1, n_disp // 5) == 0:
+            print(f"  step {i * k:4d}  loss {float(loss.reshape(-1)[-1]):.4f}", flush=True)
+    final = float(losses[-1][-1])
     dt = time.perf_counter() - t0
-    rate = (args.steps - 1) * args.batch * args.seq / dt if args.steps > 1 else 0.0
+    rate = (n_disp - 1) * k * args.batch * args.seq / dt if n_disp > 1 else 0.0
     print(f"final loss {final:.4f}; ~{rate:.0f} tokens/s "
-          f"(naive wall-clock over steps 1..{args.steps - 1})", flush=True)
-    return LMRun(state, step, tok, tgt, [float(x) for x in losses], rate,
-                 dt if args.steps > 1 else 0.0)
+          f"(naive wall-clock over dispatches 1..{n_disp - 1})", flush=True)
+    if ckpt is not None:
+        ckpt.save(start_step + args.steps, state, force=True)
+        ckpt.close()
+    return LMRun(state, step, tok, tgt, torch.cat(losses).float().tolist(), rate,
+                 dt if n_disp > 1 else 0.0, start_step)
 
 
 def main(argv=None) -> int:

@@ -130,8 +130,10 @@ def chunked_lm_loss(model: nn.Module, tokens: torch.Tensor, targets: torch.Tenso
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(s // chunk):
         sl = slice(i * chunk, (i + 1) * chunk)
+        # no random numbers in a chunk: the generators' state is not saved
+        # (reading it is refused while a CUDA graph captures the step)
         total = total + checkpoint(chunk_ce, w, h[:, sl], targets[:, sl], mask[:, sl],
-                                   use_reentrant=False)
+                                   use_reentrant=False, preserve_rng_state=False)
     return total / mask.sum()
 
 

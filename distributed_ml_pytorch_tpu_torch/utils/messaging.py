@@ -666,6 +666,18 @@ def _frame_crc(inc: int, seq: int, code: int, body, corr: int = 0) -> int:
     return zlib.crc32(mv, h) & 0xFFFFFFFF
 
 
+def _frame_crc_legacy(inc: int, seq: int, code: int, body, corr: int = 0) -> int:
+    """The older envelope checksum (the JAX package's ``_frame_crc_legacy``):
+    a crc32 of the header's incarnation, seq and code, then of the whole
+    body through a ``tobytes()`` copy. Only ``ReliableTransport(
+    legacy_envelope=True)`` uses it, as the reliability bench's before; the
+    correlation id is accepted and not covered, as it was not then."""
+    head = struct.pack("<III", inc & 0xFFFFFFFF, seq & 0xFFFFFFFF, code & 0xFFFFFFFF)
+    if isinstance(body, np.ndarray):
+        body = body.tobytes()
+    return zlib.crc32(body, zlib.crc32(head)) & 0xFFFFFFFF
+
+
 #: frames a reliable receiver's retry tick takes in (and acks) ahead of an
 #: application that is not calling recv(): a worker's install, pull and
 #: push sent before the server's loop has started, from two workers
@@ -848,7 +860,8 @@ class ReliableTransport(Transport):
                  recv_window: int = 64, ack_batch_n: int = 8,
                  batched_acks: bool = True, breaker_fails: int = 6,
                  breaker_cooldown: float = 0.5,
-                 breaker_grace: Optional[float] = None, jitter: float = 0.25):
+                 breaker_grace: Optional[float] = None, jitter: float = 0.25,
+                 legacy_envelope: bool = False):
         self.inner = inner
         self.rank = inner.rank
         self.ack_timeout = float(ack_timeout)   # timeout floor and initial value
@@ -866,6 +879,10 @@ class ReliableTransport(Transport):
         self.breaker_grace = (float(breaker_grace) if breaker_grace is not None
                               else self.max_backoff)
         self.jitter = float(jitter)
+        #: the older envelope, for the reliability bench's before: the frame
+        #: concatenated into one copy and checked by :func:`_frame_crc_legacy`
+        #: (both ends of a link must agree)
+        self.legacy_envelope = bool(legacy_envelope)
         self.unreliable_codes = frozenset(int(c) for c in unreliable_codes) | {
             int(MessageCode.ReliableFrame), int(MessageCode.ReliableAck),
             int(MessageCode.CumAck)}
@@ -1011,11 +1028,13 @@ class ReliableTransport(Transport):
             with self._lock:
                 self.stats["window_blocked_s"] += (time.monotonic_ns() - block_t0) / 1e9
         try:
-            crc = _frame_crc(self.incarnation, seq, int(code), arr, corr)
+            checksum = _frame_crc_legacy if self.legacy_envelope else _frame_crc
+            crc = checksum(self.incarnation, seq, int(code), arr, corr)
             header = np.asarray(
                 [*_split16(self.incarnation), *_split16(seq), *_split16(crc),
                  float(int(code)), *_split16(corr)], np.float32)
-            parts = (header, arr)
+            parts = ((np.concatenate([header, arr]),) if self.legacy_envelope
+                     else (header, arr))
         except Exception:
             with self._lock:
                 st = self._peer(dst)
@@ -1298,7 +1317,8 @@ class ReliableTransport(Transport):
                 self.stats["crc_dropped"] += 1
             return None
         body = payload[9:]
-        if _frame_crc(inc, seq, inner_code, body, corr) != crc:
+        checksum = _frame_crc_legacy if self.legacy_envelope else _frame_crc
+        if checksum(inc, seq, inner_code, body, corr) != crc:
             with self._lock:
                 self.stats["crc_dropped"] += 1
             return None

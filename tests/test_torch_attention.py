@@ -194,6 +194,55 @@ def test_bwd_impl_selection_matches_jax(shape, blocks):
         kw["bwd_impl"]) == (jblocks, jbwd, jimpl)
 
 
+@pytest.mark.parametrize("b,s,want", [(1, 32768, "fused"), (2, 32768, "fused"),
+                                       (3, 32768, "split"), (4, 32768, "split"),
+                                       (16, 16384, "split")])
+def test_the_size_rule_at_long_context(b, s, want):
+    """GPT-2-small's 12 heads of 64: the split backward only once the fused
+    one's dQ partials, (s / 1024) · b · 12 · s · 64 · 4 bytes, pass the 6 GiB
+    cap. At 1 x 32768 they are half of it, at 2 x 32768 exactly it (the
+    comparison is strict), so the lm_32k leg stays fused and train_lm at 4 x
+    32768 (or 16 x 16384) splits; both packages' resolvers agree."""
+    shape = (b, 12, s, 64)
+    jq = jax.ShapeDtypeStruct(shape, jnp.bfloat16)
+    tq = torch.empty(shape, dtype=torch.bfloat16, device="meta")
+    assert ta.flash_bwd_block_choice(s, s) == ja.flash_bwd_block_choice(s, s) == (1024, 1024)
+    partials = (s // 1024) * b * 12 * s * 64 * 4
+    assert (partials > ta.FUSED_BWD_PARTIALS_CAP) == (want == "split")
+    jblocks, jbwd, _interp, jimpl = ja._resolve_flash_config(
+        jq, jq, True, None, None, None, None, True, None)
+    got = ta._resolve_flash_config(tq, tq, True, None, None, None, None, None)
+    assert got == (jblocks, jbwd, jimpl) and got[2] == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_rows_equal_the_plain_versions(dtype, causal):
+    """``flash_plain_rows`` (48 query rows at a time over 200) gives the
+    plain versions' out, lse, dQ and the error scales, and their dK and dV
+    up to the order of the float32 sums over the row blocks: within 1e-5 of
+    each tensor's largest value in float32, and one bfloat16 step of each
+    element (2^-7 relative, 1e-6 absolute) in bfloat16."""
+    q, k, v, do = (torch.from_numpy(a).to(dtype) for a in _arrays((2, 200, 64), seed=5, n=4))
+    out, lse2 = ta.flash_fwd_plain(q, k, v, causal)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse2, delta, causal)
+    want = dict(zip(("dq", "dk", "dv"), ta.flash_bwd_fused_plain(*args)), out=out, lse=lse2)
+    scales = ta.flash_error_scales(*args)
+    got = ta.flash_plain_rows(*args, rows=48)
+    for name, w in want.items():
+        g = got[name]
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        err = (g.float() - w.float()).abs()
+        if dtype == torch.float32 or name in ("out", "lse"):
+            assert float(err.max()) <= 1e-5 * float(w.float().abs().max()), name
+        else:
+            assert bool((err <= 1e-6 + 2.0 ** -7 * w.float().abs()).all()), name
+    for name, sc in scales.items():
+        np.testing.assert_allclose(got["scales"][name].numpy(), sc.numpy(), rtol=1e-5,
+                                   atol=1e-6, err_msg=name)
+
+
 @pytest.mark.parametrize("qshape,kshape,kw", [
     ((1, 2, 256, 32), (1, 2, 128, 32), dict(causal=True)),       # causal needs sq == sk
     ((1, 2, 256, 32), (1, 2, 256, 32), dict(block_q=96)),        # block must divide

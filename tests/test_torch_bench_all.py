@@ -291,13 +291,14 @@ def test_rate_record_fields():
 
 
 PS_METRICS = ["async_ps_4worker_aggregate_throughput", "async_ps_gpu_worker_throughput",
-              "single_mode_scanned_throughput", "async_ps_push_pull_overhead"]
+              "single_mode_scanned_throughput", "async_ps_push_pull_overhead",
+              "async_ps_chunked_device_cycle"]
 
 
 def test_ps_legs_on_cpu_emit_the_jax_metric_names(capsys, monkeypatch, tmp_path):
     """Config 3's legs at ``--tiny`` on the CPU: five processes, then a
-    server and a chunked worker against single mode; every record under the
-    JAX metric name, the rates positive."""
+    server and a chunked worker against single mode, then the chunked device
+    cycle; every record under the JAX metric name, the rates positive."""
     monkeypatch.setenv("PYTHONPATH", ROOT)
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
     monkeypatch.chdir(tmp_path)
@@ -377,3 +378,116 @@ def test_transport_leg_on_cpu_emits_the_jax_metric_names(capsys):
     assert all(r["config"] == 7 and r["value"] > 0 for r in recs)
     with open(os.path.join(ROOT, "bench_all.py")) as fh:
         assert 'f"ps_transport_roundtrip_{kind}"' in fh.read()
+
+
+def test_lm_32k_leg_on_cpu_emits_the_jax_metric_name(capsys):
+    """Config 6's long-context leg at ``--tiny`` widths: one (1, S) sequence,
+    remat and the chunked loss, two warm-up and two timed steps, every loss
+    in the record; the FLOPs are the JAX leg's 6ND with remat."""
+    assert bench_all.main(["--device", "cpu", "--tiny", "--legs", "lm_32k"]) == 0
+    recs = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+            if line.startswith("{")]
+    assert [r["metric"] for r in recs] == ["gpt2_small_seq32768_train_throughput"]
+    r = recs[0]
+    assert r["config"] == 6 and r["value"] > 0 and "--tiny" in r["note"]
+    assert r["seq"] == bench_all.TINY_32K_SEQ and r["loss_chunk"] == bench_all.TINY_32K_CHUNK
+    assert len(r["losses"]) == 4 and all(np.isfinite(r["losses"]))
+    lm = TransformerLM(**bench_all.TINY_LM, max_len=bench_all.TINY_32K_SEQ, device="cpu")
+    n = sum(p.numel() for name, p in lm.named_parameters() if "embed" not in name)
+    tiny = bench_all.TINY_LM
+    assert r["flops_per_step"] == jflops.lm_train_flops_6nd(
+        n, 1, bench_all.TINY_32K_SEQ, tiny["n_heads"], tiny["d_model"] // tiny["n_heads"],
+        tiny["n_layers"], remat=True)
+    with open(os.path.join(ROOT, "bench_all.py")) as fh:
+        assert '"gpt2_small_seq32768_train_throughput"' in fh.read()
+    assert (bench_all.LM_32K_SEQ, bench_all.LM_32K_CHUNK) == (32768, 2048)
+
+
+def test_device_cycle_is_the_cadence_of_one_push_and_one_pull(capsys):
+    """The device cycle's two dispatches are the DownPour schedule's runs at
+    n_push = n_pull = 10 in both packages (1 step, then 9), and the leg
+    emits the JAX metric name; on the CPU nothing is captured or launched."""
+    from distributed_ml_pytorch_tpu.parallel.async_ps import (
+        downpour_chunk_schedule as jschedule,
+    )
+    from distributed_ml_pytorch_tpu_torch.parallel.async_ps import downpour_chunk_schedule
+
+    runs = downpour_chunk_schedule(10, 10, 0, 10)
+    assert [tuple(r) for r in jschedule(10, 10, 0, 10)] == [tuple(r) for r in runs]
+    assert tuple(length for _gap, length in runs) == bench_all.CYCLE_RUNS == (1, 9)
+    rate = bench_all.ps_device_cycle_phase("cpu", tiny=True)
+    recs = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+            if line.startswith("{")]
+    assert [r["metric"] for r in recs] == ["async_ps_chunked_device_cycle"]
+    r = recs[0]
+    assert r["config"] == 3 and r["value"] == round(rate, 1) > 0
+    assert r["k1_launches"] == 0 and r["captures"] == 0
+    assert r["host_fed_images_per_s"] > 0 and r["batch"] == bench_all.TINY_CYCLE_BATCH
+    with open(os.path.join(ROOT, "bench_all.py")) as fh:
+        assert '"async_ps_chunked_device_cycle"' in fh.read()
+
+
+RELIABILITY_METRICS = [f"ps_transport_roundtrip_python_acks_{m}" for m in ("off", "legacy", "on")
+                       ] + ["ps_reliability_layer_overhead", "ps_reliability_ack_tax_recovered"]
+
+
+def test_reliability_leg_on_cpu_emits_the_jax_metric_names(capsys):
+    """Config 7's reliability leg at ``--tiny``: the Python echo with the
+    reliable layer off, on the older envelope and on the current one, each
+    against an echo process; the five JAX metric names, positive rates."""
+    assert bench_all.main(["--device", "cpu", "--tiny", "--legs", "reliability"]) == 0
+    recs = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+            if line.startswith("{")]
+    assert [r["metric"] for r in recs] == RELIABILITY_METRICS
+    assert all(r["config"] == 7 and "--tiny" in r["note"] for r in recs)
+    assert all(r["value"] > 0 for r in recs[:3])
+    with open(os.path.join(ROOT, "bench_all.py")) as fh:
+        src = fh.read()
+    for name in ('f"ps_transport_roundtrip_python_acks_{acks}"',
+                 '"ps_reliability_layer_overhead"', '"ps_reliability_ack_tax_recovered"'):
+        assert name in src
+
+
+def test_steps_to_accuracy_matches_jax_at_identical_init(monkeypatch):
+    """The port's half of ``bench_steps_to_accuracy`` against the JAX
+    function's own pieces (its synthetic set, index stream, AlexNet,
+    ``make_scan_train_step`` and ``make_eval_fn``) from JAX's seeded init,
+    carried across by ``utils/interop``, cut to 20 steps in two dispatches
+    of 10 and evals of 256 images (XLA's CPU convolutions take ~0.4 s a
+    step): each eval's accuracy within one image (1/256), each dispatch's
+    losses within the trainer tests' rtol 1e-5. The port reads the JAX
+    loader's arrays (``tests/test_torch_data.py`` holds the two loaders
+    equal), which saves a second 60,000-image synthesis."""
+    import jax
+    import jax.numpy as jnp
+
+    from distributed_ml_pytorch_tpu import data as jdata
+    from distributed_ml_pytorch_tpu.models import AlexNet as JAlexNet
+    from distributed_ml_pytorch_tpu.training import trainer as jtr
+    from distributed_ml_pytorch_tpu_torch import data as tdata
+
+    max_steps, eval_every, n_eval = 20, 10, 256
+    loaded = jdata.load_cifar10(synthetic=True)
+    monkeypatch.setattr(tdata, "load_cifar10", lambda synthetic: loaded)
+    x, y, xt, yt, _ = loaded
+    xe, ye = jnp.asarray(xt[:n_eval]), yt[:n_eval]
+    idx = np.random.default_rng(0).integers(0, len(x), size=(max_steps // eval_every,
+                                                             eval_every, 64))
+    model = JAlexNet()
+    state, tx = jtr.create_train_state(model, jax.random.key(0), lr=bench_all.ALEXNET_LR)
+    init = jax.tree.map(np.asarray, state.params)
+    scan, ev = jtr.make_scan_train_step(model, tx), jtr.make_eval_fn(model)
+    curve, losses = [], []
+    for sel in idx:
+        state, chunk_losses = scan(state, jnp.asarray(x[sel]), jnp.asarray(y[sel]),
+                                   jax.random.key(1))
+        losses.append(np.asarray(chunk_losses))
+        _, preds = ev(state.params, xe, jnp.asarray(ye))
+        curve.append(float((np.asarray(preds) == ye).mean()))
+    res = bench_all.bench_steps_to_accuracy("cpu", max_steps=max_steps, eval_every=eval_every,
+                                            n_eval=n_eval, init=init)
+    assert res["steps"] is None and len(res["curve"]) == len(curve) == 2
+    np.testing.assert_allclose(res["curve"], curve, rtol=0, atol=1 / n_eval + 1e-12)
+    assert res["accuracy"] == res["curve"][-1]
+    for got, want in zip(res["losses"], losses):
+        np.testing.assert_allclose(got, want, rtol=1e-5)

@@ -1,0 +1,101 @@
+"""``chip_smoke.py`` phases 18 and 19 rehearsed on the CPU at tiny widths.
+
+There is no card here, so ``ops.attention``'s CUDA wrappers are routed to
+their plain versions, counting a launch where the kernel would launch, and
+the CPU path's plain versions are routed through those wrappers: the
+phases' recording of one layer's tensors, their launch-count checks, the
+row-chunked plain check, the K-step and resume comparisons and the bench
+legs then run as on the card (the error checks compare plain with plain).
+The fused backward's dQ-partials cap is lowered so that the tiny batch 4
+takes the split backward and batch 1 keeps the fused one, as 4 × 32768 and
+1 × 32768 do at the real cap.
+"""
+
+import json
+import os
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+import chip_smoke as cs  # noqa: E402
+from distributed_ml_pytorch_tpu_torch.ops import attention as at  # noqa: E402
+
+
+@pytest.fixture
+def routed(monkeypatch, tmp_path):
+    plain_fwd, plain_bwd = at.flash_fwd_plain, at.flash_bwd_fused_plain
+
+    def counted(name, fn):
+        def launch(*args):
+            at.launches[name] += 1
+            return fn(*args)
+        return launch
+
+    monkeypatch.setattr(at, "flash_fwd_cuda", counted("flash_fwd", plain_fwd))
+    monkeypatch.setattr(at, "flash_bwd_fused_cuda", counted("flash_bwd_fused", plain_bwd))
+    monkeypatch.setattr(at, "flash_bwd_dq_cuda",
+                        counted("flash_bwd_dq", lambda *a: plain_bwd(*a)[0]))
+    monkeypatch.setattr(at, "flash_bwd_dkv_cuda",
+                        counted("flash_bwd_dkv", lambda *a: plain_bwd(*a)[1:]))
+    monkeypatch.setattr(at, "flash_fwd_plain", lambda *a: at.flash_fwd_cuda(*a))
+    monkeypatch.setattr(at, "flash_bwd_fused_plain", lambda *a: at.flash_bwd_fused_cuda(*a))
+    monkeypatch.setattr(at, "flash_bwd_split_plain",
+                        lambda *a: (at.flash_bwd_dq_cuda(*a), *at.flash_bwd_dkv_cuda(*a)))
+    # the tiny shape (2 heads of 32, 256 tokens): batch 1's partials equal
+    # the cap (the comparison is strict: fused), batch 4's pass it (split)
+    monkeypatch.setattr(at, "FUSED_BWD_PARTIALS_CAP", 1 * 2 * 256 * 32 * 4)
+    monkeypatch.setattr(cs, "device_ms", lambda fn, iters=200: float(fn() is not None))
+    monkeypatch.setattr(cs, "SMOKE_LM_DIR", str(tmp_path / "smoke_lm"))
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _lines(capsys):
+    return {d["phase"]: d for d in (json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+                                    if ln.startswith('{"phase"'))}
+
+
+def test_long_context_phase(routed, capsys):
+    launches, errors = cs.phase_long_context(torch, device="cpu", tiny=True)
+    # (a) 4 steps of 2 layers: K4 twice a layer (remat), K5 once; (b) 2 steps
+    assert launches == {"flash_fwd": 16 + 8, "flash_bwd_fused": 8, "flash_bwd_dq": 4,
+                        "flash_bwd_dkv": 4}
+    assert all(0.0 <= e <= 1e-5 for e in errors.values())
+    lines = _lines(capsys)
+    fused, split = lines["long_context_fused"], lines["long_context_split"]
+    assert fused["ok"] and fused["checked_bh"] == [0, 1]
+    assert set(fused["kernels"]) == {"flash_fwd", "flash_bwd_fused"}
+    assert split["ok"] and split["checked_bh"] == [0, 7]
+    assert set(split["kernels"]) == {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"}
+    assert split["kernels"]["flash_bwd_dq"]["launches_per_step"] == 2
+
+
+def test_long_context_phase_fails_where_the_rule_keeps_the_fused_backward(routed,
+                                                                          monkeypatch):
+    monkeypatch.setattr(at, "FUSED_BWD_PARTIALS_CAP", 6 * 1024 ** 3)
+    with pytest.raises(cs.SmokeFailure, match="must pick the split backward"):
+        cs.phase_long_context(torch, device="cpu", tiny=True)
+
+
+def test_lm_flags_phase(routed, capsys):
+    cycle = {"metric": "async_ps_chunked_device_cycle", "value": 1.0}
+    launches = cs.phase_lm_flags(torch, cycle, device="cpu", tiny=True)
+    # the counted runs: each backward's graphed 8-step run, 2 layers, remat
+    assert launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 16
+    assert launches["flash_bwd_fused"] == 16 and launches["flash_fwd"] == 64
+    lines = _lines(capsys)
+    split, fused = lines["lm_flags"]["split"], lines["lm_flags"]["fused"]
+    assert split["graphed_equals_eager"] and split["resumed_equals_uninterrupted"]
+    assert split["checkpoints"] == [4, 8] and split["resumed_from"] == 4
+    # on the CPU the fused backward is deterministic too
+    assert fused["graphed_vs_eager_rel_l2"] == fused["resumed_vs_uninterrupted_rel_l2"] == 0.0
+    records = lines["main_path_bench_legs"]["records"]
+    assert records[0] == cycle
+    assert [r["metric"] for r in records[1:3]] == ["steps_to_99pct_test_accuracy",
+                                                   "ps_transport_roundtrip_python_acks_off"]

@@ -8,6 +8,8 @@ PyTorch alone:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1506,3 +1508,96 @@ def test_sharded_client_equals_the_per_step_client_on_the_card(cuda, k):
     for a, b in zip(pushes, ref_pushes):
         np.testing.assert_array_equal(a, b)
     assert torch.equal(flat, ref_flat)
+
+
+# ------------------------------------------------------------------ the LM trainer's flags
+
+#: train_lm at a small width whose heads the tensor-core kernels take (2 x
+#: 64), bfloat16, remat and the chunked loss: torch.utils.checkpoint inside
+#: the captured step
+LM_ARGV = ["--vocab", "512", "--d-model", "128", "--n-heads", "2", "--n-layers", "2",
+           "--d-ff", "256", "--dtype", "bfloat16", "--pos-encoding", "rope", "--batch", "2",
+           "--seq", "256", "--remat", "--loss-chunk", "128", "--steps-per-dispatch", "4",
+           "--device", "cuda"]
+
+
+def _split_attention():
+    import functools
+
+    from distributed_ml_pytorch_tpu_torch.ops import attention as tat
+
+    # the split pair has no atomics: its steps repeat bit for bit
+    return functools.partial(tat.flash_attention, causal=True, bwd_impl="split")
+
+
+@pytest.mark.gpu
+def test_lm_k_steps_graphed_equal_eager_steps_with_the_split_backward(cuda):
+    """``train_lm --steps-per-dispatch 4 --steps 8`` (two dispatches of one
+    captured step: 2 eager warm-up steps, the capture, replays) equals eight
+    eager AD steps on the same batches in the same order, losses and
+    parameters bit for bit, with one capture."""
+    from distributed_ml_pytorch_tpu_torch.parallel.fsdp import make_fsdp_lm_train_step
+    from distributed_ml_pytorch_tpu_torch.parallel.seq_parallel import create_lm_train_state
+    from distributed_ml_pytorch_tpu_torch.training import train_lm
+    from distributed_ml_pytorch_tpu_torch.training.trainer import SGD
+
+    args = train_lm.parse_args([*LM_ARGV, "--steps", "8"])
+    res = train_lm.run(args, attn_fn=_split_attention())
+    assert res.step_fn.graphed.captures == 1 and res.state.step == 8
+    model = train_lm.build_model(args, cuda)
+    model.set_attn_fn(_split_attention())
+    state = create_lm_train_state(model, SGD(args.lr))
+    step = make_fsdp_lm_train_step(model, SGD(args.lr), loss_chunk=args.loss_chunk)
+    tokens, targets = train_lm.lm_batches(args)
+    tok, tgt = (torch.from_numpy(a.astype(np.int64)).to(cuda) for a in (tokens, targets))
+    eager = [float(step(state, tok[i % 4], tgt[i % 4])[1]) for i in range(8)]
+    assert res.losses == eager
+    for a, b in zip(res.state.model.parameters(), model.parameters()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_lm_resume_on_the_card_equals_an_uninterrupted_run(cuda, tmp_path):
+    """Eight steps checkpointed every four, against four steps, then a
+    resume that trains four more: the resumed run's losses and parameters
+    equal the uninterrupted run's, bit for bit (the split backward)."""
+    from distributed_ml_pytorch_tpu_torch.training import train_lm
+
+    full = train_lm.run(train_lm.parse_args(
+        [*LM_ARGV, "--steps", "8", "--ckpt-dir", str(tmp_path / "full"), "--ckpt-every", "4"]),
+        attn_fn=_split_attention())
+    assert sorted(os.listdir(tmp_path / "full")) == ["4", "8"]
+    cut = [*LM_ARGV, "--steps", "4", "--ckpt-dir", str(tmp_path / "cut"), "--ckpt-every", "4"]
+    train_lm.run(train_lm.parse_args(cut), attn_fn=_split_attention())
+    resumed = train_lm.run(train_lm.parse_args([*cut, "--resume"]), attn_fn=_split_attention())
+    assert resumed.start_step == 4 and resumed.state.step == 8
+    assert resumed.losses == full.losses[4:]
+    for a, b in zip(resumed.state.model.parameters(), full.state.model.parameters()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_split_kernels_at_32k_tokens_match_the_chunked_plain_version(cuda):
+    """K6a and K6b at (3, 12, 32768, 64) bfloat16 causal, the smallest batch
+    at which the size rule picks them at this length, on K4's lse and the
+    delta of its output: every query and key of the last (b, h) against
+    ``flash_plain_rows`` (2048 query rows at a time), within ATTN_TOL of
+    each output's absolute product."""
+    from distributed_ml_pytorch_tpu_torch.ops import attention as tat
+
+    b, h, s, d = 3, 12, 32768, 64
+    q4 = torch.empty((b, h, s, d), device=cuda)
+    assert tat._resolve_flash_config(q4, q4, True, None, None, None, None, None)[2] == "split"
+    del q4
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v, do = (torch.randn((b * h, s, d), generator=g, device=cuda).to(torch.bfloat16)
+                   for _ in range(4))
+    out, lse2 = tat.flash_fwd_cuda(q, k, v, True)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse2, delta, True)
+    dq = tat.flash_bwd_dq_cuda(*args)
+    dk, dv = tat.flash_bwd_dkv_cuda(*args)
+    last = b * h - 1
+    ref = tat.flash_plain_rows(*(t[last:] for t in (q, k, v, do, lse2, delta)), True)
+    for name, got in (("dq", dq), ("dk", dk), ("dv", dv)):
+        _close(got[last:], ref[name], torch.bfloat16, name, ref["scales"][name])

@@ -161,6 +161,13 @@ def test_frame_crc_equals_jax(nbytes):
     for b in bodies:
         assert tmsg._frame_crc(inc, seq, code, b, corr) == jmsg._frame_crc(
             inc, seq, code, b, corr)
+    # the older envelope's checksum (the reliability bench's before): a
+    # whole-body crc32 that leaves the correlation id out
+    for b in [body] + ([np.frombuffer(body, np.float32)] if nbytes % 4 == 0 else []):
+        assert tmsg._frame_crc_legacy(inc, seq, code, b, corr) == jmsg._frame_crc_legacy(
+            inc, seq, code, b, corr)
+    assert tmsg._frame_crc_legacy(inc, seq, code, body, corr) == tmsg._frame_crc_legacy(
+        inc, seq, code, body, corr ^ 1)
     # every header field and one body bit are covered
     base = tmsg._frame_crc(inc, seq, code, body, corr)
     assert base != tmsg._frame_crc(inc ^ 1, seq, code, body, corr)
@@ -173,14 +180,18 @@ def test_frame_crc_equals_jax(nbytes):
 
 @pytest.mark.parametrize("sender_pkg,receiver_pkg", [("port", "jax"), ("jax", "port")])
 @pytest.mark.parametrize("n", [5, 40_000], ids=["crc32", "bulk"])
-def test_envelopes_pass_between_the_packages(sender_pkg, receiver_pkg, n):
-    """Two packages' transports on one mailbox dict: the receiver delivers
-    the sender's envelope, restores its correlation id on the receiving
-    thread, and its ack clears the sender's pending frame."""
+@pytest.mark.parametrize("legacy", [False, True], ids=["envelope", "legacy_envelope"])
+def test_envelopes_pass_between_the_packages(sender_pkg, receiver_pkg, n, legacy):
+    """Two packages' transports on one mailbox dict, both on the current
+    envelope or both on the older one (``legacy_envelope``): the receiver
+    delivers the sender's envelope, restores its correlation id on the
+    receiving thread, and its ack clears the sender's pending frame."""
     (smod, sobs), (rmod, robs) = PKG[sender_pkg], PKG[receiver_pkg]
     boxes = {r: queue.Queue() for r in (0, 1)}
-    rx = rmod.ReliableTransport(rmod.InProcessTransport(0, boxes), ack_timeout=0.05)
-    tx = smod.ReliableTransport(smod.InProcessTransport(1, boxes), ack_timeout=0.05)
+    rx = rmod.ReliableTransport(rmod.InProcessTransport(0, boxes), ack_timeout=0.05,
+                                legacy_envelope=legacy)
+    tx = smod.ReliableTransport(smod.InProcessTransport(1, boxes), ack_timeout=0.05,
+                                legacy_envelope=legacy)
     try:
         payload = np.random.default_rng(n).normal(size=n).astype(np.float32)
         sobs.set_corr(0xBEEF1234)

@@ -318,13 +318,16 @@ def test_train_lm_main_on_cpu(capsys):
     assert "step    0  loss" in out
 
 
-@pytest.mark.parametrize("argv", [["--mode", "fsdp"], ["--steps-per-dispatch", "2"],
-                                  ["--ckpt-dir", "ckpt"], ["--d-model", "100"]])
+@pytest.mark.parametrize("argv", [["--mode", "fsdp"], ["--steps-per-dispatch", "3"],
+                                  ["--resume"], ["--d-model", "100"]])
 def test_train_lm_rejects_unported_or_bad_flags(argv, capsys):
+    # --steps (10) must divide by --steps-per-dispatch, and --resume needs
+    # --ckpt-dir, as in the JAX script and CLI
     with pytest.raises(SystemExit):
         train_lm.parse_args(["--device", "cpu", *argv])
     err = capsys.readouterr().err
-    assert "not ported yet" in err or "divisible" in err
+    assert ("not ported yet" in err or "divisible" in err or "must divide" in err
+            or "requires --ckpt-dir" in err)
 
 
 def test_decode_is_not_ported():
