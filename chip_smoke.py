@@ -243,7 +243,33 @@ Phases, each printing one JSON line; any failure exits non-zero:
    then ``bench_all --legs steps_to_accuracy,reliability`` in this process,
    printed with 16 (d)'s device-cycle record. The ``kernels`` line's K4-K6b
    launches add phases 18 and 19 to phase 6's, and their ``max_abs_err``
-   is the larger of phase 5's and phase 18's.
+   is the larger of phase 5's and phase 18's;
+20. the optimizer and codec plane on the DownPour world, under
+   deterministic cuDNN in full float32: (a) phase 16 (a)'s three processes
+   (``--transport native --reliable --wal --admission``, 80 chunked steps a
+   worker) with ``--compress int8 --combine adasum``: 16 (a)'s checks, and
+   every push framed at the int8 size (620,667 floats at AlexNet's
+   2,472,266), the encoder's compression ratio (3.983) and no residual
+   reset; each worker's steady steps/s and idle share (1 - steps/s x phase
+   15 (b)'s busy ms a step) beside 16 (a)'s, the host ms of each encode,
+   decode, Adasum and push's handling, the pushes a second offered and
+   applied, the server's queue and the margin of the longest ack wait under
+   the 1 s timeout floor; a fresh server restores the directory bit for
+   bit; (b) phase 17's sharded world (two shard servers,
+   two per-step workers) with ``--compress topk --server-opt sgdm
+   --server-lr 0.5 --server-momentum 0.5``: 17's checks, every frame to a
+   shard of 1,236,133 elements carrying 12,361 pairs, each shard's
+   optimizer over exactly its range (2 x 1,236,133 floats of state), and
+   each shard's directory (vector, meta, ``ps_opt.npz``) restored into a
+   fresh shard server with the slice and m, v and t bit for bit; (c) a
+   server and one chunked worker as threads with ``Asynchronous(...,
+   compress="int8", delta_pull=True)``, each pull sent once the reply to
+   the last is installed: the first pull a full install, every other a
+   top-k delta (98,904 floats a reply against 2,472,280 for a full one), no
+   base miss, and the worker's final view equal to the server's tracked
+   base bit for bit; (d) ``bench_all --legs wire_bytes``, its
+   records printed. The ``kernels`` line's K1 and K2 launches add phase
+   20's workers' counts.
 
 Then the ``kernels`` line, the ``nvidia-smi`` name/power line, and last the
 result line ``{"ok": true, "device": {...}}``. Without a card, or without
@@ -2532,20 +2558,20 @@ def _chunked_world(torch, per_step_workers) -> dict:
 
 def phase_chunked_worker(torch, per_step_workers):
     """Phase 15: the chunked DownPour worker, under deterministic cuDNN in
-    full float32; returns (c)'s per-worker rates."""
+    full float32; returns (c)'s per-worker rates and (b)'s busy ms a step."""
     from distributed_ml_pytorch_tpu_torch.device import full_float32
 
     full_float32()
     saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     try:
-        emit({"phase": "chunked_worker_vs_per_step", "ok": True,
-              **_chunked_vs_per_step(torch)})
+        versus = _chunked_vs_per_step(torch)
+        emit({"phase": "chunked_worker_vs_per_step", "ok": True, **versus})
         world = _chunked_world(torch, per_step_workers)
         emit({"phase": "chunked_worker_world", "ok": True, **world})
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
-    return world["per_worker"]
+    return world["per_worker"], versus["busy_ms_per_step"]
 
 
 # ------------------------------------------------------------------ phase 16
@@ -2576,19 +2602,50 @@ PS_PROCESS_TIMEOUT_S = 300
 #: see the transport, the server, the worker's log and its chunk step, and
 #: prints one JSON line last.
 _PS_RANK_SRC = r"""
-import json, sys
+import json, sys, time
 import numpy as np
 import torch
 from distributed_ml_pytorch_tpu_torch.ops import fused_conv as fc
 from distributed_ml_pytorch_tpu_torch.ops import fused_update as fu
 from distributed_ml_pytorch_tpu_torch.parallel import async_ps as tps
 from distributed_ml_pytorch_tpu_torch.training.cli import build_parser
+from distributed_ml_pytorch_tpu_torch.utils import compress, health, wal
 from distributed_ml_pytorch_tpu_torch.utils import messaging as msg
 from distributed_ml_pytorch_tpu_torch.utils.messaging import MessageCode
 
 args = build_parser().parse_args(json.loads(sys.argv[1]))
 torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-seen = {"pushes": 0}
+seen = {"pushes": 0, "frames": set()}
+PUSHES = (MessageCode.GradientUpdate, MessageCode.CompressedUpdate)
+#: host ms of each call of the plane's functions: the worker's encode, the
+#: server's decode, Adasum, admission, log append and whole handling of one
+#: push (decode apart), a pull's reply and a log group's commit
+host_ms = {"encode": [], "decode": [], "adasum": [], "admission": [], "wal_append": [],
+           "push_handle": [], "pull_reply": [], "commit": []}
+#: the wall-clock second each push handling started (server) and each push
+#: left (worker): the server's queue is the pushes sent and not yet handled
+push_t = []
+
+def timed(mod, name, key):
+    real = getattr(mod, name)
+    def wrapped(*a, **k):
+        if key == "push_handle":
+            push_t.append(time.time())
+        t0 = time.perf_counter()
+        out = real(*a, **k)
+        host_ms[key].append((time.perf_counter() - t0) * 1e3)
+        return out
+    setattr(mod, name, wrapped)
+
+timed(compress.CompressingEncoder, "encode_range", "encode")
+timed(tps, "decode_update", "decode")
+timed(tps, "adasum_adjust", "adasum")
+timed(tps.ParameterServer, "_apply_update", "push_handle")
+timed(tps.ParameterServer, "_reply", "pull_reply")
+timed(tps.ParameterServer, "_reply_delta", "pull_reply")
+timed(tps.ParameterServer, "commit", "commit")
+timed(health.GradientAdmission, "evaluate", "admission")
+timed(wal.WriteAheadLog, "append", "wal_append")
 
 def wrap(mod, name, after):
     real = getattr(mod, name)
@@ -2607,9 +2664,21 @@ real_send = tps.Asynchronous._send
 def counting_send(self, code, payload):
     if code == MessageCode.GradientUpdate:
         seen["pushes"] += 1
+        push_t.append(time.time())
     return real_send(self, code, payload)
 
+real_sendv = tps.Asynchronous._sendv
+
+def counting_sendv(self, code, parts):
+    if code == MessageCode.CompressedUpdate:
+        seen["pushes"] += 1
+        push_t.append(time.time())
+        seen["frames"].add(sum(int(np.asarray(p).size) for p in parts))
+        seen["opt"] = self
+    return real_sendv(self, code, parts)
+
 tps.Asynchronous._send = counting_send
+tps.Asynchronous._sendv = counting_sendv
 fu.launches = 0
 for k in fc.launches:
     fc.launches[k] = 0
@@ -2618,7 +2687,12 @@ t = seen["transport"]
 inner = getattr(t, "inner", t)
 line = {"rank": args.rank, "rc": rc, "transport": type(t).__name__,
         "inner": type(inner).__name__, "stats": getattr(t, "stats", None),
+        "host_ms": {k: (None if not v else {"n": len(v), "mean": sum(v) / len(v),
+                                            "max": max(v), "total": sum(v)})
+                    for k, v in host_ms.items()},
         "max_ack_s": getattr(t, "max_ack_wait", None),
+        "min_ack_slack_s": getattr(t, "min_ack_slack", None),
+        "ack_floor_s": getattr(t, "ack_timeout", None), "push_t": push_t,
         # the reliable layer's timeout state per peer at the end of the run
         "peers": {str(d): {"srtt": st.srtt, "rto": st.rto}
                   for d, st in (t._peers.items() if t is not inner else ())}}
@@ -2627,15 +2701,21 @@ if "server" in seen:
     np.save(sys.argv[2], srv.central)
     line.update(message_counts={c.name: n for c, n in srv.message_counts.items() if n},
                 apply_seq=srv._apply_seq, version=srv.staleness.version,
-                quarantined=srv.quarantined,
+                quarantined=srv.quarantined, dropped=srv.dropped_bad_updates,
+                combine=srv.combine,
                 applied_by_sender={str(k): v for k, v in srv.applied_by_sender.items()},
                 recent_envelopes=len(srv._recent_envelopes))
 else:
     recs = seen["logger"].records
+    enc = seen["opt"].encoder if "opt" in seen else None
     line.update(launches={"flat_axpy": fu.launches, **fc.launches},
                 captures=seen["chunk"].graphed.captures, pushes_sent=seen["pushes"],
-                acked_pushes=(t.acked_count(0, MessageCode.GradientUpdate)
+                acked_pushes=(sum(t.acked_count(0, c) for c in PUSHES)
                               if hasattr(t, "acked_count") else None),
+                frame_floats=sorted(seen["frames"]),
+                encoder=None if enc is None else {
+                    "pushes": enc.pushes, "ratio": enc.compression_ratio(),
+                    "residual_resets": enc.residual_resets},
                 t=[r["timestamp"].timestamp() for r in recs],
                 loss=[r["training_loss"] for r in recs])
 print("PS_RANK " + json.dumps(line), flush=True)
@@ -2646,8 +2726,8 @@ def _ps_processes(wire, ckpt_dir, backend="cuda", model="alexnet", steps=WORKER_
                   batch=64):
     """One server and two worker processes over TCP on a free port, every
     process from :data:`_PS_RANK_SRC` with phase 15 (c)'s recipe plus
-    ``--wal --admission --ckpt-dir ckpt_dir`` and ``wire``, through
-    :func:`_run_ranks`."""
+    ``--wal --admission --ckpt-dir ckpt_dir`` and ``wire`` (the transport
+    flags and any others), through :func:`_run_ranks`."""
     import shutil
     import socket
 
@@ -2707,9 +2787,10 @@ def _ps_world_checks(lines, reliable, steps=WORKER_STEPS, backend="cuda"):
 
     srv = lines[0]
     workers = {r: lines[r] for r in (1, 2)}
-    applied = srv["message_counts"].get("GradientUpdate", 0)
+    applied = sum(srv["message_counts"].get(c, 0) for c in ("GradientUpdate", "CompressedUpdate"))
     sent = sum(w["pushes_sent"] for w in workers.values())
     require(srv["quarantined"] == 0, f"{srv['quarantined']} pushes quarantined")
+    require(srv["dropped"] == 0, f"{srv['dropped']} pushes dropped as malformed")
     require(applied == srv["apply_seq"] == sent,
             f"applied {applied}, apply_seq {srv['apply_seq']}, sent {sent}")
     require(all(ln["rc"] == 0 for ln in lines.values()), "a rank returned non-zero")
@@ -2765,13 +2846,17 @@ def _ps_world_line(lines, reliable, wall, in_process, steps=WORKER_STEPS, backen
             "server_messages": srv["message_counts"], "apply_seq": srv["apply_seq"],
             "quarantined": srv["quarantined"], "server_stats": srv["stats"],
             "peer_timeouts": {r: ln["peers"] for r, ln in lines.items() if ln["peers"]},
-            "max_ack_s": {r: ln["max_ack_s"] for r, ln in lines.items()}}
+            "max_ack_s": {r: ln["max_ack_s"] for r, ln in lines.items()},
+            "min_ack_slack_s": {r: ln["min_ack_slack_s"] for r, ln in lines.items()},
+            "host_ms": {r: {k: v for k, v in ln["host_ms"].items() if v}
+                        for r, ln in lines.items()}}
 
 
 def phase_ps_processes(torch, in_process, backend="cuda", model="alexnet",
                        steps=WORKER_STEPS, bench=True):
     """Phase 16: the DownPour world as processes, (a)-(f); with ``bench``,
-    (d) ``bench_all --legs ps``, whose device-cycle record it returns."""
+    (d) ``bench_all --legs ps``. Returns the device-cycle record (None
+    without ``bench``) and (a)'s per-worker summary."""
     import numpy as np
 
     from distributed_ml_pytorch_tpu_torch.models import get_model
@@ -2789,10 +2874,10 @@ def phase_ps_processes(torch, in_process, backend="cuda", model="alexnet",
             require(ln["inner"] == inner, f"({letter}) rank {r} runs {ln['inner']}")
             require(reliable or ln["transport"] == inner,
                     f"({letter}) rank {r} runs {ln['transport']}")
-        emit({"phase": name, "ok": True, "world": letter,
-              **_ps_world_line(lines, reliable, wall, in_process, steps, backend)})
+        line = _ps_world_line(lines, reliable, wall, in_process, steps, backend)
+        emit({"phase": name, "ok": True, "world": letter, **line})
         if letter == "a":
-            srv = lines[0]
+            srv, dense_16a = lines[0], line["per_worker"]
     # (c) restore (a)'s directory into a fresh server on a reliable transport
     t = ReliableTransport(InProcessTransport.create_world(3)[0], ack_on_delivery=False)
     fresh = ParameterServer(get_model(model, seed=0, device="cpu"), transport=t,
@@ -2830,8 +2915,8 @@ def phase_ps_processes(torch, in_process, backend="cuda", model="alexnet",
                 and cycle["captures"] == 1 and cycle["k1_launches"] == 3,
                 f"the device cycle's record: {cycle}")
         emit({"phase": "ps_bench_legs", "ok": True, "records": records})
-        return cycle
-    return None
+        return cycle, dense_16a
+    return None, dense_16a
 
 
 # ------------------------------------------------------------------ phase 17
@@ -2862,7 +2947,9 @@ from distributed_ml_pytorch_tpu_torch.utils.messaging import MessageCode
 
 args = build_parser().parse_args(json.loads(sys.argv[1]))
 torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-seen = {"transports": [], "pushes": [0] * args.n_servers}
+seen = {"transports": [], "pushes": [0] * args.n_servers,
+        "frames": [set() for _ in range(args.n_servers)]}
+PUSHES = (MessageCode.GradientUpdate, MessageCode.CompressedUpdate)
 
 def wrap(mod, name, after):
     real = getattr(mod, name)
@@ -2882,14 +2969,23 @@ def counting_send(self, shard, code, payload):
         seen["pushes"][shard] += 1
     return real_send(self, shard, code, payload)
 
+real_sendv = sps.ShardedAsynchronous._sendv
+
+def counting_sendv(self, shard, code, parts):
+    if code == MessageCode.CompressedUpdate and not self.shard_down[shard]:
+        seen["pushes"][shard] += 1
+        seen["frames"][shard].add(sum(int(np.asarray(p).size) for p in parts))
+    return real_sendv(self, shard, code, parts)
+
 sps.ShardedAsynchronous._send = counting_send
+sps.ShardedAsynchronous._sendv = counting_sendv
 fu.launches = 0
 for k in fc.launches:
     fc.launches[k] = 0
 rc = sps.run_sharded_ps_process(args)
 links = [{"transport": type(t).__name__, "inner": type(getattr(t, "inner", t)).__name__,
           "stats": getattr(t, "stats", None), "max_ack_s": getattr(t, "max_ack_wait", None),
-          "acked_pushes": (t.acked_count(0, MessageCode.GradientUpdate)
+          "acked_pushes": (sum(t.acked_count(0, c) for c in PUSHES)
                            if hasattr(t, "acked_count") else None)}
          for t in seen["transports"]]
 line = {"rank": args.rank, "rc": rc, "links": links}
@@ -2898,11 +2994,18 @@ if "server" in seen:
     np.save(sys.argv[2], srv.central)
     line.update(message_counts={c.name: n for c, n in srv.message_counts.items() if n},
                 apply_seq=srv._apply_seq, version=srv.staleness.version,
-                quarantined=srv.quarantined, held=int(srv.central.shape[0]))
+                quarantined=srv.quarantined, dropped=srv.dropped_bad_updates,
+                held=int(srv.central.shape[0]))
+    if srv.optimizer is not None:
+        opt = srv.optimizer
+        np.save(sys.argv[2] + ".m.npy", opt.m)
+        np.save(sys.argv[2] + ".v.npy", opt.v)
+        line.update(optimizer={"kind": opt.kind, "lo": opt.lo, "hi": opt.hi, "t": opt.t,
+                               "state_floats": opt.state_floats()})
 else:
     recs = seen["logger"].records
     line.update(launches={"flat_axpy": fu.launches, **fc.launches},
-                pushes_sent=seen["pushes"],
+                pushes_sent=seen["pushes"], frame_floats=[sorted(f) for f in seen["frames"]],
                 t=[r["timestamp"].timestamp() for r in recs],
                 loss=[r["training_loss"] for r in recs])
 print("PS_RANK " + json.dumps(line), flush=True)
@@ -2910,11 +3013,12 @@ print("PS_RANK " + json.dumps(line), flush=True)
 
 
 def _sharded_processes(k, ckpt_dir, backend="cuda", model="alexnet", steps=WORKER_STEPS,
-                       batch=64):
+                       batch=64, extra=()):
     """The sharded world: ``k`` shard-server processes and two worker
     processes over TCP (``--world-size k+2 --n-servers k``, ports ``port``
     to ``port + k - 1``), each from :data:`_SHARDED_RANK_SRC`, with phase 16
-    (a)'s recipe per step, through :func:`_run_ranks`."""
+    (a)'s recipe per step and the flags ``extra``, through
+    :func:`_run_ranks`."""
     import shutil
 
     from distributed_ml_pytorch_tpu_torch.launch import _free_port_block
@@ -2929,19 +3033,21 @@ def _sharded_processes(k, ckpt_dir, backend="cuda", model="alexnet", steps=WORKE
               "--num-push", "10", "--num-pull", "10", "--log-interval", str(10 * steps),
               "--worker-timeout", "0", "--log-dir", ckpt_dir + "_runs",
               "--transport", "native", "--reliable", "--wal", "--admission",
-              "--ckpt-dir", ckpt_dir]
+              "--ckpt-dir", ckpt_dir, *extra]
     return _run_ranks(_SHARDED_RANK_SRC, {
         rank: (common + ["--rank", str(rank)] + (["--server"] if rank < k else []),
                f"{ckpt_dir}.central{rank}.npy") for rank in range(k + 2)})
 
 
-def _sharded_world(k, ckpt_dir, n_params, per_step_workers, launches, backend, model, steps):
-    """One sharded world of :func:`_sharded_processes` and its checks;
-    adds the workers' kernel launches to ``launches``; returns ``(lines,
-    line)``: every rank's line and the phase line."""
+def _sharded_world(k, ckpt_dir, n_params, per_step_workers, launches, backend, model, steps,
+                   extra=()):
+    """One sharded world of :func:`_sharded_processes` (with the flags
+    ``extra``) and its checks; adds the workers' kernel launches to
+    ``launches``; returns ``(lines, line)``: every rank's line and the phase
+    line."""
     from distributed_ml_pytorch_tpu_torch.parallel.sharded_ps import shard_ranges
 
-    lines, wall = _sharded_processes(k, ckpt_dir, backend, model, steps)
+    lines, wall = _sharded_processes(k, ckpt_dir, backend, model, steps, extra=extra)
     ranges = shard_ranges(n_params, k)
     workers = {r: lines[r] for r in range(k, k + 2)}
     require(all(ln["rc"] == 0 for ln in lines.values()), "a rank returned non-zero")
@@ -2959,7 +3065,8 @@ def _sharded_world(k, ckpt_dir, n_params, per_step_workers, launches, backend, m
     shards = {}
     for s, (lo, hi) in enumerate(ranges):
         srv = lines[s]
-        applied = srv["message_counts"].get("GradientUpdate", 0)
+        applied = sum(srv["message_counts"].get(c, 0)
+                      for c in ("GradientUpdate", "CompressedUpdate"))
         sent = sum(w["pushes_sent"][s] for w in workers.values())
         acked = sum(w["links"][s]["acked_pushes"] for w in workers.values())
         require(srv["quarantined"] == 0, f"shard {s}: {srv['quarantined']} quarantined")
@@ -2967,6 +3074,7 @@ def _sharded_world(k, ckpt_dir, n_params, per_step_workers, launches, backend, m
                 f"shard {s}: applied {applied}, apply_seq {srv['apply_seq']}, sent {sent}, "
                 f"acked {acked}")
         require(srv["held"] == hi - lo, f"shard {s} holds {srv['held']}, not {hi - lo}")
+        require(srv["dropped"] == 0, f"shard {s} dropped {srv['dropped']} pushes")
         shards[s] = {"range": [lo, hi], "applied": applied, "sent": sent, "acked": acked,
                      "messages": srv["message_counts"], "version": srv["version"],
                      "stats": srv["links"][0]["stats"], "max_ack_s": srv["links"][0]["max_ack_s"]}
@@ -3484,6 +3592,320 @@ def phase_lm_flags(torch, device_cycle, device="cuda", tiny=False):
     return total
 
 
+# ------------------------------------------------------------------ phase 20
+
+#: phase 20's directories: (a)'s server, (b)'s shard servers (each emptied
+#: first)
+SMOKE_CODEC_DIR = os.path.join(ROOT, "build", "smoke_codec")
+SMOKE_CODEC_SHARDED_DIR = os.path.join(ROOT, "build", "smoke_codec_sharded")
+#: (a): phase 16 (a)'s wire, and int8 pushes combined by Adasum
+CODEC_WIRE = ["--transport", "native", "--reliable", "--compress", "int8", "--combine",
+              "adasum"]
+#: (b): phase 17's sharded world, top-k pushes and a server-side sgdm whose
+#: steady step is the plain add's (lr / (1 - momentum) = 1)
+CODEC_SHARDED = ["--compress", "topk", "--server-opt", "sgdm", "--server-lr", "0.5",
+                 "--server-momentum", "0.5"]
+CODEC_SHARDS = 2
+#: the frame sizes at AlexNet's 2,472,266 floats: an int8 push (2,415 scales,
+#: 618,240 words and the 12-float head), a shard's top-k pairs, a steady
+#: delta reply (49,445 pairs and the 14-float head) and a full one
+ALEXNET_CODEC_SIZES = {"int8_push": 620_667, "shard_topk_pairs": [12_361, 12_361],
+                       "delta_reply": 98_904, "full_reply": 2_472_280}
+#: bench_all's wire_bytes leg's record count
+WIRE_BYTES_RECORDS = 22
+
+
+def codec_sizes(n: int, k: int = CODEC_SHARDS) -> dict:
+    """The frame sizes, in floats, of phase 20's wires over ``n``
+    parameters, from the codecs' own arithmetic."""
+    from distributed_ml_pytorch_tpu_torch.parallel.sharded_ps import shard_ranges
+    from distributed_ml_pytorch_tpu_torch.utils import codecs
+    from distributed_ml_pytorch_tpu_torch.utils.compress import HEAD_LEN, make_codec
+
+    topk = make_codec("topk")
+    return {"int8_push": HEAD_LEN + make_codec("int8").wire_floats(n),
+            "shard_topk_pairs": [topk.k_for(hi - lo) for lo, hi in shard_ranges(n, k)],
+            "delta_reply": 14 + codecs.wire_floats("DeltaParams", n),
+            "full_reply": 14 + n}
+
+
+def _idle_share(steps_per_s, busy_ms_per_step):
+    """1 - the device's busy share of a worker's steady window, from phase 15
+    (b)'s profiled busy ms a step; None where that was not measured."""
+    if busy_ms_per_step is None:
+        return None
+    return 1.0 - steps_per_s * busy_ms_per_step / 1e3
+
+
+def _add_launches(launches, counts):
+    for name, v in counts.items():
+        launches[name] = launches.get(name, 0) + v
+
+
+def _server_queue(lines):
+    """The server's side of a process world from its rank lines: the pushes
+    a second the workers offered and the server applied (wall clock, first
+    to last), the host ms of one push's decode and handling and the rate
+    that allows, the queue (pushes sent and not yet handled, at each
+    handling's start, that push included), the margin of the workers'
+    longest ack wait under the reliable layer's timeout floor, and the least
+    time any worker's frame had left before its own timeout when acked."""
+    import bisect
+
+    def rate(ts):
+        return (len(ts) - 1) / (ts[-1] - ts[0]) if len(ts) > 1 and ts[-1] > ts[0] else None
+
+    handled = lines[0]["push_t"]
+    sent = sorted(t for r, ln in lines.items() if r != 0 for t in ln["push_t"])
+    depth = [bisect.bisect_right(sent, t) - i for i, t in enumerate(handled)]
+    ms = lines[0]["host_ms"]
+    busy = sum(ms[k]["mean"] for k in ("decode", "push_handle") if ms.get(k))
+    waits = [ln["max_ack_s"] for r, ln in lines.items() if r != 0]
+    slack = [ln["min_ack_slack_s"] for r, ln in lines.items() if r != 0]
+    floor = lines[0]["ack_floor_s"]
+    return {"offered_pushes_per_s": rate(sent), "server_applied_pushes_per_s": rate(handled),
+            "server_ms_a_push": busy, "server_max_pushes_per_s": 1e3 / busy if busy else None,
+            "queue_depth_max": max(depth, default=0),
+            "queue_depth_mean": sum(depth) / len(depth) if depth else 0.0,
+            "ack_floor_s": floor,
+            "ack_margin": None if floor is None or None in waits else 1.0 - max(waits) / floor,
+            "ack_slack_min_s": None if None in slack else min(slack)}
+
+
+def _codec_processes(dense_16a, busy_ms_per_step, launches, sizes, backend, model, steps):
+    """(a): phase 16 (a)'s world with int8 pushes under Adasum, then a
+    restore of its server's directory."""
+    import numpy as np
+
+    from distributed_ml_pytorch_tpu_torch.models import get_model
+    from distributed_ml_pytorch_tpu_torch.parallel.async_ps import ParameterServer
+
+    lines, wall = _ps_processes(CODEC_WIRE, SMOKE_CODEC_DIR, backend, model, steps)
+    line = _ps_world_line(lines, True, wall, None, steps, backend)
+    srv = lines[0]
+    require(srv["combine"] == "adasum" and "GradientUpdate" not in srv["message_counts"],
+            f"(a) the server combined by {srv['combine']}: {srv['message_counts']}")
+    for r in (1, 2):
+        w, pw = lines[r], line["per_worker"][r]
+        enc = w["encoder"]
+        require(w["frame_floats"] == [sizes["int8_push"]],
+                f"(a) worker {r} framed pushes of {w['frame_floats']} floats, not "
+                f"{sizes['int8_push']}")
+        require(enc["pushes"] == w["pushes_sent"] and enc["residual_resets"] == 0,
+                f"(a) worker {r}'s encoder: {enc}")
+        want = (sizes["full_reply"] - 14) / sizes["int8_push"]  # n over the framed floats
+        require(round(enc["ratio"], 3) == round(want, 3),
+                f"(a) worker {r}'s compression ratio {enc['ratio']}, not {want}")
+        _add_launches(launches, w["launches"])
+        dense = (dense_16a or {}).get(r, {}).get("steady_steps_per_s")
+        pw.update(encoder=enc, frame_floats=w["frame_floats"][0],
+                  idle_share=_idle_share(pw["steady_steps_per_s"], busy_ms_per_step),
+                  dense_16a_steady_steps_per_s=dense,
+                  dense_16a_idle_share=None if dense is None
+                  else _idle_share(dense, busy_ms_per_step))
+    fresh = ParameterServer(get_model(model, seed=0, device="cpu"), ckpt_dir=SMOKE_CODEC_DIR,
+                            wal=True, combine="adasum")
+    try:
+        require(fresh.maybe_restore(), "(a) nothing to restore")
+        require(np.array_equal(fresh.central, np.load(SMOKE_CODEC_DIR + ".central.npy"))
+                and fresh._apply_seq == srv["apply_seq"]
+                and fresh.staleness.version == srv["version"],
+                "(a) the restored server differs from the world's final state")
+    finally:
+        fresh.wal.close()
+    line.pop("in_process_per_worker_15c")
+    return {**line, "server_queue": _server_queue(lines), "wire": CODEC_WIRE,
+            "restored_bit_equal": True,
+            "idle_share_source": "1 - steady steps/s x phase 15 (b)'s busy ms a step"}
+
+
+def _codec_sharded(per_step_workers, launches, sizes, backend, model, steps):
+    """(b): phase 17's sharded world with top-k pushes and a server-side
+    sgdm, then each shard's directory restored, its optimizer state too."""
+    import numpy as np
+
+    from distributed_ml_pytorch_tpu_torch.models import get_model
+    from distributed_ml_pytorch_tpu_torch.parallel.sharded_ps import (
+        make_shard_server,
+        shard_ranges,
+    )
+    from distributed_ml_pytorch_tpu_torch.utils.serialization import flat_size
+
+    host_model = get_model(model, seed=0, device="cpu")
+    n = flat_size(host_model)
+    lines, line = _sharded_world(CODEC_SHARDS, SMOKE_CODEC_SHARDED_DIR, n, per_step_workers,
+                                 launches, backend, model, steps, extra=CODEC_SHARDED)
+    for s, (lo, hi) in enumerate(shard_ranges(n, CODEC_SHARDS)):
+        srv, pairs = lines[s], sizes["shard_topk_pairs"][s]
+        opt = srv["optimizer"]
+        require(opt["kind"] == "sgdm" and (opt["lo"], opt["hi"]) == (lo, hi)
+                and opt["state_floats"] == 2 * (hi - lo),
+                f"(b) shard {s}'s optimizer {opt} over [{lo},{hi})")
+        require("GradientUpdate" not in srv["message_counts"],
+                f"(b) shard {s} took dense pushes: {srv['message_counts']}")
+        for r in range(CODEC_SHARDS, CODEC_SHARDS + 2):
+            got = lines[r]["frame_floats"][s]
+            require(got == [12 + 2 * pairs],
+                    f"(b) worker {r} framed shard {s}'s pushes at {got}, not {pairs} pairs")
+        line["per_shard"][s].update(optimizer=opt, topk_pairs=pairs)
+        fresh = make_shard_server(host_model, shard=s, n_shards=CODEC_SHARDS,
+                                  ckpt_dir=f"{SMOKE_CODEC_SHARDED_DIR}/shard{s}", wal=True,
+                                  server_opt="sgdm", server_opt_kw={"lr": 0.5, "momentum": 0.5})
+        try:
+            require(fresh.maybe_restore(), f"(b) shard {s}: nothing to restore")
+            base = f"{SMOKE_CODEC_SHARDED_DIR}.central{s}.npy"
+            require(np.array_equal(fresh.central, np.load(base))
+                    and np.array_equal(fresh.optimizer.m, np.load(base + ".m.npy"))
+                    and np.array_equal(fresh.optimizer.v, np.load(base + ".v.npy"))
+                    and fresh.optimizer.t == opt["t"]
+                    and fresh._apply_seq == srv["apply_seq"],
+                    f"(b) the restored shard {s} differs from its final state")
+        finally:
+            fresh.wal.close()
+    return {**line, "extra": CODEC_SHARDED, "restored_bit_equal": True}
+
+
+#: seconds a paced pull of (c) waits for the reply to the one before it
+DELTA_PULL_WAIT_S = 60
+
+
+def _delta_pull_world(torch, launches, sizes, device, model, steps, batch=64):
+    """(c): a server and one chunked worker as threads of this process on the
+    in-process transport, the worker ``Asynchronous(compress="int8",
+    delta_pull=True)``; every pull after the first is answered by a top-k
+    delta against the view the server tracks for it.
+
+    The chunked worker's host runs ahead of the card, so unpaced pulls leave
+    in bursts, each carrying a stamp the server has already moved past, and
+    most are answered in full (on an H100, 5-7 full replies of 8).
+    Here each pull waits until the reply to the one before it is installed,
+    so its stamp is the base the server tracks and the delta rung is what
+    runs."""
+    import numpy as np
+
+    from distributed_ml_pytorch_tpu_torch.ops import fused_conv as fc
+    from distributed_ml_pytorch_tpu_torch.ops import fused_update as fu
+    from distributed_ml_pytorch_tpu_torch.parallel import async_ps as tps
+    from distributed_ml_pytorch_tpu_torch.training.cli import build_parser
+    from distributed_ml_pytorch_tpu_torch.utils.messaging import InProcessTransport
+
+    args = build_parser().parse_args([
+        "--model", model, "--world-size", "2", "--epochs", "1", "--synthetic-data",
+        "--synthetic-train-size", str(steps * batch), "--synthetic-test-size", "512",
+        "--batch-size", str(batch), "--log-interval", str(10 * steps), "--worker-timeout", "0",
+        "--chunked-dispatch", "on", "--log-dir", os.path.join(ROOT, "build", "smoke_runs")])
+    world = InProcessTransport.create_world(2)
+    results, errors, opts = {}, [], []
+
+    class PacedPulls(tps.Asynchronous):
+        """Sends a pull only once the reply to the last one is installed."""
+        pulls, pull_wait_s = 0, 0.0
+
+        def _pull_payload(self, link):
+            t0 = time.monotonic()
+            lst = self.listener
+            while lst.full_installs + lst.delta_installs < self.pulls:
+                require(time.monotonic() - t0 < DELTA_PULL_WAIT_S,
+                        f"(c) pull {self.pulls}'s reply not installed in {DELTA_PULL_WAIT_S} s")
+                time.sleep(0.0005)
+            self.pull_wait_s += time.monotonic() - t0
+            self.pulls += 1
+            return super()._pull_payload(link)
+
+    def factory(model_, tx):
+        opts.append(PacedPulls(model_, lr=args.lr, n_push=args.num_push, n_pull=args.num_pull,
+                               tx=tx, transport=world[1], compress="int8", delta_pull=True))
+        return opts[0]
+
+    def guard(name, fn):
+        try:
+            results[name] = fn()
+        except BaseException as e:  # noqa: BLE001 — reported and failed below
+            errors.append(f"{name}: {type(e).__name__}: {e}")
+
+    fu.launches = 0
+    for k in fc.launches:
+        fc.launches[k] = 0
+    server = threading.Thread(target=guard, daemon=True, args=(
+        "server", lambda: tps.run_server(args, world[0])))
+    worker = threading.Thread(target=guard, daemon=True, args=(
+        "worker", lambda: tps.train_worker(args, world[1], device=device, opt_factory=factory)))
+    t0 = time.monotonic()
+    server.start()
+    worker.start()
+    worker.join(timeout=600)
+    server.join(timeout=60)
+    wall = time.monotonic() - t0
+    require(not errors, "(c) " + "; ".join(errors))
+    require(not server.is_alive() and not worker.is_alive(), "(c) the world did not shut down")
+    _add_launches(launches, {"flat_axpy": fu.launches, **fc.launches})
+    srv, opt = results["server"], opts[0]
+    lst = opt.listener
+    answered = srv.delta_replies + srv.full_replies
+    require(answered == opt.pulls >= 2 and lst.full_installs == srv.full_replies == 1
+            and lst.delta_installs == srv.delta_replies == answered - 1
+            and lst.delta_base_miss == 0,
+            f"(c) {opt.pulls} pulls; installs full {lst.full_installs} delta "
+            f"{lst.delta_installs} base misses {lst.delta_base_miss}; replies full "
+            f"{srv.full_replies} delta {srv.delta_replies}")
+    base = srv._pull_bases[1]
+    require(lst._held == base[:2] and np.array_equal(lst._view, base[2]),
+            "(c) the worker's view differs from the server's tracked base")
+    require(srv.delta_reply_wire_floats == srv.full_replies * sizes["full_reply"]
+            + srv.delta_replies * sizes["delta_reply"],
+            f"(c) {srv.delta_reply_wire_floats} reply floats for {srv.full_replies} full and "
+            f"{srv.delta_replies} delta replies")
+    recs = results["worker"][1].records
+    losses = [r["training_loss"] for r in recs]
+    require(len(losses) == steps and sum(losses[-10:]) < sum(losses[:10]),
+            f"(c) the worker's loss did not fall over {len(losses)} steps")
+    return {"wall_s": wall, "steps": steps, "pulls_answered": answered,
+            "pull_wait_s": opt.pull_wait_s,
+            "full_replies": srv.full_replies, "delta_replies": srv.delta_replies,
+            "full_installs": lst.full_installs, "delta_installs": lst.delta_installs,
+            "delta_base_miss": lst.delta_base_miss, "view_bit_equal": True,
+            "reply_floats_full": sizes["full_reply"], "reply_floats_delta": sizes["delta_reply"],
+            "pushes": opt.encoder.pushes, "compression_ratio": opt.encoder.compression_ratio(),
+            "early_loss": sum(losses[:10]) / 10, "late_loss": sum(losses[-10:]) / 10}
+
+
+def phase_codec_plane(torch, dense_16a, busy_ms_per_step, per_step_workers, backend="cuda",
+                      model="alexnet", steps=WORKER_STEPS, bench_args=("--legs", "wire_bytes")):
+    """Phase 20: the optimizer and codec plane on the DownPour world, (a)-(d);
+    returns the workers' summed kernel launch counts."""
+    from distributed_ml_pytorch_tpu_torch.models import get_model
+    from distributed_ml_pytorch_tpu_torch.utils.serialization import flat_size
+
+    n = flat_size(get_model(model, seed=0, device="cpu"))
+    sizes = codec_sizes(n)
+    if model == "alexnet":
+        require(sizes == ALEXNET_CODEC_SIZES, f"AlexNet's frame sizes {sizes}")
+    launches = {}
+    emit({"phase": "codec_processes", "ok": True,
+          **_codec_processes(dense_16a, busy_ms_per_step, launches, sizes, backend, model,
+                             steps)})
+    emit({"phase": "codec_sharded_processes", "ok": True,
+          **_codec_sharded(per_step_workers, launches, sizes, backend, model, steps)})
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        emit({"phase": "codec_delta_pull", "ok": True,
+              **_delta_pull_world(torch, launches, sizes, backend, model, steps)})
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-m", "distributed_ml_pytorch_tpu_torch.bench_all",
+                           *bench_args], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=600)
+    require(proc.returncode == 0, f"bench_all {' '.join(bench_args)} exited "
+                                  f"{proc.returncode}: {proc.stderr[-3000:]}")
+    records = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    require(len(records) == WIRE_BYTES_RECORDS,
+            f"bench_all --legs wire_bytes printed {len(records)} records")
+    emit({"phase": "wire_bytes_bench_leg", "ok": True, "records": records})
+    return launches
+
+
 # ------------------------------------------------------------------ main
 
 K4_SRC = "distributed_ml_pytorch_tpu_torch/csrc/flash_fwd_tc.cu"
@@ -3556,8 +3978,8 @@ def main() -> int:
         bf16_measured, bf16_launches = phase_trainer_family(torch)
         measured.update(bf16_measured)
         launches.update(bf16_launches)
-        in_process = phase_chunked_worker(torch, per_step_workers)
-        device_cycle = phase_ps_processes(torch, in_process)
+        in_process, busy_ms_per_step = phase_chunked_worker(torch, per_step_workers)
+        device_cycle, dense_16a = phase_ps_processes(torch, in_process)
         sharded = phase_sharded_processes(torch, per_step_workers)
         for name in ("flat_axpy", "relu_pool2_fwd", "relu_pool2_bwd"):
             launches[name] += sharded[name]
@@ -3570,6 +3992,9 @@ def main() -> int:
         for counts in (long_launches, phase_lm_flags(torch, device_cycle)):
             for name, n in counts.items():
                 launches[name] += n
+        codec = phase_codec_plane(torch, dense_16a, busy_ms_per_step, per_step_workers)
+        for name in ("flat_axpy", "relu_pool2_fwd", "relu_pool2_bwd"):
+            launches[name] += codec[name]
         smi = nvidia_smi_line()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

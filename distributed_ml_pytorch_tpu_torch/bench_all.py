@@ -6,6 +6,7 @@
     python -m distributed_ml_pytorch_tpu_torch.bench_all --legs ps
     python -m distributed_ml_pytorch_tpu_torch.bench_all --legs sharded_ps,transport
     python -m distributed_ml_pytorch_tpu_torch.bench_all --legs lm_32k,steps_to_accuracy,reliability
+    python -m distributed_ml_pytorch_tpu_torch.bench_all --legs wire_bytes
     python -m distributed_ml_pytorch_tpu_torch.bench_all --device cpu --tiny
 
 One JSON line per measurement on stdout (the JAX ``emit`` record: config,
@@ -84,6 +85,23 @@ narration on stderr. Ported legs, under the JAX metric names:
   at the 2000-step cap, with the final accuracy and the per-eval curve).
   The matched-init ratio (:191) needs JAX's init on the card and is not
   emitted.
+- ``wire_bytes`` — config 7's compressed-wire ladder (JAX
+  ``wire_bytes_phase``, bench_all.py:2229-2452): the exact frame bytes of
+  one dense, int8 and top-k push of AlexNet's 2,472,266-float vector, and
+  acked pushes a second on an in-process reliable world whose real
+  ``ParameterServer`` decodes and applies every frame (the encoder's and
+  the decoder's host time inside the loop), as
+  ``ps_wire_bytes_per_push_{mode}``, ``ps_push_roundtrips_{mode}`` and
+  ``ps_wire_compression_ratio_{int8,topk}``; the dense and int8 rungs of
+  the activation and KV-migration planes through ``utils/codecs`` as
+  ``{act,kv_migrate}_wire_bytes_per_frame_{mode}``,
+  ``{act,kv_migrate}_codec_frames_per_s_{mode}`` and their int8 ratios; and
+  the pull-reply ladder through the server's real delta-reply path (a held
+  stamp in, a ``DeltaParams`` frame out, a ``Listener`` install) as
+  ``pull_reply_bytes_{full,delta_steady}``,
+  ``pull_reply_roundtrips_delta`` and
+  ``pull_reply_compression_ratio_delta``. Host work only: it runs the same
+  on the CPU. A failed rung raises.
 - ``conv_epilogue`` — config 1's conv-epilogue ladder (JAX
   ``compute_microbench_phase``, bench_all.py:2000-2073): ``relu_pool2``
   fused against ``max_pool_2x2(relu(x))`` on AlexNet's three relu->pool
@@ -1169,6 +1187,174 @@ def reliability_phase(device=None, tiny: bool = False) -> dict:
     return out
 
 
+#: the wire_bytes leg's vector (AlexNet's, the 9.9 MB dense push), its
+#: timed pushes, and ``--tiny``'s
+WIRE_N, WIRE_ITERS = 2_472_266, 12
+TINY_WIRE_N, TINY_WIRE_ITERS = 65_536, 3
+
+
+def wire_bytes_phase(device=None, tiny: bool = False) -> dict:
+    """Config 7's compressed-wire ladder (the module docstring's
+    ``wire_bytes``); returns ``{metric: value}``. Bytes are exact frame
+    arithmetic; rates are host wall clock."""
+    import threading
+
+    from distributed_ml_pytorch_tpu_torch.parallel.async_ps import Listener
+    from distributed_ml_pytorch_tpu_torch.utils import codecs
+    from distributed_ml_pytorch_tpu_torch.utils.compress import (
+        CODEC_DENSE,
+        CODEC_INT8,
+        CompressingEncoder,
+        make_codec,
+    )
+    from distributed_ml_pytorch_tpu_torch.utils.messaging import (
+        InProcessTransport,
+        MessageCode,
+        make_world,
+    )
+
+    n, n_iter = (TINY_WIRE_N, TINY_WIRE_ITERS) if tiny else (WIRE_N, WIRE_ITERS)
+    cut = f"--tiny: {n} floats, {n_iter} pushes; " if tiny else ""
+    rng = np.random.default_rng(0)
+    out, bytes_per_push = {}, {}
+
+    def record(metric, value, unit, hw, note):
+        out[metric] = value
+        emit(7, metric, value, unit, hw, cut + note)
+
+    for mode in ("dense", "int8", "topk"):
+        world = make_world(2, reliable=True,
+                           reliable_opts={"ack_timeout": 5.0, "max_backoff": 10.0})
+        ps = ParameterServer(params=np.zeros(n, np.float32), transport=world[0])
+        stop = threading.Event()
+
+        def serve():
+            while not stop.is_set():
+                msg = world[0].recv(timeout=0.2)
+                if msg is not None:
+                    ps.handle(*msg)
+
+        t = threading.Thread(target=serve, daemon=True)
+        t.start()
+        try:
+            enc = (None if mode == "dense"
+                   else CompressingEncoder(n, make_codec(mode, block=1024, k_frac=0.01)))
+            vec = rng.normal(scale=0.01, size=n).astype(np.float32)
+
+            def push():
+                if enc is None:
+                    world[1].send(MessageCode.GradientUpdate, vec, dst=0)
+                    return n * 4
+                head, body = enc.encode_range(vec, 0, n)
+                world[1].sendv(MessageCode.CompressedUpdate, (head, body), dst=0)
+                return int((head.size + body.size) * 4)
+
+            push()  # warm both directions and the server's first decode
+            world[1].flush(timeout=60)
+            t0 = time.perf_counter()
+            for _ in range(n_iter):
+                nbytes = push()
+                # flushed each push: the rate includes the ack's round trip
+                world[1].flush(timeout=60)
+            rate = n_iter / (time.perf_counter() - t0)
+        finally:
+            stop.set()
+            t.join(timeout=10)
+            for tr in world.values():
+                tr.close()
+        if ps._apply_seq != n_iter + 1:
+            raise RuntimeError(f"the {mode} rung applied {ps._apply_seq} of {n_iter + 1} pushes")
+        bytes_per_push[mode] = nbytes
+        record(f"ps_wire_bytes_per_push_{mode}", nbytes, "bytes",
+               "in-process, reliable envelope",
+               f"exact frame bytes of one {mode} push of the {n}-param vector (envelope "
+               "header excluded: +36 B either way); decoded server-side inside the loop")
+        record(f"ps_push_roundtrips_{mode}", rate, "pushes/sec",
+               "in-process, reliable envelope",
+               f"acked {mode} pushes/s incl. encode + decode + apply "
+               f"({nbytes * rate / 1e6:.1f} MB/s on-wire), host clock; dense TCP echo "
+               "baseline: reliability leg")
+    for mode in ("int8", "topk"):
+        record(f"ps_wire_compression_ratio_{mode}",
+               bytes_per_push["dense"] / bytes_per_push[mode], "x fewer bytes", "derived",
+               f"dense / {mode} bytes-on-wire per push (error-feedback encoder, "
+               "utils/compress.py)")
+
+    def codec_ladder(tag, code, x, head_floats, note, iters=20):
+        sizes = {}
+        for mode, cid in (("dense", CODEC_DENSE), ("int8", CODEC_INT8)):
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                got, body = codecs.encode_body(code, x, cid)
+                codecs.decode_body(code, got, body, x.size)
+            dt = time.perf_counter() - t0
+            nbytes = int((head_floats + body.size) * 4)
+            sizes[mode] = nbytes
+            record(f"{tag}_wire_bytes_per_frame_{mode}", nbytes, "bytes",
+                   "registry encode_body/decode_body",
+                   f"exact frame bytes ({head_floats}-float head + body) of one {mode} "
+                   f"{code.name} frame of {x.size} floats; {note}")
+            record(f"{tag}_codec_frames_per_s_{mode}", iters / dt, "frames/sec",
+                   "registry encode_body/decode_body",
+                   f"{mode} encode + decode round trips/s on one core "
+                   f"({iters / dt * nbytes / 1e6:.1f} MB/s on-wire), host clock")
+        return sizes
+
+    act = rng.normal(scale=2.0, size=8 * 128 * 256).astype(np.float32)
+    sizes = codec_ladder("act", MessageCode.ActivationShip, act, 8,
+                         "the pipeline's activation hand-off (one microbatch of 8 x 128 x 256)")
+    record("act_wire_compression_ratio_int8", sizes["dense"] / sizes["int8"], "x fewer bytes",
+           "derived", "dense / int8 bytes per activation frame")
+    kv = rng.normal(scale=0.5, size=1024 * 128).astype(np.float32)
+    sizes = codec_ladder("kv_migrate", MessageCode.KvMigrate, kv, 9,
+                         "the token lane of the same frame rides tok16 (exact)")
+    record("kv_migrate_compression_ratio_int8", sizes["dense"] / sizes["int8"],
+           "x fewer bytes", "derived", "dense / int8 bytes per migrated KV lane")
+
+    # delta pull replies through the server's real reply path
+    world = InProcessTransport.create_world(2)
+    try:
+        ps = ParameterServer(params=rng.normal(scale=0.01, size=n).astype(np.float32),
+                             transport=world[0])
+        lst = Listener(transport=world[1])
+
+        def delta_pull():
+            before = ps.delta_reply_wire_floats
+            ps.handle(1, MessageCode.ParameterRequest, lst.held_stamp())
+            msg = world[1].recv(timeout=5.0)
+            if msg is None:
+                raise TimeoutError("no delta reply")
+            lst.receive(*msg)
+            return (ps.delta_reply_wire_floats - before) * 4
+
+        full_bytes = delta_pull()  # the first pull: a full install
+        upd = rng.normal(scale=1e-4, size=n).astype(np.float32)
+        n_pulls, delta_bytes, spent = 6, 0, 0.0
+        for _ in range(n_pulls):
+            ps.handle(1, MessageCode.GradientUpdate, upd)
+            t0 = time.perf_counter()
+            delta_bytes = delta_pull()
+            spent += time.perf_counter() - t0
+    finally:
+        for tr in world.values():
+            tr.close()
+    if (lst.full_installs, lst.delta_installs, lst.delta_base_miss) != (1, n_pulls, 0):
+        raise RuntimeError(f"delta ladder installs: full {lst.full_installs}, delta "
+                           f"{lst.delta_installs}, base misses {lst.delta_base_miss}")
+    hw = "in-process, real delta-reply path"
+    record("pull_reply_bytes_full", full_bytes, "bytes", hw,
+           f"exact wire bytes of the full dense install of the {n}-param vector")
+    record("pull_reply_bytes_delta_steady", delta_bytes, "bytes", hw,
+           "exact wire bytes of one steady top-k delta reply (the server tracks the "
+           "worker's installed view)")
+    record("pull_reply_roundtrips_delta", n_pulls / spent, "pulls/sec", hw,
+           f"steady delta pulls/s incl. encode + decode + install "
+           f"({delta_bytes * n_pulls / spent / 1e6:.1f} MB/s on-wire), host clock")
+    record("pull_reply_compression_ratio_delta", full_bytes / max(delta_bytes, 1),
+           "x fewer bytes", "derived", "full / steady delta reply bytes")
+    return out
+
+
 LEGS = {
     "alexnet": lambda dev, tiny: alexnet_phase(dev, tiny=tiny),
     "lm": lambda dev, tiny: lm_phase(dev, tiny=tiny),
@@ -1179,6 +1365,7 @@ LEGS = {
     "lm_32k": lambda dev, tiny: lm_32k_phase(dev, tiny=tiny),
     "steps_to_accuracy": lambda dev, tiny: steps_to_accuracy_phase(dev, tiny=tiny),
     "reliability": lambda dev, tiny: reliability_phase(dev, tiny=tiny),
+    "wire_bytes": lambda dev, tiny: wire_bytes_phase(dev, tiny=tiny),
 }
 
 

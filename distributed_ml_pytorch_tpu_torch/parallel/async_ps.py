@@ -47,8 +47,21 @@ With durable acks (``--wal``) the ack of a push is released only after the
 log's fsync (:meth:`ParameterServer.commit`). A worker flushes its pending
 frames before ``WorkerDone``.
 
-Not in this package yet (the JAX server's other planes): rollback, Adasum,
-the sharded server-side optimizer, delta pulls and compressed pushes.
+**The optimizer and codec plane.** A worker with ``compress="int8"|"topk"``
+pushes ``CompressedUpdate`` frames through an error-feedback encoder
+(``utils/compress.py``); the server decodes a frame before its admission
+gate, logs the decoded delta with its codec id and applies it like a dense
+push. ``combine="adasum"`` merges each push with the overlap applied since
+its worker's last pull (``parallel/optplane.adasum_adjust``), and an
+``optimizer`` (``optplane.ShardedOptimizer``) turns each combined update
+into the applied delta; its state rides the checkpoint (``ps_opt.npz``) and
+WAL replay re-runs it. A worker with ``delta_pull`` sends its held stamp
+with each pull and the server answers with a ``DeltaParams`` frame: a top-k
+delta against the view it tracks for that worker, or a full install after a
+miss or a restore.
+
+Not in this package yet (the JAX server's other planes): rollback and the
+elastic path.
 """
 
 from __future__ import annotations
@@ -71,6 +84,17 @@ import torch
 import torch.nn as nn
 
 from distributed_ml_pytorch_tpu_torch.ops.fused_update import LANES, flat_axpy
+from distributed_ml_pytorch_tpu_torch.parallel.optplane import adasum_adjust
+from distributed_ml_pytorch_tpu_torch.utils import codecs
+from distributed_ml_pytorch_tpu_torch.utils.compress import (
+    CODEC_DENSE,
+    CODEC_TOPK,
+    CompressingEncoder,
+    CompressionError,
+    body_crc,
+    decode_update,
+    make_codec,
+)
 from distributed_ml_pytorch_tpu_torch.utils.durability import atomic_write
 from distributed_ml_pytorch_tpu_torch.utils.failure import StalenessAuditor
 from distributed_ml_pytorch_tpu_torch.utils.health import (
@@ -85,7 +109,9 @@ from distributed_ml_pytorch_tpu_torch.utils.messaging import (
     MessageListener,
     ReliableTransport,
     Transport,
+    _join16,
     _next_incarnation,
+    _split16,
     send_message,
 )
 from distributed_ml_pytorch_tpu_torch.utils.serialization import (
@@ -124,6 +150,12 @@ class ParameterServer:
       ``UpdateNack``.
     - ``staleness_damping``: a push that raced ``s`` versions since its
       worker last pulled applies scaled by ``1 / (1 + damping * s)``.
+    - ``combine``: ``"add"``, or ``"adasum"`` (each push merged with the
+      overlap applied since its worker's last pull; the alternative to
+      damping, never stacked on it).
+    - ``optimizer``: an ``optplane.ShardedOptimizer`` over exactly this
+      server's vector, stepped on each combined update; the WAL logs its
+      input, the checkpoint its state (``ps_opt.npz``).
     """
 
     def __init__(self, model: Optional[nn.Module] = None, *,
@@ -135,7 +167,9 @@ class ParameterServer:
                  ckpt_every: int = 500,
                  staleness_damping: float = 0.0,
                  wal: bool = False,
-                 admission=None):
+                 admission=None,
+                 combine: str = "add",
+                 optimizer=None):
         if params is not None:
             self.central = np.asarray(params, dtype=np.float32).copy()
         elif model is not None:
@@ -185,6 +219,30 @@ class ParameterServer:
         self.quarantined = 0
         self.quarantined_by_sender: dict = {}
         self.nacks_sent = 0
+        # --- the optimizer plane
+        if combine not in ("add", "adasum"):
+            raise ValueError(f"combine must be 'add' or 'adasum', got {combine!r}")
+        if combine == "adasum" and self.staleness_damping > 0.0:
+            raise ValueError("combine='adasum' replaces --staleness-damping — pick one "
+                             "(stacking them would damp the same staleness twice)")
+        self.combine = combine
+        #: adasum: sender -> the deltas applied since its last pull
+        self._overlap: dict = {}
+        self.optimizer = optimizer
+        if optimizer is not None and optimizer.size != self.central.shape[0]:
+            raise ValueError(f"optimizer covers {optimizer.size} params but this server "
+                             f"holds {self.central.shape[0]}")
+        # --- delta pull replies
+        #: bumped, and the bases dropped, on every restore: the next reply
+        #: to every worker is a full install
+        self._pull_epoch = 0
+        #: sender -> (epoch, apply seq, view): the worker's exact installed
+        #: vector, replayed from this server's own encode and decode
+        self._pull_bases: dict = {}
+        self.delta_replies = 0
+        self.full_replies = 0
+        #: wire floats of the DeltaParams replies sent (head and body)
+        self.delta_reply_wire_floats = 0
         self._stop = threading.Event()
 
     def stop(self) -> None:
@@ -197,6 +255,9 @@ class ParameterServer:
 
     def _meta_path(self) -> str:
         return os.path.join(self.ckpt_dir, "ps_meta.json")
+
+    def _opt_path(self) -> str:
+        return os.path.join(self.ckpt_dir, "ps_opt.npz")
 
     def save_checkpoint(self) -> None:
         """Save the central vector and its clock, atomically and durably
@@ -222,6 +283,13 @@ class ParameterServer:
             "recent_envelopes": [list(e) for e in self._recent_envelopes],
             "prev": self._prev_ckpt_meta,
         }
+        if self.optimizer is not None:
+            # written first, bound to this vector by its CRC; the last
+            # completed generation's CRC names the stored one kept as prev
+            last_crc = (self._prev_ckpt_meta or {}).get("central_crc")
+            self.optimizer.save_state(self._opt_path(), central_crc=int(meta["central_crc"]),
+                                      apply_seq=self._apply_seq,
+                                      prev_crc=None if last_crc is None else int(last_crc))
         atomic_write(self._meta_path(), json.dumps(meta).encode())
         atomic_write(self._ckpt_path(), blob)
         self._prev_ckpt_meta = {k: v for k, v in meta.items() if k != "prev"}
@@ -285,12 +353,33 @@ class ParameterServer:
                 self._recent_envelopes.extend(
                     (int(s), int(i), int(q)) for s, i, q in meta.get("recent_envelopes", []))
                 self._prev_ckpt_meta = {k: v for k, v in meta.items() if k != "prev"}
+            self._restore_optimizer_state(meta)
             restored = True
         if self.wal is not None:
             restored = bool(self._replay_wal()) or restored
         if restored:
             self._restored = True
+            # the bases describe views this life cannot vouch for
+            self.reset_pull_bases()
         return restored
+
+    def reset_pull_bases(self) -> None:
+        """Drop every tracked worker view and bump the pull epoch: the next
+        reply to each worker is a full install."""
+        self._pull_epoch += 1
+        self._pull_bases.clear()
+
+    def _restore_optimizer_state(self, meta) -> None:
+        """Adopt the optimizer generation bound to the adopted vector by its
+        CRC; no state file beside the checkpoint resets the moments, with a
+        warning (replay then rebuilds from zero as the live path would)."""
+        if self.optimizer is None:
+            return
+        crc = int(meta["central_crc"]) if meta is not None and "central_crc" in meta else None
+        if not self.optimizer.load_state(self._opt_path(), central_crc=crc):
+            self.optimizer.reset()
+            _LOGGER.warning("no optimizer state beside the checkpoint (%s) — resuming with "
+                            "fresh zero moments", self._opt_path())
 
     def _replay_wal(self) -> int:
         """Re-apply the logged updates the checkpoint does not cover
@@ -311,7 +400,8 @@ class ParameterServer:
                 raise ValueError(
                     f"WAL record seq {rec.seq} holds {rec.payload.shape[0]} params but the "
                     f"restored vector holds {self.central.shape[0]} — log/checkpoint mismatch")
-            self.central += rec.payload
+            # the record is the optimizer's input: replay steps it too
+            self._apply_delta(rec.payload)
             self._apply_seq = rec.seq
             self._push_count += 1
             self.staleness.version += 1
@@ -346,9 +436,25 @@ class ParameterServer:
         self.message_counts[code] = self.message_counts.get(code, 0) + 1
         if code == MessageCode.GradientUpdate:
             self._apply_update(sender, payload)
+        elif code == MessageCode.CompressedUpdate:
+            # decoded first: the gate, the log and the apply see the delta
+            try:
+                _stamp, codec_id, delta = decode_update(payload)
+            except CompressionError as e:
+                self.dropped_bad_updates += 1
+                _LOGGER.warning("dropping CompressedUpdate from %d: %s", sender, e)
+                return
+            self._apply_update(sender, delta, codec=codec_id)
         elif code == MessageCode.ParameterRequest:
-            self._reply(sender, self.central)
+            # a held stamp [epoch, ver_lo, ver_hi] opts into delta replies
+            if payload.size >= 3 and np.isfinite(payload[:3]).all():
+                self._reply_delta(sender, (int(payload[0]), _join16(payload[1], payload[2])))
+            else:
+                self._reply(sender, self.central)
             self.staleness.on_pull(sender)
+            if self.combine == "adasum":
+                # the worker now holds everything applied: its window restarts
+                self._overlap[sender] = np.zeros_like(self.central)
         elif code == MessageCode.ParameterUpdate:
             if self._restored:
                 # a fresh worker's install must not overwrite the restored
@@ -366,10 +472,11 @@ class ParameterServer:
             else:
                 self.central = payload.astype(np.float32).copy()
 
-    def _apply_update(self, sender: int, payload: np.ndarray) -> None:
-        """Size gate, then the admission gate, then the accounting, the
-        damping, the log and the apply, in that order: a push that fails a
-        gate moves neither the clock nor the log."""
+    def _apply_update(self, sender: int, payload: np.ndarray, codec: int = CODEC_DENSE) -> None:
+        """Size gate, then the admission gate, then the accounting, damping
+        or Adasum, the log (the combined delta, the optimizer's input, with
+        ``codec``) and the apply, in that order: a push that fails a gate
+        moves neither the clock nor the log."""
         if payload.shape != self.central.shape:
             # a record replay could never fit would refuse every restore,
             # and a size-1 payload would broadcast into the vector
@@ -385,22 +492,47 @@ class ParameterServer:
         staleness = self.staleness.on_push(sender)
         if self.staleness_damping > 0.0 and staleness > 0:
             delta = (payload / (1.0 + self.staleness_damping * staleness)).astype(np.float32)
+        elif self.combine == "adasum":
+            delta = self._adasum_combine(sender, payload)
         else:
             delta = payload
         self._apply_seq += 1
         self.applied_by_sender[sender] = self.applied_by_sender.get(sender, 0) + 1
         if self.wal is not None:
-            # log before apply: the damped delta is what replay must add,
-            # and the envelope what restore seeds dedup with
+            # log before apply: the combined delta is what replay must feed
+            # the optimizer, and the envelope what restore seeds dedup with
             env_inc, env_seq = self._envelope or (0, 0)
             self.wal.append(self._apply_seq, delta, sender=sender, env_inc=env_inc,
-                            env_seq=env_seq)
+                            env_seq=env_seq, codec=codec)
             if env_inc or env_seq:
                 self._recent_envelopes.append((sender, env_inc, env_seq))
-        self.central += delta
+        applied = self._apply_delta(delta)
+        if self.combine == "adasum":
+            # what moved the parameters joins every other worker's window
+            for other, o in self._overlap.items():
+                if other != sender and o.shape == applied.shape:
+                    o += applied
         self._push_count += 1
         if self.ckpt_dir and self.ckpt_every and self._push_count % self.ckpt_every == 0:
             self.save_checkpoint()
+
+    def _apply_delta(self, delta: np.ndarray) -> np.ndarray:
+        """Step the optimizer, if any, and add the result to the vector;
+        returns what was added. The live path and WAL replay both come
+        here, so the optimizer state cannot drift between them."""
+        if self.optimizer is not None:
+            delta = self.optimizer.step(delta)
+        self.central += delta
+        return delta
+
+    def _adasum_combine(self, sender: int, payload: np.ndarray) -> np.ndarray:
+        """Adasum against ``sender``'s overlap window; with no window (no
+        pull since the mode came up) the push applies as it is."""
+        o = self._overlap.get(sender)
+        if o is None or o.shape != payload.shape:
+            self._overlap.pop(sender, None)
+            return payload
+        return adasum_adjust(o, payload)
 
     def _quarantine_update(self, sender: int, verdict) -> None:
         """Count one rejected push and tell its worker with an
@@ -420,6 +552,47 @@ class ParameterServer:
         except (OSError, ConnectionError, KeyError):
             _LOGGER.warning("UpdateNack to worker %d failed (peer gone?) — the quarantine "
                             "stands; its next pull resyncs it anyway", sender)
+
+    def _reply_delta(self, sender: int, held: Tuple[int, int]) -> None:
+        """Answer a delta-opted pull with a ``DeltaParams`` frame: ``central -
+        view`` on the top-k rung when this server tracks the worker's view at
+        exactly the held ``(epoch, version)``, else a full dense install. The
+        tracked view advances by this server's own encode and decode, so it
+        stays equal to the worker's bit for bit and the next delta carries
+        whatever this one could not represent. The frame is a fresh array: a
+        reliable transport may resend it."""
+        central = self.central
+        ver = self._apply_seq
+        epoch = self._pull_epoch
+        base = self._pull_bases.get(sender)
+        use_delta = base is not None and base[0] == held[0] == epoch and base[1] == held[1]
+        if use_delta:
+            cid, body = codecs.encode_body(MessageCode.DeltaParams, central - base[2],
+                                           CODEC_TOPK)
+            base_ver = base[1]
+        else:
+            cid, body = codecs.encode_body(MessageCode.DeltaParams, central, CODEC_DENSE)
+            base_ver = 0
+        decoded = codecs.decode_body(MessageCode.DeltaParams, cid, body, central.size)
+        view = (base[2] + decoded) if use_delta else decoded
+        self._pull_bases[sender] = (epoch, ver, view.astype(np.float32))
+        n = int(central.size)
+        head = np.asarray([float(cid), float(epoch), *_split16(base_ver), *_split16(ver),
+                           *_split16(0), *_split16(n), *_split16(n), *_split16(body_crc(body))],
+                          np.float32)
+        if use_delta:
+            self.delta_replies += 1
+        else:
+            self.full_replies += 1
+        self.delta_reply_wire_floats += int(head.size) + int(body.size)
+        try:
+            send_message(MessageCode.DeltaParams, np.concatenate([head, body]), dst=sender,
+                         transport=self.transport)
+        except (OSError, ConnectionError, KeyError):
+            # the base moved on: the worker's next held stamp misses it and
+            # gets a full install
+            _LOGGER.warning("delta reply to worker %d failed (peer gone?) — dropping it; "
+                            "its next pull full-syncs via the held-stamp miss", sender)
 
     def _reply(self, sender: int, payload: np.ndarray) -> None:
         """Answer one worker; a worker gone between request and reply must
@@ -627,7 +800,13 @@ def make_downpour_chunk_step(model: nn.Module, tx, accum: torch.Tensor, flat_n: 
 class Listener(MessageListener):
     """Receives the server's ParameterUpdate replies and deposits the newest
     in a mailbox for the optimizer to install between steps; counts the
-    server's ``UpdateNack`` frames for the optimizer to resync on."""
+    server's ``UpdateNack`` frames for the optimizer to resync on.
+
+    It also installs ``DeltaParams`` replies: it keeps the worker's view of
+    the central vector and the ``(epoch, version)`` stamp it sits at, which
+    the next delta-opted pull carries (:meth:`held_stamp`). A full install
+    replaces the view; a delta applies only onto the view at its stamped
+    base, and is otherwise dropped and counted in ``delta_base_miss``."""
 
     def __init__(self, transport: Optional[Transport] = None):
         super().__init__(transport=transport)
@@ -638,9 +817,63 @@ class Listener(MessageListener):
         #: yet (one batch taken triggers one resync pull)
         self.nacks = 0
         self._nacks_pending = 0
+        self._view: Optional[np.ndarray] = None
+        self._held: Optional[Tuple[int, int]] = None
+        self.delta_base_miss = 0
+        self.delta_installs = 0
+        self.full_installs = 0
+
+    def held_stamp(self) -> np.ndarray:
+        """A delta-opted pull's payload ``[epoch, ver_lo, ver_hi]``; epoch -1
+        (no view held) asks for a full install."""
+        with self._lock:
+            if self._held is None or self._view is None:
+                return np.asarray([-1.0, 0.0, 0.0], np.float32)
+            epoch, ver = self._held
+            return np.asarray([float(epoch), *_split16(ver)], np.float32)
+
+    def _on_delta_params(self, parameter: np.ndarray) -> None:
+        # head: codec epoch base(2) ver(2) lo(2) hi(2) n(2) crc(2) = 14
+        if parameter.size < 15 or not np.isfinite(parameter[:14]).all():
+            return  # malformed: dropped
+        cid = int(parameter[0])
+        epoch = int(parameter[1])
+        base_ver = _join16(parameter[2], parameter[3])
+        ver = _join16(parameter[4], parameter[5])
+        lo = _join16(parameter[6], parameter[7])
+        hi = _join16(parameter[8], parameter[9])
+        n = _join16(parameter[10], parameter[11])
+        crc = _join16(parameter[12], parameter[13])
+        body = parameter[14:]
+        # the range and the checksum before paying for a decode
+        if hi - lo != n or body_crc(body) != crc:
+            return
+        try:
+            decoded = codecs.decode_body(MessageCode.DeltaParams, cid, body, n)
+        except CompressionError:
+            return
+        with self._lock:
+            if cid == CODEC_DENSE:
+                self._view = decoded
+                self._held = (epoch, ver)
+                self.full_installs += 1
+            else:
+                if not (self._view is not None and self._view.size == n
+                        and self._held == (epoch, base_ver)):
+                    # a delta against a base this worker does not hold: the
+                    # next pull's stamp asks for a full install
+                    self.delta_base_miss += 1
+                    return
+                self._view = (self._view + decoded).astype(np.float32)
+                self._held = (epoch, ver)
+                self.delta_installs += 1
+            self._latest = self._view
+        self._got_update.set()
 
     def receive(self, sender: int, message_code: MessageCode, parameter: np.ndarray) -> None:
-        if message_code == MessageCode.ParameterUpdate:
+        if message_code == MessageCode.DeltaParams:
+            self._on_delta_params(parameter)
+        elif message_code == MessageCode.ParameterUpdate:
             with self._lock:
                 self._latest = parameter
             self._got_update.set()
@@ -750,10 +983,14 @@ class DownpourClient:
     """
 
     def _setup(self, model: nn.Module, lr: float, n_push: int, n_pull: int, tx,
-               transports) -> torch.Tensor:
+               transports, compress: Optional[str] = None,
+               compress_opts: Optional[dict] = None) -> torch.Tensor:
         """The state both clients start from; returns the flat parameters.
         Each link's listener attaches before anything is sent, so no reply
-        can race it."""
+        can race it. With ``compress`` (``"int8"`` or ``"topk"``, options
+        ``compress_opts``) pushes go out as ``CompressedUpdate`` frames of
+        one error-feedback encoder over the whole flat vector, which only
+        the push thread touches."""
         validate_downpour_args(lr, n_push, n_pull)
         self.model = model
         self.lr = float(lr)
@@ -775,6 +1012,10 @@ class DownpourClient:
         self.bad_losses = 0
         self._device_step = make_downpour_device_step(model, self.tx, self._flat_n,
                                                       self._pad)
+        self.encoder = None
+        if compress:
+            self.encoder = CompressingEncoder(
+                self._flat_n, make_codec(compress, **(compress_opts or {})))
         self.listeners = [Listener(transport=t) for t in self.transports]
         for listener in self.listeners:
             listener.start()
@@ -792,9 +1033,13 @@ class DownpourClient:
     def _install_arrived(self) -> None:
         raise NotImplementedError
 
+    def _pull_payload(self, link: int) -> np.ndarray:
+        """A pull's payload on ``link``: empty, a full pull."""
+        return np.zeros(0, np.float32)
+
     def _pull_all(self) -> None:
         for link in range(len(self.transports)):
-            self._send_link(link, MessageCode.ParameterRequest, np.zeros(0, np.float32))
+            self._send_link(link, MessageCode.ParameterRequest, self._pull_payload(link))
 
     def _push(self) -> None:
         """Snapshot the accumulator's first ``flat_n`` floats for the
@@ -854,7 +1099,8 @@ class DownpourClient:
         self.idx += 1
 
     def finish(self) -> None:
-        """Push what is left (behind every earlier push), notify every
+        """Push what is left (behind every earlier push, through the push
+        thread, which alone touches the encoder's residual), notify every
         server, stop the threads. Over a reliable transport every pending
         frame of a live link is flushed first: the layer guarantees
         delivery, not order, and a retried push landing after
@@ -892,16 +1138,25 @@ class Asynchronous(DownpourClient):
     installing its own. A nack from the server's admission gate triggers a
     resync pull, and the per-step path then skips its updates until the
     pulled vector is installed.
+
+    ``compress``/``compress_opts`` compress the pushes, with error feedback
+    (:meth:`DownpourClient._setup`); with ``delta_pull`` every pull carries
+    the listener's held stamp and the server answers with ``DeltaParams``
+    frames.
     """
 
     def __init__(self, model: nn.Module, lr: float, n_push: int, n_pull: int, *,
                  tx=None, transport: Optional[Transport] = None, heartbeat=None,
-                 rejoin: bool = False, install_timeout: float = 5.0):
-        flat = self._setup(model, lr, n_push, n_pull, tx, [transport])
+                 rejoin: bool = False, install_timeout: float = 5.0,
+                 compress: Optional[str] = None, compress_opts: Optional[dict] = None,
+                 delta_pull: bool = False):
+        self.delta_pull = bool(delta_pull)
+        flat = self._setup(model, lr, n_push, n_pull, tx, [transport], compress,
+                           compress_opts)
         self.transport = transport
         self.listener = self.listeners[0]
         if rejoin:
-            send_message(MessageCode.ParameterRequest, np.zeros(0, np.float32),
+            send_message(MessageCode.ParameterRequest, self._pull_payload(0),
                          transport=transport)
             if not self.listener.wait_for_update(timeout=install_timeout):
                 print("worker: rejoin pull unanswered after {:.1f}s — starting from local "
@@ -913,24 +1168,47 @@ class Asynchronous(DownpourClient):
         self.heartbeat = heartbeat
         self._owned_heartbeats = [heartbeat] if heartbeat is not None else []
         self._chunk_step = None
-        self._flusher = PushFlusher(
-            lambda arr: self._send(MessageCode.GradientUpdate, arr))
+        self._flusher = PushFlusher(self._send_push)
 
-    def _send(self, code: MessageCode, payload) -> None:
-        """Send toward the server; a dead server degrades the worker to
-        purely-local SGD with one warning instead of crashing mid-epoch."""
+    def _send_push(self, arr: np.ndarray) -> None:
+        """One push toward the server (on the push thread): a dense
+        ``GradientUpdate``, or one ``CompressedUpdate`` of ``[0, flat_n)``
+        whose fresh head and body leave through ``sendv``."""
+        if self.encoder is None:
+            self._send(MessageCode.GradientUpdate, arr)
+            return
+        head, body = self.encoder.encode_range(arr, 0, self._flat_n)
+        self._sendv(MessageCode.CompressedUpdate, (head, body))
+
+    def _guarded_send(self, do_send) -> None:
+        """A dead server degrades the worker to purely-local SGD with one
+        warning instead of crashing mid-epoch."""
         if self.server_down:
             return
         if self.heartbeat is not None and self.heartbeat.peer_down:
             self.server_down = True
         else:
             try:
-                send_message(code, payload, transport=self.transport)
+                do_send()
                 return
             except (OSError, ConnectionError):
                 self.server_down = True
         print("worker: parameter server unreachable — continuing with purely-local "
               "SGD (no further push/pull)", file=sys.stderr)
+
+    def _send(self, code: MessageCode, payload) -> None:
+        """Send toward the server, under the degrade guard."""
+        self._guarded_send(lambda: send_message(code, payload, transport=self.transport))
+
+    def _sendv(self, code: MessageCode, parts) -> None:
+        """A frame of several parts toward the server, under the degrade
+        guard."""
+        self._guarded_send(lambda: self.transport.sendv(code, parts))
+
+    def _pull_payload(self, link: int) -> np.ndarray:
+        if self.delta_pull:
+            return self.listener.held_stamp()
+        return np.zeros(0, np.float32)
 
     def _send_link(self, link: int, code: MessageCode, payload) -> None:
         self._send(code, payload)
@@ -1003,6 +1281,9 @@ def train_worker(args, transport: Transport, heartbeat=None, device="cuda",
     gets a record carrying the evaluation at its chunk's end, so the CSV has
     the per-step path's rows. ``off`` runs one step a dispatch.
 
+    ``--compress``/``--compress-block``/``--compress-topk`` compress the
+    default optimizer's pushes (``utils/compress.compress_from_args``).
+
     ``opt_factory(model, tx) -> optimizer`` replaces the default
     :class:`Asynchronous` (the sharded worker's
     ``parallel/sharded_ps.ShardedAsynchronous``). Only an optimizer with
@@ -1018,6 +1299,7 @@ def train_worker(args, transport: Transport, heartbeat=None, device="cuda",
         to_device,
         tx_from_args,
     )
+    from distributed_ml_pytorch_tpu_torch.utils.compress import compress_from_args
     from distributed_ml_pytorch_tpu_torch.utils.metrics import MetricsLogger, print_eval_line
 
     dev = resolve_device(device)
@@ -1035,7 +1317,7 @@ def train_worker(args, transport: Transport, heartbeat=None, device="cuda",
     else:
         opt = Asynchronous(model, lr=args.lr, n_push=args.num_push, n_pull=args.num_pull,
                            tx=tx, transport=transport, heartbeat=heartbeat,
-                           rejoin=getattr(args, "rejoin", False))
+                           rejoin=getattr(args, "rejoin", False), **compress_from_args(args))
     gen = torch.Generator(device=dev).manual_seed(seed + 1 + transport.rank)
     eval_step = make_eval_fn(model)
     logger = MetricsLogger(getattr(args, "log_dir", "runs"))
@@ -1102,8 +1384,12 @@ def make_server(args) -> ParameterServer:
     """The server of ``args`` before it has a transport: the central vector
     starts from the seeded model, built on the host — the server never
     touches the card. ``--ckpt-dir``/``--ckpt-every``, ``--wal``,
-    ``--admission*`` and ``--staleness-damping`` configure its planes."""
+    ``--admission*``, ``--staleness-damping``, ``--combine`` and
+    ``--server-opt``/``--server-lr``/``--server-momentum`` configure its
+    planes."""
     from distributed_ml_pytorch_tpu_torch.models import get_model
+    from distributed_ml_pytorch_tpu_torch.parallel.optplane import optimizer_from_args
+    from distributed_ml_pytorch_tpu_torch.utils.serialization import flat_size
 
     model = get_model(getattr(args, "model", "alexnet"), seed=getattr(args, "seed", 0),
                       device="cpu")
@@ -1113,7 +1399,9 @@ def make_server(args) -> ParameterServer:
                            ckpt_every=getattr(args, "ckpt_every", 500),
                            staleness_damping=getattr(args, "staleness_damping", 0.0),
                            wal=getattr(args, "wal", False),
-                           admission=admission_from_args(args))
+                           admission=admission_from_args(args),
+                           combine=getattr(args, "combine", "add") or "add",
+                           optimizer=optimizer_from_args(args, flat_size(model)))
 
 
 def run_server(args, transport: Transport,

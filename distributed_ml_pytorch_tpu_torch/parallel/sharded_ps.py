@@ -13,6 +13,11 @@ and whatever slices have arrived are installed at the next step, so a worker
 may hold shard A's fresh slice beside shard B's older one (DownPour's
 staleness, per shard). There is no new wire format and no new server code,
 so a worker of either package trains against shard servers of the other.
+A shard server may carry a server-side optimizer over exactly its range
+(``parallel/optplane.ShardedOptimizer``, the state a shard holds scaling as
+1/k), and a worker may compress its pushes: one error-feedback encoder over
+the whole flat vector frames each shard's slice as its own
+``CompressedUpdate``.
 
 A shard whose server dies degrades its slice to purely local SGD; the
 other shards keep their service, and a pull still goes to the dead shard
@@ -21,8 +26,8 @@ it has no ``boundary``, as in the JAX package, so ``train_worker`` takes
 the per-step path for it.
 
 Not in this package yet: the elastic path (``coord/``: shard maps,
-cutovers, range installs), the scheduler's hold, compressed pushes and the
-server-side optimizer.
+cutovers, range installs, the optimizer's ``resize`` on a cutover and the
+stamped ``CompressedUpdate`` slices) and the scheduler's hold.
 """
 
 from __future__ import annotations
@@ -38,6 +43,10 @@ from distributed_ml_pytorch_tpu_torch.parallel.async_ps import (
     DownpourClient,
     ParameterServer,
     PushFlusher,
+)
+from distributed_ml_pytorch_tpu_torch.parallel.optplane import (
+    ShardedOptimizer,
+    server_opt_from_args,
 )
 from distributed_ml_pytorch_tpu_torch.utils.health import admission_from_args
 from distributed_ml_pytorch_tpu_torch.utils.messaging import (
@@ -72,18 +81,25 @@ def make_shard_server(model: Optional[nn.Module] = None, *, shard: int, n_shards
                       worker_timeout: Optional[float] = None,
                       ckpt_dir: Optional[str] = None, ckpt_every: int = 500,
                       staleness_damping: float = 0.0, wal: bool = False,
-                      admission=None) -> ParameterServer:
+                      admission=None, combine: str = "add",
+                      server_opt: Optional[str] = None,
+                      server_opt_kw: Optional[dict] = None) -> ParameterServer:
     """A plain :class:`ParameterServer` over shard ``shard``'s slice of the
     flat parameters (``params``, or ``model`` ravelled on the host).
     ``ckpt_dir`` should be the shard's own (``<dir>/shard<s>``): each server
-    checkpoints, and with ``wal`` logs, only its slice."""
+    checkpoints, and with ``wal`` logs, only its slice. ``server_opt``
+    (``"sgdm"`` or ``"adam"``, options ``server_opt_kw``) gives the shard an
+    optimizer over exactly its ``[lo, hi)``."""
     flat = (np.asarray(params, np.float32) if params is not None
             else ravel_model_params(model).cpu().numpy().astype(np.float32))
     lo, hi = shard_ranges(flat.shape[0], n_shards)[shard]
+    optimizer = (ShardedOptimizer(server_opt, lo, hi, **(server_opt_kw or {}))
+                 if server_opt else None)
     return ParameterServer(params=flat[lo:hi], transport=transport, n_workers=n_workers,
                            worker_timeout=worker_timeout, ckpt_dir=ckpt_dir,
                            ckpt_every=ckpt_every, staleness_damping=staleness_damping,
-                           wal=wal, admission=admission)
+                           wal=wal, admission=admission, combine=combine,
+                           optimizer=optimizer)
 
 
 class ShardedAsynchronous(DownpourClient):
@@ -106,16 +122,21 @@ class ShardedAsynchronous(DownpourClient):
     a send could block. A nack from any shard's admission gate pulls every
     shard and holds the updates until each has installed. ``step(loss)``
     with a nonfinite loss skips the update, the cadence unchanged.
+    ``compress``/``compress_opts`` compress the pushes: one error-feedback
+    encoder over the full length, one unstamped ``CompressedUpdate`` a
+    shard's slice.
     """
 
     def __init__(self, model: nn.Module, lr: float, n_push: int, n_pull: int, *,
                  transports: Sequence[Transport], tx=None, rejoin: bool = False,
-                 install_timeout: float = 5.0, heartbeats: Optional[Sequence] = None):
+                 install_timeout: float = 5.0, heartbeats: Optional[Sequence] = None,
+                 compress: Optional[str] = None, compress_opts: Optional[dict] = None):
         if not transports:
             raise ValueError("need at least one shard transport")
         if heartbeats and len(heartbeats) != len(transports):
             raise ValueError("need one heartbeat sender per shard transport")
-        flat = self._setup(model, lr, n_push, n_pull, tx, transports)
+        flat = self._setup(model, lr, n_push, n_pull, tx, transports, compress,
+                           compress_opts)
         self.ranges = shard_ranges(self._flat_n, len(self.transports))
         self.shard_down = [False] * len(self.transports)
         self.heartbeats = list(heartbeats) if heartbeats else []
@@ -135,20 +156,35 @@ class ShardedAsynchronous(DownpourClient):
         self._flusher = PushFlusher(self._push_all)
 
     def _push_all(self, arr: np.ndarray) -> None:
-        """Send every shard its slice of one fetched push vector."""
+        """Send every shard its slice of one fetched push vector, dense or
+        compressed (unstamped: the static ranges never move)."""
         for s, (lo, hi) in enumerate(self.ranges):
-            self._send(s, MessageCode.GradientUpdate, arr[lo:hi])
+            if self.encoder is None:
+                self._send(s, MessageCode.GradientUpdate, arr[lo:hi])
+            else:
+                self._sendv(s, MessageCode.CompressedUpdate,
+                            self.encoder.encode_range(arr, lo, hi))
 
     def _send(self, shard: int, code: MessageCode, payload: np.ndarray) -> None:
-        """Send toward one shard server; its death degrades that slice,
-        never the worker. A down shard still gets pulls: the pull cadence
-        is the probe, and the reply of a restarted server is what
-        :meth:`_mark_up` revives on."""
+        """Send toward one shard server, under :meth:`_guarded_send`."""
+        self._guarded_send(shard, code,
+                           lambda t: send_message(code, payload, transport=t))
+
+    def _sendv(self, shard: int, code: MessageCode, parts) -> None:
+        """A frame of several parts toward one shard server, under
+        :meth:`_guarded_send`."""
+        self._guarded_send(shard, code, lambda t: t.sendv(code, parts))
+
+    def _guarded_send(self, shard: int, code: MessageCode, do_send) -> None:
+        """``do_send(transport)`` toward one shard server; its death
+        degrades that slice, never the worker. A down shard still gets
+        pulls: the pull cadence is the probe, and the reply of a restarted
+        server is what :meth:`_mark_up` revives on."""
         if self.shard_down[shard]:
             if code != MessageCode.ParameterRequest:
                 return
             try:
-                send_message(code, payload, transport=self.transports[shard])
+                do_send(self.transports[shard])
             except (OSError, ConnectionError):
                 pass  # still down; the next pull probes again
             return
@@ -156,7 +192,7 @@ class ShardedAsynchronous(DownpourClient):
             self._mark_down(shard)
             return
         try:
-            send_message(code, payload, transport=self.transports[shard])
+            do_send(self.transports[shard])
         except (OSError, ConnectionError):
             self._mark_down(shard)
 
@@ -221,7 +257,8 @@ def run_sharded_ps_process(args) -> int:
     rank 0, worker ``r`` star rank ``r − K + 1``). Shard servers build
     their slice on the host and never touch the card; with ``--wal`` they
     ack a push only after the log's fsync, and ``--ckpt-dir`` lands in
-    ``<dir>/shard<s>``."""
+    ``<dir>/shard<s>``. ``--combine`` and ``--server-opt`` reach every shard
+    server, ``--compress`` every worker."""
     from distributed_ml_pytorch_tpu_torch.models import get_model
     from distributed_ml_pytorch_tpu_torch.utils.messaging import make_transport
 
@@ -241,6 +278,7 @@ def run_sharded_ps_process(args) -> int:
                       device="cpu")
     ckpt_dir = getattr(args, "ckpt_dir", "") or None
     # built before it listens, as run_ps_process's server is
+    opt_kind, opt_kw = server_opt_from_args(args)
     server = make_shard_server(
         model, shard=shard, n_shards=k, n_workers=n_workers,
         worker_timeout=getattr(args, "worker_timeout", 0.0) or None,
@@ -248,7 +286,9 @@ def run_sharded_ps_process(args) -> int:
         ckpt_every=getattr(args, "ckpt_every", 500),
         staleness_damping=getattr(args, "staleness_damping", 0.0),
         # unmasked: --wal without --ckpt-dir raises in ParameterServer
-        wal=getattr(args, "wal", False), admission=admission_from_args(args))
+        wal=getattr(args, "wal", False), admission=admission_from_args(args),
+        combine=getattr(args, "combine", "add") or "add", server_opt=opt_kind,
+        server_opt_kw=opt_kw)
     transport = make_transport(0, n_workers + 1, args.master, int(args.port) + shard,
                                kind=kind, reliable=reliable,
                                durable_acks=getattr(args, "wal", False))
@@ -265,6 +305,7 @@ def run_sharded_ps_process(args) -> int:
 
 def _run_static_worker(args, k: int, n_workers: int, kind: str, reliable: bool) -> int:
     from distributed_ml_pytorch_tpu_torch.parallel.async_ps import train_worker
+    from distributed_ml_pytorch_tpu_torch.utils.compress import compress_from_args
     from distributed_ml_pytorch_tpu_torch.utils.messaging import make_transport
 
     star_rank = args.rank - k + 1
@@ -287,7 +328,8 @@ def _run_static_worker(args, k: int, n_workers: int, kind: str, reliable: bool) 
             return ShardedAsynchronous(model, lr=args.lr, n_push=args.num_push,
                                        n_pull=args.num_pull, tx=tx, transports=transports,
                                        rejoin=getattr(args, "rejoin", False),
-                                       heartbeats=heartbeats or None)
+                                       heartbeats=heartbeats or None,
+                                       **compress_from_args(args))
 
         _model, logger = train_worker(args, transports[0], device=args.backend,
                                       opt_factory=factory)

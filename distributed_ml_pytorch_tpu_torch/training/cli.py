@@ -14,18 +14,20 @@ trainer's surface: ``--dtype``, ``--optimizer``, ``--weight-decay``,
 ``--chunked-dispatch`` and ``--steps-per-dispatch`` (runs of local steps
 between communication gaps as one dispatch, a CUDA graph on the card) and
 ``--rejoin``; the server takes ``--ckpt-dir``/``--ckpt-every``/``--resume``,
-``--wal``, ``--admission``/``--admission-z``/``--admission-warmup`` and
-``--staleness-damping``; every rank takes ``--transport`` (the native C++
-library, the Python sockets, or auto) and ``--reliable`` (the reliable
-wire; with ``--wal`` the server acks a push only after the log's fsync).
-``--n-servers K`` shards the server across ranks 0..K-1, each owning a
-contiguous range of the central vector on ``port + shard``
-(``parallel/sharded_ps.py``); its workers run one step a dispatch, as the
-JAX package's do. Flags of the JAX CLI that this package does not
-implement (compression, Adasum, the server-side optimizer, the other
-distributed modes, the coordinator, the manifest path, profiling and the
-metrics dump) are absent, so argparse rejects them instead of ignoring
-them.
+``--wal``, ``--admission``/``--admission-z``/``--admission-warmup``,
+``--staleness-damping`` or ``--combine adasum`` (not both), and
+``--server-opt``/``--server-lr``/``--server-momentum`` (an optimizer over
+each server's range); the worker takes ``--compress``/``--compress-block``/
+``--compress-topk`` (compressed pushes with error feedback); every rank
+takes ``--transport`` (the native C++ library, the Python sockets, or auto)
+and ``--reliable`` (the reliable wire; with ``--wal`` the server acks a push
+only after the log's fsync). ``--n-servers K`` shards the server across
+ranks 0..K-1, each owning a contiguous range of the central vector on
+``port + shard`` (``parallel/sharded_ps.py``); its workers run one step a
+dispatch, as the JAX package's do. Flags of the JAX CLI that this package
+does not implement (the other distributed modes, the coordinator and its
+elastic fleet, the manifest path, profiling and the metrics dump) are
+absent, so argparse rejects them instead of ignoring them.
 
     python -m distributed_ml_pytorch_tpu_torch.training.cli --no-distributed \
         --epochs 1 --synthetic-data
@@ -171,12 +173,40 @@ def build_parser() -> argparse.ArgumentParser:
                    help="PS-mode server scales each gradient push by 1/(1 + D*staleness), "
                         "where staleness counts central versions since that worker's "
                         "last pull; 0 = reference behavior (apply raw)")
+    p.add_argument("--compress", type=str, default="none", choices=("none", "int8", "topk"),
+                   help="PS-mode gradient wire compression (utils/compress.py): pushes ride "
+                        "CompressedUpdate frames with per-worker error-feedback residuals — "
+                        "int8 = per-block symmetric quantization (~4x fewer bytes), topk = "
+                        "sparsified (idx, value) pairs; the server decodes BEFORE the "
+                        "admission gate and WAL")
+    p.add_argument("--compress-block", type=int, default=1024, metavar="B",
+                   help="int8 quantization block size (one absmax scale per block; multiple "
+                        "of 4)")
+    p.add_argument("--compress-topk", type=float, default=0.01, metavar="F",
+                   help="top-k fraction of elements kept per push (--compress topk)")
+    p.add_argument("--combine", type=str, default="add", choices=("add", "adasum"),
+                   help="how the PS combines concurrent pushes: add = the reference "
+                        "behavior; adasum = angle-aware merge against the overlap applied "
+                        "since the pusher's last pull (arXiv:2006.02924) — the alternative "
+                        "to --staleness-damping (mutually exclusive)")
+    p.add_argument("--server-opt", type=str, default="none", choices=("none", "sgdm", "adam"),
+                   help="sharded server-side optimizer (parallel/optplane.py): each "
+                        "server/shard owns momentum (sgdm) or Adam moments for EXACTLY its "
+                        "range — state cost scales 1/shards; state rides checkpoints + WAL "
+                        "replay (arXiv:2004.13336)")
+    p.add_argument("--server-lr", type=float, default=1.0, metavar="LR",
+                   help="server-side optimizer step scale (1.0 with sgdm momentum 0 "
+                        "reproduces the plain add)")
+    p.add_argument("--server-momentum", type=float, default=0.9, metavar="M",
+                   help="server-side sgdm momentum over incoming deltas")
     return p
 
 
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.combine == "adasum" and args.staleness_damping > 0.0:
+        parser.error("--combine adasum replaces --staleness-damping — pick one")
     print(args)
     if args.no_distributed:
         from distributed_ml_pytorch_tpu_torch.training.trainer import train_single

@@ -73,9 +73,9 @@ SERVER_RANK = 0  # reference convention: rank 0 is the parameter server
 class MessageCode(enum.IntEnum):
     """Message tags, value for value the JAX package's. This package speaks
     codes 0-4 (the DownPour path), 9, 10 and 26 (the reliability envelope
-    and its acks) and 27 (``UpdateNack``, the admission gate's reject); the
-    rest are defined so that frames from the JAX package's other planes
-    decode to their names."""
+    and its acks), 27 (``UpdateNack``, the admission gate's reject), 34
+    (``CompressedUpdate``) and 39 (``DeltaParams``); the rest are defined so
+    that frames from the JAX package's other planes decode to their names."""
 
     ParameterUpdate = 0
     ParameterRequest = 1
@@ -216,8 +216,10 @@ class PayloadSchema:
 
 
 #: the codes this package's modules send or dispatch on: the parameter
-#: server's plane, the serving frontend's and the reliability wire. The JAX
-#: table's entries for its other planes come with those planes.
+#: server's plane (its compressed pushes and delta pull replies too), the
+#: serving frontend's, the reliability wire, and the coded wires the
+#: ``wire_bytes`` bench leg prices. The JAX table's entries for its other
+#: planes come with those planes.
 WIRE_SCHEMAS: Dict[MessageCode, PayloadSchema] = {
     MessageCode.ParameterUpdate: PayloadSchema(
         rest="params", handled_by=("ps", "coord"), dedup_key="idempotent",
@@ -293,6 +295,58 @@ WIRE_SCHEMAS: Dict[MessageCode, PayloadSchema] = {
             "offending magnitude (clamped finite for the wire). A reject is never "
             "silent: the worker counts it, resyncs by pulling fresh params, and "
             "reports the count in LeaseRenew"),
+    MessageCode.ActivationShip: PayloadSchema(
+        fields=("step_lo", "step_hi", "mb", "kind", "ver_lo", "ver_hi", "codec"),
+        rest="payload", rest_min=1, handled_by=("ps",), dedup_key="step_mb",
+        doc="MPMD pipeline data plane: stage s -> s+1 activation hand-off for (step, "
+            "microbatch), stamped with the sender's StagePlacement version. kind 0 = "
+            "activation, 1 = tokens (driver -> first stage), 2 = targets (driver -> last "
+            "stage), 3 = per-microbatch ce_sum report (last stage -> driver). codec "
+            "(utils/codecs.py) names the body encoding — 0 = dense f32 (mandatory for "
+            "token/target/loss kinds: exact contract), 1 = int8 per-block absmax for "
+            "activations (bounded contract, |x - x̂| <= scale/2); the receiver DECODES "
+            "before its size/finite gates. Receivers dedup by (step, mb) so chaos dups, "
+            "reliability redelivery and watermark replay can never double-apply a "
+            "microbatch"),
+    MessageCode.CompressedUpdate: PayloadSchema(
+        fields=("codec", "n_lo", "n_hi", "crc_lo", "crc_hi", "param", "ver_lo", "ver_hi",
+                "lo_lo", "lo_hi", "hi_lo", "hi_hi"),
+        rest="body", rest_min=1, handled_by=("ps", "coord"), dedup_key="env_seq",
+        durability="wal_before_ack",
+        doc="compressed GradientUpdate/ShardPush (utils/compress.py): codec names the "
+            "encoding (1 = int8 per-block quant, 2 = top-k), n the decoded length, param "
+            "the codec parameter (block size / k), crc a crc32 of the body bytes (the "
+            "decoder's own integrity gate; chaos SDC must re-stamp it, "
+            "compress.restamp_crc). The ver/lo/hi halves mirror ShardPush's elastic stamp "
+            "— all-zero means unstamped (single-server wire); elastic servers gate on the "
+            "RANGE before paying for a decode. The server DECODES before the admission "
+            "gate (z-scores on the decoded norm — compression cannot slip the gate), "
+            "WAL-logs the decoded delta plus this codec id, then applies — replay never "
+            "re-decodes"),
+    MessageCode.DeltaParams: PayloadSchema(
+        fields=("codec", "epoch", "base_lo", "base_hi", "ver_lo", "ver_hi", "lo_lo", "lo_hi",
+                "hi_lo", "hi_hi", "n_lo", "n_hi", "crc_lo", "crc_hi"),
+        rest="body", rest_min=1, handled_by=("ps",), dedup_key="version",
+        doc="server -> worker delta pull reply (utils/codecs.py DeltaParams plane, "
+            "error-feedback contract): the body decodes to central[lo:hi) MINUS the "
+            "worker's held base at (epoch, base version) — the server tracks each "
+            "worker's exact materialized view, so base + decoded == central - residual "
+            "holds exactly by construction. codec 0 = dense FULL install (the fallback "
+            "rung: version miss, epoch change, restore, rebalance), 2 = top-k delta (the "
+            "steady-state rung: the inter-pull delta is naturally sparse). A worker "
+            "applies a delta only when (epoch, base) equals its held stamp, else it drops "
+            "the reply and re-pulls full; crc guards the body like CompressedUpdate"),
+    MessageCode.KvMigrate: PayloadSchema(
+        fields=("codec", "id_lo", "id_hi", "n_tok_lo", "n_tok_hi", "n_kv_lo", "n_kv_hi",
+                "crc_lo", "crc_hi"),
+        rest="handoff", rest_min=1, handled_by=("serving",), dedup_key="request_id",
+        doc="serving migration handoff (utils/codecs.py KvMigrate plane): the retiring "
+            "engine's stream state for request id — n_tok token-history ids packed EXACT "
+            "via tok16 (two ids per word; the resumed stream re-prefills from these, so "
+            "token identity never depends on the lossy rung), then the slot's KV lane "
+            "(n_kv elements) under `codec` (0 = dense f32, 1 = int8 per-block absmax, the "
+            "serving cache's kv_quant recipe; bounded contract, verified at the "
+            "receiver). crc covers the whole handoff body"),
 }
 
 
@@ -680,8 +734,13 @@ def _frame_crc_legacy(inc: int, seq: int, code: int, body, corr: int = 0) -> int
 
 #: frames a reliable receiver's retry tick takes in (and acks) ahead of an
 #: application that is not calling recv(): a worker's install, pull and
-#: push sent before the server's loop has started, from two workers
+#: push sent before the server's loop has started, from two workers. Past
+#: it the tick still reads on, for the acks of its own frames, and holds
+#: the data frames behind them unread and unacked
 PARK_MAX = 8
+
+#: the codes of the reliable layer's acks, taken in whatever the park holds
+_ACK_CODES = (MessageCode.ReliableAck, MessageCode.CumAck)
 
 _INC_LOCK = threading.Lock()
 _LAST_INC = 0
@@ -848,6 +907,9 @@ class ReliableTransport(Transport):
     their ack and parked, with their envelope, for :meth:`recv` to hand out
     in arrival order. Parked frames count against the credit this receiver
     advertises, so a slow application still narrows its senders' windows.
+    Past :data:`PARK_MAX` parked frames the tick still takes in acks, and
+    holds the data frames read beside them unprocessed and unacked (the
+    backlog, handed out after the park, in order).
 
     ``recorder`` (a flight recorder) is always ``None`` in this package.
     """
@@ -900,6 +962,9 @@ class ReliableTransport(Transport):
         #: send() or flush(), each ``(corr, envelope, message)``, handed out
         #: by recv() before anything newer
         self._requeue: "collections.deque" = collections.deque()
+        #: inner frames read past a full park, not yet processed (so not
+        #: acked), in arrival order; processed before anything newer
+        self._backlog: "collections.deque" = collections.deque()
         #: held by whichever thread reads the inner transport, so frames are
         #: parked and handed out in the order they arrived
         self._rx_lock = threading.Lock()
@@ -930,6 +995,10 @@ class ReliableTransport(Transport):
         #: never retransmitted): a timeout fires when it passes the peer's
         #: timeout, which is never below ``ack_timeout``
         self.max_ack_wait = 0.0
+        #: the least time a frame had left before its timeout when its ack
+        #: came (seconds, frames never retransmitted; ``None`` before the
+        #: first): the margin by which no timeout fired
+        self.min_ack_slack: Optional[float] = None
         self.recorder = None
         self._retry_wake = threading.Event()
         self._retry_thread = threading.Thread(target=self._retry_loop, name="reliable-retry",
@@ -1076,6 +1145,14 @@ class ReliableTransport(Transport):
             if d == dst and not p.retransmitted and p.deadline < now + rto:
                 p.clock, p.deadline = now, now + rto
 
+    def _note_ack_wait(self, p: _Pending, now: float) -> None:
+        """Fold one first-try ack into ``max_ack_wait`` and
+        ``min_ack_slack``. Caller holds ``_lock``."""
+        self.max_ack_wait = max(self.max_ack_wait, now - p.clock)
+        slack = p.deadline - now
+        if self.min_ack_slack is None or slack < self.min_ack_slack:
+            self.min_ack_slack = slack
+
     def _oldest_pending(self, dst: int) -> Optional[int]:
         """The lowest seq pending toward ``dst``. Caller holds ``_lock``."""
         return min((seq for d, seq in self._pending if d == dst), default=None)
@@ -1199,28 +1276,46 @@ class ReliableTransport(Transport):
         if not self._rx_lock.acquire(timeout=timeout):
             return
         try:
-            delivery = self._process(self.inner.recv(timeout=timeout))
+            delivery = self._process(self._next_inner(timeout))
             if delivery is not None:
                 self._requeue.append(delivery)
         finally:
             self._rx_lock.release()
 
+    def _next_inner(self, timeout: float) -> Optional[Message]:
+        """The oldest inner frame not yet processed: the backlog's first,
+        else the inner transport's next. Caller holds ``_rx_lock``."""
+        if self._backlog:
+            return self._backlog.popleft()
+        return self.inner.recv(timeout=timeout)
+
     def _pump_arrivals(self) -> None:
         """Take in the frames already waiting in the inner transport (the
         retry tick's share of receiving), unless a thread is receiving now,
-        until :data:`PARK_MAX` frames wait for the application: beyond
-        that, arrivals stay unacked in the inner transport, so a receiver
-        that stops reading still closes its senders' windows."""
+        until :data:`PARK_MAX` frames wait for the application. Beyond
+        that, acks are still taken in (a lagging application must not time
+        out its own frames), and data frames go to the backlog unprocessed
+        and unacked, so a receiver that stops reading still closes its
+        senders' windows."""
         if not self._rx_lock.acquire(blocking=False):
             return
         try:
-            while not self._closed and len(self._requeue) < PARK_MAX:
+            while not self._closed:
+                if len(self._requeue) < PARK_MAX:
+                    msg = self._next_inner(0.0)
+                    if msg is None:
+                        return
+                    delivery = self._process(msg)
+                    if delivery is not None:
+                        self._requeue.append(delivery)
+                    continue
                 msg = self.inner.recv(timeout=0.0)
                 if msg is None:
                     return
-                delivery = self._process(msg)
-                if delivery is not None:
-                    self._requeue.append(delivery)
+                if msg[1] in _ACK_CODES:
+                    self._process(msg)
+                else:
+                    self._backlog.append(msg)
         finally:
             self._rx_lock.release()
 
@@ -1253,7 +1348,7 @@ class ReliableTransport(Transport):
                         st = self._peer(sender)
                         if not p.retransmitted:
                             self._rtt_sample(st, now - p.first_sent)
-                            self.max_ack_wait = max(self.max_ack_wait, now - p.clock)
+                            self._note_ack_wait(p, now)
                         if head:
                             self._restart_clocks(sender, now)
                         self._on_peer_ack(st)
@@ -1287,7 +1382,7 @@ class ReliableTransport(Transport):
                         self._acked_codes[ck] = self._acked_codes.get(ck, 0) + 1
                         if p.retransmitted:
                             continue
-                        self.max_ack_wait = max(self.max_ack_wait, now - p.clock)
+                        self._note_ack_wait(p, now)
                         if freshest is None or p.first_sent > freshest:
                             freshest = p.first_sent
                     if freshest is not None:
@@ -1611,7 +1706,7 @@ class ReliableTransport(Transport):
                 if self._requeue:
                     delivery = self._requeue.popleft()
                 else:
-                    delivery = self._process(self.inner.recv(timeout=slice_t))
+                    delivery = self._process(self._next_inner(slice_t))
             if delivery is not None:
                 corr, envelope, msg = delivery
                 with self._lock:

@@ -491,3 +491,45 @@ def test_steps_to_accuracy_matches_jax_at_identical_init(monkeypatch):
     assert res["accuracy"] == res["curve"][-1]
     for got, want in zip(res["losses"], losses):
         np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+WIRE_METRICS = ([f"ps_{kind}_{mode}" for mode in ("dense", "int8", "topk")
+                 for kind in ("wire_bytes_per_push", "push_roundtrips")]
+                + ["ps_wire_compression_ratio_int8", "ps_wire_compression_ratio_topk"]
+                + [name for tag, ratio in (("act", "act_wire_compression_ratio_int8"),
+                                           ("kv_migrate", "kv_migrate_compression_ratio_int8"))
+                   for name in [f"{tag}_{kind}_{mode}" for mode in ("dense", "int8")
+                                for kind in ("wire_bytes_per_frame", "codec_frames_per_s")]
+                   + [ratio]]
+                + ["pull_reply_bytes_full", "pull_reply_bytes_delta_steady",
+                   "pull_reply_roundtrips_delta", "pull_reply_compression_ratio_delta"])
+
+
+def test_wire_bytes_leg_on_cpu_emits_the_jax_metric_names_and_exact_bytes(capsys):
+    """Config 7's compressed-wire ladder at ``--tiny`` (65,536 floats): the
+    JAX metric names in the JAX order, every frame's bytes the exact frame
+    arithmetic of the codecs, every rate positive."""
+    from distributed_ml_pytorch_tpu_torch.utils import codecs
+    from distributed_ml_pytorch_tpu_torch.utils.compress import make_codec
+
+    assert bench_all.main(["--device", "cpu", "--tiny", "--legs", "wire_bytes"]) == 0
+    recs = {r["metric"]: r for r in (json.loads(line) for line in
+                                     capsys.readouterr().out.splitlines()
+                                     if line.startswith("{"))}
+    assert list(recs) == WIRE_METRICS
+    assert all(r["config"] == 7 and r["value"] > 0 and "--tiny" in r["note"]
+               for r in recs.values())
+    n = bench_all.TINY_WIRE_N
+    assert recs["ps_wire_bytes_per_push_dense"]["value"] == 4 * n
+    assert recs["ps_wire_bytes_per_push_int8"]["value"] == 4 * (
+        12 + make_codec("int8").wire_floats(n))
+    assert recs["ps_wire_bytes_per_push_topk"]["value"] == 4 * (
+        12 + make_codec("topk").wire_floats(n))
+    assert recs["pull_reply_bytes_full"]["value"] == 4 * (14 + n)
+    assert recs["pull_reply_bytes_delta_steady"]["value"] == 4 * (
+        14 + codecs.wire_floats("DeltaParams", n))
+    with open(os.path.join(ROOT, "bench_all.py")) as fh:
+        src = fh.read()
+    for name in ('f"ps_wire_bytes_per_push_{mode}"', 'f"{tag}_codec_frames_per_s_{mode}"',
+                 '"pull_reply_compression_ratio_delta"'):
+        assert name in src

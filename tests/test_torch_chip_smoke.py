@@ -1,4 +1,5 @@
-"""``chip_smoke.py`` phases 18 and 19 rehearsed on the CPU at tiny widths.
+"""``chip_smoke.py`` phases 18, 19 and 20 rehearsed on the CPU at tiny widths
+(phase 20 with LeNet: its worlds run host code beside the kernels).
 
 There is no card here, so ``ops.attention``'s CUDA wrappers are routed to
 their plain versions, counting a launch where the kernel would launch, and
@@ -99,3 +100,44 @@ def test_lm_flags_phase(routed, capsys):
     assert records[0] == cycle
     assert [r["metric"] for r in records[1:3]] == ["steps_to_99pct_test_accuracy",
                                                    "ps_transport_roundtrip_python_acks_off"]
+
+
+def test_codec_plane_phase(capsys, monkeypatch, tmp_path):
+    """Phase 20 rehearsed on the CPU with LeNet (no kernel launches there):
+    (a) int8 pushes under Adasum across three processes, every push at the
+    int8 frame size of LeNet's vector, sent = acked = applied and a restore
+    bit for bit; (b) the sharded world with top-k pushes and a server-side
+    sgdm over each shard's range, restored with its m and v; (c) delta
+    pulls, every pull after the first a top-k delta; (d) the wire_bytes
+    leg at ``--tiny``."""
+    from distributed_ml_pytorch_tpu_torch.models import get_model
+    from distributed_ml_pytorch_tpu_torch.utils.serialization import flat_size
+
+    monkeypatch.setattr(cs, "SMOKE_CODEC_DIR", str(tmp_path / "codec"))
+    monkeypatch.setattr(cs, "SMOKE_CODEC_SHARDED_DIR", str(tmp_path / "codec_sharded"))
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        launches = cs.phase_codec_plane(
+            torch, {}, None, {}, backend="cpu", model="lenet",
+            bench_args=("--legs", "wire_bytes", "--device", "cpu", "--tiny"))
+    finally:
+        torch.set_num_threads(prev)
+    lines = _lines(capsys)
+    sizes = cs.codec_sizes(flat_size(get_model("lenet", device="cpu")))
+    a = lines["codec_processes"]
+    assert a["apply_seq"] == sum(w["pushes_sent"] for w in a["per_worker"].values()) > 0
+    assert all(w["frame_floats"] == sizes["int8_push"] and w["acked_pushes"] == w["pushes_sent"]
+               for w in a["per_worker"].values())
+    assert a["restored_bit_equal"] and a["server_messages"].get("GradientUpdate") is None
+    b = lines["codec_sharded_processes"]
+    assert [s["topk_pairs"] for s in b["per_shard"].values()] == sizes["shard_topk_pairs"]
+    assert all(s["optimizer"]["state_floats"] == 2 * (s["range"][1] - s["range"][0])
+               for s in b["per_shard"].values())
+    c = lines["codec_delta_pull"]
+    assert c["full_installs"] == 1 and c["delta_installs"] == c["pulls_answered"] - 1
+    assert c["reply_floats_delta"] == sizes["delta_reply"] and c["view_bit_equal"]
+    assert len(lines["wire_bytes_bench_leg"]["records"]) == cs.WIRE_BYTES_RECORDS
+    assert cs.codec_sizes(2_472_266) == cs.ALEXNET_CODEC_SIZES
+    assert not any(launches.values())  # the CPU runs the plain versions

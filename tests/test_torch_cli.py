@@ -70,10 +70,10 @@ def test_launch_three_process_tcp_world(tmp_path):
             "index", "timestamp", "iteration", "training_loss"]
 
 
-@pytest.mark.parametrize("flag", [["--manifest-path", "m"], ["--compress", "int8"],
+@pytest.mark.parametrize("flag", [["--manifest-path", "m"], ["--coord", "h:1"],
                                   ["--mode", "sync"],
                                   ["--dtype", "float16"], ["--backend", "tpu"],
-                                  ["--server-opt", "adam"], ["--profile-dir", "prof"]])
+                                  ["--metrics-dump", "-"], ["--profile-dir", "prof"]])
 def test_unimplemented_flags_are_rejected(flag):
     with pytest.raises(SystemExit):
         cli.build_parser().parse_args(flag)
@@ -120,7 +120,8 @@ def test_ps_mode_refuses_the_single_process_flags(flag, capsys, monkeypatch):
 
 PS_FLAGS = ["wal", "admission", "admission_z", "admission_warmup", "rejoin",
             "staleness_damping", "chunked_dispatch", "ckpt_every", "transport", "reliable",
-            "n_servers"]
+            "n_servers", "compress", "compress_block", "compress_topk", "combine", "server_opt",
+            "server_lr", "server_momentum"]
 
 
 def test_ps_flags_take_the_jax_names_defaults_and_choices():
@@ -133,9 +134,9 @@ def test_ps_flags_take_the_jax_names_defaults_and_choices():
         assert (mine[dest].choices and tuple(mine[dest].choices)) == (
             ref[dest].choices and tuple(ref[dest].choices)), dest
         assert mine[dest].type == ref[dest].type, dest
-    for flag in (["--manifest-path", "m"], ["--combine", "adasum"], ["--coord", "h:1"],
-                 ["--server-opt", "adam"], ["--metrics-dump", "-"], ["--sync-every", "2"],
-                 ["--compress-topk", "0.1"], ["--profile-steps", "3"]):
+    for flag in (["--manifest-path", "m"], ["--coord", "h:1"], ["--metrics-dump", "-"],
+                 ["--sync-every", "2"], ["--profile-steps", "3"], ["--compress", "fp8"],
+                 ["--combine", "sum"], ["--server-opt", "adagrad"]):
         with pytest.raises(SystemExit):
             cli.build_parser().parse_args(flag)
 

@@ -1510,6 +1510,74 @@ def test_sharded_client_equals_the_per_step_client_on_the_card(cuda, k):
     assert torch.equal(flat, ref_flat)
 
 
+@pytest.mark.gpu
+def test_compressed_chunked_worker_frames_the_dense_pushes_through_its_encoder(cuda):
+    """30 chunked DownPour steps on the card (AlexNet fused, n_push = n_pull
+    = 10) with ``compress="int8"``: every CompressedUpdate frame equals, bit
+    for bit, the frame a host encoder makes of the dense worker's push from
+    the same weights on the same batches (K1 and K2 replayed in the graph
+    either way), and the decoded pushes sum to the dense ones less the final
+    residual."""
+    from distributed_ml_pytorch_tpu_torch.utils.compress import (
+        CompressingEncoder,
+        decode_update,
+        make_codec,
+    )
+
+    _deterministic()
+    x, y = _k_batches(30, 16, seed=6)
+    model, opt, dense = _downpour_worker(cuda)
+    dense_flat = _drive(opt, model, x, y, True)
+    model, opt, _ = _downpour_worker(cuda)
+    opt.encoder = CompressingEncoder(opt._flat_n, make_codec("int8"))
+    frames = []
+    opt._sendv = lambda code, parts: frames.append(np.concatenate(parts))
+    flat = _drive(opt, model, x, y, True)
+    assert torch.equal(flat, dense_flat) and len(frames) == len(dense) == 4
+    ref = CompressingEncoder(opt._flat_n, make_codec("int8"))
+    total = np.zeros(opt._flat_n, np.float64)
+    for frame, push in zip(frames, dense):
+        np.testing.assert_array_equal(frame, np.concatenate(ref.encode_range(push, 0, push.size)))
+        assert frame.size == 620_667
+        total += decode_update(frame)[2]
+    np.testing.assert_allclose(total, np.sum(dense, axis=0, dtype=np.float64) - ref.residual,
+                               atol=1e-5)
+    assert opt.encoder.residual_resets == 0
+
+
+@pytest.mark.gpu
+def test_compressed_sharded_client_frames_each_shard_on_the_card(cuda):
+    """The sharded client on the card with top-k pushes and two shards:
+    each push sends one unstamped frame a shard, of k = round(1 % of the
+    shard's length) pairs, and the per-step path launches K1 once a step."""
+    from distributed_ml_pytorch_tpu_torch.models import get_model
+    from distributed_ml_pytorch_tpu_torch.parallel.sharded_ps import ShardedAsynchronous
+    from distributed_ml_pytorch_tpu_torch.training.trainer import loss_and_grads
+    from distributed_ml_pytorch_tpu_torch.utils.compress import unpack_frame
+    from distributed_ml_pytorch_tpu_torch.utils.messaging import InProcessTransport
+
+    _deterministic()
+    x, y = _k_batches(12, 16, seed=7)
+    model = get_model("alexnet", fused_epilogue=True, seed=3, device=cuda)
+    worlds = [InProcessTransport.create_world(2) for _ in range(2)]
+    opt = ShardedAsynchronous(model, lr=0.008, n_push=10, n_pull=10,
+                              transports=[w[1] for w in worlds], compress="topk")
+    sent = []
+    opt._sendv = lambda shard, code, parts: sent.append((shard, np.concatenate(parts)))
+    before = tfu.launches
+    for i in range(12):
+        loss_and_grads(model, torch.from_numpy(x[i]).to(cuda), torch.from_numpy(y[i]).to(cuda))
+        opt.step()
+    opt._flusher.drain()
+    assert tfu.launches - before == 12
+    assert [s for s, _ in sent] == [0, 1, 0, 1]  # steps 0 and 10
+    for shard, frame in sent:
+        lo, hi = opt.ranges[shard]
+        _cid, n, param, stamp, body = unpack_frame(frame)
+        assert (n, param, stamp) == (hi - lo, 12_361, None) and body.size == 2 * 12_361
+    opt.finish()
+
+
 # ------------------------------------------------------------------ the LM trainer's flags
 
 #: train_lm at a small width whose heads the tensor-core kernels take (2 x

@@ -1,5 +1,5 @@
-"""The reliable wire's two faults, each held by a test that failed before
-its repair.
+"""The reliable wire's faults, each held by a test that failed before its
+repair.
 
 - **No timeout on a loss-free wire.** A port ``ParameterServer`` process
   and two worker processes running the port's ``Asynchronous`` on AlexNet
@@ -213,6 +213,68 @@ def test_a_receiver_working_through_a_queue_times_nothing_out():
         assert worker.stats["rto_expired"] == 0 and worker.stats["retries"] == 0, worker.stats
         assert server.stats["dup_dropped"] == 0
         assert 0.1 <= worker.max_ack_wait < 0.25
+    finally:
+        for t in (worker, server):
+            t.detach()
+
+
+def test_the_least_ack_slack_is_the_margin_under_the_timeout():
+    """Four pushes to a durable receiver that applies one every 0.1 s under
+    a 0.5 s timeout floor: no timeout fires, and ``min_ack_slack`` is the
+    least time a push had left, under the floor by at least the 0.1 s its
+    ack took at the least."""
+    MessageCode = tmsg.MessageCode
+    world = tmsg.InProcessTransport.create_world(2)
+    server = tmsg.ReliableTransport(world[0], ack_on_delivery=False, ack_timeout=0.5)
+    worker = tmsg.ReliableTransport(world[1], ack_timeout=0.5)
+    try:
+        assert worker.min_ack_slack is None
+        for v in range(4):
+            worker.send(MessageCode.GradientUpdate, np.full(3, v, np.float32))
+        for _ in range(4):
+            assert server.recv(timeout=3) is not None, worker.stats
+            time.sleep(0.1)
+            server.ack_delivered()
+        assert worker.flush(timeout=3), worker.stats
+        assert worker.stats["rto_expired"] == 0, worker.stats
+        assert 0.0 < worker.min_ack_slack <= 0.5 - 0.1
+    finally:
+        for t in (worker, server):
+            t.detach()
+
+
+def test_a_receiver_behind_a_full_park_still_takes_in_its_acks():
+    """A server whose application lags (it is applying pushes) holds
+    PARK_MAX frames taken in for it, and more wait behind them; an ack of
+    a frame it sent arrives after those. Its retry tick must still take
+    the ack in: its own frame is acked within the tick, not after the
+    application has worked through the backlog (before the repair the
+    tick stopped reading at a full park, and the frame timed out). The
+    frames past the park stay unacked, so the sender's window still
+    closes, and are handed out later, in order."""
+    MessageCode = tmsg.MessageCode
+    world = tmsg.InProcessTransport.create_world(2)
+    server = tmsg.ReliableTransport(world[0], ack_timeout=0.5, batched_acks=False)
+    worker = tmsg.ReliableTransport(world[1], ack_timeout=5.0, batched_acks=False)
+    n = tmsg.PARK_MAX + 4
+    try:
+        for v in range(n):
+            worker.send(MessageCode.ParameterRequest, np.full(1, v, np.float32))
+        deadline = time.monotonic() + 3
+        while len(server._requeue) < tmsg.PARK_MAX and time.monotonic() < deadline:
+            time.sleep(0.01)
+        server.send(MessageCode.ParameterUpdate, np.ones(4, np.float32), dst=1)
+        assert worker.recv(timeout=2)[1] == MessageCode.ParameterUpdate
+        deadline = time.monotonic() + 0.4
+        while server.pending_depth(1) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert server.pending_depth(1) == 0, "the ack waited behind the full park"
+        assert server.stats["rto_expired"] == 0 and server.stats["retries"] == 0
+        assert worker.pending_depth(0) == n - tmsg.PARK_MAX  # past the park: unacked
+        got = [float(server.recv(timeout=1)[2][0]) for _ in range(n)]
+        assert got == [float(v) for v in range(n)]
+        assert worker.flush(timeout=3), worker.stats
+        assert server.stats["dup_dropped"] == 0
     finally:
         for t in (worker, server):
             t.detach()
