@@ -270,6 +270,40 @@ Phases, each printing one JSON line; any failure exits non-zero:
    base bit for bit; (d) ``bench_all --legs wire_bytes``, its
    records printed. The ``kernels`` line's K1 and K2 launches add phase
    20's workers' counts.
+21. chaos and the elastic membership plane, under deterministic cuDNN in
+   full float32: (a) the elastic world as processes through the entry
+   points — ``coord.cli --lease 2.0``, two shard ranks (``training.cli
+   --mode ps --world-size 5 --n-servers 2 --coord ... --transport python
+   --reliable``, started in rank order so the maps go v1, v2) and two
+   AlexNet workers on the card (batch 64, lr 0.008, n_push = n_pull = 10,
+   2 epochs of 500 steps, one a dispatch); a third worker (2 epochs of 300
+   steps, ``--rejoin``) joins once worker 2 reached step 100, and shard
+   rank 1 is killed with
+   SIGKILL once worker 2 reached step 250 and the joiner step 20. The
+   coordinator must find the death by lease expiry: its maps v1 and v2 on
+   the joins, v3 on the expiry (one entry, ``[0, 2472266)``, the survivor's)
+   and, once the workers have left, v4 empty on the survivor's clean leave;
+   every worker's last map v3; the survivor resized once to the whole
+   range, awaiting ``[1236133, 2472266)``; one install of it, every other
+   worker's counted in ``dup_installs``, with the CRC32 of the installed
+   slice the first installer's; on the survivor, pushes applied plus
+   ``stale_dropped`` equal to the pushes all workers sent it, per worker and
+   per stamped range, none stamped with the final range dropped; 0 timeouts
+   and retries on every link between live peers (the links to the killed
+   rank printed); each worker's loss falling over its first and last 4
+   steps and its K1/K2 counts the per-step path's; images/s a worker
+   before, during and after the rebalance, the detection time (the kill to
+   the survivor's map v3); (b) the JAX chaos acceptance world
+   (``tests/test_chaos.py``: drop 0.10 and dup 0.05 on the three DownPour
+   data codes, seed 42, two AlexNet workers against one server, 16 steps
+   at batch 16, cadence 4/4) twice on the card and once on the CPU:
+   ``ChaosLog.lines()`` byte-identical across all three, both fault kinds
+   fired, each final loss within 0.45 of the fault-free run's; (c)
+   ``coord.demo.elastic_scenario`` with AlexNet on the card, worker 2 slowed
+   by 0.3 s a step and speculation on: one straggler decision (printed),
+   and on every shard one speculated tail applied and the victim's late
+   one dropped. The ``kernels`` line's K1 and K2 launches add (a)'s
+   workers' counts.
 
 Then the ``kernels`` line, the ``nvidia-smi`` name/power line, and last the
 result line ``{"ok": true, "device": {...}}``. Without a card, or without
@@ -3936,6 +3970,615 @@ KERNEL_ROWS = [
 ]
 
 
+# ------------------------------------------------------------------ phase 21
+
+#: (a)'s elastic world: the coordinator's lease (s), the steps of an epoch
+#: of each first worker and of the joiner, and their epochs (AlexNet runs
+#: ~80 per-step steps/s a worker on the card: the first workers must still
+#: be training well after the death is found), the step of the first worker
+#: at which the third worker starts and at which shard rank 1 is killed
+#: (once the joiner has trained ELASTIC_JOINER_WARM steps), and a
+#: process's time limit
+ELASTIC_LEASE = 2.0
+ELASTIC_STEPS, ELASTIC_JOINER_STEPS = 500, 300
+ELASTIC_EPOCHS, ELASTIC_JOINER_EPOCHS = 2, 2
+ELASTIC_JOIN_AT, ELASTIC_KILL_AT, ELASTIC_JOINER_WARM = 100, 250, 20
+ELASTIC_TIMEOUT_S = 300
+SMOKE_ELASTIC_DIR = os.path.join(ROOT, "build", "smoke_elastic")
+#: (b): the JAX chaos acceptance world (tests/test_chaos.py): two workers
+#: against one server, 16 steps at batch 16, lr 0.05, cadence 4/4, drop 0.10
+#: and dup 0.05 on the three DownPour data codes, seed 42, and its corridor
+CHAOS_STEPS, CHAOS_BATCH, CHAOS_LR, CHAOS_CADENCE, CHAOS_SEED = 16, 16, 0.05, 4, 42
+CHAOS_CORRIDOR = 0.45
+#: (c): a worker slowed by this many s a step, the steps, the lease
+SPEC_SLOW_S, SPEC_STEPS, SPEC_LEASE = 0.3, 12, 2.0
+
+#: one rank of the elastic world: ``python -c _ELASTIC_RANK_SRC <json argv>``.
+#: Calls the CLI's entry ``run_sharded_ps_process`` (which takes the
+#: ``--coord`` path) with every kernel count zeroed just before, wrapping
+#: (never replacing) the functions it calls, and prints ``ELASTIC_STEP`` lines
+#: as the worker trains and one ``PS_RANK`` JSON line last.
+_ELASTIC_RANK_SRC = r"""
+import json, sys, time, zlib
+import numpy as np
+import torch
+from distributed_ml_pytorch_tpu_torch.coord import elastic as el
+from distributed_ml_pytorch_tpu_torch.ops import fused_conv as fc
+from distributed_ml_pytorch_tpu_torch.ops import fused_update as fu
+from distributed_ml_pytorch_tpu_torch.parallel import async_ps as tps
+from distributed_ml_pytorch_tpu_torch.parallel import sharded_ps as sps
+from distributed_ml_pytorch_tpu_torch.training.cli import build_parser
+from distributed_ml_pytorch_tpu_torch.utils import messaging as msg
+from distributed_ml_pytorch_tpu_torch.utils.messaging import MessageCode, _join16
+
+args = build_parser().parse_args(json.loads(sys.argv[1]))
+torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+if len(sys.argv) > 2:
+    # a late joiner: started with the others, it joins once the gate exists
+    if args.backend == "cuda":
+        torch.zeros(1, device="cuda")
+    import os
+    while not os.path.exists(sys.argv[2]):
+        time.sleep(0.02)
+base_port = int(args.port)
+seen = {"transports": [], "sent": {}, "sent_by_range": {}, "installs_sent": [],
+        "cutovers": [], "resizes": [], "applied": {}, "dropped": {}, "installed": []}
+
+def crc(values):
+    return zlib.crc32(np.ascontiguousarray(values, np.float32).tobytes()) & 0xFFFFFFFF
+
+def wrap(mod, name, after):
+    real = getattr(mod, name)
+    def wrapped(*a, **k):
+        out = real(*a, **k)
+        after(a, out)
+        return out
+    setattr(mod, name, wrapped)
+
+# the worker: its transports by the server id their port names
+wrap(msg, "make_transport",
+     lambda a, t: seen["transports"].append((int(a[3]) - base_port + 1, t)))
+wrap(tps, "train_worker", lambda a, out: seen.setdefault("logger", out[1]))
+wrap(sps.ShardedAsynchronous, "apply_shard_map",
+     lambda a, out: seen["cutovers"].append([a[1].version, time.time()]))
+
+real_step = sps.ShardedAsynchronous.step
+# a CPU rehearsal paces its fast workers so the death lands mid-run
+pace = float(__import__("os").environ.get("SMOKE_ELASTIC_STEP_S", "0"))
+def step(self, *a, **k):
+    seen["opt"] = self
+    real_step(self, *a, **k)
+    if pace:
+        time.sleep(pace)
+    if self.idx % 10 == 0:
+        print(f"ELASTIC_STEP {self.idx} {time.time()}", flush=True)
+sps.ShardedAsynchronous.step = step
+
+real_send = sps.ShardedAsynchronous._send
+def counting_send(self, shard, code, payload):
+    sid = self.server_ids[shard]
+    up = not self.shard_down[shard]
+    real_send(self, shard, code, payload)
+    if not (up and not self.shard_down[shard]):
+        return
+    if code == MessageCode.ShardPush:
+        stamp = f"{sid}:{_join16(payload[2], payload[3])}:{_join16(payload[4], payload[5])}"
+        seen["sent"][str(sid)] = seen["sent"].get(str(sid), 0) + 1
+        seen["sent_by_range"][stamp] = seen["sent_by_range"].get(stamp, 0) + 1
+    elif code == MessageCode.RangeInstall:
+        seen["installs_sent"].append({"server": sid, "lo": _join16(payload[0], payload[1]),
+                                      "hi": _join16(payload[2], payload[3]),
+                                      "crc": crc(payload[4:]), "t": time.time()})
+sps.ShardedAsynchronous._send = counting_send
+
+# the shard server
+real_init = el.ElasticShardServer.__init__
+def init(self, *a, **k):
+    real_init(self, *a, **k)
+    seen["server"] = self
+el.ElasticShardServer.__init__ = init
+
+real_entry = el.ElasticShardServer._apply_entry
+def apply_entry(self, m):
+    before = (self.lo, self.hi)
+    real_entry(self, m)
+    if (self.lo, self.hi) != before:
+        seen["resizes"].append({"version": m.version, "from": list(before),
+                                "to": [self.lo, self.hi], "t": time.time(),
+                                "awaiting": list(self.pending_install or ())})
+el.ElasticShardServer._apply_entry = apply_entry
+
+real_handle = el.ElasticShardServer._handle_locked
+def handle(self, sender, code, payload):
+    dropped = self.stats["stale_dropped"]
+    installs = self.stats["installs"]
+    real_handle(self, sender, code, payload)
+    if code == MessageCode.ShardPush:
+        key = f"{sender}:{_join16(payload[2], payload[3])}:{_join16(payload[4], payload[5])}"
+        box = seen["dropped"] if self.stats["stale_dropped"] > dropped else seen["applied"]
+        box[key] = box.get(key, 0) + 1
+    elif code == MessageCode.RangeInstall and self.stats["installs"] > installs:
+        seen["installed"].append({"sender": sender, "lo": _join16(payload[0], payload[1]),
+                                  "hi": _join16(payload[2], payload[3]),
+                                  "crc": crc(payload[4:]), "t": time.time()})
+el.ElasticShardServer._handle_locked = handle
+
+fu.launches = 0
+for k in fc.launches:
+    fc.launches[k] = 0
+rc = sps.run_sharded_ps_process(args)
+links = {str(sid): {"stats": getattr(t, "stats", None), "max_ack_s": getattr(t, "max_ack_wait", None)}
+         for sid, t in seen["transports"]}
+line = {"rank": args.rank, "rc": rc}
+if "server" in seen:
+    srv = seen["server"]
+    star = srv.transport
+    line.update(server_id=srv.server_id, lo=srv.lo, hi=srv.hi, map_version=srv.map_version,
+                stats=srv.stats, resizes=seen["resizes"], applied=seen["applied"],
+                dropped=seen["dropped"], installed=seen["installed"],
+                apply_seq=srv.ps._apply_seq, star_stats=getattr(star, "stats", None),
+                star_max_ack_s=getattr(star, "max_ack_wait", None))
+else:
+    opt = seen["opt"]
+    recs = seen["logger"].records
+    line.update(launches={"flat_axpy": fu.launches, **fc.launches}, map_version=opt.map_version,
+                server_ids=opt.server_ids, sent=seen["sent"], sent_by_range=seen["sent_by_range"],
+                installs_sent=seen["installs_sent"], cutovers=seen["cutovers"], links=links,
+                t=[r["timestamp"].timestamp() for r in recs],
+                loss=[r["training_loss"] for r in recs])
+print("PS_RANK " + json.dumps(line), flush=True)
+"""
+
+
+class _Proc:
+    """A child process whose stdout and stderr lines are read, each with
+    the wall-clock second it arrived, on threads of their own."""
+
+    def __init__(self, argv, env):
+        self.p = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+        self.out, self.err = [], []
+        self._readers = [threading.Thread(target=self._read, args=(f, box), daemon=True)
+                         for f, box in ((self.p.stdout, self.out), (self.p.stderr, self.err))]
+        for r in self._readers:
+            r.start()
+
+    @staticmethod
+    def _read(f, box):
+        for ln in f:
+            box.append((time.time(), ln.rstrip("\n")))
+
+    def first(self, prefix, box="out"):
+        """The first line starting with ``prefix``: ``(t, line)`` or None."""
+        for t, ln in list(getattr(self, box)):
+            if ln.startswith(prefix):
+                return t, ln
+        return None
+
+    def last_step(self):
+        steps = [int(ln.split()[1]) for _t, ln in list(self.out)
+                 if ln.startswith("ELASTIC_STEP ")]
+        return steps[-1] if steps else -1
+
+    def finish(self, timeout):
+        try:
+            self.p.wait(timeout=timeout)
+        finally:
+            if self.p.poll() is None:
+                self.p.kill()
+                self.p.wait()
+            for r in self._readers:
+                r.join(timeout=10)
+
+    def rank_line(self):
+        found = [ln for _t, ln in self.out if ln.startswith("PS_RANK ")]
+        return json.loads(found[-1][len("PS_RANK "):]) if found else None
+
+    def tail(self, n=3000):
+        return "\n".join(ln for _t, ln in self.err)[-n:]
+
+
+def _wait_for(cond, timeout, what, procs):
+    """Poll ``cond()`` every 50 ms; fail the phase after ``timeout`` s or
+    when a process of ``procs`` ended early."""
+    deadline = time.monotonic() + timeout
+    while not cond():
+        for name, pr in procs.items():
+            if pr.p.poll() is not None and pr.p.returncode != 0:
+                raise SmokeFailure(f"{name} exited {pr.p.returncode} while waiting for {what}: "
+                                   f"{pr.tail()}")
+        if time.monotonic() > deadline:
+            raise SmokeFailure(f"timed out after {timeout} s waiting for {what}")
+        time.sleep(0.05)
+
+
+def _window_rate(t, a, b, batch):
+    """images/s of the step times ``t`` (one a step) within [a, b)."""
+    ts = [x for x in t if a <= x < b]
+    if len(ts) < 3:
+        return None
+    return batch * (len(ts) - 1) / (ts[-1] - ts[0])
+
+
+def _elastic_processes(backend, model, steps, joiner_steps, join_at, kill_at, joiner_warm,
+                       batch=64, epochs=1, joiner_epochs=1):
+    """(a)'s world: the coordinator, two shard ranks and two workers
+    (``epochs`` of ``steps``), a third worker (``joiner_epochs`` of
+    ``joiner_steps``) at ``join_at``, shard rank 1 killed at ``kill_at``;
+    returns ``(coordinator, {rank: PS_RANK line}, kill time, join time,
+    the survivor)``."""
+    import shutil
+    import signal
+
+    from distributed_ml_pytorch_tpu_torch.launch import _free_port, _free_port_block
+
+    shutil.rmtree(SMOKE_ELASTIC_DIR, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cport, port = _free_port(), _free_port_block(2)
+    coord = _Proc([sys.executable, "-m", "distributed_ml_pytorch_tpu_torch.coord.cli",
+                   "--port", cport, "--model", model, "--lease", str(ELASTIC_LEASE)], env)
+    common = ["--mode", "ps", "--world-size", "5", "--n-servers", "2", "--port", port,
+              "--coord", f"localhost:{cport}", "--backend", backend, "--model", model,
+              "--synthetic-data", "--synthetic-test-size", "512",
+              "--batch-size", str(batch), "--lr", "0.008", "--num-push", "10",
+              "--num-pull", "10", "--log-interval", str(10 * steps), "--worker-timeout", "0",
+              "--transport", "python", "--reliable", "--log-dir", SMOKE_ELASTIC_DIR]
+
+    def rank(r, n_steps, n_epochs=1, extra=(), gate=()):
+        argv = common + ["--rank", str(r), "--synthetic-train-size", str(n_steps * batch),
+                         "--epochs", str(n_epochs), *extra]
+        return _Proc([sys.executable, "-c", _ELASTIC_RANK_SRC, json.dumps(argv), *gate], env)
+
+    procs = {"coordinator": coord}
+    try:
+        _wait_for(lambda: coord.first("coordinator on") is not None, 120, "the coordinator",
+                  procs)
+        # the shard servers join in rank order (v1, then v2), and the
+        # workers start under map v2
+        procs["shard 0"] = rank(0, steps)
+        _wait_for(lambda: procs["shard 0"].first("shard 1: map v1", "err"), 120,
+                  "shard server 1 on map v1", procs)
+        procs["shard 1"] = rank(1, steps)
+        _wait_for(lambda: all(procs[f"shard {s}"].first(f"shard {s + 1}: map v2", "err")
+                              for s in (0, 1)), 120, "both shard servers on map v2", procs)
+        gate = os.path.join(SMOKE_ELASTIC_DIR, "join")
+        os.makedirs(SMOKE_ELASTIC_DIR, exist_ok=True)
+        # the joiner's process starts now and joins at the gate: its start-up
+        # would otherwise outlast a fast world
+        procs["worker 4"] = rank(4, joiner_steps, joiner_epochs, ["--rejoin"], [gate])
+        procs["worker 2"] = rank(2, steps, epochs)
+        procs["worker 3"] = rank(3, steps, epochs)
+        first = procs["worker 2"]
+        _wait_for(lambda: first.last_step() >= join_at, ELASTIC_TIMEOUT_S,
+                  f"worker 2 at step {join_at}", procs)
+        with open(gate, "w"):
+            pass
+        joined_at = time.time()
+        _wait_for(lambda: first.last_step() >= kill_at
+                  and procs["worker 4"].last_step() >= joiner_warm, ELASTIC_TIMEOUT_S,
+                  f"worker 2 at step {kill_at} and worker 4 at {joiner_warm}", procs)
+        victim = procs.pop("shard 1")
+        victim.p.send_signal(signal.SIGKILL)
+        killed_at = time.time()
+        victim.finish(30)
+        lines = {}
+        for name in ("worker 2", "worker 3", "worker 4", "shard 0"):
+            pr = procs[name]
+            pr.finish(ELASTIC_TIMEOUT_S)
+            line = pr.rank_line()
+            require(pr.p.returncode == 0 and line is not None,
+                    f"{name} exited {pr.p.returncode}: {pr.tail()}")
+            lines[int(name.split()[1])] = line
+        coord.p.send_signal(signal.SIGINT)
+        coord.finish(60)
+        return coord, lines, killed_at, joined_at, procs["shard 0"]
+    finally:
+        for pr in list(procs.values()) + [coord]:
+            if pr.p.poll() is None:
+                pr.p.kill()
+                pr.p.wait()
+
+
+def _coordinator_summary(coord):
+    """The coordinator's decision lines and its ``fleet at exit`` state."""
+    import ast
+
+    events = [ln[len("event: "):] for _t, ln in coord.out if ln.startswith("event: ")]
+    fleet = coord.first("fleet at exit: ")
+    require(fleet is not None, f"the coordinator printed no fleet state: {coord.tail()}")
+    return events, ast.literal_eval(fleet[1][len("fleet at exit: "):])
+
+
+def phase_elastic_processes(backend="cuda", model="alexnet", steps=ELASTIC_STEPS,
+                            joiner_steps=ELASTIC_JOINER_STEPS, join_at=ELASTIC_JOIN_AT,
+                            kill_at=ELASTIC_KILL_AT, joiner_warm=ELASTIC_JOINER_WARM,
+                            batch=64, epochs=ELASTIC_EPOCHS,
+                            joiner_epochs=ELASTIC_JOINER_EPOCHS):
+    """Phase 21 (a): the elastic world as processes through the entry
+    points; returns the workers' summed kernel launch counts."""
+    from distributed_ml_pytorch_tpu_torch.models import get_model
+    from distributed_ml_pytorch_tpu_torch.utils.serialization import flat_size
+
+    n = flat_size(get_model(model, seed=0, device="cpu"))
+    t0 = time.monotonic()
+    coord, lines, killed_at, joined_at, survivor_proc = _elastic_processes(
+        backend, model, steps, joiner_steps, join_at, kill_at, joiner_warm, batch, epochs,
+        joiner_epochs)
+    wall = time.monotonic() - t0
+    events, fleet = _coordinator_summary(coord)
+    srv = lines[0]
+    workers = {r: lines[r] for r in (2, 3, 4)}
+    want_steps = {2: steps * epochs, 3: steps * epochs, 4: joiner_steps * joiner_epochs}
+    n_evals = {2: epochs, 3: epochs, 4: joiner_epochs}
+    # --- the map sequence: v1 and v2 on the shard joins, v3 on the death
+    maps = [e for e in events if e.startswith("shard map v")]
+    require(any("shard 2 lease expired" in e for e in events),
+            f"the coordinator never expired shard 2's lease: {events}")
+    final = f"shard map v3 on lease expiry: s1=[0,{n})"
+    require(maps[:3] == [f"shard map v1 on join of shard server 1: s1=[0,{n})",
+                         f"shard map v2 on join of shard server 2: s1=[0,{n // 2 + n % 2}), "
+                         f"s2=[{n // 2 + n % 2},{n})", final],
+            f"map sequence {maps}")
+    # the survivor's clean leave after the workers drain empties the map
+    require(maps[3:] == ["shard map v4 on leave of shard server 1: EMPTY"],
+            f"maps after v3: {maps[3:]}")
+    require(fleet["version"] == 4 and fleet["map"] == [], f"fleet at exit {fleet}")
+    for r, w in workers.items():
+        require(w["map_version"] == 3 and w["server_ids"] == [1],
+                f"worker {r} ended on map v{w['map_version']} {w['server_ids']} "
+                f"(cutovers {w['cutovers']}; its {len(w['t'])} steps ran from "
+                f"{w['t'][0] - killed_at:.2f} to {w['t'][-1] - killed_at:.2f} s after the "
+                f"kill; the join {joined_at - killed_at:.2f} s)")
+    # --- the install: one resize to the whole range awaiting the fresh
+    # part, one install, every other worker's a duplicate, the CRC carried
+    fresh = [n // 2 + n % 2, n]
+    whole = [r for r in srv["resizes"] if r["to"] == [0, n] and r["version"] == 3]
+    require(len(whole) == 1 and whole[0]["awaiting"] == fresh,
+            f"the survivor's resizes {srv['resizes']}")
+    require(srv["stats"]["installs"] == 1 and len(srv["installed"]) == 1,
+            f"installs {srv['stats']} {srv['installed']}")
+    installed = srv["installed"][0]
+    senders = {r: [i for i in w["installs_sent"] if [i["lo"], i["hi"]] == fresh]
+               for r, w in workers.items()}
+    n_sent = sum(len(v) for v in senders.values())
+    require(srv["stats"]["dup_installs"] == n_sent - 1,
+            f"dup_installs {srv['stats']['dup_installs']} of {n_sent} installs sent")
+    first_installer = 2 + installed["sender"] - 1  # star rank s is global rank s + 1
+    sent_crc = [i["crc"] for i in senders.get(first_installer, [])]
+    require(sent_crc == [installed["crc"]],
+            f"installed CRC {installed['crc']} vs worker {first_installer}'s {sent_crc}")
+    # --- the accounting on the survivor: applied + stale = sent, exactly
+    sent = sum(w["sent"].get("1", 0) for w in workers.values())
+    applied = sum(srv["applied"].values())
+    stale = sum(srv["dropped"].values())
+    require(applied + stale == sent and applied == srv["apply_seq"],
+            f"survivor applied {applied} + stale {stale} != sent {sent} "
+            f"(apply_seq {srv['apply_seq']})")
+    require(not any(k.endswith(f":0:{n}") for k in srv["dropped"]),
+            f"pushes stamped with the final range dropped: {srv['dropped']}")
+    for r, w in workers.items():
+        # the survivor's keys are "<star rank>:<lo>:<hi>" (star rank = r - 1),
+        # the worker's "<server id>:<lo>:<hi>"
+        mine = {k.split(":", 1)[1]: v for k, v in w["sent_by_range"].items()
+                if k.startswith("1:")}
+        got = {}
+        for box in (srv["applied"], srv["dropped"]):
+            for k, v in box.items():
+                sender, stamp = k.split(":", 1)
+                if int(sender) == r - 1:
+                    got[stamp] = got.get(stamp, 0) + v
+        require(got == mine, f"worker {r}: sent by stamp {mine}, the survivor saw {got}")
+    # --- the wire: no timeout on any link between live peers
+    exempt = {}
+    for r, w in workers.items():
+        for sid, link in w["links"].items():
+            st = link["stats"]
+            if sid == "2":
+                exempt[r] = {k: st[k] for k in ("rto_expired", "retries", "gave_up")}
+                continue
+            require(st["rto_expired"] == 0 and st["retries"] == 0 and st["gave_up"] == 0,
+                    f"worker {r}'s link to server {sid} timed out: {st}")
+    st = srv["star_stats"]
+    require(st["rto_expired"] == 0 and st["retries"] == 0,
+            f"the survivor's star timed out: {st}")
+    # --- completion and the kernels
+    launches, per_worker = {}, {}
+    detected = survivor_proc.first("shard 1: map v3", "err")
+    require(detected is not None, "the survivor never logged map v3")
+    for r, w in workers.items():
+        loss, t, cnt = w["loss"], w["t"], w["launches"]
+        require(len(loss) == want_steps[r], f"worker {r} logged {len(loss)} steps")
+        early, late = sum(loss[:4]) / 4, sum(loss[-4:]) / 4
+        require(late < early, f"worker {r} loss did not fall: {early} -> {late}")
+        if backend == "cuda":
+            k = want_steps[r]
+            # the evaluation at each epoch's end is one forward
+            require(cnt["flat_axpy"] == k and cnt["relu_pool2_bwd.vector"] == 3 * k
+                    and cnt["relu_pool2_fwd.vector"] == 3 * (k + n_evals[r]),
+                    f"worker {r} wrapper counts {cnt} (want the per-step path's)")
+        _add_launches(launches, cnt)
+        cut = [c for c in w["cutovers"] if c[0] == 3]
+        require(len(cut) == 1, f"worker {r} cutovers {w['cutovers']}")
+        cut_t = cut[0][1]
+        per_worker[r] = {
+            "steps": len(loss), "early_loss": early, "late_loss": late,
+            "images_per_s_before": _window_rate(t, killed_at - 5.0, killed_at, batch),
+            "images_per_s_during": _window_rate(t, killed_at, cut_t, batch),
+            "images_per_s_after": _window_rate(t, cut_t, t[-1] + 1, batch),
+            "adopted_v3_s_after_kill": cut_t - killed_at, "pushes_sent": w["sent"],
+            "installs_sent": len(senders[r]),
+            "wrapper_counts": {name: v for name, v in cnt.items() if v}}
+    emit({"phase": "elastic_processes", "ok": True, "lease_s": ELASTIC_LEASE,
+          "wall_s": wall, "n_params": n, "map_events": maps,
+          "detected_s": detected[0] - killed_at, "per_worker": per_worker,
+          "survivor": {"stats": srv["stats"], "resizes": srv["resizes"],
+                       "installed": installed, "applied": applied, "stale_dropped": stale,
+                       "sent_to_it": sent, "dropped_by_stamp": srv["dropped"],
+                       "star_stats": st},
+          "links_to_the_killed_rank": exempt, "coordinator_events": events})
+    return launches
+
+
+def chaos_ps_world(torch, plan, model="alexnet", device="cuda", steps=CHAOS_STEPS,
+                   batch=CHAOS_BATCH, lr=CHAOS_LR, cadence=CHAOS_CADENCE, n_workers=2):
+    """The JAX chaos acceptance world (``tests/test_chaos.py::_run_ps_world``)
+    on the port: one ``ParameterServer`` and ``n_workers`` ``Asynchronous``
+    workers on ``device`` as threads over an in-process world, under
+    ``plan`` (or none). Returns ``(per-worker losses, chaos log or None,
+    server)``."""
+    import numpy as np
+
+    from distributed_ml_pytorch_tpu_torch.data import load_cifar10
+    from distributed_ml_pytorch_tpu_torch.models import get_model
+    from distributed_ml_pytorch_tpu_torch.parallel.async_ps import Asynchronous, ParameterServer
+    from distributed_ml_pytorch_tpu_torch.training.trainer import loss_and_grads, to_device
+    from distributed_ml_pytorch_tpu_torch.utils.messaging import make_world
+
+    x, y, *_ = load_cifar10(n_train=256, n_test=32, synthetic=True)
+    world, log = make_world(n_workers + 1, plan=plan)
+    server = ParameterServer(get_model(model, seed=0, device="cpu"), transport=world[0],
+                             n_workers=n_workers)
+    server_thread = threading.Thread(target=server.run, kwargs={"timeout": 180})
+    server_thread.start()
+    results, errors = {}, []
+
+    def worker(rank):
+        try:
+            net = get_model(model, fused_epilogue=True, seed=0, device=device)
+            opt = Asynchronous(net, lr=lr, n_push=cadence, n_pull=cadence,
+                               transport=world[rank])
+            gen = torch.Generator(device=device).manual_seed(rank)
+            losses = []
+            for step in range(steps):
+                sel = np.random.default_rng(rank * 100 + step).integers(0, len(x), batch)
+                loss = loss_and_grads(net, *to_device(x[sel], y[sel], device), generator=gen)
+                opt.step()
+                losses.append(float(loss))
+            opt.finish()
+            results[rank] = losses
+        except Exception as e:  # noqa: BLE001 — surfaced below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=worker, args=(r,)) for r in range(1, n_workers + 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    server_thread.join(timeout=60)
+    for t in world.values():
+        t.close()
+    require(not errors and not server_thread.is_alive(),
+            f"chaos world: errors {errors}, server alive {server_thread.is_alive()}")
+    return results, log, server
+
+
+def acceptance_plan():
+    """(b)'s plan: the JAX acceptance plan, drop 0.10 and dup 0.05 on the
+    three DownPour data codes, seed 42."""
+    from distributed_ml_pytorch_tpu_torch.utils.chaos import ChaosPlan, FaultRule
+    from distributed_ml_pytorch_tpu_torch.utils.messaging import MessageCode
+
+    return ChaosPlan([FaultRule(code=int(c), drop=0.10, dup=0.05)
+                      for c in (MessageCode.GradientUpdate, MessageCode.ParameterRequest,
+                                MessageCode.ParameterUpdate)], seed=CHAOS_SEED)
+
+
+def phase_chaos_world(torch, model="alexnet", device="cuda"):
+    """Phase 21 (b): the chaos acceptance world twice on ``device`` and once
+    on the CPU, byte-identical logs, both fault kinds fired, the loss in
+    the fault-free run's corridor."""
+    import numpy as np
+
+    def final(results):
+        return float(np.mean([np.mean(v[-6:]) for v in results.values()]))
+
+    t0 = time.monotonic()
+    clean, _, _ = chaos_ps_world(torch, None, model, device)
+    runs = [chaos_ps_world(torch, acceptance_plan(), model, d) for d in (device, device, "cpu")]
+    logs = [log.lines() for _r, log, _s in runs]
+    require(logs[0] and logs[0] == logs[1], "the chaos log differs between two runs")
+    require(logs[0] == logs[2], "the chaos log on the device differs from the CPU's")
+    counts = runs[0][1].counts()
+    require(counts.get("drop", 0) > 0 and counts.get("dup", 0) > 0, f"faults fired {counts}")
+    finals = [final(r) for r, _l, _s in runs]
+    for f in finals:
+        require(abs(f - final(clean)) < CHAOS_CORRIDOR,
+                f"final loss {f} outside {CHAOS_CORRIDOR} of the fault-free {final(clean)}")
+    for _r, _l, srv in runs:
+        require(np.isfinite(srv.central).all(), "a chaos run left nonfinite central params")
+    emit({"phase": "elastic_chaos_world", "ok": True, "model": model, "device": device,
+          "wall_s": time.monotonic() - t0, "log_lines": logs[0].count("\n"),
+          "log_crc32": __import__("zlib").crc32(logs[0].encode()), "counts": counts,
+          "clean_final_loss": final(clean), "final_losses": finals,
+          "applied": [s._apply_seq for _r, _l, s in runs]})
+    return logs[0]
+
+
+def phase_speculation(model="alexnet", device="cuda", steps=SPEC_STEPS, slow_s=SPEC_SLOW_S):
+    """Phase 21 (c): ``coord.demo.elastic_scenario`` with a slowed worker
+    and speculation on: the backup pushes the task's stand-in tail at its
+    end, the victim its late copy; every shard applies one per task and
+    drops every late tail."""
+    import numpy as np
+
+    from distributed_ml_pytorch_tpu_torch.coord.demo import elastic_scenario
+
+    tasks, pushed = {}, {}
+
+    def hook(j, step, opt):
+        if j not in tasks:
+            tasks[j] = []
+            real = opt.coord._on_speculate
+            def on_speculate(*a, _real=real, _box=tasks[j]):
+                _box.append(a)
+                _real(*a)
+            opt.coord._on_speculate = on_speculate
+        if step != steps - 1:
+            return
+        victim = j == 2
+        if not victim:
+            # the backup: wait (bounded) for the straggler to be found
+            deadline = time.monotonic() + 60
+            while not tasks[j] and time.monotonic() < deadline:
+                time.sleep(0.05)
+        if tasks[j]:
+            tid = tasks[j][0][0]
+            upd = np.zeros(opt._flat_n, np.float32)
+            upd[:8] = 1e-3  # the tail's stand-in contribution
+            opt.push_speculative(tid, upd)
+            pushed[j] = (tid, time.monotonic())
+
+    t0 = time.monotonic()
+    out = elastic_scenario(steps=steps, n_workers=2, n_shards=2, slow_worker=2,
+                           slow_factor=slow_s, speculation=True, lease=SPEC_LEASE,
+                           model=model, device=device, step_hook=hook)
+    require(out["ok"], f"speculation scenario: {out['errors']}")
+    decisions = [e for e in out["events"] if e.startswith("straggler:")]
+    task_ids = {t[0] for v in tasks.values() for t in v}
+    require(len(decisions) == len(task_ids) == 1 and set(pushed) == {1, 2},
+            f"decisions {decisions}, tasks {tasks}, pushed {pushed}")
+    late = 1 if pushed[2][1] > pushed[1][1] else 0
+    for sid, st in out["stats"].items():
+        require(st["spec_applied"] == len(task_ids) and st["spec_dropped"] == late == 1,
+                f"shard {sid}: spec_applied {st['spec_applied']}, spec_dropped "
+                f"{st['spec_dropped']} (tasks {len(task_ids)}, late tails {late})")
+    emit({"phase": "elastic_speculation", "ok": True, "model": model, "device": device,
+          "wall_s": time.monotonic() - t0, "slow_s_per_step": slow_s,
+          "straggler_decisions": decisions, "tasks": {str(j): v for j, v in tasks.items()},
+          "backup_pushed_s_before_victim": pushed[2][1] - pushed[1][1],
+          "shard_stats": {str(k): v for k, v in out["stats"].items()}})
+
+
+def phase_elastic(torch, backend="cuda", model="alexnet", processes=None):
+    """Phase 21: (a) the elastic world as processes, (b) the chaos
+    acceptance world, (c) speculation; returns (a)'s workers' launches.
+    ``processes`` overrides (a)'s step counts (a CPU rehearsal's)."""
+    launches = phase_elastic_processes(backend, model, **(processes or {}))
+    phase_chaos_world(torch, model, backend)
+    phase_speculation(model, backend)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3995,6 +4638,9 @@ def main() -> int:
         codec = phase_codec_plane(torch, dense_16a, busy_ms_per_step, per_step_workers)
         for name in ("flat_axpy", "relu_pool2_fwd", "relu_pool2_bwd"):
             launches[name] += codec[name]
+        elastic = phase_elastic(torch)
+        for name in ("flat_axpy", "relu_pool2_fwd", "relu_pool2_bwd"):
+            launches[name] += elastic[name]
         smi = nvidia_smi_line()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

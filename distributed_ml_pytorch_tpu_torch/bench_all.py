@@ -7,6 +7,7 @@
     python -m distributed_ml_pytorch_tpu_torch.bench_all --legs sharded_ps,transport
     python -m distributed_ml_pytorch_tpu_torch.bench_all --legs lm_32k,steps_to_accuracy,reliability
     python -m distributed_ml_pytorch_tpu_torch.bench_all --legs wire_bytes
+    python -m distributed_ml_pytorch_tpu_torch.bench_all --legs elastic
     python -m distributed_ml_pytorch_tpu_torch.bench_all --device cpu --tiny
 
 One JSON line per measurement on stdout (the JAX ``emit`` record: config,
@@ -107,6 +108,13 @@ narration on stderr. Ported legs, under the JAX metric names:
   fused against ``max_pool_2x2(relu(x))`` on AlexNet's three relu->pool
   tails at batch 256, and ``bias_relu`` fused against ``relu(x + b)`` on a
   (4096, 384) tail, forward and forward+backward.
+- ``elastic`` — config 3's elastic leg (JAX ``elastic_phase``,
+  bench_all.py:1045-1102): worker 1's images/s before, during and after a
+  coordinator-driven rebalance of an in-process fleet
+  (``coord/demo.elastic_scenario``: two elastic shard servers, two LeNet
+  workers on the card, batch 16, cadence 2/2, lease 0.4 s, 72 steps, shard
+  2 crashing at step 24), as
+  ``elastic_rebalance_throughput_{before,during,after}``; host clock.
 
 ``--tiny`` shrinks every leg to test widths (a CPU run in seconds); its
 records keep the metric names and say so in their notes. Timing is
@@ -1223,8 +1231,8 @@ def wire_bytes_phase(device=None, tiny: bool = False) -> dict:
         emit(7, metric, value, unit, hw, cut + note)
 
     for mode in ("dense", "int8", "topk"):
-        world = make_world(2, reliable=True,
-                           reliable_opts={"ack_timeout": 5.0, "max_backoff": 10.0})
+        world, _ = make_world(2, reliable=True,
+                              reliable_opts={"ack_timeout": 5.0, "max_backoff": 10.0})
         ps = ParameterServer(params=np.zeros(n, np.float32), transport=world[0])
         stop = threading.Event()
 
@@ -1355,6 +1363,70 @@ def wire_bytes_phase(device=None, tiny: bool = False) -> dict:
     return out
 
 
+#: the elastic leg (JAX ``elastic_phase``, bench_all.py:1045-1102): steps of
+#: each worker, the step of worker 1 at which shard 2 crashes, the lease, the
+#: batch; and ``--tiny``'s steps and crash step
+ELASTIC_STEPS, ELASTIC_CRASH_AT, ELASTIC_LEASE, ELASTIC_BATCH = 72, 24, 0.4, 16
+TINY_ELASTIC_STEPS, TINY_ELASTIC_CRASH_AT = 36, 12
+
+
+def elastic_phase(device, tiny: bool = False) -> dict:
+    """Config 3's elastic leg: worker 1's throughput before, during and after
+    a coordinator-driven rebalance, in images/s a worker. One in-process
+    fleet (``coord/demo.elastic_scenario``: a coordinator, two elastic shard
+    servers, two DownPour workers of LeNet on ``device``, batch 16, cadence
+    2/2, lease 0.4 s); shard server 2 crashes silently at worker 1's step
+    24, the coordinator finds it by lease expiry, and the workers drain,
+    cut over and install the moved range. The windows split worker 1's
+    step times at the crash and at its first step on the new map: steps
+    4-24, 24 to the cutover (the lease running out, stale-map drops, the
+    drain) and the rest, with the fleet one server smaller. Returns
+    ``{metric: images/s}``; an incomplete run raises."""
+    from distributed_ml_pytorch_tpu_torch.coord.demo import elastic_scenario
+
+    steps, crash_at = ((TINY_ELASTIC_STEPS, TINY_ELASTIC_CRASH_AT) if tiny
+                       else (ELASTIC_STEPS, ELASTIC_CRASH_AT))
+    times: dict = {}
+    cut: dict = {}
+
+    def hook(j, step, opt):
+        if j == 1:
+            times[step] = time.perf_counter()
+            if opt.map_version >= 3 and "step" not in cut:
+                cut["step"] = step  # the first step on the post-crash map
+
+    out = elastic_scenario(steps=steps, n_workers=2, n_shards=2, crash_shard_at=crash_at,
+                           lease=ELASTIC_LEASE, batch=ELASTIC_BATCH, model="lenet",
+                           device=device, step_hook=hook)
+    if not out["ok"] or "step" not in cut:
+        raise RuntimeError(f"elastic_phase incomplete: ok={out['ok']} cutover={cut} "
+                           f"errors={out['errors']} events={out['events'][-5:]}")
+
+    def rate(a, b):
+        ts = [times[s] for s in range(a, b) if s in times]
+        if len(ts) < 3:
+            raise RuntimeError(f"elastic_phase: window [{a}, {b}) too short to rate")
+        return ELASTIC_BATCH * (len(ts) - 1) / (ts[-1] - ts[0])
+
+    res = {}
+    cut_at = cut["step"]
+    tiny_note = f"--tiny: {steps} steps, crash at {crash_at}; " if tiny else ""
+    hw = "in-process fleet, " + ("the card" if torch.device(device).type == "cuda" else "CPU")
+    for name, a, b, win in (
+            ("before", 4, crash_at, f"steps 4-{crash_at}"),
+            ("during", crash_at, cut_at + 1,
+             f"steps {crash_at}-{cut_at} (crash -> lease expiry -> map adopted)"),
+            ("after", cut_at + 1, steps, f"steps {cut_at + 1}-{steps}, 1 shard left")):
+        metric = f"elastic_rebalance_throughput_{name}"
+        res[metric] = rate(a, b)
+        emit(3, metric, res[metric], "images/sec/worker", hw,
+             f"{tiny_note}worker-1 steady state {win}; coordinator lease {ELASTIC_LEASE}s; LeNet "
+             f"batch {ELASTIC_BATCH}, cadence 2/2 (coord/demo.elastic_scenario)")
+    log(f"elastic_phase: map v{out['map_version']}, cutover at worker step {cut_at}, "
+        f"server stats {out['stats']}")
+    return res
+
+
 LEGS = {
     "alexnet": lambda dev, tiny: alexnet_phase(dev, tiny=tiny),
     "lm": lambda dev, tiny: lm_phase(dev, tiny=tiny),
@@ -1366,6 +1438,7 @@ LEGS = {
     "steps_to_accuracy": lambda dev, tiny: steps_to_accuracy_phase(dev, tiny=tiny),
     "reliability": lambda dev, tiny: reliability_phase(dev, tiny=tiny),
     "wire_bytes": lambda dev, tiny: wire_bytes_phase(dev, tiny=tiny),
+    "elastic": lambda dev, tiny: elastic_phase(dev, tiny=tiny),
 }
 
 

@@ -1,0 +1,25 @@
+"""The elastic control plane (counterpart of the JAX ``coord/`` package):
+membership by leases, versioned shard maps the coordinator renegotiates at
+run time, and Sandblaster-style straggler speculation.
+
+- :mod:`~.shardmap` — :class:`ShardMap` and its float32 wire frame;
+- :mod:`~.coordinator` — :class:`Coordinator`, rank 0 of the coordination
+  star;
+- :mod:`~.member` — :class:`CoordClient`, a member's side, and
+  :class:`FleetView`;
+- :mod:`~.elastic` — ``ElasticShardServer``, a parameter server whose range
+  follows the map;
+- :mod:`~.demo` — the in-process elastic world and its scenario;
+- :mod:`~.cli` — the coordinator process (``python -m
+  distributed_ml_pytorch_tpu_torch.coord.cli``).
+
+The durability and health barriers, gray failure and the scheduler, and
+the MPMD stage plane are not in this package yet.
+"""
+
+from distributed_ml_pytorch_tpu_torch.coord.shardmap import ShardEntry, ShardMap
+from distributed_ml_pytorch_tpu_torch.coord.coordinator import Coordinator, MemberInfo
+from distributed_ml_pytorch_tpu_torch.coord.member import CoordClient, FleetView
+
+__all__ = ["ShardEntry", "ShardMap", "Coordinator", "MemberInfo", "CoordClient",
+           "FleetView"]

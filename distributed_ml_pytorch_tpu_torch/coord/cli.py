@@ -1,0 +1,117 @@
+"""The coordinator's process (counterpart of the JAX ``coord/cli.py``).
+
+The hub of an elastic PS fleet over TCP::
+
+    # members dial in whenever they start
+    python -m distributed_ml_pytorch_tpu_torch.coord.cli --port 29700 --model alexnet
+
+    # every PS rank attaches with --coord (training/cli.py):
+    python -m distributed_ml_pytorch_tpu_torch.training.cli --mode ps --rank 0 \\
+        --world-size 4 --n-servers 2 --coord localhost:29700 ...
+
+    # the elastic world in one process: two shard servers and two workers,
+    # a third worker joins, a shard crashes, the map rebalances
+    python -m distributed_ml_pytorch_tpu_torch.coord.cli --demo
+
+The hub binds and serves at once (``TCPTransport(wait_for=0)``): the members
+are whoever dials in. On exit it prints its last 64 decisions and ``fleet at
+exit:`` with the fleet state and the final shard map. The JAX CLI's flags of
+the later planes (the drills, the health, MPMD and scheduler scenarios,
+auto-rollback, snapshots, manifests, reputation and the metrics dump) are
+absent, so argparse rejects them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="Elastic control plane: membership, leases, shard rebalancing, "
+                    "straggler speculation")
+    p.add_argument("--port", type=str, default="29700",
+                   help="TCP port the coordination hub binds")
+    p.add_argument("--master", type=str, default="localhost")
+    p.add_argument("--max-members", type=int, default=64,
+                   help="upper bound on member ranks (sizes the hub's rank space; members "
+                        "may come and go freely below it)")
+    p.add_argument("--model", type=str, default="alexnet", choices=["alexnet", "lenet"],
+                   help="model whose flat size defines the shard map's parameter space "
+                        "(must match the training ranks)")
+    p.add_argument("--n-params", type=int, default=0,
+                   help="the parameter space's size directly (0 = from --model)")
+    p.add_argument("--lease", type=float, default=3.0,
+                   help="seconds of silence before a member is removed")
+    p.add_argument("--straggler-factor", type=float, default=3.0,
+                   help="speculate a worker whose step-latency EWMA exceeds this multiple "
+                        "of the fleet median")
+    p.add_argument("--no-speculation", action="store_true",
+                   help="disable Sandblaster-style backup tasks")
+    p.add_argument("--timeout", type=float, default=0.0,
+                   help="exit after this many seconds (0 = serve forever)")
+    p.add_argument("--demo", action="store_true",
+                   help="run the in-process elastic demo (join + shard crash + rebalance) "
+                        "and exit")
+    p.add_argument("--backend", type=str, default="cuda", choices=["cuda", "cpu"],
+                   help="--demo: the workers' device")
+    p.add_argument("--seed", type=int, default=0)
+    return p
+
+
+def _n_params(args) -> int:
+    if args.n_params:
+        return int(args.n_params)
+    from distributed_ml_pytorch_tpu_torch.models import get_model
+    from distributed_ml_pytorch_tpu_torch.utils.serialization import flat_size
+
+    return flat_size(get_model(args.model, seed=args.seed, device="cpu"))
+
+
+def run_demo(args) -> int:
+    """The elastic script in one process (:func:`~.demo.elastic_demo`) on
+    ``--model`` and ``--backend``."""
+    from distributed_ml_pytorch_tpu_torch.coord.demo import elastic_demo
+
+    summary = elastic_demo(seed=args.seed, model=args.model, device=args.backend)
+    print("elastic demo:", summary)
+    return 0 if summary.get("ok") else 1
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    print(args)
+    if args.demo:
+        return run_demo(args)
+
+    from distributed_ml_pytorch_tpu_torch.coord.coordinator import Coordinator
+    from distributed_ml_pytorch_tpu_torch.utils.messaging import TCPTransport
+
+    n_params = _n_params(args)
+    transport = TCPTransport(rank=0, world_size=int(args.max_members), master=args.master,
+                             port=int(args.port), wait_for=0)
+    coord = Coordinator(transport, n_params, lease=args.lease,
+                        straggler_factor=args.straggler_factor,
+                        speculation=not args.no_speculation)
+    print(f"coordinator on {args.master}:{args.port} ({n_params} params, lease "
+          f"{args.lease:.1f}s)", flush=True)
+    try:
+        coord.run(timeout=args.timeout or None)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        transport.close()
+        for line in coord.events[-64:]:
+            print("event:", line)
+        if coord.events.dropped:
+            print(f"({coord.events.total} decisions total, {coord.events.dropped} aged out "
+                  "of the ring)")
+        fs = coord.fleet_state()
+        fs["map"] = [[e.server_id, e.lo, e.hi] for e in coord.shard_map.entries]
+        print("fleet at exit:", fs, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,376 @@
+"""The elastic shard server (counterpart of the JAX ``coord/elastic.py``):
+a parameter server whose range the coordinator assigns.
+
+:class:`ElasticShardServer` wraps a plain
+:class:`~distributed_ml_pytorch_tpu_torch.parallel.async_ps.ParameterServer`:
+
+- it joins the coordination star as a ``shard`` member (which triggers the
+  rebalance that gives it a range) and renews its lease with its push count;
+- on a newer shard map it resizes, as the map arrives (on the client's
+  listener thread, so no frame a worker sent under the new map finds the
+  server still on the old one): the overlap of the old and the new range
+  keeps its values, the rest is seeded from ``init_params``, and a freshly
+  acquired subrange waits for a worker's ``RangeInstall`` (the first install
+  wins; pulls are parked until then, so no worker adopts values the server
+  never held); under a WAL it checkpoints first, so no log record straddles
+  a resize, and its optimizer follows the range;
+- stale-map traffic is dropped and counted, never applied: pushes and pull
+  replies carry the sender's map version and the absolute range they were
+  cut for (``ShardPush``, the stamped ``CompressedUpdate``, ``ShardParams``),
+  and the range is the gate, checked before a compressed frame is decoded;
+  an unstamped ``GradientUpdate`` is dropped;
+- a ``SpeculativeUpdate`` (a backup task's result) applies once per task
+  id: the victim's late copy is counted and dropped.
+
+Not in this package yet: the snapshot, rollback and park mailboxes and the
+restore from a fleet manifest.
+"""
+
+from __future__ import annotations
+
+import sys
+import threading
+import time
+from typing import Optional
+
+import numpy as np
+
+from distributed_ml_pytorch_tpu_torch.coord.member import CoordClient
+from distributed_ml_pytorch_tpu_torch.coord.shardmap import ShardMap
+from distributed_ml_pytorch_tpu_torch.parallel.async_ps import (
+    WAL_GROUP_N,
+    ParameterServer,
+    _ack_waits_for_wal,
+)
+from distributed_ml_pytorch_tpu_torch.utils.chaos import gray_injector
+from distributed_ml_pytorch_tpu_torch.utils.compress import HEAD_LEN, peek_stamp
+from distributed_ml_pytorch_tpu_torch.utils.messaging import (
+    MessageCode,
+    Transport,
+    _join16,
+    _split16,
+)
+
+
+class ElasticShardServer:
+    """A ParameterServer whose range follows the coordinator's shard map.
+
+    ``server_id`` is its rank in the coordinator's world, ``n_params`` the
+    whole flat vector's length; ``init_params`` (the whole vector) seeds
+    every range it is given. ``staleness_damping``, ``ckpt_dir``,
+    ``ckpt_every``, ``wal``, ``admission`` and ``combine`` configure the
+    wrapped server; ``optimizer`` (an ``optplane.ShardedOptimizer``) is
+    resized with the range on every change."""
+
+    def __init__(self, server_id: int, n_params: int, transport: Transport,
+                 coord: CoordClient, *, init_params: Optional[np.ndarray] = None,
+                 staleness_damping: float = 0.0, ckpt_dir: Optional[str] = None,
+                 ckpt_every: int = 500, wal: bool = False, admission=None,
+                 combine: str = "add", optimizer=None):
+        self.server_id = int(server_id)
+        self.n_params = int(n_params)
+        self.transport = transport
+        self.coord = coord
+        self._init_flat = (np.asarray(init_params, np.float32)
+                           if init_params is not None else None)
+        if self._init_flat is not None and self._init_flat.shape[0] != n_params:
+            raise ValueError(f"init_params has {self._init_flat.shape[0]} params, "
+                             f"expected {n_params}")
+        self.lo = self.hi = 0
+        self.map_version = -1
+        #: the absolute [lo, hi) awaiting a worker's RangeInstall; pulls are
+        #: parked while it is set
+        self.pending_install: Optional[tuple] = None
+        self.ps = ParameterServer(params=np.zeros(1, np.float32), transport=transport,
+                                  ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
+                                  staleness_damping=staleness_damping, wal=wal,
+                                  admission=admission, combine=combine)
+        if optimizer is not None:
+            # attached after construction: the range is the coordinator's
+            optimizer.resize(self.lo, self.hi)
+            self.ps.optimizer = optimizer
+        self._seen_tasks: set = set()
+        self.stats = {"stale_dropped": 0, "parked_pulls": 0, "installs": 0,
+                      "dup_installs": 0, "spec_applied": 0, "spec_dropped": 0,
+                      "resizes": 0}
+        #: guards the served state (range, central vector, stats): the serve
+        #: loop resizes and applies on its thread while others read
+        self._mu = threading.Lock()
+        self._stop = threading.Event()
+        self._crashed = False
+        #: a FaultyTransport under this transport, if any: its gray stall
+        #: rules slow the serve loop and the WAL commit, and the renewals
+        #: carry the evidence
+        self._gray = gray_injector(transport)
+        self._fsync_spans: list = []
+        self._busy_s = 0.0
+        self._win_start = 0.0
+        self._gray_report_at = 0.0
+        self._wire_base = (0, 0, 0.0)
+        if getattr(coord, "on_shard_map", None) is None and hasattr(coord, "on_shard_map"):
+            coord.on_shard_map = self._apply_map
+
+    def crash(self) -> None:
+        """Die silently: the serve loop exits, renewals stop, and no
+        ``CoordLeave`` is sent, so the coordinator must find the death by
+        lease expiry. A clean shutdown is :meth:`stop`."""
+        self._crashed = True
+        self.coord.stop()
+        self._stop.set()
+
+    # ------------------------------------------------------------------ map
+    def _apply_map(self, m: ShardMap) -> None:
+        with self._mu:
+            if m.version <= self.map_version:
+                return
+            self.map_version = m.version
+            try:
+                self._apply_entry(m)
+            finally:
+                # every way out re-stamps, an unchanged range too
+                self._restamp_reply_head()
+
+    def _restamp_reply_head(self) -> None:
+        """Pull replies go out as ``ShardParams`` stamped with the map
+        version and the range served; the delta bases are fenced too."""
+        self.ps.pull_reply_head = np.asarray(
+            [*_split16(max(0, self.map_version)), *_split16(self.lo), *_split16(self.hi)],
+            np.float32)
+        self.ps.reset_pull_bases()
+
+    def _apply_entry(self, m: ShardMap) -> None:
+        e = m.entry_for(self.server_id)
+        if e is None:
+            # dropped from the map while alive: keep serving; the join retry
+            # or the renewals add it back
+            print(f"shard {self.server_id}: not in map v{m.version} — keeping current range",
+                  file=sys.stderr)
+            return
+        if (e.lo, e.hi) == (self.lo, self.hi):
+            return
+        if self.ps.wal is not None and self.hi > self.lo:
+            # log records are sized for the range they were applied under:
+            # checkpoint (which truncates the log) before the resize
+            self.ps.save_checkpoint()
+        new_central = np.zeros(e.size, np.float32)
+        if self._init_flat is not None:
+            new_central[:] = self._init_flat[e.lo:e.hi]
+        o_lo, o_hi = max(self.lo, e.lo), min(self.hi, e.hi)
+        if o_lo < o_hi and self.hi > self.lo:
+            new_central[o_lo - e.lo:o_hi - e.lo] = self.ps.central[o_lo - self.lo:o_hi - self.lo]
+        fresh = (e.fresh_lo, e.fresh_hi) if e.needs_install else None
+        if fresh is not None and self._init_flat is not None and self.lo == self.hi:
+            # a seeded server's first range: the seed is what the workers'
+            # construction installs refine, nothing to wait for
+            fresh = None
+        self.pending_install = fresh
+        print(f"shard {self.server_id}: map v{m.version} resize [{self.lo},{self.hi}) -> "
+              f"[{e.lo},{e.hi})"
+              + (f", awaiting install of [{fresh[0]},{fresh[1]})" if fresh else ""),
+              file=sys.stderr)
+        self.lo, self.hi = e.lo, e.hi
+        self.ps.central = new_central
+        if self.ps.optimizer is not None:
+            self.ps.optimizer.resize(e.lo, e.hi)
+        self.stats["resizes"] += 1
+
+    # --------------------------------------------------------------- handle
+    def handle(self, sender: int, code: MessageCode, payload: np.ndarray,
+               envelope: Optional[tuple] = None) -> None:
+        with self._mu:
+            self.ps._envelope = envelope
+            self._handle_locked(sender, code, payload)
+
+    def _handle_locked(self, sender: int, code: MessageCode, payload: np.ndarray) -> None:
+        size = self.hi - self.lo
+        if code == MessageCode.ShardPush and payload.size >= 7:
+            # the range is the gate: a slice cut for other offsets never
+            # applies, whatever its size; a version bump that left the range
+            # in place stays compatible
+            lo = _join16(payload[2], payload[3])
+            hi = _join16(payload[4], payload[5])
+            values = payload[6:]
+            if (lo, hi) != (self.lo, self.hi) or values.shape[0] != size:
+                self.stats["stale_dropped"] += 1
+                return
+            self.ps.handle(sender, MessageCode.GradientUpdate, values)
+            self.coord.report(self.ps._push_count, 0, 0.0)
+        elif code == MessageCode.CompressedUpdate and payload.size >= HEAD_LEN + 1:
+            # the same gate on the stamp, before paying for a decode; an
+            # unstamped compressed push is dropped like a GradientUpdate
+            stamp = peek_stamp(payload)
+            if stamp is None or (stamp[1], stamp[2]) != (self.lo, self.hi):
+                self.stats["stale_dropped"] += 1
+                return
+            self.ps.handle(sender, MessageCode.CompressedUpdate, payload)
+            self.coord.report(self.ps._push_count, 0, 0.0)
+        elif code in (MessageCode.CompressedUpdate, MessageCode.GradientUpdate):
+            # truncated, or a sender without the stamp: never applied
+            self.stats["stale_dropped"] += 1
+        elif code == MessageCode.ParameterRequest:
+            if self.pending_install is not None:
+                # a reply now would hand out values this server never held;
+                # the worker's next pull after the install is answered
+                self.stats["parked_pulls"] += 1
+                return
+            self.ps.handle(sender, code, payload)
+        elif code == MessageCode.ParameterUpdate:
+            if payload.shape[0] != size:
+                self.stats["stale_dropped"] += 1
+                return
+            self.ps.handle(sender, code, payload)
+            if self.pending_install is not None:
+                # a whole-range install covers any pending subrange
+                self.pending_install = None
+                self.stats["installs"] += 1
+        elif code == MessageCode.RangeInstall and payload.size >= 4:
+            lo = _join16(payload[0], payload[1])
+            hi = _join16(payload[2], payload[3])
+            values = payload[4:]
+            if values.shape[0] != hi - lo:
+                self.stats["stale_dropped"] += 1
+                return
+            if self.pending_install is None or (lo, hi) != self.pending_install:
+                self.stats["dup_installs"] += 1  # the first install won already
+                return
+            self.ps.central[lo - self.lo:hi - self.lo] = values
+            self.pending_install = None
+            self.stats["installs"] += 1
+            print(f"shard {self.server_id}: range [{lo},{hi}) installed by worker {sender}",
+                  file=sys.stderr)
+        elif code == MessageCode.SpeculativeUpdate and payload.size >= 8:
+            task_id = _join16(payload[0], payload[1])
+            lo = _join16(payload[4], payload[5])
+            hi = _join16(payload[6], payload[7])
+            values = payload[8:]
+            if (lo, hi) != (self.lo, self.hi) or values.shape[0] != size:
+                self.stats["stale_dropped"] += 1
+                return
+            if task_id in self._seen_tasks:
+                # the race's loser: the dedup that makes a backup task safe
+                self.stats["spec_dropped"] += 1
+                return
+            self._seen_tasks.add(task_id)
+            self.ps.handle(sender, MessageCode.GradientUpdate, values)
+            self.stats["spec_applied"] += 1
+
+    # ----------------------------------------------------------------- gray
+    def _commit_timed(self) -> None:
+        """Close the open WAL group, an injected fsync stall inside the
+        measured span."""
+        t0 = time.monotonic()
+        if self._gray is not None:
+            d = self._gray.gray_stall("fsync")
+            if d > 0.0:
+                time.sleep(d)
+        with self._mu:
+            self.ps.commit()
+        span = time.monotonic() - t0
+        self._fsync_spans.append(span)
+        if len(self._fsync_spans) > 64:
+            del self._fsync_spans[:-64]
+        self._busy_s += span
+
+    def _report_gray(self, now: float) -> None:
+        """Fold the wire's retransmit and blocked-send deltas, the fsync p95
+        and the serve loop's busy ratio over the last window into the next
+        renewal."""
+        if now < self._gray_report_at:
+            return
+        wall = now - self._win_start if self._win_start else 0.0
+        self._gray_report_at = now + 0.25
+        self._win_start = now
+        st = getattr(self.transport, "stats", None)
+        retrans = blocked = 0.0
+        if isinstance(st, dict):
+            sent = int(st.get("sent", 0))
+            retries = int(st.get("retries", 0))
+            blk = float(st.get("window_blocked_s", 0.0))
+            b_sent, b_retries, b_blk = self._wire_base
+            retrans = (retries - b_retries) / max(1, sent - b_sent)
+            blocked = max(0.0, blk - b_blk)
+            self._wire_base = (sent, retries, blk)
+        spans = sorted(self._fsync_spans)
+        p95_ms = spans[int(0.95 * (len(spans) - 1))] * 1000.0 if spans else 0.0
+        busy = min(1.0, self._busy_s / wall) if wall > 0.05 else 0.0
+        self._busy_s = 0.0
+        report = getattr(self.coord, "report_gray_health", None)
+        if report is not None:
+            report(retrans_rate=retrans, blocked_s=blocked, fsync_p95_ms=p95_ms,
+                   busy_ratio=busy)
+
+    # ------------------------------------------------------------------ run
+    def stop(self) -> None:
+        self._stop.set()
+
+    def _serve_one(self, msg) -> None:
+        sender, code, payload = msg
+        envelope = getattr(self.transport, "last_delivery", None)
+        if code in (MessageCode.Heartbeat, MessageCode.WorkerDone):
+            # worker lifecycle is the coordinator's here, but an enveloped
+            # WorkerDone still owes its deferred ack
+            self._commit_timed()
+            return
+        t0 = time.monotonic()
+        try:
+            self.handle(sender, code, payload, envelope)
+        except (ValueError, IndexError, OverflowError):
+            return  # a malformed frame: drop it, never die
+        finally:
+            self._busy_s += time.monotonic() - t0
+        if self.ps.wal is None or not _ack_waits_for_wal(code) \
+                or self.ps.wal.pending >= WAL_GROUP_N:
+            self._commit_timed()
+
+    def run(self, timeout: Optional[float] = None) -> None:
+        """Join, then serve until :meth:`stop`, the fleet's workers are done
+        or ``timeout``. Unless it crashed, the server then serves the frames
+        already taken in before it checkpoints and leaves: a reliable wire
+        may have acked them, and a worker's final push is among them."""
+        m = self.coord.join()
+        if m is not None:
+            self._apply_map(m)
+        deadline = None if timeout is None else time.monotonic() + timeout
+        self._win_start = time.monotonic()
+        while not self._stop.is_set():
+            if deadline is not None and time.monotonic() >= deadline:
+                break
+            if self._gray is not None:
+                d = self._gray.gray_stall("serve")
+                if d > 0.0:
+                    time.sleep(d)  # gray weather: slow, not dead
+            self._report_gray(time.monotonic())
+            m = self.coord.take_shard_map()
+            if m is not None:
+                self._apply_map(m)
+            if self.coord.fleet.workers_done():
+                break
+            msg = self.transport.recv(timeout=0.1)
+            if msg is None:
+                # idle: close the open WAL group, so no deferred ack waits
+                # longer than one receive timeout
+                self._commit_timed()
+                continue
+            self._serve_one(msg)
+        if self._crashed:
+            return  # a silent death: no checkpoint, no leave
+        while (msg := self.transport.recv(timeout=0.0)) is not None:
+            self._serve_one(msg)
+        with self._mu:
+            self.ps.save_checkpoint()
+            self.ps.commit()
+        self.coord.close()
+
+    @property
+    def central(self) -> np.ndarray:
+        """A copy of the served values, taken under the serve lock."""
+        with self._mu:
+            return np.array(self.ps.central, copy=True)
+
+    def snapshot(self) -> dict:
+        """The range, a copy of the values and the counters, read under the
+        serve lock, so a resize is never seen half done."""
+        with self._mu:
+            return {"lo": self.lo, "hi": self.hi, "map_version": self.map_version,
+                    "central": np.array(self.ps.central, copy=True),
+                    "stats": dict(self.stats)}

@@ -1,0 +1,304 @@
+"""The member's side of the coordinator (counterpart of the JAX
+``coord/member.py``): :class:`CoordClient` and :class:`FleetView`.
+
+A member (a training worker, a shard server or a serving engine) holds one
+transport into the coordination star and a :class:`CoordClient` over it,
+which
+
+- **joins** with its kind and an incarnation stamp, resending the join
+  until the coordinator answers with a shard map (a join is idempotent, so
+  a lost one heals itself);
+- **renews its lease** from a thread every ``renew_interval`` seconds,
+  carrying the member's latest progress report (the straggler detector's
+  input) and re-joining every fourth renewal, so a member whose lease
+  expired in a stall is taken back;
+- **receives** ``ShardMapUpdate``, ``FleetState`` and ``SpeculateTask``
+  frames on a listener thread: the newest map waits in a mailbox for the
+  consumer's next step boundary; callbacks are optional;
+- **leaves** on :meth:`CoordClient.close`, carrying its incarnation, so a
+  parting leave racing a newer life's join of the rank cannot evict it.
+
+Every coordinator frame passes the epoch fence in one place
+(:meth:`CoordClient._handle`): a frame stamped with an epoch below the
+highest seen comes from an older coordinator life and is dropped, counted
+in ``stale_epoch_dropped``.
+
+Not in this package yet, and refused rather than ignored: the snapshot,
+rollback and preempt callbacks and the stage and node-agent ones. Their
+frames are dropped and counted in ``later_plane_dropped``.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Callable, Optional
+
+import numpy as np
+
+from distributed_ml_pytorch_tpu_torch.coord.coordinator import (
+    KIND_AGENT,
+    KIND_ENGINE,
+    KIND_SHARD,
+    KIND_STAGE,
+    KIND_WORKER,
+    decode_fleet,
+    encode_join,
+    encode_leave,
+    encode_renew,
+    later_plane,
+    refuse_later_options,
+)
+from distributed_ml_pytorch_tpu_torch.coord.shardmap import ShardMap
+from distributed_ml_pytorch_tpu_torch.utils.messaging import (
+    MessageCode,
+    Transport,
+    _next_incarnation,
+    strip_epoch,
+)
+
+_KINDS = {"worker": KIND_WORKER, "shard": KIND_SHARD, "engine": KIND_ENGINE,
+          "stage": KIND_STAGE, "agent": KIND_AGENT}
+
+#: the JAX client's options of the later planes, with their defaults
+_LATER_OPTIONS = {
+    "on_snapshot": (None, "the snapshot barrier"),
+    "on_rollback": (None, "the rollback barrier"),
+    "on_stage_assign": (None, "the MPMD stage plane"),
+    "rollback_hold_ttl": (15.0, "the rollback barrier"),
+}
+
+#: the callbacks a member of a later plane wires in by assignment
+_LATER_CALLBACKS = {
+    "on_snapshot": "the snapshot barrier",
+    "on_rollback": "the rollback barrier",
+    "on_stage_assign": "the MPMD stage plane",
+    "on_preempt": "the multi-tenant scheduler",
+    "on_slot_grant": "the multi-tenant scheduler",
+    "on_resume": "the multi-tenant scheduler",
+}
+
+
+class _RefusedCallback:
+    """A callback slot of a later plane: reads None, refuses any value."""
+
+    def __set_name__(self, owner, name):
+        self.name = name
+
+    def __get__(self, obj, owner=None):
+        return None
+
+    def __set__(self, obj, value):
+        if value is not None:
+            raise ValueError(f"CoordClient.{self.name}: {_LATER_CALLBACKS[self.name]} is "
+                             "not in this package yet")
+
+
+class FleetView:
+    """The latest fleet broadcast, read from any thread."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._state: Optional[dict] = None
+
+    def update(self, state: dict) -> None:
+        with self._lock:
+            self._state = dict(state)
+
+    @property
+    def state(self) -> Optional[dict]:
+        with self._lock:
+            return None if self._state is None else dict(self._state)
+
+    def engine_up(self) -> bool:
+        """False only when a report exists and shows no live engine: with no
+        coordinator, or before its first report, serving keeps admitting."""
+        s = self.state
+        return s is None or s["n_engines"] > 0
+
+    def live_engine_ranks(self):
+        """The live engine ranks of the latest report, or None before one."""
+        s = self.state
+        if s is None:
+            return None
+        ranks = s.get("engine_ranks")
+        return None if ranks is None else set(ranks)
+
+    def workers_done(self) -> bool:
+        s = self.state
+        return s is not None and s["workers_done"]
+
+    def fleet_metrics(self) -> dict:
+        """The latest report's metrics tail, ``{}`` before one."""
+        s = self.state
+        return {} if s is None else dict(s.get("fleet_metrics") or {})
+
+
+class CoordClient:
+    """One member's connection to the coordinator (see the module
+    docstring). ``on_shard_map(map)`` (also assignable after construction:
+    a shard server wires itself in) and ``on_speculate(task_id, victim,
+    from_step)`` are called on the listener thread."""
+
+    on_snapshot = _RefusedCallback()
+    on_rollback = _RefusedCallback()
+    on_stage_assign = _RefusedCallback()
+    on_preempt = _RefusedCallback()
+    on_slot_grant = _RefusedCallback()
+    on_resume = _RefusedCallback()
+
+    def __init__(self, transport: Transport, kind: str, *, renew_interval: float = 0.5,
+                 incarnation: Optional[int] = None,
+                 on_shard_map: Optional[Callable[[ShardMap], None]] = None,
+                 on_speculate: Optional[Callable[[int, int, int], None]] = None,
+                 **later):
+        if kind not in _KINDS:
+            raise ValueError(f"kind must be one of {sorted(_KINDS)}, got {kind!r}")
+        refuse_later_options("CoordClient", later, _LATER_OPTIONS)
+        self.transport = transport
+        self.kind = kind
+        self.renew_interval = float(renew_interval)
+        #: strictly increasing within the process, so a replacement client
+        #: of the same rank reads as the newer life
+        self.incarnation = (int(incarnation) if incarnation is not None
+                            else _next_incarnation())
+        self.fleet = FleetView()
+        self.coord_down = False
+        self.on_shard_map = on_shard_map
+        self._on_speculate = on_speculate
+        #: the highest coordinator epoch seen; frames below it are dropped
+        self.coord_epoch = -1
+        self.stale_epoch_dropped = 0
+        self.later_plane_dropped = 0
+        self._lock = threading.Lock()
+        self._latest_map: Optional[ShardMap] = None
+        self._current_version = -1
+        self._got_map = threading.Event()
+        #: (push_count, step, ewma_ms, wire_open, nacks, bad_loss, loss_ewma,
+        #: gnorm_ewma), shipped on every renewal
+        self._progress = (0, 0, 0.0, 0, 0, 0, 0.0, 0.0)
+        #: (retrans_rate, nack_rate, blocked_s, fsync_p95_ms, busy_ratio) and
+        #: the per-link triples behind them
+        self._gray_health = (0.0, 0.0, 0.0, 0.0, 0.0)
+        self._gray_links: tuple = ()
+        self._stop = threading.Event()
+        self._listener = threading.Thread(target=self._pump, name="coord-listener",
+                                          daemon=True)
+        self._listener.start()
+        self._renewer = threading.Thread(target=self._renew_loop, name="coord-renew",
+                                         daemon=True)
+        self._renewer.start()
+
+    # ----------------------------------------------------------------- wire
+    def _send(self, code: MessageCode, payload: np.ndarray) -> None:
+        try:
+            self.transport.send(code, payload)
+            self.coord_down = False
+        except (OSError, ConnectionError, KeyError):
+            # a dead coordinator never takes the member down: it goes on
+            # under the last map it adopted
+            self.coord_down = True
+
+    def _pump(self) -> None:
+        while not self._stop.is_set():
+            msg = self.transport.recv(timeout=0.1)
+            if msg is None:
+                continue
+            _sender, code, payload = msg
+            try:
+                self._handle(code, payload)
+            except (ValueError, IndexError, OverflowError):
+                continue  # a malformed frame: drop it, never die
+
+    def _handle(self, code: MessageCode, payload: np.ndarray) -> None:
+        # the one strip point of the epoch fence: every coordinator command
+        # passes here before any decode
+        payload, epoch = strip_epoch(payload)
+        if epoch is not None:
+            if epoch < self.coord_epoch:
+                self.stale_epoch_dropped += 1
+                return
+            self.coord_epoch = max(self.coord_epoch, epoch)
+        if code == MessageCode.ShardMapUpdate:
+            m = ShardMap.decode(payload)
+            with self._lock:
+                if m.version <= self._current_version:
+                    return  # a stale rebroadcast never rolls a consumer back
+                self._current_version = m.version
+                self._latest_map = m
+            self._got_map.set()
+            if self.on_shard_map is not None:
+                self.on_shard_map(m)
+        elif code == MessageCode.FleetState:
+            self.fleet.update(decode_fleet(payload))
+        elif code == MessageCode.SpeculateTask and payload.size >= 3:
+            if self._on_speculate is not None and np.isfinite(payload[:3]).all():
+                self._on_speculate(int(payload[0]), int(payload[1]), int(payload[2]))
+        elif later_plane(code):
+            self.later_plane_dropped += 1
+
+    def _renew_loop(self) -> None:
+        tick = 0
+        while not self._stop.wait(self.renew_interval):
+            with self._lock:
+                progress = self._progress
+                gray_health = self._gray_health
+                gray_links = self._gray_links
+            self._send(MessageCode.LeaseRenew,
+                       encode_renew(self.incarnation, *progress, *gray_health,
+                                    links=gray_links))
+            tick += 1
+            if tick % 4 == 0:
+                # the coordinator ignores an unknown rank's renewals: the
+                # idempotent re-join takes back a member whose lease expired
+                self._send(MessageCode.CoordJoin,
+                           encode_join(_KINDS[self.kind], self.incarnation))
+
+    # ------------------------------------------------------------------ api
+    def join(self, timeout: float = 10.0) -> Optional[ShardMap]:
+        """Announce membership and wait for the coordinator's map, resending
+        the join; the map, or None on timeout."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            self._send(MessageCode.CoordJoin, encode_join(_KINDS[self.kind], self.incarnation))
+            if self._got_map.wait(min(0.25, self.renew_interval)):
+                return self.current_map()
+        return self.current_map()
+
+    def report(self, push_count: int, step: int, ewma_ms: float, wire_open: int = 0,
+               nacks: int = 0, bad_loss: int = 0, loss_ewma: float = 0.0,
+               gnorm_ewma: float = 0.0) -> None:
+        """Keep this member's latest progress for the next renewal."""
+        with self._lock:
+            self._progress = (int(push_count), int(step), float(ewma_ms), int(wire_open),
+                              int(nacks), int(bad_loss), float(loss_ewma), float(gnorm_ewma))
+
+    def report_gray_health(self, retrans_rate: float = 0.0, nack_rate: float = 0.0,
+                           blocked_s: float = 0.0, fsync_p95_ms: float = 0.0,
+                           busy_ratio: float = 0.0, links=()) -> None:
+        """Keep this member's data-plane weather for the next renewal;
+        ``links`` are ``(peer, link_retrans_rate, link_blocked_s)``."""
+        with self._lock:
+            self._gray_health = (float(retrans_rate), float(nack_rate), float(blocked_s),
+                                 float(fsync_p95_ms), float(busy_ratio))
+            self._gray_links = tuple((int(p), float(r), float(b)) for p, r, b in links)
+
+    def current_map(self) -> Optional[ShardMap]:
+        with self._lock:
+            return self._latest_map
+
+    def take_shard_map(self) -> Optional[ShardMap]:
+        """The newest map not taken yet, once (None until a newer lands)."""
+        with self._lock:
+            m, self._latest_map = self._latest_map, None
+            return m
+
+    def leave(self) -> None:
+        self._send(MessageCode.CoordLeave, encode_leave(self.incarnation))
+
+    def stop(self) -> None:
+        self._stop.set()
+
+    def close(self) -> None:
+        self.leave()
+        self.stop()

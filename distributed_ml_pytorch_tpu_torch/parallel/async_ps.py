@@ -60,8 +60,13 @@ with each pull and the server answers with a ``DeltaParams`` frame: a top-k
 delta against the view it tracks for that worker, or a full install after a
 miss or a restore.
 
-Not in this package yet (the JAX server's other planes): rollback and the
-elastic path.
+**The elastic path.** With ``pull_reply_head`` set (by
+``coord/elastic.ElasticShardServer``, which re-stamps it on every resize)
+the server answers a pull with ``ShardParams``, the vector behind the
+owner's map version and absolute range; the :class:`Listener` keeps that
+stamp beside the reply for the elastic client's range gate.
+
+Not in this package yet (the JAX server's other planes): rollback.
 """
 
 from __future__ import annotations
@@ -243,6 +248,9 @@ class ParameterServer:
         self.full_replies = 0
         #: wire floats of the DeltaParams replies sent (head and body)
         self.delta_reply_wire_floats = 0
+        #: the elastic reply head ``[ver(2), lo(2), hi(2)]``: when set, full
+        #: pull replies go out as ``ShardParams = [*head, *central]``
+        self.pull_reply_head: Optional[np.ndarray] = None
         self._stop = threading.Event()
 
     def stop(self) -> None:
@@ -599,12 +607,16 @@ class ParameterServer:
         not take the server down. A reliable transport keeps the frame's
         buffer until it is acked and the central vector moves in place, so
         it is sent a snapshot: a retransmit must carry the bytes its
-        checksum covers."""
-        if isinstance(self.transport, ReliableTransport):
+        checksum covers. With :attr:`pull_reply_head` set the reply is the
+        stamped ``ShardParams`` frame."""
+        code = MessageCode.ParameterUpdate
+        if self.pull_reply_head is not None:
+            code = MessageCode.ShardParams
+            payload = np.concatenate([self.pull_reply_head, payload])
+        elif isinstance(self.transport, ReliableTransport):
             payload = payload.copy()
         try:
-            send_message(MessageCode.ParameterUpdate, payload, dst=sender,
-                         transport=self.transport)
+            send_message(code, payload, dst=sender, transport=self.transport)
         except (OSError, ConnectionError, KeyError):
             _LOGGER.warning("reply to worker %d failed (peer gone?) — dropping it", sender)
 
@@ -806,13 +818,20 @@ class Listener(MessageListener):
     the central vector and the ``(epoch, version)`` stamp it sits at, which
     the next delta-opted pull carries (:meth:`held_stamp`). A full install
     replaces the view; a delta applies only onto the view at its stamped
-    base, and is otherwise dropped and counted in ``delta_base_miss``."""
+    base, and is otherwise dropped and counted in ``delta_base_miss``.
+
+    An elastic server's ``ShardParams`` reply deposits its vector with its
+    ``(version, lo, hi)`` stamp (:meth:`take_latest_versioned`); ``replies``
+    counts the pull replies of every kind that arrived."""
 
     def __init__(self, transport: Optional[Transport] = None):
         super().__init__(transport=transport)
         self._lock = threading.Lock()
         self._latest: Optional[np.ndarray] = None
+        #: (version, lo, hi) of the newest reply; None for an unstamped one
+        self._latest_stamp: Optional[Tuple[int, int, int]] = None
         self._got_update = threading.Event()
+        self.replies = 0
         #: nacks received in all, and those the optimizer has not taken
         #: yet (one batch taken triggers one resync pull)
         self.nacks = 0
@@ -868,14 +887,29 @@ class Listener(MessageListener):
                 self._held = (epoch, ver)
                 self.delta_installs += 1
             self._latest = self._view
+            self._latest_stamp = None
         self._got_update.set()
 
     def receive(self, sender: int, message_code: MessageCode, parameter: np.ndarray) -> None:
+        if message_code in (MessageCode.DeltaParams, MessageCode.ParameterUpdate,
+                            MessageCode.ShardParams):
+            with self._lock:
+                self.replies += 1
         if message_code == MessageCode.DeltaParams:
             self._on_delta_params(parameter)
         elif message_code == MessageCode.ParameterUpdate:
             with self._lock:
                 self._latest = parameter
+                self._latest_stamp = None
+            self._got_update.set()
+        elif message_code == MessageCode.ShardParams:
+            if parameter.size < 7 or not np.isfinite(parameter[:6]).all():
+                return  # malformed: dropped
+            with self._lock:
+                self._latest = parameter[6:]
+                self._latest_stamp = (_join16(parameter[0], parameter[1]),
+                                      _join16(parameter[2], parameter[3]),
+                                      _join16(parameter[4], parameter[5]))
             self._got_update.set()
         elif message_code == MessageCode.UpdateNack:
             if parameter.size >= 3 and np.isfinite(parameter[:1]).all():
@@ -884,9 +918,16 @@ class Listener(MessageListener):
                     self._nacks_pending += 1
 
     def take_latest(self) -> Optional[np.ndarray]:
+        return self.take_latest_versioned()[1]
+
+    def take_latest_versioned(self) -> Tuple[Optional[Tuple[int, int, int]],
+                                             Optional[np.ndarray]]:
+        """The newest reply with its ``(version, lo, hi)`` stamp (None for
+        an unstamped ``ParameterUpdate``)."""
         with self._lock:
             latest, self._latest = self._latest, None
-        return latest
+            stamp, self._latest_stamp = self._latest_stamp, None
+        return stamp, latest
 
     def take_nacks(self) -> int:
         """The nacks not taken since the last call."""
@@ -1033,6 +1074,10 @@ class DownpourClient:
     def _install_arrived(self) -> None:
         raise NotImplementedError
 
+    def _at_boundary(self) -> None:
+        """Host work of a step boundary after the nack resync, before its
+        installs: the elastic client's cutover."""
+
     def _pull_payload(self, link: int) -> np.ndarray:
         """A pull's payload on ``link``: empty, a full pull."""
         return np.zeros(0, np.float32)
@@ -1081,6 +1126,7 @@ class DownpourClient:
         if bad_loss:
             self.bad_losses += 1
         self._resync_on_nacks()
+        self._at_boundary()
         # decided before this step's installs: even on the step that
         # completes the resync, the gradients in hand predate the installs
         held = self._hold_updates

@@ -24,10 +24,15 @@ and ``--reliable`` (the reliable wire; with ``--wal`` the server acks a push
 only after the log's fsync). ``--n-servers K`` shards the server across
 ranks 0..K-1, each owning a contiguous range of the central vector on
 ``port + shard`` (``parallel/sharded_ps.py``); its workers run one step a
-dispatch, as the JAX package's do. Flags of the JAX CLI that this package
-does not implement (the other distributed modes, the coordinator and its
-elastic fleet, the manifest path, profiling and the metrics dump) are
-absent, so argparse rejects them instead of ignoring them.
+dispatch, as the JAX package's do. ``--coord HOST:PORT`` attaches every
+rank to the coordinator of ``coord/cli.py`` instead: the shard ranks serve
+the ranges its shard maps assign (``coord/elastic.py``), the workers cut
+over when the map moves, and a worker may join or a shard die mid-run; it
+takes the sharded entry even with ``--n-servers 1``. Flags of the JAX CLI
+that this package does not implement (the other distributed modes, the
+manifest path, the drills and demos of the later coordinator planes,
+profiling and the metrics dump) are absent, so argparse rejects them
+instead of ignoring them.
 
     python -m distributed_ml_pytorch_tpu_torch.training.cli --no-distributed \
         --epochs 1 --synthetic-data
@@ -169,6 +174,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--worker-timeout", type=float, default=30.0, metavar="SEC",
                    help="PS-mode server declares a worker failed after this long "
                         "without a frame; 0 disables")
+    p.add_argument("--coord", type=str, default="", metavar="HOST:PORT",
+                   help="attach this PS-mode rank to an elastic control plane "
+                        "(coord/cli.py): membership and lease liveness, coordinator-pushed "
+                        "shard maps (workers cut over at step boundaries; shard servers "
+                        "resize), straggler speculation. Empty = static fleet (the classic "
+                        "launch-time topology)")
     p.add_argument("--staleness-damping", type=float, default=0.0, metavar="D",
                    help="PS-mode server scales each gradient push by 1/(1 + D*staleness), "
                         "where staleness counts central versions since that worker's "
@@ -216,7 +227,9 @@ def main(argv=None) -> int:
         print("wrote", logger.to_csv(name))
         print("Finished Training")
         return 0
-    if args.n_servers > 1:
+    if args.n_servers > 1 or args.coord:
+        # the sharded entry hosts the elastic path: one server is a map of
+        # one entry there
         from distributed_ml_pytorch_tpu_torch.parallel.sharded_ps import (
             run_sharded_ps_process,
         )

@@ -26,7 +26,10 @@ JAX ``utils/messaging.py``; numpy, sockets and threads only).
   out-of-order frames, and a circuit breaker; deferred acks
   (``ack_on_delivery=False``) hold a frame's ack until the receiver calls
   ``ack_delivered`` (the WAL's group commit);
-- :func:`make_transport` / :func:`make_world` — the factories;
+- :func:`make_transport` / :func:`make_world` — the factories (the world
+  optionally under a ``utils/chaos.ChaosPlan``);
+- :func:`stamp_epoch` / :func:`strip_epoch` — the coordinator's epoch fence
+  trailer;
 - ``send_message`` / :class:`MessageListener` — the reference's API
   (``Asynchronous.py:5,9-18``), on an explicit or a default transport.
 
@@ -73,9 +76,11 @@ SERVER_RANK = 0  # reference convention: rank 0 is the parameter server
 class MessageCode(enum.IntEnum):
     """Message tags, value for value the JAX package's. This package speaks
     codes 0-4 (the DownPour path), 9, 10 and 26 (the reliability envelope
-    and its acks), 27 (``UpdateNack``, the admission gate's reject), 34
-    (``CompressedUpdate``) and 39 (``DeltaParams``); the rest are defined so
-    that frames from the JAX package's other planes decode to their names."""
+    and its acks), 13-20, 24 and 25 (the coordinator, its shard maps and the
+    stamped shard traffic), 27 (``UpdateNack``, the admission gate's
+    reject), 34 (``CompressedUpdate``) and 39 (``DeltaParams``); the rest
+    are defined so that frames from the JAX package's other planes decode
+    to their names."""
 
     ParameterUpdate = 0
     ParameterRequest = 1
@@ -217,8 +222,9 @@ class PayloadSchema:
 
 #: the codes this package's modules send or dispatch on: the parameter
 #: server's plane (its compressed pushes and delta pull replies too), the
-#: serving frontend's, the reliability wire, and the coded wires the
-#: ``wire_bytes`` bench leg prices. The JAX table's entries for its other
+#: coordinator's membership plane and its stamped shard traffic, the serving
+#: frontend's, the reliability wire, and the coded wires the ``wire_bytes``
+#: bench leg prices. The JAX table's entries for its other
 #: planes come with those planes.
 WIRE_SCHEMAS: Dict[MessageCode, PayloadSchema] = {
     MessageCode.ParameterUpdate: PayloadSchema(
@@ -274,6 +280,55 @@ WIRE_SCHEMAS: Dict[MessageCode, PayloadSchema] = {
     MessageCode.ResumeStream: PayloadSchema(
         fields=("id", "n_received"), handled_by=("serving",), dedup_key="request_id",
         doc="re-send the stream from offset (gap recovery / reconnect)"),
+    MessageCode.CoordJoin: PayloadSchema(
+        fields=("kind", "inc_lo", "inc_hi"), handled_by=("coord",), dedup_key="incarnation",
+        doc="member -> coordinator; idempotent, retried until answered"),
+    MessageCode.CoordLeave: PayloadSchema(
+        fields=("inc_lo", "inc_hi"), handled_by=("coord",), dedup_key="incarnation",
+        doc="explicit leave; stale incarnations cannot evict newer lives"),
+    MessageCode.LeaseRenew: PayloadSchema(
+        fields=("inc_lo", "inc_hi", "push_count", "step", "ewma_ms", "wire_open", "nacks",
+                "bad_loss", "loss_ewma", "gnorm_ewma", "retrans_rate", "nack_rate",
+                "blocked_s", "fsync_p95_ms", "busy_ratio"),
+        rest="gray_links", handled_by=("coord",), dedup_key="incarnation",
+        delivery="best_effort",
+        doc="lease refresh carrying the straggler-detector progress report, the member's "
+            "open-circuit-breaker count (wire health), the numerical-health telemetry: "
+            "cumulative admission nacks received, nonfinite-loss count, and loss / grad-norm "
+            "EWMAs — the reputation + rollback-watchdog inputs — and the gray-health tail: "
+            "retransmit rate, nack rate, blocked-send seconds, fsync p95 and busy-vs-wall "
+            "ratio, plus per-directed-link (peer, retrans, blocked_s) evidence triples in the "
+            "rest — the adaptive-suspicion inputs (receivers tolerate the 5/6/10-field older "
+            "forms with neutral gray defaults)"),
+    MessageCode.ShardMapUpdate: PayloadSchema(
+        fields=("n_entries", "version_lo", "version_hi", "n_params_lo", "n_params_hi"),
+        rest="entries", handled_by=("coord",), dedup_key="version", fenced=True,
+        doc="encoded ShardMap; 9 floats per entry (coord/shardmap.py)"),
+    MessageCode.FleetState: PayloadSchema(
+        fields=("version_lo", "version_hi", "n_workers", "n_shards", "n_engines",
+                "workers_done"),
+        rest="engine_ranks", handled_by=("coord",), dedup_key="version",
+        rest_sections=("engine_ranks", "fleet_metrics"), rest_separator=-1.0, fenced=True,
+        doc="compact fleet broadcast the serving frontend consumes; the tail lists live "
+            "engine coord-ranks (per-engine lease health) and, behind a -1 separator (ranks "
+            "are non-negative, so the split is unambiguous; a tail without one decodes as "
+            "older), the fleet_metrics registry summary in "
+            "coord/coordinator.FLEET_METRICS_FIELDS order (the decoder zips names to the "
+            "floats that arrived, so the gray_suspects field is absent, not wrong, on short "
+            "frames)"),
+    MessageCode.SpeculateTask: PayloadSchema(
+        fields=("task_id", "victim_rank", "from_step"), handled_by=("coord",),
+        dedup_key="request_id", fenced=True,
+        doc="coordinator -> backup AND victim; same id for dedup"),
+    MessageCode.SpeculativeUpdate: PayloadSchema(
+        fields=("task_lo", "task_hi", "ver_lo", "ver_hi", "lo_lo", "lo_hi", "hi_lo", "hi_hi"),
+        rest="payload", handled_by=("coord",), dedup_key="request_id",
+        doc="Sandblaster backup-task result stamped like ShardPush; first task id wins at the "
+            "PS, wrong-offset traffic dropped"),
+    MessageCode.RangeInstall: PayloadSchema(
+        fields=("lo_lo", "lo_hi", "hi_lo", "hi_hi"), rest="values", handled_by=("coord",),
+        dedup_key="idempotent",
+        doc="worker seeds a freshly-acquired shard range; first install wins"),
     MessageCode.SubmitRequestV2: PayloadSchema(
         fields=("id", "max_new", "temperature", "top_k", "top_p", "seed", "eos",
                 "priority", "deadline_ms", "session"),
@@ -281,6 +336,19 @@ WIRE_SCHEMAS: Dict[MessageCode, PayloadSchema] = {
         doc="client -> engine with overload-plane metadata: priority (higher wins "
             "admission under shed), deadline_ms (0 = none; relative to submit) and "
             "session (affinity hint)"),
+    MessageCode.ShardPush: PayloadSchema(
+        fields=("ver_lo", "ver_hi", "lo_lo", "lo_hi", "hi_lo", "hi_hi"), rest="params",
+        rest_min=1, handled_by=("coord",), dedup_key="env_seq", durability="wal_before_ack",
+        doc="elastic worker -> shard server: GradientUpdate stamped with the sender's "
+            "shard-map version AND the absolute [lo,hi) it sliced — the RANGE is the "
+            "correctness gate (closes the equal-size stale-map blind spot, coord/shardmap.py; "
+            "a benign version bump with unmoved ranges stays compatible)"),
+    MessageCode.ShardParams: PayloadSchema(
+        fields=("ver_lo", "ver_hi", "lo_lo", "lo_hi", "hi_lo", "hi_hi"), rest="params",
+        rest_min=1, handled_by=("ps",), dedup_key="version",
+        doc="elastic shard server -> worker: pull reply stamped like ShardPush (the versioned "
+            "ParameterUpdate); the worker applies only a reply whose range matches its "
+            "current expectation"),
     MessageCode.CumAck: PayloadSchema(
         fields=("inc_lo", "inc_hi", "cum_lo", "cum_hi", "credit"),
         handled_by=("transport",), delivery="envelope",
@@ -677,6 +745,32 @@ def _split16(value: int) -> Tuple[float, float]:
 
 def _join16(lo: float, hi: float) -> int:
     return (int(lo) & 0xFFFF) | ((int(hi) & 0xFFFF) << 16)
+
+
+#: the coordinator's epoch fence trailer, ``[FENCE_SEPARATOR, FENCE_MAGIC,
+#: epoch_lo, epoch_hi]``, appended after the payload of every frame a
+#: coordinator sends (the JAX package's constants): a trailer leaves every
+#: decoder's layout as it is, and the magic guards the match, since payload
+#: floats are arbitrary and FleetState tails already use -1 sections. A
+#: frame without it is an unfenced coordinator's and is taken as it is.
+FENCE_SEPARATOR = -2.0
+FENCE_MAGIC = 91217.0
+
+
+def stamp_epoch(payload: np.ndarray, epoch: int) -> np.ndarray:
+    """Append the coordinator epoch fence trailer to one outbound frame."""
+    return np.concatenate([
+        np.asarray(payload, np.float32),
+        np.asarray([FENCE_SEPARATOR, FENCE_MAGIC, *_split16(int(epoch))], np.float32)])
+
+
+def strip_epoch(payload: np.ndarray):
+    """``(body, epoch)`` of a frame; ``epoch`` is ``None`` for an unstamped
+    frame. The inverse of :func:`stamp_epoch`."""
+    if (payload.size >= 4 and float(payload[-4]) == FENCE_SEPARATOR
+            and float(payload[-3]) == FENCE_MAGIC):
+        return payload[:-4], _join16(payload[-2], payload[-1])
+    return payload, None
 
 
 #: bodies of at least this many bytes switch from a full crc32 to the bulk
@@ -1791,15 +1885,23 @@ def make_transport(rank: int, world_size: int, master: str = "localhost",
     return ReliableTransport(t, **opts) if reliable else t
 
 
-def make_world(world_size: int, *, reliable: bool = False,
-               reliable_opts: Optional[dict] = None) -> Dict[int, Transport]:
+def make_world(world_size: int, *, reliable: bool = False, plan=None, log=None,
+               reliable_opts: Optional[dict] = None):
     """One in-process world through the layer stack the TCP and native
-    paths use: the mailboxes, reliability-wrapped on every rank with
-    ``reliable``."""
+    paths use: the mailboxes, wrapped in ``utils/chaos.FaultyTransport``
+    under ``plan`` (a ``ChaosPlan``; ``log`` the ``ChaosLog`` to share), then
+    reliability-wrapped on every rank with ``reliable`` — reliable over chaos
+    over raw, the JAX package's order. Returns ``(transports, chaos log or
+    None)``."""
     world: Dict[int, Transport] = InProcessTransport.create_world(world_size)
+    chaos_log = None
+    if plan is not None:
+        from distributed_ml_pytorch_tpu_torch.utils.chaos import FaultyTransport
+
+        world, chaos_log = FaultyTransport.wrap_world(world, plan, log=log)
     if reliable:
         world = {r: ReliableTransport(t, **(reliable_opts or {})) for r, t in world.items()}
-    return world
+    return world, chaos_log
 
 
 # --- module-level default transport: the reference's send_message has no

@@ -2,7 +2,8 @@
 SLO percentiles (counterpart of the JAX ``utils/metrics.py``
 ``MetricsLogger`` / ``print_eval_line`` / ``percentile`` /
 ``latency_summary``), and the admission gate's running statistics
-(:class:`EwmaMeanVar`, as the JAX module's).
+(:class:`EwmaMeanVar`, as the JAX module's), and the telemetry EWMA a
+worker's lease renewals carry (:class:`Ewma`).
 
 The CSV schema is the reference's (``example/main.py:76-105``):
 ``index, timestamp, iteration, training_loss`` on every row, plus
@@ -86,6 +87,34 @@ def print_eval_line(rec: Dict) -> None:
         "Test Loss: {test_loss:6.4f} | "
         "Test Accuracy: {test_accuracy:6.4f}".format(**rec)
     )
+
+
+#: the smoothing of the telemetry EWMAs (the JAX package's)
+TELEMETRY_ALPHA = 0.3
+
+
+class Ewma:
+    """An exponentially weighted mean, as the JAX package's: the first
+    sample seeds it (a value of exactly 0.0 reads as unset), then ``value =
+    (1 - alpha) * value + alpha * x``, in double precision, so the floats a
+    lease renewal carries are the JAX ones."""
+
+    __slots__ = ("alpha", "value")
+
+    def __init__(self, alpha: float = TELEMETRY_ALPHA):
+        if not 0 < alpha <= 1:
+            raise ValueError(f"need 0 < alpha <= 1, got {alpha}")
+        self.alpha = float(alpha)
+        self.value = 0.0
+
+    def update(self, x: float) -> float:
+        x = float(x)
+        self.value = (x if self.value == 0.0
+                      else (1.0 - self.alpha) * self.value + self.alpha * x)
+        return self.value
+
+    def reset(self) -> None:
+        self.value = 0.0
 
 
 class EwmaMeanVar:

@@ -533,3 +533,19 @@ def test_wire_bytes_leg_on_cpu_emits_the_jax_metric_names_and_exact_bytes(capsys
     for name in ('f"ps_wire_bytes_per_push_{mode}"', 'f"{tag}_codec_frames_per_s_{mode}"',
                  '"pull_reply_compression_ratio_delta"'):
         assert name in src
+
+
+def test_elastic_leg_on_cpu_emits_the_jax_metric_names(capsys):
+    """Config 3's elastic leg at ``--tiny`` (36 steps, the crash at 12): the
+    three JAX names in order, positive rates, and the windows split at the
+    crash and at worker 1's first step on the post-crash map."""
+    assert bench_all.main(["--device", "cpu", "--tiny", "--legs", "elastic"]) == 0
+    recs = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+            if line.startswith("{")]
+    assert [r["metric"] for r in recs] == [f"elastic_rebalance_throughput_{w}"
+                                           for w in ("before", "during", "after")]
+    assert all(r["config"] == 3 and r["value"] > 0 and r["unit"] == "images/sec/worker"
+               and "--tiny" in r["note"] for r in recs)
+    assert "steps 4-12" in recs[0]["note"] and "steps 12-" in recs[1]["note"]
+    with open(os.path.join(ROOT, "bench_all.py")) as fh:
+        assert 'f"elastic_rebalance_throughput_{name}"' in fh.read()

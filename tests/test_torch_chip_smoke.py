@@ -141,3 +141,50 @@ def test_codec_plane_phase(capsys, monkeypatch, tmp_path):
     assert len(lines["wire_bytes_bench_leg"]["records"]) == cs.WIRE_BYTES_RECORDS
     assert cs.codec_sizes(2_472_266) == cs.ALEXNET_CODEC_SIZES
     assert not any(launches.values())  # the CPU runs the plain versions
+
+
+def test_elastic_processes_phase(capsys, monkeypatch, tmp_path):
+    """Phase 21 (a) rehearsed on the CPU with LeNet: the coordinator's
+    process and four ranks through the CLI entries, a third worker joining,
+    shard rank 1 killed; the map sequence v1, v2, v3 (and v4, empty, once
+    the survivor leaves), one install of the fresh half whose CRC is the
+    first installer's, the survivor's pushes accounted exactly and no
+    timeout on a live link."""
+    monkeypatch.setattr(cs, "SMOKE_ELASTIC_DIR", str(tmp_path / "elastic"))
+    # LeNet on the CPU runs ~100 steps/s: a shorter lease and a paced step
+    # keep the death and its detection inside every worker's run
+    monkeypatch.setattr(cs, "ELASTIC_LEASE", 1.0)
+    monkeypatch.setenv("SMOKE_ELASTIC_STEP_S", "0.01")
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    launches = cs.phase_elastic_processes(backend="cpu", model="lenet", steps=250,
+                                          joiner_steps=200, join_at=20, kill_at=60,
+                                          joiner_warm=5, batch=16, epochs=1,
+                                          joiner_epochs=1)
+    a = _lines(capsys)["elastic_processes"]
+    assert a["ok"] and len(a["map_events"]) == 4
+    surv = a["survivor"]
+    assert surv["stats"]["installs"] == 1 and surv["applied"] + surv["stale_dropped"] == \
+        surv["sent_to_it"]
+    assert set(a["per_worker"]) == {"2", "3", "4"}
+    assert all(w["adopted_v3_s_after_kill"] > 0 for w in a["per_worker"].values())
+    assert not any(launches.values())  # the CPU runs the plain versions
+
+
+def test_elastic_chaos_and_speculation_phases(capsys, monkeypatch):
+    """Phase 21 (b) and (c) rehearsed on the CPU with LeNet: the chaos
+    acceptance world's log byte-identical across runs and devices, and a
+    speculated straggler's tail applied once a shard."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        log = cs.phase_chaos_world(torch, model="lenet", device="cpu")
+        cs.phase_speculation(model="lenet", device="cpu")
+    finally:
+        torch.set_num_threads(prev)
+    lines = _lines(capsys)
+    b, c = lines["elastic_chaos_world"], lines["elastic_speculation"]
+    assert b["ok"] and log and b["counts"]["drop"] > 0 and b["counts"]["dup"] > 0
+    assert c["ok"] and len(c["straggler_decisions"]) == 1
+    assert all(s["spec_applied"] == 1 and s["spec_dropped"] == 1
+               for s in c["shard_stats"].values())

@@ -1669,3 +1669,116 @@ def test_split_kernels_at_32k_tokens_match_the_chunked_plain_version(cuda):
     ref = tat.flash_plain_rows(*(t[last:] for t in (q, k, v, do, lse2, delta)), True)
     for name, got in (("dq", dq), ("dk", dk), ("dv", dv)):
         _close(got[last:], ref[name], torch.bfloat16, name, ref["scales"][name])
+
+
+class _MapFeed:
+    """Just enough of a ``CoordClient`` for an elastic worker driven by
+    hand: it hands out the maps put in it and keeps the reports."""
+
+    def __init__(self):
+        self.maps, self.reports = [], []
+
+    def take_shard_map(self):
+        return self.maps.pop(0) if self.maps else None
+
+    def report(self, *a, **k):
+        self.reports.append(a)
+
+    def report_gray_health(self, **k):
+        pass
+
+
+@pytest.mark.gpu
+def test_elastic_cutover_on_the_card_runs_k1_and_k2_every_step(cuda):
+    """An elastic AlexNet worker on the card against two elastic shard
+    servers in one process: 10 steps under map v1 (two shards), a cutover
+    to v2 (server 2 gone, server 1 owning the whole vector), 10 more steps.
+    K1 runs once a step and K2 three times a step each way, on the vector
+    route, across the cutover; the worker installs the fresh half of v2
+    from its own parameters; every later push is stamped with v2's range
+    and applied."""
+    from distributed_ml_pytorch_tpu_torch.coord.elastic import ElasticShardServer
+    from distributed_ml_pytorch_tpu_torch.coord.shardmap import ShardMap, rebalance
+    from distributed_ml_pytorch_tpu_torch.models import get_model
+    from distributed_ml_pytorch_tpu_torch.parallel.sharded_ps import ShardedAsynchronous
+    from distributed_ml_pytorch_tpu_torch.training.trainer import loss_and_grads
+    from distributed_ml_pytorch_tpu_torch.utils.messaging import (
+        InProcessTransport,
+        MessageCode,
+    )
+    from distributed_ml_pytorch_tpu_torch.utils.serialization import ravel_model_params
+
+    _deterministic()
+    model = get_model("alexnet", fused_epilogue=True, seed=3, device=cuda)
+    flat0 = ravel_model_params(model).cpu().numpy()
+    n = flat0.size
+    m1 = rebalance(ShardMap(0, n), [1, 2])
+    m2 = rebalance(m1, [1])
+    worlds = {sid: InProcessTransport.create_world(2) for sid in (1, 2)}
+    servers = {sid: ElasticShardServer(sid, n, worlds[sid][0], _MapFeed(), init_params=flat0)
+               for sid in (1, 2)}
+    for srv in servers.values():
+        srv._apply_map(m1)
+    feed = _MapFeed()
+    opt = ShardedAsynchronous(model, lr=0.008, n_push=5, n_pull=5,
+                              transports=[worlds[e.server_id][1] for e in m1.entries],
+                              coord=feed, transport_factory=lambda e: worlds[e.server_id][1],
+                              shard_map=m1)
+    for listener in opt.listeners:
+        listener.stop()
+        listener.join(timeout=5)
+    x, y = _k_batches(20, 16, seed=7)
+    seen = []
+    k1, fwd, bwd = tfu.launches, tfc.launches["relu_pool2_fwd.vector"], \
+        tfc.launches["relu_pool2_bwd.vector"]
+    for i in range(20):
+        loss_and_grads(model, torch.from_numpy(x[i]).to(cuda), torch.from_numpy(y[i]).to(cuda))
+        if i == 10:
+            # the coordinator's map reaches the survivor and the worker
+            servers[1]._apply_map(m2)
+            feed.maps.append(m2)
+            cut_flat = ravel_model_params(model).cpu().numpy()
+        opt.step()
+        opt._flusher.drain()
+        for sid, w in worlds.items():
+            while (m := w[0].recv(timeout=0.01)) is not None:
+                seen.append((sid, m[1], m[2].size))
+                if m[1] == MessageCode.RangeInstall:
+                    fresh = m[2][4:].copy()
+                if sid == 1 or i < 10:
+                    servers[sid].handle(*m)
+            for listener in opt.listeners:
+                while (m := listener.transport.recv(timeout=0.01)) is not None:
+                    listener.receive(*m)
+    assert tfu.launches - k1 == 20
+    assert tfc.launches["relu_pool2_fwd.vector"] - fwd == 60
+    assert tfc.launches["relu_pool2_bwd.vector"] - bwd == 60
+    assert opt.map_version == 2 and opt.ranges == [(0, n)]
+    surv = servers[1]
+    assert (surv.lo, surv.hi) == (0, n) and surv.stats["installs"] == 1
+    # the install carried the worker's parameters of the step it cut over at
+    np.testing.assert_array_equal(fresh, cut_flat[m1.entries[0].hi:])
+    assert surv.stats["stale_dropped"] == 0
+    pushes_v2 = [s for s in seen if s[0] == 1 and s[1] == MessageCode.ShardPush and s[2] == n + 6]
+    assert len(pushes_v2) == 2  # steps 10 and 15
+    opt._flusher.stop()
+
+
+@pytest.mark.gpu
+def test_elastic_scenario_on_the_card_counts_every_step(cuda):
+    """``coord.demo.elastic_scenario`` with AlexNet on the card: two shards,
+    two workers paced at 0.15 s a step, shard 2 crashing at worker 1's step
+    4 of 20 (2.4 s before its end, against a 0.5 s lease). Every worker step
+    runs K1 once and K2 three times each way; both workers end on the
+    post-crash map and one install of the survivor's fresh range landed."""
+    from distributed_ml_pytorch_tpu_torch.coord.demo import elastic_scenario
+
+    _deterministic()
+    k1, bwd = tfu.launches, tfc.launches["relu_pool2_bwd.vector"]
+    out = elastic_scenario(steps=20, n_workers=2, n_shards=2, crash_shard_at=4, lease=0.5,
+                           step_sleep=0.15, model="alexnet", device="cuda")
+    assert out["ok"], out["errors"]
+    assert tfu.launches - k1 == 40 and tfc.launches["relu_pool2_bwd.vector"] - bwd == 120
+    assert out["worker_map_versions"] == {1: 3, 2: 3}
+    assert out["stats"][1]["installs"] == 1
+    assert out["stats"][1]["dup_installs"] == 1

@@ -253,7 +253,8 @@ def test_make_transport_and_make_world():
         server.close()
     with pytest.raises(ValueError, match="unknown transport kind"):
         tmsg.make_transport(0, 1, kind="bogus")
-    world = tmsg.make_world(3, reliable=True, reliable_opts={"send_window": 4})
+    world, log = tmsg.make_world(3, reliable=True, reliable_opts={"send_window": 4})
+    assert log is None
     try:
         assert sorted(world) == [0, 1, 2]
         assert all(isinstance(t, tmsg.ReliableTransport) and t.send_window == 4
@@ -261,5 +262,6 @@ def test_make_transport_and_make_world():
     finally:
         for t in world.values():
             t.close()
-    plain = tmsg.make_world(2)
+    plain, log = tmsg.make_world(2)
+    assert log is None
     assert all(isinstance(t, tmsg.InProcessTransport) for t in plain.values())

@@ -119,14 +119,15 @@ def test_the_table_holds_exactly_the_codes_the_port_names():
 
 
 def test_the_server_holds_back_exactly_the_wal_before_ack_codes():
-    """The port's server reads the table where the JAX server names its
-    gradient codes (``GradientUpdate``, ``CompressedUpdate``): on the codes
-    the port speaks the two agree, and a code outside the table commits at
-    once."""
+    """The port's servers read the table where the JAX servers name their
+    gradient codes (``GradientUpdate``, ``CompressedUpdate``, and the
+    elastic server's ``ShardPush``): on the codes the port speaks the two
+    agree, and a code outside the table commits at once."""
     for code in WIRE_SCHEMAS:
         assert _ack_waits_for_wal(code) == (
-            code in (MessageCode.GradientUpdate, MessageCode.CompressedUpdate)), code.name
-    assert not _ack_waits_for_wal(MessageCode.ShardPush)
+            code in (MessageCode.GradientUpdate, MessageCode.CompressedUpdate,
+                     MessageCode.ShardPush)), code.name
+    assert not _ack_waits_for_wal(MessageCode.RollbackDone)
 
 
 def test_code_values_are_collision_free():
