@@ -304,6 +304,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
    and on every shard one speculated tail applied and the victim's late
    one dropped. The ``kernels`` line's K1 and K2 launches add (a)'s
    workers' counts.
+22. the durability and health barriers, in one process at AlexNet batch 64
+   on the card (two elastic shard servers with a WAL on the reliable wire,
+   two workers as threads), each part
+   with the kernel counts zeroed just before and read just after its first
+   run: (a) ``coord.drill.recovery_drill`` under its default plan, seed 0:
+   a snapshot barrier publishes a manifest, both shards crash silently and
+   restore from it and their WALs; the manifest validates, each restored
+   apply seq is at least the manifest's, WAL records were replayed, acked
+   <= applied for every worker and shard, every shard serves pulls again,
+   and the chaos log equals a second run's on the card and a run's on the
+   CPU byte for byte; MTTR, restore ms and the records replayed printed;
+   (b) ``coord.health.health_scenario``, seed 0: every quarantined push
+   nacked and none in a WAL, the poisoned worker's lease revoked, at least
+   one watchdog rollback with ``RollbackDone`` from both shards, and each
+   shard's rolled-back vector equal bit for bit to a fresh
+   ``ParameterServer``'s restore of the same checkpoint and WAL capped at
+   the manifest's apply seq; the reject rate, nack round trips and
+   rollback MTTR printed; (c) ``coord.drill.coordfail_drill(kill_during=
+   "snapshot")``, seed 0: epochs 1 then 2, no member evicted, the new
+   life's barrier publishes a manifest; the steps lost, MTTR and restore
+   ms printed. Every flat_axpy and relu_pool2 launch of the three first
+   runs joins the ``kernels`` line. The drills' files live under a
+   temporary directory the phase removes.
 
 Then the ``kernels`` line, the ``nvidia-smi`` name/power line, and last the
 result line ``{"ok": true, "device": {...}}``. Without a card, or without
@@ -4579,6 +4602,177 @@ def phase_elastic(torch, backend="cuda", model="alexnet", processes=None):
     return launches
 
 
+#: phase 22: the drills' batch (the DownPour batch) and the worlds' sizes
+DRILL_BATCH, DRILL_WORKERS, DRILL_SHARDS = 64, 2, 2
+
+
+def _zero_kernel_counts() -> None:
+    from distributed_ml_pytorch_tpu_torch.ops import fused_conv as fc
+    from distributed_ml_pytorch_tpu_torch.ops import fused_update as fu
+
+    fu.launches = 0
+    for k in fc.launches:
+        fc.launches[k] = 0
+
+
+def _kernel_counts() -> dict:
+    from distributed_ml_pytorch_tpu_torch.ops import fused_conv as fc
+    from distributed_ml_pytorch_tpu_torch.ops import fused_update as fu
+
+    return {"flat_axpy": fu.launches, "relu_pool2_fwd": fc.launches["relu_pool2_fwd"],
+            "relu_pool2_bwd": fc.launches["relu_pool2_bwd"]}
+
+
+def _require_step_counts(counts, device_steps, forwards, what):
+    """K1 once a worker step that updated, K2 three times a forward and a
+    backward (AlexNet's three relu->pool tails)."""
+    require(counts["flat_axpy"] == device_steps
+            and counts["relu_pool2_fwd"] == 3 * forwards
+            and counts["relu_pool2_bwd"] == 3 * forwards,
+            f"{what}: kernel counts {counts} for {device_steps} updates, {forwards} steps")
+
+
+def _drill_run(torch, fn, base, **kw):
+    """One first run of a phase 22 part: counts zeroed just before, read
+    just after; its state under ``base``."""
+    os.makedirs(base, exist_ok=True)
+    if kw.get("device") == "cuda":
+        torch.cuda.synchronize()
+    _zero_kernel_counts()
+    out = fn(base_dir=base, **kw)
+    if kw.get("device") == "cuda":
+        torch.cuda.synchronize()
+    return out, _kernel_counts()
+
+
+def phase_recovery_drill(torch, tmp, model="alexnet", device="cuda", batch=DRILL_BATCH):
+    """Phase 22 (a); returns its first run's kernel counts."""
+    from distributed_ml_pytorch_tpu_torch.coord.drill import default_drill_plan, recovery_drill
+    from distributed_ml_pytorch_tpu_torch.coord.manifest import FleetManifest
+
+    t0 = time.monotonic()
+    kw = dict(seed=0, plan=default_drill_plan(0), model=model, batch=batch)
+    out, counts = _drill_run(torch, recovery_drill, os.path.join(tmp, "drill0"),
+                             device=device, **kw)
+    require(out["ok"], f"recovery drill: errors {out['errors']}, events {out['events'][-6:]}")
+    manifest = FleetManifest.from_dict(out["manifest"]).validate()
+    for i, seq in out["restored_apply_seqs"].items():
+        require(seq >= manifest.entry_for(1 + i).apply_seq,
+                f"shard {i} restored apply seq {seq} behind the manifest's")
+    require(len(out["restored_apply_seqs"]) == DRILL_SHARDS, "not every shard restored")
+    require(out["replayed_updates"] > 0, "the restore replayed no WAL record")
+    require(out["accounting_ok"], f"acked {out['acked']} > applied {out['applied']}")
+    require(out["served_again"] and out["mttr_s"] is not None,
+            "a restored shard never served a pull")
+    steps = sum(len(v) for v in out["losses"].values())
+    if device == "cuda":
+        _require_step_counts(counts, steps, steps, "recovery drill")
+    again = recovery_drill(base_dir=os.path.join(tmp, "drill1"), device=device, **kw)
+    # a run on the CPU already is the CPU's run
+    on_cpu = (again if device == "cpu" else
+              recovery_drill(base_dir=os.path.join(tmp, "drill2"), device="cpu", **kw))
+    require(again["ok"] and on_cpu["ok"], f"a comparison drill failed: {again['errors']} "
+            f"{on_cpu['errors']}")
+    log = out["chaos_lines"]
+    require(log and log == again["chaos_lines"], "the drill's chaos log differs between runs")
+    require(log == on_cpu["chaos_lines"], "the drill's chaos log on the card differs from the "
+            "CPU's")
+    emit({"phase": "recovery_drill", "ok": True, "model": model, "device": device,
+          "batch": batch, "mttr_ms": out["mttr_s"] * 1e3, "restore_ms": out["restore_s"] * 1e3,
+          "replayed_records": out["replayed_updates"],
+          "restored_apply_seqs": out["restored_apply_seqs"],
+          "manifest_apply_seqs": {s.server_id: s.apply_seq for s in manifest.shards},
+          "acked": out["acked"], "applied": out["applied"], "chaos_counts": out["chaos_counts"],
+          "mttr_ms_runs": [r["mttr_s"] * 1e3 for r in (out, again, on_cpu)],
+          "wall_s": time.monotonic() - t0, "kernel_counts": counts})
+    return counts
+
+
+def phase_health(torch, tmp, model="alexnet", device="cuda", batch=DRILL_BATCH):
+    """Phase 22 (b); returns the run's kernel counts."""
+    from distributed_ml_pytorch_tpu_torch.coord.health import health_scenario
+
+    t0 = time.monotonic()
+    base = os.path.join(tmp, "health")
+    out, counts = _drill_run(torch, health_scenario, base, seed=0, model=model, device=device,
+                             batch=batch)
+    require(out["ok"], f"health scenario: errors {out['errors']}, events {out['events'][-8:]}")
+    require(out["nacks_explicit"] and out["quarantined_total"] > 0,
+            f"quarantined {out['quarantined_total']}, nacks {out['nacks_sent_total']}")
+    # matched by delivery envelope as the records were appended, before the
+    # rollback dropped the log's tail: the scaled (finite) pushes count too
+    require(out["wal_clean"] and out["quarantined_in_wal"] == 0,
+            f"{out['quarantined_in_wal']} quarantined push(es) appended to a WAL, "
+            f"{out['wal_appended']} appended in all")
+    require(any("worker 4 lease REVOKED" in e for e in out["events"]),
+            "the poisoned worker (coordinator rank 4) was not revoked")
+    require(out["rollbacks"] >= 1 and out["rollback_reports"] == [1, 2],
+            f"rollbacks {out['rollbacks']}, RollbackDone from {out['rollback_reports']}")
+    require(out["rollback_bit_identical"] is True,
+            "a shard's rollback differs from a fresh restore of the same files")
+    applied = sum(sum(d.values()) for d in out["applied"].values())
+    seen = applied + out["quarantined_total"]
+    steps = sum(len(v) for v in out["losses"].values())
+    emit({"phase": "health", "ok": True, "model": model, "device": device, "batch": batch,
+          "reject_rate_pct": 100.0 * out["quarantined_total"] / seen if seen else 0.0,
+          "nack_round_trips": sum(out["worker_nacks"].values()),
+          "rollback_mttr_ms": out["rollback_mttr_s"] * 1e3,
+          "rollbacks": out["rollbacks"], "revoked_workers": out["revoked_workers"],
+          "quarantined": out["quarantined_total"], "chaos_counts": out["chaos_counts"],
+          "steps": steps, "probes": out["probes"], "wal_appended": out["wal_appended"],
+          "wall_s": time.monotonic() - t0, "kernel_counts": counts})
+    if device == "cuda":
+        # the poisoned worker's loss probes while the watchdog is armed are
+        # forwards of their own
+        require(0 < counts["flat_axpy"] <= steps
+                and counts["relu_pool2_fwd"] == 3 * (steps + out["probes"])
+                and counts["relu_pool2_bwd"] == 3 * steps,
+                f"health: kernel counts {counts} for {steps} steps, {out['probes']} probes")
+    return counts
+
+
+def phase_coordfail(torch, tmp, model="alexnet", device="cuda", batch=DRILL_BATCH):
+    """Phase 22 (c); returns the run's kernel counts."""
+    from distributed_ml_pytorch_tpu_torch.coord.drill import coordfail_drill
+
+    t0 = time.monotonic()
+    steps = 20
+    out, counts = _drill_run(torch, coordfail_drill, os.path.join(tmp, "coordfail"), seed=0,
+                             steps=steps, kill_during="snapshot", model=model, device=device,
+                             batch=batch)
+    require(out["ok"], f"coordfail drill: errors {out['errors']}, violations "
+            f"{out['violations']}, events {out['events2'][-6:]}")
+    require(out["epochs"] == (1, 2), f"epochs {out['epochs']}")
+    require(not out["evictions"], f"members evicted: {out['evictions']}")
+    require(out["manifests_written"][1] >= 1, "the new life published no manifest")
+    done = sum(len(v) for v in out["losses"].values())
+    if device == "cuda":
+        _require_step_counts(counts, done, done, "coordfail drill")
+    emit({"phase": "coordfail", "ok": True, "model": model, "device": device, "batch": batch,
+          "steps_lost": steps * DRILL_WORKERS - done, "mttr_ms": out["mttr_s"] * 1e3,
+          "restore_ms": out["restore_s"] * 1e3, "outage_ms": out["outage_s"] * 1e3,
+          "restored_members": out["restored_members"], "epochs": out["epochs"],
+          "stale_epoch_dropped": out["stale_epoch_dropped"],
+          "wall_s": time.monotonic() - t0, "kernel_counts": counts})
+    return counts
+
+
+def phase_durability(torch, model="alexnet", device="cuda"):
+    """Phase 22: (a) the recovery drill, (b) the health scenario, (c) the
+    coordinator-failure drill; returns their first runs' kernel counts."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="smoke_durability_")
+    launches = {}
+    try:
+        for part in (phase_recovery_drill, phase_health, phase_coordfail):
+            _add_launches(launches, part(torch, tmp, model, device))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4641,6 +4835,9 @@ def main() -> int:
         elastic = phase_elastic(torch)
         for name in ("flat_axpy", "relu_pool2_fwd", "relu_pool2_bwd"):
             launches[name] += elastic[name]
+        durability = phase_durability(torch)
+        for name in ("flat_axpy", "relu_pool2_fwd", "relu_pool2_bwd"):
+            launches[name] += durability[name]
         smi = nvidia_smi_line()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -8,6 +8,7 @@
     python -m distributed_ml_pytorch_tpu_torch.bench_all --legs lm_32k,steps_to_accuracy,reliability
     python -m distributed_ml_pytorch_tpu_torch.bench_all --legs wire_bytes
     python -m distributed_ml_pytorch_tpu_torch.bench_all --legs elastic
+    python -m distributed_ml_pytorch_tpu_torch.bench_all --legs recovery,coordfail,health
     python -m distributed_ml_pytorch_tpu_torch.bench_all --device cpu --tiny
 
 One JSON line per measurement on stdout (the JAX ``emit`` record: config,
@@ -115,9 +116,27 @@ narration on stderr. Ported legs, under the JAX metric names:
   workers on the card, batch 16, cadence 2/2, lease 0.4 s, 72 steps, shard
   2 crashing at step 24), as
   ``elastic_rebalance_throughput_{before,during,after}``; host clock.
+- ``recovery``, ``coordfail``, ``health`` — config 3's durability and
+  health legs (JAX ``recovery_phase``, ``coordfail_phase``,
+  bench_all.py:1105-1188, and ``health_phase``, :1509-1580), each one
+  in-process fleet of two elastic shard servers and two LeNet workers on
+  the card at the scenario's defaults, seed 0: ``coord/drill.
+  recovery_drill`` under its default plan as ``recovery_mttr`` (every shard
+  killed, to every restored shard serving pulls again) and
+  ``recovery_restore`` (manifest load, checkpoint restore, WAL replay and
+  dedup seed of both shards); ``coord/drill.coordfail_drill(kill_during=
+  "snapshot")`` as ``coordfail_mttr`` (the coordinator killed mid-barrier,
+  to every member re-attached to the new life) and ``coordfail_restore``
+  (the epoch bump, checkpoint load and log replay), the worker steps lost
+  in the note; ``coord/health.health_scenario`` as ``health_reject_rate``
+  (quarantined of arriving pushes, %), ``health_nack_roundtrips`` (nacks
+  the workers heard) and ``health_rollback_mttr`` (the watchdog's barrier
+  to every shard's ``RollbackDone``); host clock.
 
-``--tiny`` shrinks every leg to test widths (a CPU run in seconds); its
-records keep the metric names and say so in their notes. Timing is
+``--tiny`` shrinks every other leg to test widths (a CPU run in seconds);
+its records keep the metric names and say so in their notes. The
+``recovery``, ``coordfail`` and ``health`` legs run their LeNet fleet
+with or without it. Timing is
 ``utils/devtime.device_time``: CUDA events on the card, wall clock on the
 CPU (the record's note names the source). The LM legs' FLOP numerator is
 ``utils/flops.lm_train_flops_6nd`` over the non-embedding parameters (XLA's
@@ -1427,6 +1446,108 @@ def elastic_phase(device, tiny: bool = False) -> dict:
     return res
 
 
+def _fleet_hw(device) -> str:
+    return "in-process fleet, " + ("the card" if torch.device(device).type == "cuda" else "CPU")
+
+
+def recovery_phase(device) -> dict:
+    """Config 3's durability leg: the recovery drill (snapshot barrier, both
+    shards killed silently, restore from manifest and WALs) priced as MTTR
+    and restore time, with the acked <= applied accounting in the note."""
+    import tempfile
+
+    from distributed_ml_pytorch_tpu_torch.coord.drill import default_drill_plan, recovery_drill
+
+    with tempfile.TemporaryDirectory(prefix="bench_drill_") as d:
+        out = recovery_drill(base_dir=d, seed=0, plan=default_drill_plan(0), device=device)
+    if not out["ok"] or out["mttr_s"] is None:
+        raise RuntimeError(f"recovery_phase incomplete: ok={out['ok']} errors={out['errors']} "
+                           f"events={out['events'][-5:]}")
+    acked = sum(sum(v.values()) for v in out["acked"].values())
+    applied = sum(sum(v.values()) for v in out["applied"].values())
+    hw = _fleet_hw(device)
+    res = {"recovery_mttr": out["mttr_s"] * 1e3, "recovery_restore": out["restore_s"] * 1e3}
+    emit(3, "recovery_mttr", res["recovery_mttr"], "ms", hw,
+         "kill ALL shards mid-epoch -> manifest+WAL restore -> every shard serving pulls "
+         f"again; {out['replayed_updates']} WAL update(s) replayed; acked={acked} <= "
+         f"applied={applied} (zero acked loss); 2 workers + 2 shards, LeNet, "
+         "coord/drill.recovery_drill")
+    emit(3, "recovery_restore", res["recovery_restore"], "ms", hw,
+         "manifest load + checkpoint restore + WAL replay + dedup reseed for both shards "
+         "(the MTTR component the durability plane owns)")
+    log(f"recovery_phase: replayed {out['replayed_updates']}, chaos {out['chaos_counts']}")
+    return res
+
+
+def coordfail_phase(device) -> dict:
+    """Config 3's control-plane durability leg: the coordinator killed
+    mid-barrier and restarted over its durable directory, priced as MTTR
+    and restore time, with the worker steps lost in the note."""
+    import tempfile
+
+    from distributed_ml_pytorch_tpu_torch.coord.drill import coordfail_drill
+
+    steps, n_workers, batch = 20, 2, 16
+    with tempfile.TemporaryDirectory(prefix="bench_coordfail_") as d:
+        out = coordfail_drill(base_dir=d, seed=0, steps=steps, kill_during="snapshot",
+                              batch=batch, device=device)
+    if not out["ok"] or out["mttr_s"] is None:
+        raise RuntimeError(f"coordfail_phase incomplete: ok={out['ok']} errors={out['errors']} "
+                           f"violations={out['violations']} events={out['events2'][-5:]}")
+    lost = steps * n_workers - sum(len(v) for v in out["losses"].values())
+    hw = _fleet_hw(device)
+    res = {"coordfail_mttr": out["mttr_s"] * 1e3, "coordfail_restore": out["restore_s"] * 1e3}
+    emit(3, "coordfail_mttr", res["coordfail_mttr"], "ms", hw,
+         "kill the coordinator mid-snapshot-barrier -> restart from its ckpt+WAL (epoch "
+         f"{out['epochs'][0]} -> {out['epochs'][1]}) -> every member re-attached; "
+         f"{out['restored_members']} member(s) restored, {len(out['evictions'])} evicted "
+         f"during the grace window; {lost} of {steps * n_workers} worker steps "
+         f"({lost * batch} samples) lost to the outage (fail-open); 2 workers + 2 shards, "
+         "LeNet, coord/drill.coordfail_drill")
+    emit(3, "coordfail_restore", res["coordfail_restore"], "ms", hw,
+         "persisted-epoch bump + checkpoint load + control-plane WAL replay (member table, "
+         "map/snapshot clocks) — the MTTR component the durable coordinator owns")
+    log(f"coordfail_phase: outage {out['outage_s'] * 1e3:.0f} ms, chaos {out['chaos_counts']}")
+    return res
+
+
+def health_phase(device) -> dict:
+    """Config 3's numerical-health leg: the poisoned-worker scenario priced
+    as the quarantine reject rate, the nacks the workers heard and the
+    watchdog's rollback MTTR."""
+    import tempfile
+
+    from distributed_ml_pytorch_tpu_torch.coord.health import health_scenario
+
+    with tempfile.TemporaryDirectory(prefix="bench_health_") as d:
+        out = health_scenario(base_dir=d, seed=0, device=device)
+    if not out["ok"] or out["rollbacks"] < 1 or out["rollback_mttr_s"] is None:
+        raise RuntimeError(f"health_phase incomplete: ok={out['ok']} rollbacks="
+                           f"{out['rollbacks']} errors={out['errors']} "
+                           f"events={out['events'][-5:]}")
+    applied = sum(sum(v.values()) for v in out["applied"].values())
+    seen = applied + out["quarantined_total"]
+    hw = _fleet_hw(device)
+    res = {"health_reject_rate": 100.0 * out["quarantined_total"] / seen if seen else 0.0,
+           "health_nack_roundtrips": float(sum(out["worker_nacks"].values())),
+           "health_rollback_mttr": out["rollback_mttr_s"] * 1e3}
+    emit(3, "health_reject_rate", res["health_reject_rate"], "%", hw,
+         f"admission gate: {out['quarantined_total']} of {seen} arriving updates quarantined "
+         f"(finiteness + per-worker EWMA z-score), every one explicitly nacked "
+         f"({out['nacks_sent_total']} UpdateNacks), zero in any WAL; 2 workers + 2 shards, one "
+         "poisoned push channel, coord/health.health_scenario")
+    emit(3, "health_nack_roundtrips", res["health_nack_roundtrips"], "nacks", hw,
+         "UpdateNacks that completed the round trip (server reject -> worker heard it, "
+         f"resynced by pulling fresh params and held its update); {out['revoked_workers']} "
+         "worker(s) reputation-revoked by the coordinator")
+    emit(3, "health_rollback_mttr", res["health_rollback_mttr"], "ms", hw,
+         "coordinator watchdog detects fleet loss divergence -> RollbackRequest barrier -> "
+         "both shards restore the last good FleetManifest (ckpt + WAL capped at its apply "
+         "seq) -> all RollbackDone reports in; workers drop accumulators and pull")
+    log(f"health_phase: revoked {out['revoked_workers']}, chaos {out['chaos_counts']}")
+    return res
+
+
 LEGS = {
     "alexnet": lambda dev, tiny: alexnet_phase(dev, tiny=tiny),
     "lm": lambda dev, tiny: lm_phase(dev, tiny=tiny),
@@ -1439,6 +1560,9 @@ LEGS = {
     "reliability": lambda dev, tiny: reliability_phase(dev, tiny=tiny),
     "wire_bytes": lambda dev, tiny: wire_bytes_phase(dev, tiny=tiny),
     "elastic": lambda dev, tiny: elastic_phase(dev, tiny=tiny),
+    "recovery": lambda dev, tiny: recovery_phase(dev),
+    "coordfail": lambda dev, tiny: coordfail_phase(dev),
+    "health": lambda dev, tiny: health_phase(dev),
 }
 
 

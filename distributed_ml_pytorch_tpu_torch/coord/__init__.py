@@ -8,13 +8,18 @@ run time, and Sandblaster-style straggler speculation.
 - :mod:`~.member` — :class:`CoordClient`, a member's side, and
   :class:`FleetView`;
 - :mod:`~.elastic` — ``ElasticShardServer``, a parameter server whose range
-  follows the map;
+  follows the map, with its snapshot and rollback mailboxes;
+- :mod:`~.manifest` — :class:`FleetManifest`, what a snapshot barrier
+  publishes and a restore trusts;
 - :mod:`~.demo` — the in-process elastic world and its scenario;
+- :mod:`~.drill` — the recovery drill and the coordinator-failure drill;
+- :mod:`~.health` — the numerical-health scenario (poisoned worker,
+  reputation, auto-rollback);
 - :mod:`~.cli` — the coordinator process (``python -m
   distributed_ml_pytorch_tpu_torch.coord.cli``).
 
-The durability and health barriers, gray failure and the scheduler, and
-the MPMD stage plane are not in this package yet.
+Gray failure and the scheduler, and the MPMD stage plane, are not in this
+package yet.
 """
 
 from distributed_ml_pytorch_tpu_torch.coord.shardmap import ShardEntry, ShardMap

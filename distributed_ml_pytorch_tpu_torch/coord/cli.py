@@ -13,12 +13,21 @@ The hub of an elastic PS fleet over TCP::
     # a third worker joins, a shard crashes, the map rebalances
     python -m distributed_ml_pytorch_tpu_torch.coord.cli --demo
 
+    # the recovery drill (snapshot, kill every shard, restore from the
+    # manifest and the WALs) and the numerical-health scenario (poisoned
+    # worker, nacks, reputation, auto-rollback), in one process each
+    python -m distributed_ml_pytorch_tpu_torch.coord.cli --drill --model lenet
+    python -m distributed_ml_pytorch_tpu_torch.coord.cli --health --model lenet
+
 The hub binds and serves at once (``TCPTransport(wait_for=0)``): the members
-are whoever dials in. On exit it prints its last 64 decisions and ``fleet at
-exit:`` with the fleet state and the final shard map. The JAX CLI's flags of
-the later planes (the drills, the health, MPMD and scheduler scenarios,
-auto-rollback, snapshots, manifests, reputation and the metrics dump) are
-absent, so argparse rejects them.
+are whoever dials in. ``--manifest-dir`` and ``--snapshot-interval`` drive
+its snapshot barrier, ``--auto-rollback`` and ``--rollback-loss-factor``
+its watchdog, ``--reputation-nacks`` worker reputation. On exit it prints
+its last 64 decisions and ``fleet at exit:`` with the fleet state and the
+final shard map. ``--drill``, ``--health`` and ``--demo`` print their
+summary and exit 0 only if it is ok. The JAX CLI's flags of the later
+planes (the MPMD and scheduler scenarios and the metrics dump) are absent,
+so argparse rejects them.
 """
 
 from __future__ import annotations
@@ -54,8 +63,31 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--demo", action="store_true",
                    help="run the in-process elastic demo (join + shard crash + rebalance) "
                         "and exit")
+    p.add_argument("--drill", action="store_true",
+                   help="run the in-process disaster-recovery drill (snapshot barrier, kill "
+                        "ALL shards, restore from manifest + WAL, sequence-accounted) and exit")
+    p.add_argument("--health", action="store_true",
+                   help="run the in-process numerical-health scenario (admission gate + "
+                        "nacks, seeded SDC poisoned worker, reputation revocation, "
+                        "coordinator auto-rollback) and exit")
+    p.add_argument("--auto-rollback", action="store_true",
+                   help="TCP hub mode: watch the fleet's loss telemetry and drive "
+                        "RollbackRequest barriers to the last good manifest on "
+                        "divergence/nonfinite losses")
+    p.add_argument("--rollback-loss-factor", type=float, default=2.0,
+                   help="auto-rollback: trigger when the fleet-mean loss EWMA exceeds this "
+                        "multiple of its best")
+    p.add_argument("--reputation-nacks", type=int, default=0,
+                   help="revoke a worker's lease after this many admission nacks since it "
+                        "(re)joined (0 = off)")
+    p.add_argument("--manifest-dir", type=str, default="",
+                   help="directory for fleet snapshot manifests (TCP hub mode; empty = "
+                        "snapshots stay in memory)")
+    p.add_argument("--snapshot-interval", type=float, default=0.0,
+                   help="seconds between automatic fleet snapshot barriers (0 = only on "
+                        "demand)")
     p.add_argument("--backend", type=str, default="cuda", choices=["cuda", "cpu"],
-                   help="--demo: the workers' device")
+                   help="--demo, --drill, --health: the workers' device")
     p.add_argument("--seed", type=int, default=0)
     return p
 
@@ -79,11 +111,34 @@ def run_demo(args) -> int:
     return 0 if summary.get("ok") else 1
 
 
+def run_drill(args) -> int:
+    """The recovery drill in one process (:func:`~.drill.drill_demo`)."""
+    from distributed_ml_pytorch_tpu_torch.coord.drill import drill_demo
+
+    summary = drill_demo(seed=args.seed, model=args.model, device=args.backend)
+    print("recovery drill:", summary)
+    return 0 if summary.get("ok") else 1
+
+
+def run_health(args) -> int:
+    """The numerical-health scenario in one process
+    (:func:`~.health.health_demo`)."""
+    from distributed_ml_pytorch_tpu_torch.coord.health import health_demo
+
+    summary = health_demo(seed=args.seed, model=args.model, device=args.backend)
+    print("health scenario:", summary)
+    return 0 if summary.get("ok") else 1
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     print(args)
     if args.demo:
         return run_demo(args)
+    if args.drill:
+        return run_drill(args)
+    if args.health:
+        return run_health(args)
 
     from distributed_ml_pytorch_tpu_torch.coord.coordinator import Coordinator
     from distributed_ml_pytorch_tpu_torch.utils.messaging import TCPTransport
@@ -93,7 +148,12 @@ def main(argv=None) -> int:
                              port=int(args.port), wait_for=0)
     coord = Coordinator(transport, n_params, lease=args.lease,
                         straggler_factor=args.straggler_factor,
-                        speculation=not args.no_speculation)
+                        speculation=not args.no_speculation,
+                        manifest_dir=args.manifest_dir or None,
+                        snapshot_interval=args.snapshot_interval,
+                        auto_rollback=args.auto_rollback,
+                        rollback_loss_factor=args.rollback_loss_factor,
+                        reputation_nacks=args.reputation_nacks)
     print(f"coordinator on {args.master}:{args.port} ({n_params} params, lease "
           f"{args.lease:.1f}s)", flush=True)
     try:

@@ -23,32 +23,66 @@ transports as everything else:
 - **Fleet state.** A compact ``FleetState`` broadcast (worker, shard and
   engine counts, live engine ranks, done flag, a metrics tail).
 
-Every frame the coordinator sends carries its epoch fence trailer
-(``messaging.stamp_epoch``; this coordinator's epoch is 1), which the
-member strips in one place. The decisions are functions of the frame and
-clock history (``handle`` and ``tick`` with an injectable clock), so tests
-drive them synchronously; :meth:`Coordinator.run` feeds them a transport
-and wall time.
+- **The snapshot barrier.** :meth:`Coordinator.trigger_snapshot` (or
+  ``snapshot_interval``) sends every live shard a ``SnapshotRequest``; each
+  checkpoints at its next version boundary and answers ``SnapshotDone``,
+  and the reports become one :class:`~.manifest.FleetManifest` under
+  ``manifest_dir``. A report under another map version, or a rebalance
+  mid-barrier, aborts it.
+- **Reputation and the rollback barrier.** A worker whose renewals report
+  ``reputation_nacks`` admission nacks in one life has its lease revoked
+  (``revoke_member``; its joins are refused for ``reputation_cooldown``
+  s). The watchdog (``_check_numerical_health``) tracks the best fleet-mean
+  loss EWMA on every tick and, when ``auto_rollback`` arms it, fires a
+  ``RollbackRequest`` barrier on a nonfinite loss or a mean past
+  ``rollback_loss_factor`` times the best: shards restore the last good
+  manifest in place and answer ``RollbackDone``, workers drop their
+  accumulators and pull; ``rollback_mttrs`` keeps trigger to all-reported.
+- **The durable coordinator.** With ``durable_dir`` every transition is
+  logged (``coord.wal``, log before mutate) before it is broadcast, a JSON
+  checkpoint (``coord_ckpt.json``) compacts the log every ``ckpt_every``
+  records, and a new life replays both. A persisted epoch
+  (``coord_epoch``, written before the life's first frame) stamps every
+  frame this coordinator sends (``messaging.stamp_epoch``), so a member
+  drops the frames of an older life; a restart opens a ``grace`` window
+  (one lease by default) in which no lease expires and no speculation
+  fires while the members' join retries re-attach them. The files' bytes
+  are the JAX package's for the same frame history.
 
-Not in this package yet, and refused rather than ignored: the durability
-and health barriers (snapshots, manifests, rollback, reputation, a durable
-coordinator with its grace window), the engine-scaling advisory, and an
-attached scheduler or gray-failure policy. Their frames (any code outside
-this package's ``WIRE_SCHEMAS``) reaching the coordinator are dropped and
-counted in ``later_plane_dropped``.
+The decisions are functions of the frame and clock history (``handle`` and
+``tick`` with an injectable clock), so tests drive them synchronously;
+:meth:`Coordinator.run` feeds them a transport and wall time.
+
+Not in this package yet, and refused rather than ignored: the
+engine-scaling advisory, the scheduler's park table
+(``restore_parked``, and park or scheduler records in a ``durable_dir``),
+an attached scheduler or gray-failure policy, and the flight recorder. The
+frames of those planes (any code outside this package's ``WIRE_SCHEMAS``)
+reaching the coordinator are dropped and counted in
+``later_plane_dropped``.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import json
 import logging
+import os
 import threading
 import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-from distributed_ml_pytorch_tpu_torch.coord.shardmap import ShardMap, rebalance
+from distributed_ml_pytorch_tpu_torch.coord.manifest import (
+    MANIFEST_NAME,
+    FleetManifest,
+    ManifestError,
+    ShardRecord,
+)
+from distributed_ml_pytorch_tpu_torch.coord.shardmap import ShardEntry, ShardMap, rebalance
+from distributed_ml_pytorch_tpu_torch.utils.durability import atomic_write
 from distributed_ml_pytorch_tpu_torch.utils.health import clamp_finite32
 from distributed_ml_pytorch_tpu_torch.utils.messaging import (
     WIRE_SCHEMAS,
@@ -59,6 +93,7 @@ from distributed_ml_pytorch_tpu_torch.utils.messaging import (
     stamp_epoch,
 )
 from distributed_ml_pytorch_tpu_torch.utils.obs import BoundedEvents
+from distributed_ml_pytorch_tpu_torch.utils.wal import WriteAheadLog
 
 _LOGGER = logging.getLogger(__name__)
 
@@ -71,31 +106,39 @@ KIND_AGENT = 4
 _KIND_NAMES = {KIND_WORKER: "worker", KIND_SHARD: "shard", KIND_ENGINE: "engine",
                KIND_STAGE: "stage", KIND_AGENT: "agent"}
 
+#: the files of a coordinator's ``durable_dir``, the JAX names
+COORD_EPOCH_NAME = "coord_epoch"
+COORD_CKPT_NAME = "coord_ckpt.json"
+COORD_WAL_NAME = "coord.wal"
+
+#: the scheduler's plane, named where a durable directory holds its records
+_SCHED_PLANE = "the multi-tenant scheduler (its park table and ledger)"
+
+
+def _op_to_f32(op: dict) -> np.ndarray:
+    """One coordinator log record: the JSON transition, padded with spaces
+    to whole float32 words, so it rides ``utils/wal.py``'s float32 record
+    format byte for byte (replay hands the same bytes back)."""
+    raw = json.dumps(op, sort_keys=True).encode("utf-8")
+    raw += b" " * (-len(raw) % 4)
+    return np.frombuffer(raw, np.float32)
+
+
+def _f32_to_op(payload: np.ndarray) -> dict:
+    return json.loads(payload.tobytes().decode("utf-8"))
+
 
 def later_plane(code) -> bool:
     """A code outside this package's ``WIRE_SCHEMAS``: a frame of a plane
-    this package does not have yet (snapshots, rollback, the scheduler, the
-    MPMD stages), dropped and counted, never half-handled."""
+    this package does not have yet (the scheduler's preempt, grant and
+    resume, the MPMD stages), dropped and counted, never half-handled."""
     return code not in WIRE_SCHEMAS
 
 
 #: the JAX constructor's options of the later planes, with their defaults
 #: and the plane each belongs to: any other value raises
 _LATER_OPTIONS = {
-    "manifest_dir": (None, "the snapshot barrier"),
-    "snapshot_interval": (0.0, "the snapshot barrier"),
-    "snapshot_timeout": (30.0, "the snapshot barrier"),
-    "restore_manifest": (None, "the snapshot barrier"),
-    "auto_rollback": (False, "the rollback barrier"),
-    "rollback_loss_factor": (2.0, "the rollback barrier"),
-    "rollback_cooldown": (10.0, "the rollback barrier"),
-    "rollback_timeout": (30.0, "the rollback barrier"),
-    "reputation_nacks": (0, "worker reputation"),
-    "reputation_cooldown": (10.0, "worker reputation"),
-    "durable_dir": (None, "the durable coordinator"),
-    "grace": (None, "the durable coordinator"),
-    "restore_parked": (True, "the durable coordinator"),
-    "ckpt_every": (16, "the durable coordinator"),
+    "restore_parked": (True, _SCHED_PLANE),
     "engine_occ_high": (0.0, "engine scaling"),
     "engine_occ_low": (0.0, "engine scaling"),
     "engine_slo_ttft_ms": (0.0, "engine scaling"),
@@ -144,6 +187,32 @@ def encode_renew(incarnation: int, push_count: int = 0, step: int = 0, ewma_ms: 
          clamp_finite32(gnorm_ewma), clamp_finite32(retrans_rate), clamp_finite32(nack_rate),
          clamp_finite32(blocked_s), clamp_finite32(fsync_p95_ms), clamp_finite32(busy_ratio),
          *tail], np.float32)
+
+
+def encode_snapshot_request(snapshot_id: int, map_version: int) -> np.ndarray:
+    return np.asarray([*_split16(snapshot_id), *_split16(map_version)], np.float32)
+
+
+def encode_snapshot_done(snapshot_id: int, map_version: int, lo: int, hi: int,
+                         apply_seq: int, push_count: int) -> np.ndarray:
+    return np.asarray([*_split16(snapshot_id), *_split16(map_version), *_split16(lo),
+                       *_split16(hi), *_split16(apply_seq), *_split16(push_count)],
+                      np.float32)
+
+
+def encode_rollback_request(rollback_id: int, snapshot_id: int, map_version: int,
+                            phase: int) -> np.ndarray:
+    """Phase 0 starts the barrier (shards restore, workers drop their
+    accumulators and pull, frontends hold submits); phase 1 ends it,
+    completed or abandoned."""
+    return np.asarray([*_split16(rollback_id), *_split16(snapshot_id),
+                       *_split16(map_version), float(phase)], np.float32)
+
+
+def encode_rollback_done(rollback_id: int, map_version: int, lo: int, hi: int,
+                         apply_seq: int) -> np.ndarray:
+    return np.asarray([*_split16(rollback_id), *_split16(map_version), *_split16(lo),
+                       *_split16(hi), *_split16(apply_seq)], np.float32)
 
 
 #: the FleetState tail's section separator (engine ranks are non-negative)
@@ -228,12 +297,25 @@ class Coordinator:
 
     ``lease`` is the seconds of silence after which a member is removed;
     ``straggler_factor`` and ``straggler_after_steps`` arm the straggler
-    detector, ``speculation`` turns it on; ``clock`` is the time source."""
+    detector, ``speculation`` turns it on; ``clock`` is the time source.
+    ``manifest_dir``, ``snapshot_interval``, ``snapshot_timeout`` and
+    ``restore_manifest`` (a :class:`~.manifest.FleetManifest` whose map and
+    snapshot clock a disaster recovery adopts) drive the snapshot barrier;
+    ``auto_rollback``, ``rollback_loss_factor``, ``rollback_cooldown`` and
+    ``rollback_timeout`` the rollback barrier; ``reputation_nacks`` and
+    ``reputation_cooldown`` worker reputation; ``durable_dir``, ``grace``
+    and ``ckpt_every`` the durable coordinator."""
 
     def __init__(self, transport: Optional[Transport], n_params: int, *, lease: float = 2.0,
                  straggler_factor: float = 3.0, straggler_after_steps: int = 4,
                  speculation: bool = True, clock: Callable[[], float] = time.monotonic,
-                 **later):
+                 manifest_dir: Optional[str] = None, snapshot_interval: float = 0.0,
+                 snapshot_timeout: float = 30.0, restore_manifest=None,
+                 auto_rollback: bool = False, rollback_loss_factor: float = 2.0,
+                 rollback_cooldown: float = 10.0, rollback_timeout: float = 30.0,
+                 reputation_nacks: int = 0, reputation_cooldown: float = 10.0,
+                 durable_dir: Optional[str] = None, grace: Optional[float] = None,
+                 ckpt_every: int = 16, **later):
         refuse_later_options("Coordinator", later, _LATER_OPTIONS)
         self.transport = transport
         self.lease = float(lease)
@@ -249,9 +331,64 @@ class Coordinator:
         self._stop = threading.Event()
         #: the decision log, a capped ring
         self.events = BoundedEvents(maxlen=1024)
-        #: a memory-only coordinator's epoch (a durable one bumps it per life)
-        self.epoch = 1
         self.later_plane_dropped = 0
+        # --- the snapshot barrier
+        self.manifest_dir = manifest_dir
+        self.snapshot_interval = float(snapshot_interval)
+        self.snapshot_timeout = float(snapshot_timeout)
+        self._snap_seq = 0
+        self._snap: Optional[dict] = None  # the barrier in flight
+        #: set by trigger_snapshot() from any thread, taken by tick()
+        self._snap_requested = False
+        self._next_snap_at = (self._clock() + self.snapshot_interval
+                              if self.snapshot_interval > 0 else None)
+        self.manifests_written = 0
+        self.last_manifest: Optional[FleetManifest] = None
+        # --- reputation and the rollback barrier
+        self.auto_rollback = bool(auto_rollback)
+        self.rollback_loss_factor = float(rollback_loss_factor)
+        self.rollback_cooldown = float(rollback_cooldown)
+        self.rollback_timeout = float(rollback_timeout)
+        self.reputation_nacks = int(reputation_nacks)
+        self.reputation_cooldown = float(reputation_cooldown)
+        self._roll: Optional[dict] = None  # the barrier in flight
+        self._roll_seq = 0
+        #: set by trigger_rollback() from any thread, taken by tick()
+        self._rollback_requested = False
+        self._next_rollback_at = 0.0
+        self.rollbacks_done = 0
+        self.rollbacks_abandoned = 0
+        self.rollback_mttrs = collections.deque(maxlen=256)
+        self._fleet_best_loss: Optional[float] = None
+        #: rank -> the nonfinite-loss count a barrier already consumed
+        self._bad_loss_seen: Dict[int, int] = {}
+        self._reputation_block: Dict[int, float] = {}  # rank -> until
+        self._block_logged: set = set()
+        self.revoked_workers = 0
+        # --- the durable coordinator
+        self.durable_dir = durable_dir
+        self.grace = grace
+        #: a memory-only coordinator's epoch; a durable one bumps it per life
+        self.epoch = 1
+        self._wal: Optional[WriteAheadLog] = None
+        self._wal_seq = 0
+        self._ckpt_seq = 0
+        self._ckpt_every = max(1, int(ckpt_every))
+        self._ckpt_path: Optional[str] = None
+        self._grace_until = 0.0
+        self._grace_pending: set = set()
+        self.restored_members = 0
+        if restore_manifest is not None:
+            # disaster recovery: the manifest's map and snapshot clock, so
+            # rebalances and snapshot ids continue instead of restarting
+            restore_manifest.validate()
+            self.shard_map = restore_manifest.shard_map
+            self._snap_seq = int(restore_manifest.snapshot_id)
+            self.last_manifest = restore_manifest
+            self._log(f"restored from manifest: snapshot {self._snap_seq}, "
+                      f"shard map v{self.shard_map.version}")
+        if durable_dir is not None:
+            self._init_durable()
 
     @property
     def sched(self):
@@ -276,6 +413,141 @@ class Coordinator:
     def _log(self, msg: str) -> None:
         self.events.append(msg)
         _LOGGER.info("coordinator: %s", msg)
+
+    # ----------------------------------------------------------- durability
+    def _init_durable(self) -> None:
+        """Open the epoch file, the checkpoint and the log, and rebuild the
+        previous life's state (in the constructor, before any frame)."""
+        os.makedirs(self.durable_dir, exist_ok=True)
+        epoch_path = os.path.join(self.durable_dir, COORD_EPOCH_NAME)
+        try:
+            with open(epoch_path, "r", encoding="utf-8") as f:
+                prev_epoch = int(f.read().strip() or 0)
+        except (OSError, ValueError):
+            prev_epoch = 0
+        # the fence: strictly monotonic across lives and durable before this
+        # life's first frame, so two lives over one directory are ordered
+        self.epoch = prev_epoch + 1
+        atomic_write(epoch_path, str(self.epoch).encode("utf-8"))
+        self._ckpt_path = os.path.join(self.durable_dir, COORD_CKPT_NAME)
+        try:
+            with open(self._ckpt_path, "rb") as f:
+                state = json.loads(f.read().decode("utf-8"))
+        except (OSError, ValueError):
+            state = None
+        self._wal = WriteAheadLog(os.path.join(self.durable_dir, COORD_WAL_NAME),
+                                  incarnation=self.epoch)
+        records, wal_stats = self._wal.replay()
+        self._restore_durable(state, records)
+        if prev_epoch and wal_stats.get("torn_tail"):
+            self._log("durable restart: dropped one torn WAL tail record (the crash "
+                      "artifact)")
+
+    def _restore_durable(self, state: Optional[dict], records) -> None:
+        now = self._clock()
+        base_seq = 0
+        if state is not None:
+            if state.get("parked") or state.get("sched"):
+                raise ValueError(
+                    f"coordinator checkpoint in {self.durable_dir!r} holds park or scheduler "
+                    f"state: {_SCHED_PLANE} is not in this package yet")
+            base_seq = int(state.get("wal_seq", 0))
+            for rank, kind, inc in state.get("members", ()):
+                self.members[int(rank)] = MemberInfo(int(rank), int(kind), int(inc), now)
+            m = state.get("map")
+            if m is not None:
+                self.shard_map = ShardMap(int(m["version"]), int(m["n_params"]),
+                                          [ShardEntry(*(int(v) for v in e))
+                                           for e in m.get("entries", ())])
+            self._snap_seq = int(state.get("snap_seq", self._snap_seq))
+            self._roll_seq = int(state.get("roll_seq", self._roll_seq))
+            self._next_task = int(state.get("next_task", self._next_task))
+        for rec in records:
+            if rec.seq <= base_seq:
+                continue  # the checkpoint covers it
+            self._wal_seq = max(self._wal_seq, int(rec.seq))
+            try:
+                op = _f32_to_op(rec.payload)
+            except (ValueError, UnicodeDecodeError):
+                continue  # an unreadable record: the state before it stands
+            self._apply_wal_op(op, now)
+        self._wal_seq = max(self._wal_seq, base_seq)
+        self._ckpt_seq = self._wal_seq
+        if not (self.members or self.shard_map.version):
+            return  # a first life over an empty directory
+        self.restored_members = len(self.members)
+        grace = self.lease if self.grace is None else float(self.grace)
+        self._grace_pending = set(self.members)
+        if grace > 0 and self._grace_pending:
+            self._grace_until = now + grace
+        if self.last_manifest is None and self.manifest_dir:
+            # adopt the previous life's published manifest, if one survives
+            try:
+                self.last_manifest = FleetManifest.load(self.manifest_path())
+            except ManifestError:
+                pass
+        self._log(f"restarted as epoch {self.epoch}: restored {len(self.members)} member(s), "
+                  f"map v{self.shard_map.version}, snapshot clock {self._snap_seq}, "
+                  "0 parked rank(s)"
+                  + (f"; grace window {grace:.1f}s awaiting {sorted(self._grace_pending)}"
+                     if self._grace_until else ""))
+
+    def _apply_wal_op(self, op: dict, now: float) -> None:
+        """Replay one logged transition: the mutation the live path applies
+        after logging it."""
+        kind = op.get("op")
+        if kind == "join":
+            self.members[int(op["rank"])] = MemberInfo(int(op["rank"]), int(op["kind"]),
+                                                       int(op["inc"]), now)
+        elif kind in ("leave", "expire", "revoke"):
+            self.members.pop(int(op["rank"]), None)
+        elif kind == "map":
+            self.shard_map = ShardMap(int(op["version"]), int(op["n_params"]),
+                                      [ShardEntry(*(int(v) for v in e))
+                                       for e in op.get("entries", ())])
+        elif kind == "snap":
+            self._snap_seq = max(self._snap_seq, int(op["id"]))
+        elif kind == "roll":
+            self._roll_seq = max(self._roll_seq, int(op["id"]))
+        elif kind in ("park", "unpark"):
+            raise ValueError(f"coordinator log in {self.durable_dir!r} holds a {kind!r} "
+                             f"record: {_SCHED_PLANE} is not in this package yet")
+        # "manifest" carries nothing beyond the snapshot clock: the manifest
+        # file is the durable artifact
+
+    def _wal_record(self, **op) -> None:
+        """Log one control-plane transition before it is applied (log, then
+        mutate); a memory-only coordinator logs nothing."""
+        if self._wal is None:
+            return
+        self._wal_seq += 1
+        self._wal.append(self._wal_seq, _op_to_f32(op))
+        self._wal.sync()
+
+    def checkpoint(self) -> None:
+        """Write the JSON checkpoint and truncate the log it covers."""
+        if self._wal is None or self._ckpt_path is None:
+            return
+        state = {
+            "epoch": int(self.epoch),
+            "wal_seq": int(self._wal_seq),
+            "members": [[m.rank, m.kind, m.incarnation] for m in self._live()],
+            "map": {
+                "version": int(self.shard_map.version),
+                "n_params": int(self.shard_map.n_params),
+                "entries": [[e.server_id, e.lo, e.hi, e.fresh_lo, e.fresh_hi]
+                            for e in self.shard_map.entries],
+            },
+            "snap_seq": int(self._snap_seq),
+            "roll_seq": int(self._roll_seq),
+            "next_task": int(self._next_task),
+            # the scheduler's plane is not in this package: nothing parked
+            "parked": {},
+            "sched": None,
+        }
+        atomic_write(self._ckpt_path, json.dumps(state, sort_keys=True).encode("utf-8"))
+        self._ckpt_seq = self._wal_seq
+        self._wal.truncate(self._wal_seq)
 
     def _live(self, kind: Optional[int] = None) -> List[MemberInfo]:
         out = [m for m in self.members.values() if kind is None or m.kind == kind]
@@ -347,10 +619,25 @@ class Coordinator:
         self._broadcast(MessageCode.ShardMapUpdate, self.shard_map.encode())
         self._broadcast(MessageCode.FleetState, self._fleet_frame())
 
+
+    def _broadcast_rollback(self, payload: np.ndarray) -> None:
+        """Rollback frames go to the live fleet and to the revoked ranks
+        still cooling down: a revoked worker keeps running (its pushes are
+        nacked at the gate) and holds an accumulator computed on the state
+        being discarded, which it must drop like everyone else."""
+        self._broadcast(MessageCode.RollbackRequest, payload)
+        live = {m.rank for m in self._live()}
+        for rank in self._reputation_block:
+            if rank not in live:
+                self._send(rank, MessageCode.RollbackRequest, payload)
+
     # -------------------------------------------------------------- handle
     def handle(self, sender: int, code: MessageCode, payload: np.ndarray) -> None:
         """Process one member frame, synchronously (tests call it directly)."""
         now = self._clock()
+        # any frame of a restored member re-attaches it: the grace window
+        # closes early once everyone is back
+        self._grace_pending.discard(sender)
         member = self.members.get(sender)
         if later_plane(code):
             self.later_plane_dropped += 1
@@ -365,10 +652,28 @@ class Coordinator:
                 self._log(f"ignored stale join of rank {sender} "
                           f"(inc {inc} < {member.incarnation})")
                 return
+            blocked_until = self._reputation_block.get(sender)
+            if blocked_until is not None:
+                if now < blocked_until:
+                    # a revoked worker's join retries wait out its cooldown,
+                    # logged once
+                    if sender not in self._block_logged:
+                        self._block_logged.add(sender)
+                        self._log(f"join of worker {sender} refused: reputation cooldown "
+                                  f"({blocked_until - now:.1f}s left)")
+                    return
+                del self._reputation_block[sender]
+                self._block_logged.discard(sender)
+                self._log(f"worker {sender} reputation cooldown over — rejoin admitted "
+                          "(fresh params via its pull)")
             is_new = member is None or member.incarnation != inc
             rebirth = member is not None and inc > member.incarnation
             if is_new:
+                self._wal_record(op="join", rank=sender, kind=kind, inc=inc)
                 self.members[sender] = MemberInfo(sender, kind, inc, now)
+                # a new life counts nonfinite losses from 0: the watchdog's
+                # consumed-evidence mark starts over with it
+                self._bad_loss_seen.pop(sender, None)
             else:
                 # the same life re-joining (members do, as insurance against
                 # a lease lost in a stall): refresh it, keep its telemetry
@@ -396,6 +701,7 @@ class Coordinator:
                 self._log(f"ignored stale leave of rank {sender} "
                           f"(inc {inc} != {member.incarnation})")
                 return
+            self._wal_record(op="leave", rank=sender)
             del self.members[sender]
             if member.kind == KIND_WORKER:
                 self.done_workers.add(sender)
@@ -405,6 +711,25 @@ class Coordinator:
                 self._rebalance("leave of shard server %d" % sender)
             else:
                 self._announce()
+            return
+        if code == MessageCode.SnapshotDone and payload.size >= 12:
+            if not np.isfinite(payload[:12]).all():
+                return
+            member.last_seen = now
+            self._on_snapshot_done(
+                sender, snapshot_id=_join16(payload[0], payload[1]),
+                map_version=_join16(payload[2], payload[3]), lo=_join16(payload[4], payload[5]),
+                hi=_join16(payload[6], payload[7]), apply_seq=_join16(payload[8], payload[9]),
+                push_count=_join16(payload[10], payload[11]))
+            return
+        if code == MessageCode.RollbackDone and payload.size >= 10:
+            if not np.isfinite(payload[:10]).all():
+                return
+            member.last_seen = now
+            self._on_rollback_done(
+                sender, rollback_id=_join16(payload[0], payload[1]),
+                map_version=_join16(payload[2], payload[3]), lo=_join16(payload[4], payload[5]),
+                hi=_join16(payload[6], payload[7]), apply_seq=_join16(payload[8], payload[9]))
             return
         # the 5-, 6- and 10-field renewals are full renewals too: an absent
         # tail leaves the last report standing
@@ -432,12 +757,14 @@ class Coordinator:
                                   "circuits closed)")
                 member.wire_open = wire_open
             if n >= 10:
+                # nacks drive reputation; bad_loss and loss_ewma the watchdog
                 member.nacks = int(payload[6])
                 if member.nack_base < 0:
                     member.nack_base = member.nacks
                 member.bad_loss = int(payload[7])
                 member.loss_ewma = float(payload[8])
                 member.gnorm_ewma = float(payload[9])
+                self._check_reputation(member, now)
             if n >= 15:
                 member.retrans_rate = float(payload[10])
                 member.nack_rate = float(payload[11])
@@ -450,12 +777,29 @@ class Coordinator:
 
     # ---------------------------------------------------------------- tick
     def tick(self) -> bool:
-        """Expire leases, rebalance, and maybe speculate; True when the
-        membership changed. :meth:`run` calls it every ``lease / 4``."""
+        """Expire leases, rebalance, maybe speculate, and drive the barriers
+        and the checkpoint cadence; True when the membership changed.
+        :meth:`run` calls it every ``lease / 4``."""
         now = self._clock()
-        expired = [m for m in self.members.values() if now - m.last_seen > self.lease]
+        # a restart's grace window: restored members are presumed alive, so
+        # a control-plane blip does not turn into mass eviction
+        in_grace = bool(self._grace_until)
+        if in_grace:
+            if not self._grace_pending:
+                self._log("grace window closed early: every restored member re-attached")
+                self._grace_until = 0.0
+                in_grace = False
+            elif now >= self._grace_until:
+                self._log(f"grace window over; still silent: {sorted(self._grace_pending)} "
+                          "— lease expiry re-armed")
+                self._grace_until = 0.0
+                self._grace_pending.clear()
+                in_grace = False
+        expired = [] if in_grace else [m for m in self.members.values()
+                                       if now - m.last_seen > self.lease]
         shard_died = False
         for m in expired:
+            self._wal_record(op="expire", rank=m.rank)
             del self.members[m.rank]
             self.speculated.pop(m.rank, None)
             self._log(f"{m.kind_name} {m.rank} lease expired "
@@ -465,17 +809,269 @@ class Coordinator:
             self._rebalance("lease expiry")
         elif expired:
             self._announce()
-        if self.speculation:
+        if self.speculation and not in_grace:
             self.check_stragglers()
+        # --- the snapshot barrier
+        due = self._next_snap_at is not None and now >= self._next_snap_at
+        if self._snap_requested or due:
+            self._snap_requested = False
+            if self._next_snap_at is not None:
+                self._next_snap_at = now + self.snapshot_interval
+            self._start_snapshot(now)
+        if self._snap is not None and now - self._snap["started"] > self.snapshot_timeout:
+            self._log(f"snapshot {self._snap['id']} abandoned: shards "
+                      f"{sorted(self._snap['expected'] - set(self._snap['got']))} never "
+                      f"reported within {self.snapshot_timeout:.0f}s")
+            self._snap = None
+        # --- the watchdog and the rollback barrier
+        self._check_numerical_health(now)
+        if self._rollback_requested:
+            self._rollback_requested = False
+            self._start_rollback(now, "explicit trigger")
+        if self._roll is not None and now - self._roll["started"] > self.rollback_timeout:
+            missing = sorted(self._roll["expected"] - set(self._roll["got"]))
+            self._log(f"rollback {self._roll['id']} ABANDONED: shards {missing} never "
+                      f"reported within {self.rollback_timeout:.0f}s")
+            # the end goes out all the same: the members' holds must release
+            self._broadcast_rollback(encode_rollback_request(
+                self._roll["id"], self._roll["snapshot_id"], self._roll["map_version"], 1))
+            self.rollbacks_abandoned += 1
+            self._roll = None
+        # --- the checkpoint cadence (every logged transition is applied now)
+        if self._wal is not None and self._wal_seq - self._ckpt_seq >= self._ckpt_every:
+            self.checkpoint()
         return bool(expired)
 
     def _rebalance(self, why: str) -> None:
-        live = [m.rank for m in self._live(KIND_SHARD)]
-        self.shard_map = rebalance(self.shard_map, live)
+        new_map = rebalance(self.shard_map, [m.rank for m in self._live(KIND_SHARD)])
+        # the version bump is durable before it is installed and sent: a
+        # restart never hands out a version older than one on the wire
+        self._wal_record(op="map", version=new_map.version, n_params=new_map.n_params,
+                         entries=[[e.server_id, e.lo, e.hi, e.fresh_lo, e.fresh_hi]
+                                  for e in new_map.entries])
+        self.shard_map = new_map
         self._log(f"shard map v{self.shard_map.version} on {why}: "
                   + (", ".join(f"s{e.server_id}=[{e.lo},{e.hi})"
                                for e in self.shard_map.entries) or "EMPTY"))
+        if self._snap is not None:
+            # a barrier frozen at an older map can never complete consistently
+            self._log(f"snapshot {self._snap['id']} aborted: shard map moved to "
+                      f"v{self.shard_map.version} mid-barrier")
+            self._snap = None
         self._announce()
+
+    # ------------------------------------------------------ snapshot barrier
+    def trigger_snapshot(self) -> None:
+        """Ask for a fleet snapshot; the serve loop's next tick starts the
+        barrier. Safe from any thread."""
+        self._snap_requested = True
+
+    def manifest_path(self) -> Optional[str]:
+        if not self.manifest_dir:
+            return None
+        return os.path.join(self.manifest_dir, MANIFEST_NAME)
+
+    def _start_snapshot(self, now: float) -> None:
+        if self._snap is not None:
+            self._log(f"snapshot request ignored: snapshot {self._snap['id']} still in flight")
+            return
+        shards = self._live(KIND_SHARD)
+        if not shards:
+            self._log("snapshot request ignored: no live shard servers")
+            return
+        self._wal_record(op="snap", id=self._snap_seq + 1)
+        self._snap_seq += 1
+        self._snap = {"id": self._snap_seq, "map_version": self.shard_map.version,
+                      "expected": {m.rank for m in shards}, "got": {}, "started": now}
+        self._log(f"snapshot {self._snap_seq} started: map v{self.shard_map.version}, "
+                  f"awaiting {sorted(self._snap['expected'])}")
+        frame = encode_snapshot_request(self._snap_seq, self.shard_map.version)
+        for m in shards:
+            self._send(m.rank, MessageCode.SnapshotRequest, frame)
+
+    def _on_snapshot_done(self, sender: int, *, snapshot_id: int, map_version: int, lo: int,
+                          hi: int, apply_seq: int, push_count: int) -> None:
+        snap = self._snap
+        if snap is None or snapshot_id != snap["id"]:
+            self._log(f"stale SnapshotDone from shard {sender} (snapshot {snapshot_id})")
+            return
+        if map_version != snap["map_version"]:
+            # a shard checkpointed under another map: no manifest from a
+            # mixed barrier
+            self._log(f"snapshot {snap['id']} aborted: shard {sender} reported map "
+                      f"v{map_version}, barrier is at v{snap['map_version']}")
+            self._snap = None
+            return
+        entry = self.shard_map.entry_for(sender)
+        if entry is None or (entry.lo, entry.hi) != (lo, hi):
+            self._log(f"snapshot {snap['id']} aborted: shard {sender} reported range "
+                      f"[{lo},{hi}) but the map assigns "
+                      f"{None if entry is None else (entry.lo, entry.hi)}")
+            self._snap = None
+            return
+        snap["got"][sender] = ShardRecord(server_id=sender, lo=lo, hi=hi,
+                                          map_version=map_version, apply_seq=apply_seq,
+                                          push_count=push_count)
+        if set(snap["got"]) >= snap["expected"]:
+            self._finalize_snapshot(snap)
+            self._snap = None
+
+    def _finalize_snapshot(self, snap: dict) -> None:
+        manifest = FleetManifest(snapshot_id=snap["id"], map_version=snap["map_version"],
+                                 n_params=self.shard_map.n_params,
+                                 shards=tuple(snap["got"][r] for r in sorted(snap["got"])),
+                                 complete=True)
+        path = self.manifest_path()
+        if path is not None:
+            os.makedirs(self.manifest_dir, exist_ok=True)
+            manifest.write(path)
+        self._wal_record(op="manifest", snap_id=int(manifest.snapshot_id),
+                         map_version=int(manifest.map_version))
+        self.last_manifest = manifest
+        self.manifests_written += 1
+        self._log(f"snapshot {snap['id']} complete: map v{snap['map_version']}, "
+                  + ", ".join(f"s{r.server_id}=[{r.lo},{r.hi})@{r.apply_seq}"
+                              for r in manifest.shards)
+                  + (f" -> {path}" if path else " (in-memory only)"))
+
+    # --------------------------------------------------- reputation, rollback
+    def revoke_member(self, rank: int, why: str, cooldown: Optional[float] = None) -> None:
+        """Revoke a member's lease with a cooldown: its join retries are
+        refused until the cooldown ends, then it rejoins as a new life and
+        pulls fresh params; a revoked shard's range rebalances away."""
+        member = self.members.get(rank)
+        if member is None:
+            return
+        cd = self.reputation_cooldown if cooldown is None else float(cooldown)
+        self._wal_record(op="revoke", rank=rank)
+        del self.members[rank]
+        self.speculated.pop(rank, None)
+        self._reputation_block[rank] = self._clock() + cd
+        self.revoked_workers += 1
+        self._log(f"{member.kind_name} {rank} lease REVOKED: {why} — cooldown {cd:.1f}s, "
+                  "then it rejoins and pulls fresh params")
+        if member.kind == KIND_SHARD:
+            self._rebalance(f"revocation of shard server {rank}")
+        else:
+            self._announce()
+
+    def _check_reputation(self, member: MemberInfo, now: float) -> None:
+        """Revoke a worker whose admission nacks since it (re)joined reached
+        ``reputation_nacks``."""
+        if self.reputation_nacks <= 0 or member.kind != KIND_WORKER or member.nack_base < 0:
+            return
+        offenses = member.nacks - member.nack_base
+        if offenses < self.reputation_nacks:
+            return
+        self.revoke_member(member.rank, f"reputation: {offenses} quarantined update(s) "
+                                        "this life")
+
+    def trigger_rollback(self) -> None:
+        """Ask for a fleet rollback to the last good manifest; the serve
+        loop's next tick starts the barrier. Safe from any thread."""
+        self._rollback_requested = True
+
+    def _check_numerical_health(self, now: float) -> None:
+        """The watchdog: a worker reporting a new nonfinite loss, or the
+        fleet-mean loss EWMA past ``rollback_loss_factor`` times the best
+        fleet mean seen. It runs every tick, so the best loss tracks the
+        whole run; ``auto_rollback`` gates only the firing, so a watchdog
+        armed mid-run judges against the healthy baseline."""
+        if now < self._next_rollback_at or self._roll is not None:
+            return
+        workers = [m for m in self._live(KIND_WORKER) if m.reported]
+        if not workers:
+            return
+        why = None
+        bad = [m.rank for m in workers if m.bad_loss > self._bad_loss_seen.get(m.rank, 0)]
+        if bad:
+            why = f"worker(s) {bad} report nonfinite losses"
+        else:
+            cur = [m.loss_ewma for m in workers if m.loss_ewma > 0]
+            if cur:
+                mean_loss = sum(cur) / len(cur)
+                if self._fleet_best_loss is None or mean_loss < self._fleet_best_loss:
+                    self._fleet_best_loss = mean_loss
+                elif (self.rollback_loss_factor > 0
+                      and mean_loss > self.rollback_loss_factor * self._fleet_best_loss):
+                    why = (f"fleet loss EWMA {mean_loss:.4g} diverged past "
+                           f"{self.rollback_loss_factor:.2f}x best "
+                           f"{self._fleet_best_loss:.4g}")
+        if why is not None and self.auto_rollback:
+            self._start_rollback(now, why)
+
+    def _start_rollback(self, now: float, why: str) -> None:
+        if self._roll is not None:
+            self._log(f"rollback request ignored: rollback {self._roll['id']} still in flight")
+            return
+        manifest = self.last_manifest
+        if manifest is None:
+            self._log(f"rollback wanted ({why}) but no FleetManifest exists yet — nothing "
+                      "good to restore")
+            self._next_rollback_at = now + self.rollback_cooldown
+            return
+        if manifest.map_version != self.shard_map.version:
+            self._log(f"rollback wanted ({why}) but the manifest is for map "
+                      f"v{manifest.map_version}, fleet is at v{self.shard_map.version} — "
+                      "take a fresh snapshot first")
+            self._next_rollback_at = now + self.rollback_cooldown
+            return
+        shards = self._live(KIND_SHARD)
+        if not shards:
+            self._log(f"rollback wanted ({why}) but no live shard servers")
+            return
+        if self._snap is not None:
+            # a snapshot mid-rollback would capture the state being discarded
+            self._log(f"snapshot {self._snap['id']} aborted: rollback supersedes")
+            self._snap = None
+        self._wal_record(op="roll", id=self._roll_seq + 1)
+        self._roll_seq += 1
+        self._roll = {"id": self._roll_seq, "snapshot_id": int(manifest.snapshot_id),
+                      "map_version": int(manifest.map_version),
+                      "expected": {m.rank for m in shards}, "got": set(), "started": now}
+        self._next_rollback_at = now + self.rollback_cooldown
+        # the evidence that fired this barrier is spent: divergence must be
+        # shown again on telemetry from after the restore
+        for m in self.members.values():
+            self._bad_loss_seen[m.rank] = m.bad_loss
+            m.loss_ewma = 0.0
+        self._fleet_best_loss = None
+        self._log(f"ROLLBACK {self._roll_seq} started ({why}): restoring snapshot "
+                  f"{manifest.snapshot_id} / map v{manifest.map_version}, awaiting shards "
+                  f"{sorted(self._roll['expected'])}")
+        self._broadcast_rollback(encode_rollback_request(
+            self._roll_seq, manifest.snapshot_id, manifest.map_version, 0))
+
+    def _on_rollback_done(self, sender: int, *, rollback_id: int, map_version: int, lo: int,
+                          hi: int, apply_seq: int) -> None:
+        roll = self._roll
+        if roll is None or rollback_id != roll["id"]:
+            self._log(f"stale RollbackDone from shard {sender} (rollback {rollback_id})")
+            return
+        if map_version != roll["map_version"]:
+            self._log(f"rollback {roll['id']}: shard {sender} reported map v{map_version}, "
+                      f"barrier is at v{roll['map_version']} — ignoring (the timeout "
+                      "abandons a barrier that cannot complete)")
+            return
+        entry = self.shard_map.entry_for(sender)
+        if entry is None or (entry.lo, entry.hi) != (lo, hi):
+            self._log(f"rollback {roll['id']}: shard {sender} reported range [{lo},{hi}) but "
+                      f"the map assigns {None if entry is None else (entry.lo, entry.hi)} — "
+                      "ignoring")
+            return
+        roll["got"].add(sender)
+        self._log(f"rollback {roll['id']}: shard {sender} restored [{lo},{hi}) at apply seq "
+                  f"{apply_seq}")
+        if roll["expected"] <= roll["got"]:
+            mttr = self._clock() - roll["started"]
+            self.rollbacks_done += 1
+            self.rollback_mttrs.append(mttr)
+            self._log(f"ROLLBACK {roll['id']} complete in {mttr * 1e3:.0f} ms: fleet restored "
+                      f"to snapshot {roll['snapshot_id']} — workers resync by pull, frontends "
+                      "re-admit")
+            self._broadcast_rollback(encode_rollback_request(
+                roll["id"], roll["snapshot_id"], roll["map_version"], 1))
+            self._roll = None
 
     # ---------------------------------------------------------- speculation
     def _speculate(self, victim: MemberInfo, backup: MemberInfo) -> int:
@@ -541,7 +1137,9 @@ class Coordinator:
             now = self._clock()
             if deadline is not None and now >= deadline:
                 break
-            if now >= next_tick:
+            if now >= next_tick or self._snap_requested:
+                # a requested barrier starts at the next pass, not the next
+                # lease tick: the drills time their recovery in wall time
                 self.tick()
                 next_tick = now + max(0.05, self.lease / 4)
             msg = self.transport.recv(timeout=0.1)

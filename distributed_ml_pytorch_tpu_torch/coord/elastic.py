@@ -20,14 +20,31 @@ a parameter server whose range the coordinator assigns.
   and the range is the gate, checked before a compressed frame is decoded;
   an unstamped ``GradientUpdate`` is dropped;
 - a ``SpeculativeUpdate`` (a backup task's result) applies once per task
-  id: the victim's late copy is counted and dropped.
+  id: the victim's late copy is counted and dropped;
+- the snapshot and rollback barriers reach it through two mailboxes: the
+  client's listener parks the request, and the serve loop takes it between
+  applied updates, under the serve lock. A snapshot commits the WAL group,
+  checkpoints and reports (a request for a map version the server has left
+  still checkpoints, but reports the server's own version, so the
+  coordinator refuses the mixed barrier); a rollback restores this range
+  to the manifest at ``manifest_path`` in place
+  (``ParameterServer.rollback_restore``) and reports, and a manifest of
+  another version or range is a loud no-op. A parked rollback supersedes a
+  parked snapshot;
+- :meth:`ElasticShardServer.restore_from_manifest` is the disaster
+  recovery: a fresh server installs its range from the manifest and
+  restores checkpoint and WAL, and refuses loudly rather than serve zeros
+  or a clock behind the manifest's promise.
 
-Not in this package yet: the snapshot, rollback and park mailboxes and the
-restore from a fleet manifest.
+A :meth:`~ElasticShardServer.crash` is not a stop: the serve loop exits at
+once and serves, checkpoints, acks and reports nothing more.
+
+Not in this package yet: the scheduler's park mailbox.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 import threading
 import time
@@ -35,6 +52,7 @@ from typing import Optional
 
 import numpy as np
 
+from distributed_ml_pytorch_tpu_torch.coord.manifest import FleetManifest, ManifestError
 from distributed_ml_pytorch_tpu_torch.coord.member import CoordClient
 from distributed_ml_pytorch_tpu_torch.coord.shardmap import ShardMap
 from distributed_ml_pytorch_tpu_torch.parallel.async_ps import (
@@ -59,13 +77,16 @@ class ElasticShardServer:
     whole flat vector's length; ``init_params`` (the whole vector) seeds
     every range it is given. ``staleness_damping``, ``ckpt_dir``,
     ``ckpt_every``, ``wal``, ``admission`` and ``combine`` configure the
-    wrapped server; ``optimizer`` (an ``optplane.ShardedOptimizer``) is
-    resized with the range on every change."""
+    wrapped server, whose WAL group closes at ``wal_group_n`` pending
+    pushes; ``optimizer`` (an ``optplane.ShardedOptimizer``) is resized with
+    the range on every change; ``manifest_path`` is where the coordinator
+    publishes its fleet manifest, which a rollback restores."""
 
     def __init__(self, server_id: int, n_params: int, transport: Transport,
                  coord: CoordClient, *, init_params: Optional[np.ndarray] = None,
                  staleness_damping: float = 0.0, ckpt_dir: Optional[str] = None,
-                 ckpt_every: int = 500, wal: bool = False, admission=None,
+                 ckpt_every: int = 500, wal: bool = False, wal_group_n: int = WAL_GROUP_N,
+                 admission=None, manifest_path: Optional[str] = None,
                  combine: str = "add", optimizer=None):
         self.server_id = int(server_id)
         self.n_params = int(n_params)
@@ -89,10 +110,21 @@ class ElasticShardServer:
             # attached after construction: the range is the coordinator's
             optimizer.resize(self.lo, self.hi)
             self.ps.optimizer = optimizer
+        self.wal_group_n = int(wal_group_n)
+        self.manifest_path = manifest_path
         self._seen_tasks: set = set()
+        #: the barrier mailboxes: the client's listener parks a request, the
+        #: serve loop takes it between applied updates (newest wins)
+        self._box_mu = threading.Lock()
+        self._snap_req: Optional[tuple] = None
+        self._roll_req: Optional[int] = None
+        if getattr(coord, "on_snapshot", None) is None:
+            coord.on_snapshot = self._note_snapshot
+        if getattr(coord, "on_rollback", None) is None:
+            coord.on_rollback = self._note_rollback
         self.stats = {"stale_dropped": 0, "parked_pulls": 0, "installs": 0,
                       "dup_installs": 0, "spec_applied": 0, "spec_dropped": 0,
-                      "resizes": 0}
+                      "resizes": 0, "rollbacks": 0, "rolled_back_updates": 0}
         #: guards the served state (range, central vector, stats): the serve
         #: loop resizes and applies on its thread while others read
         self._mu = threading.Lock()
@@ -121,7 +153,10 @@ class ElasticShardServer:
     # ------------------------------------------------------------------ map
     def _apply_map(self, m: ShardMap) -> None:
         with self._mu:
-            if m.version <= self.map_version:
+            if m.version <= self.map_version or self._stop.is_set():
+                # a stopped or crashed server resizes and checkpoints no
+                # more: a map reaching its listener after the serve loop
+                # ended must not write its directory
                 return
             self.map_version = m.version
             try:
@@ -173,6 +208,123 @@ class ElasticShardServer:
         if self.ps.optimizer is not None:
             self.ps.optimizer.resize(e.lo, e.hi)
         self.stats["resizes"] += 1
+
+    # ------------------------------------------------------------ barriers
+    def _note_snapshot(self, snapshot_id: int, map_version: int) -> None:
+        """The client's callback: park the snapshot request for the serve
+        loop (a re-request replaces it)."""
+        with self._box_mu:
+            self._snap_req = (int(snapshot_id), int(map_version))
+
+    def _note_rollback(self, rollback_id: int, phase: int) -> None:
+        """The client's callback: park a rollback's start for the serve loop
+        (its end needs nothing here: this server restored and reported, or
+        refused)."""
+        if phase != 0:
+            return
+        with self._box_mu:
+            self._roll_req = int(rollback_id)
+
+    def _take_requests(self):
+        """Both mailboxes at once: ``(snapshot, rollback)``. A parked
+        rollback supersedes a parked snapshot, which would checkpoint the
+        state being discarded at an apply seq past the rollback's target."""
+        with self._box_mu:
+            snap, roll = self._snap_req, self._roll_req
+            self._snap_req = self._roll_req = None
+        return (None, roll) if roll is not None else (snap, None)
+
+    def _do_snapshot(self, snapshot_id: int, map_version: int) -> None:
+        """The shard's half of the snapshot barrier: commit the WAL group,
+        checkpoint, report. A request under another map version still
+        checkpoints but reports this server's version."""
+        with self._mu:
+            if map_version != self.map_version:
+                print(f"shard {self.server_id}: snapshot {snapshot_id} asks map "
+                      f"v{map_version} but this server serves v{self.map_version} — "
+                      "reporting the truth", file=sys.stderr)
+            self.ps.commit()
+            self.ps.save_checkpoint()
+            mv, lo, hi = self.map_version, self.lo, self.hi
+            apply_seq, push_count = self.ps._apply_seq, self.ps._push_count
+        self.coord.snapshot_done(snapshot_id, mv, lo, hi, apply_seq, push_count)
+
+    def _do_rollback(self, rollback_id: int) -> None:
+        """The shard's half of the rollback barrier: restore this range to
+        the last good manifest in place and report. A missing or unusable
+        manifest, or one of another map version or range, is a loud no-op:
+        the coordinator's timeout abandons a barrier this server cannot
+        honour."""
+        if not self.manifest_path or not os.path.exists(self.manifest_path):
+            print(f"shard {self.server_id}: rollback {rollback_id} refused — no manifest at "
+                  f"{self.manifest_path!r}", file=sys.stderr)
+            return
+        try:
+            manifest = FleetManifest.load(self.manifest_path)
+            entry = manifest.entry_for(self.server_id)
+        except ManifestError as e:
+            print(f"shard {self.server_id}: rollback {rollback_id} refused — manifest "
+                  f"unusable: {e}", file=sys.stderr)
+            return
+        with self._mu:
+            if (manifest.map_version != self.map_version
+                    or (entry.lo, entry.hi) != (self.lo, self.hi)):
+                print(f"shard {self.server_id}: rollback {rollback_id} refused — manifest is "
+                      f"map v{manifest.map_version} [{entry.lo},{entry.hi}), this server "
+                      f"serves v{self.map_version} [{self.lo},{self.hi})", file=sys.stderr)
+                return
+            try:
+                discarded = self.ps.rollback_restore(entry.apply_seq)
+            except (ValueError, OSError) as e:
+                print(f"shard {self.server_id}: rollback {rollback_id} FAILED: {e}",
+                      file=sys.stderr)
+                return
+            self.stats["rollbacks"] += 1
+            self.stats["rolled_back_updates"] += discarded
+            # authoritative, like a manifest restore: a stale RangeInstall
+            # must not stomp it
+            self.pending_install = None
+            mv, lo, hi, apply_seq = self.map_version, self.lo, self.hi, self.ps._apply_seq
+        print(f"shard {self.server_id}: rolled back [{lo},{hi}) to snapshot "
+              f"{manifest.snapshot_id} (apply seq {apply_seq}, {discarded} update(s) "
+              "discarded)", file=sys.stderr)
+        self.coord.rollback_done(rollback_id, mv, lo, hi, apply_seq)
+
+    def restore_from_manifest(self, manifest) -> None:
+        """Disaster recovery: install this shard's range from the manifest's
+        map, then restore checkpoint and WAL. Refuses loudly (a
+        :class:`~.manifest.ManifestError`) when the manifest is invalid,
+        mixed or incomplete or omits this server, when nothing restorable
+        is on disk, and when the restored apply seq is behind the one the
+        manifest promises."""
+        manifest.validate()
+        entry = manifest.entry_for(self.server_id)
+        with self._mu:
+            self.lo, self.hi = entry.lo, entry.hi
+            self.map_version = manifest.map_version
+            central = np.zeros(entry.hi - entry.lo, np.float32)
+            if self._init_flat is not None:
+                central[:] = self._init_flat[entry.lo:entry.hi]
+            self.ps.central = central
+            if self.ps.optimizer is not None:
+                # sized to the manifest's range before the restore loads
+                # the state it checks against that size
+                self.ps.optimizer.resize(entry.lo, entry.hi)
+            if not self.ps.maybe_restore():
+                raise ManifestError(
+                    f"shard {self.server_id}: manifest promises a checkpoint for "
+                    f"[{entry.lo},{entry.hi}) but nothing restorable exists under "
+                    f"{self.ps.ckpt_dir!r}")
+            if self.ps._apply_seq < entry.apply_seq:
+                raise ManifestError(
+                    f"shard {self.server_id}: restored apply seq {self.ps._apply_seq} is "
+                    f"BEHIND the manifest's {entry.apply_seq} — checkpoint/WAL lost acked "
+                    "state")
+            self.pending_install = None
+            self._restamp_reply_head()
+        print(f"shard {self.server_id}: restored [{entry.lo},{entry.hi}) at apply seq "
+              f"{self.ps._apply_seq} ({self.ps.replayed_updates} WAL record(s) replayed)",
+              file=sys.stderr)
 
     # --------------------------------------------------------------- handle
     def handle(self, sender: int, code: MessageCode, payload: np.ndarray,
@@ -319,7 +471,7 @@ class ElasticShardServer:
         finally:
             self._busy_s += time.monotonic() - t0
         if self.ps.wal is None or not _ack_waits_for_wal(code) \
-                or self.ps.wal.pending >= WAL_GROUP_N:
+                or self.ps.wal.pending >= self.wal_group_n:
             self._commit_timed()
 
     def run(self, timeout: Optional[float] = None) -> None:
@@ -343,6 +495,11 @@ class ElasticShardServer:
             m = self.coord.take_shard_map()
             if m is not None:
                 self._apply_map(m)
+            snap, roll = self._take_requests()
+            if roll is not None:
+                self._do_rollback(roll)
+            if snap is not None:
+                self._do_snapshot(*snap)
             if self.coord.fleet.workers_done():
                 break
             msg = self.transport.recv(timeout=0.1)

@@ -12,9 +12,16 @@ which
   carrying the member's latest progress report (the straggler detector's
   input) and re-joining every fourth renewal, so a member whose lease
   expired in a stall is taken back;
-- **receives** ``ShardMapUpdate``, ``FleetState`` and ``SpeculateTask``
-  frames on a listener thread: the newest map waits in a mailbox for the
-  consumer's next step boundary; callbacks are optional;
+- **receives** ``ShardMapUpdate``, ``FleetState``, ``SpeculateTask``,
+  ``SnapshotRequest`` and ``RollbackRequest`` frames on a listener thread:
+  the newest map waits in a mailbox for the consumer's next step boundary;
+  callbacks are optional (``on_snapshot(snapshot_id, map_version)`` and
+  ``on_rollback(rollback_id, phase)`` are public and assignable: a shard
+  server or a worker wires its mailbox in after construction), and a
+  rollback's phase also holds :class:`FleetView` (``rollback_active``) for
+  at most ``rollback_hold_ttl`` seconds, so a lost end frame fails open;
+- **reports** into the barriers (:meth:`CoordClient.snapshot_done`,
+  :meth:`CoordClient.rollback_done`);
 - **leaves** on :meth:`CoordClient.close`, carrying its incarnation, so a
   parting leave racing a newer life's join of the rank cannot evict it.
 
@@ -23,9 +30,10 @@ Every coordinator frame passes the epoch fence in one place
 highest seen comes from an older coordinator life and is dropped, counted
 in ``stale_epoch_dropped``.
 
-Not in this package yet, and refused rather than ignored: the snapshot,
-rollback and preempt callbacks and the stage and node-agent ones. Their
-frames are dropped and counted in ``later_plane_dropped``.
+Not in this package yet, and refused rather than ignored: the scheduler's
+preempt callback, the node agent's grant and resume callbacks and the
+stage plane's. Their frames are dropped and counted in
+``later_plane_dropped``.
 """
 
 from __future__ import annotations
@@ -46,6 +54,8 @@ from distributed_ml_pytorch_tpu_torch.coord.coordinator import (
     encode_join,
     encode_leave,
     encode_renew,
+    encode_rollback_done,
+    encode_snapshot_done,
     later_plane,
     refuse_later_options,
 )
@@ -53,6 +63,7 @@ from distributed_ml_pytorch_tpu_torch.coord.shardmap import ShardMap
 from distributed_ml_pytorch_tpu_torch.utils.messaging import (
     MessageCode,
     Transport,
+    _join16,
     _next_incarnation,
     strip_epoch,
 )
@@ -62,16 +73,11 @@ _KINDS = {"worker": KIND_WORKER, "shard": KIND_SHARD, "engine": KIND_ENGINE,
 
 #: the JAX client's options of the later planes, with their defaults
 _LATER_OPTIONS = {
-    "on_snapshot": (None, "the snapshot barrier"),
-    "on_rollback": (None, "the rollback barrier"),
     "on_stage_assign": (None, "the MPMD stage plane"),
-    "rollback_hold_ttl": (15.0, "the rollback barrier"),
 }
 
 #: the callbacks a member of a later plane wires in by assignment
 _LATER_CALLBACKS = {
-    "on_snapshot": "the snapshot barrier",
-    "on_rollback": "the rollback barrier",
     "on_stage_assign": "the MPMD stage plane",
     "on_preempt": "the multi-tenant scheduler",
     "on_slot_grant": "the multi-tenant scheduler",
@@ -100,6 +106,9 @@ class FleetView:
     def __init__(self):
         self._lock = threading.Lock()
         self._state: Optional[dict] = None
+        #: the monotonic instant a rollback barrier holds until: set on its
+        #: phase 0, cleared on phase 1, bounded by a TTL either way
+        self._rollback_until = 0.0
 
     def update(self, state: dict) -> None:
         with self._lock:
@@ -133,15 +142,27 @@ class FleetView:
         s = self.state
         return {} if s is None else dict(s.get("fleet_metrics") or {})
 
+    def note_rollback(self, active: bool, ttl: float = 15.0) -> None:
+        """A rollback barrier's phase: ``active`` holds for at most ``ttl``
+        seconds, so an end frame that never arrives fails open."""
+        with self._lock:
+            self._rollback_until = time.monotonic() + float(ttl) if active else 0.0
+
+    def rollback_active(self) -> bool:
+        """True while a rollback barrier is in flight (a serving frontend
+        holds its submits through it)."""
+        with self._lock:
+            return time.monotonic() < self._rollback_until
+
 
 class CoordClient:
     """One member's connection to the coordinator (see the module
-    docstring). ``on_shard_map(map)`` (also assignable after construction:
-    a shard server wires itself in) and ``on_speculate(task_id, victim,
-    from_step)`` are called on the listener thread."""
+    docstring). ``on_shard_map(map)``, ``on_snapshot(snapshot_id,
+    map_version)`` and ``on_rollback(rollback_id, phase)`` (all assignable
+    after construction: a shard server or a worker wires itself in) and
+    ``on_speculate(task_id, victim, from_step)`` are called on the listener
+    thread."""
 
-    on_snapshot = _RefusedCallback()
-    on_rollback = _RefusedCallback()
     on_stage_assign = _RefusedCallback()
     on_preempt = _RefusedCallback()
     on_slot_grant = _RefusedCallback()
@@ -151,7 +172,9 @@ class CoordClient:
                  incarnation: Optional[int] = None,
                  on_shard_map: Optional[Callable[[ShardMap], None]] = None,
                  on_speculate: Optional[Callable[[int, int, int], None]] = None,
-                 **later):
+                 on_snapshot: Optional[Callable[[int, int], None]] = None,
+                 on_rollback: Optional[Callable[[int, int], None]] = None,
+                 rollback_hold_ttl: float = 15.0, **later):
         if kind not in _KINDS:
             raise ValueError(f"kind must be one of {sorted(_KINDS)}, got {kind!r}")
         refuse_later_options("CoordClient", later, _LATER_OPTIONS)
@@ -166,6 +189,9 @@ class CoordClient:
         self.coord_down = False
         self.on_shard_map = on_shard_map
         self._on_speculate = on_speculate
+        self.on_snapshot = on_snapshot
+        self.on_rollback = on_rollback
+        self.rollback_hold_ttl = float(rollback_hold_ttl)
         #: the highest coordinator epoch seen; frames below it are dropped
         self.coord_epoch = -1
         self.stale_epoch_dropped = 0
@@ -234,6 +260,20 @@ class CoordClient:
         elif code == MessageCode.SpeculateTask and payload.size >= 3:
             if self._on_speculate is not None and np.isfinite(payload[:3]).all():
                 self._on_speculate(int(payload[0]), int(payload[1]), int(payload[2]))
+        elif code == MessageCode.SnapshotRequest and payload.size >= 4:
+            if self.on_snapshot is not None and np.isfinite(payload[:4]).all():
+                self.on_snapshot(_join16(payload[0], payload[1]),
+                                 _join16(payload[2], payload[3]))
+        elif code == MessageCode.RollbackRequest and payload.size >= 7:
+            if not np.isfinite(payload[:7]).all():
+                return
+            rollback_id = _join16(payload[0], payload[1])
+            phase = int(payload[6])
+            # the fleet view holds serving frontends; a data-plane member
+            # reacts through its own mailbox
+            self.fleet.note_rollback(phase == 0, ttl=self.rollback_hold_ttl)
+            if self.on_rollback is not None:
+                self.on_rollback(rollback_id, phase)
         elif later_plane(code):
             self.later_plane_dropped += 1
 
@@ -292,6 +332,18 @@ class CoordClient:
         with self._lock:
             m, self._latest_map = self._latest_map, None
             return m
+
+    def snapshot_done(self, snapshot_id: int, map_version: int, lo: int, hi: int,
+                      apply_seq: int, push_count: int) -> None:
+        """Report this shard's checkpoint into the snapshot barrier."""
+        self._send(MessageCode.SnapshotDone, encode_snapshot_done(
+            snapshot_id, map_version, lo, hi, apply_seq, push_count))
+
+    def rollback_done(self, rollback_id: int, map_version: int, lo: int, hi: int,
+                      apply_seq: int) -> None:
+        """Report this shard's in-place rollback into the barrier."""
+        self._send(MessageCode.RollbackDone, encode_rollback_done(
+            rollback_id, map_version, lo, hi, apply_seq))
 
     def leave(self) -> None:
         self._send(MessageCode.CoordLeave, encode_leave(self.incarnation))

@@ -66,7 +66,11 @@ the server answers a pull with ``ShardParams``, the vector behind the
 owner's map version and absolute range; the :class:`Listener` keeps that
 stamp beside the reply for the elastic client's range gate.
 
-Not in this package yet (the JAX server's other planes): rollback.
+**Rollback.** :meth:`ParameterServer.rollback_restore` rebuilds a live
+server in place as its checkpoint plus the WAL replayed up to a target
+apply seq (the one the coordinator's last good fleet manifest names) and
+drops the log's tail past it, so the discarded updates cannot come back at
+a later restore.
 """
 
 from __future__ import annotations
@@ -202,6 +206,8 @@ class ParameterServer:
         self._apply_seq = 0
         self.applied_by_sender: dict = {}
         self.replayed_updates = 0
+        #: applied updates a rollback discarded, over the server's life
+        self.rolled_back_updates = 0
         #: ``(sender, incarnation, seq)`` of recent applies, kept in the
         #: checkpoint's meta: a truncation drops the log's envelopes, but an
         #: ack may still be lost in flight, and the retry must be re-acked
@@ -424,6 +430,77 @@ class ParameterServer:
             seed(envelopes)
         return n
 
+    def rollback_restore(self, target_seq: int) -> int:
+        """Discard the live state and rebuild it as the checkpoint plus the
+        WAL replayed up to ``target_seq``, the apply seq the last good fleet
+        manifest names; returns how many applied updates were discarded.
+
+        The server is live (no process died): its transport and dedup state
+        stay. In order: commit, so the acks withheld behind the log go out
+        (delivery did happen; the discard is the coordinator's logged
+        decision); refuse when the checkpoint on disk is already past the
+        target (a later generation overwrote the barrier's, and a "rollback"
+        to it would keep the suspect updates); adopt the checkpoint's
+        optimizer generation; clear the Adasum overlap windows (they
+        describe the discarded regime); replay the log capped at the target;
+        drop the log's tail past it; fence the delta-reply bases."""
+        if not self.ckpt_dir:
+            raise ValueError("rollback_restore needs a ckpt_dir")
+        target_seq = int(target_seq)
+        self.commit()
+        if not os.path.exists(self._ckpt_path()):
+            raise ValueError(f"rollback to apply seq {target_seq} impossible: no checkpoint "
+                             f"under {self.ckpt_dir!r}")
+        before_seq = self._apply_seq
+        arr, meta = self._read_checkpoint()
+        ckpt_seq = int(meta.get("apply_seq", 0)) if meta is not None else 0
+        if ckpt_seq > target_seq:
+            raise ValueError(
+                f"rollback target apply seq {target_seq} is BEHIND the on-disk checkpoint "
+                f"({ckpt_seq}) — a later checkpoint overwrote the snapshot generation; "
+                "refusing to fake a rollback that keeps the suspect updates")
+        self.central = arr
+        if meta is not None:
+            self.staleness.version = int(meta.get("version", 0))
+            self._push_count = int(meta.get("push_count", 0))
+            self._apply_seq = ckpt_seq
+            self.applied_by_sender = {
+                int(k): int(v) for k, v in meta.get("applied_by_sender", {}).items()}
+        else:
+            self._apply_seq = 0
+        # the live optimizer state goes with the live vector: the capped
+        # replay catches both up to the target together
+        self._restore_optimizer_state(meta)
+        if self.combine == "adasum":
+            self._overlap.clear()
+        replayed = 0
+        if self.wal is not None:
+            records, _stats = self.wal.replay()
+            for rec in records:
+                if rec.seq <= self._apply_seq or rec.seq > target_seq:
+                    continue
+                if rec.payload.shape != self.central.shape:
+                    raise ValueError(
+                        f"WAL record seq {rec.seq} holds {rec.payload.shape[0]} params but "
+                        f"the restored vector holds {self.central.shape[0]}")
+                self._apply_delta(rec.payload)
+                self._apply_seq = rec.seq
+                self._push_count += 1
+                self.staleness.version += 1
+                self.applied_by_sender[rec.sender] = self.applied_by_sender.get(rec.sender, 0) + 1
+                replayed += 1
+            self.wal.drop_after(target_seq)
+        discarded = max(0, before_seq - self._apply_seq)
+        self.rolled_back_updates += discarded
+        self._restored = True
+        # the rewound apply seqs may already stamp replies of other bytes:
+        # the epoch bump keeps the delta plane from confusing them
+        self.reset_pull_bases()
+        _LOGGER.warning("rollback: restored apply seq %d (ckpt %d + %d WAL records), "
+                        "DISCARDED %d applied update(s) past the good snapshot",
+                        self._apply_seq, ckpt_seq, replayed, discarded)
+        return discarded
+
     def _release_acks(self) -> None:
         ack = getattr(self.transport, "ack_delivered", None)
         if ack is not None:
@@ -627,18 +704,25 @@ class ParameterServer:
         as the inbox is empty, after any frame that is not a push, and after
         :data:`WAL_GROUP_N` pushes, so pushes that queue up share one fsync
         and no ack waits for traffic that is not there; the last state is
-        checkpointed on the way out."""
+        checkpointed on the way out. A transport whose rendezvous is still
+        open (a reliable Python server's) is served as it goes on:
+        the silence of a worker counts once every worker has connected, and
+        a rendezvous past its deadline raises."""
+        from distributed_ml_pytorch_tpu_torch.utils.failure import FailureDetector
+
         done_workers = set()
         detector = None
-        if self.worker_timeout and self.n_workers is not None:
-            from distributed_ml_pytorch_tpu_torch.utils.failure import FailureDetector
-
-            detector = FailureDetector(self.worker_timeout,
-                                       ranks=range(1, self.n_workers + 1))
+        rendezvous = getattr(self.transport, "rendezvous_done", None)
         deadline = None if timeout is None else time.monotonic() + timeout
         while not self._stop.is_set():
             if deadline is not None and time.monotonic() >= deadline:
                 break
+            if rendezvous is not None and rendezvous():
+                rendezvous = None
+            if (detector is None and rendezvous is None and self.worker_timeout
+                    and self.n_workers is not None):
+                detector = FailureDetector(self.worker_timeout,
+                                           ranks=range(1, self.n_workers + 1))
             if detector is not None:
                 for rank in sorted(detector.expired()):
                     print("parameter server: worker {} silent for {:.1f}s — "

@@ -41,15 +41,26 @@ dropped. Each step reports its progress to the coordinator: the inter-step
 latency EWMA, open circuit breakers, nacks and the loss and push-norm EWMAs
 on the lease renewals, and per shard link the pull requests against the
 replies. The shard servers are ``coord/elastic.ElasticShardServer``
-(:func:`run_sharded_ps_process` with ``--coord``).
+(:func:`run_sharded_ps_process` with ``--coord``, ``--manifest-path``
+naming the fleet manifest a rollback restores).
 
-Not in this package yet: the rollback barrier and the scheduler's hold.
+**The rollback barrier.** An elastic worker wires its client's
+``on_rollback`` to a mailbox; at the next step boundary a parked rollback
+drains the push thread (its pushes carry pre-rollback updates), zeroes the
+accumulator in place (the push thread's pinned snapshot and a captured
+graph read that storage), discards the replies already in the listeners,
+pulls every shard, and holds the per-step updates until every shard's
+restored slice is installed. ``observe_loss`` feeds a loss the step was not
+given into the telemetry the renewals carry (the watchdog's input).
+
+Not in this package yet: the scheduler's hold.
 """
 
 from __future__ import annotations
 
 import math
 import sys
+import threading
 import time
 from typing import List, Optional, Sequence, Tuple
 
@@ -184,6 +195,10 @@ class ShardedAsynchronous(DownpourClient):
         self._pull_reqs: dict = {}
         self._link_hist: list = []
         self.shard_down = [False] * len(transports)
+        #: the rollback mailbox: set on a barrier's start, taken at the next
+        #: step boundary
+        self._rollback_pending = threading.Event()
+        self.rollbacks_seen = 0
         flat = self._setup(model, lr, n_push, n_pull, tx, transports, compress,
                            compress_opts)
         if shard_map is not None:
@@ -208,6 +223,8 @@ class ShardedAsynchronous(DownpourClient):
         else:
             for s, (lo, hi) in enumerate(self.ranges):
                 self._send(s, MessageCode.ParameterUpdate, flat[lo:hi])
+        if coord is not None and getattr(coord, "on_rollback", None) is None:
+            coord.on_rollback = self._note_rollback
         # the fetched push vector is sliced per shard on the push thread, so
         # the training thread never waits on a copy or a socket
         self._flusher = PushFlusher(self._push_all)
@@ -334,12 +351,50 @@ class ShardedAsynchronous(DownpourClient):
 
     # ------------------------------------------------------------ elastic
     def step(self, loss=None) -> None:
-        """:meth:`DownpourClient.step`, after the coordinator report; a
-        finite ``loss`` also feeds the loss EWMA the renewals carry."""
+        """:meth:`DownpourClient.step`, after the coordinator report and a
+        parked rollback; a finite ``loss`` also feeds the loss EWMA the
+        renewals carry."""
         if loss is not None and math.isfinite(float(loss)):
             self._loss_ewma.update(float(loss))
         self._report_progress()
+        self._maybe_rollback()
         super().step(loss)
+
+    def observe_loss(self, loss: float) -> None:
+        """Fold a loss into the renewals' telemetry without gating a step: a
+        nonfinite one counts (the watchdog's hard signal), a finite one
+        feeds the EWMA."""
+        if not math.isfinite(float(loss)):
+            self.bad_losses += 1
+            return
+        self._loss_ewma.update(float(loss))
+
+    def _note_rollback(self, rollback_id: int, phase: int) -> None:
+        """The client's callback: park a barrier's start for the next step
+        boundary."""
+        if phase == 0:
+            self._rollback_pending.set()
+
+    def _maybe_rollback(self) -> None:
+        """Take a parked rollback: drain the pushes in flight (they must not
+        land after the restore), zero the accumulator in place, discard the
+        replies already taken in, pull every shard and hold the updates
+        until each has installed its restored slice."""
+        if not self._rollback_pending.is_set():
+            return
+        self._rollback_pending.clear()
+        self.rollbacks_seen += 1
+        self._flusher.drain()
+        self.accum.zero_()
+        self._hold_updates = True
+        self._fresh_installed = set()
+        # the loss telemetry described the regime being discarded
+        self._loss_ewma.reset()
+        print("worker: fleet ROLLBACK barrier — dropped the in-flight accumulator, pulling "
+              "restored params from every shard", file=sys.stderr)
+        for listener in self.listeners:
+            listener.take_latest_versioned()
+        self._pull_all()
 
     def _report_progress(self) -> None:
         """The coordinator's view of this worker, once a step: the
@@ -603,6 +658,7 @@ def _run_elastic_ps_process(args, k: int, n_workers: int, kind: str, reliable: b
                 ckpt_every=getattr(args, "ckpt_every", 500),
                 # unmasked: --wal without --ckpt-dir raises in ParameterServer
                 wal=getattr(args, "wal", False), admission=admission_from_args(args),
+                manifest_path=getattr(args, "manifest_path", "") or None,
                 combine=getattr(args, "combine", "add") or "add", optimizer=optimizer)
             try:
                 server.run()

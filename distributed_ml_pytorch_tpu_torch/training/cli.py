@@ -28,11 +28,12 @@ dispatch, as the JAX package's do. ``--coord HOST:PORT`` attaches every
 rank to the coordinator of ``coord/cli.py`` instead: the shard ranks serve
 the ranges its shard maps assign (``coord/elastic.py``), the workers cut
 over when the map moves, and a worker may join or a shard die mid-run; it
-takes the sharded entry even with ``--n-servers 1``. Flags of the JAX CLI
-that this package does not implement (the other distributed modes, the
-manifest path, the drills and demos of the later coordinator planes,
-profiling and the metrics dump) are absent, so argparse rejects them
-instead of ignoring them.
+takes the sharded entry even with ``--n-servers 1``; ``--manifest-path``
+names the coordinator's fleet manifest, which a shard restores in place on
+a rollback barrier. Flags of the JAX CLI that this package does not
+implement (the other distributed modes, the MPMD stages, profiling and the
+metrics dump) are absent, so argparse rejects them instead of ignoring
+them.
 
     python -m distributed_ml_pytorch_tpu_torch.training.cli --no-distributed \
         --epochs 1 --synthetic-data
@@ -180,6 +181,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "shard maps (workers cut over at step boundaries; shard servers "
                         "resize), straggler speculation. Empty = static fleet (the classic "
                         "launch-time topology)")
+    p.add_argument("--manifest-path", type=str, default="",
+                   help="elastic shard servers (--coord): path of the coordinator's "
+                        "FleetManifest — required to honor auto-rollback barriers "
+                        "(RollbackRequest restores the last good snapshot in place)")
     p.add_argument("--staleness-damping", type=float, default=0.0, metavar="D",
                    help="PS-mode server scales each gradient push by 1/(1 + D*staleness), "
                         "where staleness counts central versions since that worker's "

@@ -222,7 +222,8 @@ class PayloadSchema:
 
 #: the codes this package's modules send or dispatch on: the parameter
 #: server's plane (its compressed pushes and delta pull replies too), the
-#: coordinator's membership plane and its stamped shard traffic, the serving
+#: coordinator's membership plane and its stamped shard traffic, its snapshot
+#: and rollback barriers, the serving
 #: frontend's, the reliability wire, and the coded wires the ``wire_bytes``
 #: bench leg prices. The JAX table's entries for its other
 #: planes come with those planes.
@@ -329,6 +330,17 @@ WIRE_SCHEMAS: Dict[MessageCode, PayloadSchema] = {
         fields=("lo_lo", "lo_hi", "hi_lo", "hi_hi"), rest="values", handled_by=("coord",),
         dedup_key="idempotent",
         doc="worker seeds a freshly-acquired shard range; first install wins"),
+    MessageCode.SnapshotRequest: PayloadSchema(
+        fields=("snap_lo", "snap_hi", "map_lo", "map_hi"), handled_by=("coord",),
+        dedup_key="request_id", fenced=True,
+        doc="coordinator -> shard servers: checkpoint at your next version boundary under "
+            "this snapshot id / shard-map version"),
+    MessageCode.SnapshotDone: PayloadSchema(
+        fields=("snap_lo", "snap_hi", "map_lo", "map_hi", "lo_lo", "lo_hi", "hi_lo", "hi_hi",
+                "apply_lo", "apply_hi", "push_lo", "push_hi"),
+        handled_by=("coord",), dedup_key="request_id",
+        doc="shard -> coordinator: checkpoint taken (range + apply seq + push count); the "
+            "coordinator assembles the FleetManifest"),
     MessageCode.SubmitRequestV2: PayloadSchema(
         fields=("id", "max_new", "temperature", "top_k", "top_p", "seed", "eos",
                 "priority", "deadline_ms", "session"),
@@ -363,6 +375,21 @@ WIRE_SCHEMAS: Dict[MessageCode, PayloadSchema] = {
             "offending magnitude (clamped finite for the wire). A reject is never "
             "silent: the worker counts it, resyncs by pulling fresh params, and "
             "reports the count in LeaseRenew"),
+    MessageCode.RollbackRequest: PayloadSchema(
+        fields=("roll_lo", "roll_hi", "snap_lo", "snap_hi", "map_lo", "map_hi", "phase"),
+        handled_by=("coord",), dedup_key="request_id", fenced=True,
+        doc="coordinator -> everyone: the auto-rollback barrier. phase 0 = start (shards "
+            "restore the named FleetManifest snapshot in place, workers drop in-flight "
+            "accumulators and pull, serving frontends hold submits), phase 1 = complete/"
+            "abandoned (holds release; member-side holds also expire on a TTL so a lost "
+            "completion frame fails open)"),
+    MessageCode.RollbackDone: PayloadSchema(
+        fields=("roll_lo", "roll_hi", "map_lo", "map_hi", "lo_lo", "lo_hi", "hi_lo", "hi_hi",
+                "apply_lo", "apply_hi"),
+        handled_by=("coord",), dedup_key="request_id",
+        doc="shard -> coordinator: range [lo,hi) restored to the manifest snapshot at "
+            "apply_seq under this map version; all-reported completes the rollback barrier "
+            "(MTTR measured)"),
     MessageCode.ActivationShip: PayloadSchema(
         fields=("step_lo", "step_hi", "mb", "kind", "ver_lo", "ver_hi", "codec"),
         rest="payload", rest_min=1, handled_by=("ps",), dedup_key="step_mb",
@@ -567,6 +594,8 @@ class TCPTransport(Transport):
         # accept thread rewires on a rejoin while other threads send. Lock
         # order: a peer's send lock, then _peers_mu
         self._peers_mu = threading.Lock()
+        #: a rendezvous in progress: (workers expected, deadline, timeout)
+        self._expect: Optional[Tuple[int, float, float]] = None
         self._retired: list = []
         self._threads = []
         self._closed = False
@@ -639,18 +668,26 @@ class TCPTransport(Transport):
                     pass
         self._spawn_reader(conn)
 
-    def wait_for_peers(self, n: int, timeout: float) -> None:
-        """Block until ``n`` workers have connected (a server built with
-        ``wait_for=0`` admits them on its accept thread); raises
-        ``TimeoutError`` after ``timeout`` seconds."""
-        deadline = time.monotonic() + timeout
-        while True:
-            with self._peers_mu:
-                if len(self._peers) >= n:
-                    return
-            if time.monotonic() >= deadline:
-                raise TimeoutError(f"{n} workers did not connect within {timeout:.0f} s")
-            time.sleep(0.01)
+    def expect_peers(self, n: int, timeout: float) -> None:
+        """Start a rendezvous of ``n`` workers (a server built with
+        ``wait_for=0`` admits them on its accept thread) that must end
+        within ``timeout`` seconds; :meth:`rendezvous_done` polls it."""
+        self._expect = (int(n), time.monotonic() + timeout, float(timeout))
+
+    def rendezvous_done(self) -> bool:
+        """Whether the expected workers have all connected (True with no
+        rendezvous pending); raises ``TimeoutError`` past its deadline."""
+        expect = self._expect
+        if expect is None:
+            return True
+        n, deadline, timeout = expect
+        with self._peers_mu:
+            if len(self._peers) >= n:
+                self._expect = None
+                return True
+        if time.monotonic() >= deadline:
+            raise TimeoutError(f"{n} workers did not connect within {timeout:.0f} s")
+        return False
 
     def _send_lock_for(self, dst: int) -> threading.Lock:
         """The peer's send lock, made on first use (holds only _peers_mu)."""
@@ -663,7 +700,10 @@ class TCPTransport(Transport):
     def _accept_loop(self) -> None:
         # poll: a close() in another thread does not reliably wake a
         # blocked accept
-        self._server_sock.settimeout(0.25)
+        try:
+            self._server_sock.settimeout(0.25)
+        except OSError:
+            return  # closed before the loop began
         while not self._closed:
             try:
                 conn, _addr = self._server_sock.accept()
@@ -1830,6 +1870,12 @@ class ReliableTransport(Transport):
             self._pump(timeout=0.02)
         return False
 
+    def rendezvous_done(self) -> bool:
+        """The inner transport's rendezvous (``TCPTransport.
+        rendezvous_done``); True when it has none."""
+        done = getattr(self.inner, "rendezvous_done", None)
+        return True if done is None else done()
+
     def close(self) -> None:
         if not self._closed:
             self.flush(timeout=min(2.0, self.max_backoff))
@@ -1853,7 +1899,12 @@ def make_transport(rank: int, world_size: int, master: str = "localhost",
     ``durable_acks`` (a server with a WAL, which calls ``ack_delivered``
     from ``ParameterServer.commit``) defers each delivery ack until the
     update behind it is durable. ``reliable_opts`` passes tuning knobs
-    (``ack_timeout``, ``send_window``, ...) to the wrapper."""
+    (``ack_timeout``, ``send_window``, ...) to the wrapper. A reliable
+    Python server returns before its workers have all connected, so that it
+    serves the first while the rest connect (a durable receiver that is not
+    serving holds its pushes' acks): its ``rendezvous_done()``, which
+    ``ParameterServer.run`` polls, ends the rendezvous and raises past
+    ``connect_timeout``."""
     if kind not in ("auto", "native", "python"):
         raise ValueError(f"unknown transport kind: {kind!r}")
     t: Optional[Transport] = None
@@ -1872,14 +1923,8 @@ def make_transport(rank: int, world_size: int, master: str = "localhost",
         # frames of the workers that connected first are taken in and
         # acked while the others connect, not left to time out
         tcp = TCPTransport(rank, world_size, master, int(port), connect_timeout, wait_for=0)
-        wrapped = ReliableTransport(tcp, **opts)
-        try:
-            tcp.wait_for_peers(world_size - 1, connect_timeout)
-        except TimeoutError:
-            wrapped.detach()
-            tcp.close()
-            raise
-        return wrapped
+        tcp.expect_peers(world_size - 1, connect_timeout)
+        return ReliableTransport(tcp, **opts)
     if t is None:
         t = TCPTransport(rank, world_size, master, int(port), connect_timeout)
     return ReliableTransport(t, **opts) if reliable else t

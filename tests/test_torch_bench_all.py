@@ -4,6 +4,7 @@ the JAX package's."""
 
 import json
 import os
+import re
 import sys
 
 import numpy as np
@@ -549,3 +550,38 @@ def test_elastic_leg_on_cpu_emits_the_jax_metric_names(capsys):
     assert "steps 4-12" in recs[0]["note"] and "steps 12-" in recs[1]["note"]
     with open(os.path.join(ROOT, "bench_all.py")) as fh:
         assert 'f"elastic_rebalance_throughput_{name}"' in fh.read()
+
+
+DURABILITY_LEGS = {
+    "recovery": [("recovery_mttr", "ms"), ("recovery_restore", "ms")],
+    "coordfail": [("coordfail_mttr", "ms"), ("coordfail_restore", "ms")],
+    "health": [("health_reject_rate", "%"), ("health_nack_roundtrips", "nacks"),
+               ("health_rollback_mttr", "ms")],
+}
+
+
+@pytest.mark.parametrize("leg", list(DURABILITY_LEGS))
+def test_durability_and_health_legs_on_cpu_emit_the_jax_metric_names(capsys, leg):
+    """Config 3's ``recovery``, ``coordfail`` and ``health`` legs at
+    ``--tiny`` (their in-process LeNet fleets): the JAX names and units in
+    order, positive values, and the claims in the notes (zero acked loss,
+    no worker step lost, nacks explicit)."""
+    assert bench_all.main(["--device", "cpu", "--tiny", "--legs", leg]) == 0
+    recs = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+            if line.startswith("{")]
+    assert [(r["metric"], r["unit"]) for r in recs] == DURABILITY_LEGS[leg]
+    assert all(r["config"] == 3 and r["value"] > 0 and r["hardware"] == "in-process fleet, CPU"
+               for r in recs)
+    note = recs[0]["note"]
+    if leg == "recovery":
+        acked, applied = (int(v) for v in re.search(r"acked=(\d+) <= applied=(\d+)",
+                                                    note).groups())
+        assert acked <= applied
+    elif leg == "coordfail":
+        assert "0 of 40 worker steps" in note and "epoch 1 -> 2" in note
+    else:
+        assert "every one explicitly nacked" in note
+    with open(os.path.join(ROOT, "bench_all.py")) as fh:
+        src = fh.read()
+    for metric, _unit in DURABILITY_LEGS[leg]:
+        assert f'"{metric}"' in src, metric

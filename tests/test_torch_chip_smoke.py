@@ -1,5 +1,7 @@
 """``chip_smoke.py`` phases 18, 19 and 20 rehearsed on the CPU at tiny widths
-(phase 20 with LeNet: its worlds run host code beside the kernels).
+(phase 20 with LeNet: its worlds run host code beside the kernels), and
+phases 21 and 22 (the elastic plane, the durability and health barriers)
+with LeNet.
 
 There is no card here, so ``ops.attention``'s CUDA wrappers are routed to
 their plain versions, counting a launch where the kernel would launch, and
@@ -188,3 +190,30 @@ def test_elastic_chaos_and_speculation_phases(capsys, monkeypatch):
     assert c["ok"] and len(c["straggler_decisions"]) == 1
     assert all(s["spec_applied"] == 1 and s["spec_dropped"] == 1
                for s in c["shard_stats"].values())
+
+
+def test_durability_phase_recovery_drill(capsys, tmp_path):
+    """Phase 22 (a) rehearsed on the CPU with LeNet: the recovery drill's
+    gates (a validated manifest, restored apply seqs at least its own, WAL
+    records replayed, acked <= applied, every shard serving again) and the
+    chaos log equal across two runs."""
+    counts = cs.phase_recovery_drill(torch, str(tmp_path), model="lenet", device="cpu")
+    a = _lines(capsys)["recovery_drill"]
+    assert a["ok"] and a["replayed_records"] > 0 and a["mttr_ms"] > 0
+    for shard, seq in a["restored_apply_seqs"].items():
+        assert seq >= a["manifest_apply_seqs"][str(1 + int(shard))]
+    assert not any(counts.values())  # the CPU runs the plain versions
+
+
+def test_durability_phase_health_and_coordfail(capsys, tmp_path):
+    """Phase 22 (b) and (c) rehearsed on the CPU with LeNet, through
+    ``phase_durability``'s parts: a watchdog rollback that a fresh restore
+    reproduces bit for bit, the poisoned worker revoked, and the
+    coordinator's death survived with no member evicted."""
+    cs.phase_health(torch, str(tmp_path), model="lenet", device="cpu")
+    cs.phase_coordfail(torch, str(tmp_path), model="lenet", device="cpu")
+    lines = _lines(capsys)
+    b, c = lines["health"], lines["coordfail"]
+    assert b["ok"] and b["rollbacks"] >= 1 and b["revoked_workers"] >= 1
+    assert 0 < b["reject_rate_pct"] < 100 and b["nack_round_trips"] > 0
+    assert c["ok"] and c["epochs"] == [1, 2] and c["steps_lost"] == 0

@@ -70,7 +70,7 @@ def test_launch_three_process_tcp_world(tmp_path):
             "index", "timestamp", "iteration", "training_loss"]
 
 
-@pytest.mark.parametrize("flag", [["--manifest-path", "m"], ["--profile-start", "2"],
+@pytest.mark.parametrize("flag", [["--profile-start", "2"],
                                   ["--mode", "sync"],
                                   ["--dtype", "float16"], ["--backend", "tpu"],
                                   ["--metrics-dump", "-"], ["--profile-dir", "prof"]])
@@ -121,7 +121,7 @@ def test_ps_mode_refuses_the_single_process_flags(flag, capsys, monkeypatch):
 PS_FLAGS = ["wal", "admission", "admission_z", "admission_warmup", "rejoin",
             "staleness_damping", "chunked_dispatch", "ckpt_every", "transport", "reliable",
             "n_servers", "compress", "compress_block", "compress_topk", "combine", "server_opt",
-            "server_lr", "server_momentum", "coord"]
+            "server_lr", "server_momentum", "coord", "manifest_path"]
 
 
 def test_ps_flags_take_the_jax_names_defaults_and_choices():
@@ -134,7 +134,7 @@ def test_ps_flags_take_the_jax_names_defaults_and_choices():
         assert (mine[dest].choices and tuple(mine[dest].choices)) == (
             ref[dest].choices and tuple(ref[dest].choices)), dest
         assert mine[dest].type == ref[dest].type, dest
-    for flag in (["--manifest-path", "m"], ["--profile-dir", "prof"], ["--metrics-dump", "-"],
+    for flag in (["--profile-dir", "prof"], ["--metrics-dump", "-"],
                  ["--sync-every", "2"], ["--profile-steps", "3"], ["--compress", "fp8"],
                  ["--combine", "sum"], ["--server-opt", "adagrad"]):
         with pytest.raises(SystemExit):

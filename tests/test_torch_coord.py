@@ -17,8 +17,9 @@
   give the same map, fleet view, speculation call and epoch-fence counts.
 - Cross-package TCP worlds: a JAX coordinator with the port's members and
   the reverse adopt the same maps, and rebalance when a shard member dies.
-- Refusals: every option, callback and flag of a later plane is refused,
-  never ignored, and a later plane's frame is dropped and counted.
+- Refusals: every option, callback and flag of a plane this package does
+  not have yet (the scheduler, engine scaling, the MPMD stages) is refused,
+  never ignored, and such a plane's frame is dropped and counted.
 """
 
 import threading
@@ -333,11 +334,7 @@ def test_cross_package_tcp_world_adopts_the_same_maps(coordinator):
 # ------------------------------------------------------------ refusals
 
 @pytest.mark.parametrize("option,value", [
-    ("manifest_dir", "m"), ("snapshot_interval", 5.0), ("snapshot_timeout", 1.0),
-    ("restore_manifest", object()), ("auto_rollback", True), ("rollback_loss_factor", 3.0),
-    ("rollback_cooldown", 1.0), ("rollback_timeout", 1.0), ("reputation_nacks", 3),
-    ("reputation_cooldown", 1.0), ("durable_dir", "d"), ("grace", 1.0),
-    ("restore_parked", False), ("ckpt_every", 4), ("engine_occ_high", 0.9),
+    ("restore_parked", False), ("engine_occ_high", 0.9),
     ("engine_occ_low", 0.1), ("engine_slo_ttft_ms", 100.0), ("scale_cooldown", 1.0),
     ("on_scale", print)])
 def test_a_later_planes_coordinator_option_is_refused(option, value):
@@ -353,40 +350,34 @@ def test_later_plane_attachments_callbacks_and_frames_are_refused():
             setattr(coord, attr, object())
     with pytest.raises(TypeError):
         tco.Coordinator(None, 10, no_such_option=1)
-    for option, value in (("on_snapshot", print), ("on_rollback", print),
-                          ("on_stage_assign", print), ("rollback_hold_ttl", 1.0)):
-        with pytest.raises(ValueError, match="not in this package yet"):
-            tmem.CoordClient(_Quiet(), "worker", **{option: value})
+    with pytest.raises(ValueError, match="not in this package yet"):
+        tmem.CoordClient(_Quiet(), "worker", on_stage_assign=print)
     client = tmem.CoordClient(_Quiet(), "shard", renew_interval=60.0)
     try:
-        for attr in ("on_snapshot", "on_rollback", "on_stage_assign", "on_preempt",
-                     "on_slot_grant", "on_resume"):
+        for attr in ("on_stage_assign", "on_preempt", "on_slot_grant", "on_resume"):
             with pytest.raises(ValueError, match="not in this package yet"):
                 setattr(client, attr, print)
             setattr(client, attr, None)
             assert getattr(client, attr) is None
-        for code in (MC.SnapshotRequest, MC.RollbackRequest, MC.PreemptRequest):
+        for code in (MC.PreemptRequest, MC.SlotGrant, MC.ResumeRequest):
             client._handle(code, tmsg.stamp_epoch(np.zeros(8, np.float32), 1))
         assert client.later_plane_dropped == 3
     finally:
         client.stop()
     coord.handle(1, MC.CoordJoin, tco.encode_join(tco.KIND_SHARD, 5))
     before = list(coord.events)
-    for code in (MC.SnapshotDone, MC.RollbackDone, MC.PreemptDone, MC.StageReady):
+    for code in (MC.PreemptDone, MC.StageReady, MC.StageAssign, MC.ActivationGrad):
         coord.handle(1, code, np.zeros(12, np.float32))
     assert coord.later_plane_dropped == 4 and list(coord.events) == before
 
 
-@pytest.mark.parametrize("flags", [["--drill"], ["--health"], ["--mpmd"], ["--sched-demo"],
-                                   ["--auto-rollback"], ["--snapshot-interval", "5"],
-                                   ["--manifest-dir", "m"], ["--reputation-nacks", "3"],
-                                   ["--metrics-dump", "-"], ["--rollback-loss-factor", "3"]])
+@pytest.mark.parametrize("flags", [["--mpmd"], ["--sched-demo"], ["--metrics-dump", "-"]])
 def test_a_later_planes_coordinator_flag_is_rejected(flags):
     with pytest.raises(SystemExit):
         tcli.build_parser().parse_args(flags)
 
 
-@pytest.mark.parametrize("flags", [["--manifest-path", "m"], ["--metrics-dump", "-"]])
+@pytest.mark.parametrize("flags", [["--metrics-dump", "-"]])
 def test_a_later_planes_training_flag_is_rejected(flags):
     with pytest.raises(SystemExit):
         ttcli.build_parser().parse_args(flags + ["--coord", "localhost:1"])
@@ -398,7 +389,9 @@ def test_coordinator_flags_take_the_jax_names_and_defaults():
     mine = {a.dest: a for a in tcli.build_parser()._actions}
     ref = {a.dest: a for a in jcli.build_parser()._actions}
     for dest in ("port", "master", "max_members", "n_params", "lease", "straggler_factor",
-                 "no_speculation", "timeout", "demo", "seed"):
+                 "no_speculation", "timeout", "demo", "seed", "drill", "health", "auto_rollback",
+                 "rollback_loss_factor", "reputation_nacks", "manifest_dir",
+                 "snapshot_interval"):
         assert mine[dest].option_strings == ref[dest].option_strings, dest
         assert mine[dest].default == ref[dest].default, dest
     assert mine["model"].default == ref["model"].default

@@ -1782,3 +1782,83 @@ def test_elastic_scenario_on_the_card_counts_every_step(cuda):
     assert out["worker_map_versions"] == {1: 3, 2: 3}
     assert out["stats"][1]["installs"] == 1
     assert out["stats"][1]["dup_installs"] == 1
+
+
+@pytest.mark.gpu
+def test_rollback_restore_behind_a_cuda_worker(cuda, tmp_path):
+    """An AlexNet worker on the card pushes to a durable server (in-process
+    transport); the server checkpoints after the third push, takes three
+    more, and rolls back to apply seq 4: its vector is the checkpoint plus
+    the fourth push bit for bit, the log keeps seq 4 only, and a fresh
+    server restores the same vector from the files."""
+    from distributed_ml_pytorch_tpu_torch.models import get_model
+    from distributed_ml_pytorch_tpu_torch.parallel.async_ps import Asynchronous, ParameterServer
+    from distributed_ml_pytorch_tpu_torch.training.trainer import loss_and_grads
+    from distributed_ml_pytorch_tpu_torch.utils.messaging import InProcessTransport, MessageCode
+    from distributed_ml_pytorch_tpu_torch.utils.serialization import ravel_model_params
+
+    _deterministic()
+    world = InProcessTransport.create_world(2)
+    model = get_model("alexnet", fused_epilogue=True, seed=1, device=cuda)
+    server = ParameterServer(params=ravel_model_params(model).cpu().numpy(),
+                             transport=world[0], ckpt_dir=str(tmp_path), wal=True)
+    opt = Asynchronous(model, lr=0.008, n_push=1, n_pull=1000, transport=world[1])
+    install = world[0].recv(timeout=5)
+    assert install[1] == MessageCode.ParameterUpdate
+    server.handle(1, install[1], install[2])
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(64, 32, 32, 3, device=cuda, generator=g)
+    y = torch.randint(0, 10, (64,), device=cuda, generator=g)
+    pushes = []
+    k1 = tfu.launches
+    try:
+        for step in range(6):
+            loss_and_grads(model, x, y)
+            opt.step()
+            opt._flusher.drain()
+            while True:
+                msg = world[0].recv(timeout=5)
+                assert msg is not None
+                if msg[1] == MessageCode.GradientUpdate:
+                    break
+            pushes.append(msg[2].copy())
+            server.handle(1, msg[1], msg[2])
+            if step == 2:
+                server.save_checkpoint()
+                at_ckpt = server.central.copy()
+        server.commit()
+        assert tfu.launches - k1 == 6
+        assert server.rollback_restore(4) == 2
+        want = at_ckpt.copy()
+        want += pushes[3]
+        assert np.array_equal(server.central, want)
+        assert [r.seq for r in server.wal.replay()[0]] == [4]
+        fresh = ParameterServer(params=np.zeros_like(want), ckpt_dir=str(tmp_path), wal=True)
+        assert fresh.maybe_restore() and fresh._apply_seq == 4
+        assert np.array_equal(fresh.central, want)
+    finally:
+        opt._flusher.stop()
+        for listener in opt.listeners:
+            listener.stop()
+        for t in world.values():
+            t.close()
+
+
+@pytest.mark.gpu
+def test_recovery_drill_on_the_card(cuda, tmp_path):
+    """``coord.drill.recovery_drill`` with AlexNet on the card at batch 64:
+    every shard killed and restored from the manifest and its WAL, acked <=
+    applied, every worker step running K1 once and K2 three times each way,
+    and the chaos log the CPU run's (LeNet) byte for byte."""
+    from distributed_ml_pytorch_tpu_torch.coord.drill import default_drill_plan, recovery_drill
+
+    _deterministic()
+    k1, fwd = tfu.launches, tfc.launches["relu_pool2_fwd"]
+    out = recovery_drill(base_dir=str(tmp_path / "card"), seed=0, plan=default_drill_plan(0),
+                         model="alexnet", device="cuda", batch=64)
+    assert out["ok"] and out["accounting_ok"] and out["replayed_updates"] > 0, out["errors"]
+    steps = sum(len(v) for v in out["losses"].values())
+    assert tfu.launches - k1 == steps and tfc.launches["relu_pool2_fwd"] - fwd == 3 * steps
+    ref = recovery_drill(base_dir=str(tmp_path / "cpu"), seed=0, plan=default_drill_plan(0),
+                         model="lenet", device="cpu")
+    assert out["chaos_lines"] == ref["chaos_lines"]

@@ -241,6 +241,12 @@ def test_make_transport_and_make_world():
     th.join(timeout=30)
     server = holder["t"]
     try:
+        # the reliable Python server returned before its rendezvous ended;
+        # polling it ends it once the worker has connected
+        deadline = time.monotonic() + 5
+        while not server.rendezvous_done() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert server.rendezvous_done()
         assert isinstance(server, tmsg.ReliableTransport)
         assert isinstance(server.inner, TCPTransport)
         assert not server.ack_on_delivery and w.ack_on_delivery and w.ack_timeout == 0.05

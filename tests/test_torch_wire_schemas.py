@@ -185,3 +185,20 @@ def test_the_envelope_header_is_the_schemas_fields():
     assert WIRE_SCHEMAS[MessageCode.CumAck].min_size == 5
     assert tmsg._split16(0xABCD1234) == jmsg._split16(0xABCD1234) == (0x1234, 0xABCD)
     assert tmsg._join16(0x1234, 0xABCD) == 0xABCD1234
+
+
+def test_the_barrier_codes_are_in_and_only_the_later_planes_codes_are_out():
+    """The snapshot and rollback barriers' four codes have their JAX
+    schemas (34 of the JAX table's 41); the codes still out are the
+    scheduler's and the MPMD stages', which a coordinator drops and
+    counts."""
+    barrier = {"SnapshotRequest", "SnapshotDone", "RollbackRequest", "RollbackDone"}
+    assert barrier <= {c.name for c in WIRE_SCHEMAS}
+    assert (len(WIRE_SCHEMAS), len(jmsg.WIRE_SCHEMAS)) == (34, 41)
+    assert {c.name for c in jmsg.WIRE_SCHEMAS} - {c.name for c in WIRE_SCHEMAS} == {
+        "PreemptRequest", "PreemptDone", "SlotGrant", "ResumeRequest", "ActivationGrad",
+        "StageReady", "StageAssign"}
+    assert WIRE_SCHEMAS[MessageCode.SnapshotRequest].fenced
+    assert WIRE_SCHEMAS[MessageCode.RollbackRequest].fenced
+    assert WIRE_SCHEMAS[MessageCode.RollbackDone].min_size == 10
+    assert WIRE_SCHEMAS[MessageCode.SnapshotDone].min_size == 12
