@@ -327,6 +327,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ms printed. Every flat_axpy and relu_pool2 launch of the three first
    runs joins the ``kernels`` line. The drills' files live under a
    temporary directory the phase removes.
+23. the multi-tenant scheduler plane, in one process at AlexNet batch 64 on
+   the card (two elastic shard servers with a WAL, two workers as threads,
+   a training and a serving tenant, a node agent), the kernel counts zeroed
+   just before each part's first run and read just after: (a)
+   ``coord.drill.sched_drill`` under the default drill plan, seed 0: ok
+   with no violation and no error, exactly one preempt and one resume, a
+   clean ledger audit, WAL records replayed, the resumed shard
+   bit-identical to the parked one, acked <= applied for every worker and
+   shard, drops in the chaos log, and the chaos log equal to a second run's
+   on the card and a run's on the CPU (LeNet: the log is a function of the
+   step script) byte for byte; K1 once and K2 three times each way a
+   worker step; (b) ``coord.drill.coordfail_drill(kill_during="preempt")``:
+   epochs 1 then 2, no member evicted, no parked rank stranded, the parked
+   shard resumed bit for bit; (c) the ``sched`` bench leg's serving burst
+   (``bench_all._serving_slot_rate``: vocab 128, d 64, 4 slots, 8 requests
+   of 24 tokens, float32, head_dim 32) on the card: K8 launched once per
+   layer and decode step the engine took and the reference never, K8 held
+   to the reference (float32 tolerance of ``DECODE_TOL``) on the inputs of
+   its call at the longest cache, and the goodput uplift of (a)'s day
+   priced at its rate. One line each: preempt and resume MTTR, held
+   pushes, records replayed, the uplift, wall seconds and the kernel
+   counts; every launch joins the ``kernels`` line.
 
 Then the ``kernels`` line, the ``nvidia-smi`` name/power line, and last the
 result line ``{"ok": true, "device": {...}}``. Without a card, or without
@@ -4773,6 +4795,166 @@ def phase_durability(torch, model="alexnet", device="cuda"):
     return launches
 
 
+def phase_sched_drill(torch, tmp, model="alexnet", device="cuda", batch=DRILL_BATCH):
+    """Phase 23 (a); returns ``(first run's output, its kernel counts)``."""
+    from distributed_ml_pytorch_tpu_torch.coord.drill import default_drill_plan, sched_drill
+
+    t0 = time.monotonic()
+    kw = dict(seed=0, plan=default_drill_plan(0), batch=batch)
+    out, counts = _drill_run(torch, sched_drill, os.path.join(tmp, "sched0"), model=model,
+                             device=device, **kw)
+    s = out["sched"]
+    require(out["ok"] and not out["violations"] and not out["errors"],
+            f"sched drill: violations {out['violations']}, errors {out['errors']}, events "
+            f"{out['events'][-8:]}")
+    require(s["preempts_done"] == 1 and s["resumes_done"] == 1,
+            f"{s['preempts_done']} preempt(s), {s['resumes_done']} resume(s)")
+    require(s["audit"] == [], f"ledger audit: {s['audit']}")
+    require(out["replayed_updates"] > 0, "the resume replayed no WAL record")
+    require(out["bit_identical"] is True, "the resumed shard differs from the parked one")
+    require(all(a <= out["applied"][i][j] for i, w in out["acked"].items() for j, a in w.items()),
+            f"acked {out['acked']} > applied {out['applied']}")
+    require(out["chaos_counts"].get("drop", 0) > 0, f"no drop in {out['chaos_counts']}")
+    steps = sum(len(v) for v in out["losses"].values())
+    if device == "cuda":
+        _require_step_counts(counts, steps, steps, "sched drill")
+    again = sched_drill(base_dir=os.path.join(tmp, "sched1"), model=model, device=device, **kw)
+    on_cpu = sched_drill(base_dir=os.path.join(tmp, "sched2"), model="lenet", device="cpu",
+                         **dict(kw, batch=16))
+    require(again["ok"] and on_cpu["ok"], f"a comparison drill failed: {again['violations']} "
+            f"{again['errors']} {on_cpu['violations']} {on_cpu['errors']}")
+    log = out["chaos_lines"]
+    require(log and log == again["chaos_lines"], "the sched drill's chaos log differs between "
+            "runs")
+    require(log == on_cpu["chaos_lines"], "the sched drill's chaos log on the card differs from "
+            "the CPU's")
+    emit({"phase": "sched_drill", "ok": True, "model": model, "device": device, "batch": batch,
+          "preempt_mttr_ms": s["preempt_mttr_s"][0] * 1e3,
+          "resume_mttr_ms": s["resume_mttr_s"][0] * 1e3,
+          "preempt_mttr_ms_runs": [r["sched"]["preempt_mttr_s"][0] * 1e3
+                                   for r in (out, again, on_cpu)],
+          "resume_mttr_ms_runs": [r["sched"]["resume_mttr_s"][0] * 1e3
+                                  for r in (out, again, on_cpu)],
+          "held_pushes": out["held_pushes"], "replayed_records": out["replayed_updates"],
+          "apply_seq_parked": out["apply_seq_parked"], "acked": out["acked"],
+          "applied": out["applied"], "chaos_counts": out["chaos_counts"], "steps": steps,
+          "day_s": out["wall_s"], "peak_window_s": out["peak_window_s"],
+          "wall_s": time.monotonic() - t0, "kernel_counts": counts})
+    return out, counts
+
+
+def phase_coordfail_preempt(torch, tmp, model="alexnet", device="cuda", batch=DRILL_BATCH):
+    """Phase 23 (b); returns the run's kernel counts."""
+    from distributed_ml_pytorch_tpu_torch.coord.drill import coordfail_drill
+
+    t0 = time.monotonic()
+    steps = 20
+    out, counts = _drill_run(torch, coordfail_drill, os.path.join(tmp, "coordfail_preempt"),
+                             seed=0, steps=steps, kill_during="preempt", model=model,
+                             device=device, batch=batch)
+    require(out["ok"], f"coordfail preempt drill: errors {out['errors']}, violations "
+            f"{out['violations']}, events {out['events2'][-8:]}")
+    require(out["epochs"] == (1, 2), f"epochs {out['epochs']}")
+    require(not out["evictions"], f"members evicted: {out['evictions']}")
+    require(out["stranded"] == [], f"parked rank(s) stranded: {out['stranded']}")
+    require(out["resumes_done"] == 1 and out["bit_identical"] is True,
+            f"resumes {out['resumes_done']}, bit-identical {out['bit_identical']}")
+    done = sum(len(v) for v in out["losses"].values())
+    if device == "cuda":
+        _require_step_counts(counts, done, done, "coordfail preempt drill")
+    emit({"phase": "coordfail_preempt", "ok": True, "model": model, "device": device,
+          "batch": batch, "steps_lost": steps * DRILL_WORKERS - done,
+          "mttr_ms": out["mttr_s"] * 1e3, "restore_ms": out["restore_s"] * 1e3,
+          "outage_ms": out["outage_s"] * 1e3, "epochs": out["epochs"],
+          "restored_members": out["restored_members"],
+          "replayed_records": out["replayed_updates"], "grants": out["grants"],
+          "wall_s": time.monotonic() - t0, "kernel_counts": counts})
+    return counts
+
+
+def phase_sched_serving(torch, drill_out, device="cuda"):
+    """Phase 23 (c): the ``sched`` leg's serving burst; returns its K8
+    launches. On the card: one K8 launch per layer and decode step the
+    engine took, none of the reference, and K8 held to the reference on
+    the inputs of its call at the longest cache."""
+    from distributed_ml_pytorch_tpu_torch import bench_all
+    from distributed_ml_pytorch_tpu_torch.ops import decode_attention as da
+    from distributed_ml_pytorch_tpu_torch.serving.cache import SlotKVPool
+
+    t0 = time.monotonic()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    # the decode steps the engine takes, and a copy of the inputs of K8's
+    # first call at the longest big cache it passed
+    steps, longest = [0], []
+    real_block, real_k8 = SlotKVPool.decode_block_step, da.decode_attention_cuda
+
+    def count_block(pool, *args):
+        steps[0] += pool.decode_block
+        return real_block(pool, *args)
+
+    def record_inputs(*args):
+        if not longest or args[3].shape[2] > longest[0][3].shape[2]:
+            longest[:] = [tuple(a.clone() if torch.is_tensor(a) else a for a in args)]
+        return real_k8(*args)
+
+    SlotKVPool.decode_block_step, da.decode_attention_cuda = count_block, record_inputs
+    da.launches = 0
+    try:
+        with _ReferenceCalls(da) as ref:
+            rate, ttft_p50 = bench_all._serving_slot_rate(device)
+            if device == "cuda":
+                torch.cuda.synchronize()
+    finally:
+        SlotKVPool.decode_block_step, da.decode_attention_cuda = real_block, real_k8
+    k8 = da.launches
+    # one decode attention per layer and decode step: K8 on the card, the
+    # reference (and never K8) on the CPU
+    n_layers = bench_all.TINY_LM["n_layers"]
+    calls, other = (k8, ref.n) if device == "cuda" else (ref.n, k8)
+    require(steps[0] > 0 and calls == n_layers * steps[0] and other == 0,
+            f"the serving burst ran K8 {k8} and the reference {ref.n} times on {device}, want "
+            f"{n_layers} layers x {steps[0]} decode steps of one of them")
+    check = None
+    if device == "cuda":
+        args = longest[0]
+        tol = DECODE_TOL["float32"]
+        mx, rel, ok = _err(torch, da.decode_attention_cuda(*args),
+                           da.decode_attention_reference(*args), da.decode_error_scale(*args),
+                           tol)
+        b, h, C, d = args[3].shape
+        check = {"b": b, "h": h, "C": C, "head_dim": d, "dtype": str(args[0].dtype),
+                 "max_abs_err": mx, "max_err_over_scale": rel, "tolerance": tol}
+        require(args[0].dtype == torch.float32, f"the burst ran K8 at {args[0].dtype}")
+        require(ok, f"K8 on the burst's inputs (C={C}, head_dim {d}): {mx} ({rel} of the "
+                "scale)")
+    uplift, extra = bench_all.sched_goodput(drill_out, rate, ttft_p50)
+    emit({"phase": "sched_serving", "ok": True, "device": device,
+          "serve_tokens_per_s": rate, "serve_ttft_p50_ms": ttft_p50,
+          "sched_goodput_uplift": uplift, "goodput": extra, "decode_steps": steps[0],
+          "reference_calls": ref.n, "k8_at_longest_cache": check,
+          "wall_s": time.monotonic() - t0, "kernel_counts": {"decode_attention": k8}})
+    return k8
+
+
+def phase_sched(torch, model="alexnet", device="cuda"):
+    """Phase 23: (a) the scheduler drill, (b) the coordinator's death with
+    a shard parked, (c) the serving burst that prices the borrowed slot;
+    returns every launch of their first runs."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="smoke_sched_")
+    try:
+        out, launches = phase_sched_drill(torch, tmp, model, device)
+        launches = dict(launches)
+        _add_launches(launches, phase_coordfail_preempt(torch, tmp, model, device))
+        launches["decode_attention"] = phase_sched_serving(torch, out, device)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4838,6 +5020,9 @@ def main() -> int:
         durability = phase_durability(torch)
         for name in ("flat_axpy", "relu_pool2_fwd", "relu_pool2_bwd"):
             launches[name] += durability[name]
+        sched = phase_sched(torch)
+        for name in ("flat_axpy", "relu_pool2_fwd", "relu_pool2_bwd", "decode_attention"):
+            launches[name] += sched[name]
         smi = nvidia_smi_line()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

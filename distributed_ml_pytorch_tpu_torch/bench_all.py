@@ -9,6 +9,7 @@
     python -m distributed_ml_pytorch_tpu_torch.bench_all --legs wire_bytes
     python -m distributed_ml_pytorch_tpu_torch.bench_all --legs elastic
     python -m distributed_ml_pytorch_tpu_torch.bench_all --legs recovery,coordfail,health
+    python -m distributed_ml_pytorch_tpu_torch.bench_all --legs sched
     python -m distributed_ml_pytorch_tpu_torch.bench_all --device cpu --tiny
 
 One JSON line per measurement on stdout (the JAX ``emit`` record: config,
@@ -132,11 +133,23 @@ narration on stderr. Ported legs, under the JAX metric names:
   (quarantined of arriving pushes, %), ``health_nack_roundtrips`` (nacks
   the workers heard) and ``health_rollback_mttr`` (the watchdog's barrier
   to every shard's ``RollbackDone``); host clock.
+- ``sched`` — config 3's scheduler leg (JAX ``sched_phase``,
+  bench_all.py:1308-1402): ``coord/drill.sched_drill`` at seed 0 under the
+  default drill plan (two elastic shard servers, two LeNet workers on the
+  card, a training and a serving tenant): ``sched_preempt_mttr`` (the
+  serving spike's snapshot barrier, ``PreemptRequest`` and park, to the
+  slot granted away) and ``sched_resume_mttr`` (the off-peak revoke to the
+  shard's new life rejoined, restored bit for bit), and
+  ``sched_goodput_uplift``: useful slot-seconds of the shared fleet against
+  two static half-fleets over the same measured day, the borrowed slot's
+  serving priced at the rate of a real ``ServingEngine`` burst
+  (:func:`_serving_slot_rate`, JAX :1277-1306: vocab 128, d 64, 2 heads, 2
+  layers, 4 slots, 8 requests of 24 tokens; K8 on the card); host clock.
 
 ``--tiny`` shrinks every other leg to test widths (a CPU run in seconds);
 its records keep the metric names and say so in their notes. The
-``recovery``, ``coordfail`` and ``health`` legs run their LeNet fleet
-with or without it. Timing is
+``recovery``, ``coordfail``, ``health`` and ``sched`` legs run their LeNet
+fleet with or without it. Timing is
 ``utils/devtime.device_time``: CUDA events on the card, wall clock on the
 CPU (the record's note names the source). The LM legs' FLOP numerator is
 ``utils/flops.lm_train_flops_6nd`` over the non-embedding parameters (XLA's
@@ -1548,6 +1561,116 @@ def health_phase(device) -> dict:
     return res
 
 
+def _serving_slot_rate(device) -> tuple:
+    """``(tokens/s, p50 TTFT ms)`` of one engine slot: a real
+    ``ServingEngine`` burst of 8 requests of 24 tokens, after one warm-up
+    request outside the timed window. The rate the ``sched`` leg prices a
+    borrowed slot's serving with."""
+    from distributed_ml_pytorch_tpu_torch.serving.engine import ServingEngine
+
+    lm = TransformerLM(**TINY_LM, max_len=256, seed=0, device=device)
+    engine = ServingEngine(lm, slots=4, cache_size=128)
+    warm = engine.submit(np.zeros(16, np.int32), 10)
+    engine.run_until_idle()
+    if not warm.done:
+        raise RuntimeError("the serving warm-up request did not finish")
+    engine.reset_metrics()
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    handles = [engine.submit(rng.integers(0, 128, size=16).astype(np.int32), 24)
+               for _ in range(8)]
+    engine.run_until_idle()
+    burst = time.perf_counter() - t0
+    tokens = sum(len(h.tokens) for h in handles)
+    ttft = engine.slo_summary().get("ttft_ms") or {}
+    return tokens / max(burst, 1e-9), ttft.get("p50")
+
+
+def sched_goodput(out: dict, serve_rate: float, ttft_p50) -> tuple:
+    """``(uplift, extra)`` of one ``sched_drill`` day: the shared fleet's
+    useful slot-seconds over two static half-fleets', and the record's
+    breakdown. Shared: both slots train off-peak, one is lent for the peak
+    window, the transitions cost the measured MTTRs. Static: one slot trains
+    all day, one serves all day with live demand only in the peak window;
+    its training steps are extrapolated linearly in slot-seconds from the
+    measured day."""
+    s = out["sched"]
+    preempt_mttr, resume_mttr = s["preempt_mttr_s"][0], s["resume_mttr_s"][0]
+    wall = out["wall_s"]
+    peak = out["peak_window_s"] or 0.0
+    in_corridor = all(np.mean(v[-4:]) < np.mean(v[:4]) for v in out["losses"].values())
+    train_steps = sum(len(v) for v in out["losses"].values())
+    shared_train_slot_s = 2 * wall - peak
+    shared_serve_s = max(0.0, peak - preempt_mttr)
+    static_train_slot_s = wall
+    static_serve_s = peak
+    static_train_steps = train_steps * static_train_slot_s / max(shared_train_slot_s, 1e-9)
+    shared_useful = shared_train_slot_s + shared_serve_s - resume_mttr
+    static_useful = static_train_slot_s + static_serve_s
+    extra = {
+        "day_s": round(wall, 2),
+        "peak_window_s": round(peak, 2),
+        "shared": {"train_steps": train_steps, "train_in_loss_corridor": bool(in_corridor),
+                   "serve_tokens_in_slo": int(serve_rate * shared_serve_s),
+                   "useful_slot_s": round(shared_useful, 2)},
+        "static": {"train_steps_extrapolated": int(static_train_steps),
+                   "serve_tokens_in_slo": int(serve_rate * static_serve_s),
+                   "useful_slot_s": round(static_useful, 2)},
+        "serve_tokens_per_s": round(serve_rate, 1),
+        "serve_ttft_p50_ms": ttft_p50,
+    }
+    return shared_useful / static_useful, extra
+
+
+def sched_phase(device) -> dict:
+    """Config 3's scheduler leg: the multi-tenant day under seeded wire
+    chaos. The scheduler parks a live training shard at the serving peak
+    (snapshot barrier, then the park under the manifest), lends its slot to
+    the serving tenant and resumes the shard bit for bit off-peak
+    (checkpoint and exactly-once WAL replay, a newer life of the rank).
+    Priced as preempt and resume MTTR and as aggregate goodput (training
+    slot-seconds and serving tokens) of the shared fleet against two static
+    half-fleets over the same measured day."""
+    import tempfile
+
+    from distributed_ml_pytorch_tpu_torch.coord.drill import default_drill_plan, sched_drill
+
+    with tempfile.TemporaryDirectory(prefix="bench_sched_") as d:
+        out = sched_drill(base_dir=d, seed=0, plan=default_drill_plan(0), device=device)
+    s = out["sched"]
+    if not out["ok"] or not s["preempt_mttr_s"] or not s["resume_mttr_s"]:
+        raise RuntimeError(f"sched_phase incomplete: ok={out['ok']} violations="
+                           f"{out['violations']} errors={out['errors']} "
+                           f"events={out['events'][-5:]}")
+    preempt_mttr = s["preempt_mttr_s"][0]
+    resume_mttr = s["resume_mttr_s"][0]
+    hw = _fleet_hw(device)
+    emit(3, "sched_preempt_mttr", preempt_mttr * 1e3, "ms", hw,
+         "serving demand spike -> snapshot barrier -> PreemptRequest -> live training shard "
+         "parks under the FleetManifest and its slot is granted to the serving tenant; 2 "
+         "workers + 2 shards, LeNet, under seeded wire chaos (coord/sched.FleetScheduler via "
+         "coord/drill.sched_drill)")
+    emit(3, "sched_resume_mttr", resume_mttr * 1e3, "ms", hw,
+         "off-peak revoke -> ResumeRequest -> fresh server restores the manifest checkpoint "
+         f"+ replays {out['replayed_updates']} WAL record(s) exactly once (bit-identical: "
+         f"{out['bit_identical']}) and rejoins as a newer incarnation of the same rank")
+    serve_rate, ttft_p50 = _serving_slot_rate(device)
+    uplift, extra = sched_goodput(out, serve_rate, ttft_p50)
+    res = {"sched_preempt_mttr": preempt_mttr * 1e3, "sched_resume_mttr": resume_mttr * 1e3,
+           "sched_goodput_uplift": uplift}
+    emit(3, "sched_goodput_uplift", uplift, "x", "derived",
+         "demand-weighted useful slot-seconds, shared FleetScheduler vs two statically "
+         "partitioned half-fleets over the SAME measured day: static dedicates one slot to "
+         "serving that only has live demand during the peak window, shared lends the "
+         "training slot at peak (preempt) and takes it back off-peak (resume), paying only "
+         "the measured MTTRs; serving tokens priced at a real ServingEngine's measured burst "
+         "rate", extra=extra)
+    log(f"sched_phase: preempt {preempt_mttr * 1e3:.0f} ms, resume {resume_mttr * 1e3:.0f} "
+        f"ms, day {extra['day_s']}s (peak {extra['peak_window_s']}s), goodput uplift "
+        f"{uplift:.2f}x, replayed {out['replayed_updates']}, chaos {out['chaos_counts']}")
+    return res
+
+
 LEGS = {
     "alexnet": lambda dev, tiny: alexnet_phase(dev, tiny=tiny),
     "lm": lambda dev, tiny: lm_phase(dev, tiny=tiny),
@@ -1563,6 +1686,7 @@ LEGS = {
     "recovery": lambda dev, tiny: recovery_phase(dev),
     "coordfail": lambda dev, tiny: coordfail_phase(dev),
     "health": lambda dev, tiny: health_phase(dev),
+    "sched": lambda dev, tiny: sched_phase(dev),
 }
 
 

@@ -12,19 +12,32 @@ run time, and Sandblaster-style straggler speculation.
 - :mod:`~.manifest` — :class:`FleetManifest`, what a snapshot barrier
   publishes and a restore trusts;
 - :mod:`~.demo` — the in-process elastic world and its scenario;
-- :mod:`~.drill` — the recovery drill and the coordinator-failure drill;
+- :mod:`~.tenants` — :class:`Tenant` and :class:`TenantRegistry`, who may
+  own fleet capacity;
+- :mod:`~.sched` — :class:`FleetScheduler` and its ``CapacityLedger``:
+  admit, preempt (park), resume;
+- :mod:`~.drill` — the recovery drill, the scheduler drill and the
+  coordinator-failure drill;
 - :mod:`~.health` — the numerical-health scenario (poisoned worker,
   reputation, auto-rollback);
 - :mod:`~.cli` — the coordinator process (``python -m
   distributed_ml_pytorch_tpu_torch.coord.cli``).
 
-Gray failure and the scheduler, and the MPMD stage plane, are not in this
-package yet.
+Gray failure and the MPMD stage plane are not in this package yet.
 """
 
 from distributed_ml_pytorch_tpu_torch.coord.shardmap import ShardEntry, ShardMap
 from distributed_ml_pytorch_tpu_torch.coord.coordinator import Coordinator, MemberInfo
 from distributed_ml_pytorch_tpu_torch.coord.member import CoordClient, FleetView
+from distributed_ml_pytorch_tpu_torch.coord.sched import CapacityLedger, FleetScheduler, Slot
+from distributed_ml_pytorch_tpu_torch.coord.tenants import (
+    TENANT_MPMD,
+    TENANT_SERVING,
+    TENANT_TRAINING,
+    Tenant,
+    TenantRegistry,
+)
 
 __all__ = ["ShardEntry", "ShardMap", "Coordinator", "MemberInfo", "CoordClient",
-           "FleetView"]
+           "FleetView", "CapacityLedger", "FleetScheduler", "Slot", "Tenant",
+           "TenantRegistry", "TENANT_TRAINING", "TENANT_SERVING", "TENANT_MPMD"]

@@ -19,15 +19,19 @@ The hub of an elastic PS fleet over TCP::
     python -m distributed_ml_pytorch_tpu_torch.coord.cli --drill --model lenet
     python -m distributed_ml_pytorch_tpu_torch.coord.cli --health --model lenet
 
+    # the multi-tenant scheduler: a serving spike parks a training shard
+    # behind a snapshot barrier, the off-peak resumes it bit for bit
+    python -m distributed_ml_pytorch_tpu_torch.coord.cli --sched-demo --model lenet
+
 The hub binds and serves at once (``TCPTransport(wait_for=0)``): the members
 are whoever dials in. ``--manifest-dir`` and ``--snapshot-interval`` drive
 its snapshot barrier, ``--auto-rollback`` and ``--rollback-loss-factor``
 its watchdog, ``--reputation-nacks`` worker reputation. On exit it prints
 its last 64 decisions and ``fleet at exit:`` with the fleet state and the
-final shard map. ``--drill``, ``--health`` and ``--demo`` print their
-summary and exit 0 only if it is ok. The JAX CLI's flags of the later
-planes (the MPMD and scheduler scenarios and the metrics dump) are absent,
-so argparse rejects them.
+final shard map. ``--drill``, ``--health``, ``--sched-demo`` and ``--demo``
+print their summary and exit 0 only if it is ok. The JAX CLI's flags of
+the later planes (the MPMD scenario and the metrics dump) are absent, so
+argparse rejects them.
 """
 
 from __future__ import annotations
@@ -70,6 +74,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run the in-process numerical-health scenario (admission gate + "
                         "nacks, seeded SDC poisoned worker, reputation revocation, "
                         "coordinator auto-rollback) and exit")
+    p.add_argument("--sched-demo", action="store_true",
+                   help="run the in-process multi-tenant scheduler scenario (serving demand "
+                        "spike preempts a live training shard — snapshot barrier, park under "
+                        "the FleetManifest — then resumes it bit-for-bit off-peak via "
+                        "checkpoint + exactly-once WAL replay; prints preempt/resume MTTR and "
+                        "the restore proof) and exit")
     p.add_argument("--auto-rollback", action="store_true",
                    help="TCP hub mode: watch the fleet's loss telemetry and drive "
                         "RollbackRequest barriers to the last good manifest on "
@@ -87,7 +97,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="seconds between automatic fleet snapshot barriers (0 = only on "
                         "demand)")
     p.add_argument("--backend", type=str, default="cuda", choices=["cuda", "cpu"],
-                   help="--demo, --drill, --health: the workers' device")
+                   help="--demo, --drill, --health, --sched-demo: the workers' device")
     p.add_argument("--seed", type=int, default=0)
     return p
 
@@ -130,6 +140,16 @@ def run_health(args) -> int:
     return 0 if summary.get("ok") else 1
 
 
+def run_sched(args) -> int:
+    """The scheduler scenario in one process (:func:`~.drill.sched_demo`):
+    peak preempt, park, borrowed slot, off-peak resume."""
+    from distributed_ml_pytorch_tpu_torch.coord.drill import sched_demo
+
+    summary = sched_demo(seed=args.seed, model=args.model, device=args.backend)
+    print("sched scenario:", summary)
+    return 0 if summary.get("ok") else 1
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     print(args)
@@ -139,6 +159,8 @@ def main(argv=None) -> int:
         return run_drill(args)
     if args.health:
         return run_health(args)
+    if args.sched_demo:
+        return run_sched(args)
 
     from distributed_ml_pytorch_tpu_torch.coord.coordinator import Coordinator
     from distributed_ml_pytorch_tpu_torch.utils.messaging import TCPTransport

@@ -48,17 +48,32 @@ transports as everything else:
   (one lease by default) in which no lease expires and no speculation
   fires while the members' join retries re-attach them. The files' bytes
   are the JAX package's for the same frame history.
+- **The scheduler's park table.** An attached ``coord/sched.FleetScheduler``
+  is driven by :meth:`Coordinator.tick` and takes ``PreemptDone`` frames
+  from :meth:`Coordinator.handle`. Every park and unpark it makes is logged
+  (``park``/``unpark`` records) into a durable table before the ledger
+  changes, and the checkpoint carries the table and the ledger, so a
+  restarted life neither expires a parked rank (parked ranks are exempt
+  from lease expiry and from the grace window) nor grants its slot twice
+  (:meth:`Coordinator._restore_sched_state` rebuilds a slot from the logged
+  ticket when no checkpoint covered the park). ``restore_parked=False``
+  forgets the table on a restart.
+- **Engine scaling advice.** Engine members renew with (occupancy %, queue
+  depth, TTFT ms) in the renewal's progress fields; past
+  ``engine_occ_high`` mean occupancy or the ``engine_slo_ttft_ms`` SLO the
+  coordinator advises scaling up, below ``engine_occ_low`` with more than
+  one engine scaling down: an event, an entry in ``scale_advice`` and the
+  ``on_scale(direction, detail)`` callback, at most once a
+  ``scale_cooldown``.
 
 The decisions are functions of the frame and clock history (``handle`` and
 ``tick`` with an injectable clock), so tests drive them synchronously;
 :meth:`Coordinator.run` feeds them a transport and wall time.
 
-Not in this package yet, and refused rather than ignored: the
-engine-scaling advisory, the scheduler's park table
-(``restore_parked``, and park or scheduler records in a ``durable_dir``),
-an attached scheduler or gray-failure policy, and the flight recorder. The
-frames of those planes (any code outside this package's ``WIRE_SCHEMAS``)
-reaching the coordinator are dropped and counted in
+Not in this package yet, and refused rather than ignored: an attached
+gray-failure policy and the flight recorder. The frames of a plane this
+package does not have (any code outside its ``WIRE_SCHEMAS``: the MPMD
+stages') reaching the coordinator are dropped and counted in
 ``later_plane_dropped``.
 """
 
@@ -111,9 +126,6 @@ COORD_EPOCH_NAME = "coord_epoch"
 COORD_CKPT_NAME = "coord_ckpt.json"
 COORD_WAL_NAME = "coord.wal"
 
-#: the scheduler's plane, named where a durable directory holds its records
-_SCHED_PLANE = "the multi-tenant scheduler (its park table and ledger)"
-
 
 def _op_to_f32(op: dict) -> np.ndarray:
     """One coordinator log record: the JSON transition, padded with spaces
@@ -130,21 +142,9 @@ def _f32_to_op(payload: np.ndarray) -> dict:
 
 def later_plane(code) -> bool:
     """A code outside this package's ``WIRE_SCHEMAS``: a frame of a plane
-    this package does not have yet (the scheduler's preempt, grant and
-    resume, the MPMD stages), dropped and counted, never half-handled."""
+    this package does not have yet (the MPMD stages), dropped and counted,
+    never half-handled."""
     return code not in WIRE_SCHEMAS
-
-
-#: the JAX constructor's options of the later planes, with their defaults
-#: and the plane each belongs to: any other value raises
-_LATER_OPTIONS = {
-    "restore_parked": (True, _SCHED_PLANE),
-    "engine_occ_high": (0.0, "engine scaling"),
-    "engine_occ_low": (0.0, "engine scaling"),
-    "engine_slo_ttft_ms": (0.0, "engine scaling"),
-    "scale_cooldown": (5.0, "engine scaling"),
-    "on_scale": (None, "engine scaling"),
-}
 
 
 def refuse_later_options(owner: str, options: dict, table: dict) -> None:
@@ -213,6 +213,31 @@ def encode_rollback_done(rollback_id: int, map_version: int, lo: int, hi: int,
                          apply_seq: int) -> np.ndarray:
     return np.asarray([*_split16(rollback_id), *_split16(map_version), *_split16(lo),
                        *_split16(hi), *_split16(apply_seq)], np.float32)
+
+
+def encode_preempt_request(grant_id: int, snapshot_id: int) -> np.ndarray:
+    """Scheduler to victim member: park yourself under ``grant_id``;
+    ``snapshot_id`` names the manifest the park restores from."""
+    return np.asarray([*_split16(grant_id), *_split16(snapshot_id)], np.float32)
+
+
+def encode_preempt_done(grant_id: int, snapshot_id: int, lo: int, hi: int,
+                        apply_seq: int) -> np.ndarray:
+    return np.asarray([*_split16(grant_id), *_split16(snapshot_id), *_split16(lo),
+                       *_split16(hi), *_split16(apply_seq)], np.float32)
+
+
+def encode_slot_grant(grant_id: int, tenant_id: int, action: int, slot_id: int) -> np.ndarray:
+    """Scheduler to node agent: action 1 grants ``slot_id`` to ``tenant_id``
+    (spawn that tenant's member kind), action 0 revokes it."""
+    return np.asarray([*_split16(grant_id), float(tenant_id), float(action), float(slot_id)],
+                      np.float32)
+
+
+def encode_resume_request(grant_id: int, rank: int, snapshot_id: int) -> np.ndarray:
+    """Scheduler to node agent: resume the member parked as ``rank``,
+    restoring ``snapshot_id`` bit for bit (manifest and WAL replay)."""
+    return np.asarray([*_split16(grant_id), float(rank), *_split16(snapshot_id)], np.float32)
 
 
 #: the FleetState tail's section separator (engine ranks are non-negative)
@@ -303,20 +328,24 @@ class Coordinator:
     snapshot clock a disaster recovery adopts) drive the snapshot barrier;
     ``auto_rollback``, ``rollback_loss_factor``, ``rollback_cooldown`` and
     ``rollback_timeout`` the rollback barrier; ``reputation_nacks`` and
-    ``reputation_cooldown`` worker reputation; ``durable_dir``, ``grace``
-    and ``ckpt_every`` the durable coordinator."""
+    ``reputation_cooldown`` worker reputation; ``durable_dir``, ``grace``,
+    ``restore_parked`` and ``ckpt_every`` the durable coordinator;
+    ``engine_occ_high``, ``engine_occ_low``, ``engine_slo_ttft_ms``,
+    ``scale_cooldown`` and ``on_scale`` the engine-scaling advice."""
 
     def __init__(self, transport: Optional[Transport], n_params: int, *, lease: float = 2.0,
                  straggler_factor: float = 3.0, straggler_after_steps: int = 4,
                  speculation: bool = True, clock: Callable[[], float] = time.monotonic,
                  manifest_dir: Optional[str] = None, snapshot_interval: float = 0.0,
                  snapshot_timeout: float = 30.0, restore_manifest=None,
+                 engine_occ_high: float = 0.0, engine_occ_low: float = 0.0,
+                 engine_slo_ttft_ms: float = 0.0, scale_cooldown: float = 5.0,
+                 on_scale: Optional[Callable[[str, dict], None]] = None,
                  auto_rollback: bool = False, rollback_loss_factor: float = 2.0,
                  rollback_cooldown: float = 10.0, rollback_timeout: float = 30.0,
                  reputation_nacks: int = 0, reputation_cooldown: float = 10.0,
                  durable_dir: Optional[str] = None, grace: Optional[float] = None,
-                 ckpt_every: int = 16, **later):
-        refuse_later_options("Coordinator", later, _LATER_OPTIONS)
+                 restore_parked: bool = True, ckpt_every: int = 16):
         self.transport = transport
         self.lease = float(lease)
         self.straggler_factor = float(straggler_factor)
@@ -332,6 +361,8 @@ class Coordinator:
         #: the decision log, a capped ring
         self.events = BoundedEvents(maxlen=1024)
         self.later_plane_dropped = 0
+        #: the attached ``coord/sched.FleetScheduler`` (it sets this)
+        self.sched = None
         # --- the snapshot barrier
         self.manifest_dir = manifest_dir
         self.snapshot_interval = float(snapshot_interval)
@@ -344,6 +375,14 @@ class Coordinator:
                               if self.snapshot_interval > 0 else None)
         self.manifests_written = 0
         self.last_manifest: Optional[FleetManifest] = None
+        # --- engine scaling advice (a threshold at 0 turns its direction off)
+        self.engine_occ_high = float(engine_occ_high)
+        self.engine_occ_low = float(engine_occ_low)
+        self.engine_slo_ttft_ms = float(engine_slo_ttft_ms)
+        self.scale_cooldown = float(scale_cooldown)
+        self.on_scale = on_scale
+        self._next_scale_at = 0.0
+        self.scale_advice = collections.deque(maxlen=256)
         # --- reputation and the rollback barrier
         self.auto_rollback = bool(auto_rollback)
         self.rollback_loss_factor = float(rollback_loss_factor)
@@ -368,13 +407,23 @@ class Coordinator:
         # --- the durable coordinator
         self.durable_dir = durable_dir
         self.grace = grace
+        self.restore_parked = bool(restore_parked)
         #: a memory-only coordinator's epoch; a durable one bumps it per life
         self.epoch = 1
         self._wal: Optional[WriteAheadLog] = None
         self._wal_seq = 0
         self._ckpt_seq = 0
         self._ckpt_every = max(1, int(ckpt_every))
+        #: a park or unpark asks for a checkpoint at the next tick
+        self._ckpt_due = False
         self._ckpt_path: Optional[str] = None
+        #: rank -> restore ticket of every member the scheduler parked,
+        #: kept through logged park and unpark records: the durable twin of
+        #: ``FleetScheduler.parked_ranks()``
+        self._parked_durable: Dict[int, dict] = {}
+        #: the previous life's checkpointed ledger, until a scheduler
+        #: attaches and takes it
+        self._sched_restore: Optional[dict] = None
         self._grace_until = 0.0
         self._grace_pending: set = set()
         self.restored_members = 0
@@ -389,16 +438,6 @@ class Coordinator:
                       f"shard map v{self.shard_map.version}")
         if durable_dir is not None:
             self._init_durable()
-
-    @property
-    def sched(self):
-        return None
-
-    @sched.setter
-    def sched(self, value) -> None:
-        if value is not None:
-            raise ValueError("Coordinator.sched: the multi-tenant scheduler is not in this "
-                             "package yet")
 
     @property
     def gray(self):
@@ -447,10 +486,6 @@ class Coordinator:
         now = self._clock()
         base_seq = 0
         if state is not None:
-            if state.get("parked") or state.get("sched"):
-                raise ValueError(
-                    f"coordinator checkpoint in {self.durable_dir!r} holds park or scheduler "
-                    f"state: {_SCHED_PLANE} is not in this package yet")
             base_seq = int(state.get("wal_seq", 0))
             for rank, kind, inc in state.get("members", ()):
                 self.members[int(rank)] = MemberInfo(int(rank), int(kind), int(inc), now)
@@ -462,6 +497,9 @@ class Coordinator:
             self._snap_seq = int(state.get("snap_seq", self._snap_seq))
             self._roll_seq = int(state.get("roll_seq", self._roll_seq))
             self._next_task = int(state.get("next_task", self._next_task))
+            for rank, parked in (state.get("parked") or {}).items():
+                self._parked_durable[int(rank)] = dict(parked)
+            self._sched_restore = state.get("sched") or None
         for rec in records:
             if rec.seq <= base_seq:
                 continue  # the checkpoint covers it
@@ -473,11 +511,19 @@ class Coordinator:
             self._apply_wal_op(op, now)
         self._wal_seq = max(self._wal_seq, base_seq)
         self._ckpt_seq = self._wal_seq
-        if not (self.members or self.shard_map.version):
+        if not self.restore_parked:
+            # a restart that forgets the park table: lease expiry re-arms on
+            # every parked member
+            self._parked_durable.clear()
+            if self._sched_restore:
+                for slot in self._sched_restore.get("slots", ()):
+                    slot[5] = None
+        if not (self.members or self._parked_durable or self.shard_map.version):
             return  # a first life over an empty directory
         self.restored_members = len(self.members)
         grace = self.lease if self.grace is None else float(self.grace)
-        self._grace_pending = set(self.members)
+        # a parked rank stays silent by design: the window does not wait on it
+        self._grace_pending = set(self.members) - set(self._parked_durable)
         if grace > 0 and self._grace_pending:
             self._grace_until = now + grace
         if self.last_manifest is None and self.manifest_dir:
@@ -488,7 +534,7 @@ class Coordinator:
                 pass
         self._log(f"restarted as epoch {self.epoch}: restored {len(self.members)} member(s), "
                   f"map v{self.shard_map.version}, snapshot clock {self._snap_seq}, "
-                  "0 parked rank(s)"
+                  f"{len(self._parked_durable)} parked rank(s)"
                   + (f"; grace window {grace:.1f}s awaiting {sorted(self._grace_pending)}"
                      if self._grace_until else ""))
 
@@ -509,9 +555,10 @@ class Coordinator:
             self._snap_seq = max(self._snap_seq, int(op["id"]))
         elif kind == "roll":
             self._roll_seq = max(self._roll_seq, int(op["id"]))
-        elif kind in ("park", "unpark"):
-            raise ValueError(f"coordinator log in {self.durable_dir!r} holds a {kind!r} "
-                             f"record: {_SCHED_PLANE} is not in this package yet")
+        elif kind == "park":
+            self._parked_durable[int(op["rank"])] = dict(op["parked"])
+        elif kind == "unpark":
+            self._parked_durable.pop(int(op["rank"]), None)
         # "manifest" carries nothing beyond the snapshot clock: the manifest
         # file is the durable artifact
 
@@ -528,6 +575,15 @@ class Coordinator:
         """Write the JSON checkpoint and truncate the log it covers."""
         if self._wal is None or self._ckpt_path is None:
             return
+        sched_state = None
+        if self.sched is not None:
+            sched_state = {
+                "next_grant": int(self.sched._next_grant),
+                "next_slot": int(self.sched.ledger._next_slot),
+                "slots": [[int(s.slot_id), None if s.rank is None else int(s.rank),
+                           [int(o) for o in s.owners], s.state, int(s.grant_id), s.parked]
+                          for s in self.sched.ledger.slots.values()],
+            }
         state = {
             "epoch": int(self.epoch),
             "wal_seq": int(self._wal_seq),
@@ -541,13 +597,80 @@ class Coordinator:
             "snap_seq": int(self._snap_seq),
             "roll_seq": int(self._roll_seq),
             "next_task": int(self._next_task),
-            # the scheduler's plane is not in this package: nothing parked
-            "parked": {},
-            "sched": None,
+            "parked": {str(r): p for r, p in self._parked_durable.items()},
+            "sched": sched_state,
         }
         atomic_write(self._ckpt_path, json.dumps(state, sort_keys=True).encode("utf-8"))
         self._ckpt_seq = self._wal_seq
         self._wal.truncate(self._wal_seq)
+
+    def parked_ranks(self) -> set:
+        """Ranks whose silence is a park, not a death: the durable park
+        table together with the scheduler's own view, so a restart cannot
+        re-arm lease expiry on a parked member."""
+        parked = set(self._parked_durable)
+        if self.sched is not None:
+            parked |= self.sched.parked_ranks()
+        return parked
+
+    def note_parked(self, rank: int, parked: dict) -> None:
+        """The scheduler's hook, before its ledger changes: log the park,
+        then keep its ticket in the durable table."""
+        self._wal_record(op="park", rank=int(rank), parked=dict(parked))
+        self._parked_durable[int(rank)] = dict(parked)
+        self._ckpt_due = True
+
+    def note_unparked(self, rank: int) -> None:
+        """The scheduler's hook when a parked rank's new life rejoined: log
+        the unpark and drop the rank from the durable table."""
+        self._wal_record(op="unpark", rank=int(rank))
+        self._parked_durable.pop(int(rank), None)
+        self._ckpt_due = True
+
+    def _restore_sched_state(self, sched) -> None:
+        """Seed a newly attached scheduler with the previous life's
+        checkpointed ledger, then reconcile its slots with the durable park
+        table: a slot whose rank the table holds is parked, and a parked
+        rank with no slot (a park after the last checkpoint) gets its slot
+        back from the logged ticket, owned by the borrower under the
+        original grant, so releasing it drives the resume."""
+        from distributed_ml_pytorch_tpu_torch.coord.sched import PARKED, Slot
+
+        restore = self._sched_restore
+        if restore is not None:
+            sched._next_grant = int(restore.get("next_grant", 1))
+            sched.ledger._next_slot = int(restore.get("next_slot", 0))
+            for sid, rank, owners, state, grant_id, parked in restore.get("slots", ()):
+                slot = Slot(slot_id=int(sid), rank=None if rank is None else int(rank),
+                            owners=[int(o) for o in owners], state=str(state),
+                            grant_id=int(grant_id),
+                            parked=None if parked is None else dict(parked))
+                sched.ledger.slots[slot.slot_id] = slot
+            self._sched_restore = None
+        for slot in sched.ledger.slots.values():
+            durable = self._parked_durable.get(slot.rank)
+            if durable is not None and slot.parked is None:
+                slot.parked = dict(durable)
+                slot.state = PARKED
+                self._log(f"restore: slot {slot.slot_id} reconciled to PARKED from the durable "
+                          f"park table (rank {slot.rank})")
+        known = {s.rank for s in sched.ledger.slots.values()}
+        for rank, durable in sorted(self._parked_durable.items()):
+            if rank in known or durable.get("gray"):
+                # a gray-failure quarantine ticket borrowed no capacity
+                continue
+            sid = int(durable.get("slot_id", sched.ledger._next_slot))
+            gid = int(durable.get("grant_id", 0))
+            borrower = durable.get("borrower")
+            sched.ledger.slots[sid] = Slot(
+                slot_id=sid, rank=int(rank),
+                owners=[] if borrower is None else [int(borrower)], state=PARKED,
+                grant_id=gid, parked=dict(durable))
+            sched.ledger._next_slot = max(sched.ledger._next_slot, sid + 1)
+            sched._next_grant = max(sched._next_grant, gid + 1)
+            self._log(f"restore: slot {sid} RESYNTHESIZED from the WAL'd park ticket (rank "
+                      f"{rank}, borrower {borrower}, grant {gid}) — no checkpoint covered this "
+                      "preemption")
 
     def _live(self, kind: Optional[int] = None) -> List[MemberInfo]:
         out = [m for m in self.members.values() if kind is None or m.kind == kind]
@@ -731,6 +854,17 @@ class Coordinator:
                 map_version=_join16(payload[2], payload[3]), lo=_join16(payload[4], payload[5]),
                 hi=_join16(payload[6], payload[7]), apply_seq=_join16(payload[8], payload[9]))
             return
+        if code == MessageCode.PreemptDone and payload.size >= 10:
+            if not np.isfinite(payload[:10]).all():
+                return
+            member.last_seen = now
+            if self.sched is not None:
+                self.sched.on_preempt_done(
+                    sender, grant_id=_join16(payload[0], payload[1]),
+                    snap_id=_join16(payload[2], payload[3]), lo=_join16(payload[4], payload[5]),
+                    hi=_join16(payload[6], payload[7]), apply_seq=_join16(payload[8], payload[9]),
+                    now=now)
+            return
         # the 5-, 6- and 10-field renewals are full renewals too: an absent
         # tail leaves the last report standing
         if code == MessageCode.LeaseRenew and payload.size >= 5:
@@ -795,8 +929,12 @@ class Coordinator:
                 self._grace_until = 0.0
                 self._grace_pending.clear()
                 in_grace = False
+        # a parked member stops renewing by design: expiring it would move
+        # its range away and make the resume impossible
+        parked = self.parked_ranks()
         expired = [] if in_grace else [m for m in self.members.values()
-                                       if now - m.last_seen > self.lease]
+                                       if now - m.last_seen > self.lease
+                                       and m.rank not in parked]
         shard_died = False
         for m in expired:
             self._wal_record(op="expire", rank=m.rank)
@@ -811,6 +949,9 @@ class Coordinator:
             self._announce()
         if self.speculation and not in_grace:
             self.check_stragglers()
+        self.check_engine_scaling(now)
+        if self.sched is not None:
+            self.sched.tick(now)
         # --- the snapshot barrier
         due = self._next_snap_at is not None and now >= self._next_snap_at
         if self._snap_requested or due:
@@ -838,7 +979,9 @@ class Coordinator:
             self.rollbacks_abandoned += 1
             self._roll = None
         # --- the checkpoint cadence (every logged transition is applied now)
-        if self._wal is not None and self._wal_seq - self._ckpt_seq >= self._ckpt_every:
+        if self._wal is not None and (self._ckpt_due
+                                      or self._wal_seq - self._ckpt_seq >= self._ckpt_every):
+            self._ckpt_due = False
             self.checkpoint()
         return bool(expired)
 
@@ -878,6 +1021,13 @@ class Coordinator:
         shards = self._live(KIND_SHARD)
         if not shards:
             self._log("snapshot request ignored: no live shard servers")
+            return
+        parked = self.parked_ranks()
+        if any(m.rank in parked for m in shards):
+            # a parked shard cannot answer, and a manifest without its range
+            # is no fleet snapshot: wait for the resume
+            self._log("snapshot request deferred: shard(s) "
+                      f"{sorted(r for r in parked)} parked by the scheduler")
             return
         self._wal_record(op="snap", id=self._snap_seq + 1)
         self._snap_seq += 1
@@ -1072,6 +1222,47 @@ class Coordinator:
             self._broadcast_rollback(encode_rollback_request(
                 roll["id"], roll["snapshot_id"], roll["map_version"], 1))
             self._roll = None
+
+    # ------------------------------------------------------- engine scaling
+    def check_engine_scaling(self, now: Optional[float] = None) -> Optional[str]:
+        """Advise replica scaling from the engines' own reports: ``"up"`` or
+        ``"down"`` when advice fired this call, else None; at most once a
+        ``scale_cooldown``. Engines renew with occupancy %, queue depth and
+        TTFT ms in the (push count, step, EWMA) fields; an engine that never
+        renewed is left out of the mean, an idle one (all zeros) counts."""
+        if self.engine_occ_high <= 0 and self.engine_occ_low <= 0 \
+                and self.engine_slo_ttft_ms <= 0:
+            return None
+        now = self._clock() if now is None else now
+        if now < self._next_scale_at:
+            return None
+        engines = self._live(KIND_ENGINE)
+        reported = [m for m in engines if m.reported]
+        if not reported:
+            return None
+        mean_occ = sum(m.push_count for m in reported) / (100.0 * len(reported))
+        mean_ttft = sum(m.ewma_ms for m in reported) / len(reported)
+        detail = {
+            "n_engines": len(engines), "mean_occupancy": round(mean_occ, 3),
+            "mean_ttft_ms": round(mean_ttft, 2),
+            "per_engine": {m.rank: {"occupancy": m.push_count / 100.0, "queued": m.step,
+                                    "ttft_ms": m.ewma_ms} for m in reported},
+        }
+        direction = None
+        if (self.engine_occ_high > 0 and mean_occ >= self.engine_occ_high) \
+                or (self.engine_slo_ttft_ms > 0 and mean_ttft > self.engine_slo_ttft_ms):
+            direction = "up"
+        elif self.engine_occ_low > 0 and mean_occ <= self.engine_occ_low and len(engines) > 1:
+            direction = "down"
+        if direction is None:
+            return None
+        self._next_scale_at = now + self.scale_cooldown
+        self.scale_advice.append((direction, detail))
+        self._log(f"engine scale-{direction} advised: mean occupancy {mean_occ:.0%}, mean TTFT "
+                  f"{mean_ttft:.1f} ms over {len(reported)} reporting engine(s)")
+        if self.on_scale is not None:
+            self.on_scale(direction, detail)
+        return direction
 
     # ---------------------------------------------------------- speculation
     def _speculate(self, victim: MemberInfo, backup: MemberInfo) -> int:

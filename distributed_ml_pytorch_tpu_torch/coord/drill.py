@@ -19,11 +19,21 @@ workers, each shard's star under ``FaultyTransport`` chaos and the
    acked push is in the restored server's applied counts (acked <= applied
    for every worker and shard).
 
+:func:`sched_drill` runs the same fleet under the multi-tenant scheduler:
+a training tenant owns every shard slot, a serving tenant of higher
+priority wants one at the peak, and a node agent (a ``KIND_AGENT`` member)
+actuates grants and resumes. The peak parks the last shard behind a
+snapshot barrier (the workers hold their pushes to it), the off-peak
+resumes it from the manifest and its WAL, and the drill proves the round
+trip bit for bit.
+
 :func:`coordfail_drill` kills the coordinator instead, right after it sent
-a snapshot barrier: the data plane trains on under the last map, a new
-life over the same ``durable_dir`` (epoch bumped, members, map and clocks
-replayed) waits out its grace window while the members re-attach, evicts
-no one, and drives a barrier of its own to a published manifest.
+a snapshot barrier (or, with ``kill_during="preempt"``, with a shard
+parked by its scheduler): the data plane trains on under the last map, a
+new life over the same ``durable_dir`` (epoch bumped, members, map, clocks
+and the park table replayed) waits out its grace window while the members
+re-attach, evicts no one, and drives a barrier of its own to a published
+manifest (or resumes the parked shard).
 
 Determinism: the injected faults sit on channels whose send sequences are
 functions of the step script alone (worker 1's pull channel), and the kill
@@ -34,8 +44,7 @@ their loss-freedom must come from the WAL and the deferred acks.
 
 The workers are the port's: a model of the fixture on its device (the card
 by default), the synthetic CIFAR-10 set, ``loss_and_grads`` and the
-optimizer's ``step``. Not in this package yet: the scheduler's drill, the
-gray-failure drill and ``coordfail_drill(kill_during="preempt")``.
+optimizer's ``step``. Not in this package yet: the gray-failure drill.
 """
 
 from __future__ import annotations
@@ -48,6 +57,13 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 
 from distributed_ml_pytorch_tpu_torch.coord.coordinator import Coordinator
+from distributed_ml_pytorch_tpu_torch.coord.sched import FleetScheduler
+from distributed_ml_pytorch_tpu_torch.coord.tenants import (
+    TENANT_SERVING,
+    TENANT_TRAINING,
+    Tenant,
+    TenantRegistry,
+)
 from distributed_ml_pytorch_tpu_torch.coord.elastic import ElasticShardServer
 from distributed_ml_pytorch_tpu_torch.coord.manifest import MANIFEST_NAME, FleetManifest
 from distributed_ml_pytorch_tpu_torch.coord.member import CoordClient
@@ -156,6 +172,14 @@ class PsStars:
                 t.close()
         for srv in servers:
             srv.transport.close()
+
+
+def serve(srv: ElasticShardServer, threads: List[threading.Thread]) -> ElasticShardServer:
+    """Start ``srv``'s serve loop on a thread of its own, kept in ``threads``
+    for :func:`stop_servers`."""
+    threads.append(threading.Thread(target=srv.run, kwargs={"timeout": 600}, daemon=True))
+    threads[-1].start()
+    return srv
 
 
 def stop_servers(servers: Sequence[ElasticShardServer],
@@ -267,14 +291,8 @@ def recovery_drill(*, base_dir: str, seed: int = 0, steps: int = 18,
             ckpt_every=0, wal=True, wal_group_n=wal_group_n, optimizer=make_optimizer())
 
     serve_threads: List[threading.Thread] = []
-
-    def start(srv: ElasticShardServer) -> ElasticShardServer:
-        serve_threads.append(threading.Thread(target=srv.run, kwargs={"timeout": 600},
-                                              daemon=True))
-        serve_threads[-1].start()
-        return srv
-
-    servers: List[ElasticShardServer] = [start(new_server(i)) for i in range(n_shards)]
+    servers: List[ElasticShardServer] = [serve(new_server(i), serve_threads)
+                                         for i in range(n_shards)]
     wait_for(lambda: len(coord.shard_map.entries) == n_shards, 60,
               "all shard servers to join the map")
 
@@ -309,7 +327,7 @@ def recovery_drill(*, base_dir: str, seed: int = 0, steps: int = 18,
             # truncates it: a compressed run's replayed records say so
             recs, _stats = srv.ps.wal.replay()
             restored["replayed_codecs"].extend(r.codec for r in recs)
-            servers[i] = start(srv)
+            servers[i] = serve(srv, serve_threads)
         timings["restored"] = time.monotonic()
         timings["restore_s"] = timings["restored"] - t0
 
@@ -412,6 +430,313 @@ def recovery_drill(*, base_dir: str, seed: int = 0, steps: int = 18,
     }
 
 
+#: the scheduler drills' tenant ids
+TRAIN_ID, SERVE_ID = 1, 2
+
+
+def drill_tenants(n_shards: int) -> TenantRegistry:
+    """The drills' tenants: training owns every shard slot (its floor one
+    below that), serving has a higher priority and no demand yet."""
+    registry = TenantRegistry()
+    registry.register(Tenant(TRAIN_ID, "train", kind=TENANT_TRAINING, priority=1,
+                             demand=n_shards, min_slots=n_shards - 1))
+    registry.register(Tenant(SERVE_ID, "serve", kind=TENANT_SERVING, priority=5, demand=0))
+    return registry
+
+
+class NodeAgent:
+    """A drill's node agent: a ``KIND_AGENT`` member that records every
+    ``SlotGrant`` in ``grants`` and runs ``resume(grant_id, rank,
+    snapshot_id)`` for each ``ResumeRequest`` on a thread of its own, never
+    on the client's listener."""
+
+    def __init__(self, transport, lease: float, resume: Callable[[int, int, int], None]):
+        self.grants: List[tuple] = []
+        self._resume = resume
+        self._jobs: List[tuple] = []
+        self._ready = threading.Event()
+        self._stop = threading.Event()
+        self.client = CoordClient(transport, "agent", renew_interval=lease / 4)
+        self.client.on_slot_grant = lambda *grant: self.grants.append(grant)
+        self.client.on_resume = self._note_resume
+        self.client.join(timeout=30)
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def _note_resume(self, grant_id: int, rank: int, snapshot_id: int) -> None:
+        self._jobs.append((grant_id, rank, snapshot_id))
+        self._ready.set()
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            if not self._ready.wait(0.05):
+                continue
+            self._ready.clear()
+            while self._jobs:
+                self._resume(*self._jobs.pop(0))
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=10)
+        self.client.close()
+
+
+def resume_parked_shard(old: ElasticShardServer, new_server: Callable[[], ElasticShardServer],
+                        manifest_path: str, snapshot_id: int):
+    """The agent's resume of a parked shard server: its successor on the
+    same endpoint restores the manifest's checkpoint and replays the WAL.
+    ``(server, identical)``: ``identical`` when its whole range, apply seq
+    and per-sender applied counts equal the parked life's bit for bit, taken
+    before any new traffic. ``FileNotFoundError`` when there is no manifest
+    to restore (a park without the barrier)."""
+    if snapshot_id <= 0 or not os.path.exists(manifest_path):
+        raise FileNotFoundError(f"no manifest for snapshot {snapshot_id}")
+    manifest = FleetManifest.load(manifest_path)
+    detach = getattr(old.transport, "detach", None)
+    if detach is not None:
+        detach()  # the endpoint passes to the new life's wrapper
+    srv = new_server()
+    srv.restore_from_manifest(manifest)
+    identical = (old.ps.central.tobytes() == srv.ps.central.tobytes()
+                 and srv.ps._apply_seq == old.ps._apply_seq
+                 and dict(srv.ps.applied_by_sender) == dict(old.ps.applied_by_sender))
+    return srv, identical
+
+
+class ShardResumer:
+    """A drill agent's resume of parked shard servers, the ``resume``
+    callback of :class:`NodeAgent`: :func:`resume_parked_shard` for the
+    rank's server in ``servers``, then serves the new life in its place.
+    A resume that finds no manifest appends ``lost`` to ``violations`` and
+    sets ``failed``; one that differs from the parked life appends
+    ``differs``. Both are formats over ``rank``, ``e`` (the error),
+    ``parked`` and ``restored`` (the two lives' apply seqs)."""
+
+    def __init__(self, servers: List[ElasticShardServer],
+                 new_server: Callable[[int], ElasticShardServer], manifest_path: str,
+                 serve_threads: List[threading.Thread], violations: List[str],
+                 failed: threading.Event, *, lost: str, differs: str):
+        self.servers, self.new_server, self.manifest_path = servers, new_server, manifest_path
+        self.serve_threads, self.violations, self.failed = serve_threads, violations, failed
+        self.lost, self.differs = lost, differs
+        self.replayed = 0
+        self.bit_identical: Optional[bool] = None
+        self.apply_seq_parked: Optional[int] = None
+        self.apply_seq_restored: Optional[int] = None
+
+    def __call__(self, grant_id: int, rank: int, snapshot_id: int) -> None:
+        i = rank - 1
+        old = self.servers[i]
+        try:
+            srv, identical = resume_parked_shard(old, lambda: self.new_server(i),
+                                                 self.manifest_path, snapshot_id)
+        except Exception as e:  # noqa: BLE001 — the violation is the result
+            self.violations.append(self.lost.format(rank=rank, e=e))
+            self.failed.set()
+            return
+        self.replayed += srv.ps.replayed_updates
+        self.apply_seq_parked, self.apply_seq_restored = old.ps._apply_seq, srv.ps._apply_seq
+        self.bit_identical = identical
+        if not identical:
+            self.violations.append(self.differs.format(
+                rank=rank, parked=old.ps._apply_seq, restored=srv.ps._apply_seq))
+        self.servers[i] = serve(srv, self.serve_threads)
+
+
+class ParkHold:
+    """The workers' side of a park in a drill: once ``hold`` is set, each
+    worker holds the victim's range at its next step boundary; once
+    ``release`` is set (and ``failed`` is not), it releases it."""
+
+    def __init__(self, opts: Dict[int, object], victim_sid: int, n_workers: int,
+                 failed: threading.Event):
+        self.opts, self.victim_sid, self.failed = opts, victim_sid, failed
+        self.hold = threading.Event()
+        self.release = threading.Event()
+        self._held = {j: False for j in range(1, 1 + n_workers)}
+
+    def follow(self, j: int) -> None:
+        if self.hold.is_set() and not self.release.is_set() and not self._held[j]:
+            self.opts[j].hold_shard(self.victim_sid)
+            self._held[j] = True
+        if self.release.is_set() and self._held[j] and not self.failed.is_set():
+            self.opts[j].release_shard(self.victim_sid)
+            self._held[j] = False
+
+
+def _lost_pushes(acked, applied) -> List[str]:
+    return [f"acked delta lost: shard {i} worker {j}: acked {acked[i][j]} > applied "
+            f"{applied[i][j]}"
+            for i in sorted(acked) for j in sorted(acked[i]) if acked[i][j] > applied[i][j]]
+
+
+def sched_drill(*, base_dir: str, seed: int = 0, steps: int = 56, peak_at: int = 6,
+                offpeak_at: int = 46, require_manifest: bool = True, n_workers: int = 2,
+                n_shards: int = 2, plan: Optional[ChaosPlan] = None, lease: float = 2.0,
+                lr: float = 0.05, n_push: int = 2, n_pull: int = 2, batch: int = 16,
+                wal_group_n: int = 4, fixture=None, step_sleep: float = 0.05,
+                model: str = "lenet", device="cuda") -> Dict:
+    """One preempt, park and resume under the multi-tenant scheduler (the
+    module docstring), driven from worker 1's step hook:
+
+    1. at ``peak_at`` the serving tenant wants a slot; the scheduler drives
+       a snapshot barrier, then parks the training tenant's last shard (the
+       workers push through the barrier-to-park window, so acked updates
+       exist that only the WAL holds);
+    2. the workers see the park and hold the victim's range: that slice
+       goes on with local SGD, its pushes held, not lost;
+    3. at ``offpeak_at`` the demand drops; the grant is revoked and the
+       agent restores the parked shard from the manifest and its WAL, a
+       newer life of the same rank;
+    4. the workers release the hold, and the drill proves the round trip:
+       the restored server bit-identical to the parked one, acked <=
+       applied for every worker and shard, a clean ledger, and a chaos log
+       that is a function of the step script.
+
+    ``require_manifest=False`` parks without the barrier, and the resume
+    then finds no manifest: the violation in ``out["violations"]`` (empty
+    when the protocol held). Chaos rides star 0 only, whose shard is never
+    parked: the victim star's pull channel ends when the workers see the
+    park, which is the coordinator's timing, not the script's."""
+    if n_shards < 2:
+        raise ValueError("sched_drill needs a survivor shard (n_shards >= 2)")
+    x, y, make_model, flat0 = resolve_fixture(fixture, model, device, seed)
+    n_params = int(flat0.shape[0])
+    # the scheduler parks the training tenant's last slot
+    victim = n_shards - 1
+    victim_sid = 1 + victim
+
+    log = ChaosLog()
+    the_plan = plan if plan is not None else ChaosPlan(seed=seed)
+    agent_rank = 1 + n_shards + n_workers
+    coord_world = InProcessTransport.create_world(2 + n_shards + n_workers)
+    stars = PsStars(n_shards, n_workers,
+                    [the_plan if i == 0 else ChaosPlan(seed=seed) for i in range(n_shards)],
+                    log, DRILL_UNRELIABLE)
+    manifest_path = os.path.join(base_dir, MANIFEST_NAME)
+    coord = Coordinator(coord_world[0], n_params, lease=lease, speculation=False,
+                        manifest_dir=base_dir)
+    registry = drill_tenants(n_shards)
+    sched = FleetScheduler(coord, registry=registry, require_manifest=require_manifest,
+                           actuator_rank=agent_rank, preempt_timeout=60.0, resume_timeout=60.0)
+    for i in range(n_shards):
+        sched.register_member_slot(1 + i, TRAIN_ID)
+    coord_thread = threading.Thread(target=coord.run, kwargs={"timeout": 600}, daemon=True)
+    coord_thread.start()
+
+    def new_server(i: int) -> ElasticShardServer:
+        client = CoordClient(coord_world[1 + i], "shard", renew_interval=lease / 4)
+        return ElasticShardServer(
+            server_id=1 + i, n_params=n_params, transport=stars.server_transport(i),
+            coord=client, init_params=flat0, ckpt_dir=os.path.join(base_dir, f"shard{i}"),
+            ckpt_every=0, wal=True, wal_group_n=wal_group_n)
+
+    serve_threads: List[threading.Thread] = []
+    servers: List[ElasticShardServer] = [serve(new_server(i), serve_threads)
+                                         for i in range(n_shards)]
+    wait_for(lambda: len(coord.shard_map.entries) == n_shards, 60,
+             "all shard servers to join the map")
+
+    violations: List[str] = []
+    resume_failed = threading.Event()
+    resumed = ShardResumer(
+        servers, new_server, manifest_path, serve_threads, violations, resume_failed,
+        lost="resume lost acked state: rank {rank} parked without a usable manifest ({e!r})",
+        differs="resume of rank {rank} not bit-identical: parked apply_seq {parked} vs "
+                "restored {restored}")
+    agent = NodeAgent(coord_world[agent_rank], lease, resumed)
+
+    timings: Dict[str, float] = {}
+    losses: Dict[int, list] = {}
+    opts: Dict[int, object] = {}
+    errors: list = []
+    park = ParkHold(opts, victim_sid, n_workers, resume_failed)
+
+    def step_hook(j: int, step: int) -> None:
+        # every worker is paced, so the scheduler's wall-clock decisions
+        # land inside the step script
+        time.sleep(step_sleep)
+        if j != 1:
+            if step == offpeak_at:
+                park.release.wait(300)
+            park.follow(j)
+            return
+        if step == peak_at:
+            timings["peak"] = time.monotonic()
+            registry.set_demand(SERVE_ID, 1)
+        if peak_at < step < offpeak_at and not park.hold.is_set() and sched.preempts_done > 0:
+            park.hold.set()
+        if step == offpeak_at:
+            wait_for(lambda: sched.preempts_done > 0 or sched.preempts_aborted > 0, 120,
+                     "the preempt to park the victim")
+            park.hold.set()
+            park.follow(1)
+            timings["offpeak"] = time.monotonic()
+            registry.set_demand(SERVE_ID, 0)
+            wait_for(lambda: sched.resumes_done > 0 or resume_failed.is_set(), 120,
+                     "the resume to settle")
+            park.release.set()
+        park.follow(1)
+
+    def run_worker(j: int) -> None:
+        client = CoordClient(coord_world[n_shards + j], "worker", renew_interval=lease / 4)
+        try:
+            run_worker_loop(j, client, stars, x, y, make_model, steps=steps, lr=lr,
+                            n_push=n_push, n_pull=n_pull, batch=batch, losses=losses,
+                            opts=opts, step_hook=step_hook)
+        except Exception as e:  # noqa: BLE001 — surfaced to the caller
+            errors.append((j, repr(e)))
+            park.release.set()  # never strand the other workers
+        finally:
+            client.close()
+
+    worker_threads = [threading.Thread(target=run_worker, args=(j,), daemon=True)
+                      for j in range(1, n_workers + 1)]
+    timings["day_start"] = time.monotonic()
+    for t in worker_threads:
+        t.start()
+    for t in worker_threads:
+        t.join(timeout=600)
+    timings["day_end"] = time.monotonic()
+    stuck = [t for t in worker_threads if t.is_alive()]
+    agent.close()
+    stop_servers(servers, serve_threads)
+    coord.stop()
+    coord_thread.join(timeout=30)
+
+    acked, applied = stars.accounting(servers)
+    violations.extend(_lost_pushes(acked, applied))
+    violations.extend(sched.ledger.audit())
+    stars.close(servers)
+    for t in coord_world.values():
+        t.close()
+    return {
+        "ok": not stuck and not errors and not violations and sched.preempts_done > 0,
+        "violations": violations,
+        "errors": errors,
+        "stuck_workers": len(stuck),
+        "losses": losses,
+        "acked": acked,
+        "applied": applied,
+        "replayed_updates": resumed.replayed,
+        "bit_identical": resumed.bit_identical,
+        "apply_seq_parked": resumed.apply_seq_parked,
+        "apply_seq_restored": resumed.apply_seq_restored,
+        "grants": agent.grants,
+        "sched": sched.summary(),
+        "events": list(coord.events),
+        "chaos_lines": log.lines(),
+        "chaos_counts": log.counts(),
+        "held_pushes": {j: getattr(opts.get(j), "held_pushes", 0) for j in sorted(opts)},
+        # the day's wall clock, and the seconds the borrowed slot served
+        # (demand spike to demand drop): the sched leg's goodput accounting
+        "wall_s": timings["day_end"] - timings["day_start"],
+        "peak_window_s": (timings["offpeak"] - timings["peak"]
+                          if "peak" in timings and "offpeak" in timings else None),
+        "servers": servers,
+    }
+
+
 def coordfail_drill(*, base_dir: str, seed: int = 0, steps: int = 20,
                     snapshot_at: Optional[int] = 4, kill_at: Optional[int] = 8,
                     outage_steps: int = 3, verify_at: Optional[int] = None,
@@ -424,30 +749,40 @@ def coordfail_drill(*, base_dir: str, seed: int = 0, steps: int = 20,
 
     The coordinator's endpoint is a chaos rank (a ``FaultyTransport`` hub
     on the drill's log, the members reaching it through siblings), and
-    worker 1's step script crashes it silently right after it sent a
-    snapshot barrier (``kill_during="snapshot"``: the ``SnapshotDone``
-    frames land on a dead socket) while the data plane trains on under the
-    last map. The restart is a new :class:`Coordinator` over the same
-    ``durable_dir`` (``base_dir/coord``): its epoch is one higher, its
-    members, map and clocks are replayed, and its grace window holds lease
-    expiry while the members' join retries re-attach them. At
-    ``verify_at`` (default three steps after the restart) worker 1 waits
-    for every member to re-attach and has the new life publish a manifest
-    of its own. MTTR is the crash to the last re-attachment.
+    worker 1's step script crashes it silently while the data plane trains
+    on under the last map. ``kill_during="snapshot"`` crashes it right after
+    it sent a snapshot barrier (the ``SnapshotDone`` frames land on a dead
+    socket); at ``verify_at`` (default three steps after the restart)
+    worker 1 waits for every member to re-attach and has the new life
+    publish a manifest of its own. ``kill_during="preempt"`` runs a
+    scheduler (the tenants and the node agent of :func:`sched_drill`): the
+    serving tenant's demand spikes at ``snapshot_at``, and the coordinator
+    dies with the last shard parked (the park logged) and its slot granted
+    away; the new life must neither strand the parked rank nor grant its
+    slot twice, and at ``verify_at`` the demand drops and it resumes the
+    shard bit for bit.
 
-    ``kill_during="preempt"`` needs the multi-tenant scheduler, which this
-    package does not have yet."""
-    if kill_during != "snapshot":
-        raise ValueError(f"coordfail_drill(kill_during={kill_during!r}): the multi-tenant "
-                         "scheduler is not in this package yet")
+    The restart is a new :class:`Coordinator` over the same ``durable_dir``
+    (``base_dir/coord``): its epoch is one higher, its members, map, clocks
+    and park table are replayed, and its grace window holds lease expiry
+    while the members' join retries re-attach them (a parked rank is
+    exempt, not awaited). MTTR is the crash to the last re-attachment."""
+    if kill_during not in ("snapshot", "preempt"):
+        raise ValueError(f"kill_during must be 'snapshot' or 'preempt', got {kill_during!r}")
+    with_sched = kill_during == "preempt"
+    if with_sched and n_shards < 2:
+        raise ValueError("the preempt variant needs a survivor shard (n_shards >= 2)")
     if verify_at is None and kill_at is not None:
         verify_at = kill_at + outage_steps + 3
     x, y, make_model, flat0 = resolve_fixture(fixture, model, device, seed)
     n_params = int(flat0.shape[0])
+    victim_rank = n_shards  # the scheduler's pick: the last shard
 
     log = ChaosLog()
     the_plan = plan if plan is not None else default_drill_plan(seed)
-    coord_world = InProcessTransport.create_world(1 + n_shards + n_workers)
+    agent_rank = 1 + n_shards + n_workers
+    coord_world = InProcessTransport.create_world((2 if with_sched else 1)
+                                                  + n_shards + n_workers)
     # the coordinator is a crashable chaos rank on the drill's log; its
     # death is the scripted crash, never a fault rule
     coord_hub = FaultyTransport(coord_world[0], ChaosPlan(seed=seed), log=log)
@@ -461,41 +796,65 @@ def coordfail_drill(*, base_dir: str, seed: int = 0, steps: int = 20,
                     log, DRILL_UNRELIABLE)
     manifest_path = os.path.join(base_dir, MANIFEST_NAME)
     coord_dir = os.path.join(base_dir, "coord")
+    registry = drill_tenants(n_shards) if with_sched else None
 
     def make_coordinator() -> Coordinator:
         return Coordinator(coord_hub, n_params, lease=lease, speculation=False,
                            manifest_dir=base_dir, durable_dir=coord_dir, grace=grace)
 
+    def make_scheduler(c: Coordinator) -> FleetScheduler:
+        return FleetScheduler(c, registry=registry, require_manifest=True,
+                              actuator_rank=agent_rank, preempt_timeout=60.0,
+                              resume_timeout=60.0)
+
     life: Dict[str, object] = {"coord": make_coordinator()}
+    if with_sched:
+        life["sched"] = make_scheduler(life["coord"])
+        for i in range(n_shards):
+            life["sched"].register_member_slot(1 + i, TRAIN_ID)
     life["thread"] = threading.Thread(target=life["coord"].run, kwargs={"timeout": 600},
                                       daemon=True)
     life["thread"].start()
 
-    servers: List[ElasticShardServer] = []
-    serve_threads: List[threading.Thread] = []
-    for i in range(n_shards):
+    def new_server(i: int) -> ElasticShardServer:
         client = CoordClient(coord_star[1 + i], "shard", renew_interval=lease / 4)
-        srv = ElasticShardServer(
+        return ElasticShardServer(
             server_id=1 + i, n_params=n_params, transport=stars.server_transport(i),
             coord=client, init_params=flat0, ckpt_dir=os.path.join(base_dir, f"shard{i}"),
             ckpt_every=0, wal=True, wal_group_n=wal_group_n)
-        serve_threads.append(threading.Thread(target=srv.run, kwargs={"timeout": 600},
-                                              daemon=True))
-        serve_threads[-1].start()
-        servers.append(srv)
-    wait_for(lambda: len(life["coord"].shard_map.entries) == n_shards, 60,
-              "all shard servers to join the map")
 
+    serve_threads: List[threading.Thread] = []
+    servers: List[ElasticShardServer] = [serve(new_server(i), serve_threads)
+                                         for i in range(n_shards)]
+    wait_for(lambda: len(life["coord"].shard_map.entries) == n_shards, 60,
+             "all shard servers to join the map")
+
+    # the live ranks that must re-attach to the new life: a parked victim is
+    # exempt by the durable park table, not re-attaching
     expected_live = set(range(1, 1 + n_shards + n_workers))
+    if with_sched:
+        expected_live.add(agent_rank)
+        expected_live.discard(victim_rank)
     timings: Dict[str, float] = {}
     losses: Dict[int, list] = {}
     opts: Dict[int, object] = {}
     errors: list = []
+    violations: List[str] = []
     member_epochs: Dict[int, int] = {}
     stale_drops: Dict[int, int] = {}
+    resume_failed = threading.Event()
     verify_done = threading.Event()
+    park = ParkHold(opts, victim_rank, n_workers, resume_failed)
     if kill_at is None:
         verify_done.set()
+
+    agent = None
+    resumed = ShardResumer(
+        servers, new_server, manifest_path, serve_threads, violations, resume_failed,
+        lost="resume lost the parked member: rank {rank} ({e!r})",
+        differs="resume of rank {rank} not bit-identical across the coordinator restart")
+    if with_sched:
+        agent = NodeAgent(coord_star[agent_rank], lease, resumed)
 
     def kill_coordinator() -> None:
         # reap the serve loop first (stop sends nothing: a silent death),
@@ -510,6 +869,8 @@ def coordfail_drill(*, base_dir: str, seed: int = 0, steps: int = 20,
         t0 = time.monotonic()
         coord_hub.restart()
         c2 = make_coordinator()
+        if with_sched:
+            life["sched2"] = make_scheduler(c2)
         t = threading.Thread(target=c2.run, kwargs={"timeout": 600}, daemon=True)
         life["coord2"], life["thread2"] = c2, t
         t.start()
@@ -517,7 +878,7 @@ def coordfail_drill(*, base_dir: str, seed: int = 0, steps: int = 20,
         timings["restore_s"] = timings["restored"] - t0
 
     # re-attached = the new life's grace window drained by traffic and every
-    # live rank in its member table
+    # expected live rank in its member table
     watch_stop = threading.Event()
 
     def watch_reattach() -> None:
@@ -533,37 +894,66 @@ def coordfail_drill(*, base_dir: str, seed: int = 0, steps: int = 20,
 
     def step_hook(j: int, step: int) -> None:
         time.sleep(step_sleep)
+        sched = life.get("sched")
         if j != 1:
             if kill_at is not None and step == verify_at:
                 # the fleet must outlive the verify window: a finished worker
                 # leaves, and everyone must re-attach
                 verify_done.wait(300)
+                if with_sched:
+                    park.release.wait(300)
+            if with_sched:
+                park.follow(j)
             return
-        if snapshot_at is not None and step == snapshot_at:
+        if not with_sched and snapshot_at is not None and step == snapshot_at:
             life["coord"].trigger_snapshot()
             wait_for(lambda: os.path.exists(manifest_path)
-                      and life["coord"].manifests_written > 0, 60,
-                      "the pre-kill snapshot barrier to publish")
-        if kill_at is None:
-            return
-        if step == kill_at:
-            # mid-barrier: SnapshotRequest sent, then death
-            before = life["coord"]._snap_seq
-            life["coord"].trigger_snapshot()
-            wait_for(lambda: life["coord"]._snap_seq > before, 30,
-                      "the doomed life to start its barrier", poll=0.001)
-            kill_coordinator()
-        elif step == kill_at + outage_steps:
-            restore_coordinator()
-        elif step == verify_at:
-            try:
-                wait_for(lambda: "reattached" in timings, 120,
-                          "the fleet to re-attach to the new life")
-                life["coord2"].trigger_snapshot()
-                wait_for(lambda: life["coord2"].manifests_written > 0, 60,
-                          "a post-restart snapshot to publish")
-            finally:
-                verify_done.set()
+                     and life["coord"].manifests_written > 0, 60,
+                     "the pre-kill snapshot barrier to publish")
+        if with_sched and kill_at is not None and step == snapshot_at:
+            timings["peak"] = time.monotonic()
+            registry.set_demand(SERVE_ID, 1)
+        if with_sched and snapshot_at < step and not park.hold.is_set() \
+                and sched.preempts_done > 0:
+            park.hold.set()
+        if kill_at is not None:
+            if step == kill_at:
+                if with_sched:
+                    # mid-preemption: the victim parked (its park logged by
+                    # the doomed life), the serving grant outstanding
+                    wait_for(lambda: sched.preempts_done > 0 or sched.preempts_aborted > 0,
+                             120, "the preempt to park the victim")
+                    park.hold.set()
+                    park.follow(1)
+                else:
+                    # mid-barrier: SnapshotRequest sent, then death
+                    before = life["coord"]._snap_seq
+                    life["coord"].trigger_snapshot()
+                    wait_for(lambda: life["coord"]._snap_seq > before, 30,
+                             "the doomed life to start its barrier", poll=0.001)
+                kill_coordinator()
+            elif step == kill_at + outage_steps:
+                restore_coordinator()
+            elif step == verify_at:
+                try:
+                    wait_for(lambda: "reattached" in timings, 120,
+                             "the fleet to re-attach to the new life")
+                    if with_sched:
+                        timings["offpeak"] = time.monotonic()
+                        registry.set_demand(SERVE_ID, 0)
+                        wait_for(lambda: life["sched2"].resumes_done > 0
+                                 or resume_failed.is_set(), 120,
+                                 "the new life to resume the parked rank")
+                        park.release.set()
+                    else:
+                        life["coord2"].trigger_snapshot()
+                        wait_for(lambda: life["coord2"].manifests_written > 0, 60,
+                                 "a post-restart snapshot to publish")
+                finally:
+                    verify_done.set()
+                    park.release.set()
+        if with_sched:
+            park.follow(1)
 
     def run_worker(j: int) -> None:
         client = CoordClient(coord_star[n_shards + j], "worker", renew_interval=lease / 4)
@@ -574,6 +964,7 @@ def coordfail_drill(*, base_dir: str, seed: int = 0, steps: int = 20,
         except Exception as e:  # noqa: BLE001 — surfaced to the caller
             errors.append((j, repr(e)))
             verify_done.set()
+            park.release.set()
         finally:
             member_epochs[n_shards + j] = client.coord_epoch
             stale_drops[n_shards + j] = client.stale_epoch_dropped
@@ -593,6 +984,10 @@ def coordfail_drill(*, base_dir: str, seed: int = 0, steps: int = 20,
     watch_stop.set()
     if watcher is not None:
         watcher.join(timeout=10)
+    if agent is not None:
+        member_epochs[agent_rank] = agent.client.coord_epoch
+        stale_drops[agent_rank] = agent.client.stale_epoch_dropped
+        agent.close()
     for srv in servers:
         member_epochs[srv.server_id] = srv.coord.coord_epoch
         stale_drops[srv.server_id] = srv.coord.stale_epoch_dropped
@@ -605,11 +1000,11 @@ def coordfail_drill(*, base_dir: str, seed: int = 0, steps: int = 20,
             t.join(timeout=30)
 
     acked, applied = stars.accounting(servers)
-    violations = [f"acked delta lost: shard {i} worker {j}: acked {acked[i][j]} > applied "
-                  f"{applied[i][j]}"
-                  for i in range(n_shards) for j in range(1, 1 + n_workers)
-                  if acked[i][j] > applied[i][j]]
-    accounting_ok = not violations
+    lost = _lost_pushes(acked, applied)
+    violations.extend(lost)
+    accounting_ok = not lost
+    if "sched2" in life:
+        violations.extend(life["sched2"].ledger.audit())
     stars.close(servers)
     for t in coord_world.values():
         t.close()
@@ -621,8 +1016,11 @@ def coordfail_drill(*, base_dir: str, seed: int = 0, steps: int = 20,
     if kill_at is not None:
         ok = (ok and coord2 is not None and mttr is not None
               and coord2.epoch == life["coord"].epoch + 1
-              and coord2.shard_map.version >= timings["map_version_at_kill"]
-              and coord2.manifests_written > 0)
+              and coord2.shard_map.version >= timings["map_version_at_kill"])
+        if with_sched:
+            ok = ok and life["sched2"].resumes_done > 0 and bool(resumed.bit_identical)
+        else:
+            ok = ok and coord2.manifests_written > 0
     return {
         "ok": ok,
         "errors": errors,
@@ -641,6 +1039,12 @@ def coordfail_drill(*, base_dir: str, seed: int = 0, steps: int = 20,
         "stale_epoch_dropped": sum(stale_drops.values()),
         "manifests_written": (life["coord"].manifests_written,
                               coord2.manifests_written if coord2 is not None else None),
+        "grants": agent.grants if agent is not None else [],
+        "resumes_done": life["sched2"].resumes_done if "sched2" in life else None,
+        "stranded": (sorted(coord2.parked_ranks()) if with_sched and coord2 is not None
+                     else []),
+        "bit_identical": resumed.bit_identical,
+        "replayed_updates": resumed.replayed,
         "chaos_lines": log.lines(),
         "chaos_counts": log.counts(),
         "events": list(life["coord"].events),
@@ -676,5 +1080,35 @@ def drill_demo(seed: int = 0, base_dir: Optional[str] = None, model: str = "lene
         "chaos": out["chaos_counts"],
         "events": out["events"],
         "manifest": out["manifest"],
+        "state_dir": base_dir,
+    }
+
+
+def sched_demo(seed: int = 0, base_dir: Optional[str] = None, model: str = "lenet",
+               device="cuda") -> Dict:
+    """One pass of the scheduler drill (``coord/cli.py --sched-demo``). Its
+    files stay only under a ``base_dir`` the caller gives (``state_dir``)."""
+    import contextlib
+    import tempfile
+
+    with contextlib.ExitStack() as stack:
+        base = base_dir or stack.enter_context(tempfile.TemporaryDirectory(prefix="sched_"))
+        out = sched_drill(base_dir=base, seed=seed, plan=default_drill_plan(seed),
+                          model=model, device=device)
+    return {
+        # > 0: the resume must have replayed acked updates only the log held
+        "ok": out["ok"] and out["replayed_updates"] > 0,
+        "violations": out["violations"],
+        "preempt_mttr_s": out["sched"]["preempt_mttr_s"],
+        "resume_mttr_s": out["sched"]["resume_mttr_s"],
+        "replayed_updates": out["replayed_updates"],
+        "bit_identical": out["bit_identical"],
+        "acked": out["acked"],
+        "applied": out["applied"],
+        "held_pushes": out["held_pushes"],
+        "grants": out["grants"],
+        "errors": out["errors"],
+        "events": out["events"],
+        "chaos": out["chaos_counts"],
         "state_dir": base_dir,
     }

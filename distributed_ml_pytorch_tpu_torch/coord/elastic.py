@@ -31,6 +31,13 @@ a parameter server whose range the coordinator assigns.
   (``ParameterServer.rollback_restore``) and reports, and a manifest of
   another version or range is a loud no-op. A parked rollback supersedes a
   parked snapshot;
+- the scheduler's preempt reaches it through a third mailbox (the newest
+  grant wins, a redelivery parks once): the serve loop commits the open WAL
+  group, so every acked push is durable, reports ``PreemptDone`` and stops
+  serving without a checkpoint or a ``CoordLeave``. A parked life keeps its
+  rank, range and membership; the frames left in its inbox are not served
+  (they are unacked, and the resumed life takes their retransmissions),
+  and its renewals stop;
 - :meth:`ElasticShardServer.restore_from_manifest` is the disaster
   recovery: a fresh server installs its range from the manifest and
   restores checkpoint and WAL, and refuses loudly rather than serve zeros
@@ -38,8 +45,6 @@ a parameter server whose range the coordinator assigns.
 
 A :meth:`~ElasticShardServer.crash` is not a stop: the serve loop exits at
 once and serves, checkpoints, acks and reports nothing more.
-
-Not in this package yet: the scheduler's park mailbox.
 """
 
 from __future__ import annotations
@@ -118,10 +123,15 @@ class ElasticShardServer:
         self._box_mu = threading.Lock()
         self._snap_req: Optional[tuple] = None
         self._roll_req: Optional[int] = None
+        self._preempt_req: Optional[tuple] = None
+        #: set once this life parked under a preempt
+        self.parked = False
         if getattr(coord, "on_snapshot", None) is None:
             coord.on_snapshot = self._note_snapshot
         if getattr(coord, "on_rollback", None) is None:
             coord.on_rollback = self._note_rollback
+        if getattr(coord, "on_preempt", None) is None:
+            coord.on_preempt = self._note_preempt
         self.stats = {"stale_dropped": 0, "parked_pulls": 0, "installs": 0,
                       "dup_installs": 0, "spec_applied": 0, "spec_dropped": 0,
                       "resizes": 0, "rollbacks": 0, "rolled_back_updates": 0}
@@ -289,6 +299,35 @@ class ElasticShardServer:
               f"{manifest.snapshot_id} (apply seq {apply_seq}, {discarded} update(s) "
               "discarded)", file=sys.stderr)
         self.coord.rollback_done(rollback_id, mv, lo, hi, apply_seq)
+
+    def _note_preempt(self, grant_id: int, snapshot_id: int) -> None:
+        """The client's callback: park the scheduler's preempt for the serve
+        loop (the newest grant wins; a redelivery of the same grant parks
+        once, since the loop stops at the first)."""
+        with self._box_mu:
+            self._preempt_req = (int(grant_id), int(snapshot_id))
+
+    def _take_preempt_request(self) -> Optional[tuple]:
+        with self._box_mu:
+            req, self._preempt_req = self._preempt_req, None
+            return req
+
+    def _do_park(self, grant_id: int, snapshot_id: int) -> None:
+        """The member's half of a preempt: commit the open WAL group (every
+        acked push is then durable, so the parked state is the manifest's
+        checkpoint plus an exactly-once replay away), report
+        ``PreemptDone`` and stop serving. No checkpoint: the log's tail past
+        the barrier is the replay the resume proves. No ``CoordLeave``: a
+        parked life keeps its rank and range, and the scheduler exempts its
+        lease."""
+        with self._mu:
+            self.ps.commit()
+            lo, hi, apply_seq = self.lo, self.hi, self.ps._apply_seq
+        self.coord.preempt_done(grant_id, snapshot_id, lo, hi, apply_seq)
+        self.parked = True
+        self._stop.set()
+        print(f"shard {self.server_id}: PARKED [{lo},{hi}) at apply seq {apply_seq} under "
+              f"snapshot {snapshot_id} (grant {grant_id})", file=sys.stderr)
 
     def restore_from_manifest(self, manifest) -> None:
         """Disaster recovery: install this shard's range from the manifest's
@@ -475,10 +514,11 @@ class ElasticShardServer:
             self._commit_timed()
 
     def run(self, timeout: Optional[float] = None) -> None:
-        """Join, then serve until :meth:`stop`, the fleet's workers are done
-        or ``timeout``. Unless it crashed, the server then serves the frames
-        already taken in before it checkpoints and leaves: a reliable wire
-        may have acked them, and a worker's final push is among them."""
+        """Join, then serve until :meth:`stop`, a park, the fleet's workers
+        are done or ``timeout``. Unless it crashed or parked, the server then
+        serves the frames already taken in before it checkpoints and leaves:
+        a reliable wire may have acked them, and a worker's final push is
+        among them."""
         m = self.coord.join()
         if m is not None:
             self._apply_map(m)
@@ -500,6 +540,10 @@ class ElasticShardServer:
                 self._do_rollback(roll)
             if snap is not None:
                 self._do_snapshot(*snap)
+            park = self._take_preempt_request()
+            if park is not None:
+                self._do_park(*park)
+                break
             if self.coord.fleet.workers_done():
                 break
             msg = self.transport.recv(timeout=0.1)
@@ -511,6 +555,10 @@ class ElasticShardServer:
             self._serve_one(msg)
         if self._crashed:
             return  # a silent death: no checkpoint, no leave
+        if self.parked:
+            # renewals stop, the membership stays: the resume rejoins it
+            self.coord.stop()
+            return
         while (msg := self.transport.recv(timeout=0.0)) is not None:
             self._serve_one(msg)
         with self._mu:

@@ -13,15 +13,21 @@ which
   input) and re-joining every fourth renewal, so a member whose lease
   expired in a stall is taken back;
 - **receives** ``ShardMapUpdate``, ``FleetState``, ``SpeculateTask``,
-  ``SnapshotRequest`` and ``RollbackRequest`` frames on a listener thread:
+  ``SnapshotRequest``, ``RollbackRequest`` and the scheduler's
+  ``PreemptRequest``, ``SlotGrant`` and ``ResumeRequest`` frames on a
+  listener thread:
   the newest map waits in a mailbox for the consumer's next step boundary;
   callbacks are optional (``on_snapshot(snapshot_id, map_version)`` and
   ``on_rollback(rollback_id, phase)`` are public and assignable: a shard
   server or a worker wires its mailbox in after construction), and a
   rollback's phase also holds :class:`FleetView` (``rollback_active``) for
   at most ``rollback_hold_ttl`` seconds, so a lost end frame fails open;
+  ``on_preempt(grant_id, snapshot_id)`` is a shard server's park mailbox,
+  and a node agent wires ``on_slot_grant(grant_id, tenant_id, action,
+  slot_id)`` and ``on_resume(grant_id, rank, snapshot_id)``;
 - **reports** into the barriers (:meth:`CoordClient.snapshot_done`,
-  :meth:`CoordClient.rollback_done`);
+  :meth:`CoordClient.rollback_done`) and the park
+  (:meth:`CoordClient.preempt_done`);
 - **leaves** on :meth:`CoordClient.close`, carrying its incarnation, so a
   parting leave racing a newer life's join of the rank cannot evict it.
 
@@ -30,9 +36,8 @@ Every coordinator frame passes the epoch fence in one place
 highest seen comes from an older coordinator life and is dropped, counted
 in ``stale_epoch_dropped``.
 
-Not in this package yet, and refused rather than ignored: the scheduler's
-preempt callback, the node agent's grant and resume callbacks and the
-stage plane's. Their frames are dropped and counted in
+Not in this package yet, and refused rather than ignored: the stage
+plane's callback. Its frames are dropped and counted in
 ``later_plane_dropped``.
 """
 
@@ -53,6 +58,7 @@ from distributed_ml_pytorch_tpu_torch.coord.coordinator import (
     decode_fleet,
     encode_join,
     encode_leave,
+    encode_preempt_done,
     encode_renew,
     encode_rollback_done,
     encode_snapshot_done,
@@ -79,9 +85,6 @@ _LATER_OPTIONS = {
 #: the callbacks a member of a later plane wires in by assignment
 _LATER_CALLBACKS = {
     "on_stage_assign": "the MPMD stage plane",
-    "on_preempt": "the multi-tenant scheduler",
-    "on_slot_grant": "the multi-tenant scheduler",
-    "on_resume": "the multi-tenant scheduler",
 }
 
 
@@ -161,12 +164,10 @@ class CoordClient:
     map_version)`` and ``on_rollback(rollback_id, phase)`` (all assignable
     after construction: a shard server or a worker wires itself in) and
     ``on_speculate(task_id, victim, from_step)`` are called on the listener
-    thread."""
+    thread, and so are the scheduler's ``on_preempt``, ``on_slot_grant`` and
+    ``on_resume`` (assignable, None by default)."""
 
     on_stage_assign = _RefusedCallback()
-    on_preempt = _RefusedCallback()
-    on_slot_grant = _RefusedCallback()
-    on_resume = _RefusedCallback()
 
     def __init__(self, transport: Transport, kind: str, *, renew_interval: float = 0.5,
                  incarnation: Optional[int] = None,
@@ -191,6 +192,14 @@ class CoordClient:
         self._on_speculate = on_speculate
         self.on_snapshot = on_snapshot
         self.on_rollback = on_rollback
+        #: a shard server's park mailbox: ``(grant_id, snapshot_id)``; the
+        #: member commits, reports ``preempt_done`` and stops serving
+        self.on_preempt = None
+        #: a node agent's actuators: ``on_slot_grant(grant_id, tenant_id,
+        #: action, slot_id)`` spawns or retires the tenant's member,
+        #: ``on_resume(grant_id, rank, snapshot_id)`` restores a parked one
+        self.on_slot_grant = None
+        self.on_resume = None
         self.rollback_hold_ttl = float(rollback_hold_ttl)
         #: the highest coordinator epoch seen; frames below it are dropped
         self.coord_epoch = -1
@@ -274,6 +283,17 @@ class CoordClient:
             self.fleet.note_rollback(phase == 0, ttl=self.rollback_hold_ttl)
             if self.on_rollback is not None:
                 self.on_rollback(rollback_id, phase)
+        elif code == MessageCode.PreemptRequest and payload.size >= 4:
+            if self.on_preempt is not None and np.isfinite(payload[:4]).all():
+                self.on_preempt(_join16(payload[0], payload[1]), _join16(payload[2], payload[3]))
+        elif code == MessageCode.SlotGrant and payload.size >= 5:
+            if self.on_slot_grant is not None and np.isfinite(payload[:5]).all():
+                self.on_slot_grant(_join16(payload[0], payload[1]), int(payload[2]),
+                                   int(payload[3]), int(payload[4]))
+        elif code == MessageCode.ResumeRequest and payload.size >= 5:
+            if self.on_resume is not None and np.isfinite(payload[:5]).all():
+                self.on_resume(_join16(payload[0], payload[1]), int(payload[2]),
+                               _join16(payload[3], payload[4]))
         elif later_plane(code):
             self.later_plane_dropped += 1
 
@@ -344,6 +364,14 @@ class CoordClient:
         """Report this shard's in-place rollback into the barrier."""
         self._send(MessageCode.RollbackDone, encode_rollback_done(
             rollback_id, map_version, lo, hi, apply_seq))
+
+    def preempt_done(self, grant_id: int, snapshot_id: int, lo: int, hi: int,
+                     apply_seq: int) -> None:
+        """Report this member parked under ``grant_id``: ``[lo, hi)`` durable
+        at ``apply_seq`` under the named snapshot. Only now may the
+        scheduler grant the slot again."""
+        self._send(MessageCode.PreemptDone, encode_preempt_done(
+            grant_id, snapshot_id, lo, hi, apply_seq))
 
     def leave(self) -> None:
         self._send(MessageCode.CoordLeave, encode_leave(self.incarnation))

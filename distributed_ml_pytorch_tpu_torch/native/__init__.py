@@ -6,7 +6,12 @@ JAX ``native/__init__.py``).
 float32 payload) from a C++ library whose reader threads run outside the
 interpreter lock, so native and Python endpoints of either package
 interoperate in one world. ``transport.cpp`` here is this package's own
-copy of the JAX package's source, byte for byte.
+copy of the JAX package's source, byte for byte outside the blocks marked
+``port: open rendezvous``: a rank 0 made with ``open_rendezvous=True``
+listens and admits its workers on its accept thread from the start, and
+:meth:`NativeTCPTransport.expect_peers` and
+:meth:`NativeTCPTransport.rendezvous_done` end that rendezvous as
+``utils/messaging.TCPTransport``'s do.
 
 :func:`ensure_built` compiles it with ``g++`` on first use into
 ``build/native/<hash>/`` at the root of the checkout (``.gitignore`` lists
@@ -115,6 +120,12 @@ def _load() -> ctypes.CDLL:
     lib.tpt_free.argtypes = [ctypes.c_void_p]
     lib.tpt_last_error.restype = ctypes.c_char_p
     lib.tpt_last_error.argtypes = []
+    lib.tpt_create_open.restype = ctypes.c_void_p
+    lib.tpt_create_open.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.tpt_expect.restype = None
+    lib.tpt_expect.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_double]
+    lib.tpt_rendezvous.restype = ctypes.c_int
+    lib.tpt_rendezvous.argtypes = [ctypes.c_void_p]
     _lib = lib
     return lib
 
@@ -139,20 +150,52 @@ class NativeTCPTransport(Transport):
     admits ``world_size - 1`` workers, then goes on accepting (a rejoining
     rank replaces its socket); frame pumping, queueing and the blocking
     receive run in native threads. ``sendv`` is the base class's (one
-    joined copy: the C interface takes one buffer)."""
+    joined copy: the C interface takes one buffer).
+
+    With ``open_rendezvous`` rank 0 returns once it listens and admits the
+    workers on its accept thread (``TCPTransport(wait_for=0)``'s path);
+    :meth:`expect_peers` starts a rendezvous with a deadline and
+    :meth:`rendezvous_done` polls it."""
 
     def __init__(self, rank: int, world_size: int, master: str = "localhost",
-                 port: int = 29500, connect_timeout: float = 60.0):
+                 port: int = 29500, connect_timeout: float = 60.0,
+                 open_rendezvous: bool = False):
         self._lib = _load()
         self.rank = rank
         self.world_size = world_size
         self._closed = False
-        handle = self._lib.tpt_create(rank, world_size, master.encode(), int(port),
-                                      float(connect_timeout))
+        #: the pending rendezvous: ``(workers, timeout)``, or None
+        self._expect: Optional[tuple] = None
+        if open_rendezvous and rank == SERVER_RANK:
+            handle = self._lib.tpt_create_open(world_size, int(port))
+        else:
+            handle = self._lib.tpt_create(rank, world_size, master.encode(), int(port),
+                                          float(connect_timeout))
         if not handle:
             err = self._lib.tpt_last_error().decode()
             raise ConnectionError(f"native transport rendezvous failed: {err}")
         self._handle = handle
+
+    def expect_peers(self, n: int, timeout: float) -> None:
+        """Start a rendezvous of ``n`` workers (an ``open_rendezvous`` rank 0
+        admits them on its accept thread) that must end within ``timeout``
+        seconds; :meth:`rendezvous_done` polls it."""
+        self._lib.tpt_expect(self._handle, int(n), float(timeout))
+        self._expect = (int(n), float(timeout))
+
+    def rendezvous_done(self) -> bool:
+        """Whether the expected workers have all connected (True with no
+        rendezvous pending); raises ``TimeoutError`` past its deadline."""
+        if self._expect is None:
+            return True
+        n, timeout = self._expect
+        admitted = self._lib.tpt_rendezvous(self._handle)
+        if admitted < 0:
+            raise TimeoutError(f"{n} workers did not connect within {timeout:.0f} s")
+        if admitted >= n:
+            self._expect = None
+            return True
+        return False
 
     def send(self, code: MessageCode, payload: np.ndarray, dst: int = SERVER_RANK) -> None:
         arr = np.ascontiguousarray(np.asarray(payload, dtype=np.float32).ravel())

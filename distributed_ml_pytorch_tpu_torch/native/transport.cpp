@@ -118,6 +118,14 @@ struct TptTransport {
   std::deque<TptMsg*> inbox;
   std::atomic<bool> closed{false};
 
+  // port: open rendezvous begin
+  // A rank 0 made by tpt_create_open admits its workers on the accept
+  // thread from the start; tpt_expect sets how many it waits for and until
+  // when, and tpt_rendezvous reads the count against that deadline.
+  std::atomic<int> expect{0};
+  std::atomic<int64_t> deadline_ns{0};
+  // port: open rendezvous end
+
   void push(TptMsg* m) {
     {
       std::lock_guard<std::mutex> lk(mu);
@@ -442,5 +450,67 @@ void tpt_free(void* handle) {
   tpt_close(t);
   delete t;
 }
+
+// port: open rendezvous begin
+// Create rank 0 in the open mode: bind and listen on port, start the accept
+// thread at once and return, so that the first workers are served while the
+// others connect. Returns NULL on error.
+void* tpt_create_open(int world, int port) {
+  auto t = std::make_unique<TptTransport>();
+  t->rank = 0;
+  t->world = world;
+  int fd = ::socket(AF_INET, SOCK_STREAM, 0);
+  if (fd < 0) {
+    set_error("socket() failed: " + std::string(strerror(errno)));
+    return nullptr;
+  }
+  int one = 1;
+  setsockopt(fd, SOL_SOCKET, SO_REUSEADDR, &one, sizeof(one));
+  sockaddr_in addr{};
+  addr.sin_family = AF_INET;
+  addr.sin_addr.s_addr = htonl(INADDR_ANY);
+  addr.sin_port = htons(static_cast<uint16_t>(port));
+  if (::bind(fd, reinterpret_cast<sockaddr*>(&addr), sizeof(addr)) < 0 ||
+      ::listen(fd, world) < 0) {
+    set_error("bind/listen failed: " + std::string(strerror(errno)));
+    ::close(fd);
+    return nullptr;
+  }
+  t->listen_fd = fd;
+  TptTransport* tp = t.get();
+  t->acceptor = std::thread([tp] { tp->accept_loop(); });
+  return t.release();
+}
+
+// Expect n distinct workers within timeout_s seconds from now.
+void tpt_expect(void* handle, int n, double timeout_s) {
+  auto* t = static_cast<TptTransport*>(handle);
+  const auto deadline =
+      std::chrono::steady_clock::now() + std::chrono::duration<double>(timeout_s);
+  t->deadline_ns.store(std::chrono::duration_cast<std::chrono::nanoseconds>(
+                           deadline.time_since_epoch()).count());
+  t->expect.store(n);
+}
+
+// The distinct workers admitted so far, or -1 (with the error set) when
+// fewer than the expected number were admitted by the deadline.
+int tpt_rendezvous(void* handle) {
+  auto* t = static_cast<TptTransport*>(handle);
+  int admitted;
+  {
+    std::lock_guard<std::mutex> lk(t->peers_mu);
+    admitted = static_cast<int>(t->peer_fds.size());
+  }
+  const int n = t->expect.load();
+  const int64_t now = std::chrono::duration_cast<std::chrono::nanoseconds>(
+                          std::chrono::steady_clock::now().time_since_epoch()).count();
+  if (admitted < n && now >= t->deadline_ns.load()) {
+    set_error(std::to_string(n) + " workers did not connect (" + std::to_string(admitted) +
+              " admitted)");
+    return -1;
+  }
+  return admitted;
+}
+// port: open rendezvous end
 
 }  // extern "C"

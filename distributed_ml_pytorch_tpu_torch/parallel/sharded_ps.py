@@ -53,7 +53,14 @@ pulls every shard, and holds the per-step updates until every shard's
 restored slice is installed. ``observe_loss`` feeds a loss the step was not
 given into the telemetry the renewals carry (the watchdog's input).
 
-Not in this package yet: the scheduler's hold.
+**The scheduler's hold.** While the scheduler has a shard server parked,
+:meth:`ShardedAsynchronous.hold_shard` stops all traffic toward it, pulls
+included: its slice goes on with purely local SGD, as a down shard's does,
+but deliberately and silently (no up/down transitions, no revival probe),
+until :meth:`ShardedAsynchronous.release_shard` after the resume. A push
+not sent is counted in ``held_pushes``; it was never acked, so the
+accounting (acked <= applied) holds through the park. The hold belongs to
+the server id and survives a cutover that rebuilds the transports.
 """
 
 from __future__ import annotations
@@ -195,6 +202,9 @@ class ShardedAsynchronous(DownpourClient):
         self._pull_reqs: dict = {}
         self._link_hist: list = []
         self.shard_down = [False] * len(transports)
+        #: slots held by the scheduler's park, and the pushes not sent there
+        self.shard_held = [False] * len(transports)
+        self.held_pushes = 0
         #: the rollback mailbox: set on a barrier's start, taken at the next
         #: step boundary
         self._rollback_pending = threading.Event()
@@ -250,8 +260,20 @@ class ShardedAsynchronous(DownpourClient):
             else:
                 self._send(s, MessageCode.GradientUpdate, arr[lo:hi])
 
+    def _held(self, shard: int, code: MessageCode) -> bool:
+        """True, counting a push, when the shard is held: nothing is sent to
+        a parked server, not even the pull probe."""
+        if not self.shard_held[shard]:
+            return False
+        if code in (MessageCode.GradientUpdate, MessageCode.ShardPush,
+                    MessageCode.CompressedUpdate):
+            self.held_pushes += 1
+        return True
+
     def _send(self, shard: int, code: MessageCode, payload: np.ndarray) -> None:
         """Send toward one shard server, under :meth:`_guarded_send`."""
+        if self._held(shard, code):
+            return
         if code == MessageCode.ParameterRequest:
             sid = self.server_ids[shard]
             self._pull_reqs[sid] = self._pull_reqs.get(sid, 0) + 1
@@ -261,6 +283,8 @@ class ShardedAsynchronous(DownpourClient):
     def _sendv(self, shard: int, code: MessageCode, parts) -> None:
         """A frame of several parts toward one shard server, under
         :meth:`_guarded_send`."""
+        if self._held(shard, code):
+            return
         self._guarded_send(shard, code, lambda t: t.sendv(code, parts))
 
     def _guarded_send(self, shard: int, code: MessageCode, do_send) -> None:
@@ -313,6 +337,25 @@ class ShardedAsynchronous(DownpourClient):
         lo, hi = self.ranges[shard]
         print(f"worker: shard {self.server_ids[shard]} state down->up (params [{lo},{hi})) "
               "— push/pull service resumes", file=sys.stderr)
+
+    def hold_shard(self, server_id: int) -> None:
+        """The scheduler parked ``server_id``: stop all traffic toward it
+        until :meth:`release_shard`. The push thread drains first, so no
+        push cut before the hold lands after it."""
+        self._flusher.drain()
+        idx = self.server_ids.index(server_id)
+        self.shard_held[idx] = True
+        lo, hi = self.ranges[idx]
+        print(f"worker: shard {server_id} HELD (parked by the scheduler) — params [{lo},{hi}) "
+              "continue with purely-local SGD", file=sys.stderr)
+
+    def release_shard(self, server_id: int) -> None:
+        """End the park: push and pull service to ``server_id`` resumes (the
+        resumed server answers under the same range)."""
+        idx = self.server_ids.index(server_id)
+        self.shard_held[idx] = False
+        print(f"worker: shard {server_id} RELEASED — push/pull service resumes",
+              file=sys.stderr)
 
     def _install_arrived(self) -> None:
         """Copy whichever shard slices have arrived into the model, in
@@ -457,22 +500,24 @@ class ShardedAsynchronous(DownpourClient):
         freshly acquired range with this worker's current values
         (``RangeInstall``)."""
         self._flusher.drain()
-        old = {sid: (t, listener, down) for sid, t, listener, down
-               in zip(self.server_ids, self.transports, self.listeners, self.shard_down)}
-        transports, listeners, down = [], [], []
+        old = {sid: (t, listener, down, held) for sid, t, listener, down, held
+               in zip(self.server_ids, self.transports, self.listeners, self.shard_down,
+                      self.shard_held)}
+        transports, listeners, down, held = [], [], [], []
         for e in m.entries:
             if e.server_id in old:
-                t, listener, d = old.pop(e.server_id)
+                t, listener, d, h = old.pop(e.server_id)
             else:
                 t = self.transport_factory(e)
                 self._owned.add(e.server_id)
                 listener = Listener(transport=t)
                 listener.start()
-                d = False
+                d = h = False
             transports.append(t)
             listeners.append(listener)
             down.append(d)
-        for sid, (t, listener, _d) in old.items():
+            held.append(h)
+        for sid, (t, listener, _d, _h) in old.items():
             listener.stop()
             if sid in self._owned:
                 self._owned.discard(sid)
@@ -482,6 +527,7 @@ class ShardedAsynchronous(DownpourClient):
             ", ".join(f"s{e.server_id}=[{e.lo},{e.hi})" for e in m.entries) or "none"),
             file=sys.stderr)
         self.transports, self.listeners, self.shard_down = transports, listeners, down
+        self.shard_held = held
         self.ranges = m.ranges
         self.server_ids = [e.server_id for e in m.entries]
         self.map_version = m.version

@@ -223,10 +223,10 @@ class PayloadSchema:
 #: the codes this package's modules send or dispatch on: the parameter
 #: server's plane (its compressed pushes and delta pull replies too), the
 #: coordinator's membership plane and its stamped shard traffic, its snapshot
-#: and rollback barriers, the serving
-#: frontend's, the reliability wire, and the coded wires the ``wire_bytes``
-#: bench leg prices. The JAX table's entries for its other
-#: planes come with those planes.
+#: and rollback barriers, the scheduler's preempt, grant and resume, the
+#: serving frontend's, the reliability wire, and the coded wires the
+#: ``wire_bytes`` bench leg prices. The JAX table's entries for the MPMD
+#: stages come with that plane.
 WIRE_SCHEMAS: Dict[MessageCode, PayloadSchema] = {
     MessageCode.ParameterUpdate: PayloadSchema(
         rest="params", handled_by=("ps", "coord"), dedup_key="idempotent",
@@ -390,6 +390,34 @@ WIRE_SCHEMAS: Dict[MessageCode, PayloadSchema] = {
         doc="shard -> coordinator: range [lo,hi) restored to the manifest snapshot at "
             "apply_seq under this map version; all-reported completes the rollback barrier "
             "(MTTR measured)"),
+    MessageCode.PreemptRequest: PayloadSchema(
+        fields=("grant_lo", "grant_hi", "snap_lo", "snap_hi"),
+        handled_by=("coord",), dedup_key="request_id", fenced=True,
+        doc="scheduler (via coordinator) -> victim shard member: park yourself under "
+            "grant_id; snap_id names the FleetManifest snapshot the scheduler barriered "
+            "BEFORE issuing the preempt (the park-with-manifest gate the sched model "
+            "checks). The member commits its WAL group, reports PreemptDone and stops "
+            "serving WITHOUT a CoordLeave — a parked life, not a dead one"),
+    MessageCode.PreemptDone: PayloadSchema(
+        fields=("grant_lo", "grant_hi", "snap_lo", "snap_hi", "lo_lo", "lo_hi", "hi_lo",
+                "hi_hi", "apply_lo", "apply_hi"),
+        handled_by=("coord",), dedup_key="request_id",
+        doc="parked shard -> coordinator: range [lo,hi) parked at apply_seq under snapshot "
+            "snap_id; the scheduler frees the slot and only NOW may grant it to another "
+            "tenant (the double-grant gate the sched model checks)"),
+    MessageCode.SlotGrant: PayloadSchema(
+        fields=("grant_lo", "grant_hi", "tenant", "action", "slot"),
+        handled_by=("coord",), dedup_key="request_id", fenced=True,
+        doc="scheduler -> node agent: actuate a placement decision — action 1 grants slot "
+            "to tenant (the agent spawns that tenant's member kind, e.g. an EngineMember "
+            "for a serving tenant), action 0 revokes it (the agent retires the member). "
+            "grant_id makes redelivery first-wins idempotent"),
+    MessageCode.ResumeRequest: PayloadSchema(
+        fields=("grant_lo", "grant_hi", "rank", "snap_lo", "snap_hi"),
+        handled_by=("coord",), dedup_key="request_id", fenced=True,
+        doc="scheduler -> node agent: resume the member parked under grant_id as a fresh "
+            "life of `rank`, restoring snapshot snap_id bit-for-bit from the FleetManifest "
+            "and replaying WAL'd deltas exactly once before rejoining the fleet"),
     MessageCode.ActivationShip: PayloadSchema(
         fields=("step_lo", "step_hi", "mb", "kind", "ver_lo", "ver_hi", "codec"),
         rest="payload", rest_min=1, handled_by=("ps",), dedup_key="step_mb",
@@ -1900,31 +1928,33 @@ def make_transport(rank: int, world_size: int, master: str = "localhost",
     from ``ParameterServer.commit``) defers each delivery ack until the
     update behind it is durable. ``reliable_opts`` passes tuning knobs
     (``ack_timeout``, ``send_window``, ...) to the wrapper. A reliable
-    Python server returns before its workers have all connected, so that it
-    serves the first while the rest connect (a durable receiver that is not
-    serving holds its pushes' acks): its ``rendezvous_done()``, which
-    ``ParameterServer.run`` polls, ends the rendezvous and raises past
-    ``connect_timeout``."""
+    server, native or Python, returns before its workers have all connected,
+    so that it serves the first while the rest connect (a durable receiver
+    that is not serving holds its pushes' acks): its ``rendezvous_done()``,
+    which ``ParameterServer.run`` polls, ends the rendezvous and raises past
+    ``connect_timeout``. Any other rank 0 waits for its workers here."""
     if kind not in ("auto", "native", "python"):
         raise ValueError(f"unknown transport kind: {kind!r}")
+    # the reliable server's layer runs before the rendezvous ends: the frames
+    # of the workers that connected first are taken in and acked while the
+    # others connect, not left to time out
+    open_server = reliable and rank == SERVER_RANK
+    opts = dict(ack_on_delivery=not durable_acks, **(reliable_opts or {}))
     t: Optional[Transport] = None
     if kind in ("auto", "native"):
         from distributed_ml_pytorch_tpu_torch import native
 
         if native.native_available():
             t = native.NativeTCPTransport(rank, world_size, master, int(port),
-                                          connect_timeout)
+                                          connect_timeout, open_rendezvous=open_server)
         elif kind == "native":
             raise RuntimeError("native transport requested but unavailable: "
                                f"{native.native_load_error()}")
-    opts = dict(ack_on_delivery=not durable_acks, **(reliable_opts or {}))
-    if t is None and reliable and rank == SERVER_RANK:
-        # the server's reliable layer runs before the rendezvous ends: the
-        # frames of the workers that connected first are taken in and
-        # acked while the others connect, not left to time out
-        tcp = TCPTransport(rank, world_size, master, int(port), connect_timeout, wait_for=0)
-        tcp.expect_peers(world_size - 1, connect_timeout)
-        return ReliableTransport(tcp, **opts)
+    if t is None and open_server:
+        t = TCPTransport(rank, world_size, master, int(port), connect_timeout, wait_for=0)
+    if open_server:
+        t.expect_peers(world_size - 1, connect_timeout)
+        return ReliableTransport(t, **opts)
     if t is None:
         t = TCPTransport(rank, world_size, master, int(port), connect_timeout)
     return ReliableTransport(t, **opts) if reliable else t

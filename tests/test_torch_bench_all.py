@@ -557,21 +557,26 @@ DURABILITY_LEGS = {
     "coordfail": [("coordfail_mttr", "ms"), ("coordfail_restore", "ms")],
     "health": [("health_reject_rate", "%"), ("health_nack_roundtrips", "nacks"),
                ("health_rollback_mttr", "ms")],
+    "sched": [("sched_preempt_mttr", "ms"), ("sched_resume_mttr", "ms"),
+              ("sched_goodput_uplift", "x")],
 }
 
 
 @pytest.mark.parametrize("leg", list(DURABILITY_LEGS))
 def test_durability_and_health_legs_on_cpu_emit_the_jax_metric_names(capsys, leg):
-    """Config 3's ``recovery``, ``coordfail`` and ``health`` legs at
-    ``--tiny`` (their in-process LeNet fleets): the JAX names and units in
-    order, positive values, and the claims in the notes (zero acked loss,
-    no worker step lost, nacks explicit)."""
+    """Config 3's ``recovery``, ``coordfail``, ``health`` and ``sched`` legs
+    at ``--tiny`` (their in-process LeNet fleets): the JAX names and units
+    in order, positive values, and the claims in the notes (zero acked loss,
+    no worker step lost, nacks explicit, a bit-identical resume and the
+    goodput breakdown)."""
     assert bench_all.main(["--device", "cpu", "--tiny", "--legs", leg]) == 0
     recs = [json.loads(line) for line in capsys.readouterr().out.splitlines()
             if line.startswith("{")]
     assert [(r["metric"], r["unit"]) for r in recs] == DURABILITY_LEGS[leg]
-    assert all(r["config"] == 3 and r["value"] > 0 and r["hardware"] == "in-process fleet, CPU"
-               for r in recs)
+    # the uplift is derived from the fleet's measured day
+    hw = {"sched_goodput_uplift": "derived"}
+    assert all(r["config"] == 3 and r["value"] > 0
+               and r["hardware"] == hw.get(r["metric"], "in-process fleet, CPU") for r in recs)
     note = recs[0]["note"]
     if leg == "recovery":
         acked, applied = (int(v) for v in re.search(r"acked=(\d+) <= applied=(\d+)",
@@ -579,6 +584,9 @@ def test_durability_and_health_legs_on_cpu_emit_the_jax_metric_names(capsys, leg
         assert acked <= applied
     elif leg == "coordfail":
         assert "0 of 40 worker steps" in note and "epoch 1 -> 2" in note
+    elif leg == "sched":
+        assert "(bit-identical: True)" in recs[1]["note"]
+        assert recs[2]["shared"]["train_steps"] == 112 and recs[2]["serve_tokens_per_s"] > 0
     else:
         assert "every one explicitly nacked" in note
     with open(os.path.join(ROOT, "bench_all.py")) as fh:

@@ -1,7 +1,7 @@
 """``chip_smoke.py`` phases 18, 19 and 20 rehearsed on the CPU at tiny widths
 (phase 20 with LeNet: its worlds run host code beside the kernels), and
-phases 21 and 22 (the elastic plane, the durability and health barriers)
-with LeNet.
+phases 21, 22 and 23 (the elastic plane, the durability and health
+barriers, the multi-tenant scheduler) with LeNet.
 
 There is no card here, so ``ops.attention``'s CUDA wrappers are routed to
 their plain versions, counting a launch where the kernel would launch, and
@@ -217,3 +217,22 @@ def test_durability_phase_health_and_coordfail(capsys, tmp_path):
     assert b["ok"] and b["rollbacks"] >= 1 and b["revoked_workers"] >= 1
     assert 0 < b["reject_rate_pct"] < 100 and b["nack_round_trips"] > 0
     assert c["ok"] and c["epochs"] == [1, 2] and c["steps_lost"] == 0
+
+
+def test_sched_phase(capsys):
+    """Phase 23 rehearsed on the CPU with LeNet: the scheduler drill's gates
+    (one preempt and one resume, a clean ledger, WAL records replayed, the
+    resumed shard bit-identical, acked <= applied, drops, the chaos log equal
+    across three runs), the coordinator's death with a shard parked (epochs
+    1 then 2, no eviction, nothing stranded) and the serving burst that
+    prices the borrowed slot."""
+    launches = cs.phase_sched(torch, model="lenet", device="cpu")
+    lines = _lines(capsys)
+    a, b, c = lines["sched_drill"], lines["coordfail_preempt"], lines["sched_serving"]
+    assert a["ok"] and a["replayed_records"] > 0 and a["preempt_mttr_ms"] > 0
+    assert a["resume_mttr_ms"] > 0 and all(n > 0 for n in a["held_pushes"].values())
+    assert b["ok"] and b["epochs"] == [1, 2] and b["steps_lost"] == 0
+    assert c["ok"] and c["serve_tokens_per_s"] > 0 and c["sched_goodput_uplift"] > 0
+    assert c["decode_steps"] > 0 and c["reference_calls"] == 2 * c["decode_steps"]
+    assert not any(launches.values())  # the CPU runs the plain versions
+

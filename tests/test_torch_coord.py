@@ -17,9 +17,9 @@
   give the same map, fleet view, speculation call and epoch-fence counts.
 - Cross-package TCP worlds: a JAX coordinator with the port's members and
   the reverse adopt the same maps, and rebalance when a shard member dies.
-- Refusals: every option, callback and flag of a plane this package does
-  not have yet (the scheduler, engine scaling, the MPMD stages) is refused,
-  never ignored, and such a plane's frame is dropped and counted.
+- Refusals: every attachment, callback and flag of a plane this package
+  does not have yet (gray failure, the MPMD stages, the metrics dump) is
+  refused, never ignored, and such a plane's frame is dropped and counted.
 """
 
 import threading
@@ -333,45 +333,33 @@ def test_cross_package_tcp_world_adopts_the_same_maps(coordinator):
 
 # ------------------------------------------------------------ refusals
 
-@pytest.mark.parametrize("option,value", [
-    ("restore_parked", False), ("engine_occ_high", 0.9),
-    ("engine_occ_low", 0.1), ("engine_slo_ttft_ms", 100.0), ("scale_cooldown", 1.0),
-    ("on_scale", print)])
-def test_a_later_planes_coordinator_option_is_refused(option, value):
-    with pytest.raises(ValueError, match="not in this package yet"):
-        tco.Coordinator(None, 10, **{option: value})
-    tco.Coordinator(None, 10, **{option: tco._LATER_OPTIONS[option][0]})  # the default
-
-
 def test_later_plane_attachments_callbacks_and_frames_are_refused():
     coord = tco.Coordinator(None, 10)
-    for attr in ("sched", "gray"):
-        with pytest.raises(ValueError, match="not in this package yet"):
-            setattr(coord, attr, object())
+    with pytest.raises(ValueError, match="not in this package yet"):
+        coord.gray = object()
     with pytest.raises(TypeError):
         tco.Coordinator(None, 10, no_such_option=1)
     with pytest.raises(ValueError, match="not in this package yet"):
         tmem.CoordClient(_Quiet(), "worker", on_stage_assign=print)
     client = tmem.CoordClient(_Quiet(), "shard", renew_interval=60.0)
     try:
-        for attr in ("on_stage_assign", "on_preempt", "on_slot_grant", "on_resume"):
-            with pytest.raises(ValueError, match="not in this package yet"):
-                setattr(client, attr, print)
-            setattr(client, attr, None)
-            assert getattr(client, attr) is None
-        for code in (MC.PreemptRequest, MC.SlotGrant, MC.ResumeRequest):
+        with pytest.raises(ValueError, match="not in this package yet"):
+            client.on_stage_assign = print
+        client.on_stage_assign = None
+        assert client.on_stage_assign is None
+        for code in (MC.StageReady, MC.StageAssign, MC.ActivationGrad):
             client._handle(code, tmsg.stamp_epoch(np.zeros(8, np.float32), 1))
         assert client.later_plane_dropped == 3
     finally:
         client.stop()
     coord.handle(1, MC.CoordJoin, tco.encode_join(tco.KIND_SHARD, 5))
     before = list(coord.events)
-    for code in (MC.PreemptDone, MC.StageReady, MC.StageAssign, MC.ActivationGrad):
+    for code in (MC.StageReady, MC.StageAssign, MC.ActivationGrad):
         coord.handle(1, code, np.zeros(12, np.float32))
-    assert coord.later_plane_dropped == 4 and list(coord.events) == before
+    assert coord.later_plane_dropped == 3 and list(coord.events) == before
 
 
-@pytest.mark.parametrize("flags", [["--mpmd"], ["--sched-demo"], ["--metrics-dump", "-"]])
+@pytest.mark.parametrize("flags", [["--mpmd"], ["--metrics-dump", "-"]])
 def test_a_later_planes_coordinator_flag_is_rejected(flags):
     with pytest.raises(SystemExit):
         tcli.build_parser().parse_args(flags)
@@ -389,7 +377,8 @@ def test_coordinator_flags_take_the_jax_names_and_defaults():
     mine = {a.dest: a for a in tcli.build_parser()._actions}
     ref = {a.dest: a for a in jcli.build_parser()._actions}
     for dest in ("port", "master", "max_members", "n_params", "lease", "straggler_factor",
-                 "no_speculation", "timeout", "demo", "seed", "drill", "health", "auto_rollback",
+                 "no_speculation", "timeout", "demo", "seed", "drill", "health", "sched_demo",
+                 "auto_rollback",
                  "rollback_loss_factor", "reputation_nacks", "manifest_dir",
                  "snapshot_interval"):
         assert mine[dest].option_strings == ref[dest].option_strings, dest

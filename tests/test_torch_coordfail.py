@@ -17,8 +17,8 @@
   has none.
 - The fence: a member drops a stale epoch's ``RollbackRequest`` and
   ``SnapshotRequest``.
-- Refusals: a directory holding the scheduler's park or ledger records
-  raises, naming the scheduler's plane, and so does ``restore_parked``.
+
+The park table's records and restarts are ``tests/test_torch_sched.py``'s.
 """
 
 import json
@@ -36,7 +36,6 @@ from distributed_ml_pytorch_tpu_torch.utils.messaging import (
     strip_epoch,
 )
 from distributed_ml_pytorch_tpu_torch.utils.messaging import MessageCode as MC
-from distributed_ml_pytorch_tpu_torch.utils.wal import WriteAheadLog
 
 J, R, L = MC.CoordJoin, MC.LeaseRenew, MC.CoordLeave
 FILES = (tco.COORD_EPOCH_NAME, tco.COORD_CKPT_NAME, tco.COORD_WAL_NAME)
@@ -256,31 +255,6 @@ def test_a_stale_epochs_barrier_is_dropped_on_the_wire(code):
         client.stop()
         for t in world.values():
             t.close()
-
-
-@pytest.mark.parametrize("where", ["ckpt_parked", "ckpt_sched", "wal_park", "wal_unpark"])
-def test_park_and_scheduler_records_are_refused_by_name(tmp_path, where):
-    d = tmp_path / "coord"
-    d.mkdir()
-    if where.startswith("ckpt"):
-        state = {"epoch": 1, "wal_seq": 0, "members": [], "map": None, "snap_seq": 0,
-                 "roll_seq": 0, "next_task": 1, "parked": {}, "sched": None}
-        if where == "ckpt_parked":
-            state["parked"] = {"2": {"grant_id": 1, "snapshot_id": 1}}
-        else:
-            state["sched"] = {"next_grant": 1, "next_slot": 0, "slots": []}
-        (d / tco.COORD_CKPT_NAME).write_bytes(json.dumps(state, sort_keys=True).encode())
-    else:
-        wal = WriteAheadLog(str(d / tco.COORD_WAL_NAME), incarnation=1)
-        op = {"op": where[4:], "rank": 2}
-        if op["op"] == "park":
-            op["parked"] = {"grant_id": 1}
-        wal.append(1, tco._op_to_f32(op))
-        wal.close()
-    with pytest.raises(ValueError, match="scheduler"):
-        _coord(tco, tmp_path, _Clock())
-    with pytest.raises(ValueError, match="scheduler.*not in this package yet"):
-        tco.Coordinator(None, 10, restore_parked=False)
 
 
 def test_the_log_record_layout_is_the_jax_one():

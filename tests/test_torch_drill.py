@@ -10,8 +10,18 @@ JAX package's.
   the chaos log is the JAX drill's byte for byte.
 - ``coordfail_drill(kill_during="snapshot")`` at seed 0: epochs 1 then 2,
   no member evicted, the new life publishes a manifest, the accounting
-  closes, and the chaos log is the JAX drill's byte for byte;
-  ``kill_during="preempt"`` is refused by name.
+  closes, and the chaos log is the JAX drill's byte for byte.
+- ``coord.cli --sched-demo`` (``sched_drill`` at seed 0 under the default
+  plan): exits 0; one preempt and one resume, a clean ledger, updates only
+  the log held replayed, the resumed shard bit-identical to the parked one,
+  acked <= applied for every worker and shard, drops in the chaos log, and
+  the chaos log, the grants and the scheduler's decisions equal the JAX
+  drill's. Without the manifest gate (``require_manifest=False``) both
+  packages report the same violation: the resume finds no manifest.
+- ``coordfail_drill(kill_during="preempt")`` at seed 0: the coordinator
+  dies with a shard parked, the new life (epoch 2) restores the park,
+  evicts no one, strands nothing and resumes the shard bit for bit, and the
+  chaos log is the JAX drill's byte for byte.
 - ``coord.cli --health`` (``health_scenario`` at seed 0): exits 0; at least
   one watchdog rollback with every shard reporting, each shard's rolled
   back vector equal to a fresh server's restore of the same files bit for
@@ -31,6 +41,7 @@ a JAX ``ReliableTransport`` on both shard stars.
 """
 
 import os
+import re
 import tempfile
 
 import numpy as np
@@ -126,9 +137,76 @@ def test_coordfail_drill_survives_the_coordinators_death_with_the_jax_chaos_log(
     assert out["chaos_lines"] and out["chaos_lines"] == ref["chaos_lines"]
 
 
-def test_coordfail_drill_refuses_the_preempt_variant_by_name(tmp_path):
-    with pytest.raises(ValueError, match="scheduler is not in this package yet"):
-        tdrill.coordfail_drill(base_dir=str(tmp_path), kill_during="preempt", device="cpu")
+def _sched_gates(out):
+    s = out["sched"]
+    assert out["ok"] and not out["errors"] and not out["violations"], (
+        out["errors"], out["violations"], out["events"][-8:])
+    assert (s["preempts_done"], s["resumes_done"], s["audit"]) == (1, 1, [])
+    assert out["replayed_updates"] > 0 and out["bit_identical"] is True
+    for i, by_worker in out["acked"].items():
+        for j, acked in by_worker.items():
+            assert acked <= out["applied"][i][j], (i, j, out["acked"], out["applied"])
+    assert out["chaos_counts"].get("drop", 0) > 0
+    assert all(n > 0 for n in out["held_pushes"].values())
+
+
+def test_cli_sched_demo_parks_and_resumes_bit_for_bit_with_the_jax_chaos_log(
+        monkeypatch, tmp_path, jax_fixture):
+    from distributed_ml_pytorch_tpu.coord import drill as jdrill
+
+    kept = _capture(monkeypatch, tmp_path, tdrill, "sched_drill")
+    assert tcli.main(["--sched-demo", "--backend", "cpu", "--model", "lenet", "--seed",
+                      "0"]) == 0
+    assert os.listdir(tmp_path / "demo") == []
+    out = kept["out"]
+    _sched_gates(out)
+    assert out["apply_seq_parked"] == out["apply_seq_restored"]
+    ref = jdrill.sched_drill(base_dir=str(tmp_path / "jax"), seed=0,
+                             plan=jdrill.default_drill_plan(0), fixture=jax_fixture)
+    assert ref["ok"], (ref["errors"], ref["violations"])
+    assert out["chaos_lines"] and out["chaos_lines"] == ref["chaos_lines"]
+    assert out["grants"] == [tuple(g) for g in ref["grants"]]
+    # the same decisions, but for what depends on the model and the clock:
+    # the range, the apply seq, the incarnation and the measured times
+    def decisions(events):
+        return [re.sub(r"\[\d+,\d+\)|apply seq \d+|inc \d+|\(\d+ ms\)", "#", e)
+                for e in events if e.startswith("sched ")]
+
+    assert decisions(out["events"]) == decisions(ref["events"])
+    assert len(decisions(out["events"])) == 7
+
+
+def test_sched_drill_without_the_manifest_gate_reports_the_jax_violation(tmp_path,
+                                                                         jax_fixture):
+    from distributed_ml_pytorch_tpu.coord import drill as jdrill
+
+    out = tdrill.sched_drill(base_dir=str(tmp_path / "port"), seed=0, require_manifest=False,
+                             plan=tdrill.default_drill_plan(0), device="cpu")
+    ref = jdrill.sched_drill(base_dir=str(tmp_path / "jax"), seed=0, require_manifest=False,
+                             plan=jdrill.default_drill_plan(0), fixture=jax_fixture)
+    assert not out["ok"] and not out["errors"] and out["sched"]["preempts_done"] == 1
+    assert out["violations"] == ref["violations"] == [
+        "resume lost acked state: rank 2 parked without a usable manifest "
+        "(FileNotFoundError('no manifest for snapshot 0'))"]
+    assert out["bit_identical"] is None and out["sched"]["resumes_done"] == 0
+
+
+def test_coordfail_drill_preempt_variant_never_strands_the_parked_rank(tmp_path, jax_fixture):
+    from distributed_ml_pytorch_tpu.coord import drill as jdrill
+
+    out = tdrill.coordfail_drill(base_dir=str(tmp_path / "port"), seed=0,
+                                 kill_during="preempt", device="cpu")
+    assert out["ok"], (out["errors"], out["violations"], out["events"][-5:],
+                       out["events2"][-8:])
+    assert out["epochs"] == (1, 2) and out["evictions"] == [] and out["stranded"] == []
+    assert out["resumes_done"] == 1 and out["bit_identical"] is True
+    assert out["accounting_ok"] and out["replayed_updates"] > 0
+    assert any("parked rank(s)" in e and "1 parked" in e for e in out["events2"])
+    assert sum(len(v) for v in out["losses"].values()) == 2 * 20  # no step lost
+    ref = jdrill.coordfail_drill(base_dir=str(tmp_path / "jax"), seed=0, kill_during="preempt",
+                                 fixture=jax_fixture)
+    assert ref["ok"], (ref["errors"], ref["violations"])
+    assert out["chaos_lines"] and out["chaos_lines"] == ref["chaos_lines"]
 
 
 def _jax_health_log(n_pushes: int) -> str:

@@ -1862,3 +1862,25 @@ def test_recovery_drill_on_the_card(cuda, tmp_path):
     ref = recovery_drill(base_dir=str(tmp_path / "cpu"), seed=0, plan=default_drill_plan(0),
                          model="lenet", device="cpu")
     assert out["chaos_lines"] == ref["chaos_lines"]
+
+
+@pytest.mark.gpu
+def test_sched_drill_on_the_card(cuda, tmp_path):
+    """``coord.drill.sched_drill`` with LeNet on the card: one preempt and
+    one resume, a clean ledger, the resumed shard bit-identical to the
+    parked one after replaying the log, acked <= applied, every worker step
+    running K1 once, and the chaos log the CPU run's byte for byte."""
+    from distributed_ml_pytorch_tpu_torch.coord.drill import default_drill_plan, sched_drill
+
+    k1 = tfu.launches
+    out = sched_drill(base_dir=str(tmp_path / "card"), seed=0, plan=default_drill_plan(0),
+                      model="lenet", device="cuda")
+    assert out["ok"] and not out["violations"], (out["errors"], out["violations"])
+    s = out["sched"]
+    assert (s["preempts_done"], s["resumes_done"], s["audit"]) == (1, 1, [])
+    assert out["replayed_updates"] > 0 and out["bit_identical"] is True
+    assert all(a <= out["applied"][i][j] for i, w in out["acked"].items() for j, a in w.items())
+    assert tfu.launches - k1 == sum(len(v) for v in out["losses"].values())
+    ref = sched_drill(base_dir=str(tmp_path / "cpu"), seed=0, plan=default_drill_plan(0),
+                      model="lenet", device="cpu")
+    assert out["chaos_lines"] == ref["chaos_lines"]

@@ -26,10 +26,11 @@ repair.
   s for another worker's process start-up, and 4 copies in 32 timed it
   out (0 in 32 after the repair, the longest ack 0.697 s). The server now
   serves the workers that connected while the others connect (a reliable
-  Python server from ``make_transport`` returns before its rendezvous
-  ends), its ``run`` closing the rendezvous, which still raises past its
-  deadline; a push to a server whose second worker has not
-  connected is acked within the 1 s floor.
+  server from ``make_transport``, Python or native, returns before its
+  rendezvous ends), its ``run`` closing the rendezvous, which still raises
+  past its deadline; a push to a server whose second worker has not
+  connected is acked within the 1 s floor. The native server used to wait
+  out the whole rendezvous in its constructor.
 - **Two lives of a rank begun in one second.** A second
   ``ReliableTransport`` of rank 1 built in the same second as the first,
   with the incarnation clock reset as a fresh process has it: its frames
@@ -44,6 +45,7 @@ Run one rank by hand: ``python tests/test_torch_wire_faults.py server
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -418,18 +420,54 @@ if __name__ == "__main__":
     _main()
 
 
-def test_a_server_serves_the_first_worker_while_the_second_connects(tmp_path):
-    """A durable reliable Python server acks a worker's push (after its
-    log's fsync) while the world's second worker has not connected; the
-    rendezvous ends when it does."""
+def _kind(kind):
+    """The transport kind of a rendezvous test; the native library builds
+    with g++ on first use."""
+    if kind == "native" and shutil.which(os.environ.get("CXX", "g++")) is None:
+        pytest.skip("no g++ to build the native transport")
+    if kind == "native":
+        from distributed_ml_pytorch_tpu_torch import native
+
+        assert native.native_available(), native.native_load_error()
+    return kind
+
+
+def _open_server(*args, **kw):
+    """``make_transport`` of a reliable rank 0, which must return once it
+    listens, long before any worker connects (built on a thread, so that a
+    constructor that waits for its workers fails the test instead of
+    hanging it)."""
+    out = {}
+
+    def build():
+        try:
+            out["t"] = tmsg.make_transport(*args, **kw)
+        except BaseException as e:  # noqa: BLE001 — reported below
+            out["e"] = e
+
+    th = threading.Thread(target=build, daemon=True)
+    th.start()
+    th.join(timeout=5)
+    assert not th.is_alive(), "the server's constructor waited for its workers"
+    if "e" in out:
+        raise out["e"]
+    return out["t"]
+
+
+@pytest.mark.parametrize("kind", ["python", "native"])
+def test_a_server_serves_the_first_worker_while_the_second_connects(tmp_path, kind):
+    """A durable reliable server, Python or native, acks a worker's push
+    (after its log's fsync) while the world's second worker has not
+    connected; the rendezvous ends when it does."""
     from distributed_ml_pytorch_tpu_torch.launch import _free_port
     from distributed_ml_pytorch_tpu_torch.parallel.async_ps import ParameterServer
 
+    kind = _kind(kind)
     port = int(_free_port())
     server = ParameterServer(params=np.zeros(8, np.float32), n_workers=2,
                              ckpt_dir=str(tmp_path / "ps"), wal=True)
-    server.transport = tmsg.make_transport(0, 3, "localhost", port, kind="python",
-                                           reliable=True, durable_acks=True)
+    server.transport = _open_server(0, 3, "localhost", port, kind=kind, reliable=True,
+                                    durable_acks=True)
     assert not server.transport.rendezvous_done()
     th = threading.Thread(target=server.run, kwargs={"timeout": 30}, daemon=True)
     th.start()
@@ -459,13 +497,14 @@ def test_a_server_serves_the_first_worker_while_the_second_connects(tmp_path):
         server.transport.close()
 
 
-def test_an_open_rendezvous_still_raises_past_its_deadline():
+@pytest.mark.parametrize("kind", ["python", "native"])
+def test_an_open_rendezvous_still_raises_past_its_deadline(kind):
     from distributed_ml_pytorch_tpu_torch.launch import _free_port
     from distributed_ml_pytorch_tpu_torch.parallel.async_ps import ParameterServer
 
+    kind = _kind(kind)
     port = int(_free_port())
-    t = tmsg.make_transport(0, 2, "localhost", port, kind="python", reliable=True,
-                            connect_timeout=0.3)
+    t = _open_server(0, 2, "localhost", port, kind=kind, reliable=True, connect_timeout=0.3)
     server = ParameterServer(params=np.zeros(4, np.float32), n_workers=1, transport=t)
     try:
         with pytest.raises(TimeoutError, match="did not connect"):
