@@ -349,6 +349,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
    priced at its rate. One line each: preempt and resume MTTR, held
    pushes, records replayed, the uplift, wall seconds and the kernel
    counts; every launch joins the ``kernels`` line.
+24. gray failure and the serving fleet, the kernel counts zeroed just
+   before each part's first run and read just after: (a)
+   ``coord.drill.gray_drill`` at AlexNet batch 64 on the card, seed 0, one
+   process: the contained leg meets the drill's contract (probation and
+   quarantine at least once, no eviction, a recovery, no lease expiry of
+   the renewing victim, acked <= applied for every worker and shard, the
+   resumed shard bit-identical over its whole range), its chaos log equal
+   to a second run's on the card and a LeNet run's on the CPU byte for
+   byte, K1 once and K2 three times each way a worker step; then the
+   unmanaged leg (``contain=False``): no probation, the victim slice's
+   goodput beside the contained leg's, the detection latency and the
+   containment MTTR; (b) the serving CLI's default model (vocab 512, d 128,
+   8 heads, 2 layers, d_ff 256, float32, head_dim 16) as 3
+   ``EngineMember``s of 4 slots behind a ``FleetRouter`` on the in-process
+   transport: probation (``note_gray``) bends the first request away from
+   an engine without removing it; 12 greedy requests, one engine crashed
+   mid-stream, every stream finished and token-identical to an
+   uninterrupted run of the same requests on one engine, at least one
+   KvMigrate handoff, the migration MTTR; a ``FleetAutoscaler`` on the
+   coordinator's ``on_scale`` spawns one engine and retires one; K8
+   launched exactly once a layer and decode step over every engine and the
+   reference never, and held to the reference (float32 ``DECODE_TOL``) on
+   a copy of the inputs of its call at the longest cache. One line each;
+   every launch joins the ``kernels`` line.
 
 Then the ``kernels`` line, the ``nvidia-smi`` name/power line, and last the
 result line ``{"ok": true, "device": {...}}``. Without a card, or without
@@ -4955,6 +4979,278 @@ def phase_sched(torch, model="alexnet", device="cuda"):
     return launches
 
 
+# ------------------------------------------------------------------ phase 24
+
+#: (b)'s fleet: engines, slots each, requests, their generation lengths
+FLEET_ENGINES, FLEET_SLOTS, FLEET_REQUESTS, FLEET_NEW = 3, 4, 12, (40, 64)
+
+
+def phase_gray_drill(torch, tmp, model="alexnet", device="cuda", batch=DRILL_BATCH):
+    """Phase 24 (a); returns the contained leg's first run's kernel counts."""
+    from distributed_ml_pytorch_tpu_torch.coord.drill import gray_drill
+
+    t0 = time.monotonic()
+    out, counts = _drill_run(torch, gray_drill, os.path.join(tmp, "gray0"), seed=0,
+                             model=model, device=device, batch=batch)
+    g = out["gray"]
+    require(out["ok"] and not out["violations"] and not out["errors"],
+            f"gray drill: violations {out['violations']}, errors {out['errors']}, events "
+            f"{out['events'][-8:]}")
+    require(g["probations"] >= 1 and g["quarantines"] >= 1 and g["evictions"] == 0
+            and g["recoveries"] >= 1, f"gray ladder {g}")
+    require(out["bit_identical"] is True, "the resumed shard differs from the parked one")
+    require(not [e for e in out["events"] if "lease expired" in e and " 1 " in e],
+            "the renewing victim's lease expired")
+    require(all(a <= out["applied"][i][j] for i, w in out["acked"].items() for j, a in w.items()),
+            f"acked {out['acked']} > applied {out['applied']}")
+    require(out["chaos_counts"].get("gray-partition", 0) > 0,
+            f"no gray partition in {out['chaos_counts']}")
+    steps = sum(len(v) for v in out["losses"].values())
+    if device == "cuda":
+        _require_step_counts(counts, steps, steps, "gray drill")
+    kw = dict(seed=0, model=model, device=device, batch=batch)
+    # a run on the CPU already is the CPU's run
+    again = (out if device == "cpu"
+             else gray_drill(base_dir=os.path.join(tmp, "gray1"), **kw))
+    on_cpu = (out if device == "cpu"
+              else gray_drill(base_dir=os.path.join(tmp, "gray2"),
+                              **dict(kw, model="lenet", device="cpu", batch=16)))
+    require(again["ok"] and on_cpu["ok"], f"a comparison drill failed: {again['violations']} "
+            f"{again['errors']} {on_cpu['violations']} {on_cpu['errors']}")
+    log = out["chaos_lines"]
+    require(log and log == again["chaos_lines"], "the gray drill's chaos log differs between "
+            "runs")
+    require(log == on_cpu["chaos_lines"], "the gray drill's chaos log on the card differs from "
+            "the CPU's")
+    off = gray_drill(base_dir=os.path.join(tmp, "gray_off"), contain=False, **kw)
+    require(off["ok"] and off["gray"]["probations"] == 0 and off["fixed_wall_s"] is not None,
+            f"the unmanaged leg: {off['violations']} {off['errors']} {off['gray']}")
+    require(off["chaos_lines"] == log, "the unmanaged leg's chaos log differs")
+    emit({"phase": "gray_drill", "ok": True, "model": model, "device": device, "batch": batch,
+          "detect_latency_ms": out["detect_latency_s"] * 1e3,
+          "containment_mttr_ms": out["containment_mttr_s"] * 1e3,
+          "detect_latency_ms_runs": [r["detect_latency_s"] * 1e3 for r in (out, again, on_cpu)],
+          "containment_mttr_ms_runs": [r["containment_mttr_s"] * 1e3
+                                       for r in (out, again, on_cpu)],
+          "victim_slice_goodput_contained": sum(out["applied"][0].values()) / out["wall_s"],
+          "victim_slice_goodput_unmanaged": sum(off["applied"][0].values()) / off["wall_s"],
+          "fixed_wall_s": [out["fixed_wall_s"], off["fixed_wall_s"]],
+          "day_s": [out["wall_s"], off["wall_s"]], "gray": g,
+          "replayed_records": out["replayed_updates"], "acked": out["acked"],
+          "applied": out["applied"], "chaos_counts": out["chaos_counts"], "steps": steps,
+          "wall_s": time.monotonic() - t0, "kernel_counts": counts})
+    return counts
+
+
+def _fleet_requests(vocab):
+    """(b)'s greedy requests: seeded prompts of 4-19 tokens and their lengths."""
+    import numpy as np
+
+    rng = np.random.default_rng(24)
+    return [(rng.integers(0, vocab, size=int(rng.integers(4, 20))).astype(np.int32),
+             int(rng.integers(*FLEET_NEW))) for _ in range(FLEET_REQUESTS)]
+
+
+def phase_fleet(torch, device="cuda", width=()):
+    """Phase 24 (b); returns its K8 launches. ``width`` are serving CLI
+    flags over the defaults (the CPU rehearsal's narrower model)."""
+    import numpy as np
+
+    from distributed_ml_pytorch_tpu_torch.coord.coordinator import (
+        KIND_ENGINE,
+        Coordinator,
+        encode_join,
+        encode_renew,
+    )
+    from distributed_ml_pytorch_tpu_torch.ops import decode_attention as da
+    from distributed_ml_pytorch_tpu_torch.serving import cli as serving_cli
+    from distributed_ml_pytorch_tpu_torch.serving.cache import SlotKVPool
+    from distributed_ml_pytorch_tpu_torch.serving.fleet import (
+        EngineMember,
+        FleetAutoscaler,
+        FleetRouter,
+    )
+    from distributed_ml_pytorch_tpu_torch.serving.frontend import ServingClient
+    from distributed_ml_pytorch_tpu_torch.utils.messaging import InProcessTransport, MessageCode
+
+    t0 = time.monotonic()
+    args = serving_cli.parse_args(["--backend", device, "--slots", str(FLEET_SLOTS), *width])
+    lm = serving_cli.build_model(args)
+    requests = _fleet_requests(args.vocab)
+    # the uninterrupted run: every request on one engine, outside the count
+    ref_engine = serving_cli.make_engine(lm, args)
+    handles = [ref_engine.submit(p, n, request_id=i) for i, (p, n) in enumerate(requests)]
+    ref_engine.run_until_idle()
+    want = [h.tokens for h in handles]
+    require(all(len(w) == n for w, (_, n) in zip(want, requests)), "the reference run fell short")
+
+    def warmed(engine_id):
+        engine = serving_cli.make_engine(lm, args)
+        w = engine.submit(np.zeros(args.prefill_bucket, np.int32), 2)
+        engine.run_until_idle()
+        require(w.done, "an engine's warm-up did not finish")
+        engine.reset_metrics()
+        return EngineMember(engine_id, engine)
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+    steps, longest = [0], []
+    real_block, real_k8 = SlotKVPool.decode_block_step, da.decode_attention_cuda
+
+    def count_block(pool, *a):
+        steps[0] += pool.decode_block
+        return real_block(pool, *a)
+
+    def record_inputs(*a):
+        if not longest or a[3].shape[2] > longest[0][3].shape[2]:
+            longest[:] = [tuple(x.clone() if torch.is_tensor(x) else x for x in a)]
+        return real_k8(*a)
+
+    SlotKVPool.decode_block_step, da.decode_attention_cuda = count_block, record_inputs
+    da.launches = 0
+    world = InProcessTransport.create_world(2)
+    router = None
+    try:
+        with _ReferenceCalls(da) as ref:
+            members = [warmed(i).start() for i in range(FLEET_ENGINES)]
+            # a crash reads as dead at once (``alive``); the probe's timeout
+            # only guards against a silent serve loop
+            router = FleetRouter(world[0], members, probe_timeout=30.0)
+            serve = threading.Thread(target=router.serve_forever, daemon=True)
+            serve.start()
+            client = ServingClient(world[1], resume_after=0.25)
+            # probation bends the first request (a tie, which engine 0 would
+            # win) away from engine 0 without marking it down
+            router.note_gray(0)
+            rids = [client.submit(*requests[0])]
+            require(_wait(lambda: len(router._routes) == 1, 30), "the first request never routed")
+            with router._routes_lock:
+                first_engine = [r.engine_id for r in router._routes.values()][0]
+            gray_up = router.fleet_summary()["engines"][0]["up"]
+            require(first_engine != 0 and gray_up,
+                    f"probation routed to engine {first_engine}, engine 0 up {gray_up}")
+            router.clear_gray(0)
+            rids += [client.submit(p, n) for p, n in requests[1:]]
+            victim = {}
+
+            def mid_stream():
+                with router._routes_lock:
+                    for r in router._routes.values():
+                        if not r.done and r.engine_id >= 0 and len(r.tokens) >= 2:
+                            victim["id"] = r.engine_id
+                            return True
+                return False
+
+            require(_wait(mid_stream, 60), "no stream ever got mid-decode")
+            members[victim["id"]].crash()
+            got = [list(client.stream(r, timeout=300)) for r in rids]
+            summary = router.fleet_summary()
+            # the autoscaler on the coordinator's advice: engine renewals
+            # past the high mark spawn one, below the low mark retire one
+            next_id = [FLEET_ENGINES]
+
+            def factory():
+                next_id[0] += 1
+                return warmed(next_id[0])
+
+            scaler = FleetAutoscaler(router, factory, min_engines=1, max_engines=FLEET_ENGINES + 1)
+            now = [1000.0]
+            coord = Coordinator(None, 8, engine_occ_high=0.8, engine_occ_low=0.2,
+                                scale_cooldown=1.0, on_scale=scaler.on_scale,
+                                clock=lambda: now[0])
+            for rank in (1, 2):
+                coord.handle(rank, MessageCode.CoordJoin, encode_join(KIND_ENGINE, 1))
+                coord.handle(rank, MessageCode.LeaseRenew, encode_renew(1, 95, 2, 50.0))
+            up = coord.check_engine_scaling()
+            require(up == "up" and scaler.quiesce(120), f"scale-up advice {up}")
+            n_up = len(router.members)
+            for rank in (1, 2):
+                coord.handle(rank, MessageCode.LeaseRenew, encode_renew(1, 5, 0, 1.0))
+            now[0] += 2.0
+            down = coord.check_engine_scaling()
+            require(down == "down" and scaler.quiesce(120), f"scale-down advice {down}")
+            scaled = scaler.summary()
+            tail = client.generate(*requests[1], timeout=120)
+            router.stop()
+            serve.join(timeout=10)
+            if device == "cuda":
+                torch.cuda.synchronize()
+    finally:
+        SlotKVPool.decode_block_step, da.decode_attention_cuda = real_block, real_k8
+        if router is not None:
+            router.stop()
+        for t in world.values():
+            t.close()
+    k8 = da.launches
+    identical = [g == w for g, w in zip(got, want)]
+    first_diff = None
+    if not all(identical):
+        i = identical.index(False)
+        j = next((k for k, (a, b) in enumerate(zip(got[i], want[i])) if a != b),
+                 min(len(got[i]), len(want[i])))
+        first_diff = {"request": i, "position": j, "migrated_len": len(got[i]),
+                      "reference_len": len(want[i])}
+    require(all(len(g) == n for g, (_, n) in zip(got, requests)),
+            f"a stream fell short: {[len(g) for g in got]}")
+    require(all(identical), f"a migrated stream differs from the uninterrupted run: {first_diff}")
+    require(summary["migrations"] >= 1 and summary["migration_failures"] == 0
+            and summary["handoffs"] >= 1 and summary["handoff_drops"] == 0
+            and summary["mttr_s"] is not None, f"fleet summary {summary}")
+    require(n_up == FLEET_ENGINES + 1 and scaled["scaled_up"] == 1
+            and scaled["scaled_down"] == 1 and scaled["n_engines"] == FLEET_ENGINES,
+            f"autoscaler {scaled} (after the scale-up: {n_up} engines)")
+    require(tail == want[1], "the scaled fleet served a request differently")
+    calls, other = (k8, ref.n) if device == "cuda" else (ref.n, k8)
+    require(steps[0] > 0 and calls == args.n_layers * steps[0] and other == 0,
+            f"the fleet ran K8 {k8} and the reference {ref.n} times on {device}, want "
+            f"{args.n_layers} layers x {steps[0]} decode steps of one of them")
+    check = None
+    if device == "cuda":
+        a = longest[0]
+        tol = DECODE_TOL["float32"]
+        mx, rel, ok = _err(torch, da.decode_attention_cuda(*a), da.decode_attention_reference(*a),
+                           da.decode_error_scale(*a), tol)
+        b, h, C, d = a[3].shape
+        check = {"b": b, "h": h, "C": C, "head_dim": d, "dtype": str(a[0].dtype),
+                 "max_abs_err": mx, "max_err_over_scale": rel, "tolerance": tol}
+        require(ok, f"K8 on the fleet's inputs (C={C}, head_dim {d}): {mx} ({rel} of the scale)")
+    emit({"phase": "fleet", "ok": True, "device": device, "engines": FLEET_ENGINES,
+          "slots": FLEET_SLOTS, "requests": FLEET_REQUESTS,
+          "tokens": sum(len(g) for g in got), "crashed_engine": victim["id"],
+          "migrations": summary["migrations"], "handoffs": summary["handoffs"],
+          "handoff_wire_floats": summary["handoff_wire_floats"],
+          "handoff_dense_floats": summary["handoff_dense_floats"],
+          "migration_mttr_ms": summary["mttr_s"] * 1e3, "gray_first_engine": first_engine,
+          "autoscaler": scaled, "decode_steps": steps[0], "reference_calls": ref.n,
+          "k8_at_longest_cache": check, "wall_s": time.monotonic() - t0,
+          "kernel_counts": {"decode_attention": k8}})
+    return k8
+
+
+def _wait(cond, timeout):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if cond():
+            return True
+        time.sleep(0.002)
+    return False
+
+
+def phase_gray_fleet(torch, model="alexnet", device="cuda", width=()):
+    """Phase 24: (a) the gray drill, (b) the serving fleet; returns every
+    launch of their first runs."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="smoke_gray_")
+    try:
+        launches = dict(phase_gray_drill(torch, tmp, model, device))
+        launches["decode_attention"] = phase_fleet(torch, device, width)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -5023,6 +5319,9 @@ def main() -> int:
         sched = phase_sched(torch)
         for name in ("flat_axpy", "relu_pool2_fwd", "relu_pool2_bwd", "decode_attention"):
             launches[name] += sched[name]
+        gray_fleet = phase_gray_fleet(torch)
+        for name in ("flat_axpy", "relu_pool2_fwd", "relu_pool2_bwd", "decode_attention"):
+            launches[name] += gray_fleet[name]
         smi = nvidia_smi_line()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

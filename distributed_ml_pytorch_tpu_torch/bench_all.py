@@ -10,6 +10,7 @@
     python -m distributed_ml_pytorch_tpu_torch.bench_all --legs elastic
     python -m distributed_ml_pytorch_tpu_torch.bench_all --legs recovery,coordfail,health
     python -m distributed_ml_pytorch_tpu_torch.bench_all --legs sched
+    python -m distributed_ml_pytorch_tpu_torch.bench_all --legs gray
     python -m distributed_ml_pytorch_tpu_torch.bench_all --device cpu --tiny
 
 One JSON line per measurement on stdout (the JAX ``emit`` record: config,
@@ -145,10 +146,21 @@ narration on stderr. Ported legs, under the JAX metric names:
   serving priced at the rate of a real ``ServingEngine`` burst
   (:func:`_serving_slot_rate`, JAX :1277-1306: vocab 128, d 64, 2 heads, 2
   layers, 4 slots, 8 requests of 24 tokens; K8 on the card); host clock.
+- ``gray`` — config 3's gray-failure leg (JAX ``gray_phase``,
+  bench_all.py:1190-1275): ``coord/drill.gray_drill`` at seed 0 twice over
+  the same windowed one-way partition (two elastic shard servers, two
+  LeNet workers, 170 fixed steps), contained and unmanaged:
+  ``gray_victim_slice_goodput_contained`` and ``_unmanaged`` (the updates
+  the gray shard applied per second of the day), ``gray_detect_latency``
+  (the onset to probation) and ``gray_containment_mttr`` (probation to
+  parked), in ms; the detection latency is held to
+  ``gray_detection_latency_ceiling_s`` of the root ``bench_floors.json``.
+  Host clock: the figures are the in-process fleet's host timing, not the
+  card's.
 
 ``--tiny`` shrinks every other leg to test widths (a CPU run in seconds);
 its records keep the metric names and say so in their notes. The
-``recovery``, ``coordfail``, ``health`` and ``sched`` legs run their LeNet
+``recovery``, ``coordfail``, ``health``, ``sched`` and ``gray`` legs run their LeNet
 fleet with or without it. Timing is
 ``utils/devtime.device_time``: CUDA events on the card, wall clock on the
 CPU (the record's note names the source). The LM legs' FLOP numerator is
@@ -1671,6 +1683,76 @@ def sched_phase(device) -> dict:
     return res
 
 
+def gray_phase(device) -> dict:
+    """Config 3's gray-failure leg: the same windowed one-way partition (the
+    workers' pull requests toward shard 0 vanish while its renewals flow)
+    run contained (the ladder detects on the workers' link evidence, parks
+    the victim and resumes it bit for bit) and unmanaged (no one acts).
+    Priced as the gray slice's central aggregation rate, the detection
+    latency and the containment MTTR; the latency is held to the root
+    ``bench_floors.json``'s ceiling."""
+    import json
+    import tempfile
+
+    from distributed_ml_pytorch_tpu_torch.coord.drill import gray_drill
+
+    steps, n_workers = 170, 2
+    with tempfile.TemporaryDirectory(prefix="bench_gray_on_") as d:
+        on = gray_drill(base_dir=d, seed=0, steps=steps, n_workers=n_workers, device=device)
+    if (not on["ok"] or on["detect_latency_s"] is None or on["containment_mttr_s"] is None
+            or on["fixed_wall_s"] is None):
+        raise RuntimeError(f"gray_phase incomplete (containment leg): ok={on['ok']} "
+                           f"errors={on['errors']} violations={on['violations']}")
+    with tempfile.TemporaryDirectory(prefix="bench_gray_off_") as d:
+        off = gray_drill(base_dir=d, seed=0, steps=steps, n_workers=n_workers, contain=False,
+                         device=device)
+    if not off["ok"] or off["fixed_wall_s"] is None:
+        raise RuntimeError(f"gray_phase incomplete (unmanaged leg): ok={off['ok']} "
+                           f"errors={off['errors']} violations={off['violations']}")
+    fixed = steps * n_workers
+    goodput_on = fixed / on["fixed_wall_s"]
+    goodput_off = fixed / off["fixed_wall_s"]
+    # raw steps/s barely moves (the workers keep stepping on local SGD):
+    # containment protects the central aggregation on the gray slice
+    central_on = sum(on["applied"][0].values()) / on["wall_s"]
+    central_off = sum(off["applied"][0].values()) / off["wall_s"]
+    hw = _fleet_hw(device)
+    host = " (host clock; LeNet workers, in-process fleet)"
+    emit(3, "gray_victim_slice_goodput_contained", central_on, "applied updates/s", hw,
+         "central aggregation rate on the gray slice with the ladder live: the park trades "
+         "some episode throughput for a bounded recovery (victim on probation in "
+         f"{on['detect_latency_s'] * 1e3:.0f} ms, parked, resumed bit_identical="
+         f"{on['bit_identical']}, ladder cleared, evictions={on['gray']['evictions']}) vs "
+         f"{central_off:.1f} applied/s unmanaged; raw worker steps/s {goodput_on:.1f} vs "
+         f"{goodput_off:.1f} over the identical {fixed}-step fixed script (local SGD keeps "
+         "raw stepping alive either way) — coord/drill.gray_drill" + host)
+    emit(3, "gray_victim_slice_goodput_unmanaged", central_off, "applied updates/s", hw,
+         "the comparison leg: the identical gray episode with suspicion pinned off; the "
+         "victim slice grinds on retransmit back-off for the whole episode" + host)
+    emit(3, "gray_detect_latency", on["detect_latency_s"] * 1e3, "ms", hw,
+         "gray onset (first suspicious tick) -> victim on probation, confirmed over 2 "
+         "suspicious ticks of the workers' link evidence" + host)
+    emit(3, "gray_containment_mttr", on["containment_mttr_s"] * 1e3, "ms", hw,
+         "probation -> checkpoint-parked through the gray-granted preempt (snapshot "
+         "barrier, logged park ticket); the victim never lease-expires and is never "
+         "revoked" + host)
+    floors = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "bench_floors.json")
+    with open(floors) as fh:
+        ceiling = json.load(fh)["gray_detection_latency_ceiling_s"]
+    log(f"gray_phase: victim slice {central_on:.1f} vs {central_off:.1f} applied/s, raw "
+        f"{goodput_on:.1f} vs {goodput_off:.1f} steps/s (contained vs unmanaged), detect "
+        f"{on['detect_latency_s'] * 1e3:.0f} ms (ceiling {ceiling} s), mttr "
+        f"{on['containment_mttr_s'] * 1e3:.0f} ms, chaos {on['chaos_counts']}")
+    if on["detect_latency_s"] > ceiling:
+        raise RuntimeError(f"gray detection latency {on['detect_latency_s']:.2f}s exceeds the "
+                           f"{ceiling}s ceiling in bench_floors.json")
+    return {"gray_victim_slice_goodput_contained": central_on,
+            "gray_victim_slice_goodput_unmanaged": central_off,
+            "gray_detect_latency": on["detect_latency_s"] * 1e3,
+            "gray_containment_mttr": on["containment_mttr_s"] * 1e3}
+
+
 LEGS = {
     "alexnet": lambda dev, tiny: alexnet_phase(dev, tiny=tiny),
     "lm": lambda dev, tiny: lm_phase(dev, tiny=tiny),
@@ -1687,6 +1769,7 @@ LEGS = {
     "coordfail": lambda dev, tiny: coordfail_phase(dev),
     "health": lambda dev, tiny: health_phase(dev),
     "sched": lambda dev, tiny: sched_phase(dev),
+    "gray": lambda dev, tiny: gray_phase(dev),
 }
 
 

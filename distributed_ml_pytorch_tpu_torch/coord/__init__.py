@@ -16,14 +16,16 @@ run time, and Sandblaster-style straggler speculation.
   own fleet capacity;
 - :mod:`~.sched` — :class:`FleetScheduler` and its ``CapacityLedger``:
   admit, preempt (park), resume;
-- :mod:`~.drill` — the recovery drill, the scheduler drill and the
-  coordinator-failure drill;
+- :mod:`~.grayhealth` — :class:`~.grayhealth.GrayHealth`, the gray-failure
+  plane: adaptive suspicion and the probation, quarantine and evict ladder;
+- :mod:`~.drill` — the recovery drill, the scheduler drill, the gray-failure
+  drill and the coordinator-failure drill;
 - :mod:`~.health` — the numerical-health scenario (poisoned worker,
   reputation, auto-rollback);
 - :mod:`~.cli` — the coordinator process (``python -m
   distributed_ml_pytorch_tpu_torch.coord.cli``).
 
-Gray failure and the MPMD stage plane are not in this package yet.
+The MPMD stage plane is not in this package yet.
 """
 
 from distributed_ml_pytorch_tpu_torch.coord.shardmap import ShardEntry, ShardMap

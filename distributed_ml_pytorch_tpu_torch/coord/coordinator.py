@@ -70,9 +70,17 @@ The decisions are functions of the frame and clock history (``handle`` and
 ``tick`` with an injectable clock), so tests drive them synchronously;
 :meth:`Coordinator.run` feeds them a transport and wall time.
 
-Not in this package yet, and refused rather than ignored: an attached
-gray-failure policy and the flight recorder. The frames of a plane this
-package does not have (any code outside its ``WIRE_SCHEMAS``: the MPMD
+- **The gray-failure plane.** An attached ``coord/grayhealth.GrayHealth``
+  (``coord.gray``) is fed every renewal with its per-link triples, driven
+  by :meth:`Coordinator.tick`, and takes the ``PreemptDone`` frames whose
+  grant ids lie at or above ``GRAY_GRANT_BASE``; the others go to the
+  scheduler. Its suspects ride the fleet broadcast (``gray_suspects``).
+- **Revocation notices.** A revoked life is told so: a ``CoordLeave`` of
+  its incarnation at the revocation and in answer to each renewal of its
+  cooldown (the member's ``revoked``).
+
+Not in this package yet, and refused rather than ignored: the flight
+recorder. The frames of a plane this package does not have (any code outside its ``WIRE_SCHEMAS``: the MPMD
 stages') reaching the coordinator are dropped and counted in
 ``later_plane_dropped``.
 """
@@ -363,6 +371,8 @@ class Coordinator:
         self.later_plane_dropped = 0
         #: the attached ``coord/sched.FleetScheduler`` (it sets this)
         self.sched = None
+        #: the attached ``coord/grayhealth.GrayHealth`` (it sets this)
+        self.gray = None
         # --- the snapshot barrier
         self.manifest_dir = manifest_dir
         self.snapshot_interval = float(snapshot_interval)
@@ -438,16 +448,6 @@ class Coordinator:
                       f"shard map v{self.shard_map.version}")
         if durable_dir is not None:
             self._init_durable()
-
-    @property
-    def gray(self):
-        return None
-
-    @gray.setter
-    def gray(self, value) -> None:
-        if value is not None:
-            raise ValueError("Coordinator.gray: the gray-failure plane is not in this "
-                             "package yet")
 
     def _log(self, msg: str) -> None:
         self.events.append(msg)
@@ -686,7 +686,7 @@ class Coordinator:
             (sum(m.ewma_ms for m in reported) / len(reported) if reported else 0.0),
             float(sum(m.wire_open for m in live)),
             float(sum(m.nacks for m in live)),
-            0.0,
+            float(self.gray.suspect_count()) if self.gray is not None else 0.0,
         ]
         return {
             "fleet_metrics": fleet_metrics,
@@ -816,6 +816,11 @@ class Coordinator:
                 self._send(sender, MessageCode.FleetState, self._fleet_frame())
             return
         if member is None:
+            if code == MessageCode.LeaseRenew and payload.size >= 2 \
+                    and now < self._reputation_block.get(sender, now):
+                # a revoked life still renewing in its cooldown: tell it again
+                # (the notice at the revocation may have been lost)
+                self._send(sender, MessageCode.CoordLeave, np.asarray(payload[:2], np.float32))
             return  # before a join or after an expiry: the join retry fixes it
         if code == MessageCode.CoordLeave and payload.size >= 2:
             inc = _join16(payload[0], payload[1])
@@ -858,12 +863,16 @@ class Coordinator:
             if not np.isfinite(payload[:10]).all():
                 return
             member.last_seen = now
-            if self.sched is not None:
-                self.sched.on_preempt_done(
-                    sender, grant_id=_join16(payload[0], payload[1]),
-                    snap_id=_join16(payload[2], payload[3]), lo=_join16(payload[4], payload[5]),
-                    hi=_join16(payload[6], payload[7]), apply_seq=_join16(payload[8], payload[9]),
-                    now=now)
+            grant_id = _join16(payload[0], payload[1])
+            # the gray plane's quarantine parks use a reserved grant-id space,
+            # so their reports never reach the scheduler's bookkeeping
+            owner = (self.gray if self.gray is not None and self.gray.owns_grant(grant_id)
+                     else self.sched)
+            if owner is not None:
+                owner.on_preempt_done(
+                    sender, grant_id=grant_id, snap_id=_join16(payload[2], payload[3]),
+                    lo=_join16(payload[4], payload[5]), hi=_join16(payload[6], payload[7]),
+                    apply_seq=_join16(payload[8], payload[9]), now=now)
             return
         # the 5-, 6- and 10-field renewals are full renewals too: an absent
         # tail leaves the last report standing
@@ -899,12 +908,20 @@ class Coordinator:
                 member.loss_ewma = float(payload[8])
                 member.gnorm_ewma = float(payload[9])
                 self._check_reputation(member, now)
+            links = ()
             if n >= 15:
                 member.retrans_rate = float(payload[10])
                 member.nack_rate = float(payload[11])
                 member.blocked_s = float(payload[12])
                 member.fsync_p95_ms = float(payload[13])
                 member.busy_ratio = float(payload[14])
+                # the per-link (peer, retrans, blocked_s) triples behind them
+                rest = payload[15:]
+                rest = rest[np.isfinite(rest)]
+                links = tuple((int(rest[k]), float(rest[k + 1]), float(rest[k + 2]))
+                              for k in range(0, (rest.size // 3) * 3, 3))
+            if self.gray is not None:
+                self.gray.on_renew(member, now, links)
             return
         # any other frame from a known member is evidence of life
         member.last_seen = now
@@ -952,6 +969,8 @@ class Coordinator:
         self.check_engine_scaling(now)
         if self.sched is not None:
             self.sched.tick(now)
+        if self.gray is not None:
+            self.gray.tick(now)
         # --- the snapshot barrier
         due = self._next_snap_at is not None and now >= self._next_snap_at
         if self._snap_requested or due:
@@ -1098,6 +1117,9 @@ class Coordinator:
         self.speculated.pop(rank, None)
         self._reputation_block[rank] = self._clock() + cd
         self.revoked_workers += 1
+        # the revoked life learns it (its finish must not wait on shards that
+        # no longer count it); its renewals in the cooldown are answered too
+        self._send(rank, MessageCode.CoordLeave, encode_leave(member.incarnation))
         self._log(f"{member.kind_name} {rank} lease REVOKED: {why} — cooldown {cd:.1f}s, "
                   "then it rejoins and pulls fresh params")
         if member.kind == KIND_SHARD:

@@ -44,7 +44,14 @@ their loss-freedom must come from the WAL and the deferred acks.
 
 The workers are the port's: a model of the fixture on its device (the card
 by default), the synthetic CIFAR-10 set, ``loss_and_grads`` and the
-optimizer's ``step``. Not in this package yet: the gray-failure drill.
+optimizer's ``step``.
+
+:func:`gray_drill` grays shard server 0 instead of killing it: a windowed
+one-way partition on the workers' pull channels toward it, which its own
+renewals never show. The gray-failure plane detects it from the workers'
+link evidence, puts it on probation, checkpoint-parks it (quarantine) and
+has the node agent resume it bit for bit, and the resumed life clears the
+ladder back to OK: no eviction, no lease expiry, every acked push applied.
 """
 
 from __future__ import annotations
@@ -72,6 +79,7 @@ from distributed_ml_pytorch_tpu_torch.utils.chaos import (
     ChaosPlan,
     FaultRule,
     FaultyTransport,
+    GrayRule,
 )
 from distributed_ml_pytorch_tpu_torch.utils.messaging import (
     InProcessTransport,
@@ -207,10 +215,12 @@ def resolve_fixture(fixture, model: str, device, seed: int):
 def run_worker_loop(j: int, client: CoordClient, stars: PsStars, x, y, make_model, *,
                     steps: int, lr: float, n_push: int, n_pull: int, batch: int,
                     losses: Dict[int, list], opts: Dict[int, object], step_hook=None,
-                    loss_to_step: bool = False, compress: str = "") -> None:
+                    loss_to_step: bool = False, compress: str = "",
+                    more: Optional[Callable[[int], bool]] = None) -> None:
     """One drill worker: join, train ``steps`` steps of the elastic
     ``ShardedAsynchronous`` on the seeded batches of worker ``j``, calling
-    ``step_hook(j, step)`` after each, then finish and leave.
+    ``step_hook(j, step)`` after each, then finish and leave. Past
+    ``steps`` it goes on while ``more(step)`` holds (a flexible tail).
     ``loss_to_step`` hands the loss to ``step`` (it then skips the update
     of a nonfinite loss and the renewals carry the loss telemetry)."""
     import torch
@@ -231,13 +241,15 @@ def run_worker_loop(j: int, client: CoordClient, stars: PsStars, x, y, make_mode
     opts[j] = opt
     gen = torch.Generator(device=dev).manual_seed(100 + j)
     my_losses = losses.setdefault(j, [])
-    for step in range(steps):
+    step = 0
+    while step < steps or (more is not None and more(step)):
         sel = np.random.default_rng(j * 1000 + step).integers(0, len(x), batch)
         loss = float(loss_and_grads(net, *to_device(x[sel], y[sel], dev), generator=gen))
         opt.step(loss if loss_to_step else None)
         my_losses.append(loss)
         if step_hook is not None:
             step_hook(j, step)
+        step += 1
     opt.finish()
 
 
@@ -733,6 +745,210 @@ def sched_drill(*, base_dir: str, seed: int = 0, steps: int = 56, peak_at: int =
         "wall_s": timings["day_end"] - timings["day_start"],
         "peak_window_s": (timings["offpeak"] - timings["peak"]
                           if "peak" in timings and "offpeak" in timings else None),
+        "servers": servers,
+    }
+
+
+def default_gray_plan(seed: int = 0, n_workers: int = 2, gray_from: int = 30,
+                      gray_until: int = 58) -> ChaosPlan:
+    """A windowed one-way partition on every worker's pull channel toward
+    shard server 0 (the gray victim): requests with channel send indices
+    in ``[gray_from, gray_until)`` vanish; replies and renewals are never
+    touched. The rules are index-windowed, so the chaos log is a function
+    of the window whatever the detection and containment timing."""
+    rules = [GrayRule(kind="partition", src=j, dst=0, code=int(MessageCode.ParameterRequest),
+                      after=gray_from, until=gray_until)
+             for j in range(1, 1 + n_workers)]
+    return ChaosPlan(seed=seed, gray=tuple(rules))
+
+
+def gray_drill(*, base_dir: str, seed: int = 0, steps: int = 170, gray_from: int = 30,
+               gray_until: int = 58, n_workers: int = 2, n_shards: int = 2,
+               plan: Optional[ChaosPlan] = None, lease: float = 1.0, lr: float = 0.05,
+               n_push: int = 2, n_pull: int = 2, batch: int = 16, wal_group_n: int = 4,
+               fixture=None, step_sleep: float = 0.05, extra_steps: int = 400,
+               gray_knobs: Optional[dict] = None, contain: bool = True,
+               model: str = "lenet", device="cuda") -> Dict:
+    """One gray-failure containment drill.
+
+    Mid-training, shard server 0 goes gray, not dead: a scheduled one-way
+    partition eats the workers' pull requests toward it while its own
+    lease renewals (another star) keep flowing. The coordinator must tell
+    cut-off from dead and contain without killing:
+
+    1. both workers' renewals carry per-link evidence (windowed pull
+       requests against replies) naming the victim, the witness its own
+       clean tail can never be;
+    2. :class:`~.grayhealth.GrayHealth` confirms the suspicion over
+       ``confirm_ticks`` and puts the victim on probation (detection
+       latency measured);
+    3. still suspect after ``quarantine_after`` ticks, it checkpoint-parks
+       the victim through the park machinery: a snapshot barrier, a
+       gray-granted ``PreemptRequest``, a logged park ticket, the lease
+       exempt (containment MTTR measured). The victim never lease-expires
+       and is never revoked;
+    4. the partition heals, the cooldown ends, the node agent restores the
+       parked shard from the manifest and its WAL (:func:`resume_parked_shard`:
+       the whole range, apply seq and per-sender counts bit for bit), and
+       the resumed life re-enters the ladder at probation, clearing to OK
+       as clean windows accumulate.
+
+    The workers do not hold the parked shard's range: their pushes to it
+    ride the reliable layer's retransmissions into the resumed life.
+    Workers run ``steps`` steps, then keep stepping (at most
+    ``extra_steps`` more) until the ladder clears; the chaos rules are
+    index-windowed, so the flexible tail cannot change the log.
+    ``gray_knobs`` are more :class:`~.grayhealth.GrayHealth` options
+    (``hysteresis=False``, ``asymmetric=False``,
+    ``evict_on_first_suspicion=True``).
+
+    ``contain=False`` is the comparison leg: the detector cannot fire
+    (``raise_threshold`` 1e9), the workers run the fixed script only, and
+    the ladder's contract is not asserted: the run measures what the same
+    episode costs when nobody contains it. ``fixture`` is ``(x, y,
+    make_model)`` (``coord.demo.default_fixture`` of ``model`` on
+    ``device`` by default)."""
+    from distributed_ml_pytorch_tpu_torch.coord.grayhealth import OK, GrayHealth
+
+    if n_shards < 2:
+        raise ValueError("gray_drill needs a healthy shard (n_shards >= 2)")
+    x, y, make_model, flat0 = resolve_fixture(fixture, model, device, seed)
+    n_params = int(flat0.shape[0])
+    # the victim is shard server 0, the one star under the gray plan
+    victim_rank = 1
+
+    log = ChaosLog()
+    the_plan = plan if plan is not None else default_gray_plan(
+        seed, n_workers=n_workers, gray_from=gray_from, gray_until=gray_until)
+    agent_rank = 1 + n_shards + n_workers
+    coord_world = InProcessTransport.create_world(2 + n_shards + n_workers)
+    stars = PsStars(n_shards, n_workers,
+                    [the_plan if i == 0 else ChaosPlan(seed=seed) for i in range(n_shards)],
+                    log, DRILL_UNRELIABLE)
+    manifest_path = os.path.join(base_dir, MANIFEST_NAME)
+    coord = Coordinator(coord_world[0], n_params, lease=lease, speculation=False,
+                        manifest_dir=base_dir)
+    knobs = dict(gray_knobs or {})
+    if not contain:
+        # evidence still flows on the renewals, but the detector never fires
+        knobs["raise_threshold"] = 1e9
+    gray = GrayHealth(coord, actuator_rank=agent_rank, confirm_ticks=2, clear_ticks=2,
+                      quarantine_after=8, quarantine_cooldown=3.0, evict_after_quarantines=2,
+                      **knobs)
+    coord_thread = threading.Thread(target=coord.run, kwargs={"timeout": 600}, daemon=True)
+    coord_thread.start()
+
+    def new_server(i: int) -> ElasticShardServer:
+        client = CoordClient(coord_world[1 + i], "shard", renew_interval=lease / 4)
+        return ElasticShardServer(
+            server_id=1 + i, n_params=n_params, transport=stars.server_transport(i),
+            coord=client, init_params=flat0, ckpt_dir=os.path.join(base_dir, f"shard{i}"),
+            ckpt_every=0, wal=True, wal_group_n=wal_group_n)
+
+    serve_threads: List[threading.Thread] = []
+    servers: List[ElasticShardServer] = [serve(new_server(i), serve_threads)
+                                         for i in range(n_shards)]
+    wait_for(lambda: len(coord.shard_map.entries) == n_shards, 60,
+             "all shard servers to join the map")
+
+    violations: List[str] = []
+    resume_failed = threading.Event()
+    resumed = ShardResumer(
+        servers, new_server, manifest_path, serve_threads, violations, resume_failed,
+        lost="gray resume lost acked state: rank {rank} parked without a usable manifest "
+             "({e!r})",
+        differs="gray resume of rank {rank} not bit-identical: parked apply_seq {parked} vs "
+                "restored {restored}")
+    agent = NodeAgent(coord_world[agent_rank], lease, resumed)
+
+    timings: Dict[str, float] = {}
+    losses: Dict[int, list] = {}
+    opts: Dict[int, object] = {}
+    errors: list = []
+
+    def recovered() -> bool:
+        return ((gray.recoveries >= 1 and gray.state_of(victim_rank) == OK)
+                or gray.evictions >= 1 or resume_failed.is_set())
+
+    def step_hook(j: int, step: int) -> None:
+        time.sleep(step_sleep)
+        if step + 1 == steps:
+            # the fixed script is the same work on both legs: its end is
+            # the goodput denominator (the recovery tail would pad it)
+            timings[f"fixed_done_w{j}"] = time.monotonic()
+
+    def more(step: int) -> bool:
+        # the flexible tail: keep the renew, pull and evidence cadence alive
+        # until the ladder clears
+        return contain and step < steps + extra_steps and not recovered()
+
+    def run_worker(j: int) -> None:
+        client = CoordClient(coord_world[n_shards + j], "worker", renew_interval=lease / 4)
+        try:
+            run_worker_loop(j, client, stars, x, y, make_model, steps=steps, lr=lr,
+                            n_push=n_push, n_pull=n_pull, batch=batch, losses=losses,
+                            opts=opts, step_hook=step_hook, more=more)
+        except Exception as e:  # noqa: BLE001 — surfaced to the caller
+            errors.append((j, repr(e)))
+        finally:
+            client.close()
+
+    worker_threads = [threading.Thread(target=run_worker, args=(j,), daemon=True)
+                      for j in range(1, n_workers + 1)]
+    timings["day_start"] = time.monotonic()
+    for t in worker_threads:
+        t.start()
+    for t in worker_threads:
+        t.join(timeout=600)
+    timings["day_end"] = time.monotonic()
+    stuck = [t for t in worker_threads if t.is_alive()]
+    agent.close()
+    stop_servers(servers, serve_threads)
+    coord.stop()
+    coord_thread.join(timeout=30)
+
+    # the gray contract: contained, never killed
+    if contain:
+        if gray.probations < 1:
+            violations.append("gray victim was never detected (no probation)")
+        if gray.quarantines < 1:
+            violations.append("gray victim was never contained (no quarantine)")
+        if gray.evictions > 0:
+            violations.append(f"gray plane EVICTED {gray.evictions} member(s) — containment "
+                              "must degrade, not kill")
+        if gray.recoveries < 1 and not resume_failed.is_set():
+            violations.append("quarantined victim never earned its way back")
+    expiry = [e for e in coord.events if "lease expired" in e and f" {victim_rank} " in e]
+    if expiry:
+        violations.append(f"renewing-but-gray victim lease-expired: {expiry[0]!r}")
+    acked, applied = stars.accounting(servers)
+    violations.extend(_lost_pushes(acked, applied))
+    stars.close(servers)
+    for t in coord_world.values():
+        t.close()
+
+    gstats = gray.stats()
+    fixed = [timings[k] for k in timings if k.startswith("fixed_done_w")]
+    return {
+        "ok": not stuck and not errors and not violations,
+        "violations": violations,
+        "errors": errors,
+        "stuck_workers": len(stuck),
+        "losses": losses,
+        "acked": acked,
+        "applied": applied,
+        "replayed_updates": resumed.replayed,
+        "bit_identical": resumed.bit_identical,
+        "gray": gstats,
+        "detect_latency_s": (gstats["detection_latencies"][0]
+                             if gstats["detection_latencies"] else None),
+        "containment_mttr_s": (gstats["containment_mttrs"][0]
+                               if gstats["containment_mttrs"] else None),
+        "events": list(coord.events),
+        "chaos_lines": log.lines(),
+        "chaos_counts": log.counts(),
+        "wall_s": timings["day_end"] - timings["day_start"],
+        "fixed_wall_s": max(fixed) - timings["day_start"] if fixed else None,
         "servers": servers,
     }
 

@@ -29,7 +29,12 @@ which
   :meth:`CoordClient.rollback_done`) and the park
   (:meth:`CoordClient.preempt_done`);
 - **leaves** on :meth:`CoordClient.close`, carrying its incarnation, so a
-  parting leave racing a newer life's join of the rank cannot evict it.
+  parting leave racing a newer life's join of the rank cannot evict it;
+- **learns of its revocation**: the coordinator answers a revoked life
+  (and each of its renewals during the cooldown) with a ``CoordLeave`` of
+  that life's incarnation, which sets ``revoked`` until a fleet broadcast
+  shows the rank readmitted. A revoked worker's ``finish`` then does not
+  wait out its ack timeouts on shards that no longer count it.
 
 Every coordinator frame passes the epoch fence in one place
 (:meth:`CoordClient._handle`): a frame stamped with an epoch below the
@@ -188,6 +193,9 @@ class CoordClient:
                             else _next_incarnation())
         self.fleet = FleetView()
         self.coord_down = False
+        #: the coordinator revoked this life's lease (set by its
+        #: ``CoordLeave``, cleared by the next fleet broadcast)
+        self.revoked = False
         self.on_shard_map = on_shard_map
         self._on_speculate = on_speculate
         self.on_snapshot = on_snapshot
@@ -266,6 +274,12 @@ class CoordClient:
                 self.on_shard_map(m)
         elif code == MessageCode.FleetState:
             self.fleet.update(decode_fleet(payload))
+            # broadcasts go to live members only: this life is one again
+            self.revoked = False
+        elif code == MessageCode.CoordLeave and payload.size >= 2:
+            if np.isfinite(payload[:2]).all() \
+                    and _join16(payload[0], payload[1]) == self.incarnation:
+                self.revoked = True
         elif code == MessageCode.SpeculateTask and payload.size >= 3:
             if self._on_speculate is not None and np.isfinite(payload[:3]).all():
                 self._on_speculate(int(payload[0]), int(payload[1]), int(payload[2]))

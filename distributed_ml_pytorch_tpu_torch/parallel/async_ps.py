@@ -1094,6 +1094,11 @@ class PushFlusher:
         self._thread.join(timeout=10)
 
 
+#: the seconds a revoked worker's finish waits for its last acks, over all
+#: its links together
+REVOKED_FLUSH_S = 1.0
+
+
 class DownpourClient:
     """What the DownPour clients share, over one server link
     (:class:`Asynchronous`) or one per shard (``sharded_ps.
@@ -1234,13 +1239,23 @@ class DownpourClient:
         server, stop the threads. Over a reliable transport every pending
         frame of a live link is flushed first: the layer guarantees
         delivery, not order, and a retried push landing after
-        ``WorkerDone`` could find the server gone."""
+        ``WorkerDone`` could find the server gone.
+
+        A worker whose lease the coordinator revoked (its ``coord`` client
+        says ``revoked``) is no longer counted among the live workers, so
+        the shards may leave without taking its last pushes: its flushes
+        share one budget of ``REVOKED_FLUSH_S`` instead of 10 s a link. An
+        unacked push stays unacked; nothing is counted as applied."""
         self._push()
         self._flusher.drain()
+        coord = getattr(self, "coord", None)
+        revoked_by = (time.monotonic() + REVOKED_FLUSH_S
+                      if coord is not None and getattr(coord, "revoked", False) else None)
         for link, t in enumerate(self.transports):
             flush = getattr(t, "flush", None)
             if flush is not None and not self._link_down(link):
-                flush(timeout=10.0)
+                flush(timeout=10.0 if revoked_by is None
+                      else max(0.0, revoked_by - time.monotonic()))
             self._send_link(link, MessageCode.WorkerDone, np.zeros(0, np.float32))
         self._flusher.stop()
         for hb in self._owned_heartbeats:

@@ -1,13 +1,14 @@
 """Serving layer: a continuous-batching inference engine for the
-TransformerLM (counterpart of the JAX ``serving`` package, without
-``fleet.py``).
+TransformerLM (counterpart of the JAX ``serving`` package).
 
 - :mod:`serving.cache` — fixed-capacity KV slot pool over the ring-buffered
   blocked decode cache, per-slot live lengths, optional int8 ``kv_quant``;
 - :mod:`serving.engine` — the scheduler: admission between decode blocks,
   per-request sampling, eviction, backpressure, SLO metrics;
 - :mod:`serving.frontend` — request/response transport over
-  ``utils/messaging.py``;
+  ``utils/messaging.py``, with the coordinator's hold (``fleet=``);
+- :mod:`serving.fleet` — N engine replicas behind a router: routing,
+  migration across an engine's death over KvMigrate, the autoscaler;
 - :mod:`serving.cli` — the ``serve`` entry point.
 """
 

@@ -1,7 +1,6 @@
 """Request/response transport for the serving engine over the messaging
 layer (``utils/messaging.py``) — counterpart of the JAX
-``serving/frontend.py``, without the coordinator hold (``fleet=``), which
-waits for the port of ``coord/``.
+``serving/frontend.py``.
 
 The same tagged-float32 star topology that carries the DownPour control
 plane carries inference traffic: clients dial the engine's rank-0 hub over
@@ -16,7 +15,7 @@ which). The codes:
   *prompt]`` — priority orders who gets shed first under overload,
   ``deadline_ms`` (0 = none, relative to submit) bounds how long the
   request may wait before it is shed with an explicit reject, and
-  ``session`` is a routing affinity hint. V1 frames keep working
+  ``session`` is the fleet router's affinity hint. V1 frames keep working
   (priority 0, no deadline);
 - ``StreamTokens``   engine → client: ``[id, done_flag, start_index,
   *tokens]`` — one frame per stream advance (admission's first token, then
@@ -47,6 +46,12 @@ a standalone ``generate()``. Requests whose client
 goes silent past ``client_deadline`` are cancelled and their slot, queues
 and history freed — a disconnected or abandoned TCP client cannot leak
 engine state.
+
+The coordinator hold: with ``fleet=`` (a ``coord.member.FleetView`` or
+anything with ``engine_up()`` and optionally ``rollback_active()``), new
+submits are held in arrival order while the engine fleet is down or a PS
+rollback barrier is in flight, up to ``hold_queue`` of them (past that a
+``ServeReject``), and the sweep re-admits them on recovery.
 """
 
 from __future__ import annotations
@@ -69,6 +74,12 @@ from distributed_ml_pytorch_tpu_torch.utils.messaging import (
     MessageCode,
     Transport,
 )
+
+
+#: sentinel ``_Route.engine_id``: the fleet router parked this route because
+#: no healthy engine existed at submit or migration time; the sweep
+#: resubmits it when a member revives. Parked routes are sheddable.
+ORPHANED_ENGINE = -2
 
 
 class RequestRejected(RuntimeError):
@@ -161,8 +172,9 @@ def decode_submit_v2(
 @dataclasses.dataclass
 class _Route:
     """Engine-side state of one transport client's request: where to send
-    frames, the full emitted-token history (the resume source), liveness,
-    and the overload plane's metadata."""
+    frames, the full emitted-token history (the resume source, and the
+    migration source: the fleet router re-prefills ``prompt + tokens`` on a
+    surviving engine), liveness, and the overload plane's metadata."""
 
     rank: int
     rid: int
@@ -171,7 +183,8 @@ class _Route:
     done_at: float = 0.0
     last_active: float = 0.0
     reaping: bool = False  # cancel already issued for client silence
-    #: the submitted work itself
+    #: the submitted work itself, kept so a dead engine's stream can be
+    #: resubmitted elsewhere (prompt + generated-so-far, remaining budget)
     prompt: Optional[np.ndarray] = None
     kwargs: dict = dataclasses.field(default_factory=dict)
     #: overload plane: higher priority wins admission under shed pressure;
@@ -180,9 +193,14 @@ class _Route:
     priority: int = 0
     deadline: float = 0.0
     session: int = 0
-    #: live engine Request handle (lets the sweep tell waiting work from
-    #: running work)
+    #: live engine Request handle of the current serving attempt (lets the
+    #: sweep tell waiting work from running work), and which fleet member
+    #: serves it (-1 = the frontend's single local engine)
     req: Optional[object] = None
+    engine_id: int = -1
+    #: monotonic instant service was lost (engine death detected, or parked
+    #: with no survivor; 0.0 = in service): the migration MTTR's anchor
+    service_lost_at: float = 0.0
 
 
 class ServingFrontend:
@@ -203,17 +221,15 @@ class ServingFrontend:
     then dropped.
     """
 
-    def __init__(self, engine: ServingEngine, transport: Transport,
+    def __init__(self, engine: Optional[ServingEngine], transport: Transport,
                  *, client_deadline: float = 30.0, done_ttl: float = 60.0,
-                 fleet=None, slo_ttft_ms: float = 0.0, shed_occupancy: float = 0.0,
-                 brownout_occupancy: float = 0.0, brownout_max_new: int = 0):
-        if fleet is not None:
-            raise NotImplementedError(
-                "fleet= (the coordinator's hold-and-readmit) is not ported yet: it "
-                "waits for the port of coord/")
-        if engine.on_tokens is not None:
-            raise ValueError("engine already has an on_tokens consumer")
-        engine.on_tokens = self._on_tokens
+                 fleet=None, hold_queue: int = 64, slo_ttft_ms: float = 0.0,
+                 shed_occupancy: float = 0.0, brownout_occupancy: float = 0.0,
+                 brownout_max_new: int = 0):
+        if engine is not None:
+            if engine.on_tokens is not None:
+                raise ValueError("engine already has an on_tokens consumer")
+            engine.on_tokens = self._on_tokens
         self.engine = engine
         self.transport = transport
         self.client_deadline = float(client_deadline)
@@ -241,6 +257,18 @@ class ServingFrontend:
         self._routes_lock = threading.Lock()
         self._route_ids = itertools.count(1 << 32)
         self.reaped = 0  # requests cancelled for client silence
+        #: the coordinator's fleet view: while it reports the engine fleet
+        #: down or a rollback in flight, new submits are held in arrival
+        #: order, up to ``hold_queue`` (past that: ServeReject); the sweep
+        #: re-admits them on recovery. ``fleet=None``: no hold.
+        self.fleet = fleet
+        self.hold_queue = int(hold_queue)
+        # appended by the pump thread, drained by the sweep thread, so every
+        # access holds _held_lock; entries keep their arrival time, so a
+        # deadline stays anchored to when the client submitted
+        self._held: List[Tuple[int, MessageCode, np.ndarray, float]] = []
+        self._held_lock = threading.Lock()
+        self.held_peak = 0
         self._stop = threading.Event()
         self._listener = threading.Thread(target=self._pump, daemon=True)
         self._listener.start()
@@ -271,10 +299,28 @@ class ServingFrontend:
                 self._by_client.pop((route.rank, route.rid), None)
 
     def _install_route(self, key: int, route: _Route) -> None:
-        """Bind an engine key to a route atomically."""
+        """Bind an engine key to a route (a fresh submit, or a migration's
+        rebind under a new key) atomically."""
         with self._routes_lock:
             self._routes[key] = route
             self._by_client[(route.rank, route.rid)] = key
+
+    def _routes_where(self, pred) -> List[Tuple[int, "_Route"]]:
+        """A consistent snapshot of the (key, route) pairs matching ``pred``."""
+        with self._routes_lock:
+            return [(k, r) for k, r in self._routes.items() if pred(r)]
+
+    def _take_routes_where(self, pred) -> List[Tuple[int, "_Route"]]:
+        """Retire every live route matching ``pred`` atomically and return
+        them (the migration path): a straggler ``on_tokens`` callback of the
+        old engine then finds nothing, so the token history stays frozen
+        until the route is reinstalled."""
+        with self._routes_lock:
+            taken = [(k, r) for k, r in self._routes.items() if pred(r)]
+            for k, r in taken:
+                del self._routes[k]
+                self._by_client.pop((r.rank, r.rid), None)
+        return taken
 
     def _handle(self, sender: int, code: MessageCode,
                 payload: np.ndarray) -> None:
@@ -295,6 +341,11 @@ class ServingFrontend:
             route = self._route_of(sender, rid)
             if route is None:
                 if code == MessageCode.ResumeStream:
+                    with self._held_lock:
+                        is_held = any(s == sender and p.size >= 1 and int(p[0]) == rid
+                                      for s, _c, p, _t in self._held)
+                    if is_held:
+                        return  # held across an engine outage: not an error
                     # resume for a request the engine no longer knows
                     # (history expired, or never submitted): tell the
                     # client instead of letting it poll forever
@@ -303,17 +354,40 @@ class ServingFrontend:
                 return
             route.last_active = now
             if code == MessageCode.ResumeStream:
-                # snapshot under the lock: the engine thread may be
-                # appending concurrently
+                # snapshot under the lock: the engine thread (or a fleet
+                # migration) may be appending concurrently
                 with self._routes_lock:
                     toks, done = list(route.tokens), route.done
                 if len(toks) > n_have or done:
                     self._send_frame(route, start=n_have,
                                      tokens=toks[n_have:], done=done)
 
+    def _fleet_holding(self) -> bool:
+        """True while new submits must be held: the coordinator reports the
+        engine fleet down, or a PS rollback barrier is in flight (admitting
+        work mid-restore would serve the state being discarded). The
+        rollback hold fails open through the fleet view's TTL."""
+        if self.fleet is None:
+            return False
+        if not self.fleet.engine_up():
+            return True
+        rollback = getattr(self.fleet, "rollback_active", None)
+        return bool(rollback()) if rollback is not None else False
+
     def _on_submit(self, sender: int, code: MessageCode, payload: np.ndarray,
                    now: float, arrived: float) -> None:
-        """One submit frame, with its arrival time."""
+        """One submit frame (fresh from the wire, or re-admitted from the
+        held queue with its original arrival time)."""
+        if self._fleet_holding():
+            with self._held_lock:
+                held_room = len(self._held) < self.hold_queue
+                if held_room:
+                    self._held.append((sender, code, np.array(payload, copy=True), arrived))
+                    self.held_peak = max(self.held_peak, len(self._held))
+            if not held_room and payload.size >= 1:
+                self._send_to(sender, MessageCode.ServeReject,
+                              np.asarray([payload[0]], np.float32))
+            return
         try:
             if code == MessageCode.SubmitRequestV2:
                 rid, kwargs, prompt, priority, deadline_ms, session = \
@@ -342,8 +416,8 @@ class ServingFrontend:
             return
         deadline = (arrived + deadline_ms / 1e3) if deadline_ms > 0 else 0.0
         if deadline and now > deadline:
-            # it outlived its own deadline: an explicit shed, never a
-            # silent drop
+            # it outlived its own deadline (e.g. held across an outage):
+            # an explicit shed, never a silent drop
             self.shed += 1
             self._send_to(sender, MessageCode.ServeReject,
                           np.asarray([rid], np.float32))
@@ -375,6 +449,8 @@ class ServingFrontend:
                           np.asarray([rid], np.float32))
 
     # ------------------------------------------------------ engine dispatch
+    # The fleet router (serving/fleet.py) overrides these two hooks; the
+    # base frontend is the single-local-engine case.
 
     def _submit_route(self, key: int, route: _Route) -> bool:
         """Hand a fresh route to an engine; False = reject the client."""
@@ -396,12 +472,15 @@ class ServingFrontend:
         return float(gauge()) if gauge is not None else 0.0
 
     def _pressure(self) -> float:
-        """max(engine, wire) pressure."""
+        """max(engine, wire) pressure; the fleet router overrides the engine
+        half with the healthy members' aggregate."""
+        if self.engine is None:
+            return self._wire_pressure()
         busy, slots, queued = self.engine.pressure()
         return max((busy + queued) / max(1, slots), self._wire_pressure())
 
     def _ttft_now_ms(self) -> float:
-        return self.engine.recent_ttft_ms()
+        return self.engine.recent_ttft_ms() if self.engine is not None else 0.0
 
     def _overloaded(self) -> bool:
         if self.shed_occupancy > 0 and self._pressure() >= self.shed_occupancy:
@@ -424,6 +503,8 @@ class ServingFrontend:
                 continue
             req = route.req
             if req is None:
+                if route.engine_id == ORPHANED_ENGINE:
+                    out.append((key, route))  # parked: nothing streamed yet
                 continue
             if req.slot is None and not req.done and not req.cancelled:
                 out.append((key, route))
@@ -469,8 +550,10 @@ class ServingFrontend:
 
     def _on_tokens(self, req, new_tokens: List[int], done: bool) -> None:
         # the route table is rewired by the pump/sweep threads (submit,
-        # drop, reap) while this engine-thread callback streams: lookup and
-        # append both ride the lock, so a resume's snapshot never tears
+        # drop, reap) and by a fleet migration while this engine-thread
+        # callback streams: lookup and append both ride the lock, so a
+        # resume's or a migration's snapshot never tears (a dead engine's
+        # late callback finds its retired key gone)
         with self._routes_lock:
             route = self._routes.get(req.request_id)
             if route is None:
@@ -482,10 +565,21 @@ class ServingFrontend:
                 route.done_at = time.monotonic()
         self._send_frame(route, start=start, tokens=new_tokens, done=done)
 
+    def _readmit_held(self) -> None:
+        """Re-admit the submits held across an engine outage or a rollback
+        barrier, in arrival order."""
+        if self._fleet_holding():
+            return
+        with self._held_lock:
+            held, self._held = self._held, []
+        for sender, code, payload, arrived in held:
+            self._on_submit(sender, code, payload, time.monotonic(), arrived=arrived)
+
     def _sweep(self, now: float) -> None:
-        """Free state for silent clients (cancel live requests; forget
-        finished histories past their resume TTL); shed waiting work that
-        outlived its deadline."""
+        """Re-admit held submits; free state for silent clients (cancel live
+        requests; forget finished histories past their resume TTL); shed
+        waiting work that outlived its deadline."""
+        self._readmit_held()
         for key, route in self._waiting_routes():
             if route.deadline and now > route.deadline:
                 self._shed_route(key, route)

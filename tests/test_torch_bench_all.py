@@ -559,16 +559,19 @@ DURABILITY_LEGS = {
                ("health_rollback_mttr", "ms")],
     "sched": [("sched_preempt_mttr", "ms"), ("sched_resume_mttr", "ms"),
               ("sched_goodput_uplift", "x")],
+    "gray": [("gray_victim_slice_goodput_contained", "applied updates/s"),
+             ("gray_victim_slice_goodput_unmanaged", "applied updates/s"),
+             ("gray_detect_latency", "ms"), ("gray_containment_mttr", "ms")],
 }
 
 
 @pytest.mark.parametrize("leg", list(DURABILITY_LEGS))
 def test_durability_and_health_legs_on_cpu_emit_the_jax_metric_names(capsys, leg):
-    """Config 3's ``recovery``, ``coordfail``, ``health`` and ``sched`` legs
-    at ``--tiny`` (their in-process LeNet fleets): the JAX names and units
-    in order, positive values, and the claims in the notes (zero acked loss,
-    no worker step lost, nacks explicit, a bit-identical resume and the
-    goodput breakdown)."""
+    """Config 3's ``recovery``, ``coordfail``, ``health``, ``sched`` and
+    ``gray`` legs at ``--tiny`` (their in-process LeNet fleets): the JAX
+    names and units in order, positive values, and the claims in the notes
+    (zero acked loss, no worker step lost, nacks explicit, a bit-identical
+    resume, the goodput breakdown, and the gray leg's host-clock figures)."""
     assert bench_all.main(["--device", "cpu", "--tiny", "--legs", leg]) == 0
     recs = [json.loads(line) for line in capsys.readouterr().out.splitlines()
             if line.startswith("{")]
@@ -584,6 +587,9 @@ def test_durability_and_health_legs_on_cpu_emit_the_jax_metric_names(capsys, leg
         assert acked <= applied
     elif leg == "coordfail":
         assert "0 of 40 worker steps" in note and "epoch 1 -> 2" in note
+    elif leg == "gray":
+        assert "bit_identical=True" in note and "evictions=0" in note
+        assert all("host clock" in r["note"] for r in recs)
     elif leg == "sched":
         assert "(bit-identical: True)" in recs[1]["note"]
         assert recs[2]["shared"]["train_steps"] == 112 and recs[2]["serve_tokens_per_s"] > 0

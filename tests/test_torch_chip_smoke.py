@@ -1,7 +1,8 @@
 """``chip_smoke.py`` phases 18, 19 and 20 rehearsed on the CPU at tiny widths
-(phase 20 with LeNet: its worlds run host code beside the kernels), and
+(phase 20 with LeNet: its worlds run host code beside the kernels),
 phases 21, 22 and 23 (the elastic plane, the durability and health
-barriers, the multi-tenant scheduler) with LeNet.
+barriers, the multi-tenant scheduler) with LeNet, and phase 24 (gray
+failure with LeNet, the serving fleet at a narrow width).
 
 There is no card here, so ``ops.attention``'s CUDA wrappers are routed to
 their plain versions, counting a launch where the kernel would launch, and
@@ -236,3 +237,24 @@ def test_sched_phase(capsys):
     assert c["decode_steps"] > 0 and c["reference_calls"] == 2 * c["decode_steps"]
     assert not any(launches.values())  # the CPU runs the plain versions
 
+
+
+def test_gray_fleet_phase(capsys):
+    """Phase 24 rehearsed on the CPU: the gray drill with LeNet (the
+    contract, the unmanaged leg with no probation and the same chaos log)
+    and the serving fleet at a narrow width (probation bends the first
+    request, every stream token-identical to the uninterrupted run across
+    the crash, a KvMigrate handoff, the autoscaler's spawn and retire, and
+    the reference once a layer and decode step, K8 never)."""
+    launches = cs.phase_gray_fleet(torch, model="lenet", device="cpu",
+                                   width=["--d-model", "32", "--n-heads", "4", "--d-ff", "64",
+                                          "--vocab", "64"])
+    lines = _lines(capsys)
+    a, b = lines["gray_drill"], lines["fleet"]
+    assert a["ok"] and a["gray"]["quarantines"] >= 1 and a["gray"]["evictions"] == 0
+    assert a["detect_latency_ms"] >= 0 and a["containment_mttr_ms"] > 0
+    assert a["victim_slice_goodput_contained"] > 0 and a["victim_slice_goodput_unmanaged"] > 0
+    assert b["ok"] and b["migrations"] >= 1 and b["handoffs"] >= 1 and b["gray_first_engine"] != 0
+    assert b["autoscaler"]["scaled_up"] == 1 and b["autoscaler"]["scaled_down"] == 1
+    assert b["decode_steps"] > 0 and b["reference_calls"] == 2 * b["decode_steps"]
+    assert not any(launches.values())  # the CPU runs the plain versions

@@ -1884,3 +1884,96 @@ def test_sched_drill_on_the_card(cuda, tmp_path):
     ref = sched_drill(base_dir=str(tmp_path / "cpu"), seed=0, plan=default_drill_plan(0),
                       model="lenet", device="cpu")
     assert out["chaos_lines"] == ref["chaos_lines"]
+
+
+@pytest.mark.gpu
+def test_gray_drill_on_the_card(cuda, tmp_path):
+    """``coord.drill.gray_drill`` with LeNet on the card: probation and
+    quarantine, no eviction, a recovery, the resumed shard bit-identical,
+    acked <= applied, every worker step running K1 once, and the chaos log
+    the CPU run's byte for byte; the unmanaged leg puts no one on
+    probation.
+
+    The partition is a window of 56 worker steps, while the ladder takes
+    about 2.8 s from the first suspicion to the park (two ticks to
+    confirm, eight of probation, the snapshot barrier): in both packages
+    the drill contains only if a step takes more than about 0.06 s, and
+    LeNet on the card steps faster at the default 0.05 s pause (the
+    ladder then clears probation before the park). The test pauses 0.08 s
+    a step; the chaos log does not depend on the pace."""
+    from distributed_ml_pytorch_tpu_torch.coord.drill import gray_drill
+
+    k1 = tfu.launches
+    pace = dict(seed=0, model="lenet", step_sleep=0.08)
+    out = gray_drill(base_dir=str(tmp_path / "card"), device="cuda", **pace)
+    assert out["ok"] and not out["violations"], (out["errors"], out["violations"])
+    g = out["gray"]
+    assert g["probations"] >= 1 and g["quarantines"] >= 1 and g["evictions"] == 0
+    assert g["recoveries"] >= 1 and out["bit_identical"] is True
+    assert all(a <= out["applied"][i][j] for i, w in out["acked"].items() for j, a in w.items())
+    assert tfu.launches - k1 == sum(len(v) for v in out["losses"].values())
+    ref = gray_drill(base_dir=str(tmp_path / "cpu"), device="cpu", **pace)
+    assert out["chaos_lines"] == ref["chaos_lines"]
+    off = gray_drill(base_dir=str(tmp_path / "off"), device="cuda", contain=False, **pace)
+    assert off["ok"] and off["gray"]["probations"] == 0
+
+
+@pytest.mark.gpu
+def test_fleet_migrates_token_identically_on_the_card(cuda):
+    """Three engines of the serving CLI's default model behind a
+    ``FleetRouter`` on the card, one crashed mid-stream: every greedy
+    stream equals the same request run alone on one engine, a KvMigrate
+    handoff carried it, and every decode step ran K8 (never the
+    reference)."""
+    import threading
+    import time
+
+    from distributed_ml_pytorch_tpu_torch.ops import decode_attention as da
+    from distributed_ml_pytorch_tpu_torch.serving import cli as serving_cli
+    from distributed_ml_pytorch_tpu_torch.serving.fleet import EngineMember, FleetRouter
+    from distributed_ml_pytorch_tpu_torch.serving.frontend import ServingClient
+    from distributed_ml_pytorch_tpu_torch.utils.messaging import InProcessTransport
+
+    args = serving_cli.parse_args(["--slots", "4"])
+    lm = serving_cli.build_model(args)
+    rng = np.random.default_rng(5)
+    reqs = [(rng.integers(0, args.vocab, size=int(rng.integers(4, 20))), 48) for _ in range(8)]
+    solo = serving_cli.make_engine(lm, args)
+    want = [solo.submit(p, n) for p, n in reqs]
+    solo.run_until_idle()
+    real_ref, ref_calls = da.decode_attention_reference, [0]
+
+    def counted(*a, **k):
+        ref_calls[0] += 1
+        return real_ref(*a, **k)
+
+    da.decode_attention_reference = counted
+    world = InProcessTransport.create_world(2)
+    members = [EngineMember(i, serving_cli.make_engine(lm, args)).start() for i in range(3)]
+    router = FleetRouter(world[0], members, probe_timeout=30.0)
+    thread = threading.Thread(target=router.serve_forever, daemon=True)
+    thread.start()
+    try:
+        client = ServingClient(world[1], resume_after=0.25)
+        rids = [client.submit(p, n) for p, n in reqs]
+        deadline = time.monotonic() + 60
+        victim = None
+        while victim is None and time.monotonic() < deadline:
+            with router._routes_lock:
+                live = [r.engine_id for r in router._routes.values()
+                        if not r.done and r.engine_id >= 0 and len(r.tokens) >= 2]
+            victim = live[0] if live else None
+            time.sleep(0.002)
+        assert victim is not None
+        members[victim].crash()
+        got = [list(client.stream(r, timeout=120)) for r in rids]
+        assert got == [h.tokens for h in want]
+        s = router.fleet_summary()
+        assert s["migrations"] >= 1 and s["handoffs"] >= 1 and s["handoff_drops"] == 0
+        assert ref_calls[0] == 0
+    finally:
+        da.decode_attention_reference = real_ref
+        router.stop()
+        thread.join(timeout=10)
+        for t in world.values():
+            t.close()

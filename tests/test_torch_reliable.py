@@ -63,12 +63,16 @@ class Lossy(tmsg.Transport):
     ``None``) takes one verdict: the first ``script`` frames take theirs
     from the list, later ones are drawn from ``default_rng(seed)`` — dropped
     with probability ``drop``, corrupted (one bit of one body word flipped)
-    with ``corrupt``, sent twice with ``dup``. :meth:`crash` makes the
+    with ``corrupt``, sent twice with ``dup``. With ``corrupt_inner`` set,
+    the first envelope with a body that carries that inner code is
+    corrupted whatever its verdict, so a corruption reaches the receiver's
+    checksum on every run (a scripted or drawn one may land on a bodiless
+    frame, which passes whole). :meth:`crash` makes the
     endpoint a black hole (its sends and arrivals vanish) until
     :meth:`restart`. ``counts`` tallies the verdicts."""
 
     def __init__(self, inner, seed=0, *, drop=0.0, dup=0.0, corrupt=0.0, codes=None,
-                 script=()):
+                 script=(), corrupt_inner=None):
         self.inner = inner
         self.rank = inner.rank
         self._rng = np.random.default_rng(seed)
@@ -76,6 +80,7 @@ class Lossy(tmsg.Transport):
         self.drop, self.dup, self.corrupt = drop, dup, corrupt
         self.codes = None if codes is None else {int(c) for c in codes}
         self._script = list(script)
+        self._corrupt_inner = corrupt_inner
         self._down = False
         self.counts = collections.Counter()
 
@@ -98,6 +103,10 @@ class Lossy(tmsg.Transport):
             return
         if self.codes is None or int(code) in self.codes:
             verdict = self._verdict()
+            if (self._corrupt_inner is not None and np.size(payload) > 9
+                    and int(payload[6]) == int(self._corrupt_inner)):
+                self._corrupt_inner = None
+                verdict = "corrupt"
             self.counts[verdict] += 1
             if verdict == "drop":
                 return
@@ -645,10 +654,12 @@ def _recording(cls, pushes):
 
 
 #: the worker's frames: frame 1 dropped, 2 duplicated, 3 corrupted, then
-#: each drawn (drop 0.15, corrupt 0.1, dup 0.1); the server's acks: frame 1
-#: dropped, then drop 0.2, dup 0.1
+#: each drawn (drop 0.15, corrupt 0.1, dup 0.1), and the first push's first
+#: envelope corrupted (frame 3 may be a bodiless pull, which passes whole);
+#: the server's acks: frame 1 dropped, then drop 0.2, dup 0.1
 WORKER_FAULTS = dict(drop=0.15, corrupt=0.1, dup=0.1, codes={FRAME},
-                     script=["pass", "drop", "dup", "corrupt"])
+                     script=["pass", "drop", "dup", "corrupt"],
+                     corrupt_inner=int(MessageCode.GradientUpdate))
 SERVER_FAULTS = dict(drop=0.2, dup=0.1, codes=ACKS, script=["drop"])
 
 

@@ -194,9 +194,17 @@ def _drive(pair, script):
                 c.handle(sender, what, payload)
 
 
-def _same(pair):
+def _same(pair, revoked=()):
+    """The two coordinators' frames, events and counters, equal. ``revoked``
+    lists the ``(rank, incarnation)`` lives the script revokes: the port's
+    coordinator tells each one (a ``CoordLeave`` of its incarnation, so its
+    worker's finish does not wait on shards that stopped counting it),
+    which the JAX coordinator never does; every other frame is JAX's."""
     (jc, _, jrec, jd), (tc, _, trec, td) = pair
-    assert trec.sent == jrec.sent
+    leave = int(MC.CoordLeave)
+    assert [f for f in trec.sent if f[1] == leave] == [
+        (rank, leave, _b(stamp_epoch(tco.encode_leave(inc), tc.epoch))) for rank, inc in revoked]
+    assert [f for f in trec.sent if f[1] != leave] == jrec.sent
     assert [e.replace(td, "<d>") for e in tc.events] == [e.replace(jd, "<d>")
                                                         for e in jc.events]
     for attr in ("rollbacks_done", "rollbacks_abandoned", "revoked_workers", "_roll_seq"):
@@ -231,7 +239,7 @@ def test_reputation_revokes_and_cools_down_as_jax(tmp_path):
         (6.0, 2, J, tco.encode_join(tco.KIND_WORKER, 8)),  # admitted
         _renew(6.1, 2, 8, nacks=4, loss_ewma=1.0),  # the base re-anchors at 4
     ])
-    _same(pair)
+    _same(pair, revoked=[(2, 7)])
     tc = pair[1][0]
     assert 2 in tc.members and tc.revoked_workers == 1
     assert sum("refused: reputation cooldown" in e for e in tc.events) == 1
@@ -285,7 +293,7 @@ def test_the_barrier_times_out_and_releases_as_jax(tmp_path):
         (1.5, None, "trigger_rollback", None), (1.6, None, None, None),  # in flight
         (30.0, None, None, None),
     ])
-    _same(pair)
+    _same(pair, revoked=[(6, 8)])
     tc, _, trec, _ = pair[1]
     assert tc._roll is None and tc.rollbacks_abandoned == 1
     assert any("ABANDONED" in e for e in tc.events)

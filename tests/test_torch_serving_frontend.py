@@ -187,16 +187,6 @@ def test_submit_codecs_equal_jax(v2):
         getattr(tfe, dec)(np.zeros(5, np.float32))
 
 
-def test_frontend_rejects_the_coordinator_hold(model):
-    world = InProcessTransport.create_world(2)
-    try:
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            ServingFrontend(make_engine(model), world[0], fleet=object())
-    finally:
-        for t in world.values():
-            t.close()
-
-
 def test_serve_cli_demo_on_cpu(capsys):
     from distributed_ml_pytorch_tpu_torch.serving.cli import main
 
@@ -208,9 +198,7 @@ def test_serve_cli_demo_on_cpu(capsys):
     assert "serving demo complete" in out and "ttft_ms" in out
 
 
-@pytest.mark.parametrize("argv", [["--fleet", "2"], ["--coord", "localhost:1"], ["--reliable"],
-                                  ["--ckpt-dir", "ckpt"], ["--metrics-dump", "-"],
-                                  ["--d-model", "30"]])
+@pytest.mark.parametrize("argv", [["--metrics-dump", "-"], ["--d-model", "30"]])
 def test_serve_cli_rejects_unported_or_bad_flags(argv, capsys):
     from distributed_ml_pytorch_tpu_torch.serving.cli import parse_args
 
