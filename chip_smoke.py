@@ -74,7 +74,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
 8. ``generate()`` on GPT-2-small (vocab 50304, d 768, 12 heads, 12 layers,
    d_ff 3072, bfloat16, learned positions, max_len 384) at batch 32, prompt
    128, 256 new tokens, greedy, the blocked path — once with the bfloat16
-   cache and once with ``kv_quant``: tokens/s, ms per decode step, the byte
+   cache and once with ``kv_quant`` (each call timed by
+   ``bench_all.timed_generate``, the ``decode`` leg's timing): tokens/s, ms
+   per decode step, the byte
    roofline share, peak memory, one profiled decode step; K8 launched 12
    times per padded step and the reference never; the first two blocks
    teacher-forced through K8 and through the reference must agree;
@@ -373,6 +375,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
    reference never, and held to the reference (float32 ``DECODE_TOL``) on
    a copy of the inputs of its call at the longest cache. One line each;
    every launch joins the ``kernels`` line.
+25. the model families, each part with the kernel counts zeroed just
+   before it and read just after: (a) ResNet-18 (GroupNorm) on CIFAR
+   shapes, five SGD steps (lr 0.001) on one batch in float32 at b64 and in
+   bfloat16 at b256, losses finite and falling; then the DownPour world of
+   phase 4 with ``--model resnet18`` (two workers × 20 steps at b64, 44.7 MB
+   frames): K1 once a worker step, each worker's loss falling, and K1 at
+   ResNet-18's padded flat length (11,174,016 floats) bit-identical to
+   ``flat_axpy_plain``, timed beside it; (b) ResNet-50 at 224² with 1000
+   classes, five steps in float32 at b32 and in bfloat16 at b256, one more
+   bf16 step profiled (``RESNET_GROUPS``); (c) the
+   Switch-MoE LM at the ``moe`` leg's widths (GPT-2-small, 4 experts top-1,
+   capacity 2.0, bfloat16, 8 × 2048), four SGD steps (lr 0.5) on one
+   batch: K4 and K5 once a layer and step, the plain attention never, both
+   kernels held to their plain versions (``ATTN_TOL``) on one layer's
+   tensors captured inside the step, one more step profiled; (d) its
+   greedy ``generate()`` in
+   float32 (b8, prompt 64, 33 new tokens: two blocks): K8 once a layer and
+   decode step, the reference never, every row equal to the plain decode
+   path's, K8 within ``DECODE_TOL`` at its longest cache. Each line carries
+   step ms, images or tokens a second, peak memory and the card's
+   ``nvidia-smi`` name and power limit; the launches join the ``kernels``
+   line, and K1's, K4's, K5's and K8's errors its ``max_abs_err``.
 
 Then the ``kernels`` line, the ``nvidia-smi`` name/power line, and last the
 result line ``{"ok": true, "device": {...}}``. Without a card, or without
@@ -864,14 +888,16 @@ def phase_trainer(torch, device="cuda", steps=5, batch=64):
 
 # ------------------------------------------------------------------ phase 4
 
-def _downpour_world(torch, argv, device="cuda", steps=WORKER_STEPS, batch=64):
+def _downpour_world(torch, argv, device="cuda", steps=WORKER_STEPS, batch=64, steady=True):
     """A parameter server and two workers as threads of this process on the
     in-process transport, through ``run_server``/``train_worker`` with the
     CLI defaults (AlexNet, batch 64, lr 0.008, n_push = n_pull = 10) plus
     ``argv``, on synthetic CIFAR-10; the kernels' launch counts are zeroed
     just before and read just after. Returns ``(server, per_worker,
     launches, wall_s, records)``; a worker's steady rate runs from its
-    record :func:`_steady_record` to its last."""
+    record :func:`_steady_record` to its last (``steady=False``: a run too
+    short for that window; ``per_worker`` then holds its steps and
+    losses)."""
     from distributed_ml_pytorch_tpu_torch.ops import fused_conv as fc
     from distributed_ml_pytorch_tpu_torch.ops import fused_update as fu
     from distributed_ml_pytorch_tpu_torch.parallel import async_ps as tps
@@ -915,16 +941,19 @@ def _downpour_world(torch, argv, device="cuda", steps=WORKER_STEPS, batch=64):
     require(not server.is_alive() and not any(t.is_alive() for t in workers),
             "the DownPour world did not shut down")
     per_worker = {}
-    s = _steady_record(steps)
+    s = _steady_record(steps) if steady else None
     for r in (1, 2):
         _model, logger = results[r]
         recs = logger.records
         losses = [rec["training_loss"] for rec in recs]
-        steady = (len(recs) - 1 - s) / (recs[-1]["timestamp"]
-                                        - recs[s]["timestamp"]).total_seconds()
+        if s is None:
+            per_worker[r] = {"steps": len(recs), "losses": losses}
+            continue
+        rate = (len(recs) - 1 - s) / (recs[-1]["timestamp"]
+                                      - recs[s]["timestamp"]).total_seconds()
         per_worker[r] = {"steps": len(recs), "early_loss": sum(losses[:10]) / 10,
                          "late_loss": sum(losses[-10:]) / 10, "steady_from_step": s + 1,
-                         "steady_steps_per_s": steady, "steady_images_per_s": steady * batch}
+                         "steady_steps_per_s": rate, "steady_images_per_s": rate * batch}
     records = {r: results[r][1].records for r in (1, 2)}
     return results["server"], per_worker, launches, wall, records
 
@@ -1516,12 +1545,9 @@ def _decode_step_fn(torch, dec, prompt, live):
 
 
 def phase_generate(torch):
+    from distributed_ml_pytorch_tpu_torch import bench_all
     from distributed_ml_pytorch_tpu_torch.models import TransformerLM
-    from distributed_ml_pytorch_tpu_torch.models.generate import (
-        DECODE_BLOCK,
-        _decode_model,
-        generate,
-    )
+    from distributed_ml_pytorch_tpu_torch.models.generate import DECODE_BLOCK, _decode_model
     from distributed_ml_pytorch_tpu_torch.models.transformer import Dense
     from distributed_ml_pytorch_tpu_torch.models import transformer as tr
     from distributed_ml_pytorch_tpu_torch.ops import decode_attention as da
@@ -1540,11 +1566,8 @@ def phase_generate(torch):
     for name, quant in (("bfloat16", False), ("int8", True)):
 
         def timed(new):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = generate(model, prompt, new, kv_quant=quant)
-            torch.cuda.synchronize()
-            return out, time.perf_counter() - t0
+            # the decode timing bench_all's decode leg takes too
+            return bench_all.timed_generate(model, prompt, new, quant)
 
         timed(DECODE_BLOCK + 1)  # warm-up: cuBLAS handles and algorithms
         _o, t_short = timed(DECODE_BLOCK + 1)
@@ -5251,6 +5274,342 @@ def phase_gray_fleet(torch, model="alexnet", device="cuda", width=()):
     return launches
 
 
+# ------------------------------------------------------------------ phase 25
+
+#: phase 25's ResNet trainer steps, (model, image size, classes, dtype,
+#: batch): config 4's CIFAR shapes and config 5's ImageNet shapes
+RESNET_CASES = (("resnet18", 32, 10, "float32", 64), ("resnet18", 32, 10, "bfloat16", 256),
+                ("resnet50", 224, 1000, "float32", 32),
+                ("resnet50", 224, 1000, "bfloat16", 256))
+#: the CPU rehearsal's cases: the same models at batch 4 (ResNet-50 at 72 x
+#: 72, still the ImageNet stem)
+TINY_RESNET_CASES = (("resnet18", 32, 10, "float32", 4), ("resnet18", 32, 10, "bfloat16", 4),
+                     ("resnet50", 72, 10, "float32", 4), ("resnet50", 72, 10, "bfloat16", 4))
+#: steps on one batch, and their lr: the recipe's 0.008 does not bring a
+#: fresh GroupNorm ResNet's loss down within five steps, in either package
+RESNET_STEPS, RESNET_LR = 5, 0.001
+#: the ResNet-18 DownPour world: two workers of this many steps at batch 64
+RESNET_DOWNPOUR_STEPS = 20
+#: the MoE LM (config 6's MoE leg: GPT-2-small widths, 4 experts top-1,
+#: capacity factor 2.0, bf16, 8 x 2048): SGD steps on one batch and their lr
+MOE_STEPS, MOE_LR = 4, 0.5
+#: MoE generate(): batch, prompt and new tokens (two decode blocks), float32
+MOE_GEN = (8, 64, 33)
+#: kernel-name substrings grouping a ResNet step's device time (first match
+#: wins): cuDNN's convolutions by pass, PyTorch's GroupNorm kernels, the
+#: dtype casts and copies around them, the other elementwise passes
+RESNET_GROUPS = {
+    "conv wgrad": ["wgrad"],
+    "conv dgrad": ["dgrad"],
+    "conv fwd": ["fprop", "implicit_gemm", "convolve", "conv2d"],
+    "group_norm": ["GroupNorm", "group_norm", "RowwiseMoments", "ComputeFusedParams",
+                   "ComputeInternalGradients", "Compute1dBackward", "GammaBeta",
+                   "ComputeBackward"],
+    "copy/cast": ["copy", "convert"],
+    "elementwise": ["elementwise", "reduce_kernel", "relu", "threshold"],
+}
+
+
+def _card(torch, device) -> str:
+    """The card's ``nvidia-smi`` name and power limit, or ``cpu``."""
+    return nvidia_smi_line() if device == "cuda" else "cpu"
+
+
+def _sync(torch, device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _resnet_steps(torch, name, image, classes, dtype, batch, device, profile=False):
+    """RESNET_STEPS SGD steps (lr RESNET_LR) of a seed-0 ResNet on one
+    ``bench_all.make_batch`` batch through ``training.trainer``'s step;
+    ``profile``: one more step under ``utils/devprof`` on the card. Returns
+    the part's line."""
+    from distributed_ml_pytorch_tpu_torch import bench_all
+    from distributed_ml_pytorch_tpu_torch.models import get_model
+    from distributed_ml_pytorch_tpu_torch.training.trainer import (
+        SGD,
+        create_train_state,
+        make_train_step,
+    )
+
+    _peak_gb(torch, device, reset=True)
+    model = get_model(name, num_classes=classes, seed=0, device=device, dtype=dtype,
+                      input_size=image)
+    tx = SGD(RESNET_LR)
+    state = create_train_state(model, tx)
+    step = make_train_step(model, tx)
+    images, labels = bench_all.make_batch(batch, shape=(image, image, 3), n_classes=classes)
+    x, y = torch.from_numpy(images).to(device), torch.from_numpy(labels).to(device)
+    losses, times = [], []
+    for _ in range(RESNET_STEPS):
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        losses.append(float(step(state, x, y)[1]))
+        times.append(time.perf_counter() - t0)
+    step_s = sum(times[1:]) / (len(times) - 1)
+    n_params = sum(p.numel() for p in model.parameters())
+    line = {"model": name, "image": image, "classes": classes, "dtype": dtype,
+            "batch": batch, "params": n_params, "losses": losses,
+            "step_ms": step_s * 1e3, "images_per_s": batch / step_s,
+            "peak_mem_gb": _peak_gb(torch, device), "card": _card(torch, device)}
+    require(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+            f"{name} {dtype} b{batch}: losses not finite and falling: {losses}")
+    if profile and device == "cuda":
+        from distributed_ml_pytorch_tpu_torch.utils.devprof import kernel_breakdown
+
+        line["profile"] = kernel_breakdown(lambda: step(state, x, y)[1], RESNET_GROUPS)
+    del model, state, step
+    return line
+
+
+def phase_resnet(torch, device="cuda", tiny=False):
+    """Phase 25 (a), (b): ResNet trainer steps, then the ResNet-18 DownPour
+    world and K1 at ResNet-18's flat length; returns ``(K1 launches, K1's
+    largest error)``."""
+    from distributed_ml_pytorch_tpu_torch.device import full_float32
+    from distributed_ml_pytorch_tpu_torch.models import get_model
+    from distributed_ml_pytorch_tpu_torch.ops import fused_update as fu
+    from distributed_ml_pytorch_tpu_torch.parallel.async_ps import init_downpour_accumulator
+
+    full_float32()
+    t0 = time.monotonic()
+    cases = TINY_RESNET_CASES if tiny else RESNET_CASES
+    # the last case (ResNet-50 bf16) profiled: where a step's time goes
+    lines = [_resnet_steps(torch, *case, device, profile=i == len(cases) - 1)
+             for i, case in enumerate(cases)]
+    emit({"phase": "resnet_trainer_steps", "ok": True, "steps": RESNET_STEPS,
+          "lr": RESNET_LR, "runs": lines, "wall_s": time.monotonic() - t0})
+
+    # (a) the DownPour world of ResNet-18: K1 once a worker step
+    steps = RESNET_DOWNPOUR_STEPS
+    batch = 8 if tiny else 64
+    srv, per_worker, launches, wall, _records = _downpour_world(
+        torch, ["--chunked-dispatch", "off", "--model", "resnet18", "--lr", str(RESNET_LR)],
+        device, steps, batch, steady=False)
+    total = sum(w["steps"] for w in per_worker.values())
+    np = __import__("numpy")
+    model = get_model("resnet18", seed=0, device=device)
+    _flat, n, pad, _acc = init_downpour_accumulator(model)
+    del model
+    # K1 at ResNet-18's padded flat length, against its plain version
+    g = torch.Generator(device=device).manual_seed(25)
+    y0 = torch.randn(n + pad, generator=g, device=device)
+    x = torch.randn(n + pad, generator=g, device=device)
+    err, k1 = 0.0, None
+    if device == "cuda":
+        for alpha in (1.0, -RESNET_LR):
+            yk = fu.flat_axpy_cuda(y0.clone(), x, alpha)
+            yp = fu.flat_axpy_plain(y0.clone(), x, alpha)
+            torch.cuda.synchronize()
+            require(torch.equal(yk, yp), f"flat_axpy kernel != plain at n={n + pad}, "
+                    f"alpha={alpha}")
+            err = max(err, float((yk - yp).abs().max()))
+        k1 = {"n": n + pad, "max_abs_err": err,
+              "ms": device_ms(lambda: fu.flat_axpy_cuda(y0, x, 1.0)),
+              "plain_ms": device_ms(lambda: fu.flat_axpy_plain(y0, x, 1.0)),
+              "bound_ms": bound_ms(3 * 4 * (n + pad))}
+    emit({"phase": "resnet_downpour_world", "ok": True, "model": "resnet18", "workers": 2,
+          "batch": batch, "steps": steps, "flat_floats": n, "frame_mb": 4 * n / 1e6,
+          "wall_s": wall, "per_worker": per_worker, "launches": launches,
+          "central_finite": bool(np.isfinite(srv.central).all()), "k1_at_resnet18": k1,
+          "card": _card(torch, device)})
+    require(srv.central.shape[0] == n, f"the server's vector has {srv.central.shape[0]} "
+            f"floats, ResNet-18 {n}")
+    require(bool(np.isfinite(srv.central).all()), "central vector not finite")
+    for r, w in per_worker.items():
+        ls = w["losses"]
+        require(w["steps"] == steps, f"worker {r} took {w['steps']} steps of {steps}")
+        require(all(math.isfinite(v) for v in ls) and sum(ls[-5:]) < sum(ls[:5]),
+                f"worker {r}'s ResNet-18 loss did not fall: {ls}")
+    if device == "cuda":
+        require(launches["flat_axpy"] == total,
+                f"flat_axpy launched {launches['flat_axpy']} times for {total} steps")
+    return launches["flat_axpy"], err
+
+
+def _plain_attention_calls(at):
+    """Counts calls of the attention kernels' plain versions while
+    installed (on the card the model's step must never reach them)."""
+    names = ("flash_fwd_plain", "flash_bwd_fused_plain", "flash_bwd_split_plain")
+
+    class Calls:
+        n = 0
+
+        def __enter__(self):
+            self.real = {name: getattr(at, name) for name in names}
+            for name, fn in self.real.items():
+                def counted(*a, _fn=fn, **k):
+                    self.n += 1
+                    return _fn(*a, **k)
+                setattr(at, name, counted)
+            return self
+
+        def __exit__(self, *exc):
+            for name, fn in self.real.items():
+                setattr(at, name, fn)
+
+    return Calls()
+
+
+def phase_moe(torch, device="cuda", tiny=False):
+    """Phase 25 (c), (d): the MoE LM's SGD steps (K4, K5) and its greedy
+    ``generate()`` on the blocked path (K8); returns ``(launches, errors)``."""
+    gen = importlib.import_module("distributed_ml_pytorch_tpu_torch.models.generate")
+    from distributed_ml_pytorch_tpu_torch import bench_all
+    from distributed_ml_pytorch_tpu_torch.models import MoETransformerLM
+    from distributed_ml_pytorch_tpu_torch.ops import attention as at
+    from distributed_ml_pytorch_tpu_torch.ops import decode_attention as da
+    from distributed_ml_pytorch_tpu_torch.parallel.fsdp import make_fsdp_lm_train_step
+    from distributed_ml_pytorch_tpu_torch.parallel.seq_parallel import (
+        create_lm_train_state,
+        next_token_targets,
+    )
+    from distributed_ml_pytorch_tpu_torch.training.trainer import SGD
+
+    np = __import__("numpy")
+    widths = bench_all.TINY_LM if tiny else bench_all.GPT2_SMALL
+    batch, seq = ((bench_all.TINY_MOE_BATCH, bench_all.TINY_MOE_SEQ) if tiny
+                  else (bench_all.MOE_BATCH, bench_all.MOE_SEQ))
+    n_layers, heads = widths["n_layers"], widths["n_heads"]
+    d = widths["d_model"] // heads
+    moe_kw = dict(n_experts=bench_all.MOE_EXPERTS, capacity_factor=bench_all.MOE_CAPACITY)
+
+    # (c) SGD steps at the bench widths, bf16, one batch
+    _peak_gb(torch, device, reset=True)
+    moe = MoETransformerLM(**widths, **moe_kw, max_len=seq, dtype=torch.bfloat16, seed=0,
+                           device=device)
+    tx = SGD(MOE_LR)
+    state = create_lm_train_state(moe, tx)
+    step = make_fsdp_lm_train_step(moe, tx)
+    tok = np.random.default_rng(0).integers(0, widths["vocab_size"], (batch, seq))
+    targets = torch.from_numpy(next_token_targets(tok).astype(np.int64)).to(device)
+    tokens = torch.from_numpy(tok.astype(np.int64)).to(device)
+    seen, restore = _record_first_call(torch, at, "flash_bwd_fused_cuda")
+    _zero_attention_launches(at)
+    losses, times = [], []
+    try:
+        with _plain_attention_calls(at) as plain:
+            for _ in range(MOE_STEPS):
+                _sync(torch, device)
+                t0 = time.perf_counter()
+                state, loss = step(state, tokens, targets)
+                losses.append(float(loss))
+                times.append(time.perf_counter() - t0)
+    finally:
+        restore()
+    launches = dict(at.launches)
+    peak = _peak_gb(torch, device)
+    step_s = sum(times[1:]) / (len(times) - 1)
+    flops = bench_all.moe_lm_flops(moe, batch, seq)
+    profile = None
+    if device == "cuda":
+        from distributed_ml_pytorch_tpu_torch.utils.devprof import kernel_breakdown
+
+        profile = kernel_breakdown(lambda: step(state, tokens, targets)[1], PROFILE_GROUPS)
+    lb = [float(v.detach()) for v in moe.load_balance_losses()]
+    require(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+            f"MoE losses not finite and falling: {losses}")
+    require(launches["flash_fwd"] == n_layers * MOE_STEPS
+            and launches["flash_bwd_fused"] == n_layers * MOE_STEPS
+            and launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 0,
+            f"the MoE steps launched {launches} for {MOE_STEPS} steps of {n_layers} layers")
+    if device == "cuda":
+        require(plain.n == 0, f"the MoE step reached the plain attention {plain.n} times")
+    args = seen.pop("args")
+    require(tuple(args[0].shape) == (batch * heads, seq, d),
+            f"captured q of shape {tuple(args[0].shape)}")
+    errs, ms, check_s = _long_check(torch, at, args, ("flash_fwd", "flash_bwd_fused"))
+    del args, state, step
+    emit({"phase": "moe_lm_steps", "ok": True, "widths": widths, **moe_kw,
+          "capacity": moe.blocks()[0].moe.capacity(seq), "dtype": "bfloat16",
+          "batch": batch, "seq": seq, "lr": MOE_LR, "losses": losses,
+          "load_balance": lb, "step_ms": step_s * 1e3, "tokens_per_s": batch * seq / step_s,
+          "flops_per_step": flops, "tflops": flops / step_s / 1e12, "peak_mem_gb": peak,
+          "launches": launches, "plain_attention_calls": plain.n, "plain_check_s": check_s,
+          "kernels": {k: {"ms": ms[k], "errors": errs[k]} for k in ms},
+          "tolerance": ATTN_TOL["bfloat16"], "profile": profile, "card": _card(torch, device)})
+    del moe
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # (d) greedy generate() on the blocked path, float32: K8 in every step
+    b, p, new = MOE_GEN
+    moe = MoETransformerLM(**widths, **moe_kw, max_len=p + new + gen.DECODE_BLOCK,
+                           dtype=torch.float32, seed=1, device=device)
+    blocked, padded = gen.uses_block_decode(moe, p, new)
+    n_pad = padded - p
+    require(blocked, f"MoE generate at prompt {p}, {new} new tokens is not on the blocked path")
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(
+        0, widths["vocab_size"], (b, p))).to(device)
+    longest, real_k8 = [], da.decode_attention_cuda
+
+    def record_inputs(*a):
+        if not longest or a[3].shape[2] > longest[0][3].shape[2]:
+            longest[:] = [tuple(t.clone() if torch.is_tensor(t) else t for t in a)]
+        return real_k8(*a)
+
+    da.decode_attention_cuda = record_inputs
+    da.launches = 0
+    try:
+        with _ReferenceCalls(da) as ref:
+            _sync(torch, device)
+            t0 = time.perf_counter()
+            out = gen.generate(moe, prompt, new)
+            _sync(torch, device)
+            wall = time.perf_counter() - t0
+    finally:
+        da.decode_attention_cuda = real_k8
+    k8 = da.launches
+    with torch.no_grad():
+        plain_out = gen._generate_plain(gen._decode_model(moe, p + new), new, 0.0, 0, 1.0,
+                                        gen.init_cache(moe, b, p + new), prompt, 0)
+    calls, other = (k8, ref.n) if device == "cuda" else (ref.n, k8)
+    require(out.shape == (b, p + new), f"MoE generate shape {tuple(out.shape)}")
+    require(calls == n_layers * n_pad and other == 0,
+            f"MoE generate ran K8 {k8} and the reference {ref.n} times on {device}, want "
+            f"{n_layers} layers x {n_pad} decode steps of one of them")
+    same = int((out == plain_out).all(dim=1).sum())
+    check = None
+    if device == "cuda":
+        a = longest[0]
+        tol = DECODE_TOL["float32"]
+        mx, rel, ok = _err(torch, da.decode_attention_cuda(*a),
+                           da.decode_attention_reference(*a), da.decode_error_scale(*a), tol)
+        bb, h, C, hd = a[3].shape
+        check = {"b": bb, "h": h, "C": C, "head_dim": hd, "max_abs_err": mx,
+                 "max_err_over_scale": rel, "tolerance": tol}
+        require(ok, f"K8 on MoE generate's inputs (C={C}): {mx} ({rel} of the scale)")
+    emit({"phase": "moe_generate", "ok": True, "widths": widths, **moe_kw,
+          "dtype": "float32", "batch": b, "prompt": p, "new_tokens": new,
+          "padded_steps": n_pad, "wall_s": wall, "tokens_per_s": b * new / wall,
+          "k8_launches": k8, "reference_calls": ref.n, "rows_equal_plain_path": same,
+          "k8_at_longest_cache": check, "card": _card(torch, device)})
+    require(same == b, f"MoE generate on the blocked path matches the plain decode path in "
+            f"{same} of {b} rows")
+    del moe
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    errors = {k: max(e[0] for e in errs[k].values()) for k in errs}
+    if check is not None:
+        errors["decode_attention"] = check["max_abs_err"]
+    return {"flash_fwd": launches["flash_fwd"], "flash_bwd_fused": launches["flash_bwd_fused"],
+            "decode_attention": k8}, errors
+
+
+def phase_model_families(torch, device="cuda", tiny=False):
+    """Phase 25: the ResNets and the Switch-MoE LM; returns ``(launches,
+    errors)`` to join the ``kernels`` line."""
+    t0 = time.monotonic()
+    k1, k1_err = phase_resnet(torch, device, tiny)
+    launches, errors = phase_moe(torch, device, tiny)
+    launches["flat_axpy"] = k1
+    errors["flat_axpy"] = k1_err
+    emit({"phase": "model_families", "ok": True, "launches": launches,
+          "wall_s": time.monotonic() - t0, "card": _card(torch, device)})
+    return launches, errors
+
+
 def main() -> int:
     try:
         import torch
@@ -5322,6 +5681,11 @@ def main() -> int:
         gray_fleet = phase_gray_fleet(torch)
         for name in ("flat_axpy", "relu_pool2_fwd", "relu_pool2_bwd", "decode_attention"):
             launches[name] += gray_fleet[name]
+        families, family_errors = phase_model_families(torch)
+        for name, n in families.items():
+            launches[name] += n
+        for name, err in family_errors.items():
+            measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"], err)
         smi = nvidia_smi_line()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -11,6 +11,7 @@
     python -m distributed_ml_pytorch_tpu_torch.bench_all --legs recovery,coordfail,health
     python -m distributed_ml_pytorch_tpu_torch.bench_all --legs sched
     python -m distributed_ml_pytorch_tpu_torch.bench_all --legs gray
+    python -m distributed_ml_pytorch_tpu_torch.bench_all --legs resnet,moe,decode
     python -m distributed_ml_pytorch_tpu_torch.bench_all --device cpu --tiny
 
 One JSON line per measurement on stdout (the JAX ``emit`` record: config,
@@ -158,6 +159,30 @@ narration on stderr. Ported legs, under the JAX metric names:
   Host clock: the figures are the in-process fleet's host timing, not the
   card's.
 
+- ``resnet`` — configs 4 and 5 (JAX bench_all.py:207-248, ``bench_jax``
+  and ``bench_hostfed_resnet50``, :758): seed-0 GroupNorm ResNets trained
+  by ``make_scan_train_step`` (SGD lr 0.008, K steps a dispatch: a CUDA
+  graph on the card) on ``make_batch`` images — ResNet-18 on CIFAR shapes
+  in float32 at b64 (K 20) and bf16 at b256 (K 10), ResNet-50 at 224² with
+  1000 classes in float32 at b32 (K 4) and bf16 at b256 (K 2) — as
+  ``resnet18_cifar10_train_throughput[_bf16]`` and
+  ``resnet50_imagenet_shape_train_throughput[_bf16]``, FLOPs 6 x the
+  conv/linear MACs an image; then ``resnet50_hostfed_overlapped_input_
+  throughput``: ResNet-50 bf16 b256, each step's batch copied from pinned
+  host memory on a side stream while the previous step runs (host clock).
+- ``moe`` — config 6's MoE leg (JAX ``bench_moe_lm``, :652): the Switch-MoE
+  LM at GPT-2-small widths, 4 experts top-1, capacity 2.0, bf16, 8 x 2048,
+  the AD step (no detachable head), as
+  ``moe_lm_4expert_seq2048_train_throughput``; FLOPs the products run
+  (``utils/flops.moe_lm_train_flops``), not 6ND over every expert.
+- ``decode`` — config 8 (JAX ``bench_decode``, :673-755): GPT-2-small
+  (bf16, learned positions) ``generate()`` at b32, prompt 128, 256 new
+  tokens, greedy (the blocked path, K8), two calls after a warm-up timed by
+  :func:`timed_generate` (``chip_smoke.py`` phase 8's timing), as
+  ``gpt2_small_decode_throughput``, ``gpt2_small_decode_hbm_utilization``
+  (a step's mandatory bytes x steps/s over a streaming read measured on
+  the same device) and ``gpt2_small_decode_throughput_int8_kv``.
+
 ``--tiny`` shrinks every other leg to test widths (a CPU run in seconds);
 its records keep the metric names and say so in their notes. The
 ``recovery``, ``coordfail``, ``health``, ``sched`` and ``gray`` legs run their LeNet
@@ -166,9 +191,8 @@ fleet with or without it. Timing is
 CPU (the record's note names the source). The LM legs' FLOP numerator is
 ``utils/flops.lm_train_flops_6nd`` over the non-embedding parameters (XLA's
 ``compiled_flops`` has no PyTorch counterpart); the cross-check holds it
-against the same count over the ``nn.Linear`` weights. Not ported yet: the
-MoE leg, the ResNet legs and every other phase of the JAX harness
-(``ROADMAP.md`` Queue A).
+against the same count over the ``nn.Linear`` weights. Not ported yet: every
+other phase of the JAX harness (``ROADMAP.md`` Queue A).
 """
 
 from __future__ import annotations
@@ -190,7 +214,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from distributed_ml_pytorch_tpu_torch.device import full_float32, resolve_device
-from distributed_ml_pytorch_tpu_torch.models import TransformerLM, get_model
+from distributed_ml_pytorch_tpu_torch.models import MoETransformerLM, TransformerLM, get_model
+from distributed_ml_pytorch_tpu_torch.models.generate import generate
 from distributed_ml_pytorch_tpu_torch.ops import fused_conv as fc
 from distributed_ml_pytorch_tpu_torch.ops.fused_head import make_fused_head_sgd_step
 from distributed_ml_pytorch_tpu_torch.parallel.fsdp import make_fsdp_lm_train_step
@@ -219,6 +244,7 @@ from distributed_ml_pytorch_tpu_torch.utils.flops import (
     cnn_train_flops,
     conv_linear_macs,
     lm_train_flops_6nd,
+    moe_lm_train_flops,
     utilization,
 )
 
@@ -312,13 +338,14 @@ def emit(config: int, metric: str, value: float, unit: str, hardware: str,
 
 def bench_lm(lm: Optional[nn.Module] = None, batch: int = 1, seq: int = 8192,
              n_long: int = 11, cross_check: bool = True, tag: str = "lm",
-             device="cuda") -> Rate:
+             device="cuda", flops: Optional[float] = None) -> Rate:
     """Steady-state tokens/s (+ FLOPs/MFU) of one LM train step.
 
     ``lm`` defaults to ``TransformerLM(dtype=bfloat16, remat=False,
     pos_encoding="rope")`` on ``device``; a given model is timed where its
     parameters lie. ``max(2, n_long)`` steps are timed after two warm-up
-    steps, each step's parameters feeding the next."""
+    steps, each step's parameters feeding the next. ``flops`` replaces the
+    6ND numerator (a MoE model counts the products it runs)."""
     if lm is None:
         lm = TransformerLM(dtype=torch.bfloat16, remat=False, pos_encoding="rope",
                            device=resolve_device(device))
@@ -345,8 +372,9 @@ def bench_lm(lm: Optional[nn.Module] = None, batch: int = 1, seq: int = 8192,
     n_params = sum(p.numel() for p in lm.parameters())
     embed_params = sum(p.numel() for name, p in lm.named_parameters()
                        if "embed" in name.lower())
-    step_flops = lm_train_flops_6nd(n_params - embed_params, batch, seq, heads,
-                                    lm.d_model // heads, lm.n_layers, causal=True, remat=remat)
+    step_flops = flops or lm_train_flops_6nd(n_params - embed_params, batch, seq, heads,
+                                             lm.d_model // heads, lm.n_layers, causal=True,
+                                             remat=remat)
     warn = None
     if cross_check:
         dense = sum(m.weight.numel() for m in lm.modules() if isinstance(m, nn.Linear))
@@ -469,6 +497,144 @@ def lm_32k_phase(device, tiny: bool = False) -> Rate:
          "6ND FLOPs over the non-embedding parameters, remat recompute included",
          extra={"batch": 1, "seq": seq, "loss_chunk": chunk, "losses": losses})
     return rate
+
+
+# ------------------------------------------------------------------ config 6 MoE, config 8 decode
+
+#: the MoE leg (JAX ``bench_moe_lm``, bench_all.py:652-670): GPT-2-small
+#: widths, 4 experts, top-1, capacity factor 2.0, bf16, batch x seq
+MOE_EXPERTS, MOE_CAPACITY, MOE_BATCH, MOE_SEQ = 4, 2.0, 8, 2048
+TINY_MOE_BATCH, TINY_MOE_SEQ = 2, 128
+
+
+def moe_lm_flops(moe, batch: int, seq: int) -> float:
+    """:func:`utils.flops.moe_lm_train_flops` of ``moe`` at ``batch x seq``."""
+    return moe_lm_train_flops(batch, seq, moe.vocab_size, moe.d_model, moe.n_heads,
+                              moe.n_layers, moe.d_ff, moe.n_experts,
+                              moe.blocks()[0].moe.capacity(seq), remat=moe.remat)
+
+
+def moe_phase(device, tiny: bool = False) -> Rate:
+    """Config 6's MoE leg: a ``MoETransformerLM`` at GPT-2-small widths
+    (768d, 12 heads, 12 layers, d_ff 3072, vocab 50304, learned positions),
+    4 experts top-1 at capacity factor 2.0, bf16, trained by the AD step
+    (``bench_lm``: it has no detachable head) at 8 x 2048, its attention
+    through K4 and K5 by the size rule. FLOPs are the products the step runs
+    (``moe_lm_flops``), dispatch and combine included."""
+    dev = resolve_device(device)
+    widths, batch, seq = ((TINY_LM, TINY_MOE_BATCH, TINY_MOE_SEQ) if tiny
+                          else (GPT2_SMALL, MOE_BATCH, MOE_SEQ))
+    moe = MoETransformerLM(**widths, n_experts=MOE_EXPERTS, capacity_factor=MOE_CAPACITY,
+                           max_len=seq, dtype=torch.bfloat16, seed=0, device=dev)
+    r = bench_lm(moe, batch=batch, seq=seq, n_long=4, cross_check=False,
+                 tag=f"moe-4e-seq{seq}", flops=moe_lm_flops(moe, batch, seq))
+    cap = moe.blocks()[0].moe.capacity(seq)
+    cut = f"--tiny: {widths}, batch {batch} x seq {seq}; " if tiny else ""
+    emit(6, "moe_lm_4expert_seq2048_train_throughput", r, "tokens/sec/chip", hardware(dev),
+         f"{cut}Switch-MoE ({_widths(moe)}, {MOE_EXPERTS} experts top-1, {MOE_CAPACITY} "
+         f"capacity: {cap} slots an expert and sequence), bf16 activations over float32 "
+         f"parameters (the expert products and the combine in float32, as the JAX model's "
+         f"einsums promote them), learned positions, batch {batch} x seq {seq}, "
+         f"{r.step_kind} step, {r.step_seconds * 1e3:.3f} ms/step ({r.source}); FLOPs the "
+         "products run (projections, router, dispatch, experts over every slot, combine, "
+         "attention, lm_head), not 6ND over every expert's parameters",
+         extra={"batch": batch, "seq": seq, "n_experts": MOE_EXPERTS, "capacity": cap})
+    return r
+
+
+#: config 8's decode leg (JAX ``bench_decode``, bench_all.py:673-755):
+#: GPT-2-small bf16, learned positions, batch 32, prompt 128, 256 new tokens
+DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 32, 128, 256
+TINY_DECODE_BATCH, TINY_DECODE_PROMPT, TINY_DECODE_NEW = 2, 8, 33
+#: elements of the streaming read that measures the card's memory rate
+#: (256 MB of bf16, as JAX reads it), and ``--tiny``'s
+STREAM_ELEMS, TINY_STREAM_ELEMS = 128 * 1024 * 1024, 1 << 20
+
+
+def timed_generate(model, prompt, new_tokens: int, kv_quant: bool = False):
+    """``(tokens, seconds)`` of one greedy ``generate()`` call on the host
+    clock, the card synchronized before and after (the decode path's own
+    pace: it is host-bound on the card)."""
+    dev = prompt.device
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = generate(model, prompt, new_tokens, kv_quant=kv_quant)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return out, time.perf_counter() - t0
+
+
+def stream_bytes_per_s(device, elems: int = STREAM_ELEMS) -> float:
+    """The memory rate a streaming read sustains on ``device``: a float32
+    sum of ``elems`` bf16 ones, timed by ``utils/devtime.device_time``."""
+    x = torch.ones(elems, dtype=torch.bfloat16, device=device)
+    t = device_time(lambda: torch.sum(x, dtype=torch.float32), calls=6, warmup=2)
+    return 2 * elems / t.per_call_s
+
+
+def bench_decode(device, tiny: bool = False, kv_quant: bool = False, stream_bw=None):
+    """Decode tokens/s of GPT-2-small (bf16, learned positions, seed 0)
+    through ``generate()`` (greedy; the blocked path, K8 in every step) on
+    prompts from ``default_rng(s)``, s = 0..7 in turn: two timed calls after
+    a warm-up, each its prefill and ``new`` tokens (:func:`timed_generate`).
+    Returns ``(tokens/s, share of the measured streaming rate, bytes a step,
+    the rate)``: a step must read every parameter once in bf16 and the
+    average live K/V (int8 values and f32 scales under ``kv_quant``), as the
+    JAX leg counts them."""
+    dev = resolve_device(device)
+    widths, batch, plen, new = ((TINY_LM, TINY_DECODE_BATCH, TINY_DECODE_PROMPT,
+                                 TINY_DECODE_NEW) if tiny
+                                else (GPT2_SMALL, DECODE_BATCH, DECODE_PROMPT, DECODE_NEW))
+    lm = TransformerLM(**widths, max_len=plen + new, dtype=torch.bfloat16,
+                       pos_encoding="learned", seed=0, device=dev)
+    prompts = [torch.from_numpy(np.random.default_rng(s).integers(
+        0, lm.vocab_size, size=(batch, plen))).to(dev) for s in range(8)]
+    timed_generate(lm, prompts[0], new, kv_quant)  # warm-up
+    per_call = sum(timed_generate(lm, prompts[i], new, kv_quant)[1] for i in (1, 2)) / 2
+    rate = batch * new / per_call
+    n_params = sum(p.numel() for p in lm.parameters())
+    avg_len = plen + new / 2
+    d, h, L = lm.d_model, lm.n_heads, lm.n_layers
+    kv = batch * 2 * L * avg_len * ((d + 4 * h) if kv_quant else 2 * d)
+    step_bytes = 2 * n_params + kv
+    bw = stream_bw or stream_bytes_per_s(dev, TINY_STREAM_ELEMS if tiny else STREAM_ELEMS)
+    frac = step_bytes * (rate / batch) / bw
+    log(f"decode{' int8' if kv_quant else ''}: {per_call * 1e3:.1f} ms a {new}-token call "
+        f"(batch {batch}) -> {rate:.0f} tokens/s; {step_bytes / 1e6:.0f} MB a step -> "
+        f"{100 * frac:.1f}% of the measured {bw / 1e9:.0f} GB/s streaming read")
+    return rate, frac, step_bytes, bw
+
+
+def decode_phase(device, tiny: bool = False) -> dict:
+    """Config 8's three decode metrics: tokens/s and the share of the
+    measured streaming read with the bf16 cache, tokens/s with the int8
+    cache."""
+    dev = resolve_device(device)
+    hw = hardware(dev)
+    rate, frac, step_bytes, bw = bench_decode(dev, tiny)
+    q_rate, _, q_bytes, _ = bench_decode(dev, tiny, kv_quant=True, stream_bw=bw)
+    batch, plen, new = ((TINY_DECODE_BATCH, TINY_DECODE_PROMPT, TINY_DECODE_NEW) if tiny
+                        else (DECODE_BATCH, DECODE_PROMPT, DECODE_NEW))
+    cut = f"--tiny: {TINY_LM}; " if tiny else ""
+    what = (f"batch {batch}, {plen}-token prompt prefill + {new} generated tokens a call, "
+            "greedy, the ring-buffered blocked decode (K8 in every step); host clock around "
+            "synchronized calls")
+    emit(8, "gpt2_small_decode_throughput", rate, "tokens/sec/chip", hw,
+         f"{cut}{what}; {step_bytes / 1e6:.1f} MB a step of mandatory traffic -> "
+         f"{100 * frac:.1f}% of the measured streaming read",
+         extra={"batch": batch, "prompt": plen, "new_tokens": new})
+    emit(8, "gpt2_small_decode_hbm_utilization", 100 * frac,
+         "percent of measured HBM roofline", hw,
+         f"{cut}mandatory traffic (bf16 parameters + the average live K/V) a step x steps/s, "
+         f"against a streaming read measured on this device ({bw / 1e9:.1f} GB/s: a float32 "
+         "sum of 256 MB of bf16)", extra={"stream_bytes_per_s": bw, "step_bytes": step_bytes})
+    emit(8, "gpt2_small_decode_throughput_int8_kv", q_rate, "tokens/sec/chip", hw,
+         f"{cut}the same leg with kv_quant=True (int8 cache + per-key f32 scales, quantized "
+         f"at block merges); {q_bytes / 1e6:.1f} MB a step",
+         extra={"batch": batch, "prompt": plen, "new_tokens": new})
+    return {"gpt2_small_decode_throughput": rate, "gpt2_small_decode_hbm_utilization": frac,
+            "gpt2_small_decode_throughput_int8_kv": q_rate}
 
 
 # ------------------------------------------------------------------ config 1: AlexNet legs
@@ -604,6 +770,165 @@ def alexnet_phase(device, tiny: bool = False, warmup: int = 2, calls: int = 3) -
                     "warmup_losses": losses,
                     "cudnn": {"deterministic": torch.backends.cudnn.deterministic,
                               "benchmark": torch.backends.cudnn.benchmark}})
+    return rates
+
+
+# ------------------------------------------------------------------ configs 4 and 5: ResNet legs
+
+#: (config, metric, model, batch, image size, classes, dtype, steps a
+#: dispatch): JAX bench_all.py:207-248, as ``tpu_phase`` runs them
+RESNET_LEGS = (
+    (4, "resnet18_cifar10_train_throughput", "resnet18", 64, 32, 10, "float32", 20),
+    (4, "resnet18_cifar10_train_throughput_bf16", "resnet18", 256, 32, 10, "bfloat16", 10),
+    (5, "resnet50_imagenet_shape_train_throughput", "resnet50", 32, 224, 1000, "float32", 4),
+    (5, "resnet50_imagenet_shape_train_throughput_bf16", "resnet50", 256, 224, 1000,
+     "bfloat16", 2),
+)
+#: ``--tiny``: every leg at batch 2 and two steps a dispatch, the ImageNet
+#: legs at 72 x 72 (still the ImageNet stem) and 10 classes
+TINY_RESNET_BATCH, TINY_RESNET_IMAGE, TINY_RESNET_K = 2, 72, 2
+RESNET_LR, HOSTFED_LR = 0.008, 0.05
+#: the host-fed leg (JAX ``bench_hostfed_resnet50``, bench_all.py:758-816)
+HOSTFED_BATCH, HOSTFED_STEPS, HOSTFED_TRIALS = 256, 8, 3
+
+
+def resnet_macs(name: str, image: int, classes: int) -> int:
+    """Conv/linear MACs an image of the ResNet ``name`` at ``image`` x
+    ``image``, counted on a float32 copy on the host (the bfloat16 model
+    runs its convolutions as functions, which the counting hooks miss)."""
+    model = get_model(name, num_classes=classes, device="cpu", input_size=image)
+    return sum(conv_linear_macs(model, (1, image, image, 3)).values())
+
+
+def resnet_scan_step(name: str, batch: int, image: int, classes: int, dtype, k: int,
+                     device="cuda"):
+    """``dispatch() -> losses [k]``: K SGD steps (lr 0.008) of a
+    seed-0 ResNet over k distinct batches of ``make_batch`` at ``image`` x
+    ``image``, on ``device`` (a CUDA graph of one step on the card)."""
+    dev = resolve_device(device)
+    model = get_model(name, num_classes=classes, seed=0, device=dev, dtype=dtype,
+                      input_size=image)
+    tx = SGD(RESNET_LR)
+    state = create_train_state(model, tx)
+    scan = make_scan_train_step(model, tx)
+    images, labels = make_batch(batch, k=k, shape=(image, image, 3), n_classes=classes)
+    x = torch.from_numpy(images).to(dev)
+    y = torch.from_numpy(labels).to(dev)
+    return lambda: scan(state, x, y)[1]
+
+
+def bench_hostfed_resnet50(device, batch: int = HOSTFED_BATCH, steps: int = HOSTFED_STEPS,
+                           trials: int = HOSTFED_TRIALS, image: int = 224,
+                           classes: int = 1000) -> Rate:
+    """The overlapped-input leg: ResNet-50 in bf16, each step's batch
+    starting in pinned host memory (four distinct bf16 batches from
+    ``default_rng(s)``, what a loader ships) and copied ``non_blocking`` on a
+    side stream while the previous step runs; the main stream waits on the
+    copy's event. Per-step time from ``steps`` and one step (the best of
+    ``trials`` each), the host clock around synchronized runs."""
+    dev = resolve_device(device)
+    cuda = dev.type == "cuda"
+    model = get_model("resnet50", num_classes=classes, seed=0, device=dev,
+                      dtype=torch.bfloat16, input_size=image)
+    tx = SGD(HOSTFED_LR)
+    state = create_train_state(model, tx)
+    step = make_train_step(model, tx)
+    host = []
+    for s in range(4):
+        x = torch.from_numpy(np.random.default_rng(s).normal(
+            size=(batch, image, image, 3)).astype(np.float32)).to(torch.bfloat16)
+        host.append(x.pin_memory() if cuda else x)
+    labels = torch.from_numpy(np.arange(batch) % classes).to(dev)
+    side = torch.cuda.Stream(dev) if cuda else None
+
+    def fetch(i):
+        if not cuda:
+            return host[i % len(host)].clone(), None
+        with torch.cuda.stream(side):
+            x = host[i % len(host)].to(dev, non_blocking=True)
+            return x, side.record_event()
+
+    def run(n):
+        if cuda:
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        nxt = fetch(0)
+        loss = None
+        for i in range(n):
+            x, ev = nxt
+            if cuda:
+                torch.cuda.current_stream(dev).wait_event(ev)
+                x.record_stream(torch.cuda.current_stream(dev))
+            if i + 1 < n:
+                nxt = fetch(i + 1)
+            _state, loss = step(state, x, labels)
+        float(loss)
+        return time.perf_counter() - t0
+
+    run(2)  # warm-up: cuDNN's algorithms, the allocator
+    short = min(run(1) for _ in range(trials))
+    long_ = min(run(steps) for _ in range(trials))
+    per_step = (long_ - short) / (steps - 1)
+    macs = resnet_macs("resnet50", image, classes)
+    name = torch.cuda.get_device_name(dev) if cuda else "cpu"
+    rate = Rate.make(batch / per_step, cnn_train_flops(macs, batch), per_step, name)
+    rate.source = "host clock"
+    log(f"host-fed resnet50: {per_step * 1e3:.1f} ms/step with the batch copied from pinned "
+        f"host memory -> {rate:.0f} img/s ({rate.mfu_note()})")
+    return rate
+
+
+def resnet_phase(device, tiny: bool = False, warmup: int = 2, calls: int = 3) -> dict:
+    """Configs 4 and 5's ResNet legs; returns ``{metric: Rate}``. Each scan
+    leg trains a fresh seed-0 model K steps a dispatch (``warmup``
+    dispatches, then ``calls`` timed by ``utils/devtime.device_time``), its
+    FLOPs 6 x the conv/linear MACs an image; then the host-fed leg. Peak
+    device memory goes into each record on the card."""
+    dev = resolve_device(device)
+    hw = hardware(dev)
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    if tiny:
+        calls = 1
+    rates = {}
+    for config, metric, model_name, leg_batch, leg_image, leg_classes, dt, leg_k in RESNET_LEGS:
+        batch, k = (TINY_RESNET_BATCH, TINY_RESNET_K) if tiny else (leg_batch, leg_k)
+        image = TINY_RESNET_IMAGE if tiny and leg_image > 64 else leg_image
+        classes = 10 if tiny else leg_classes
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        dispatch = resnet_scan_step(model_name, batch, image, classes, dt, k, dev)
+        losses = [float(v) for _ in range(warmup) for v in dispatch().cpu()]
+        t = device_time(dispatch, calls=calls, warmup=1)
+        per_step = t.per_call_s / k
+        macs = resnet_macs(model_name, image, classes)
+        peak = "bf16" if dt == "bfloat16" else "f32"
+        r = Rate.make(batch / per_step, cnn_train_flops(macs, batch), per_step, name,
+                      peak=peak)
+        r.source = t.source
+        rates[metric] = r
+        mem = (torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else None)
+        cut = (f"--tiny: batch {batch} at {image}x{image}, {classes} classes, on the leg of "
+               f"batch {leg_batch} at {leg_image}x{leg_image}; " if tiny else "")
+        emit(config, metric, r, "images/sec/chip", hw,
+             f"{cut}{model_name} (GroupNorm), {image}x{image} synthetic, {classes} classes, "
+             f"batch {batch}, {dt} activations over float32 parameters, SGD lr {RESNET_LR}, "
+             f"{k} steps a dispatch (CUDA graph on the card, a loop on the CPU), "
+             f"device-resident input; {per_step * 1e3:.3f} ms/step ({t.source}); FLOPs 6 x "
+             f"{macs} conv/linear MACs an image",
+             extra={"batch": batch, "image": image, "classes": classes, "dtype": dt,
+                    "steps_per_dispatch": k, "warmup_losses": losses, "peak_mem_gb": mem})
+        del dispatch
+    hb, hi, hc = ((TINY_RESNET_BATCH, TINY_RESNET_IMAGE, 10) if tiny
+                  else (HOSTFED_BATCH, 224, 1000))
+    r = bench_hostfed_resnet50(dev, batch=hb, image=hi, classes=hc,
+                               steps=3 if tiny else HOSTFED_STEPS,
+                               trials=1 if tiny else HOSTFED_TRIALS)
+    rates["resnet50_hostfed_overlapped_input_throughput"] = r
+    cut = f"--tiny: batch {hb} at {hi}x{hi}, {hc} classes; " if tiny else ""
+    emit(5, "resnet50_hostfed_overlapped_input_throughput", r, "images/sec/chip", hw,
+         f"{cut}batch {hb} bf16, each step's input copied from pinned host memory on a side "
+         f"stream while the prior step runs; {r.step_seconds * 1e3:.3f} ms/step (host clock)",
+         extra={"batch": hb, "image": hi, "classes": hc})
     return rates
 
 
@@ -1770,6 +2095,9 @@ LEGS = {
     "health": lambda dev, tiny: health_phase(dev),
     "sched": lambda dev, tiny: sched_phase(dev),
     "gray": lambda dev, tiny: gray_phase(dev),
+    "resnet": lambda dev, tiny: resnet_phase(dev, tiny=tiny),
+    "moe": lambda dev, tiny: moe_phase(dev, tiny=tiny),
+    "decode": lambda dev, tiny: decode_phase(dev, tiny=tiny),
 }
 
 

@@ -50,7 +50,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-members", type=int, default=64,
                    help="upper bound on member ranks (sizes the hub's rank space; members "
                         "may come and go freely below it)")
-    p.add_argument("--model", type=str, default="alexnet", choices=["alexnet", "lenet"],
+    p.add_argument("--model", type=str, default="alexnet",
+                   choices=["alexnet", "lenet", "resnet18", "resnet50"],
                    help="model whose flat size defines the shard map's parameter space "
                         "(must match the training ranks)")
     p.add_argument("--n-params", type=int, default=0,

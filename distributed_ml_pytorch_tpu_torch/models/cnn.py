@@ -1,4 +1,5 @@
-"""LeNet and AlexNet for CIFAR-10 (counterpart of the JAX ``models/cnn.py``).
+"""LeNet and AlexNet for CIFAR-10 (counterpart of the JAX ``models/cnn.py``),
+and the registry that also builds the ResNets of ``models/resnet.py``.
 
 ``nn.Module`` models whose public input is NHWC, as the JAX models take it.
 Inside, convolutions run in ``torch.channels_last``: an NHWC batch permuted to
@@ -56,7 +57,8 @@ def init_he_uniform_(model: nn.Module, seed: int) -> nn.Module:
                 bound = math.sqrt(6.0 / mod.weight[0].numel())
                 mod.weight.copy_(torch.empty(mod.weight.shape).uniform_(
                     -bound, bound, generator=g))
-                mod.bias.zero_()
+                if mod.bias is not None:
+                    mod.bias.zero_()
     return model
 
 
@@ -70,11 +72,12 @@ def _dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``conv`` at float32 as itself; at another ``dtype`` on the cast
-    weight, then the cast bias added (rounded to ``dtype`` once each)."""
+    weight, then the cast bias (if any) added (rounded to ``dtype`` once
+    each)."""
     if dtype == torch.float32:
         return conv(x)
     y = F.conv2d(x, conv.weight.to(dtype), None, conv.stride, conv.padding)
-    return y + conv.bias.to(dtype).reshape(1, -1, 1, 1)
+    return y if conv.bias is None else y + conv.bias.to(dtype).reshape(1, -1, 1, 1)
 
 
 def _dense(fc: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -171,18 +174,28 @@ class AlexNet(nn.Module):
 
 
 def get_model(name: str, num_classes: int = 10, fused_epilogue: bool = False,
-              seed: int = 0, device="cuda", dtype=torch.float32) -> nn.Module:
+              seed: int = 0, device="cuda", dtype=torch.float32, input_size: int = 32,
+              stem: str = "auto") -> nn.Module:
     """Model registry keyed by the CLI ``--model`` flag: seeded, moved to
     ``device`` in ``channels_last``, float32 parameters computing in
     ``dtype``. ``fused_epilogue`` selects the ``relu_pool2`` kernel where the
-    model has one (AlexNet)."""
+    model has one (AlexNet). A ResNet (``resnet18``, ``resnet34``,
+    ``resnet50``, ``resnet101``; ``models/resnet.py``) fixes its stem at
+    construction: ``stem`` as ``get_resnet`` takes it, ``"auto"`` picking it
+    from ``input_size`` (the images' height) as the JAX model picks it from
+    its first input."""
     dev = resolve_device(device)
     name = name.lower()
     if name == "lenet":
         model = LeNet(num_classes=num_classes, dtype=dtype)
     elif name == "alexnet":
         model = AlexNet(num_classes=num_classes, fused_epilogue=fused_epilogue, dtype=dtype)
+    elif name.startswith("resnet"):
+        from distributed_ml_pytorch_tpu_torch.models.resnet import get_resnet
+
+        model = get_resnet(name, num_classes=num_classes, dtype=dtype, stem=stem,
+                           input_size=input_size)
     else:
-        raise ValueError(f"unknown model {name!r} (alexnet or lenet in this port)")
+        raise ValueError(f"unknown model {name!r} (alexnet, lenet or resnet* in this port)")
     init_he_uniform_(model, seed)
     return model.to(device=dev, memory_format=torch.channels_last)

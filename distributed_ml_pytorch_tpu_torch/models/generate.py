@@ -1,5 +1,5 @@
-"""Autoregressive decoding for the Transformer LM (counterpart of the JAX
-``models/generate.py``, without ``generate_tp``).
+"""Autoregressive decoding for the Transformer LM and the Switch-MoE LM
+(counterpart of the JAX ``models/generate.py``, without ``generate_tp``).
 
 - **Prefill** runs the whole prompt through the decode model in one call,
   writing every layer's K/V into the cache.
@@ -177,11 +177,14 @@ def _fuse_qkv_params(state: dict) -> dict:
 
 def _decode_model(model: TransformerLM, cache_size: int, decode_block: int = 0,
                   kv_quant: bool = False) -> TransformerLM:
-    """The decode sibling of ``model``: ``decode=True`` at ``cache_size``,
-    no injected ``attn_fn``, and under ``decode_block`` the fused-qkv layout
-    (and ``kv_quant``). It shares no storage with ``model``: its dense and
+    """The decode sibling of ``model`` (a ``TransformerLM`` or a
+    ``models/moe.MoETransformerLM``, built as its own class from its
+    ``config()``): ``decode=True`` at ``cache_size``, no injected
+    ``attn_fn``, and under ``decode_block`` the fused-qkv layout (and
+    ``kv_quant``). It shares no storage with ``model``: its dense and
     embedding weights are ``model``'s cast to the activation dtype once,
-    its LayerNorm parameters copies in float32."""
+    its other parameters (LayerNorm, a MoE layer's stacked float32 expert
+    weights) copies as they are."""
     if kv_quant and not decode_block:
         # an int8 cache only exists under the blocked path; a caller sizing
         # for the halved footprint must not silently get the exact cache
@@ -193,8 +196,8 @@ def _decode_model(model: TransformerLM, cache_size: int, decode_block: int = 0,
     if decode_block and not cfg["fused_qkv"]:
         state = _fuse_qkv_params(state)
     cfg.update(fused_qkv=cfg["fused_qkv"] or bool(decode_block), remat=False)
-    dec = TransformerLM(**cfg, decode=True, cache_size=cache_size, decode_block=decode_block,
-                        kv_quant=kv_quant, device="meta")
+    dec = type(model)(**cfg, decode=True, cache_size=cache_size, decode_block=decode_block,
+                      kv_quant=kv_quant, device="meta")
     cast = {f"{name}.{leaf}" for name, mod in dec.named_modules()
             if isinstance(mod, (Dense, Embed)) for leaf, _ in mod.named_parameters()}
     state = {k: (v.to(cfg["dtype"]) if k in cast else v).clone() for k, v in state.items()}

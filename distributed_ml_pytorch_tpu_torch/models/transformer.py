@@ -354,15 +354,19 @@ class TransformerLM(nn.Module):
             if pos_encoding == "learned":
                 self.pos_embed = Embed(max_len, d_model, dtype)
             for i in range(n_layers):
-                self.add_module(f"block_{i}", Block(
-                    d_model, n_heads, d_ff, dtype, attn_fn, rope=pos_encoding == "rope",
-                    fused_qkv=fused_qkv, decode=decode, cache_size=cache_size,
-                    decode_block=decode_block, kv_quant=kv_quant))
+                self.add_module(f"block_{i}", self._block(attn_fn))
             self.LayerNorm_0 = LayerNorm(d_model, dtype)
             self.lm_head = Dense(d_model, vocab_size, bias=False, dtype=dtype)
         if not meta:
             init_flax_default_(self, seed)
             self.to(dev)
+
+    def _block(self, attn_fn: Optional[Callable]) -> nn.Module:
+        """One block of this model (``models/moe.py`` builds its own)."""
+        return Block(self.d_model, self.n_heads, self.d_ff, self.dtype, attn_fn,
+                     rope=self.pos_encoding == "rope", fused_qkv=self.fused_qkv,
+                     decode=self.decode, cache_size=self.cache_size,
+                     decode_block=self.decode_block, kv_quant=self.kv_quant)
 
     def config(self) -> dict:
         """The architecture's constructor arguments (no decode, weights or
@@ -414,17 +418,24 @@ class TransformerLM(nn.Module):
         return self.lm_head(x) if self.head else x
 
 
+def lecun_normal(shape, fan_in: int, g: torch.Generator) -> torch.Tensor:
+    """flax's ``lecun_normal``: a normal of std sqrt(1/fan_in)/0.8796 cut at
+    two std, drawn from ``g`` on the host."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    w = torch.empty(shape)
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=g)
+    return w
+
+
 def init_flax_default_(model: nn.Module, seed: int) -> nn.Module:
     """flax's default initialisation, drawn in module order from a seeded
-    host generator (see module docstring)."""
+    host generator (see module docstring). A module with its own parameters
+    draws them in its ``flax_init_(g)`` (``models/moe.MoEMLP``)."""
     g = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, Dense):
-                std = math.sqrt(1.0 / mod.in_features) / 0.87962566103423978
-                w = torch.empty(mod.weight.shape)
-                nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=g)
-                mod.weight.copy_(w)
+                mod.weight.copy_(lecun_normal(mod.weight.shape, mod.in_features, g))
                 if mod.bias is not None:
                     mod.bias.zero_()
             elif isinstance(mod, Embed):
@@ -434,4 +445,6 @@ def init_flax_default_(model: nn.Module, seed: int) -> nn.Module:
             elif isinstance(mod, LayerNorm):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
+            elif hasattr(mod, "flax_init_"):
+                mod.flax_init_(g)
     return model

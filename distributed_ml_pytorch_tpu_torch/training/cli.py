@@ -83,7 +83,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="compute device; cuda raises when no card is present")
     p.add_argument("--mode", type=str, default="ps", choices=["ps"],
                    help="distributed strategy: the async parameter server")
-    p.add_argument("--model", type=str, default="alexnet", choices=["alexnet", "lenet"],
+    p.add_argument("--model", type=str, default="alexnet",
+                   choices=["alexnet", "lenet", "resnet18", "resnet50"],
                    help="model architecture")
     p.add_argument("--dtype", type=str, default="float32", choices=["float32", "bfloat16"],
                    help="compute dtype over float32 parameters (--no-distributed)")

@@ -59,6 +59,29 @@ def lm_train_flops_6nd(n_matmul_params: float, batch: int, seq: int,
     return dense + attn
 
 
+def moe_lm_train_flops(batch: int, seq: int, vocab: int, d_model: int, n_heads: int,
+                       n_layers: int, d_ff: int, n_experts: int, capacity: int,
+                       *, remat: bool = False) -> float:
+    """FLOPs of one ``MoETransformerLM`` train step counted over the
+    products it runs, not 6·N·D over every expert's parameters: per layer
+    the q/k/v/o projections, the router, the dispatch einsum (``[B,S,E,C] x
+    [B,S,D]``), the stacked expert products over all E·B·C slots, the
+    combine einsum and the attention S² term; then the lm_head. A product
+    costs its forward and, in the backward, both operand gradients (3x),
+    except the dispatch, whose one-hot operand takes no gradient (2x).
+    Remat reruns the forwards (+1x)."""
+    t = batch * seq
+    fwd = 1.0 if remat else 0.0
+    dense = 2.0 * t * d_model * (4 * d_model + n_experts)             # q, k, v, o, router
+    experts = 2.0 * 2 * n_experts * batch * capacity * d_model * d_ff  # up and down
+    route = 2.0 * batch * seq * n_experts * capacity * d_model         # one einsum
+    per_layer = ((3 + fwd) * (dense + experts + route) + (2 + fwd) * route)
+    head = (3 + fwd) * 2.0 * t * d_model * vocab
+    attn = flash_attention_train_flops(batch, n_heads, seq, d_model // n_heads, n_layers,
+                                       causal=True, remat=remat)
+    return per_layer * n_layers + head + attn
+
+
 def check_flops_agreement(hybrid: Optional[float], analytic: float,
                           tol: float = 0.15) -> Optional[str]:
     """None when two FLOP counts of one step agree within ``tol``; otherwise

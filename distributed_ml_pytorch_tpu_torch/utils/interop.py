@@ -2,12 +2,13 @@
 ``utils/interop.py``, direction reversed).
 
 ``params_from_jax`` takes a flax param tree as nested dicts of numpy arrays
-(``{"conv1": {"kernel": ..., "bias": ...}, ...}``) and returns the port
-model's ``state_dict``:
+(``{"conv1": {"kernel": ..., "bias": ...}, ...}``, nested deeper for a
+ResNet: ``{"stage1_block1": {"conv1": {"kernel": ...}, "norm1": {"scale":
+..., "bias": ...}}, ...}``) and returns the port model's ``state_dict``:
 
 - conv kernels: flax HWIO -> torch OIHW;
 - dense kernels: flax ``(in, out)`` -> torch ``(out, in)``;
-- biases unchanged.
+- biases and GroupNorm scales unchanged.
 
 No flatten permutation is needed: the port's models flatten in HWC order, as
 the JAX models flatten NHWC, so LeNet's ``fc1`` is only transposed.
@@ -16,7 +17,10 @@ A ``TransformerLM`` names its modules as the flax model does, so its leaves
 map by name: ``tok_embed/embedding``, ``pos_embed/embedding``,
 ``block_i/LayerNorm_{0,1}/{scale,bias}``, ``block_i/attn/{q,k,v,o}/kernel``
 (or ``attn/qkv`` under ``fused_qkv``), ``block_i/Dense_{0,1}/{kernel,bias}``,
-``LayerNorm_0/{scale,bias}`` and ``lm_head/kernel``. Dense kernels transpose
+``LayerNorm_0/{scale,bias}`` and ``lm_head/kernel``; a ``MoETransformerLM``
+has ``block_i/moe/{router/kernel, w_up, b_up, w_down, b_down}`` in place of
+the ``Dense`` layers, the stacked expert weights as they are (``w_up`` is
+``[E, D, F]`` on both sides). Dense kernels transpose
 from ``(in, out)`` to ``(out, in)``; embeddings and LayerNorm parameters are
 unchanged. A ``fused_qkv`` model also takes a tree in the unfused layout: its
 ``attn/{q,k,v}`` kernels are concatenated on the output axis first, as the
@@ -39,6 +43,7 @@ import torch
 import torch.nn as nn
 
 from distributed_ml_pytorch_tpu_torch.utils.serialization import (
+    JAX_LEAF,
     from_jax_layout,
     leaf_order,
     param_name,
@@ -46,30 +51,41 @@ from distributed_ml_pytorch_tpu_torch.utils.serialization import (
 )
 
 
+def _cnn_leaves(model: nn.Module) -> List[Tuple[Tuple[str, ...], str, str]]:
+    """``(flax path, port parameter name, leaf kind)`` for every parameter of
+    a CNN (``utils/serialization.leaf_order``)."""
+    return [(tuple(name.split(".")) + (JAX_LEAF[kind],), param_name((name, kind)), kind)
+            for name, kind in leaf_order(model)]
+
+
+def _check_paths(flat: Mapping, want, what: str) -> None:
+    extra, missing = set(flat) - set(want), set(want) - set(flat)
+    if extra or missing:
+        raise ValueError(
+            f"flax tree does not match the {what}: "
+            f"extra {sorted('/'.join(p) for p in extra)}, "
+            f"missing {sorted('/'.join(p) for p in missing)}")
+
+
 def params_from_jax(tree: Mapping[str, Mapping[str, np.ndarray]],
                     model: nn.Module) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` for ``model`` holding the flax params ``tree``.
 
-    Every layer of ``model`` must be in ``tree`` with matching shapes, and
+    Every leaf of ``model`` must be in ``tree`` with matching shapes, and
     ``tree`` must hold nothing else; a mismatch raises ``ValueError``.
     """
     if _is_lm(model):
         return _lm_from_jax(tree, model)
+    flat = _flatten(tree)
+    leaves = _cnn_leaves(model)
+    _check_paths(flat, [path for path, _, _ in leaves], type(model).__name__)
     params = dict(model.named_parameters())
-    layers = {name for name, _ in leaf_order(model)}
-    extra = set(tree) - layers
-    if extra:
-        raise ValueError(f"flax tree has layers the model lacks: {sorted(extra)}")
     out: Dict[str, torch.Tensor] = {}
-    for name, kind in leaf_order(model):
-        if name not in tree:
-            raise ValueError(f"flax tree lacks layer {name!r}")
-        leaf = "bias" if kind == "bias" else "kernel"
-        arr = torch.from_numpy(np.array(tree[name][leaf], dtype=np.float32))
+    for path, pname, kind in leaves:
+        arr = torch.from_numpy(np.array(flat[path], dtype=np.float32))
         t = from_jax_layout(arr, kind).contiguous()
-        pname = param_name((name, kind))
         if t.shape != params[pname].shape:
-            raise ValueError(f"{name}/{leaf}: flax {tuple(arr.shape)} -> "
+            raise ValueError(f"{'/'.join(path)}: flax {tuple(arr.shape)} -> "
                              f"{tuple(t.shape)}, model {tuple(params[pname].shape)}")
         out[pname] = t
     return out
@@ -80,13 +96,18 @@ def params_to_jax(model: nn.Module) -> Dict[str, Dict[str, np.ndarray]]:
     if _is_lm(model):
         return _lm_to_jax(model)
     params = dict(model.named_parameters())
-    tree: Dict[str, Dict[str, np.ndarray]] = {}
-    for name, kind in leaf_order(model):
-        pname = param_name((name, kind))
-        t = to_jax_layout(params[pname].detach().cpu(), kind)
-        tree.setdefault(name, {})["bias" if kind == "bias" else "kernel"] = (
-            t.contiguous().numpy().copy())
+    tree: Dict = {}
+    for path, pname, kind in _cnn_leaves(model):
+        t = to_jax_layout(params[pname].detach().float().cpu(), kind)
+        _put(tree, path, t.contiguous().numpy().copy())
     return tree
+
+
+def _put(tree: Dict, path: Tuple[str, ...], val) -> None:
+    node = tree
+    for key in path[:-1]:
+        node = node.setdefault(key, {})
+    node[path[-1]] = val
 
 
 # ------------------------------------------------------------------ TransformerLM
@@ -99,7 +120,9 @@ def _is_lm(model: nn.Module) -> bool:
 
 def _lm_leaves(model: nn.Module) -> List[Tuple[Tuple[str, ...], str, bool]]:
     """``(flax path, port parameter name, transpose)`` for every parameter of
-    a ``TransformerLM``."""
+    a ``TransformerLM`` or ``MoETransformerLM`` (whose ``moe`` layers hold
+    their stacked expert weights under the flax names)."""
+    from distributed_ml_pytorch_tpu_torch.models.moe import MoEMLP
     from distributed_ml_pytorch_tpu_torch.models.transformer import Dense, Embed, LayerNorm
 
     mods = dict(model.named_modules())
@@ -107,7 +130,9 @@ def _lm_leaves(model: nn.Module) -> List[Tuple[Tuple[str, ...], str, bool]]:
     for pname, _ in model.named_parameters():
         owner, leaf = pname.rsplit(".", 1)
         mod = mods[owner]
-        if isinstance(mod, Dense):
+        if isinstance(mod, MoEMLP):
+            name, transpose = leaf, False
+        elif isinstance(mod, Dense):
             name, transpose = ("kernel", True) if leaf == "weight" else ("bias", False)
         elif isinstance(mod, Embed):
             name, transpose = "embedding", False
@@ -150,13 +175,7 @@ def _lm_from_jax(tree: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
     if model.fused_qkv and any(p[-3:] == ("attn", "q", "kernel") for p in flat):
         flat = _fuse_qkv_tree(flat)
     leaves = _lm_leaves(model)
-    want = {path for path, _, _ in leaves}
-    extra, missing = set(flat) - want, want - set(flat)
-    if extra or missing:
-        raise ValueError(
-            "flax tree does not match the TransformerLM: "
-            f"extra {sorted('/'.join(p) for p in extra)}, "
-            f"missing {sorted('/'.join(p) for p in missing)}")
+    _check_paths(flat, [path for path, _, _ in leaves], type(model).__name__)
     params = dict(model.named_parameters())
     out: Dict[str, torch.Tensor] = {}
     for path, pname, transpose in leaves:
@@ -174,10 +193,7 @@ def _lm_to_jax(model: nn.Module) -> Dict:
     tree: Dict = {}
     for path, pname, transpose in _lm_leaves(model):
         t = params[pname].detach().float().cpu()
-        node = tree
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = (t.t() if transpose else t).contiguous().numpy().copy()
+        _put(tree, path, (t.t() if transpose else t).contiguous().numpy().copy())
     return tree
 
 

@@ -5,10 +5,13 @@ the server's central vector ARE this flat float32 vector, so the port must
 lay it out exactly as ``jax.flatten_util.ravel_pytree`` lays out the flax
 param tree of the same model:
 
-- layers in sorted module-name order (``classifier``, ``conv1`` … ``conv5``;
-  ``conv1``, ``conv2``, ``fc1`` …), and ``bias`` before ``kernel`` in each;
+- leaves in the sorted order of their module paths (``classifier``,
+  ``conv1`` … ``conv5``; ``conv1``, ``conv2``, ``fc1`` …; a ResNet's
+  ``classifier``, ``stage1_block1.conv1`` … ``stem_norm``), and ``bias``
+  before ``kernel`` (or a GroupNorm's ``scale``) in each;
 - each leaf in its JAX layout: a conv kernel as HWIO (the port's weight is
-  OIHW), a dense kernel as ``(in, out)`` (the port's is ``(out, in)``).
+  OIHW), a dense kernel as ``(in, out)`` (the port's is ``(out, in)``), a
+  norm's scale and bias as they are.
 
 ``ravel_model_params(model)`` emits that vector; ``unravel_model_params``
 writes one back into the model's parameters in place (the reference's
@@ -23,24 +26,45 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 import torch.nn as nn
 
-#: (layer name, leaf kind) — kind is "bias", "conv" or "dense"
+#: (module path, leaf kind): the path dotted as ``named_modules`` gives it
+#: (``conv1``, ``stage1_block1.norm2``); kind is "bias", "conv", "dense" or
+#: "scale" (a norm's weight)
 Leaf = Tuple[str, str]
+
+#: the flax leaf name of each kind
+JAX_LEAF = {"bias": "bias", "conv": "kernel", "dense": "kernel", "scale": "scale"}
+
+
+def _kind(mod: nn.Module, leaf: str) -> str:
+    if leaf == "bias":
+        return "bias"
+    if isinstance(mod, nn.Conv2d):
+        return "conv"
+    if isinstance(mod, nn.Linear):
+        return "dense"
+    if isinstance(mod, (nn.GroupNorm, nn.LayerNorm)):
+        return "scale"
+    raise TypeError(f"layer {type(mod).__name__} has no flat layout")
 
 
 def leaf_order(model: nn.Module) -> List[Leaf]:
-    """The JAX flat order of ``model``'s layers and leaves."""
-    layers = []
-    for name, mod in model.named_children():
-        if isinstance(mod, nn.Conv2d):
-            layers.append((name, "conv"))
-        elif isinstance(mod, nn.Linear):
-            layers.append((name, "dense"))
-        elif any(True for _ in mod.parameters()):
-            raise TypeError(f"layer {name!r} ({type(mod).__name__}) has no flat layout")
-    out: List[Leaf] = []
-    for name, kind in sorted(layers):
-        out += [(name, "bias"), (name, kind)]
-    return out
+    """The JAX flat order of ``model``'s parameters. ``ravel_pytree`` sorts
+    the flax tree's keys at every level, so the leaves come in the order of
+    their paths: the module names split on the dots, then the flax leaf
+    name, compared level by level as strings (``stage3_block10`` before
+    ``stage3_block2``; ``bias`` before ``kernel`` and ``scale``)."""
+    mods = dict(model.named_modules())
+    keyed = []
+    for pname, _ in model.named_parameters():
+        owner, _, leaf = pname.rpartition(".")
+        if not owner or leaf not in ("weight", "bias"):
+            raise TypeError(f"parameter {pname!r} has no flat layout")
+        try:
+            kind = _kind(mods[owner], leaf)
+        except TypeError as e:
+            raise TypeError(f"layer {owner!r}: {e}") from None
+        keyed.append((tuple(owner.split(".")) + (JAX_LEAF[kind],), (owner, kind)))
+    return [leaf for _, leaf in sorted(keyed)]
 
 
 def param_name(leaf: Leaf) -> str:

@@ -155,7 +155,7 @@ def test_alexnet_downpour_step_launches_no_kernel_on_cpu():
 
 def test_bench_all_main_rejects_unknown_legs(capsys):
     with pytest.raises(SystemExit):
-        bench_all.main(["--device", "cpu", "--legs", "moe"])
+        bench_all.main(["--device", "cpu", "--legs", "vgg"])
     assert "unknown" in capsys.readouterr().err
 
 
@@ -599,3 +599,72 @@ def test_durability_and_health_legs_on_cpu_emit_the_jax_metric_names(capsys, leg
         src = fh.read()
     for metric, _unit in DURABILITY_LEGS[leg]:
         assert f'"{metric}"' in src, metric
+
+
+# ------------------------------------------------------------------ ResNet, MoE, decode legs
+
+RESNET_METRICS = ["resnet18_cifar10_train_throughput", "resnet18_cifar10_train_throughput_bf16",
+                  "resnet50_imagenet_shape_train_throughput",
+                  "resnet50_imagenet_shape_train_throughput_bf16",
+                  "resnet50_hostfed_overlapped_input_throughput"]
+MOE_METRICS = ["moe_lm_4expert_seq2048_train_throughput"]
+DECODE_METRICS = ["gpt2_small_decode_throughput", "gpt2_small_decode_hbm_utilization",
+                  "gpt2_small_decode_throughput_int8_kv"]
+
+
+def _jax_src():
+    with open(os.path.join(ROOT, "bench_all.py")) as fh:
+        return fh.read()
+
+
+def test_resnet_moe_decode_legs_on_cpu_emit_the_jax_metric_names(capsys, spies):
+    assert bench_all.main(["--device", "cpu", "--tiny", "--legs", "resnet,moe,decode"]) == 0
+    recs = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+            if line.startswith("{")]
+    assert [r["metric"] for r in recs] == RESNET_METRICS + MOE_METRICS + DECODE_METRICS
+    src = _jax_src()
+    for r in recs:
+        assert f'"{r["metric"]}"' in src, r["metric"]
+        assert r["hardware"] == "1x cpu" and r["value"] > 0 and "--tiny" in r["note"]
+    configs = [r["config"] for r in recs]
+    assert configs == [4, 4, 5, 5, 5, 6, 8, 8, 8]
+    # the ResNet legs' FLOPs are 6 x the MACs of a float32 copy at the leg's shape
+    macs = {32: bench_all.resnet_macs("resnet18", 32, 10),
+            72: bench_all.resnet_macs("resnet50", 72, 10)}
+    for r in recs[:4]:
+        assert r["flops_per_step"] == 6 * macs[r["image"]] * r["batch"]
+        assert len(r["warmup_losses"]) == 2 * bench_all.TINY_RESNET_K
+    # the MoE model has no detachable head: the AD step, as JAX's leg
+    assert spies == {"fused_head": 0, "ad": 1}
+    moe = recs[5]
+    assert moe["capacity"] == int(2.0 * bench_all.TINY_MOE_SEQ / 4)
+    assert recs[6]["new_tokens"] == bench_all.TINY_DECODE_NEW
+    assert 0 < recs[7]["value"] < 100 and recs[7]["stream_bytes_per_s"] > 0
+
+
+def test_moe_flops_count_the_products_run():
+    """A hand count at B 1, S 8, D 4, H 2, F 6, E 2, C 8, V 5, one layer."""
+    t, d, f, e, c, v = 8, 4, 6, 2, 8, 5
+    dense = 2 * t * d * (4 * d + e)
+    experts = 2 * 2 * e * c * d * f
+    route = 2 * t * e * c * d
+    attn = tflops.flash_attention_train_flops(1, 2, 8, 2, 1, causal=True)
+    want = 3 * (dense + experts + route) + 2 * route + 3 * 2 * t * d * v + attn
+    assert tflops.moe_lm_train_flops(1, 8, v, d, 2, 1, f, e, c) == want
+    # the count the leg uses reads the model's own capacity
+    from distributed_ml_pytorch_tpu_torch.models import MoETransformerLM
+
+    moe = MoETransformerLM(vocab_size=v, d_model=d, n_heads=2, n_layers=1, d_ff=f,
+                           n_experts=e, capacity_factor=2.0, max_len=8, device="cpu")
+    assert bench_all.moe_lm_flops(moe, 1, 8) == want
+
+
+def test_decode_timing_is_the_smoke_phase_timing():
+    """``chip_smoke.py`` phase 8 times ``generate()`` through the leg's
+    ``timed_generate``: one synchronized host-clock call."""
+    with open(os.path.join(ROOT, "chip_smoke.py")) as fh:
+        assert "bench_all.timed_generate(model, prompt, new, quant)" in fh.read()
+    lm = TransformerLM(**dict(bench_all.TINY_LM, max_len=64), device="cpu")
+    prompt = torch.zeros((2, 4), dtype=torch.long)
+    out, seconds = bench_all.timed_generate(lm, prompt, 3)
+    assert out.shape == (2, 7) and seconds > 0

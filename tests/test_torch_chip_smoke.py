@@ -258,3 +258,28 @@ def test_gray_fleet_phase(capsys):
     assert b["autoscaler"]["scaled_up"] == 1 and b["autoscaler"]["scaled_down"] == 1
     assert b["decode_steps"] > 0 and b["reference_calls"] == 2 * b["decode_steps"]
     assert not any(launches.values())  # the CPU runs the plain versions
+
+
+def test_model_families_phase(routed, capsys):
+    """Phase 25 at the rehearsal's sizes: ResNet trainer steps (both stems,
+    both dtypes), the ResNet-18 DownPour world, the MoE LM's steps with one
+    layer's attention checked and its blocked generate against the plain
+    decode path."""
+    launches, errors = cs.phase_model_families(torch, device="cpu", tiny=True)
+    lines = _lines(capsys)
+    assert list(lines) == ["resnet_trainer_steps", "resnet_downpour_world", "moe_lm_steps",
+                           "moe_generate", "model_families"]
+    runs = lines["resnet_trainer_steps"]["runs"]
+    assert [(r["model"], r["dtype"]) for r in runs] == [
+        ("resnet18", "float32"), ("resnet18", "bfloat16"), ("resnet50", "float32"),
+        ("resnet50", "bfloat16")]
+    assert all(r["losses"][-1] < r["losses"][0] for r in runs)
+    assert lines["resnet_downpour_world"]["flat_floats"] == 11_173_962
+    n_layers = 2  # bench_all.TINY_LM
+    assert launches == {"flash_fwd": n_layers * cs.MOE_STEPS,
+                        "flash_bwd_fused": n_layers * cs.MOE_STEPS,
+                        "decode_attention": 0, "flat_axpy": 0}
+    gen = lines["moe_generate"]
+    assert gen["reference_calls"] == n_layers * gen["padded_steps"]
+    assert gen["rows_equal_plain_path"] == gen["batch"]
+    assert set(errors) == {"flash_fwd", "flash_bwd_fused", "flat_axpy"}

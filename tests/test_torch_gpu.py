@@ -1977,3 +1977,127 @@ def test_fleet_migrates_token_identically_on_the_card(cuda):
         thread.join(timeout=10)
         for t in world.values():
             t.close()
+
+
+# ------------------------------------------------------------------ ResNet and the MoE LM
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,size", [("resnet18", 32), ("resnet50", 72)])
+def test_resnet_steps_on_the_card_equal_the_cpu_steps(cuda, name, size):
+    """Two float32 SGD steps of the same seeded ResNet on the card (no TF32)
+    and on the CPU: losses within 1e-4 relative; the bfloat16 model's steps
+    on the card are finite and fall."""
+    from distributed_ml_pytorch_tpu_torch.device import full_float32
+    from distributed_ml_pytorch_tpu_torch.models import get_model
+    from distributed_ml_pytorch_tpu_torch.training.trainer import (
+        SGD,
+        create_train_state,
+        make_train_step,
+    )
+
+    full_float32()
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(8, size, size, 3)).astype(np.float32))
+    y = torch.from_numpy(np.arange(8) % 10)
+    losses = {}
+    for dev, dtype in (("cpu", torch.float32), ("cuda", torch.float32),
+                       ("cuda", torch.bfloat16)):
+        model = get_model(name, seed=0, device=dev, dtype=dtype, input_size=size)
+        tx = SGD(0.001)
+        state, step = create_train_state(model, tx), make_train_step(model, tx)
+        losses[dev, dtype] = [float(step(state, x.to(dev), y.to(dev))[1]) for _ in range(3)]
+    np.testing.assert_allclose(losses["cuda", torch.float32], losses["cpu", torch.float32],
+                               rtol=1e-4)
+    bf = losses["cuda", torch.bfloat16]
+    assert np.isfinite(bf).all() and bf[-1] < bf[0]
+
+
+@pytest.mark.gpu
+def test_resnet18_downpour_step_launches_k1_once_a_step(cuda):
+    from distributed_ml_pytorch_tpu_torch.models import get_model
+    from distributed_ml_pytorch_tpu_torch.parallel.async_ps import (
+        default_downpour_tx,
+        init_downpour_accumulator,
+        make_downpour_device_step,
+    )
+    from distributed_ml_pytorch_tpu_torch.training.trainer import loss_and_grads
+
+    model = get_model("resnet18", seed=0, device=cuda)
+    tx = default_downpour_tx(0.001)
+    opt_state = tx.init(list(model.parameters()))
+    _flat, n, pad, accum = init_downpour_accumulator(model)
+    assert n == 11_173_962 and (n + pad) % 128 == 0
+    step = make_downpour_device_step(model, tx, n, pad)
+    x = torch.randn(4, 32, 32, 3, device=cuda)
+    y = torch.arange(4, device=cuda)
+    before = tfu.launches
+    for _ in range(3):
+        loss_and_grads(model, x, y)
+        step(opt_state, accum)
+    torch.cuda.synchronize()
+    assert tfu.launches == before + 3
+    assert bool(torch.isfinite(accum).all()) and float(accum.abs().sum()) > 0
+
+
+def _tiny_moe(device, dtype, seed=0, **kw):
+    from distributed_ml_pytorch_tpu_torch.models import MoETransformerLM
+
+    return MoETransformerLM(vocab_size=128, d_model=64, n_heads=2, n_layers=2, d_ff=128,
+                            n_experts=4, dtype=dtype, seed=seed, device=device, **kw)
+
+
+@pytest.mark.gpu
+def test_moe_step_on_the_card_runs_the_flash_kernels(cuda):
+    """A bf16 MoE SGD step at 2 x 256 on the card launches K4 and K5 once a
+    layer and never the plain versions; its loss is the CPU step's within
+    2^-5 relative (bf16 attention and routing roundings)."""
+    from distributed_ml_pytorch_tpu_torch.ops import attention as tat
+    from distributed_ml_pytorch_tpu_torch.parallel.fsdp import make_fsdp_lm_train_step
+    from distributed_ml_pytorch_tpu_torch.parallel.seq_parallel import create_lm_train_state
+    from distributed_ml_pytorch_tpu_torch.training.trainer import SGD
+
+    tok = torch.from_numpy(np.random.default_rng(2).integers(0, 128, (2, 256)))
+    tgt = torch.roll(tok, -1, dims=1)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        moe = _tiny_moe(dev, torch.bfloat16, max_len=256)
+        tx = SGD(0.1)
+        step = make_fsdp_lm_train_step(moe, tx)
+        before = dict(tat.launches)
+        _state, loss = step(create_lm_train_state(moe, tx), tok.to(dev), tgt.to(dev))
+        losses[dev] = float(loss)
+        counts = {k: tat.launches[k] - before[k] for k in before}
+    assert counts == {"flash_fwd": 2, "flash_bwd_fused": 2, "flash_bwd_dq": 0,
+                      "flash_bwd_dkv": 0}
+    assert losses["cuda"] == pytest.approx(losses["cpu"], rel=2.0 ** -5)
+
+
+@pytest.mark.gpu
+def test_moe_generate_on_the_card_equals_the_cpu_tokens(cuda):
+    """Greedy float32 MoE decode on the blocked path: the card's tokens equal
+    the CPU's, K8 once a layer and decode step, the reference never."""
+    import importlib
+
+    from distributed_ml_pytorch_tpu_torch.ops import decode_attention as tda
+
+    gen = importlib.import_module("distributed_ml_pytorch_tpu_torch.models.generate")
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(0, 128, (4, 12)))
+    out = {}
+    real_ref, ref_calls = tda.decode_attention_reference, [0]
+
+    def counted(*a, **k):
+        ref_calls[0] += 1
+        return real_ref(*a, **k)
+
+    for dev in ("cpu", "cuda"):
+        moe = _tiny_moe(dev, torch.float32, seed=1, capacity_factor=4.0, max_len=64)
+        tda.launches = 0
+        ref_calls[0] = 0
+        tda.decode_attention_reference = counted
+        try:
+            out[dev] = gen.generate(moe, prompt.to(dev), 33).cpu()
+        finally:
+            tda.decode_attention_reference = real_ref
+        calls = (tda.launches, ref_calls[0])
+    assert calls == (2 * 32, 0)
+    assert torch.equal(out["cuda"], out["cpu"])

@@ -95,7 +95,7 @@ def test_get_model_is_seeded_and_channels_last():
     assert torch.equal(ravel_model_params(a), ravel_model_params(b))
     assert a.conv2.weight.is_contiguous(memory_format=torch.channels_last)
     with pytest.raises(ValueError):
-        get_model("resnet18", device="cpu")
+        get_model("vgg16", device="cpu")
 
 
 def test_lenet_dropout_uses_the_given_generator():
