@@ -398,6 +398,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``nvidia-smi`` name and power limit; the launches join the ``kernels``
    line, and K1's, K4's, K5's and K8's errors its ``max_abs_err``.
 
+26. the device mesh (``runtime/mesh.py``) and the data- and tensor-parallel
+   family, each part with the kernel counts zeroed just before it and read
+   just after: (a) a one-rank NCCL world in this process: five sync-DP and
+   five FSDP steps of the unfused AlexNet at b64 (float32, lr 0.05, cuDNN
+   deterministic), each bit-identical to ``training.trainer.
+   make_train_step``'s step from the same init; (b) two processes sharing
+   the card over gloo (``MESH_RANKS``): sync DP and FSDP at 2 × b32 against
+   the one-rank b64 steps within ``MESH_DP_TOL``, FSDP against sync DP within
+   it, a local-SGD round of K = 10 (the ranks' parameters identical after
+   the average) and the reference p2p demo; ``param_shard_fraction``, each
+   rank's peak memory and its ``host_staged`` printed; (c) GPT-2-small
+   widths in bfloat16 (RoPE off, learned positions), global batch 8 × 2048
+   over the two ranks: ``--mode fsdp`` (4 × 2048 a rank) and ``--mode tp``
+   (6 of 12 heads, 25,152 of the 50,304 vocabulary rows a rank), three SGD
+   steps each (lr 0.5): losses finite and falling, K4 and K5 once a layer
+   and step on each rank (K6 by the size rule), the plain attention never,
+   K4 and K5 held to their plain versions (``ATTN_TOL``) on the step's own
+   local tensors, and the first step's loss within ``MESH_LM_LOSS_RTOL`` of
+   the one-rank step's on the same batch; (d) ``generate_tp`` over the two
+   ranks, greedy, float32, GPT-2-small widths (b4, prompt 64, 33 new
+   tokens): K8 once a layer and decode step on each rank, the reference
+   never, every token equal to ``generate()`` on one rank. One line each,
+   with the card's ``nvidia-smi`` name and power limit; the launches join
+   the ``kernels`` line and K4's, K5's errors its ``max_abs_err``.
+
 Then the ``kernels`` line, the ``nvidia-smi`` name/power line, and last the
 result line ``{"ok": true, "device": {...}}``. Without a card, or without
 the package beside this file, it exits non-zero and prints no result.
@@ -406,6 +431,7 @@ the package beside this file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import faulthandler
+import hashlib
 import importlib
 import json
 import math
@@ -5610,6 +5636,468 @@ def phase_model_families(torch, device="cuda", tiny=False):
     return launches, errors
 
 
+# ------------------------------------------------------------------ phase 26
+
+MESH_RANKS = 2
+MESH_DP_STEPS, MESH_DP_BATCH, MESH_LR = 5, 64, 0.05
+#: two ranks of b32 against one of b64 (float32 AlexNet, five SGD steps):
+#: gloo adds the two halves' gradients and cuDNN picks its algorithms per
+#: batch, so the sums differ in order (about 1e-6 relative a step)
+MESH_DP_TOL = dict(rtol=1e-4, atol=1e-5)
+MESH_LOCAL_K = 10
+MESH_LM_BATCH, MESH_LM_SEQ, MESH_LM_STEPS = 8, 2048, 3
+#: the first step's loss over two ranks against one rank's, bfloat16: the
+#: one-rank loss is a bfloat16 number near ln(50304) = 10.8, whose spacing
+#: there is 2^-4 (0.6 %); the tp loss is summed in float32
+MESH_LM_LOSS_RTOL = 1e-2
+MESH_GEN = (4, 64, 33)  # batch, prompt, new tokens: the blocked path, two blocks
+TINY_MESH = dict(dp_batch=8, lm_batch=4, lm_seq=128, gen=(2, 8, 20))
+
+
+def _flat_params(torch, model):
+    return torch.cat([p.detach().float().reshape(-1).cpu() for p in model.parameters()])
+
+
+def _mesh_alexnet(device):
+    """A seed-0 unfused AlexNet (the mesh modes build the unfused CNN)."""
+    from distributed_ml_pytorch_tpu_torch.models import get_model
+
+    return get_model("alexnet", seed=0, device=device)
+
+
+def _mesh_dp_steps(torch, mesh, device, batch):
+    """Sync-DP and FSDP steps of this rank's rows, MESH_DP_STEPS each;
+    returns their losses, parameters (flat, host), step ms, the FSDP
+    state's shard fraction and the peak memory."""
+    from distributed_ml_pytorch_tpu_torch import bench_all
+    from distributed_ml_pytorch_tpu_torch.parallel import fsdp, sync
+    from distributed_ml_pytorch_tpu_torch.training.trainer import SGD, create_train_state
+
+    images, labels = bench_all.make_batch(batch)
+    bx, by = sync.shard_batch(mesh, images, labels)
+    out = {}
+    for name in ("sync", "fsdp"):
+        _peak_gb(torch, device, reset=True)
+        model = _mesh_alexnet(device)
+        tx = SGD(MESH_LR)
+        if name == "sync":
+            state = sync.replicate(mesh, create_train_state(model, tx))
+            step = sync.make_sync_train_step(model, tx, mesh)
+        else:
+            state = fsdp.create_fsdp_train_state(model, tx, mesh)
+            step = fsdp.make_fsdp_train_step(model, tx, mesh)
+        losses, times = [], []
+        for _ in range(MESH_DP_STEPS):
+            _sync(torch, device)
+            t0 = time.perf_counter()
+            losses.append(float(step(state, bx, by)[1]))
+            times.append(time.perf_counter() - t0)
+        rec = {"losses": losses, "step_ms": 1e3 * sum(times[1:]) / (len(times) - 1),
+               "peak_mem_gb": _peak_gb(torch, device)}
+        if name == "fsdp":
+            rec["param_shard_fraction"] = fsdp.param_shard_fraction(state)
+            state.sharding.gather()
+        out[name] = (rec, _flat_params(torch, model))
+    out["sync"][0]["all_reduce_ms"] = _collective_ms(
+        torch, device, lambda t: mesh.all_reduce(t, "data"), ALEXNET_PADDED)
+    return out
+
+
+def _collective_ms(torch, device, op, n, reps=5):
+    """Host ms of ``op`` on a float32 tensor of ``n`` elements on
+    ``device`` (one warm-up, then the mean of ``reps``, each synchronized)."""
+    t = torch.ones(n, device=device)
+    op(t)
+    times = []
+    for _ in range(reps):
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        op(t)
+        _sync(torch, device)
+        times.append(time.perf_counter() - t0)
+    return 1e3 * sum(times) / reps
+
+
+def _mesh_one_rank(torch, device, backend, batch):
+    """Phase 26 (a): a one-rank world of ``backend``: sync DP and FSDP
+    against ``make_train_step``, bit for bit."""
+    from distributed_ml_pytorch_tpu_torch import bench_all
+    from distributed_ml_pytorch_tpu_torch.runtime.mesh import make_mesh, run_threaded
+    from distributed_ml_pytorch_tpu_torch.training.trainer import (
+        SGD,
+        create_train_state,
+        make_train_step,
+    )
+
+    images, labels = bench_all.make_batch(batch)
+    single = _mesh_alexnet(device)
+    tx = SGD(MESH_LR)
+    state = create_train_state(single, tx)
+    step = make_train_step(single, tx)
+    x, y = torch.from_numpy(images).to(device), torch.from_numpy(labels).to(device)
+    losses = [float(step(state, x, y)[1]) for _ in range(MESH_DP_STEPS)]
+    ref = _flat_params(torch, single)
+    del single, state, step
+    got = run_threaded(1, lambda w: _mesh_dp_steps(torch, make_mesh(world=w), device, batch),
+                       backend=backend, device=device, timeout_s=600.0)[0]
+    for name, (rec, flat) in got.items():
+        require(rec["losses"] == losses and torch.equal(flat, ref),
+                f"one-rank {backend} {name} steps differ from make_train_step's: losses "
+                f"{rec['losses']} vs {losses}, max param diff "
+                f"{float((flat - ref).abs().max())}")
+    return {"losses": losses, "ref": ref, "runs": {k: v[0] for k, v in got.items()}}
+
+
+def _mesh_lm_model(torch, widths, seq, dtype, seed, device):
+    from distributed_ml_pytorch_tpu_torch.models import TransformerLM
+
+    return TransformerLM(**widths, max_len=seq, dtype=dtype, seed=seed, device=device)
+
+
+def _mesh_lm_batch(widths, batch, seq):
+    np = __import__("numpy")
+    from distributed_ml_pytorch_tpu_torch.parallel.seq_parallel import next_token_targets
+
+    tok = np.random.default_rng(0).integers(0, widths["vocab_size"], (batch, seq))
+    return tok, next_token_targets(tok)
+
+
+def _mesh_lm_rank(torch, world, device, tiny):
+    """Phase 26 (c) on one rank: fsdp, then tp, MESH_LM_STEPS steps each."""
+    from distributed_ml_pytorch_tpu_torch import bench_all
+    from distributed_ml_pytorch_tpu_torch.ops import attention as at
+    from distributed_ml_pytorch_tpu_torch.parallel import fsdp
+    from distributed_ml_pytorch_tpu_torch.parallel import tensor_parallel as tpm
+    from distributed_ml_pytorch_tpu_torch.runtime.mesh import make_mesh
+    from distributed_ml_pytorch_tpu_torch.training.trainer import SGD
+
+    widths = bench_all.TINY_LM if tiny else bench_all.GPT2_SMALL
+    batch, seq = ((TINY_MESH["lm_batch"], TINY_MESH["lm_seq"]) if tiny
+                  else (MESH_LM_BATCH, MESH_LM_SEQ))
+    tokens, targets = _mesh_lm_batch(widths, batch, seq)
+    out = {}
+    for mode, shape in (("fsdp", {"data": MESH_RANKS}),
+                        ("tp", {"data": 1, "model": MESH_RANKS})):
+        mesh = make_mesh(shape, world)
+        _peak_gb(torch, device, reset=True)
+        lm = _mesh_lm_model(torch, widths, seq, torch.bfloat16, 0, device)
+        tx = SGD(LM_LR)
+        if mode == "fsdp":
+            state = fsdp.create_fsdp_train_state(lm, tx, mesh)
+            step = fsdp.make_fsdp_lm_train_step(lm, tx, mesh)
+            tok, tgt = fsdp.shard_fsdp_batch(mesh, tokens, targets)
+        else:
+            state = tpm.create_tp_train_state(lm, tx, mesh)
+            step = tpm.make_tp_train_step(lm, tx, mesh)
+            tok, tgt = tpm.shard_tp_batch(mesh, tokens, targets)
+        check = device == "cuda" and mesh.rank == (0 if mode == "tp" else 1)
+        seen, restore = _record_first_call(torch, at, "flash_bwd_fused_cuda")
+        _zero_attention_launches(at)
+        losses, times = [], []
+        try:
+            with _plain_attention_calls(at) as plain:
+                for _ in range(MESH_LM_STEPS):
+                    _sync(torch, device)
+                    t0 = time.perf_counter()
+                    losses.append(float(step(state, tok, tgt)[1]))
+                    times.append(time.perf_counter() - t0)
+        finally:
+            restore()
+        launches = dict(at.launches)
+        rec = {"losses": losses, "step_ms": 1e3 * sum(times[1:]) / (len(times) - 1),
+               "rank_batch": list(tok.shape), "layers": widths["n_layers"],
+               "launches": launches,
+               "plain_attention_calls": plain.n, "peak_mem_gb": _peak_gb(torch, device),
+               "host_staged": mesh.host_staged}
+        if mode == "fsdp":
+            rec["param_shard_fraction"] = fsdp.param_shard_fraction(state)
+            sh = state.sharding
+            rec["gather_ms"] = _collective_ms(torch, device, lambda t: (sh.gather(), sh.free()),
+                                              1, reps=2)
+        else:
+            rec["heads"] = lm.blocks()[0].attn.n_heads
+            rec["vocab_rows"] = lm.lm_head.weight.shape[0]
+            # one of the 48 float32 sums a step: a block's (batch, seq, d) output
+            rec["all_reduce_ms"] = _collective_ms(
+                torch, device, lambda t: mesh.all_reduce(t, "model"),
+                batch * seq * widths["d_model"])
+        args = seen.pop("args", None)
+        if args is not None:
+            rec["q_shape"] = list(args[0].shape)
+        if check:
+            errs, ms, check_s = _long_check(torch, at, args, ("flash_fwd", "flash_bwd_fused"))
+            rec["kernels"] = {k: {"ms": ms[k], "errors": errs[k]} for k in ms}
+            rec["plain_check_s"] = check_s
+        out[mode] = rec
+        del lm, state, step, args
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_gen_shape(tiny):
+    from distributed_ml_pytorch_tpu_torch import bench_all
+
+    return ((bench_all.TINY_LM, TINY_MESH["gen"]) if tiny
+            else (bench_all.GPT2_SMALL, MESH_GEN))
+
+
+def _mesh_gen_model(torch, tiny, device):
+    gen = importlib.import_module("distributed_ml_pytorch_tpu_torch.models.generate")
+    widths, (b, p, new) = _mesh_gen_shape(tiny)
+    lm = _mesh_lm_model(torch, widths, p + new + gen.DECODE_BLOCK, torch.float32, 1, device)
+    prompt = __import__("numpy").random.default_rng(3).integers(0, widths["vocab_size"], (b, p))
+    return lm, prompt, new
+
+
+def _mesh_gen_rank(torch, world, device, tiny):
+    """Phase 26 (d) on one rank: greedy ``generate_tp`` over the ranks."""
+    gen = importlib.import_module("distributed_ml_pytorch_tpu_torch.models.generate")
+    from distributed_ml_pytorch_tpu_torch.ops import decode_attention as da
+    from distributed_ml_pytorch_tpu_torch.runtime.mesh import make_mesh
+
+    lm, prompt, new = _mesh_gen_model(torch, tiny, device)
+    mesh = make_mesh({"data": 1, "model": MESH_RANKS}, world)
+    da.launches = 0
+    with _ReferenceCalls(da) as ref:
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        out = gen.generate_tp(lm, prompt, new, mesh)
+        _sync(torch, device)
+        wall = time.perf_counter() - t0
+    blocked, padded = gen.uses_block_decode(lm, prompt.shape[1], new)
+    return {"tokens": out.cpu().tolist(), "k8_launches": da.launches,
+            "reference_calls": ref.n, "blocked": blocked, "padded_steps": padded - prompt.shape[1],
+            "n_layers": lm.n_layers, "wall_s": wall, "host_staged": mesh.host_staged}
+
+
+def mesh_child(rank: int, port: str, out_path: str, device: str = "cuda", tiny: bool = False,
+               parts: str = "dp,lm,gen") -> None:
+    """One of the MESH_RANKS processes of phase 26 (b)-(d): joins the gloo
+    world on ``port`` and writes its part's results to ``out_path`` (JSON)
+    and ``out_path + ".pt"`` (the CNN parameters)."""
+    import torch
+
+    from distributed_ml_pytorch_tpu_torch.device import full_float32
+    from distributed_ml_pytorch_tpu_torch.parallel import p2p
+    from distributed_ml_pytorch_tpu_torch.parallel.local_sgd import make_local_sgd_round
+    from distributed_ml_pytorch_tpu_torch.parallel.sync import shard_batch
+    from distributed_ml_pytorch_tpu_torch.runtime.mesh import init_distributed, make_mesh
+    from distributed_ml_pytorch_tpu_torch.training.trainer import SGD, create_train_state
+
+    world = init_distributed("gloo", "localhost", port, MESH_RANKS, rank, device=device)
+    if device == "cuda":
+        full_float32()
+        torch.backends.cudnn.deterministic = True
+    out, tensors = {"rank": rank}, {}
+    if "dp" in parts:
+        from distributed_ml_pytorch_tpu_torch import bench_all
+
+        mesh = make_mesh(world=world)
+        batch = TINY_MESH["dp_batch"] if tiny else MESH_DP_BATCH
+        got = _mesh_dp_steps(torch, mesh, device, batch)
+        out["dp"] = {k: v[0] for k, v in got.items()}
+        tensors = {k: v[1] for k, v in got.items()}
+        model = _mesh_alexnet(device)
+        tx = SGD(MESH_LR)
+        state = create_train_state(model, tx)
+        xs, ys = bench_all.make_batch(batch, seed=1, k=MESH_LOCAL_K)
+        _, losses = make_local_sgd_round(model, tx, mesh)(state,
+                                                         *shard_batch(mesh, xs, ys, dim=1))
+        flat = _flat_params(torch, model)
+        out["local_sgd"] = {"k": MESH_LOCAL_K, "losses": losses.tolist(), "step": state.step,
+                            "param_sum": float(flat.double().sum()),
+                            "param_sha256": hashlib.sha256(flat.numpy().tobytes()).hexdigest()}
+        out["p2p_demo"] = p2p.run_demo(mesh=mesh).tolist()
+        out["host_staged_dp"] = mesh.host_staged
+    if "lm" in parts:
+        out["lm"] = _mesh_lm_rank(torch, world, device, tiny)
+    if "gen" in parts:
+        out["gen"] = _mesh_gen_rank(torch, world, device, tiny)
+    torch.save(tensors, out_path + ".pt")
+    with open(out_path, "w") as fh:
+        json.dump(out, fh)
+
+
+def _mesh_processes(device, tiny, parts, tmp):
+    """Run MESH_RANKS ``mesh_child`` processes; returns their results."""
+    from distributed_ml_pytorch_tpu_torch.launch import _free_port
+
+    port = _free_port()
+    paths = [os.path.join(tmp, f"mesh_rank{r}.json") for r in range(MESH_RANKS)]
+    code = ("import sys, chip_smoke; chip_smoke.mesh_child(int(sys.argv[1]), sys.argv[2], "
+            "sys.argv[3], sys.argv[4], sys.argv[5] == '1', sys.argv[6])")
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), port, paths[r], device,
+                               "1" if tiny else "0", parts], cwd=ROOT)
+             for r in range(MESH_RANKS)]
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    require(all(c == 0 for c in codes), f"phase 26's rank processes exited with {codes}")
+    out = []
+    for path in paths:
+        with open(path) as fh:
+            out.append(json.load(fh))
+    return out, paths
+
+
+def phase_mesh(torch, device="cuda", tiny=False, parts="dp,lm,gen"):
+    """Phase 26: the one-rank NCCL world here, then the two-process gloo
+    worlds; returns ``(launches, errors)`` to join the ``kernels`` line."""
+    import shutil
+    import tempfile
+
+    np = __import__("numpy")
+    gen = importlib.import_module("distributed_ml_pytorch_tpu_torch.models.generate")
+    from distributed_ml_pytorch_tpu_torch.device import full_float32
+    from distributed_ml_pytorch_tpu_torch.parallel.fsdp import make_fsdp_lm_train_step
+    from distributed_ml_pytorch_tpu_torch.parallel.seq_parallel import create_lm_train_state
+    from distributed_ml_pytorch_tpu_torch.training.trainer import SGD
+
+    t0 = time.monotonic()
+    card = _card(torch, device)
+    if device == "cuda":
+        full_float32()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    launches = {"flash_fwd": 0, "flash_bwd_fused": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                "decode_attention": 0}
+    errors = {}
+    tmp = tempfile.mkdtemp(prefix="mesh26_", dir=os.path.join(ROOT, "build")
+                           if os.path.isdir(os.path.join(ROOT, "build")) else None)
+    try:
+        one = None
+        if "dp" in parts:
+            backend = "nccl" if device == "cuda" else "gloo"
+            batch = TINY_MESH["dp_batch"] if tiny else MESH_DP_BATCH
+            one = _mesh_one_rank(torch, device, backend, batch)
+            emit({"phase": "mesh_one_rank", "ok": True, "backend": backend, "world": "1 rank",
+                  "model": "alexnet", "batch": batch, "steps": MESH_DP_STEPS,
+                  "losses": one["losses"], "bit_identical_to_make_train_step": True,
+                  "runs": one["runs"], "card": card})
+        ref_loss = ref_tokens = None
+        if "lm" in parts:
+            from distributed_ml_pytorch_tpu_torch import bench_all
+
+            widths = bench_all.TINY_LM if tiny else bench_all.GPT2_SMALL
+            batch, seq = ((TINY_MESH["lm_batch"], TINY_MESH["lm_seq"]) if tiny
+                          else (MESH_LM_BATCH, MESH_LM_SEQ))
+            lm = _mesh_lm_model(torch, widths, seq, torch.bfloat16, 0, device)
+            tok, tgt = (torch.from_numpy(a.astype(np.int64)).to(device)
+                        for a in _mesh_lm_batch(widths, batch, seq))
+            step = make_fsdp_lm_train_step(lm, SGD(LM_LR))
+            ref_loss = float(step(create_lm_train_state(lm, SGD(LM_LR)), tok, tgt)[1])
+            del lm, step, tok, tgt
+        if "gen" in parts:
+            lm, prompt, new = _mesh_gen_model(torch, tiny, device)
+            ref_tokens = gen.generate(lm, torch.from_numpy(prompt).to(device), new).cpu().tolist()
+            del lm
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        ranks, paths = _mesh_processes(device, tiny, parts, tmp)
+        if "dp" in parts:
+            _mesh_dp_checks(torch, one, ranks, paths, card)
+        if "lm" in parts:
+            _mesh_lm_checks(ranks, ref_loss, device, card, launches, errors)
+        if "gen" in parts:
+            _mesh_gen_checks(ranks, ref_tokens, device, card, launches, tiny)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "mesh", "ok": True, "launches": launches, "wall_s": time.monotonic() - t0,
+          "card": card})
+    return launches, errors
+
+
+def _mesh_dp_checks(torch, one, ranks, paths, card):
+    np = __import__("numpy")
+    flats = [torch.load(p + ".pt") for p in paths]
+    for name in ("sync", "fsdp"):
+        for r, (rank, flat) in enumerate(zip(ranks, flats)):
+            losses = rank["dp"][name]["losses"]
+            require(np.allclose(losses, one["losses"], **MESH_DP_TOL),
+                    f"rank {r} {name} 2 x b32 losses {losses} vs one rank's b64 "
+                    f"{one['losses']} beyond {MESH_DP_TOL}")
+            require(np.allclose(flat[name].numpy(), one["ref"].numpy(), **MESH_DP_TOL),
+                    f"rank {r} {name} parameters beyond {MESH_DP_TOL} of one rank's: max diff "
+                    f"{float((flat[name] - one['ref']).abs().max())}")
+        require(torch.equal(flats[0][name], flats[1][name]),
+                f"{name}: the ranks' parameters differ")
+    require(np.allclose(flats[0]["fsdp"].numpy(), flats[0]["sync"].numpy(), **MESH_DP_TOL),
+            "FSDP parameters beyond MESH_DP_TOL of sync DP's")
+    fsdp_eq_sync = bool(torch.equal(flats[0]["fsdp"], flats[0]["sync"]))
+    loc = [rank["local_sgd"] for rank in ranks]
+    require(loc[0]["param_sha256"] == loc[1]["param_sha256"]
+            and all(r["step"] == MESH_LOCAL_K for r in loc)
+            and all(math.isfinite(v) for v in loc[0]["losses"]),
+            f"local-SGD round: {loc}")
+    demo = [rank["p2p_demo"] for rank in ranks]
+    require(all(d == [1.0, 1.0] for d in demo), f"p2p demo values {demo}")
+    emit({"phase": "mesh_two_ranks_dp", "ok": True, "world": f"{MESH_RANKS} processes "
+          "sharing the card over gloo", "model": "alexnet",
+          "steps": MESH_DP_STEPS, "tolerance": MESH_DP_TOL, "fsdp_bit_equal_sync": fsdp_eq_sync,
+          "per_rank": [{"rank": r["rank"], **{k: r["dp"][k] for k in ("sync", "fsdp")},
+                        "host_staged": r["host_staged_dp"]} for r in ranks],
+          "local_sgd": {"k": MESH_LOCAL_K, "losses": loc[0]["losses"]}, "p2p_demo": demo[0],
+          "card": card})
+
+
+def _mesh_lm_checks(ranks, ref_loss, device, card, launches, errors):
+    for mode in ("fsdp", "tp"):
+        recs = [rank["lm"][mode] for rank in ranks]
+        for r, rec in enumerate(recs):
+            ls, n = rec["losses"], rec["launches"]
+            require(all(math.isfinite(v) for v in ls) and ls[-1] < ls[0],
+                    f"{mode} rank {r}: losses not finite and falling: {ls}")
+            require(abs(ls[0] - ref_loss) <= MESH_LM_LOSS_RTOL * abs(ref_loss),
+                    f"{mode} rank {r}: first loss {ls[0]} vs one rank's {ref_loss} beyond "
+                    f"rtol {MESH_LM_LOSS_RTOL}")
+            layers = rec["layers"]
+            fused = n["flash_bwd_fused"] == layers * MESH_LM_STEPS and n["flash_bwd_dq"] == 0
+            split = n["flash_bwd_fused"] == 0 and n["flash_bwd_dq"] == n["flash_bwd_dkv"] \
+                == layers * MESH_LM_STEPS
+            if device == "cuda":
+                require(n["flash_fwd"] == layers * MESH_LM_STEPS and (fused or split),
+                        f"{mode} rank {r} launched {n} for {MESH_LM_STEPS} steps of "
+                        f"{layers} layers")
+                require(rec["plain_attention_calls"] == 0,
+                        f"{mode} rank {r} reached the plain attention "
+                        f"{rec['plain_attention_calls']} times")
+            for name in launches:
+                if name in n:
+                    launches[name] += n[name]
+            for kern, k in rec.get("kernels", {}).items():
+                errors[kern] = max(errors.get(kern, 0.0),
+                                   max(e[0] for e in k["errors"].values()))
+        emit({"phase": f"mesh_lm_{mode}", "ok": True, "world": f"{MESH_RANKS} processes "
+              "sharing the card over gloo", "dtype": "bfloat16", "lr": LM_LR,
+              "one_rank_first_loss": ref_loss, "loss_rtol": MESH_LM_LOSS_RTOL,
+              "per_rank": recs, "card": card})
+
+
+def _mesh_gen_checks(ranks, ref_tokens, device, card, launches, tiny):
+    recs = [rank["gen"] for rank in ranks]
+    for r, rec in enumerate(recs):
+        want = rec["n_layers"] * rec["padded_steps"]
+        k8, refs = ((rec["k8_launches"], rec["reference_calls"]) if device == "cuda"
+                    else (rec["reference_calls"], rec["k8_launches"]))
+        require(rec["blocked"] and k8 == want and refs == 0,
+                f"generate_tp rank {r}: K8 {rec['k8_launches']}, reference "
+                f"{rec['reference_calls']}, want {want} of one on {device}")
+        require(rec["tokens"] == ref_tokens,
+                f"generate_tp rank {r}'s tokens differ from generate() on one rank")
+        launches["decode_attention"] += rec["k8_launches"]
+    emit({"phase": "mesh_generate_tp", "ok": True, "world": f"{MESH_RANKS} processes "
+          "sharing the card over gloo", "dtype": "float32",
+          "shape": list(_mesh_gen_shape(tiny)[1]),
+          "per_rank": [{k: v for k, v in rec.items() if k != "tokens"} for rec in recs],
+          "tokens_equal_generate": True, "card": card})
+
+
 def main() -> int:
     try:
         import torch
@@ -5685,6 +6173,11 @@ def main() -> int:
         for name, n in families.items():
             launches[name] += n
         for name, err in family_errors.items():
+            measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"], err)
+        mesh_launches, mesh_errors = phase_mesh(torch)
+        for name, n in mesh_launches.items():
+            launches[name] += n
+        for name, err in mesh_errors.items():
             measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"], err)
         smi = nvidia_smi_line()
     except SmokeFailure as e:

@@ -12,6 +12,7 @@
     python -m distributed_ml_pytorch_tpu_torch.bench_all --legs sched
     python -m distributed_ml_pytorch_tpu_torch.bench_all --legs gray
     python -m distributed_ml_pytorch_tpu_torch.bench_all --legs resnet,moe,decode
+    python -m distributed_ml_pytorch_tpu_torch.bench_all --legs mesh --device cpu
     python -m distributed_ml_pytorch_tpu_torch.bench_all --device cpu --tiny
 
 One JSON line per measurement on stdout (the JAX ``emit`` record: config,
@@ -182,6 +183,17 @@ narration on stderr. Ported legs, under the JAX metric names:
   ``gpt2_small_decode_throughput``, ``gpt2_small_decode_hbm_utilization``
   (a step's mandatory bytes x steps/s over a streaming read measured on
   the same device) and ``gpt2_small_decode_throughput_int8_kv``.
+
+- ``mesh`` — the JAX ``cpu_mesh_phase`` and ``multiprocess_psum_phase``
+  (bench_all.py:2076-2220), off the card as the JAX legs were off the TPU
+  (virtual CPU devices and CPU processes there): the raveled AlexNet
+  gradient's ``all_reduce`` between two gloo ranks that are threads
+  (``allreduce_2way_gradient_exchange_rate``, exchanges/s), a ResNet-18
+  sync-DP step of global batch 64 over eight gloo ranks that are threads
+  (``resnet18_8way_dp_step_throughput``, images/s) and the same
+  ``all_reduce`` across four gloo processes, its sum checked
+  (``allreduce_4process_gloo_exchange_rate``, the slowest rank's rate).
+  ``--tiny``: fewer rounds, ResNet-18 at global batch 8.
 
 ``--tiny`` shrinks every other leg to test widths (a CPU run in seconds);
 its records keep the metric names and say so in their notes. The
@@ -2078,6 +2090,125 @@ def gray_phase(device) -> dict:
             "gray_containment_mttr": on["containment_mttr_s"] * 1e3}
 
 
+# ------------------------------------------------------------------ the mesh legs
+
+MESH_HW = "cpu, gloo"
+
+
+def _alexnet_flat() -> torch.Tensor:
+    return ravel_model_params(get_model("alexnet", seed=0, device="cpu")).float()
+
+
+def psum_rank(rank: int, n: int, port: str, rounds: int) -> None:
+    """One process of ``allreduce_{n}process_gloo_exchange_rate``: its
+    distinct multiple of the raveled AlexNet gradient all-reduced ``rounds``
+    times on the CPU over gloo, the sum checked; prints its rate."""
+    from distributed_ml_pytorch_tpu_torch.runtime.mesh import data_mesh, init_distributed
+
+    torch.set_num_threads(1)
+    mesh = data_mesh(world=init_distributed("gloo", "localhost", port, n, rank, device="cpu"))
+    flat = _alexnet_flat()
+    g = (rank + 1) * flat
+    out = mesh.all_reduce(g.clone(), "data")
+    np.testing.assert_allclose(out.numpy(), (flat * (n * (n + 1) / 2)).numpy(), rtol=1e-6)
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        mesh.all_reduce(g.clone(), "data")
+    dt = time.perf_counter() - t0
+    print(f"PSUM-OK proc={rank} n_elems={flat.numel()} rate={rounds / dt:.3f}", flush=True)
+
+
+def mesh_phase(device, tiny: bool = False) -> dict:
+    """The mesh legs (see the module docstring); returns ``{metric: value}``.
+    They run on the CPU whatever ``device`` is, as the JAX legs ran off the
+    TPU."""
+    from distributed_ml_pytorch_tpu_torch.launch import _free_port
+    from distributed_ml_pytorch_tpu_torch.parallel.sync import (
+        make_sync_train_step,
+        replicate,
+        shard_batch,
+    )
+    from distributed_ml_pytorch_tpu_torch.runtime.mesh import make_mesh, run_threaded
+
+    out = {}
+    flat = _alexnet_flat()
+    iters = 5 if tiny else 50
+
+    def exchange(world):
+        mesh = make_mesh(world=world)
+        g = flat if world.rank == 0 else -0.5 * flat
+        mesh.all_reduce(g.clone(), "data")
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            mesh.all_reduce(g.clone(), "data")
+        return iters / (time.perf_counter() - t0)
+
+    rate = min(run_threaded(2, exchange))
+    mb = flat.numel() * 4 / 1e6
+    out["allreduce_2way_gradient_exchange_rate"] = rate
+    emit(2, "allreduce_2way_gradient_exchange_rate", rate, "exchanges/sec",
+         f"2 gloo ranks as threads, {MESH_HW}",
+         f"all_reduce of the {flat.numel()}-elem raveled AlexNet gradient ({mb:.1f} MB) "
+         f"between two gloo ranks that are threads of one process on the CPU (the JAX "
+         f"leg's two virtual cpu devices), {iters} rounds; off the card, as the JAX leg "
+         f"was off the TPU")
+
+    batch, steps = (8, 1) if tiny else (64, 5)
+
+    def dp(world):
+        torch.set_num_threads(1)
+        mesh = make_mesh(world=world)
+        model = get_model("resnet18", seed=0, device="cpu")
+        tx = SGD(0.05)
+        state = replicate(mesh, create_train_state(model, tx))
+        step = make_sync_train_step(model, tx, mesh)
+        images, labels = make_batch(batch)
+        bx, by = shard_batch(mesh, images, labels)
+        _, loss = step(state, bx, by)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            _, loss = step(state, bx, by)
+        return time.perf_counter() - t0, float(loss)
+
+    threads = torch.get_num_threads()
+    try:
+        res = run_threaded(8, dp, timeout_s=600.0)
+    finally:
+        torch.set_num_threads(threads)
+    dt = max(r[0] for r in res)
+    out["resnet18_8way_dp_step_throughput"] = steps * batch / dt
+    emit(4, "resnet18_8way_dp_step_throughput", steps * batch / dt, "images/sec",
+         f"8 gloo ranks as threads, {MESH_HW}",
+         f"global batch {batch} over 8-way sync DP (the gradient mean an all_reduce over "
+         f"gloo), 8 threads of one process on the CPU at one intra-op thread each (the JAX "
+         f"leg's 8 virtual cpu devices), loss={res[0][1]:.3f} — functional validation of "
+         f"the sharded step off the card, as the JAX leg was off the TPU")
+
+    n, rounds = 4, (3 if tiny else 20)
+    port = _free_port()
+    code = ("import sys; from distributed_ml_pytorch_tpu_torch import bench_all; "
+            "bench_all.psum_rank(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], "
+            "int(sys.argv[4]))")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(n), port, str(rounds)],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(n)]
+    outs = [p.communicate(timeout=600)[0] for p in procs]
+    rates = []
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0 or f"PSUM-OK proc={r}" not in text:
+            raise RuntimeError(f"allreduce process {r} failed:\n{text[-2000:]}")
+        rates.append(float(text.split("rate=")[1].split()[0]))
+    metric = f"allreduce_{n}process_gloo_exchange_rate"
+    out[metric] = min(rates)
+    emit(2, metric, min(rates), "exchanges/sec", f"{n} gloo processes, {MESH_HW}",
+         f"all_reduce of the {flat.numel()}-elem raveled AlexNet gradient ({mb:.1f} MB) "
+         f"across {n} localhost processes over gloo on the CPU, result checked = the sum of "
+         f"all ranks; the slowest rank's rate over {rounds} rounds; off the card, as the "
+         f"JAX leg was off the TPU")
+    return out
+
+
 LEGS = {
     "alexnet": lambda dev, tiny: alexnet_phase(dev, tiny=tiny),
     "lm": lambda dev, tiny: lm_phase(dev, tiny=tiny),
@@ -2098,6 +2229,7 @@ LEGS = {
     "resnet": lambda dev, tiny: resnet_phase(dev, tiny=tiny),
     "moe": lambda dev, tiny: moe_phase(dev, tiny=tiny),
     "decode": lambda dev, tiny: decode_phase(dev, tiny=tiny),
+    "mesh": lambda dev, tiny: mesh_phase(dev, tiny=tiny),
 }
 
 

@@ -1,5 +1,6 @@
-"""Localhost multi-process launcher for the DownPour world (counterpart of
-the JAX ``launch.py``)::
+"""Localhost multi-process launcher (counterpart of the JAX ``launch.py``).
+
+The DownPour world::
 
     python -m distributed_ml_pytorch_tpu_torch.launch --world-size 3 -- \
         --model lenet --epochs 1 --synthetic-data
@@ -13,6 +14,16 @@ workers::
 
     python -m distributed_ml_pytorch_tpu_torch.launch --world-size 4 --n-servers 2 -- \
         --synthetic-data
+
+A mesh mode (``--mode sync``, ``local-sgd`` or ``fsdp`` of the trainer CLI;
+``--entry train_lm`` with ``--mode fsdp`` or ``tp``) starts ``--world-size``
+equal ranks on one TCP rendezvous (``--world-size``, ``--port`` and each
+``--rank`` are passed on)::
+
+    python -m distributed_ml_pytorch_tpu_torch.launch --world-size 2 -- \
+        --mode sync --dist-backend gloo --backend cpu --synthetic-data
+    python -m distributed_ml_pytorch_tpu_torch.launch --world-size 2 --entry train_lm -- \
+        --mode tp --dist-backend gloo --device cpu
 """
 
 from __future__ import annotations
@@ -51,23 +62,23 @@ def _free_port_block(n: int, attempts: int = 50) -> str:
     raise RuntimeError(f"no block of {n} consecutive free ports found")
 
 
-def launch_world(world_size: int, extra_args: List[str], *, port: str | None = None,
-                 n_servers: int = 1, poll_interval: float = 0.2) -> int:
-    """Spawn the ``n_servers`` server ranks and the workers; returns the
-    worst exit code. If any process exits non-zero while others run, the
-    rest are killed, so a crashed worker cannot leave a server waiting
-    forever."""
-    if not 1 <= n_servers < world_size:
-        raise ValueError(f"n_servers={n_servers} must leave at least one worker in a "
-                         f"world of {world_size}")
-    port = port or (_free_port_block(n_servers) if n_servers > 1 else _free_port())
-    common = [sys.executable, "-m", "distributed_ml_pytorch_tpu_torch.training.cli",
-              "--mode", "ps", "--world-size", str(world_size), "--port", port,
-              *(["--n-servers", str(n_servers)] if n_servers > 1 else []), *extra_args]
-    procs = [subprocess.Popen(common + ["--rank", str(r), "--server"])
-             for r in range(n_servers)]
-    procs += [subprocess.Popen(common + ["--rank", str(r)])
-              for r in range(n_servers, world_size)]
+ENTRIES = {"cli": "distributed_ml_pytorch_tpu_torch.training.cli",
+           "train_lm": "distributed_ml_pytorch_tpu_torch.training.train_lm"}
+
+
+def _mode_of(extra_args: List[str], default: str) -> str:
+    """The ``--mode`` value among the forwarded flags."""
+    for i, a in enumerate(extra_args):
+        if a == "--mode" and i + 1 < len(extra_args):
+            return extra_args[i + 1]
+        if a.startswith("--mode="):
+            return a.split("=", 1)[1]
+    return default
+
+
+def _wait_all(procs, poll_interval: float) -> int:
+    """The worst exit code of ``procs``; when one exits non-zero while
+    others run, the rest are killed."""
     try:
         while True:
             codes = [p.poll() for p in procs]
@@ -87,18 +98,53 @@ def launch_world(world_size: int, extra_args: List[str], *, port: str | None = N
             p.wait()
 
 
+def launch_ranks(module: str, world_size: int, extra_args: List[str], *,
+                 port: str | None = None, poll_interval: float = 0.2) -> int:
+    """Spawn ``world_size`` equal ranks of ``python -m module extra_args
+    --port P --rank r`` on one free port; returns the worst exit code."""
+    port = port or _free_port()
+    procs = [subprocess.Popen([sys.executable, "-m", module, *extra_args, "--port", port,
+                               "--rank", str(r)]) for r in range(world_size)]
+    return _wait_all(procs, poll_interval)
+
+
+def launch_world(world_size: int, extra_args: List[str], *, port: str | None = None,
+                 n_servers: int = 1, poll_interval: float = 0.2) -> int:
+    """Spawn the ``n_servers`` server ranks and the workers; returns the
+    worst exit code. If any process exits non-zero while others run, the
+    rest are killed, so a crashed worker cannot leave a server waiting
+    forever."""
+    if not 1 <= n_servers < world_size:
+        raise ValueError(f"n_servers={n_servers} must leave at least one worker in a "
+                         f"world of {world_size}")
+    port = port or (_free_port_block(n_servers) if n_servers > 1 else _free_port())
+    common = [sys.executable, "-m", "distributed_ml_pytorch_tpu_torch.training.cli",
+              "--mode", "ps", "--world-size", str(world_size), "--port", port,
+              *(["--n-servers", str(n_servers)] if n_servers > 1 else []), *extra_args]
+    procs = [subprocess.Popen(common + ["--rank", str(r), "--server"])
+             for r in range(n_servers)]
+    procs += [subprocess.Popen(common + ["--rank", str(r)])
+              for r in range(n_servers, world_size)]
+    return _wait_all(procs, poll_interval)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
-        description="Launch the PS world on localhost (server + workers)")
+        description="Launch a world on localhost (the PS world, or the ranks of a mesh mode)")
     parser.add_argument("--world-size", type=int, default=3)
     parser.add_argument("--port", type=str, default=None)
     parser.add_argument("--n-servers", type=int, default=1, metavar="K",
                         help="shard the parameter server across K ranks "
                              "(the DistBelief layout)")
+    parser.add_argument("--entry", default="cli", choices=sorted(ENTRIES),
+                        help="the program each rank runs: the trainer CLI or train_lm")
     args, extra = parser.parse_known_args(argv)
     if extra and extra[0] == "--":
         extra = extra[1:]
-    return launch_world(args.world_size, extra, port=args.port, n_servers=args.n_servers)
+    if args.entry == "cli" and _mode_of(extra, "ps") == "ps":
+        return launch_world(args.world_size, extra, port=args.port, n_servers=args.n_servers)
+    return launch_ranks(ENTRIES[args.entry], args.world_size,
+                        ["--world-size", str(args.world_size), *extra], port=args.port)
 
 
 if __name__ == "__main__":

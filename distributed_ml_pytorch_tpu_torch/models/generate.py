@@ -1,5 +1,5 @@
 """Autoregressive decoding for the Transformer LM and the Switch-MoE LM
-(counterpart of the JAX ``models/generate.py``, without ``generate_tp``).
+(counterpart of the JAX ``models/generate.py``).
 
 - **Prefill** runs the whole prompt through the decode model in one call,
   writing every layer's K/V into the cache.
@@ -26,6 +26,10 @@
   what shares its batch. Streams are deterministic given ``(weights,
   prompt, seed)`` on one device; they differ from JAX's in their draws, not
   in their support.
+- **Tensor-parallel decode** (:func:`generate_tp`): the training side's
+  Megatron layout (``parallel/tensor_parallel.shard_tp``) on the decode
+  model, the cache sharded over heads, so the cache append and K8 stay
+  rank-local; one ``all_reduce`` per attention block and one per MLP.
 """
 
 from __future__ import annotations
@@ -246,7 +250,7 @@ def _check_max_len(model, total: int) -> None:
 
 
 def init_cache(model: TransformerLM, batch: int, cache_size: int, decode_block: int = 0,
-               kv_quant: bool = False):
+               kv_quant: bool = False, heads: Optional[int] = None):
     """Allocate the per-layer K/V cache (zeros, cursor at 0) for ``batch``
     sequences of total length ``cache_size``, on ``model``'s device.
 
@@ -255,12 +259,15 @@ def init_cache(model: TransformerLM, batch: int, cache_size: int, decode_block: 
     non-empty quantized cache returns NaN by design (the quantized prefill
     attends with its exact in-hand K/V and does not read earlier blocks
     back). :func:`generate` always satisfies this, and the slot pool
-    (``serving/cache.py``) prefills every admission into a fresh lane."""
+    (``serving/cache.py``) prefills every admission into a fresh lane.
+    ``heads`` (default ``model.n_heads``) is the number of heads stored: a
+    tensor-parallel rank's share (:func:`generate_tp`)."""
     if kv_quant and not decode_block:
         raise ValueError("kv_quant=True requires decode_block > 0")
     dev = next(model.parameters()).device
     hd = model.d_model // model.n_heads
-    shape = (batch, model.n_heads, cache_size, hd)
+    heads = model.n_heads if heads is None else int(heads)
+    shape = (batch, heads, cache_size, hd)
     store = torch.int8 if kv_quant else model.dtype
     cache = {}
     for i in range(model.n_layers):
@@ -271,7 +278,7 @@ def init_cache(model: TransformerLM, batch: int, cache_size: int, decode_block: 
             attn["scale_k"] = torch.zeros(shape[:3], device=dev)
             attn["scale_v"] = torch.zeros(shape[:3], device=dev)
         if decode_block:
-            ring = (batch, model.n_heads, decode_block, hd)
+            ring = (batch, heads, decode_block, hd)
             attn["ring_k"] = torch.zeros(ring, dtype=model.dtype, device=dev)
             attn["ring_v"] = torch.zeros(ring, dtype=model.dtype, device=dev)
             attn["ring_base"] = torch.zeros((), dtype=torch.int32, device=dev)
@@ -447,3 +454,54 @@ def _generate_blocked(dec, max_new_tokens, temperature, top_k, top_p, cache, pro
         big = merge_ring_caches(big, small, live)
     generated = torch.stack(fed + [tok], dim=1)
     return torch.cat([prompt, generated[:, :max_new_tokens]], dim=1)
+
+
+@torch.no_grad()
+def generate_tp(model: TransformerLM, prompt, max_new_tokens: int, mesh,
+                temperature: float = 0.0, seed: Optional[int] = None,
+                data_axis: str = "data", model_axis: str = "model", top_k: int = 0,
+                top_p: float = 1.0, kv_quant: bool = False) -> torch.Tensor:
+    """Tensor-parallel decode: :func:`generate`'s semantics on a ``{"data",
+    "model"}`` mesh (every rank calls it with the same ``model`` and
+    ``prompt``).
+
+    The decode model is :func:`generate`'s, sharded by
+    ``parallel/tensor_parallel.shard_tp`` (q/k/v column-, o and ``Dense_1``
+    row-, ``lm_head`` vocab-sharded, the fused ``qkv`` of the blocked path
+    cut to this rank's heads); the K/V cache holds this rank's heads, so the
+    cache append and the decode-attention kernel K8 stay rank-local. The
+    batch is sharded over ``data_axis``; the logits are gathered over
+    ``model_axis`` before sampling, so every model rank draws the same
+    token. Returns the whole ``[B, P + max_new_tokens]`` on every rank (an
+    ``all_gather`` over ``data_axis``). Greedy decode gives ``generate()``'s
+    tokens up to the rounding of the row-parallel sums (tested equal);
+    sampled rows equal ``generate()``'s when the data axis is 1."""
+    from distributed_ml_pytorch_tpu_torch.parallel.tensor_parallel import (
+        _check_divisibility,
+        shard_tp,
+    )
+    from distributed_ml_pytorch_tpu_torch.runtime.mesh import rows_of
+
+    tp = mesh.axis_size(model_axis)
+    _check_divisibility(model, tp)
+    if temperature > 0.0 and seed is None:
+        raise ValueError("temperature > 0 sampling needs a seed")
+    seed = 0 if seed is None else int(seed)
+    prompt = torch.as_tensor(prompt).long()
+    b, p = prompt.shape
+    _check_max_len(model, p + max_new_tokens)
+    if max_new_tokens < 1:
+        return prompt.to(mesh.device)
+    local = prompt[rows_of(b, mesh, data_axis)].to(mesh.device)
+    bl = local.shape[0]
+    blocked, padded_total = uses_block_decode(model, p, max_new_tokens)
+    block = DECODE_BLOCK if blocked else 0
+    total = padded_total if blocked else p + max_new_tokens
+    dec = shard_tp(_decode_model(model, total, block, kv_quant and blocked), mesh,
+                   model_axis, shard_fused_qkv=True)
+    dec.lm_head.gather_output = True
+    cache = init_cache(model, bl, total, block, kv_quant and blocked,
+                       heads=model.n_heads // tp)
+    run = _generate_blocked if blocked else _generate_plain
+    out = run(dec, max_new_tokens, temperature, top_k, top_p, cache, local, seed)
+    return mesh.all_gather(out, data_axis)

@@ -1,9 +1,15 @@
 """Command line of the port (counterpart of the JAX ``training/cli.py``).
 
-The reference's flag surface for the two paths this package runs:
-``--no-distributed`` (single-process training) and ``--mode ps`` (one rank
-of the DownPour world: ``--rank 0`` or ``--server`` is the parameter server,
-ranks 1+ are workers, over TCP on ``--master:--port``). ``--backend`` is
+The reference's flag surface for the paths this package runs:
+``--no-distributed`` (single-process training), ``--mode ps`` (one rank of
+the DownPour world: ``--rank 0`` or ``--server`` is the parameter server,
+ranks 1+ are workers, over TCP on ``--master:--port``) and the mesh modes
+``--mode sync``, ``local-sgd`` and ``fsdp`` (``parallel/sync.py``,
+``local_sgd.py``, ``fsdp.py``): every rank of ``--world-size`` is a worker
+of a ``data`` mesh over ``--master:--port`` with ``--dist-backend`` (``nccl``
+on the card by default, ``gloo`` to share a card or on the CPU),
+``--batch-size`` per rank, ``--sync-every`` local steps between averages,
+and each rank writes ``node<rank>.csv``. ``--backend`` is
 ``cuda`` (default) or ``cpu``; ``--cuda`` is accepted for the reference's
 scripts and means the default. The single-process trainer takes the JAX
 trainer's surface: ``--dtype``, ``--optimizer``, ``--weight-decay``,
@@ -31,8 +37,7 @@ over when the map moves, and a worker may join or a shard die mid-run; it
 takes the sharded entry even with ``--n-servers 1``; ``--manifest-path``
 names the coordinator's fleet manifest, which a shard restores in place on
 a rollback barrier. Flags of the JAX CLI that this package does not
-implement (the other distributed modes, the MPMD stages, profiling and the
-metrics dump) are absent, so argparse rejects them instead of ignoring
+implement (the MPMD stages, profiling and the metrics dump) are absent, so argparse rejects them instead of ignoring
 them.
 
     python -m distributed_ml_pytorch_tpu_torch.training.cli --no-distributed \
@@ -81,8 +86,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="port on master node to communicate with")
     p.add_argument("--backend", type=str, default="cuda", choices=["cuda", "cpu"],
                    help="compute device; cuda raises when no card is present")
-    p.add_argument("--mode", type=str, default="ps", choices=["ps"],
-                   help="distributed strategy: the async parameter server")
+    p.add_argument("--mode", type=str, default="ps",
+                   choices=["ps", "sync", "local-sgd", "fsdp"],
+                   help="distributed strategy: the async parameter server, sync "
+                        "all-reduce data parallelism, local SGD with periodic "
+                        "averaging, or fully-sharded data parallelism (ZeRO-3)")
+    p.add_argument("--dist-backend", type=str, default=None, choices=["nccl", "gloo"],
+                   help="(mesh modes) torch.distributed backend: nccl (default on the "
+                        "card; one rank per card) or gloo (the CPU, or ranks sharing "
+                        "a card)")
+    p.add_argument("--sync-every", type=int, default=0, metavar="K",
+                   help="local-sgd mode: average params every K steps "
+                        "(default 0 = use --num-push)")
     p.add_argument("--model", type=str, default="alexnet",
                    choices=["alexnet", "lenet", "resnet18", "resnet50"],
                    help="model architecture")
@@ -233,6 +248,8 @@ def main(argv=None) -> int:
         print("wrote", logger.to_csv(name))
         print("Finished Training")
         return 0
+    if args.mode != "ps":
+        return run_mesh_mode(args)
     if args.n_servers > 1 or args.coord:
         # the sharded entry hosts the elastic path: one server is a map of
         # one entry there
@@ -244,6 +261,28 @@ def main(argv=None) -> int:
     from distributed_ml_pytorch_tpu_torch.parallel.async_ps import run_ps_process
 
     return run_ps_process(args)
+
+
+def run_mesh_mode(args) -> int:
+    """One rank of a ``--mode sync|local-sgd|fsdp`` world: join it, train,
+    write ``node<rank>.csv``."""
+    from distributed_ml_pytorch_tpu_torch.runtime.mesh import data_mesh, init_distributed
+
+    if args.mode == "sync":
+        from distributed_ml_pytorch_tpu_torch.parallel.sync import train_sync as train_fn
+    elif args.mode == "fsdp":
+        from distributed_ml_pytorch_tpu_torch.parallel.fsdp import train_fsdp as train_fn
+    else:
+        from distributed_ml_pytorch_tpu_torch.parallel.local_sgd import (
+            train_local_sgd as train_fn,
+        )
+    rank = 0 if args.rank is None else args.rank
+    world = init_distributed(args.dist_backend, args.master, args.port, args.world_size, rank,
+                             device=args.backend)
+    _state, logger = train_fn(args, data_mesh(world=world))
+    print("wrote", logger.to_csv("node{}.csv".format(rank)))
+    print("Finished Training")
+    return 0
 
 
 if __name__ == "__main__":

@@ -29,6 +29,7 @@ The arithmetic is optax's, operation for operation:
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
@@ -152,10 +153,14 @@ def _count(params: Sequence[torch.Tensor]) -> torch.Tensor:
 
 # ------------------------------------------------------------------ optimizers
 
-def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
+                        sq_norm: Optional[Callable] = None) -> List[torch.Tensor]:
     """``optax.clip_by_global_norm``: no host synchronisation (the choice is
-    a ``where`` on the card)."""
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    a ``where`` on the card). ``sq_norm(grads)`` replaces the local sum of
+    squares where the gradients are shards of a larger set
+    (``parallel/fsdp.py``)."""
+    norm = torch.sqrt(sq_norm(grads) if sq_norm is not None
+                      else sum(torch.sum(g * g) for g in grads))
     trigger = norm < max_norm
     return [torch.where(trigger, g, (g / norm) * max_norm) for g in grads]
 
@@ -181,6 +186,9 @@ class Optimizer:
         self.l2 = float(weight_decay) if weight_decay and name != "adamw" else 0.0
         self.decoupled = ((ADAMW_DEFAULT_DECAY if weight_decay is None else float(weight_decay))
                           if name == "adamw" else 0.0)
+        #: the squared global norm of the gradients for clipping (None: the
+        #: local sum; a sharded step sets its reduction over the ranks)
+        self.sq_norm: Optional[Callable] = None
 
     def init(self, params: Sequence[torch.Tensor]) -> OptState:
         params = list(params)
@@ -199,7 +207,7 @@ class Optimizer:
         with torch.no_grad():
             g = list(grads)
             if self.grad_clip > 0:
-                g = clip_by_global_norm(g, self.grad_clip)
+                g = clip_by_global_norm(g, self.grad_clip, self.sq_norm)
             if self.l2:
                 g = [gi + self.l2 * p for gi, p in zip(g, params)]
             if self.name == "sgd":
@@ -296,6 +304,22 @@ def build_tx(optimizer: str, lr, momentum: float = 0.0, weight_decay: Optional[f
     if int(grad_accum) > 1:
         tx = MultiSteps(tx, int(grad_accum))
     return tx
+
+
+def with_sq_norm(tx, sq_norm: Callable):
+    """``tx`` (an :class:`Optimizer` or a :class:`MultiSteps` of one) whose
+    global-norm clipping takes the squared norm from ``sq_norm(grads)``: a
+    shallow copy, ``tx`` itself unchanged; ``tx`` when it does not clip."""
+    inner = getattr(tx, "opt", tx)
+    if not inner.grad_clip:
+        return tx
+    inner = copy.copy(inner)
+    inner.sq_norm = sq_norm
+    if not isinstance(tx, MultiSteps):
+        return inner
+    outer = copy.copy(tx)
+    outer.opt = inner
+    return outer
 
 
 def tx_from_args(args, steps_per_epoch: int = 1):

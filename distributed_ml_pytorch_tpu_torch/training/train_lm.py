@@ -1,5 +1,5 @@
-"""Train the Transformer LM on one device (counterpart of the JAX
-``examples/train_lm.py --mode single``).
+"""Train the Transformer LM (counterpart of the JAX ``examples/train_lm.py``,
+``--mode single``, ``fsdp`` and ``tp``).
 
     python -m distributed_ml_pytorch_tpu_torch.training.train_lm --steps 20
     python -m distributed_ml_pytorch_tpu_torch.training.train_lm --device cpu --steps 4
@@ -24,13 +24,25 @@ captured as a CUDA graph and replayed K times, on the CPU a loop);
 after every dispatch, and saves the last step at the end; ``--resume``
 restores the latest checkpoint there in place and trains ``--steps`` more.
 The flags of ``--mode single`` keep their names and defaults; ``--device``
-(``cuda`` by default, or ``cpu``) is new. The other modes are not ported
-yet and exit with an error.
+(``cuda`` by default, or ``cpu``) is new.
+
+``--mode fsdp`` and ``--mode tp`` train on a world of ``--world-size``
+processes (``launch.py --entry train_lm``; ``--master``, ``--port``,
+``--rank``, ``--dist-backend``), the mesh sized as the JAX script sizes it
+over its devices: fsdp ``{"data": gcd(world, batch)}``; tp ``{"data":
+gcd(world / m, batch), "model": m}`` with ``m = gcd(world, n_heads, d_ff,
+vocab)``. The mesh must take the whole world. ``--batch`` is the global
+batch; each rank trains on its rows (``parallel/fsdp.py``,
+``parallel/tensor_parallel.py``), and rank 0 prints. Checkpoints of a
+sharded state are not ported yet (``--ckpt-dir`` is refused there), nor is
+the chunked loss under tp. ``sp``, ``ulysses``, ``pp``, ``moe`` and
+``composite`` exit with an error (ROADMAP A 7, part 2).
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import time
 from dataclasses import dataclass, field
 from typing import List
@@ -39,12 +51,13 @@ import numpy as np
 import torch
 
 MODES = ["single", "sp", "ulysses", "fsdp", "tp", "pp", "moe", "composite"]
+MESH_MODES = ("fsdp", "tp")
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--mode", default="single", choices=MODES,
-                   help="parallelism mode; only 'single' is ported")
+                   help="parallelism mode; single, fsdp and tp are ported")
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--loss-chunk", type=int, default=0, metavar="C",
                    help="compute the LM loss in C-token sequence chunks without "
@@ -73,15 +86,46 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="run on the card (default) or on the CPU")
+    p.add_argument("--world-size", type=int, default=1,
+                   help="(fsdp, tp) ranks in the world")
+    p.add_argument("--rank", type=int, default=0, help="(fsdp, tp) this process's rank")
+    p.add_argument("--master", type=str, default="localhost",
+                   help="(fsdp, tp) host of rank 0's rendezvous")
+    p.add_argument("--port", type=str, default="29500",
+                   help="(fsdp, tp) port of rank 0's rendezvous")
+    p.add_argument("--dist-backend", type=str, default=None, choices=["nccl", "gloo"],
+                   help="(fsdp, tp) nccl (default on the card, one rank per card) or gloo")
     return p
+
+
+def mesh_shape(args: argparse.Namespace) -> dict:
+    """The mesh of ``--mode fsdp|tp`` over ``--world-size`` ranks (the JAX
+    script's sizing over its devices)."""
+    n = args.world_size
+    if args.mode == "fsdp":
+        return {"data": math.gcd(n, args.batch)}
+    m = math.gcd(math.gcd(n, args.n_heads), math.gcd(args.d_ff, args.vocab))
+    return {"data": math.gcd(n // m, args.batch), "model": m}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     """The flags, checked; a bad or unported combination exits with an error."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.mode != "single":
-        parser.error(f"--mode {args.mode} is not ported yet (only --mode single)")
+    if args.mode not in ("single", *MESH_MODES):
+        parser.error(f"--mode {args.mode} is not ported yet (ROADMAP A 7, part 2; "
+                     f"single, fsdp and tp are)")
+    if args.mode in MESH_MODES:
+        shape = mesh_shape(args)
+        if math.prod(shape.values()) != args.world_size:
+            parser.error(f"--mode {args.mode}: the mesh {shape} the flags allow does not "
+                         f"take the whole world of {args.world_size} ranks")
+        if args.ckpt_dir:
+            parser.error(f"--mode {args.mode}: checkpoints of a sharded state are not "
+                         f"ported yet (drop --ckpt-dir)")
+        if args.mode == "tp" and args.loss_chunk:
+            parser.error("--mode tp: the chunked loss is not ported for the vocab-parallel "
+                         "head (drop --loss-chunk)")
     if args.steps < 1:
         parser.error("--steps must be >= 1")
     k = args.steps_per_dispatch
@@ -148,34 +192,103 @@ def build_model(args: argparse.Namespace, device):
     )
 
 
+def _mesh_setup(args, lm, tx):
+    """``(mesh, state, step, shard, desc)`` of ``--mode fsdp|tp``: this
+    process joins the world, shards ``lm`` and builds the step over its rows
+    (``shard(tokens, targets)``)."""
+    from distributed_ml_pytorch_tpu_torch.runtime.mesh import current_world, make_mesh
+
+    world = current_world()
+    mesh = make_mesh(mesh_shape(args), world)
+    if args.mode == "fsdp":
+        from distributed_ml_pytorch_tpu_torch.parallel.fsdp import (
+            create_fsdp_train_state,
+            make_fsdp_lm_train_step,
+            param_shard_fraction,
+            shard_fsdp_batch,
+        )
+
+        state = create_fsdp_train_state(lm, tx, mesh)
+        step = make_fsdp_lm_train_step(lm, tx, mesh, loss_chunk=args.loss_chunk)
+        desc = f"{mesh.size}-way fsdp ({param_shard_fraction(state):.3f} of params/rank)"
+        return mesh, state, step, lambda t, g: shard_fsdp_batch(mesh, t, g), desc
+    from distributed_ml_pytorch_tpu_torch.parallel.tensor_parallel import (
+        create_tp_train_state,
+        make_tp_train_step,
+        shard_tp_batch,
+    )
+
+    state = create_tp_train_state(lm, tx, mesh)
+    step = make_tp_train_step(lm, tx, mesh)
+    shape = mesh.shape
+    return (mesh, state, step, lambda t, g: shard_tp_batch(mesh, t, g),
+            f"{shape['data']}x{shape['model']} dp x tp")
+
+
+def _k_steps(step):
+    """K mesh steps a dispatch: the per-step body on each of K stacked
+    batches (a loop: a CUDA graph cannot capture a gloo collective)."""
+
+    def scan(state, tokens, targets):
+        losses = []
+        for i in range(tokens.shape[0]):
+            state, loss = step(state, tokens[i], targets[i])
+            losses.append(loss.reshape(()))
+        return state, torch.stack(losses)
+
+    return scan
+
+
 def run(args: argparse.Namespace, attn_fn=None) -> LMRun:
     """Build, train and report as :func:`main` does; returns the run.
     ``attn_fn`` is injected into every block (``None``: the model's
-    default attention)."""
+    default attention). ``--mode fsdp|tp`` needs this process in a world
+    (:func:`main` joins it; ``runtime.mesh.run_threaded`` for a world of
+    threads)."""
     from distributed_ml_pytorch_tpu_torch.device import full_float32, resolve_device
     from distributed_ml_pytorch_tpu_torch.parallel.fsdp import (
         make_fsdp_lm_scan_train_step,
         make_fsdp_lm_train_step,
     )
     from distributed_ml_pytorch_tpu_torch.parallel.seq_parallel import create_lm_train_state
+    from distributed_ml_pytorch_tpu_torch.runtime.mesh import current_world
     from distributed_ml_pytorch_tpu_torch.training.trainer import SGD
 
-    dev = resolve_device(args.device)
+    world = current_world() if args.mode in MESH_MODES else None
+    if args.mode in MESH_MODES and world is None:
+        raise ValueError(f"--mode {args.mode} runs in a world: call main() or join one first")
+    dev = world.device if world is not None else resolve_device(args.device)
     if dev.type == "cuda":
         full_float32()
     lm = build_model(args, dev)
     if attn_fn is not None:
         lm.set_attn_fn(attn_fn)
     tx = SGD(args.lr)
-    state = create_lm_train_state(lm, tx)
     k = args.steps_per_dispatch
-    if k > 1:
-        step = make_fsdp_lm_scan_train_step(lm, tx, k, loss_chunk=args.loss_chunk)
-    else:
-        step = make_fsdp_lm_train_step(lm, tx, loss_chunk=args.loss_chunk)
     tokens, targets = lm_batches(args)
-    tok = torch.from_numpy(tokens.astype(np.int64)).to(dev)
-    tgt = torch.from_numpy(targets.astype(np.int64)).to(dev)
+    lead = 1 if k > 1 else 0  # K stacked batches: the rows are dim 1
+    mesh = None
+    if world is not None:
+        mesh, state, step1, shard, desc = _mesh_setup(args, lm, tx)
+        step = _k_steps(step1) if k > 1 else step1
+        tok, tgt = (torch.from_numpy(a.astype(np.int64)) for a in (tokens, targets))
+        if lead:
+            tok, tgt = (t.transpose(0, 1) for t in (tok, tgt))
+        tok, tgt = shard(tok, tgt)
+        if lead:
+            tok, tgt = (t.transpose(0, 1).contiguous() for t in (tok, tgt))
+        where = f"{desc} on {dev.type}"
+    else:
+        state = create_lm_train_state(lm, tx)
+        if k > 1:
+            step = make_fsdp_lm_scan_train_step(lm, tx, k, loss_chunk=args.loss_chunk)
+        else:
+            step = make_fsdp_lm_train_step(lm, tx, loss_chunk=args.loss_chunk)
+        tok = torch.from_numpy(tokens.astype(np.int64)).to(dev)
+        tgt = torch.from_numpy(targets.astype(np.int64)).to(dev)
+        n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+        where = f"single-device on {dev.type}, 1 of {n_dev} devices"
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
 
     ckpt, start_step = None, 0
     if args.ckpt_dir:
@@ -190,9 +303,7 @@ def run(args: argparse.Namespace, attn_fn=None) -> LMRun:
             if start_step:
                 print(f"resumed from checkpoint step {start_step}", flush=True)
 
-    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
-    print(f"training {args.n_layers}-layer LM (single-device on {dev.type}, "
-          f"1 of {n_dev} devices)", flush=True)
+    say(f"training {args.n_layers}-layer LM ({where})", flush=True)
     n_disp = args.steps // k
     losses = []
     t0 = time.perf_counter()
@@ -205,12 +316,12 @@ def run(args: argparse.Namespace, attn_fn=None) -> LMRun:
         if ckpt is not None:
             ckpt.save(start_step + (i + 1) * k, state)
         if i % max(1, n_disp // 5) == 0:
-            print(f"  step {i * k:4d}  loss {float(loss.reshape(-1)[-1]):.4f}", flush=True)
+            say(f"  step {i * k:4d}  loss {float(loss.reshape(-1)[-1]):.4f}", flush=True)
     final = float(losses[-1][-1])
     dt = time.perf_counter() - t0
     rate = (n_disp - 1) * k * args.batch * args.seq / dt if n_disp > 1 else 0.0
-    print(f"final loss {final:.4f}; ~{rate:.0f} tokens/s "
-          f"(naive wall-clock over dispatches 1..{n_disp - 1})", flush=True)
+    say(f"final loss {final:.4f}; ~{rate:.0f} tokens/s "
+        f"(naive wall-clock over dispatches 1..{n_disp - 1})", flush=True)
     if ckpt is not None:
         ckpt.save(start_step + args.steps, state, force=True)
         ckpt.close()
@@ -219,7 +330,13 @@ def run(args: argparse.Namespace, attn_fn=None) -> LMRun:
 
 
 def main(argv=None) -> int:
-    run(parse_args(argv))
+    args = parse_args(argv)
+    if args.mode in MESH_MODES:
+        from distributed_ml_pytorch_tpu_torch.runtime.mesh import init_distributed
+
+        init_distributed(args.dist_backend, args.master, args.port, args.world_size,
+                         args.rank, device=args.device)
+    run(args)
     return 0
 
 

@@ -3,7 +3,8 @@
 - ``--no-distributed --backend cpu`` trains a few steps and writes the
   reference CSV schema, the same header the JAX package's logger writes;
 - ``launch.py`` runs a tiny three-process TCP world (server + 2 workers);
-- flags the port does not implement are rejected, and ``--backend cuda``
+- flags the port does not implement are rejected (``--mode sync`` is
+  ported now; the backend ``mpi`` stands in for it), and ``--backend cuda``
   without a card raises instead of falling back; the trainer's flags take
   the JAX CLI's names, defaults and choices, and ``--mode ps`` refuses the
   ones it does not implement;
@@ -71,7 +72,7 @@ def test_launch_three_process_tcp_world(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--profile-start", "2"],
-                                  ["--mode", "sync"],
+                                  ["--dist-backend", "mpi"],
                                   ["--dtype", "float16"], ["--backend", "tpu"],
                                   ["--metrics-dump", "-"], ["--profile-dir", "prof"]])
 def test_unimplemented_flags_are_rejected(flag):
@@ -135,7 +136,7 @@ def test_ps_flags_take_the_jax_names_defaults_and_choices():
             ref[dest].choices and tuple(ref[dest].choices)), dest
         assert mine[dest].type == ref[dest].type, dest
     for flag in (["--profile-dir", "prof"], ["--metrics-dump", "-"],
-                 ["--sync-every", "2"], ["--profile-steps", "3"], ["--compress", "fp8"],
+                 ["--profile-start", "2"], ["--profile-steps", "3"], ["--compress", "fp8"],
                  ["--combine", "sum"], ["--server-opt", "adagrad"]):
         with pytest.raises(SystemExit):
             cli.build_parser().parse_args(flag)

@@ -2101,3 +2101,69 @@ def test_moe_generate_on_the_card_equals_the_cpu_tokens(cuda):
         calls = (tda.launches, ref_calls[0])
     assert calls == (2 * 32, 0)
     assert torch.equal(out["cuda"], out["cpu"])
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_sync_and_fsdp_steps_equal_the_single_step(cuda):
+    """A one-rank NCCL world (real NCCL groups, degenerate collectives): three
+    sync-DP and three FSDP steps of the unfused AlexNet at b64, bit for bit
+    the steps of ``training.trainer.make_train_step``."""
+    from distributed_ml_pytorch_tpu_torch.device import full_float32
+    from distributed_ml_pytorch_tpu_torch.models import get_model
+    from distributed_ml_pytorch_tpu_torch.parallel import fsdp, sync
+    from distributed_ml_pytorch_tpu_torch.runtime.mesh import make_mesh, run_threaded
+    from distributed_ml_pytorch_tpu_torch.training.trainer import (
+        SGD,
+        create_train_state,
+        make_train_step,
+    )
+
+    full_float32()
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(64, 32, 32, 3)).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(np.arange(64) % 10).to(cuda)
+    try:
+        model = get_model("alexnet", seed=0, device=cuda)
+        state, step = create_train_state(model, SGD(0.05)), make_train_step(model, SGD(0.05))
+        want = [float(step(state, x, y)[1]) for _ in range(3)]
+
+        def rank(world):
+            mesh = make_mesh(world=world)
+            out = []
+            for mode in ("sync", "fsdp"):
+                m = get_model("alexnet", seed=0, device=cuda)
+                if mode == "sync":
+                    st, stp = create_train_state(m, SGD(0.05)), sync.make_sync_train_step(
+                        m, SGD(0.05), mesh)
+                else:
+                    st = fsdp.create_fsdp_train_state(m, SGD(0.05), mesh)
+                    stp = fsdp.make_fsdp_train_step(m, SGD(0.05), mesh)
+                losses = [float(stp(st, x, y)[1]) for _ in range(3)]
+                if mode == "fsdp":
+                    st.sharding.gather()
+                out.append((losses, [p.detach().clone() for p in m.parameters()]))
+            return out
+
+        for losses, params in run_threaded(1, rank, backend="nccl", device="cuda")[0]:
+            assert losses == want
+            assert all(torch.equal(a, b) for a, b in zip(params, model.parameters()))
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+@pytest.mark.gpu
+def test_two_rank_tp_step_launches_k4_on_local_heads(cuda, tmp_path):
+    """Two processes sharing the card over gloo, ``--mode tp`` at test widths
+    (2 heads, one a rank): K4 and K5 once a layer and step on each rank, on
+    the rank's one head, the plain attention never."""
+    import chip_smoke as cs
+
+    ranks, _ = cs._mesh_processes("cuda", True, "lm", str(tmp_path))
+    for rank in ranks:
+        rec = rank["lm"]["tp"]
+        n = rec["launches"]
+        assert n["flash_fwd"] == n["flash_bwd_fused"] == rec["layers"] * cs.MESH_LM_STEPS
+        assert rec["plain_attention_calls"] == 0 and rec["heads"] == 1
+        assert rec["q_shape"][0] == cs.TINY_MESH["lm_batch"] * rec["heads"]

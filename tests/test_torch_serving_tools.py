@@ -1,6 +1,6 @@
 """The port's ``bench_serving`` and ``examples/generate_text`` on the CPU:
 the root scripts' flags and output (the JSON line's keys are read from the
-root ``bench_serving.py``'s result literal), ``--tp`` refused, and
+root ``bench_serving.py``'s result literal), ``--tp`` with an indivisible degree refused, and
 ``--ckpt-dir`` restoring a ``train_lm`` checkpoint."""
 
 import ast
@@ -61,7 +61,8 @@ def test_the_root_flags_and_defaults():
         if a.option_strings and a.option_strings[0] != "-h"}
     assert port["requests"] == 24 and port["rate"] == 8.0 and port["slots"] == 4
     assert port["backend"] == "cuda"
-    assert _flags(_root_tree("examples/generate_text.py")) | {"--backend"} == {
+    # the port's own: --backend, and --dist-backend for --tp's world
+    assert _flags(_root_tree("examples/generate_text.py")) | {"--backend", "--dist-backend"} == {
         a.option_strings[0] for a in generate_text.build_parser()._actions
         if a.option_strings and a.option_strings[0] != "-h"}
 
@@ -119,8 +120,10 @@ def test_generate_text_prints_the_root_lines():
 
 
 def test_generate_text_refuses_tp():
-    with pytest.raises(ValueError, match="A 7"):
-        generate_text.main(["--backend", "cpu", "--tp", "2"])
+    # --tp is ported (tests/test_torch_generate_tp.py); a tp degree that
+    # does not divide the heads (8) is what stays refused
+    with pytest.raises(ValueError, match="not divisible"):
+        generate_text.main(["--backend", "cpu", "--tp", "3"])
 
 
 def test_generate_text_restores_a_train_lm_checkpoint(tmp_path):
