@@ -230,8 +230,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    first and the last (b, h), within ATTN_TOL / LSE_TOL; each loss finite
    and falling; each kernel's ms at the long shape beside its bound and its
    launches a step, tokens/s, MFU and peak memory;
-19. the LM trainer's flags at GPT-2-small 8 x 2048 (bfloat16, RoPE, remat,
-   the chunked loss): ``train_lm --steps-per-dispatch 4 --steps 8
+19. the LM trainer's flags at GPT-2-small widths, 6 of its 12 layers
+   (``LM_K_LAYERS``), 8 x 2048 (bfloat16, RoPE, remat, the chunked loss): ``train_lm --steps-per-dispatch 4 --steps 8
    --ckpt-dir --ckpt-every 4`` (one captured step replayed) against eight
    eager AD steps on the same batches, with ``bwd_impl="split"`` injected
    (losses and parameters bit for bit) and with the default fused backward
@@ -409,7 +409,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    it, a local-SGD round of K = 10 (the ranks' parameters identical after
    the average) and the reference p2p demo; ``param_shard_fraction``, each
    rank's peak memory and its ``host_staged`` printed; (c) GPT-2-small
-   widths in bfloat16 (RoPE off, learned positions), global batch 8 × 2048
+   widths at 6 of its 12 layers (``MESH_LM_LAYERS``, as (d)) in bfloat16 (RoPE off, learned positions), global batch 8 × 2048
    over the two ranks: ``--mode fsdp`` (4 × 2048 a rank) and ``--mode tp``
    (6 of 12 heads, 25,152 of the 50,304 vocabulary rows a rank), three SGD
    steps each (lr 0.5): losses finite and falling, K4 and K5 once a layer
@@ -422,6 +422,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
    never, every token equal to ``generate()`` on one rank. One line each,
    with the card's ``nvidia-smi`` name and power limit; the launches join
    the ``kernels`` line and K4's, K5's errors its ``max_abs_err``.
+27. the parallelism family, part 2, at GPT-2-small widths, each part with
+   the attention counts zeroed just before it and read just after: first
+   the one-rank references (the LM's first loss, bf16, 8 × 2048; the
+   float32 one-stage pipeline at 8 × 512, M = 4; the MoE's first loss and
+   aux on a one-rank world); then two processes sharing the card over
+   gloo: (a) the causal ring (``--mode sp``, ``{data: 1, seq: 2}``), (b)
+   Ulysses, both bf16 8 × 2048, (c) GPipe and 1F1B on two float32 stages;
+   then four: (c) dp × pp on 2 × 2, (d) dp × ep on 2 × 2 at phase 25's MoE
+   widths, (e) fsdp × tp on 2 × 2 (bf16, 8 × 2048). Two steps each: the
+   first loss within ``PAR_LOSS_RTOL`` (bf16) or ``PAR_PP_RTOL`` (the
+   float32 pipeline, whose 1F1B losses equal GPipe's) of the reference,
+   and, for the bfloat16 parts, the first step's gradient of
+   ``PAR_GRAD_PARAM`` within ``PAR_GRAD_RTOL`` of the reference's (the first
+   loss of a fresh model barely moves with what its layers compute);
+   K4 and K5 (or K6a + K6b by the size rule) as many times as the code
+   says (the ring's rank 0 one chunk a layer, rank 1 two; a stage a layer
+   it holds and microbatch; the others a layer), the plain attention
+   never, and on one rank of each part K4 and K5 held to their plain
+   versions on the step's own tensors; each rank's step time, peak memory
+   and ``host_staged`` printed.
 
 Then the ``kernels`` line, the ``nvidia-smi`` name/power line, and last the
 result line ``{"ok": true, "device": {...}}``. Without a card, or without
@@ -589,7 +609,14 @@ class SmokeFailure(Exception):
     pass
 
 
+_T0 = time.monotonic()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's record also carries ``t_s``, the seconds
+    since the script started, so a run's log gives each phase's share."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.monotonic() - _T0, 3)}
     print(json.dumps(obj), flush=True)
 
 
@@ -3359,7 +3386,7 @@ def _long_check(torch, at, args, kernels):
     then each kernel timed on all heads. Raises on a miss; returns the
     errors and times."""
     q, k, v, do, lse2, delta, causal = args
-    tol = ATTN_TOL["bfloat16"]
+    tol = ATTN_TOL["float32" if q.dtype == torch.float32 else "bfloat16"]
     got = {}
     if "flash_fwd" in kernels:
         got["flash_fwd"] = dict(zip(("out", "lse"), at.flash_fwd_cuda(q, k, v, causal)))
@@ -3559,7 +3586,11 @@ def phase_long_context(torch, device="cuda", tiny=False):
 #: phase 19's LM run: GPT-2-small 8 x 2048 bf16 with remat and the chunked
 #: loss (torch.utils.checkpoint inside the captured step), K steps a dispatch
 LM_K = 4
-LM_K_ARGS = [*GPT2_SMALL, "--remat", "--loss-chunk", "2048",
+#: phase 19 runs GPT-2-small widths at 6 of its 12 layers: its depth is cut
+#: to keep the whole run's margin under its time limit
+LM_K_LAYERS = 6
+LM_K_ARGS = [*GPT2_SMALL[:GPT2_SMALL.index("--n-layers")], "--n-layers", str(LM_K_LAYERS),
+             *GPT2_SMALL[GPT2_SMALL.index("--n-layers") + 2:], "--remat", "--loss-chunk", "2048",
              "--steps-per-dispatch", str(LM_K), "--steps", str(2 * LM_K),
              "--ckpt-every", str(LM_K)]
 TINY_LM_K_ARGS = [*TINY_LM_ARGS, "--batch", "2", "--seq", "128", "--remat", "--loss-chunk",
@@ -5651,6 +5682,16 @@ MESH_LM_BATCH, MESH_LM_SEQ, MESH_LM_STEPS = 8, 2048, 3
 #: there is 2^-4 (0.6 %); the tp loss is summed in float32
 MESH_LM_LOSS_RTOL = 1e-2
 MESH_GEN = (4, 64, 33)  # batch, prompt, new tokens: the blocked path, two blocks
+#: phase 26's LM and generate_tp run GPT-2-small widths at 6 of its 12 layers:
+#: their depth is cut to keep the whole run's margin under its time limit
+MESH_LM_LAYERS = 6
+
+
+def _mesh_widths(tiny):
+    from distributed_ml_pytorch_tpu_torch import bench_all
+
+    return (bench_all.TINY_LM if tiny
+            else dict(bench_all.GPT2_SMALL, n_layers=MESH_LM_LAYERS))
 TINY_MESH = dict(dp_batch=8, lm_batch=4, lm_seq=128, gen=(2, 8, 20))
 
 
@@ -5764,14 +5805,13 @@ def _mesh_lm_batch(widths, batch, seq):
 
 def _mesh_lm_rank(torch, world, device, tiny):
     """Phase 26 (c) on one rank: fsdp, then tp, MESH_LM_STEPS steps each."""
-    from distributed_ml_pytorch_tpu_torch import bench_all
     from distributed_ml_pytorch_tpu_torch.ops import attention as at
     from distributed_ml_pytorch_tpu_torch.parallel import fsdp
     from distributed_ml_pytorch_tpu_torch.parallel import tensor_parallel as tpm
     from distributed_ml_pytorch_tpu_torch.runtime.mesh import make_mesh
     from distributed_ml_pytorch_tpu_torch.training.trainer import SGD
 
-    widths = bench_all.TINY_LM if tiny else bench_all.GPT2_SMALL
+    widths = _mesh_widths(tiny)
     batch, seq = ((TINY_MESH["lm_batch"], TINY_MESH["lm_seq"]) if tiny
                   else (MESH_LM_BATCH, MESH_LM_SEQ))
     tokens, targets = _mesh_lm_batch(widths, batch, seq)
@@ -5836,10 +5876,7 @@ def _mesh_lm_rank(torch, world, device, tiny):
 
 
 def _mesh_gen_shape(tiny):
-    from distributed_ml_pytorch_tpu_torch import bench_all
-
-    return ((bench_all.TINY_LM, TINY_MESH["gen"]) if tiny
-            else (bench_all.GPT2_SMALL, MESH_GEN))
+    return _mesh_widths(tiny), (TINY_MESH["gen"] if tiny else MESH_GEN)
 
 
 def _mesh_gen_model(torch, tiny, device):
@@ -5981,9 +6018,7 @@ def phase_mesh(torch, device="cuda", tiny=False, parts="dp,lm,gen"):
                   "runs": one["runs"], "card": card})
         ref_loss = ref_tokens = None
         if "lm" in parts:
-            from distributed_ml_pytorch_tpu_torch import bench_all
-
-            widths = bench_all.TINY_LM if tiny else bench_all.GPT2_SMALL
+            widths = _mesh_widths(tiny)
             batch, seq = ((TINY_MESH["lm_batch"], TINY_MESH["lm_seq"]) if tiny
                           else (MESH_LM_BATCH, MESH_LM_SEQ))
             lm = _mesh_lm_model(torch, widths, seq, torch.bfloat16, 0, device)
@@ -6098,6 +6133,455 @@ def _mesh_gen_checks(ranks, ref_tokens, device, card, launches, tiny):
           "tokens_equal_generate": True, "card": card})
 
 
+PAR_RANKS, PAR_WIDE = 2, 4  # the (a)-(c) world and the (c')-(e) world
+PAR_LM_BATCH, PAR_LM_SEQ, PAR_STEPS = 8, 2048, 2
+PAR_PP_BATCH, PAR_PP_SEQ, PAR_PP_M, PAR_PP_LR = 8, 512, 4, 0.1
+#: a bfloat16 first loss over the ranks against one rank's (as
+#: MESH_LM_LOSS_RTOL): the one-rank loss is a bfloat16 number near ln(50304),
+#: spaced 2^-4 there (0.6 %)
+PAR_LOSS_RTOL = 1e-2
+#: the float32 pipeline against its one-stage step on the same microbatches:
+#: the same kernels on the same rows, the stages only split the layers; and
+#: 1F1B against GPipe (the same units in another order)
+PAR_PP_RTOL = 1e-5
+#: the parameter whose first-step gradient (all-reduced, as the optimizer
+#: takes it) the bfloat16 parts hold against the one-rank step's: the first
+#: loss of a fresh model sits near ln(V) whatever its layers compute, while
+#: this gradient moves with every layer above it (a non-causal ring moved it
+#: by 0.83 in a CPU trial at narrow widths; the bfloat16 rounding by 0.013)
+PAR_GRAD_PARAM = "block_0.LayerNorm_0.weight"
+#: ``‖g - g_ref‖ / ‖g_ref‖`` of that gradient, in float32
+PAR_GRAD_RTOL = 0.1
+TINY_PAR = dict(lm_batch=4, lm_seq=192, pp_batch=4, pp_seq=32, pp_m=2)
+
+
+def _par_shapes(tiny):
+    from distributed_ml_pytorch_tpu_torch import bench_all
+
+    widths = bench_all.TINY_LM if tiny else bench_all.GPT2_SMALL
+    if tiny:
+        return (widths, TINY_PAR["lm_batch"], TINY_PAR["lm_seq"], TINY_PAR["pp_batch"],
+                TINY_PAR["pp_seq"], TINY_PAR["pp_m"])
+    return widths, PAR_LM_BATCH, PAR_LM_SEQ, PAR_PP_BATCH, PAR_PP_SEQ, PAR_PP_M
+
+
+def _pp_cfg(widths, seq):
+    from distributed_ml_pytorch_tpu_torch.parallel.pipeline import PipelineLMConfig
+
+    return PipelineLMConfig(vocab_size=widths["vocab_size"], d_model=widths["d_model"],
+                            n_heads=widths["n_heads"], n_layers=widths["n_layers"],
+                            d_ff=widths["d_ff"], max_len=seq)
+
+
+def _moe_model(torch, widths, seq, device):
+    from distributed_ml_pytorch_tpu_torch import bench_all
+    from distributed_ml_pytorch_tpu_torch.models import MoETransformerLM
+
+    return MoETransformerLM(**widths, n_experts=bench_all.MOE_EXPERTS,
+                            capacity_factor=bench_all.MOE_CAPACITY, max_len=seq,
+                            dtype=torch.bfloat16, seed=0, device=device)
+
+
+def _first_grad(tx, model, offset=0):
+    """``tx`` made to keep the float32 gradient of :data:`PAR_GRAD_PARAM`
+    from its first update (the ``grads`` it takes follow
+    ``model.named_parameters()``); returns the dict that receives it, as
+    ``grad`` (this rank's rows of it) beside ``grad_offset``, the first row's
+    index in the whole parameter."""
+    j = [n for n, _ in model.named_parameters()].index(PAR_GRAD_PARAM)
+    seen, update = {"grad_offset": offset}, tx.update
+
+    def recording(grads, state, params=None):
+        if "grad" not in seen:
+            seen["grad"] = grads[j].detach().float().reshape(-1).cpu().tolist()
+        return update(grads, state, params)
+
+    tx.update = recording
+    return seen
+
+
+def _par_steps(torch, at, mesh, device, step, check, grad=None):
+    """``step()`` PAR_STEPS times with the attention launches zeroed just
+    before and read just after, the plain versions counted, the first
+    backward kernel call's tensors kept; on ``check`` (and the card) K4 and
+    K5 held to their plain versions on them. Returns the rank's record,
+    with ``grad`` (:func:`_first_grad`'s dict) merged in."""
+    seen, restore = _record_first_call(torch, at, "flash_bwd_fused_cuda")
+    _zero_attention_launches(at)
+    losses, times = [], []
+    try:
+        with _plain_attention_calls(at) as plain:
+            for _ in range(PAR_STEPS):
+                _sync(torch, device)
+                t0 = time.perf_counter()
+                losses.append(float(step()))
+                _sync(torch, device)
+                times.append(time.perf_counter() - t0)
+    finally:
+        restore()
+    rec = {"losses": losses, "step_ms": 1e3 * times[-1], "first_step_ms": 1e3 * times[0],
+           "launches": dict(at.launches), "plain_attention_calls": plain.n,
+           "peak_mem_gb": _peak_gb(torch, device), "host_staged": mesh.host_staged,
+           **(grad or {})}
+    args = seen.pop("args", None)
+    if args is not None:
+        rec["q_shape"] = list(args[0].shape)
+        rec["dtype"] = str(args[0].dtype).replace("torch.", "")
+    if check and device == "cuda":
+        require(args is not None, "no fused backward call to hold against its plain version")
+        errs, ms, check_s = _long_check(torch, at, args, ("flash_fwd", "flash_bwd_fused"))
+        rec["kernels"] = {k: {"ms": ms[k], "errors": errs[k]} for k in ms}
+        rec["plain_check_s"] = check_s
+    return rec
+
+
+def _par_sp_part(torch, at, world, device, tiny, mode):
+    """Phase 27 (a)/(b) on one rank: the ring (``sp``) or Ulysses step over
+    ``{"data": 1, "seq": 2}`` from the seed-0 weights."""
+    from distributed_ml_pytorch_tpu_torch.parallel import seq_parallel as sp
+    from distributed_ml_pytorch_tpu_torch.parallel.ulysses import make_ulysses_train_step
+    from distributed_ml_pytorch_tpu_torch.runtime.mesh import make_mesh
+    from distributed_ml_pytorch_tpu_torch.training.trainer import SGD
+
+    widths, batch, seq = _par_shapes(tiny)[:3]
+    mesh = make_mesh({"data": 1, "seq": PAR_RANKS}, world)
+    _peak_gb(torch, device, reset=True)
+    lm = _mesh_lm_model(torch, widths, seq, torch.bfloat16, 0, device)
+    tx = SGD(LM_LR)
+    grad = _first_grad(tx, lm)
+    state = sp.create_lm_train_state(lm, tx)
+    make = sp.make_sp_train_step if mode == "sp" else make_ulysses_train_step
+    step = make(lm, tx, mesh)
+    tok, tgt = sp.shard_lm_batch(mesh, *_mesh_lm_batch(widths, batch, seq))
+    rec = _par_steps(torch, at, mesh, device, lambda: step(state, tok, tgt)[1],
+                     check=mesh.rank == PAR_RANKS - 1, grad=grad)
+    rec.update(rank_tokens=list(tok.shape), layers=widths["n_layers"])
+    del lm, state, step
+    return rec
+
+
+def _par_pp_part(torch, at, world, device, tiny, schedule, shape):
+    """Phase 27 (c) on one rank: the float32 pipeline over ``shape``."""
+    from distributed_ml_pytorch_tpu_torch.parallel import pipeline as pp
+    from distributed_ml_pytorch_tpu_torch.runtime.mesh import make_mesh
+    from distributed_ml_pytorch_tpu_torch.training.trainer import SGD
+
+    widths, _b, _s, batch, seq, m = _par_shapes(tiny)
+    cfg = _pp_cfg(widths, seq)
+    mesh = make_mesh(shape, world)
+    _peak_gb(torch, device, reset=True)
+    tx = SGD(PAR_PP_LR)
+    model_axis = "model" if "model" in shape else None
+    data_axis = "data" if "data" in shape else None
+    state = pp.create_pp_train_state(cfg, tx, mesh, model_axis=model_axis, seed=0)
+    step = pp.make_pp_train_step(cfg, tx, mesh, m, schedule=schedule, data_axis=data_axis,
+                                 model_axis=model_axis)
+    tok, tgt = pp.microbatch(*_mesh_lm_batch(widths, batch, seq), m)
+    rec = _par_steps(torch, at, mesh, device, lambda: step(state, tok, tgt)[1],
+                     check=mesh.rank == 0)
+    rec.update(stage=state.stage, layers_here=len(state.model.blocks), microbatches=m,
+               peak_stash=state.peak_stash, schedule=schedule)
+    del state, step
+    return rec
+
+
+def _par_moe_part(torch, at, world, device, tiny):
+    """Phase 27 (d) on one rank: dp × ep on ``{"data": 2, "expert": 2}``."""
+    from distributed_ml_pytorch_tpu_torch import bench_all
+    from distributed_ml_pytorch_tpu_torch.parallel import expert_parallel as ep
+    from distributed_ml_pytorch_tpu_torch.runtime.mesh import make_mesh
+    from distributed_ml_pytorch_tpu_torch.training.trainer import SGD
+
+    widths = _par_shapes(tiny)[0]
+    batch, seq = ((bench_all.TINY_MOE_BATCH * 2, bench_all.TINY_MOE_SEQ) if tiny
+                  else (bench_all.MOE_BATCH, bench_all.MOE_SEQ))
+    mesh = make_mesh({"data": 2, "expert": 2}, world)
+    _peak_gb(torch, device, reset=True)
+    moe = _moe_model(torch, widths, seq, device)
+    tx = SGD(MOE_LR)
+    state = ep.create_ep_train_state(moe, tx, mesh)
+    grad = _first_grad(tx, moe)
+    step = ep.make_ep_train_step(moe, tx, mesh)
+    tok, tgt = ep.shard_ep_batch(mesh, *_mesh_lm_batch(widths, batch, seq))
+    aux = []
+
+    def one():
+        _, (loss, a) = step(state, tok, tgt)
+        aux.append(float(a))
+        return loss
+
+    rec = _par_steps(torch, at, mesh, device, one, check=mesh.rank == 0, grad=grad)
+    rec.update(aux=aux, rank_tokens=list(tok.shape), layers=widths["n_layers"],
+               experts_here=moe.blocks()[0].moe.n_local)
+    del moe, state, step
+    return rec
+
+
+def _par_composite_part(torch, at, world, device, tiny):
+    """Phase 27 (e) on one rank: dp × fsdp × tp on ``{"data": 1, "fsdp": 2,
+    "model": 2}``."""
+    from distributed_ml_pytorch_tpu_torch.parallel import composite as cp
+    from distributed_ml_pytorch_tpu_torch.runtime.mesh import make_mesh
+    from distributed_ml_pytorch_tpu_torch.training.trainer import SGD
+
+    widths, batch, seq = _par_shapes(tiny)[:3]
+    mesh = make_mesh({"data": 1, "fsdp": 2, "model": 2}, world)
+    _peak_gb(torch, device, reset=True)
+    lm = _mesh_lm_model(torch, widths, seq, torch.bfloat16, 0, device)
+    tx = SGD(LM_LR)
+    state, specs = cp.create_composite_train_state(lm, tx, mesh)
+    # the parameter's rows on this rank: FSDP splits its one dim over fsdp
+    require(specs[PAR_GRAD_PARAM] == ("fsdp",), f"{PAR_GRAD_PARAM} laid out as "
+            f"{specs[PAR_GRAD_PARAM]}, not split over fsdp alone")
+    grad = _first_grad(tx, lm, mesh.axis_index("fsdp") * widths["d_model"]
+                       // mesh.axis_size("fsdp"))
+    step = cp.make_composite_train_step(lm, tx, mesh, specs)
+    tok, tgt = cp.shard_composite_batch(mesh, *_mesh_lm_batch(widths, batch, seq))
+    rec = _par_steps(torch, at, mesh, device, lambda: step(state, tok, tgt)[1],
+                     check=mesh.rank == 0, grad=grad)
+    rec.update(rank_tokens=list(tok.shape), layers=widths["n_layers"],
+               heads_here=lm.blocks()[0].attn.n_heads)
+    del lm, state, step
+    return rec
+
+
+def par_child(rank: int, n: int, port: str, out_path: str, device: str = "cuda",
+              tiny: bool = False) -> None:
+    """One rank of phase 27's worlds of ``n`` processes sharing the card
+    over gloo: 2 ranks run (a) sp, (b) ulysses and (c) GPipe and 1F1B on 2
+    stages; 4 ranks run (c) dp × pp on 2 × 2, (d) dp × ep and (e) fsdp × tp.
+    Writes the records to ``out_path`` (JSON)."""
+    import torch
+
+    from distributed_ml_pytorch_tpu_torch.device import full_float32
+    from distributed_ml_pytorch_tpu_torch.ops import attention as at
+    from distributed_ml_pytorch_tpu_torch.runtime.mesh import init_distributed
+
+    world = init_distributed("gloo", "localhost", port, n, rank, device=device)
+    if device == "cuda":
+        full_float32()
+    else:
+        torch.set_num_threads(1)
+    out = {"rank": rank}
+    if n == PAR_RANKS:
+        out["sp"] = _par_sp_part(torch, at, world, device, tiny, "sp")
+        out["ulysses"] = _par_sp_part(torch, at, world, device, tiny, "ulysses")
+        for sched in ("gpipe", "1f1b"):
+            out[f"pp_{sched}"] = _par_pp_part(torch, at, world, device, tiny, sched,
+                                              {"stage": 2})
+    else:
+        out["pp_dp"] = _par_pp_part(torch, at, world, device, tiny, "gpipe",
+                                    {"data": 2, "stage": 2})
+        out["moe"] = _par_moe_part(torch, at, world, device, tiny)
+        out["composite"] = _par_composite_part(torch, at, world, device, tiny)
+    with open(out_path, "w") as fh:
+        json.dump(out, fh)
+
+
+def _par_processes(n, device, tiny, tmp):
+    """Run ``n`` ``par_child`` processes; returns their records."""
+    from distributed_ml_pytorch_tpu_torch.launch import _free_port
+
+    port = _free_port()
+    paths = [os.path.join(tmp, f"par{n}_rank{r}.json") for r in range(n)]
+    code = ("import sys, chip_smoke; chip_smoke.par_child(int(sys.argv[1]), int(sys.argv[2]), "
+            "sys.argv[3], sys.argv[4], sys.argv[5], sys.argv[6] == '1')")
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(n), port, paths[r],
+                               device, "1" if tiny else "0"], cwd=ROOT)
+             for r in range(n)]
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    require(all(c == 0 for c in codes), f"phase 27's {n} rank processes exited with {codes}")
+    out = []
+    for path in paths:
+        with open(path) as fh:
+            out.append(json.load(fh))
+    return out
+
+
+def _par_references(torch, device, tiny):
+    """The one-rank steps phase 27 holds its worlds to: the LM's first loss
+    and first :data:`PAR_GRAD_PARAM` gradient (bf16, the global batch), the
+    one-stage pipeline's losses (float32, a one-rank world of the card's
+    backend) and the MoE's first ``(loss, aux)`` and gradient on a one-rank
+    ``{"data": 1, "expert": 1}`` world."""
+    from distributed_ml_pytorch_tpu_torch import bench_all
+    from distributed_ml_pytorch_tpu_torch.parallel import expert_parallel as ep
+    from distributed_ml_pytorch_tpu_torch.parallel import pipeline as pp
+    from distributed_ml_pytorch_tpu_torch.parallel.fsdp import make_fsdp_lm_train_step
+    from distributed_ml_pytorch_tpu_torch.parallel.seq_parallel import create_lm_train_state
+    from distributed_ml_pytorch_tpu_torch.runtime.mesh import make_mesh, run_threaded
+    from distributed_ml_pytorch_tpu_torch.training.trainer import SGD
+
+    np = __import__("numpy")
+    widths, batch, seq, pp_batch, pp_seq, m = _par_shapes(tiny)
+    lm = _mesh_lm_model(torch, widths, seq, torch.bfloat16, 0, device)
+    tok, tgt = (torch.from_numpy(a.astype(np.int64)).to(device)
+                for a in _mesh_lm_batch(widths, batch, seq))
+    tx = SGD(LM_LR)
+    grad = _first_grad(tx, lm)
+    step = make_fsdp_lm_train_step(lm, tx)
+    ref = {"lm": float(step(create_lm_train_state(lm, tx), tok, tgt)[1]),
+           "lm_grad": grad["grad"]}
+    del lm, step, tok, tgt
+    backend = "nccl" if device == "cuda" else "gloo"
+
+    def pp_one(world):
+        mesh = make_mesh({"stage": 1}, world)
+        cfg = _pp_cfg(widths, pp_seq)
+        state = pp.create_pp_train_state(cfg, SGD(PAR_PP_LR), mesh, seed=0)
+        s = pp.make_pp_train_step(cfg, SGD(PAR_PP_LR), mesh, m)
+        t, g = pp.microbatch(*_mesh_lm_batch(widths, pp_batch, pp_seq), m)
+        return [float(s(state, t, g)[1]) for _ in range(PAR_STEPS)]
+
+    ref["pp"] = run_threaded(1, pp_one, backend=backend, device=device, timeout_s=600.0)[0]
+    mb, ms = ((bench_all.TINY_MOE_BATCH * 2, bench_all.TINY_MOE_SEQ) if tiny
+              else (bench_all.MOE_BATCH, bench_all.MOE_SEQ))
+
+    def moe_one(world):
+        mesh = make_mesh({"data": 1, "expert": 1}, world)
+        moe = _moe_model(torch, widths, ms, device)
+        tx = SGD(MOE_LR)
+        state = ep.create_ep_train_state(moe, tx, mesh)
+        grad = _first_grad(tx, moe)
+        s = ep.make_ep_train_step(moe, tx, mesh)
+        t, g = ep.shard_ep_batch(mesh, *_mesh_lm_batch(widths, mb, ms))
+        loss, aux = s(state, t, g)[1]
+        return float(loss), float(aux), grad["grad"]
+
+    *ref["moe"], ref["moe_grad"] = run_threaded(1, moe_one, backend=backend, device=device,
+                                                timeout_s=600.0)[0]
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return ref
+
+
+def _expected_attention(part, rec, steps):
+    """The K4 launches a rank's part must show: the causal ring's rank
+    ``i`` attends to the chunks of ranks ``0..i``, its own and the past
+    ones, ``i + 1`` a layer (rank 0 launches nothing for the future chunk
+    of rank 1); Ulysses, the MoE and the composite step one a layer; a
+    pipeline stage one a layer it holds and microbatch."""
+    if part == "sp":
+        return rec["layers"] * (rec["rank"] % PAR_RANKS + 1) * steps
+    if part.startswith("pp"):
+        return rec["layers_here"] * rec["microbatches"] * steps
+    return rec["layers"] * steps
+
+
+def _grad_rel_err(got, offset, want):
+    """``‖g - g_ref‖ / ‖g_ref‖`` over the rows of the reference gradient
+    ``want`` that this rank holds, from ``offset`` on."""
+    ref = want[offset:offset + len(got)]
+    num = math.sqrt(sum((a - b) ** 2 for a, b in zip(got, ref)))
+    return num / math.sqrt(sum(b * b for b in ref))
+
+
+def _par_checks(part, ranks, want_loss, rtol, device, card, launches, errors, world,
+                want_grad=None):
+    recs = []
+    for r, rank in enumerate(ranks):
+        rec = dict(rank[part], rank=r)
+        ls, n = rec["losses"], rec["launches"]
+        require(all(math.isfinite(v) for v in ls),
+                f"{part} rank {r}: losses not finite: {ls}")
+        require(abs(ls[0] - want_loss) <= rtol * abs(want_loss),
+                f"{part} rank {r}: first loss {ls[0]} vs one rank's {want_loss} beyond "
+                f"rtol {rtol}")
+        if want_grad is not None:
+            got = rec.pop("grad")
+            require(len(got) and all(math.isfinite(v) for v in got),
+                    f"{part} rank {r}: no finite {PAR_GRAD_PARAM} gradient")
+            rec["grad_rel_err"] = _grad_rel_err(got, rec["grad_offset"], want_grad)
+            require(rec["grad_rel_err"] <= PAR_GRAD_RTOL,
+                    f"{part} rank {r}: the first {PAR_GRAD_PARAM} gradient is "
+                    f"{rec['grad_rel_err']} from one rank's (relative), beyond "
+                    f"{PAR_GRAD_RTOL}")
+        want = _expected_attention(part, rec, PAR_STEPS)
+        fused = n["flash_bwd_fused"] == want and n["flash_bwd_dq"] == 0
+        split = n["flash_bwd_fused"] == 0 and n["flash_bwd_dq"] == n["flash_bwd_dkv"] == want
+        if device == "cuda":
+            require(n["flash_fwd"] == want and (fused or split),
+                    f"{part} rank {r} launched {n}, want {want} K4 and as many K5 (or K6a "
+                    f"+ K6b) in {PAR_STEPS} steps")
+            require(rec["plain_attention_calls"] == 0,
+                    f"{part} rank {r} reached the plain attention "
+                    f"{rec['plain_attention_calls']} times")
+        rec["expected_k4"] = want
+        for name in launches:
+            launches[name] += n.get(name, 0)
+        for kern, k in rec.get("kernels", {}).items():
+            errors[kern] = max(errors.get(kern, 0.0), max(e[0] for e in k["errors"].values()))
+        recs.append(rec)
+    emit({"phase": f"parallel_{part}", "ok": True, "world": world,
+          "one_rank_first_loss": want_loss, "loss_rtol": rtol,
+          "grad_rtol": None if want_grad is None else PAR_GRAD_RTOL, "per_rank": recs,
+          "card": card})
+    return recs
+
+
+def phase_parallel(torch, device="cuda", tiny=False):
+    """Phase 27: the one-rank references here, then the 2-process and the
+    4-process gloo worlds; returns ``(launches, errors)`` to join the
+    ``kernels`` line."""
+    import shutil
+    import tempfile
+
+    from distributed_ml_pytorch_tpu_torch.device import full_float32
+
+    t0 = time.monotonic()
+    card = _card(torch, device)
+    if device == "cuda":
+        full_float32()
+    launches = {"flash_fwd": 0, "flash_bwd_fused": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    errors = {}
+    tmp = tempfile.mkdtemp(prefix="par27_", dir=os.path.join(ROOT, "build")
+                           if os.path.isdir(os.path.join(ROOT, "build")) else None)
+    try:
+        ref = _par_references(torch, device, tiny)
+        emit({"phase": "parallel_references", "ok": True, "world": "1 rank",
+              "lm_first_loss": ref["lm"], "pp_losses": ref["pp"], "moe_first": ref["moe"],
+              "grad_param": PAR_GRAD_PARAM, "card": card})
+        two = _par_processes(PAR_RANKS, device, tiny, tmp)
+        w2 = f"{PAR_RANKS} processes sharing the card over gloo"
+        w4 = f"{PAR_WIDE} processes sharing the card over gloo"
+        for part in ("sp", "ulysses"):
+            _par_checks(part, two, ref["lm"], PAR_LOSS_RTOL, device, card, launches, errors,
+                        w2 + ", {data: 1, seq: 2}", ref["lm_grad"])
+        g = _par_checks("pp_gpipe", two, ref["pp"][0], PAR_PP_RTOL, device, card, launches,
+                        errors, w2 + ", {stage: 2}")
+        f = _par_checks("pp_1f1b", two, ref["pp"][0], PAR_PP_RTOL, device, card, launches,
+                        errors, w2 + ", {stage: 2}")
+        for a, b in zip(g, f):
+            require(all(abs(x - y) <= PAR_PP_RTOL * abs(y)
+                        for x, y in zip(b["losses"], a["losses"])),
+                    f"1F1B losses {b['losses']} differ from GPipe's {a['losses']}")
+            require(all(abs(x - y) <= PAR_PP_RTOL * abs(y)
+                        for x, y in zip(a["losses"], ref["pp"])),
+                    f"GPipe losses {a['losses']} differ from one stage's {ref['pp']}")
+            require(b["peak_stash"] <= PAR_RANKS, f"1F1B kept {b['peak_stash']} graphs")
+        four = _par_processes(PAR_WIDE, device, tiny, tmp)
+        _par_checks("pp_dp", four, ref["pp"][0], PAR_PP_RTOL, device, card, launches, errors,
+                    w4 + ", {data: 2, stage: 2}")
+        moe = _par_checks("moe", four, ref["moe"][0], PAR_LOSS_RTOL, device, card, launches,
+                          errors, w4 + ", {data: 2, expert: 2}", ref["moe_grad"])
+        for rec in moe:
+            require(abs(rec["aux"][0] - ref["moe"][1]) <= PAR_LOSS_RTOL * abs(ref["moe"][1]),
+                    f"moe aux {rec['aux'][0]} vs one rank's {ref['moe'][1]}")
+        _par_checks("composite", four, ref["lm"], PAR_LOSS_RTOL, device, card, launches,
+                    errors, w4 + ", {data: 1, fsdp: 2, model: 2}", ref["lm_grad"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "parallel", "ok": True, "launches": launches,
+          "wall_s": time.monotonic() - t0, "card": card})
+    return launches, errors
+
+
 def main() -> int:
     try:
         import torch
@@ -6178,6 +6662,11 @@ def main() -> int:
         for name, n in mesh_launches.items():
             launches[name] += n
         for name, err in mesh_errors.items():
+            measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"], err)
+        par_launches, par_errors = phase_parallel(torch)
+        for name, n in par_launches.items():
+            launches[name] += n
+        for name, err in par_errors.items():
             measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"], err)
         smi = nvidia_smi_line()
     except SmokeFailure as e:

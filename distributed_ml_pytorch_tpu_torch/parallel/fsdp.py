@@ -272,16 +272,19 @@ class Sharding:
         return total + sum(torch.sum(grads[j] * grads[j]) for j in self.replicated)
 
 
-def shard_params(model: nn.Module, mesh: DeviceMesh, axis: str = "data") -> Sharding:
+def shard_params(model: nn.Module, mesh: DeviceMesh, axis: str = "data",
+                 dims: Optional[Sequence[Optional[int]]] = None) -> Sharding:
     """``model``'s parameters sharded over ``axis`` (:class:`Sharding`):
-    each rank keeps its rows of every sharded leaf and frees the rest."""
+    each rank keeps its rows of every sharded leaf and frees the rest.
+    ``dims`` gives each parameter's sharded dim (``None``: replicated);
+    by default each leaf's :func:`largest_shardable_dim`."""
     n, i = mesh.axis_size(axis), mesh.axis_index(axis)
     params = list(model.parameters())
-    dims, shards, strides, empty = [], [], [], []
+    if dims is None:
+        dims = [largest_shardable_dim(tuple(p.shape), n) if p.dim() else None for p in params]
+    shards, strides, empty = [], [], []
     with torch.no_grad():
-        for p in params:
-            d = largest_shardable_dim(tuple(p.shape), n) if p.dim() else None
-            dims.append(d)
+        for p, d in zip(params, dims):
             strides.append(p.stride())
             empty.append(torch.empty(0, dtype=p.dtype, device=p.device))
             if d is None:
@@ -289,7 +292,7 @@ def shard_params(model: nn.Module, mesh: DeviceMesh, axis: str = "data") -> Shar
                 continue
             rows = p.shape[d] // n
             shards.append(p.data.movedim(d, 0)[i * rows:(i + 1) * rows].contiguous())
-    sh = Sharding(mesh, axis, params, dims, shards, strides, empty)
+    sh = Sharding(mesh, axis, params, list(dims), shards, strides, empty)
     sh.free()
     return sh
 

@@ -234,6 +234,45 @@ def _replace(src: Dense, cls, weight: torch.Tensor, bias: Optional[torch.Tensor]
     return new
 
 
+def shard_tp_block(blk: nn.Module, mesh: DeviceMesh, axis: str = "model",
+                   shard_fused_qkv: bool = False) -> nn.Module:
+    """One ``Block`` turned into this rank's Megatron shard along ``axis``,
+    in place (see :func:`shard_tp`); returns it. ``parallel/pipeline.py``
+    shards each stage's blocks this way under ``model_axis``."""
+    tp, m = mesh.axis_size(axis), mesh.axis_index(axis)
+
+    def rows(n: int) -> slice:
+        return slice(m * (n // tp), (m + 1) * (n // tp))
+
+    attn = blk.attn
+    d, dl = attn.d_model, attn.d_model // tp
+    if attn.fused_qkv:
+        w = attn.qkv.weight
+        idx = torch.cat([torch.arange(i * d, (i + 1) * d, device=w.device)[rows(d)]
+                         for i in range(3)])
+        if shard_fused_qkv:
+            attn.qkv = _replace(attn.qkv, Dense, w[idx], None, mesh, axis)
+        else:
+            new = _replace(attn.qkv, HeadSlicedQKV, w, None, mesh, axis)
+            new.register_buffer("rows", idx, persistent=False)
+            new.weight.tp_partial = True
+            attn.qkv = new
+    else:
+        for name in ("q", "k", "v"):
+            src = getattr(attn, name)
+            setattr(attn, name, _replace(src, Dense, src.weight[rows(d)], None, mesh, axis))
+    attn.o = _replace(attn.o, RowParallelDense, attn.o.weight[:, rows(d)], None, mesh, axis)
+    attn.d_model, attn.n_heads = dl, attn.n_heads // tp
+    attn.register_forward_pre_hook(
+        lambda mod, args: (_CopyToModel.apply(args[0], mesh, axis), *args[1:]))
+    ff = blk.Dense_0.weight.shape[0]
+    blk.Dense_0 = _replace(blk.Dense_0, ColumnParallelDense, blk.Dense_0.weight[rows(ff)],
+                           blk.Dense_0.bias[rows(ff)], mesh, axis)
+    blk.Dense_1 = _replace(blk.Dense_1, RowParallelDense, blk.Dense_1.weight[:, rows(ff)],
+                           blk.Dense_1.bias, mesh, axis)
+    return blk
+
+
 def shard_tp(model: nn.Module, mesh: DeviceMesh, axis: str = "model",
              shard_fused_qkv: bool = False) -> nn.Module:
     """Turn ``model`` (a ``TransformerLM``, training or decode, the same on
@@ -247,41 +286,11 @@ def shard_tp(model: nn.Module, mesh: DeviceMesh, axis: str = "model",
     gradients) keeps only this rank's rows."""
     tp, m = mesh.axis_size(axis), mesh.axis_index(axis)
     _check_divisibility(model, tp)
-
-    def rows(n: int) -> slice:
-        return slice(m * (n // tp), (m + 1) * (n // tp))
-
     for blk in model.blocks():
-        attn = blk.attn
-        d, dl = attn.d_model, attn.d_model // tp
-        if attn.fused_qkv:
-            w = attn.qkv.weight
-            idx = torch.cat([torch.arange(i * d, (i + 1) * d, device=w.device)[rows(d)]
-                             for i in range(3)])
-            if shard_fused_qkv:
-                attn.qkv = _replace(attn.qkv, Dense, w[idx], None, mesh, axis)
-            else:
-                new = _replace(attn.qkv, HeadSlicedQKV, w, None, mesh, axis)
-                new.register_buffer("rows", idx, persistent=False)
-                new.weight.tp_partial = True
-                attn.qkv = new
-        else:
-            for name in ("q", "k", "v"):
-                src = getattr(attn, name)
-                setattr(attn, name, _replace(src, Dense, src.weight[rows(d)], None, mesh, axis))
-        attn.o = _replace(attn.o, RowParallelDense, attn.o.weight[:, rows(d)], None, mesh,
-                          axis)
-        attn.d_model, attn.n_heads = dl, attn.n_heads // tp
-        attn.register_forward_pre_hook(
-            lambda mod, args: (_CopyToModel.apply(args[0], mesh, axis), *args[1:]))
-        ff = blk.Dense_0.weight.shape[0]
-        blk.Dense_0 = _replace(blk.Dense_0, ColumnParallelDense, blk.Dense_0.weight[rows(ff)],
-                               blk.Dense_0.bias[rows(ff)], mesh, axis)
-        blk.Dense_1 = _replace(blk.Dense_1, RowParallelDense, blk.Dense_1.weight[:, rows(ff)],
-                               blk.Dense_1.bias, mesh, axis)
-    v = model.lm_head.weight.shape[0]
-    model.lm_head = _replace(model.lm_head, VocabParallelHead, model.lm_head.weight[rows(v)],
-                             None, mesh, axis)
+        shard_tp_block(blk, mesh, axis, shard_fused_qkv)
+    v = model.lm_head.weight.shape[0] // tp
+    model.lm_head = _replace(model.lm_head, VocabParallelHead,
+                             model.lm_head.weight[m * v:(m + 1) * v], None, mesh, axis)
     model.tp_mesh, model.tp_axis = mesh, axis
     return model
 

@@ -22,9 +22,10 @@ backend by itself. Under ``gloo`` a CUDA tensor goes to the group as it is:
 on torch 2.11 with an H100, gloo's all_reduce (float32, bfloat16, max),
 broadcast, all_gather, reduce_scatter and all_to_all take CUDA tensors,
 while a send of one aborts the process (gloo hands the device pointer to
-its socket). So :meth:`DeviceMesh.permute`, the one user of send and
-receive, copies a CUDA tensor through pinned host memory under gloo and
-counts each copy in ``host_staged``. Under ``nccl`` nothing is staged.
+its socket). So :meth:`DeviceMesh.permute`, :meth:`DeviceMesh.send`,
+:meth:`DeviceMesh.recv` and :meth:`DeviceMesh.all_to_all` copy a CUDA
+tensor through pinned host memory under gloo and count each copy in
+``host_staged``. Under ``nccl`` nothing is staged.
 
 Values never depend on the mesh's shape: every rank builds the full
 initial state from the seed on the host and keeps its shard
@@ -223,6 +224,7 @@ class DeviceMesh:
         self.host_staged = 0
         world.meshes += 1
         tag = f"mesh{world.meshes}/" + "x".join(f"{n}{d}" for n, d in zip(self.names, self.dims))
+        self._tag, self._lanes = tag, {}
         self._groups = {}
         for i, name in enumerate(self.names):
             key = ",".join("*" if j == i else str(c) for j, c in enumerate(coords))
@@ -285,39 +287,96 @@ class DeviceMesh:
         its ``t`` to ``dst``; returns what this rank received, zeros where it
         is no destination (the ``lax.ppermute`` semantics). Every send and
         receive is posted before any is waited on, so a ring does not
-        deadlock. Under gloo a CUDA tensor goes through pinned host memory
-        (counted in ``host_staged``)."""
+        deadlock. The traffic is :meth:`send`'s, on the axis' own group."""
         me = self.axis_index(axis)
         srcs = [s for s, d in pairs if d == me]
         if len(srcs) > 1:
             raise ValueError(f"rank {me} of {axis!r} is the destination of {len(srcs)} pairs")
-        staged = self.backend == "gloo" and t.is_cuda
-        out = torch.zeros_like(t)
-        send_buf, recv_buf = t.contiguous(), out
-        works = []
+        held, got = [], None
         for s, d in pairs:
             if s == me and d == me:
-                out.copy_(t)
-                continue
-            if s == me:
-                if staged:
-                    send_buf = self._pinned(t)
-                works.append(self._groups[axis].send([send_buf], int(d), tag))
+                got = t.contiguous().clone()
+            elif s == me:
+                held.append(self.send(t, d, axis, tag=tag))
             elif d == me:
-                if staged:
-                    recv_buf = self._pinned(out)
-                works.append(self._groups[axis].recv([recv_buf], int(s), tag))
-        for w in works:
-            w.wait()
-        if recv_buf is not out:
-            out.copy_(recv_buf)
-        return out
+                got = self._landing(t)
+                held.append((self._groups[axis].recv([got], int(s), tag), got))
+        for work, _buf in held:
+            work.wait()
+        if got is None:
+            return torch.zeros_like(t, memory_format=torch.contiguous_format)
+        return got.to(t.device)
 
-    def _pinned(self, t: torch.Tensor) -> torch.Tensor:
-        """A pinned host copy of ``t``, counted in ``host_staged``."""
-        self.host_staged += 1
-        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        return h.copy_(t)
+    def all_to_all(self, t: torch.Tensor, axis: str, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+        """The tiled ``lax.all_to_all`` over ``axis``: ``t`` split along
+        ``split_dim`` into the axis size's chunks, chunk ``j`` sent to rank
+        ``j``, and the chunks received from ranks ``0 .. n-1`` concatenated
+        along ``concat_dim`` in rank order. Under gloo a CUDA tensor goes
+        through pinned host memory (counted in ``host_staged``)."""
+        n = self.axis_size(axis)
+        if t.shape[split_dim] % n:
+            raise ValueError(f"all_to_all of {t.shape[split_dim]} along dim {split_dim} "
+                             f"over {n} ranks of {axis!r}")
+        x = t.movedim(split_dim, 0)
+        src, out = self._staged(x), self._landing(x)
+        self._groups[axis].alltoall_base(out, src, [], [], dist.AllToAllOptions()).wait()
+        chunks = [c.movedim(0, split_dim) for c in out.to(t.device).chunk(n, dim=0)]
+        return torch.cat(chunks, dim=concat_dim)
+
+    def lane(self, axis: str, name: str):
+        """A second process group over ``axis``'s ranks, for point-to-point
+        traffic of its own (a pipeline's activations one way, its cotangents
+        the other): under NCCL each group has its own stream, so a send one
+        way never waits behind a receive the other way. Every rank of the
+        axis must ask for the same lanes in the same order."""
+        key = (axis, name)
+        if key not in self._lanes:
+            i = self.names.index(axis)
+            coords = [self.coords[a] for a in self.names]
+            slot = ",".join("*" if j == i else str(c) for j, c in enumerate(coords))
+            self._lanes[key] = self.world.new_group(
+                f"{self._tag}/{axis}/{slot}/lane-{name}", coords[i], self.dims[i])
+        return self._lanes[key]
+
+    def _group(self, axis: str, lane: Optional[str]):
+        return self._groups[axis] if lane is None else self.lane(axis, lane)
+
+    def send(self, t: torch.Tensor, dst: int, axis: str, lane: Optional[str] = None,
+             tag: int = 0):
+        """Post a send of ``t`` to rank ``dst`` of ``axis``, on ``lane`` (the
+        axis' own group when ``None``); returns the work and the buffer it
+        reads (hold both until the work is waited on)."""
+        buf = self._staged(t)
+        return self._group(axis, lane).send([buf], int(dst), tag), buf
+
+    def recv(self, like: torch.Tensor, src: int, axis: str, lane: Optional[str] = None,
+             tag: int = 0) -> torch.Tensor:
+        """A tensor shaped as ``like`` received from rank ``src`` of
+        ``axis`` on ``lane`` (waits for it)."""
+        buf = self._landing(like)
+        self._group(axis, lane).recv([buf], int(src), tag).wait()
+        return buf.to(like.device)
+
+    # gloo takes no CUDA tensor in its point-to-point calls (on torch 2.11
+    # they abort the process): under gloo a CUDA tensor leaves from, and
+    # lands in, pinned host memory, each buffer counted in ``host_staged``
+
+    def _staged(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as the backend sends it: contiguous, or its pinned host copy."""
+        t = t.contiguous()
+        if self.backend == "gloo" and t.is_cuda:
+            self.host_staged += 1
+            return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+        return t
+
+    def _landing(self, like: torch.Tensor) -> torch.Tensor:
+        """An empty contiguous buffer shaped as ``like`` to receive into: in
+        pinned host memory for a CUDA ``like`` under gloo."""
+        if self.backend == "gloo" and like.is_cuda:
+            self.host_staged += 1
+            return torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+        return torch.empty_like(like, memory_format=torch.contiguous_format)
 
 
 def make_mesh(axis_sizes: Optional[Mapping[str, int]] = None,

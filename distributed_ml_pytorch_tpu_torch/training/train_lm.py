@@ -1,5 +1,5 @@
 """Train the Transformer LM (counterpart of the JAX ``examples/train_lm.py``,
-``--mode single``, ``fsdp`` and ``tp``).
+every ``--mode``).
 
     python -m distributed_ml_pytorch_tpu_torch.training.train_lm --steps 20
     python -m distributed_ml_pytorch_tpu_torch.training.train_lm --device cpu --steps 4
@@ -26,17 +26,32 @@ restores the latest checkpoint there in place and trains ``--steps`` more.
 The flags of ``--mode single`` keep their names and defaults; ``--device``
 (``cuda`` by default, or ``cpu``) is new.
 
-``--mode fsdp`` and ``--mode tp`` train on a world of ``--world-size``
-processes (``launch.py --entry train_lm``; ``--master``, ``--port``,
-``--rank``, ``--dist-backend``), the mesh sized as the JAX script sizes it
-over its devices: fsdp ``{"data": gcd(world, batch)}``; tp ``{"data":
-gcd(world / m, batch), "model": m}`` with ``m = gcd(world, n_heads, d_ff,
-vocab)``. The mesh must take the whole world. ``--batch`` is the global
-batch; each rank trains on its rows (``parallel/fsdp.py``,
-``parallel/tensor_parallel.py``), and rank 0 prints. Checkpoints of a
-sharded state are not ported yet (``--ckpt-dir`` is refused there), nor is
-the chunked loss under tp. ``sp``, ``ulysses``, ``pp``, ``moe`` and
-``composite`` exit with an error (ROADMAP A 7, part 2).
+The mesh modes train on a world of ``--world-size`` processes (``launch.py
+--entry train_lm``; ``--master``, ``--port``, ``--rank``,
+``--dist-backend``), the mesh sized as the JAX script sizes it over its
+devices:
+
+- ``fsdp``: ``{"data": gcd(world, batch)}``;
+- ``tp``: ``{"data": gcd(world / m, batch), "model": m}`` with ``m =
+  gcd(world, n_heads, d_ff, vocab)``;
+- ``sp`` (ring attention) and ``ulysses`` (all-to-all):
+  ``{"data": gcd(world / q, batch), "seq": q}`` with ``q = gcd(world,
+  seq)``, and for Ulysses also ``gcd(q, n_heads)``;
+- ``pp`` (GPipe): ``{"data": --pp-dp, "stage": gcd(world / (dp·tp),
+  n_layers), "model": --pp-tp}`` (the ``data``/``model`` axes only when
+  wider than 1), ``gcd(--microbatches, batch)`` microbatches; the float32
+  ``PipelineLMConfig`` of the flags' widths;
+- ``moe`` (dp × ep): ``{"data": gcd(world / e, batch), "expert": e}`` with
+  ``e = gcd(world, --n-experts)``, a ``MoETransformerLM``;
+- ``composite`` (dp × fsdp × tp): ``model = gcd(2, n_heads, d_ff,
+  vocab)`` (1 past the world), the rest ``gcd(world / model, batch)``
+  split into ``data`` 2 (when even) and ``fsdp``.
+
+The mesh must take the whole world. ``--batch`` is the global batch; each
+rank trains on its share (``parallel/*.py``), and rank 0 prints.
+Checkpoints of a sharded state are not ported yet (``--ckpt-dir`` is
+refused in every mesh mode), nor is the chunked loss outside single and
+fsdp.
 """
 
 from __future__ import annotations
@@ -51,13 +66,13 @@ import numpy as np
 import torch
 
 MODES = ["single", "sp", "ulysses", "fsdp", "tp", "pp", "moe", "composite"]
-MESH_MODES = ("fsdp", "tp")
+MESH_MODES = ("sp", "ulysses", "fsdp", "tp", "pp", "moe", "composite")
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--mode", default="single", choices=MODES,
-                   help="parallelism mode; single, fsdp and tp are ported")
+                   help="parallelism mode")
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--loss-chunk", type=int, default=0, metavar="C",
                    help="compute the LM loss in C-token sequence chunks without "
@@ -86,46 +101,100 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="run on the card (default) or on the CPU")
+    p.add_argument("--n-experts", type=int, default=4,
+                   help="(--mode moe) experts per MoE layer")
+    p.add_argument("--microbatches", type=int, default=4,
+                   help="(--mode pp) GPipe microbatches per step")
+    p.add_argument("--pp-dp", type=int, default=1, metavar="D",
+                   help="(--mode pp) data-parallel pipeline replicas on a "
+                        "(data=D, stage) mesh — dp x pp composition")
+    p.add_argument("--pp-tp", type=int, default=1, metavar="T",
+                   help="(--mode pp) tensor-parallel width INSIDE each pipeline stage "
+                        "(Megatron block sharding over a model axis); composes with "
+                        "--pp-dp for the full dp x pp x tp 3-D layout")
     p.add_argument("--world-size", type=int, default=1,
-                   help="(fsdp, tp) ranks in the world")
-    p.add_argument("--rank", type=int, default=0, help="(fsdp, tp) this process's rank")
+                   help="(mesh modes) ranks in the world")
+    p.add_argument("--rank", type=int, default=0, help="(mesh modes) this process's rank")
     p.add_argument("--master", type=str, default="localhost",
-                   help="(fsdp, tp) host of rank 0's rendezvous")
+                   help="(mesh modes) host of rank 0's rendezvous")
     p.add_argument("--port", type=str, default="29500",
-                   help="(fsdp, tp) port of rank 0's rendezvous")
+                   help="(mesh modes) port of rank 0's rendezvous")
     p.add_argument("--dist-backend", type=str, default=None, choices=["nccl", "gloo"],
-                   help="(fsdp, tp) nccl (default on the card, one rank per card) or gloo")
+                   help="(mesh modes) nccl (default on the card, one rank per card) or gloo")
     return p
 
 
 def mesh_shape(args: argparse.Namespace) -> dict:
-    """The mesh of ``--mode fsdp|tp`` over ``--world-size`` ranks (the JAX
-    script's sizing over its devices)."""
+    """The mesh of a mesh ``--mode`` over ``--world-size`` ranks (the JAX
+    script's sizing over its devices; see the module docstring)."""
     n = args.world_size
     if args.mode == "fsdp":
         return {"data": math.gcd(n, args.batch)}
+    if args.mode in ("sp", "ulysses"):
+        q = math.gcd(n, args.seq)
+        if args.mode == "ulysses":
+            q = math.gcd(q, args.n_heads)
+        return {"data": math.gcd(n // q, args.batch), "seq": q}
+    if args.mode == "pp":
+        dp, tp = args.pp_dp, args.pp_tp
+        shape = {"data": dp} if dp > 1 else {}
+        shape["stage"] = math.gcd(n // (dp * tp), args.n_layers)
+        if tp > 1:
+            shape["model"] = tp
+        return shape
+    if args.mode == "moe":
+        e = math.gcd(n, args.n_experts)
+        return {"data": math.gcd(n // e, args.batch), "expert": e}
+    if args.mode == "composite":
+        m = math.gcd(2, math.gcd(args.n_heads, math.gcd(args.d_ff, args.vocab)))
+        if m > n:
+            m = 1
+        combined = math.gcd(n // m, args.batch)
+        d = 2 if combined % 2 == 0 and combined > 1 else 1
+        return {"data": d, "fsdp": combined // d, "model": m}
     m = math.gcd(math.gcd(n, args.n_heads), math.gcd(args.d_ff, args.vocab))
     return {"data": math.gcd(n // m, args.batch), "model": m}
+
+
+def _check_pp(parser, args) -> None:
+    """``--mode pp``'s flag errors, the JAX script's."""
+    d_pp, d_tp, n = args.pp_dp, args.pp_tp, args.world_size
+    if d_pp < 1:
+        parser.error(f"--pp-dp must be >= 1, got {d_pp}")
+    if d_tp < 1:
+        parser.error(f"--pp-tp must be >= 1, got {d_tp}")
+    if n % (d_pp * d_tp):
+        parser.error(f"--pp-dp {d_pp} x --pp-tp {d_tp} must divide the device count {n}")
+    if args.n_heads % d_tp or args.d_ff % d_tp:
+        parser.error(f"--pp-tp {d_tp} must divide n_heads {args.n_heads} and d_ff "
+                     f"{args.d_ff}")
+    n_mb = math.gcd(args.microbatches, args.batch)
+    if d_pp > 1 and (args.batch // n_mb) % d_pp:
+        parser.error(f"--pp-dp {d_pp} must divide the per-microbatch batch "
+                     f"{args.batch // n_mb}")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     """The flags, checked; a bad or unported combination exits with an error."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.mode not in ("single", *MESH_MODES):
-        parser.error(f"--mode {args.mode} is not ported yet (ROADMAP A 7, part 2; "
-                     f"single, fsdp and tp are)")
+    if args.mode == "pp":
+        _check_pp(parser, args)
     if args.mode in MESH_MODES:
         shape = mesh_shape(args)
         if math.prod(shape.values()) != args.world_size:
+            why = ""
+            if args.mode == "ulysses" and math.gcd(args.world_size, args.n_heads) == 1:
+                why = (f" (Ulysses shards heads over the seq axis: n_heads={args.n_heads} "
+                       f"is not divisible by any share of it)")
             parser.error(f"--mode {args.mode}: the mesh {shape} the flags allow does not "
-                         f"take the whole world of {args.world_size} ranks")
+                         f"take the whole world of {args.world_size} ranks{why}")
         if args.ckpt_dir:
             parser.error(f"--mode {args.mode}: checkpoints of a sharded state are not "
                          f"ported yet (drop --ckpt-dir)")
-        if args.mode == "tp" and args.loss_chunk:
-            parser.error("--mode tp: the chunked loss is not ported for the vocab-parallel "
-                         "head (drop --loss-chunk)")
+        if args.mode != "fsdp" and args.loss_chunk:
+            parser.error(f"--mode {args.mode}: the chunked loss is ported for single and "
+                         f"fsdp only (drop --loss-chunk)")
     if args.steps < 1:
         parser.error("--steps must be >= 1")
     k = args.steps_per_dispatch
@@ -192,14 +261,93 @@ def build_model(args: argparse.Namespace, device):
     )
 
 
-def _mesh_setup(args, lm, tx):
-    """``(mesh, state, step, shard, desc)`` of ``--mode fsdp|tp``: this
-    process joins the world, shards ``lm`` and builds the step over its rows
-    (``shard(tokens, targets)``)."""
+def _mesh_setup(args, tx, dev, attn_fn=None):
+    """``(mesh, state, step, shard, desc)`` of a mesh ``--mode``: this
+    process's rank of the world builds the mode's model from the seed on
+    ``dev`` (``attn_fn`` injected into every block), shards it and builds
+    the step over its share of a global batch (``shard(tokens, targets)``);
+    ``step`` returns ``(state, loss)``."""
     from distributed_ml_pytorch_tpu_torch.runtime.mesh import current_world, make_mesh
 
     world = current_world()
     mesh = make_mesh(mesh_shape(args), world)
+    shape = mesh.shape
+    dims = "x".join(str(v) for v in shape.values())
+    if args.mode == "pp":
+        from distributed_ml_pytorch_tpu_torch.parallel.pipeline import (
+            PipelineLMConfig,
+            create_pp_train_state,
+            make_pp_train_step,
+            microbatch,
+        )
+
+        cfg = PipelineLMConfig(vocab_size=args.vocab, d_model=args.d_model,
+                               n_heads=args.n_heads, n_layers=args.n_layers, d_ff=args.d_ff,
+                               max_len=max(args.seq, 256))
+        n_mb = math.gcd(args.microbatches, args.batch)
+        data_axis = "data" if "data" in shape else None
+        model_axis = "model" if "model" in shape else None
+        state = create_pp_train_state(cfg, tx, mesh, model_axis=model_axis, seed=args.seed)
+        if attn_fn is not None:
+            for blk in state.model.blocks:
+                blk.attn.attn_fn = attn_fn
+        step = make_pp_train_step(cfg, tx, mesh, n_mb, data_axis=data_axis,
+                                  model_axis=model_axis)
+        tp_desc = f" x {args.pp_tp} tp-in-stage" if model_axis else ""
+        desc = (f"{dims} dp x pp GPipe{tp_desc}, {n_mb} microbatches" if data_axis else
+                f"{shape['stage']}-stage GPipe{tp_desc}, {n_mb} microbatches")
+        return mesh, state, step, lambda t, g: microbatch(t, g, n_mb), desc
+    if args.mode == "moe":
+        from distributed_ml_pytorch_tpu_torch.models.moe import MoETransformerLM
+        from distributed_ml_pytorch_tpu_torch.parallel.expert_parallel import (
+            create_ep_train_state,
+            make_ep_train_step,
+            shard_ep_batch,
+        )
+
+        lm = MoETransformerLM(
+            vocab_size=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
+            n_layers=args.n_layers, d_ff=args.d_ff, n_experts=args.n_experts,
+            max_len=max(args.seq, 256),
+            dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32,
+            remat=args.remat, seed=args.seed, device=dev)
+        if attn_fn is not None:
+            lm.set_attn_fn(attn_fn)
+        state = create_ep_train_state(lm, tx, mesh)
+        ep_step = make_ep_train_step(lm, tx, mesh)
+
+        def step(state, tokens, targets):
+            state, (loss, _aux) = ep_step(state, tokens, targets)
+            return state, loss
+
+        return (mesh, state, step, lambda t, g: shard_ep_batch(mesh, t, g),
+                f"{dims} dp x ep ({args.n_experts} experts)")
+    lm = build_model(args, dev)
+    if attn_fn is not None:
+        lm.set_attn_fn(attn_fn)
+    if args.mode in ("sp", "ulysses"):
+        from distributed_ml_pytorch_tpu_torch.parallel.seq_parallel import (
+            create_lm_train_state,
+            make_sp_train_step,
+            shard_lm_batch,
+        )
+        from distributed_ml_pytorch_tpu_torch.parallel.ulysses import make_ulysses_train_step
+
+        state = create_lm_train_state(lm, tx)
+        make = make_sp_train_step if args.mode == "sp" else make_ulysses_train_step
+        pattern = "ring" if args.mode == "sp" else "all-to-all"
+        return (mesh, state, make(lm, tx, mesh), lambda t, g: shard_lm_batch(mesh, t, g),
+                f"{dims} dp x seq ({pattern})")
+    if args.mode == "composite":
+        from distributed_ml_pytorch_tpu_torch.parallel.composite import (
+            create_composite_train_state,
+            make_composite_train_step,
+            shard_composite_batch,
+        )
+
+        state, specs = create_composite_train_state(lm, tx, mesh)
+        return (mesh, state, make_composite_train_step(lm, tx, mesh, specs),
+                lambda t, g: shard_composite_batch(mesh, t, g), f"{dims} dp x fsdp x tp")
     if args.mode == "fsdp":
         from distributed_ml_pytorch_tpu_torch.parallel.fsdp import (
             create_fsdp_train_state,
@@ -220,7 +368,6 @@ def _mesh_setup(args, lm, tx):
 
     state = create_tp_train_state(lm, tx, mesh)
     step = make_tp_train_step(lm, tx, mesh)
-    shape = mesh.shape
     return (mesh, state, step, lambda t, g: shard_tp_batch(mesh, t, g),
             f"{shape['data']}x{shape['model']} dp x tp")
 
@@ -242,7 +389,7 @@ def _k_steps(step):
 def run(args: argparse.Namespace, attn_fn=None) -> LMRun:
     """Build, train and report as :func:`main` does; returns the run.
     ``attn_fn`` is injected into every block (``None``: the model's
-    default attention). ``--mode fsdp|tp`` needs this process in a world
+    default attention). A mesh ``--mode`` needs this process in a world
     (:func:`main` joins it; ``runtime.mesh.run_threaded`` for a world of
     threads)."""
     from distributed_ml_pytorch_tpu_torch.device import full_float32, resolve_device
@@ -260,25 +407,24 @@ def run(args: argparse.Namespace, attn_fn=None) -> LMRun:
     dev = world.device if world is not None else resolve_device(args.device)
     if dev.type == "cuda":
         full_float32()
-    lm = build_model(args, dev)
-    if attn_fn is not None:
-        lm.set_attn_fn(attn_fn)
     tx = SGD(args.lr)
     k = args.steps_per_dispatch
     tokens, targets = lm_batches(args)
-    lead = 1 if k > 1 else 0  # K stacked batches: the rows are dim 1
     mesh = None
     if world is not None:
-        mesh, state, step1, shard, desc = _mesh_setup(args, lm, tx)
+        mesh, state, step1, shard, desc = _mesh_setup(args, tx, dev, attn_fn)
         step = _k_steps(step1) if k > 1 else step1
         tok, tgt = (torch.from_numpy(a.astype(np.int64)) for a in (tokens, targets))
-        if lead:
-            tok, tgt = (t.transpose(0, 1) for t in (tok, tgt))
-        tok, tgt = shard(tok, tgt)
-        if lead:
-            tok, tgt = (t.transpose(0, 1).contiguous() for t in (tok, tgt))
+        if k > 1:  # each of the K stacked batches sharded as one batch is
+            pairs = [shard(tok[i], tgt[i]) for i in range(k)]
+            tok, tgt = (torch.stack([torch.as_tensor(p[j]) for p in pairs]) for j in (0, 1))
+        else:
+            tok, tgt = shard(tok, tgt)
         where = f"{desc} on {dev.type}"
     else:
+        lm = build_model(args, dev)
+        if attn_fn is not None:
+            lm.set_attn_fn(attn_fn)
         state = create_lm_train_state(lm, tx)
         if k > 1:
             step = make_fsdp_lm_scan_train_step(lm, tx, k, loss_chunk=args.loss_chunk)

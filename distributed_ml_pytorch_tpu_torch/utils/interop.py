@@ -26,6 +26,18 @@ unchanged. A ``fused_qkv`` model also takes a tree in the unfused layout: its
 ``attn/{q,k,v}`` kernels are concatenated on the output axis first, as the
 JAX decode path's ``_fuse_qkv_params`` does.
 
+The pipelined LM (``parallel/pipeline.py``) stacks its blocks on a
+leading layer axis in JAX (``blocks/attn/q/kernel`` is ``[L, D, D]``):
+:func:`pp_params_from_jax` unstacks it into the port's ``blocks.{i}.…``
+names (``layer_order`` takes the interleaved schedule's storage order,
+``blocks[order]``), with ``tok_embed``, ``pos_embed``, ``ln_f`` and
+``head`` beside them; ``pipeline.create_pp_train_state`` then keeps each
+stage's layers and, under ``model_axis``, cuts their Megatron slices;
+:func:`pp_params_to_jax` stacks them back. The expert-parallel and
+composite states start from :func:`params_from_jax` of the JAX
+``MoETransformerLM`` / ``TransformerLM`` tree, and their
+``create_*_train_state`` keep this rank's experts or shards.
+
 ``params_to_jax`` is the inverse. ``cache_from_jax`` / ``cache_to_jax`` carry
 a decode cache (the flax ``"cache"`` collection as nested dicts of numpy)
 to and from the port's cache dict, leaf for leaf under the same names;
@@ -194,6 +206,64 @@ def _lm_to_jax(model: nn.Module) -> Dict:
     for path, pname, transpose in _lm_leaves(model):
         t = params[pname].detach().float().cpu()
         _put(tree, path, (t.t() if transpose else t).contiguous().numpy().copy())
+    return tree
+
+
+# ------------------------------------------------------------------ pipelined LM
+
+_PP_LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias"}
+
+
+def pp_params_from_jax(tree: Mapping, layer_order=None) -> Dict[str, torch.Tensor]:
+    """The pipelined LM's whole ``state_dict`` (``parallel/pipeline.
+    PipelineLM`` names) from the JAX ``init_pp_params`` tree (nested dicts
+    of numpy): the stacked ``blocks`` leaves become ``blocks.{i}.…`` (block
+    ``i`` of the stack, or of ``blocks[layer_order]``), dense kernels
+    transposed to ``(out, in)``."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, arr in _flatten(tree).items():
+        arr = np.asarray(arr, dtype=np.float32)
+        owner, leaf = ".".join(path[:-1]), _PP_LEAF[path[-1]]
+
+        def conv(a):
+            t = torch.from_numpy(np.array(a))
+            return (t.t() if path[-1] == "kernel" else t).contiguous()
+
+        if path[0] == "blocks":
+            stack = arr if layer_order is None else arr[np.asarray(layer_order)]
+            sub = ".".join(path[1:-1])
+            for i in range(stack.shape[0]):
+                out[f"blocks.{i}.{sub}.{leaf}"] = conv(stack[i])
+        else:
+            out[f"{owner}.{leaf}"] = conv(arr)
+    return out
+
+
+def pp_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The JAX ``init_pp_params`` tree (nested dicts of numpy) of a whole
+    pipelined ``state_dict``: blocks stacked on the leading layer axis."""
+    kinds = {"tok_embed": "embedding", "pos_embed": "embedding", "ln_f": None, "head": "kernel"}
+    stacks: Dict[Tuple[str, ...], Dict[int, np.ndarray]] = {}
+    tree: Dict = {}
+    for name, t in state_dict.items():
+        parts = name.split(".")
+        a = t.detach().float().cpu()
+        if parts[0] == "blocks":
+            owner, leaf = parts[2:-1], parts[-1]
+            is_ln = owner[-1].startswith("LayerNorm")
+            key = "bias" if leaf == "bias" else ("scale" if is_ln else "kernel")
+            val = a.t() if key == "kernel" else a
+            stacks.setdefault(("blocks", *owner, key), {})[int(parts[1])] = (
+                val.contiguous().numpy())
+            continue
+        owner, leaf = parts[0], parts[-1]
+        key = kinds[owner] if leaf == "weight" else "bias"
+        if key is None:
+            key = "scale"
+        val = a.t() if key == "kernel" else a
+        _put(tree, (owner, key), val.contiguous().numpy().copy())
+    for path, layers in stacks.items():
+        _put(tree, path, np.stack([layers[i] for i in sorted(layers)]))
     return tree
 
 

@@ -542,6 +542,13 @@ class InProcessTransport(Transport):
         self._closed = True
 
 
+def _code_name(code: int) -> str:
+    try:
+        return MessageCode(code).name
+    except ValueError:
+        return str(code)
+
+
 def _send_frame(sock: socket.socket, sender: int, code: int, payload: np.ndarray) -> None:
     buf = np.ascontiguousarray(payload, dtype=np.float32).tobytes()
     sock.sendall(_HEADER.pack(sender, code, len(buf)) + buf)
@@ -946,7 +953,7 @@ def _wire_incarnation(endpoint) -> int:
 
 class _Pending:
     __slots__ = ("parts", "dst", "deadline", "attempt", "code",
-                 "first_sent", "retransmitted", "corr", "clock")
+                 "first_sent", "retransmitted", "corr", "clock", "seq", "leaving")
 
     def __init__(self, parts, dst: int, deadline: float, code: int = -1,
                  corr: int = 0):
@@ -966,6 +973,9 @@ class _Pending:
         #: when the frame's retransmit clock last started: its send, or the
         #: ack of an older frame toward the same peer
         self.clock = 0.0
+        self.seq = -1
+        #: its first copy is still being handed to the inner transport
+        self.leaving = False
 
 
 class _PeerState:
@@ -1161,6 +1171,9 @@ class ReliableTransport(Transport):
         #: came (seconds, frames never retransmitted; ``None`` before the
         #: first): the margin by which no timeout fired
         self.min_ack_slack: Optional[float] = None
+        #: each timeout, oldest first (at most 64): the frame's peer, seq,
+        #: code and attempt, and how long its clock had run
+        self.expired: list = []
         self.recorder = None
         self._retry_wake = threading.Event()
         self._retry_thread = threading.Thread(target=self._retry_loop, name="reliable-retry",
@@ -1276,19 +1289,25 @@ class ReliableTransport(Transport):
             st = self._peer(dst)
             p = _Pending(parts, dst, now + st.rto, code=int(code), corr=corr)
             p.first_sent = p.clock = now
+            p.seq, p.leaving = seq, True
             self._pending[(dst, seq)] = p
             self.stats["sent"] += 1
+        left = False
         try:
             self.inner.sendv(MessageCode.ReliableFrame, parts, dst=dst)
+            left = True
         except (OSError, ConnectionError, KeyError):
-            return  # the retry thread owns recovery: the frame is pending
-        # the clock starts once the frame has left: the time to hand 9.9 MB
-        # to a contended socket is not round-trip time
-        now = time.monotonic()
-        with self._lock:
-            if not p.retransmitted and self._pending.get((dst, seq)) is p:
-                p.first_sent = p.clock = now
-                p.deadline = now + self._peer(dst).rto
+            pass  # the retry thread owns recovery: the frame is pending
+        finally:
+            # every way out of the hand-off gives the frame to the retry
+            # thread; once it has left, its clock starts: the time to hand
+            # 9.9 MB to a contended socket is not round-trip time
+            now = time.monotonic()
+            with self._lock:
+                p.leaving = False
+                if left and not p.retransmitted and self._pending.get((dst, seq)) is p:
+                    p.first_sent = p.clock = now
+                    p.deadline = now + self._peer(dst).rto
 
     def _window(self, st: _PeerState) -> int:
         """The effective send window, never below 1 (a zero credit must not
@@ -1378,13 +1397,20 @@ class ReliableTransport(Transport):
                         if p.attempt > self.max_retries:
                             self._give_up(key, p)
                     continue
-                if p.deadline > now:
+                if p.deadline > now or p.leaving:
+                    # a first copy still being handed to the inner transport
+                    # (a 9.9 MB frame behind a contended socket) has not
+                    # left: its clock starts when it has
                     continue
                 if p.attempt > self.max_retries:
                     self._give_up(key, p)
                     continue
                 timed_out.add(p.dst)
                 self.stats["rto_expired"] += 1
+                if len(self.expired) < 64:
+                    self.expired.append({
+                        "dst": p.dst, "seq": p.seq, "code": _code_name(p.code),
+                        "attempt": p.attempt, "clock_s": round(now - p.clock, 4)})
                 p.attempt += 1
                 p.retransmitted = True
                 p.deadline = now + self._backoff_delay(st, p.attempt)

@@ -2167,3 +2167,93 @@ def test_two_rank_tp_step_launches_k4_on_local_heads(cuda, tmp_path):
         assert n["flash_fwd"] == n["flash_bwd_fused"] == rec["layers"] * cs.MESH_LM_STEPS
         assert rec["plain_attention_calls"] == 0 and rec["heads"] == 1
         assert rec["q_shape"][0] == cs.TINY_MESH["lm_batch"] * rec["heads"]
+
+
+def _pp_to_lm_state(state_dict):
+    """A whole ``PipelineLM`` state dict under ``TransformerLM``'s names."""
+    out = {}
+    for name, t in state_dict.items():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            out[".".join([f"block_{parts[1]}"] + parts[2:])] = t
+        else:
+            out[{"ln_f": "LayerNorm_0", "head": "lm_head"}.get(parts[0], parts[0]) + "."
+                + parts[-1]] = t
+    return out
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_sp_and_pp_steps_equal_the_single_step(cuda):
+    """A one-rank NCCL world: three sp steps (the ring of one chunk: K4 and
+    K5 on the whole sequence) and three one-stage GPipe steps (one
+    microbatch) of a float32 test-width LM equal the single-device LM step
+    from the same weights."""
+    from distributed_ml_pytorch_tpu_torch.device import full_float32
+    from distributed_ml_pytorch_tpu_torch.models import TransformerLM
+    from distributed_ml_pytorch_tpu_torch.parallel import pipeline as pp
+    from distributed_ml_pytorch_tpu_torch.parallel import seq_parallel as sp
+    from distributed_ml_pytorch_tpu_torch.parallel.fsdp import make_fsdp_lm_train_step
+    from distributed_ml_pytorch_tpu_torch.runtime.mesh import make_mesh, run_threaded
+    from distributed_ml_pytorch_tpu_torch.training.trainer import SGD
+
+    full_float32()
+    widths = dict(vocab_size=64, d_model=64, n_heads=2, n_layers=2, d_ff=128)
+    tok = np.random.default_rng(0).integers(0, 64, (4, 256))
+    tgt = sp.next_token_targets(tok)
+    tt, tg = (torch.from_numpy(a.astype(np.int64)).to(cuda) for a in (tok, tgt))
+
+    def single(state_dict=None):
+        lm = TransformerLM(**widths, max_len=256, seed=0, device=cuda)
+        if state_dict is not None:
+            lm.load_state_dict(state_dict)
+        state, step = sp.create_lm_train_state(lm, SGD(0.1)), make_fsdp_lm_train_step(
+            lm, SGD(0.1))
+        return [float(step(state, tt, tg)[1]) for _ in range(3)]
+
+    cfg = pp.PipelineLMConfig(**widths, max_len=256)
+    init = pp.init_pp_params(cfg, seed=0)
+
+    def rank(world):
+        mesh = make_mesh({"data": 1, "seq": 1}, world)
+        lm = TransformerLM(**widths, max_len=256, seed=0, device=cuda)
+        state, step = sp.create_lm_train_state(lm, SGD(0.1)), sp.make_sp_train_step(
+            lm, SGD(0.1), mesh)
+        a, b = sp.shard_lm_batch(mesh, tok, tgt)
+        sp_losses = [float(step(state, a, b)[1]) for _ in range(3)]
+        pmesh = make_mesh({"stage": 1}, world)
+        pstate = pp.create_pp_train_state(cfg, SGD(0.1), pmesh, params=init)
+        pstep = pp.make_pp_train_step(cfg, SGD(0.1), pmesh, 1)
+        t, g = pp.microbatch(tok, tgt, 1)
+        return sp_losses, [float(pstep(pstate, t, g)[1]) for _ in range(3)]
+
+    sp_losses, pp_losses = run_threaded(1, rank, backend="nccl", device="cuda")[0]
+    np.testing.assert_allclose(sp_losses, single(), rtol=1e-6)
+    np.testing.assert_allclose(pp_losses, single(_pp_to_lm_state(init)), rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_two_rank_ring_launches_the_counted_k4_k5(cuda, tmp_path):
+    """Two processes sharing the card over gloo, phase 27's 2-rank world at
+    test widths: the causal ring launches K4 and K5 on one chunk a layer on
+    rank 0 (the future chunk launches nothing) and on two on rank 1;
+    Ulysses once a layer on each rank; a pipeline stage once a layer it
+    holds and microbatch; the plain attention never; 1F1B's losses equal
+    GPipe's. The ring's chunk, 96 tokens, is one no flash blocking divides:
+    the kernels take it all the same (the fused K5 backward), never the
+    plain blockwise ring."""
+    import chip_smoke as cs
+
+    ranks = cs._par_processes(cs.PAR_RANKS, "cuda", True, str(tmp_path))
+    for r, rank in enumerate(ranks):
+        assert rank["sp"]["rank_tokens"][1] % 128, rank["sp"]["rank_tokens"]
+        for part, want in (("sp", rank["sp"]["layers"] * (r + 1) * cs.PAR_STEPS),
+                           ("ulysses", rank["ulysses"]["layers"] * cs.PAR_STEPS),
+                           ("pp_gpipe", rank["pp_gpipe"]["layers_here"]
+                            * rank["pp_gpipe"]["microbatches"] * cs.PAR_STEPS)):
+            rec = rank[part]
+            n = rec["launches"]
+            assert n["flash_fwd"] == n["flash_bwd_fused"] == want, (part, r, n)
+            assert n["flash_bwd_dq"] == n["flash_bwd_dkv"] == 0, (part, r, n)
+            assert rec["plain_attention_calls"] == 0, (part, r)
+        np.testing.assert_allclose(rank["pp_1f1b"]["losses"], rank["pp_gpipe"]["losses"],
+                                   rtol=cs.PAR_PP_RTOL)

@@ -318,12 +318,14 @@ def test_train_lm_main_on_cpu(capsys):
     assert "step    0  loss" in out
 
 
-@pytest.mark.parametrize("argv", [["--mode", "sp"], ["--steps-per-dispatch", "3"],
+@pytest.mark.parametrize("argv", [["--mode", "ulysses", "--world-size", "2", "--n-heads", "3",
+                                   "--d-model", "96", "--batch", "1"],
+                                  ["--steps-per-dispatch", "3"],
                                   ["--resume"], ["--d-model", "100"]])
 def test_train_lm_rejects_unported_or_bad_flags(argv, capsys):
     # --steps (10) must divide by --steps-per-dispatch, and --resume needs
-    # --ckpt-dir, as in the JAX script and CLI; --mode fsdp and tp are ported,
-    # sp stands for the modes still refused
+    # --ckpt-dir, as in the JAX script and CLI; every mode is ported, and
+    # Ulysses over two ranks with 3 heads and one sequence leaves a rank out
     with pytest.raises(SystemExit):
         train_lm.parse_args(["--device", "cpu", *argv])
     err = capsys.readouterr().err

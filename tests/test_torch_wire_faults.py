@@ -76,12 +76,13 @@ def _stats(t):
     if isinstance(t, tmsg.ReliableTransport):
         out["max_ack_s"] = t.max_ack_wait
         out["ack_timeout"] = t.ack_timeout
+        out["expired"] = t.expired
     return out
 
 
 def _brief(r):
     return {k: r[k] for k in ("rank", "sent", "retries", "rto_expired", "dup_dropped",
-                              "max_ack_s")}
+                              "max_ack_s", "expired")}
 
 
 def _run_server(port, wal_dir):
@@ -229,6 +230,92 @@ def test_a_receiver_working_through_a_queue_times_nothing_out():
         assert worker.stats["rto_expired"] == 0 and worker.stats["retries"] == 0, worker.stats
         assert server.stats["dup_dropped"] == 0
         assert 0.1 <= worker.max_ack_wait < 0.25
+    finally:
+        for t in (worker, server):
+            t.detach()
+
+
+class _SlowFirstHandOff:
+    """An inner transport whose first ``ReliableFrame`` takes ``delay_s`` to
+    be handed over, as a 9.9 MB push does behind a socket whose reader is
+    starved of the CPU; frames arrive only once handed over."""
+
+    def __init__(self, inner, delay_s: float):
+        self.inner, self.rank, self.delay_s = inner, inner.rank, delay_s
+        self.slow_left = 1
+
+    def sendv(self, code, parts, dst=0):
+        if code == tmsg.MessageCode.ReliableFrame and self.slow_left:
+            self.slow_left -= 1
+            time.sleep(self.delay_s)
+        self.inner.send(code, np.concatenate([np.asarray(p, np.float32).ravel()
+                                              for p in parts]), dst=dst)
+
+    def send(self, code, payload, dst=0):
+        self.sendv(code, (payload,), dst=dst)
+
+    def recv(self, timeout=None):
+        return self.inner.recv(timeout=timeout)
+
+    def close(self):
+        self.inner.close()
+
+
+def test_a_frame_still_being_handed_over_does_not_time_out():
+    """A push whose hand-off to the inner transport takes 0.3 s, six times
+    the 0.05 s timeout floor, to a receiver that acks it at once: its clock
+    starts when it has left, so it is acked on its first copy. The retry
+    thread used to time it out while its first copy was still leaving and
+    send a second behind it: a timeout on a loss-free wire, acked within
+    the floor, so ``max_ack_s`` stayed small (the loss-free world's
+    ``--reliable`` failure)."""
+    MessageCode = tmsg.MessageCode
+    world = tmsg.InProcessTransport.create_world(2)
+    server = tmsg.ReliableTransport(world[0], ack_timeout=0.05)
+    worker = tmsg.ReliableTransport(_SlowFirstHandOff(world[1], 0.3), ack_timeout=0.05)
+    try:
+        worker.send(MessageCode.GradientUpdate, np.full(3, 1.0, np.float32))
+        msg = server.recv(timeout=3)
+        assert msg is not None and float(msg[2][0]) == 1.0
+        assert worker.flush(timeout=3), worker.stats
+        assert worker.stats["rto_expired"] == 0, (worker.stats, worker.expired)
+        assert worker.stats["retries"] == 0, (worker.stats, worker.expired)
+        assert server.recv(timeout=0.3) is None
+        assert server.stats["dup_dropped"] == 0, server.stats
+    finally:
+        for t in (worker, server):
+            t.detach()
+
+
+class _RaisingFirstHandOff(_SlowFirstHandOff):
+    """An inner transport whose first ``ReliableFrame`` hand-off raises an
+    error that is not a connection error, delivering nothing."""
+
+    def sendv(self, code, parts, dst=0):
+        if code == tmsg.MessageCode.ReliableFrame and self.slow_left:
+            self.slow_left -= 1
+            raise RuntimeError("scripted hand-off failure")
+        super().sendv(code, parts, dst=dst)
+
+
+def test_a_hand_off_that_raises_leaves_the_frame_to_the_retry_thread():
+    """A push whose hand-off raises ``RuntimeError``: the error reaches the
+    caller, and the frame, pending but never sent, is the retry thread's:
+    it times out, is sent again and acked, and ``flush`` returns. Were the
+    frame left marked as still leaving, the retry thread would skip it for
+    good and ``flush`` would wait out its timeout."""
+    MessageCode = tmsg.MessageCode
+    world = tmsg.InProcessTransport.create_world(2)
+    server = tmsg.ReliableTransport(world[0], ack_timeout=0.05)
+    worker = tmsg.ReliableTransport(_RaisingFirstHandOff(world[1], 0.0), ack_timeout=0.05)
+    try:
+        with pytest.raises(RuntimeError, match="scripted hand-off failure"):
+            worker.send(MessageCode.GradientUpdate, np.full(3, 2.0, np.float32))
+        msg = server.recv(timeout=3)
+        assert msg is not None and float(msg[2][0]) == 2.0, worker.stats
+        assert worker.flush(timeout=3), worker.stats
+        assert worker.stats["retries"] == 1, (worker.stats, worker.expired)
+        assert worker.stats["rto_expired"] == 1, (worker.stats, worker.expired)
     finally:
         for t in (worker, server):
             t.detach()
