@@ -230,7 +230,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    first and the last (b, h), within ATTN_TOL / LSE_TOL; each loss finite
    and falling; each kernel's ms at the long shape beside its bound and its
    launches a step, tokens/s, MFU and peak memory;
-19. the LM trainer's flags at GPT-2-small widths, 6 of its 12 layers
+19. the LM trainer's flags at GPT-2-small widths, 4 of its 12 layers
    (``LM_K_LAYERS``), 8 x 2048 (bfloat16, RoPE, remat, the chunked loss): ``train_lm --steps-per-dispatch 4 --steps 8
    --ckpt-dir --ckpt-every 4`` (one captured step replayed) against eight
    eager AD steps on the same batches, with ``bwd_impl="split"`` injected
@@ -409,7 +409,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    it, a local-SGD round of K = 10 (the ranks' parameters identical after
    the average) and the reference p2p demo; ``param_shard_fraction``, each
    rank's peak memory and its ``host_staged`` printed; (c) GPT-2-small
-   widths at 6 of its 12 layers (``MESH_LM_LAYERS``, as (d)) in bfloat16 (RoPE off, learned positions), global batch 8 × 2048
+   widths at 4 of its 12 layers (``MESH_LM_LAYERS``, as (d)) in bfloat16 (RoPE off, learned positions), global batch 8 × 2048
    over the two ranks: ``--mode fsdp`` (4 × 2048 a rank) and ``--mode tp``
    (6 of 12 heads, 25,152 of the 50,304 vocabulary rows a rank), three SGD
    steps each (lr 0.5): losses finite and falling, K4 and K5 once a layer
@@ -422,7 +422,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    never, every token equal to ``generate()`` on one rank. One line each,
    with the card's ``nvidia-smi`` name and power limit; the launches join
    the ``kernels`` line and K4's, K5's errors its ``max_abs_err``.
-27. the parallelism family, part 2, at GPT-2-small widths, each part with
+27. the parallelism family, part 2, at GPT-2-small widths and 4 of its 12
+   layers (``PAR_LAYERS``), each part with
    the attention counts zeroed just before it and read just after: first
    the one-rank references (the LM's first loss, bf16, 8 × 2048; the
    float32 one-stage pipeline at 8 × 512, M = 4; the MoE's first loss and
@@ -442,6 +443,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
    never, and on one rank of each part K4 and K5 held to their plain
    versions on the step's own tensors; each rank's step time, peak memory
    and ``host_staged`` printed.
+28. the MPMD pipeline plane (``parallel/mpmd.py``, ``coord/stages.py``) at
+   GPT-2-small widths (vocabulary 50,257, 12 heads of 64, max_len 1024),
+   its depth cut to 8 layers, 2 a stage, on 4 stages that are threads of
+   this process on the card, float32, M = 4 microbatches of 2 × 512 tokens,
+   six steps (``MPMD_*``): (a) ``MpmdLocal`` against the one-stage step
+   on the same batch (the first two losses within ``MPMD_RTOL``); (b) the
+   fault-free fleet (``mpmd_scenario``) with the attention counts zeroed
+   just before it and read just after: its losses equal (a)'s at
+   ``MPMD_RTOL``, K4 ``2·L·M`` a step on each stage before the last (the
+   forward and the backward's recompute) and ``L·M`` on the last (its
+   fused loss and backward), K5 ``L·M`` a step on each, K6 and the plain
+   attention never; tokens/s, the bubble fraction, the stage checkpoints'
+   bytes an update, and the run's device busy time and idle share
+   (``utils/devprof`` around it) printed; (c) ``default_mpmd_plan(0)``,
+   stage 1 killed at step 3 after a snapshot at step 1: one restart (its
+   MTTR printed), every ``(step, mb)`` applied once, nothing discarded, the
+   losses (b)'s at ``MPMD_CHAOS_TOL``; (d) the int8 activation codec fault-free, within
+   ``MPMD_INT8_RTOL`` of (b), each stage that shipped at least 3x fewer
+   floats on the wire; (e) K4 and K5 held to their plain versions
+   (``ATTN_TOL``) on one stage's own tensors from (a), and timed; (f)
+   ``python -m distributed_ml_pytorch_tpu_torch.coord.cli --mpmd`` exits 0
+   at the scenario's default size (the JAX widths: head_dim 8, which the
+   float32 kernels take), started as a process of its own with the weights'
+   draw while phase 27 runs (``MpmdBackground``). Each part's checkpoints go
+   to a temporary directory under ``build/`` that it removes.
 
 Then the ``kernels`` line, the ``nvidia-smi`` name/power line, and last the
 result line ``{"ok": true, "device": {...}}``. Without a card, or without
@@ -2872,6 +2898,7 @@ line = {"rank": args.rank, "rc": rc, "transport": type(t).__name__,
         "max_ack_s": getattr(t, "max_ack_wait", None),
         "min_ack_slack_s": getattr(t, "min_ack_slack", None),
         "ack_floor_s": getattr(t, "ack_timeout", None), "push_t": push_t,
+        "expired": list(getattr(t, "expired", ())),
         # the reliable layer's timeout state per peer at the end of the run
         "peers": {str(d): {"srtt": st.srtt, "rto": st.rto}
                   for d, st in (t._peers.items() if t is not inner else ())}}
@@ -3011,7 +3038,9 @@ def _ps_world_checks(lines, reliable, steps=WORKER_STEPS, backend="cuda"):
             st = ln["stats"]
             require(st["rto_expired"] == 0 and st["retries"] == 0 and st["dup_dropped"] == 0,
                     f"rank {r} timed out on a loss-free wire (longest ack wait "
-                    f"{ln['max_ack_s']} s): {st}")
+                    f"{ln['max_ack_s']} s): {st}; every rank's (stats, longest ack wait, "
+                    f"timeouts): " + str({q: (lq["stats"], lq["max_ack_s"], lq.get("expired"))
+                                          for q, lq in lines.items()}))
             require(ln["transport"] == "ReliableTransport", f"rank {r}: {ln['transport']}")
     return per_worker
 
@@ -3586,9 +3615,9 @@ def phase_long_context(torch, device="cuda", tiny=False):
 #: phase 19's LM run: GPT-2-small 8 x 2048 bf16 with remat and the chunked
 #: loss (torch.utils.checkpoint inside the captured step), K steps a dispatch
 LM_K = 4
-#: phase 19 runs GPT-2-small widths at 6 of its 12 layers: its depth is cut
+#: phase 19 runs GPT-2-small widths at 4 of its 12 layers: its depth is cut
 #: to keep the whole run's margin under its time limit
-LM_K_LAYERS = 6
+LM_K_LAYERS = 4
 LM_K_ARGS = [*GPT2_SMALL[:GPT2_SMALL.index("--n-layers")], "--n-layers", str(LM_K_LAYERS),
              *GPT2_SMALL[GPT2_SMALL.index("--n-layers") + 2:], "--remat", "--loss-chunk", "2048",
              "--steps-per-dispatch", str(LM_K), "--steps", str(2 * LM_K),
@@ -5682,9 +5711,9 @@ MESH_LM_BATCH, MESH_LM_SEQ, MESH_LM_STEPS = 8, 2048, 3
 #: there is 2^-4 (0.6 %); the tp loss is summed in float32
 MESH_LM_LOSS_RTOL = 1e-2
 MESH_GEN = (4, 64, 33)  # batch, prompt, new tokens: the blocked path, two blocks
-#: phase 26's LM and generate_tp run GPT-2-small widths at 6 of its 12 layers:
+#: phase 26's LM and generate_tp run GPT-2-small widths at 4 of its 12 layers:
 #: their depth is cut to keep the whole run's margin under its time limit
-MESH_LM_LAYERS = 6
+MESH_LM_LAYERS = 4
 
 
 def _mesh_widths(tiny):
@@ -6134,6 +6163,9 @@ def _mesh_gen_checks(ranks, ref_tokens, device, card, launches, tiny):
 
 
 PAR_RANKS, PAR_WIDE = 2, 4  # the (a)-(c) world and the (c')-(e) world
+#: GPT-2-small's depth cut to make room for phase 28 (the gloo traffic of
+#: (a), (b), (d) and (e) grows with the layers)
+PAR_LAYERS = 4
 PAR_LM_BATCH, PAR_LM_SEQ, PAR_STEPS = 8, 2048, 2
 PAR_PP_BATCH, PAR_PP_SEQ, PAR_PP_M, PAR_PP_LR = 8, 512, 4, 0.1
 #: a bfloat16 first loss over the ranks against one rank's (as
@@ -6158,7 +6190,7 @@ TINY_PAR = dict(lm_batch=4, lm_seq=192, pp_batch=4, pp_seq=32, pp_m=2)
 def _par_shapes(tiny):
     from distributed_ml_pytorch_tpu_torch import bench_all
 
-    widths = bench_all.TINY_LM if tiny else bench_all.GPT2_SMALL
+    widths = bench_all.TINY_LM if tiny else dict(bench_all.GPT2_SMALL, n_layers=PAR_LAYERS)
     if tiny:
         return (widths, TINY_PAR["lm_batch"], TINY_PAR["lm_seq"], TINY_PAR["pp_batch"],
                 TINY_PAR["pp_seq"], TINY_PAR["pp_m"])
@@ -6582,6 +6614,274 @@ def phase_parallel(torch, device="cuda", tiny=False):
     return launches, errors
 
 
+# ------------------------------------------------------------------ phase 28
+
+#: phase 28: GPT-2-small widths (the published vocabulary), depth cut to 8
+#: layers, 2 a stage (each update's stage checkpoints about 0.54 GB), on 4
+#: stages that are threads of this process; float32, M microbatches of
+#: MB x SEQ tokens, STEPS steps, plain SGD at LR
+MPMD_WIDTHS = dict(vocab_size=50257, d_model=768, n_heads=12, d_ff=3072, max_len=1024)
+MPMD_LAYERS, MPMD_STAGES, MPMD_M, MPMD_MB, MPMD_SEQ = 8, 4, 4, 2, 512
+MPMD_STEPS, MPMD_LR = 6, 0.1
+TINY_MPMD = dict(widths=dict(vocab_size=64, d_model=64, n_heads=2, d_ff=128, max_len=128),
+                 layers=4, mb=2, seq=128, steps=4)
+#: the fleet against MpmdLocal and MpmdLocal against one stage: the same
+#: kernels on the same rows, the stages only split the layers
+MPMD_RTOL = 1e-5
+#: the stage killed under chaos against the fault-free fleet (replay
+#: rebuilds the same updates)
+MPMD_CHAOS_TOL = (1e-5, 1e-6)
+#: the int8 activation codec against the dense fleet (bounded loss)
+MPMD_INT8_RTOL = 5e-3
+#: (stage, step) killed and the step whose end triggers the snapshot
+MPMD_KILL, MPMD_SNAPSHOT_AT = (1, 3), 1
+MPMD_GROUPS = {
+    "K4 flash_fwd (f32)": ["flash_fwd_kernel"],
+    "K5 flash_bwd_fused (f32)": ["flash_bwd_kv_kernel"],
+    "K6a flash_bwd_dq (f32)": ["flash_bwd_dq_kernel"],
+    "matmul": ["gemm", "Gemm", "nvjet", "xmma", "cutlass"],
+    "softmax_ce": ["softmax", "nll_loss", "cross_entropy"],
+    "layer_norm": ["layer_norm", "LayerNorm"],
+}
+
+
+def _mpmd_shapes(tiny):
+    from distributed_ml_pytorch_tpu_torch.parallel.pipeline import PipelineLMConfig
+
+    if tiny:
+        t = TINY_MPMD
+        return (PipelineLMConfig(**t["widths"], n_layers=t["layers"]), t["mb"], t["seq"],
+                t["steps"])
+    return (PipelineLMConfig(**MPMD_WIDTHS, n_layers=MPMD_LAYERS), MPMD_MB, MPMD_SEQ,
+            MPMD_STEPS)
+
+
+def _mpmd_expected(cfg, steps):
+    """Phase 28 (b)'s attention launches, from the schedule: a stage
+    before the last runs K4 in each microbatch's forward and again in the
+    backward's recompute and K5 in the backward; the last stage's fused
+    loss and backward one of each; L layers a stage."""
+    L = cfg.n_layers // MPMD_STAGES
+    per = L * MPMD_M * steps
+    return {"flash_fwd": (MPMD_STAGES - 1) * 2 * per + per,
+            "flash_bwd_fused": MPMD_STAGES * per, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+
+def _close_losses(got, want, rtol, atol=0.0):
+    return len(got) == len(want) and all(
+        math.isfinite(a) and abs(a - b) <= atol + rtol * abs(b) for a, b in zip(got, want))
+
+
+class MpmdBackground:
+    """What phase 28 starts ahead of itself (while phase 27's rank processes
+    run): its weights, the whole model drawn on the host from seed 0 on a
+    thread (about 15 s at its width), and (f), ``python -m
+    distributed_ml_pytorch_tpu_torch.coord.cli --mpmd`` as a process of its
+    own, its output in files under ``build/``."""
+
+    def __init__(self, tiny=False, device="cuda"):
+        import tempfile
+
+        from distributed_ml_pytorch_tpu_torch.parallel.pipeline import init_pp_params
+
+        self._out = {}
+        self._thread = threading.Thread(
+            target=lambda: self._out.update(full=init_pp_params(_mpmd_shapes(tiny)[0], 0)),
+            daemon=True)
+        self._thread.start()
+        build = os.path.join(ROOT, "build")
+        self.dir = tempfile.mkdtemp(prefix="mpmd28_cli_",
+                                    dir=build if os.path.isdir(build) else None)
+        env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        self.argv = [sys.executable, "-m", "distributed_ml_pytorch_tpu_torch.coord.cli",
+                     "--mpmd", *(["--backend", device] if device != "cuda" else [])]
+        self._files = [open(os.path.join(self.dir, name), "w+") for name in ("out", "err")]
+        self._proc = subprocess.Popen(self.argv, cwd=ROOT, env=env, stdout=self._files[0],
+                                      stderr=self._files[1], text=True)
+
+    def params(self):
+        self._thread.join()
+        require("full" in self._out, "phase 28's weights were not drawn")
+        return self._out["full"]
+
+    def stop(self):
+        """Kill (f)'s process if it still runs (a phase failed before 28)
+        and remove its files."""
+        if not self._files[0].closed:
+            self.cli(timeout=0)
+
+    def cli(self, timeout=600):
+        """``(exit code, stdout, stderr)`` of (f), once it ended (killed
+        past ``timeout`` seconds)."""
+        import shutil
+
+        try:
+            code = self._proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self._proc.kill()
+            code = self._proc.wait()
+        texts = []
+        for fh in self._files:
+            fh.seek(0)
+            texts.append(fh.read())
+            fh.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+        return code, texts[0], texts[1]
+
+
+def phase_mpmd(torch, device="cuda", tiny=False, background=None):
+    """Phase 28 (see the module docstring); ``background`` is the
+    :class:`MpmdBackground` started ahead of it (started here when None).
+    Returns ``(launches, errors)`` to join the ``kernels`` line."""
+    import shutil
+    import tempfile
+
+    from distributed_ml_pytorch_tpu_torch.coord import stages as st
+    from distributed_ml_pytorch_tpu_torch.device import full_float32
+    from distributed_ml_pytorch_tpu_torch.ops import attention as at
+    from distributed_ml_pytorch_tpu_torch.parallel import mpmd
+
+    t0 = time.monotonic()
+    bg = background if background is not None else MpmdBackground(tiny, device)
+    card = _card(torch, device)
+    if device == "cuda":
+        full_float32()
+    cfg, mb, seq, steps = _mpmd_shapes(tiny)
+    S, M = MPMD_STAGES, MPMD_M
+    ranges = mpmd.stage_param_ranges(cfg, S)
+    full = bg.params()
+    toks, tgts = st.scenario_data(0, steps, M, mb, seq, cfg.vocab_size)
+    tokens_per_step = M * mb * seq
+    build = os.path.join(ROOT, "build")
+    tmp = tempfile.mkdtemp(prefix="mpmd28_", dir=build if os.path.isdir(build) else None)
+    try:
+        # (a) the oracle, the first fused backward's tensors kept for (e)
+        seen, restore = _record_first_call(torch, at, "flash_bwd_fused_cuda")
+        try:
+            local = mpmd.MpmdLocal(cfg, S, M, MPMD_LR, params=full, device=device)
+            local_losses = [local.step(a, b) for a, b in zip(toks, tgts)]
+        finally:
+            restore()
+        del local
+        one = mpmd.MpmdLocal(cfg, 1, 1, MPMD_LR, params=full, device=device)
+        one_losses = [one.step(a.reshape(1, M * mb, seq), b.reshape(1, M * mb, seq))
+                      for a, b in zip(toks[:2], tgts[:2])]
+        del one
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        require(_close_losses(local_losses[:2], one_losses, MPMD_RTOL),
+                f"MpmdLocal's first losses {local_losses[:2]} vs one stage's {one_losses} "
+                f"beyond rtol {MPMD_RTOL}")
+        emit({"phase": "mpmd_oracle", "ok": True, "losses": local_losses,
+              "one_stage_losses": one_losses, "rtol": MPMD_RTOL, "stages": S,
+              "layers": cfg.n_layers, "microbatches": f"{M} x {mb} x {seq}",
+              "ranges": ranges, "card": card})
+
+        def fleet(**kw):
+            base = tempfile.mkdtemp(dir=tmp)
+            try:
+                out = st.mpmd_scenario(base_dir=base, seed=0, n_stages=S, n_microbatches=M,
+                                       mb=mb, seq=seq, lr=MPMD_LR, cfg=cfg, params=full,
+                                       device=device, **{"steps": steps, **kw})
+            finally:
+                shutil.rmtree(base, ignore_errors=True)
+            require(out["ok"], f"mpmd fleet {kw}: errors {out['errors']}, "
+                               f"events {out['events'][-6:]}")
+            require(out["applied_ok"] and out["discarded_applies"] == 0,
+                    f"mpmd fleet {kw}: applied {out['applied']}, discarded "
+                    f"{out['discarded_applies']}")
+            return out
+
+        def rates(out):
+            wall = out["wall_s"]
+            return {"tokens_per_s": tokens_per_step * (len(out["losses"]) - 1) / wall,
+                    "bubble_fraction": max(0.0, 1.0 - out["busy_s"] / (S * wall)),
+                    "wall_s": wall, "busy_s": out["busy_s"]}
+
+        # (b) the fault-free fleet, the attention counted from zero in each
+        # run (the profiler repeats a run that lost a kernel), profiled
+        runs = {}
+
+        def steady_run():
+            _zero_attention_launches(at)
+            with _plain_attention_calls(at) as plain:
+                runs["out"] = fleet()
+            runs["launches"], runs["plain"] = dict(at.launches), plain.n
+
+        profile = None
+        if device == "cuda":
+            from distributed_ml_pytorch_tpu_torch.utils.devprof import kernel_breakdown
+
+            profile = kernel_breakdown(steady_run, MPMD_GROUPS)
+        else:
+            steady_run()
+        steady, launches = runs["out"], runs["launches"]
+        want = _mpmd_expected(cfg, steps)
+        if device == "cuda":
+            require(launches == want and runs["plain"] == 0,
+                    f"mpmd fleet launched {launches} with {runs['plain']} plain attention "
+                    f"calls, want {want} and none")
+        require(_close_losses(steady["losses"], local_losses, MPMD_RTOL),
+                f"fleet losses {steady['losses']} vs MpmdLocal's {local_losses}")
+        emit({"phase": "mpmd_fleet", "ok": True, "losses": steady["losses"],
+              **rates(steady), "launches": launches, "expected_launches": want,
+              "plain_attention_calls": runs["plain"],
+              "ckpt_bytes_per_update": 4 * ranges[-1][1],
+              "stage_stats": {k: {n: v[n] for n in ("fwd", "bwd", "updates", "busy_s")}
+                              for k, v in steady["stats"].items()},
+              "profiled": profile is not None, "profile": profile, "card": card})
+
+        # (c) a stage's death under chaos
+        kill_stage, kill_at = MPMD_KILL
+        chaos = fleet(kill_stage=kill_stage, kill_at_step=kill_at,
+                      snapshot_at_step=MPMD_SNAPSHOT_AT, plan=st.default_mpmd_plan(0))
+        require(chaos["stage_restarts"] == 1 and chaos["stage_mttr_s"] is not None,
+                f"mpmd chaos run: {chaos['stage_restarts']} restarts, events "
+                f"{chaos['events'][-6:]}")
+        require(_close_losses(chaos["losses"], steady["losses"], *MPMD_CHAOS_TOL),
+                f"chaos losses {chaos['losses']} vs the fault-free {steady['losses']}")
+        emit({"phase": "mpmd_stage_death", "ok": True, "losses": chaos["losses"],
+              "stage_mttr_ms": chaos["stage_mttr_s"] * 1e3, "timings": chaos["timings"],
+              "chaos": chaos["chaos_counts"], "driver_stats": chaos["driver_stats"],
+              "reshipped": {k: v["reshipped"] for k, v in chaos["stats"].items()},
+              **rates(chaos), "tol": MPMD_CHAOS_TOL, "card": card})
+
+        # (d) the int8 activation codec, fault-free
+        q = fleet(act_codec="int8")
+        require(_close_losses(q["losses"], steady["losses"], MPMD_INT8_RTOL),
+                f"int8 losses {q['losses']} vs dense {steady['losses']}")
+        lossy = {k: (v["act_wire_floats"], v["act_dense_floats"])
+                 for k, v in q["stats"].items() if v["act_dense_floats"]}
+        require(len(lossy) == S and all(w * 3 <= d for w, d in lossy.values()),
+                f"int8 wire floats (wire, dense) {lossy}")
+        emit({"phase": "mpmd_int8", "ok": True, "losses": q["losses"],
+              "rtol": MPMD_INT8_RTOL, "wire_vs_dense_floats": lossy, **rates(q),
+              "card": card})
+
+        # (e) K4 and K5 on one stage's own tensors from (a)
+        errors = {}
+        if device == "cuda":
+            args = seen.pop("args", None)
+            require(args is not None, "no fused backward call to hold against its plain version")
+            errs, ms, check_s = _long_check(torch, at, args, ("flash_fwd", "flash_bwd_fused"))
+            errors = {k: max(e[0] for e in errs[k].values()) for k in errs}
+            emit({"phase": "mpmd_kernels", "ok": True, "q_shape": list(args[0].shape),
+                  "dtype": str(args[0].dtype).replace("torch.", ""), "errors": errs,
+                  "ms": ms, "plain_check_s": check_s, "card": card})
+
+        # (f) the entry point, started ahead (MpmdBackground)
+        code, out, err = bg.cli()
+        require(code == 0, f"coord.cli --mpmd exited {code}: {out[-2000:]} {err[-2000:]}")
+        summary = [ln for ln in out.splitlines() if ln.startswith("mpmd scenario:")]
+        emit({"phase": "mpmd_cli", "ok": True, "argv": bg.argv[1:],
+              "summary": summary[-1][:600] if summary else None, "card": card})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "mpmd", "ok": True, "launches": launches,
+          "wall_s": time.monotonic() - t0, "card": card})
+    return launches, errors
+
+
 def main() -> int:
     try:
         import torch
@@ -6599,6 +6899,7 @@ def main() -> int:
         return 2
     # a hang dumps every thread's stack and fails the run inside its limit
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    mpmd_ahead = None
     try:
         phase_device_and_build(torch)
         measured = phase_kernels(torch)
@@ -6663,15 +6964,24 @@ def main() -> int:
             launches[name] += n
         for name, err in mesh_errors.items():
             measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"], err)
+        mpmd_ahead = MpmdBackground()
         par_launches, par_errors = phase_parallel(torch)
         for name, n in par_launches.items():
             launches[name] += n
         for name, err in par_errors.items():
             measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"], err)
+        mpmd_launches, mpmd_errors = phase_mpmd(torch, background=mpmd_ahead)
+        for name, n in mpmd_launches.items():
+            launches[name] += n
+        for name, err in mpmd_errors.items():
+            measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"], err)
         smi = nvidia_smi_line()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        if mpmd_ahead is not None:
+            mpmd_ahead.stop()
     kernels = []
     for name, source, replaces in KERNEL_ROWS:
         m = measured[name]

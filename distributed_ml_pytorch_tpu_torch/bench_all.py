@@ -160,6 +160,19 @@ narration on stderr. Ported legs, under the JAX metric names:
   Host clock: the figures are the in-process fleet's host timing, not the
   card's.
 
+- ``mpmd`` — config 3's MPMD pipeline leg (JAX ``mpmd_phase``,
+  bench_all.py:1405-1506): ``coord/stages.mpmd_scenario`` at seed 0 (4
+  stage members as threads, M = 4 microbatches of 4 x 8 tokens, the
+  scenario's default widths, on the reliable in-process wire), a warm-up
+  run, then 16 fault-free steps as ``mpmd_pipeline_steady`` (tokens/s
+  between the first and last step completions) and
+  ``mpmd_bubble_fraction`` (1 - the stages' busy seconds / (stages x
+  wall)), then the middle stage killed at step 6 and restarted from its
+  checkpoint: ``mpmd_stage_restart_mttr`` (the vacancy, ms) and
+  ``mpmd_stage_kill_throughput_{before,during,after}``. The JAX record's
+  ``bubble_attribution`` needs the flight recorder's timeline (the
+  observability plane), which is not here: the leg says so in its log.
+  Host clock. ``--tiny``: 8 steps, the kill at step 3.
 - ``resnet`` — configs 4 and 5 (JAX bench_all.py:207-248, ``bench_jax``
   and ``bench_hostfed_resnet50``, :758): seed-0 GroupNorm ResNets trained
   by ``make_scan_train_step`` (SGD lr 0.008, K steps a dispatch: a CUDA
@@ -2095,6 +2108,77 @@ def gray_phase(device) -> dict:
 MESH_HW = "cpu, gloo"
 
 
+def mpmd_phase(device, tiny: bool = False) -> dict:
+    """Config 3's MPMD pipeline leg: a 4-stage pipeline of fleet members on
+    the reliable in-process wire, priced fault-free (tokens/s and the
+    bubble fraction) and through a middle stage's death (the restart MTTR
+    and the driver's step rate before, during and after)."""
+    import tempfile
+
+    from distributed_ml_pytorch_tpu_torch.coord.stages import mpmd_scenario
+
+    steps, kill_at, snap_at = (8, 3, 1) if tiny else (16, 6, 2)
+    n_stages, M, mb, seq = 4, 4, 4, 8
+    shape = dict(n_stages=n_stages, n_microbatches=M, mb=mb, seq=seq, device=device)
+    hw = _fleet_hw(device)
+
+    def run(**kw):
+        with tempfile.TemporaryDirectory(prefix="bench_mpmd_") as d:
+            out = mpmd_scenario(base_dir=d, seed=0, **shape, **kw)
+        if not out["ok"] or out["wall_s"] is None:
+            raise RuntimeError(f"mpmd_phase incomplete: ok={out['ok']} errors={out['errors']} "
+                               f"events={out['events'][-5:]}")
+        return out
+
+    run(steps=2 if tiny else 4)  # warm-up
+    out = run(steps=steps)
+    tok_per_step = M * mb * seq
+    res = {"mpmd_pipeline_steady": tok_per_step * (steps - 1) / out["wall_s"],
+           "mpmd_bubble_fraction": 100.0 * max(0.0, 1.0 - out["busy_s"]
+                                               / (n_stages * out["wall_s"]))}
+    emit(3, "mpmd_pipeline_steady", res["mpmd_pipeline_steady"], "tokens/sec", hw,
+         f"{n_stages}-stage MPMD pipeline (per-stage programs over ReliableTransport), "
+         f"M={M} microbatches of {mb}x{seq} tokens; driver step cadence over {steps} "
+         "fault-free steps (coord/stages.mpmd_scenario)")
+    log("mpmd_phase: no bubble_attribution: analysis.timeline needs the flight "
+        "recorder, which is not in this package yet")
+    emit(3, "mpmd_bubble_fraction", res["mpmd_bubble_fraction"], "%", hw,
+         "1 - sum(stage busy s) / (stages x wall s) over the steady run: the idle share "
+         "of stage-seconds (schedule bubble + wire wait)")
+
+    out = run(steps=steps, kill_stage=1, kill_at_step=kill_at, snapshot_at_step=snap_at)
+    if out["stage_mttr_s"] is None:
+        raise RuntimeError(f"mpmd_phase: no stage restart measured: {out['events'][-5:]}")
+    res["mpmd_stage_restart_mttr"] = out["stage_mttr_s"] * 1e3
+    emit(3, "mpmd_stage_restart_mttr", res["mpmd_stage_restart_mttr"], "ms", hw,
+         f"middle stage killed at its step {kill_at} (silent; lease expiry detection) -> "
+         "checkpoint restart -> StageReady; watermark-bounded replay refilled the in-flight "
+         f"microbatches (applied accounting {'OK' if out['applied_ok'] else 'BROKEN'}: no "
+         "microbatch applied twice)")
+    ts = out["step_times"]
+
+    def rate(a, b):
+        if b - a < 2 or b > len(ts):
+            return None
+        return tok_per_step * (b - 1 - a) / (ts[b - 1] - ts[a])
+
+    for name, value, win in (
+            ("before", rate(1, kill_at), f"steps 1-{kill_at}"),
+            ("during", rate(kill_at, kill_at + 4),
+             f"steps {kill_at}-{kill_at + 4} (kill -> lease expiry -> restart -> replay)"),
+            ("after", rate(kill_at + 4, steps), f"steps {kill_at + 4}-{steps}")):
+        if value is None:
+            log(f"mpmd_phase: window {name} too short to rate")
+            continue
+        res[f"mpmd_stage_kill_throughput_{name}"] = value
+        emit(3, f"mpmd_stage_kill_throughput_{name}", value, "tokens/sec", hw,
+             f"driver step-completion rate {win}; 4-stage pipeline, middle stage killed and "
+             "restarted from its checkpoint")
+    log(f"mpmd_phase: kill leg driver stats {out['driver_stats']}, events "
+        f"{out['events'][-3:]}")
+    return res
+
+
 def _alexnet_flat() -> torch.Tensor:
     return ravel_model_params(get_model("alexnet", seed=0, device="cpu")).float()
 
@@ -2226,6 +2310,7 @@ LEGS = {
     "health": lambda dev, tiny: health_phase(dev),
     "sched": lambda dev, tiny: sched_phase(dev),
     "gray": lambda dev, tiny: gray_phase(dev),
+    "mpmd": lambda dev, tiny: mpmd_phase(dev, tiny=tiny),
     "resnet": lambda dev, tiny: resnet_phase(dev, tiny=tiny),
     "moe": lambda dev, tiny: moe_phase(dev, tiny=tiny),
     "decode": lambda dev, tiny: decode_phase(dev, tiny=tiny),

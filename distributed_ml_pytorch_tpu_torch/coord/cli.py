@@ -23,15 +23,20 @@ The hub of an elastic PS fleet over TCP::
     # behind a snapshot barrier, the off-peak resumes it bit for bit
     python -m distributed_ml_pytorch_tpu_torch.coord.cli --sched-demo --model lenet
 
+    # the MPMD pipeline: four stage members under seeded chaos, the middle
+    # stage killed and restarted from its stage checkpoint
+    python -m distributed_ml_pytorch_tpu_torch.coord.cli --mpmd
+
 The hub binds and serves at once (``TCPTransport(wait_for=0)``): the members
 are whoever dials in. ``--manifest-dir`` and ``--snapshot-interval`` drive
 its snapshot barrier, ``--auto-rollback`` and ``--rollback-loss-factor``
 its watchdog, ``--reputation-nacks`` worker reputation. On exit it prints
 its last 64 decisions and ``fleet at exit:`` with the fleet state and the
-final shard map. ``--drill``, ``--health``, ``--sched-demo`` and ``--demo``
-print their summary and exit 0 only if it is ok. The JAX CLI's flags of
-the later planes (the MPMD scenario and the metrics dump) are absent, so
-argparse rejects them.
+final shard map. ``--drill``, ``--health``, ``--sched-demo``, ``--mpmd``
+and ``--demo`` print their summary and exit 0 only if it is ok, each on
+``--backend`` (the card unless ``cpu`` is asked for). The JAX CLI's
+``--metrics-dump`` (the observability plane) is absent, so argparse rejects
+it.
 """
 
 from __future__ import annotations
@@ -81,6 +86,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "the FleetManifest — then resumes it bit-for-bit off-peak via "
                         "checkpoint + exactly-once WAL replay; prints preempt/resume MTTR and "
                         "the restore proof) and exit")
+    p.add_argument("--mpmd", action="store_true",
+                   help="run the in-process MPMD pipeline scenario (4 stage members "
+                        "under seeded drop/dup + weather, middle stage killed "
+                        "mid-schedule, lease-expiry detection, restart from its stage "
+                        "checkpoint, watermark replay; prints MTTR + accounting) and "
+                        "exit")
     p.add_argument("--auto-rollback", action="store_true",
                    help="TCP hub mode: watch the fleet's loss telemetry and drive "
                         "RollbackRequest barriers to the last good manifest on "
@@ -98,7 +109,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="seconds between automatic fleet snapshot barriers (0 = only on "
                         "demand)")
     p.add_argument("--backend", type=str, default="cuda", choices=["cuda", "cpu"],
-                   help="--demo, --drill, --health, --sched-demo: the workers' device")
+                   help="--demo, --drill, --health, --sched-demo, --mpmd: the workers' (or "
+                        "the stages') device")
     p.add_argument("--seed", type=int, default=0)
     return p
 
@@ -151,6 +163,16 @@ def run_sched(args) -> int:
     return 0 if summary.get("ok") else 1
 
 
+def run_mpmd(args) -> int:
+    """The MPMD pipeline scenario in one process
+    (:func:`~.stages.mpmd_demo`)."""
+    from distributed_ml_pytorch_tpu_torch.coord.stages import mpmd_demo
+
+    summary = mpmd_demo(seed=args.seed, device=args.backend)
+    print("mpmd scenario:", summary)
+    return 0 if summary.get("ok") else 1
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     print(args)
@@ -160,6 +182,8 @@ def main(argv=None) -> int:
         return run_drill(args)
     if args.health:
         return run_health(args)
+    if args.mpmd:
+        return run_mpmd(args)
     if args.sched_demo:
         return run_sched(args)
 

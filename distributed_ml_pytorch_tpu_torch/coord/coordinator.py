@@ -79,10 +79,10 @@ The decisions are functions of the frame and clock history (``handle`` and
   its incarnation at the revocation and in answer to each renewal of its
   cooldown (the member's ``revoked``).
 
-Not in this package yet, and refused rather than ignored: the flight
-recorder. The frames of a plane this package does not have (any code outside its ``WIRE_SCHEMAS``: the MPMD
-stages') reaching the coordinator are dropped and counted in
-``later_plane_dropped``.
+Not in this package yet: the flight recorder. The MPMD stage plane's
+frames (``StageReady``; ``StageAssign`` goes out) are the
+``coord/stages.StageCoordinator``'s; this base class takes them as
+evidence of life, as any other frame of a known member.
 """
 
 from __future__ import annotations
@@ -108,7 +108,6 @@ from distributed_ml_pytorch_tpu_torch.coord.shardmap import ShardEntry, ShardMap
 from distributed_ml_pytorch_tpu_torch.utils.durability import atomic_write
 from distributed_ml_pytorch_tpu_torch.utils.health import clamp_finite32
 from distributed_ml_pytorch_tpu_torch.utils.messaging import (
-    WIRE_SCHEMAS,
     MessageCode,
     Transport,
     _join16,
@@ -146,24 +145,6 @@ def _op_to_f32(op: dict) -> np.ndarray:
 
 def _f32_to_op(payload: np.ndarray) -> dict:
     return json.loads(payload.tobytes().decode("utf-8"))
-
-
-def later_plane(code) -> bool:
-    """A code outside this package's ``WIRE_SCHEMAS``: a frame of a plane
-    this package does not have yet (the MPMD stages), dropped and counted,
-    never half-handled."""
-    return code not in WIRE_SCHEMAS
-
-
-def refuse_later_options(owner: str, options: dict, table: dict) -> None:
-    """Raise ``ValueError`` naming the plane for an option of ``table`` set
-    to anything but its default, ``TypeError`` for an unknown one."""
-    for name, value in options.items():
-        if name not in table:
-            raise TypeError(f"{owner}() got an unexpected keyword argument {name!r}")
-        default, plane = table[name]
-        if value is not default and value != default:
-            raise ValueError(f"{owner}({name}=...): {plane} is not in this package yet")
 
 
 def encode_join(kind: int, incarnation: int) -> np.ndarray:
@@ -368,7 +349,6 @@ class Coordinator:
         self._stop = threading.Event()
         #: the decision log, a capped ring
         self.events = BoundedEvents(maxlen=1024)
-        self.later_plane_dropped = 0
         #: the attached ``coord/sched.FleetScheduler`` (it sets this)
         self.sched = None
         #: the attached ``coord/grayhealth.GrayHealth`` (it sets this)
@@ -762,9 +742,6 @@ class Coordinator:
         # closes early once everyone is back
         self._grace_pending.discard(sender)
         member = self.members.get(sender)
-        if later_plane(code):
-            self.later_plane_dropped += 1
-            return
         if code == MessageCode.CoordJoin and payload.size >= 3:
             if not np.isfinite(payload[:3]).all():
                 return

@@ -190,6 +190,30 @@ def serve(srv: ElasticShardServer, threads: List[threading.Thread]) -> ElasticSh
     return srv
 
 
+def park_after_a_push(srv: ElasticShardServer, manifest_path: str,
+                      timeout: float = 60.0) -> None:
+    """Drill pacing: hand ``srv`` its ``PreemptRequest`` only once it has
+    applied a push past its record in the barrier's manifest, so the park
+    always leaves acked updates that only its WAL holds, which the resume
+    must replay. The request reaches the server's mailbox late, never lost;
+    if no such push comes within ``timeout`` it goes through as it is."""
+    park = srv.coord.on_preempt
+
+    def held(grant_id: int, snapshot_id: int) -> None:
+        def release() -> None:
+            try:
+                base = FleetManifest.load(manifest_path).entry_for(srv.server_id).apply_seq
+                wait_for(lambda: srv.ps._apply_seq > base, timeout,
+                         "a push past the barrier before the park")
+            except (ValueError, TimeoutError):
+                pass  # the resume's own checks report what is missing
+            park(grant_id, snapshot_id)
+
+        threading.Thread(target=release, daemon=True).start()
+
+    srv.coord.on_preempt = held
+
+
 def stop_servers(servers: Sequence[ElasticShardServer],
                  threads: Sequence[threading.Thread]) -> None:
     """Stop the servers and wait for their serve loops, which checkpoint on
@@ -976,7 +1000,13 @@ def coordfail_drill(*, base_dir: str, seed: int = 0, steps: int = 20,
     dies with the last shard parked (the park logged) and its slot granted
     away; the new life must neither strand the parked rank nor grant its
     slot twice, and at ``verify_at`` the demand drops and it resumes the
-    shard bit for bit.
+    shard bit for bit. The workers wait out the preempt's barrier at
+    ``snapshot_at + 1`` and the victim parks only after a push past the
+    barrier (:func:`park_after_a_push`), so the resume always has WAL
+    records to replay, however the host schedules the threads. In both
+    variants the verify step also waits until every live member has heard
+    from the new life (its epoch fence moved), which a member that only
+    renewed learns from its next join retry's reply.
 
     The restart is a new :class:`Coordinator` over the same ``durable_dir``
     (``base_dir/coord``): its epoch is one higher, its members, map, clocks
@@ -1044,6 +1074,8 @@ def coordfail_drill(*, base_dir: str, seed: int = 0, steps: int = 20,
                                          for i in range(n_shards)]
     wait_for(lambda: len(life["coord"].shard_map.entries) == n_shards, 60,
              "all shard servers to join the map")
+    if with_sched:
+        park_after_a_push(servers[victim_rank - 1], manifest_path)
 
     # the live ranks that must re-attach to the new life: a parked victim is
     # exempt by the durable park table, not re-attaching
@@ -1111,6 +1143,11 @@ def coordfail_drill(*, base_dir: str, seed: int = 0, steps: int = 20,
     def step_hook(j: int, step: int) -> None:
         time.sleep(step_sleep)
         sched = life.get("sched")
+        if with_sched and kill_at is not None and step == snapshot_at + 1:
+            # every worker waits out the preempt's barrier here, so pushes
+            # still flow between the manifest and the (gated) park
+            wait_for(lambda: life["coord"].manifests_written > 0 or sched.preempts_aborted > 0,
+                     120, "the preempt's snapshot barrier to publish")
         if j != 1:
             if kill_at is not None and step == verify_at:
                 # the fleet must outlive the verify window: a finished worker
@@ -1154,6 +1191,10 @@ def coordfail_drill(*, base_dir: str, seed: int = 0, steps: int = 20,
                 try:
                     wait_for(lambda: "reattached" in timings, 120,
                              "the fleet to re-attach to the new life")
+                    # and to hear from it: every live member's epoch fence
+                    # moves to the new life (a member that only renewed
+                    # learns it from its next join retry's reply)
+                    wait_for(fenced, 60, "every live member to see the new life's epoch")
                     if with_sched:
                         timings["offpeak"] = time.monotonic()
                         registry.set_demand(SERVE_ID, 0)
@@ -1171,8 +1212,19 @@ def coordfail_drill(*, base_dir: str, seed: int = 0, steps: int = 20,
         if with_sched:
             park.follow(1)
 
+    worker_clients: Dict[int, CoordClient] = {}
+
+    def fenced() -> bool:
+        epoch = life["coord2"].epoch
+        live = {srv.server_id: srv.coord for srv in servers}
+        live.update(worker_clients)
+        if agent is not None:
+            live[agent_rank] = agent.client
+        return all(live[r].coord_epoch >= epoch for r in expected_live if r in live)
+
     def run_worker(j: int) -> None:
         client = CoordClient(coord_star[n_shards + j], "worker", renew_interval=lease / 4)
+        worker_clients[n_shards + j] = client
         try:
             run_worker_loop(j, client, stars, x, y, make_model, steps=steps, lr=lr,
                             n_push=n_push, n_pull=n_pull, batch=batch, losses=losses,

@@ -41,9 +41,10 @@ Every coordinator frame passes the epoch fence in one place
 highest seen comes from an older coordinator life and is dropped, counted
 in ``stale_epoch_dropped``.
 
-Not in this package yet, and refused rather than ignored: the stage
-plane's callback. Its frames are dropped and counted in
-``later_plane_dropped``.
+A stage member (``parallel/mpmd.MpmdStage``) **announces its stage**
+(:meth:`CoordClient.stage_ready`) and takes the coordinator's versioned
+``StagePlacement`` (``StageAssign``) through ``on_stage_assign``; a stale
+placement never rolls it back.
 """
 
 from __future__ import annotations
@@ -67,8 +68,6 @@ from distributed_ml_pytorch_tpu_torch.coord.coordinator import (
     encode_renew,
     encode_rollback_done,
     encode_snapshot_done,
-    later_plane,
-    refuse_later_options,
 )
 from distributed_ml_pytorch_tpu_torch.coord.shardmap import ShardMap
 from distributed_ml_pytorch_tpu_torch.utils.messaging import (
@@ -81,32 +80,6 @@ from distributed_ml_pytorch_tpu_torch.utils.messaging import (
 
 _KINDS = {"worker": KIND_WORKER, "shard": KIND_SHARD, "engine": KIND_ENGINE,
           "stage": KIND_STAGE, "agent": KIND_AGENT}
-
-#: the JAX client's options of the later planes, with their defaults
-_LATER_OPTIONS = {
-    "on_stage_assign": (None, "the MPMD stage plane"),
-}
-
-#: the callbacks a member of a later plane wires in by assignment
-_LATER_CALLBACKS = {
-    "on_stage_assign": "the MPMD stage plane",
-}
-
-
-class _RefusedCallback:
-    """A callback slot of a later plane: reads None, refuses any value."""
-
-    def __set_name__(self, owner, name):
-        self.name = name
-
-    def __get__(self, obj, owner=None):
-        return None
-
-    def __set__(self, obj, value):
-        if value is not None:
-            raise ValueError(f"CoordClient.{self.name}: {_LATER_CALLBACKS[self.name]} is "
-                             "not in this package yet")
-
 
 class FleetView:
     """The latest fleet broadcast, read from any thread."""
@@ -170,9 +143,8 @@ class CoordClient:
     after construction: a shard server or a worker wires itself in) and
     ``on_speculate(task_id, victim, from_step)`` are called on the listener
     thread, and so are the scheduler's ``on_preempt``, ``on_slot_grant`` and
-    ``on_resume`` (assignable, None by default)."""
-
-    on_stage_assign = _RefusedCallback()
+    ``on_resume`` (assignable, None by default) and a stage member's
+    ``on_stage_assign(placement)``."""
 
     def __init__(self, transport: Transport, kind: str, *, renew_interval: float = 0.5,
                  incarnation: Optional[int] = None,
@@ -180,10 +152,10 @@ class CoordClient:
                  on_speculate: Optional[Callable[[int, int, int], None]] = None,
                  on_snapshot: Optional[Callable[[int, int], None]] = None,
                  on_rollback: Optional[Callable[[int, int], None]] = None,
-                 rollback_hold_ttl: float = 15.0, **later):
+                 on_stage_assign: Optional[Callable[[object], None]] = None,
+                 rollback_hold_ttl: float = 15.0):
         if kind not in _KINDS:
             raise ValueError(f"kind must be one of {sorted(_KINDS)}, got {kind!r}")
-        refuse_later_options("CoordClient", later, _LATER_OPTIONS)
         self.transport = transport
         self.kind = kind
         self.renew_interval = float(renew_interval)
@@ -200,6 +172,9 @@ class CoordClient:
         self._on_speculate = on_speculate
         self.on_snapshot = on_snapshot
         self.on_rollback = on_rollback
+        #: a stage member's placement mailbox, called with the decoded
+        #: ``coord/stages.StagePlacement``
+        self.on_stage_assign = on_stage_assign
         #: a shard server's park mailbox: ``(grant_id, snapshot_id)``; the
         #: member commits, reports ``preempt_done`` and stops serving
         self.on_preempt = None
@@ -212,10 +187,11 @@ class CoordClient:
         #: the highest coordinator epoch seen; frames below it are dropped
         self.coord_epoch = -1
         self.stale_epoch_dropped = 0
-        self.later_plane_dropped = 0
         self._lock = threading.Lock()
         self._latest_map: Optional[ShardMap] = None
         self._current_version = -1
+        self._latest_placement = None
+        self._placement_version = -1
         self._got_map = threading.Event()
         #: (push_count, step, ewma_ms, wire_open, nacks, bad_loss, loss_ewma,
         #: gnorm_ewma), shipped on every renewal
@@ -308,8 +284,17 @@ class CoordClient:
             if self.on_resume is not None and np.isfinite(payload[:5]).all():
                 self.on_resume(_join16(payload[0], payload[1]), int(payload[2]),
                                _join16(payload[3], payload[4]))
-        elif later_plane(code):
-            self.later_plane_dropped += 1
+        elif code == MessageCode.StageAssign and payload.size >= 5:
+            from distributed_ml_pytorch_tpu_torch.coord.stages import StagePlacement
+
+            p = StagePlacement.decode(payload)
+            with self._lock:
+                if p.version <= self._placement_version:
+                    return  # a stale rebroadcast never rolls a consumer back
+                self._placement_version = p.version
+                self._latest_placement = p
+            if self.on_stage_assign is not None:
+                self.on_stage_assign(p)
 
     def _renew_loop(self) -> None:
         tick = 0
@@ -386,6 +371,20 @@ class CoordClient:
         scheduler grant the slot again."""
         self._send(MessageCode.PreemptDone, encode_preempt_done(
             grant_id, snapshot_id, lo, hi, apply_seq))
+
+    def stage_ready(self, stage: int, watermark: int) -> None:
+        """Announce that this member serves pipeline stage ``stage`` at the
+        microbatch ``watermark``; the coordinator assigns it into the
+        ``StagePlacement`` and broadcasts ``StageAssign``."""
+        from distributed_ml_pytorch_tpu_torch.coord.stages import encode_stage_ready
+
+        self._send(MessageCode.StageReady,
+                   encode_stage_ready(stage, self.incarnation, watermark))
+
+    def current_placement(self):
+        """The newest ``StagePlacement`` seen (None before the first)."""
+        with self._lock:
+            return self._latest_placement
 
     def leave(self) -> None:
         self._send(MessageCode.CoordLeave, encode_leave(self.incarnation))

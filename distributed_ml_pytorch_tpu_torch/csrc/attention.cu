@@ -1,8 +1,10 @@
 // Flash attention over (batch*heads, seq, head_dim): the forward (K4), the
 // fused backward (K5) and the split backward's dQ (K6a) and dK/dV (K6b)
-// kernels at head_dim 16, 32, 64 and 128, for float32 inputs only (the
+// kernels at head_dim 8, 16, 32, 64 and 128, for float32 inputs only (the
 // bfloat16 versions are the tensor-core kernels of flash_fwd_tc.cu and
-// flash_bwd_tc.cu).
+// flash_bwd_tc.cu, at 16 to 128). Head_dim 8 is the JAX MPMD scenario's
+// width (d_model 16 over 2 heads); there a row group's 8 threads hold one
+// head-dim column each.
 //
 // Replaces: distributed_ml_pytorch_tpu/ops/attention.py
 //   K4  _flash_fwd            (pallas_call at :311, body _flash_kernel at :196)
@@ -528,6 +530,7 @@ int run_one(Which w, const Args& a) {
 template <typename T>
 int run_d(Which w, int d, const Args& a) {
     switch (d) {
+        case 8: return run_one<T, 8>(w, a);
         case 16: return run_one<T, 16>(w, a);
         case 32: return run_one<T, 32>(w, a);
         case 64: return run_one<T, 64>(w, a);

@@ -18,7 +18,8 @@ do.
   float32's numbers (TF32 keeps about three decimal digits, against the
   float32 tolerance of 1e-5). On a CUDA tensor an op launches its kernel or
   raises (a dtype other than float32/bfloat16, a head_dim other than
-  16/32/64/128, a tensor that is not contiguous, a bfloat16 operand not
+  16/32/64/128 (or 8 in float32), a tensor that is not contiguous, a
+  bfloat16 operand not
   16-byte aligned); it never runs the plain version or another kernel
   there.
 - :func:`blockwise_attention`: the same online-softmax recurrence as a loop
@@ -50,6 +51,7 @@ log by :func:`flash_attention_lse`.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional
 
 import torch
@@ -63,11 +65,22 @@ LOG2_E = 1.4426950408889634  # scores are kept in log2 space inside the kernels
 FUSED_BWD_PARTIALS_CAP = 6 * 1024**3
 #: head dims the CUDA kernels are built for
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+#: the float32 kernels (``csrc/attention.cu``) also take head_dim 8, the JAX
+#: MPMD scenario's width
+FLOAT32_HEAD_DIMS = (8, *KERNEL_HEAD_DIMS)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: launches of the CUDA kernels (plain versions do not count):
 #: K4 forward, K5 fused backward, K6a split dQ, K6b split dK/dV
 launches = {"flash_fwd": 0, "flash_bwd_fused": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+_LAUNCH_LOCK = threading.Lock()
+
+
+def _count(name: str) -> None:
+    """One launch of ``name``, under a lock: the wrappers run on several
+    threads at once (an MPMD stage member each)."""
+    with _LAUNCH_LOCK:
+        launches[name] += 1
 
 
 # ------------------------------------------------------------------ reference and scan
@@ -368,9 +381,10 @@ def _check_cuda(name: str, tensors, lse_like=()) -> int:
     if any(t.dtype != torch.float32 for t in lse_like):
         raise TypeError(f"{name}: lse and delta must be float32")
     d = q.shape[-1]
-    if q.dim() != 3 or d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name}: the CUDA kernel takes (b*h, s, d) with d in "
-                         f"{KERNEL_HEAD_DIMS}, got shape {tuple(q.shape)}")
+    dims = FLOAT32_HEAD_DIMS if q.dtype == torch.float32 else KERNEL_HEAD_DIMS
+    if q.dim() != 3 or d not in dims:
+        raise ValueError(f"{name}: the CUDA kernel takes (b*h, s, d) with d in {dims} "
+                         f"for {q.dtype}, got shape {tuple(q.shape)}")
     bh, sq, _ = q.shape
     k, v = tensors[1], tensors[2]
     if k.shape != v.shape or k.shape[0] != bh or k.shape[2] != d:
@@ -444,7 +458,7 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bo
                         lse2.data_ptr(), bh, sq, k.shape[1], d, int(causal), code,
                         _scales(d)[0], _build.stream_of(q))
     _build.check(rc, "flash forward")
-    launches["flash_fwd"] += 1
+    _count("flash_fwd")
     return out, lse2
 
 
@@ -474,7 +488,7 @@ def flash_bwd_fused_cuda(q, k, v, do, lse2, delta, causal: bool):
             delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             bh, sq, k.shape[1], d, int(causal), code, *_scales(d), _build.stream_of(q))
     _build.check(rc, "flash fused backward")
-    launches["flash_bwd_fused"] += 1
+    _count("flash_bwd_fused")
     return dq_acc.to(q.dtype), dk, dv
 
 
@@ -497,7 +511,7 @@ def flash_bwd_dq_cuda(q, k, v, do, lse2, delta, causal: bool):
             delta.data_ptr(), dq.data_ptr(), bh, sq, k.shape[1], d, int(causal), code,
             *_scales(d), _build.stream_of(q))
     _build.check(rc, "flash split backward (dq)")
-    launches["flash_bwd_dq"] += 1
+    _count("flash_bwd_dq")
     return dq
 
 
@@ -520,7 +534,7 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse2, delta, causal: bool):
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, sq, k.shape[1], d,
             int(causal), code, *_scales(d), _build.stream_of(q))
     _build.check(rc, "flash split backward (dk/dv)")
-    launches["flash_bwd_dkv"] += 1
+    _count("flash_bwd_dkv")
     return dk, dv
 
 

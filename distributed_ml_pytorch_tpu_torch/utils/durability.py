@@ -36,8 +36,10 @@ def fsync_dir(path: str) -> None:
         os.close(fd)
 
 
-def atomic_write(path: str, data: bytes) -> None:
-    """Atomically and durably replace ``path`` with ``data``.
+def atomic_write(path: str, data) -> None:
+    """Atomically and durably replace ``path`` with ``data``: bytes, or a
+    sequence of bytes-like chunks written back to back (a large state need
+    not be joined into one buffer first).
 
     The temp file lives beside the destination (``os.replace`` must not
     cross file systems), has a name unique to the call (``mkstemp``: two
@@ -54,7 +56,9 @@ def atomic_write(path: str, data: bytes) -> None:
         # mkstemp creates 0600; give the file the mode a plain open() would
         os.fchmod(fd, 0o666 & ~_UMASK)
         with os.fdopen(fd, "wb") as f:
-            f.write(data)
+            for chunk in ((data,) if isinstance(data, (bytes, bytearray, memoryview))
+                          else data):
+                f.write(chunk)
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, path)

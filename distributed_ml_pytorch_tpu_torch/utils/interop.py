@@ -33,8 +33,11 @@ names (``layer_order`` takes the interleaved schedule's storage order,
 ``blocks[order]``), with ``tok_embed``, ``pos_embed``, ``ln_f`` and
 ``head`` beside them; ``pipeline.create_pp_train_state`` then keeps each
 stage's layers and, under ``model_axis``, cuts their Megatron slices;
-:func:`pp_params_to_jax` stacks them back. The expert-parallel and
-composite states start from :func:`params_from_jax` of the JAX
+:func:`pp_params_to_jax` stacks them back. The two carry one MPMD stage's
+tree as well (JAX ``parallel/mpmd.stage_param_tree``: the stage's slice of
+the stack, the embeddings on stage 0, ``ln_f`` and ``head`` on the last),
+its blocks numbered from 0 as ``parallel/mpmd.StageLM`` holds them. The
+expert-parallel and composite states start from :func:`params_from_jax` of the JAX
 ``MoETransformerLM`` / ``TransformerLM`` tree, and their
 ``create_*_train_state`` keep this rank's experts or shards.
 
@@ -219,7 +222,8 @@ def pp_params_from_jax(tree: Mapping, layer_order=None) -> Dict[str, torch.Tenso
     PipelineLM`` names) from the JAX ``init_pp_params`` tree (nested dicts
     of numpy): the stacked ``blocks`` leaves become ``blocks.{i}.…`` (block
     ``i`` of the stack, or of ``blocks[layer_order]``), dense kernels
-    transposed to ``(out, in)``."""
+    transposed to ``(out, in)``. One MPMD stage's tree gives that stage's
+    ``state_dict`` (the leaves it has)."""
     out: Dict[str, torch.Tensor] = {}
     for path, arr in _flatten(tree).items():
         arr = np.asarray(arr, dtype=np.float32)
@@ -241,7 +245,8 @@ def pp_params_from_jax(tree: Mapping, layer_order=None) -> Dict[str, torch.Tenso
 
 def pp_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     """The JAX ``init_pp_params`` tree (nested dicts of numpy) of a whole
-    pipelined ``state_dict``: blocks stacked on the leading layer axis."""
+    pipelined ``state_dict``, or the JAX ``stage_param_tree`` of one MPMD
+    stage's: blocks stacked on the leading layer axis."""
     kinds = {"tok_embed": "embedding", "pos_embed": "embedding", "ln_f": None, "head": "kernel"}
     stacks: Dict[Tuple[str, ...], Dict[int, np.ndarray]] = {}
     tree: Dict = {}

@@ -224,9 +224,9 @@ class PayloadSchema:
 #: server's plane (its compressed pushes and delta pull replies too), the
 #: coordinator's membership plane and its stamped shard traffic, its snapshot
 #: and rollback barriers, the scheduler's preempt, grant and resume, the
-#: serving frontend's, the reliability wire, and the coded wires the
-#: ``wire_bytes`` bench leg prices. The JAX table's entries for the MPMD
-#: stages come with that plane.
+#: serving frontend's, the reliability wire, the coded wires the
+#: ``wire_bytes`` bench leg prices, and the MPMD stage plane's (all of the
+#: JAX table's codes).
 WIRE_SCHEMAS: Dict[MessageCode, PayloadSchema] = {
     MessageCode.ParameterUpdate: PayloadSchema(
         rest="params", handled_by=("ps", "coord"), dedup_key="idempotent",
@@ -431,6 +431,28 @@ WIRE_SCHEMAS: Dict[MessageCode, PayloadSchema] = {
             "before its size/finite gates. Receivers dedup by (step, mb) so chaos dups, "
             "reliability redelivery and watermark replay can never double-apply a "
             "microbatch"),
+    MessageCode.ActivationGrad: PayloadSchema(
+        fields=("step_lo", "step_hi", "mb", "ver_lo", "ver_hi", "codec"),
+        rest="payload", rest_min=1, handled_by=("ps",), dedup_key="step_mb",
+        doc="MPMD backward hand-off: stage s+1 -> s activation cotangent for (step, "
+            "microbatch); same (step, mb) dedup discipline and codec-plane discipline (0 = "
+            "dense, 1 = int8 bounded) as ActivationShip (no microbatch's gradient applied "
+            "twice)"),
+    MessageCode.StageReady: PayloadSchema(
+        fields=("stage", "inc_lo", "inc_hi", "wm_lo", "wm_hi"),
+        handled_by=("coord",), dedup_key="incarnation",
+        doc="stage member -> coordinator: I serve pipeline stage `stage` at microbatch "
+            "watermark wm (= step * n_microbatches, the global count my checkpoint has "
+            "applied). A restarted member announces its recovery point here; the coordinator "
+            "assigns it into the StagePlacement and broadcasts StageAssign"),
+    MessageCode.StageAssign: PayloadSchema(
+        fields=("ver_lo", "ver_hi", "n_stages", "n_params_lo", "n_params_hi"),
+        rest="entries", handled_by=("coord",), dedup_key="version", fenced=True,
+        doc="coordinator -> everyone: the versioned StagePlacement (coord/stages.py; 10 "
+            "floats per entry: stage, rank, inc halves, lo/hi halves, watermark halves). "
+            "Neighbors react to an entry whose member INCARNATION changed by re-shipping "
+            "retained (step, mb) traffic at or past that entry's watermark — the "
+            "bounded-replay restart contract"),
     MessageCode.CompressedUpdate: PayloadSchema(
         fields=("codec", "n_lo", "n_hi", "crc_lo", "crc_hi", "param", "ver_lo", "ver_hi",
                 "lo_lo", "lo_hi", "hi_lo", "hi_hi"),

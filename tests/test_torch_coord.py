@@ -18,8 +18,9 @@
 - Cross-package TCP worlds: a JAX coordinator with the port's members and
   the reverse adopt the same maps, and rebalance when a shard member dies.
 - Refusals: every attachment, callback and flag of a plane this package
-  does not have yet (gray failure, the MPMD stages, the metrics dump) is
-  refused, never ignored, and such a plane's frame is dropped and counted.
+  does not have yet (the metrics dump) is refused, never ignored. The MPMD
+  stage plane's callback, frames and ``--mpmd`` flag are handled (they were
+  refused, and the frames dropped and counted, before the stage plane).
 """
 
 import threading
@@ -334,33 +335,52 @@ def test_cross_package_tcp_world_adopts_the_same_maps(coordinator):
 # ------------------------------------------------------------ refusals
 
 def test_later_plane_attachments_callbacks_and_frames_are_refused():
+    """The stage plane's client callback and codes, once refused and
+    dropped, are handled: ``on_stage_assign`` is an option and an
+    attribute, a ``StageAssign`` reaches it (a stale one does not), and the
+    base coordinator takes a stage frame as any other frame of a known
+    member, as the JAX one does. Unknown options still raise."""
+    from distributed_ml_pytorch_tpu_torch.coord import stages as tst
+
     coord = tco.Coordinator(None, 10)
     with pytest.raises(TypeError):
         tco.Coordinator(None, 10, no_such_option=1)
-    with pytest.raises(ValueError, match="not in this package yet"):
-        tmem.CoordClient(_Quiet(), "worker", on_stage_assign=print)
-    client = tmem.CoordClient(_Quiet(), "shard", renew_interval=60.0)
+    with pytest.raises(TypeError):
+        tmem.CoordClient(_Quiet(), "worker", no_such_option=print)
+    seen = []
+    client = tmem.CoordClient(_Quiet(), "stage", renew_interval=60.0,
+                              on_stage_assign=seen.append)
     try:
-        with pytest.raises(ValueError, match="not in this package yet"):
-            client.on_stage_assign = print
+        assert client.on_stage_assign is not None and client.current_placement() is None
+        placement = tst.StagePlacement(2, 10, [tst.StageEntry(0, rank=3, inc=7, hi=10)])
+        client._handle(MC.StageAssign, tmsg.stamp_epoch(placement.encode(), 1))
+        stale = tst.StagePlacement(1, 10, [tst.StageEntry(0)])
+        client._handle(MC.StageAssign, tmsg.stamp_epoch(stale.encode(), 1))
+        assert [p.version for p in seen] == [2] and client.current_placement() == placement
         client.on_stage_assign = None
         assert client.on_stage_assign is None
-        for code in (MC.StageReady, MC.StageAssign, MC.ActivationGrad):
-            client._handle(code, tmsg.stamp_epoch(np.zeros(8, np.float32), 1))
-        assert client.later_plane_dropped == 3
+        client.stage_ready(0, 12)
+        code, payload = client.transport.sent[-1]
+        assert code == int(MC.StageReady) and payload == _b(
+            tst.encode_stage_ready(0, client.incarnation, 12))
     finally:
         client.stop()
     coord.handle(1, MC.CoordJoin, tco.encode_join(tco.KIND_SHARD, 5))
     before = list(coord.events)
+    ref = jco.Coordinator(None, 10)
+    ref.handle(1, MC.CoordJoin, jco.encode_join(jco.KIND_SHARD, 5))
     for code in (MC.StageReady, MC.StageAssign, MC.ActivationGrad):
         coord.handle(1, code, np.zeros(12, np.float32))
-    assert coord.later_plane_dropped == 3 and list(coord.events) == before
+        ref.handle(1, code, np.zeros(12, np.float32))
+    assert list(coord.events) == before and list(ref.events) == before
+    assert not hasattr(coord, "later_plane_dropped")
 
 
-@pytest.mark.parametrize("flags", [["--mpmd"], ["--metrics-dump", "-"]])
+@pytest.mark.parametrize("flags", [["--mpmd", "--metrics-dump", "-"], ["--metrics-dump", "-"]])
 def test_a_later_planes_coordinator_flag_is_rejected(flags):
     with pytest.raises(SystemExit):
         tcli.build_parser().parse_args(flags)
+    assert tcli.build_parser().parse_args(["--mpmd"]).mpmd
 
 
 @pytest.mark.parametrize("flags", [["--metrics-dump", "-"]])

@@ -224,6 +224,20 @@ def test_flash_kernels_match_plain(cuda, dtype, d, causal):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_float32_kernels_take_head_dim_8(cuda, causal):
+    """The float32 kernels (``csrc/attention.cu``) at head_dim 8, the JAX
+    MPMD scenario's width, against their plain versions as at the other
+    head dims; the bfloat16 tensor-core kernels refuse it."""
+    from distributed_ml_pytorch_tpu_torch.ops import attention as tat
+
+    test_flash_kernels_match_plain(cuda, torch.float32, 8, causal)
+    q, k, v, _do = _attn_inputs(cuda, (6, 256, 8), torch.bfloat16, seed=8)
+    with pytest.raises(ValueError, match="bfloat16"):
+        tat.flash_fwd_cuda(q, k, v, causal)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("sq,sk,causal", [(200, 200, True), (200, 136, False), (64, 1, False)])
 def test_flash_kernels_ragged_lengths(cuda, sq, sk, causal):
     from distributed_ml_pytorch_tpu_torch.ops import attention as tat
@@ -503,7 +517,7 @@ def test_flash_attention_autograd_on_the_card(cuda, bwd_impl, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,d,exc", [(torch.float16, 64, TypeError),
-                                         (torch.float32, 8, ValueError),
+                                         (torch.bfloat16, 8, ValueError),
                                          (torch.float32, 48, ValueError),
                                          (torch.bfloat16, 256, ValueError)])
 @pytest.mark.parametrize("seq", [128, 100])
@@ -2257,3 +2271,65 @@ def test_two_rank_ring_launches_the_counted_k4_k5(cuda, tmp_path):
             assert rec["plain_attention_calls"] == 0, (part, r)
         np.testing.assert_allclose(rank["pp_1f1b"]["losses"], rank["pp_gpipe"]["losses"],
                                    rtol=cs.PAR_PP_RTOL)
+
+
+def _mpmd_tiny(S=4, L=1, seq=128, d_model=64, n_heads=2):
+    from distributed_ml_pytorch_tpu_torch.parallel.pipeline import PipelineLMConfig
+
+    return PipelineLMConfig(vocab_size=64, d_model=d_model, n_heads=n_heads, n_layers=S * L,
+                            d_ff=2 * d_model, max_len=seq)
+
+
+@pytest.mark.gpu
+def test_mpmd_fleet_launches_the_counted_k4_k5(cuda, tmp_path, monkeypatch):
+    """A tiny 4-stage MPMD fleet on the card (each stage a thread of this
+    process): the launches follow the schedule, not the port's code. A
+    stage before the last runs K4 in each microbatch's forward and again in
+    its recompute, and K5 in its backward: ``2·L·M·steps`` K4 and
+    ``L·M·steps`` K5; the last stage fuses forward and backward: ``L·M·steps``
+    of each. K6 0, the plain versions never, and the losses those of
+    ``MpmdLocal`` on the card."""
+    from distributed_ml_pytorch_tpu_torch.coord import stages as st
+    from distributed_ml_pytorch_tpu_torch.ops import attention as at
+    from distributed_ml_pytorch_tpu_torch.parallel import mpmd
+
+    S, L, M, steps, mb, seq = 4, 1, 2, 2, 2, 128
+    cfg = _mpmd_tiny(S, L, seq)
+    toks, tgts = st.scenario_data(0, steps, M, mb, seq, cfg.vocab_size)
+    local = mpmd.MpmdLocal(cfg, S, M, 0.1, 0, device="cuda")
+    want = [local.step(t, g) for t, g in zip(toks, tgts)]
+    plain = []
+    for name in ("flash_fwd_plain", "flash_bwd_fused_plain", "flash_bwd_split_plain"):
+        real = getattr(at, name)
+        monkeypatch.setattr(at, name, lambda *a, _r=real, _n=name, **k: (plain.append(_n),
+                                                                        _r(*a, **k))[1])
+    for k in at.launches:
+        at.launches[k] = 0
+    out = st.mpmd_scenario(base_dir=str(tmp_path), seed=0, steps=steps, n_stages=S,
+                           n_microbatches=M, mb=mb, seq=seq, cfg=cfg, device="cuda")
+    n = dict(at.launches)
+    assert out["ok"], (out["errors"], out["events"][-5:])
+    assert n == {"flash_fwd": (S - 1) * 2 * L * M * steps + L * M * steps,
+                 "flash_bwd_fused": S * L * M * steps, "flash_bwd_dq": 0,
+                 "flash_bwd_dkv": 0}, n
+    assert plain == []
+    np.testing.assert_allclose(out["losses"], want, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_mpmd_stage_program_raises_rather_than_run_plain(cuda):
+    """A stage program on CUDA tensors whose attention no kernel can take
+    (head_dim 20) raises; it never falls back to the plain version."""
+    import distributed_ml_pytorch_tpu_torch.ops.attention as at
+    from distributed_ml_pytorch_tpu_torch.parallel import mpmd
+
+    cfg = _mpmd_tiny(S=2, d_model=40, n_heads=2)
+    prog = mpmd.stage_programs(cfg, 0, 2, 1, 0.1)
+    params = {k: v.to(cuda) for k, v in mpmd.init_stage_params(cfg, 0, 0, 2).items()}
+    tokens = torch.zeros((2, 128), dtype=torch.long, device=cuda)
+    before = dict(at.launches)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        prog.fwd(params, tokens)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        prog.bwd(params, tokens, torch.ones((2, 128, 40), device=cuda))
+    assert dict(at.launches) == before

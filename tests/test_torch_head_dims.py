@@ -74,3 +74,16 @@ def test_build_dir_hashes_the_shared_headers(tmp_path, monkeypatch):
     header.write_text("// v2\n")
     assert _build.build_dir() != first
     assert [p.name for p in _build._sources()] == ["k.cu"]
+
+
+def test_the_mpmd_scenario_width_is_built_into_the_float32_kernels():
+    """The MPMD scenario keeps the JAX scenario's widths (d_model 16 over 2
+    heads) and runs float32: its head_dim 8 is one the float32 attention
+    kernels are built for, so ``coord.cli --mpmd`` runs on the card."""
+    from distributed_ml_pytorch_tpu_torch.coord.stages import scenario_cfg
+
+    cfg = scenario_cfg()
+    assert (cfg.vocab_size, cfg.d_model, cfg.n_heads, cfg.n_layers, cfg.d_ff,
+            cfg.max_len) == (32, 16, 2, 4, 32, 64)
+    assert cfg.d_model // cfg.n_heads in tat.FLOAT32_HEAD_DIMS
+    assert tat.FLOAT32_HEAD_DIMS == (8, *tat.KERNEL_HEAD_DIMS)

@@ -188,15 +188,16 @@ def test_the_envelope_header_is_the_schemas_fields():
 
 
 def test_the_barrier_codes_are_in_and_only_the_later_planes_codes_are_out():
-    """The snapshot and rollback barriers' four codes and the scheduler's
-    four have their JAX schemas (38 of the JAX table's 41); the codes still
-    out are the MPMD stages', which a coordinator drops and counts."""
+    """The snapshot and rollback barriers' four codes, the scheduler's four
+    and the MPMD stage plane's three have their JAX schemas: the table holds
+    all 41 of the JAX codes, none is left out."""
     barrier = {"SnapshotRequest", "SnapshotDone", "RollbackRequest", "RollbackDone"}
     sched = {"PreemptRequest", "PreemptDone", "SlotGrant", "ResumeRequest"}
-    assert barrier | sched <= {c.name for c in WIRE_SCHEMAS}
-    assert (len(WIRE_SCHEMAS), len(jmsg.WIRE_SCHEMAS)) == (38, 41)
-    assert {c.name for c in jmsg.WIRE_SCHEMAS} - {c.name for c in WIRE_SCHEMAS} == {
-        "ActivationGrad", "StageReady", "StageAssign"}
+    stages = {"ActivationShip", "ActivationGrad", "StageReady", "StageAssign"}
+    assert barrier | sched | stages <= {c.name for c in WIRE_SCHEMAS}
+    assert (len(WIRE_SCHEMAS), len(jmsg.WIRE_SCHEMAS)) == (41, 41)
+    assert {c.name for c in jmsg.WIRE_SCHEMAS} == {c.name for c in WIRE_SCHEMAS}
+    assert WIRE_SCHEMAS[MessageCode.StageAssign].fenced
     assert WIRE_SCHEMAS[MessageCode.SnapshotRequest].fenced
     assert WIRE_SCHEMAS[MessageCode.RollbackRequest].fenced
     assert WIRE_SCHEMAS[MessageCode.RollbackDone].min_size == 10
