@@ -24,7 +24,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
 3. trainer steps of AlexNet(fused_epilogue=True) against the same steps of
    fused_epilogue=False (cuDNN deterministic, full float32) at batch 64 and
    1024: equal losses and parameters, K2 three times a step each way, all on
-   the vector route;
+   the vector route; then a profile window: the float32 trainer's CLI
+   (``training.cli --no-distributed``, AlexNet b64) for two steps with
+   ``--profile-dir`` (``utils/tracing.TraceWindow`` on ``torch.profiler``):
+   the exported trace holds the K2a and K2b CUDA kernels three times a step
+   each and one ``annotate_step`` range a step, ``train#0`` and
+   ``train#1``;
 4. the DownPour path: a parameter server and two workers in one process
    (threads, in-process transport) through ``run_server``/``train_worker``
    with the CLI defaults (AlexNet, batch 64, lr 0.008, n_push = n_pull = 10)
@@ -229,7 +234,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    (``ops.attention.flash_plain_rows``), over every query and key of the
    first and the last (b, h), within ATTN_TOL / LSE_TOL; each loss finite
    and falling; each kernel's ms at the long shape beside its bound and its
-   launches a step, tokens/s, MFU and peak memory;
+   launches a step, and beside the library's on the same tensors (SDPA's
+   forward for K4, its backward alone for K5 and the K6a + K6b pair),
+   tokens/s, MFU and peak memory;
 19. the LM trainer's flags at GPT-2-small widths, 4 of its 12 layers
    (``LM_K_LAYERS``), 8 x 2048 (bfloat16, RoPE, remat, the chunked loss): ``train_lm --steps-per-dispatch 4 --steps 8
    --ckpt-dir --ckpt-every 4`` (one captured step replayed) against eight
@@ -419,7 +426,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the one-rank step's on the same batch; (d) ``generate_tp`` over the two
    ranks, greedy, float32, GPT-2-small widths (b4, prompt 64, 33 new
    tokens): K8 once a layer and decode step on each rank, the reference
-   never, every token equal to ``generate()`` on one rank. One line each,
+   never, every token equal to ``generate()`` on one rank; (e) checkpoints
+   of a sharded state on a one-rank NCCL world in this process, at (c)'s
+   widths and batch, the attention's split backward injected (K5's dQ sums
+   by atomics, whose order differs run to run): ``train_lm --mode fsdp``
+   and ``--mode tp`` for 4 steps checkpointed at step 2, against 2 steps
+   and a resume from that checkpoint for 2 more: the losses and the step-4
+   global trees equal bit for bit; the checkpoint's bytes and the save and restore seconds
+   printed. One line each,
    with the card's ``nvidia-smi`` name and power limit; the launches join
    the ``kernels`` line and K4's, K5's errors its ``max_abs_err``.
 27. the parallelism family, part 2, at GPT-2-small widths and 4 of its 12
@@ -454,9 +468,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``MPMD_RTOL``, K4 ``2·L·M`` a step on each stage before the last (the
    forward and the backward's recompute) and ``L·M`` on the last (its
    fused loss and backward), K5 ``L·M`` a step on each, K6 and the plain
-   attention never; tokens/s, the bubble fraction, the stage checkpoints'
-   bytes an update, and the run's device busy time and idle share
-   (``utils/devprof`` around it) printed; (c) ``default_mpmd_plan(0)``,
+   attention never (the flight recorders add no launch); tokens/s, the
+   bubble fraction, the stage checkpoints' bytes an update, and the run's
+   device busy time and idle share (``utils/devprof`` around it) printed,
+   and the bubble's ``bubble_attribution`` from the run's flight-recorder
+   dumps (``analysis/timeline.py``), which ``bench_all.
+   check_bubble_attribution`` must accept with its fractions summing to 1
+   within ``MPMD_ATTR_TOL``; (c) ``default_mpmd_plan(0)``,
    stage 1 killed at step 3 after a snapshot at step 1: one restart (its
    MTTR printed), every ``(step, mb)`` applied once, nothing discarded, the
    losses (b)'s at ``MPMD_CHAOS_TOL``; (d) the int8 activation codec fault-free, within
@@ -963,6 +981,56 @@ def phase_trainer(torch, device="cuda", steps=5, batch=64):
                     for d in ("fwd", "bwd") for route in ("", ".vector")),
                 f"fused trainer steps launched the K2 kernels {kf} times, not 3 a step "
                 f"each on the vector route")
+
+
+#: phase 3's profile window: two float32 AlexNet b64 steps of the trainer's CLI
+PROFILE_STEPS = 2
+
+
+def phase_profile_window(torch, device="cuda", steps=PROFILE_STEPS, batch=64):
+    """Phase 3's profile window: ``training.cli --no-distributed`` for
+    ``steps`` steps inside ``--profile-dir``; the exported trace's K2 kernels
+    and ``annotate_step`` ranges counted."""
+    import contextlib
+    import io
+    import shutil
+
+    from distributed_ml_pytorch_tpu_torch.training import cli
+
+    prof = os.path.join(ROOT, "build", "smoke_profile")
+    shutil.rmtree(prof, ignore_errors=True)
+    argv = ["--no-distributed", "--backend", device, "--model", "alexnet", "--synthetic-data",
+            "--synthetic-train-size", str(steps * batch), "--synthetic-test-size", "64",
+            "--batch-size", str(batch), "--epochs", "1", "--log-interval", "1000",
+            "--log-dir", os.path.join(ROOT, "build", "smoke_runs"), "--profile-dir", prof,
+            "--profile-start", "0", "--profile-steps", str(steps)]
+    t0 = time.monotonic()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):  # the CLI's per-class report
+        rc = cli.main(argv)
+    wall = time.monotonic() - t0
+    require(rc == 0 and f"wrote profiler trace to {prof}" in out.getvalue(),
+            f"the profiled trainer exited {rc}: {out.getvalue()[-1500:]}")
+    (name,) = os.listdir(prof)
+    with open(os.path.join(prof, name)) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    k2 = {d: sum(f"relu_pool2_{d}" in k for k in kernels) for d in ("fwd", "bwd")}
+    # the host's ranges (on the card the trace also mirrors each on the GPU)
+    ranges = sorted(e["name"] for e in events if e.get("cat") == "user_annotation"
+                    and str(e.get("name", "")).startswith("train#"))
+    line = {"phase": "trainer_profile_window", "steps": steps, "batch": batch,
+            "trace": os.path.relpath(os.path.join(prof, name), ROOT),
+            "trace_bytes": os.path.getsize(os.path.join(prof, name)),
+            "kernel_events": len(kernels), "k2_kernel_events": k2, "step_ranges": ranges,
+            "wall_s": wall}
+    if torch.device(device).type == "cuda":
+        require(k2 == {"fwd": 3 * steps, "bwd": 3 * steps},
+                f"the profile window holds the K2 kernels {k2} times, not 3 a step each")
+    require(ranges == [f"train#{i}" for i in range(steps)],
+            f"the profile window's annotate_step ranges are {ranges}")
+    emit({**line, "ok": True})
+    return line
 
 
 # ------------------------------------------------------------------ phase 4
@@ -3025,9 +3093,10 @@ def _ps_world_checks(lines, reliable, steps=WORKER_STEPS, backend="cuda"):
         if reliable:
             st = w["stats"]
             per_worker[r].update(acked_pushes=w["acked_pushes"], **{
-                k: st[k] for k in ("sent", "rto_expired", "retries", "dup_dropped",
-                                   "crc_dropped", "gave_up", "window_blocked",
-                                   "window_blocked_s")})
+                k: st.get(k) for k in ("sent", "rto_expired", "retries", "dup_dropped",
+                                       "crc_dropped", "gave_up", "window_blocked",
+                                       "window_blocked_s", "credit_blocked",
+                                       "credit_blocked_s")})
     if reliable:
         acked = sum(w["acked_pushes"] for w in workers.values())
         require(acked == applied, f"acked pushes {acked} != applied {applied}")
@@ -3455,6 +3524,24 @@ def _long_check(torch, at, args, kernels):
     return errs, ms, check_s
 
 
+def _long_sdpa_ms(torch, args):
+    """The library yardstick on one layer's captured tensors: SDPA's
+    forward, and its backward alone (retained graph), ms on the card;
+    ``None`` off it."""
+    q, k, v, do, _lse2, _delta, causal = args
+    if not q.is_cuda:
+        return None
+    F = torch.nn.functional
+    q4, k4, v4, do4 = (t.unsqueeze(0) for t in (q, k, v, do))
+    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q4, k4, v4))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+    return {"fwd": device_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                                    is_causal=causal),
+                             LONG_ITERS),
+            "bwd": device_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do4,
+                                                         retain_graph=True), LONG_ITERS)}
+
+
 def _long_bounds(shape) -> dict:
     """Each attention kernel's least time at ``(b, h, s, d)`` causal bf16:
     the larger of its products over the causal score plane at the bf16 peak
@@ -3473,12 +3560,25 @@ def _long_bounds(shape) -> dict:
     return out
 
 
-def _long_kernel_lines(errs, ms, bounds, per_step):
-    return {kern: {"ms": ms[kern], "bound_ms": bounds[kern]["bound_ms"],
-                   "bound_by": bounds[kern]["bound_by"],
-                   "bound_share": bounds[kern]["bound_ms"] / ms[kern],
-                   "launches_per_step": per_step[kern], "errors": errs[kern]}
-            for kern in ms}
+def _long_kernel_lines(errs, ms, bounds, per_step, lib=None):
+    """Each kernel's time, bound and errors, beside ``lib`` (SDPA's forward
+    for K4, its backward for K5 and the K6a + K6b pair) when the card timed
+    it."""
+    lib = lib or {}
+    out = {kern: {"ms": ms[kern], "bound_ms": bounds[kern]["bound_ms"],
+                  "bound_by": bounds[kern]["bound_by"],
+                  "bound_share": bounds[kern]["bound_ms"] / ms[kern],
+                  "launches_per_step": per_step[kern], "errors": errs[kern]}
+           for kern in ms}
+    for kern, line in out.items():
+        ref = lib.get("fwd" if kern == "flash_fwd" else "bwd")
+        line["library_ms"] = ref
+        line["library"] = "SDPA fwd" if kern == "flash_fwd" else "SDPA bwd (retained graph)"
+        line["over_library"] = None if ref is None else line["ms"] / ref
+    if lib and "flash_bwd_dq" in out:
+        pair = out["flash_bwd_dq"]["ms"] + out["flash_bwd_dkv"]["ms"]
+        out["flash_bwd_dq"]["pair_over_library"] = pair / lib["bwd"]
+    return out
 
 
 def _peak_gb(torch, device, reset=False):
@@ -3546,6 +3646,7 @@ def phase_long_context(torch, device="cuda", tiny=False):
     require(tuple(args[0].shape) == (heads, seq_a, d),
             f"captured q of shape {tuple(args[0].shape)}")
     errs, ms, check_s = _long_check(torch, at, args, ("flash_fwd", "flash_bwd_fused"))
+    lib_a = _long_sdpa_ms(torch, args)
     note_errors(errs)
     del args
     per_step = {"flash_fwd": 2 * n_layers, "flash_bwd_fused": n_layers}
@@ -3553,7 +3654,7 @@ def phase_long_context(torch, device="cuda", tiny=False):
            "mfu_bf16": rate.mfu, "flops_per_step": rate.flops_per_step,
            "peak_mem_gb": peak_a, "losses": losses, "steps": steps, "launches": launches,
            "plain_check_s": check_s,
-           "kernels": _long_kernel_lines(errs, ms, _long_bounds(shape_a), per_step)}
+           "kernels": _long_kernel_lines(errs, ms, _long_bounds(shape_a), per_step, lib_a)}
     emit({"phase": "long_context_fused", "ok": True, "shape": shape_a, "bwd_impl": "fused",
           "checked_bh": [0, heads - 1], "plain_rows_at_a_time": LONG_ROWS,
           "tolerance": ATTN_TOL["bfloat16"], "lse_tolerance": LSE_TOL, **leg})
@@ -3586,6 +3687,7 @@ def phase_long_context(torch, device="cuda", tiny=False):
             f"captured q of shape {tuple(args[0].shape)}")
     errs, ms, check_s = _long_check(torch, at, args,
                                     ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+    lib_b = _long_sdpa_ms(torch, args)
     note_errors(errs)
     del args
     model = res.state.model
@@ -3603,7 +3705,7 @@ def phase_long_context(torch, device="cuda", tiny=False):
           "mfu_bf16": flops / step_s / peak if peak else None, "flops_per_step": flops,
           "peak_mem_gb": peak_b, "losses": res.losses, "launches": launches,
           "plain_check_s": check_s,
-          "kernels": _long_kernel_lines(errs, ms, _long_bounds(shape_b), per_step)})
+          "kernels": _long_kernel_lines(errs, ms, _long_bounds(shape_b), per_step, lib_b)})
     del res, model
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -5818,6 +5920,97 @@ def _mesh_one_rank(torch, device, backend, batch):
     return {"losses": losses, "ref": ref, "runs": {k: v[0] for k, v in got.items()}}
 
 
+#: phase 26 (e): a run of this many steps checkpointed halfway, against half
+#: of it and a resume from that checkpoint for the rest
+MESH_CKPT_STEPS = 4
+
+
+def _mesh_sharded_resume(torch, device, tiny, tmp):
+    """Phase 26 (e): ``train_lm``'s fsdp and tp modes on a one-rank world in
+    this process (NCCL on the card), resumed from a sharded checkpoint
+    against the uninterrupted run; the checkpoint's bytes and a save's and a
+    restore's seconds timed on the resumed state. The attention's split
+    backward is injected, as phase 19 does: K5's dQ sums by atomics, in an
+    order that differs run to run, and the pair repeats bit for bit."""
+    import functools
+
+    from distributed_ml_pytorch_tpu_torch.ops import attention as at
+    from distributed_ml_pytorch_tpu_torch.parallel.fsdp import fsdp_layout
+    from distributed_ml_pytorch_tpu_torch.parallel.tensor_parallel import tp_layout
+    from distributed_ml_pytorch_tpu_torch.runtime.mesh import run_threaded
+    from distributed_ml_pytorch_tpu_torch.training import train_lm
+    from distributed_ml_pytorch_tpu_torch.utils.checkpoint import STATE_FILE, ShardedCheckpointer
+
+    widths = _mesh_widths(tiny)
+    batch, seq = ((TINY_MESH["lm_batch"], TINY_MESH["lm_seq"]) if tiny
+                  else (MESH_LM_BATCH, MESH_LM_SEQ))
+    backend = "nccl" if device == "cuda" else "gloo"
+    split = functools.partial(at.flash_attention, causal=True, bwd_impl="split")
+    half = MESH_CKPT_STEPS // 2
+    flags = ["--world-size", "1", "--device", device, "--vocab", str(widths["vocab_size"]),
+             "--d-model", str(widths["d_model"]), "--n-heads", str(widths["n_heads"]),
+             "--n-layers", str(widths["n_layers"]), "--d-ff", str(widths["d_ff"]),
+             "--seq", str(seq), "--batch", str(batch), "--dtype", "bfloat16",
+             "--lr", str(LM_LR), "--ckpt-every", str(half)]
+    out = {}
+    for mode in ("fsdp", "tp"):
+        whole, cut, timed = (os.path.join(tmp, f"ckpt_{mode}_{k}") for k in ("whole", "cut",
+                                                                               "timed"))
+        base = ["--mode", mode, *flags]
+
+        def train(argv, time_it=False):
+            def rank(world):
+                args = train_lm.parse_args(argv)
+                res = train_lm.run(args, attn_fn=split)
+                if not time_it:
+                    return res, None
+                state = res.state
+                mesh, layout = ((state.sharding.mesh, fsdp_layout) if mode == "fsdp"
+                                else (state.model.tp_mesh, tp_layout))
+                ck = ShardedCheckpointer(timed, mode=mode, mesh=mesh, layout_fn=layout,
+                                         background=False)
+                _sync(torch, device)
+                t0 = time.perf_counter()
+                ck.save(MESH_CKPT_STEPS, state, force=True)
+                save_s = time.perf_counter() - t0
+                full = train_lm.build_model(args, device)  # the model a resume loads into
+                _sync(torch, device)
+                t0 = time.perf_counter()
+                payload, _ = ck.load()
+                ck.restore_params(payload, full)
+                ck.restore_placed(state, payload)
+                _sync(torch, device)
+                return res, {"save_s": save_s, "restore_s": time.perf_counter() - t0}
+            return run_threaded(1, rank, backend=backend, device=device, timeout_s=600.0)[0]
+
+        t0 = time.monotonic()
+        full, _ = train([*base, "--steps", str(MESH_CKPT_STEPS), "--ckpt-dir", whole])
+        first, _ = train([*base, "--steps", str(half), "--ckpt-dir", cut])
+        resumed, times = train([*base, "--steps", str(half), "--ckpt-dir", cut, "--resume"],
+                               time_it=True)
+        wall = time.monotonic() - t0
+        trees = [torch.load(os.path.join(d, str(MESH_CKPT_STEPS), STATE_FILE),
+                            weights_only=True) for d in (whole, cut)]
+        same = (sorted(trees[0]["params"]) == sorted(trees[1]["params"])
+                and all(torch.equal(trees[0]["params"][k], trees[1]["params"][k])
+                        for k in trees[0]["params"])
+                and torch.equal(trees[0]["opt_state"]["count"], trees[1]["opt_state"]["count"]))
+        require(resumed.start_step == half and first.losses == full.losses[:half]
+                and resumed.losses == full.losses[half:] and same,
+                f"{mode}: the resumed run ({resumed.losses}, from step {resumed.start_step}) "
+                f"differs from the uninterrupted one ({full.losses}); trees equal: {same}")
+        ck_bytes = os.path.getsize(os.path.join(whole, str(half), STATE_FILE))
+        out[mode] = {"losses": full.losses, "resumed_losses": resumed.losses,
+                     "bit_equal": True, "checkpoint_bytes": ck_bytes,
+                     "leaves": len(trees[0]["params"]), **times, "wall_s": wall}
+        del full, first, resumed, trees
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return {"backend": backend, "world": "1 rank", "widths": widths, "batch": batch,
+            "seq": seq, "dtype": "bfloat16", "steps": MESH_CKPT_STEPS, "checkpoint_at": half,
+            "modes": out}
+
+
 def _mesh_lm_model(torch, widths, seq, dtype, seed, device):
     from distributed_ml_pytorch_tpu_torch.models import TransformerLM
 
@@ -6011,7 +6204,7 @@ def _mesh_processes(device, tiny, parts, tmp):
     return out, paths
 
 
-def phase_mesh(torch, device="cuda", tiny=False, parts="dp,lm,gen"):
+def phase_mesh(torch, device="cuda", tiny=False, parts="dp,lm,gen,ckpt"):
     """Phase 26: the one-rank NCCL world here, then the two-process gloo
     worlds; returns ``(launches, errors)`` to join the ``kernels`` line."""
     import shutil
@@ -6069,6 +6262,9 @@ def phase_mesh(torch, device="cuda", tiny=False, parts="dp,lm,gen"):
             _mesh_lm_checks(ranks, ref_loss, device, card, launches, errors)
         if "gen" in parts:
             _mesh_gen_checks(ranks, ref_tokens, device, card, launches, tiny)
+        if "ckpt" in parts:
+            emit({"phase": "mesh_sharded_resume", "ok": True,
+                  **_mesh_sharded_resume(torch, device, tiny, tmp), "card": card})
     finally:
         torch.backends.cudnn.deterministic = deterministic
         shutil.rmtree(tmp, ignore_errors=True)
@@ -6633,6 +6829,9 @@ MPMD_RTOL = 1e-5
 MPMD_CHAOS_TOL = (1e-5, 1e-6)
 #: the int8 activation codec against the dense fleet (bounded loss)
 MPMD_INT8_RTOL = 5e-3
+#: the bubble attribution's fractions (each stage's exclusive states, which
+#: sum to its wall clock by construction) must sum to 1 within this
+MPMD_ATTR_TOL = 0.02
 #: (stage, step) killed and the step whose end triggers the snapshot
 MPMD_KILL, MPMD_SNAPSHOT_AT = (1, 3), 1
 MPMD_GROUPS = {
@@ -6736,6 +6935,8 @@ def phase_mpmd(torch, device="cuda", tiny=False, background=None):
     import shutil
     import tempfile
 
+    from distributed_ml_pytorch_tpu_torch import bench_all
+    from distributed_ml_pytorch_tpu_torch.analysis import timeline
     from distributed_ml_pytorch_tpu_torch.coord import stages as st
     from distributed_ml_pytorch_tpu_torch.device import full_float32
     from distributed_ml_pytorch_tpu_torch.ops import attention as at
@@ -6783,6 +6984,8 @@ def phase_mpmd(torch, device="cuda", tiny=False, background=None):
                 out = st.mpmd_scenario(base_dir=base, seed=0, n_stages=S, n_microbatches=M,
                                        mb=mb, seq=seq, lr=MPMD_LR, cfg=cfg, params=full,
                                        device=device, **{"steps": steps, **kw})
+                # the flight recorders' dumps, merged before the directory goes
+                out["timeline"] = timeline.analyze(out["obs_dir"])
             finally:
                 shutil.rmtree(base, ignore_errors=True)
             require(out["ok"], f"mpmd fleet {kw}: errors {out['errors']}, "
@@ -6823,8 +7026,21 @@ def phase_mpmd(torch, device="cuda", tiny=False, background=None):
                     f"calls, want {want} and none")
         require(_close_losses(steady["losses"], local_losses, MPMD_RTOL),
                 f"fleet losses {steady['losses']} vs MpmdLocal's {local_losses}")
+        report = steady["timeline"]
+        attribution = bench_all.check_bubble_attribution(report["bubble_attribution"])
+        attr_sum = sum(attribution["fractions"].values())
+        require(attribution["stages"] == S and abs(attr_sum - 1.0) <= MPMD_ATTR_TOL,
+                f"the bubble's attribution {attribution} sums to {attr_sum}")
         emit({"phase": "mpmd_fleet", "ok": True, "losses": steady["losses"],
-              **rates(steady), "launches": launches, "expected_launches": want,
+              **rates(steady), "bubble_attribution": attribution,
+              "attribution_sum": attr_sum, "attribution_tol": MPMD_ATTR_TOL,
+              "members": {m["member"]: m["fractions"] for m in report["members"]
+                          if m["plane"] == "mpmd"},
+              "wire_attribution": report["wire_attribution"],
+              "journeys": {k: report["journeys"][k] for k in ("correlated_units",
+                                                             "cross_member_units")},
+              "dumps": report["n_dumps"], "ring_dropped_spans": report["ring_dropped_spans"],
+              "launches": launches, "expected_launches": want,
               "plain_attention_calls": runs["plain"],
               "ckpt_bytes_per_update": 4 * ranges[-1][1],
               "stage_stats": {k: {n: v[n] for n in ("fwd", "bwd", "updates", "busy_s")}
@@ -6905,6 +7121,7 @@ def main() -> int:
         measured = phase_kernels(torch)
         phase_trainer(torch)
         phase_trainer(torch, steps=2, batch=1024)
+        phase_profile_window(torch)
         launches, per_step_workers = phase_downpour(torch)
         measured.update(phase_attention(torch))
         lm_launches, split_launches = phase_lm(torch)

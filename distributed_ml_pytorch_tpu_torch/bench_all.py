@@ -169,10 +169,11 @@ narration on stderr. Ported legs, under the JAX metric names:
   ``mpmd_bubble_fraction`` (1 - the stages' busy seconds / (stages x
   wall)), then the middle stage killed at step 6 and restarted from its
   checkpoint: ``mpmd_stage_restart_mttr`` (the vacancy, ms) and
-  ``mpmd_stage_kill_throughput_{before,during,after}``. The JAX record's
-  ``bubble_attribution`` needs the flight recorder's timeline (the
-  observability plane), which is not here: the leg says so in its log.
-  Host clock. ``--tiny``: 8 steps, the kill at step 3.
+  ``mpmd_stage_kill_throughput_{before,during,after}``. The
+  ``mpmd_bubble_fraction`` record carries ``bubble_attribution``: the
+  steady run's flight-recorder dumps merged by ``analysis/timeline.py``,
+  each stage's wall clock split over its exclusive states and checked by
+  :func:`check_bubble_attribution`. Host clock. ``--tiny``: 8 steps, the kill at step 3.
 - ``resnet`` — configs 4 and 5 (JAX bench_all.py:207-248, ``bench_jax``
   and ``bench_hostfed_resnet50``, :758): seed-0 GroupNorm ResNets trained
   by ``make_scan_train_step`` (SGD lr 0.008, K steps a dispatch: a CUDA
@@ -357,6 +358,40 @@ def emit(config: int, metric: str, value: float, unit: str, hardware: str,
     RESULTS.append(rec)
     print(json.dumps(rec), flush=True)
     return rec
+
+
+#: the exclusive serve-loop states a ``bubble_attribution`` may name (the
+#: mpmd plane's ``utils/obs.StateClock`` vocabulary)
+BUBBLE_STATES = ("compute", "wait-act", "wait-grad", "wire-blocked", "ckpt", "idle")
+
+
+def check_bubble_attribution(attr: dict) -> dict:
+    """The schema gate of the ``mpmd`` leg's ``bubble_attribution``:
+    fractions over the known exclusive states summing to about 1, and a
+    ``bubble_fraction`` equal to ``1 - compute``. Raises ``ValueError`` on
+    any breach: a malformed attribution must not ship in a record."""
+    if not isinstance(attr, dict):
+        raise ValueError(f"bubble_attribution must be a dict, got {type(attr).__name__}")
+    fractions = attr.get("fractions")
+    if not isinstance(fractions, dict) or not fractions:
+        raise ValueError("bubble_attribution.fractions missing/empty")
+    unknown = sorted(k for k in fractions if k not in BUBBLE_STATES)
+    if unknown:
+        raise ValueError(f"bubble_attribution names unknown state(s) {unknown} "
+                         f"(known: {list(BUBBLE_STATES)})")
+    total = sum(float(v) for v in fractions.values())
+    if not 0.95 <= total <= 1.05:
+        raise ValueError(f"bubble_attribution fractions sum to {total:.4f}, not ~1 — the "
+                         "exclusive-state clock contract is broken")
+    bubble = attr.get("bubble_fraction")
+    if not isinstance(bubble, (int, float)) or not 0.0 <= bubble <= 1.0:
+        raise ValueError(f"bubble_fraction {bubble!r} not in [0, 1]")
+    if abs((1.0 - float(fractions.get("compute", 0.0))) - float(bubble)) > 1e-3:
+        raise ValueError("bubble_fraction != 1 - compute fraction")
+    stages = attr.get("stages")
+    if not isinstance(stages, int) or stages < 1:
+        raise ValueError(f"bubble_attribution.stages {stages!r} invalid")
+    return attr
 
 
 # ------------------------------------------------------------------ LM legs
@@ -2110,11 +2145,13 @@ MESH_HW = "cpu, gloo"
 
 def mpmd_phase(device, tiny: bool = False) -> dict:
     """Config 3's MPMD pipeline leg: a 4-stage pipeline of fleet members on
-    the reliable in-process wire, priced fault-free (tokens/s and the
-    bubble fraction) and through a middle stage's death (the restart MTTR
-    and the driver's step rate before, during and after)."""
+    the reliable in-process wire, priced fault-free (tokens/s, the bubble
+    fraction and its attribution from the flight recorders' dumps) and
+    through a middle stage's death (the restart MTTR and the driver's step
+    rate before, during and after)."""
     import tempfile
 
+    from distributed_ml_pytorch_tpu_torch.analysis import timeline
     from distributed_ml_pytorch_tpu_torch.coord.stages import mpmd_scenario
 
     steps, kill_at, snap_at = (8, 3, 1) if tiny else (16, 6, 2)
@@ -2125,6 +2162,7 @@ def mpmd_phase(device, tiny: bool = False) -> dict:
     def run(**kw):
         with tempfile.TemporaryDirectory(prefix="bench_mpmd_") as d:
             out = mpmd_scenario(base_dir=d, seed=0, **shape, **kw)
+            out["timeline"] = timeline.analyze(out["obs_dir"])
         if not out["ok"] or out["wall_s"] is None:
             raise RuntimeError(f"mpmd_phase incomplete: ok={out['ok']} errors={out['errors']} "
                                f"events={out['events'][-5:]}")
@@ -2140,11 +2178,18 @@ def mpmd_phase(device, tiny: bool = False) -> dict:
          f"{n_stages}-stage MPMD pipeline (per-stage programs over ReliableTransport), "
          f"M={M} microbatches of {mb}x{seq} tokens; driver step cadence over {steps} "
          "fault-free steps (coord/stages.mpmd_scenario)")
-    log("mpmd_phase: no bubble_attribution: analysis.timeline needs the flight "
-        "recorder, which is not in this package yet")
+    # the flight recorders' decomposition of that bubble, schema-gated
+    attribution = None
+    try:
+        attribution = check_bubble_attribution(out["timeline"]["bubble_attribution"])
+        res["bubble_attribution"] = attribution
+    except (ValueError, KeyError) as e:
+        log(f"mpmd_phase: bubble attribution unavailable: {e!r}")
     emit(3, "mpmd_bubble_fraction", res["mpmd_bubble_fraction"], "%", hw,
          "1 - sum(stage busy s) / (stages x wall s) over the steady run: the idle share "
-         "of stage-seconds (schedule bubble + wire wait)")
+         "of stage-seconds (schedule bubble + wire wait); bubble_attribution decomposes it "
+         "per flight-recorder state (analysis/timeline.py over the run's dumps)",
+         extra=({"bubble_attribution": attribution} if attribution is not None else None))
 
     out = run(steps=steps, kill_stage=1, kill_at_step=kill_at, snapshot_at_step=snap_at)
     if out["stage_mttr_s"] is None:

@@ -22,10 +22,10 @@ run time, and Sandblaster-style straggler speculation.
   drill and the coordinator-failure drill;
 - :mod:`~.health` — the numerical-health scenario (poisoned worker,
   reputation, auto-rollback);
+- :mod:`~.stages` — the MPMD stage plane's placement, its coordinator
+  and the fleet scenario;
 - :mod:`~.cli` — the coordinator process (``python -m
   distributed_ml_pytorch_tpu_torch.coord.cli``).
-
-The MPMD stage plane is not in this package yet.
 """
 
 from distributed_ml_pytorch_tpu_torch.coord.shardmap import ShardEntry, ShardMap

@@ -34,9 +34,10 @@ its watchdog, ``--reputation-nacks`` worker reputation. On exit it prints
 its last 64 decisions and ``fleet at exit:`` with the fleet state and the
 final shard map. ``--drill``, ``--health``, ``--sched-demo``, ``--mpmd``
 and ``--demo`` print their summary and exit 0 only if it is ok, each on
-``--backend`` (the card unless ``cpu`` is asked for). The JAX CLI's
-``--metrics-dump`` (the observability plane) is absent, so argparse rejects
-it.
+``--backend`` (the card unless ``cpu`` is asked for). ``--metrics-dump
+PATH`` writes the metrics registry's snapshot at exit (the hub attaches its
+decision-log totals and fleet telemetry as ``coord.*``; ``-`` prints it):
+:func:`dump_metrics` is the three CLIs' shared tail.
 """
 
 from __future__ import annotations
@@ -111,8 +112,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--backend", type=str, default="cuda", choices=["cuda", "cpu"],
                    help="--demo, --drill, --health, --sched-demo, --mpmd: the workers' (or "
                         "the stages') device")
+    p.add_argument("--metrics-dump", type=str, default="", metavar="PATH",
+                   help="write the metrics-registry snapshot JSON (utils/metrics."
+                        "get_registry) to PATH at exit — decision-log totals, fleet "
+                        "telemetry, attached component stats; '-' prints to stdout")
     p.add_argument("--seed", type=int, default=0)
     return p
+
+
+def dump_metrics(path: str) -> None:
+    """The ``--metrics-dump`` tail of the training, serving and coordinator
+    CLIs: the default registry's snapshot to ``path`` (``-``: stdout)."""
+    if not path:
+        return
+    from distributed_ml_pytorch_tpu_torch.utils.metrics import get_registry
+
+    reg = get_registry()
+    if path == "-":
+        print(reg.dump_json())
+    else:
+        reg.dump_json(path)
+        print(f"metrics snapshot -> {path}")
 
 
 def _n_params(args) -> int:
@@ -201,6 +221,19 @@ def main(argv=None) -> int:
                         auto_rollback=args.auto_rollback,
                         rollback_loss_factor=args.rollback_loss_factor,
                         reputation_nacks=args.reputation_nacks)
+    if args.metrics_dump:
+        from distributed_ml_pytorch_tpu_torch.coord.coordinator import FLEET_METRICS_FIELDS
+        from distributed_ml_pytorch_tpu_torch.utils.metrics import get_registry
+
+        def coord_stats():
+            fleet = coord.fleet_state()["fleet_metrics"]
+            return {"events_total": coord.events.total,
+                    "events_dropped": coord.events.dropped,
+                    "rollbacks_done": coord.rollbacks_done,
+                    "manifests_written": coord.manifests_written,
+                    **{f"fleet.{k}": v for k, v in zip(FLEET_METRICS_FIELDS, fleet)}}
+
+        get_registry().attach("coord", coord_stats)
     print(f"coordinator on {args.master}:{args.port} ({n_params} params, lease "
           f"{args.lease:.1f}s)", flush=True)
     try:
@@ -217,6 +250,7 @@ def main(argv=None) -> int:
         fs = coord.fleet_state()
         fs["map"] = [[e.server_id, e.lo, e.hi] for e in coord.shard_map.entries]
         print("fleet at exit:", fs, flush=True)
+        dump_metrics(args.metrics_dump)
     return 0
 
 

@@ -79,8 +79,13 @@ The decisions are functions of the frame and clock history (``handle`` and
   its incarnation at the revocation and in answer to each renewal of its
   cooldown (the member's ``revoked``).
 
-Not in this package yet: the flight recorder. The MPMD stage plane's
-frames (``StageReady``; ``StageAssign`` goes out) are the
+- **The flight recorder.** ``recorder`` (a ``utils/obs.SpanRecorder``,
+  attached after construction) takes every decision-log line as a
+  ``coord`` event, and with ``obs_dir`` a rollback, done or abandoned,
+  dumps it there (``flight_dump``), so that its MTTR ships with the window
+  that explains it.
+
+The MPMD stage plane's frames (``StageReady``; ``StageAssign`` goes out) are the
 ``coord/stages.StageCoordinator``'s; this base class takes them as
 evidence of life, as any other frame of a known member.
 """
@@ -114,7 +119,7 @@ from distributed_ml_pytorch_tpu_torch.utils.messaging import (
     _split16,
     stamp_epoch,
 )
-from distributed_ml_pytorch_tpu_torch.utils.obs import BoundedEvents
+from distributed_ml_pytorch_tpu_torch.utils.obs import BoundedEvents, flight_dump
 from distributed_ml_pytorch_tpu_torch.utils.wal import WriteAheadLog
 
 _LOGGER = logging.getLogger(__name__)
@@ -349,6 +354,9 @@ class Coordinator:
         self._stop = threading.Event()
         #: the decision log, a capped ring
         self.events = BoundedEvents(maxlen=1024)
+        #: the optional flight recorder and the directory its dumps go to
+        self.recorder = None
+        self.obs_dir: Optional[str] = None
         #: the attached ``coord/sched.FleetScheduler`` (it sets this)
         self.sched = None
         #: the attached ``coord/grayhealth.GrayHealth`` (it sets this)
@@ -431,7 +439,16 @@ class Coordinator:
 
     def _log(self, msg: str) -> None:
         self.events.append(msg)
+        if self.recorder is not None:
+            # the log line, structured, on the recorder every plane writes to
+            self.recorder.event("coord", corr=0, msg=msg)
         _LOGGER.info("coordinator: %s", msg)
+
+    def _flight_dump(self, reason: str) -> None:
+        """With a recorder and an ``obs_dir``, write the decision timeline
+        that covers a fault window there."""
+        if self.recorder is not None and self.obs_dir:
+            flight_dump(self.recorder, self.obs_dir, reason)
 
     # ----------------------------------------------------------- durability
     def _init_durable(self) -> None:
@@ -973,6 +990,7 @@ class Coordinator:
             self._broadcast_rollback(encode_rollback_request(
                 self._roll["id"], self._roll["snapshot_id"], self._roll["map_version"], 1))
             self.rollbacks_abandoned += 1
+            self._flight_dump(f"rollback{self._roll['id']}-abandoned")
             self._roll = None
         # --- the checkpoint cadence (every logged transition is applied now)
         if self._wal is not None and (self._ckpt_due
@@ -1221,6 +1239,7 @@ class Coordinator:
             self._broadcast_rollback(encode_rollback_request(
                 roll["id"], roll["snapshot_id"], roll["map_version"], 1))
             self._roll = None
+            self._flight_dump(f"rollback{roll['id']}")
 
     # ------------------------------------------------------- engine scaling
     def check_engine_scaling(self, now: Optional[float] = None) -> Optional[str]:

@@ -546,10 +546,13 @@ class ElasticShardServer:
                 break
             if self.coord.fleet.workers_done():
                 break
-            msg = self.transport.recv(timeout=0.1)
+            # with logged pushes whose acks wait, only look for a frame that
+            # is already there: an empty inbox closes the group at once
+            held = self.ps.wal is not None and self.ps.wal.pending > 0
+            msg = self.transport.recv(timeout=0.0 if held else 0.1)
             if msg is None:
                 # idle: close the open WAL group, so no deferred ack waits
-                # longer than one receive timeout
+                # for traffic that is not there
                 self._commit_timed()
                 continue
             self._serve_one(msg)

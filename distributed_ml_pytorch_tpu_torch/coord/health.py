@@ -60,6 +60,7 @@ from distributed_ml_pytorch_tpu_torch.coord.member import CoordClient
 from distributed_ml_pytorch_tpu_torch.utils.chaos import ChaosLog, ChaosPlan, SDCRule
 from distributed_ml_pytorch_tpu_torch.utils.health import GradientAdmission
 from distributed_ml_pytorch_tpu_torch.utils.messaging import InProcessTransport, MessageCode
+from distributed_ml_pytorch_tpu_torch.utils.obs import SpanRecorder
 
 #: the codes a health world sends outside the envelope (the drill's: the
 #: enveloped sequence, which keys the SDC decisions, is then the push
@@ -237,6 +238,11 @@ def health_scenario(*, base_dir: str, seed: int = 0, steps: int = 64, n_workers:
                         rollback_cooldown=600.0, rollback_timeout=rollback_timeout,
                         reputation_nacks=reputation_nacks,
                         reputation_cooldown=reputation_cooldown)
+    # the rollback barrier dumps the decision timeline to base_dir/obs, so
+    # its MTTR ships with its window; the recorder only observes (the chaos
+    # log is the same with it)
+    coord.recorder = SpanRecorder("coord", "coord")
+    coord.obs_dir = os.path.join(base_dir, "obs")
     coord_thread = threading.Thread(target=coord.run, kwargs={"timeout": 600}, daemon=True)
     coord_thread.start()
 

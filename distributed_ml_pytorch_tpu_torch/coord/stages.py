@@ -33,8 +33,10 @@ as ``MessageCode.StageAssign``.
 ``StageCoordinator``, S stage members and a driver, the data plane under
 seeded chaos and ``ReliableTransport``) that trains, kills a middle stage
 mid-schedule, restarts it from its stage checkpoint, and returns what the
-acceptance criteria judge. It runs without the JAX scenario's flight
-recorders (the observability plane is not in this package yet).
+acceptance criteria judge. Every member, the driver and the coordinator
+carry a flight recorder (each member's also on its reliable wrapper); the
+dumps land in ``<base_dir>/obs`` at each death, restore and stop, for
+``analysis/timeline.py`` to merge.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ from distributed_ml_pytorch_tpu_torch.coord.coordinator import (
 )
 from distributed_ml_pytorch_tpu_torch.coord.shardmap import ShardEntry, ShardMap
 from distributed_ml_pytorch_tpu_torch.utils.messaging import MessageCode, _join16, _split16
+from distributed_ml_pytorch_tpu_torch.utils.obs import SpanRecorder, flight_dump
 
 
 def encode_stage_ready(stage: int, incarnation: int, watermark: int) -> np.ndarray:
@@ -268,6 +271,8 @@ class StageCoordinator(Coordinator):
             self._log(f"stage {stage} restored by rank {sender} after {mttr * 1e3:.0f} ms "
                       f"vacancy (watermark {watermark}: neighbors replay in-flight "
                       "microbatches past it)")
+            # the stage's MTTR ships with its timeline
+            self._flight_dump(f"stage{stage}-restored")
         self._set_entry(entry, why)
 
     # ----------------------------------------------------------------- tick
@@ -446,8 +451,9 @@ def mpmd_scenario(*, base_dir: str, seed: int = 0, steps: int = 8, n_stages: int
     stage checkpoint (through the ``FleetManifest`` with
     ``restore_via_manifest``) once the coordinator has vacated the stage.
     ``params`` is the whole model's initial ``state_dict`` (drawn from
-    ``seed`` when None); every member's tensors live on ``device``. No
-    flight recorder is attached."""
+    ``seed`` when None); every member's tensors live on ``device``. The
+    flight recorders' dumps go to ``<base_dir>/obs`` (``obs_dir`` in the
+    result); they only observe, so the chaos log is the same with them."""
     import os
 
     from distributed_ml_pytorch_tpu_torch.coord.manifest import MANIFEST_NAME, FleetManifest
@@ -494,8 +500,18 @@ def mpmd_scenario(*, base_dir: str, seed: int = 0, steps: int = 8, n_stages: int
     def rel(rank: int) -> ReliableTransport:
         return ReliableTransport(data_world[rank], **rel_opts)
 
+    obs_dir = os.path.join(base_dir, "obs")
+
+    def make_recorder(member: str, transport) -> SpanRecorder:
+        rec = SpanRecorder(member, "mpmd")
+        if hasattr(transport, "recorder"):
+            transport.recorder = rec  # the wire's blocked spans and retransmits
+        return rec
+
     coord = StageCoordinator(coord_world[0], ranges, lease=lease, manifest_dir=base_dir,
                              straggler_factor=straggler_factor)
+    coord.recorder = SpanRecorder("coord", "coord")
+    coord.obs_dir = obs_dir
     coord_thread = threading.Thread(target=coord.run, kwargs={"timeout": timeout + 60},
                                     daemon=True)
     coord_thread.start()
@@ -521,6 +537,7 @@ def mpmd_scenario(*, base_dir: str, seed: int = 0, steps: int = 8, n_stages: int
         return MpmdStage(i, cfg, S, M, transport, client, mb_size=mb, seq_len=seq, lr=lr,
                          seed=seed, ckpt_dir=os.path.join(base_dir, f"stage{i}"),
                          throttle=(throttle if throttle_stage == i else 0.0), step_hook=hook,
+                         recorder=make_recorder(f"stage{i}", transport), obs_dir=obs_dir,
                          act_codec=act_codec, params=stage_param_tree(cfg, full, i, S),
                          device=device)
 
@@ -536,9 +553,11 @@ def mpmd_scenario(*, base_dir: str, seed: int = 0, steps: int = 8, n_stages: int
     standby_member = None
     if standby:
         client = CoordClient(coord_world[standby_rank], "stage", renew_interval=lease / 4)
-        standby_member = MpmdStage(None, cfg, S, M, rel(standby_rank), client, mb_size=mb,
+        standby_transport = rel(standby_rank)
+        standby_member = MpmdStage(None, cfg, S, M, standby_transport, client, mb_size=mb,
                                    seq_len=seq, lr=lr, seed=seed, ckpt_root=base_dir,
-                                   act_codec=act_codec, device=device)
+                                   recorder=make_recorder("standby", standby_transport),
+                                   obs_dir=obs_dir, act_codec=act_codec, device=device)
         t = threading.Thread(target=standby_member.run, kwargs={"timeout": timeout + 60},
                              daemon=True)
         t.start()
@@ -581,7 +600,9 @@ def mpmd_scenario(*, base_dir: str, seed: int = 0, steps: int = 8, n_stages: int
 
     driver_client = CoordClient(coord_world[driver_coord_rank], "worker",
                                 renew_interval=lease / 4)
-    driver = MpmdDriver(rel(0), driver_client, S, M)
+    driver_transport = rel(0)
+    driver = MpmdDriver(driver_transport, driver_client, S, M,
+                        recorder=make_recorder("driver", driver_transport), obs_dir=obs_dir)
     barrier_timeout = 60 * _load_factor()
 
     def driver_hook(t: int, _loss: float) -> None:
@@ -685,10 +706,13 @@ def mpmd_scenario(*, base_dir: str, seed: int = 0, steps: int = 8, n_stages: int
         close = getattr(t, "close", None)
         if close is not None:
             close()
+    # the coordinator's decision timeline joins the members' dumps
+    flight_dump(coord.recorder, obs_dir, "stop")
 
     mttr = coord.stage_mttrs[0] if coord.stage_mttrs else None
     return {
         "ok": not errors and len(losses) == steps and applied_ok,
+        "obs_dir": obs_dir,
         "errors": errors,
         "losses": losses,
         "step_times": list(driver.step_times),

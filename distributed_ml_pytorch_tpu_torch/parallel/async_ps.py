@@ -178,7 +178,8 @@ class ParameterServer:
                  wal: bool = False,
                  admission=None,
                  combine: str = "add",
-                 optimizer=None):
+                 optimizer=None,
+                 recorder=None):
         if params is not None:
             self.central = np.asarray(params, dtype=np.float32).copy()
         elif model is not None:
@@ -193,6 +194,11 @@ class ParameterServer:
         self.dropped_bad_updates = 0
         self.staleness = StalenessAuditor()
         self.staleness_damping = float(staleness_damping)
+        #: the optional flight recorder (``utils/obs.SpanRecorder``): the
+        #: server's side of a push's timeline (quarantines, the log's append
+        #: and fsync, the apply) under the correlation id its envelope
+        #: carried; never consulted for a decision
+        self.recorder = recorder
         # --- durability: checkpoint, clock, write-ahead log
         self.ckpt_dir = ckpt_dir
         self.ckpt_every = int(ckpt_every or 0)
@@ -506,12 +512,22 @@ class ParameterServer:
         if ack is not None:
             ack()
 
+    def _acks_overdue(self) -> bool:
+        overdue = getattr(self.transport, "acks_overdue", None)
+        return overdue is not None and overdue()
+
     def commit(self) -> None:
         """Group commit: fsync the log's pending records, then release the
         delivery acks deferred behind them (log before ack: an acked push
         survives a crash)."""
         if self.wal is not None:
+            rec = self.recorder
+            had_pending = self.wal.pending > 0
+            t0 = time.monotonic_ns() if rec is not None else 0
             self.wal.sync()
+            if rec is not None and had_pending:
+                # an empty group's commit is no fsync, and no span
+                rec.record("wal-fsync", "wal", t0, time.monotonic_ns(), corr=0)
         self._release_acks()
 
     # ----------------------------------------------------------- serving
@@ -583,15 +599,25 @@ class ParameterServer:
             delta = payload
         self._apply_seq += 1
         self.applied_by_sender[sender] = self.applied_by_sender.get(sender, 0) + 1
+        rec = self.recorder
         if self.wal is not None:
             # log before apply: the combined delta is what replay must feed
             # the optimizer, and the envelope what restore seeds dedup with
             env_inc, env_seq = self._envelope or (0, 0)
+            t0 = time.monotonic_ns() if rec is not None else 0
             self.wal.append(self._apply_seq, delta, sender=sender, env_inc=env_inc,
                             env_seq=env_seq, codec=codec)
+            if rec is not None:
+                rec.record("wal-append", "wal", t0, time.monotonic_ns(),
+                           meta={"sender": sender, "seq": self._apply_seq})
             if env_inc or env_seq:
                 self._recent_envelopes.append((sender, env_inc, env_seq))
+        t0 = time.monotonic_ns() if rec is not None else 0
         applied = self._apply_delta(delta)
+        if rec is not None:
+            # the envelope's correlation id stitches push, log, apply and ack
+            rec.record("apply", "apply", t0, time.monotonic_ns(),
+                       meta={"sender": sender, "seq": self._apply_seq})
         if self.combine == "adasum":
             # what moved the parameters joins every other worker's window
             for other, o in self._overlap.items():
@@ -626,6 +652,9 @@ class ParameterServer:
         reason, norm, z = verdict
         self.quarantined += 1
         self.quarantined_by_sender[sender] = self.quarantined_by_sender.get(sender, 0) + 1
+        if self.recorder is not None:
+            self.recorder.event("quarantine", sender=sender, reason=int(reason),
+                                norm=clamp_finite32(norm), z=clamp_finite32(z))
         _LOGGER.warning("quarantined GradientUpdate #%d from worker %d: %s (norm %.3g, "
                         "z %.2f) — nacking", self.quarantined_by_sender[sender], sender,
                         NACK_REASONS.get(int(reason), reason), norm, z)
@@ -702,8 +731,11 @@ class ParameterServer:
         ``worker_timeout``, a worker silent that long (heartbeats count) is
         declared failed and no longer waited for. The log is fsync'd as soon
         as the inbox is empty, after any frame that is not a push, and after
-        :data:`WAL_GROUP_N` pushes, so pushes that queue up share one fsync
-        and no ack waits for traffic that is not there; the last state is
+        :data:`WAL_GROUP_N` pushes or once a held ack is overdue (the
+        reliable wire's ``acks_overdue``: it has waited a quarter of the timeout
+        floor), so pushes that queue up share one fsync, no ack waits for
+        traffic that is not there and none times out behind a slow apply;
+        the last state is
         checkpointed on the way out. A transport whose rendezvous is still
         open (a reliable Python server's) is served as it goes on:
         the silence of a worker counts once every worker has connected, and
@@ -757,7 +789,7 @@ class ParameterServer:
                 continue
             self.handle(sender, code, payload)
             if (self.wal is None or not _ack_waits_for_wal(code)
-                    or self.wal.pending >= WAL_GROUP_N):
+                    or self.wal.pending >= WAL_GROUP_N or self._acks_overdue()):
                 # the group waits only for the codes whose ack the log holds;
                 # everything else commits, and releases its ack, at once
                 self.commit()
@@ -1433,7 +1465,11 @@ def train_worker(args, transport: Transport, heartbeat=None, device="cuda",
     :class:`Asynchronous` (the sharded worker's
     ``parallel/sharded_ps.ShardedAsynchronous``). Only an optimizer with
     ``boundary`` runs chunked, as in the JAX package: any other runs one
-    step a dispatch whatever ``--chunked-dispatch`` says."""
+    step a dispatch whatever ``--chunked-dispatch`` says.
+
+    ``--profile-dir`` traces the worker-global steps ``[--profile-start,
+    + --profile-steps)`` (``utils/tracing.TraceWindow``; a chunk that
+    strides over the window is traced whole)."""
     from distributed_ml_pytorch_tpu_torch.data import get_dataset, iterate_batches
     from distributed_ml_pytorch_tpu_torch.device import full_float32, resolve_device
     from distributed_ml_pytorch_tpu_torch.models import get_model
@@ -1446,6 +1482,7 @@ def train_worker(args, transport: Transport, heartbeat=None, device="cuda",
     )
     from distributed_ml_pytorch_tpu_torch.utils.compress import compress_from_args
     from distributed_ml_pytorch_tpu_torch.utils.metrics import MetricsLogger, print_eval_line
+    from distributed_ml_pytorch_tpu_torch.utils.tracing import TraceWindow
 
     dev = resolve_device(device)
     full_float32()
@@ -1471,6 +1508,10 @@ def train_worker(args, transport: Transport, heartbeat=None, device="cuda",
     chunked = (dev.type == "cuda" or spd > 1) if mode == "auto" else mode == "on"
     chunked = chunked and hasattr(opt, "boundary")
     max_chunk = spd if spd > 1 else 64
+    # in worker-global steps, the CSV's numbering
+    tracer = TraceWindow(getattr(args, "profile_dir", None),
+                         start=getattr(args, "profile_start", 10),
+                         n_steps=getattr(args, "profile_steps", 10))
     for epoch in range(args.epochs):
         print("Training for epoch {}".format(epoch))
         batches = iterate_batches(x_train, y_train, args.batch_size,
@@ -1496,9 +1537,11 @@ def train_worker(args, transport: Transport, heartbeat=None, device="cuda",
                                                        max_chunk=max_chunk):
                 opt.boundary(gap)
                 pairs = [next(batches) for _ in range(length)]
+                tracer.on_step(gap, n_steps=length)
                 losses = chunk_step(opt.opt_state, np.stack([p[0] for p in pairs]),
                                     np.stack([p[1] for p in pairs]), gen)
                 opt.idx = gap + length
+                tracer.after_step(gap + length)
                 rel0 = gap - start
                 eval_is = {i for i in range(rel0, rel0 + length)
                            if i % args.log_interval == 0 and i > 0}
@@ -1510,17 +1553,24 @@ def train_worker(args, transport: Transport, heartbeat=None, device="cuda",
             flush()
         else:
             for i, (bx, by) in enumerate(batches):
+                tracer.on_step(opt.idx)
                 loss = loss_and_grads(model, *to_device(bx, by, dev), generator=gen)
                 opt.step()
+                loss = float(loss)  # waits for the step
+                tracer.after_step(opt.idx)
                 extra = {}
                 if i % args.log_interval == 0 and i > 0:
                     test_loss, test_acc = evaluate(eval_step, x_test, y_test,
                                                    args.test_batch_size, dev)
                     extra = {"test_loss": test_loss, "test_accuracy": test_acc}
-                rec = logger.log_step(i, float(loss), **extra)
+                rec = logger.log_step(i, loss, **extra)
                 if extra:
                     print_eval_line(rec)
+        # a window across the epoch's end stops here, before the eval
+        tracer.close()
         evaluate(eval_step, x_test, y_test, args.test_batch_size, dev, verbose=True)
+    tracer.close()
+    tracer.warn_if_never_opened()
     opt.finish()
     return model, logger
 

@@ -92,6 +92,23 @@ def create_composite_train_state(model: nn.Module, tx, mesh: DeviceMesh,
     return CompositeState(model, tx.init(sh.shards), sh), specs
 
 
+def composite_layout(state: CompositeState, specs: Dict[str, Tuple], model_axis: str = "model",
+                     fsdp_axis: str = "fsdp"):
+    """The checkpoint layout of a composite state (``utils/checkpoint``): a
+    leaf's tp chunk over ``model_axis``, then its FSDP rows over
+    ``fsdp_axis`` (the shard this rank stores)."""
+    sh = state.sharding
+    out = []
+    for j, (name, _) in enumerate(state.model.named_parameters()):
+        ops = []
+        if model_axis in specs[name]:
+            ops.append(("split", model_axis, specs[name].index(model_axis)))
+        if sh.dims[j] is not None:
+            ops.append(("rows", fsdp_axis, sh.dims[j]))
+        out.append((name, sh.shards[j], tuple(ops)))
+    return out
+
+
 def _sq_norm_fn(specs_local, mesh: DeviceMesh, model_axis: str, fsdp_axis: str) -> Callable:
     """The squared global norm of the composite shards: each leaf's squares
     summed over the axes it is sharded over."""

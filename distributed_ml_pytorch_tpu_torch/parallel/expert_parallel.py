@@ -165,6 +165,16 @@ def create_ep_train_state(model: nn.Module, tx, mesh: DeviceMesh,
     return TrainState(model, tx.init(list(model.parameters())))
 
 
+def ep_layout(state: TrainState, expert_axis: str = "expert"):
+    """The checkpoint layout of a :func:`create_ep_train_state` state
+    (``utils/checkpoint``): the stacked expert weights are this rank's chunk
+    of their leading dim, the rest replicated."""
+    params = dict(state.model.named_parameters())
+    specs = ep_param_specs(params, expert_axis)
+    return [(name, p, () if specs[name] is None else (("split", expert_axis, 0),))
+            for name, p in params.items()]
+
+
 def make_ep_train_step(model: nn.Module, tx, mesh: DeviceMesh, expert_axis: str = "expert",
                        aux_loss_weight: float = 0.01, data_axis: str = "data") -> Callable:
     """The dp×ep MoE step: ``step(state, tokens, targets) -> (state, (loss,

@@ -306,6 +306,15 @@ class FsdpState(TrainState):
         self.sharding = sharding
 
 
+def fsdp_layout(state: FsdpState):
+    """The checkpoint layout of an :class:`FsdpState` (``utils/checkpoint``):
+    each parameter's shard, its sharded dim moved to the front and chunked
+    over the axis (``rows``), or the replicated leaf itself."""
+    sh = state.sharding
+    return [(name, sh.shards[j], () if sh.dims[j] is None else (("rows", sh.axis, sh.dims[j]),))
+            for j, (name, _) in enumerate(state.model.named_parameters())]
+
+
 def create_fsdp_train_state(model: nn.Module, tx, mesh: DeviceMesh, axis: str = "data",
                             generator=None) -> FsdpState:
     """``model`` (built from its seed, the same on every rank) sharded over
@@ -424,13 +433,12 @@ def param_shard_fraction(state: FsdpState, mesh: Optional[DeviceMesh] = None) ->
 def train_fsdp(args, mesh: Optional[DeviceMesh] = None):
     """Fully-sharded data-parallel training (``--mode fsdp``): the driver of
     ``--mode sync`` (``sync.train_data_parallel``) with the state sharded
-    per :func:`fsdp_specs`. Checkpoints of a sharded state are not ported
-    yet: ``--ckpt-dir`` raises ``ValueError``."""
+    per :func:`fsdp_specs`. ``--ckpt-dir`` saves the global tree
+    (``utils/checkpoint.ShardedCheckpointer`` over :func:`fsdp_layout`),
+    and ``--resume`` restores it into the full model before the sharding,
+    as the JAX driver restores before placement."""
     from distributed_ml_pytorch_tpu_torch.parallel.sync import train_data_parallel
 
-    if getattr(args, "ckpt_dir", None):
-        raise ValueError("--mode fsdp: checkpoints of a sharded state are not ported yet "
-                         "(drop --ckpt-dir)")
     seed = getattr(args, "seed", 0) + 1
 
     def strategy(model, tx, mesh, state):
@@ -451,4 +459,4 @@ def train_fsdp(args, mesh: Optional[DeviceMesh] = None):
         hooks = (state.sharding.gather, state.sharding.free)
         return state, sharded_step, sharded_scan, f", {frac:.3f} of params/rank", hooks
 
-    return train_data_parallel(args, mesh, strategy, "FSDP")
+    return train_data_parallel(args, mesh, strategy, "FSDP", sharded=("fsdp", fsdp_layout))

@@ -128,12 +128,16 @@ def train_local_sgd(args, mesh: Optional[DeviceMesh] = None
     ``--steps-per-dispatch K`` fusing ⌈K/k⌉ whole rounds into one dispatch
     (a group never crosses an eval or checkpoint boundary), ``--ckpt-dir``
     checkpoints at round boundaries (``--ckpt-every`` rounded to them) with
-    exact resume. ``--batch-size`` is the per-rank batch."""
+    exact resume. ``--batch-size`` is the per-rank batch. ``--profile-dir``
+    traces rank 0's dispatches over the steps ``[--profile-start, +
+    --profile-steps)`` (a group that strides over the window is traced
+    whole; ranks that are threads of one process share one profiler)."""
     from distributed_ml_pytorch_tpu_torch.data import get_dataset
     from distributed_ml_pytorch_tpu_torch.device import full_float32
     from distributed_ml_pytorch_tpu_torch.models import get_model
     from distributed_ml_pytorch_tpu_torch.parallel.sync import replicate
     from distributed_ml_pytorch_tpu_torch.training.trainer import setup_checkpoint
+    from distributed_ml_pytorch_tpu_torch.utils.tracing import TraceWindow
 
     mesh = mesh or data_mesh()
     n = mesh.axis_size("data")
@@ -165,6 +169,9 @@ def train_local_sgd(args, mesh: Optional[DeviceMesh] = None
     eval_step = make_eval_fn(model)
     logger = MetricsLogger(getattr(args, "log_dir", "log"))
     dev = mesh.device
+    tracer = TraceWindow(getattr(args, "profile_dir", None) if mesh.rank == 0 else None,
+                         start=getattr(args, "profile_start", 10),
+                         n_steps=getattr(args, "profile_steps", 10))
     t0 = time.time()
     step_counter = start_epoch * steps_per_epoch + start_iter
 
@@ -193,10 +200,13 @@ def train_local_sgd(args, mesh: Optional[DeviceMesh] = None
                     return
                 rx = np.stack([p[0] for p in pending])
                 ry = np.stack([p[1] for p in pending])
-                state, losses = rounds_fn(state, *shard_batch(mesh, rx, ry, dim=2))
                 n_r = len(pending)
+                tracer.on_step(step_counter, n_steps=n_r * k)
+                state, losses = rounds_fn(state, *shard_batch(mesh, rx, ry, dim=2))
                 pending.clear()
-                emit(losses.reshape(-1).cpu().tolist(), step_counter)
+                losses = losses.reshape(-1).cpu().tolist()  # waits for the dispatch
+                tracer.after_step(step_counter + n_r * k)
+                emit(losses, step_counter)
                 step_counter += n_r * k
                 if ckpt is not None:
                     ckpt.save(state.step, state)
@@ -211,8 +221,12 @@ def train_local_sgd(args, mesh: Optional[DeviceMesh] = None
                 if len(pending) >= rounds_per_dispatch or at_eval or at_ckpt:
                     flush()
             flush()
+            # a window across the epoch's end stops here, before the eval
+            tracer.close()
             evaluate(eval_step, x_test, y_test, args.test_batch_size, dev, verbose=True)
     finally:
+        tracer.close()
+        tracer.warn_if_never_opened()
         if ckpt is not None:
             try:
                 ckpt.save(state.step, state, force=True)

@@ -50,8 +50,16 @@ checkpoint (``coord/stages.py``).
 
 On a CUDA tensor each block's attention is ``ops.attention``'s flash
 kernels (float32: ``csrc/attention.cu``): K4 in every stage forward and in
-each recompute, K5 in each backward. ``recorder=`` and ``obs_dir=`` (the
-flight recorder of the observability plane) are refused.
+each recompute, K5 in each backward.
+
+The flight recorder (``recorder=``, ``obs_dir=``): a stage attributes its
+serve loop's wall clock to exclusive states (compute, wait-act, wait-grad,
+wire-blocked, ckpt, idle) with a ``utils/obs.StateClock``, each
+microbatch's work runs under the correlation id the driver minted for it
+(it rides the reliable envelope), and a stage dumps its ring to
+``obs_dir`` at its death and at its stop, the driver at its stop.
+``analysis/timeline.py`` turns those dumps into the bubble's attribution.
+The recorder reads host clocks only and steers nothing.
 """
 
 from __future__ import annotations
@@ -92,6 +100,13 @@ from distributed_ml_pytorch_tpu_torch.utils.messaging import (
     _split16,
 )
 from distributed_ml_pytorch_tpu_torch.utils.metrics import Ewma
+from distributed_ml_pytorch_tpu_torch.utils.obs import (
+    StateClock,
+    corr_scope,
+    current_corr,
+    flight_dump,
+    next_corr,
+)
 
 _LOGGER = logging.getLogger(__name__)
 
@@ -103,9 +118,6 @@ SHIP_LOSS = 3     # [ce_sum], last stage -> driver
 
 CKPT_FILE = "stage.ckpt"
 
-#: the observability plane, not in this package yet
-_RECORDER_PLANE = "the flight recorder (the observability plane, A 9)"
-
 
 def replay_covers(step: int, mbi: int, n_microbatches: int, watermark: int) -> bool:
     """Whether a retained ``(step, mb)`` hand-off is re-shipped to a
@@ -115,13 +127,6 @@ def replay_covers(step: int, mbi: int, n_microbatches: int, watermark: int) -> b
     restarted member's first hole, and re-shipping only above it would leave
     a gap for good."""
     return step * n_microbatches + mbi >= watermark
-
-
-def _refuse_recorder(owner: str, recorder, obs_dir) -> None:
-    for name, value in (("recorder", recorder), ("obs_dir", obs_dir)):
-        if value is not None:
-            raise ValueError(f"{owner}({name}=...): {_RECORDER_PLANE} is not in this "
-                             "package yet")
 
 
 # ------------------------------------------------------------------ parameters
@@ -489,7 +494,6 @@ class MpmdStage:
                  step_hook: Optional[Callable[["MpmdStage", int], None]] = None,
                  recorder=None, obs_dir: Optional[str] = None, act_codec: str = "dense",
                  params: Optional[Dict[str, torch.Tensor]] = None, device="cuda"):
-        _refuse_recorder("MpmdStage", recorder, obs_dir)
         if act_codec not in ("dense", "int8"):
             raise ValueError(f"act_codec must be dense|int8, got {act_codec}")
         self.cfg = cfg
@@ -548,6 +552,13 @@ class MpmdStage:
             "send_failed": 0, "snapshots": 0, "malformed_dropped": 0,
             "busy_s": 0.0, "act_dense_floats": 0, "act_wire_floats": 0,
         }
+        #: the flight recorder and its serve loop's exclusive-state clock
+        self.recorder = recorder
+        self.obs_dir = obs_dir
+        self._clock = StateClock(recorder, "idle") if recorder is not None else None
+        #: each (step, mb)'s correlation id: adopted from the driver's
+        #: frames, so one microbatch is one id on every member
+        self._mb_corr: Dict[Tuple[int, int], int] = {}
         #: the mailboxes the coordinator's listener fills and the loop drains
         self._mu = threading.Lock()
         self._placement_mail = None
@@ -688,6 +699,15 @@ class MpmdStage:
             head = [*_split16(step), float(mbi), float(kind), *_split16(ver), float(cid)]
         else:
             head = [*_split16(step), float(mbi), *_split16(ver), float(cid)]
+        # a send blocked at the window or at the receiver's credit is the
+        # wire's time, not compute's: carved out of the loop's current state
+        stats = getattr(self.transport, "stats", None)
+
+        def blocked_s():
+            return (stats.get("window_blocked_s", 0.0) + stats.get("credit_blocked_s", 0.0)
+                    if isinstance(stats, dict) else 0.0)
+
+        blocked0 = blocked_s()
         try:
             self.transport.send(code, np.concatenate([np.asarray(head, np.float32),
                                                       coded.ravel()]), dst=dst_rank)
@@ -695,6 +715,10 @@ class MpmdStage:
             # a dead or vacant peer: the retained buffer and the placement's
             # re-ship own the recovery, the send path must not die
             self.stats["send_failed"] += 1
+        if self._clock is not None and isinstance(stats, dict):
+            blocked = blocked_s() - blocked0
+            if blocked > 0:
+                self._clock.carve("wire-blocked", blocked)
 
     def _ship(self, dirn: str, step: int, mbi: int, body: np.ndarray) -> None:
         """Retain, then send one outbound hand-off; held (retained only)
@@ -717,20 +741,40 @@ class MpmdStage:
             code, kind = MessageCode.ActivationShip, SHIP_LOSS
         if dst is None:
             return
-        self._send_frame(dst, code, step, mbi, kind, body)
+        # the microbatch's correlation id rides the envelope to the peer
+        with corr_scope(self._mb_corr.get((step, mbi), 0)):
+            self._send_frame(dst, code, step, mbi, kind, body)
 
     # -------------------------------------------------------------- receive
     def handle(self, sender: int, code: MessageCode, payload: np.ndarray) -> None:
         if code == MessageCode.ActivationShip and payload.size >= 8:
             if not np.isfinite(payload[:7]).all():
                 return
-            self._on_ship(_join16(payload[0], payload[1]), int(payload[2]), int(payload[3]),
-                          int(payload[6]), payload[7:])
+            step, mbi = _join16(payload[0], payload[1]), int(payload[2])
+            self._adopt_corr(step, mbi)
+            self._on_ship(step, mbi, int(payload[3]), int(payload[6]), payload[7:])
         elif code == MessageCode.ActivationGrad and payload.size >= 7:
             if not np.isfinite(payload[:6]).all():
                 return
-            self._on_grad(_join16(payload[0], payload[1]), int(payload[2]), int(payload[5]),
-                          payload[6:])
+            step, mbi = _join16(payload[0], payload[1]), int(payload[2])
+            self._adopt_corr(step, mbi)
+            self._on_grad(step, mbi, int(payload[5]), payload[6:])
+
+    def _adopt_corr(self, step: int, mbi: int) -> None:
+        """Bind the correlation id the envelope delivered (the thread's,
+        set by ``ReliableTransport.recv``) to this (step, mb), so that the
+        member's compute spans and onward ships carry the driver's id."""
+        if self.recorder is None:
+            return
+        corr = current_corr()
+        if corr and (step, mbi) not in self._mb_corr:
+            self._mb_corr[(step, mbi)] = corr
+
+    def _compute(self, t: int, mbi: Optional[int] = None) -> None:
+        """The loop is computing (for microbatch ``mbi`` of step ``t``)."""
+        if self._clock is not None:
+            self._clock.set("compute",
+                            corr=None if mbi is None else self._mb_corr.get((t, mbi), 0))
 
     def _on_ship(self, step: int, mbi: int, kind: int, cid: int, body: np.ndarray) -> None:
         if self.stage is None or not (0 <= mbi < self.M):
@@ -861,6 +905,7 @@ class MpmdStage:
                     tgt = self._targets.get(t, {}).get(mbi)
                     if tgt is None:
                         continue
+                    self._compute(t, mbi)
                     t0 = time.perf_counter()
                     ce_sum, d_params, d_x = prog.loss_bwd(
                         self.params, self._decode_input(inputs[mbi]), self._ids(tgt))
@@ -876,6 +921,7 @@ class MpmdStage:
                         self._ship("bwd", t, mbi, d_x)
                     self._ship("loss", t, mbi, np.asarray([ce_sum], np.float32))
                 else:
+                    self._compute(t, mbi)
                     t0 = time.perf_counter()
                     h_out = prog.fwd(self.params, self._decode_input(inputs[mbi])).cpu().numpy()
                     self.stats["busy_s"] += time.perf_counter() - t0
@@ -892,6 +938,7 @@ class MpmdStage:
                         return
                     if mbi in done_b or mbi not in done_f or mbi not in gin:
                         continue
+                    self._compute(t, mbi)
                     t0 = time.perf_counter()
                     d_params, d_x = prog.bwd(self.params, self._decode_input(inputs[mbi]),
                                              self._act(gin[mbi]))
@@ -914,6 +961,7 @@ class MpmdStage:
         acc = grads[0]
         for mbi in range(1, self.M):  # microbatch order: a deterministic sum
             acc = _add(acc, grads[mbi])
+        self._compute(t)
         t0 = time.perf_counter()
         self.params, self.opt_state = self.programs.update(self.params, self.opt_state, acc)
         if self.device.type == "cuda":
@@ -929,6 +977,11 @@ class MpmdStage:
         busy_ms = (self.stats["busy_s"] - self._busy_at_update) * 1e3
         self._busy_at_update = self.stats["busy_s"]
         self._ewma.update(busy_ms)
+        if self.recorder is not None:
+            self.recorder.event("update", corr=0, step=self.step, busy_ms=round(busy_ms, 3))
+            # the retired steps' correlation ids are done with
+            self._mb_corr = {k: v for k, v in self._mb_corr.items()
+                             if k[0] >= self.step - self.retain_steps}
         for d in (self._inputs, self._targets, self._gin, self._mb_grads, self._done_fwd,
                   self._done_bwd):
             d.pop(t, None)
@@ -958,10 +1011,14 @@ class MpmdStage:
     def _save_ckpt(self) -> None:
         if not self.ckpt_dir or self._superseded:
             return
+        if self._clock is not None:
+            self._clock.set("ckpt")
         pflat, oflat = self._flat_state()
         save_stage_checkpoint(self.ckpt_dir, stage=self.stage, step=self.step,
                               watermark=self.watermark, lo=self.lo, hi=self.hi,
                               params_flat=pflat, opt_flat=oflat)
+        # back to compute until the loop next classifies its wait
+        self._compute(self.step)
 
     def restore(self, manifest=None) -> None:
         """Parameters, optimizer state and watermark from this stage's
@@ -1039,18 +1096,49 @@ class MpmdStage:
                      victim_rank)
         self.coord.stage_ready(self.stage, self.watermark)
 
+    def _wait_state(self) -> str:
+        """What the loop is about to wait on, once :meth:`_pump` found
+        nothing to compute: missing inputs ``wait-act``; every forward done
+        but cotangents missing ``wait-grad``; unassigned, superseded or
+        before the first placement ``idle``."""
+        if self.stage is None or self._superseded or self._placement is None:
+            return "idle"
+        t = self.step
+        done_f = self._done_fwd.get(t, set())
+        if len(done_f) >= self.M:
+            return "idle" if self.programs.last else "wait-grad"
+        if (self.programs is not None and not self.programs.last
+                and len(self._done_bwd.get(t, set())) < len(done_f)):
+            # forwards still owed and cotangents outstanding: the schedule
+            # waits on the downstream neighbour first (the 1F1B drain)
+            return "wait-grad"
+        return "wait-act"
+
     # ------------------------------------------------------------ serve loop
     def run(self, timeout: Optional[float] = None) -> None:
         """Serve until :meth:`stop` or :meth:`crash` (or ``timeout``). An
         exception of the serve loop is kept in ``self.error`` and stops the
         member: a thread that died in silence would wedge the pipeline with
-        no diagnosis."""
+        no diagnosis. On the way out a recorder flushes its attribution,
+        takes the wire's counters and, with ``obs_dir``, is dumped there
+        (reason ``death``, ``error`` or ``stop``)."""
         try:
             self._run(timeout)
         except Exception as e:  # noqa: BLE001 — surfaced through self.error
             self.error = repr(e)
             _LOGGER.exception("stage %s member rank %d serve loop died", self.stage, self.rank)
             self._stop.set()
+        finally:
+            if self.recorder is not None:
+                self._clock.flush()
+                # the wire's counters join the ring before the dump
+                emit = getattr(self.transport, "emit_wire_stats", None)
+                if emit is not None:
+                    emit()
+                reason = ("error" if self.error is not None
+                          else "death" if self._crashed else "stop")
+                if self.obs_dir:
+                    flight_dump(self.recorder, self.obs_dir, reason)
 
     def _run(self, timeout: Optional[float] = None) -> None:
         deadline = None if timeout is None else time.monotonic() + timeout
@@ -1062,6 +1150,8 @@ class MpmdStage:
             now = time.monotonic()
             if deadline is not None and now >= deadline:
                 break
+            if self._clock is not None:
+                self._clock.set(self._wait_state())
             msg = self.transport.recv(timeout=0.02)
             if msg is not None:
                 try:
@@ -1091,11 +1181,13 @@ class MpmdDriver:
     send sequence is then a function of the data alone, so the chaos layer
     can fault these channels with a byte-identical log), retains the bodies
     and re-ships them to restarted endpoints on an incarnation change. It
-    folds the ``ce_sum`` reports into each step's mean loss."""
+    folds the ``ce_sum`` reports into each step's mean loss. It mints each
+    (step, mb)'s correlation id at its first ship (a re-ship reuses it), and
+    with ``recorder`` and ``obs_dir`` dumps its ring there at the end of
+    :meth:`run`."""
 
     def __init__(self, transport: Transport, coord, n_stages: int, n_microbatches: int,
                  recorder=None, obs_dir: Optional[str] = None):
-        _refuse_recorder("MpmdDriver", recorder, obs_dir)
         self.transport = transport
         self.coord = coord
         self.S = int(n_stages)
@@ -1111,9 +1203,12 @@ class MpmdDriver:
         self.losses: List[float] = []
         self.step_times: List[float] = []
         self.stats = {"reshipped": 0, "dup_loss_dropped": 0, "send_failed": 0}
-        #: how far behind the frontier the replay data is kept: past the
-        #: stages' own retain window
+        #: how far behind the frontier the replay data and the correlation
+        #: ids are kept: past the stages' own retain window
         self.retain_steps = 8
+        self.recorder = recorder
+        self.obs_dir = obs_dir
+        self._mb_corr: Dict[Tuple[int, int], int] = {}
 
     def _note_placement(self, placement) -> None:
         with self._mu:
@@ -1133,9 +1228,13 @@ class MpmdDriver:
         cid, coded = codecs.encode_body(MessageCode.ActivationShip, body.ravel(), CODEC_DENSE)
         head = np.asarray([*_split16(step), float(mbi), float(kind), *_split16(ver),
                            float(cid)], np.float32)
+        corr = self._mb_corr.get((step, mbi))
+        if corr is None:
+            corr = self._mb_corr[(step, mbi)] = next_corr()
         try:
-            self.transport.send(MessageCode.ActivationShip, np.concatenate([head, coded]),
-                                dst=dst)
+            with corr_scope(corr):
+                self.transport.send(MessageCode.ActivationShip, np.concatenate([head, coded]),
+                                    dst=dst)
         except (OSError, ConnectionError, KeyError):
             self.stats["send_failed"] += 1
 
@@ -1147,6 +1246,7 @@ class MpmdDriver:
         for store in (self._tokens, self._targets, self._ce):
             for key in [k for k in store if k[0] < floor]:
                 del store[key]
+        self._mb_corr = {k: v for k, v in self._mb_corr.items() if k[0] >= floor}
 
     def _drain_placement(self) -> None:
         from distributed_ml_pytorch_tpu_torch.coord.stages import placement_deltas
@@ -1229,8 +1329,16 @@ class MpmdDriver:
                 loss = ce / float(n_mask * self.M)
                 self.losses.append(loss)
                 self.step_times.append(time.monotonic())
+                if self.recorder is not None:
+                    self.recorder.event("step-complete", corr=0, step=next_step,
+                                        loss=round(float(loss), 6))
                 if step_hook is not None:
                     step_hook(next_step, loss)
                 next_step += 1
                 self._retire_below(next_step - self.retain_steps)
+        if self.recorder is not None and self.obs_dir:
+            emit = getattr(self.transport, "emit_wire_stats", None)
+            if emit is not None:
+                emit()
+            flight_dump(self.recorder, self.obs_dir, "stop")
         return self.losses

@@ -253,6 +253,27 @@ def create_pp_train_state(cfg: PipelineLMConfig, tx, mesh: DeviceMesh,
     return PipelineState(model, tx.init(list(model.parameters())), s, S)
 
 
+def pp_layout(state: PipelineState, stage_axis: str = "stage",
+              model_axis: Optional[str] = None):
+    """The checkpoint layout of a :func:`create_pp_train_state` state
+    (``utils/checkpoint``): local block ``i`` is global block ``stage·L/S +
+    i`` (``blocks``), Megatron-chunked within the stage with ``model_axis``
+    (:func:`pp_param_specs`); the other leaves are replicated."""
+    params = dict(state.model.named_parameters())
+    per = len(state.model.blocks)
+    specs = pp_param_specs(params, stage_axis, model_axis)
+    out = []
+    for name, p in params.items():
+        ops = []
+        if name.startswith("blocks."):
+            ops.append(("blocks", stage_axis, per))
+            dims = specs[name][1:]
+            if model_axis is not None and model_axis in dims:
+                ops.append(("split", model_axis, dims.index(model_axis)))
+        out.append((name, p, tuple(ops)))
+    return out
+
+
 # ------------------------------------------------------------------ the timetables
 
 

@@ -162,7 +162,8 @@ def _mesh_eval(eval_step: Callable, before: Optional[Callable], after: Optional[
     return run
 
 
-def train_data_parallel(args, mesh: Optional[DeviceMesh], strategy: Callable, label: str
+def train_data_parallel(args, mesh: Optional[DeviceMesh], strategy: Callable, label: str,
+                        sharded: Optional[Tuple[str, Callable]] = None
                         ) -> Tuple[TrainState, MetricsLogger]:
     """The shared data-parallel driver of sync DP and FSDP (the JAX
     ``train_data_parallel``).
@@ -176,6 +177,10 @@ def train_data_parallel(args, mesh: Optional[DeviceMesh], strategy: Callable, la
     ``(before, after)`` around an eval (or ``None``). The data, the model,
     the optimizer surface, checkpoints (rank 0 writes; every rank restores)
     and the loop (``training/trainer.run_training_loop``) are one copy here.
+    ``sharded = (mode, layout_fn)`` checkpoints a state the strategy shards:
+    every rank takes part in each save's gather, the parameters are
+    restored into the full model before the strategy places it and the
+    optimizer state after (``utils/checkpoint.ShardedCheckpointer``).
     """
     from distributed_ml_pytorch_tpu_torch.data import get_dataset
     from distributed_ml_pytorch_tpu_torch.device import full_float32
@@ -196,11 +201,14 @@ def train_data_parallel(args, mesh: Optional[DeviceMesh], strategy: Callable, la
                       dtype=getattr(args, "dtype", "float32"))
     steps_per_epoch = len(x_train) // global_batch
     state, tx = state_from_args(args, model, steps_per_epoch)
-    ckpt, state, start_epoch, start_iter = setup_checkpoint(args, state, steps_per_epoch)
-    if ckpt is not None and mesh.rank != 0:
+    ckpt, state, start_epoch, start_iter = setup_checkpoint(
+        args, state, steps_per_epoch, sharded=None if sharded is None else (*sharded, mesh))
+    if ckpt is not None and mesh.rank != 0 and sharded is None:
         ckpt.close()
         ckpt = None
     state, step, scan_step, suffix, hooks = strategy(model, tx, mesh, state)
+    if sharded is not None and ckpt is not None and ckpt.restored is not None:
+        ckpt.restore_placed(state)
     eval_step = _mesh_eval(make_eval_fn(model), *(hooks or (None, None)))
     logger = MetricsLogger(getattr(args, "log_dir", "log"))
     loop_args = copy.copy(args)

@@ -345,6 +345,16 @@ def create_tp_train_state(model: nn.Module, tx, mesh: DeviceMesh, model_axis: st
     return TrainState(model, tx.init(list(model.parameters())))
 
 
+def tp_layout(state: TrainState, model_axis: str = "model"):
+    """The checkpoint layout of a :func:`create_tp_train_state` state
+    (``utils/checkpoint``): each leaf of :func:`tp_param_specs` is this
+    rank's chunk of its sharded dim, the rest replicated."""
+    params = dict(state.model.named_parameters())
+    specs = tp_param_specs(params)
+    return [(name, p, () if specs[name] is None else (("split", model_axis, specs[name]),))
+            for name, p in params.items()]
+
+
 def make_tp_train_step(model: nn.Module, tx, mesh: DeviceMesh, model_axis: str = "model",
                        data_axis: str = "data") -> Callable:
     """The dp×tp LM step: ``step(state, tokens, targets) -> (state, loss)``

@@ -28,8 +28,9 @@ plane's ``--slo-ttft-ms``, ``--shed-occupancy``, ``--brownout-occupancy``,
 coordinator (``coord/cli.py``) whose fleet view holds submits while no
 engine is up, ``--reliable`` wraps the hub's transport in the reliability
 layer (clients must wrap theirs too), and ``--ckpt-dir`` restores the
-parameters from the latest checkpoint there. ``--metrics-dump`` is not
-ported yet and exits with an error.
+parameters from the latest checkpoint there. ``--metrics-dump PATH``
+writes the metrics registry's snapshot at exit, the engine's SLO summary
+attached as ``engine.*`` (``-`` prints it).
 """
 
 from __future__ import annotations
@@ -37,9 +38,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-
-#: flags of the JAX CLI that the port does not have yet
-NOT_PORTED = ("metrics_dump",)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -111,17 +109,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--backend", type=str, default="cuda", choices=["cuda", "cpu"],
                    help="device the engine runs on")
-    # the JAX CLI's metrics dump, not ported yet
-    p.add_argument("--metrics-dump", type=str, default="", help=argparse.SUPPRESS)
+    p.add_argument("--metrics-dump", type=str, default="", metavar="PATH",
+                   help="write the metrics-registry snapshot JSON (utils/metrics."
+                        "get_registry) at exit — the engine's SLO summary, the wire's "
+                        "counters; '-' prints to stdout")
     return p
 
 
 def parse_args(argv=None, parser=None) -> argparse.Namespace:
     parser = parser or build_parser()
     args = parser.parse_args(argv)
-    for name in NOT_PORTED:
-        if getattr(args, name):
-            parser.error(f"--{name.replace('_', '-')} is not ported yet")
     if args.d_model % args.n_heads:
         parser.error(f"--d-model {args.d_model} must divide by --n-heads {args.n_heads}")
     return args
@@ -342,10 +339,24 @@ def main_fleet(args, parser) -> int:
 def main(argv=None) -> int:
     parser = build_parser()
     args = parse_args(argv, parser)
+    try:
+        return _main(args, parser)
+    finally:
+        if args.metrics_dump:
+            from distributed_ml_pytorch_tpu_torch.coord.cli import dump_metrics
+
+            dump_metrics(args.metrics_dump)
+
+
+def _main(args, parser) -> int:
     print(args)
     if args.fleet:
         return main_fleet(args, parser)
     engine = make_engine(build_model(args), args)
+    # the engine's SLO summary is in every --metrics-dump
+    from distributed_ml_pytorch_tpu_torch.utils.metrics import get_registry
+
+    get_registry().attach("engine", engine.slo_summary)
     if args.demo:
         return run_demo(args, engine)
 

@@ -128,8 +128,10 @@ class ServingEngine:
     ``on_tokens(request, new_tokens, done)`` is invoked from the scheduling
     thread every time a request's stream advances (admission's first token,
     then each decode block's truncated share) — the transport frontend
-    hangs its send path on it. ``recorder`` (the flight recorder) is not
-    ported yet and must be ``None``.
+    hangs its send path on it. ``recorder`` (an optional
+    ``utils/obs.SpanRecorder``) takes the serving plane's side of a fleet
+    timeline: submit and queue-reject events, and the prefill and decode
+    block spans, under each request's correlation id. It only observes.
     """
 
     def __init__(self, model, *, slots: int = 4,
@@ -138,15 +140,13 @@ class ServingEngine:
                  prefill_bucket: int = 16,
                  on_tokens: Optional[Callable] = None,
                  recorder=None):
-        if recorder is not None:
-            raise NotImplementedError(
-                "recorder (the flight recorder, utils/obs.SpanRecorder) is not ported yet")
         self.pool = SlotKVPool(
             model, slots=slots, cache_size=cache_size,
             decode_block=decode_block, kv_quant=kv_quant)
         self.max_queue = int(max_queue)
         self.prefill_bucket = max(1, int(prefill_bucket))
         self.on_tokens = on_tokens
+        self.recorder = recorder
         self._lock = threading.Lock()
         self._queue: Deque[Request] = collections.deque()
         self._ids = itertools.count()
@@ -222,9 +222,14 @@ class ServingEngine:
             if sum(1 for r in self._queue
                    if not r.cancelled) >= self.max_queue:
                 self._rejected += 1
+                if self.recorder is not None:
+                    self.recorder.event("queue-reject", corr=req.corr, id=req.request_id)
                 raise QueueFullError(
                     f"queue at max_queue={self.max_queue}; retry later")
             self._queue.append(req)
+        if self.recorder is not None:
+            self.recorder.event("submit", corr=req.corr, id=req.request_id,
+                                prompt_len=int(prompt.size))
         return req
 
     def _bucket_len(self, prompt_len: int) -> int:
@@ -326,10 +331,17 @@ class ServingEngine:
                 r is not None for r in self._slot_req)
             req.slot = slot  # with it, "slot is None" == waiting, exactly
             self._slot_req[slot] = req
+            rec = self.recorder
+            t0 = time.monotonic_ns() if rec is not None else 0
             tok0 = self.pool.admit(
                 slot, padded, p, seed=sp.seed, temperature=sp.temperature,
                 top_k=sp.top_k, top_p=sp.top_p, gen_offset=req.gen_offset)
             req.t_admit = time.perf_counter()
+            if rec is not None:
+                # the queue wait ended here: the prefill span carries the
+                # request's correlation id through its admission
+                rec.record("prefill", "prefill", t0, time.monotonic_ns(), corr=req.corr,
+                           meta={"id": req.request_id, "slot": slot, "bucket": bucket})
             self._tok[slot] = tok0
             # the per-slot sampling clock continues the request's own
             # schedule: a resumed request's next draw is token gen_offset + 1
@@ -348,11 +360,16 @@ class ServingEngine:
         return admitted
 
     def _decode(self, active: np.ndarray) -> None:
+        rec = self.recorder
+        t0 = time.monotonic_ns() if rec is not None else 0
         self._block_timer.start()
         toks = self.pool.decode_block_step(
             self._tok, self._n_gen, self._seeds, self._temps,
             self._top_ks, self._top_ps, active)  # [S, T] host array (syncs)
         self._block_timer.tick()
+        if rec is not None:
+            rec.record("decode-block", "decode", t0, time.monotonic_ns(), corr=0,
+                       meta={"active": int(active.sum())})
         T = toks.shape[1]
         for slot, req in enumerate(self._slot_req):
             if req is None:

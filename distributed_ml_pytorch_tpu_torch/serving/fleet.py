@@ -204,6 +204,10 @@ class FleetRouter(ServingFrontend):
         self._affinity: Dict[Tuple[int, int], int] = {}
         self.migrations = 0          # streams moved across an engine death
         self.migration_failures = 0  # a healthy survivor refused the stream
+        #: an optional flight recorder (``utils/obs.SpanRecorder``): each
+        #: migration window lands on the serving timeline beside the
+        #: engines' spans; it only observes
+        self.recorder = None
         self.parked = 0              # submits parked awaiting any engine
         #: per-death seconds (detection -> resumed), a ring
         self._mttr = collections.deque(maxlen=256)
@@ -385,6 +389,10 @@ class FleetRouter(ServingFrontend):
             elif route.engine_id != ORPHANED_ENGINE:
                 resumed += 1
                 self._note_resumed(route)
+        if self.recorder is not None and moving:
+            self.recorder.event("migrate", corr=0, dead_engine=dead_id, moved=len(moving),
+                                resumed=resumed,
+                                window_ms=round((time.monotonic() - now) * 1e3, 3))
         if resumed:
             print(f"fleet: migrated {resumed}/{len(moving)} stream(s) off engine {dead_id} "
                   f"in {(time.monotonic() - now) * 1e3:.1f} ms", file=sys.stderr)

@@ -36,9 +36,10 @@ the ranges its shard maps assign (``coord/elastic.py``), the workers cut
 over when the map moves, and a worker may join or a shard die mid-run; it
 takes the sharded entry even with ``--n-servers 1``; ``--manifest-path``
 names the coordinator's fleet manifest, which a shard restores in place on
-a rollback barrier. Flags of the JAX CLI that this package does not
-implement (the MPMD stages, profiling and the metrics dump) are absent, so argparse rejects them instead of ignoring
-them.
+a rollback barrier. ``--profile-dir``/``--profile-start``/
+``--profile-steps`` trace a window of training steps with
+``torch.profiler`` (``utils/tracing.TraceWindow``), and ``--metrics-dump
+PATH`` writes the metrics registry's snapshot at exit.
 
     python -m distributed_ml_pytorch_tpu_torch.training.cli --no-distributed \
         --epochs 1 --synthetic-data
@@ -150,6 +151,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--admission-warmup", type=int, default=8, metavar="N",
                    help="admission gate: per-sender pushes admitted before the z-score "
                         "check activates (finiteness is checked from the first push)")
+    p.add_argument("--profile-dir", type=str, default="",
+                   help="capture a torch.profiler trace (Chrome-trace JSON) of a "
+                        "training-step window into this directory (the reference has no "
+                        "tracing at all)")
+    p.add_argument("--profile-start", type=int, default=10, metavar="N",
+                   help="global step at which the trace window opens")
+    p.add_argument("--profile-steps", type=int, default=10, metavar="N",
+                   help="number of steps the trace window covers")
+    p.add_argument("--metrics-dump", type=str, default="", metavar="PATH",
+                   help="write the metrics-registry snapshot JSON (utils/metrics."
+                        "get_registry) at exit — reliable-transport counters, component "
+                        "stats; '-' prints to stdout")
     p.add_argument("--rejoin", action="store_true", default=False,
                    help="PS-mode worker restart: reconnect to a running server and ADOPT "
                         "its central params instead of installing this process's fresh "
@@ -239,6 +252,18 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if args.combine == "adasum" and args.staleness_damping > 0.0:
         parser.error("--combine adasum replaces --staleness-damping — pick one")
+    try:
+        return _main(args)
+    finally:
+        # whatever the run registered or attached (the reliable wire's
+        # counters through make_transport, component stats) in one snapshot
+        if args.metrics_dump:
+            from distributed_ml_pytorch_tpu_torch.coord.cli import dump_metrics
+
+            dump_metrics(args.metrics_dump)
+
+
+def _main(args) -> int:
     print(args)
     if args.no_distributed:
         from distributed_ml_pytorch_tpu_torch.training.trainer import train_single

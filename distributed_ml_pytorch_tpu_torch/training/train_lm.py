@@ -48,10 +48,12 @@ devices:
   split into ``data`` 2 (when even) and ``fsdp``.
 
 The mesh must take the whole world. ``--batch`` is the global batch; each
-rank trains on its share (``parallel/*.py``), and rank 0 prints.
-Checkpoints of a sharded state are not ported yet (``--ckpt-dir`` is
-refused in every mesh mode), nor is the chunked loss outside single and
-fsdp.
+rank trains on its share (``parallel/*.py``), and rank 0 prints. In a mesh
+mode ``--ckpt-dir``/``--ckpt-every``/``--resume`` save and restore the
+mode's global tree (``utils/checkpoint.ShardedCheckpointer``: gathered
+over the mesh, written by rank 0, restored into the full model before the
+mode shards it, so that it lands in the mode's layout); a checkpoint of
+another mode raises. The chunked loss is ported for single and fsdp only.
 """
 
 from __future__ import annotations
@@ -189,9 +191,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                        f"is not divisible by any share of it)")
             parser.error(f"--mode {args.mode}: the mesh {shape} the flags allow does not "
                          f"take the whole world of {args.world_size} ranks{why}")
-        if args.ckpt_dir:
-            parser.error(f"--mode {args.mode}: checkpoints of a sharded state are not "
-                         f"ported yet (drop --ckpt-dir)")
         if args.mode != "fsdp" and args.loss_chunk:
             parser.error(f"--mode {args.mode}: the chunked loss is ported for single and "
                          f"fsdp only (drop --loss-chunk)")
@@ -261,24 +260,28 @@ def build_model(args: argparse.Namespace, device):
     )
 
 
-def _mesh_setup(args, tx, dev, attn_fn=None):
-    """``(mesh, state, step, shard, desc)`` of a mesh ``--mode``: this
-    process's rank of the world builds the mode's model from the seed on
-    ``dev`` (``attn_fn`` injected into every block), shards it and builds
-    the step over its share of a global batch (``shard(tokens, targets)``);
-    ``step`` returns ``(state, loss)``."""
+def _mesh_setup(args, tx, dev, attn_fn=None, mesh=None, load_full=None):
+    """``(mesh, state, step, shard, desc, layout)`` of a mesh ``--mode``:
+    this process's rank of the world builds the mode's model from the seed
+    on ``dev`` (``attn_fn`` injected into every block), ``load_full(model)``
+    (a checkpoint's global tree) loads it before the mode shards it, and
+    builds the step over its share of a global batch (``shard(tokens,
+    targets)``); ``step`` returns ``(state, loss)``, ``layout(state)`` is the
+    state's checkpoint layout (``utils/checkpoint``)."""
     from distributed_ml_pytorch_tpu_torch.runtime.mesh import current_world, make_mesh
+    from distributed_ml_pytorch_tpu_torch.utils.checkpoint import replicated_layout
 
-    world = current_world()
-    mesh = make_mesh(mesh_shape(args), world)
+    mesh = mesh or make_mesh(mesh_shape(args), current_world())
     shape = mesh.shape
     dims = "x".join(str(v) for v in shape.values())
     if args.mode == "pp":
         from distributed_ml_pytorch_tpu_torch.parallel.pipeline import (
+            PipelineLM,
             PipelineLMConfig,
             create_pp_train_state,
             make_pp_train_step,
             microbatch,
+            pp_layout,
         )
 
         cfg = PipelineLMConfig(vocab_size=args.vocab, d_model=args.d_model,
@@ -287,7 +290,14 @@ def _mesh_setup(args, tx, dev, attn_fn=None):
         n_mb = math.gcd(args.microbatches, args.batch)
         data_axis = "data" if "data" in shape else None
         model_axis = "model" if "model" in shape else None
-        state = create_pp_train_state(cfg, tx, mesh, model_axis=model_axis, seed=args.seed)
+        params = None
+        if load_full is not None:
+            with torch.device("meta"):
+                full = PipelineLM(cfg)
+            load_full(full)
+            params = full.state_dict()
+        state = create_pp_train_state(cfg, tx, mesh, model_axis=model_axis, seed=args.seed,
+                                      params=params)
         if attn_fn is not None:
             for blk in state.model.blocks:
                 blk.attn.attn_fn = attn_fn
@@ -296,11 +306,13 @@ def _mesh_setup(args, tx, dev, attn_fn=None):
         tp_desc = f" x {args.pp_tp} tp-in-stage" if model_axis else ""
         desc = (f"{dims} dp x pp GPipe{tp_desc}, {n_mb} microbatches" if data_axis else
                 f"{shape['stage']}-stage GPipe{tp_desc}, {n_mb} microbatches")
-        return mesh, state, step, lambda t, g: microbatch(t, g, n_mb), desc
+        return (mesh, state, step, lambda t, g: microbatch(t, g, n_mb), desc,
+                lambda st: pp_layout(st, model_axis=model_axis))
     if args.mode == "moe":
         from distributed_ml_pytorch_tpu_torch.models.moe import MoETransformerLM
         from distributed_ml_pytorch_tpu_torch.parallel.expert_parallel import (
             create_ep_train_state,
+            ep_layout,
             make_ep_train_step,
             shard_ep_batch,
         )
@@ -313,6 +325,8 @@ def _mesh_setup(args, tx, dev, attn_fn=None):
             remat=args.remat, seed=args.seed, device=dev)
         if attn_fn is not None:
             lm.set_attn_fn(attn_fn)
+        if load_full is not None:
+            load_full(lm)
         state = create_ep_train_state(lm, tx, mesh)
         ep_step = make_ep_train_step(lm, tx, mesh)
 
@@ -321,10 +335,12 @@ def _mesh_setup(args, tx, dev, attn_fn=None):
             return state, loss
 
         return (mesh, state, step, lambda t, g: shard_ep_batch(mesh, t, g),
-                f"{dims} dp x ep ({args.n_experts} experts)")
+                f"{dims} dp x ep ({args.n_experts} experts)", ep_layout)
     lm = build_model(args, dev)
     if attn_fn is not None:
         lm.set_attn_fn(attn_fn)
+    if load_full is not None:
+        load_full(lm)
     if args.mode in ("sp", "ulysses"):
         from distributed_ml_pytorch_tpu_torch.parallel.seq_parallel import (
             create_lm_train_state,
@@ -337,9 +353,10 @@ def _mesh_setup(args, tx, dev, attn_fn=None):
         make = make_sp_train_step if args.mode == "sp" else make_ulysses_train_step
         pattern = "ring" if args.mode == "sp" else "all-to-all"
         return (mesh, state, make(lm, tx, mesh), lambda t, g: shard_lm_batch(mesh, t, g),
-                f"{dims} dp x seq ({pattern})")
+                f"{dims} dp x seq ({pattern})", replicated_layout)
     if args.mode == "composite":
         from distributed_ml_pytorch_tpu_torch.parallel.composite import (
+            composite_layout,
             create_composite_train_state,
             make_composite_train_step,
             shard_composite_batch,
@@ -347,10 +364,12 @@ def _mesh_setup(args, tx, dev, attn_fn=None):
 
         state, specs = create_composite_train_state(lm, tx, mesh)
         return (mesh, state, make_composite_train_step(lm, tx, mesh, specs),
-                lambda t, g: shard_composite_batch(mesh, t, g), f"{dims} dp x fsdp x tp")
+                lambda t, g: shard_composite_batch(mesh, t, g), f"{dims} dp x fsdp x tp",
+                lambda st: composite_layout(st, specs))
     if args.mode == "fsdp":
         from distributed_ml_pytorch_tpu_torch.parallel.fsdp import (
             create_fsdp_train_state,
+            fsdp_layout,
             make_fsdp_lm_train_step,
             param_shard_fraction,
             shard_fsdp_batch,
@@ -359,17 +378,18 @@ def _mesh_setup(args, tx, dev, attn_fn=None):
         state = create_fsdp_train_state(lm, tx, mesh)
         step = make_fsdp_lm_train_step(lm, tx, mesh, loss_chunk=args.loss_chunk)
         desc = f"{mesh.size}-way fsdp ({param_shard_fraction(state):.3f} of params/rank)"
-        return mesh, state, step, lambda t, g: shard_fsdp_batch(mesh, t, g), desc
+        return mesh, state, step, lambda t, g: shard_fsdp_batch(mesh, t, g), desc, fsdp_layout
     from distributed_ml_pytorch_tpu_torch.parallel.tensor_parallel import (
         create_tp_train_state,
         make_tp_train_step,
         shard_tp_batch,
+        tp_layout,
     )
 
     state = create_tp_train_state(lm, tx, mesh)
     step = make_tp_train_step(lm, tx, mesh)
     return (mesh, state, step, lambda t, g: shard_tp_batch(mesh, t, g),
-            f"{shape['data']}x{shape['model']} dp x tp")
+            f"{shape['data']}x{shape['model']} dp x tp", tp_layout)
 
 
 def _k_steps(step):
@@ -411,8 +431,28 @@ def run(args: argparse.Namespace, attn_fn=None) -> LMRun:
     k = args.steps_per_dispatch
     tokens, targets = lm_batches(args)
     mesh = None
+    ckpt, start_step = None, 0
     if world is not None:
-        mesh, state, step1, shard, desc = _mesh_setup(args, tx, dev, attn_fn)
+        from distributed_ml_pytorch_tpu_torch.runtime.mesh import make_mesh
+        from distributed_ml_pytorch_tpu_torch.utils.checkpoint import ShardedCheckpointer
+
+        mesh = make_mesh(mesh_shape(args), world)
+        found = None
+        if args.ckpt_dir:
+            # its layout is the placed state's, set below
+            ckpt = ShardedCheckpointer(args.ckpt_dir, mode=args.mode, mesh=mesh,
+                                       layout_fn=None, save_interval_steps=args.ckpt_every)
+            found = ckpt.load() if args.resume else None
+        load_full = None if found is None else (lambda m: ckpt.restore_params(found[0], m))
+        mesh, state, step1, shard, desc, layout_fn = _mesh_setup(args, tx, dev, attn_fn, mesh,
+                                                                 load_full)
+        if ckpt is not None:
+            ckpt.layout_fn = layout_fn
+        if found is not None:
+            ckpt.restore_placed(state, found[0])
+            start_step = found[1]
+            if mesh.rank == 0:
+                print(f"resumed from checkpoint step {start_step}", flush=True)
         step = _k_steps(step1) if k > 1 else step1
         tok, tgt = (torch.from_numpy(a.astype(np.int64)) for a in (tokens, targets))
         if k > 1:  # each of the K stacked batches sharded as one batch is
@@ -436,8 +476,7 @@ def run(args: argparse.Namespace, attn_fn=None) -> LMRun:
         where = f"single-device on {dev.type}, 1 of {n_dev} devices"
     say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
 
-    ckpt, start_step = None, 0
-    if args.ckpt_dir:
+    if args.ckpt_dir and mesh is None:
         from distributed_ml_pytorch_tpu_torch.utils.checkpoint import (
             Checkpointer,
             maybe_restore,

@@ -47,6 +47,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from distributed_ml_pytorch_tpu_torch.data import (
+    CIFAR10_CLASSES,
     get_dataset,
     iterate_batches,
     prefetch_to_device,
@@ -60,8 +61,12 @@ from distributed_ml_pytorch_tpu_torch.training.optim import (  # noqa: F401 — 
     make_optimizer,
     tx_from_args,
 )
-from distributed_ml_pytorch_tpu_torch.utils.metrics import MetricsLogger, print_eval_line
-from distributed_ml_pytorch_tpu_torch.utils.tracing import StepTimer
+from distributed_ml_pytorch_tpu_torch.utils.metrics import (
+    MetricsLogger,
+    print_classification_report,
+    print_eval_line,
+)
+from distributed_ml_pytorch_tpu_torch.utils.tracing import StepTimer, TraceWindow, annotate_step
 
 #: eager steps run on a side stream before a graph is captured (PyTorch's
 #: whole-network capture recipe); they are real training steps
@@ -482,10 +487,10 @@ def evaluate(eval_step: Callable, x_test: np.ndarray, y_test: np.ndarray,
         loss, preds = eval_step(*to_device(bx, by, device))
         total_loss += float(loss)
         preds_all.append(preds.cpu().numpy())
-    accuracy = float((np.concatenate(preds_all) == y_test).mean())
+    y_pred = np.concatenate(preds_all)
+    accuracy = float((y_pred == y_test).mean())
     if verbose:
-        print("Loss: {:.3f}".format(total_loss))
-        print("Accuracy: {:.3f}".format(accuracy))
+        print_classification_report(y_test, y_pred, CIFAR10_CLASSES, total_loss, accuracy)
     return total_loss, accuracy
 
 
@@ -507,29 +512,48 @@ def run_training_loop(*, state: TrainState, train_step: Callable, eval_step: Cal
     land in the CSV row for row. The per-step path keeps ``--prefetch``
     batches' copies in flight (``data.prefetch_to_device``); the chunked
     path copies each chunk from pinned memory itself.
+
+    ``--profile-dir`` traces the global steps ``[--profile-start, +
+    --profile-steps)`` (``utils/tracing.TraceWindow``; a resumed run counts
+    on from its checkpoint's step), each dispatch inside an
+    ``annotate_step("train", step)`` range.
     """
     x_train, y_train, x_test, y_test = data
     seed = getattr(args, "seed", 0)
+    tracer = TraceWindow(getattr(args, "profile_dir", None),
+                         start=getattr(args, "profile_start", 10),
+                         n_steps=getattr(args, "profile_steps", 10))
+    global_step = int(state.step)
     timer = StepTimer(items_per_step=args.batch_size)
     chunk_k = int(getattr(args, "steps_per_dispatch", 1) or 1)
     use_scan = scan_step is not None and chunk_k > 1
 
     def run_one(state, i, bx, by):
+        nonlocal global_step
+        tracer.on_step(global_step)
         timer.start()
-        state, loss = train_step(state, bx, by)
-        loss_val = float(loss)  # waits for the step
+        with annotate_step("train", global_step):
+            state, loss = train_step(state, bx, by)
+            loss_val = float(loss)  # waits for the step
         timer.tick()
         if ckpt is not None:
             ckpt.save(state.step, state)
+        global_step += 1
+        tracer.after_step(global_step)
         return state, [(i, loss_val)]
 
     def run_chunk(state, chunk):
+        nonlocal global_step
+        tracer.on_step(global_step, n_steps=len(chunk))
         timer.start()
-        state, losses = scan_step(state, [c[1] for c in chunk], [c[2] for c in chunk])
-        losses = losses.cpu().tolist()  # one synchronisation for the chunk
+        with annotate_step("train", global_step):
+            state, losses = scan_step(state, [c[1] for c in chunk], [c[2] for c in chunk])
+            losses = losses.cpu().tolist()  # one synchronisation for the chunk
         timer.tick_n(len(chunk))
         if ckpt is not None:
             ckpt.save(state.step, state)
+        global_step += len(chunk)
+        tracer.after_step(global_step)
         return state, [(c[0], loss) for c, loss in zip(chunk, losses)]
 
     def emit(records):
@@ -569,12 +593,16 @@ def run_training_loop(*, state: TrainState, train_step: Callable, eval_step: Cal
             if pending:
                 state, records = run_chunk(state, pending)
                 emit(records)
+            # a window across the epoch's end stops here, before the eval
+            tracer.close()
             evaluate(eval_step, x_test, y_test, args.test_batch_size, device, verbose=True)
             line = timer.report("epoch {} train-step time".format(epoch))
             if line:
                 print(line)
             timer.reset_stats()
     finally:
+        tracer.close()
+        tracer.warn_if_never_opened()
         # commit the last completed step even when interrupted mid-epoch
         if ckpt is not None:
             try:
@@ -585,23 +613,35 @@ def run_training_loop(*, state: TrainState, train_step: Callable, eval_step: Cal
     return state
 
 
-def setup_checkpoint(args, state: TrainState, steps_per_epoch: int):
+def setup_checkpoint(args, state: TrainState, steps_per_epoch: int, sharded=None):
     """The Checkpointer from the CLI flags, and a resumed run's position:
     ``(ckpt, state, start_epoch, start_iter)``; ``ckpt`` is ``None`` without
-    ``--ckpt-dir``."""
+    ``--ckpt-dir``. With ``sharded = (mode, layout_fn, mesh)`` it is a
+    ``ShardedCheckpointer``, and a resume loads the parameters into the full
+    ``state.model`` and sets ``state.step`` (``ckpt.restore_placed`` loads
+    the optimizer state once the state is sharded)."""
     if not getattr(args, "ckpt_dir", None):
         return None, state, 0, 0
     from distributed_ml_pytorch_tpu_torch.utils.checkpoint import (
         Checkpointer,
+        ShardedCheckpointer,
         maybe_restore,
         resume_position,
     )
 
-    ckpt = Checkpointer(args.ckpt_dir, max_to_keep=getattr(args, "ckpt_keep", 3),
-                        save_interval_steps=getattr(args, "ckpt_every", 500))
+    keep, every = getattr(args, "ckpt_keep", 3), getattr(args, "ckpt_every", 500)
+    if sharded is not None:
+        mode, layout_fn, mesh = sharded
+        ckpt = ShardedCheckpointer(args.ckpt_dir, mode=mode, mesh=mesh, layout_fn=layout_fn,
+                                   max_to_keep=keep, save_interval_steps=every)
+    else:
+        ckpt = Checkpointer(args.ckpt_dir, max_to_keep=keep, save_interval_steps=every)
     start_epoch = start_iter = 0
     if getattr(args, "resume", False):
-        state, resume_step = maybe_restore(ckpt, state)
+        if sharded is not None:
+            resume_step = ckpt.resume_full(state)
+        else:
+            state, resume_step = maybe_restore(ckpt, state)
         if resume_step:
             start_epoch, start_iter = resume_position(resume_step, steps_per_epoch)
             print("resumed from step {} → epoch {} iter {}".format(

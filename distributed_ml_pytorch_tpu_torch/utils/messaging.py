@@ -930,6 +930,17 @@ def _frame_crc_legacy(inc: int, seq: int, code: int, body, corr: int = 0) -> int
 #: the data frames behind them unread and unacked
 PARK_MAX = 8
 
+#: the share of the timeout floor that the frames queued at a lagging
+#: receiver may take its application to serve: while its application lags
+#: (a frame was still waiting when it took one, within the last
+#: ``ack_timeout``, or frames wait while it holds one), the credit it
+#: advertises is at most this share of ``ack_timeout`` over the
+#: application's time a frame, split among its senders. A quarter: a frame
+#: also waits for its own serving and its log's fsync, and the senders'
+#: queued frames together take up to this share, so half the floor and more
+#: stays between the longest ack and its timeout
+LAG_CREDIT_SHARE = 0.25
+
 #: the codes of the reliable layer's acks, taken in whatever the park holds
 _ACK_CODES = (MessageCode.ReliableAck, MessageCode.CumAck)
 
@@ -1026,7 +1037,7 @@ class _PeerState:
 class _RxState:
     """Per-sender receiver state for cumulative acks."""
 
-    __slots__ = ("inc", "cum_hw", "eligible", "dirty", "last_flush")
+    __slots__ = ("inc", "cum_hw", "eligible", "dirty", "last_flush", "advertised")
 
     def __init__(self, inc: int):
         self.inc = inc
@@ -1037,6 +1048,7 @@ class _RxState:
         self.eligible: set = set()
         self.dirty = 0             # eligible deliveries since the last flush
         self.last_flush = 0.0
+        self.advertised: Optional[int] = None  # the credit the last CumAck carried
 
 
 class ReliableTransport(Transport):
@@ -1080,7 +1092,11 @@ class ReliableTransport(Transport):
     - *window*: at most ``min(send_window, advertised credit)`` unacked
       frames; :meth:`send` blocks there (and pumps the inner transport, so
       acks clear on a rank with no receiving thread), counting
-      ``window_blocked`` and ``window_blocked_s``;
+      ``window_blocked`` and ``window_blocked_s`` when ``send_window``
+      frames are unacked (the JAX layer's meaning, the gray plane's witness
+      of a link whose acks do not come back), and ``credit_blocked`` and
+      ``credit_blocked_s`` when the receiver's advertised credit held the
+      window below it (a live receiver slowing its senders down);
     - *cumulative acks*: in-order deliveries are acked by one ``CumAck(inc,
       cum, credit)`` per ``ack_batch_n`` frames or retry tick; frames above
       a gap get an individual ``ReliableAck`` at once;
@@ -1101,11 +1117,29 @@ class ReliableTransport(Transport):
     their ack and parked, with their envelope, for :meth:`recv` to hand out
     in arrival order. Parked frames count against the credit this receiver
     advertises, so a slow application still narrows its senders' windows.
+    While the application lags (a frame was still waiting when it took one,
+    within the last timeout floor, or frames wait while it holds one), the
+    credit is also at most what the application serves within
+    :data:`LAG_CREDIT_SHARE` of that floor, at its time a frame (a running
+    estimate from a hand-out to the next :meth:`recv`, which a slower frame
+    raises at once, or the time it has held its current frame when that is
+    longer), split among its senders, less the frames a sender has parked (acked
+    ones too: a push waits behind every frame ahead of it): a frame whose
+    ack waits for the application (a durable push, which also waits for the
+    log's group) is not queued behind more than that. A cut by that bound is sent
+    at once (a ``CumAck`` repeating the frontier), and :meth:`acks_overdue`
+    tells a durable receiver when a withheld ack has waited that share of
+    the floor since its frame was read.
     Past :data:`PARK_MAX` parked frames the tick still takes in acks, and
     holds the data frames read beside them unprocessed and unacked (the
     backlog, handed out after the park, in order).
 
-    ``recorder`` (a flight recorder) is always ``None`` in this package.
+    ``recorder`` (a ``utils/obs.SpanRecorder``, attached after
+    construction) takes the wire plane's side of a timeline: the spans a
+    send was blocked at the window, retransmit and breaker events, the
+    release of withheld acks and one ``wire-stats`` event at teardown. It
+    is never consulted for a protocol decision, so a frame, its checksum
+    and a chaos log are the same with it or without it.
     """
 
     def __init__(self, inner: Transport, *, ack_timeout: float = 1.0,
@@ -1157,7 +1191,8 @@ class ReliableTransport(Transport):
         #: by recv() before anything newer
         self._requeue: "collections.deque" = collections.deque()
         #: inner frames read past a full park, not yet processed (so not
-        #: acked), in arrival order; processed before anything newer
+        #: acked), each ``(read at, message)``, in arrival order; processed
+        #: before anything newer
         self._backlog: "collections.deque" = collections.deque()
         #: held by whichever thread reads the inner transport, so frames are
         #: parked and handed out in the order they arrived
@@ -1169,9 +1204,19 @@ class ReliableTransport(Transport):
         self._peer_inc: Dict[int, int] = {}
         self._rx: Dict[int, _RxState] = {}
         self._credit_override: Optional[int] = None
+        #: the application's time a frame of each code (seconds, running
+        #: estimates that a slower frame raises at once): from a hand-out to
+        #: its next call of recv()
+        self._service_s: Dict[int, float] = {}
+        #: when the frame the application holds was handed out, and its code
+        self._last_handout: Optional[Tuple[float, int]] = None
+        #: the application lags until then (monotonic seconds)
+        self._lag_until = 0.0
         self._dead_peers: set = set()
         self.ack_on_delivery = bool(ack_on_delivery)
         self._deferred_acks: "collections.OrderedDict" = collections.OrderedDict()
+        #: when each withheld frame was taken in (monotonic seconds)
+        self._taken_in: Dict[Tuple[int, int, int], float] = {}
         self._last_delivery: Optional[Tuple[int, int]] = None
         self._acked_codes: Dict[Tuple[int, int], int] = {}
         self._closed = False
@@ -1180,10 +1225,12 @@ class ReliableTransport(Transport):
             "crc_dropped": 0, "dup_dropped": 0, "delivered": 0,
             "passthrough": 0,
             "cum_acked": 0, "acks_tx": 0, "cum_acks_tx": 0,
-            "rto_expired": 0, "window_blocked": 0, "breaker_opens": 0,
+            "rto_expired": 0, "window_blocked": 0, "credit_blocked": 0, "breaker_opens": 0,
             "probes": 0,
             # seconds that sends spent blocked at the window
             "window_blocked_s": 0.0,
+            # seconds that sends spent blocked at a receiver's credit
+            "credit_blocked_s": 0.0,
         }
         #: the longest a frame's clock ran before its ack (seconds, frames
         #: never retransmitted): a timeout fires when it passes the peer's
@@ -1196,6 +1243,7 @@ class ReliableTransport(Transport):
         #: each timeout, oldest first (at most 64): the frame's peer, seq,
         #: code and attempt, and how long its clock had run
         self.expired: list = []
+        #: the optional flight recorder (see the class docstring)
         self.recorder = None
         self._retry_wake = threading.Event()
         self._retry_thread = threading.Thread(target=self._retry_loop, name="reliable-retry",
@@ -1265,7 +1313,7 @@ class ReliableTransport(Transport):
             return
         arr = np.ascontiguousarray(np.asarray(payload, dtype=np.float32).ravel())
         corr = _obs.current_corr()
-        blocked = False
+        blocked = None  # the stat a block counts in, once blocked
         block_t0 = 0
         while True:
             with self._lock:
@@ -1285,14 +1333,22 @@ class ReliableTransport(Transport):
                     # section: two sending threads must not both pass it
                     st.inflight += 1
                     break
-                if not blocked:
-                    blocked = True
+                if blocked is None:
+                    blocked = ("credit_blocked" if st.inflight < self.send_window
+                               else "window_blocked")
                     block_t0 = time.monotonic_ns()
-                    self.stats["window_blocked"] += 1
+                    self.stats[blocked] += 1
             self._pump(timeout=0.02)
-        if blocked:
+        if blocked is not None:
+            # a send blocked at the window is a wait state of its own: the
+            # span goes to the wire plane's timeline
+            now_ns = time.monotonic_ns()
             with self._lock:
-                self.stats["window_blocked_s"] += (time.monotonic_ns() - block_t0) / 1e9
+                self.stats[blocked + "_s"] += (now_ns - block_t0) / 1e9
+            rec = self.recorder
+            if rec is not None:
+                rec.record("wire-blocked", "wire-blocked", block_t0, now_ns, corr=corr,
+                           meta={"dst": dst})
         try:
             checksum = _frame_crc_legacy if self.legacy_envelope else _frame_crc
             crc = checksum(self.incarnation, seq, int(code), arr, corr)
@@ -1457,10 +1513,16 @@ class ReliableTransport(Transport):
                     st.probe_at = now + min(self.breaker_cooldown * (2.0 ** (st.opens - 1)),
                                             4.0 * self.max_backoff)
                     self.stats["breaker_opens"] += 1
+                    if self.recorder is not None:
+                        self.recorder.event("breaker-open", corr=0, dst=dst)
                     _LOGGER.warning("reliable: circuit to peer %d OPEN after %d consecutive "
                                     "timeouts (rto %.0f ms), probe in %.2f s", dst,
                                     st.consec_timeouts, st.rto * 1e3, st.probe_at - now)
+        rec = self.recorder
         for p in resend:
+            if rec is not None:
+                rec.event("retransmit", corr=p.corr, dst=p.dst, attempt=p.attempt,
+                          code=p.code)
             try:
                 self.inner.sendv(MessageCode.ReliableFrame, p.parts, dst=p.dst)
             except (OSError, ConnectionError, KeyError):
@@ -1486,18 +1548,20 @@ class ReliableTransport(Transport):
         if not self._rx_lock.acquire(timeout=timeout):
             return
         try:
-            delivery = self._process(self._next_inner(timeout))
+            delivery = self._process(*self._next_inner(timeout))
             if delivery is not None:
                 self._requeue.append(delivery)
         finally:
             self._rx_lock.release()
 
-    def _next_inner(self, timeout: float) -> Optional[Message]:
-        """The oldest inner frame not yet processed: the backlog's first,
-        else the inner transport's next. Caller holds ``_rx_lock``."""
+    def _next_inner(self, timeout: float) -> Tuple[Optional[Message], Optional[float]]:
+        """The oldest inner frame not yet processed and when it was read:
+        the backlog's first, else the inner transport's next (read now).
+        Caller holds ``_rx_lock``."""
         if self._backlog:
-            return self._backlog.popleft()
-        return self.inner.recv(timeout=timeout)
+            read_at, msg = self._backlog.popleft()
+            return msg, read_at
+        return self.inner.recv(timeout=timeout), None
 
     def _pump_arrivals(self) -> None:
         """Take in the frames already waiting in the inner transport (the
@@ -1512,10 +1576,10 @@ class ReliableTransport(Transport):
         try:
             while not self._closed:
                 if len(self._requeue) < PARK_MAX:
-                    msg = self._next_inner(0.0)
+                    msg, read_at = self._next_inner(0.0)
                     if msg is None:
                         return
-                    delivery = self._process(msg)
+                    delivery = self._process(msg, read_at)
                     if delivery is not None:
                         self._requeue.append(delivery)
                     continue
@@ -1525,14 +1589,15 @@ class ReliableTransport(Transport):
                 if msg[1] in _ACK_CODES:
                     self._process(msg)
                 else:
-                    self._backlog.append(msg)
+                    self._backlog.append((time.monotonic(), msg))
         finally:
             self._rx_lock.release()
 
-    def _process(self, msg: Optional[Message]):
-        """Handle one inner frame: acks and envelope bookkeeping are
-        absorbed; returns ``(corr, envelope, message)`` for a deliverable
-        frame (``envelope`` is ``(incarnation, seq)``, ``None`` for a plain
+    def _process(self, msg: Optional[Message], read_at: Optional[float] = None):
+        """Handle one inner frame (read from the inner transport at
+        ``read_at``, else now): acks and envelope bookkeeping are absorbed;
+        returns ``(corr, envelope, message)`` for a deliverable frame
+        (``envelope`` is ``(incarnation, seq)``, ``None`` for a plain
         frame), else ``None``. Caller holds ``_rx_lock``."""
         if msg is None:
             return None
@@ -1670,6 +1735,7 @@ class ReliableTransport(Transport):
             # it is durable (a frame still parked is not yet applied)
             with self._lock:
                 self._deferred_acks[key] = False
+                self._taken_in[key] = time.monotonic() if read_at is None else read_at
             return corr, (inc, seq), (sender, mcode, body)
         send_individual = False
         flush_now = False
@@ -1720,6 +1786,7 @@ class ReliableTransport(Transport):
             return False
         for key in [k for k in self._deferred_acks if k[0] == sender and k[2] == inc]:
             del self._deferred_acks[key]
+            self._taken_in.pop(key, None)
         _LOGGER.warning("reliable: rank %d began a new life in incarnation %d's second "
                         "(a seq 0 with another checksum) — fresh sequence space",
                         sender, inc)
@@ -1759,7 +1826,40 @@ class ReliableTransport(Transport):
         withheld = sum(1 for (s, _q, _i), handed in self._deferred_acks.items()
                        if s == sender and handed)
         parked = sum(1 for _c, _e, m in list(self._requeue) if m[0] == sender)
-        return max(0, self.recv_window - withheld - parked)
+        credit = max(0, self.recv_window - withheld - parked)
+        served = self._served_credit(parked)
+        return credit if served is None else min(credit, served)
+
+    def _lag_service(self) -> Optional[float]:
+        """The application's time a frame while it lags, else None: the
+        slowest code's running estimate, or the time it has held the frame
+        it took last when that is longer (a frame slower than the ones
+        before it shows while it is served, not after); unbounded while it
+        holds a frame of a code it has not served before (a first push is
+        not as quick as the pulls before it: one frame at a time until its
+        time is known). The application lags while a frame waited at its
+        last hand-out (within the last timeout floor), or while frames
+        wait as it holds one. Caller holds ``_lock``."""
+        now = time.monotonic()
+        held, code = (0.0, None) if self._last_handout is None else (
+            now - self._last_handout[0], self._last_handout[1])
+        if now >= self._lag_until and not (held > 0.0 and (self._requeue or self._backlog)):
+            return None
+        if code is not None and code not in self._service_s:
+            return float("inf")
+        return max(max(self._service_s.values(), default=0.0), held)
+
+    def _served_credit(self, parked: int) -> Optional[int]:
+        """While the application lags, the frames a sender may have queued
+        here that it serves within :data:`LAG_CREDIT_SHARE` of the timeout
+        floor, less the ``parked`` ones it has queued already (acked frames
+        among them: a push waits behind them all); None when it does not
+        lag. Caller holds ``_lock``."""
+        service = self._lag_service()
+        if not service:
+            return None
+        share = self.ack_timeout * LAG_CREDIT_SHARE / service
+        return max(0, int(min(share / max(1, len(self._rx)), self.recv_window)) - parked)
 
     def _flush_acks(self) -> None:
         """Send every dirty cumulative ack (on a full batch, on the retry
@@ -1767,12 +1867,18 @@ class ReliableTransport(Transport):
         out = []
         with self._lock:
             for sender, rx in self._rx.items():
-                if rx.dirty <= 0 or rx.cum_hw < 0:
+                if rx.cum_hw < 0:
+                    continue
+                credit = self._credit_for(sender)
+                # a cut while the application lags is news: sent at once
+                cut = self._lag_service() is not None and credit < (
+                    self.recv_window if rx.advertised is None else rx.advertised)
+                if rx.dirty <= 0 and not cut:
                     continue
                 rx.dirty = 0
+                rx.advertised = credit
                 out.append((sender, np.asarray(
-                    [*_split16(rx.inc), *_split16(rx.cum_hw),
-                     float(self._credit_for(sender))], np.float32)))
+                    [*_split16(rx.inc), *_split16(rx.cum_hw), float(credit)], np.float32)))
         for sender, frame in out:
             with self._lock:
                 self.stats["cum_acks_tx"] += 1
@@ -1791,6 +1897,12 @@ class ReliableTransport(Transport):
             due = [k for k, handed in self._deferred_acks.items() if handed]
             for key in due:
                 del self._deferred_acks[key]
+                self._taken_in.pop(key, None)
+        rec = self.recorder
+        if rec is not None and due:
+            # the durability commit released these acks
+            rec.event("ack-release", corr=0, n=len(due))
+        with self._lock:
             for sender, seq, inc in due:
                 rx = self._rx.get(sender)
                 if rx is None or rx.inc != inc or not self.batched_acks:
@@ -1804,6 +1916,16 @@ class ReliableTransport(Transport):
         for sender, seq, inc in individual:
             self._send_ack(sender, seq, inc)
         self._flush_acks()
+
+    def acks_overdue(self) -> bool:
+        """Whether a withheld ack of a frame already handed to the
+        application has waited :data:`LAG_CREDIT_SHARE` of the timeout
+        floor since the frame was read from the inner transport: a durable receiver commits then
+        instead of growing its group."""
+        limit = time.monotonic() - self.ack_timeout * LAG_CREDIT_SHARE
+        with self._lock:
+            return any(handed and self._taken_in.get(k, limit) < limit
+                       for k, handed in self._deferred_acks.items())
 
     def advertise_credit(self, credit: Optional[int]) -> None:
         """Pin the advertised credit (``None`` restores the default,
@@ -1894,10 +2016,24 @@ class ReliableTransport(Transport):
             st = self._peers.get(dst)
             return self.ack_timeout if st is None else st.rto
 
+    def emit_wire_stats(self) -> None:
+        """One ``wire-stats`` event at teardown with the counters the
+        timeline analyzer reads (retransmit share, ack frames per data
+        frame, seconds blocked at the window)."""
+        rec = self.recorder
+        if rec is None:
+            return
+        with self._lock:
+            stats = dict(self.stats)
+        rec.event("wire-stats", corr=0,
+                  **{k: (round(v, 6) if isinstance(v, float) else v) for k, v in stats.items()})
+
     def detach(self) -> None:
         """Stop this wrapper (the retry thread exits, ``recv`` returns
         ``None``) without closing the inner transport: a server's restart
         within one process hands the endpoint to a new wrapper."""
+        if not self._closed:
+            self.emit_wire_stats()
         self._closed = True
         self._retry_wake.set()
 
@@ -1906,6 +2042,14 @@ class ReliableTransport(Transport):
         becomes :attr:`last_delivery` and its correlation id this thread's
         (the handler inherits the sender's unit of work)."""
         deadline = None if timeout is None else time.monotonic() + timeout
+        with self._lock:
+            if self._last_handout is not None:
+                # the application's time for the frame it took last
+                t, code = self._last_handout
+                dt = time.monotonic() - t
+                est = self._service_s.get(code)
+                self._service_s[code] = dt if est is None else max(dt, 0.7 * est + 0.3 * dt)
+                self._last_handout = None
         while True:
             if self._closed:
                 return None
@@ -1916,10 +2060,15 @@ class ReliableTransport(Transport):
                 if self._requeue:
                     delivery = self._requeue.popleft()
                 else:
-                    delivery = self._process(self._next_inner(slice_t))
+                    delivery = self._process(*self._next_inner(slice_t))
+                waiting = bool(self._requeue or self._backlog)
             if delivery is not None:
                 corr, envelope, msg = delivery
                 with self._lock:
+                    now = time.monotonic()
+                    self._last_handout = (now, int(msg[1]))
+                    if waiting:
+                        self._lag_until = now + self.ack_timeout
                     self._last_delivery = envelope
                     if envelope is not None:
                         key = (msg[0], envelope[1], envelope[0])
@@ -1955,6 +2104,7 @@ class ReliableTransport(Transport):
     def close(self) -> None:
         if not self._closed:
             self.flush(timeout=min(2.0, self.max_backoff))
+            self.emit_wire_stats()
         self._closed = True
         self._retry_wake.set()
         self.inner.close()
@@ -2002,10 +2152,17 @@ def make_transport(rank: int, world_size: int, master: str = "localhost",
         t = TCPTransport(rank, world_size, master, int(port), connect_timeout, wait_for=0)
     if open_server:
         t.expect_peers(world_size - 1, connect_timeout)
-        return ReliableTransport(t, **opts)
-    if t is None:
+    elif t is None:
         t = TCPTransport(rank, world_size, master, int(port), connect_timeout)
-    return ReliableTransport(t, **opts) if reliable else t
+    if not reliable:
+        return t
+    rt = ReliableTransport(t, **opts)
+    # the wrapper's counters are in every --metrics-dump (a restarted rank
+    # attaches its new wrapper in place of the old one)
+    from distributed_ml_pytorch_tpu_torch.utils.metrics import get_registry
+
+    get_registry().attach(f"wire.rank{rank}", lambda rt=rt: dict(rt.stats))
+    return rt
 
 
 def make_world(world_size: int, *, reliable: bool = False, plan=None, log=None,

@@ -1,9 +1,15 @@
-"""Per-iteration training records and per-rank CSV dumps, and the serving
-SLO percentiles (counterpart of the JAX ``utils/metrics.py``
-``MetricsLogger`` / ``print_eval_line`` / ``percentile`` /
-``latency_summary``), and the admission gate's running statistics
-(:class:`EwmaMeanVar`, as the JAX module's), and the telemetry EWMA a
-worker's lease renewals carry (:class:`Ewma`).
+"""Per-iteration training records and per-rank CSV dumps, the serving SLO
+percentiles, the verbose per-class report, and the process's one metrics
+registry (counterpart of the JAX ``utils/metrics.py``: ``MetricsLogger``,
+``print_eval_line``, ``print_classification_report``, ``percentile``,
+``latency_summary``, :class:`Counter`, :class:`Gauge`, :class:`Ewma`,
+:class:`EwmaMeanVar` and :class:`Registry` with :func:`get_registry`).
+
+The registry holds owned metrics by name (a counter, a gauge or an EWMA;
+a name holds one kind) and *attached providers*: callables returning the
+flat ``stats`` dicts the planes already keep, sampled when a snapshot is
+taken under their ``prefix.``. ``--metrics-dump`` on the training,
+serving and coordinator CLIs writes its snapshot.
 
 The CSV schema is the reference's (``example/main.py:76-105``):
 ``index, timestamp, iteration, training_loss`` on every row, plus
@@ -15,10 +21,12 @@ pandas' ``DataFrame.to_csv(index_label="index")`` gives the JAX package.
 from __future__ import annotations
 
 import csv
+import json
 import math
 import os
+import threading
 from datetime import datetime
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -89,8 +97,89 @@ def print_eval_line(rec: Dict) -> None:
     )
 
 
+def _divide(num: np.ndarray, den: np.ndarray) -> np.ndarray:
+    """``num / den`` with 0 where ``den`` is 0 (``zero_division=0``)."""
+    out = np.zeros(num.shape, np.float64)
+    np.divide(num, den, out=out, where=den != 0)
+    return out
+
+
+def classification_report(y_true, y_pred, target_names, digits: int = 2) -> str:
+    """The per-class precision, recall, f1 and support table over labels
+    ``0 .. len(target_names) - 1``, with the accuracy, macro and weighted
+    average rows, as text equal to scikit-learn's ``classification_report``
+    (``zero_division=0``), computed with numpy alone."""
+    names = list(target_names)
+    n = len(names)
+    y_true = np.asarray(y_true).ravel().astype(np.int64)
+    y_pred = np.asarray(y_pred).ravel().astype(np.int64)
+    labels = np.arange(n)
+    tp = np.array([np.sum((y_true == c) & (y_pred == c)) for c in labels], np.float64)
+    pred = np.array([np.sum(y_pred == c) for c in labels], np.float64)
+    true = np.array([np.sum(y_true == c) for c in labels], np.float64)
+    precision, recall = _divide(tp, pred), _divide(tp, true)
+    f1 = _divide(2.0 * tp, true + pred)
+    headers = ["precision", "recall", "f1-score", "support"]
+    width = max(max(len(cn) for cn in names), len("weighted avg"), digits)
+    report = ("{:>{width}s} " + " {:>9}" * len(headers)).format("", *headers, width=width)
+    report += "\n\n"
+    row_fmt = "{:>{width}s} " + " {:>9.{digits}f}" * 3 + " {:>9}\n"
+    # scikit-learn's supports are floats when no sample is right at all
+    support = (lambda v: float(v)) if tp.sum() == 0 else (lambda v: int(v))
+    for i, name in enumerate(names):
+        report += row_fmt.format(name, precision[i], recall[i], f1[i], support(true[i]),
+                                 width=width, digits=digits)
+    report += "\n"
+    total = support(true.sum())
+    accuracy = float(np.sum(y_true == y_pred)) / y_true.size if y_true.size else 0.0
+    report += ("{:>{width}s} " + " {:>9.{digits}}" * 2 + " {:>9.{digits}f}" + " {:>9}\n"
+               ).format("accuracy", "", "", accuracy, total, width=width, digits=digits)
+    weights = true if true.sum() else None
+    for heading, w in (("macro avg", None), ("weighted avg", weights)):
+        avg = [float(np.average(m, weights=w)) if (w is None or w.sum()) else 0.0
+               for m in (precision, recall, f1)]
+        report += row_fmt.format(heading, *avg, total, width=width, digits=digits)
+    return report
+
+
+def print_classification_report(y_true: np.ndarray, y_pred: np.ndarray, class_names,
+                                test_loss: float, accuracy: float) -> None:
+    """Verbose eval report (reference ``example/main.py:128-131``) over the
+    full test set, ``y_true`` first (the reference scored only its last
+    batch, with the arguments swapped)."""
+    print("Loss: {:.3f}".format(test_loss))
+    print("Accuracy: {:.3f}".format(accuracy))
+    print(classification_report(y_true, y_pred, class_names))
+
+
 #: the smoothing of the telemetry EWMAs (the JAX package's)
 TELEMETRY_ALPHA = 0.3
+
+
+class Counter:
+    """A monotonic event counter."""
+
+    __slots__ = ("value",)
+
+    def __init__(self):
+        self.value = 0
+
+    def inc(self, n: int = 1) -> int:
+        self.value += int(n)
+        return self.value
+
+
+class Gauge:
+    """The last value written."""
+
+    __slots__ = ("value",)
+
+    def __init__(self):
+        self.value = 0.0
+
+    def set(self, v: float) -> float:
+        self.value = float(v)
+        return self.value
 
 
 class Ewma:
@@ -149,3 +238,95 @@ class EwmaMeanVar:
             self.mean += self.alpha * d
             self.var = (1.0 - self.alpha) * (self.var + self.alpha * d * d)
         self.count += 1
+
+
+class Registry:
+    """One named home for a process's metrics.
+
+    Owned metrics (:meth:`counter`, :meth:`gauge`, :meth:`ewma`) are got or
+    made by name; a name holds one kind, and asking it for another (or an
+    EWMA with another ``alpha``) raises. :meth:`attach` registers a
+    provider, a callable returning a flat dict, sampled at
+    :meth:`snapshot` under ``prefix.`` (one that raises is reported as
+    ``prefix.error`` instead of failing the dump)."""
+
+    def __init__(self, name: str = ""):
+        self.name = str(name)
+        self._mu = threading.Lock()
+        self._metrics: Dict[str, object] = {}
+        self._providers: Dict[str, Callable[[], dict]] = {}
+
+    def _get(self, name: str, cls, factory=None):
+        with self._mu:
+            m = self._metrics.get(name)
+            if m is None:
+                m = self._metrics[name] = (factory or cls)()
+            elif not isinstance(m, cls):
+                raise ValueError(f"metric {name!r} already registered as "
+                                 f"{type(m).__name__}, wanted {cls.__name__}")
+            return m
+
+    def counter(self, name: str) -> Counter:
+        return self._get(name, Counter)
+
+    def gauge(self, name: str) -> Gauge:
+        return self._get(name, Gauge)
+
+    def ewma(self, name: str, alpha: float = TELEMETRY_ALPHA) -> Ewma:
+        m = self._get(name, Ewma, factory=lambda: Ewma(alpha))
+        if m.alpha != float(alpha):
+            raise ValueError(f"ewma {name!r} already registered with alpha={m.alpha}, "
+                             f"requested {alpha}")
+        return m
+
+    def attach(self, prefix: str, provider: Callable[[], dict]) -> None:
+        """Register a provider under ``prefix.``, replacing any earlier one
+        of that prefix (a restarted component attaches its new self)."""
+        with self._mu:
+            self._providers[str(prefix)] = provider
+
+    def detach(self, prefix: str) -> None:
+        with self._mu:
+            self._providers.pop(str(prefix), None)
+
+    def snapshot(self) -> Dict[str, object]:
+        """A flat ``name -> value`` dict over the owned metrics and every
+        attached provider, ready for JSON."""
+        with self._mu:
+            metrics = dict(self._metrics)
+            providers = dict(self._providers)
+        out: Dict[str, object] = {}
+        for name, m in sorted(metrics.items()):
+            if isinstance(m, EwmaMeanVar):
+                out[name] = {"mean": m.mean, "var": m.var, "count": m.count}
+            else:
+                out[name] = m.value
+        for prefix, provider in sorted(providers.items()):
+            try:
+                stats = provider()
+            except Exception as e:  # noqa: BLE001 — a dump must not die
+                out[f"{prefix}.error"] = repr(e)
+                continue
+            for k, v in sorted(dict(stats).items()):
+                out[f"{prefix}.{k}"] = v
+        return out
+
+    def dump_json(self, path: Optional[str] = None) -> str:
+        """:meth:`snapshot` as JSON text, also written to ``path`` when
+        given (the ``--metrics-dump`` file)."""
+        text = json.dumps(self.snapshot(), indent=2, sort_keys=True, default=str)
+        if path:
+            d = os.path.dirname(path)
+            if d:
+                os.makedirs(d, exist_ok=True)
+            with open(path, "w") as fh:
+                fh.write(text + "\n")
+        return text
+
+
+_DEFAULT_REGISTRY = Registry("default")
+
+
+def get_registry() -> Registry:
+    """The process's default registry (the one the CLIs dump)."""
+    return _DEFAULT_REGISTRY

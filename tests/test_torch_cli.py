@@ -71,18 +71,30 @@ def test_launch_three_process_tcp_world(tmp_path):
             "index", "timestamp", "iteration", "training_loss"]
 
 
+#: the observability plane's flags, refused until it was ported: now parsed
+OBS_FLAGS = {"--profile-start": ("profile_start", 2), "--metrics-dump": ("metrics_dump", "-"),
+             "--profile-dir": ("profile_dir", "prof")}
+
+
 @pytest.mark.parametrize("flag", [["--profile-start", "2"],
                                   ["--dist-backend", "mpi"],
                                   ["--dtype", "float16"], ["--backend", "tpu"],
                                   ["--metrics-dump", "-"], ["--profile-dir", "prof"]])
 def test_unimplemented_flags_are_rejected(flag):
+    """Bad choices are rejected; the profiling and metrics-dump flags, once
+    rejected as a later plane's, are parsed (the observability plane)."""
+    if flag[0] in OBS_FLAGS:
+        dest, value = OBS_FLAGS[flag[0]]
+        assert getattr(cli.build_parser().parse_args(flag), dest) == value
+        return
     with pytest.raises(SystemExit):
         cli.build_parser().parse_args(flag)
 
 
 NEW_FLAGS = ["dtype", "optimizer", "weight_decay", "grad_clip", "lr_schedule", "grad_accum",
              "steps_per_dispatch", "prefetch", "ckpt_dir", "ckpt_every", "ckpt_keep", "resume",
-             "download", "momentum"]
+             "download", "momentum", "profile_dir", "profile_start", "profile_steps",
+             "metrics_dump"]
 
 
 def _actions(parser):
@@ -135,9 +147,13 @@ def test_ps_flags_take_the_jax_names_defaults_and_choices():
         assert (mine[dest].choices and tuple(mine[dest].choices)) == (
             ref[dest].choices and tuple(ref[dest].choices)), dest
         assert mine[dest].type == ref[dest].type, dest
-    for flag in (["--profile-dir", "prof"], ["--metrics-dump", "-"],
-                 ["--profile-start", "2"], ["--profile-steps", "3"], ["--compress", "fp8"],
-                 ["--combine", "sum"], ["--server-opt", "adagrad"]):
+    # the observability flags parse with --mode ps too (their names and
+    # defaults are held to JAX's with NEW_FLAGS); bad choices are rejected
+    args = cli.build_parser().parse_args(["--profile-dir", "prof", "--metrics-dump", "-",
+                                          "--profile-start", "2", "--profile-steps", "3"])
+    assert (args.profile_dir, args.metrics_dump, args.profile_start,
+            args.profile_steps) == ("prof", "-", 2, 3)
+    for flag in (["--compress", "fp8"], ["--combine", "sum"], ["--server-opt", "adagrad"]):
         with pytest.raises(SystemExit):
             cli.build_parser().parse_args(flag)
 

@@ -17,10 +17,10 @@
   give the same map, fleet view, speculation call and epoch-fence counts.
 - Cross-package TCP worlds: a JAX coordinator with the port's members and
   the reverse adopt the same maps, and rebalance when a shard member dies.
-- Refusals: every attachment, callback and flag of a plane this package
-  does not have yet (the metrics dump) is refused, never ignored. The MPMD
-  stage plane's callback, frames and ``--mpmd`` flag are handled (they were
-  refused, and the frames dropped and counted, before the stage plane).
+- Refusals: unknown options and flags are refused, never ignored. The
+  MPMD stage plane's callback, frames and ``--mpmd`` flag and the metrics
+  dump are handled (they were refused, and the frames dropped and
+  counted, before their planes were ported).
 """
 
 import threading
@@ -378,15 +378,20 @@ def test_later_plane_attachments_callbacks_and_frames_are_refused():
 
 @pytest.mark.parametrize("flags", [["--mpmd", "--metrics-dump", "-"], ["--metrics-dump", "-"]])
 def test_a_later_planes_coordinator_flag_is_rejected(flags):
+    """``--metrics-dump``, rejected until the observability plane was
+    ported, parses beside the scenario flags; an unknown flag is still
+    rejected."""
+    args = tcli.build_parser().parse_args(flags)
+    assert args.metrics_dump == "-" and args.mpmd == ("--mpmd" in flags)
     with pytest.raises(SystemExit):
-        tcli.build_parser().parse_args(flags)
-    assert tcli.build_parser().parse_args(["--mpmd"]).mpmd
+        tcli.build_parser().parse_args(flags + ["--no-such-flag"])
 
 
 @pytest.mark.parametrize("flags", [["--metrics-dump", "-"]])
 def test_a_later_planes_training_flag_is_rejected(flags):
-    with pytest.raises(SystemExit):
-        ttcli.build_parser().parse_args(flags + ["--coord", "localhost:1"])
+    """The training CLI's ``--metrics-dump`` parses beside ``--coord``."""
+    args = ttcli.build_parser().parse_args(flags + ["--coord", "localhost:1"])
+    assert (args.metrics_dump, args.coord) == ("-", "localhost:1")
 
 
 def test_coordinator_flags_take_the_jax_names_and_defaults():

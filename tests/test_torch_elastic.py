@@ -483,3 +483,46 @@ def test_a_clean_stop_serves_the_frames_already_taken_in():
         srv.run(timeout=5)
         assert srv.ps._apply_seq == (0 if crash else 3)
         assert getattr(member, "closed", False) is not crash
+
+
+def test_a_durable_server_closes_its_group_on_an_empty_inbox(tmp_path):
+    """A logged push's ack is released as soon as the server's inbox is
+    empty, not after an idle receive (0.1 s): otherwise each push of a
+    sender held to a narrow window (a lagging server's credit) waited that
+    long for its ack, and the health scenario ran about three times longer.
+    Five pushes sent one at a time, each waiting for its ack: the quickest
+    ack comes well inside 0.1 s (before, none did)."""
+    class Member(_StubCoord):
+        fleet = type("Fleet", (), {"workers_done": staticmethod(lambda: False)})()
+
+        def join(self):
+            return None
+
+        def stop(self):
+            pass
+
+        def close(self):
+            pass
+
+    world = InProcessTransport.create_world(2)
+    server_t = tmsg.ReliableTransport(world[0], ack_on_delivery=False)
+    worker = tmsg.ReliableTransport(world[1])
+    srv = tel.ElasticShardServer(1, 10, server_t, Member(), ckpt_dir=str(tmp_path), wal=True,
+                                 init_params=np.zeros(10, np.float32))
+    srv._apply_map(rebalance(ShardMap(0, 10), [1]))
+    serve = threading.Thread(target=srv.run, kwargs={"timeout": 30})
+    serve.start()
+    waits = []
+    try:
+        for _ in range(5):
+            t0 = time.monotonic()
+            worker.send(MC.ShardPush, _stamped((1, 0, 10), np.ones(10, np.float32)))
+            assert worker.flush(timeout=5), worker.stats
+            waits.append(time.monotonic() - t0)
+    finally:
+        srv.stop()
+        serve.join(timeout=10)
+        for t in (worker, server_t):
+            t.detach()
+    assert srv.ps._apply_seq == 5 and worker.stats["retries"] == 0
+    assert min(waits) < 0.05, waits

@@ -2333,3 +2333,73 @@ def test_mpmd_stage_program_raises_rather_than_run_plain(cuda):
     with pytest.raises(ValueError, match="CUDA kernel"):
         prog.bwd(params, tokens, torch.ones((2, 128, 40), device=cuda))
     assert dict(at.launches) == before
+
+
+@pytest.mark.gpu
+def test_trace_window_counts_k2_on_the_card(cuda, tmp_path):
+    """A ``TraceWindow`` around two fused AlexNet trainer steps at b64: the
+    exported trace holds K2a and K2b three times a step each, and one
+    ``annotate_step`` range a step."""
+    import json
+
+    from distributed_ml_pytorch_tpu_torch.device import full_float32
+    from distributed_ml_pytorch_tpu_torch.models import get_model
+    from distributed_ml_pytorch_tpu_torch.training.trainer import (
+        SGD,
+        create_train_state,
+        make_train_step,
+    )
+    from distributed_ml_pytorch_tpu_torch.utils.tracing import TraceWindow, annotate_step
+
+    full_float32()
+    model = get_model("alexnet", fused_epilogue=True, seed=0, device=cuda)
+    state, step = create_train_state(model, SGD(0.008)), make_train_step(model, SGD(0.008))
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(64, 32, 32, 3)).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(np.arange(64) % 10).to(cuda)
+    float(step(state, x, y)[1])  # build and warm outside the window
+    tw = TraceWindow(str(tmp_path / "prof"), start=1, n_steps=2)
+    for i in range(4):
+        tw.on_step(i)
+        with annotate_step("train", i):
+            float(step(state, x, y)[1])
+        tw.after_step(i + 1)
+    with open(tw.trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    k2 = [sum(f"relu_pool2_{d}" in k for k in kernels) for d in ("fwd", "bwd")]
+    assert k2 == [6, 6], kernels
+    # the host's ranges: the trace mirrors each on the GPU's timeline too
+    assert sorted(e["name"] for e in events if e.get("cat") == "user_annotation"
+                  and e["name"].startswith("train#")) == ["train#1", "train#2"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["fsdp", "tp"])
+def test_one_rank_nccl_sharded_resume_is_bit_for_bit(cuda, tmp_path, mode):
+    """``train_lm --mode fsdp|tp`` on a one-rank NCCL world at test widths
+    (bf16, the flash kernels, the split backward, which repeats bit for
+    bit): 4 steps against 2, a sharded checkpoint and 2 resumed steps, the
+    losses and the step-4 global trees equal."""
+    from distributed_ml_pytorch_tpu_torch.runtime.mesh import run_threaded
+    from distributed_ml_pytorch_tpu_torch.training import train_lm
+    from distributed_ml_pytorch_tpu_torch.utils.checkpoint import STATE_FILE
+
+    base = ["--mode", mode, "--world-size", "1", "--vocab", "256", "--d-model", "128",
+            "--n-heads", "2", "--n-layers", "2", "--d-ff", "256", "--seq", "256",
+            "--batch", "4", "--dtype", "bfloat16", "--ckpt-every", "2"]
+
+    def train(*argv):
+        return run_threaded(1, lambda w: train_lm.run(train_lm.parse_args([*base, *argv]),
+                                                      attn_fn=_split_attention()),
+                            backend="nccl", device="cuda", timeout_s=300.0)[0]
+
+    whole, cut = str(tmp_path / "whole"), str(tmp_path / "cut")
+    full = train("--steps", "4", "--ckpt-dir", whole)
+    train("--steps", "2", "--ckpt-dir", cut)
+    resumed = train("--steps", "2", "--ckpt-dir", cut, "--resume")
+    assert resumed.start_step == 2 and resumed.losses == full.losses[2:]
+    a, b = (torch.load(os.path.join(d, "4", STATE_FILE), weights_only=True)
+            for d in (whole, cut))
+    assert a["mode"] == mode and sorted(a["params"]) == sorted(b["params"])
+    assert all(torch.equal(a["params"][k], b["params"][k]) for k in a["params"])

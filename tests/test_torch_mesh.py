@@ -142,7 +142,8 @@ def test_bench_all_mesh_legs_emit_the_jax_metric_names(capsys):
 def test_mesh_phase_on_the_cpu(capsys):
     """``chip_smoke.py`` phase 26 rehearsed on the CPU at test widths: the
     one-rank world bit for bit, the two gloo processes within the phase's
-    tolerances, ``generate_tp``'s tokens equal to ``generate()``'s."""
+    tolerances, ``generate_tp``'s tokens equal to ``generate()``'s, and the
+    sharded checkpoints' resumes bit for bit."""
     import json
     import sys
 
@@ -154,6 +155,10 @@ def test_mesh_phase_on_the_cpu(capsys):
              if ln.startswith('{"phase"')]
     assert [ln["phase"] for ln in lines] == ["mesh_one_rank", "mesh_two_ranks_dp",
                                             "mesh_lm_fsdp", "mesh_lm_tp", "mesh_generate_tp",
-                                            "mesh"]
+                                            "mesh_sharded_resume", "mesh"]
     assert all(ln["ok"] for ln in lines) and not errors
+    resume = lines[5]["modes"]
+    assert sorted(resume) == ["fsdp", "tp"]
+    assert all(m["bit_equal"] and m["checkpoint_bytes"] > 0 and m["resumed_losses"]
+               == m["losses"][2:] for m in resume.values())
     assert launches == dict.fromkeys(launches, 0)  # the plain versions on the CPU

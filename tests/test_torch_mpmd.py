@@ -264,6 +264,9 @@ class _StubCoord:
     def stage_ready(self, *a, **k):
         pass
 
+    def join(self, *a, **k):
+        pass
+
     def snapshot_done(self, *a, **k):
         pass
 
@@ -377,17 +380,32 @@ def test_stage_restore_refuses_bad_state(tmp_path):
     _assert_params(fresh.params, srv.params, 0, 0)
 
 
-def test_recorder_and_obs_dir_are_refused():
-    """The flight recorder belongs to the observability plane (A 9), which
-    this package does not have yet: asking for it raises."""
+def test_recorder_and_obs_dir_are_refused(tmp_path):
+    """The flight recorder, refused until the observability plane was
+    ported, is taken: a stage with ``recorder=`` and ``obs_dir=`` attributes
+    its serve loop's wall clock to exclusive states (here, before any
+    placement, all ``idle``) and dumps its ring at its stop, which both
+    packages' timeline analyzers read alike; the driver keeps both. A bad
+    ``act_codec`` is still refused."""
+    from distributed_ml_pytorch_tpu.analysis import timeline as jtimeline
+    from distributed_ml_pytorch_tpu_torch.analysis import timeline
+    from distributed_ml_pytorch_tpu_torch.utils.obs import SpanRecorder
+
     cfg = PipelineLMConfig(**small_cfg(2))
     world = InProcessTransport.create_world(3)
-    for kw in (dict(recorder=object()), dict(obs_dir="obs")):
-        with pytest.raises(ValueError, match="A 9"):
-            mpmd.MpmdStage(0, cfg, 2, 1, world[1], _StubCoord(), mb_size=1, seq_len=8,
-                           device="cpu", **kw)
-        with pytest.raises(ValueError, match="A 9"):
-            mpmd.MpmdDriver(world[0], _StubCoord(), 2, 1, **kw)
+    obs_dir = str(tmp_path / "obs")
+    rec = SpanRecorder("stage0", "mpmd")
+    srv = mpmd.MpmdStage(0, cfg, 2, 1, world[1], _StubCoord(), mb_size=1, seq_len=8,
+                         device="cpu", recorder=rec, obs_dir=obs_dir)
+    srv.run(timeout=0.2)
+    assert sorted(os.listdir(obs_dir)) == ["flight_stage0_stop.jsonl"]
+    report = timeline.analyze(obs_dir)
+    assert report == {**jtimeline.analyze(obs_dir), "dump_dir": obs_dir}
+    (member,) = report["members"]
+    assert member["member"] == "stage0" and set(member["seconds"]) == {"idle"}
+    assert abs(member["accounted"] - 1.0) < 1e-3
+    drv = mpmd.MpmdDriver(world[0], _StubCoord(), 2, 1, recorder=rec, obs_dir=obs_dir)
+    assert (drv.recorder, drv.obs_dir) == (rec, obs_dir)
     with pytest.raises(ValueError, match="act_codec"):
         mpmd.MpmdStage(0, cfg, 2, 1, world[1], _StubCoord(), mb_size=1, seq_len=8,
                        act_codec="topk", device="cpu")
@@ -515,7 +533,8 @@ def test_chip_smoke_phase_28_rehearses_on_the_cpu(monkeypatch, capsys):
     ``ops.attention``'s CUDA wrappers routed to their plain versions and
     counting a launch where the kernel would launch (under a lock: the
     stages are threads): every part's gate holds, the fault-free fleet's
-    counts are the schedule's, and ``coord.cli --mpmd`` exits 0."""
+    counts are the schedule's with the flight recorders on, its bubble's
+    attribution sums to 1, and ``coord.cli --mpmd`` exits 0."""
     import json
     import sys
     import threading
@@ -549,6 +568,11 @@ def test_chip_smoke_phase_28_rehearses_on_the_cpu(monkeypatch, capsys):
         cfg, cs.TINY_MPMD["steps"])
     assert launches["flash_fwd"] == (3 * 2 + 1) * 1 * 4 * 4
     assert errors == {}
+    # the flight recorders' attribution of the fleet's bubble (they add no
+    # launch: the counts above are the schedule's)
+    attr = lines["mpmd_fleet"]["bubble_attribution"]
+    assert attr["stages"] == 4 and abs(lines["mpmd_fleet"]["attribution_sum"] - 1) <= 0.02
+    assert set(lines["mpmd_fleet"]["members"]) == {f"stage{i}" for i in range(4)}
     assert lines["mpmd_stage_death"]["stage_mttr_ms"] > 0
     assert "'ok': True" in lines["mpmd_cli"]["summary"]
     build = os.path.join(cs.ROOT, "build")

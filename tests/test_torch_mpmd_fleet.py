@@ -205,11 +205,14 @@ def test_mpmd_speculation_standby_takeover():
 def test_mpmd_leg_on_cpu_emits_the_jax_metric_names(capsys):
     """``bench_all --legs mpmd --tiny`` on the CPU: the JAX ``mpmd_phase``'s
     metric names and units in order, positive values, the applied
-    accounting in the MTTR's note, and no ``bubble_attribution`` (the
-    flight recorder's timeline, not in this package yet). At ``--tiny`` the
-    window after the death is too short to rate."""
+    accounting in the MTTR's note, and the bubble fraction's
+    ``bubble_attribution`` from the flight recorders' timeline, which the
+    JAX ``check_bubble_attribution`` accepts too (its fractions sum to 1
+    within 0.02). At ``--tiny`` the window after the death is too short to
+    rate."""
     import json
     import os
+    import sys
 
     from distributed_ml_pytorch_tpu_torch import bench_all
 
@@ -223,9 +226,16 @@ def test_mpmd_leg_on_cpu_emits_the_jax_metric_names(capsys):
     assert all(r["config"] == 3 and r["value"] > 0
                and r["hardware"] == "in-process fleet, CPU" for r in recs)
     assert "applied accounting OK" in recs[2]["note"]
-    assert "bubble_attribution" not in recs[1]
-    assert "window after too short" in cap.out + cap.err
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    try:
+        import bench_all as jax_bench
+    finally:
+        sys.path.remove(root)
+    attr = recs[1]["bubble_attribution"]
+    assert bench_all.check_bubble_attribution(attr) == jax_bench.check_bubble_attribution(attr)
+    assert attr["stages"] == 4 and abs(sum(attr["fractions"].values()) - 1.0) <= 0.02
+    assert "window after too short" in cap.out + cap.err
     with open(os.path.join(root, "bench_all.py")) as fh:
         jax_src = fh.read()
     for r in recs:

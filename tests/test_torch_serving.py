@@ -319,5 +319,35 @@ def test_pool_guards_and_cache_helpers(lm):
 
 
 def test_engine_rejects_the_flight_recorder(lm):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        make_engine(lm[2], recorder=object())
+    """The engine's ``recorder=``, refused until the observability plane
+    was ported, records what the JAX engine's does on the same requests:
+    the submit events, one prefill span per request under its correlation
+    id (its id, slot and bucket) and the decode blocks; the tokens are the
+    same with it as without it."""
+    from distributed_ml_pytorch_tpu.utils.obs import SpanRecorder as JRec
+    from distributed_ml_pytorch_tpu_torch.utils.obs import SpanRecorder
+
+    jlm, params, model = lm
+    prompts = [np.arange(3, 8, dtype=np.int32), np.arange(10, 13, dtype=np.int32)]
+    rec, jrec = SpanRecorder("engine", "serving"), JRec("engine", "serving")
+    eng = make_engine(model, recorder=rec)
+    jeng = JEngine(jlm, params, slots=3, cache_size=96, decode_block=4, prefill_bucket=8,
+                   recorder=jrec)
+    plain = make_engine(model)
+    got = []
+    for e in (eng, jeng, plain):
+        reqs = [e.submit(p, 6) for p in prompts]
+        e.run_until_idle()
+        got.append([r.tokens for r in reqs])
+    assert got[0] == got[2]
+
+    def summary(r):
+        spans = r.snapshot()
+        prefill = [(s["meta"]["id"], s["meta"]["slot"], s["meta"]["bucket"], s["corr"] != 0)
+                   for s in spans if s["name"] == "prefill"]
+        submits = [(s["meta"]["id"], s["meta"]["prompt_len"]) for s in spans
+                   if s["name"] == "submit"]
+        return prefill, submits, sorted({(s["name"], s["state"]) for s in spans})
+
+    assert summary(rec) == summary(jrec)
+    assert rec.dropped == 0 and rec.total == len(rec.snapshot())

@@ -383,6 +383,146 @@ def test_a_receiver_behind_a_full_park_still_takes_in_its_acks():
             t.detach()
 
 
+
+#: a lagging durable server (the card's int8 + Adasum server took 75-110 ms
+#: a push): the apply's time, and each worker's offered pushes a second and
+#: count, scaled up together until the fault showed on an 8-core host
+LAG_APPLY_S = 0.15
+LAG_PUSHES_PER_S = 30
+LAG_PUSHES = 12
+
+
+def test_a_lagging_durable_server_narrows_its_senders_windows(tmp_path):
+    """Two workers offer more pushes than a durable server applies (each
+    apply 0.15 s, each worker 30 pushes a second, after a pull) on a
+    loss-free in-process wire with the 1 s timeout floor. Before the
+    repair the server's WAL group filled to 8 pushes behind the lagging
+    apply, 1.2 s, and its acks came past the floor: the workers
+    retransmitted and the server dropped duplicates. Now the credit the
+    server advertises is what it applies within a quarter of the floor,
+    sent as soon as it binds, and a held ack that has waited that long closes
+    the group: every push is acked once, on its first copy, the longest
+    within the floor, and each is applied once."""
+    from distributed_ml_pytorch_tpu_torch.parallel.async_ps import ParameterServer
+
+    MessageCode = tmsg.MessageCode
+
+    class LaggingServer(ParameterServer):
+        def handle(self, sender, code, payload):
+            if code == MessageCode.GradientUpdate:
+                time.sleep(LAG_APPLY_S)
+            super().handle(sender, code, payload)
+
+    world = tmsg.InProcessTransport.create_world(3)
+    server_t = tmsg.ReliableTransport(world[0], ack_on_delivery=False)
+    workers = [tmsg.ReliableTransport(world[r]) for r in (1, 2)]
+    server = LaggingServer(params=np.zeros(16, np.float32), transport=server_t, n_workers=2,
+                           ckpt_dir=str(tmp_path / "ps"), wal=True)
+    serve = threading.Thread(target=server.run, kwargs={"timeout": 60})
+
+    def offer(t):
+        t.send(MessageCode.ParameterRequest, np.zeros(1, np.float32))
+        for _ in range(LAG_PUSHES):
+            t0 = time.monotonic()
+            t.send(MessageCode.GradientUpdate, np.full(16, 1e-3, np.float32))
+            time.sleep(max(0.0, 1.0 / LAG_PUSHES_PER_S - (time.monotonic() - t0)))
+        assert t.flush(timeout=30), t.stats
+        t.send(MessageCode.WorkerDone, np.zeros(1, np.float32))
+
+    offers = [threading.Thread(target=offer, args=(t,)) for t in workers]
+    try:
+        serve.start()
+        for th in offers:
+            th.start()
+        for th in offers:
+            th.join(timeout=60)
+        serve.join(timeout=60)
+        assert not serve.is_alive()
+        waits = [t.max_ack_wait for t in workers]
+        assert server.applied_by_sender == {1: LAG_PUSHES, 2: LAG_PUSHES}
+        assert server_t.stats["dup_dropped"] == 0, (server_t.stats, waits)
+        for t in workers:
+            assert t.stats["rto_expired"] == 0 and t.stats["retries"] == 0, (t.stats, waits)
+            assert t.acked_count(0, MessageCode.GradientUpdate) == LAG_PUSHES
+            assert t.max_ack_wait < t.ack_timeout
+        # the credit bound: each worker blocked at its narrowed window, which
+        # is not the full send window (the gray plane's partition witness)
+        assert all(t.stats["credit_blocked"] > 0 and t.stats["window_blocked"] == 0
+                   for t in workers)
+    finally:
+        for t in (*workers, server_t):
+            t.detach()
+        if server.wal is not None:
+            server.wal.close()
+
+
+def test_a_frame_served_slowly_narrows_the_credit_while_it_is_served():
+    """After a pull it serves at once, a durable receiver's application
+    takes a push and is slow with it (0.3 s, more than the quarter of the
+    1 s floor that the frames queued behind it may take): while the
+    application still holds it, with three more pushes waiting, the
+    receiver cuts its sender's credit to nothing and sends the cut at
+    once. Its only measured time a frame was the pull's: a bound that
+    waited for the slow frame's end would let a sender queue its whole
+    window behind it."""
+    MessageCode = tmsg.MessageCode
+    world = tmsg.InProcessTransport.create_world(2)
+    rx = tmsg.ReliableTransport(world[0], ack_on_delivery=False)
+    tx = tmsg.ReliableTransport(world[1])
+    try:
+        tx.send(MessageCode.ParameterRequest, np.zeros(1, np.float32), dst=0)
+        for _ in range(4):
+            tx.send(MessageCode.GradientUpdate, np.full(4, 1e-3, np.float32), dst=0)
+        assert rx.recv(timeout=5)[1] == MessageCode.ParameterRequest  # served at once
+        assert rx.recv(timeout=5)[1] == MessageCode.GradientUpdate
+        deadline = time.monotonic() + 5
+        while rx.stats["delivered"] < 5 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert rx.stats["delivered"] == 5, rx.stats
+        time.sleep(0.3)  # the application still holds the first push
+        deadline = time.monotonic() + 1
+        while tx._peers[0].credit != 0 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert tx._peers[0].credit == 0, (tx._peers[0].credit, rx.stats)
+        # only the pull is acked: every push's ack waits for the log
+        assert tx.stats["acked"] == 1, tx.stats
+    finally:
+        for t in (tx, rx):
+            t.detach()
+
+
+def test_a_code_not_served_before_is_taken_one_frame_at_a_time():
+    """A durable receiver's application has served a pull (its only
+    measured time a frame, a few microseconds) and takes its first push,
+    with a second push waiting: until that push's time is known the
+    receiver's credit is nothing, however short the pull was. A bound
+    from the pull's time let the card's workers queue three pushes each
+    behind the first one (75-110 ms apiece) before the cut arrived."""
+    MessageCode = tmsg.MessageCode
+    world = tmsg.InProcessTransport.create_world(2)
+    rx = tmsg.ReliableTransport(world[0], ack_on_delivery=False)
+    tx = tmsg.ReliableTransport(world[1])
+    try:
+        tx.send(MessageCode.ParameterRequest, np.zeros(1, np.float32), dst=0)
+        for _ in range(2):
+            tx.send(MessageCode.GradientUpdate, np.full(4, 1e-3, np.float32), dst=0)
+        deadline = time.monotonic() + 5
+        while rx.stats["delivered"] < 3 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert rx.stats["delivered"] == 3, rx.stats
+        assert rx.recv(timeout=5)[1] == MessageCode.ParameterRequest
+        assert rx.recv(timeout=5)[1] == MessageCode.GradientUpdate
+        with rx._lock:
+            assert rx._credit_for(1) == 0
+        deadline = time.monotonic() + 1
+        while tx._peers[0].credit != 0 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert tx._peers[0].credit == 0, (tx._peers[0].credit, rx.stats)
+    finally:
+        for t in (tx, rx):
+            t.detach()
+
+
 # ------------------------------------------------- same-second incarnations
 
 def _messaging(pkg):
